@@ -1,0 +1,110 @@
+// Shared device helpers for the hand-written attention kernels.
+#pragma once
+
+#include <cfloat>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace fat {
+
+// Finite large-negative logit for masked entries (same constant as
+// ops/common.py::MASK_VALUE): a masked-minus-max difference never forms
+// -inf - -inf, so no NaN can enter the running statistics.
+constexpr float kMaskValue = -0.7f * FLT_MAX;
+constexpr float kLn2 = 0.69314718055994531f;
+
+// Element types the kernels take; the Python wrappers pass these codes.
+enum DType : int { kF32 = 0, kBF16 = 1 };
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// P as the P.V product consumes it: rounded to the input dtype, as the TPU
+// kernels feed the MXU (bf16 P for bf16 inputs, f32 P for f32 inputs). The
+// softmax row sum l keeps the unrounded P.
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
+// Widen one 16-byte chunk (4 floats or 8 bf16, in memory order) to fp32.
+template <typename T> __device__ __forceinline__ void widen16(const uint4& raw, float* out);
+template <> __device__ __forceinline__ void widen16<float>(const uint4& raw, float* out) {
+  out[0] = __uint_as_float(raw.x);
+  out[1] = __uint_as_float(raw.y);
+  out[2] = __uint_as_float(raw.z);
+  out[3] = __uint_as_float(raw.w);
+}
+template <> __device__ __forceinline__ void widen16<__nv_bfloat16>(const uint4& raw, float* out) {
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // element 2i is the low half of word i
+    out[2 * i] = __uint_as_float(w[i] << 16);
+    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// Copy a contiguous [kRows][D] tile from global memory (16-byte aligned)
+// into shared memory as fp32 times `scale`, with row stride `ld`; rows at or
+// past n_rows are zero-filled and never read. Each thread issues all of its
+// 16-byte loads before it stores any, so their latencies overlap instead of
+// adding up.
+template <typename T, int kRows, int D, int kThreads>
+__device__ __forceinline__ void load_tile(const T* __restrict__ src, int n_rows,
+                                          float* __restrict__ dst, int ld,
+                                          float scale = 1.f) {
+  constexpr int kElems = 16 / sizeof(T);
+  constexpr int kChunksPerRow = D / kElems;
+  constexpr int kChunks = kRows * kChunksPerRow;
+  constexpr int kPerThread = (kChunks + kThreads - 1) / kThreads;
+  static_assert(D % kElems == 0, "rows must be whole 16-byte chunks");
+  uint4 raw[kPerThread];
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const int c = threadIdx.x + j * kThreads;
+    raw[j] = make_uint4(0u, 0u, 0u, 0u);
+    if (c < kChunks && c / kChunksPerRow < n_rows)
+      raw[j] = __ldg(reinterpret_cast<const uint4*>(src) + c);
+  }
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const int c = threadIdx.x + j * kThreads;
+    if (c < kChunks) {
+      float f[kElems];
+      widen16<T>(raw[j], f);
+      float* row = dst + (c / kChunksPerRow) * ld + (c % kChunksPerRow) * kElems;
+#pragma unroll
+      for (int e = 0; e < kElems; ++e) row[e] = f[e] * scale;
+    }
+  }
+}
+
+// Let a kernel ask for up to the device's opt-in maximum of dynamic shared
+// memory (above 48 KB needs this). Set once per kernel, so that launches
+// captured into a CUDA graph make no attribute call.
+template <auto Kernel>
+inline cudaError_t allow_max_smem() {
+  static const cudaError_t err = [] {
+    int dev = 0, bytes = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    return e;
+  }();
+  return err;
+}
+
+}  // namespace fat
+
+// Message of a CUDA error code, for the Python wrappers' exceptions.
+extern "C" const char* error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,108 @@
+"""Model configs (counterpart of flashattn_tpu/models/config.py).
+
+``ModelConfig`` keeps every field of the JAX config so that a config moves
+between the packages unchanged; ``dtype`` is a torch dtype. The port runs
+the dense Llama path; ``check_supported`` rejects the fields whose port is
+still queued.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from flashattn_tpu_torch.ops.common import unported
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 2048
+    intermediate_size: int = 5632
+    num_layers: int = 22
+    num_heads: int = 32
+    num_kv_heads: int = 4
+    head_dim: int = 64
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
+    tie_embeddings: bool = False
+    max_seq_len: int = 4096
+    attn_window: int | None = None
+    num_experts: int = 0
+    top_k_experts: int = 2
+    moe_dispatch: str = "a2a"
+    moe_capacity_factor: float = 2.0
+    moe_norm_topk: bool = True
+    moe_shared_intermediate: int = 0
+    logit_softcap: float | None = None
+    use_alibi: bool = False
+    attn_sink: int = 0
+    attn_bias: bool = False
+    window_pattern: str | None = None
+    final_logit_softcap: float | None = None
+    mlp_activation: str = "silu"  # or "gelu_tanh"
+    use_post_norms: bool = False
+    scale_embeddings: bool = False
+    attn_scale: float | None = None
+    norm_offset: float = 0.0
+    qk_norm: bool = False
+    rope_scaling: tuple[float, float, float, int] | None = None
+    rope_longrope: tuple | None = None
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.num_heads // self.num_kv_heads
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for a config field whose port is queued."""
+    if cfg.attn_window is not None or cfg.window_pattern is not None:
+        raise unported("sliding-window attention", "A4 and A5")
+    if cfg.attn_sink:
+        raise unported("attention sinks", "A5")
+    if cfg.logit_softcap:
+        raise unported("attention logit soft-capping", "A4 and A5")
+    if cfg.use_alibi:
+        raise unported("ALiBi", "A4 and A5")
+    if cfg.qk_norm:
+        raise unported("q/k RMSNorm", "A8")
+    if cfg.attn_bias:
+        raise unported("attention biases", "A8")
+    if cfg.use_post_norms:
+        raise unported("post-norms", "A8")
+    if cfg.num_experts:
+        raise unported("mixture-of-experts FFN", "A9")
+    if cfg.rope_scaling is not None:
+        raise unported("rope_scaling", "A8")
+    if cfg.rope_longrope is not None:
+        raise unported("rope_longrope", "A8")
+    if cfg.mlp_activation not in ("silu", "gelu_tanh"):
+        raise ValueError(f"unknown mlp_activation {cfg.mlp_activation!r}")
+
+
+# TinyLlama-1.1B-like geometry, the serving path's model.
+LLAMA_1B = ModelConfig()
+
+# ~150M draft-model geometry (same vocab family as LLAMA_1B).
+LLAMA_150M = ModelConfig(
+    hidden_size=1024,
+    intermediate_size=2816,
+    num_layers=8,
+    num_heads=16,
+    num_kv_heads=4,
+    head_dim=64,
+)
+
+# Tiny config for tests.
+TINY = ModelConfig(
+    vocab_size=512,
+    hidden_size=256,
+    intermediate_size=512,
+    num_layers=2,
+    num_heads=8,
+    num_kv_heads=4,
+    head_dim=32,
+    max_seq_len=512,
+)

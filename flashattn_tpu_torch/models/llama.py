@@ -1,0 +1,163 @@
+"""Llama-style decoder (counterpart of flashattn_tpu/models/llama.py).
+
+The parameters keep the JAX package's names and its [in, out] layout
+(``x @ w``), so a JAX parameter tree converts with a plain copy
+(models/convert.py). Attention runs the port's kernels; every other piece is
+plain PyTorch.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from flashattn_tpu_torch.models.config import ModelConfig, check_supported
+
+
+class LlamaLayer(nn.Module):
+    """One decoder block's parameters."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        h, hd = cfg.hidden_size, cfg.head_dim
+        nq, nkv, f = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
+
+        def param(*shape):
+            return nn.Parameter(torch.empty(shape, dtype=cfg.dtype, device=device))
+
+        self.attn_norm = param(h)
+        self.wq = param(h, nq * hd)
+        self.wk = param(h, nkv * hd)
+        self.wv = param(h, nkv * hd)
+        self.wo = param(nq * hd, h)
+        self.mlp_norm = param(h)
+        self.w_gate = param(h, f)
+        self.w_up = param(h, f)
+        self.w_down = param(f, h)
+
+
+class Llama(nn.Module):
+    """Parameters of the dense decoder: ``embed``, ``final_norm``,
+    ``lm_head`` (untied configs) and ``layers.{i}.{wq, wk, ...}``.
+
+    The computation lives in the functions of this module and in
+    models/generate.py, as in the JAX package."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        h = cfg.hidden_size
+        self.embed = nn.Parameter(
+            torch.empty(cfg.vocab_size, h, dtype=cfg.dtype, device=device))
+        self.final_norm = nn.Parameter(torch.empty(h, dtype=cfg.dtype, device=device))
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(
+                torch.empty(h, cfg.vocab_size, dtype=cfg.dtype, device=device))
+        self.layers = nn.ModuleList(
+            LlamaLayer(cfg, device) for _ in range(cfg.num_layers))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+@torch.no_grad()
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> Llama:
+    """A model with random weights: normal draws scaled by fan-in**-0.5 in
+    float32, cast to cfg.dtype; norms start at the identity. `generator`
+    must live on `device` (torch draws on the generator's device)."""
+    model = Llama(cfg, device)
+
+    def dense(p: nn.Parameter, fan_in: int) -> None:
+        x = torch.randn(p.shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        p.copy_(x * fan_in**-0.5)
+
+    h = cfg.hidden_size
+    dense(model.embed, h)
+    model.final_norm.fill_(1.0 - cfg.norm_offset)
+    if not cfg.tie_embeddings:
+        dense(model.lm_head, h)
+    for layer in model.layers:
+        layer.attn_norm.fill_(1.0 - cfg.norm_offset)
+        layer.mlp_norm.fill_(1.0 - cfg.norm_offset)
+        dense(layer.wq, h)
+        dense(layer.wk, h)
+        dense(layer.wv, h)
+        dense(layer.wo, cfg.num_heads * cfg.head_dim)
+        dense(layer.w_gate, h)
+        dense(layer.w_up, h)
+        dense(layer.w_down, cfg.intermediate_size)
+    return model
+
+
+def proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w with w in [in, out] layout (cuBLAS on the card, as the JAX
+    package leaves its dense projections to XLA)."""
+    return torch.matmul(x, w)
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float,
+             offset: float = 0.0) -> torch.Tensor:
+    xf = x.float()
+    normed = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
+    if offset:
+        return ((offset + w.float()) * normed).to(x.dtype)
+    return normed.to(x.dtype) * w
+
+
+def embed_tokens(model: Llama, tokens: torch.Tensor) -> torch.Tensor:
+    cfg = model.cfg
+    x = F.embedding(tokens, model.embed)
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(cfg.hidden_size**0.5, dtype=x.dtype)
+    return x
+
+
+def lm_logits(x: torch.Tensor, model: Llama) -> torch.Tensor:
+    """Final norm -> head -> optional final soft-cap; float32 logits.
+
+    The head product runs in the model's dtype and is cast afterwards, so
+    bf16 models carry bf16-rounded logits."""
+    cfg = model.cfg
+    x = rms_norm(x, model.final_norm, cfg.norm_eps, cfg.norm_offset)
+    head = model.embed.t() if cfg.tie_embeddings else model.lm_head
+    logits = proj(x, head).float()
+    if cfg.final_logit_softcap:
+        cap = cfg.final_logit_softcap
+        logits = torch.tanh(logits / cap) * cap
+    return logits
+
+
+def rope_tables(cfg: ModelConfig, positions: torch.Tensor):
+    """positions [..., S] -> (cos, sin) [..., S, head_dim/2] float32."""
+    half = cfg.head_dim // 2
+    exponent = -torch.arange(half, dtype=torch.float32,
+                             device=positions.device) / half
+    theta = torch.tensor(cfg.rope_theta, dtype=torch.float32, device=positions.device)
+    freqs = torch.pow(theta, exponent)
+    angles = positions[..., None].float() * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x [B, H, S, D]; cos/sin [S, D/2] or [B, S, D/2]. Rotate-half."""
+    half = x.shape[-1] // 2
+    if cos.dim() == 2:
+        cos_b, sin_b = cos[None, None], sin[None, None]
+    else:
+        cos_b, sin_b = cos[:, None], sin[:, None]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos_b - x2 * sin_b, x2 * cos_b + x1 * sin_b], dim=-1)
+    return out.to(x.dtype)
+
+
+def _mlp_block(layer: LlamaLayer, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    xn = rms_norm(x, layer.mlp_norm, cfg.norm_eps, cfg.norm_offset)
+    gate = proj(xn, layer.w_gate).float()
+    act = (F.gelu(gate, approximate="tanh") if cfg.mlp_activation == "gelu_tanh"
+           else F.silu(gate))
+    return proj(act.to(x.dtype) * proj(xn, layer.w_up), layer.w_down)

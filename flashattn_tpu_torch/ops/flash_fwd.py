@@ -1,0 +1,133 @@
+"""Flash-attention forward (counterpart of flashattn_tpu/ops/flash_fwd.py).
+
+``flash_attention_forward`` launches kernel K1 (csrc/flash_fwd.cu) on CUDA
+tensors. It serves what the JAX package splits between the wavefront kernel
+(flash_fwd.py::_fwd_kernel) and the grid4 kernel
+(flash_fwd_grid4.py::_grid4_kernel): both compute one function on the plain
+subset, and the port has one grid for it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from flashattn_tpu_torch.ops import _build
+from flashattn_tpu_torch.ops.common import LOG2E, unported
+from flashattn_tpu_torch.ops.reference import reference_attention_with_lse
+
+# Kernel launches in this process (set to 0 by callers that count a run).
+LAUNCHES = 0
+
+HEAD_DIMS = (64, 128)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_forward_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    is_causal: bool = False,
+    scale: float | None = None,
+    pos_offset: int | None = None,
+    need_lse: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Plain PyTorch version of K1, on any device."""
+    o, lse = reference_attention_with_lse(q, k, v, is_causal, scale, pos_offset)
+    return o, (lse if need_lse else None)
+
+
+def _check_inputs(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("expected [B, H, S, D] tensors")
+    if k.shape != v.shape:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
+    b, hq, _, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
+    if hq % k.shape[1]:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={k.shape[1]}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must be on one device")
+
+
+def flash_attention_forward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    is_causal: bool = False,
+    scale: float | None = None,
+    pos_offset: int | None = None,
+    need_lse: bool = True,
+    *,
+    segment_ids=None,
+    dropout_rate: float = 0.0,
+    window: int | None = None,
+    logit_softcap: float | None = None,
+    alibi: bool = False,
+    dyn_pos_offset=None,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Fused attention forward.
+
+    Args:
+      q: [B, Hq, S_q, D]; k, v: [B, Hkv, S_k, D] with Hkv dividing Hq.
+      is_causal: row r sees column c iff c <= r + pos_offset.
+      scale: softmax scale, default 1/sqrt(D).
+      pos_offset: q/k alignment, default S_k - S_q (bottom-right).
+      need_lse: also return the LSE; False skips writing it.
+
+    Returns:
+      (O [B, Hq, S_q, D] in q.dtype, LSE [B, Hq, S_q] float32 natural log or
+      None). Rows that see no key get O = 0 and LSE = -inf.
+
+    CPU tensors take the plain version. CUDA tensors launch K1 and must be
+    contiguous, 16-byte aligned bf16 or float32 with D in HEAD_DIMS;
+    anything else raises.
+    """
+    if segment_ids is not None:
+        raise unported("segment ids (varlen)", "A4")
+    if dropout_rate:
+        raise unported("attention dropout", "A4")
+    if window is not None:
+        raise unported("sliding-window attention", "A4")
+    if logit_softcap:
+        raise unported("logit soft-capping", "A4")
+    if alibi:
+        raise unported("ALiBi", "A4")
+    if dyn_pos_offset is not None:
+        raise unported("dyn_pos_offset", "A4")
+    _check_inputs(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_forward_reference(q, k, v, is_causal, scale,
+                                                 pos_offset, need_lse)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    b, hq, s_q, d = q.shape
+    hkv, s_k = k.shape[1], k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: need one of "
+                         f"{list(DTYPE_CODES)} for all three")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q, k and v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must start 16-byte aligned")
+    if scale is None:
+        scale = 1.0 / d**0.5
+    offset = s_k - s_q if pos_offset is None else int(pos_offset)
+
+    o = torch.empty_like(q)
+    lse = (torch.empty((b, hq, s_q), dtype=torch.float32, device=q.device)
+           if need_lse else None)
+    lib = _build.load("flash_fwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr() if need_lse else None,
+            b, hq, hkv, s_q, s_k, d, DTYPE_CODES[q.dtype], int(is_causal),
+            offset, scale * LOG2E, stream)
+    _build.check(lib, rc, "flash_fwd")
+    global LAUNCHES
+    LAUNCHES += 1
+    return o, lse

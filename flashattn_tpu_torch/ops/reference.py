@@ -1,0 +1,68 @@
+"""Plain PyTorch attention oracle (counterpart of flashattn_tpu/ops/reference.py).
+
+All math runs in float32 whatever the input dtype, so the oracle is a
+high-precision reference for bf16 kernel outputs.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def reference_attention_with_lse(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    is_causal: bool = False,
+    scale: float | None = None,
+    pos_offset: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Unfused attention returning (O, LSE).
+
+    Args:
+      q: [B, Hq, S_q, D]; k, v: [B, Hkv, S_k, D] with Hkv dividing Hq (GQA).
+      is_causal: query row i sees key column j iff j <= i + pos_offset.
+      scale: softmax scale, default 1/sqrt(D).
+      pos_offset: q/k alignment; defaults to S_k - S_q (bottom-right, the
+        JAX package's convention, not SDPA's top-left one).
+
+    Returns:
+      O [B, Hq, S_q, D] in q.dtype and LSE [B, Hq, S_q] float32 in natural
+      log. A row that sees no key gets O = 0 and LSE = -inf.
+    """
+    b, hq, s_q, d = q.shape
+    hkv, s_k = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    if scale is None:
+        scale = 1.0 / d**0.5
+    qf, kf, vf = q.float(), k.float(), v.float()
+    if hkv != hq:
+        kf = kf.repeat_interleave(hq // hkv, dim=1)
+        vf = vf.repeat_interleave(hq // hkv, dim=1)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if is_causal:
+        off = s_k - s_q if pos_offset is None else pos_offset
+        qi = torch.arange(s_q, device=q.device)[:, None]
+        kj = torch.arange(s_k, device=q.device)[None, :]
+        s = s.masked_fill(kj > qi + off, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m_safe)
+    l = p.sum(dim=-1, keepdim=True)
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    o = torch.matmul(p / l_safe, vf)
+    lse = (m_safe + torch.log(l))[..., 0]
+    return o.to(q.dtype), lse
+
+
+def reference_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    is_causal: bool = False,
+    scale: float | None = None,
+    pos_offset: int | None = None,
+) -> torch.Tensor:
+    """Unfused attention, O only."""
+    return reference_attention_with_lse(q, k, v, is_causal, scale, pos_offset)[0]

@@ -1,0 +1,84 @@
+"""Numerical verification (counterpart of flashattn_tpu/utils/verify.py).
+
+Same metrics and pass rule: allclose(rtol, atol) AND cosine > cos_threshold,
+computed in float32 on the host, with exactly-equal positions (matching
++-inf, e.g. LSE = -inf of rows that see no key) counted as zero error.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class VerifyReport:
+    passed: bool
+    allclose: bool
+    cosine: float
+    max_abs_err: float
+    mean_abs_err: float
+    max_rel_err: float
+    max_normalized_err: float
+
+    def __str__(self) -> str:
+        status = "PASS" if self.passed else "FAIL"
+        return (
+            f"[{status}] allclose={self.allclose} cos={self.cosine:.6f} "
+            f"max_abs={self.max_abs_err:.3e} mean_abs={self.mean_abs_err:.3e} "
+            f"max_rel={self.max_rel_err:.3e} max_norm={self.max_normalized_err:.3f}"
+        )
+
+
+def _to_f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+def verify_results(
+    reference,
+    output,
+    rtol: float = 1e-2,
+    atol: float = 1e-3,
+    cos_threshold: float = 0.999,
+    name: str = "",
+    verbose: bool = False,
+) -> VerifyReport:
+    """Compare `output` against `reference` (numpy arrays or torch tensors)."""
+    ref = _to_f32(reference)
+    out = _to_f32(output)
+    if ref.shape != out.shape:
+        raise ValueError(f"shape mismatch {ref.shape} vs {out.shape}")
+
+    eq = ref == out
+    ref = np.where(eq, 0.0, ref)
+    out = np.where(eq, 0.0, out)
+
+    abs_err = np.abs(out - ref)
+    max_abs = float(abs_err.max())
+    mean_abs = float(abs_err.mean())
+    max_rel = float((abs_err / (np.abs(ref) + 1e-5)).max())
+    max_norm = float((abs_err / (atol + rtol * np.abs(ref))).max())
+
+    denom = np.linalg.norm(ref.ravel()) * np.linalg.norm(out.ravel())
+    if denom == 0.0:
+        cosine = 1.0 if not abs_err.any() else 0.0
+    else:
+        cosine = float(np.dot(ref.ravel(), out.ravel()) / denom)
+
+    ok_allclose = bool(np.allclose(out, ref, rtol=rtol, atol=atol))
+    report = VerifyReport(
+        passed=ok_allclose and cosine > cos_threshold,
+        allclose=ok_allclose,
+        cosine=cosine,
+        max_abs_err=max_abs,
+        mean_abs_err=mean_abs,
+        max_rel_err=max_rel,
+        max_normalized_err=max_norm,
+    )
+    if verbose:
+        print(f"{name}: {report}")
+    return report

@@ -1,0 +1,169 @@
+"""Kernels K1 (flash forward) and K2 (flash-decode) on the card, against their
+plain PyTorch versions on the same CUDA tensors, at the edges the serving
+smoke run does not reach: float32 inputs, rows that see no key, an empty
+sequence, D=128, large GQA chunks, and the wrappers' refusals.
+
+These tests need a CUDA device and skip without one. On the card:
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+
+(--noconftest: tests/conftest.py configures JAX, which the card's machine
+does not need.) Tolerances: bf16 outputs atol 2e-2 (the repo's bf16 gate),
+float32 atol 1e-4 and rtol 1e-4 (exp2 against exp, fp32 sums in another
+order), LSE atol 1e-3.
+"""
+
+import pytest
+import torch
+
+from flashattn_tpu_torch.models import generate, llama
+from flashattn_tpu_torch.models.config import ModelConfig
+from flashattn_tpu_torch.ops import decode, flash_fwd, kvcache
+from flashattn_tpu_torch.utils.verify import verify_results
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.bfloat16: dict(atol=2e-2), torch.float32: dict(atol=1e-4, rtol=1e-4)}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def randn(shape, dtype, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, dtype=dtype, device=dev)
+
+
+FWD_CASES = {
+    # name: (B, Hq, Hkv, S_q, S_k, D, causal, pos_offset)
+    "no_key_rows": (1, 4, 2, 128, 128, 64, True, -70),
+    "sq_above_sk": (1, 4, 2, 200, 96, 64, True, None),
+    "gqa8_d128": (2, 8, 1, 300, 300, 128, True, None),
+    "ragged_noncausal": (1, 4, 4, 77, 333, 128, False, None),
+    "shifted_right": (1, 2, 1, 65, 65, 64, True, 30),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", sorted(FWD_CASES))
+def test_flash_fwd_kernel_matches_plain(dev, dtype, case):
+    b, hq, hkv, s_q, s_k, d, causal, off = FWD_CASES[case]
+    q = randn((b, hq, s_q, d), dtype, dev, 1)
+    k = randn((b, hkv, s_k, d), dtype, dev, 2)
+    v = randn((b, hkv, s_k, d), dtype, dev, 3)
+    before = flash_fwd.LAUNCHES
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, causal, pos_offset=off)
+    torch.cuda.synchronize()
+    assert flash_fwd.LAUNCHES == before + 1
+    o_ref, lse_ref = flash_fwd.flash_attention_forward_reference(
+        q, k, v, causal, pos_offset=off)
+    rep = verify_results(o_ref, o, **TOL[dtype])
+    assert rep.passed, f"O: {rep}"
+    rep = verify_results(lse_ref, lse, atol=1e-3)
+    assert rep.passed, f"LSE: {rep}"
+    if off is not None and off < 0:
+        dead = -off  # rows r < -off see no key
+        assert torch.equal(o[:, :, :dead], torch.zeros_like(o[:, :, :dead]))
+        assert bool(torch.isneginf(lse[:, :, :dead]).all())
+
+
+DECODE_CASES = {
+    # name: (Hq, Hkv, T, D, Smax, lengths)
+    "d128_t1": (8, 2, 1, 128, 512, [0, 1, 300, 512]),
+    "g8_t8_rows64": (16, 2, 8, 64, 1024, [8, 100, 1000, 1024]),
+    "mha_t3": (4, 4, 3, 64, 256, [3, 64, 65, 256]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_decode_kernel_matches_plain(dev, dtype, case):
+    hq, hkv, t, d, s_max, lengths = DECODE_CASES[case]
+    b = len(lengths)
+    cache = kvcache.KVCache(
+        k=randn((b, hkv, s_max, d), dtype, dev, 4),
+        v=randn((b, hkv, s_max, d), dtype, dev, 5),
+        length=torch.tensor(lengths, dtype=torch.int32, device=dev))
+    for i, n in enumerate(lengths):  # garbage past every length
+        cache.k[i, :, n:] = float("nan")
+        cache.v[i, :, n:] = float("nan")
+    q = randn((b, hq, t, d), dtype, dev, 6)
+    before = decode.LAUNCHES
+    o = decode.decode_attention_chunk(q, cache)
+    torch.cuda.synchronize()
+    assert decode.LAUNCHES == before + 1
+    assert bool(torch.isfinite(o).all())
+    ref = decode.decode_attention_reference(q, cache)
+    rep = verify_results(ref, o, **TOL[dtype])
+    assert rep.passed, rep
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert torch.equal(o[i], torch.zeros_like(o[i]))
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    q = randn((1, 4, 64, 64), torch.bfloat16, dev, 7)
+    k = randn((1, 2, 64, 64), torch.bfloat16, dev, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_fwd.flash_attention_forward(q.transpose(2, 3), k, k)
+    with pytest.raises(ValueError, match="dtypes"):
+        flash_fwd.flash_attention_forward(q, k.float(), k)
+    with pytest.raises(ValueError, match="dtypes"):
+        flash_fwd.flash_attention_forward(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_fwd.flash_attention_forward(q[..., :48].contiguous(),
+                                          k[..., :48].contiguous(),
+                                          k[..., :48].contiguous())
+    flat = torch.zeros(q.numel() + 1, dtype=q.dtype, device=dev)
+    with pytest.raises(ValueError, match="aligned"):  # contiguous, 2 bytes off
+        flash_fwd.flash_attention_forward(flat[1:].view(q.shape), k, k)
+    cache = kvcache.init_cache(1, 2, 128, 64, dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="cache"):
+        decode.decode_attention(q[:, :, 0], cache)  # bf16 q, f32 cache
+
+
+def test_update_cache_on_card_equals_cpu(dev):
+    b, hkv, s_max, d, t = 3, 2, 16, 8, 3
+    cpu = kvcache.KVCache(k=torch.randn(b, hkv, s_max, d),
+                          v=torch.randn(b, hkv, s_max, d),
+                          length=torch.tensor([2, 14, 9], dtype=torch.int32))
+    gpu = kvcache.KVCache(cpu.k.to(dev), cpu.v.to(dev), cpu.length.to(dev))
+    k_new, v_new = torch.randn(b, hkv, t, d), torch.randn(b, hkv, t, d)
+    active = torch.tensor([True, True, False])
+    kvcache.update_cache(cpu, k_new, v_new, active=active)
+    kvcache.update_cache(gpu, k_new.to(dev), v_new.to(dev), active=active.to(dev))
+    for name in ("k", "v", "length"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+
+
+def test_model_steps_on_card_match_cpu(dev):
+    """Prefill and decode steps of a small float32 model: kernels on the card
+    against the plain path on the CPU, same weights and tokens."""
+    cfg = ModelConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                      num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
+                      dtype=torch.float32)
+    cpu_model = llama.init_params(cfg, torch.Generator().manual_seed(0))
+    gpu_model = llama.Llama(cfg, dev)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    prompt = torch.randint(0, cfg.vocab_size, (2, 37),
+                           generator=torch.Generator().manual_seed(1))
+    outs = []
+    for model, d in ((cpu_model, "cpu"), (gpu_model, dev)):
+        caches = generate.init_caches(model, 2, 128)
+        logits, caches = generate.prefill(model, prompt.to(d), caches)
+        steps = [logits.cpu()]
+        for i in range(3):
+            token = torch.tensor([i + 1, i + 2], dtype=torch.int32, device=d)
+            pos = torch.full((2,), 37 + i, dtype=torch.int32, device=d)
+            logits, caches = generate.decode_step(model, token, pos, caches)
+            steps.append(logits.cpu())
+        outs.append(steps)
+    for i, (ref, out) in enumerate(zip(*outs)):
+        rep = verify_results(ref, out, atol=1e-3, rtol=1e-3)
+        assert rep.passed, f"step {i}: {rep}"
