@@ -1,21 +1,31 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from csrc/ (into build/flashattn_tpu_torch/) and runs
-four phases, printing one line per check:
+Builds the four CUDA libraries from csrc/ (into build/flashattn_tpu_torch/,
+one nvcc each, all at once) and runs six phases, printing one line per
+check:
 
 1. environment: torch/CUDA versions, the card's name and power limit, the
    kernels' build time and their compiler report;
-2. each kernel against its plain PyTorch version on the card, at the serving
-   path's shapes, with the tolerance printed beside each result, and both
-   timed with CUDA events;
+2. each kernel against its plain PyTorch version on the card, at the
+   serving and training paths' shapes and at their edges, with the
+   tolerance printed beside each result; kernel, plain version and the
+   PyTorch library call (SDPA, timed only, never used by the port) timed
+   on the card;
 3. LLAMA_1B at full width (random weights from a seed): prefill of a
    150-token prompt and 4 teacher-forced decode steps through the kernels,
    against the same run with every attention call on the plain version;
 4. the InferenceServer at LLAMA_1B width with 4 slots and max_len 2048 on 8
-   requests of 32 new tokens, counting the kernels' launches.
+   requests of 32 new tokens, counting the kernels' launches;
+5. one LLAMA_1B AdamW train step at B 4, S 2048 through the kernels (K1 and
+   the fused backward), against the same step on the plain route from the
+   same weights: loss, grad_norm and every parameter's gradient;
+6. train.train for 6 AdamW steps on one repeated batch with the
+   deterministic split backward selected by FLASHATTN_BWD_IMPL=split, the
+   loss falling; ms, tokens/s and peak memory per step.
 
 Any failed check raises: the script then exits nonzero and does not print
 its last line. It needs a CUDA device and never falls back to the CPU. The
@@ -26,27 +36,48 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
+import os
 import re
 import subprocess
 import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
-from flashattn_tpu_torch.models import generate
+from flashattn_tpu_torch.models import generate, llama, train
 from flashattn_tpu_torch.models.config import LLAMA_1B
 from flashattn_tpu_torch.models.llama import init_params
 from flashattn_tpu_torch.models.serve import InferenceServer, Request
-from flashattn_tpu_torch.ops import _build, decode, flash_fwd
+from flashattn_tpu_torch.ops import _build, decode, flash_bwd, flash_bwd_fused, flash_fwd
+from flashattn_tpu_torch.ops.attention import plain_flash_attention
 from flashattn_tpu_torch.ops.kvcache import KVCache
 from flashattn_tpu_torch.utils.timing import attention_flops, cuda_time_ms
 from flashattn_tpu_torch.utils.verify import verify_results
 
 SEED = 0
+LIBRARIES = ("flash_fwd", "decode", "flash_bwd", "flash_bwd_fused")
 O_ATOL = 2e-2  # bf16 outputs against the fp32 plain version
 LSE_ATOL = 1e-2
+GRAD_TOL = {  # gradients against the plain version on the same inputs
+    torch.bfloat16: dict(rtol=2e-2, atol=5e-2),  # the repo's bf16-gradient gate
+    # fp32 sums over up to 8 q heads in another order, and the fused
+    # kernel's dQ atomics in an order that changes between runs
+    torch.float32: dict(rtol=1e-4, atol=2e-4),
+}
 LOGIT_COS = 0.999
 LOGIT_REL = 0.05  # max |logit delta| <= LOGIT_REL * max |reference logit|
+# Train step, kernels against the plain route: bf16 activations through 22
+# layers, the two routes rounding at other places.
+LOSS_ATOL = 1e-2
+GRAD_COS = 0.99
+GRAD_NORM_REL = 0.02
+TRAIN_B, TRAIN_S = 4, 2048  # benchmarks/train_bench.py's default shape
+# The card's published peaks (H100 SXM data sheet, dense): the bound of a
+# kernel is the larger of its bytes over HBM and its operations over these.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
 def check(ok: bool, what: str) -> None:
@@ -66,11 +97,12 @@ def phase_environment() -> str:
     name = torch.cuda.get_device_name(0)
     print(f"[env] device {name} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    for lib in ("flash_fwd", "decode"):
+    _build.build_all(LIBRARIES)
+    for lib in LIBRARIES:
         _build.load(lib)
     print(f"[env] kernels built/loaded in {time.perf_counter() - t0:.2f} s "
           f"(compile s: {_build.BUILD_SECONDS})")
-    for lib in ("flash_fwd", "decode"):
+    for lib in LIBRARIES:
         log = _build.library_path(lib).with_suffix(".log")
         if not log.exists():  # loaded from an earlier build of another run
             continue
@@ -98,6 +130,44 @@ def kernel_label(mangled: str) -> str:
 def _gate(name: str, ref, out, atol: float) -> float:
     rep = verify_results(ref, out, atol=atol)
     print(f"[kernels] {name}: {rep} (atol={atol}, rtol=1e-2, cos>0.999)")
+    check(rep.passed, f"{name} disagrees with its plain version: {rep}")
+    return rep.max_abs_err
+
+
+def nbytes(*tensors: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, flops: float, dtype: torch.dtype) -> dict:
+    """The least time the card could take: the larger of the bytes over its
+    HBM rate and the operations over its peak rate for the inputs' type."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    if t_bytes >= t_ops:
+        return dict(bound_ms=t_bytes, bound_by="bytes")
+    return dict(bound_ms=t_ops, bound_by="operations")
+
+
+def event_time_ms(fn, warmup: int = 2, iters: int = 5) -> float:
+    """Milliseconds per eager call between CUDA events, for calls a CUDA
+    graph cannot capture (an autograd backward); the host's launch cost is
+    included, which is small beside the multi-millisecond calls timed so."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def grad_gate(name: str, ref, out, dtype: torch.dtype) -> float:
+    tol = GRAD_TOL[dtype]
+    rep = verify_results(ref, out, **tol)
+    print(f"[kernels] {name}: {rep} ({tol}, cos>0.999)")
     check(rep.passed, f"{name} disagrees with its plain version: {rep}")
     return rep.max_abs_err
 
@@ -168,6 +238,11 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
     tf = attention_flops(1, 32, s, s, 64, True) / (k1_ms * 1e-3) / 1e12
     print(f"[kernels] K1 B=1 Hq=32 Hkv=4 S={s} D=64 causal: kernel {k1_ms:.4f} ms "
           f"({tf:.3f} TFLOP/s), plain {k1_plain:.4f} ms")
+    k1_lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    k1_bound = bound(nbytes(q, k, v, q), attention_flops(1, 32, s, s, 64, True),
+                     torch.bfloat16)
+    print(f"[kernels] K1 bound {k1_bound}, SDPA forward {k1_lib:.4f} ms")
     qd = torch.randn((b, hq, d), generator=gen, **bf16)
     k2_ms = cuda_time_ms(lambda: decode.decode_attention(qd, cache))
     k2_plain = cuda_time_ms(lambda: decode.decode_attention_reference(qd[:, :, None], cache))
@@ -175,10 +250,118 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
     print(f"[kernels] K2 B={b} Hq={hq} Hkv={hkv} D={d} Smax={s_max} T=1 lengths={lengths}: "
           f"kernel {k2_ms:.4f} ms ({live_bytes / (k2_ms * 1e-3) / 1e9:.1f} GB/s of live "
           f"cache), plain {k2_plain:.4f} ms")
-    return {
-        "flash_fwd": dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain),
-        "decode": dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain),
+    # SDPA with a boolean length mask over the whole cache (rows past a
+    # length hold NaN, so its output is not looked at: it is timed only).
+    mask = (torch.arange(s_max, device=dev)[None] < cache.length[:, None])[:, None, None]
+    k2_lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qd[:, :, None], cache.k, cache.v, attn_mask=mask, enable_gqa=True))
+    k2_bound = bound(live_bytes + 2 * nbytes(qd) + nbytes(cache.length),
+                     4.0 * hq * d * sum(lengths), torch.bfloat16)
+    print(f"[kernels] K2 bound {k2_bound}, SDPA with a length mask {k2_lib:.4f} ms")
+    timed = {
+        "flash_fwd": dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain,
+                          library_ms=k1_lib, **k1_bound),
+        "decode": dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain,
+                       library_ms=k2_lib, **k2_bound),
     }
+    timed.update(backward_kernels(gen))
+    return timed
+
+
+BWD_CASES = [
+    # (tag, B, Hq, Hkv, S_q, S_k, D, causal, pos_offset, dtype)
+    ("training shape", TRAIN_B, 32, 4, TRAIN_S, TRAIN_S, 64, True, None, torch.bfloat16),
+    ("D=128 non-causal", 2, 8, 2, 512, 512, 128, False, None, torch.bfloat16),
+    ("Sq<Sk", 1, 32, 4, 256, 1024, 64, True, None, torch.bfloat16),
+    ("ragged S=200", 1, 32, 4, 200, 200, 64, True, None, torch.bfloat16),
+    ("no-key rows", 1, 8, 2, 256, 256, 64, True, -100, torch.bfloat16),
+    ("float32", 1, 8, 2, 256, 256, 64, True, None, torch.float32),
+]
+
+
+def backward_kernels(gen: torch.Generator) -> dict[str, dict]:
+    """B3's, B4's and B5's ports against flash_attention_backward_reference
+    on the same CUDA inputs (O and LSE from K1), then timed at the training
+    shape."""
+    err = {"flash_bwd_fused": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for tag, b, hq, hkv, s_q, s_k, d, causal, off, dtype in BWD_CASES:
+        kw = dict(dtype=dtype, device="cuda")
+        q = torch.randn((b, hq, s_q, d), generator=gen, **kw)
+        k = torch.randn((b, hkv, s_k, d), generator=gen, **kw)
+        v = torch.randn((b, hkv, s_k, d), generator=gen, **kw)
+        do = torch.randn((b, hq, s_q, d), generator=gen, **kw)
+        o, lse = flash_fwd.flash_attention_forward(q, k, v, causal, pos_offset=off)
+        ref = flash_bwd.flash_attention_backward_reference(q, k, v, o, do, lse, causal,
+                                                           pos_offset=off)
+        name = (f"B={b} Hq={hq} Hkv={hkv} Sq={s_q} Sk={s_k} D={d} causal={causal} "
+                f"pos_offset={off} {str(dtype)[6:]} ({tag})")
+        for impl in ("fused", "split"):
+            out = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, causal, impl=impl,
+                                                     pos_offset=off)
+            torch.cuda.synchronize()
+            for grad, r, g in zip(("dQ", "dK", "dV"), ref, out):
+                e = grad_gate(f"{impl} {grad} {name}", r, g, dtype)
+                kernel = ("flash_bwd_fused" if impl == "fused" else
+                          "flash_bwd_dq" if grad == "dQ" else "flash_bwd_dkv")
+                err[kernel] = max(err[kernel], e)
+            if off is not None and off < 0:
+                dq, dk, dv = out
+                unseen = s_q + off  # kv rows past the last row's bound
+                check(torch.equal(dq[:, :, :-off], torch.zeros_like(dq[:, :, :-off]))
+                      and torch.equal(dk[:, :, unseen:], torch.zeros_like(dk[:, :, unseen:]))
+                      and torch.equal(dv[:, :, unseen:], torch.zeros_like(dv[:, :, unseen:])),
+                      f"{impl} {name}: rows without keys are not exactly zero")
+                print(f"[kernels] {impl} {name}: dQ of the {-off} rows without keys and "
+                      f"dK/dV of the {s_k - unseen} kv rows no row sees are exactly 0")
+        if tag == "training shape":
+            first = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, causal, impl="split")
+            second = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, causal,
+                                                        impl="split")
+            check(all(torch.equal(x, y) for x, y in zip(first, second)),
+                  "split backward is not bitwise deterministic")
+            print(f"[kernels] split {name}: two runs bitwise equal (torch.equal on dQ, dK, dV)")
+            timing = (q, k, v, o, do, lse)
+    return dict(zip(err, ({"max_abs_err": e, **t} for e, t in
+                          zip(err.values(), time_backward(*timing)))))
+
+
+def time_backward(q, k, v, o, do, lse):
+    """Device ms of the three backward kernels, their plain version and SDPA's
+    backward (S_q = S_k, causal) at the training shape, with each bound."""
+    b, hq, s, d = q.shape
+    dtype = q.dtype
+    few = dict(warmup=1, iters=3, reps=3)
+    fused_ms = cuda_time_ms(lambda: flash_bwd_fused.flash_attention_backward_fused(
+        q, k, v, o, do, lse, True), **few)
+    dq_ms = cuda_time_ms(lambda: flash_bwd.flash_bwd_dq(q, k, v, o, do, lse, True), **few)
+    dq, delta = flash_bwd.flash_bwd_dq(q, k, v, o, do, lse, True)
+    dkv_ms = cuda_time_ms(lambda: flash_bwd.flash_bwd_dkv(q, k, v, do, lse, delta, True), **few)
+    plain_ms = cuda_time_ms(lambda: flash_bwd.flash_attention_backward_reference(
+        q, k, v, o, do, lse, True), warmup=1, iters=2, reps=3)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o_lib = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+    lib_ms = event_time_ms(lambda: torch.autograd.grad(o_lib, leaves, do, retain_graph=True))
+    k1_ms = cuda_time_ms(lambda: flash_fwd.flash_attention_forward(q, k, v, True), **few)
+    fwd = attention_flops(b, hq, s, s, d, True)
+    ins = nbytes(q, k, v, o, do, lse)
+    grads = nbytes(q, k, v)
+    rows = [  # kernel ms, bytes moved, operations (fwd FLOPs x matmul passes / 2)
+        (fused_ms, ins + grads, attention_flops(b, hq, s, s, d, True, "bwd")),
+        (dq_ms, ins + nbytes(q, delta), 1.5 * fwd),  # S, dP, dQ
+        (dkv_ms, ins - nbytes(o) + nbytes(delta, k, v), 2.0 * fwd),  # S, dP, dV, dK
+    ]
+    shape = f"B={b} Hq={hq} Hkv={k.shape[1]} S={s} D={d} causal {str(dtype)[6:]}"
+    out = []
+    for name, (ms, n_bytes, flops) in zip(("fused", "dq", "dkv"), rows):
+        lim = bound(n_bytes, flops, dtype)
+        print(f"[kernels] backward {name} {shape}: kernel {ms:.4f} ms "
+              f"({flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s), bound {lim['bound_ms']:.4f} ms "
+              f"by {lim['bound_by']}, plain backward {plain_ms:.4f} ms, SDPA backward "
+              f"{lib_ms:.4f} ms")
+        out.append(dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **lim))
+    print(f"[kernels] K1 with LSE {shape}: {k1_ms:.4f} ms "
+          f"({fwd / (k1_ms * 1e-3) / 1e12:.2f} TFLOP/s)")
+    return out
 
 
 @contextlib.contextmanager
@@ -245,8 +428,7 @@ def phase_server(model, gen: torch.Generator) -> dict[str, int]:
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen,
                              device="cuda").tolist() for n in lens]
     torch.cuda.synchronize()
-    flash_fwd.LAUNCHES = 0
-    decode.LAUNCHES = 0
+    reset_launches()
     t0 = time.perf_counter()
     for uid, p in enumerate(prompts):
         srv.submit(Request(uid=uid, prompt=p, max_new_tokens=n_new))
@@ -272,6 +454,123 @@ def phase_server(model, gen: torch.Generator) -> dict[str, int]:
     return launches
 
 
+def reset_launches() -> None:
+    flash_fwd.LAUNCHES = decode.LAUNCHES = flash_bwd_fused.LAUNCHES = 0
+    flash_bwd.DQ_LAUNCHES = flash_bwd.DKV_LAUNCHES = 0
+
+
+def read_launches() -> dict[str, int]:
+    return {"flash_fwd": flash_fwd.LAUNCHES, "decode": decode.LAUNCHES,
+            "flash_bwd_fused": flash_bwd_fused.LAUNCHES,
+            "flash_bwd_dq": flash_bwd.DQ_LAUNCHES, "flash_bwd_dkv": flash_bwd.DKV_LAUNCHES}
+
+
+@contextlib.contextmanager
+def plain_training_attention():
+    """Route the training forward's attention to the plain route (the same
+    autograd Function over the plain forward and backward)."""
+    saved = llama.flash_attention
+    llama.flash_attention = plain_flash_attention
+    try:
+        yield
+    finally:
+        llama.flash_attention = saved
+
+
+TRAIN_TC = train.TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=6)
+
+
+def phase_train_step(model, gen: torch.Generator) -> dict[str, int]:
+    """One AdamW train step through the kernels and one on the plain route,
+    from the same weights and tokens."""
+    cfg = model.cfg
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1), generator=gen,
+                           device="cuda")
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    runs = {}
+    for route in ("kernels", "plain"):
+        model.load_state_dict(start)
+        state = train.init_train_state(model, TRAIN_TC)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        with plain_training_attention() if route == "plain" else contextlib.nullcontext():
+            state, metrics = train.train_step(state, tokens)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = read_launches()
+        # The clipped gradients: one factor for all, so each one's direction
+        # is the raw gradient's.
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        runs[route] = (loss, gnorm, grads, launches)
+        print(f"[train] LLAMA_1B B={TRAIN_B} S={TRAIN_S} AdamW step, {route}: loss {loss:.6f} "
+              f"grad_norm {gnorm:.6f}, {ms:.1f} ms ({TRAIN_B * TRAIN_S / ms * 1e3:.0f} "
+              f"tokens/s), peak {peak:.2f} GiB, launches {launches}")
+        del state
+    del start
+    (l_k, n_k, g_k, launches), (l_p, n_p, g_p, plain_launches) = runs["kernels"], runs["plain"]
+    check(launches["flash_fwd"] == cfg.num_layers and launches["flash_bwd_fused"] == cfg.num_layers
+          and launches["decode"] == launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0,
+          f"kernel train step launched {launches}")
+    check(not any(plain_launches.values()), f"plain train step launched {plain_launches}")
+    cos = {n: float(F.cosine_similarity(g_k[n].float().flatten(), g_p[n].float().flatten(),
+                                        dim=0)) for n in g_k}
+    worst = min(cos, key=cos.get)
+    print(f"[train] kernels vs plain: |dloss| {abs(l_k - l_p):.6f} (<= {LOSS_ATOL}), "
+          f"grad_norm rel {abs(n_k - n_p) / n_p:.6f} (<= {GRAD_NORM_REL}), gradient cosine "
+          f"min {cos[worst]:.6f} ({worst}) over {len(cos)} parameters (> {GRAD_COS})")
+    check(abs(l_k - l_p) <= LOSS_ATOL and abs(n_k - n_p) <= GRAD_NORM_REL * n_p
+          and cos[worst] > GRAD_COS, "train step: kernels and plain route disagree")
+    return launches
+
+
+def phase_trainer(model, gen: torch.Generator) -> dict[str, int]:
+    """train.train for 6 AdamW steps on one repeated batch, the deterministic
+    split backward selected as a user does, through FLASHATTN_BWD_IMPL."""
+    cfg = model.cfg
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1), generator=gen,
+                           device="cuda")
+    marks = []  # (host clock, peak bytes since the previous mark) at each step's start
+
+    def batches():
+        while True:
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter(), torch.cuda.max_memory_allocated()))
+            torch.cuda.reset_peak_memory_stats()
+            yield tokens
+
+    steps = 6
+    os.environ[flash_bwd.IMPL_ENV] = "split"
+    reset_launches()
+    try:
+        state, hist = train.train(model, batches(), TRAIN_TC, steps=steps, log_every=1)
+    finally:
+        del os.environ[flash_bwd.IMPL_ENV]
+    torch.cuda.synchronize()
+    marks.append((time.perf_counter(), torch.cuda.max_memory_allocated()))
+    launches = read_launches()
+    for h, (t0, _), (t1, peak) in zip(hist, marks, marks[1:]):
+        ms = (t1 - t0) * 1e3
+        print(f"[trainer] step {h['step']}: loss {h['loss']:.6f} grad_norm "
+              f"{h['grad_norm']:.6f}, {ms:.1f} ms (host clock, synchronised), "
+              f"{TRAIN_B * TRAIN_S / ms * 1e3:.0f} tokens/s, max_memory_allocated "
+              f"{peak / 2**30:.2f} GiB")
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == steps and state["step"] == steps, f"trainer ran {len(hist)} steps")
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"trainer losses {losses}")
+    n = steps * cfg.num_layers
+    check(launches["flash_fwd"] == launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == n
+          and launches["flash_bwd_fused"] == 0, f"trainer launched {launches}")
+    print(f"[trainer] LLAMA_1B B={TRAIN_B} S={TRAIN_S}, {steps} AdamW steps (lr {TRAIN_TC.learning_rate},"
+          f" warmup {TRAIN_TC.warmup_steps}), split backward: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; launches {launches}")
+    return launches
+
+
 def main() -> None:
     name = phase_environment()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -284,11 +583,20 @@ def main() -> None:
           f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B parameters")
     phase_model(model, gen)
     launches = phase_server(model, gen)
+    launches["flash_bwd_fused"] = phase_train_step(model, gen)["flash_bwd_fused"]
+    split = phase_trainer(model, gen)
+    launches.update(flash_bwd_dq=split["flash_bwd_dq"], flash_bwd_dkv=split["flash_bwd_dkv"])
     sources = {
         "flash_fwd": ("flashattn_tpu_torch/csrc/flash_fwd.cu",
                       "flashattn_tpu/ops/flash_fwd.py:469"),
         "decode": ("flashattn_tpu_torch/csrc/decode.cu",
                    "flashattn_tpu/ops/decode.py:351"),
+        "flash_bwd_fused": ("flashattn_tpu_torch/csrc/flash_bwd_fused.cu",
+                            "flashattn_tpu/ops/flash_bwd_fused.py:336"),
+        "flash_bwd_dq": ("flashattn_tpu_torch/csrc/flash_bwd.cu",
+                         "flashattn_tpu/ops/flash_bwd.py:138"),
+        "flash_bwd_dkv": ("flashattn_tpu_torch/csrc/flash_bwd.cu",
+                          "flashattn_tpu/ops/flash_bwd.py:286"),
     }
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,

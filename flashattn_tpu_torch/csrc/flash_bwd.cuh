@@ -1,0 +1,195 @@
+// Tile machinery shared by the flash-attention backward kernels
+// (flash_bwd.cu: the split path, B4 and B5; flash_bwd_fused.cu: B3).
+//
+// Every kernel works on 64 x 64 score tiles with 256 threads: thread
+// (r = tid / 4, t = tid % 4) owns row r of the tile and the 16 columns
+// t, t + 4, ..., t + 60, so a row's four threads sit in one warp and meet
+// with quad shuffles or __syncwarp. Tiles are widened to fp32 in shared
+// memory (row stride D + 1, conflict-free column walks); products run on the
+// CUDA cores with fp32 accumulators. P and dS are rounded to the input dtype
+// before the products that consume them, as the TPU kernels feed their MXU.
+#pragma once
+
+#include "common.cuh"
+
+namespace fat {
+namespace bwd {
+
+constexpr int kBlock = 64;  // q rows and kv rows per tile
+constexpr int kThreads = 256;
+constexpr int kThreadsPerRow = kThreads / kBlock;        // 4
+constexpr int kColsPerThread = kBlock / kThreadsPerRow;  // 16
+constexpr int kPP = kBlock + 1;  // row stride of the [64][64] P / dS tiles
+
+// s[j] = a[r] . c[col_j], e[j] = b[r] . f[col_j] for this thread's 16
+// columns col_j = t + 4j, over fp32 shared-memory tiles of row stride D+1.
+template <int D>
+__device__ __forceinline__ void two_score_rows(const float* __restrict__ a,
+                                               const float* __restrict__ b,
+                                               const float* __restrict__ c,
+                                               const float* __restrict__ f, int r, int t,
+                                               float* s, float* e) {
+  constexpr int DP = D + 1;
+#pragma unroll
+  for (int j = 0; j < kColsPerThread; ++j) s[j] = e[j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    const float ad = a[r * DP + d];
+    const float bd = b[r * DP + d];
+#pragma unroll
+    for (int j = 0; j < kColsPerThread; ++j) {
+      const int col = (t + kThreadsPerRow * j) * DP + d;
+      s[j] = fmaf(ad, c[col], s[j]);
+      e[j] = fmaf(bd, f[col], e[j]);
+    }
+  }
+}
+
+// acc[i] += sum_c w[r][c] * x[c][t + 4i] over the tile's 64 columns c:
+// one row of (w . x) for this thread's D/4 output columns.
+template <int D>
+__device__ __forceinline__ void row_times_tile(const float* __restrict__ w, int r, int t,
+                                               const float* __restrict__ x, float* acc) {
+  constexpr int DP = D + 1;
+  for (int c = 0; c < kBlock; ++c) {
+    const float wc = w[r * kPP + c];
+#pragma unroll
+    for (int i = 0; i < D / kThreadsPerRow; ++i)
+      acc[i] = fmaf(wc, x[c * DP + t + kThreadsPerRow * i], acc[i]);
+  }
+}
+
+// A row's LSE in the log2 domain for exp2(s * scale_log2 - lse2). A row that
+// sees no key has LSE = -inf; +inf makes every one of its P exactly 0.
+__device__ __forceinline__ float lse_log2(float lse) {
+  return lse == -CUDART_INF_F ? CUDART_INF_F : lse * 1.4426950408889634f;
+}
+
+// Shared memory of the dK/dV kernels: K, V (the tile's kv rows), Q, dO (the
+// current q tile), P^T and dS^T, and the q tile's LSE and delta.
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  return sizeof(float) * (4 * kBlock * (D + 1) + 2 * kBlock * kPP + 2 * kBlock);
+}
+
+// dK and dV of one kv tile (blockIdx.x) of one kv head (blockIdx.y) of one
+// batch row (blockIdx.z), summed over the q heads of its GQA group and over
+// every q tile with a row that sees the tile. With kFusedDq it also adds the
+// tile's dQ contributions, scale not applied, into dq_acc (fp32, zeroed by
+// the caller) with atomics; without it nothing is shared between CTAs and
+// the result is bitwise reproducible.
+//
+// dK and dV stay in registers (thread (r, t) owns kv row r, columns t + 4i)
+// until one write each; kv rows that no q row sees are written as zeros.
+template <typename T, int D, bool kFusedDq>
+__device__ __forceinline__ void dkv_tile(const T* __restrict__ q, const T* __restrict__ k,
+                                         const T* __restrict__ v, const T* __restrict__ dout,
+                                         const float* __restrict__ lse,
+                                         const float* __restrict__ delta, T* __restrict__ dk,
+                                         T* __restrict__ dv, float* __restrict__ dq_acc, int Hq,
+                                         int Hkv, int Sq, int Sk, int is_causal, int offset,
+                                         float scale, float scale_log2) {
+  constexpr int DP = D + 1;
+  constexpr int kDims = D / kThreadsPerRow;
+  extern __shared__ float smem[];
+  float* ks = smem;
+  float* vs = ks + kBlock * DP;
+  float* qs = vs + kBlock * DP;
+  float* dos = qs + kBlock * DP;
+  float* pt = dos + kBlock * DP;
+  float* dst = pt + kBlock * kPP;
+  float* lse2s = dst + kBlock * kPP;
+  float* deltas = lse2s + kBlock;
+
+  const int tid = threadIdx.x;
+  const int r = tid / kThreadsPerRow;
+  const int t = tid % kThreadsPerRow;
+  const int kv0 = blockIdx.x * kBlock;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int group = Hq / Hkv;
+  const int kv_row = kv0 + r;
+  const size_t kv_base = (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
+
+  load_tile<T, kBlock, D, kThreads>(k + kv_base + static_cast<size_t>(kv0) * D, Sk - kv0, ks, DP);
+  load_tile<T, kBlock, D, kThreads>(v + kv_base + static_cast<size_t>(kv0) * D, Sk - kv0, vs, DP);
+
+  float dk_acc[kDims], dv_acc[kDims];
+#pragma unroll
+  for (int i = 0; i < kDims; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  // Causal: q row qi sees column kv0 iff qi >= kv0 - offset, so q tiles
+  // before the one holding that row contribute nothing.
+  const int n_q_tiles = (Sq + kBlock - 1) / kBlock;
+  const int first_row = is_causal ? max(0, kv0 - offset) : 0;
+  const int q_begin = first_row >= Sq ? n_q_tiles : first_row / kBlock;
+
+  for (int g = 0; g < group; ++g) {
+    const int h = hk * group + g;
+    const size_t stat_base = (static_cast<size_t>(b) * Hq + h) * Sq;
+    const size_t q_base = stat_base * D;
+    for (int qt = q_begin; qt < n_q_tiles; ++qt) {
+      const int q0 = qt * kBlock;
+      __syncthreads();  // the previous q tile is consumed (K and V stored, first time)
+      load_tile<T, kBlock, D, kThreads>(q + q_base + static_cast<size_t>(q0) * D, Sq - q0, qs, DP);
+      load_tile<T, kBlock, D, kThreads>(dout + q_base + static_cast<size_t>(q0) * D, Sq - q0,
+                                        dos, DP);
+      if (tid < kBlock) {
+        const int qi = q0 + tid;
+        lse2s[tid] = qi < Sq ? lse_log2(lse[stat_base + qi]) : CUDART_INF_F;
+        deltas[tid] = qi < Sq ? delta[stat_base + qi] : 0.f;
+      }
+      __syncthreads();
+
+      // S^T and dP^T: kv row r against q columns t + 4j.
+      float s[kColsPerThread], dp[kColsPerThread];
+      two_score_rows<D>(ks, vs, qs, dos, r, t, s, dp);
+#pragma unroll
+      for (int j = 0; j < kColsPerThread; ++j) {
+        const int c = t + kThreadsPerRow * j;
+        const int qi = q0 + c;
+        const bool live = qi < Sq && kv_row < Sk && (!is_causal || kv_row <= qi + offset);
+        const float p = live ? exp2f(s[j] * scale_log2 - lse2s[c]) : 0.f;
+        const float ds = p * (dp[j] - deltas[c]);
+        pt[r * kPP + c] = round_to<T>(p);
+        dst[r * kPP + c] = round_to<T>(ds);
+      }
+      __syncwarp();  // row r's four threads wrote all of its P^T and dS^T
+
+      row_times_tile<D>(pt, r, t, dos, dv_acc);  // dV += P^T dO
+      row_times_tile<D>(dst, r, t, qs, dk_acc);  // dK += dS^T Q
+
+      if (kFusedDq) {
+        __syncthreads();  // every row of dS^T is written
+        // Thread (r, t) now owns q row q0 + r: dQ[r] += sum_c dS^T[c][r] K[c].
+        const int qi = q0 + r;
+        if (qi < Sq) {
+          float acc[kDims];
+#pragma unroll
+          for (int i = 0; i < kDims; ++i) acc[i] = 0.f;
+          for (int c = 0; c < kBlock; ++c) {
+            const float w = dst[c * kPP + r];
+#pragma unroll
+            for (int i = 0; i < kDims; ++i)
+              acc[i] = fmaf(w, ks[c * DP + t + kThreadsPerRow * i], acc[i]);
+          }
+          float* row = dq_acc + q_base + static_cast<size_t>(qi) * D + t;
+#pragma unroll
+          for (int i = 0; i < kDims; ++i) atomicAdd(row + kThreadsPerRow * i, acc[i]);
+        }
+      }
+    }
+  }
+
+  if (kv_row < Sk) {
+    T* dk_row = dk + kv_base + static_cast<size_t>(kv_row) * D + t;
+    T* dv_row = dv + kv_base + static_cast<size_t>(kv_row) * D + t;
+#pragma unroll
+    for (int i = 0; i < kDims; ++i) {
+      dk_row[kThreadsPerRow * i] = from_f<T>(dk_acc[i] * scale);
+      dv_row[kThreadsPerRow * i] = from_f<T>(dv_acc[i]);
+    }
+  }
+}
+
+}  // namespace bwd
+}  // namespace fat

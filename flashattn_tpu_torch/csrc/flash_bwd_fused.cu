@@ -1,0 +1,115 @@
+// Flash-attention backward, fused path, for Hopper (sm_90a): a delta
+// pre-pass, then one kernel that computes dQ, dK and dV in one pass.
+//
+// Replaces the TPU kernel flashattn_tpu/ops/flash_bwd_fused.py::
+// _fused_bwd_kernel (launcher flash_attention_backward_fused, :336; B3) on
+// the plain subset: causal (bottom-right, or by pos_offset) or not, GQA,
+// ragged S_q/S_k, rows that see no key. On the TPU the dK/dV accumulators of
+// a whole (batch, kv head) stay in VMEM while one sequential grid walks the
+// q tiles; no SM holds that, so this is the one-pass design of FA2 instead:
+// one CTA per (64-row kv tile, kv head, batch) keeps its tile's dK and dV in
+// registers while it walks the GQA group's q heads and the live q tiles,
+// computing S, P, dP and dS once per tile pair, and adds each tile's dQ
+// contribution into an fp32 buffer with atomicAdd. The caller zeroes that
+// buffer and scales and casts it afterwards.
+//
+// What bounds it on the card: arithmetic, about 2.5x the forward's FLOPs,
+// here on the CUDA cores in fp32 over shared-memory tiles (flash_bwd.cuh),
+// so bound by shared-memory loads (about one per FMA); dQ's atomics add
+// 64 x D fp32 reductions to L2 per tile pair. Compared with the split path
+// it computes S and dP once instead of twice. The atomics sum in an order
+// that changes between runs, so dQ is not bitwise reproducible; the split
+// path (flash_bwd.cu) is the deterministic one.
+#include "flash_bwd.cuh"
+
+namespace {
+
+using fat::bwd::kBlock;
+using fat::bwd::kThreads;
+
+constexpr int kRowsPerCta = kThreads / 32;  // delta pre-pass: one warp per row
+
+// delta[row] = sum_d dO[row][d] * O[row][d] over rows = B * Hq * Sq.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                       float* __restrict__ delta, long long rows) {
+  const int lane = threadIdx.x % 32;
+  const long long row = static_cast<long long>(blockIdx.x) * kRowsPerCta + threadIdx.x / 32;
+  if (row >= rows) return;  // whole warps leave together
+  const T* orow = o + row * D;
+  const T* dorow = dout + row * D;
+  float sum = 0.f;
+#pragma unroll
+  for (int i = lane; i < D; i += 32) sum = fmaf(fat::to_f(dorow[i]), fat::to_f(orow[i]), sum);
+#pragma unroll
+  for (int m = 16; m > 0; m /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, m);
+  if (lane == 0) delta[row] = sum;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dq_acc, int Hq,
+                       int Hkv, int Sq, int Sk, int is_causal, int offset, float scale,
+                       float scale_log2) {
+  fat::bwd::dkv_tile<T, D, true>(q, k, v, dout, lse, delta, dk, dv, dq_acc, Hq, Hkv, Sq, Sk,
+                                 is_causal, offset, scale, scale_log2);
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                   const void* lse, void* dq_acc, void* dk, void* dv, void* delta, int B, int Hq,
+                   int Hkv, int Sq, int Sk, int is_causal, int offset, float scale,
+                   cudaStream_t stream) {
+  const long long rows = static_cast<long long>(B) * Hq * Sq;
+  flash_bwd_delta_kernel<T, D><<<static_cast<unsigned>((rows + kRowsPerCta - 1) / kRowsPerCta),
+                                 kThreads, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<float*>(delta), rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = fat::allow_max_smem<flash_bwd_fused_kernel<T, D>>();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sk + kBlock - 1) / kBlock, Hkv, B);
+  flash_bwd_fused_kernel<T, D><<<grid, kThreads, fat::bwd::dkv_smem_bytes<D>(), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
+      static_cast<float*>(dq_acc), Hq, Hkv, Sq, Sk, is_causal, offset, scale,
+      scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q, o, dout [B,Hq,Sq,D]; k, v, dk, dv [B,Hkv,Sk,D]; lse and delta
+// [B,Hq,Sq] fp32; dq_acc [B,Hq,Sq,D] fp32, zeroed by the caller; all
+// contiguous on the device, the [.., D] tensors 16-byte aligned. Row r sees
+// column c iff !is_causal or c <= r + offset. Writes delta, dk (scale
+// applied) and dv in k's dtype, and adds dS.K (scale not applied) into
+// dq_acc. Returns the CUDA error code of the launches (0 = success).
+extern "C" int flash_bwd_fused_launch(const void* q, const void* k, const void* v, const void* o,
+                                      const void* dout, const void* lse, void* dq_acc, void* dk,
+                                      void* dv, void* delta, int B, int Hq, int Hkv, int Sq,
+                                      int Sk, int D, int dtype, int is_causal, int offset,
+                                      float scale, void* stream) {
+  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == fat::kBF16 && D == 64)
+    err = launch<__nv_bfloat16, 64>(q, k, v, o, dout, lse, dq_acc, dk, dv, delta, B, Hq, Hkv, Sq,
+                                    Sk, is_causal, offset, scale, s);
+  else if (dtype == fat::kBF16 && D == 128)
+    err = launch<__nv_bfloat16, 128>(q, k, v, o, dout, lse, dq_acc, dk, dv, delta, B, Hq, Hkv,
+                                     Sq, Sk, is_causal, offset, scale, s);
+  else if (dtype == fat::kF32 && D == 64)
+    err = launch<float, 64>(q, k, v, o, dout, lse, dq_acc, dk, dv, delta, B, Hq, Hkv, Sq, Sk,
+                            is_causal, offset, scale, s);
+  else if (dtype == fat::kF32 && D == 128)
+    err = launch<float, 128>(q, k, v, o, dout, lse, dq_acc, dk, dv, delta, B, Hq, Hkv, Sq, Sk,
+                             is_causal, offset, scale, s);
+  return static_cast<int>(err);
+}

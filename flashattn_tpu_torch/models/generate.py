@@ -29,14 +29,6 @@ def init_caches(model: Llama, batch: int, max_len: int,
     ]
 
 
-def _qkv(layer, xn, cfg, b, s):
-    """Projections -> q [B, Hq, S, D], k/v [B, Hkv, S, D] (before RoPE)."""
-    q = llama.proj(xn, layer.wq).view(b, s, cfg.num_heads, cfg.head_dim)
-    k = llama.proj(xn, layer.wk).view(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = llama.proj(xn, layer.wv).view(b, s, cfg.num_kv_heads, cfg.head_dim)
-    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2).contiguous()
-
-
 @torch.inference_mode()
 def prefill(
     model: Llama,
@@ -54,7 +46,7 @@ def prefill(
     cos, sin = llama.rope_tables(cfg, torch.arange(s, device=tokens.device))
     for layer, cache in zip(model.layers, caches):
         xn = llama.rms_norm(x, layer.attn_norm, cfg.norm_eps, cfg.norm_offset)
-        q, k, v = _qkv(layer, xn, cfg, b, s)
+        q, k, v = llama.qkv(layer, xn, cfg)
         q = llama.apply_rope(q, cos, sin)
         k = llama.apply_rope(k, cos, sin)
         # A fresh cache and an admission-bounded prompt: no drop guard.
@@ -84,7 +76,7 @@ def decode_step(
     cos, sin = llama.rope_tables(cfg, positions)  # [B, D/2]
     for layer, cache in zip(model.layers, caches):
         xn = llama.rms_norm(x, layer.attn_norm, cfg.norm_eps, cfg.norm_offset)
-        q, k, v = _qkv(layer, xn[:, None], cfg, b, 1)
+        q, k, v = llama.qkv(layer, xn[:, None], cfg)
         q = llama.apply_rope(q, cos[:, None], sin[:, None])
         k = llama.apply_rope(k, cos[:, None], sin[:, None])
         update_cache(cache, k, v, active=active)

@@ -3,7 +3,8 @@
 The parameters keep the JAX package's names and its [in, out] layout
 (``x @ w``), so a JAX parameter tree converts with a plain copy
 (models/convert.py). Attention runs the port's kernels; every other piece is
-plain PyTorch.
+plain PyTorch. Models are built on the card unless the caller names another
+device.
 """
 
 from __future__ import annotations
@@ -13,13 +14,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from flashattn_tpu_torch.models.config import ModelConfig, check_supported
+from flashattn_tpu_torch.ops.attention import flash_attention
+from flashattn_tpu_torch.ops.common import card_device, unported
 
 
 class LlamaLayer(nn.Module):
     """One decoder block's parameters."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device: torch.device | str = "cuda"):
         super().__init__()
+        device = card_device(device)
         h, hd = cfg.hidden_size, cfg.head_dim
         nq, nkv, f = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
 
@@ -44,9 +48,10 @@ class Llama(nn.Module):
     The computation lives in the functions of this module and in
     models/generate.py, as in the JAX package."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device: torch.device | str = "cuda"):
         super().__init__()
         check_supported(cfg)
+        device = card_device(device)
         self.cfg = cfg
         h = cfg.hidden_size
         self.embed = nn.Parameter(
@@ -65,11 +70,12 @@ class Llama(nn.Module):
 
 @torch.no_grad()
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device=None) -> Llama:
+                device: torch.device | str = "cuda") -> Llama:
     """A model with random weights: normal draws scaled by fan-in**-0.5 in
     float32, cast to cfg.dtype; norms start at the identity. `generator`
     must live on `device` (torch draws on the generator's device)."""
     model = Llama(cfg, device)
+    device = model.device
 
     def dense(p: nn.Parameter, fan_in: int) -> None:
         x = torch.randn(p.shape, generator=generator, dtype=torch.float32,
@@ -161,3 +167,73 @@ def _mlp_block(layer: LlamaLayer, x: torch.Tensor, cfg: ModelConfig) -> torch.Te
     act = (F.gelu(gate, approximate="tanh") if cfg.mlp_activation == "gelu_tanh"
            else F.silu(gate))
     return proj(act.to(x.dtype) * proj(xn, layer.w_up), layer.w_down)
+
+
+def qkv(layer: LlamaLayer, xn: torch.Tensor, cfg: ModelConfig):
+    """Projections of xn [B, S, H] -> q [B, Hq, S, D], k/v [B, Hkv, S, D]
+    (before RoPE); v is made contiguous for the kernels."""
+    b, s = xn.shape[:2]
+    q = proj(xn, layer.wq).view(b, s, cfg.num_heads, cfg.head_dim)
+    k = proj(xn, layer.wk).view(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = proj(xn, layer.wv).view(b, s, cfg.num_kv_heads, cfg.head_dim)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2).contiguous()
+
+
+def _attn_block(layer: LlamaLayer, x: torch.Tensor, cos: torch.Tensor,
+                sin: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    b, s, _ = x.shape
+    xn = rms_norm(x, layer.attn_norm, cfg.norm_eps, cfg.norm_offset)
+    q, k, v = qkv(layer, xn, cfg)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    o = flash_attention(q, k, v, is_causal=True, scale=cfg.attn_scale)
+    o = o.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
+    return proj(o, layer.wo)
+
+
+def forward(model: Llama, tokens: torch.Tensor, segment_ids=None,
+            remat=False) -> torch.Tensor:
+    """Training/prefill forward: tokens [B, S] -> float32 logits [B, S, vocab].
+
+    Differentiable: attention goes through the flash autograd Function, whose
+    backward runs the backward kernels. Packed documents (`segment_ids`) and
+    rematerialisation (`remat`) are not ported yet and raise."""
+    if segment_ids is not None:
+        raise unported("packed-document segment_ids", "A4")
+    if remat is not False:
+        raise unported(f"remat={remat!r}", "A3b")
+    cfg = model.cfg
+    x = embed_tokens(model, tokens)
+    cos, sin = rope_tables(cfg, torch.arange(tokens.shape[1], device=tokens.device))
+    for layer in model.layers:
+        x = x + _attn_block(layer, x, cos, sin, cfg)
+        x = x + _mlp_block(layer, x, cfg)
+    return lm_logits(x, model)
+
+
+def loss_fn(model: Llama, tokens: torch.Tensor, segment_ids=None,
+            remat=False) -> torch.Tensor:
+    """Mean next-token cross-entropy of tokens[:, :-1] -> tokens[:, 1:]
+    (tokens [B, S+1]), a float32 scalar."""
+    if segment_ids is not None:
+        raise unported("packed-document segment_ids", "A4")
+    logits = forward(model, tokens[:, :-1], remat=remat)
+    targets = tokens[:, 1:].long()
+    gold = logits.gather(-1, targets[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - gold).mean()
+
+
+def sgd_train_step(model: Llama, tokens: torch.Tensor, lr: float = 1e-3,
+                   remat=False) -> tuple[torch.Tensor, Llama]:
+    """Loss, gradients and a plain SGD update -> (loss, model).
+
+    The JAX function returns new parameters; this one updates the model in
+    place (p -= lr * g in the parameters' dtype) and returns it."""
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn(model, tokens, remat=remat)
+    loss.backward()
+    with torch.no_grad():
+        for p in model.parameters():
+            p.sub_(lr * p.grad.to(p.dtype))
+            p.grad = None
+    return loss.detach(), model

@@ -15,6 +15,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -23,10 +24,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signature of each library's entry point: (name, argtypes).
+# C signatures of each library's entry points: {function: argtypes}.
 ENTRY_POINTS = {
-    "flash_fwd": ("flash_fwd_launch", [_P] * 5 + [_I] * 9 + [_F, _P]),
-    "decode": ("decode_launch", [_P] * 8 + [_I] * 9 + [_F, _P]),
+    "flash_fwd": {"flash_fwd_launch": [_P] * 5 + [_I] * 9 + [_F, _P]},
+    "decode": {"decode_launch": [_P] * 8 + [_I] * 9 + [_F, _P]},
+    "flash_bwd": {"flash_bwd_dq_launch": [_P] * 8 + [_I] * 9 + [_F, _P],
+                  "flash_bwd_dkv_launch": [_P] * 8 + [_I] * 9 + [_F, _P]},
+    "flash_bwd_fused": {"flash_bwd_fused_launch": [_P] * 10 + [_I] * 9 + [_F, _P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -49,7 +53,7 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    sources = [CSRC / f"{name}.cu", CSRC / "common.cuh"]
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha256()
     for src in sources:
         digest.update(src.read_bytes())
@@ -83,14 +87,20 @@ def build(name: str) -> Path:
     return lib
 
 
+def build_all(names) -> None:
+    """Build several libraries at once, one nvcc process each."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(build, names))
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The built library of csrc/<name>.cu, its entry point typed."""
+    """The built library of csrc/<name>.cu, its entry points typed."""
     if name not in _loaded:
         cdll = ctypes.CDLL(str(build(name)))
-        fn_name, argtypes = ENTRY_POINTS[name]
-        fn = getattr(cdll, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in ENTRY_POINTS[name].items():
+            fn = getattr(cdll, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         cdll.error_string.argtypes = [ctypes.c_int]
         cdll.error_string.restype = ctypes.c_char_p
         _loaded[name] = cdll

@@ -5,6 +5,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 # Large-negative logit used for masking instead of -inf, so that a
 # (masked - max) difference never forms -inf - -inf. The CUDA kernels use the
@@ -21,6 +22,19 @@ def cdiv(a: int, b: int) -> int:
 
 def round_up(x: int, m: int) -> int:
     return cdiv(x, m) * m
+
+
+def card_device(device: torch.device | str = "cuda") -> torch.device:
+    """`device` as a torch.device; the card unless the caller names another.
+
+    Constructors default to the card: without one they raise here instead
+    of quietly building on the CPU, where only the plain versions run."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: flashattn_tpu_torch runs its kernels on the "
+            "card; pass device='cpu' to run the plain PyTorch versions")
+    return device
 
 
 def unported(feature: str, item: str) -> NotImplementedError:

@@ -36,7 +36,8 @@ def flash_attention_forward_reference(
     return o, (lse if need_lse else None)
 
 
-def _check_inputs(q, k, v) -> None:
+def check_qkv(q, k, v) -> None:
+    """Shapes and device of attention operands (any device)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("expected [B, H, S, D] tensors")
     if k.shape != v.shape:
@@ -48,6 +49,24 @@ def _check_inputs(q, k, v) -> None:
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={k.shape[1]}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
+
+
+def check_kernel_operands(**tensors: torch.Tensor) -> None:
+    """What the attention kernels take on the card: one dtype of
+    DTYPE_CODES, D in HEAD_DIMS, contiguous, 16-byte aligned; raise
+    ValueError on anything else."""
+    names = "/".join(tensors)
+    ts = list(tensors.values())
+    d = ts[0].shape[-1]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    if ts[0].dtype not in DTYPE_CODES or any(t.dtype != ts[0].dtype for t in ts):
+        raise ValueError(f"dtypes {'/'.join(str(t.dtype) for t in ts)} of {names}: "
+                         f"need one of {list(DTYPE_CODES)} for all")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{names} must be contiguous")
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{names} must start 16-byte aligned")
 
 
 def flash_attention_forward(
@@ -95,7 +114,7 @@ def flash_attention_forward(
         raise unported("ALiBi", "A4")
     if dyn_pos_offset is not None:
         raise unported("dyn_pos_offset", "A4")
-    _check_inputs(q, k, v)
+    check_qkv(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_forward_reference(q, k, v, is_causal, scale,
                                                  pos_offset, need_lse)
@@ -103,15 +122,7 @@ def flash_attention_forward(
         raise ValueError(f"unsupported device {q.device}")
     b, hq, s_q, d = q.shape
     hkv, s_k = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
-    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: need one of "
-                         f"{list(DTYPE_CODES)} for all three")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("q, k and v must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("q, k and v must start 16-byte aligned")
+    check_kernel_operands(q=q, k=k, v=v)
     if scale is None:
         scale = 1.0 / d**0.5
     offset = s_k - s_q if pos_offset is None else int(pos_offset)

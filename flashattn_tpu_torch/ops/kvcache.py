@@ -12,7 +12,7 @@ import dataclasses
 
 import torch
 
-from flashattn_tpu_torch.ops.common import unported
+from flashattn_tpu_torch.ops.common import card_device, unported
 
 
 @dataclasses.dataclass
@@ -35,12 +35,13 @@ def init_cache(
     head_dim: int,
     dtype: torch.dtype = torch.bfloat16,
     quant: str | None = None,
-    device: torch.device | str | None = None,
+    device: torch.device | str = "cuda",
 ) -> KVCache:
     if quant is not None:
         raise unported(f"{quant} KV cache", "A5")
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"cache dtype {dtype}: need bfloat16 or float32")
+    device = card_device(device)
     shape = (batch, num_kv_heads, max_len, head_dim)
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),

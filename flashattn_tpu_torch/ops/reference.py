@@ -1,4 +1,5 @@
-"""Plain PyTorch attention oracle (counterpart of flashattn_tpu/ops/reference.py).
+"""Plain PyTorch attention oracle (counterpart of flashattn_tpu/ops/reference.py),
+forward and backward.
 
 All math runs in float32 whatever the input dtype, so the oracle is a
 high-precision reference for bf16 kernel outputs.
@@ -66,3 +67,62 @@ def reference_attention(
 ) -> torch.Tensor:
     """Unfused attention, O only."""
     return reference_attention_with_lse(q, k, v, is_causal, scale, pos_offset)[0]
+
+
+def reference_attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    is_causal: bool = False,
+    scale: float | None = None,
+    pos_offset: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Attention gradients from the forward's O and LSE, computed the
+    backward kernels' way (a plain version of all three at once):
+
+        P = exp(S*scale - LSE), delta = rowsum(dO*O), dS = P*(dO.V^T - delta),
+        dQ = scale*dS.K, dK = scale*dS^T.Q, dV = P^T.dO,
+
+    with dK and dV summed over the q heads of each kv head (GQA). P and dS
+    are rounded to the input dtype before the products that consume them,
+    as the kernels feed their matrix units. A row whose LSE is -inf (it
+    sees no key) contributes exactly 0.
+
+    Returns (dQ in q.dtype, dK and dV in k.dtype), shaped like q, k, v.
+    """
+    b, hq, s_q, d = q.shape
+    hkv, s_k = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    g = hq // hkv
+    if scale is None:
+        scale = 1.0 / d**0.5
+    qf, kf, vf = q.float(), k.float(), v.float()
+    dof = do.float()
+    if g > 1:
+        kf = kf.repeat_interleave(g, dim=1)
+        vf = vf.repeat_interleave(g, dim=1)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    live = torch.isfinite(lse)[..., None]  # [B, Hq, S_q, 1]
+    if is_causal:
+        off = s_k - s_q if pos_offset is None else pos_offset
+        qi = torch.arange(s_q, device=q.device)[:, None]
+        kj = torch.arange(s_k, device=q.device)[None, :]
+        live = live & (kj <= qi + off)
+    p = torch.where(live, torch.exp(s - lse[..., None].masked_fill(
+        ~torch.isfinite(lse[..., None]), 0.0)), 0.0)
+    del s
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)
+    p = p.to(q.dtype).float()
+    ds = ds.to(q.dtype).float()
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    if g > 1:
+        dk = dk.view(b, hkv, g, s_k, d).sum(dim=2)
+        dv = dv.view(b, hkv, g, s_k, d).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(k.dtype)

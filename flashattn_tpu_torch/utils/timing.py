@@ -50,8 +50,11 @@ def cuda_time_ms(fn: Callable[[], object], warmup: int = 3, iters: int = 20,
 
 
 def attention_flops(b: int, h: int, s_q: int, s_k: int, d: int,
-                    causal: bool) -> float:
-    """Forward FLOPs of attention, 4*B*H*S_q*S_k*D, halved when causal (the
-    JAX package's convention)."""
+                    causal: bool, mode: str = "fwd") -> float:
+    """FLOPs of attention by the JAX package's convention: 4*B*H*S_q*S_k*D
+    for the forward, halved when causal, times 2.5 for the backward ("bwd")
+    or 3.5 for both ("fwd_bwd")."""
     f = 4.0 * b * h * s_q * s_k * d
-    return f / 2 if causal else f
+    if causal:
+        f /= 2
+    return f * {"fwd": 1.0, "bwd": 2.5, "fwd_bwd": 3.5}[mode]

@@ -1,7 +1,10 @@
-"""Kernels K1 (flash forward) and K2 (flash-decode) on the card, against their
-plain PyTorch versions on the same CUDA tensors, at the edges the serving
+"""Kernels K1 (flash forward), K2 (flash-decode) and the backward kernels
+(B3's fused kernel, B4's dQ and B5's dK/dV kernels) on the card, against
+their plain PyTorch versions on the same CUDA tensors, at the edges the
 smoke run does not reach: float32 inputs, rows that see no key, an empty
-sequence, D=128, large GQA chunks, and the wrappers' refusals.
+sequence, D=128, large GQA groups, ragged lengths, the wrappers' refusals,
+autograd through flash_attention, and small models on the card against the
+CPU.
 
 These tests need a CUDA device and skip without one. On the card:
 
@@ -10,15 +13,19 @@ These tests need a CUDA device and skip without one. On the card:
 (--noconftest: tests/conftest.py configures JAX, which the card's machine
 does not need.) Tolerances: bf16 outputs atol 2e-2 (the repo's bf16 gate),
 float32 atol 1e-4 and rtol 1e-4 (exp2 against exp, fp32 sums in another
-order), LSE atol 1e-3.
+order), LSE atol 1e-3; gradients in bf16 rtol 2e-2, atol 5e-2 (the repo's
+bf16-gradient gate), in float32 atol 2e-4, rtol 1e-4 (fp32 sums over up to
+eight q heads in another order; the fused kernel's dQ atomics add in an
+order that changes between runs).
 """
 
 import pytest
 import torch
 
-from flashattn_tpu_torch.models import generate, llama
+from flashattn_tpu_torch.models import generate, llama, train
 from flashattn_tpu_torch.models.config import ModelConfig
-from flashattn_tpu_torch.ops import decode, flash_fwd, kvcache
+from flashattn_tpu_torch.ops import decode, flash_bwd, flash_bwd_fused, flash_fwd, kvcache
+from flashattn_tpu_torch.ops.attention import flash_attention, plain_flash_attention
 from flashattn_tpu_torch.utils.verify import verify_results
 
 pytestmark = pytest.mark.cuda
@@ -148,7 +155,8 @@ def test_model_steps_on_card_match_cpu(dev):
     cfg = ModelConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
                       num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
                       dtype=torch.float32)
-    cpu_model = llama.init_params(cfg, torch.Generator().manual_seed(0))
+    cpu_model = llama.init_params(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu")
     gpu_model = llama.Llama(cfg, dev)
     gpu_model.load_state_dict(cpu_model.state_dict())
     prompt = torch.randint(0, cfg.vocab_size, (2, 37),
@@ -167,3 +175,155 @@ def test_model_steps_on_card_match_cpu(dev):
     for i, (ref, out) in enumerate(zip(*outs)):
         rep = verify_results(ref, out, atol=1e-3, rtol=1e-3)
         assert rep.passed, f"step {i}: {rep}"
+
+
+GRAD_TOL = {torch.bfloat16: dict(rtol=2e-2, atol=5e-2),
+            torch.float32: dict(atol=2e-4, rtol=1e-4)}
+
+BWD_CASES = {
+    # name: (B, Hq, Hkv, S_q, S_k, D, causal, pos_offset)
+    "gqa8_causal": (1, 8, 1, 256, 256, 64, True, None),
+    "d128_noncausal": (2, 4, 2, 192, 192, 128, False, None),
+    "sq_below_sk": (1, 4, 2, 64, 256, 64, True, None),
+    "ragged": (1, 4, 2, 200, 200, 64, True, None),
+    "ragged_d128_cross": (1, 2, 1, 77, 333, 128, False, None),
+    "no_key_rows": (1, 4, 2, 192, 192, 64, True, -100),
+}
+
+
+def bwd_inputs(case, dtype, dev):
+    b, hq, hkv, s_q, s_k, d, causal, off = BWD_CASES[case]
+    q = randn((b, hq, s_q, d), dtype, dev, 11)
+    k = randn((b, hkv, s_k, d), dtype, dev, 12)
+    v = randn((b, hkv, s_k, d), dtype, dev, 13)
+    do = randn((b, hq, s_q, d), dtype, dev, 14)
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, causal, pos_offset=off)
+    return (q, k, v, o, do, lse), dict(is_causal=causal, pos_offset=off)
+
+
+def launches():
+    return (flash_bwd_fused.LAUNCHES, flash_bwd.DQ_LAUNCHES, flash_bwd.DKV_LAUNCHES)
+
+
+@pytest.mark.parametrize("impl", ["fused", "split"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_backward_kernels_match_plain(dev, impl, dtype, case):
+    args, kw = bwd_inputs(case, dtype, dev)
+    before = launches()
+    out = flash_bwd.flash_attention_backward(*args, impl=impl, **kw)
+    torch.cuda.synchronize()
+    added = tuple(a - b for a, b in zip(launches(), before))
+    assert added == ((1, 0, 0) if impl == "fused" else (0, 1, 1))
+    ref = flash_bwd.flash_attention_backward_reference(*args, **kw)
+    for name, r, g in zip(("dQ", "dK", "dV"), ref, out):
+        assert g.dtype == dtype and g.shape == r.shape
+        assert bool(torch.isfinite(g).all()), name
+        rep = verify_results(r, g, **GRAD_TOL[dtype])
+        assert rep.passed, f"{name}: {rep}"
+    off = kw["pos_offset"]
+    if off is not None and off < 0:
+        dq = out[0]
+        assert torch.equal(dq[:, :, :-off], torch.zeros_like(dq[:, :, :-off]))
+
+
+def test_split_is_bitwise_deterministic(dev):
+    args, kw = bwd_inputs("gqa8_causal", torch.bfloat16, dev)
+    first = flash_bwd.flash_attention_backward(*args, impl="split", **kw)
+    second = flash_bwd.flash_attention_backward(*args, impl="split", **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_fwd_bwd_bitwise_deterministic_on_the_split_path(dev, monkeypatch):
+    """tests/test_determinism.py's check on the path that pins it: with
+    FLASHATTN_BWD_IMPL=split, forward and gradients through flash_attention
+    are bitwise equal across runs (the fused path adds dQ with atomics and
+    is not)."""
+    monkeypatch.setenv(flash_bwd.IMPL_ENV, "split")
+    q, k, v, do = (randn((1, 2, 384, 64), torch.bfloat16, dev, 30 + i) for i in range(4))
+
+    def run():
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = flash_attention(*leaves, is_causal=True)
+        return (o, *torch.autograd.grad(o, leaves, do))
+
+    before = launches()
+    first, second = run(), run()
+    assert launches()[1:] == (before[1] + 2, before[2] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_fused_matches_split(dev, monkeypatch):
+    """The two paths compute one function; FLASHATTN_BWD_IMPL selects for
+    impl="auto"."""
+    args, kw = bwd_inputs("ragged", torch.float32, dev)
+    split = flash_bwd.flash_attention_backward(*args, impl="split", **kw)
+    fused = flash_bwd.flash_attention_backward(*args, impl="fused", **kw)
+    for a, b in zip(split, fused):
+        rep = verify_results(a, b, **GRAD_TOL[torch.float32])
+        assert rep.passed, rep
+    monkeypatch.setenv(flash_bwd.IMPL_ENV, "split")
+    before = launches()
+    auto = flash_bwd.flash_attention_backward(*args, **kw)
+    assert launches()[1] == before[1] + 1
+    assert all(torch.equal(a, b) for a, b in zip(split, auto))
+
+
+def test_backward_refuses_what_the_kernels_do_not_take(dev):
+    args, kw = bwd_inputs("ragged", torch.bfloat16, dev)
+    q, k, v, o, do, lse = args
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_bwd.flash_attention_backward(q, k, v, o, do.transpose(2, 3).contiguous()
+                                           .transpose(2, 3), lse, **kw)
+    with pytest.raises(ValueError, match="lse"):
+        flash_bwd.flash_attention_backward(q, k, v, o, do, lse.double(), **kw)
+    with pytest.raises(ValueError, match="dtypes"):
+        flash_bwd.flash_attention_backward(q, k, v, o.float(), do, lse, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_autograd_through_flash_attention(dev, dtype):
+    """Gradients through flash_attention (K1 with the LSE, then the fused
+    kernel) against the same Function over the plain versions."""
+    b, hq, hkv, s, d = 2, 8, 2, 160, 64
+    leaves = [randn(shape, dtype, dev, 20 + i).requires_grad_()
+              for i, shape in enumerate([(b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)])]
+    do = randn((b, hq, s, d), dtype, dev, 24)
+    before = (flash_fwd.LAUNCHES, *launches())
+    o = flash_attention(*leaves, is_causal=True)
+    got = torch.autograd.grad(o, leaves, do)
+    assert (flash_fwd.LAUNCHES, *launches()) == (before[0] + 1, before[1] + 1, *before[2:])
+    o_ref = plain_flash_attention(*leaves, is_causal=True)
+    want = torch.autograd.grad(o_ref, leaves, do)
+    assert verify_results(o_ref, o, **TOL[dtype]).passed
+    for name, r, g in zip(("dQ", "dK", "dV"), want, got):
+        rep = verify_results(r, g, **GRAD_TOL[dtype])
+        assert rep.passed, f"{name}: {rep}"
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """Two AdamW steps of a small float32 D-64 model: kernels on the card
+    against the plain path on the CPU, same weights and tokens."""
+    cfg = ModelConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                      num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
+                      dtype=torch.float32)
+    tc = train.TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10)
+    cpu_model = llama.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu_model = llama.Llama(cfg, dev)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    tokens = torch.randint(0, cfg.vocab_size, (2, 129),
+                           generator=torch.Generator().manual_seed(1))
+    states = [train.init_train_state(m, tc) for m in (cpu_model, gpu_model)]
+    for _ in range(2):
+        metrics = []
+        for i, state in enumerate(states):
+            states[i], m = train.train_step(state, tokens)
+            metrics.append(m)
+        for key in ("loss", "grad_norm"):
+            assert float(metrics[1][key]) == pytest.approx(float(metrics[0][key]), rel=1e-4), key
+    # Adam turns tiny gradient differences of near-zero entries into update
+    # differences up to lr: bound the share of such entries, not each one.
+    for (name, a), b in zip(cpu_model.named_parameters(), gpu_model.parameters()):
+        err = (a - b.detach().cpu()).abs()
+        assert float(err.max()) <= 2 * tc.learning_rate, name
+        assert float((err > 1e-5).float().mean()) < 1e-3, name

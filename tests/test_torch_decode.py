@@ -133,7 +133,7 @@ def test_write_slot_bit_equal_to_jax():
 
 def test_init_cache_matches_jax():
     ref = jax_kv.init_cache(2, 3, 32, 8, dtype=jnp.float32)
-    out = kvcache.init_cache(2, 3, 32, 8, dtype=torch.float32)
+    out = kvcache.init_cache(2, 3, 32, 8, dtype=torch.float32, device="cpu")
     for name in ("k", "v", "length"):
         np.testing.assert_array_equal(getattr(out, name).numpy(),
                                       np.asarray(getattr(ref, name)))
@@ -143,7 +143,7 @@ def test_init_cache_matches_jax():
 @pytest.mark.parametrize("quant", ["int8", "fp8"])
 def test_quantized_cache_raises(quant):
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        kvcache.init_cache(1, 1, 16, 8, quant=quant)
+        kvcache.init_cache(1, 1, 16, 8, quant=quant, device="cpu")
 
 
 def test_decode_step_after_update_matches_jax():

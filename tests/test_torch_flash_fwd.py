@@ -118,8 +118,15 @@ def test_bad_shapes_raise(bad):
 
 
 def test_flash_attention_is_forward_only():
+    """Without a gradient to take, flash_attention runs the forward alone (no
+    LSE, nothing recorded); with one it records the flash autograd Function,
+    whose primal output is the same."""
     q, k, v = (torch.from_numpy(a) for a in make_qkv(2, 1, 8, 8, d=8))
     o = flash_attention(q, k, v, is_causal=True)
+    assert o.grad_fn is None
     assert torch.equal(o, flash_fwd.flash_attention_forward_reference(q, k, v, True)[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        flash_attention(q.requires_grad_(), k, v, is_causal=True)
+    with torch.no_grad():
+        assert flash_attention(q.requires_grad_(), k, v, True).grad_fn is None
+    o_grad = flash_attention(q, k, v, is_causal=True)
+    assert type(o_grad.grad_fn).__name__ == "FlashAttentionFunctionBackward"
+    assert torch.equal(o_grad.detach(), o)

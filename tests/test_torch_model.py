@@ -54,7 +54,7 @@ def make_models(name):
             layer[key] = layer[key] + rng.standard_normal(
                 layer[key].shape, dtype=np.float32) * 0.1
     params = jax.tree_util.tree_map(jnp.asarray, tree)
-    model = llama.Llama(tcfg)
+    model = llama.Llama(tcfg, device="cpu")
     model.load_state_dict(params_from_jax(tree))
     return jcfg, params, model
 
@@ -109,7 +109,7 @@ def test_params_from_jax_keeps_bf16_values():
     assert sd["embed"].dtype == torch.bfloat16
     np.testing.assert_array_equal(sd["layers.0.wq"].float().numpy(),
                                   tree["layers"][0]["wq"].astype(np.float32))
-    model = llama.Llama(ModelConfig(dtype=torch.bfloat16, **kw))
+    model = llama.Llama(ModelConfig(dtype=torch.bfloat16, **kw), device="cpu")
     model.load_state_dict(sd)
 
 
@@ -138,9 +138,9 @@ def test_building_blocks_match_jax():
 
 def test_init_params_is_seeded():
     cfg = ModelConfig(dtype=torch.float32, **CONFIGS["llama"])
-    a = llama.init_params(cfg, torch.Generator().manual_seed(3))
-    b = llama.init_params(cfg, torch.Generator().manual_seed(3))
-    c = llama.init_params(cfg, torch.Generator().manual_seed(4))
+    a = llama.init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+    b = llama.init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+    c = llama.init_params(cfg, torch.Generator().manual_seed(4), device="cpu")
     assert all(torch.equal(x, y) for x, y in zip(a.parameters(), b.parameters()))
     assert not torch.equal(a.embed, c.embed)
     assert torch.equal(a.layers[0].attn_norm, torch.ones(cfg.hidden_size))

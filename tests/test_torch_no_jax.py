@@ -1,6 +1,7 @@
 """The port imports no JAX: every module of flashattn_tpu_torch, and
 chip_smoke.py, import and run on the CPU in a process where `import jax`
-fails. A CPU call takes the plain versions and launches no kernel."""
+fails (generation, the server and two training steps). A CPU call takes the
+plain versions and launches no kernel."""
 
 import os
 import subprocess
@@ -21,17 +22,22 @@ for name in names:
 import chip_smoke  # the GPU smoke script imports no JAX either
 
 import torch
-from flashattn_tpu_torch.models import generate, llama
+from flashattn_tpu_torch.models import generate, llama, train
 from flashattn_tpu_torch.models.config import TINY
 from flashattn_tpu_torch.models.serve import InferenceServer, Request
-from flashattn_tpu_torch.ops import decode, flash_fwd
+from flashattn_tpu_torch.ops import decode, flash_bwd, flash_bwd_fused, flash_fwd
 
-model = llama.init_params(TINY, torch.Generator().manual_seed(0))
+model = llama.init_params(TINY, torch.Generator().manual_seed(0), device="cpu")
 generate.generate(model, torch.tensor([[1, 2, 3]]), max_new_tokens=3)
 srv = InferenceServer(model, max_slots=2, max_len=128)
 srv.submit(Request(uid=0, prompt=[4, 5], max_new_tokens=3))
 assert len(srv.run()[0]) == 3
-assert flash_fwd.LAUNCHES == 0 and decode.LAUNCHES == 0, "CPU call counted a launch"
+state, hist = train.train(model, iter([torch.randint(0, 512, (2, 17))] * 2),
+                          train.TrainConfig(warmup_steps=1), steps=2, log_every=1)
+assert state["step"] == 2 and len(hist) == 2
+counts = (flash_fwd.LAUNCHES, decode.LAUNCHES, flash_bwd.DQ_LAUNCHES,
+          flash_bwd.DKV_LAUNCHES, flash_bwd_fused.LAUNCHES)
+assert counts == (0,) * 5, f"CPU call counted a launch: {counts}"
 loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
           or m == "flashattn_tpu" or m.startswith("flashattn_tpu.")]
 assert loaded == ["jax"], loaded  # only the None placeholder
@@ -45,4 +51,4 @@ def test_port_imports_and_runs_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("OK"), proc.stdout
-    assert int(proc.stdout.split()[1]) >= 15  # every module was imported
+    assert int(proc.stdout.split()[1]) >= 18  # every module was imported

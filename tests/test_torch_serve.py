@@ -34,7 +34,7 @@ REQS = [
 def models():
     jcfg = JaxConfig(dtype=jnp.float32, **CFG_KW)
     params = jax_llama.init_params(jcfg, jax.random.PRNGKey(0))
-    model = llama.Llama(ModelConfig(dtype=torch.float32, **CFG_KW))
+    model = llama.Llama(ModelConfig(dtype=torch.float32, **CFG_KW), device="cpu")
     model.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, params)))
     return jcfg, params, model
 
