@@ -11,7 +11,8 @@ check:
 1. environment: torch/CUDA versions, the card's name and power limit, the
    kernels' build time and their compiler report;
 2. each kernel against its plain PyTorch version on the card, at the
-   serving and training paths' shapes and at their edges, with the
+   serving and training paths' shapes and at their edges (K1 also at every
+   backward case, where it makes the backward's O and LSE), with the
    tolerance printed beside each result; kernel, plain version and the
    PyTorch library call (SDPA, timed only, never used by the port) timed
    on the card;
@@ -258,13 +259,14 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
     k2_bound = bound(live_bytes + 2 * nbytes(qd) + nbytes(cache.length),
                      4.0 * hq * d * sum(lengths), torch.bfloat16)
     print(f"[kernels] K2 bound {k2_bound}, SDPA with a length mask {k2_lib:.4f} ms")
+    backward, k1_bwd_err = backward_kernels(gen)
     timed = {
-        "flash_fwd": dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain,
+        "flash_fwd": dict(max_abs_err=max(k1_err, k1_bwd_err), ms=k1_ms, plain_ms=k1_plain,
                           library_ms=k1_lib, **k1_bound),
         "decode": dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain,
                        library_ms=k2_lib, **k2_bound),
     }
-    timed.update(backward_kernels(gen))
+    timed.update(backward)
     return timed
 
 
@@ -279,22 +281,31 @@ BWD_CASES = [
 ]
 
 
-def backward_kernels(gen: torch.Generator) -> dict[str, dict]:
+def backward_kernels(gen: torch.Generator) -> tuple[dict[str, dict], float]:
     """B3's, B4's and B5's ports against flash_attention_backward_reference
-    on the same CUDA inputs (O and LSE from K1), then timed at the training
-    shape."""
+    on the same CUDA inputs, then timed at the training shape. O and LSE come
+    from K1 with need_lse=True, held first against the plain forward, since
+    a wrong O or LSE would reach the kernels and the plain backward alike.
+    Returns the backward kernels' entries and K1's largest O error."""
     err = {"flash_bwd_fused": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    k1_err = 0.0
     for tag, b, hq, hkv, s_q, s_k, d, causal, off, dtype in BWD_CASES:
         kw = dict(dtype=dtype, device="cuda")
         q = torch.randn((b, hq, s_q, d), generator=gen, **kw)
         k = torch.randn((b, hkv, s_k, d), generator=gen, **kw)
         v = torch.randn((b, hkv, s_k, d), generator=gen, **kw)
         do = torch.randn((b, hq, s_q, d), generator=gen, **kw)
-        o, lse = flash_fwd.flash_attention_forward(q, k, v, causal, pos_offset=off)
-        ref = flash_bwd.flash_attention_backward_reference(q, k, v, o, do, lse, causal,
-                                                           pos_offset=off)
         name = (f"B={b} Hq={hq} Hkv={hkv} Sq={s_q} Sk={s_k} D={d} causal={causal} "
                 f"pos_offset={off} {str(dtype)[6:]} ({tag})")
+        o, lse = flash_fwd.flash_attention_forward(q, k, v, causal, pos_offset=off)
+        o_ref, lse_ref = flash_fwd.flash_attention_forward_reference(q, k, v, causal,
+                                                                     pos_offset=off)
+        torch.cuda.synchronize()
+        k1_err = max(k1_err, _gate(f"K1 {name} O", o_ref, o, O_ATOL))
+        _gate(f"K1 {name} LSE", lse_ref, lse, LSE_ATOL)
+        del o_ref, lse_ref
+        ref = flash_bwd.flash_attention_backward_reference(q, k, v, o, do, lse, causal,
+                                                           pos_offset=off)
         for impl in ("fused", "split"):
             out = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, causal, impl=impl,
                                                      pos_offset=off)
@@ -322,7 +333,7 @@ def backward_kernels(gen: torch.Generator) -> dict[str, dict]:
             print(f"[kernels] split {name}: two runs bitwise equal (torch.equal on dQ, dK, dV)")
             timing = (q, k, v, o, do, lse)
     return dict(zip(err, ({"max_abs_err": e, **t} for e, t in
-                          zip(err.values(), time_backward(*timing)))))
+                          zip(err.values(), time_backward(*timing))))), k1_err
 
 
 def time_backward(q, k, v, o, do, lse):

@@ -26,8 +26,9 @@ from flashattn_tpu_torch.ops.common import unported
 from flashattn_tpu_torch.ops.flash_bwd_fused import (
     check_backward_operands,
     flash_attention_backward_fused,
+    launch_args,
+    require_cuda,
 )
-from flashattn_tpu_torch.ops.flash_fwd import DTYPE_CODES
 from flashattn_tpu_torch.ops.reference import reference_attention_backward
 
 # Kernel launches in this process (set to 0 by callers that count a run).
@@ -128,25 +129,10 @@ def flash_attention_backward(
     return dq, dk, dv
 
 
-def _require_cuda(q) -> None:
-    if q.device.type != "cuda":
-        raise ValueError(f"the split kernels take CUDA tensors, not {q.device}: "
-                         "flash_attention_backward takes CPU tensors to the plain version")
-
-
-def _launch_args(q, k, is_causal, scale, pos_offset):
-    b, hq, s_q, d = q.shape
-    hkv, s_k = k.shape[1], k.shape[2]
-    if scale is None:
-        scale = 1.0 / d**0.5
-    offset = s_k - s_q if pos_offset is None else int(pos_offset)
-    return (b, hq, hkv, s_q, s_k, d, DTYPE_CODES[q.dtype], int(is_causal), offset, scale)
-
-
 def flash_bwd_dq(q, k, v, o, do, lse, is_causal=False, scale=None, pos_offset=None):
     """B4's port on CUDA operands checked by flash_attention_backward:
     (dQ in q.dtype, delta = rowsum(dO * O) float32 [B, Hq, S_q])."""
-    _require_cuda(q)
+    require_cuda(q)
     dq = torch.empty_like(q)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     lib = _build.load("flash_bwd")
@@ -155,7 +141,7 @@ def flash_bwd_dq(q, k, v, o, do, lse, is_causal=False, scale=None, pos_offset=No
         rc = lib.flash_bwd_dq_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
-            *_launch_args(q, k, is_causal, scale, pos_offset), stream)
+            *launch_args(q, k, is_causal, scale, pos_offset), stream)
     _build.check(lib, rc, "flash_bwd_dq")
     global DQ_LAUNCHES
     DQ_LAUNCHES += 1
@@ -165,7 +151,7 @@ def flash_bwd_dq(q, k, v, o, do, lse, is_causal=False, scale=None, pos_offset=No
 def flash_bwd_dkv(q, k, v, do, lse, delta, is_causal=False, scale=None, pos_offset=None):
     """B5's port on CUDA operands checked by flash_attention_backward, with
     flash_bwd_dq's delta: (dK, dV) in k.dtype."""
-    _require_cuda(q)
+    require_cuda(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _build.load("flash_bwd")
@@ -174,7 +160,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, is_causal=False, scale=None, pos_offs
         rc = lib.flash_bwd_dkv_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *_launch_args(q, k, is_causal, scale, pos_offset), stream)
+            *launch_args(q, k, is_causal, scale, pos_offset), stream)
     _build.check(lib, rc, "flash_bwd_dkv")
     global DKV_LAUNCHES
     DKV_LAUNCHES += 1

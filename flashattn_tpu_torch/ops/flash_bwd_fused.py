@@ -1,13 +1,15 @@
 """Fused one-pass flash-attention backward (counterpart of
-flashattn_tpu/ops/flash_bwd_fused.py).
+flashattn_tpu/ops/flash_bwd_fused.py), and the operand checks and launch
+arguments that every backward kernel shares.
 
 ``flash_attention_backward_fused`` launches B3's port (csrc/flash_bwd_fused.cu)
-on CUDA tensors: a delta pre-pass, then one kernel per (kv tile, kv head,
-batch) that computes S, P, dP and dS once per tile pair, keeps dK and dV in
-registers and adds dQ with fp32 atomics. The sums land in another order on
-every run, so dQ is not bitwise reproducible; ops/flash_bwd.py's "split" path
-is. ``flash_attention_backward`` (ops/flash_bwd.py) dispatches here for
-impl="fused" and "auto".
+on CUDA operands that ``flash_attention_backward`` (ops/flash_bwd.py) has
+checked; that function dispatches here for impl="fused" and "auto", and
+takes CPU tensors to the plain version. The launch is a delta pre-pass, then
+one kernel per (kv tile, kv head, batch) that computes S, P, dP and dS once
+per tile pair, keeps dK and dV in registers and adds dQ with fp32 atomics.
+The sums land in another order on every run, so dQ is not bitwise
+reproducible; ops/flash_bwd.py's "split" path is.
 """
 
 from __future__ import annotations
@@ -16,7 +18,6 @@ import torch
 
 from flashattn_tpu_torch.ops import _build
 from flashattn_tpu_torch.ops.flash_fwd import DTYPE_CODES, check_kernel_operands, check_qkv
-from flashattn_tpu_torch.ops.reference import reference_attention_backward
 
 # Kernel launches in this process (set to 0 by callers that count a run).
 LAUNCHES = 0
@@ -43,6 +44,23 @@ def check_backward_operands(q, k, v, o, do, lse) -> None:
         raise ValueError(f"lse must be contiguous float32, got {lse.dtype}")
 
 
+def require_cuda(q) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"the backward kernels take CUDA tensors, not {q.device}: "
+                         "flash_attention_backward takes CPU tensors to the plain version")
+
+
+def launch_args(q, k, is_causal, scale, pos_offset) -> tuple:
+    """(B, Hq, Hkv, S_q, S_k, D, dtype code, causal, offset, scale), the
+    arguments every backward launch entry point takes after its pointers."""
+    b, hq, s_q, d = q.shape
+    hkv, s_k = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = 1.0 / d**0.5
+    offset = s_k - s_q if pos_offset is None else int(pos_offset)
+    return (b, hq, hkv, s_q, s_k, d, DTYPE_CODES[q.dtype], int(is_causal), offset, scale)
+
+
 def flash_attention_backward_fused(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -54,31 +72,22 @@ def flash_attention_backward_fused(
     scale: float | None = None,
     pos_offset: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dQ, dK, dV) in one pass; same contract as
-    ops/flash_bwd.py::flash_attention_backward. CPU tensors take the plain
-    version (ops/reference.py::reference_attention_backward)."""
-    check_backward_operands(q, k, v, o, do, lse)
-    if q.device.type == "cpu":
-        return reference_attention_backward(q, k, v, o, do, lse, is_causal, scale,
-                                            pos_offset)
-    b, hq, s_q, d = q.shape
-    hkv, s_k = k.shape[1], k.shape[2]
-    if scale is None:
-        scale = 1.0 / d**0.5
-    offset = s_k - s_q if pos_offset is None else int(pos_offset)
+    """B3's port on CUDA operands checked by flash_attention_backward:
+    (dQ in q.dtype, dK and dV in k.dtype)."""
+    require_cuda(q)
+    args = launch_args(q, k, is_causal, scale, pos_offset)
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    delta = torch.empty((b, hq, s_q), dtype=torch.float32, device=q.device)
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     lib = _build.load("flash_bwd_fused")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_bwd_fused_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            delta.data_ptr(), b, hq, hkv, s_q, s_k, d, DTYPE_CODES[q.dtype],
-            int(is_causal), offset, scale, stream)
+            delta.data_ptr(), *args, stream)
     _build.check(lib, rc, "flash_bwd_fused")
     global LAUNCHES
     LAUNCHES += 1
-    return dq_acc.mul_(scale).to(q.dtype), dk, dv
+    return dq_acc.mul_(args[-1]).to(q.dtype), dk, dv

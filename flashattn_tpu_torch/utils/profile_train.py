@@ -1,6 +1,7 @@
 """Where a LLAMA_1B training step's time goes on the card.
 
-    python -m flashattn_tpu_torch.utils.profile_train [--impl fused|split]
+    python -m flashattn_tpu_torch.utils.profile_train
+    FLASHATTN_BWD_IMPL=split python -m flashattn_tpu_torch.utils.profile_train
 
 Builds LLAMA_1B at full width with random weights and tokens from a seed,
 runs two warm-up AdamW steps (train.train_step at B 4, S 2048, the shape
@@ -13,14 +14,13 @@ of benchmarks/train_bench.py, one repeated batch), then:
   idle share of the unprofiled step, and the 15 kernels with the most
   device time.
 
-`--impl` sets FLASHATTN_BWD_IMPL for the run. Needs a CUDA device; prints
-the card's name and power limit first.
+The backward path is the one "auto" resolves to: the fused kernel, or what
+FLASHATTN_BWD_IMPL names. Needs a CUDA device; prints the card's name and
+power limit first.
 """
 
 from __future__ import annotations
 
-import argparse
-import os
 import statistics
 import subprocess
 import time
@@ -32,6 +32,7 @@ from torch.profiler import ProfilerActivity, profile
 from flashattn_tpu_torch.models import train
 from flashattn_tpu_torch.models.config import LLAMA_1B
 from flashattn_tpu_torch.models.llama import init_params
+from flashattn_tpu_torch.ops import flash_bwd
 
 SEED = 0
 BATCH, SEQ = 4, 2048
@@ -40,12 +41,9 @@ TOP = 15
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--impl", choices=("fused", "split"), default="fused")
-    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
-    os.environ["FLASHATTN_BWD_IMPL"] = args.impl
+    impl = flash_bwd.resolve_impl("auto")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0])
@@ -74,7 +72,7 @@ def main() -> None:
     wall = statistics.median(walls)
     peak = torch.cuda.max_memory_allocated() / 2**30
     n_tok = BATCH * SEQ
-    print(f"[profile] LLAMA_1B B={BATCH} S={SEQ} AdamW step, {args.impl} backward: "
+    print(f"[profile] LLAMA_1B B={BATCH} S={SEQ} AdamW step, {impl} backward: "
           f"{wall:.1f} ms/step median of {walls} (host clock, synchronised), "
           f"{n_tok / wall * 1e3:.0f} tokens/s, peak max_memory_allocated {peak:.2f} GiB")
 

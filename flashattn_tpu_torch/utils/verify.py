@@ -4,11 +4,13 @@ Same metrics and pass rule: allclose(rtol, atol) AND cosine > cos_threshold,
 computed in float32 on the host, with matching non-finite positions (+-inf,
 e.g. LSE = -inf of rows that see no key) counted as zero error.
 
-One difference: the JAX version zeroes every exactly-equal position before
-the cosine, so its cosine covers only the positions that differ. Two bf16
-outputs that agree bit for bit almost everywhere then get the cosine of
-their few rounding differences, near 0, and fail. Here only the matching
+One difference, for operands narrower than float32 (bf16, fp16): the JAX
+version zeroes every exactly-equal position before the cosine, so its
+cosine covers only the positions that differ. Two bf16 outputs that agree
+bit for bit almost everywhere then get the cosine of their few rounding
+differences, near 0, and fail. For such operands only the matching
 non-finite positions are zeroed: equal entries count toward the cosine.
+float32 operands get the JAX rule unchanged.
 """
 
 from __future__ import annotations
@@ -38,6 +40,14 @@ class VerifyReport:
         )
 
 
+def _is_narrow(x) -> bool:
+    """A floating type of fewer than 32 bits (bf16, fp16)."""
+    if isinstance(x, torch.Tensor):
+        return x.is_floating_point() and x.element_size() < 4
+    dtype = np.asarray(x).dtype
+    return dtype.kind not in "biu" and dtype.itemsize < 4
+
+
 def _to_f32(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().to("cpu", torch.float32).numpy()
@@ -59,7 +69,9 @@ def verify_results(
     if ref.shape != out.shape:
         raise ValueError(f"shape mismatch {ref.shape} vs {out.shape}")
 
-    eq = (ref == out) & ~np.isfinite(ref)
+    eq = ref == out
+    if _is_narrow(reference) or _is_narrow(output):
+        eq &= ~np.isfinite(ref)
     ref = np.where(eq, 0.0, ref)
     out = np.where(eq, 0.0, out)
 

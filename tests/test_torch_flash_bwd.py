@@ -79,11 +79,18 @@ def test_backward_matches_jax(impl, case):
         assert bool(torch.isfinite(torch.cat([g.flatten() for g in out])).all())
 
 
-def test_fused_wrapper_takes_the_plain_version_on_cpu():
-    arrays = [torch.from_numpy(a) for a in make_inputs(4, 2, 64, 96, True, None)]
-    want = reference_attention_backward(*arrays, is_causal=True)
-    got = flash_bwd_fused.flash_attention_backward_fused(*arrays, is_causal=True)
-    assert all(torch.equal(a, b) for a, b in zip(want, got))
+@pytest.mark.parametrize("launcher", ["fused", "dq", "dkv"])
+def test_kernel_launchers_refuse_cpu_tensors(launcher):
+    """Only flash_attention_backward takes CPU tensors (to the plain
+    version); each kernel's launcher raises on them and counts nothing."""
+    q, k, v, o, do, lse = (torch.from_numpy(a) for a in make_inputs(4, 2, 64, 96, True, None))
+    call = {
+        "fused": lambda: flash_bwd_fused.flash_attention_backward_fused(q, k, v, o, do, lse),
+        "dq": lambda: flash_bwd.flash_bwd_dq(q, k, v, o, do, lse),
+        "dkv": lambda: flash_bwd.flash_bwd_dkv(q, k, v, do, lse, lse),
+    }[launcher]
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        call()
     assert flash_bwd.DQ_LAUNCHES == flash_bwd.DKV_LAUNCHES == flash_bwd_fused.LAUNCHES == 0
 
 
@@ -157,11 +164,11 @@ def test_bad_shapes_raise(bad):
         flash_bwd.flash_attention_backward(q, k, v, o, do, lse)
 
 
-def test_verify_counts_equal_entries_in_the_cosine():
+def test_verify_counts_equal_bf16_entries_in_the_cosine():
     """Two bf16 gradients equal bit for bit except one rounding difference
-    pass the gate: equal entries count toward the cosine (the JAX verify
-    drops them and would see only the difference). Matching -inf still
-    counts as zero error."""
+    pass the gate: equal entries of narrow types count toward the cosine
+    (the JAX verify drops them and would see only the difference). Matching
+    -inf still counts as zero error."""
     ref = torch.linspace(-1, 1, 4096).to(torch.bfloat16)
     out = ref.clone()
     out[7] = torch.nextafter(out[7], torch.tensor(2.0, dtype=torch.bfloat16))
@@ -170,3 +177,23 @@ def test_verify_counts_equal_entries_in_the_cosine():
     lse = torch.tensor([float("-inf"), 1.0, 2.0])
     rep = verify_results(lse, lse + torch.tensor([0.0, 1e-6, 0.0]), atol=1e-3)
     assert rep.passed and rep.max_abs_err < 1e-5, rep
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_verify_matches_jax_verify_on_float32(dtype):
+    """float32 operands get the JAX package's rule (equal entries drop out
+    of the cosine), so the port-vs-JAX tests bind as tightly as its own;
+    bf16 ones keep them. The case: equal but for the two entries nearest
+    zero, whose signs flip (well inside atol; their own cosine is -1)."""
+    from flashattn_tpu.utils.verify import verify_results as jax_verify
+
+    ref = torch.linspace(-1, 1, 4096).to(dtype)
+    out = ref.clone()
+    out[2047:2049] = -ref[2047:2049]
+    ours = verify_results(ref, out, atol=1e-2)
+    theirs = jax_verify(ref.float().numpy(), out.float().numpy(), atol=1e-2)
+    if dtype == torch.float32:
+        assert (ours.passed, ours.cosine) == (theirs.passed, theirs.cosine), (ours, theirs)
+        assert not ours.passed
+    else:
+        assert ours.passed and not theirs.passed, (ours, theirs)
