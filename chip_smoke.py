@@ -4,29 +4,41 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the four CUDA libraries from csrc/ (into build/flashattn_tpu_torch/,
-one nvcc each, all at once) and runs six phases, printing one line per
+Builds the five CUDA libraries from csrc/ (into build/flashattn_tpu_torch/,
+one nvcc each, all at once) and runs nine phases, printing one line per
 check:
 
 1. environment: torch/CUDA versions, the card's name and power limit, the
    kernels' build time and their compiler report;
 2. each kernel against its plain PyTorch version on the card, at the
    serving and training paths' shapes and at their edges (K1 also at every
-   backward case, where it makes the backward's O and LSE), with the
-   tolerance printed beside each result; kernel, plain version and the
-   PyTorch library call (SDPA, timed only, never used by the port) timed
-   on the card;
+   backward case, where it makes the backward's O and LSE; K2 on int8 and
+   fp8 caches at T 1 and T 256; the paged K2 against the dense K2, bit for
+   bit; qmm8/qmm4 on LLAMA_1B's five projection shapes), with the tolerance
+   printed beside each result; kernel, plain version and the PyTorch library
+   call (SDPA, or torch.matmul on the dequantized weight; timed only, never
+   used by the port) timed on the card;
 3. LLAMA_1B at full width (random weights from a seed): prefill of a
    150-token prompt and 4 teacher-forced decode steps through the kernels,
-   against the same run with every attention call on the plain version;
-4. the InferenceServer at LLAMA_1B width with 4 slots and max_len 2048 on 8
+   against the same run with every kernel call on its plain version;
+4. the same for four quantized setups (int8 weights, int4 weights, int8 KV
+   cache, fp8 KV cache), and a prefix admission (pages gathered back,
+   chunk_step on the suffix) against the full prompt's prefill;
+5. the InferenceServer at LLAMA_1B width with 4 slots and max_len 2048 on 8
    requests of 32 new tokens, counting the kernels' launches;
-5. one LLAMA_1B AdamW train step at B 4, S 2048 through the kernels (K1 and
+6. the quantized paged server (int8 weights, int8 KV cache, pages of 256) on
+   the same traffic: dense, paged with a pool one page short (backpressure),
+   and paged with a registered 512-token prefix, chunked admission and
+   logprobs; the launches of the three runs counted together;
+7. one LLAMA_1B AdamW train step at B 4, S 2048 through the kernels (K1 and
    the fused backward), against the same step on the plain route from the
    same weights: loss, grad_norm and every parameter's gradient;
-6. train.train for 6 AdamW steps on one repeated batch with the
+8. train.train for 6 AdamW steps on one repeated batch with the
    deterministic split backward selected by FLASHATTN_BWD_IMPL=split, the
-   loss falling; ms, tokens/s and peak memory per step.
+   loss falling; ms, tokens/s and peak memory per step;
+9. the `kernels` JSON line: every kernel with its launches on the path that
+   runs it, its error against its plain version, its time, bound, plain and
+   library times.
 
 Any failed check raises: the script then exits nonzero and does not print
 its last line. It needs a CUDA device and never falls back to the CPU. The
@@ -36,6 +48,7 @@ JAX package is not imported.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import math
 import os
@@ -51,14 +64,15 @@ from flashattn_tpu_torch.models import generate, llama, train
 from flashattn_tpu_torch.models.config import LLAMA_1B
 from flashattn_tpu_torch.models.llama import init_params
 from flashattn_tpu_torch.models.serve import InferenceServer, Request
-from flashattn_tpu_torch.ops import _build, decode, flash_bwd, flash_bwd_fused, flash_fwd
+from flashattn_tpu_torch.ops import (_build, decode, flash_bwd, flash_bwd_fused, flash_fwd,
+                                     kvcache, paged, quant_matmul)
 from flashattn_tpu_torch.ops.attention import plain_flash_attention
 from flashattn_tpu_torch.ops.kvcache import KVCache
 from flashattn_tpu_torch.utils.timing import attention_flops, cuda_time_ms
 from flashattn_tpu_torch.utils.verify import verify_results
 
 SEED = 0
-LIBRARIES = ("flash_fwd", "decode", "flash_bwd", "flash_bwd_fused")
+LIBRARIES = ("flash_fwd", "decode", "flash_bwd", "flash_bwd_fused", "quant_matmul")
 O_ATOL = 2e-2  # bf16 outputs against the fp32 plain version
 LSE_ATOL = 1e-2
 GRAD_TOL = {  # gradients against the plain version on the same inputs
@@ -75,10 +89,19 @@ LOSS_ATOL = 1e-2
 GRAD_COS = 0.99
 GRAD_NORM_REL = 0.02
 TRAIN_B, TRAIN_S = 4, 2048  # benchmarks/train_bench.py's default shape
+# Quantized decode against its plain version: the JAX package's
+# quantized-decode gate (tests/test_decode.py), plus cos > 0.999.
+QUANT_DECODE_TOL = dict(rtol=2e-2, atol=2e-2)
+QMM_TOL = dict(atol=2e-2, rtol=1e-2)  # bf16 outputs, fp32 sums in another order
+# LLAMA_1B's projection shapes (K, N): wq/wo, wk/wv, w_gate/w_up, w_down, lm_head.
+QMM_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 32000)]
+QMM_TIMED = (2048, 5632)  # the gate/up projection: the JSON line's time
+PAGE = 256
 # The card's published peaks (H100 SXM data sheet, dense): the bound of a
 # kernel is the larger of its bytes over HBM and its operations over these.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12,
+              kvcache.FP8_DTYPE: 1979e12}
 
 
 def check(ok: bool, what: str) -> None:
@@ -122,15 +145,17 @@ def kernel_label(mangled: str) -> str:
     m = re.search(r"\d+([a-z_]+_kernel)I(.*?)E+v", mangled)
     if m is None:
         return mangled
-    types = {"13__nv_bfloat16": "bf16", "f": "float"}
-    args = [t.group(1) or types[t.group(0)]
-            for t in re.finditer(r"13__nv_bfloat16|f|Li(\d+)", m.group(2))]
+    types = {"13__nv_bfloat16": "bf16", "13__nv_fp8_e4m3": "fp8", "f": "float", "a": "int8"}
+    args = []
+    for t in re.finditer(r"13__nv_bfloat16|13__nv_fp8_e4m3|S\d*_|Li(\d+)|f|a", m.group(2)):
+        # S_, S0_, ... repeat a type already named: the first, in these kernels
+        args.append(t.group(1) or (args[0] if t.group(0).startswith("S") else types[t.group(0)]))
     return f"{m.group(1)}<{', '.join(args)}>"
 
 
-def _gate(name: str, ref, out, atol: float) -> float:
-    rep = verify_results(ref, out, atol=atol)
-    print(f"[kernels] {name}: {rep} (atol={atol}, rtol=1e-2, cos>0.999)")
+def _gate(name: str, ref, out, atol: float, rtol: float = 1e-2) -> float:
+    rep = verify_results(ref, out, atol=atol, rtol=rtol)
+    print(f"[kernels] {name}: {rep} (atol={atol}, rtol={rtol}, cos>0.999)")
     check(rep.passed, f"{name} disagrees with its plain version: {rep}")
     return rep.max_abs_err
 
@@ -267,7 +292,174 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
                        library_ms=k2_lib, **k2_bound),
     }
     timed.update(backward)
+    timed.update(quantized_decode_kernels(gen))
+    timed.update(paged_decode_kernel(gen))
+    timed.update(quant_matmul_kernels(gen))
     return timed
+
+
+def randn(shape, gen, dtype=torch.bfloat16) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, dtype=dtype, device="cuda")
+
+
+DEC_B, DEC_HQ, DEC_HKV, DEC_D, DEC_SMAX = 4, 32, 4, 64, 2048
+DEC_LENGTHS = [1, 77, 1500, 2048]
+
+
+def quantized_cache(quant: str, gen: torch.Generator) -> KVCache:
+    """The decode step's cache (B 4, Hkv 4, Smax 2048, D 64), filled with
+    quantized random tokens, with NaN past every length (fp8 code 0x7f and
+    NaN scales), as a recycled slot may hold."""
+    shape = (DEC_B, DEC_HKV, DEC_SMAX, DEC_D)
+    cache = kvcache.init_cache(DEC_B, DEC_HKV, DEC_SMAX, DEC_D, quant=quant)
+    kvcache.update_cache(cache, randn(shape, gen), randn(shape, gen), assume_fits=True)
+    cache.length.copy_(torch.tensor(DEC_LENGTHS, dtype=torch.int32))
+    for i, n in enumerate(DEC_LENGTHS):
+        if quant == "fp8":
+            cache.k.view(torch.uint8)[i, :, n:] = 0x7F
+            cache.v.view(torch.uint8)[i, :, n:] = 0x7F
+        cache.k_scale[i, :, :, n:] = float("nan")
+        cache.v_scale[i, :, :, n:] = float("nan")
+    return cache
+
+
+def decode_bound(cache_dtype: torch.dtype, qd: torch.Tensor) -> dict:
+    """One decode step over the live cache: K and V once (one byte a value
+    when quantized, plus two f32 scales a token and kv head), q and O once."""
+    live = sum(DEC_LENGTHS)
+    esize = torch.empty((), dtype=cache_dtype).element_size()
+    n_bytes = 2 * DEC_HKV * live * (DEC_D * esize + (4 if esize == 1 else 0))
+    n_bytes += 2 * nbytes(qd) + 4 * DEC_B
+    return bound(n_bytes, 4.0 * DEC_HQ * DEC_D * live, cache_dtype)
+
+
+def quantized_decode_kernels(gen: torch.Generator) -> dict[str, dict]:
+    """K2's int8 and fp8 modes against their plain version (int8 P
+    requantized per 64-position tile, as the kernel does), at the decode
+    step's shape with T 1 and T 256 (2048 query rows: the row tiling), then
+    timed at T 1."""
+    out = {}
+    for quant in ("int8", "fp8"):
+        cache = quantized_cache(quant, gen)
+        err = 0.0
+        for t in (1, 256):
+            q = randn((DEC_B, DEC_HQ, t, DEC_D), gen)
+            ref = decode.decode_attention_reference(q, cache, requant_block=decode.BLOCK_KV)
+            o = (decode.decode_attention(q[:, :, 0].contiguous(), cache)[:, :, None]
+                 if t == 1 else decode.decode_attention_chunk(q, cache))
+            torch.cuda.synchronize()
+            tag = (f"K2 {quant} B={DEC_B} Hq={DEC_HQ} Hkv={DEC_HKV} D={DEC_D} "
+                   f"Smax={DEC_SMAX} T={t} lengths={DEC_LENGTHS} (NaN past each length)")
+            check(bool(torch.isfinite(o).all()), f"{tag}: non-finite output")
+            err = max(err, _gate(tag, ref, o, **QUANT_DECODE_TOL))
+            if quant == "int8":  # not a gate: the JAX kernel's requantization block
+                jax_ref = decode.decode_attention_reference(q, cache)
+                print(f"[kernels] {tag}, for information, against the plain version "
+                      f"requantizing P over the JAX kernel's block "
+                      f"({decode.jax_int8_block(DEC_SMAX)} positions, not 64): "
+                      f"{verify_results(jax_ref, o, **QUANT_DECODE_TOL)}")
+        qd = randn((DEC_B, DEC_HQ, DEC_D), gen)
+        ms = cuda_time_ms(lambda: decode.decode_attention(qd, cache))
+        plain = cuda_time_ms(lambda: decode.decode_attention_reference(
+            qd[:, :, None], cache, requant_block=decode.BLOCK_KV))
+        lim = decode_bound(cache.k.dtype, qd)
+        print(f"[kernels] K2 {quant} T=1 decode step: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"bound {lim['bound_ms']:.4f} ms by {lim['bound_by']}, no library call")
+        out[f"decode_{quant}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+                                      **lim)
+    return out
+
+
+def paged_copy(cache: KVCache, gen: torch.Generator) -> paged.PagedKVCache:
+    """The dense cache's content in a pool of PAGE-token pages in scrambled
+    order; table entries past each sequence's pages hold the sentinel."""
+    b, hkv, s_max, d = cache.k.shape
+    maxp = s_max // PAGE
+    quant = None if not cache.quantized else (
+        "int8" if cache.k.dtype == torch.int8 else "fp8")
+    pool = paged.init_paged_cache(b, hkv, b * maxp + 3, PAGE, d, maxp,
+                                  dtype=cache.k.dtype if quant is None else torch.bfloat16,
+                                  quant=quant)
+    perm = torch.randperm(b * maxp + 3, generator=torch.Generator().manual_seed(SEED)).tolist()
+    for i in range(b):
+        n = int(cache.length[i])
+        live = paged.pages_needed(n, PAGE)
+        table = perm[i * maxp:i * maxp + live] + [pool.num_pages] * (maxp - live)
+        row = KVCache(k=cache.k[i:i + 1], v=cache.v[i:i + 1], length=cache.length[i:i + 1],
+                      k_scale=None if quant is None else cache.k_scale[i:i + 1],
+                      v_scale=None if quant is None else cache.v_scale[i:i + 1])
+        paged.write_pages(pool, row, table)
+        paged.set_block_table(pool, i, table, n)
+    return pool
+
+
+def paged_decode_kernel(gen: torch.Generator) -> dict[str, dict]:
+    """The paged K2 (B7) on bf16 and int8 pools of 256-token pages in
+    scrambled order: torch.equal against the dense K2 on the same content at
+    T 1 and T 256, and its plain version; timed at T 1 on the int8 pool."""
+    bf16_cache = KVCache(k=randn((DEC_B, DEC_HKV, DEC_SMAX, DEC_D), gen),
+                         v=randn((DEC_B, DEC_HKV, DEC_SMAX, DEC_D), gen),
+                         length=torch.tensor(DEC_LENGTHS, dtype=torch.int32, device="cuda"))
+    err = 0.0
+    for cache in (bf16_cache, quantized_cache("int8", gen)):
+        pool = paged_copy(cache, gen)
+        mode = "int8" if cache.quantized else "bf16"
+        for t in (1, 256):
+            q = randn((DEC_B, DEC_HQ, t, DEC_D), gen)
+            o = paged.paged_decode_attention_chunk(q, pool)
+            dense = decode.decode_attention_chunk(q, cache)
+            torch.cuda.synchronize()
+            tag = f"paged K2 {mode} page={PAGE} scrambled T={t} lengths={DEC_LENGTHS}"
+            check(torch.equal(o, dense), f"{tag}: differs from the dense K2")
+            print(f"[kernels] {tag}: torch.equal to the dense K2 on the same content")
+            ref = paged.paged_decode_reference(q, pool, requant_block=decode.BLOCK_KV)
+            tol = QUANT_DECODE_TOL if cache.quantized else dict(atol=O_ATOL)
+            err = max(err, _gate(tag, ref, o, **tol))
+    qd = randn((DEC_B, DEC_HQ, DEC_D), gen)
+    ms = cuda_time_ms(lambda: paged.paged_decode_attention(qd, pool))
+    plain = cuda_time_ms(lambda: paged.paged_decode_reference(
+        qd[:, :, None], pool, requant_block=decode.BLOCK_KV))
+    lim = decode_bound(torch.int8, qd)
+    print(f"[kernels] paged K2 int8 T=1 decode step: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"bound {lim['bound_ms']:.4f} ms by {lim['bound_by']}, no library call")
+    return {"paged_decode": dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+                                 **lim)}
+
+
+def quant_matmul_kernels(gen: torch.Generator) -> dict[str, dict]:
+    """qmm8 and qmm4 against their plain version on LLAMA_1B's five
+    projection shapes at M 4 (a decode step) and M 256 (a prefill bucket);
+    each timed at M 4, the (2048, 5632) one giving the JSON line's numbers,
+    beside torch.matmul on the dequantized bf16 weight."""
+    out = {}
+    for bits in (8, 4):
+        err, entry = 0.0, None
+        for k, n in QMM_SHAPES:
+            qw = quant_matmul.quantize_weights(randn((k, n), gen) * 0.02, bits)
+            for m in (4, 256):
+                x = randn((m, k), gen)
+                y = quant_matmul.quant_matmul(x, qw)
+                torch.cuda.synchronize()
+                err = max(err, _gate(f"qmm{bits} M={m} K={k} N={n}",
+                                     quant_matmul.quant_matmul_reference(x, qw), y, **QMM_TOL))
+            x = randn((4, k), gen)
+            w_bf16 = quant_matmul.dequantize_weights(qw).to(torch.bfloat16)
+            x256 = randn((256, k), gen)
+            ms = cuda_time_ms(lambda: quant_matmul.quant_matmul(x, qw))
+            ms256 = cuda_time_ms(lambda: quant_matmul.quant_matmul(x256, qw))
+            plain = cuda_time_ms(lambda: quant_matmul.quant_matmul_reference(x, qw))
+            lib = cuda_time_ms(lambda: torch.matmul(x, w_bf16))
+            lim = bound(nbytes(x, qw.w, qw.scale) + 4 * n * 2, 2.0 * 4 * k * n, torch.bfloat16)
+            print(f"[kernels] qmm{bits} K={k} N={n}: kernel {ms:.4f} ms at M=4 "
+                  f"({nbytes(qw.w) / (ms * 1e-3) / 1e9:.1f} GB/s of weights), {ms256:.4f} ms "
+                  f"at M=256 ({2.0 * 256 * k * n / (ms256 * 1e-3) / 1e12:.2f} TFLOP/s); "
+                  f"plain {plain:.4f} ms, torch.matmul on the dequantized bf16 weight "
+                  f"{lib:.4f} ms, bound {lim['bound_ms']:.4f} ms by {lim['bound_by']} (M=4)")
+            if (k, n) == QMM_TIMED:
+                entry = dict(ms=ms, plain_ms=plain, library_ms=lib, **lim)
+            del qw, w_bf16
+        out[f"qmm{bits}"] = dict(max_abs_err=err, **entry)
+    return out
 
 
 BWD_CASES = [
@@ -375,59 +567,157 @@ def time_backward(q, k, v, o, do, lse):
     return out
 
 
-@contextlib.contextmanager
-def plain_attention():
-    """Route the model's attention calls to the plain versions."""
-    saved = generate.flash_attention, generate.decode_attention
-    generate.flash_attention = (
+_ROUTED = {  # generation's kernel entry points -> their plain versions
+    (generate, "flash_attention"): (
         lambda q, k, v, is_causal=False, scale=None:
         flash_fwd.flash_attention_forward_reference(q, k, v, is_causal, scale,
-                                                    need_lse=False)[0])
-    generate.decode_attention = (
+                                                    need_lse=False)[0]),
+    (generate, "decode_attention"): (
         lambda q, cache, scale=None:
-        decode.decode_attention_reference(q[:, :, None], cache, scale)[:, :, 0])
+        decode.decode_attention_reference(q[:, :, None], cache, scale)[:, :, 0]),
+    (generate, "decode_attention_chunk"): (
+        lambda q, cache, scale=None: decode.decode_attention_reference(q, cache, scale)),
+    (generate, "paged_decode_attention"): (
+        lambda q, cache, scale=None:
+        paged.paged_decode_reference(q[:, :, None], cache, scale)[:, :, 0]),
+    (generate, "paged_decode_attention_chunk"): (
+        lambda q, cache, scale=None: paged.paged_decode_reference(q, cache, scale)),
+    (llama, "quant_matmul"): (
+        lambda x, qw, out_dtype=None: quant_matmul.quant_matmul_reference(x, qw, out_dtype)),
+}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the model's kernel calls (attention and quantized projections)
+    to their plain versions."""
+    saved = {key: getattr(*key) for key in _ROUTED}
+    for (module, name), fn in _ROUTED.items():
+        setattr(module, name, fn)
     try:
         yield
     finally:
-        generate.flash_attention, generate.decode_attention = saved
+        for (module, name), fn in saved.items():
+            setattr(module, name, fn)
+
+
+def compare_logits(tag: str, kern: list, plain: list, names: list | None = None) -> None:
+    """The serving logits rule: cosine > LOGIT_COS and max |delta| <= LOGIT_REL * max |ref|."""
+    names = names or ["prefill S=150"] + [f"decode {i}" for i in range(1, len(kern))]
+    for step, (a, r, name) in enumerate(zip(kern, plain, names)):
+        a, r = a.float().flatten(), r.float().flatten()
+        check(bool(torch.isfinite(a).all()), f"{tag} {name}: non-finite logits")
+        cos = float(torch.nn.functional.cosine_similarity(a, r, dim=0))
+        delta = float((a - r).abs().max())
+        lim = LOGIT_REL * float(r.abs().max())
+        print(f"[model] LLAMA_1B {tag} {name}: cos {cos:.6f} (> {LOGIT_COS}), "
+              f"max|d| {delta:.4f} (<= {lim:.4f}), argmax kernel "
+              f"{int(a.argmax())} plain {int(r.argmax())}")
+        check(cos > LOGIT_COS and delta <= lim, f"LLAMA_1B {tag} {name} logits disagree")
+
+
+def generation_run(model, prompt, forced, quant=None) -> list[torch.Tensor]:
+    """A 150-token prefill and 4 teacher-forced decode steps; their logits."""
+    caches = generate.init_caches(model, 1, 2048, quant=quant)
+    logits, caches = generate.prefill(model, prompt, caches)
+    out = [logits]
+    for i in range(forced.shape[0]):
+        pos = torch.tensor([prompt.shape[1] + i], dtype=torch.int32, device="cuda")
+        logits, caches = generate.decode_step(model, forced[i:i + 1], pos, caches)
+        out.append(logits)
+    torch.cuda.synchronize()
+    return out
 
 
 def phase_model(model, gen: torch.Generator) -> None:
     cfg = model.cfg
     prompt = torch.randint(0, cfg.vocab_size, (1, 150), generator=gen, device="cuda")
     forced = torch.randint(0, cfg.vocab_size, (4,), generator=gen, device="cuda")
-
-    def run() -> list[torch.Tensor]:
-        caches = generate.init_caches(model, 1, 2048)
-        logits, caches = generate.prefill(model, prompt, caches)
-        out = [logits]
-        for i in range(4):
-            pos = torch.tensor([150 + i], dtype=torch.int32, device="cuda")
-            logits, caches = generate.decode_step(model, forced[i:i + 1], pos, caches)
-            out.append(logits)
-        torch.cuda.synchronize()
-        return out
-
     counts = flash_fwd.LAUNCHES, decode.LAUNCHES
-    kern = run()
+    kern = generation_run(model, prompt, forced)
     check((flash_fwd.LAUNCHES - counts[0], decode.LAUNCHES - counts[1])
           == (cfg.num_layers, 4 * cfg.num_layers), "kernel run missed a kernel")
     counts = flash_fwd.LAUNCHES, decode.LAUNCHES
-    with plain_attention():
-        plain = run()
+    with plain_kernels():
+        plain = generation_run(model, prompt, forced)
     check((flash_fwd.LAUNCHES, decode.LAUNCHES) == counts,
           "plain run launched a kernel")
-    for step, (a, r) in enumerate(zip(kern, plain)):
-        a, r = a.float().flatten(), r.float().flatten()
-        check(bool(torch.isfinite(a).all()), f"step {step}: non-finite logits")
-        cos = float(torch.nn.functional.cosine_similarity(a, r, dim=0))
-        delta = float((a - r).abs().max())
-        bound = LOGIT_REL * float(r.abs().max())
-        name = "prefill S=150" if step == 0 else f"decode {step}"
-        print(f"[model] LLAMA_1B {name}: cos {cos:.6f} (> {LOGIT_COS}), "
-              f"max|d| {delta:.4f} (<= {bound:.4f}), argmax kernel "
-              f"{int(a.argmax())} plain {int(r.argmax())}")
-        check(cos > LOGIT_COS and delta <= bound, f"LLAMA_1B {name} logits disagree")
+    compare_logits("bf16", kern, plain)
+
+
+def quantized_copy(model, bits: int):
+    """A copy of the model with int8/int4 projections and head."""
+    return llama.quantize_params(copy.deepcopy(model), bits)
+
+
+def phase_quant_model(model, w8, gen: torch.Generator) -> dict[str, int]:
+    """LLAMA_1B logits, kernels against plain versions, for int8 weights,
+    int4 weights, an int8 and an fp8 KV cache; then a prefix admission
+    against the full prompt's prefill. Returns the launches of this phase
+    (the path of K2's fp8 mode and of qmm4)."""
+    cfg = model.cfg
+    layers = cfg.num_layers
+    prompt = torch.randint(0, cfg.vocab_size, (1, 150), generator=gen, device="cuda")
+    forced = torch.randint(0, cfg.vocab_size, (4,), generator=gen, device="cuda")
+    w4 = quantized_copy(model, 4)
+    per_call = 7 * layers + 1  # projections and the head of one forward
+    setups = [  # tag, model, KV quant, {counter: launches of the kernel run}
+        ("int8 weights", w8, None, {"qmm8": 5 * per_call, "decode": 4 * layers}),
+        ("int4 weights", w4, None, {"qmm4": 5 * per_call, "decode": 4 * layers}),
+        ("int8 KV", model, "int8", {"decode_int8": 4 * layers}),
+        ("fp8 KV", model, "fp8", {"decode_fp8": 4 * layers}),
+    ]
+    reset_launches()
+    for tag, m, quant, want in setups:
+        before = read_launches()
+        kern = generation_run(m, prompt, forced, quant)
+        added = {k: v - before[k] for k, v in read_launches().items()}
+        want = {"flash_fwd": layers, **want}
+        check(all(added[k] == v for k, v in want.items())
+              and not any(v for k, v in added.items() if k not in want),
+              f"{tag}: kernel run launched {added}, want {want}")
+        before = read_launches()
+        with plain_kernels():
+            plain = generation_run(m, prompt, forced, quant)
+        check(read_launches() == before, f"{tag}: plain run launched a kernel")
+        compare_logits(tag, kern, plain)
+    total = read_launches()
+    del w4
+    prefix_admission(w8, gen)
+    return total
+
+
+def prefix_admission(w8, gen: torch.Generator) -> None:
+    """What the server does for a request with a registered prefix: the
+    prefix's K/V prefilled into pages, gathered back to a dense cache, then
+    chunk_step on the bucket-padded suffix (128 tokens: 1024 query rows in
+    K2). Its first-token logits against the full prompt's prefill, with int8
+    weights, for a bf16 and an int8 KV cache."""
+    cfg = w8.cfg
+    n_prefix, n_suffix, bucket = 512, 100, 128
+    prompt = torch.randint(0, cfg.vocab_size, (1, n_prefix + n_suffix), generator=gen,
+                           device="cuda")
+    pages = [3, 1]  # the prefix's two pages, out of order
+    for quant in (None, "int8"):
+        ref, _ = generate.prefill(w8, prompt, generate.init_caches(w8, 1, 2048, quant=quant))
+        _, single = generate.prefill(w8, prompt[:, :n_prefix],
+                                     generate.init_caches(w8, 1, 2048, quant=quant))
+        seeded = []
+        for one in single:
+            pool = paged.init_paged_cache(1, cfg.num_kv_heads, 4, PAGE, cfg.head_dim,
+                                          2048 // PAGE, dtype=cfg.dtype, quant=quant)
+            paged.write_pages(pool, one, pages)
+            seeded.append(paged.pages_to_dense(pool, pages, 2048, length=n_prefix))
+        piece = torch.zeros((1, bucket), dtype=prompt.dtype, device="cuda")
+        piece[:, :n_suffix] = prompt[:, n_prefix:]
+        before = decode.LAUNCHES + decode.INT8_LAUNCHES
+        logits, _ = generate.chunk_step(
+            w8, piece, torch.arange(n_prefix, n_prefix + bucket, device="cuda"), seeded)
+        check(decode.LAUNCHES + decode.INT8_LAUNCHES - before == cfg.num_layers,
+              "prefix admission missed K2")
+        compare_logits(f"int8 weights, {quant or 'bf16'} KV", [logits[0, n_suffix - 1]],
+                       [ref[0]], [f"prefix admission ({n_prefix} shared + {n_suffix} suffix "
+                                  "tokens) first-token logits vs the full prompt's prefill"])
 
 
 def phase_server(model, gen: torch.Generator) -> dict[str, int]:
@@ -465,15 +755,126 @@ def phase_server(model, gen: torch.Generator) -> dict[str, int]:
     return launches
 
 
+# Every kernel's launch counter: (module, attribute) by the kernel's name.
+COUNTERS = {
+    "flash_fwd": (flash_fwd, "LAUNCHES"),
+    "decode": (decode, "LAUNCHES"),
+    "decode_int8": (decode, "INT8_LAUNCHES"),
+    "decode_fp8": (decode, "FP8_LAUNCHES"),
+    "paged_decode": (paged, "LAUNCHES"),
+    "qmm8": (quant_matmul, "QMM8_LAUNCHES"),
+    "qmm4": (quant_matmul, "QMM4_LAUNCHES"),
+    "flash_bwd_fused": (flash_bwd_fused, "LAUNCHES"),
+    "flash_bwd_dq": (flash_bwd, "DQ_LAUNCHES"),
+    "flash_bwd_dkv": (flash_bwd, "DKV_LAUNCHES"),
+}
+
+
+def phase_quant_server(w8, gen: torch.Generator) -> dict[str, int]:
+    """The quantized paged server at LLAMA_1B width (int8 weights, int8 KV,
+    4 slots, max_len 2048, pages of 256) on 8 requests of 32 new tokens:
+    (a) dense, (b) paged with a pool one page short of four live requests,
+    (c) paged with a registered 512-token prefix before four of the prompts,
+    chunked admission of 256 and logprobs. The quantized serving path: the
+    launches are counted from just before (a) to just after (c)."""
+    cfg = w8.cfg
+    layers, per_call = cfg.num_layers, 7 * cfg.num_layers + 1
+    n_new, chunk = 32, 256
+    lens = [16 + (37 * i) % 160 for i in range(8)]
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen, device="cuda").tolist()
+               for n in lens]
+    prefix = torch.randint(0, cfg.vocab_size, (512,), generator=gen, device="cuda").tolist()
+    common = dict(max_slots=4, max_len=2048, quant="int8")
+    runs = {
+        "a dense": dict(),
+        "b paged": dict(paged=True, page_size=PAGE, num_pages=3),
+        "c paged+prefix+chunked": dict(paged=True, page_size=PAGE, num_pages=5,
+                                       admit_chunk=chunk, return_logprobs=True),
+    }
+    torch.cuda.synchronize()
+    reset_launches()
+    results = {}
+    for name, option in runs.items():
+        srv = InferenceServer(w8, **common, **option)
+        before = read_launches()
+        t0 = time.perf_counter()
+        pid = None
+        reqs = list(zip(range(8), prompts))
+        if "prefix" in name:
+            pid = srv.register_prefix(prefix)
+            reqs = [(uid, prefix + p if uid % 2 else p) for uid, p in reqs]
+        for uid, p in reqs:
+            srv.submit(Request(uid=uid, prompt=p, max_new_tokens=n_new,
+                               prefix_id=pid if len(p) > 512 else None))
+        waited = 0  # steps that ended with a free slot but too few free pages
+        while srv.queue or any(not sl.free for sl in srv.slots):
+            srv.step()
+            if srv.paged and srv.queue and any(sl.free for sl in srv.slots):
+                nxt = srv.queue[0]
+                need = paged.pages_needed(len(nxt.prompt) + nxt.max_new_tokens, PAGE) - len(
+                    srv._shared_split(nxt)[1])
+                waited += need > srv.allocator.free_pages
+        got, srv.finished = srv.finished, {}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = srv.stats()
+        added = {k: v - before[k] for k, v in read_launches().items()}
+        check(sorted(got) == list(range(8)), f"{name}: finished {sorted(got)}")
+        for uid, toks in got.items():
+            check(len(toks) == n_new and all(0 <= x < cfg.vocab_size for x in toks),
+                  f"{name} request {uid}: {len(toks)} tokens {toks[:4]}...")
+        steps = st["decode_steps"]
+        if "prefix" in name:
+            chunks = sum(paged.pages_needed(len(p) - (512 if len(p) > 512 else 0), chunk)
+                         for _, p in reqs)
+            want = {"flash_fwd": layers, "paged_decode": layers * (steps + chunks),
+                    "qmm8": per_call * (1 + chunks + steps)}
+            lps = srv.finished_logprobs
+            check(sorted(lps) == list(range(8)) and all(
+                len(v) == n_new and all(math.isfinite(x) and x <= 0.0 for x in v)
+                for v in lps.values()), f"{name}: logprobs {lps}")
+            print(f"[quant-server] {name}: logprobs of all {8 * n_new} tokens finite and <= 0 "
+                  f"(request 1: {[round(x, 4) for x in lps[1][:4]]}...)")
+            print(f"[quant-server] {name}: stats {st}")
+            srv.unregister_prefix(pid)
+            check(srv.allocator.free_pages == srv.allocator.num_pages,
+                  f"{name}: {srv.allocator.free_pages} of {srv.allocator.num_pages} pages free "
+                  "after unregister_prefix")
+        else:
+            kernel = "paged_decode" if srv.paged else "decode_int8"
+            want = {"flash_fwd": layers * 8, kernel: layers * steps,
+                    "qmm8": per_call * (8 + steps)}
+        check(all(added[k] == v for k, v in want.items())
+              and not any(v for k, v in added.items() if k not in want),
+              f"{name}: launched {added}, want {want}")
+        if srv.paged:
+            check(waited > 0, f"{name}: no request waited for pages")
+            check(srv.allocator.free_pages == srv.allocator.num_pages,
+                  f"{name}: pages left allocated")
+        results[name] = got
+        print(f"[quant-server] LLAMA_1B int8 weights, int8 KV, {name}: 8 requests, prompts "
+              f"{[len(p) for _, p in reqs]}, {n_new} new tokens each, all finished in "
+              f"{wall:.3f} s ({8 * n_new / wall:.1f} tokens/s, {steps} decode steps, "
+              f"{waited} steps ended with a request waiting for pages); launches {added}")
+        print(f"[quant-server] {name}: prefill {st['prefill_ms_avg']} ms/request, decode "
+              f"{st['decode_ms_avg']} ms/step, host {st['host_ms_avg']} ms/step, admit "
+              f"{st['admit_ms_avg']} ms/step")
+        if srv.paged:
+            print(f"[quant-server] {name}: pages total {st['pages_total']}, free at the end "
+                  f"{srv.allocator.free_pages}")
+        del srv
+    check(results["b paged"] == results["a dense"], "paged server tokens differ from dense")
+    print("[quant-server] (a) dense and (b) paged servers give equal tokens for all 8 requests")
+    return read_launches()
+
+
 def reset_launches() -> None:
-    flash_fwd.LAUNCHES = decode.LAUNCHES = flash_bwd_fused.LAUNCHES = 0
-    flash_bwd.DQ_LAUNCHES = flash_bwd.DKV_LAUNCHES = 0
+    for module, attr in COUNTERS.values():
+        setattr(module, attr, 0)
 
 
 def read_launches() -> dict[str, int]:
-    return {"flash_fwd": flash_fwd.LAUNCHES, "decode": decode.LAUNCHES,
-            "flash_bwd_fused": flash_bwd_fused.LAUNCHES,
-            "flash_bwd_dq": flash_bwd.DQ_LAUNCHES, "flash_bwd_dkv": flash_bwd.DKV_LAUNCHES}
+    return {name: getattr(module, attr) for name, (module, attr) in COUNTERS.items()}
 
 
 @contextlib.contextmanager
@@ -583,6 +984,7 @@ def phase_trainer(model, gen: torch.Generator) -> dict[str, int]:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     name = phase_environment()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     timed = phase_kernels(gen)
@@ -593,15 +995,28 @@ def main() -> None:
           f"{time.perf_counter() - t0:.2f} s, "
           f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B parameters")
     phase_model(model, gen)
+    w8 = quantized_copy(model, 8)
+    quant_model = phase_quant_model(model, w8, gen)
     launches = phase_server(model, gen)
+    quant_server = phase_quant_server(w8, gen)
+    del w8
+    launches.update({k: quant_server[k] for k in ("decode_int8", "paged_decode", "qmm8")})
+    launches.update({k: quant_model[k] for k in ("decode_fp8", "qmm4")})
     launches["flash_bwd_fused"] = phase_train_step(model, gen)["flash_bwd_fused"]
     split = phase_trainer(model, gen)
     launches.update(flash_bwd_dq=split["flash_bwd_dq"], flash_bwd_dkv=split["flash_bwd_dkv"])
+    decode_src = ("flashattn_tpu_torch/csrc/decode.cu", "flashattn_tpu/ops/decode.py:351")
+    qmm_src = "flashattn_tpu_torch/csrc/quant_matmul.cu"
     sources = {
         "flash_fwd": ("flashattn_tpu_torch/csrc/flash_fwd.cu",
                       "flashattn_tpu/ops/flash_fwd.py:469"),
-        "decode": ("flashattn_tpu_torch/csrc/decode.cu",
-                   "flashattn_tpu/ops/decode.py:351"),
+        "decode": decode_src,
+        "decode_int8": decode_src,
+        "decode_fp8": decode_src,
+        "paged_decode": ("flashattn_tpu_torch/csrc/decode.cu",
+                         "flashattn_tpu/ops/paged.py:378"),
+        "qmm8": (qmm_src, "flashattn_tpu/ops/quant_matmul.py:81"),
+        "qmm4": (qmm_src, "flashattn_tpu/ops/quant_matmul.py:123"),
         "flash_bwd_fused": ("flashattn_tpu_torch/csrc/flash_bwd_fused.cu",
                             "flashattn_tpu/ops/flash_bwd_fused.py:336"),
         "flash_bwd_dq": ("flashattn_tpu_torch/csrc/flash_bwd.cu",
@@ -614,6 +1029,9 @@ def main() -> None:
          "launches": launches[k], **timed[k]}
         for k, (src, rep) in sources.items()
     ]
+    check(all(k["launches"] > 0 for k in kernels),
+          f"a kernel was never launched on its path: {[k['name'] for k in kernels if not k['launches']]}")
+    print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

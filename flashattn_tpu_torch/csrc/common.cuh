@@ -3,6 +3,7 @@
 
 #include <cfloat>
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -15,7 +16,7 @@ constexpr float kMaskValue = -0.7f * FLT_MAX;
 constexpr float kLn2 = 0.69314718055994531f;
 
 // Element types the kernels take; the Python wrappers pass these codes.
-enum DType : int { kF32 = 0, kBF16 = 1 };
+enum DType : int { kF32 = 0, kBF16 = 1, kInt8 = 2, kFp8 = 3 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -47,6 +48,24 @@ template <> __device__ __forceinline__ void widen16<__nv_bfloat16>(const uint4& 
   for (int i = 0; i < 4; ++i) {  // element 2i is the low half of word i
     out[2 * i] = __uint_as_float(w[i] << 16);
     out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// 16 one-byte cache values (int8, or e4m3 converted exactly: every e4m3
+// code, subnormals included, is a float) in memory order.
+template <> __device__ __forceinline__ void widen16<int8_t>(const uint4& raw, float* out) {
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    out[i] = static_cast<float>(static_cast<int8_t>((w[i / 4] >> (8 * (i % 4))) & 0xffu));
+}
+template <> __device__ __forceinline__ void widen16<__nv_fp8_e4m3>(const uint4& raw, float* out) {
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    __nv_fp8_e4m3 f;
+    f.__x = static_cast<__nv_fp8_storage_t>((w[i / 4] >> (8 * (i % 4))) & 0xffu);
+    out[i] = static_cast<float>(f);
   }
 }
 

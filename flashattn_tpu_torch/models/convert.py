@@ -2,7 +2,8 @@
 
 Both packages keep projections in [in, out] layout under the same names, so
 the conversion is a plain copy: no transposes, no renames beyond flattening
-``layers[i][name]`` into ``layers.{i}.{name}``.
+``layers[i][name]`` into ``layers.{i}.{name}``. Weight-only quantized
+projections keep their bytes too (int8, or the packed int4 layout).
 """
 
 from __future__ import annotations
@@ -23,11 +24,23 @@ def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     for name, value in tree.items():
         if name == "layers":
             for i, layer in enumerate(value):
-                for key, arr in layer.items():
-                    state_dict[f"layers.{i}.{key}"] = _tensor(arr)
+                for key, leaf in layer.items():
+                    _put(state_dict, f"layers.{i}.{key}", leaf)
         else:
-            state_dict[name] = _tensor(value)
+            _put(state_dict, name, value)
     return state_dict
+
+
+def _put(state_dict: dict[str, torch.Tensor], name: str, leaf) -> None:
+    """A plain array, or a weight-only quantized projection: an object with
+    the fields ``w``, ``scale``, ``bits`` and ``k`` (the JAX package's
+    QuantizedLinear), whose bytes become ``<name>.w`` and ``<name>.scale``
+    of a model quantized with llama.quantize_params at the same bits."""
+    if all(hasattr(leaf, f) for f in ("w", "scale", "bits", "k")):
+        state_dict[f"{name}.w"] = _tensor(leaf.w)
+        state_dict[f"{name}.scale"] = _tensor(leaf.scale)
+    else:
+        state_dict[name] = _tensor(leaf)
 
 
 def _tensor(arr) -> torch.Tensor:

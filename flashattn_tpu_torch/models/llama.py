@@ -16,6 +16,12 @@ from torch import nn
 from flashattn_tpu_torch.models.config import ModelConfig, check_supported
 from flashattn_tpu_torch.ops.attention import flash_attention
 from flashattn_tpu_torch.ops.common import card_device, unported
+from flashattn_tpu_torch.ops.quant_matmul import (QuantizedLinear, quant_matmul,
+                                                  quantize_weights)
+
+# Projections eligible for weight-only quantization: everything but the
+# embedding (a gather, not a product) and the norms.
+_QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
 class LlamaLayer(nn.Module):
@@ -100,10 +106,34 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return model
 
 
-def proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w with w in [in, out] layout (cuBLAS on the card, as the JAX
-    package leaves its dense projections to XLA)."""
+def proj(x: torch.Tensor, w, out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """x @ w with w in [in, out] layout: a QuantizedLinear goes through the
+    int8/int4 kernels (ops/quant_matmul.py), a plain weight through
+    torch.matmul (cuBLAS on the card, as the JAX package leaves its dense
+    projections to XLA)."""
+    if isinstance(w, QuantizedLinear):
+        y = quant_matmul(x.reshape(-1, x.shape[-1]), w, out_dtype=out_dtype)
+        return y.reshape(*x.shape[:-1], w.out_features)
     return torch.matmul(x, w)
+
+
+@torch.no_grad()
+def quantize_params(model: Llama, bits: int = 8) -> Llama:
+    """Weight-only quantization of every projection and of an untied
+    lm_head, IN PLACE: each becomes a QuantizedLinear module (buffers ``w``
+    and ``scale``, quantized as the JAX package's quantize_params does). The
+    embedding and the norms stay in the compute dtype. Returns `model`."""
+    def swap(module: nn.Module, name: str) -> None:
+        qw = quantize_weights(getattr(module, name), bits)
+        delattr(module, name)  # a parameter slot takes no module
+        setattr(module, name, qw)
+
+    if not model.cfg.tie_embeddings:
+        swap(model, "lm_head")
+    for layer in model.layers:
+        for key in _QUANT_KEYS:
+            swap(layer, key)
+    return model
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float,
@@ -126,12 +156,16 @@ def embed_tokens(model: Llama, tokens: torch.Tensor) -> torch.Tensor:
 def lm_logits(x: torch.Tensor, model: Llama) -> torch.Tensor:
     """Final norm -> head -> optional final soft-cap; float32 logits.
 
-    The head product runs in the model's dtype and is cast afterwards, so
-    bf16 models carry bf16-rounded logits."""
+    A plain head's product runs in the model's dtype and is cast afterwards,
+    so bf16 models carry bf16-rounded logits; a quantized head writes f32
+    logits, as the JAX package's does."""
     cfg = model.cfg
     x = rms_norm(x, model.final_norm, cfg.norm_eps, cfg.norm_offset)
     head = model.embed.t() if cfg.tie_embeddings else model.lm_head
-    logits = proj(x, head).float()
+    if isinstance(head, QuantizedLinear):  # f32 straight from the accumulator
+        logits = proj(x, head, out_dtype=torch.float32)
+    else:
+        logits = proj(x, head).float()
     if cfg.final_logit_softcap:
         cap = cfg.final_logit_softcap
         logits = torch.tanh(logits / cap) * cap

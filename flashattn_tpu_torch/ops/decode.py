@@ -1,10 +1,17 @@
-"""Flash-decode (counterpart of flashattn_tpu/ops/decode.py, bf16/f32 cache).
+"""Flash-decode (counterpart of flashattn_tpu/ops/decode.py).
 
 ``decode_attention`` and ``decode_attention_chunk`` launch kernel K2
-(csrc/decode.cu) on CUDA tensors: split-KV over the cache's positions, then
-a merge of the slices. The new tokens' K/V must already be in the cache
-(kvcache.update_cache): token t of a T-token chunk sits at position
-length - T + t and attends the positions <= its own.
+(csrc/decode.cu) on CUDA tensors: split-KV over the cache's positions, the
+query rows tiled over the grid, then a merge of the slices. The cache may
+be bf16/f32 or quantized (int8, fp8). The new tokens' K/V must already be in
+the cache (kvcache.update_cache): token t of a T-token chunk sits at
+position length - T + t and attends the positions <= its own.
+
+In the int8 mode both products run on integers, as in the JAX kernel: q is
+quantized per row here, outside the kernel (``prep_decode_q``), the logits
+are int(q·k) x q_scale x k_scale, and P x v_scale is requantized per row to
+int8 before P·V. The fp8 mode converts k and v exactly and folds k_scale
+into the logits and v_scale into P.
 """
 
 from __future__ import annotations
@@ -14,14 +21,20 @@ import torch
 from flashattn_tpu_torch.ops import _build
 from flashattn_tpu_torch.ops.common import LOG2E, cdiv, round_up, unported
 from flashattn_tpu_torch.ops.flash_fwd import DTYPE_CODES, HEAD_DIMS
-from flashattn_tpu_torch.ops.kvcache import KVCache
+from flashattn_tpu_torch.ops.kvcache import FP8_DTYPE, INT8_MAX, KVCache
 
-# Kernel launches in this process (set to 0 by callers that count a run).
-LAUNCHES = 0
+# Kernel launches in this process, by the cache's mode (set to 0 by callers
+# that count a run). Paged launches count in ops/paged.py.
+LAUNCHES = 0  # bf16/f32 cache
+INT8_LAUNCHES = 0
+FP8_LAUNCHES = 0
 
 BLOCK_KV = 64  # cache positions per tile in the kernel
+ROW_BLOCK = 64  # query rows per CTA (csrc/decode.cu kRowBlock)
 # Aim for this many CTAs in the split pass: two per SM of an H100.
 TARGET_CTAS = 264
+# Storage dtype -> the kernel's cache-type code (csrc/common.cuh DType).
+CACHE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, FP8_DTYPE: 3}
 
 
 def _check_unported(window, sink, logit_softcap, alibi) -> None:
@@ -33,13 +46,44 @@ def _check_unported(window, sink, logit_softcap, alibi) -> None:
         raise unported("decode ALiBi", "A5")
 
 
+def prep_decode_q(q: torch.Tensor, hkv: int, int8_mode: bool, pre: float):
+    """q [B, Hq, T, D] -> grouped [B, Hkv, G*T, D] rows scaled by `pre`, and
+    in the int8 mode quantized per row: (int8 rows, q_scale [B, Hkv, R, 1]),
+    with the arithmetic of the JAX launcher as XLA compiles it (the amax
+    times f32(1 / 127), as in kvcache.quantize_tokens)."""
+    b, hq, t, d = q.shape
+    q_pre = (q.float() * pre).reshape(b, hkv, (hq // hkv) * t, d)
+    if int8_mode:
+        q_scale = torch.clamp_min(
+            q_pre.abs().amax(dim=-1, keepdim=True) * (1.0 / INT8_MAX), 1e-8)
+        q8 = torch.clamp(torch.round(q_pre / q_scale), -INT8_MAX, INT8_MAX)
+        return q8.to(torch.int8), q_scale
+    return q_pre.to(q.dtype), None
+
+
+def jax_int8_block(s_max: int) -> int:
+    """The block over which the JAX kernel requantizes P in the int8 mode:
+    its default block_kv (4096), clamped to Smax and stepped down by 128
+    until it divides Smax (flashattn_tpu/ops/decode.py:382-392)."""
+    block = min(4096, s_max)
+    while s_max % block:
+        block -= 128
+    return block
+
+
 def decode_attention_reference(
     q: torch.Tensor, cache: KVCache, scale: float | None = None,
+    requant_block: int | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of K2: q [B, Hq, T, D] -> [B, Hq, T, D].
 
     fp32 math. Cache rows at or past a sequence's length are zeroed before
-    use, so garbage (even NaN) there cannot reach the result."""
+    use, so garbage (even NaN) there cannot reach the result. An int8 cache
+    requantizes P over blocks of `requant_block` positions: by default the
+    JAX kernel's block (jax_int8_block), which makes this the JAX kernel's
+    arithmetic; BLOCK_KV gives the CUDA kernel's."""
+    if cache.quantized:
+        return _quantized_reference(q, cache, scale, requant_block)
     b, hq, t, d = q.shape
     hkv, s_max = cache.k.shape[1], cache.k.shape[2]
     group = hq // hkv
@@ -66,12 +110,133 @@ def decode_attention_reference(
     return o.reshape(b, hq, t, d).to(q.dtype)
 
 
-def _num_splits(b: int, hkv: int, s_max: int) -> tuple[int, int]:
+def _quantized_reference(q: torch.Tensor, cache: KVCache, scale: float | None,
+                         requant_block: int | None) -> torch.Tensor:
+    """Plain version of K2's int8 and fp8 modes, in the JAX kernel's order of
+    operations (log2 domain, k_scale on the logits, v_scale on P). In the
+    int8 mode the row streams in blocks, as in the kernels: each block's
+    P x v_scale (P against the running row maximum) is requantized to int8
+    over the block, and the partial sums merge online."""
+    b, hq, t, d = q.shape
+    hkv, s_max = cache.k.shape[1], cache.k.shape[2]
+    rows = (hq // hkv) * t
+    if scale is None:
+        scale = 1.0 / d**0.5
+    int8_mode = cache.k.dtype == torch.int8
+    length = cache.length.long()
+    pos = torch.arange(s_max, device=q.device)
+    in_cache = pos[None, :] < length[:, None]  # [B, Smax]
+    keep = in_cache[:, None, :, None]
+    kf = torch.where(keep, cache.k.float(), 0.0)
+    vf = torch.where(keep, cache.v.float(), 0.0)
+    k_scale = torch.where(in_cache[:, None, None, :], cache.k_scale, 0.0)  # [B,Hkv,1,Smax]
+    v_scale = torch.where(in_cache[:, None, None, :], cache.v_scale, 0.0)
+    q_rows, q_scale = prep_decode_q(q, hkv, int8_mode, scale * LOG2E)
+    s = torch.matmul(q_rows.float(), kf.transpose(-1, -2))  # [B, Hkv, R, Smax]
+    s = s * (q_scale * k_scale) if int8_mode else s * k_scale
+    row_pos = length[:, None] - t + torch.arange(rows, device=q.device)[None, :] % t
+    visible = in_cache[:, None, :] & (pos[None, None, :] <= row_pos[:, :, None])
+    s = s.masked_fill(~visible[:, None], float("-inf"))
+    block = (requant_block or jax_int8_block(s_max)) if int8_mode else s_max
+    m_run = torch.full(s.shape[:-1] + (1,), float("-inf"), device=q.device)
+    l = torch.zeros_like(m_run)
+    acc = torch.zeros(s.shape[:-1] + (d,), device=q.device)
+    for n0 in range(0, s_max, block):
+        sj = s[..., n0:n0 + block]
+        m_new = torch.maximum(m_run, sj.amax(dim=-1, keepdim=True))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
+        alpha = torch.exp2(m_run - m_safe)
+        p = torch.exp2(sj - m_safe)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        pvs = p * v_scale[..., n0:n0 + block]
+        if int8_mode:
+            rmax = pvs.amax(dim=-1, keepdim=True)
+            rmax = torch.where(rmax == 0.0, torch.ones_like(rmax), rmax)
+            p8 = torch.round(pvs * (127.0 / rmax))
+            pv = torch.matmul(p8, vf[:, :, n0:n0 + block]) * (rmax / 127.0)
+        else:
+            pv = torch.matmul(pvs, vf[:, :, n0:n0 + block])
+        acc = acc * alpha + pv
+        m_run = m_new
+    o = acc / torch.where(l == 0.0, torch.ones_like(l), l)
+    return o.reshape(b, hq, t, d).to(q.dtype)
+
+
+def _num_splits(b: int, hkv: int, rows: int, s_max: int) -> tuple[int, int]:
     """(split_len, num_splits): slices of a multiple of BLOCK_KV positions,
-    enough of them for TARGET_CTAS blocks where the cache is long enough."""
-    want = max(1, cdiv(TARGET_CTAS, b * hkv))
+    enough of them for TARGET_CTAS blocks where the cache is long enough.
+    A function of the shapes alone, so a paged and a dense cache of one
+    max_len take the same slices (and give the same bits)."""
+    want = max(1, cdiv(TARGET_CTAS, b * hkv * cdiv(rows, ROW_BLOCK)))
     split_len = round_up(cdiv(s_max, want), BLOCK_KV)
     return split_len, cdiv(s_max, split_len)
+
+
+def _check_cuda_operands(q, k, v, k_scale, v_scale, length, table) -> None:
+    d = q.shape[-1]
+    tensors = [t for t in (q, k, v, k_scale, v_scale, length, table) if t is not None]
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError(f"q and the cache must be on one CUDA device, got {q.device}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    if q.dtype not in DTYPE_CODES:
+        raise ValueError(f"q {q.dtype}: need one of {list(DTYPE_CODES)}")
+    quantized = k_scale is not None
+    if k.dtype != v.dtype or (not quantized and k.dtype != q.dtype) or (
+            quantized and k.dtype not in (torch.int8, FP8_DTYPE)):
+        raise ValueError(f"q {q.dtype} and cache {k.dtype}/{v.dtype}: an unquantized "
+                         "cache must match q, a quantized one be int8 or fp8")
+    if quantized and (v_scale is None or k_scale.dtype != torch.float32
+                      or v_scale.dtype != torch.float32):
+        raise ValueError("a quantized cache needs float32 k_scale and v_scale")
+    if length.dtype != torch.int32 or (table is not None and table.dtype != torch.int32):
+        raise ValueError("cache length and block table must be int32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("q and the cache tensors must be contiguous")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("cache k and v must start 16-byte aligned")
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           k_scale: torch.Tensor | None, v_scale: torch.Tensor | None,
+           length: torch.Tensor, table: torch.Tensor | None, s_max: int,
+           scale: float) -> torch.Tensor:
+    """Launch K2 on CUDA tensors: q [B, Hq, T, D]; k/v [B, Hkv, Smax, D]
+    (dense, table None) or pages [P, Hkv, page, D] read through
+    table [B, max_pages] (paged, s_max = max_pages * page; an entry outside
+    [0, P) is never read, its block holds no key)."""
+    _check_cuda_operands(q, k, v, k_scale, v_scale, length, table)
+    b, hq, t, d = q.shape
+    hkv = k.shape[1]
+    rows = (hq // hkv) * t
+    int8_mode = k.dtype == torch.int8
+    q_in, q_scale = q, None
+    if int8_mode:  # the launcher glue of the JAX kernel, in plain PyTorch
+        q_in, q_scale = prep_decode_q(q, hkv, True, scale * LOG2E)
+    split_len, splits = _num_splits(b, hkv, rows, s_max)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    part_m = torch.empty((b, hkv, splits, rows), **f32)
+    part_l = torch.empty((b, hkv, splits, rows), **f32)
+    part_acc = torch.empty((b, hkv, splits, rows, d), **f32)
+    o = torch.empty_like(q)
+    page = k.shape[2] if table is not None else 0
+    max_pages = table.shape[1] if table is not None else 0
+    num_pages = k.shape[0] if table is not None else 0
+
+    def ptr(x):
+        return 0 if x is None else x.data_ptr()
+
+    lib = _build.load("decode")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.decode_launch(
+            q_in.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(q_scale), ptr(k_scale),
+            ptr(v_scale), length.data_ptr(), ptr(table), part_m.data_ptr(),
+            part_l.data_ptr(), part_acc.data_ptr(), o.data_ptr(), b, hq, hkv, t, s_max,
+            d, DTYPE_CODES[q.dtype], CACHE_CODES[k.dtype], max_pages, page, num_pages,
+            split_len, splits, scale * LOG2E, stream)
+    _build.check(lib, rc, "decode")
+    return o
 
 
 def _decode(q: torch.Tensor, cache: KVCache, scale: float | None) -> torch.Tensor:
@@ -86,41 +251,17 @@ def _decode(q: torch.Tensor, cache: KVCache, scale: float | None) -> torch.Tenso
         raise ValueError("q and the cache must be on one device")
     if q.device.type == "cpu":
         return decode_attention_reference(q, cache, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
-    if (q.dtype not in DTYPE_CODES or cache.k.dtype != q.dtype
-            or cache.v.dtype != q.dtype):
-        raise ValueError(f"q {q.dtype} and cache {cache.k.dtype}: need one "
-                         f"of {list(DTYPE_CODES)} for both")
-    if cache.length.dtype != torch.int32:
-        raise ValueError(f"cache length must be int32, got {cache.length.dtype}")
-    if not (q.is_contiguous() and cache.k.is_contiguous()
-            and cache.v.is_contiguous() and cache.length.is_contiguous()):
-        raise ValueError("q and the cache tensors must be contiguous")
-    if cache.k.data_ptr() % 16 or cache.v.data_ptr() % 16:
-        raise ValueError("cache k and v must start 16-byte aligned")
     if scale is None:
         scale = 1.0 / d**0.5
-    rows = (hq // hkv) * t
-    split_len, num_splits = _num_splits(b, hkv, s_max)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    part_m = torch.empty((b, hkv, num_splits, rows), **f32)
-    part_l = torch.empty((b, hkv, num_splits, rows), **f32)
-    part_acc = torch.empty((b, hkv, num_splits, rows, d), **f32)
-    o = torch.empty_like(q)
-    lib = _build.load("decode")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.decode_launch(
-            q.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(),
-            cache.length.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-            part_acc.data_ptr(), o.data_ptr(), b, hq, hkv, t, s_max, d,
-            DTYPE_CODES[q.dtype], split_len, num_splits, scale * LOG2E, stream)
-    _build.check(lib, rc, "decode")
-    global LAUNCHES
-    LAUNCHES += 1
+    o = launch(q, cache.k, cache.v, cache.k_scale, cache.v_scale, cache.length, None,
+               s_max, scale)
+    global LAUNCHES, INT8_LAUNCHES, FP8_LAUNCHES
+    if cache.k.dtype == torch.int8:
+        INT8_LAUNCHES += 1
+    elif cache.k.dtype == FP8_DTYPE:
+        FP8_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return o
 
 
@@ -136,8 +277,9 @@ def decode_attention(
     """One new token per sequence: q [B, Hq, D] -> [B, Hq, D].
 
     CPU tensors take the plain version. CUDA tensors launch K2 and must be
-    contiguous (cache k and v 16-byte aligned), with q and the cache in one
-    dtype (bf16 or float32) and D in HEAD_DIMS; anything else raises."""
+    contiguous (cache k and v 16-byte aligned), with q bf16 or float32, the
+    cache in q's dtype or quantized (int8/fp8 with float32 scales), and D
+    in HEAD_DIMS; anything else raises."""
     _check_unported(window, sink, logit_softcap, alibi)
     return _decode(q[:, :, None], cache, scale)[:, :, 0]
 

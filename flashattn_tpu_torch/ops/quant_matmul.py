@@ -1,0 +1,151 @@
+"""Weight-only int8/int4 quantized matmuls (counterpart of
+flashattn_tpu/ops/quant_matmul.py).
+
+Decode-time projections stream their weights from device memory once per
+step, so storing them in 8 or 4 bits cuts the bytes the step moves.
+``quant_matmul`` launches the ``qmm8``/``qmm4`` kernels
+(csrc/quant_matmul.cu) on CUDA tensors.
+
+The layout is the JAX package's, byte for byte, so a quantized JAX tree
+converts with a plain copy (models/convert.py):
+  - scales are per output channel, f32 [1, N], applied to the fp32
+    accumulator once at the end;
+  - int4 is nibble-packed along the contraction dim with a half split: byte
+    row r holds row r (low nibble) and row r + K/2 (high nibble).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from flashattn_tpu_torch.ops import _build
+from flashattn_tpu_torch.ops.common import unported
+from flashattn_tpu_torch.ops.flash_fwd import DTYPE_CODES
+
+INT8_MAX = 127.0
+INT4_MAX = 7.0
+
+# Kernel launches in this process (set to 0 by callers that count a run).
+QMM8_LAUNCHES = 0
+QMM4_LAUNCHES = 0
+
+K_MULTIPLE = 64  # contraction rows per kernel tile (csrc/quant_matmul.cu kBK)
+N_MULTIPLE = 16  # output columns per 16-byte weight load
+
+
+class QuantizedLinear(nn.Module):
+    """Weight-only quantized [K, N] projection: buffers ``w`` (int8 [K, N],
+    or nibble-packed int8 [K/2, N] for bits=4) and ``scale`` ([1, N] f32),
+    so it sits in a model's state dict as ``<name>.w`` and ``<name>.scale``."""
+
+    def __init__(self, w: torch.Tensor, scale: torch.Tensor, bits: int, k: int):
+        super().__init__()
+        if bits not in (4, 8):
+            raise ValueError(f"bits must be 4 or 8, got {bits}")
+        self.register_buffer("w", w)
+        self.register_buffer("scale", scale)
+        self.bits = bits
+        self.k = k
+
+    @property
+    def out_features(self) -> int:
+        return self.w.shape[1]
+
+    def extra_repr(self) -> str:
+        return f"k={self.k}, n={self.out_features}, bits={self.bits}"
+
+
+def quantize_weights(w: torch.Tensor, bits: int = 8) -> QuantizedLinear:
+    """Symmetric per-output-channel quantization of w [K, N], bit for bit the
+    JAX package's (f32 amax over K, round half to even, clip)."""
+    k, n = w.shape
+    wf = w.float()
+    amax = wf.abs().amax(dim=0, keepdim=True)  # [1, N]
+    if bits == 8:
+        scale = torch.clamp_min(amax / INT8_MAX, 1e-10)
+        q = torch.clamp(torch.round(wf / scale), -INT8_MAX, INT8_MAX).to(torch.int8)
+        return QuantizedLinear(q, scale, 8, k)
+    if bits == 4:
+        if k % 2:
+            raise ValueError("int4 packing needs an even K")
+        scale = torch.clamp_min(amax / INT4_MAX, 1e-10)
+        q = torch.clamp(torch.round(wf / scale), -INT4_MAX - 1, INT4_MAX).to(torch.int32)
+        lo = q[: k // 2] & 0xF  # rows [0, K/2)
+        hi = q[k // 2:] & 0xF  # rows [K/2, K)
+        packed = (lo | (hi << 4)).to(torch.uint8).view(torch.int8)
+        return QuantizedLinear(packed, scale, 4, k)
+    raise ValueError(f"bits must be 4 or 8, got {bits}")
+
+
+def integer_weights(qw: QuantizedLinear) -> torch.Tensor:
+    """The quantized values as int32 [K, N] (int4 nibbles sign-extended)."""
+    if qw.bits == 8:
+        return qw.w.to(torch.int32)
+    raw = qw.w.view(torch.uint8).to(torch.int32)
+    lo = ((raw & 0xF) ^ 8) - 8
+    hi = ((raw >> 4) ^ 8) - 8
+    return torch.cat([lo, hi], dim=0)
+
+
+def dequantize_weights(qw: QuantizedLinear) -> torch.Tensor:
+    """Plain dequant -> f32 [K, N]."""
+    return integer_weights(qw).float() * qw.scale
+
+
+def quant_matmul_reference(x: torch.Tensor, qw: QuantizedLinear,
+                           out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Plain PyTorch version of qmm8/qmm4: (x @ w) in fp32, times the
+    per-channel scale at the end, cast to out_dtype."""
+    y = torch.matmul(x.float(), integer_weights(qw).float()) * qw.scale
+    return y.to(out_dtype or x.dtype)
+
+
+def quant_matmul(x: torch.Tensor, qw: QuantizedLinear,
+                 out_dtype: torch.dtype | None = None,
+                 quantize_activations: bool = False) -> torch.Tensor:
+    """y = x @ dequant(qw): x [M, K] bf16/f32 -> [M, N] in out_dtype
+    (default x's dtype).
+
+    CPU tensors take the plain version. CUDA tensors launch qmm8 or qmm4 and
+    need K a multiple of 64 and N of 16 (every LLAMA_1B projection), with the
+    weights 16-byte aligned; anything else raises."""
+    if quantize_activations:
+        raise unported("quant_matmul(quantize_activations=True), the a8 mode", "A6")
+    m, k = x.shape
+    if k != qw.k:
+        raise ValueError(f"x has K={k}, the weights K={qw.k}")
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return quant_matmul_reference(x, qw, out_dtype)
+    n = qw.out_features
+    if x.device.type != "cuda" or qw.w.device != x.device or qw.scale.device != x.device:
+        raise ValueError(f"x ({x.device}) and the weights ({qw.w.device}) must be on "
+                         "one CUDA device")
+    if x.dtype not in DTYPE_CODES or out_dtype not in DTYPE_CODES:
+        raise ValueError(f"x {x.dtype} -> {out_dtype}: need {list(DTYPE_CODES)}")
+    if (qw.w.dtype != torch.int8 or qw.scale.dtype != torch.float32
+            or qw.scale.shape != (1, n)):
+        raise ValueError("weights must be int8 with float32 scale [1, N]")
+    if k % K_MULTIPLE or n % N_MULTIPLE:
+        raise ValueError(f"K={k} must be a multiple of {K_MULTIPLE} and N={n} of "
+                         f"{N_MULTIPLE}")
+    x = x.contiguous()
+    if not (qw.w.is_contiguous() and qw.scale.is_contiguous()) or qw.w.data_ptr() % 16:
+        raise ValueError("weights must be contiguous and 16-byte aligned")
+    y = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0:
+        return y
+    lib = _build.load("quant_matmul")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.quant_matmul_launch(
+            x.data_ptr(), qw.w.data_ptr(), qw.scale.data_ptr(), y.data_ptr(), m, k, n,
+            qw.bits, DTYPE_CODES[x.dtype], DTYPE_CODES[out_dtype], stream)
+    _build.check(lib, rc, "quant_matmul")
+    global QMM8_LAUNCHES, QMM4_LAUNCHES
+    if qw.bits == 8:
+        QMM8_LAUNCHES += 1
+    else:
+        QMM4_LAUNCHES += 1
+    return y

@@ -1,10 +1,12 @@
-"""Kernels K1 (flash forward), K2 (flash-decode) and the backward kernels
-(B3's fused kernel, B4's dQ and B5's dK/dV kernels) on the card, against
-their plain PyTorch versions on the same CUDA tensors, at the edges the
-smoke run does not reach: float32 inputs, rows that see no key, an empty
-sequence, D=128, large GQA groups, ragged lengths, the wrappers' refusals,
-autograd through flash_attention, and small models on the card against the
-CPU.
+"""Kernels K1 (flash forward), K2 (flash-decode, dense and paged, bf16/f32,
+int8 and fp8 caches), the backward kernels (B3's fused kernel, B4's dQ and
+B5's dK/dV kernels) and qmm8/qmm4 (weight-only quantized matmuls) on the
+card, against their plain PyTorch versions on the same CUDA tensors, at the
+edges the smoke run does not reach: float32 inputs, rows that see no key, an
+empty sequence, a full cache, D=128, large GQA groups, long chunks (T 256),
+ragged lengths, pages of 64 and 256, M of 1 and odd M, the wrappers'
+refusals, autograd through flash_attention, and small models on the card
+against the CPU.
 
 These tests need a CUDA device and skip without one. On the card:
 
@@ -13,7 +15,13 @@ These tests need a CUDA device and skip without one. On the card:
 (--noconftest: tests/conftest.py configures JAX, which the card's machine
 does not need.) Tolerances: bf16 outputs atol 2e-2 (the repo's bf16 gate),
 float32 atol 1e-4 and rtol 1e-4 (exp2 against exp, fp32 sums in another
-order), LSE atol 1e-3; gradients in bf16 rtol 2e-2, atol 5e-2 (the repo's
+order), LSE atol 1e-3; quantized decode rtol 2e-2, atol 2e-2 (the JAX
+package's quantized-decode gate, tests/test_decode.py; the kernel
+requantizes int8 P per 64-position tile, the plain version per row); the
+quantized matmuls atol 2e-2, rtol 1e-2 (bf16 outputs, fp32 sums in another
+order); paged decode equal to dense decode bit for bit; small quantized
+models on the card against the CPU atol 2e-2, rtol 2e-2, or with an int8 KV
+cache chip_smoke.py's logits rule (cosine > 0.999, max |d| <= 0.05 max |ref|); gradients in bf16 rtol 2e-2, atol 5e-2 (the repo's
 bf16-gradient gate), in float32 atol 2e-4, rtol 1e-4 (fp32 sums over up to
 eight q heads in another order; the fused kernel's dQ atomics add in an
 order that changes between runs).
@@ -23,8 +31,10 @@ import pytest
 import torch
 
 from flashattn_tpu_torch.models import generate, llama, train
-from flashattn_tpu_torch.models.config import ModelConfig
-from flashattn_tpu_torch.ops import decode, flash_bwd, flash_bwd_fused, flash_fwd, kvcache
+from flashattn_tpu_torch.models.config import LLAMA_1B, ModelConfig
+from flashattn_tpu_torch.models.serve import InferenceServer, Request
+from flashattn_tpu_torch.ops import (decode, flash_bwd, flash_bwd_fused, flash_fwd, kvcache,
+                                     paged, quant_matmul)
 from flashattn_tpu_torch.ops.attention import flash_attention, plain_flash_attention
 from flashattn_tpu_torch.utils.verify import verify_results
 
@@ -327,3 +337,224 @@ def test_train_step_on_card_matches_cpu(dev):
         err = (a - b.detach().cpu()).abs()
         assert float(err.max()) <= 2 * tc.learning_rate, name
         assert float((err > 1e-5).float().mean()) < 1e-3, name
+
+
+# ---- quantized and paged K2, qmm8/qmm4 (the quantized, paged serving path) ----
+
+QTOL = dict(rtol=2e-2, atol=2e-2)
+
+QDECODE_CASES = {
+    # name: (Hq, Hkv, T, D, Smax, lengths)
+    "serving_t1": (32, 4, 1, 64, 2048, [1, 77, 1500, 2048]),
+    "chunk_t256": (32, 4, 256, 64, 2048, [256, 300, 1500, 2048]),
+    "empty_and_full_d128": (8, 2, 3, 128, 512, [0, 3, 300, 512]),
+}
+
+
+def quantized_cache(quant, b, hkv, s_max, d, lengths, dev, seed=40):
+    """A cache filled with quantized random tokens, NaN (fp8 code 0x7f, and
+    NaN scales) past every length, as a recycled slot may hold."""
+    cache = kvcache.init_cache(b, hkv, s_max, d, dtype=torch.bfloat16, quant=quant, device=dev)
+    kvcache.update_cache(cache, randn((b, hkv, s_max, d), torch.bfloat16, dev, seed),
+                         randn((b, hkv, s_max, d), torch.bfloat16, dev, seed + 1),
+                         assume_fits=True)
+    cache.length.copy_(torch.tensor(lengths, dtype=torch.int32))
+    for i, n in enumerate(lengths):
+        if quant == "fp8":
+            cache.k.view(torch.uint8)[i, :, n:] = 0x7F
+            cache.v.view(torch.uint8)[i, :, n:] = 0x7F
+        cache.k_scale[i, :, :, n:] = float("nan")
+        cache.v_scale[i, :, :, n:] = float("nan")
+    return cache
+
+
+@pytest.mark.parametrize("quant", ["int8", "fp8"])
+@pytest.mark.parametrize("case", sorted(QDECODE_CASES))
+def test_quantized_decode_kernel_matches_plain(dev, quant, case):
+    hq, hkv, t, d, s_max, lengths = QDECODE_CASES[case]
+    b = len(lengths)
+    cache = quantized_cache(quant, b, hkv, s_max, d, lengths, dev)
+    q = randn((b, hq, t, d), torch.bfloat16, dev, 42)
+    counter = "INT8_LAUNCHES" if quant == "int8" else "FP8_LAUNCHES"
+    before = getattr(decode, counter)
+    o = decode.decode_attention_chunk(q, cache)
+    torch.cuda.synchronize()
+    assert getattr(decode, counter) == before + 1
+    assert bool(torch.isfinite(o).all())
+    # The plain version requantizing int8 P per 64-position tile, as the
+    # kernel does (its default is the JAX kernel's block).
+    ref = decode.decode_attention_reference(q, cache, requant_block=decode.BLOCK_KV)
+    rep = verify_results(ref, o, **QTOL)
+    assert rep.passed, rep
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert torch.equal(o[i], torch.zeros_like(o[i]))
+
+
+def paged_copy(cache, page, dev, seed=50):
+    """The dense cache's content in a pool of scrambled pages; table entries
+    past each sequence's pages hold the sentinel num_pages."""
+    b, hkv, s_max, d = cache.k.shape
+    maxp = s_max // page
+    quant = None if not cache.quantized else (
+        "int8" if cache.k.dtype == torch.int8 else "fp8")
+    pool = paged.init_paged_cache(b, hkv, b * maxp + 5, page, d, maxp, dtype=cache.k.dtype
+                                  if quant is None else torch.bfloat16, quant=quant,
+                                  device=dev)
+    perm = torch.randperm(b * maxp + 5, generator=torch.Generator().manual_seed(seed))
+    for i in range(b):
+        n = int(cache.length[i])
+        live = paged.pages_needed(n, page)
+        own = perm[i * maxp:i * maxp + live].tolist()
+        table = own + [pool.num_pages] * (maxp - live)
+        row = kvcache.KVCache(
+            k=cache.k[i:i + 1], v=cache.v[i:i + 1], length=cache.length[i:i + 1],
+            k_scale=None if quant is None else cache.k_scale[i:i + 1],
+            v_scale=None if quant is None else cache.v_scale[i:i + 1])
+        paged.write_pages(pool, row, table)
+        paged.set_block_table(pool, i, table, n)
+    return pool
+
+
+@pytest.mark.parametrize("t", [1, 256])
+@pytest.mark.parametrize("page", [64, 256])
+@pytest.mark.parametrize("quant", [None, "int8", "fp8"])
+def test_paged_decode_kernel_equals_dense(dev, quant, page, t):
+    b, hq, hkv, d, s_max = 4, 32, 4, 64, 2048
+    lengths = [256, 300, 1500, 2048]
+    if quant is None:
+        cache = kvcache.KVCache(k=randn((b, hkv, s_max, d), torch.bfloat16, dev, 60),
+                                v=randn((b, hkv, s_max, d), torch.bfloat16, dev, 61),
+                                length=torch.tensor(lengths, dtype=torch.int32, device=dev))
+    else:
+        cache = quantized_cache(quant, b, hkv, s_max, d, lengths, dev, seed=60)
+    pool = paged_copy(cache, page, dev)
+    q = randn((b, hq, t, d), torch.bfloat16, dev, 62)
+    before = paged.LAUNCHES
+    o_paged = paged.paged_decode_attention_chunk(q, pool)
+    o_dense = decode.decode_attention_chunk(q, cache)
+    torch.cuda.synchronize()
+    assert paged.LAUNCHES == before + 1
+    assert torch.equal(o_paged, o_dense)
+    ref = paged.paged_decode_reference(q, pool, requant_block=decode.BLOCK_KV)
+    rep = verify_results(ref, o_paged, **(TOL[torch.bfloat16] if quant is None else QTOL))
+    assert rep.passed, rep
+
+
+def test_paged_decode_never_reads_unowned_pages(dev):
+    """A chunk whose padding runs past the pages a sequence owns (chunked
+    admission with a chunk longer than a page): the table entries there are
+    the sentinel num_pages, or any index outside the pool, and the kernel
+    reads none of them. Rows inside the owned pages equal the dense K2's."""
+    b, hq, hkv, d, page, t = 2, 16, 2, 64, 64, 256
+    cache = kvcache.KVCache(k=randn((b, hkv, 512, d), torch.bfloat16, dev, 63),
+                            v=randn((b, hkv, 512, d), torch.bfloat16, dev, 64),
+                            length=torch.tensor([300, 512], dtype=torch.int32, device=dev))
+    pool = paged_copy(cache, page, dev)
+    owned = 3  # sequence 0 keeps 3 of its 5 live pages: positions [0, 192)
+    pool.block_table[0, owned] = pool.num_pages
+    pool.block_table[0, owned + 1] = 1 << 30
+    q = randn((b, hq, t, d), torch.bfloat16, dev, 65)
+    o = paged.paged_decode_attention_chunk(q, pool)
+    dense = decode.decode_attention_chunk(q, cache)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(o).all())
+    first = 300 - t  # row t of the chunk sits at position first + t
+    inside = owned * page - first  # rows at positions < 192 see owned pages only
+    assert torch.equal(o[0, :, :inside], dense[0, :, :inside])
+    assert torch.equal(o[1], dense[1])
+
+
+QMM_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 32000)]
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m", [1, 7, 256])
+@pytest.mark.parametrize("kn", QMM_SHAPES)
+def test_quant_matmul_kernel_matches_plain(dev, bits, m, kn):
+    k, n = kn
+    w = randn((k, n), torch.float32, dev, 70) * 0.02
+    qw = quant_matmul.quantize_weights(w, bits)
+    x = randn((m, k), torch.bfloat16, dev, 71)
+    counter = "QMM8_LAUNCHES" if bits == 8 else "QMM4_LAUNCHES"
+    before = getattr(quant_matmul, counter)
+    for out_dtype in (None, torch.float32):
+        y = quant_matmul.quant_matmul(x, qw, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert y.shape == (m, n) and y.dtype == (out_dtype or torch.bfloat16)
+        rep = verify_results(quant_matmul.quant_matmul_reference(x, qw, out_dtype), y,
+                             atol=2e-2, rtol=1e-2)
+        assert rep.passed, rep
+    assert getattr(quant_matmul, counter) == before + 2
+
+
+def test_quant_matmul_refuses_what_the_kernel_does_not_take(dev):
+    qw = quant_matmul.quantize_weights(randn((96, 64), torch.float32, dev, 72), 8)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        quant_matmul.quant_matmul(randn((2, 96), torch.bfloat16, dev, 73), qw)
+
+
+@pytest.mark.parametrize("quant", ["int8", "fp8"])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_model_steps_on_card_match_cpu(dev, quant, bits):
+    """A float32 D-64 model with quantized weights and KV cache: prefill, a
+    prompt chunk and decode steps, kernels on the card against the plain path
+    on the CPU from the same weights and tokens."""
+    cfg = ModelConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                      num_layers=2, num_heads=8, num_kv_heads=2, head_dim=64,
+                      dtype=torch.float32)
+    cpu_model = llama.quantize_params(
+        llama.init_params(cfg, torch.Generator().manual_seed(0), device="cpu"), bits)
+    gpu_model = llama.quantize_params(llama.Llama(cfg, dev), bits)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    prompt = torch.randint(0, cfg.vocab_size, (2, 37), generator=torch.Generator().manual_seed(1))
+    piece = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(2))
+    outs = []
+    for model, d in ((cpu_model, "cpu"), (gpu_model, dev)):
+        caches = generate.init_caches(model, 2, 256, quant=quant)
+        logits, caches = generate.prefill(model, prompt.to(d), caches)
+        steps = [logits.cpu()]
+        logits, caches = generate.chunk_step(model, piece.to(d),
+                                             torch.arange(37, 77, device=d), caches)
+        steps.append(logits.cpu())
+        for i in range(2):
+            token = torch.tensor([i + 1, i + 2], dtype=torch.int32, device=d)
+            pos = torch.full((2,), 77 + i, dtype=torch.int32, device=d)
+            logits, caches = generate.decode_step(model, token, pos, caches)
+            steps.append(logits.cpu())
+        outs.append(steps)
+    for i, (ref, out) in enumerate(zip(*outs)):
+        if quant == "int8":
+            # The kernel requantizes int8 P per 64-position tile, the CPU plain
+            # version per JAX block (the whole 256-position cache): chip_smoke's
+            # logits rule, cosine > 0.999 and max |d| <= 0.05 max |ref|.
+            cos = float(torch.nn.functional.cosine_similarity(
+                ref.flatten(), out.flatten(), dim=0))
+            delta = float((ref - out).abs().max())
+            assert cos > 0.999 and delta <= 0.05 * float(ref.abs().max()), (i, cos, delta)
+        else:
+            rep = verify_results(ref, out, atol=2e-2, rtol=2e-2)
+            assert rep.passed, f"step {i}: {rep}"
+
+
+def test_llama1b_quantized_paged_server_matches_dense(dev):
+    """LLAMA_1B widths (2 layers), int8 weights and int8 KV: the paged server,
+    with a pool too small for every request at once, gives the dense
+    server's tokens, and frees its pages."""
+    cfg = ModelConfig(num_layers=2)
+    assert (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads) == (
+        LLAMA_1B.hidden_size, LLAMA_1B.num_heads, LLAMA_1B.num_kv_heads)
+    model = llama.quantize_params(
+        llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev), 8)
+    gen = torch.Generator().manual_seed(3)
+    reqs = [(uid, torch.randint(0, cfg.vocab_size, (16 + 37 * uid % 160,),
+                                generator=gen).tolist(), 24) for uid in range(6)]
+    got = {}
+    for kind, kw in (("dense", {}), ("paged", dict(paged=True, page_size=256, num_pages=3))):
+        srv = InferenceServer(model, max_slots=4, max_len=2048, quant="int8", **kw)
+        for uid, prompt, n in reqs:
+            srv.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n))
+        got[kind] = srv.run()
+        if kind == "paged":
+            assert srv.allocator.free_pages == 3
+    assert got["paged"] == got["dense"]

@@ -3,8 +3,12 @@ decode_attention / decode_attention_chunk in interpret mode, and the port's
 in-place KV cache against the JAX cache's functional updates.
 
 Decode tolerance in float32: atol 2e-5, rtol 1e-5 (exp2 against exp and a
-different summation order). Cache updates must be bit-equal."""
+different summation order). Quantized (int8, fp8) decode: atol 2e-3, rtol
+1e-3 (a one-ulp difference in exp2 can move one requantized int8 P entry by
+one step, and the JAX kernel's fast fp8 converter differs from the exact
+one on subnormal codes). Cache updates and quantization must be bit-equal."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +20,25 @@ from flashattn_tpu_torch.ops import decode, kvcache
 from flashattn_tpu_torch.utils.verify import verify_results
 
 ATOL, RTOL = 2e-5, 1e-5
+
+
+def _np(x: torch.Tensor) -> np.ndarray:
+    """A tensor's bytes as numpy (fp8 through uint8, compared as codes)."""
+    return x.view(torch.uint8).numpy() if x.dtype == kvcache.FP8_DTYPE else x.numpy()
+
+
+def _jnp(x) -> np.ndarray:
+    x = np.asarray(x)
+    return x.view(np.uint8) if x.dtype == jnp.float8_e4m3fn else x
+
+
+def assert_caches_equal(port, ref):
+    for name in ("k", "v", "length", "k_scale", "v_scale"):
+        a, r = getattr(port, name), getattr(ref, name)
+        if r is None:
+            assert a is None, name
+            continue
+        np.testing.assert_array_equal(_np(a), _jnp(r), err_msg=name)
 
 
 def make_cache(b, hkv, s_max, d, lengths, rng, nan_tail=True):
@@ -140,12 +163,6 @@ def test_init_cache_matches_jax():
     assert out.length.dtype == torch.int32 and out.max_len == 32
 
 
-@pytest.mark.parametrize("quant", ["int8", "fp8"])
-def test_quantized_cache_raises(quant):
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        kvcache.init_cache(1, 1, 16, 8, quant=quant, device="cpu")
-
-
 def test_decode_step_after_update_matches_jax():
     """Append then decode, as one decode step does, in both packages."""
     rng = np.random.default_rng(6)
@@ -162,3 +179,137 @@ def test_decode_step_after_update_matches_jax():
     out = decode.decode_attention(torch.from_numpy(q), port_cache)
     rep = verify_results(np.asarray(ref), out, atol=ATOL, rtol=RTOL)
     assert rep.passed, rep
+
+
+# ---- quantized caches (int8, fp8): bit-equal updates, numerical decode ----
+
+QUANTS = ["int8", "fp8"]
+# The JAX package quantizes inside its jitted steps, where XLA turns the
+# division of the amax by a constant qmax into a product with its f32
+# reciprocal: the port follows the compiled arithmetic, so the references
+# here run jitted too.
+jax_quantize_tokens = jax.jit(jax_kv.quantize_tokens, static_argnums=1)
+jax_update_cache = jax.jit(jax_kv.update_cache, static_argnames=("assume_fits",))
+jax_prep_decode_q = jax.jit(jax_decode.prep_decode_q, static_argnums=(1, 2, 3))
+
+
+@pytest.mark.parametrize("quant", QUANTS)
+def test_quantize_tokens_bit_equal_to_jax(quant):
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, 3, 5, 16), dtype=np.float32) * 3
+    x[0, 1, 2] = 0.0  # an all-zero token takes the 1e-8 scale floor
+    x[1, 0, 0, :4] = [1e-30, -1e-20, 5e-3, -7e-4]  # subnormal fp8 codes
+    jdtype = jnp.int8 if quant == "int8" else jnp.float8_e4m3fn
+    ref_q, ref_s = jax_quantize_tokens(jnp.asarray(x), jdtype)
+    store, scales = kvcache.store_dtype_for(quant, torch.float32)
+    assert scales
+    q, s = kvcache.quantize_tokens(torch.from_numpy(x), store)
+    assert q.dtype == store and s.shape == (2, 3, 1, 5)
+    np.testing.assert_array_equal(_np(q), _jnp(ref_q))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(ref_s))
+    np.testing.assert_array_equal(
+        kvcache.dequantize(q, s).float().numpy(),
+        np.asarray(jax_kv.dequantize(ref_q, ref_s)).astype(np.float32))
+
+
+@pytest.mark.parametrize("quant", QUANTS)
+def test_init_quantized_cache_matches_jax(quant):
+    ref = jax_kv.init_cache(2, 3, 32, 8, dtype=jnp.float32, quant=quant)
+    out = kvcache.init_cache(2, 3, 32, 8, dtype=torch.float32, quant=quant, device="cpu")
+    assert out.quantized and out.k_scale.shape == (2, 3, 1, 32)
+    assert_caches_equal(out, ref)
+
+
+def make_quantized_pair(b, hkv, s_max, d, lengths, quant, rng):
+    """A JAX and a port cache filled from the same float32 tokens."""
+    ref = jax_kv.init_cache(b, hkv, s_max, d, dtype=jnp.float32, quant=quant)
+    port = kvcache.init_cache(b, hkv, s_max, d, dtype=torch.float32, quant=quant,
+                              device="cpu")
+    t = max(lengths)
+    k = rng.standard_normal((b, hkv, t, d), dtype=np.float32)
+    v = rng.standard_normal((b, hkv, t, d), dtype=np.float32)
+    ref = jax_update_cache(ref, jnp.asarray(k), jnp.asarray(v))
+    kvcache.update_cache(port, torch.from_numpy(k), torch.from_numpy(v))
+    lengths = np.asarray(lengths, np.int32)
+    ref = jax_kv.KVCache(k=ref.k, v=ref.v, k_scale=ref.k_scale, v_scale=ref.v_scale,
+                         length=jnp.asarray(lengths))
+    port.length.copy_(torch.from_numpy(lengths))
+    return ref, port
+
+
+@pytest.mark.parametrize("quant", QUANTS)
+@pytest.mark.parametrize("case", sorted(UPDATE_CASES))
+def test_quantized_update_cache_bit_equal_to_jax(case, quant):
+    lengths, t, active, assume_fits = UPDATE_CASES[case]
+    rng = np.random.default_rng(8)
+    ref, port = make_quantized_pair(3, 2, 16, 8, lengths, quant, rng)
+    k_new = rng.standard_normal((3, 2, t, 8), dtype=np.float32)
+    v_new = rng.standard_normal((3, 2, t, 8), dtype=np.float32)
+    ref = jax_update_cache(
+        ref, jnp.asarray(k_new), jnp.asarray(v_new),
+        active=None if active is None else jnp.asarray(active), assume_fits=assume_fits)
+    out = kvcache.update_cache(
+        port, torch.from_numpy(k_new), torch.from_numpy(v_new),
+        active=None if active is None else torch.tensor(active), assume_fits=assume_fits)
+    assert out is port
+    assert_caches_equal(out, ref)
+
+
+@pytest.mark.parametrize("quant", QUANTS)
+def test_quantized_write_slot_bit_equal_to_jax(quant):
+    rng = np.random.default_rng(9)
+    ref_b, port_b = make_quantized_pair(3, 2, 16, 8, [3, 4, 5], quant, rng)
+    ref_1, port_1 = make_quantized_pair(1, 2, 16, 8, [7], quant, rng)
+    ref = jax_kv.write_slot(ref_b, ref_1, 2)
+    out = kvcache.write_slot(port_b, port_1, 2)
+    assert out is port_b
+    assert_caches_equal(out, ref)
+
+
+QDEC_ATOL, QDEC_RTOL = 2e-3, 1e-3
+
+
+@pytest.mark.parametrize("quant", QUANTS)
+@pytest.mark.parametrize("t", [1, 4])
+def test_quantized_decode_matches_jax(quant, t):
+    """Smax 256 <= the JAX kernel's block (4096 int8, 8192 fp8), so it
+    requantizes P over one block, as the plain version does."""
+    rng = np.random.default_rng(10 + t)
+    b, hq, hkv, d, s_max = 3, 8, 2, 64, 256
+    lengths = [5, 130, 256]
+    ref_cache, port_cache = make_quantized_pair(b, hkv, s_max, d, lengths, quant, rng)
+    q = rng.standard_normal((b, hq, t, d), dtype=np.float32)
+    if t == 1:
+        ref = jax_decode.decode_attention(jnp.asarray(q[:, :, 0]), ref_cache)
+        out = decode.decode_attention(torch.from_numpy(q[:, :, 0]).contiguous(), port_cache)
+    else:
+        ref = jax_decode.decode_attention_chunk(jnp.asarray(q), ref_cache)
+        out = decode.decode_attention_chunk(torch.from_numpy(q), port_cache)
+    assert bool(torch.isfinite(out).all())
+    rep = verify_results(np.asarray(ref), out, atol=QDEC_ATOL, rtol=QDEC_RTOL)
+    assert rep.passed, rep
+
+
+def test_fp8_nan_codes_past_length_stay_out():
+    """A recycled fp8 slot may hold NaN codes past its length: the plain
+    version, like the kernel, never lets them reach the output."""
+    rng = np.random.default_rng(11)
+    _, cache = make_quantized_pair(2, 2, 128, 32, [40, 128], "fp8", rng)
+    cache.k.view(torch.uint8)[0, :, 40:] = 0x7F
+    cache.v.view(torch.uint8)[0, :, 40:] = 0x7F
+    cache.k_scale[0, :, :, 40:] = float("nan")
+    q = torch.from_numpy(rng.standard_normal((2, 4, 3, 32), dtype=np.float32))
+    assert bool(torch.isfinite(decode.decode_attention_chunk(q, cache)).all())
+
+
+def test_prep_decode_q_matches_jax():
+    rng = np.random.default_rng(12)
+    q = rng.standard_normal((2, 8, 3, 16), dtype=np.float32)
+    for int8_mode in (False, True):
+        ref_q, ref_s = jax_prep_decode_q(jnp.asarray(q), 2, int8_mode, 0.37)
+        out_q, out_s = decode.prep_decode_q(torch.from_numpy(q), 2, int8_mode, 0.37)
+        np.testing.assert_array_equal(out_q.numpy(), np.asarray(ref_q))
+        if int8_mode:
+            np.testing.assert_array_equal(out_s.numpy(), np.asarray(ref_s))
+        else:
+            assert out_s is None and ref_s is None

@@ -3,7 +3,10 @@ same weights (the JAX tree converted with params_from_jax) and the same
 tokens, in float32 with the flash kernels on their plain/interpret paths.
 
 Tolerance: logits within atol 1e-4, rtol 1e-4 (float32 through two
-layers; the packages sum in different orders)."""
+layers; the packages sum in different orders), also with int8/int4 weights
+(the same quantized values on both sides); atol 2e-3, rtol 2e-3 with an
+int8/fp8 KV cache (K2's quantized-mode parity, tests/test_torch_decode.py,
+carried through two layers). Quantized weights convert bit for bit."""
 
 import dataclasses
 
@@ -16,9 +19,11 @@ import torch
 from flashattn_tpu.models import generate as jax_generate
 from flashattn_tpu.models import llama as jax_llama
 from flashattn_tpu.models.config import ModelConfig as JaxConfig
+from flashattn_tpu.ops import paged as jax_paged
 from flashattn_tpu_torch.models import generate, llama
 from flashattn_tpu_torch.models.config import ModelConfig, check_supported
 from flashattn_tpu_torch.models.convert import params_from_jax
+from flashattn_tpu_torch.ops import paged
 from flashattn_tpu_torch.utils.verify import verify_results
 
 ATOL = RTOL = 1e-4
@@ -159,3 +164,140 @@ def test_unported_config_fields_raise(field, value, item):
     cfg = dataclasses.replace(ModelConfig(), **{field: value})
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         check_supported(cfg)
+
+
+# ---- quantized weights, quantized KV caches, chunked steps, paged caches ----
+
+QUANT_ATOL = QUANT_RTOL = 2e-3  # int8/fp8 KV: K2's quantized-mode parity (test_torch_decode.py)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_params_from_jax_bit_identical(bits):
+    """A JAX tree quantized by the JAX package converts to the state dict of
+    a model quantized by the port from the same weights, byte for byte, and
+    loads into it."""
+    jcfg, params, model = make_models("llama")
+    sd = params_from_jax(jax.tree_util.tree_map(
+        np.asarray, jax_llama.quantize_params(params, bits)))
+    llama.quantize_params(model, bits)
+    ours = model.state_dict()
+    assert set(sd) == set(ours)
+    assert sd["layers.0.wq.w"].dtype == torch.int8 and "lm_head.scale" in sd
+    for name, value in sd.items():
+        assert torch.equal(ours[name], value), name
+    fresh = llama.quantize_params(llama.Llama(model.cfg, device="cpu"), bits)
+    fresh.load_state_dict(sd)
+    assert isinstance(fresh.layers[1].w_down, llama.QuantizedLinear)
+    assert fresh.layers[1].w_down.bits == bits
+
+
+def run_both(jcfg, params, model, prompt, forced, quant=None):
+    """Prefill (all positions) then decode steps in both packages; returns
+    the (JAX, port) logits of every call and the final caches."""
+    b, s = prompt.shape
+    jcaches = jax_generate.init_caches(jcfg, b, 128, quant=quant)
+    caches = generate.init_caches(model, b, 128, quant=quant)
+    jl, jcaches = jax_generate.prefill(params, jnp.asarray(prompt), jcaches, jcfg,
+                                       return_all=True)
+    pl, caches = generate.prefill(model, torch.from_numpy(prompt), caches, return_all=True)
+    out = [(jl, pl)]
+    for i, tok in enumerate(forced):
+        pos = np.full((b,), s + i, np.int32)
+        jl, jcaches = jax_generate.decode_step(params, jnp.asarray(tok), jnp.asarray(pos),
+                                               jcaches, jcfg)
+        pl, caches = generate.decode_step(model, torch.from_numpy(tok),
+                                          torch.from_numpy(pos), caches)
+        out.append((jl, pl))
+    return out, jcaches, caches
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_weights_match_jax(bits):
+    """The w8/w4 model: every projection and the head through quant_matmul
+    (the plain version here, the JAX kernels in interpret mode)."""
+    jcfg, params, model = make_models("llama")
+    params = jax_llama.quantize_params(params, bits)
+    llama.quantize_params(model, bits)
+    rng = np.random.default_rng(3)
+    prompt = rng.integers(0, jcfg.vocab_size, (2, 20), dtype=np.int32)
+    forced = rng.integers(0, jcfg.vocab_size, (2, 2), dtype=np.int32)
+    out, _, _ = run_both(jcfg, params, model, prompt, forced)
+    for i, (ref, got) in enumerate(out):
+        rep = verify_results(np.asarray(ref), got, atol=ATOL, rtol=RTOL)
+        assert rep.passed, f"call {i}: {rep}"
+
+
+@pytest.mark.parametrize("quant", ["int8", "fp8"])
+def test_quantized_kv_generation_matches_jax(quant):
+    jcfg, params, model = make_models("llama")
+    rng = np.random.default_rng(4)
+    prompt = rng.integers(0, jcfg.vocab_size, (2, 20), dtype=np.int32)
+    forced = rng.integers(0, jcfg.vocab_size, (3, 2), dtype=np.int32)
+    out, jcaches, caches = run_both(jcfg, params, model, prompt, forced, quant=quant)
+    for i, (ref, got) in enumerate(out):
+        rep = verify_results(np.asarray(ref), got, atol=QUANT_ATOL, rtol=QUANT_RTOL)
+        assert rep.passed, f"call {i}: {rep}"
+    assert caches[1].k.dtype == (torch.int8 if quant == "int8" else torch.float8_e4m3fn)
+    np.testing.assert_array_equal(caches[1].length.numpy(), np.asarray(jcaches[1].length))
+
+
+def paged_caches(jcfg, model, table, quant=None):
+    """One-sequence paged caches of both packages with the same table."""
+    jc, pc = [], []
+    for _ in range(jcfg.num_layers):
+        j = jax_paged.init_paged_cache(1, jcfg.num_kv_heads, 4, 128, jcfg.head_dim, 4,
+                                       dtype=jnp.float32, quant=quant)
+        jc.append(jax_paged.set_block_table(j, 0, jnp.asarray(table, jnp.int32), 0))
+        p = paged.init_paged_cache(1, jcfg.num_kv_heads, 4, 128, jcfg.head_dim, 4,
+                                   dtype=torch.float32, quant=quant, device="cpu")
+        pc.append(paged.set_block_table(p, 0, table, 0))
+    return jc, pc
+
+
+@pytest.mark.parametrize("backend", ["dense", "paged"])
+def test_chunked_prefill_matches_jax(backend):
+    """chunked_prefill of a 256-token prompt in two 128-token chunks, into
+    dense caches or scrambled pages, then a decode step: JAX's logits, and
+    on the port the paged run equals the dense one bit for bit."""
+    jcfg, params, model = make_models("llama")
+    tokens = np.random.default_rng(5).integers(0, jcfg.vocab_size, (1, 256), dtype=np.int32)
+    if backend == "dense":
+        jc, pc = jax_generate.init_caches(jcfg, 1, 512), generate.init_caches(model, 1, 512)
+    else:
+        jc, pc = paged_caches(jcfg, model, [2, 0, 3, 1])
+    jl, jc = jax_generate.chunked_prefill(params, jnp.asarray(tokens), jc, jcfg, chunk=128)
+    pl, pc = generate.chunked_prefill(model, torch.from_numpy(tokens), pc, chunk=128)
+    rep = verify_results(np.asarray(jl), pl, atol=ATOL, rtol=RTOL)
+    assert rep.passed, rep
+    tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+    pos = np.full((1,), 256, np.int32)
+    jl2, _ = jax_generate.decode_step(params, jnp.asarray(tok), jnp.asarray(pos), jc, jcfg)
+    pl2, _ = generate.decode_step(model, torch.from_numpy(tok), torch.from_numpy(pos), pc)
+    rep = verify_results(np.asarray(jl2), pl2, atol=ATOL, rtol=RTOL)
+    assert rep.passed, rep
+    if backend == "paged":
+        dense = generate.init_caches(model, 1, 512)
+        dl, dense = generate.chunked_prefill(model, torch.from_numpy(tokens), dense, chunk=128)
+        assert torch.equal(dl, pl)
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_chunk_step_with_active_rows_matches_jax(quant):
+    """A chunk appended to one row of a batch while the other holds still
+    (chunked admission): the active row's logits, and both rows' lengths."""
+    jcfg, params, model = make_models("llama")
+    rng = np.random.default_rng(6)
+    prompt = rng.integers(0, jcfg.vocab_size, (2, 20), dtype=np.int32)
+    _, jc, pc = run_both(jcfg, params, model, prompt, [], quant=quant)
+    piece = rng.integers(0, jcfg.vocab_size, (2, 16), dtype=np.int32)
+    positions = np.stack([np.arange(20, 36), np.zeros(16, int)]).astype(np.int32)
+    active = np.asarray([True, False])
+    jl, jc = jax_generate.chunk_step(params, jnp.asarray(piece), jnp.asarray(positions), jc,
+                                     jcfg, active=jnp.asarray(active))
+    pl, pc = generate.chunk_step(model, torch.from_numpy(piece), torch.from_numpy(positions),
+                                 pc, active=torch.from_numpy(active))
+    tol = dict(atol=ATOL, rtol=RTOL) if quant is None else dict(atol=QUANT_ATOL, rtol=QUANT_RTOL)
+    rep = verify_results(np.asarray(jl)[0], pl[0], **tol)
+    assert rep.passed, rep
+    np.testing.assert_array_equal(pc[0].length.numpy(), [36, 20])
+    np.testing.assert_array_equal(pc[1].length.numpy(), np.asarray(jc[1].length))

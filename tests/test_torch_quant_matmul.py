@@ -1,0 +1,93 @@
+"""The port's weight-only int8/int4 quantized matmul against the JAX
+package's: quantize_weights and dequantize_weights bit for bit (the packed
+int4 bytes included), and quant_matmul's plain version against the JAX
+kernels in interpret mode on the same inputs.
+
+quant_matmul tolerance: float32 x, atol 1e-5, rtol 1e-5 (fp32 sums over K in
+another order); bf16 x with a bf16 result, atol 2e-2, rtol 1e-2 (the two
+round the fp32 result to bf16 from sums in another order, one bf16 ulp)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flashattn_tpu.ops import quant_matmul as jax_qmm
+from flashattn_tpu_torch.ops import quant_matmul as qmm
+from flashattn_tpu_torch.utils.verify import verify_results
+
+
+def weights(k, n, seed):
+    w = np.random.default_rng(seed).standard_normal((k, n), dtype=np.float32) * 0.02
+    w[:, 3] = 0.0  # an all-zero channel takes the 1e-10 scale floor
+    return w
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_and_dequantize_bit_equal_to_jax(bits):
+    w = weights(256, 96, bits)
+    ref = jax_qmm.quantize_weights(jnp.asarray(w), bits=bits)
+    out = qmm.quantize_weights(torch.from_numpy(w), bits=bits)
+    assert (out.bits, out.k) == (ref.bits, ref.k) and out.w.dtype == torch.int8
+    np.testing.assert_array_equal(out.w.numpy(), np.asarray(ref.w))
+    np.testing.assert_array_equal(out.scale.numpy(), np.asarray(ref.scale))
+    np.testing.assert_array_equal(qmm.dequantize_weights(out).numpy(),
+                                  np.asarray(jax_qmm.dequantize_weights(ref)))
+
+
+def test_int4_half_split_packing():
+    """Byte row r holds row r in its low nibble and row r + K/2 in its high
+    one; every value in [-7, 7] round-trips."""
+    k = 32
+    r, c = np.meshgrid(np.arange(k), np.arange(16), indexing="ij")
+    vals = ((r + c) % 15 - 7).astype(np.float32)  # each channel's amax is 7: scale 1
+    qw = qmm.quantize_weights(torch.from_numpy(vals), bits=4)
+    assert qw.w.shape == (k // 2, 16)
+    raw = qw.w.view(torch.uint8).to(torch.int32)
+    np.testing.assert_array_equal((raw & 0xF).numpy(), vals[: k // 2].astype(np.int32) & 0xF)
+    np.testing.assert_array_equal((raw >> 4).numpy(), vals[k // 2:].astype(np.int32) & 0xF)
+    np.testing.assert_array_equal(qmm.integer_weights(qw).numpy(), vals.astype(np.int32))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m,k,n", [(13, 512, 256), (4, 5632, 128), (1, 256, 32)])
+def test_quant_matmul_matches_jax(bits, m, k, n):
+    rng = np.random.default_rng(m * 7 + bits)
+    x = rng.standard_normal((m, k), dtype=np.float32)
+    w = weights(k, n, m + k)
+    ref = jax_qmm.quant_matmul(jnp.asarray(x), jax_qmm.quantize_weights(jnp.asarray(w), bits))
+    out = qmm.quant_matmul(torch.from_numpy(x), qmm.quantize_weights(torch.from_numpy(w), bits))
+    assert out.shape == (m, n) and out.dtype == torch.float32
+    rep = verify_results(np.asarray(ref), out, atol=1e-5, rtol=1e-5)
+    assert rep.passed, rep
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_matmul_bf16_and_f32_output_match_jax(bits):
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((6, 256), dtype=np.float32)
+    w = weights(256, 128, 6)
+    jx = jnp.asarray(x, jnp.bfloat16)
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    jw = jax_qmm.quantize_weights(jnp.asarray(w), bits)
+    tw = qmm.quantize_weights(torch.from_numpy(w), bits)
+    for out_dtype, jdt, tol in ((None, None, dict(atol=2e-2, rtol=1e-2)),
+                                (torch.float32, jnp.float32, dict(atol=1e-5, rtol=1e-5))):
+        ref = jax_qmm.quant_matmul(jx, jw, out_dtype=jdt)
+        out = qmm.quant_matmul(tx, tw, out_dtype=out_dtype)
+        assert out.dtype == (out_dtype or torch.bfloat16)
+        rep = verify_results(np.asarray(ref).astype(np.float32), out.float(), **tol)
+        assert rep.passed, (out_dtype, rep)
+
+
+def test_a8_mode_raises_and_cpu_counts_no_launch():
+    qw = qmm.quantize_weights(torch.randn(64, 16), bits=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        qmm.quant_matmul(torch.randn(2, 64), qw, quantize_activations=True)
+    with pytest.raises(ValueError, match="K="):
+        qmm.quant_matmul(torch.randn(2, 32), qw)
+    before = qmm.QMM8_LAUNCHES, qmm.QMM4_LAUNCHES
+    qmm.quant_matmul(torch.randn(2, 64), qw)
+    assert (qmm.QMM8_LAUNCHES, qmm.QMM4_LAUNCHES) == before
+    with pytest.raises(ValueError, match="bits"):
+        qmm.quantize_weights(torch.randn(64, 16), bits=3)

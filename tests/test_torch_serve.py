@@ -1,8 +1,11 @@
 """The port's continuous-batching server against the JAX package's, on the
 same weights and requests (tests/test_serve.py's config and traffic: 4
-requests on 2 slots, so slots recycle mid-flight). float32 model; greedy
-tokens must be equal, to the JAX server's and to the port's own isolated
-generate()."""
+requests on 2 slots, so slots recycle mid-flight), with each of the server's
+options: the paged pool with backpressure, prefix caching, chunked
+admission (dense and paged), int8/fp8 KV caches, int8/int4 weights and
+logprobs. float32 model; greedy tokens must be equal, to the JAX server's
+and to the port's own isolated generate(); logprobs within atol 1e-5 of the
+JAX server's (float32 logits summed in another order)."""
 
 import jax
 import jax.numpy as jnp
@@ -39,9 +42,9 @@ def models():
     return jcfg, params, model
 
 
-def isolated(model, prompt, n):
+def isolated(model, prompt, n, quant=None):
     out = generate.generate(model, torch.tensor([prompt]), max_new_tokens=n,
-                            max_len=512)
+                            max_len=512, quant=quant)
     return out[0].tolist()
 
 
@@ -90,25 +93,132 @@ def test_sampled_request_reproducible_across_batches(models):
     assert all(0 <= t < CFG_KW["vocab_size"] for t in a[7])
 
 
-@pytest.mark.parametrize("option", [
-    dict(paged=True), dict(quant="int8"), dict(admit_chunk=64),
-    dict(return_logprobs=True),
-])
-def test_unported_server_options_raise(models, option):
-    _, _, model = models
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        InferenceServer(model, max_slots=1, max_len=512, **option)
+CHUNK_REQS = [
+    (1, [(3 + i) % 120 for i in range(197)], 5),  # long: many chunks
+    (2, [2, 7], 6),  # shorter than one chunk
+    (3, list(range(60)), 4),
+]
+# Each option of the JAX server with the traffic of its test in
+# tests/test_serve.py; the paged pools are too small for every request at
+# once (admission backpressure).
+OPTIONS = {
+    "paged": (dict(paged=True, page_size=128, num_pages=5), REQS),
+    "quant_int8": (dict(quant="int8"), REQS),
+    "admit_chunk": (dict(admit_chunk=64), CHUNK_REQS),
+    "admit_chunk_paged_fp8": (dict(admit_chunk=64, paged=True, page_size=128, num_pages=4,
+                                   quant="fp8"), CHUNK_REQS),
+    "return_logprobs": (dict(return_logprobs=True, paged=True, page_size=128), REQS),
+}
 
 
-def test_prefix_requests_raise(models):
+def run_pair(jcfg, params, model, option, reqs, prefix=None):
+    """The JAX and the port server on the same requests; returns both
+    servers and their outputs."""
+    jsrv = jax_serve.InferenceServer(params, jcfg, max_slots=2, max_len=512, **option)
+    srv = InferenceServer(model, max_slots=2, max_len=512, **option)
+    jpid = pid = None
+    if prefix is not None:
+        jpid, pid = jsrv.register_prefix(prefix), srv.register_prefix(prefix)
+    for uid, prompt, n in reqs:
+        with_prefix = prefix is not None and prompt[:len(prefix)] == prefix
+        jsrv.submit(jax_serve.Request(uid=uid, prompt=prompt, max_new_tokens=n,
+                                      prefix_id=jpid if with_prefix else None))
+        srv.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n,
+                           prefix_id=pid if with_prefix else None))
+    return jsrv, srv, jsrv.run(), srv.run()
+
+
+@pytest.mark.parametrize("name", sorted(OPTIONS))
+def test_server_option_matches_jax_server_and_generate(models, name):
+    jcfg, params, model = models
+    option, reqs = OPTIONS[name]
+    jsrv, srv, want, got = run_pair(jcfg, params, model, option, reqs)
+    assert got == want
+    for uid, prompt, n in reqs:
+        assert got[uid] == isolated(model, prompt, n, option.get("quant")), uid
+    if option.get("paged"):
+        assert srv.allocator.free_pages == jsrv.allocator.free_pages == srv.allocator.num_pages
+    if option.get("return_logprobs"):
+        assert set(srv.finished_logprobs) == {uid for uid, _, _ in reqs}
+        for uid, _, n in reqs:
+            lp = srv.finished_logprobs[uid]
+            assert len(lp) == n and all(x <= 0.0 for x in lp)
+            np.testing.assert_allclose(lp, jsrv.finished_logprobs[uid], atol=1e-5, rtol=0)
+    st = srv.stats()
+    assert st["admitted"] == len(reqs) and st["active_slots"] == 0 and st["queued"] == 0
+
+
+def test_prefix_caching_matches_jax_server(models):
+    """tests/test_serve.py's prefix test: three requests share a 256-token
+    prefix (2 pages of 128), prefilled once; the pool could not hold a copy
+    per request. Page counts as in the JAX test (its tokens taken modulo the
+    vocabulary: the port's embedding refuses ids past it)."""
+    jcfg, params, model = models
+    prefix = [(40 + i) % 128 for i in range(256)]
+    reqs = [(1, prefix + [7, 8, 9], 5), (2, prefix + [3], 6), (3, prefix + list(range(30)), 4)]
+    option = dict(paged=True, page_size=128, num_pages=2 + 2 * 3, return_logprobs=True)
+    jsrv, srv, want, got = run_pair(jcfg, params, model, option, reqs, prefix=prefix)
+    assert got == want
+    for uid, prompt, n in reqs:
+        assert got[uid] == isolated(model, prompt, n), uid
+        np.testing.assert_allclose(srv.finished_logprobs[uid], jsrv.finished_logprobs[uid],
+                                   atol=1e-5, rtol=0)
+    st = srv.stats()
+    assert st["prefix_pages"] == 2 and st["pages_used"] == 2
+    assert srv.allocator.free_pages == 6
+    srv.unregister_prefix(0)
+    assert srv.allocator.free_pages == 8 and srv.stats()["prefix_pages"] == 0
+
+
+def test_chunked_admission_with_prefix_and_plain_requests(models):
+    """Chunked admission streams from the shared boundary; a plain request
+    shares the batch."""
+    jcfg, params, model = models
+    prefix = [(20 + i) % 128 for i in range(128)]
+    reqs = [(1, prefix + list(range(70)), 5), (2, [9, 8, 7], 5)]
+    option = dict(paged=True, page_size=128, num_pages=8, admit_chunk=64)
+    jsrv, srv, want, got = run_pair(jcfg, params, model, option, reqs, prefix=prefix)
+    assert got == want
+    for uid, prompt, n in reqs:
+        assert got[uid] == isolated(model, prompt, n), uid
+    assert srv.allocator.free_pages == 7  # only the registry's page is held
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_int8_and_int4_weights_match_jax_server(models, bits):
+    jcfg, params, model = models
+    qparams = jax_llama.quantize_params(params, bits)
+    qmodel = llama.quantize_params(llama.Llama(model.cfg, device="cpu"), bits)
+    qmodel.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, qparams)))
+    option = dict(paged=True, page_size=128, quant="int8")
+    reqs = REQS[::2]
+    _, _, want, got = run_pair(jcfg, qparams, qmodel, option, reqs)
+    assert got == want
+    for uid, prompt, n in reqs:
+        assert got[uid] == isolated(qmodel, prompt, n, "int8"), uid
+
+
+def test_requests_that_cannot_fit_raise(models):
     _, _, model = models
-    srv = InferenceServer(model, max_slots=1, max_len=512)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        srv.register_prefix(list(range(128)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        srv.submit(Request(uid=1, prompt=[1], max_new_tokens=1, prefix_id=0))
-    with pytest.raises(ValueError):
-        srv.submit(Request(uid=2, prompt=[1] * 500, max_new_tokens=13))
+    dense = InferenceServer(model, max_slots=1, max_len=512)
+    with pytest.raises(ValueError, match="max_len"):
+        dense.submit(Request(uid=1, prompt=[1] * 500, max_new_tokens=13))
+    with pytest.raises(ValueError, match="paged"):
+        dense.submit(Request(uid=2, prompt=[1], max_new_tokens=1, prefix_id=0))
+    with pytest.raises(ValueError, match="paged"):
+        dense.register_prefix(list(range(128)))
+    pool = InferenceServer(model, max_slots=2, max_len=512, paged=True, page_size=128,
+                           num_pages=3)
+    with pytest.raises(ValueError, match="could never be admitted"):
+        pool.submit(Request(uid=3, prompt=[1] * 400, max_new_tokens=10))  # 4 pages
+    pid = pool.register_prefix([i % 128 for i in range(256)])  # holds 2 of the 3 pages
+    with pytest.raises(ValueError, match="registered prefix"):
+        pool.submit(Request(uid=4, prompt=[5] * 300, max_new_tokens=4, prefix_id=pid))
+    pool.submit(Request(uid=5, prompt=[1] * 200, max_new_tokens=10))  # 2 pages: waits forever
+    with pytest.raises(RuntimeError, match="can ever be free"):
+        pool.run()
+    pool.unregister_prefix(pid)
+    assert pool.run()[5] == isolated(model, [1] * 200, 10)
 
 
 def test_warmup_leaves_no_state(models):
