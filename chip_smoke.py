@@ -9,7 +9,10 @@ one nvcc each, all at once) and runs nine phases, printing one line per
 check:
 
 1. environment: torch/CUDA versions, the card's name and power limit, the
-   kernels' build time and their compiler report;
+   kernels' build time and their compiler report (no spills in the
+   backward's tensor-core kernels), and the tensor-core instructions
+   (HMMA/HGMMA) in the SASS of each bf16 backward kernel, which must be
+   there for the fused and dK/dV kernels;
 2. each kernel against its plain PyTorch version on the card, at the
    serving and training paths' shapes and at their edges (K1 also at every
    backward case, where it makes the backward's O and LSE; K2 on int8 and
@@ -56,6 +59,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -137,7 +141,36 @@ def phase_environment() -> str:
                 kernel = kernel_label(entry.group(1))
             elif "registers" in line or "spill" in line:
                 print(f"[env] ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
+                if "spill" in line and "_mma_kernel" in kernel:
+                    check("0 bytes spill stores, 0 bytes spill loads" in line,
+                          f"{kernel} spills: {line.strip()}")
+    mma = {}
+    for lib in ("flash_bwd", "flash_bwd_fused"):
+        for kernel, n in tensor_core_instructions(lib).items():
+            if "float" not in kernel:
+                print(f"[env] SASS {kernel}: {n} tensor-core instructions (HMMA/HGMMA)")
+                if "_mma_kernel" in kernel:
+                    mma[kernel] = n
+    check(len(mma) == 4 and all(mma.values()),
+          f"the bf16 fused and dK/dV kernels must run on the tensor cores: {mma}")
     return name
+
+
+def tensor_core_instructions(lib: str) -> dict[str, int]:
+    """HMMA/HGMMA instructions in the SASS of each kernel of a built library
+    (cuobjdump beside nvcc)."""
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(lib))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        entry = re.search(r"Function : (\S+)", line)
+        if entry:
+            kernel = kernel_label(entry.group(1))
+            counts[kernel] = 0
+        elif kernel is not None and re.search(r"\bHG?MMA\.", line):
+            counts[kernel] += 1
+    return counts
 
 
 def kernel_label(mangled: str) -> str:
@@ -469,6 +502,7 @@ BWD_CASES = [
     ("Sq<Sk", 1, 32, 4, 256, 1024, 64, True, None, torch.bfloat16),
     ("ragged S=200", 1, 32, 4, 200, 200, 64, True, None, torch.bfloat16),
     ("no-key rows", 1, 8, 2, 256, 256, 64, True, -100, torch.bfloat16),
+    ("ragged D=128 causal", 1, 8, 1, 1000, 1000, 128, True, None, torch.bfloat16),
     ("float32", 1, 8, 2, 256, 256, 64, True, None, torch.float32),
 ]
 

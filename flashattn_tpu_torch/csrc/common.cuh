@@ -104,6 +104,22 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src, int n_rows,
   }
 }
 
+// c += a . b on the tensor cores: one m16n8k16 bf16 product, fp32
+// accumulators, fragments in the layouts of the PTX ISA.
+__device__ __forceinline__ void mma_16816(float* c, const unsigned* a, unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (lo, hi) rounded to bf16 and packed: lo in the low half (lower index).
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
 // Let a kernel ask for up to the device's opt-in maximum of dynamic shared
 // memory (above 48 KB needs this). Set once per kernel, so that launches
 // captured into a CUDA graph make no attribute call.

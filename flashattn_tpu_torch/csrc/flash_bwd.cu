@@ -11,18 +11,24 @@
 // q tile of the dQ kernel and each kv tile of the dK/dV kernel recompute
 // S and dP over tens of tiles, so the work is arithmetic (about 2.5x the
 // forward's FLOPs over the two kernels); HBM traffic is Q, K, V, O, dO once
-// per tile pair. These first kernels run that arithmetic on the CUDA cores
-// in fp32 over shared-memory tiles (flash_bwd.cuh), so they are bound by
-// shared-memory loads (about one per FMA), far below the tensor cores' rate;
-// mma/wgmma tiles are later work.
+// per tile pair. The dK/dV kernel runs bf16 on the tensor cores
+// (flash_bwd_mma.cuh: mma.sync m16n8k16, bf16 operands in shared memory,
+// cp.async double buffer of the q tiles), so it is bound by the rate of
+// mma.sync and the barriers a tile pair. The dQ kernel, and float32 in both,
+// run on the CUDA cores in fp32 over shared-memory tiles (flash_bwd.cuh),
+// bound by shared-memory loads (about one per FMA); the dQ kernel on the
+// tensor cores is later work.
 //
 // What the design does about it: one CTA per (64-row q tile, q head, batch)
 // for dQ, the kv loop cut at the tile's causal bound, heavy causal tiles
 // launched first; one CTA per (64-row kv tile, kv head, batch) for dK/dV,
 // looping over the GQA group's q heads and the live q tiles, dK and dV in
-// registers until one write. No atomics: two runs give bitwise-equal
-// outputs, which makes this the deterministic path.
-#include "flash_bwd.cuh"
+// registers until one write, heavy causal tiles launched first in bf16. No
+// atomics: two runs give bitwise-equal outputs, which makes this the
+// deterministic path.
+#include <type_traits>
+
+#include "flash_bwd_mma.cuh"
 
 namespace {
 
@@ -136,6 +142,18 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                                   is_causal, offset, scale, scale_log2);
 }
 
+template <int D>
+__global__ void __launch_bounds__(fat::bwd::mma::kThreads)
+flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                         const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int Hq, int Hkv, int Sq, int Sk,
+                         int is_causal, int offset, float scale, float scale_log2) {
+  fat::bwd::mma::dkv_tile<D, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, Hq, Hkv, Sq, Sk,
+                                    is_causal, offset, scale, scale_log2);
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const void* lse, void* dq, void* delta, int B, int Hq,
@@ -157,14 +175,28 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
                        const void* lse, const void* delta, void* dk, void* dv, int B, int Hq,
                        int Hkv, int Sq, int Sk, int is_causal, int offset, float scale,
                        cudaStream_t stream) {
-  const cudaError_t err = fat::allow_max_smem<flash_bwd_dkv_kernel<T, D>>();
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sk + kBlock - 1) / kBlock, Hkv, B);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, fat::bwd::dkv_smem_bytes<D>(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), Hq, Hkv, Sq, Sk,
-      is_causal, offset, scale, scale * 1.4426950408889634f);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  cudaError_t err;
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    namespace mma = fat::bwd::mma;
+    err = fat::allow_max_smem<flash_bwd_dkv_mma_kernel<D>>();
+    if (err != cudaSuccess) return err;
+    const dim3 grid(Hkv, B, (Sk + mma::kBc - 1) / mma::kBc);
+    flash_bwd_dkv_mma_kernel<D><<<grid, mma::kThreads, mma::smem_bytes<D, false>(), stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), Hq, Hkv, Sq,
+        Sk, is_causal, offset, scale, scale_log2);
+  } else {
+    err = fat::allow_max_smem<flash_bwd_dkv_kernel<T, D>>();
+    if (err != cudaSuccess) return err;
+    const dim3 grid((Sk + kBlock - 1) / kBlock, Hkv, B);
+    flash_bwd_dkv_kernel<T, D><<<grid, kThreads, fat::bwd::dkv_smem_bytes<D>(), stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), Hq, Hkv, Sq,
+        Sk, is_causal, offset, scale, scale_log2);
+  }
   return cudaGetLastError();
 }
 

@@ -1,7 +1,9 @@
-// Tile machinery shared by the flash-attention backward kernels
-// (flash_bwd.cu: the split path, B4 and B5; flash_bwd_fused.cu: B3).
+// CUDA-core tile machinery of the flash-attention backward kernels: B4's
+// dQ kernel (flash_bwd.cu) at every dtype, and the dK/dV tile of B3
+// (flash_bwd_fused.cu) and B5 (flash_bwd.cu) for float32. bf16 dK/dV runs
+// on the tensor cores instead (flash_bwd_mma.cuh).
 //
-// Every kernel works on 64 x 64 score tiles with 256 threads: thread
+// Every kernel here works on 64 x 64 score tiles with 256 threads: thread
 // (r = tid / 4, t = tid % 4) owns row r of the tile and the 16 columns
 // t, t + 4, ..., t + 60, so a row's four threads sit in one warp and meet
 // with quad shuffles or __syncwarp. Tiles are widened to fp32 in shared
@@ -75,8 +77,8 @@ constexpr size_t dkv_smem_bytes() {
 // dK and dV of one kv tile (blockIdx.x) of one kv head (blockIdx.y) of one
 // batch row (blockIdx.z), summed over the q heads of its GQA group and over
 // every q tile with a row that sees the tile. With kFusedDq it also adds the
-// tile's dQ contributions, scale not applied, into dq_acc (fp32, zeroed by
-// the caller) with atomics; without it nothing is shared between CTAs and
+// tile's dQ contributions, scale applied, into dq_acc (fp32, zeroed by the
+// caller) with atomics; without it nothing is shared between CTAs and
 // the result is bitwise reproducible.
 //
 // dK and dV stay in registers (thread (r, t) owns kv row r, columns t + 4i)
@@ -174,7 +176,7 @@ __device__ __forceinline__ void dkv_tile(const T* __restrict__ q, const T* __res
           }
           float* row = dq_acc + q_base + static_cast<size_t>(qi) * D + t;
 #pragma unroll
-          for (int i = 0; i < kDims; ++i) atomicAdd(row + kThreadsPerRow * i, acc[i]);
+          for (int i = 0; i < kDims; ++i) atomicAdd(row + kThreadsPerRow * i, acc[i] * scale);
         }
       }
     }

@@ -10,17 +10,22 @@
 // one CTA per (64-row kv tile, kv head, batch) keeps its tile's dK and dV in
 // registers while it walks the GQA group's q heads and the live q tiles,
 // computing S, P, dP and dS once per tile pair, and adds each tile's dQ
-// contribution into an fp32 buffer with atomicAdd. The caller zeroes that
-// buffer and scales and casts it afterwards.
+// contribution, scale applied, into an fp32 buffer with atomics. The caller
+// zeroes that buffer and casts it afterwards.
 //
-// What bounds it on the card: arithmetic, about 2.5x the forward's FLOPs,
-// here on the CUDA cores in fp32 over shared-memory tiles (flash_bwd.cuh),
-// so bound by shared-memory loads (about one per FMA); dQ's atomics add
-// 64 x D fp32 reductions to L2 per tile pair. Compared with the split path
-// it computes S and dP once instead of twice. The atomics sum in an order
-// that changes between runs, so dQ is not bitwise reproducible; the split
-// path (flash_bwd.cu) is the deterministic one.
-#include "flash_bwd.cuh"
+// What bounds it on the card: arithmetic, about 2.5x the forward's FLOPs
+// (five products a tile pair), so the tensor cores' rate; then the dQ
+// reductions into L2 (64 x D fp32 a tile pair). bf16 runs the tensor-core
+// tile of flash_bwd_mma.cuh (mma.sync m16n8k16, bf16 operands in shared
+// memory, cp.async double buffer of the q tiles, dQ by float4 atomicAdd:
+// 16 x D / 4 a tile pair); float32 keeps the CUDA-core tile of
+// flash_bwd.cuh (64 x D scalar atomics a tile pair). Compared with the split
+// path it computes S and dP once instead of twice. The atomics sum in an
+// order that changes between runs, so dQ is not bitwise reproducible; the
+// split path (flash_bwd.cu) is the deterministic one.
+#include <type_traits>
+
+#include "flash_bwd_mma.cuh"
 
 namespace {
 
@@ -59,6 +64,19 @@ flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                  is_causal, offset, scale, scale_log2);
 }
 
+template <int D>
+__global__ void __launch_bounds__(fat::bwd::mma::kThreads)
+flash_bwd_fused_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                           const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, float* __restrict__ dq_acc, int Hq,
+                           int Hkv, int Sq, int Sk, int is_causal, int offset, float scale,
+                           float scale_log2) {
+  fat::bwd::mma::dkv_tile<D, true>(q, k, v, dout, lse, delta, dk, dv, dq_acc, Hq, Hkv, Sq, Sk,
+                                   is_causal, offset, scale, scale_log2);
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const void* lse, void* dq_acc, void* dk, void* dv, void* delta, int B, int Hq,
@@ -70,15 +88,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
       static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<float*>(delta), rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = fat::allow_max_smem<flash_bwd_fused_kernel<T, D>>();
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sk + kBlock - 1) / kBlock, Hkv, B);
-  flash_bwd_fused_kernel<T, D><<<grid, kThreads, fat::bwd::dkv_smem_bytes<D>(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
-      static_cast<float*>(dq_acc), Hq, Hkv, Sq, Sk, is_causal, offset, scale,
-      scale * 1.4426950408889634f);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    namespace mma = fat::bwd::mma;
+    err = fat::allow_max_smem<flash_bwd_fused_mma_kernel<D>>();
+    if (err != cudaSuccess) return err;
+    const dim3 grid(Hkv, B, (Sk + mma::kBc - 1) / mma::kBc);
+    flash_bwd_fused_mma_kernel<D><<<grid, mma::kThreads, mma::smem_bytes<D, true>(), stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
+        static_cast<float*>(dq_acc), Hq, Hkv, Sq, Sk, is_causal, offset, scale, scale_log2);
+  } else {
+    err = fat::allow_max_smem<flash_bwd_fused_kernel<T, D>>();
+    if (err != cudaSuccess) return err;
+    const dim3 grid((Sk + kBlock - 1) / kBlock, Hkv, B);
+    flash_bwd_fused_kernel<T, D><<<grid, kThreads, fat::bwd::dkv_smem_bytes<D>(), stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
+        static_cast<float*>(dq_acc), Hq, Hkv, Sq, Sk, is_causal, offset, scale, scale_log2);
+  }
   return cudaGetLastError();
 }
 
@@ -88,8 +118,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
 // [B,Hq,Sq] fp32; dq_acc [B,Hq,Sq,D] fp32, zeroed by the caller; all
 // contiguous on the device, the [.., D] tensors 16-byte aligned. Row r sees
 // column c iff !is_causal or c <= r + offset. Writes delta, dk (scale
-// applied) and dv in k's dtype, and adds dS.K (scale not applied) into
-// dq_acc. Returns the CUDA error code of the launches (0 = success).
+// applied) and dv in k's dtype, and adds scale * dS.K into dq_acc. Returns the CUDA error code of the launches (0 = success).
 extern "C" int flash_bwd_fused_launch(const void* q, const void* k, const void* v, const void* o,
                                       const void* dout, const void* lse, void* dq_acc, void* dk,
                                       void* dv, void* delta, int B, int Hq, int Hkv, int Sq,

@@ -1,0 +1,372 @@
+// The bf16 dK/dV tile of the flash-attention backward on the tensor cores,
+// shared by B3's fused kernel (flash_bwd_fused.cu) and B5's dK/dV kernel
+// (flash_bwd.cu). float32 keeps the CUDA-core tile of flash_bwd.cuh.
+//
+// One CTA of 4 warps (128 threads) owns a 64-row kv tile of one kv head of
+// one batch row; warp w owns kv rows [16w, 16w+16) of it. The CTA walks the
+// q heads of the GQA group and, for each, the q tiles with a row that sees
+// the tile (kBr rows a q tile: 64 at D 64, 32 at D 128). Per tile pair, on
+// mma.sync m16n8k16 with fp32 accumulators:
+//
+//   S^T = K Q^T, dP^T = V dO^T      A: K, V; B: Q, dO rows (ldmatrix)
+//   P^T = exp2(S^T scale_log2 - lse2), dS^T = P^T (dP^T - delta), masked
+//   dV += P^T dO, dK += dS^T Q      A: P^T and dS^T from the accumulators,
+//                                   rounded to bf16; B: dO, Q (ldmatrix.trans)
+//   fused only: dS^T to shared memory (bf16), dQ_tile = scale dS K
+//   (A: dS^T by ldmatrix.trans, B: K by ldmatrix.trans), added to dq_acc
+//   with one float4 atomicAdd per 4 entries.
+//
+// Operands stay bf16 in shared memory with rows padded by 16 bytes, so each
+// 8-row phase of an ldmatrix reads 32 distinct banks. Q, dO, LSE and delta of
+// the next q tile arrive by cp.async in a second buffer while the current
+// one computes: one barrier a tile pair (two when fused). At D 64 the K and
+// V fragments stay in registers for the CTA's life; at D 128 they are read
+// from shared memory per k-step, which keeps dK, dV, S^T and dP^T in
+// registers without spills. dK and dV stay in registers until one write
+// each (scale applied to dK); kv rows that no q row sees are written as 0.
+//
+// Shared memory: 65,536 B (fused) or 56,320 B (dK/dV) at D 64; 75,264 B or
+// 70,144 B at D 128. Registers and spills: the compiler report
+// (chip_smoke.py phase 1).
+#pragma once
+
+#include "flash_bwd.cuh"
+
+namespace fat {
+namespace bwd {
+namespace mma {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBc = 16 * kWarps;  // kv rows a CTA
+
+template <int D>
+__host__ __device__ constexpr int q_rows() {
+  return D == 64 ? 64 : 32;
+}
+
+template <int D, bool kFusedDq>
+constexpr size_t smem_bytes() {
+  constexpr int kBr = q_rows<D>();
+  return sizeof(bf16) * (2 * kBc * (D + 8)                   // K, V
+                         + 2 * 2 * kBr * (D + 8)             // Q, dO: two buffers each
+                         + (kFusedDq ? kBc * (kBr + 8) : 0))  // dS^T
+         + sizeof(float) * 2 * 2 * kBr;                      // LSE, delta: two buffers each
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes global -> shared, asynchronously; zeros when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane i gives the address of row
+// i % 8 of matrix i / 8, and r[m] receives matrix m in fragment layout
+// (transposed with ldsm_x4_t).
+__device__ __forceinline__ void ldsm_x4(unsigned* r, const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned* r, const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// Lane offsets into a row-major tile (row stride ld) for the two ldmatrix
+// patterns, at the 16 x 16 block whose top-left element is `base`:
+// kRowsFirst: matrices (r0,c0), (r8,c0), (r0,c8), (r8,c8): an A fragment, or
+//   with .trans the B fragments of two n-tiles from a [k][n] tile;
+// !kRowsFirst: matrices (r0,c0), (r0,c8), (r8,c0), (r8,c8): the B fragments
+//   of two n-tiles from an [n][k] tile, or with .trans an A fragment from a
+//   [k][m] tile.
+template <bool kRowsFirst>
+__device__ __forceinline__ int lane_offset(int lane, int ld) {
+  return kRowsFirst ? (lane & 15) * ld + (lane >> 4) * 8
+                    : ((lane >> 4) * 8 + (lane & 7)) * ld + ((lane >> 3) & 1) * 8;
+}
+
+// Rows [0, n_rows) of a contiguous [kRows][D] bf16 tile into shared memory
+// with row stride D + 8, by cp.async; rows past n_rows are zeros.
+template <int kRows, int D>
+__device__ __forceinline__ void load_tile_async(const bf16* __restrict__ src, int n_rows,
+                                                bf16* __restrict__ dst) {
+  constexpr int kChunksPerRow = D / 8;
+  constexpr int kChunks = kRows * kChunksPerRow;
+  static_assert(kChunks % kThreads == 0, "whole 16-byte chunks for every thread");
+#pragma unroll
+  for (int j = 0; j < kChunks / kThreads; ++j) {
+    const int c = threadIdx.x + j * kThreads;
+    const int row = c / kChunksPerRow, col = (c % kChunksPerRow) * 8;
+    const bool valid = row < n_rows;
+    cp_async16(dst + row * (D + 8) + col, valid ? src + row * D + col : src, valid);
+  }
+}
+
+// The contract of flash_bwd.cuh's dkv_tile, for bf16, with the grid
+// (Hkv, B, kv tiles): blockIdx.z walks the kv tiles, so that a causal
+// call's heavy tiles (the first ones) are dispatched first. With kFusedDq
+// the dQ contributions are added with scale applied.
+template <int D, bool kFusedDq>
+__device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                         const bf16* __restrict__ v,
+                                         const bf16* __restrict__ dout,
+                                         const float* __restrict__ lse,
+                                         const float* __restrict__ delta, bf16* __restrict__ dk,
+                                         bf16* __restrict__ dv, float* __restrict__ dq_acc,
+                                         int Hq, int Hkv, int Sq, int Sk, int is_causal,
+                                         int offset, float scale, float scale_log2) {
+  constexpr int kBr = q_rows<D>();
+  constexpr int KP = D + 8;        // row stride of the K, V, Q and dO tiles
+  constexpr int SP = kBr + 8;      // row stride of dS^T
+  constexpr int kDSteps = D / 16;  // k-steps of S^T and dP^T
+  constexpr int kQTiles = kBr / 8;  // their n-tiles
+  constexpr int kQSteps = kBr / 16;  // k-steps of dV and dK
+  constexpr int kDTiles = D / 8;     // their n-tiles
+  constexpr bool kResident = D == 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = ks + kBc * KP;
+  bf16* qs = vs + kBc * KP;     // [2][kBr][KP]
+  bf16* dos = qs + 2 * kBr * KP;  // [2][kBr][KP]
+  bf16* dst = dos + 2 * kBr * KP;  // [kBc][SP], fused only
+  float* lses = reinterpret_cast<float*>(dst + (kFusedDq ? kBc * SP : 0));  // [2][kBr]
+  float* deltas = lses + 2 * kBr;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, tig = lane % 4;  // fragment row group, thread in group
+  const int wrow = warp * 16;              // this warp's kv rows in the tile
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int kv0 = blockIdx.z * kBc;
+  const int group = Hq / Hkv;
+  const size_t kv_base = (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
+
+  // Causal: q row qi sees column kv0 iff qi >= kv0 - offset, so q tiles
+  // before the one holding that row contribute nothing.
+  const int n_q_tiles = (Sq + kBr - 1) / kBr;
+  const int first_row = is_causal ? max(0, kv0 - offset) : 0;
+  const int q_begin = first_row >= Sq ? n_q_tiles : first_row / kBr;
+  const int n_live = n_q_tiles - q_begin;
+  const int n_iters = group * n_live;  // iteration i: q head i / n_live, q tile i % n_live
+
+  // Row (b, h, q0) of the [B, Hq, Sq] statistics for iteration it.
+  auto stat_row = [&](int it, int& q0) {
+    q0 = (q_begin + it % n_live) * kBr;
+    return (static_cast<size_t>(b) * Hq + hk * group + it / n_live) * Sq + q0;
+  };
+  auto load_q_tile = [&](int it) {
+    int q0;
+    const size_t row = stat_row(it, q0);
+    const int buf = it & 1;
+    load_tile_async<kBr, D>(q + row * D, Sq - q0, qs + buf * kBr * KP);
+    load_tile_async<kBr, D>(dout + row * D, Sq - q0, dos + buf * kBr * KP);
+    if (tid < 2 * kBr) {
+      const int r = tid % kBr;
+      const bool valid = q0 + r < Sq;
+      const float* src = tid < kBr ? lse : delta;
+      float* to = (tid < kBr ? lses : deltas) + buf * kBr + r;
+      cp_async4(to, src + (valid ? row + r : 0), valid);
+    }
+  };
+
+  load_tile_async<kBc, D>(k + kv_base + static_cast<size_t>(kv0) * D, Sk - kv0, ks);
+  load_tile_async<kBc, D>(v + kv_base + static_cast<size_t>(kv0) * D, Sk - kv0, vs);
+  if (n_iters > 0) load_q_tile(0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int a_off = wrow * KP + lane_offset<true>(lane, KP);  // this warp's K/V A fragments
+  unsigned kf[kResident ? kDSteps : 1][4], vf[kResident ? kDSteps : 1][4];
+  if constexpr (kResident) {
+#pragma unroll
+    for (int kk = 0; kk < kDSteps; ++kk) {
+      ldsm_x4(kf[kk], ks + a_off + kk * 16);
+      ldsm_x4(vf[kk], vs + a_off + kk * 16);
+    }
+  }
+
+  float dk_acc[kDTiles][4], dv_acc[kDTiles][4];
+#pragma unroll
+  for (int n = 0; n < kDTiles; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  const int kv_r0 = kv0 + wrow + g;  // this thread's kv rows: kv_r0, kv_r0 + 8
+  for (int it = 0; it < n_iters; ++it) {
+    cp_async_wait_all();
+    __syncthreads();  // tile `it` is in; every warp is done with tile it - 1
+    if (it + 1 < n_iters) load_q_tile(it + 1);
+    cp_async_commit();
+    int q0;
+    const size_t row0 = stat_row(it, q0);
+    const int buf = it & 1;
+    const bf16* qb = qs + buf * kBr * KP;
+    const bf16* dob = dos + buf * kBr * KP;
+    const float* lseb = lses + buf * kBr;
+    const float* deltab = deltas + buf * kBr;
+
+    // S^T and dP^T: this warp's 16 kv rows against the tile's kBr q columns.
+    float s[kQTiles][4], dp[kQTiles][4];
+#pragma unroll
+    for (int j = 0; j < kQTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    const int b_off = lane_offset<false>(lane, KP);
+#pragma unroll
+    for (int kk = 0; kk < kDSteps; ++kk) {
+      unsigned ka[4], va[4];
+      if constexpr (kResident) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) ka[i] = kf[kk][i], va[i] = vf[kk][i];
+      } else {
+        ldsm_x4(ka, ks + a_off + kk * 16);
+        ldsm_x4(va, vs + a_off + kk * 16);
+      }
+#pragma unroll
+      for (int jp = 0; jp < kQTiles / 2; ++jp) {
+        unsigned bq[4], bd[4];
+        ldsm_x4(bq, qb + 16 * jp * KP + kk * 16 + b_off);
+        ldsm_x4(bd, dob + 16 * jp * KP + kk * 16 + b_off);
+        mma_16816(s[2 * jp], ka, bq[0], bq[1]);
+        mma_16816(s[2 * jp + 1], ka, bq[2], bq[3]);
+        mma_16816(dp[2 * jp], va, bd[0], bd[1]);
+        mma_16816(dp[2 * jp + 1], va, bd[2], bd[3]);
+      }
+    }
+
+    // Element e of fragment j: kv row kv_r0 + 8 (e / 2), q column
+    // 8j + 2 tig + e % 2. P and dS in fp32, rounded to bf16 as the A
+    // fragments of dV and dK (fragment j is half of k-step j / 2).
+    const bool edge = q0 + kBr > Sq || kv0 + kBc > Sk ||
+                      (is_causal && kv0 + kBc - 1 > q0 + offset);
+    unsigned pa[kQSteps][4], dsa[kQSteps][4];
+#pragma unroll
+    for (int j = 0; j < kQTiles; ++j) {
+      const int c = 8 * j + 2 * tig;
+      const float2 l = *reinterpret_cast<const float2*>(lseb + c);
+      const float2 dl = *reinterpret_cast<const float2*>(deltab + c);
+      const float lse2[2] = {lse_log2(l.x), lse_log2(l.y)};
+      const float dlt[2] = {dl.x, dl.y};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        bool live = true;
+        if (edge) {
+          const int qi = q0 + c + (e & 1), kr = kv_r0 + 8 * (e >> 1);
+          live = qi < Sq && kr < Sk && (!is_causal || kr <= qi + offset);
+        }
+        const float p = live ? exp2f(s[j][e] * scale_log2 - lse2[e & 1]) : 0.f;
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - dlt[e & 1]);
+      }
+      pa[j / 2][2 * (j % 2)] = pack_bf16(s[j][0], s[j][1]);
+      pa[j / 2][2 * (j % 2) + 1] = pack_bf16(s[j][2], s[j][3]);
+      dsa[j / 2][2 * (j % 2)] = pack_bf16(dp[j][0], dp[j][1]);
+      dsa[j / 2][2 * (j % 2) + 1] = pack_bf16(dp[j][2], dp[j][3]);
+      if constexpr (kFusedDq) {
+        bf16* r = dst + (wrow + g) * SP + c;
+        *reinterpret_cast<unsigned*>(r) = dsa[j / 2][2 * (j % 2)];
+        *reinterpret_cast<unsigned*>(r + 8 * SP) = dsa[j / 2][2 * (j % 2) + 1];
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q, two n-tiles of D a step.
+    const int t_off = lane_offset<true>(lane, KP);
+#pragma unroll
+    for (int kk = 0; kk < kQSteps; ++kk) {
+#pragma unroll
+      for (int np = 0; np < kDTiles / 2; ++np) {
+        unsigned bo[4], bq[4];
+        ldsm_x4_t(bo, dob + 16 * kk * KP + 16 * np + t_off);
+        ldsm_x4_t(bq, qb + 16 * kk * KP + 16 * np + t_off);
+        mma_16816(dv_acc[2 * np], pa[kk], bo[0], bo[1]);
+        mma_16816(dv_acc[2 * np + 1], pa[kk], bo[2], bo[3]);
+        mma_16816(dk_acc[2 * np], dsa[kk], bq[0], bq[1]);
+        mma_16816(dk_acc[2 * np + 1], dsa[kk], bq[2], bq[3]);
+      }
+    }
+
+    if constexpr (kFusedDq) {
+      __syncthreads();  // every warp's rows of dS^T are written
+      // dQ of the tile = scale dS K: warps split the kBr q rows into 16-row
+      // groups and, when fewer than four groups, D into column groups; at D
+      // 128 a warp's 64 columns go in two passes, which keeps its registers
+      // within the file.
+      constexpr int kRowGroups = kBr / 16;
+      constexpr int kCols = D * kRowGroups / kWarps;
+      constexpr int kPass = D == 64 ? kCols : 32;
+      const int qr = (warp % kRowGroups) * 16;
+      const bool odd = tig & 1;
+      const int qi = q0 + qr + g + (odd ? 8 : 0);
+#pragma unroll 1
+      for (int dc = (warp / kRowGroups) * kCols, end = dc + kCols; dc < end; dc += kPass) {
+        float acc[kPass / 8][4];
+#pragma unroll
+        for (int n = 0; n < kPass / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < kBc / 16; ++kk) {
+          unsigned a[4];
+          ldsm_x4_t(a, dst + 16 * kk * SP + qr + lane_offset<false>(lane, SP));
+#pragma unroll
+          for (int np = 0; np < kPass / 16; ++np) {
+            unsigned bk[4];
+            ldsm_x4_t(bk, ks + 16 * kk * KP + dc + 16 * np + t_off);
+            mma_16816(acc[2 * np], a, bk[0], bk[1]);
+            mma_16816(acc[2 * np + 1], a, bk[2], bk[3]);
+          }
+        }
+        // Lanes tig and tig ^ 1 trade halves, so that each adds four
+        // consecutive entries of one row: row g for even tig, g + 8 for odd.
+        float* out = dq_acc + (row0 - q0 + qi) * D + dc + 2 * (tig & ~1);
+#pragma unroll
+        for (int n = 0; n < kPass / 8; ++n) {
+          const float y0 = __shfl_xor_sync(0xffffffffu, odd ? acc[n][0] : acc[n][2], 1);
+          const float y1 = __shfl_xor_sync(0xffffffffu, odd ? acc[n][1] : acc[n][3], 1);
+          const float4 val = odd ? make_float4(y0, y1, acc[n][2], acc[n][3])
+                                 : make_float4(acc[n][0], acc[n][1], y0, y1);
+          if (qi < Sq)
+            atomicAdd(reinterpret_cast<float4*>(out + 8 * n),
+                      make_float4(val.x * scale, val.y * scale, val.z * scale, val.w * scale));
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kr = kv_r0 + 8 * i;
+    if (kr >= Sk) continue;
+    bf16* dk_row = dk + kv_base + static_cast<size_t>(kr) * D + 2 * tig;
+    bf16* dv_row = dv + kv_base + static_cast<size_t>(kr) * D + 2 * tig;
+#pragma unroll
+    for (int n = 0; n < kDTiles; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dk_row + 8 * n) =
+          __floats2bfloat162_rn(dk_acc[n][2 * i] * scale, dk_acc[n][2 * i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv_row + 8 * n) =
+          __floats2bfloat162_rn(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+    }
+  }
+}
+
+}  // namespace mma
+}  // namespace bwd
+}  // namespace fat

@@ -173,23 +173,12 @@ constexpr size_t mma_smem_bytes() {
   return sizeof(__nv_bfloat16) * (kBlockM * (D + 8) + kBlockN * (D + 8) + D * kVtPad);
 }
 
-__device__ __forceinline__ void mma_16816(float* c, const unsigned* a, unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using fat::mma_16816;
+using fat::pack_bf16;
 
 // Two bf16 at an even element index, as one 32-bit fragment register.
 __device__ __forceinline__ unsigned ld_pair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const unsigned*>(p);
-}
-
-// (lo, hi) rounded to bf16 and packed: lo in the low half (lower index).
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
 }
 
 // Copy rows [0, n_rows) of a contiguous [kBlockN][D] bf16 tile into shared

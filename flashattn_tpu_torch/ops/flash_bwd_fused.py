@@ -7,9 +7,10 @@ on CUDA operands that ``flash_attention_backward`` (ops/flash_bwd.py) has
 checked; that function dispatches here for impl="fused" and "auto", and
 takes CPU tensors to the plain version. The launch is a delta pre-pass, then
 one kernel per (kv tile, kv head, batch) that computes S, P, dP and dS once
-per tile pair, keeps dK and dV in registers and adds dQ with fp32 atomics.
-The sums land in another order on every run, so dQ is not bitwise
-reproducible; ops/flash_bwd.py's "split" path is.
+per tile pair, keeps dK and dV in registers and adds dQ, scale applied,
+with fp32 atomics into a zeroed buffer that one cast turns into dQ. The
+sums land in another order on every run, so dQ is not bitwise reproducible;
+ops/flash_bwd.py's "split" path is.
 """
 
 from __future__ import annotations
@@ -90,4 +91,4 @@ def flash_attention_backward_fused(
     _build.check(lib, rc, "flash_bwd_fused")
     global LAUNCHES
     LAUNCHES += 1
-    return dq_acc.mul_(args[-1]).to(q.dtype), dk, dv
+    return dq_acc.to(q.dtype), dk, dv

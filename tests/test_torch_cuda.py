@@ -6,7 +6,11 @@ edges the smoke run does not reach: float32 inputs, rows that see no key, an
 empty sequence, a full cache, D=128, large GQA groups, long chunks (T 256),
 ragged lengths, pages of 64 and 256, M of 1 and odd M, the wrappers'
 refusals, autograd through flash_attention, and small models on the card
-against the CPU.
+against the CPU. The bf16 backward's tensor-core tile also meets the
+training shape's GQA (Hq 32, Hkv 4) at S 1024 and a ragged S 1000 at D 128,
+over which its q-tile double buffer wraps many times; the split path is
+bitwise deterministic at D 64 and D 128, and fused and split agree in bf16
+and float32.
 
 These tests need a CUDA device and skip without one. On the card:
 
@@ -198,6 +202,10 @@ BWD_CASES = {
     "ragged": (1, 4, 2, 200, 200, 64, True, None),
     "ragged_d128_cross": (1, 2, 1, 77, 333, 128, False, None),
     "no_key_rows": (1, 4, 2, 192, 192, 64, True, -100),
+    # the training shape's GQA at half its length
+    "gqa8_train_s1024": (1, 32, 4, 1024, 1024, 64, True, None),
+    # ragged, long enough for the q-tile double buffer to wrap many times
+    "ragged_d128_wrap": (1, 8, 1, 1000, 1000, 128, True, None),
 }
 
 
@@ -237,8 +245,9 @@ def test_backward_kernels_match_plain(dev, impl, dtype, case):
         assert torch.equal(dq[:, :, :-off], torch.zeros_like(dq[:, :, :-off]))
 
 
-def test_split_is_bitwise_deterministic(dev):
-    args, kw = bwd_inputs("gqa8_causal", torch.bfloat16, dev)
+@pytest.mark.parametrize("case", ["gqa8_causal", "ragged_d128_wrap"])
+def test_split_is_bitwise_deterministic(dev, case):
+    args, kw = bwd_inputs(case, torch.bfloat16, dev)
     first = flash_bwd.flash_attention_backward(*args, impl="split", **kw)
     second = flash_bwd.flash_attention_backward(*args, impl="split", **kw)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
@@ -263,14 +272,15 @@ def test_fwd_bwd_bitwise_deterministic_on_the_split_path(dev, monkeypatch):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-def test_fused_matches_split(dev, monkeypatch):
-    """The two paths compute one function; FLASHATTN_BWD_IMPL selects for
-    impl="auto"."""
-    args, kw = bwd_inputs("ragged", torch.float32, dev)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_matches_split(dev, monkeypatch, dtype):
+    """The two paths compute one function, within the gradient gate of the
+    dtype; FLASHATTN_BWD_IMPL selects for impl="auto"."""
+    args, kw = bwd_inputs("ragged", dtype, dev)
     split = flash_bwd.flash_attention_backward(*args, impl="split", **kw)
     fused = flash_bwd.flash_attention_backward(*args, impl="fused", **kw)
     for a, b in zip(split, fused):
-        rep = verify_results(a, b, **GRAD_TOL[torch.float32])
+        rep = verify_results(a, b, **GRAD_TOL[dtype])
         assert rep.passed, rep
     monkeypatch.setenv(flash_bwd.IMPL_ENV, "split")
     before = launches()
