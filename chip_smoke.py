@@ -10,17 +10,20 @@ check:
 
 1. environment: torch/CUDA versions, the card's name and power limit, the
    kernels' build time and their compiler report (no spills in the
-   backward's tensor-core kernels), and the tensor-core instructions
-   (HMMA/HGMMA) in the SASS of each bf16 backward kernel, which must be
-   there for the fused and dK/dV kernels;
+   tensor-core kernels and qmm8's split-K kernel), and the tensor-core
+   instructions (HMMA/HGMMA) in the SASS of each bf16 backward kernel and
+   of qmm8's M > 16 kernel, which must be there for the fused, dQ and dK/dV
+   kernels and for qmm8's;
 2. each kernel against its plain PyTorch version on the card, at the
    serving and training paths' shapes and at their edges (K1 also at every
    backward case, where it makes the backward's O and LSE; K2 on int8 and
    fp8 caches at T 1 and T 256; the paged K2 against the dense K2, bit for
-   bit; qmm8/qmm4 on LLAMA_1B's five projection shapes), with the tolerance
-   printed beside each result; kernel, plain version and the PyTorch library
-   call (SDPA, or torch.matmul on the dequantized weight; timed only, never
-   used by the port) timed on the card;
+   bit; qmm8 at M 1 to 1024 and qmm4 at M 4 and 256 on LLAMA_1B's five
+   projection shapes, two calls bitwise equal), with the tolerance printed
+   beside each result; kernel, plain version and the PyTorch library call
+   (SDPA, on the dequantized bf16 cache for the quantized K2, or
+   torch.matmul on the dequantized weight; timed only, never used by the
+   port) timed on the card;
 3. LLAMA_1B at full width (random weights from a seed): prefill of a
    150-token prompt and 4 teacher-forced decode steps through the kernels,
    against the same run with every kernel call on its plain version;
@@ -141,18 +144,19 @@ def phase_environment() -> str:
                 kernel = kernel_label(entry.group(1))
             elif "registers" in line or "spill" in line:
                 print(f"[env] ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
-                if "spill" in line and "_mma_kernel" in kernel:
+                if "spill" in line and ("_mma_kernel" in kernel or kernel.startswith("qmm8_")):
                     check("0 bytes spill stores, 0 bytes spill loads" in line,
                           f"{kernel} spills: {line.strip()}")
     mma = {}
-    for lib in ("flash_bwd", "flash_bwd_fused"):
+    for lib in ("flash_bwd", "flash_bwd_fused", "quant_matmul"):
         for kernel, n in tensor_core_instructions(lib).items():
-            if "float" not in kernel:
+            if "float" not in kernel or kernel.startswith("qmm8_mma_kernel"):
                 print(f"[env] SASS {kernel}: {n} tensor-core instructions (HMMA/HGMMA)")
                 if "_mma_kernel" in kernel:
                     mma[kernel] = n
-    check(len(mma) == 4 and all(mma.values()),
-          f"the bf16 fused and dK/dV kernels must run on the tensor cores: {mma}")
+    check(len(mma) == 8 and all(mma.values()),
+          "the bf16 fused, dQ and dK/dV kernels (D 64 and 128) and qmm8's M > 16 kernel "
+          f"(bf16 and float32 y) must run on the tensor cores: {mma}")
     return name
 
 
@@ -174,16 +178,27 @@ def tensor_core_instructions(lib: str) -> dict[str, int]:
 
 
 def kernel_label(mangled: str) -> str:
-    """'flash_fwd_mma_kernel<64>' from the mangled name of a kernel in csrc/."""
-    m = re.search(r"\d+([a-z_]+_kernel)I(.*?)E+v", mangled)
-    if m is None:
+    """'flash_fwd_mma_kernel<64>' from the mangled name of a kernel in csrc/:
+    a name is its length then its characters (it may hold digits, as
+    'qmm8_mma_kernel' does, and follow other digits, as in an anonymous
+    namespace's), then its template arguments."""
+    for run in re.finditer(r"\d+", mangled):
+        for i in range(run.start(), run.end()):
+            name = mangled[run.end():run.end() + int(mangled[i:run.end()])]
+            m = re.match(r"I(.*?)E+v", mangled[run.end() + len(name):])
+            if name.endswith("_kernel") and m:
+                break
+        else:
+            continue
+        break
+    else:
         return mangled
     types = {"13__nv_bfloat16": "bf16", "13__nv_fp8_e4m3": "fp8", "f": "float", "a": "int8"}
     args = []
-    for t in re.finditer(r"13__nv_bfloat16|13__nv_fp8_e4m3|S\d*_|Li(\d+)|f|a", m.group(2)):
+    for t in re.finditer(r"13__nv_bfloat16|13__nv_fp8_e4m3|S\d*_|Li(\d+)|f|a", m.group(1)):
         # S_, S0_, ... repeat a type already named: the first, in these kernels
         args.append(t.group(1) or (args[0] if t.group(0).startswith("S") else types[t.group(0)]))
-    return f"{m.group(1)}<{', '.join(args)}>"
+    return f"{name}<{', '.join(args)}>"
 
 
 def _gate(name: str, ref, out, atol: float, rtol: float = 1e-2) -> float:
@@ -396,11 +411,25 @@ def quantized_decode_kernels(gen: torch.Generator) -> dict[str, dict]:
         plain = cuda_time_ms(lambda: decode.decode_attention_reference(
             qd[:, :, None], cache, requant_block=decode.BLOCK_KV))
         lim = decode_bound(cache.k.dtype, qd)
+        lib = masked_sdpa_ms(qd, cache)
         print(f"[kernels] K2 {quant} T=1 decode step: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"bound {lim['bound_ms']:.4f} ms by {lim['bound_by']}, no library call")
-        out[f"decode_{quant}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+              f"bound {lim['bound_ms']:.4f} ms by {lim['bound_by']}, SDPA with a length mask "
+              f"on the dequantized bf16 cache {lib:.4f} ms")
+        out[f"decode_{quant}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
                                       **lim)
     return out
+
+
+def masked_sdpa_ms(qd: torch.Tensor, cache: KVCache) -> float:
+    """Device ms of SDPA over a quantized cache dequantized to bf16 (outside
+    the timed region, as the qmm rows time torch.matmul on the dequantized
+    weight), with a boolean length mask; timed only (rows past a length hold
+    NaN, so its output is not looked at)."""
+    k = kvcache.dequantize(cache.k, cache.k_scale)
+    v = kvcache.dequantize(cache.v, cache.v_scale)
+    mask = (torch.arange(k.shape[2], device="cuda")[None] < cache.length[:, None])[:, None, None]
+    return cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qd[:, :, None], k, v, attn_mask=mask, enable_gqa=True))
 
 
 def paged_copy(cache: KVCache, gen: torch.Generator) -> paged.PagedKVCache:
@@ -453,28 +482,39 @@ def paged_decode_kernel(gen: torch.Generator) -> dict[str, dict]:
     plain = cuda_time_ms(lambda: paged.paged_decode_reference(
         qd[:, :, None], pool, requant_block=decode.BLOCK_KV))
     lim = decode_bound(torch.int8, qd)
+    lib = masked_sdpa_ms(qd, cache)  # the pool's content, as the dense int8 cache holds it
     print(f"[kernels] paged K2 int8 T=1 decode step: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"bound {lim['bound_ms']:.4f} ms by {lim['bound_by']}, no library call")
-    return {"paged_decode": dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+          f"bound {lim['bound_ms']:.4f} ms by {lim['bound_by']}, SDPA with a length mask on "
+          f"the dequantized bf16 cache {lib:.4f} ms")
+    return {"paged_decode": dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
                                  **lim)}
+
+
+# qmm8's M: the decode batch's split-K kernel up to 16 (1, 4 and 16 take
+# its three row counts), the tensor cores from 17 (a prefill bucket, the
+# 4-request chunk step at 1024).
+QMM8_MS = (1, 4, 16, 17, 64, 256, 1024)
 
 
 def quant_matmul_kernels(gen: torch.Generator) -> dict[str, dict]:
     """qmm8 and qmm4 against their plain version on LLAMA_1B's five
-    projection shapes at M 4 (a decode step) and M 256 (a prefill bucket);
-    each timed at M 4, the (2048, 5632) one giving the JSON line's numbers,
-    beside torch.matmul on the dequantized bf16 weight."""
+    projection shapes, qmm8 at every M of QMM8_MS with two calls bitwise
+    equal, qmm4 at M 4 (a decode step) and M 256 (a prefill bucket); each
+    timed at M 4 and M 256, the (2048, 5632) one giving the JSON line's
+    numbers (M 4), beside torch.matmul on the dequantized bf16 weight."""
     out = {}
     for bits in (8, 4):
         err, entry = 0.0, None
         for k, n in QMM_SHAPES:
             qw = quant_matmul.quantize_weights(randn((k, n), gen) * 0.02, bits)
-            for m in (4, 256):
+            for m in QMM8_MS if bits == 8 else (4, 256):
                 x = randn((m, k), gen)
                 y = quant_matmul.quant_matmul(x, qw)
+                again = quant_matmul.quant_matmul(x, qw)
                 torch.cuda.synchronize()
                 err = max(err, _gate(f"qmm{bits} M={m} K={k} N={n}",
                                      quant_matmul.quant_matmul_reference(x, qw), y, **QMM_TOL))
+                check(torch.equal(y, again), f"qmm{bits} M={m} K={k} N={n}: two calls differ")
             x = randn((4, k), gen)
             w_bf16 = quant_matmul.dequantize_weights(qw).to(torch.bfloat16)
             x256 = randn((256, k), gen)
@@ -482,12 +522,17 @@ def quant_matmul_kernels(gen: torch.Generator) -> dict[str, dict]:
             ms256 = cuda_time_ms(lambda: quant_matmul.quant_matmul(x256, qw))
             plain = cuda_time_ms(lambda: quant_matmul.quant_matmul_reference(x, qw))
             lib = cuda_time_ms(lambda: torch.matmul(x, w_bf16))
+            lib256 = cuda_time_ms(lambda: torch.matmul(x256, w_bf16))
             lim = bound(nbytes(x, qw.w, qw.scale) + 4 * n * 2, 2.0 * 4 * k * n, torch.bfloat16)
+            split = quant_matmul.qmm8_split(4, k, n, torch.cuda.get_device_properties(
+                0).multi_processor_count) if bits == 8 else None
+            plan = (f", {split[1]} K-splits of {split[0]} rows at M<=16" if split else "")
             print(f"[kernels] qmm{bits} K={k} N={n}: kernel {ms:.4f} ms at M=4 "
-                  f"({nbytes(qw.w) / (ms * 1e-3) / 1e9:.1f} GB/s of weights), {ms256:.4f} ms "
-                  f"at M=256 ({2.0 * 256 * k * n / (ms256 * 1e-3) / 1e12:.2f} TFLOP/s); "
-                  f"plain {plain:.4f} ms, torch.matmul on the dequantized bf16 weight "
-                  f"{lib:.4f} ms, bound {lim['bound_ms']:.4f} ms by {lim['bound_by']} (M=4)")
+                  f"({nbytes(qw.w) / (ms * 1e-3) / 1e9:.1f} GB/s of weights{plan}), "
+                  f"{ms256:.4f} ms at M=256 ({2.0 * 256 * k * n / (ms256 * 1e-3) / 1e12:.2f} "
+                  f"TFLOP/s); plain {plain:.4f} ms, torch.matmul on the dequantized bf16 weight "
+                  f"{lib:.4f} ms at M=4, {lib256:.4f} ms at M=256, bound "
+                  f"{lim['bound_ms']:.4f} ms by {lim['bound_by']} (M=4)")
             if (k, n) == QMM_TIMED:
                 entry = dict(ms=ms, plain_ms=plain, library_ms=lib, **lim)
             del qw, w_bf16

@@ -120,6 +120,55 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes global -> shared, asynchronously; zeros when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane i gives the address of row
+// i % 8 of matrix i / 8, and r[m] receives matrix m in fragment layout
+// (transposed with ldsm_x4_t).
+__device__ __forceinline__ void ldsm_x4(unsigned* r, const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned* r, const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// Lane offsets into a row-major tile (row stride ld) for the two ldmatrix
+// patterns, at the 16 x 16 block whose top-left element is `base`:
+// kRowsFirst: matrices (r0,c0), (r8,c0), (r0,c8), (r8,c8): an A fragment, or
+//   with .trans the B fragments of two n-tiles from a [k][n] tile;
+// !kRowsFirst: matrices (r0,c0), (r0,c8), (r8,c0), (r8,c8): the B fragments
+//   of two n-tiles from an [n][k] tile, or with .trans an A fragment from a
+//   [k][m] tile.
+template <bool kRowsFirst>
+__device__ __forceinline__ int lane_offset(int lane, int ld) {
+  return kRowsFirst ? (lane & 15) * ld + (lane >> 4) * 8
+                    : ((lane >> 4) * 8 + (lane & 7)) * ld + ((lane >> 3) & 1) * 8;
+}
+
 // Let a kernel ask for up to the device's opt-in maximum of dynamic shared
 // memory (above 48 KB needs this). Set once per kernel, so that launches
 // captured into a CUDA graph make no attribute call.

@@ -11,21 +11,27 @@
 // q tile of the dQ kernel and each kv tile of the dK/dV kernel recompute
 // S and dP over tens of tiles, so the work is arithmetic (about 2.5x the
 // forward's FLOPs over the two kernels); HBM traffic is Q, K, V, O, dO once
-// per tile pair. The dK/dV kernel runs bf16 on the tensor cores
-// (flash_bwd_mma.cuh: mma.sync m16n8k16, bf16 operands in shared memory,
-// cp.async double buffer of the q tiles), so it is bound by the rate of
-// mma.sync and the barriers a tile pair. The dQ kernel, and float32 in both,
-// run on the CUDA cores in fp32 over shared-memory tiles (flash_bwd.cuh),
-// bound by shared-memory loads (about one per FMA); the dQ kernel on the
-// tensor cores is later work.
+// per tile pair. In bf16 both kernels run on the tensor cores (mma.sync
+// m16n8k16, fp32 accumulators, bf16 operands in shared memory by ldmatrix,
+// cp.async double buffers), so they are bound by the rate of mma.sync, the
+// exp2 of P and the one barrier a tile pair; wgmma, which alone reaches the
+// card's full rate, is later work. float32 runs both on the CUDA cores in
+// fp32 over shared-memory tiles (flash_bwd.cuh), bound by shared-memory
+// loads (about one per FMA).
 //
 // What the design does about it: one CTA per (64-row q tile, q head, batch)
 // for dQ, the kv loop cut at the tile's causal bound, heavy causal tiles
-// launched first; one CTA per (64-row kv tile, kv head, batch) for dK/dV,
-// looping over the GQA group's q heads and the live q tiles, dK and dV in
-// registers until one write, heavy causal tiles launched first in bf16. No
-// atomics: two runs give bitwise-equal outputs, which makes this the
-// deterministic path.
+// launched first. In bf16 (flash_bwd_dq_mma_kernel, FA2's dQ kernel) warp w
+// owns q rows [16w, 16w+16): Q and dO stay in shared memory (their A
+// fragments in registers at D 64), K and V tiles of 64 rows stream through a
+// cp.async double buffer, S = Q K^T and dP = dO V^T land in accumulators,
+// dS = P (dP - delta) is rounded to bf16 in the A-fragment layout straight
+// from them (as K1 feeds P to P.V), and dQ += dS K accumulates in registers
+// until one write with the scale applied. One CTA per (64-row kv tile, kv
+// head, batch) for dK/dV (flash_bwd_mma.cuh in bf16), looping over the GQA
+// group's q heads and the live q tiles, dK and dV in registers until one
+// write. No atomics: two runs give bitwise-equal outputs, which makes this
+// the deterministic path.
 #include <type_traits>
 
 #include "flash_bwd_mma.cuh"
@@ -46,7 +52,7 @@ constexpr size_t dq_smem_bytes() {
 
 // dQ of one q tile of one q head, and delta = rowsum(dO * O) of its rows,
 // written to delta [B, Hq, Sq] for the dK/dV kernel. Rows that see no key
-// get dQ = 0.
+// get dQ = 0. float32; bf16 runs flash_bwd_dq_mma_kernel.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -131,6 +137,209 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
+namespace dq_mma {
+
+constexpr int kBr = 64;  // q rows a CTA, 16 a warp
+constexpr int kBc = 64;  // kv rows a tile
+
+template <int D>
+constexpr size_t smem_bytes() {
+  // Q, dO [kBr][D+8]; K, V [2][kBc][D+8] (bf16); LSE (log2) and delta [kBr].
+  return sizeof(__nv_bfloat16) * (2 * kBr + 4 * kBc) * (D + 8) + sizeof(float) * 2 * kBr;
+}
+
+}  // namespace dq_mma
+
+// The contract of flash_bwd_dq_kernel, for bf16, on the tensor cores.
+template <int D>
+__global__ void __launch_bounds__(fat::bwd::mma::kThreads)
+flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
+                        const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                        __nv_bfloat16* __restrict__ dq, float* __restrict__ delta, int Hq,
+                        int Hkv, int Sq, int Sk, int is_causal, int offset, float scale,
+                        float scale_log2) {
+  using bf16 = __nv_bfloat16;
+  using dq_mma::kBc;
+  using dq_mma::kBr;
+  using fat::bwd::mma::load_tile_async;
+  constexpr int KP = D + 8;           // row stride of every tile
+  constexpr int kDSteps = D / 16;     // k-steps of S and dP
+  constexpr int kKvTiles = kBc / 8;   // their n-tiles
+  constexpr int kKvSteps = kBc / 16;  // k-steps of dQ
+  constexpr int kDTiles = D / 8;      // its n-tiles
+  constexpr bool kResident = D == 64;  // Q and dO A fragments kept in registers
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dos = qs + kBr * KP;
+  bf16* ks = dos + kBr * KP;      // [2][kBc][KP]
+  bf16* vs = ks + 2 * kBc * KP;   // [2][kBc][KP]
+  float* lse2s = reinterpret_cast<float*>(vs + 2 * kBc * KP);
+  float* deltas = lse2s + kBr;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, tig = lane % 4;  // fragment row group, thread in group
+  const int wrow = warp * 16;              // this warp's q rows in the tile
+  // Causal tiles late in the sequence run the longest kv loops: launch them first.
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBr;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const size_t stat_base = (static_cast<size_t>(b) * Hq + h) * Sq;
+  const size_t q_base = stat_base * D;
+  const size_t kv_base = (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
+
+  // Columns [0, kv_end) can be visible to some row of the tile.
+  int kv_end = Sk;
+  if (is_causal) kv_end = max(0, min(Sk, min(q0 + kBr, Sq) - 1 + offset + 1));
+  const int n_tiles = (kv_end + kBc - 1) / kBc;
+
+  load_tile_async<kBr, D>(q + q_base + static_cast<size_t>(q0) * D, Sq - q0, qs);
+  load_tile_async<kBr, D>(dout + q_base + static_cast<size_t>(q0) * D, Sq - q0, dos);
+  if (n_tiles > 0) {
+    load_tile_async<kBc, D>(k + kv_base, kv_end, ks);
+    load_tile_async<kBc, D>(v + kv_base, kv_end, vs);
+  }
+  fat::cp_async_commit();
+
+  // delta of each row from O and dO in fp32: two threads a row, D/2 entries
+  // each by 16-byte loads, then the pair; rows past Sq get 0 and LSE +inf.
+  {
+    const int r = tid / 2, qi = q0 + r;
+    float acc = 0.f;
+    if (qi < Sq) {
+      const size_t at = q_base + static_cast<size_t>(qi) * D + (tid % 2) * (D / 2);
+      const uint4* orow = reinterpret_cast<const uint4*>(o + at);
+      const uint4* dorow = reinterpret_cast<const uint4*>(dout + at);
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c) {
+        float ov[8], dov[8];
+        fat::widen16<bf16>(__ldg(orow + c), ov);
+        fat::widen16<bf16>(__ldg(dorow + c), dov);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc = fmaf(dov[e], ov[e], acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (tid % 2 == 0) {
+      deltas[r] = acc;
+      lse2s[r] = qi < Sq ? fat::bwd::lse_log2(lse[stat_base + qi]) : CUDART_INF_F;
+      if (qi < Sq) delta[stat_base + qi] = acc;
+    }
+  }
+  fat::cp_async_wait_all();
+  __syncthreads();
+
+  // This thread's q rows: qr0 and qr0 + 8.
+  const int qr0 = q0 + wrow + g;
+  const float lse2[2] = {lse2s[wrow + g], lse2s[wrow + g + 8]};
+  const float dlt[2] = {deltas[wrow + g], deltas[wrow + g + 8]};
+  const int a_off = wrow * KP + fat::lane_offset<true>(lane, KP);  // Q/dO A fragments
+  const int b_off = fat::lane_offset<false>(lane, KP);  // K/V rows as B of S and dP
+  const int t_off = fat::lane_offset<true>(lane, KP);   // K as B of dQ (.trans)
+  unsigned qf[kResident ? kDSteps : 1][4], df[kResident ? kDSteps : 1][4];
+  if constexpr (kResident) {
+#pragma unroll
+    for (int kk = 0; kk < kDSteps; ++kk) {
+      fat::ldsm_x4(qf[kk], qs + a_off + kk * 16);
+      fat::ldsm_x4(df[kk], dos + a_off + kk * 16);
+    }
+  }
+
+  float dq_acc[kDTiles][4];
+#pragma unroll
+  for (int n = 0; n < kDTiles; ++n) dq_acc[n][0] = dq_acc[n][1] = dq_acc[n][2] = dq_acc[n][3] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    fat::cp_async_wait_all();
+    __syncthreads();  // tile `it` is in; every warp is done with tile it - 1
+    if (it + 1 < n_tiles) {
+      const int n1 = (it + 1) * kBc;
+      const int nb = (it + 1) & 1;
+      load_tile_async<kBc, D>(k + kv_base + static_cast<size_t>(n1) * D, kv_end - n1,
+                              ks + nb * kBc * KP);
+      load_tile_async<kBc, D>(v + kv_base + static_cast<size_t>(n1) * D, kv_end - n1,
+                              vs + nb * kBc * KP);
+    }
+    fat::cp_async_commit();
+    const int n0 = it * kBc;
+    const bf16* kb = ks + (it & 1) * kBc * KP;
+    const bf16* vb = vs + (it & 1) * kBc * KP;
+
+    // S and dP: this warp's 16 q rows against the tile's 64 kv columns.
+    float s[kKvTiles][4], dp[kKvTiles][4];
+#pragma unroll
+    for (int j = 0; j < kKvTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kDSteps; ++kk) {
+      unsigned qa[4], da[4];
+      if constexpr (kResident) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qa[i] = qf[kk][i], da[i] = df[kk][i];
+      } else {
+        fat::ldsm_x4(qa, qs + a_off + kk * 16);
+        fat::ldsm_x4(da, dos + a_off + kk * 16);
+      }
+#pragma unroll
+      for (int jp = 0; jp < kKvTiles / 2; ++jp) {
+        unsigned bk[4], bv[4];
+        fat::ldsm_x4(bk, kb + 16 * jp * KP + kk * 16 + b_off);
+        fat::ldsm_x4(bv, vb + 16 * jp * KP + kk * 16 + b_off);
+        fat::mma_16816(s[2 * jp], qa, bk[0], bk[1]);
+        fat::mma_16816(s[2 * jp + 1], qa, bk[2], bk[3]);
+        fat::mma_16816(dp[2 * jp], da, bv[0], bv[1]);
+        fat::mma_16816(dp[2 * jp + 1], da, bv[2], bv[3]);
+      }
+    }
+
+    // Element e of fragment j: q row qr0 + 8 (e / 2), kv column
+    // n0 + 8j + 2 tig + e % 2. dS in fp32, rounded to bf16 as the A
+    // fragments of dS K (fragment j is half of k-step j / 2).
+    const bool edge = n0 + kBc > kv_end || (is_causal && n0 + kBc - 1 > q0 + offset);
+    unsigned dsa[kKvSteps][4];
+#pragma unroll
+    for (int j = 0; j < kKvTiles; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        bool live = true;
+        if (edge) {
+          const int col = n0 + 8 * j + 2 * tig + (e & 1), qi = qr0 + 8 * (e >> 1);
+          live = col < kv_end && (!is_causal || col <= qi + offset);
+        }
+        const float p = live ? exp2f(s[j][e] * scale_log2 - lse2[e >> 1]) : 0.f;
+        ds[e] = p * (dp[j][e] - dlt[e >> 1]);
+      }
+      dsa[j / 2][2 * (j % 2)] = fat::pack_bf16(ds[0], ds[1]);
+      dsa[j / 2][2 * (j % 2) + 1] = fat::pack_bf16(ds[2], ds[3]);
+    }
+
+    // dQ += dS K, two n-tiles of D a step.
+#pragma unroll
+    for (int kk = 0; kk < kKvSteps; ++kk) {
+#pragma unroll
+      for (int np = 0; np < kDTiles / 2; ++np) {
+        unsigned bk[4];
+        fat::ldsm_x4_t(bk, kb + 16 * kk * KP + 16 * np + t_off);
+        fat::mma_16816(dq_acc[2 * np], dsa[kk], bk[0], bk[1]);
+        fat::mma_16816(dq_acc[2 * np + 1], dsa[kk], bk[2], bk[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = qr0 + 8 * i;
+    if (qi >= Sq) continue;
+    bf16* row = dq + q_base + static_cast<size_t>(qi) * D + 2 * tig;
+#pragma unroll
+    for (int n = 0; n < kDTiles; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * n) =
+          __floats2bfloat162_rn(dq_acc[n][2 * i] * scale, dq_acc[n][2 * i + 1] * scale);
+  }
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -159,14 +368,28 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o
                       const void* dout, const void* lse, void* dq, void* delta, int B, int Hq,
                       int Hkv, int Sq, int Sk, int is_causal, int offset, float scale,
                       cudaStream_t stream) {
-  const cudaError_t err = fat::allow_max_smem<flash_bwd_dq_kernel<T, D>>();
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kBlock - 1) / kBlock, Hq, B);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, dq_smem_bytes<D>(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<T*>(dq), static_cast<float*>(delta), Hq, Hkv, Sq, Sk, is_causal, offset, scale,
-      scale * 1.4426950408889634f);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  cudaError_t err;
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    err = fat::allow_max_smem<flash_bwd_dq_mma_kernel<D>>();
+    if (err != cudaSuccess) return err;
+    const dim3 grid((Sq + dq_mma::kBr - 1) / dq_mma::kBr, Hq, B);
+    flash_bwd_dq_mma_kernel<D>
+        <<<grid, fat::bwd::mma::kThreads, dq_mma::smem_bytes<D>(), stream>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+            static_cast<const T*>(o), static_cast<const T*>(dout),
+            static_cast<const float*>(lse), static_cast<T*>(dq), static_cast<float*>(delta), Hq,
+            Hkv, Sq, Sk, is_causal, offset, scale, scale_log2);
+  } else {
+    err = fat::allow_max_smem<flash_bwd_dq_kernel<T, D>>();
+    if (err != cudaSuccess) return err;
+    const dim3 grid((Sq + kBlock - 1) / kBlock, Hq, B);
+    flash_bwd_dq_kernel<T, D><<<grid, kThreads, dq_smem_bytes<D>(), stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<const float*>(lse),
+        static_cast<T*>(dq), static_cast<float*>(delta), Hq, Hkv, Sq, Sk, is_causal, offset,
+        scale, scale_log2);
+  }
   return cudaGetLastError();
 }
 

@@ -1,7 +1,7 @@
-// CUDA-core tile machinery of the flash-attention backward kernels: B4's
-// dQ kernel (flash_bwd.cu) at every dtype, and the dK/dV tile of B3
-// (flash_bwd_fused.cu) and B5 (flash_bwd.cu) for float32. bf16 dK/dV runs
-// on the tensor cores instead (flash_bwd_mma.cuh).
+// CUDA-core tile machinery of the flash-attention backward kernels for
+// float32: B4's dQ kernel (flash_bwd.cu) and the dK/dV tile of B3
+// (flash_bwd_fused.cu) and B5 (flash_bwd.cu). bf16 runs on the tensor cores
+// instead (flash_bwd_mma.cuh, and flash_bwd.cu's flash_bwd_dq_mma_kernel).
 //
 // Every kernel here works on 64 x 64 score tiles with 256 threads: thread
 // (r = tid / 4, t = tid % 4) owns row r of the tile and the 16 columns

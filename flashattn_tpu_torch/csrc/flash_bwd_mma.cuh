@@ -56,55 +56,6 @@ constexpr size_t smem_bytes() {
          + sizeof(float) * 2 * 2 * kBr;                      // LSE, delta: two buffers each
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 (or 4) bytes global -> shared, asynchronously; zeros when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane i gives the address of row
-// i % 8 of matrix i / 8, and r[m] receives matrix m in fragment layout
-// (transposed with ldsm_x4_t).
-__device__ __forceinline__ void ldsm_x4(unsigned* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(unsigned* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// Lane offsets into a row-major tile (row stride ld) for the two ldmatrix
-// patterns, at the 16 x 16 block whose top-left element is `base`:
-// kRowsFirst: matrices (r0,c0), (r8,c0), (r0,c8), (r8,c8): an A fragment, or
-//   with .trans the B fragments of two n-tiles from a [k][n] tile;
-// !kRowsFirst: matrices (r0,c0), (r0,c8), (r8,c0), (r8,c8): the B fragments
-//   of two n-tiles from an [n][k] tile, or with .trans an A fragment from a
-//   [k][m] tile.
-template <bool kRowsFirst>
-__device__ __forceinline__ int lane_offset(int lane, int ld) {
-  return kRowsFirst ? (lane & 15) * ld + (lane >> 4) * 8
-                    : ((lane >> 4) * 8 + (lane & 7)) * ld + ((lane >> 3) & 1) * 8;
-}
-
 // Rows [0, n_rows) of a contiguous [kRows][D] bf16 tile into shared memory
 // with row stride D + 8, by cp.async; rows past n_rows are zeros.
 template <int kRows, int D>

@@ -8,24 +8,52 @@
 // :244 and :260), without the a8 mode (quantize_activations).
 //
 // What bounds it on the card: at decode (M = the batch, a few rows) the
-// weight bytes, read once; in a prefill or a prompt chunk (M in the
-// hundreds) the operations, 2 M K N.
+// weight bytes, read once, and the latency of getting enough of them in
+// flight; in a prefill or a prompt chunk (M in the hundreds) the
+// operations, 2 M K N. On an H100 the split-K kernel reads the weights at
+// about a third of HBM's rate, paying beyond a bf16 cuBLAS GEMM for the
+// partial sums' round trip through the workspace and the second launch;
+// the tensor-core kernel reaches about a tenth of the bf16 peak with one
+// 64 x 128 tile a CTA on mma.sync (wgmma and larger tiles are later work).
 //
-// What the design does about it: the weights stay in 8 or 4 bits in device
-// memory and are widened in shared memory, never written back. Each CTA
-// owns a BM x 64 tile of y (BM = 16 for M <= 16, else 64) and walks K in
-// tiles of 64 logical rows: 256 threads load one 16-byte chunk of weight
-// bytes each (int4: the 32 packed rows of a tile give its 64 rows, the low
-// nibbles pairing with x[:, r] and the high ones with x[:, K/2 + r], as the
-// JAX kernel slices x in half-K streams), sign-extend them to fp32 in shared
-// memory beside the x tile, and accumulate in fp32 on the CUDA cores (int8
-// and int4 values and bf16 activations multiply exactly in fp32). The scale
-// multiplies the accumulator once at the end, then the cast to y's type:
-// the JAX order. Rows past M are masked, never padded. The tensor cores
-// (mma/wgmma on bf16 fragments, exact for these values) are later work.
+// What the design does about it. The weights stay in 8 or 4 bits in device
+// memory and are widened on the chip, never written back; every product is
+// exact in fp32 (int8/int4 values times bf16 or f32 activations) or on the
+// tensor cores (int8 values are exact in bf16), the sums are fp32, and the
+// scale multiplies each sum once at the end before the cast to y's type:
+// the JAX order. Rows past M are masked, never padded.
+//
+// - qmm8, M <= 16 (decode): split-K on the CUDA cores
+//   (qmm8_splitk_kernel). A CTA of 4 warps owns 128 columns and one K-slice
+//   of split_rows rows (the wrapper picks it so that the grid has several
+//   CTAs an SM); lane l reads columns 4l..4l+3 of a row as one 4-byte load,
+//   16 rows in flight a warp, and widens them in registers; x's K-slice is
+//   the only tile in shared memory. The 4 warps' sums meet in shared memory
+//   in a fixed order, each split writes its fp32 partial sums to a workspace
+//   [splits, M, N], and qmm8_reduce_kernel adds the splits in split order,
+//   scales and casts. No atomics: two calls give bitwise-equal results.
+// - qmm8, M > 16 with bf16 x (prefill, chunks): mma.sync m16n8k16 with fp32
+//   accumulators (qmm8_mma_kernel). A CTA of 4 warps owns a 64 x 128 tile of
+//   y, each warp 32 x 64; per 32-row K step the x tile and the raw weight
+//   bytes arrive by cp.async in a double buffer, each thread widens the
+//   weight bytes it copied to bf16 in shared memory, and the fragments come
+//   by ldmatrix (the weights through .trans).
+// - qmm8 with f32 x and M > 16, and qmm4 at every M: the CUDA-core kernel
+//   (qmm_kernel). Each CTA owns a BM x 64 tile of y (BM = 16 for M <= 16,
+//   else 64) and walks K in tiles of 64 logical rows: 256 threads load one
+//   16-byte chunk of weight bytes each (int4: the 32 packed rows of a tile
+//   give its 64 rows, the low nibbles pairing with x[:, r] and the high ones
+//   with x[:, K/2 + r], as the JAX kernel slices x in half-K streams),
+//   sign-extend them to fp32 in shared memory beside the x tile, and
+//   accumulate in fp32. f32 x is not exact in bf16, so it stays off the
+//   tensor cores; qmm4 takes qmm8's two designs in a later change.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kBN = 64;  // output columns per CTA
 constexpr int kBK = 64;  // logical weight rows per K tile
@@ -106,16 +134,285 @@ qmm_kernel(const X* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-template <typename X, typename O, int kBits>
-cudaError_t launch(const void* x, const void* w, const void* scale, void* y, int M, int K,
-                   int N, cudaStream_t stream) {
+// ---- qmm8, M <= 16: split-K on the CUDA cores ----
+
+constexpr int kSplitWarps = 4;
+constexpr int kSplitThreads = 32 * kSplitWarps;
+constexpr int kSplitCols = 128;     // columns a CTA: 4 a lane
+constexpr int kSplitBatch = 16;     // weight rows a warp has in flight
+constexpr int kSplitRowsMax = 512;  // rows of a split (x's slice in shared memory)
+static_assert(kSplitWarps * kSplitBatch == kBK, "a K tile is one batch of every warp");
+
+template <int kM>
+constexpr size_t splitk_smem_bytes() {
+  // x's slice [kSplitRowsMax][kM], the warps' sums [kSplitWarps][kM][kSplitCols].
+  return sizeof(float) * kM * (kSplitRowsMax + kSplitWarps * kSplitCols);
+}
+
+// Partial sums of rows [k0, k0 + split_rows) of x @ W for one split
+// (blockIdx.y) and 128 columns (blockIdx.x) into ws[split][m][n], m < M.
+// kM >= M is the rows of x computed (those past M are zeros).
+template <typename X, int kM>
+__global__ void __launch_bounds__(kSplitThreads)
+qmm8_splitk_kernel(const X* __restrict__ x, const int8_t* __restrict__ w,
+                   float* __restrict__ ws, int M, int K, int N, int split_rows) {
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem;                        // [rows][kM]
+  float* sums = xs + kSplitRowsMax * kM;   // [kSplitWarps][kM][kSplitCols]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int n0 = blockIdx.x * kSplitCols, split = blockIdx.y;
+  const int k0 = split * split_rows;
+  const int rows = min(split_rows, K - k0);  // a multiple of 64
+
+  for (int e = tid; e < kM * rows; e += kSplitThreads) {
+    const int m = e / rows, j = e % rows;
+    xs[j * kM + m] = m < M ? fat::to_f(x[static_cast<size_t>(m) * K + k0 + j]) : 0.f;
+  }
+  __syncthreads();
+
+  const int col = n0 + 4 * lane;
+  const bool live = col < N;  // N % 16 == 0: a lane's 4 columns are all in or all out
+  const int8_t* wcol = w + static_cast<size_t>(k0) * N + col;
+  float acc[kM][4];
+#pragma unroll
+  for (int m = 0; m < kM; ++m) acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.f;
+
+  for (int r0 = warp * kSplitBatch; r0 < rows; r0 += kSplitWarps * kSplitBatch) {
+    unsigned raw[kSplitBatch];
+#pragma unroll
+    for (int i = 0; i < kSplitBatch; ++i)
+      raw[i] = live ? __ldg(reinterpret_cast<const unsigned*>(
+                          wcol + static_cast<size_t>(r0 + i) * N))
+                    : 0u;
+#pragma unroll
+    for (int i = 0; i < kSplitBatch; ++i) {
+      float wv[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        wv[c] = static_cast<float>(static_cast<int8_t>((raw[i] >> (8 * c)) & 0xffu));
+      const float* xr = xs + (r0 + i) * kM;
+#pragma unroll
+      for (int m = 0; m < kM; m += 4) {
+        const float4 xv = *reinterpret_cast<const float4*>(xr + m);
+        const float xm[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+        for (int mm = 0; mm < 4; ++mm)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[m + mm][c] = fmaf(xm[mm], wv[c], acc[m + mm][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int m = 0; m < kM; ++m)
+    *reinterpret_cast<float4*>(sums + (warp * kM + m) * kSplitCols + 4 * lane) =
+        make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+  __syncthreads();
+  // Thread t sums column n0 + t over the warps, in warp order.
+  const int n = n0 + tid;
+  if (n >= N) return;
+  for (int m = 0; m < M; ++m) {
+    float sum = sums[m * kSplitCols + tid];
+#pragma unroll
+    for (int v = 1; v < kSplitWarps; ++v) sum += sums[(v * kM + m) * kSplitCols + tid];
+    ws[(static_cast<size_t>(split) * M + m) * N + n] = sum;
+  }
+}
+
+// y = (sum over splits, in split order, of ws[split]) * scale: four
+// consecutive entries of y a thread.
+template <typename O>
+__global__ void __launch_bounds__(256)
+qmm8_reduce_kernel(const float* __restrict__ ws, const float* __restrict__ scale,
+                   O* __restrict__ y, int M, int N, int splits) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const size_t mn = static_cast<size_t>(M) * N;
+  if (4 * i >= mn) return;
+  float4 acc = reinterpret_cast<const float4*>(ws)[i];
+  for (int s = 1; s < splits; ++s) {
+    const float4 p = reinterpret_cast<const float4*>(ws + s * mn)[i];
+    acc.x += p.x;
+    acc.y += p.y;
+    acc.z += p.z;
+    acc.w += p.w;
+  }
+  const int n = static_cast<int>((4 * i) % N);
+  O* out = y + 4 * i;
+  out[0] = fat::from_f<O>(acc.x * scale[n]);
+  out[1] = fat::from_f<O>(acc.y * scale[n + 1]);
+  out[2] = fat::from_f<O>(acc.z * scale[n + 2]);
+  out[3] = fat::from_f<O>(acc.w * scale[n + 3]);
+}
+
+// ---- qmm8, M > 16, bf16 x: the tensor cores ----
+
+constexpr int kMmaThreads = 128;
+constexpr int kMmaBM = 64, kMmaBN = 128, kMmaBK = 32;
+constexpr int kXP = kMmaBK + 8;  // x tile row stride (bf16): conflict-free ldmatrix
+constexpr int kWP = kMmaBN + 8;  // widened weight tile row stride (bf16)
+
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+template <typename O>
+__global__ void __launch_bounds__(kMmaThreads)
+qmm8_mma_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
+                const float* __restrict__ scale, O* __restrict__ y, int M, int K, int N) {
+  __shared__ __align__(16) bf16 xs[2][kMmaBM][kXP];
+  __shared__ __align__(16) int8_t raw[2][kMmaBK][kMmaBN];
+  __shared__ __align__(16) bf16 wb[2][kMmaBK][kWP];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, tig = lane % 4;
+  const int m0 = blockIdx.y * kMmaBM, n0 = blockIdx.x * kMmaBN;
+  const int wm = (warp / 2) * 32, wn = (warp % 2) * 64;  // this warp's 32 x 64 block
+  const int n_k = K / kMmaBK;
+
+  // Thread tid copies x chunks tid and tid + 128 (of 4 a row) and weight
+  // chunks tid and tid + 128 (of 8 a row); it widens the weight chunks it
+  // copied, so that no barrier stands between the copy and the widening.
+  auto load = [&](int kt, int buf) {
+    const int kb = kt * kMmaBK;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int c = tid + j * kMmaThreads;
+      const int xr = c / 4, xc = (c % 4) * 8;
+      const bool xv = m0 + xr < M;
+      fat::cp_async16(&xs[buf][xr][xc], xv ? x + static_cast<size_t>(m0 + xr) * K + kb + xc : x,
+                      xv);
+      const int wr = c / 8, wc = (c % 8) * 16;
+      const bool wv = n0 + wc < N;
+      fat::cp_async16(&raw[buf][wr][wc], wv ? w + static_cast<size_t>(kb + wr) * N + n0 + wc : w,
+                      wv);
+    }
+  };
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
+
+  load(0, 0);
+  fat::cp_async_commit();
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int buf = kt & 1;
+    fat::cp_async_wait_all();  // this thread's copies of step kt are in
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int c = tid + j * kMmaThreads;
+      const int wr = c / 8, wc = (c % 8) * 16;
+      const uint4 r = *reinterpret_cast<const uint4*>(&raw[buf][wr][wc]);
+      const unsigned words[4] = {r.x, r.y, r.z, r.w};
+      unsigned packed[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const unsigned word = words[e / 2] >> (16 * (e % 2));
+        packed[e] = fat::pack_bf16(static_cast<float>(static_cast<int8_t>(word & 0xffu)),
+                                   static_cast<float>(static_cast<int8_t>((word >> 8) & 0xffu)));
+      }
+      *reinterpret_cast<uint4*>(&wb[buf][wr][wc]) =
+          make_uint4(packed[0], packed[1], packed[2], packed[3]);
+      *reinterpret_cast<uint4*>(&wb[buf][wr][wc + 8]) =
+          make_uint4(packed[4], packed[5], packed[6], packed[7]);
+    }
+    __syncthreads();  // step kt's tiles are visible; every warp is done with step kt - 1
+    if (kt + 1 < n_k) load(kt + 1, buf ^ 1);
+    fat::cp_async_commit();
+#pragma unroll
+    for (int ks = 0; ks < kMmaBK / 16; ++ks) {
+      unsigned a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        fat::ldsm_x4(a[mt], &xs[buf][wm + 16 * mt][16 * ks] + fat::lane_offset<true>(lane, kXP));
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        unsigned b[4];
+        fat::ldsm_x4_t(b, &wb[buf][16 * ks][wn + 16 * np] + fat::lane_offset<true>(lane, kWP));
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          fat::mma_16816(acc[mt][2 * np], a[mt], b[0], b[1]);
+          fat::mma_16816(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  // Element e of acc[mt][nt]: row wm + 16 mt + g + 8 (e / 2), column
+  // wn + 8 nt + 2 tig + e % 2 of the tile.
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = m0 + wm + 16 * mt + g + 8 * i;
+      if (m >= M) continue;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int n = n0 + wn + 8 * nt + 2 * tig;
+        if (n < N)
+          store2(y + static_cast<size_t>(m) * N + n, acc[mt][nt][2 * i] * scale[n],
+                 acc[mt][nt][2 * i + 1] * scale[n + 1]);
+      }
+    }
+}
+
+template <typename X, int kM>
+cudaError_t launch_splitk(const void* x, const void* w, void* ws, int M, int K, int N,
+                          int split_rows, int splits, cudaStream_t stream) {
+  const cudaError_t err = fat::allow_max_smem<qmm8_splitk_kernel<X, kM>>();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kSplitCols - 1) / kSplitCols, splits);
+  qmm8_splitk_kernel<X, kM><<<grid, kSplitThreads, splitk_smem_bytes<kM>(), stream>>>(
+      static_cast<const X*>(x), static_cast<const int8_t*>(w), static_cast<float*>(ws), M, K, N,
+      split_rows);
+  return cudaGetLastError();
+}
+
+template <typename X, typename O>
+cudaError_t launch_qmm8(const void* x, const void* w, const void* scale, void* y, void* ws,
+                        int M, int K, int N, int split_rows, cudaStream_t stream) {
+  if (M <= 16) {
+    if (ws == nullptr || split_rows <= 0 || split_rows % kBK != 0 || split_rows > kSplitRowsMax)
+      return cudaErrorInvalidValue;
+    const int splits = (K + split_rows - 1) / split_rows;
+    cudaError_t err;
+    if (M <= 4)
+      err = launch_splitk<X, 4>(x, w, ws, M, K, N, split_rows, splits, stream);
+    else if (M <= 8)
+      err = launch_splitk<X, 8>(x, w, ws, M, K, N, split_rows, splits, stream);
+    else
+      err = launch_splitk<X, 16>(x, w, ws, M, K, N, split_rows, splits, stream);
+    if (err != cudaSuccess) return err;
+    const int quads = M * N / 4;
+    qmm8_reduce_kernel<O><<<(quads + 255) / 256, 256, 0, stream>>>(
+        static_cast<const float*>(ws), static_cast<const float*>(scale), static_cast<O*>(y), M,
+        N, splits);
+  } else if constexpr (std::is_same_v<X, bf16>) {
+    const dim3 grid((N + kMmaBN - 1) / kMmaBN, (M + kMmaBM - 1) / kMmaBM);
+    qmm8_mma_kernel<O><<<grid, kMmaThreads, 0, stream>>>(
+        static_cast<const bf16*>(x), static_cast<const int8_t*>(w),
+        static_cast<const float*>(scale), static_cast<O*>(y), M, K, N);
+  } else {
+    qmm_kernel<X, O, 8, 64><<<dim3((N + kBN - 1) / kBN, (M + 63) / 64), kThreads, 0, stream>>>(
+        static_cast<const X*>(x), static_cast<const int8_t*>(w),
+        static_cast<const float*>(scale), static_cast<O*>(y), M, K, N);
+  }
+  return cudaGetLastError();
+}
+
+template <typename X, typename O>
+cudaError_t launch_qmm4(const void* x, const void* w, const void* scale, void* y, int M, int K,
+                        int N, cudaStream_t stream) {
   const int bn = (N + kBN - 1) / kBN;
   if (M <= 16) {
-    qmm_kernel<X, O, kBits, 16><<<dim3(bn, (M + 15) / 16), kThreads, 0, stream>>>(
+    qmm_kernel<X, O, 4, 16><<<dim3(bn, (M + 15) / 16), kThreads, 0, stream>>>(
         static_cast<const X*>(x), static_cast<const int8_t*>(w),
         static_cast<const float*>(scale), static_cast<O*>(y), M, K, N);
   } else {
-    qmm_kernel<X, O, kBits, 64><<<dim3(bn, (M + 63) / 64), kThreads, 0, stream>>>(
+    qmm_kernel<X, O, 4, 64><<<dim3(bn, (M + 63) / 64), kThreads, 0, stream>>>(
         static_cast<const X*>(x), static_cast<const int8_t*>(w),
         static_cast<const float*>(scale), static_cast<O*>(y), M, K, N);
   }
@@ -124,9 +421,9 @@ cudaError_t launch(const void* x, const void* w, const void* scale, void* y, int
 
 template <typename X, typename O>
 cudaError_t dispatch_bits(int bits, const void* x, const void* w, const void* scale, void* y,
-                          int M, int K, int N, cudaStream_t s) {
-  if (bits == 8) return launch<X, O, 8>(x, w, scale, y, M, K, N, s);
-  if (bits == 4) return launch<X, O, 4>(x, w, scale, y, M, K, N, s);
+                          void* ws, int M, int K, int N, int split_rows, cudaStream_t s) {
+  if (bits == 8) return launch_qmm8<X, O>(x, w, scale, y, ws, M, K, N, split_rows, s);
+  if (bits == 4) return launch_qmm4<X, O>(x, w, scale, y, M, K, N, s);
   return cudaErrorInvalidValue;
 }
 
@@ -134,22 +431,24 @@ cudaError_t dispatch_bits(int bits, const void* x, const void* w, const void* sc
 
 // x [M,K] of x_dtype; w int8 [K,N] (bits 8) or [K/2,N] (bits 4); scale [1,N]
 // f32; y [M,N] of out_dtype. All contiguous on the device, w 16-byte
-// aligned, K a multiple of 64, N of 16, 0 < M < 65536 * 16. Returns the CUDA
-// error code (0 = success).
+// aligned, K a multiple of 64, N of 16, 0 < M < 65536 * 16. For bits 8 and
+// M <= 16, split_rows (a multiple of 64, at most 512) is the K-slice of a
+// split and ws an fp32 workspace [ceil(K / split_rows), M, N]; otherwise both
+// are unused. Returns the CUDA error code (0 = success).
 extern "C" int quant_matmul_launch(const void* x, const void* w, const void* scale, void* y,
-                                   int M, int K, int N, int bits, int x_dtype, int out_dtype,
-                                   void* stream) {
+                                   void* ws, int M, int K, int N, int bits, int x_dtype,
+                                   int out_dtype, int split_rows, void* stream) {
   if (M <= 0 || K <= 0 || N <= 0 || K % kBK != 0 || N % 16 != 0 || (M + 63) / 64 > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (x_dtype == fat::kBF16 && out_dtype == fat::kBF16)
-    err = dispatch_bits<__nv_bfloat16, __nv_bfloat16>(bits, x, w, scale, y, M, K, N, s);
+    err = dispatch_bits<bf16, bf16>(bits, x, w, scale, y, ws, M, K, N, split_rows, s);
   else if (x_dtype == fat::kBF16 && out_dtype == fat::kF32)
-    err = dispatch_bits<__nv_bfloat16, float>(bits, x, w, scale, y, M, K, N, s);
+    err = dispatch_bits<bf16, float>(bits, x, w, scale, y, ws, M, K, N, split_rows, s);
   else if (x_dtype == fat::kF32 && out_dtype == fat::kBF16)
-    err = dispatch_bits<float, __nv_bfloat16>(bits, x, w, scale, y, M, K, N, s);
+    err = dispatch_bits<float, bf16>(bits, x, w, scale, y, ws, M, K, N, split_rows, s);
   else if (x_dtype == fat::kF32 && out_dtype == fat::kF32)
-    err = dispatch_bits<float, float>(bits, x, w, scale, y, M, K, N, s);
+    err = dispatch_bits<float, float>(bits, x, w, scale, y, ws, M, K, N, split_rows, s);
   return static_cast<int>(err);
 }

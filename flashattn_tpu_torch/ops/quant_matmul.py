@@ -33,6 +33,13 @@ QMM4_LAUNCHES = 0
 K_MULTIPLE = 64  # contraction rows per kernel tile (csrc/quant_matmul.cu kBK)
 N_MULTIPLE = 16  # output columns per 16-byte weight load
 
+# qmm8's split-K decode kernel (csrc/quant_matmul.cu qmm8_splitk_kernel).
+SPLIT_M_MAX = 16  # rows of x it takes; more go to the tensor-core kernel
+SPLIT_COLS = 128  # output columns of one CTA (kSplitCols)
+SPLIT_ROWS_MAX = 512  # weight rows of one split: x's slice in shared memory
+SPLIT_CTAS_PER_SM = 8  # the grid the split count aims for, per SM
+H100_SMS = 132
+
 
 class QuantizedLinear(nn.Module):
     """Weight-only quantized [K, N] projection: buffers ``w`` (int8 [K, N],
@@ -101,6 +108,25 @@ def quant_matmul_reference(x: torch.Tensor, qw: QuantizedLinear,
     return y.to(out_dtype or x.dtype)
 
 
+def qmm8_split(m: int, k: int, n: int, sms: int = H100_SMS) -> tuple[int, int] | None:
+    """(rows per split, splits) of qmm8's split-K kernel for x [m, k] and
+    weights [k, n], or None when m > SPLIT_M_MAX (one pass on the tensor
+    cores, no workspace). The splits give the grid about SPLIT_CTAS_PER_SM
+    CTAs on each of `sms` SMs, each split a multiple of K_MULTIPLE rows and
+    at most SPLIT_ROWS_MAX; the kernel writes fp32 partial sums to a
+    workspace [splits, m, n] that a second kernel adds in split order. The
+    rule depends on the shapes and the SM count only, so two calls on one
+    card sum in one order and give bitwise-equal results."""
+    if m > SPLIT_M_MAX:
+        return None
+    blocks = k // K_MULTIPLE
+    col_tiles = -(-n // SPLIT_COLS)
+    want = -(-SPLIT_CTAS_PER_SM * sms // col_tiles)
+    per = min(max(1, -(-blocks // want)), SPLIT_ROWS_MAX // K_MULTIPLE)
+    rows = per * K_MULTIPLE
+    return rows, -(-k // rows)
+
+
 def quant_matmul(x: torch.Tensor, qw: QuantizedLinear,
                  out_dtype: torch.dtype | None = None,
                  quantize_activations: bool = False) -> torch.Tensor:
@@ -109,7 +135,9 @@ def quant_matmul(x: torch.Tensor, qw: QuantizedLinear,
 
     CPU tensors take the plain version. CUDA tensors launch qmm8 or qmm4 and
     need K a multiple of 64 and N of 16 (every LLAMA_1B projection), with the
-    weights 16-byte aligned; anything else raises."""
+    weights 16-byte aligned; anything else raises. qmm8 with M <= 16 also
+    allocates its split-K workspace (qmm8_split); a call counts one launch,
+    the workspace's reduction included."""
     if quantize_activations:
         raise unported("quant_matmul(quantize_activations=True), the a8 mode", "A6")
     m, k = x.shape
@@ -136,12 +164,19 @@ def quant_matmul(x: torch.Tensor, qw: QuantizedLinear,
     y = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
         return y
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    split = qmm8_split(m, k, n, sms) if qw.bits == 8 else None
+    split_rows, ws = 0, None
+    if split is not None:
+        split_rows, splits = split
+        ws = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
     lib = _build.load("quant_matmul")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.quant_matmul_launch(
-            x.data_ptr(), qw.w.data_ptr(), qw.scale.data_ptr(), y.data_ptr(), m, k, n,
-            qw.bits, DTYPE_CODES[x.dtype], DTYPE_CODES[out_dtype], stream)
+            x.data_ptr(), qw.w.data_ptr(), qw.scale.data_ptr(), y.data_ptr(),
+            None if ws is None else ws.data_ptr(), m, k, n, qw.bits,
+            DTYPE_CODES[x.dtype], DTYPE_CODES[out_dtype], split_rows, stream)
     _build.check(lib, rc, "quant_matmul")
     global QMM8_LAUNCHES, QMM4_LAUNCHES
     if qw.bits == 8:

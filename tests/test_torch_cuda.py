@@ -4,8 +4,9 @@ B5's dK/dV kernels) and qmm8/qmm4 (weight-only quantized matmuls) on the
 card, against their plain PyTorch versions on the same CUDA tensors, at the
 edges the smoke run does not reach: float32 inputs, rows that see no key, an
 empty sequence, a full cache, D=128, large GQA groups, long chunks (T 256),
-ragged lengths, pages of 64 and 256, M of 1 and odd M, the wrappers'
-refusals, autograd through flash_attention, and small models on the card
+ragged lengths, pages of 64 and 256, qmm8 at M 1 to 1000 on both sides of
+the split-K/tensor-core boundary (M 16/17) with bf16 and float32 x, the
+wrappers' refusals, autograd through flash_attention, and small models on the card
 against the CPU. The bf16 backward's tensor-core tile also meets the
 training shape's GQA (Hq 32, Hkv 4) at S 1024 and a ragged S 1000 at D 128,
 over which its q-tile double buffer wraps many times; the split path is
@@ -245,6 +246,23 @@ def test_backward_kernels_match_plain(dev, impl, dtype, case):
         assert torch.equal(dq[:, :, :-off], torch.zeros_like(dq[:, :, :-off]))
 
 
+@pytest.mark.parametrize("case", ["no_key_rows", "ragged_d128_wrap"])
+def test_dq_kernel_delta_matches_plain(dev, case):
+    """B4 also writes delta = rowsum(dO * O) for the dK/dV kernel: held
+    against the plain sum in float32, and dQ against the plain backward."""
+    (q, k, v, o, do, lse), kw = bwd_inputs(case, torch.bfloat16, dev)
+    dq, delta = flash_bwd.flash_bwd_dq(q, k, v, o, do, lse, kw["is_causal"],
+                                       pos_offset=kw["pos_offset"])
+    torch.cuda.synchronize()
+    want = (do.float() * o.float()).sum(-1)
+    assert delta.shape == want.shape and delta.dtype == torch.float32
+    rep = verify_results(want, delta, **TOL[torch.float32])
+    assert rep.passed, f"delta: {rep}"
+    rep = verify_results(flash_bwd.flash_attention_backward_reference(q, k, v, o, do, lse, **kw)[0],
+                         dq, **GRAD_TOL[torch.bfloat16])
+    assert rep.passed, f"dQ: {rep}"
+
+
 @pytest.mark.parametrize("case", ["gqa8_causal", "ragged_d128_wrap"])
 def test_split_is_bitwise_deterministic(dev, case):
     args, kw = bwd_inputs(case, torch.bfloat16, dev)
@@ -478,24 +496,43 @@ def test_paged_decode_never_reads_unowned_pages(dev):
 QMM_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 32000)]
 
 
-@pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("m", [1, 7, 256])
+# qmm8: the split-K kernel up to M 16 (M 1, 4 and 16 take its three row
+# counts), the tensor cores above it in bf16 (17: one row past a tile; 1000:
+# a ragged last tile), the CUDA-core kernel for float32 x above it.
+QMM_BITS_M = [(8, m) for m in (1, 4, 16, 17, 64, 256, 1000)] + [(4, m) for m in (1, 7, 256)]
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bits,m", QMM_BITS_M)
 @pytest.mark.parametrize("kn", QMM_SHAPES)
-def test_quant_matmul_kernel_matches_plain(dev, bits, m, kn):
+def test_quant_matmul_kernel_matches_plain(dev, bits, m, kn, x_dtype):
     k, n = kn
     w = randn((k, n), torch.float32, dev, 70) * 0.02
     qw = quant_matmul.quantize_weights(w, bits)
-    x = randn((m, k), torch.bfloat16, dev, 71)
+    x = randn((m, k), x_dtype, dev, 71)
     counter = "QMM8_LAUNCHES" if bits == 8 else "QMM4_LAUNCHES"
     before = getattr(quant_matmul, counter)
     for out_dtype in (None, torch.float32):
         y = quant_matmul.quant_matmul(x, qw, out_dtype=out_dtype)
         torch.cuda.synchronize()
-        assert y.shape == (m, n) and y.dtype == (out_dtype or torch.bfloat16)
+        assert y.shape == (m, n) and y.dtype == (out_dtype or x_dtype)
         rep = verify_results(quant_matmul.quant_matmul_reference(x, qw, out_dtype), y,
                              atol=2e-2, rtol=1e-2)
         assert rep.passed, rep
     assert getattr(quant_matmul, counter) == before + 2
+
+
+@pytest.mark.parametrize("m", [4, 256])
+def test_qmm8_is_bitwise_deterministic(dev, m):
+    """Two calls give equal bits: the split-K partial sums (M 4) are added
+    in split order, never by atomics, and the tensor-core tiles (M 256)
+    own their outputs."""
+    k, n = 2048, 5632
+    qw = quant_matmul.quantize_weights(randn((k, n), torch.float32, dev, 74) * 0.02, 8)
+    x = randn((m, k), torch.bfloat16, dev, 75)
+    first = quant_matmul.quant_matmul(x, qw)
+    second = quant_matmul.quant_matmul(x, qw)
+    assert torch.equal(first, second)
 
 
 def test_quant_matmul_refuses_what_the_kernel_does_not_take(dev):

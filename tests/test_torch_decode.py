@@ -19,6 +19,10 @@ from flashattn_tpu.ops import kvcache as jax_kv
 from flashattn_tpu_torch.ops import decode, kvcache
 from flashattn_tpu_torch.utils.verify import verify_results
 
+# One intra-op thread: the suite's workers share the machine's cores, and
+# torch would start one thread a core in each of them.
+torch.set_num_threads(1)
+
 ATOL, RTOL = 2e-5, 1e-5
 
 

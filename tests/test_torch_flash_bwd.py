@@ -27,6 +27,10 @@ from flashattn_tpu_torch.ops.reference import (
 )
 from flashattn_tpu_torch.utils.verify import verify_results
 
+# One intra-op thread: the suite's workers share the machine's cores, and
+# torch would start one thread a core in each of them.
+torch.set_num_threads(1)
+
 ATOL, RTOL = 2e-5, 1e-5
 BS = BlockSizes(block_q=128, block_kv=128, block_q_dq=128, block_kv_dq=128,
                 block_q_dkv=128, block_kv_dkv=128, block_q_fused=128,

@@ -17,6 +17,10 @@ from flashattn_tpu_torch.ops.attention import flash_attention
 from flashattn_tpu_torch.ops.reference import reference_attention_with_lse
 from flashattn_tpu_torch.utils.verify import verify_results
 
+# One intra-op thread: the suite's workers share the machine's cores, and
+# torch would start one thread a core in each of them.
+torch.set_num_threads(1)
+
 ATOL, RTOL = 2e-5, 1e-5
 IMPLS = ["wavefront", "grid4"]
 

@@ -26,6 +26,10 @@ from flashattn_tpu_torch.models.convert import params_from_jax
 from flashattn_tpu_torch.ops import paged
 from flashattn_tpu_torch.utils.verify import verify_results
 
+# One intra-op thread: the suite's workers share the machine's cores, and
+# torch would start one thread a core in each of them.
+torch.set_num_threads(1)
+
 ATOL = RTOL = 1e-4
 
 # The config of tests/test_serve.py, and one that also exercises the plain

@@ -22,6 +22,10 @@ from flashattn_tpu.ops import paged as jax_paged
 from flashattn_tpu_torch.ops import decode, kvcache, paged
 from flashattn_tpu_torch.utils.verify import verify_results
 
+# One intra-op thread: the suite's workers share the machine's cores, and
+# torch would start one thread a core in each of them.
+torch.set_num_threads(1)
+
 B, HQ, HKV, D = 2, 4, 2, 64
 PAGE = 128  # the JAX pool takes multiples of 128
 MAX_PAGES = 4

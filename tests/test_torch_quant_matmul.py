@@ -1,7 +1,9 @@
 """The port's weight-only int8/int4 quantized matmul against the JAX
 package's: quantize_weights and dequantize_weights bit for bit (the packed
 int4 bytes included), and quant_matmul's plain version against the JAX
-kernels in interpret mode on the same inputs.
+kernels in interpret mode on the same inputs; and the split-K plan that
+quant_matmul gives qmm8's card kernel at M <= 16 (qmm8_split), a rule of
+the shapes and the card's SM count.
 
 quant_matmul tolerance: float32 x, atol 1e-5, rtol 1e-5 (fp32 sums over K in
 another order); bf16 x with a bf16 result, atol 2e-2, rtol 1e-2 (the two
@@ -15,6 +17,10 @@ import torch
 from flashattn_tpu.ops import quant_matmul as jax_qmm
 from flashattn_tpu_torch.ops import quant_matmul as qmm
 from flashattn_tpu_torch.utils.verify import verify_results
+
+# One intra-op thread: the suite's workers share the machine's cores, and
+# torch would start one thread a core in each of them.
+torch.set_num_threads(1)
 
 
 def weights(k, n, seed):
@@ -91,3 +97,27 @@ def test_a8_mode_raises_and_cpu_counts_no_launch():
     assert (qmm.QMM8_LAUNCHES, qmm.QMM4_LAUNCHES) == before
     with pytest.raises(ValueError, match="bits"):
         qmm.quantize_weights(torch.randn(64, 16), bits=3)
+
+
+@pytest.mark.parametrize("m,k,n,want", [
+    (4, 2048, 5632, (128, 16)),  # gate/up at the decode batch: 44 column tiles x 16 splits
+    (1, 2048, 256, (64, 32)),  # wk/wv: one 64-row tile a split
+    (16, 2048, 32000, (448, 5)),  # the head: few splits, many column tiles
+    (4, 5632, 2048, (128, 44)),  # w_down
+    (16, 2048, 2048, (64, 32)),
+    (17, 2048, 5632, None),  # past the split-K kernel: one pass on the tensor cores
+    (1024, 2048, 5632, None),
+])
+def test_qmm8_split_rule(m, k, n, want):
+    """qmm8's split-K plan for the decode batch: rows per split a multiple of
+    64 and at most 512, splits covering K exactly once, a grid of about 8
+    CTAs an SM on an H100's 132 SMs; none above M 16."""
+    got = qmm.qmm8_split(m, k, n)
+    assert got == want
+    if got is not None:
+        rows, splits = got
+        assert rows % qmm.K_MULTIPLE == 0 and rows <= qmm.SPLIT_ROWS_MAX
+        assert (splits - 1) * rows < k <= splits * rows
+        ctas = -(-n // qmm.SPLIT_COLS) * splits
+        assert ctas >= min(k // qmm.K_MULTIPLE * -(-n // qmm.SPLIT_COLS),
+                           qmm.SPLIT_CTAS_PER_SM * qmm.H100_SMS // 2)

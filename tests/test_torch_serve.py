@@ -22,6 +22,10 @@ from flashattn_tpu_torch.models.convert import params_from_jax
 from flashattn_tpu_torch.models.sampling import SamplingParams
 from flashattn_tpu_torch.models.serve import InferenceServer, Request
 
+# One intra-op thread: the suite's workers share the machine's cores, and
+# torch would start one thread a core in each of them.
+torch.set_num_threads(1)
+
 CFG_KW = dict(vocab_size=128, hidden_size=128, intermediate_size=256,
               num_layers=2, num_heads=4, num_kv_heads=2, head_dim=32,
               max_seq_len=512)
