@@ -10,20 +10,21 @@ check:
 
 1. environment: torch/CUDA versions, the card's name and power limit, the
    kernels' build time and their compiler report (no spills in the
-   tensor-core kernels and qmm8's split-K kernel), and the tensor-core
-   instructions (HMMA/HGMMA) in the SASS of each bf16 backward kernel and
-   of qmm8's M > 16 kernel, which must be there for the fused, dQ and dK/dV
-   kernels and for qmm8's;
+   tensor-core kernels and the split-K kernel), and the tensor-core
+   instructions (HMMA/HGMMA/IMMA) in the SASS of each tensor-core kernel,
+   which must be there for the bf16 fused, dQ and dK/dV kernels, qmm8's
+   and qmm4's M > 16 kernels and every instantiation of K2's;
 2. each kernel against its plain PyTorch version on the card, at the
    serving and training paths' shapes and at their edges (K1 also at every
    backward case, where it makes the backward's O and LSE; K2 on int8 and
    fp8 caches at T 1 and T 256; the paged K2 against the dense K2, bit for
-   bit; qmm8 at M 1 to 1024 and qmm4 at M 4 and 256 on LLAMA_1B's five
-   projection shapes, two calls bitwise equal), with the tolerance printed
-   beside each result; kernel, plain version and the PyTorch library call
-   (SDPA, on the dequantized bf16 cache for the quantized K2, or
-   torch.matmul on the dequantized weight; timed only, never used by the
-   port) timed on the card;
+   bit; qmm8 and qmm4 at M 1 to 1024 on LLAMA_1B's five projection shapes,
+   two calls bitwise equal), with the tolerance printed beside each
+   result; kernel, plain version and the PyTorch library call (SDPA, on the
+   dequantized bf16 cache for the quantized K2, with a length mask at T 1
+   and a bottom-right causal mask for K2 int8 at T 256, or torch.matmul on
+   the dequantized weight; timed only, never used by the port) timed on
+   the card;
 3. LLAMA_1B at full width (random weights from a seed): prefill of a
    150-token prompt and 4 teacher-forced decode steps through the kernels,
    against the same run with every kernel call on its plain version;
@@ -144,25 +145,28 @@ def phase_environment() -> str:
                 kernel = kernel_label(entry.group(1))
             elif "registers" in line or "spill" in line:
                 print(f"[env] ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
-                if "spill" in line and ("_mma_kernel" in kernel or kernel.startswith("qmm8_")):
+                if "spill" in line and ("_mma_kernel" in kernel
+                                        or kernel.startswith("qmm_splitk_kernel")):
                     check("0 bytes spill stores, 0 bytes spill loads" in line,
                           f"{kernel} spills: {line.strip()}")
     mma = {}
-    for lib in ("flash_bwd", "flash_bwd_fused", "quant_matmul"):
+    for lib in ("flash_bwd", "flash_bwd_fused", "quant_matmul", "decode"):
         for kernel, n in tensor_core_instructions(lib).items():
-            if "float" not in kernel or kernel.startswith("qmm8_mma_kernel"):
-                print(f"[env] SASS {kernel}: {n} tensor-core instructions (HMMA/HGMMA)")
-                if "_mma_kernel" in kernel:
-                    mma[kernel] = n
-    check(len(mma) == 8 and all(mma.values()),
-          "the bf16 fused, dQ and dK/dV kernels (D 64 and 128) and qmm8's M > 16 kernel "
-          f"(bf16 and float32 y) must run on the tensor cores: {mma}")
+            if "_mma_kernel" in kernel:
+                print(f"[env] SASS {kernel}: {n} tensor-core instructions (HMMA/HGMMA/IMMA)")
+                mma[kernel] = n
+    families = {"flash_bwd": 6, "qmm_mma_kernel": 4, "decode_mma_kernel": 20}
+    counted = {f: sum(k.startswith(f) for k in mma) for f in families}
+    check(counted == families and all(mma.values()),
+          "the bf16 fused, dQ and dK/dV kernels (D 64 and 128), qmm8's and qmm4's M > 16 "
+          "kernels (bf16 and float32 y) and every K2 tensor-core instantiation (bf16, int8 "
+          f"and fp8 caches, D 64 and 128, both row layouts) must run on the tensor cores: {mma}")
     return name
 
 
 def tensor_core_instructions(lib: str) -> dict[str, int]:
-    """HMMA/HGMMA instructions in the SASS of each kernel of a built library
-    (cuobjdump beside nvcc)."""
+    """Tensor-core instructions (HMMA, HGMMA, IMMA) in the SASS of each kernel
+    of a built library (cuobjdump beside nvcc)."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(lib))],
                           capture_output=True, text=True, check=True, timeout=300).stdout
@@ -172,16 +176,16 @@ def tensor_core_instructions(lib: str) -> dict[str, int]:
         if entry:
             kernel = kernel_label(entry.group(1))
             counts[kernel] = 0
-        elif kernel is not None and re.search(r"\bHG?MMA\.", line):
+        elif kernel is not None and re.search(r"\b(HG?MMA|IMMA)\.", line):
             counts[kernel] += 1
     return counts
 
 
 def kernel_label(mangled: str) -> str:
     """'flash_fwd_mma_kernel<64>' from the mangled name of a kernel in csrc/:
-    a name is its length then its characters (it may hold digits, as
-    'qmm8_mma_kernel' does, and follow other digits, as in an anonymous
-    namespace's), then its template arguments."""
+    a name is its length then its characters (it may hold digits, and
+    follow other digits, as in an anonymous namespace's), then its template
+    arguments."""
     for run in re.finditer(r"\d+", mangled):
         for i in range(run.start(), run.end()):
             name = mangled[run.end():run.end() + int(mangled[i:run.end()])]
@@ -385,7 +389,7 @@ def quantized_decode_kernels(gen: torch.Generator) -> dict[str, dict]:
     """K2's int8 and fp8 modes against their plain version (int8 P
     requantized per 64-position tile, as the kernel does), at the decode
     step's shape with T 1 and T 256 (2048 query rows: the row tiling), then
-    timed at T 1."""
+    timed at T 1, and the int8 mode at T 256 (time_int8_chunk)."""
     out = {}
     for quant in ("int8", "fp8"):
         cache = quantized_cache(quant, gen)
@@ -417,7 +421,42 @@ def quantized_decode_kernels(gen: torch.Generator) -> dict[str, dict]:
               f"on the dequantized bf16 cache {lib:.4f} ms")
         out[f"decode_{quant}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
                                       **lim)
+        if quant == "int8":
+            time_int8_chunk(cache, gen)
     return out
+
+
+CHUNK_T = 256  # phase 6 (c)'s admission chunk
+
+
+def time_int8_chunk(cache: KVCache, gen: torch.Generator) -> None:
+    """K2 int8 at T 256 on the decode step's cache (2048 query rows a kv
+    head, as a chunked admission runs it): kernel, plain version, bound,
+    and SDPA on the dequantized bf16 cache with an explicit bottom-right
+    causal mask (row t of a sequence of length n sees positions
+    <= n - T + t; timed only: rows of the length-1 sequence see no key)."""
+    t = CHUNK_T
+    q = randn((DEC_B, DEC_HQ, t, DEC_D), gen)
+    ms = cuda_time_ms(lambda: decode.decode_attention_chunk(q, cache))
+    plain = cuda_time_ms(lambda: decode.decode_attention_reference(
+        q, cache, requant_block=decode.BLOCK_KV), warmup=1, iters=2, reps=3)
+    k = kvcache.dequantize(cache.k, cache.k_scale)
+    v = kvcache.dequantize(cache.v, cache.v_scale)
+    pos = torch.arange(DEC_SMAX, device="cuda")
+    row_pos = cache.length[:, None] - t + torch.arange(t, device="cuda")[None]  # [B, T]
+    mask = (pos[None, None, :] <= row_pos[:, :, None])[:, None]  # [B, 1, T, Smax]
+    lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True))
+    # (row, position) pairs a q head computes: row t sees min(n, n - T + t + 1).
+    seen = sum(max(0, min(n, n - t + i + 1)) for n in DEC_LENGTHS for i in range(t))
+    live = sum(DEC_LENGTHS)
+    lim = bound(2 * DEC_HKV * live * (DEC_D + 4) + 2 * nbytes(q) + 4 * DEC_B,
+                4.0 * DEC_HQ * DEC_D * seen, torch.int8)
+    print(f"[kernels] K2 int8 T={t} chunk B={DEC_B} Hq={DEC_HQ} Hkv={DEC_HKV} D={DEC_D} "
+          f"Smax={DEC_SMAX} lengths={DEC_LENGTHS}: kernel {ms:.4f} ms "
+          f"({4.0 * DEC_HQ * DEC_D * seen / (ms * 1e-3) / 1e12:.2f} TOP/s), plain "
+          f"{plain:.4f} ms, bound {lim['bound_ms']:.5f} ms by {lim['bound_by']}, SDPA with a "
+          f"bottom-right causal mask on the dequantized bf16 cache {lib:.4f} ms")
 
 
 def masked_sdpa_ms(qd: torch.Tensor, cache: KVCache) -> float:
@@ -490,24 +529,24 @@ def paged_decode_kernel(gen: torch.Generator) -> dict[str, dict]:
                                  **lim)}
 
 
-# qmm8's M: the decode batch's split-K kernel up to 16 (1, 4 and 16 take
-# its three row counts), the tensor cores from 17 (a prefill bucket, the
-# 4-request chunk step at 1024).
+# qmm8's and qmm4's M: the decode batch's split-K kernel up to 16 (1, 4 and
+# 16 take its three row counts), the tensor cores from 17 (a prefill bucket,
+# the 4-request chunk step at 1024).
 QMM8_MS = (1, 4, 16, 17, 64, 256, 1024)
 
 
 def quant_matmul_kernels(gen: torch.Generator) -> dict[str, dict]:
     """qmm8 and qmm4 against their plain version on LLAMA_1B's five
-    projection shapes, qmm8 at every M of QMM8_MS with two calls bitwise
-    equal, qmm4 at M 4 (a decode step) and M 256 (a prefill bucket); each
-    timed at M 4 and M 256, the (2048, 5632) one giving the JSON line's
-    numbers (M 4), beside torch.matmul on the dequantized bf16 weight."""
+    projection shapes at every M of QMM8_MS, two calls bitwise equal; each
+    timed at M 4 (a decode step) and M 256 (a prefill bucket), the
+    (2048, 5632) one giving the JSON line's numbers (M 4), beside
+    torch.matmul on the dequantized bf16 weight."""
     out = {}
     for bits in (8, 4):
         err, entry = 0.0, None
         for k, n in QMM_SHAPES:
             qw = quant_matmul.quantize_weights(randn((k, n), gen) * 0.02, bits)
-            for m in QMM8_MS if bits == 8 else (4, 256):
+            for m in QMM8_MS:
                 x = randn((m, k), gen)
                 y = quant_matmul.quant_matmul(x, qw)
                 again = quant_matmul.quant_matmul(x, qw)
@@ -521,18 +560,23 @@ def quant_matmul_kernels(gen: torch.Generator) -> dict[str, dict]:
             ms = cuda_time_ms(lambda: quant_matmul.quant_matmul(x, qw))
             ms256 = cuda_time_ms(lambda: quant_matmul.quant_matmul(x256, qw))
             plain = cuda_time_ms(lambda: quant_matmul.quant_matmul_reference(x, qw))
+            plain256 = cuda_time_ms(lambda: quant_matmul.quant_matmul_reference(x256, qw))
             lib = cuda_time_ms(lambda: torch.matmul(x, w_bf16))
             lib256 = cuda_time_ms(lambda: torch.matmul(x256, w_bf16))
             lim = bound(nbytes(x, qw.w, qw.scale) + 4 * n * 2, 2.0 * 4 * k * n, torch.bfloat16)
-            split = quant_matmul.qmm8_split(4, k, n, torch.cuda.get_device_properties(
-                0).multi_processor_count) if bits == 8 else None
-            plan = (f", {split[1]} K-splits of {split[0]} rows at M<=16" if split else "")
+            lim256 = bound(nbytes(x256, qw.w, qw.scale) + 256 * n * 2, 2.0 * 256 * k * n,
+                           torch.bfloat16)
+            split = (quant_matmul.qmm8_split if bits == 8 else quant_matmul.qmm4_split)(
+                4, k, n, torch.cuda.get_device_properties(0).multi_processor_count)
+            plan = f", {split[1]} K-splits of {split[0]} byte rows at M<=16"
             print(f"[kernels] qmm{bits} K={k} N={n}: kernel {ms:.4f} ms at M=4 "
                   f"({nbytes(qw.w) / (ms * 1e-3) / 1e9:.1f} GB/s of weights{plan}), "
                   f"{ms256:.4f} ms at M=256 ({2.0 * 256 * k * n / (ms256 * 1e-3) / 1e12:.2f} "
-                  f"TFLOP/s); plain {plain:.4f} ms, torch.matmul on the dequantized bf16 weight "
+                  f"TFLOP/s); plain {plain:.4f} ms at M=4, {plain256:.4f} ms at M=256, "
+                  f"torch.matmul on the dequantized bf16 weight "
                   f"{lib:.4f} ms at M=4, {lib256:.4f} ms at M=256, bound "
-                  f"{lim['bound_ms']:.4f} ms by {lim['bound_by']} (M=4)")
+                  f"{lim['bound_ms']:.5f} ms by {lim['bound_by']} (M=4), "
+                  f"{lim256['bound_ms']:.5f} ms by {lim256['bound_by']} (M=256)")
             if (k, n) == QMM_TIMED:
                 entry = dict(ms=ms, plain_ms=plain, library_ms=lib, **lim)
             del qw, w_bf16

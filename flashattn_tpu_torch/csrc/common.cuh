@@ -51,24 +51,6 @@ template <> __device__ __forceinline__ void widen16<__nv_bfloat16>(const uint4& 
   }
 }
 
-// 16 one-byte cache values (int8, or e4m3 converted exactly: every e4m3
-// code, subnormals included, is a float) in memory order.
-template <> __device__ __forceinline__ void widen16<int8_t>(const uint4& raw, float* out) {
-  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 16; ++i)
-    out[i] = static_cast<float>(static_cast<int8_t>((w[i / 4] >> (8 * (i % 4))) & 0xffu));
-}
-template <> __device__ __forceinline__ void widen16<__nv_fp8_e4m3>(const uint4& raw, float* out) {
-  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    __nv_fp8_e4m3 f;
-    f.__x = static_cast<__nv_fp8_storage_t>((w[i / 4] >> (8 * (i % 4))) & 0xffu);
-    out[i] = static_cast<float>(f);
-  }
-}
-
 // Copy a contiguous [kRows][D] tile from global memory (16-byte aligned)
 // into shared memory as fp32 times `scale`, with row stride `ld`; rows at or
 // past n_rows are zero-filled and never read. Each thread issues all of its
@@ -141,6 +123,11 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
+// Wait until at most kPending of this thread's committed groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
 
 // Four 8x8 bf16 matrices from shared memory; lane i gives the address of row
 // i % 8 of matrix i / 8, and r[m] receives matrix m in fragment layout
@@ -170,17 +157,23 @@ __device__ __forceinline__ int lane_offset(int lane, int ld) {
 }
 
 // Let a kernel ask for up to the device's opt-in maximum of dynamic shared
-// memory (above 48 KB needs this). Set once per kernel, so that launches
-// captured into a CUDA graph make no attribute call.
+// memory (above 48 KB needs this), less its static shared memory. Set once
+// per kernel, so that launches captured into a CUDA graph make no attribute
+// call; a failure is cleared from the runtime's last error, so that it
+// reaches only this kernel's callers.
 template <auto Kernel>
 inline cudaError_t allow_max_smem() {
   static const cudaError_t err = [] {
     int dev = 0, bytes = 0;
+    cudaFuncAttributes attr{};
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, Kernel);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes - static_cast<int>(attr.sharedSizeBytes));
+    if (e != cudaSuccess) cudaGetLastError();
     return e;
   }();
   return err;

@@ -10,43 +10,49 @@
 // What bounds it on the card: at decode (M = the batch, a few rows) the
 // weight bytes, read once, and the latency of getting enough of them in
 // flight; in a prefill or a prompt chunk (M in the hundreds) the
-// operations, 2 M K N. On an H100 the split-K kernel reads the weights at
-// about a third of HBM's rate, paying beyond a bf16 cuBLAS GEMM for the
-// partial sums' round trip through the workspace and the second launch;
-// the tensor-core kernel reaches about a tenth of the bf16 peak with one
-// 64 x 128 tile a CTA on mma.sync (wgmma and larger tiles are later work).
+// operations, 2 M K N. On an H100 the split-K kernel takes about the same
+// time for int8 and int4 at half the bytes (qmm8 reads its weights at about
+// a third of HBM's rate, qmm4 at a sixth): its chain bounds it, the partial
+// sums' round trip through the workspace and the second launch, which a
+// bf16 cuBLAS GEMM does not pay; the tensor-core kernel reaches about a
+// tenth of the bf16 peak with one 64 x 128 tile a CTA on mma.sync (wgmma
+// and larger tiles are later work).
 //
 // What the design does about it. The weights stay in 8 or 4 bits in device
 // memory and are widened on the chip, never written back; every product is
 // exact in fp32 (int8/int4 values times bf16 or f32 activations) or on the
-// tensor cores (int8 values are exact in bf16), the sums are fp32, and the
-// scale multiplies each sum once at the end before the cast to y's type:
-// the JAX order. Rows past M are masked, never padded.
+// tensor cores (int8 and int4 values are exact in bf16), the sums are fp32,
+// and the scale multiplies each sum once at the end before the cast to y's
+// type: the JAX order. Rows past M are masked, never padded. qmm8 and qmm4
+// share each design; int4 keeps the JAX half-split pairing, the low nibble
+// of byte row r with x[:, r] and the high one with x[:, K/2 + r].
 //
-// - qmm8, M <= 16 (decode): split-K on the CUDA cores
-//   (qmm8_splitk_kernel). A CTA of 4 warps owns 128 columns and one K-slice
-//   of split_rows rows (the wrapper picks it so that the grid has several
-//   CTAs an SM); lane l reads columns 4l..4l+3 of a row as one 4-byte load,
-//   16 rows in flight a warp, and widens them in registers; x's K-slice is
-//   the only tile in shared memory. The 4 warps' sums meet in shared memory
-//   in a fixed order, each split writes its fp32 partial sums to a workspace
-//   [splits, M, N], and qmm8_reduce_kernel adds the splits in split order,
-//   scales and casts. No atomics: two calls give bitwise-equal results.
-// - qmm8, M > 16 with bf16 x (prefill, chunks): mma.sync m16n8k16 with fp32
-//   accumulators (qmm8_mma_kernel). A CTA of 4 warps owns a 64 x 128 tile of
-//   y, each warp 32 x 64; per 32-row K step the x tile and the raw weight
-//   bytes arrive by cp.async in a double buffer, each thread widens the
-//   weight bytes it copied to bf16 in shared memory, and the fragments come
-//   by ldmatrix (the weights through .trans).
-// - qmm8 with f32 x and M > 16, and qmm4 at every M: the CUDA-core kernel
-//   (qmm_kernel). Each CTA owns a BM x 64 tile of y (BM = 16 for M <= 16,
-//   else 64) and walks K in tiles of 64 logical rows: 256 threads load one
-//   16-byte chunk of weight bytes each (int4: the 32 packed rows of a tile
-//   give its 64 rows, the low nibbles pairing with x[:, r] and the high ones
-//   with x[:, K/2 + r], as the JAX kernel slices x in half-K streams),
-//   sign-extend them to fp32 in shared memory beside the x tile, and
-//   accumulate in fp32. f32 x is not exact in bf16, so it stays off the
-//   tensor cores; qmm4 takes qmm8's two designs in a later change.
+// - M <= 16 (decode): split-K on the CUDA cores (qmm_splitk_kernel). A CTA
+//   of 4 warps owns 128 columns and one K-slice of split_rows byte rows
+//   (the wrapper picks it so that the grid has several CTAs an SM); lane l
+//   reads columns 4l..4l+3 of a byte row as one 4-byte load, 16 rows in
+//   flight a warp, and widens them in registers (int4: both nibbles of
+//   each byte, ((b & 0xf) ^ 8) - 8 and ((b >> 4) ^ 8) - 8); x's slice is
+//   the only tile in shared memory (int4: columns [k0, k0 + rows) and
+//   [K/2 + k0, K/2 + k0 + rows)). The 4 warps' sums meet in shared memory
+//   in a fixed order, each split writes its fp32 partial sums to a
+//   workspace [splits, M, N], and qmm_reduce_kernel adds the splits in
+//   split order, scales and casts. No atomics: two calls give bitwise-equal
+//   results.
+// - M > 16 with bf16 x (prefill, chunks): mma.sync m16n8k16 with fp32
+//   accumulators (qmm_mma_kernel). A CTA of 4 warps owns a 64 x 128 tile of
+//   y, each warp 32 x 64; per K step of 32 logical rows (int8: 32 byte rows;
+//   int4: 16 byte rows, whose low nibbles pair with x's columns
+//   [p0, p0 + 16) and high nibbles with [K/2 + p0, K/2 + p0 + 16)) the x
+//   tile and the raw weight bytes arrive by cp.async in a double buffer,
+//   each thread widens the weight bytes it copied to bf16 in shared memory,
+//   and the fragments come by ldmatrix (the weights through .trans).
+// - f32 x with M > 16: the CUDA-core kernel (qmm_kernel). Each CTA owns a
+//   64 x 64 tile of y and walks K in tiles of 64 logical rows: 256 threads
+//   load one 16-byte chunk of weight bytes each (int4: the 32 packed rows
+//   of a tile give its 64 rows), sign-extend them to fp32 in shared memory
+//   beside the x tile, and accumulate in fp32. f32 x is not exact in bf16,
+//   so it stays off the tensor cores.
 #include <type_traits>
 
 #include "common.cuh"
@@ -55,11 +61,12 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
+constexpr int kBM = 64;  // output rows per CTA
 constexpr int kBN = 64;  // output columns per CTA
 constexpr int kBK = 64;  // logical weight rows per K tile
 constexpr int kThreads = 256;
 
-template <typename X, typename O, int kBits, int kBM>
+template <typename X, typename O, int kBits>
 __global__ void __launch_bounds__(kThreads)
 qmm_kernel(const X* __restrict__ x, const int8_t* __restrict__ w,
            const float* __restrict__ scale, O* __restrict__ y, int M, int K, int N) {
@@ -134,13 +141,13 @@ qmm_kernel(const X* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-// ---- qmm8, M <= 16: split-K on the CUDA cores ----
+// ---- M <= 16: split-K on the CUDA cores ----
 
 constexpr int kSplitWarps = 4;
 constexpr int kSplitThreads = 32 * kSplitWarps;
 constexpr int kSplitCols = 128;     // columns a CTA: 4 a lane
-constexpr int kSplitBatch = 16;     // weight rows a warp has in flight
-constexpr int kSplitRowsMax = 512;  // rows of a split (x's slice in shared memory)
+constexpr int kSplitBatch = 16;     // weight byte rows a warp has in flight
+constexpr int kSplitRowsMax = 512;  // x columns of a split's slice in shared memory
 static_assert(kSplitWarps * kSplitBatch == kBK, "a K tile is one batch of every warp");
 
 template <int kM>
@@ -149,24 +156,30 @@ constexpr size_t splitk_smem_bytes() {
   return sizeof(float) * kM * (kSplitRowsMax + kSplitWarps * kSplitCols);
 }
 
-// Partial sums of rows [k0, k0 + split_rows) of x @ W for one split
+// Partial sums of byte rows [k0, k0 + split_rows) of x @ W for one split
 // (blockIdx.y) and 128 columns (blockIdx.x) into ws[split][m][n], m < M.
-// kM >= M is the rows of x computed (those past M are zeros).
-template <typename X, int kM>
+// kM >= M is the rows of x computed (those past M are zeros). int8: byte
+// row r is logical row r; int4: it holds logical rows r and K/2 + r.
+template <typename X, int kM, int kBits>
 __global__ void __launch_bounds__(kSplitThreads)
-qmm8_splitk_kernel(const X* __restrict__ x, const int8_t* __restrict__ w,
-                   float* __restrict__ ws, int M, int K, int N, int split_rows) {
+qmm_splitk_kernel(const X* __restrict__ x, const int8_t* __restrict__ w,
+                  float* __restrict__ ws, int M, int K, int N, int split_rows) {
+  constexpr int kHalves = kBits == 8 ? 1 : 2;  // x columns a byte row pairs with
   extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                        // [rows][kM]
+  float* xs = smem;                        // [kHalves * rows][kM]
   float* sums = xs + kSplitRowsMax * kM;   // [kSplitWarps][kM][kSplitCols]
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int n0 = blockIdx.x * kSplitCols, split = blockIdx.y;
   const int k0 = split * split_rows;
-  const int rows = min(split_rows, K - k0);  // a multiple of 64
+  const int half = K / 2;
+  const int rows = min(split_rows, (kBits == 8 ? K : half) - k0);  // a multiple of 16
 
-  for (int e = tid; e < kM * rows; e += kSplitThreads) {
-    const int m = e / rows, j = e % rows;
-    xs[j * kM + m] = m < M ? fat::to_f(x[static_cast<size_t>(m) * K + k0 + j]) : 0.f;
+  // x's slice, transposed: entry j < rows is column k0 + j; for int4, entry
+  // rows + j is column K/2 + k0 + j.
+  for (int e = tid; e < kM * kHalves * rows; e += kSplitThreads) {
+    const int m = e / (kHalves * rows), j = e % (kHalves * rows);
+    const int col = j < rows ? k0 + j : half + k0 + (j - rows);
+    xs[j * kM + m] = m < M ? fat::to_f(x[static_cast<size_t>(m) * K + col]) : 0.f;
   }
   __syncthreads();
 
@@ -186,19 +199,27 @@ qmm8_splitk_kernel(const X* __restrict__ x, const int8_t* __restrict__ w,
                     : 0u;
 #pragma unroll
     for (int i = 0; i < kSplitBatch; ++i) {
-      float wv[4];
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        wv[c] = static_cast<float>(static_cast<int8_t>((raw[i] >> (8 * c)) & 0xffu));
-      const float* xr = xs + (r0 + i) * kM;
+      for (int h = 0; h < kHalves; ++h) {
+        float wv[4];
 #pragma unroll
-      for (int m = 0; m < kM; m += 4) {
-        const float4 xv = *reinterpret_cast<const float4*>(xr + m);
-        const float xm[4] = {xv.x, xv.y, xv.z, xv.w};
+        for (int c = 0; c < 4; ++c) {
+          const int byte = static_cast<int>((raw[i] >> (8 * c)) & 0xffu);
+          if constexpr (kBits == 8)
+            wv[c] = static_cast<float>(static_cast<int8_t>(byte));
+          else
+            wv[c] = static_cast<float>(h == 0 ? ((byte & 0xf) ^ 8) - 8 : ((byte >> 4) ^ 8) - 8);
+        }
+        const float* xr = xs + (h * rows + r0 + i) * kM;
 #pragma unroll
-        for (int mm = 0; mm < 4; ++mm)
+        for (int m = 0; m < kM; m += 4) {
+          const float4 xv = *reinterpret_cast<const float4*>(xr + m);
+          const float xm[4] = {xv.x, xv.y, xv.z, xv.w};
 #pragma unroll
-          for (int c = 0; c < 4; ++c) acc[m + mm][c] = fmaf(xm[mm], wv[c], acc[m + mm][c]);
+          for (int mm = 0; mm < 4; ++mm)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[m + mm][c] = fmaf(xm[mm], wv[c], acc[m + mm][c]);
+        }
       }
     }
   }
@@ -223,8 +244,8 @@ qmm8_splitk_kernel(const X* __restrict__ x, const int8_t* __restrict__ w,
 // consecutive entries of y a thread.
 template <typename O>
 __global__ void __launch_bounds__(256)
-qmm8_reduce_kernel(const float* __restrict__ ws, const float* __restrict__ scale,
-                   O* __restrict__ y, int M, int N, int splits) {
+qmm_reduce_kernel(const float* __restrict__ ws, const float* __restrict__ scale,
+                  O* __restrict__ y, int M, int N, int splits) {
   const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const size_t mn = static_cast<size_t>(M) * N;
   if (4 * i >= mn) return;
@@ -244,10 +265,10 @@ qmm8_reduce_kernel(const float* __restrict__ ws, const float* __restrict__ scale
   out[3] = fat::from_f<O>(acc.w * scale[n + 3]);
 }
 
-// ---- qmm8, M > 16, bf16 x: the tensor cores ----
+// ---- M > 16, bf16 x: the tensor cores ----
 
 constexpr int kMmaThreads = 128;
-constexpr int kMmaBM = 64, kMmaBN = 128, kMmaBK = 32;
+constexpr int kMmaBM = 64, kMmaBN = 128, kMmaBK = 32;  // kMmaBK: logical rows a K step
 constexpr int kXP = kMmaBK + 8;  // x tile row stride (bf16): conflict-free ldmatrix
 constexpr int kWP = kMmaBN + 8;  // widened weight tile row stride (bf16)
 
@@ -258,35 +279,59 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-template <typename O>
+// 16 weight bytes widened to 16 bf16 in shared memory, each byte through
+// `widen`.
+template <typename F>
+__device__ __forceinline__ void widen16(bf16* dst, const uint4& r, F widen) {
+  const unsigned words[4] = {r.x, r.y, r.z, r.w};
+  unsigned packed[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const unsigned word = words[e / 2] >> (16 * (e % 2));
+    packed[e] = fat::pack_bf16(widen(word & 0xffu), widen((word >> 8) & 0xffu));
+  }
+  *reinterpret_cast<uint4*>(dst) = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+  *reinterpret_cast<uint4*>(dst + 8) = make_uint4(packed[4], packed[5], packed[6], packed[7]);
+}
+
+template <typename O, int kBits>
 __global__ void __launch_bounds__(kMmaThreads)
-qmm8_mma_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
-                const float* __restrict__ scale, O* __restrict__ y, int M, int K, int N) {
+qmm_mma_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
+               const float* __restrict__ scale, O* __restrict__ y, int M, int K, int N) {
+  // Byte rows of a K step: int4 packs its 32 logical rows into 16.
+  constexpr int kRawRows = kBits == 8 ? kMmaBK : kMmaBK / 2;
+  constexpr int kRawChunks = kRawRows * kMmaBN / 16 / kMmaThreads;  // 16-byte chunks a thread
   __shared__ __align__(16) bf16 xs[2][kMmaBM][kXP];
-  __shared__ __align__(16) int8_t raw[2][kMmaBK][kMmaBN];
+  __shared__ __align__(16) int8_t raw[2][kRawRows][kMmaBN];
   __shared__ __align__(16) bf16 wb[2][kMmaBK][kWP];
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, tig = lane % 4;
   const int m0 = blockIdx.y * kMmaBM, n0 = blockIdx.x * kMmaBN;
   const int wm = (warp / 2) * 32, wn = (warp % 2) * 64;  // this warp's 32 x 64 block
+  const int half = K / 2;
   const int n_k = K / kMmaBK;
 
   // Thread tid copies x chunks tid and tid + 128 (of 4 a row) and weight
-  // chunks tid and tid + 128 (of 8 a row); it widens the weight chunks it
+  // chunks tid (+ 128 for int8; of 8 a row); it widens the weight chunks it
   // copied, so that no barrier stands between the copy and the widening.
+  // x's columns of step kt: [32 kt, 32 kt + 32) for int8; for int4 the
+  // low half [16 kt, 16 kt + 16) then the high half [K/2 + 16 kt, ...).
   auto load = [&](int kt, int buf) {
-    const int kb = kt * kMmaBK;
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int c = tid + j * kMmaThreads;
       const int xr = c / 4, xc = (c % 4) * 8;
+      const int col = kBits == 8 ? kt * kMmaBK + xc
+                                 : (xc < 16 ? kt * 16 + xc : half + kt * 16 + xc - 16);
       const bool xv = m0 + xr < M;
-      fat::cp_async16(&xs[buf][xr][xc], xv ? x + static_cast<size_t>(m0 + xr) * K + kb + xc : x,
+      fat::cp_async16(&xs[buf][xr][xc], xv ? x + static_cast<size_t>(m0 + xr) * K + col : x,
                       xv);
-      const int wr = c / 8, wc = (c % 8) * 16;
-      const bool wv = n0 + wc < N;
-      fat::cp_async16(&raw[buf][wr][wc], wv ? w + static_cast<size_t>(kb + wr) * N + n0 + wc : w,
-                      wv);
+      if (j < kRawChunks) {
+        const int wr = c / 8, wc = (c % 8) * 16;
+        const bool wv = n0 + wc < N;
+        fat::cp_async16(&raw[buf][wr][wc],
+                        wv ? w + static_cast<size_t>(kt * kRawRows + wr) * N + n0 + wc : w, wv);
+      }
     }
   };
 
@@ -302,22 +347,21 @@ qmm8_mma_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
     const int buf = kt & 1;
     fat::cp_async_wait_all();  // this thread's copies of step kt are in
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < kRawChunks; ++j) {
       const int c = tid + j * kMmaThreads;
       const int wr = c / 8, wc = (c % 8) * 16;
       const uint4 r = *reinterpret_cast<const uint4*>(&raw[buf][wr][wc]);
-      const unsigned words[4] = {r.x, r.y, r.z, r.w};
-      unsigned packed[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const unsigned word = words[e / 2] >> (16 * (e % 2));
-        packed[e] = fat::pack_bf16(static_cast<float>(static_cast<int8_t>(word & 0xffu)),
-                                   static_cast<float>(static_cast<int8_t>((word >> 8) & 0xffu)));
+      if constexpr (kBits == 8) {
+        widen16(&wb[buf][wr][wc], r,
+                [](unsigned b) { return static_cast<float>(static_cast<int8_t>(b)); });
+      } else {  // low nibbles are logical row wr, high nibbles row 16 + wr
+        widen16(&wb[buf][wr][wc], r, [](unsigned b) {
+          return static_cast<float>(static_cast<int>((b & 0xfu) ^ 8u) - 8);
+        });
+        widen16(&wb[buf][16 + wr][wc], r, [](unsigned b) {
+          return static_cast<float>(static_cast<int>((b >> 4) ^ 8u) - 8);
+        });
       }
-      *reinterpret_cast<uint4*>(&wb[buf][wr][wc]) =
-          make_uint4(packed[0], packed[1], packed[2], packed[3]);
-      *reinterpret_cast<uint4*>(&wb[buf][wr][wc + 8]) =
-          make_uint4(packed[4], packed[5], packed[6], packed[7]);
     }
     __syncthreads();  // step kt's tiles are visible; every warp is done with step kt - 1
     if (kt + 1 < n_k) load(kt + 1, buf ^ 1);
@@ -359,60 +403,49 @@ qmm8_mma_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
     }
 }
 
-template <typename X, int kM>
+template <typename X, int kM, int kBits>
 cudaError_t launch_splitk(const void* x, const void* w, void* ws, int M, int K, int N,
                           int split_rows, int splits, cudaStream_t stream) {
-  const cudaError_t err = fat::allow_max_smem<qmm8_splitk_kernel<X, kM>>();
+  const cudaError_t err = fat::allow_max_smem<qmm_splitk_kernel<X, kM, kBits>>();
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kSplitCols - 1) / kSplitCols, splits);
-  qmm8_splitk_kernel<X, kM><<<grid, kSplitThreads, splitk_smem_bytes<kM>(), stream>>>(
+  qmm_splitk_kernel<X, kM, kBits><<<grid, kSplitThreads, splitk_smem_bytes<kM>(), stream>>>(
       static_cast<const X*>(x), static_cast<const int8_t*>(w), static_cast<float*>(ws), M, K, N,
       split_rows);
   return cudaGetLastError();
 }
 
-template <typename X, typename O>
-cudaError_t launch_qmm8(const void* x, const void* w, const void* scale, void* y, void* ws,
-                        int M, int K, int N, int split_rows, cudaStream_t stream) {
+template <typename X, typename O, int kBits>
+cudaError_t launch_qmm(const void* x, const void* w, const void* scale, void* y, void* ws,
+                       int M, int K, int N, int split_rows, cudaStream_t stream) {
   if (M <= 16) {
-    if (ws == nullptr || split_rows <= 0 || split_rows % kBK != 0 || split_rows > kSplitRowsMax)
+    // split_rows byte rows; an int4 split's x slice is twice as wide.
+    constexpr int kHalves = kBits == 8 ? 1 : 2;
+    if (ws == nullptr || split_rows <= 0 || split_rows % kBK != 0 ||
+        split_rows * kHalves > kSplitRowsMax)
       return cudaErrorInvalidValue;
-    const int splits = (K + split_rows - 1) / split_rows;
+    const int byte_rows = kBits == 8 ? K : K / 2;
+    const int splits = (byte_rows + split_rows - 1) / split_rows;
     cudaError_t err;
     if (M <= 4)
-      err = launch_splitk<X, 4>(x, w, ws, M, K, N, split_rows, splits, stream);
+      err = launch_splitk<X, 4, kBits>(x, w, ws, M, K, N, split_rows, splits, stream);
     else if (M <= 8)
-      err = launch_splitk<X, 8>(x, w, ws, M, K, N, split_rows, splits, stream);
+      err = launch_splitk<X, 8, kBits>(x, w, ws, M, K, N, split_rows, splits, stream);
     else
-      err = launch_splitk<X, 16>(x, w, ws, M, K, N, split_rows, splits, stream);
+      err = launch_splitk<X, 16, kBits>(x, w, ws, M, K, N, split_rows, splits, stream);
     if (err != cudaSuccess) return err;
     const int quads = M * N / 4;
-    qmm8_reduce_kernel<O><<<(quads + 255) / 256, 256, 0, stream>>>(
+    qmm_reduce_kernel<O><<<(quads + 255) / 256, 256, 0, stream>>>(
         static_cast<const float*>(ws), static_cast<const float*>(scale), static_cast<O*>(y), M,
         N, splits);
   } else if constexpr (std::is_same_v<X, bf16>) {
     const dim3 grid((N + kMmaBN - 1) / kMmaBN, (M + kMmaBM - 1) / kMmaBM);
-    qmm8_mma_kernel<O><<<grid, kMmaThreads, 0, stream>>>(
+    qmm_mma_kernel<O, kBits><<<grid, kMmaThreads, 0, stream>>>(
         static_cast<const bf16*>(x), static_cast<const int8_t*>(w),
         static_cast<const float*>(scale), static_cast<O*>(y), M, K, N);
   } else {
-    qmm_kernel<X, O, 8, 64><<<dim3((N + kBN - 1) / kBN, (M + 63) / 64), kThreads, 0, stream>>>(
-        static_cast<const X*>(x), static_cast<const int8_t*>(w),
-        static_cast<const float*>(scale), static_cast<O*>(y), M, K, N);
-  }
-  return cudaGetLastError();
-}
-
-template <typename X, typename O>
-cudaError_t launch_qmm4(const void* x, const void* w, const void* scale, void* y, int M, int K,
-                        int N, cudaStream_t stream) {
-  const int bn = (N + kBN - 1) / kBN;
-  if (M <= 16) {
-    qmm_kernel<X, O, 4, 16><<<dim3(bn, (M + 15) / 16), kThreads, 0, stream>>>(
-        static_cast<const X*>(x), static_cast<const int8_t*>(w),
-        static_cast<const float*>(scale), static_cast<O*>(y), M, K, N);
-  } else {
-    qmm_kernel<X, O, 4, 64><<<dim3(bn, (M + 63) / 64), kThreads, 0, stream>>>(
+    const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+    qmm_kernel<X, O, kBits><<<grid, kThreads, 0, stream>>>(
         static_cast<const X*>(x), static_cast<const int8_t*>(w),
         static_cast<const float*>(scale), static_cast<O*>(y), M, K, N);
   }
@@ -422,8 +455,8 @@ cudaError_t launch_qmm4(const void* x, const void* w, const void* scale, void* y
 template <typename X, typename O>
 cudaError_t dispatch_bits(int bits, const void* x, const void* w, const void* scale, void* y,
                           void* ws, int M, int K, int N, int split_rows, cudaStream_t s) {
-  if (bits == 8) return launch_qmm8<X, O>(x, w, scale, y, ws, M, K, N, split_rows, s);
-  if (bits == 4) return launch_qmm4<X, O>(x, w, scale, y, M, K, N, s);
+  if (bits == 8) return launch_qmm<X, O, 8>(x, w, scale, y, ws, M, K, N, split_rows, s);
+  if (bits == 4) return launch_qmm<X, O, 4>(x, w, scale, y, ws, M, K, N, split_rows, s);
   return cudaErrorInvalidValue;
 }
 
@@ -431,10 +464,11 @@ cudaError_t dispatch_bits(int bits, const void* x, const void* w, const void* sc
 
 // x [M,K] of x_dtype; w int8 [K,N] (bits 8) or [K/2,N] (bits 4); scale [1,N]
 // f32; y [M,N] of out_dtype. All contiguous on the device, w 16-byte
-// aligned, K a multiple of 64, N of 16, 0 < M < 65536 * 16. For bits 8 and
-// M <= 16, split_rows (a multiple of 64, at most 512) is the K-slice of a
-// split and ws an fp32 workspace [ceil(K / split_rows), M, N]; otherwise both
-// are unused. Returns the CUDA error code (0 = success).
+// aligned, K a multiple of 64, N of 16, 0 < M < 65536 * 16. For M <= 16,
+// split_rows (a multiple of 64 byte rows, at most 512 for bits 8 and 256 for
+// bits 4) is the K-slice of a split and ws an fp32 workspace
+// [ceil(byte rows / split_rows), M, N]; otherwise both are unused. Returns
+// the CUDA error code (0 = success).
 extern "C" int quant_matmul_launch(const void* x, const void* w, const void* scale, void* y,
                                    void* ws, int M, int K, int N, int bits, int x_dtype,
                                    int out_dtype, int split_rows, void* stream) {

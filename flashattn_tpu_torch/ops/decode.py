@@ -2,16 +2,18 @@
 
 ``decode_attention`` and ``decode_attention_chunk`` launch kernel K2
 (csrc/decode.cu) on CUDA tensors: split-KV over the cache's positions, the
-query rows tiled over the grid, then a merge of the slices. The cache may
-be bf16/f32 or quantized (int8, fp8). The new tokens' K/V must already be in
-the cache (kvcache.update_cache): token t of a T-token chunk sits at
-position length - T + t and attends the positions <= its own.
+query rows tiled over the grid, the products on the tensor cores (an f32
+cache's on the CUDA cores), then a second kernel merging the slices. The
+cache may be bf16/f32 or quantized (int8, fp8); no PyTorch kernel runs
+around the two. The new tokens' K/V must already be in the cache
+(kvcache.update_cache): token t of a T-token chunk sits at position
+length - T + t and attends the positions <= its own.
 
 In the int8 mode both products run on integers, as in the JAX kernel: q is
-quantized per row here, outside the kernel (``prep_decode_q``), the logits
-are int(q·k) x q_scale x k_scale, and P x v_scale is requantized per row to
-int8 before P·V. The fp8 mode converts k and v exactly and folds k_scale
-into the logits and v_scale into P.
+quantized per row (inside the kernel, with ``prep_decode_q``'s arithmetic),
+the logits are int(q·k) x q_scale x k_scale, and P x v_scale is requantized
+per row and 64-position tile to int8 before P·V. The fp8 mode converts k
+and v exactly and folds k_scale into the logits and v_scale into P.
 """
 
 from __future__ import annotations
@@ -29,8 +31,13 @@ LAUNCHES = 0  # bf16/f32 cache
 INT8_LAUNCHES = 0
 FP8_LAUNCHES = 0
 
-BLOCK_KV = 64  # cache positions per tile in the kernel
-ROW_BLOCK = 64  # query rows per CTA (csrc/decode.cu kRowBlock)
+BLOCK_KV = 64  # cache positions per tile in the kernel (and int8 P requantization block)
+# Query rows per CTA, and tiles a CTA takes at a time (csrc/decode.cu
+# launch_rows): up to FEW_ROWS rows (a decode step's group), the 4 warps
+# share the rows and take a tile each; more rows, a warp owns 16 of 64 and
+# the warps walk the same tiles.
+FEW_ROWS = 16
+ROW_BLOCK = 64
 # Aim for this many CTAs in the split pass: two per SM of an H100.
 TARGET_CTAS = 264
 # Storage dtype -> the kernel's cache-type code (csrc/common.cuh DType).
@@ -162,13 +169,20 @@ def _quantized_reference(q: torch.Tensor, cache: KVCache, scale: float | None,
     return o.reshape(b, hq, t, d).to(q.dtype)
 
 
+def _layout(rows: int) -> tuple[int, int]:
+    """(query rows a CTA, tiles it takes at a time) for `rows` rows a group."""
+    return (FEW_ROWS, 4) if rows <= FEW_ROWS else (ROW_BLOCK, 1)
+
+
 def _num_splits(b: int, hkv: int, rows: int, s_max: int) -> tuple[int, int]:
-    """(split_len, num_splits): slices of a multiple of BLOCK_KV positions,
-    enough of them for TARGET_CTAS blocks where the cache is long enough.
-    A function of the shapes alone, so a paged and a dense cache of one
-    max_len take the same slices (and give the same bits)."""
-    want = max(1, cdiv(TARGET_CTAS, b * hkv * cdiv(rows, ROW_BLOCK)))
-    split_len = round_up(cdiv(s_max, want), BLOCK_KV)
+    """(split_len, num_splits): slices of a multiple of the BLOCK_KV
+    positions a CTA takes at a time, enough of them for TARGET_CTAS blocks
+    where the cache is long enough. A function of the shapes alone, so a
+    paged and a dense cache of one max_len take the same slices (and give
+    the same bits)."""
+    row_block, tiles = _layout(rows)
+    want = max(1, cdiv(TARGET_CTAS, b * hkv * cdiv(rows, row_block)))
+    split_len = round_up(cdiv(s_max, want), BLOCK_KV * tiles)
     return split_len, cdiv(s_max, split_len)
 
 
@@ -209,10 +223,6 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, hq, t, d = q.shape
     hkv = k.shape[1]
     rows = (hq // hkv) * t
-    int8_mode = k.dtype == torch.int8
-    q_in, q_scale = q, None
-    if int8_mode:  # the launcher glue of the JAX kernel, in plain PyTorch
-        q_in, q_scale = prep_decode_q(q, hkv, True, scale * LOG2E)
     split_len, splits = _num_splits(b, hkv, rows, s_max)
     f32 = dict(dtype=torch.float32, device=q.device)
     part_m = torch.empty((b, hkv, splits, rows), **f32)
@@ -230,9 +240,9 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.decode_launch(
-            q_in.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(q_scale), ptr(k_scale),
-            ptr(v_scale), length.data_ptr(), ptr(table), part_m.data_ptr(),
-            part_l.data_ptr(), part_acc.data_ptr(), o.data_ptr(), b, hq, hkv, t, s_max,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale), ptr(v_scale),
+            length.data_ptr(), ptr(table), part_m.data_ptr(), part_l.data_ptr(),
+            part_acc.data_ptr(), o.data_ptr(), b, hq, hkv, t, s_max,
             d, DTYPE_CODES[q.dtype], CACHE_CODES[k.dtype], max_pages, page, num_pages,
             split_len, splits, scale * LOG2E, stream)
     _build.check(lib, rc, "decode")

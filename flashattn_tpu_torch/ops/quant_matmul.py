@@ -33,10 +33,11 @@ QMM4_LAUNCHES = 0
 K_MULTIPLE = 64  # contraction rows per kernel tile (csrc/quant_matmul.cu kBK)
 N_MULTIPLE = 16  # output columns per 16-byte weight load
 
-# qmm8's split-K decode kernel (csrc/quant_matmul.cu qmm8_splitk_kernel).
+# The split-K decode kernel of qmm8 and qmm4 (csrc/quant_matmul.cu
+# qmm_splitk_kernel).
 SPLIT_M_MAX = 16  # rows of x it takes; more go to the tensor-core kernel
 SPLIT_COLS = 128  # output columns of one CTA (kSplitCols)
-SPLIT_ROWS_MAX = 512  # weight rows of one split: x's slice in shared memory
+SPLIT_ROWS_MAX = 512  # x columns of one split's slice in shared memory
 SPLIT_CTAS_PER_SM = 8  # the grid the split count aims for, per SM
 H100_SMS = 132
 
@@ -108,6 +109,15 @@ def quant_matmul_reference(x: torch.Tensor, qw: QuantizedLinear,
     return y.to(out_dtype or x.dtype)
 
 
+def _split(byte_rows: int, n: int, sms: int, rows_max: int) -> tuple[int, int]:
+    blocks = -(-byte_rows // K_MULTIPLE)
+    col_tiles = -(-n // SPLIT_COLS)
+    want = -(-SPLIT_CTAS_PER_SM * sms // col_tiles)
+    per = min(max(1, -(-blocks // want)), rows_max // K_MULTIPLE)
+    rows = per * K_MULTIPLE
+    return rows, -(-byte_rows // rows)
+
+
 def qmm8_split(m: int, k: int, n: int, sms: int = H100_SMS) -> tuple[int, int] | None:
     """(rows per split, splits) of qmm8's split-K kernel for x [m, k] and
     weights [k, n], or None when m > SPLIT_M_MAX (one pass on the tensor
@@ -119,12 +129,18 @@ def qmm8_split(m: int, k: int, n: int, sms: int = H100_SMS) -> tuple[int, int] |
     card sum in one order and give bitwise-equal results."""
     if m > SPLIT_M_MAX:
         return None
-    blocks = k // K_MULTIPLE
-    col_tiles = -(-n // SPLIT_COLS)
-    want = -(-SPLIT_CTAS_PER_SM * sms // col_tiles)
-    per = min(max(1, -(-blocks // want)), SPLIT_ROWS_MAX // K_MULTIPLE)
-    rows = per * K_MULTIPLE
-    return rows, -(-k // rows)
+    return _split(k, n, sms, SPLIT_ROWS_MAX)
+
+
+def qmm4_split(m: int, k: int, n: int, sms: int = H100_SMS) -> tuple[int, int] | None:
+    """qmm8_split's rule for qmm4's packed weights [k/2, n]: (byte rows per
+    split, splits) over the k/2 byte rows, or None when m > SPLIT_M_MAX. A
+    split of r byte rows reads x's columns [k0, k0 + r) and
+    [k/2 + k0, k/2 + k0 + r) (the half-split pairing), so r is at most
+    SPLIT_ROWS_MAX / 2 to keep that slice in shared memory."""
+    if m > SPLIT_M_MAX:
+        return None
+    return _split(k // 2, n, sms, SPLIT_ROWS_MAX // 2)
 
 
 def quant_matmul(x: torch.Tensor, qw: QuantizedLinear,
@@ -135,9 +151,9 @@ def quant_matmul(x: torch.Tensor, qw: QuantizedLinear,
 
     CPU tensors take the plain version. CUDA tensors launch qmm8 or qmm4 and
     need K a multiple of 64 and N of 16 (every LLAMA_1B projection), with the
-    weights 16-byte aligned; anything else raises. qmm8 with M <= 16 also
-    allocates its split-K workspace (qmm8_split); a call counts one launch,
-    the workspace's reduction included."""
+    weights 16-byte aligned; anything else raises. At M <= 16 it also
+    allocates the split-K workspace (qmm8_split, qmm4_split); a call counts
+    one launch, the workspace's reduction included."""
     if quantize_activations:
         raise unported("quant_matmul(quantize_activations=True), the a8 mode", "A6")
     m, k = x.shape
@@ -165,7 +181,7 @@ def quant_matmul(x: torch.Tensor, qw: QuantizedLinear,
     if m == 0:
         return y
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    split = qmm8_split(m, k, n, sms) if qw.bits == 8 else None
+    split = (qmm8_split if qw.bits == 8 else qmm4_split)(m, k, n, sms)
     split_rows, ws = 0, None
     if split is not None:
         split_rows, splits = split

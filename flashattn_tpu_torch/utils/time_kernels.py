@@ -1,0 +1,101 @@
+"""Device time of the decode path's kernels at the serving shapes, through
+their public entry points only.
+
+    python -m flashattn_tpu_torch.utils.time_kernels [--tag NAME]
+
+Times, by CUDA-graph replay (utils/timing.py::cuda_time_ms), on LLAMA_1B's
+decode step (B 4, Hq 32, Hkv 4, D 64, Smax 2048, lengths 1/77/1500/2048):
+K2 on bf16, int8 and fp8 caches and the paged K2 on an int8 pool of
+256-token pages at T 1, K2 int8 at T 256 (a chunked admission's step); and
+qmm8 and qmm4 on the gate/up projection (K 2048, N 5632) at M 4 and 256.
+Prints the card's name and power limit, then one JSON line of
+milliseconds. It calls nothing but the public functions, so run as a file
+with another checkout of the package first on PYTHONPATH,
+
+    PYTHONPATH=<other checkout> python flashattn_tpu_torch/utils/time_kernels.py --tag old
+
+it times that checkout's kernels: two versions compared in turns on one
+card. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+
+import torch
+
+from flashattn_tpu_torch.ops import decode, kvcache, paged, quant_matmul
+from flashattn_tpu_torch.ops.kvcache import KVCache
+from flashattn_tpu_torch.utils.timing import cuda_time_ms
+
+SEED = 0
+B, HQ, HKV, D, SMAX = 4, 32, 4, 64, 2048
+LENGTHS = [1, 77, 1500, 2048]
+PAGE = 256
+CHUNK = 256
+K, N = 2048, 5632
+
+
+def cache_of(quant: str | None, gen: torch.Generator) -> KVCache:
+    shape = (B, HKV, SMAX, D)
+    kv = [torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+          for _ in range(2)]
+    length = torch.tensor(LENGTHS, dtype=torch.int32, device="cuda")
+    if quant is None:
+        return KVCache(k=kv[0], v=kv[1], length=length)
+    cache = kvcache.init_cache(B, HKV, SMAX, D, quant=quant, device="cuda")
+    kvcache.update_cache(cache, kv[0], kv[1], assume_fits=True)
+    cache.length.copy_(length)
+    return cache
+
+
+def pool_of(cache: KVCache) -> paged.PagedKVCache:
+    """The int8 cache's content in a pool of PAGE-token pages, in order."""
+    maxp = SMAX // PAGE
+    pool = paged.init_paged_cache(B, HKV, B * maxp, PAGE, D, maxp, quant="int8",
+                                  device="cuda")
+    for i, n in enumerate(LENGTHS):
+        pages = list(range(i * maxp, (i + 1) * maxp))
+        row = KVCache(k=cache.k[i:i + 1], v=cache.v[i:i + 1], length=cache.length[i:i + 1],
+                      k_scale=cache.k_scale[i:i + 1], v_scale=cache.v_scale[i:i + 1])
+        paged.write_pages(pool, row, pages)
+        paged.set_block_table(pool, i, pages, n)
+    return pool
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--tag", default="", help="a label printed with the numbers")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0])
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    ms = {}
+    qd = torch.randn((B, HQ, D), generator=gen, device="cuda", dtype=torch.bfloat16)
+    for quant in (None, "int8", "fp8"):
+        cache = cache_of(quant, gen)
+        ms[f"decode_{quant or 'bf16'}"] = cuda_time_ms(lambda: decode.decode_attention(qd, cache))
+        if quant == "int8":
+            q256 = torch.randn((B, HQ, CHUNK, D), generator=gen, device="cuda",
+                               dtype=torch.bfloat16)
+            ms[f"decode_int8_t{CHUNK}"] = cuda_time_ms(
+                lambda: decode.decode_attention_chunk(q256, cache))
+            pool = pool_of(cache)
+            ms["paged_decode_int8"] = cuda_time_ms(
+                lambda: paged.paged_decode_attention(qd, pool))
+    w = torch.randn((K, N), generator=gen, device="cuda") * 0.02
+    for bits in (8, 4):
+        qw = quant_matmul.quantize_weights(w, bits)
+        for m in (4, 256):
+            x = torch.randn((m, K), generator=gen, device="cuda", dtype=torch.bfloat16)
+            ms[f"qmm{bits}_m{m}"] = cuda_time_ms(lambda: quant_matmul.quant_matmul(x, qw))
+    print(json.dumps({"tag": args.tag, "ms": ms}))
+
+
+if __name__ == "__main__":
+    main()

@@ -4,8 +4,11 @@ B5's dK/dV kernels) and qmm8/qmm4 (weight-only quantized matmuls) on the
 card, against their plain PyTorch versions on the same CUDA tensors, at the
 edges the smoke run does not reach: float32 inputs, rows that see no key, an
 empty sequence, a full cache, D=128, large GQA groups, long chunks (T 256),
-ragged lengths, pages of 64 and 256, qmm8 at M 1 to 1000 on both sides of
-the split-K/tensor-core boundary (M 16/17) with bf16 and float32 x, the
+ragged lengths, pages of 64 and 256, K2 bitwise deterministic and its
+int8 call alone on the card (no PyTorch kernel around its own two, under
+torch.profiler), qmm8 and qmm4 at M 1 to
+1024 on both sides of the split-K/tensor-core boundary (M 16/17) with bf16
+and float32 x, the
 wrappers' refusals, autograd through flash_attention, and small models on the card
 against the CPU. The bf16 backward's tensor-core tile also meets the
 training shape's GQA (Hq 32, Hkv 4) at S 1024 and a ragged S 1000 at D 128,
@@ -419,6 +422,46 @@ def test_quantized_decode_kernel_matches_plain(dev, quant, case):
             assert torch.equal(o[i], torch.zeros_like(o[i]))
 
 
+@pytest.mark.parametrize("quant", [None, "int8", "fp8"])
+@pytest.mark.parametrize("t", [1, 4])
+def test_decode_is_bitwise_deterministic(dev, quant, t):
+    """Two K2 calls give equal bits: each slice's warps merge in warp order
+    and the slices in split order, never by atomics."""
+    b, hq, hkv, d, s_max = 4, 32, 4, 64, 2048
+    lengths = [1, 77, 1500, 2048]
+    if quant is None:
+        cache = kvcache.KVCache(k=randn((b, hkv, s_max, d), torch.bfloat16, dev, 43),
+                                v=randn((b, hkv, s_max, d), torch.bfloat16, dev, 44),
+                                length=torch.tensor(lengths, dtype=torch.int32, device=dev))
+    else:
+        cache = quantized_cache(quant, b, hkv, s_max, d, lengths, dev, seed=43)
+    q = randn((b, hq, t, d), torch.bfloat16, dev, 45)
+    first = decode.decode_attention_chunk(q, cache)
+    second = decode.decode_attention_chunk(q, cache)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_int8_decode_launches_only_its_kernels(dev):
+    """One int8 K2 call at T 1 runs the port's kernels alone on the card:
+    q's quantization is inside the split kernel, so no PyTorch kernel (no
+    aten elementwise pass) runs before it or between it and the merge."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cache = quantized_cache("int8", 4, 4, 2048, 64, [1, 77, 1500, 2048], dev)
+    q = randn((4, 32, 64), torch.bfloat16, dev, 46)
+    decode.decode_attention(q, cache)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        decode.decode_attention(q, cache)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    assert kernels and "decode_mma_kernel" in kernels[0], kernels
+    assert all("decode_mma_kernel" in k or "decode_merge_kernel" in k for k in kernels), kernels
+
+
 def paged_copy(cache, page, dev, seed=50):
     """The dense cache's content in a pool of scrambled pages; table entries
     past each sequence's pages hold the sentinel num_pages."""
@@ -499,7 +542,8 @@ QMM_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 3200
 # qmm8: the split-K kernel up to M 16 (M 1, 4 and 16 take its three row
 # counts), the tensor cores above it in bf16 (17: one row past a tile; 1000:
 # a ragged last tile), the CUDA-core kernel for float32 x above it.
-QMM_BITS_M = [(8, m) for m in (1, 4, 16, 17, 64, 256, 1000)] + [(4, m) for m in (1, 7, 256)]
+QMM_BITS_M = ([(8, m) for m in (1, 4, 16, 17, 64, 256, 1000)]
+              + [(4, m) for m in (1, 4, 7, 16, 17, 256, 1024)])
 
 
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
@@ -522,13 +566,14 @@ def test_quant_matmul_kernel_matches_plain(dev, bits, m, kn, x_dtype):
     assert getattr(quant_matmul, counter) == before + 2
 
 
+@pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("m", [4, 256])
-def test_qmm8_is_bitwise_deterministic(dev, m):
-    """Two calls give equal bits: the split-K partial sums (M 4) are added
-    in split order, never by atomics, and the tensor-core tiles (M 256)
-    own their outputs."""
+def test_qmm8_is_bitwise_deterministic(dev, m, bits):
+    """Two calls give equal bits, for qmm8 and qmm4: the split-K partial
+    sums (M 4) are added in split order, never by atomics, and the
+    tensor-core tiles (M 256) own their outputs."""
     k, n = 2048, 5632
-    qw = quant_matmul.quantize_weights(randn((k, n), torch.float32, dev, 74) * 0.02, 8)
+    qw = quant_matmul.quantize_weights(randn((k, n), torch.float32, dev, 74) * 0.02, bits)
     x = randn((m, k), torch.bfloat16, dev, 75)
     first = quant_matmul.quant_matmul(x, qw)
     second = quant_matmul.quant_matmul(x, qw)

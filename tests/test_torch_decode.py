@@ -16,7 +16,7 @@ import torch
 
 from flashattn_tpu.ops import decode as jax_decode
 from flashattn_tpu.ops import kvcache as jax_kv
-from flashattn_tpu_torch.ops import decode, kvcache
+from flashattn_tpu_torch.ops import decode, kvcache, paged
 from flashattn_tpu_torch.utils.verify import verify_results
 
 # One intra-op thread: the suite's workers share the machine's cores, and
@@ -317,3 +317,36 @@ def test_prep_decode_q_matches_jax():
             np.testing.assert_array_equal(out_s.numpy(), np.asarray(ref_s))
         else:
             assert out_s is None and ref_s is None
+
+
+@pytest.mark.parametrize("b,hq,hkv,t,s_max,want", [
+    (4, 32, 4, 1, 2048, (256, 8)),  # the 4-slot decode step: 16 rows a CTA, 4 tiles at a time
+    (4, 32, 4, 256, 2048, (2048, 1)),  # a 256-token chunk: 32 row blocks of 64, one slice
+    (1, 32, 4, 128, 2048, (448, 5)),  # a prefix admission's 128-token suffix
+    (2, 8, 2, 1, 512, (256, 2)),
+    (4, 16, 2, 8, 1024, (64, 16)),  # 64 rows: one row block, tiles one at a time
+    (1, 4, 4, 3, 100, (256, 1)),  # Smax not a multiple of 64
+])
+def test_decode_split_rule(b, hq, hkv, t, s_max, want):
+    """K2's slices: each a multiple of the 64-position tiles a CTA takes at a
+    time (4 with up to 16 query rows a group, 1 above), covering Smax once,
+    about TARGET_CTAS CTAs where the cache is long enough; and a function of
+    the shapes alone, so a paged pool and a dense cache of one max_len take
+    the same slices."""
+    rows = (hq // hkv) * t
+    row_block, tiles = decode._layout(rows)
+    assert (row_block, tiles) == ((16, 4) if rows <= 16 else (64, 1))
+    got = decode._num_splits(b, hkv, rows, s_max)
+    assert got == want
+    split_len, splits = got
+    assert split_len % (decode.BLOCK_KV * tiles) == 0
+    assert (splits - 1) * split_len < s_max <= splits * split_len
+    ctas = b * hkv * -(-rows // row_block) * splits
+    assert ctas >= min(decode.TARGET_CTAS // 2, b * hkv * -(-rows // row_block)
+                       * -(-s_max // (decode.BLOCK_KV * tiles)))
+    page = 64
+    pool = paged.init_paged_cache(b, hkv, b * (-(-s_max // page)), page, 64,
+                                  -(-s_max // page), dtype=torch.float32, device="cpu")
+    dense = kvcache.init_cache(b, hkv, pool.max_len, 64, dtype=torch.float32, device="cpu")
+    assert (decode._num_splits(b, hkv, rows, pool.max_len)
+            == decode._num_splits(b, hkv, rows, dense.k.shape[2]))

@@ -121,3 +121,28 @@ def test_qmm8_split_rule(m, k, n, want):
         ctas = -(-n // qmm.SPLIT_COLS) * splits
         assert ctas >= min(k // qmm.K_MULTIPLE * -(-n // qmm.SPLIT_COLS),
                            qmm.SPLIT_CTAS_PER_SM * qmm.H100_SMS // 2)
+
+
+@pytest.mark.parametrize("m,k,n,want", [
+    (4, 2048, 5632, (64, 16)),  # gate/up at the decode batch: 1024 byte rows, 16 splits
+    (1, 2048, 256, (64, 16)),  # wk/wv: one 64-byte-row tile a split
+    (16, 2048, 32000, (256, 4)),  # the head: few splits, many column tiles
+    (4, 5632, 2048, (64, 44)),  # w_down: 2816 byte rows
+    (4, 64 * 3, 128, (64, 2)),  # K/2 = 96 byte rows: a last split of 32
+    (17, 2048, 5632, None),  # past the split-K kernel: one pass on the tensor cores
+    (1024, 2048, 5632, None),
+])
+def test_qmm4_split_rule(m, k, n, want):
+    """qmm4's split-K plan over its K/2 packed byte rows: splits a multiple
+    of 64 byte rows, covering them exactly once, the half-split x slice of a
+    split (twice its byte rows) within the shared memory of SPLIT_ROWS_MAX
+    columns, and about 8 CTAs an SM on an H100's 132 SMs; none above M 16."""
+    got = qmm.qmm4_split(m, k, n)
+    assert got == want
+    if got is not None:
+        rows, splits = got
+        assert rows % qmm.K_MULTIPLE == 0 and 2 * rows <= qmm.SPLIT_ROWS_MAX
+        assert (splits - 1) * rows < k // 2 <= splits * rows
+        ctas = -(-n // qmm.SPLIT_COLS) * splits
+        assert ctas >= min(-(-(k // 2) // qmm.K_MULTIPLE) * -(-n // qmm.SPLIT_COLS),
+                           qmm.SPLIT_CTAS_PER_SM * qmm.H100_SMS // 2)
