@@ -10,13 +10,18 @@ check:
 
 1. environment: torch/CUDA versions, the card's name and power limit, the
    kernels' build time and their compiler report (no spills in the
-   tensor-core kernels and the split-K kernel), and the tensor-core
-   instructions (HMMA/HGMMA/IMMA) in the SASS of each tensor-core kernel,
-   which must be there for the bf16 fused, dQ and dK/dV kernels, qmm8's
-   and qmm4's M > 16 kernels and every instantiation of K2's;
+   tensor-core kernels and the split-K kernel, no wgmma serialized), and
+   the tensor-core instructions (HMMA/HGMMA/IMMA) in the SASS of each
+   tensor-core kernel, which must be there for K1's bf16 kernel (HGMMA, at
+   D 64 and D 128), the bf16 fused, dQ and dK/dV kernels, qmm8's and qmm4's M > 16 kernels and every instantiation of
+   K2's;
 2. each kernel against its plain PyTorch version on the card, at the
    serving and training paths' shapes and at their edges (K1 also at every
-   backward case, where it makes the backward's O and LSE; K2 on int8 and
+   backward case, where it makes the backward's O and LSE, and timed at the
+   prefill, training and D 128 shapes; at D 128, B 4, S 16384 held against
+   its plain version on three slices of 256 q rows, two calls bitwise equal,
+   and timed with the plain version left out; SDPA's forward kernels at the
+   three shapes named by one profiler session; K2 on int8 and
    fp8 caches at T 1 and T 256; the paged K2 against the dense K2, bit for
    bit; qmm8 and qmm4 at M 1 to 1024 on LLAMA_1B's five projection shapes,
    two calls bitwise equal), with the tolerance printed beside each
@@ -141,32 +146,41 @@ def phase_environment() -> str:
         kernel = "?"
         for line in log.read_text().splitlines():
             entry = re.search(r"Compiling entry function '([^']+)'", line)
+            # ptxas serializes the wgmma of a function it cannot give the
+            # registers for: a kernel that runs, slowly.
+            check("wgmma.mma_async instructions are serialized" not in line,
+                  f"{lib}: {line.strip()}")
             if entry:
                 kernel = kernel_label(entry.group(1))
             elif "registers" in line or "spill" in line:
                 print(f"[env] ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
-                if "spill" in line and ("_mma_kernel" in kernel
+                if "spill" in line and ("mma_kernel" in kernel
                                         or kernel.startswith("qmm_splitk_kernel")):
                     check("0 bytes spill stores, 0 bytes spill loads" in line,
                           f"{kernel} spills: {line.strip()}")
     mma = {}
-    for lib in ("flash_bwd", "flash_bwd_fused", "quant_matmul", "decode"):
+    for lib in ("flash_fwd", "flash_bwd", "flash_bwd_fused", "quant_matmul", "decode"):
         for kernel, n in tensor_core_instructions(lib).items():
-            if "_mma_kernel" in kernel:
-                print(f"[env] SASS {kernel}: {n} tensor-core instructions (HMMA/HGMMA/IMMA)")
+            if "mma_kernel" in kernel:
+                print(f"[env] SASS {kernel}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA, "
+                      f"{n['IMMA']} IMMA")
                 mma[kernel] = n
-    families = {"flash_bwd": 6, "qmm_mma_kernel": 4, "decode_mma_kernel": 20}
+    families = {"flash_fwd_wgmma_kernel": 2, "flash_bwd": 6, "qmm_mma_kernel": 4,
+                "decode_mma_kernel": 20}
     counted = {f: sum(k.startswith(f) for k in mma) for f in families}
-    check(counted == families and all(mma.values()),
-          "the bf16 fused, dQ and dK/dV kernels (D 64 and 128), qmm8's and qmm4's M > 16 "
-          "kernels (bf16 and float32 y) and every K2 tensor-core instantiation (bf16, int8 "
-          f"and fp8 caches, D 64 and 128, both row layouts) must run on the tensor cores: {mma}")
+    check(counted == families and all(sum(n.values()) for n in mma.values()),
+          "K1's bf16 kernel (D 64 and D 128), the bf16 fused, dQ "
+          "and dK/dV kernels (D 64 and 128), qmm8's and qmm4's M > 16 kernels (bf16 and "
+          "float32 y) and every K2 tensor-core instantiation (bf16, int8 and fp8 caches, D 64 "
+          f"and 128, both row layouts) must run on the tensor cores: {mma}")
+    check(all(n["HGMMA"] for k, n in mma.items() if k.startswith("flash_fwd_wgmma_kernel")),
+          f"K1's bf16 kernel must run on wgmma (HGMMA): {mma}")
     return name
 
 
-def tensor_core_instructions(lib: str) -> dict[str, int]:
-    """Tensor-core instructions (HMMA, HGMMA, IMMA) in the SASS of each kernel
-    of a built library (cuobjdump beside nvcc)."""
+def tensor_core_instructions(lib: str) -> dict[str, dict[str, int]]:
+    """Tensor-core instructions (HMMA, HGMMA, IMMA) by kind in the SASS of
+    each kernel of a built library (cuobjdump beside nvcc)."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(lib))],
                           capture_output=True, text=True, check=True, timeout=300).stdout
@@ -175,9 +189,11 @@ def tensor_core_instructions(lib: str) -> dict[str, int]:
         entry = re.search(r"Function : (\S+)", line)
         if entry:
             kernel = kernel_label(entry.group(1))
-            counts[kernel] = 0
-        elif kernel is not None and re.search(r"\b(HG?MMA|IMMA)\.", line):
-            counts[kernel] += 1
+            counts[kernel] = dict.fromkeys(("HMMA", "HGMMA", "IMMA"), 0)
+        elif kernel is not None:
+            op = re.search(r"\b(HMMA|HGMMA|IMMA)\.", line)
+            if op:
+                counts[kernel][op.group(1)] += 1
     return counts
 
 
@@ -310,17 +326,8 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
     q = torch.randn((1, 32, s, 64), generator=gen, **bf16)
     k = torch.randn((1, 4, s, 64), generator=gen, **bf16)
     v = torch.randn((1, 4, s, 64), generator=gen, **bf16)
-    k1_ms = cuda_time_ms(lambda: flash_fwd.flash_attention_forward(q, k, v, True, need_lse=False))
-    k1_plain = cuda_time_ms(lambda: flash_fwd.flash_attention_forward_reference(
-        q, k, v, True, need_lse=False))
-    tf = attention_flops(1, 32, s, s, 64, True) / (k1_ms * 1e-3) / 1e12
-    print(f"[kernels] K1 B=1 Hq=32 Hkv=4 S={s} D=64 causal: kernel {k1_ms:.4f} ms "
-          f"({tf:.3f} TFLOP/s), plain {k1_plain:.4f} ms")
-    k1_lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
-    k1_bound = bound(nbytes(q, k, v, q), attention_flops(1, 32, s, s, 64, True),
-                     torch.bfloat16)
-    print(f"[kernels] K1 bound {k1_bound}, SDPA forward {k1_lib:.4f} ms")
+    k1_row = time_k1("prefill", q, k, v, need_lse=False)
+    k1_d128_err = d128_forward(gen)
     qd = torch.randn((b, hq, d), generator=gen, **bf16)
     k2_ms = cuda_time_ms(lambda: decode.decode_attention(qd, cache))
     k2_plain = cuda_time_ms(lambda: decode.decode_attention_reference(qd[:, :, None], cache))
@@ -337,9 +344,9 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
                      4.0 * hq * d * sum(lengths), torch.bfloat16)
     print(f"[kernels] K2 bound {k2_bound}, SDPA with a length mask {k2_lib:.4f} ms")
     backward, k1_bwd_err = backward_kernels(gen)
+    sdpa_forward_kernels(gen)
     timed = {
-        "flash_fwd": dict(max_abs_err=max(k1_err, k1_bwd_err), ms=k1_ms, plain_ms=k1_plain,
-                          library_ms=k1_lib, **k1_bound),
+        "flash_fwd": dict(max_abs_err=max(k1_err, k1_d128_err, k1_bwd_err), **k1_row),
         "decode": dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain,
                        library_ms=k2_lib, **k2_bound),
     }
@@ -348,6 +355,98 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
     timed.update(paged_decode_kernel(gen))
     timed.update(quant_matmul_kernels(gen))
     return timed
+
+
+# K1's three timed shapes (B, Hq, Hkv, S, D), all causal: the serving
+# prefill, the LLAMA_1B training forward, and D 128 at 16k tokens.
+K1_SHAPES = {"prefill": (1, 32, 4, 256, 64), "D=128 headline": (4, 8, 8, 16384, 128),
+             "training shape": (4, 32, 4, 2048, 64)}
+
+
+def sdpa_forward_kernels(gen: torch.Generator) -> None:
+    """Names the kernels SDPA's forward runs at each of K1's timed shapes:
+    one torch.profiler session over the three calls (a second session in
+    one process may record no device event), device events in launch order;
+    fails if a call shows no compute kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    inputs = {tag: [randn((b, h, s, d), gen) for h in (hq, hkv, hkv)]
+              for tag, (b, hq, hkv, s, d) in K1_SHAPES.items()}
+
+    def run():
+        for q, k, v in inputs.values():
+            F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+        torch.cuda.synchronize()
+
+    run()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
+                    key=lambda e: e.time_range.start)
+    names = [e.name for e in events]
+    print(f"[kernels] SDPA forward kernels at K1's shapes ({', '.join(K1_SHAPES)}, in "
+          f"launch order; one profiler session): {names}")
+    check(sum("memset" not in n.lower() for n in names) >= len(K1_SHAPES),
+          f"the profiler shows no compute kernel for some SDPA forward call: {names}")
+
+
+def time_k1(tag: str, q, k, v, need_lse: bool, plain: bool = True, few=None) -> dict:
+    """K1 (causal, S_q = S_k) timed on the card beside its bound, its plain
+    version (unless `plain` is False) and SDPA's forward; the JSON line's
+    fields."""
+    few = few or {}
+    b, hq, s, d = q.shape
+    ms = cuda_time_ms(lambda: flash_fwd.flash_attention_forward(q, k, v, True,
+                                                                need_lse=need_lse), **few)
+    plain_ms = cuda_time_ms(lambda: flash_fwd.flash_attention_forward_reference(
+        q, k, v, True, need_lse=need_lse), warmup=1, iters=2, reps=3) if plain else None
+
+    lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), **few)
+    flops = attention_flops(b, hq, s, s, d, True)
+    out_bytes = nbytes(q) + (4 * b * hq * s if need_lse else 0)
+    lim = bound(nbytes(q, k, v) + out_bytes, flops, q.dtype)
+    print(f"[kernels] K1 {tag} B={b} Hq={hq} Hkv={k.shape[1]} S={s} D={d} causal "
+          f"{'with' if need_lse else 'without'} LSE: kernel {ms:.4f} ms "
+          f"({flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s), bound {lim['bound_ms']:.5f} ms by "
+          f"{lim['bound_by']}, plain "
+          + (f"{plain_ms:.4f} ms" if plain else "left out (its score matrix would take "
+             f"{4.0 * b * hq * s * s / 1e9:.0f} GB)")
+          + f", SDPA forward {lib_ms:.4f} ms ({flops / (lib_ms * 1e-3) / 1e12:.2f} TFLOP/s)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **lim)
+
+
+def d128_forward(gen: torch.Generator) -> float:
+    """K1 at D 128, B 4, Hq = Hkv = 8, S 16384, causal, with the LSE (the
+    source repository's headline forward shape): three slices of 256 q rows
+    (the first, the middle and the last, whose kv loops turn the K/V ring
+    most) against the plain version on the same keys, the rows' global
+    position passed as pos_offset; the whole output finite, two calls
+    bitwise equal, and timed with the plain version left out (its score
+    matrix would not fit). Returns the largest O error."""
+    b, h, hkv, s, d = K1_SHAPES["D=128 headline"]
+    q, k, v = (randn((b, n, s, d), gen) for n in (h, hkv, hkv))
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, True)
+    o2, lse2 = flash_fwd.flash_attention_forward(q, k, v, True)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all()),
+          "K1 D=128 S=16384: non-finite output")
+    check(torch.equal(o, o2) and torch.equal(lse, lse2), "K1 D=128 S=16384: two calls differ")
+    print("[kernels] K1 D=128 S=16384: O and LSE finite, two calls bitwise equal")
+    err, rows = 0.0, 256
+    for r0 in (0, s // 2 - rows // 2, s - rows):
+        o_ref, lse_ref = flash_fwd.flash_attention_forward_reference(
+            q[:, :, r0:r0 + rows], k, v, True, pos_offset=r0)
+        tag = f"K1 B={b} Hq={h} Hkv={hkv} S={s} D={d} causal, q rows [{r0}, {r0 + rows})"
+        err = max(err, _gate(tag + " O", o_ref, o[:, :, r0:r0 + rows], O_ATOL))
+        _gate(tag + " LSE", lse_ref, lse[:, :, r0:r0 + rows], LSE_ATOL)
+        del o_ref, lse_ref
+    del o, o2, lse, lse2
+    time_k1("D=128 headline", q, k, v, need_lse=True, plain=False,
+            few=dict(warmup=1, iters=3, reps=3))
+    return err
 
 
 def randn(shape, gen, dtype=torch.bfloat16) -> torch.Tensor:
@@ -667,7 +766,6 @@ def time_backward(q, k, v, o, do, lse):
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     o_lib = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
     lib_ms = event_time_ms(lambda: torch.autograd.grad(o_lib, leaves, do, retain_graph=True))
-    k1_ms = cuda_time_ms(lambda: flash_fwd.flash_attention_forward(q, k, v, True), **few)
     fwd = attention_flops(b, hq, s, s, d, True)
     ins = nbytes(q, k, v, o, do, lse)
     grads = nbytes(q, k, v)
@@ -685,8 +783,7 @@ def time_backward(q, k, v, o, do, lse):
               f"by {lim['bound_by']}, plain backward {plain_ms:.4f} ms, SDPA backward "
               f"{lib_ms:.4f} ms")
         out.append(dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **lim))
-    print(f"[kernels] K1 with LSE {shape}: {k1_ms:.4f} ms "
-          f"({fwd / (k1_ms * 1e-3) / 1e12:.2f} TFLOP/s)")
+    time_k1("training shape", q, k, v, need_lse=True, few=few)
     return out
 
 

@@ -8,32 +8,57 @@
 // The TPU's two grid shapes, its wavefront meta arrays, h_fuse and the
 // ones-column row sum are Mosaic designs and are not carried over.
 //
-// What bounds it on the card: at the serving path's prefill shapes
-// (S <= a few hundred, D = 64) the work per (q tile, head) is a few MFLOP,
-// so the kernel is bound by latency (tile loads, a short kv loop, launch)
-// more than by HBM (Q, K, V and O are read or written once per tile) or by
-// the tensor cores' rate.
+// What bounds it on the card: at the training shape (B 4, Hq 32, S 2048,
+// D 64, causal) a call is 69 GFLOP against 67 MB of q, k, v and O, so the
+// bf16 tensor cores bound it (0.07 ms at 989 TFLOP/s). At D 64 the softmax
+// costs as much as the products: each kv tile of a 64-row warpgroup is
+// 2 MFLOP on the tensor cores and 8192 exponentials on the SM's 16-a-clock
+// special-function units, about 1024 clocks each, so the kernel can reach
+// the tensor cores' rate only as far as the two overlap. What else keeps it
+// from that rate: tile copies the products wait for, and a CTA's prologue
+// (Q's copy, the first K tile) and epilogue (O's stores), which no product
+// of that CTA covers. At the serving path's prefill shapes (S <= a few
+// hundred) a CTA's work is a few MFLOP and that latency bounds it.
 //
-// What the design does about it: one CTA per (64-row q tile, q head, batch)
-// keeps Q resident and streams 64-column K/V tiles through shared memory,
-// each thread issuing all its 16-byte loads of a tile at once; the kv loop
-// stops at the causal bound of the tile's last row, so a causal call does
-// about half the work of a full one. bf16 runs on the tensor cores
-// (mma.sync m16n8k16, fp32 accumulate): each of 4 warps owns 16 q rows and
-// keeps its Q fragments, S and O in registers; P goes from the S
-// accumulators to the A operand of P.V without touching shared memory, and
-// V is stored transposed so every B fragment is one 32-bit load. float32
-// runs a CUDA-core kernel: four threads per q row, each computing 16 logits
-// of the tile and D/4 output columns. Both use the exp2 domain with
-// scale*log2(e) folded in, fp32 (m, l) and accumulators, and round P to the
-// input dtype for P.V as the TPU kernel feeds its MXU. wgmma/TMA tiles and
-// a persistent schedule are later work.
+// What the design does about it (flash_fwd_wgmma_kernel, bf16): a CTA owns
+// a q tile of 64 rows (one consumer warpgroup) at D 64 and of 128 rows (two)
+// at D 128. At D 64 three 64-row CTAs share an SM, so one CTA's prologue,
+// epilogue and softmax run under another's products; at D 128 a CTA has an
+// SM to itself and its two warpgroups share each K/V tile. One producer warp
+// copies Q once and the 128-column K and V tiles of the kv loop by TMA into
+// a two-stage ring with 128-byte swizzle (3-D tensor maps, so the ragged
+// last tile of a head reads zeros, not the next head), signalling
+// full/empty mbarriers; the next tile's copy runs under the current tile's
+// products. Both products run on wgmma with fp32 accumulators: S = Q K^T
+// (m64n128k16, Q and K from shared memory, K-major), then P stays in
+// registers, rounded to bf16 pairwise (the S accumulator layout is the
+// register A-fragment layout), and O += P V (m64nDk16) reads V's row-major
+// [keys][D] tile as an MN-major B operand, so V is never transposed. The kv
+// loop runs from the last tile down: the at most two tiles that straddle the
+// causal bound or S_k come first and are masked, every later tile is seen
+// whole by every row of the warpgroup and runs no mask code. q tiles are
+// dispatched heaviest first (the grid's slow axis walks them in descending
+// kv extent), so the short causal tiles fill the tail. No atomics: two
+// calls give the same bits. The softmax uses the exp2 domain (row max of
+// the raw scores, one FFMA and one MUFU.EX2 per exponent), fp32 (m, l),
+// masked scores of -inf with a zero max for rows that have seen no key yet,
+// so rows that see no key end with l = 0: O = 0, LSE = -inf. Measured and
+// not kept (PERF.md, section 6): issuing the next tile's S with this tile's P V
+// so the softmax overlaps it, alone or with two warpgroups taking turns on
+// the tensor cores, and a three-stage ring.
+//
+// float32 runs a CUDA-core kernel (flash_fwd_kernel): four threads per q
+// row, each computing 16 logits of the tile and D/4 output columns, P
+// rounded to the input dtype for P.V as the TPU kernel feeds its MXU.
+#include <cuda.h>  // CUtensorMap and its enums: declarations only, libcuda is not linked
+
 #include "common.cuh"
 
 namespace {
 
 using fat::kMaskValue;
 
+// float32 kernel: 64-row q tiles, 64-column kv tiles, 256 threads.
 constexpr int kBlockM = 64;   // q rows per CTA
 constexpr int kBlockN = 64;   // kv columns per tile
 constexpr int kThreads = 256;
@@ -47,10 +72,12 @@ constexpr size_t smem_bytes() {
                           kBlockM * (kBlockN + 1));
 }
 
-// Columns [0, kv_limit) can be visible to some row of the q tile at q0.
-__device__ __forceinline__ int kv_limit(int q0, int Sq, int Sk, int is_causal, int offset) {
+// Columns [0, kv_limit) can be visible to some row of the block_m-row q
+// tile at q0.
+__device__ __forceinline__ int kv_limit(int q0, int block_m, int Sq, int Sk, int is_causal,
+                                        int offset) {
   if (!is_causal) return Sk;
-  const int last_row = min(q0 + kBlockM, Sq) - 1;
+  const int last_row = min(q0 + block_m, Sq) - 1;
   return max(0, min(Sk, last_row + offset + 1));
 }
 
@@ -84,7 +111,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   fat::load_tile<float, kBlockM, D, kThreads>(q + q_base + static_cast<size_t>(q0) * D,
                                               Sq - q0, qs, DP, scale_log2);
-  const int kv_end = kv_limit(q0, Sq, Sk, is_causal, offset);
+  const int kv_end = kv_limit(q0, kBlockM, Sq, Sk, is_causal, offset);
 
   float m = kMaskValue, l = 0.f;
   float acc[kDimsPerThread];
@@ -161,205 +188,410 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---- bf16: tensor cores (mma.sync m16n8k16, fp32 accumulate) ----
+// ---- bf16: wgmma, a TMA-fed K/V ring, one or two consumer warpgroups ----
 
-constexpr int kMmaThreads = 128;  // 4 warps, 16 q rows each
-constexpr int kVtPad = kBlockN + 8;  // Vt row stride (bf16): conflict-free fragments
-static_assert(kBlockM == kBlockN, "load_bf16_tile copies kBlockN rows, and loads Q tiles too");
-
-template <int D>
-constexpr size_t mma_smem_bytes() {
-  // qs [BM][D+8], ks [BN][D+8], vt [D][BN+8], all bf16.
-  return sizeof(__nv_bfloat16) * (kBlockM * (D + 8) + kBlockN * (D + 8) + D * kVtPad);
-}
-
-using fat::mma_16816;
 using fat::pack_bf16;
+using fat::smem_addr;
 
-// Two bf16 at an even element index, as one 32-bit fragment register.
-__device__ __forceinline__ unsigned ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
+constexpr int kTileN = 128;  // kv columns per tile
+constexpr int kAtom = 64;    // bf16 columns of one 128-byte swizzle atom
+constexpr int kStages = 2;   // K/V ring depth
+
+// Shared memory of the kernel with kConsumers warpgroups of 64 q rows. Each
+// operand tile is stored as D/64 column atoms of [rows][64] bf16, 128-byte
+// rows swizzled as TMA's SWIZZLE_128B writes them; every atom starts on a
+// 1024-byte boundary, as the swizzle pattern repeats every 8 rows.
+template <int D, int kConsumers>
+struct FwdLayout {
+  static constexpr int kBlockM = 64 * kConsumers;
+  static constexpr int kQBytes = kBlockM * D * 2;
+  static constexpr int kTileBytes = kTileN * D * 2;  // one K or V tile
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kQBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  // mbarriers, 8 bytes each: Q's, then K's and V's full and the stages' empty ones.
+  static constexpr int kQFull = kV + kStages * kTileBytes;
+  static constexpr int kKFull = kQFull + 8;
+  static constexpr int kVFull = kKFull + 8 * kStages;
+  static constexpr int kEmpty = kVFull + 8 * kStages;
+  static constexpr int kBytes = kEmpty + 8 * kStages + 1024;  // + the base's alignment
+  // + a producer warpgroup beside two consumer warpgroups; one consumer
+  // warpgroup is its own producer, so three 4-warp CTAs share an SM at D 64
+  // with 168 registers a thread (see flash_fwd_wgmma_kernel).
+  static constexpr int kThreads = kConsumers == 2 ? 384 : 128;
+};
+
+// Shared memory is addressed by 32-bit shared-window addresses throughout
+// (two registers fewer than a generic pointer each).
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Wait until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
 }
 
-// Copy rows [0, n_rows) of a contiguous [kBlockN][D] bf16 tile into shared
-// memory with row stride D+8 (zero rows past n_rows), or, when kTranspose,
-// into dst[d][row] with row stride kVtPad. All 16-byte loads of a thread
-// are issued before any store.
-template <int D, bool kTranspose>
-__device__ __forceinline__ void load_bf16_tile(const __nv_bfloat16* __restrict__ src,
-                                               int n_rows, __nv_bfloat16* __restrict__ dst) {
-  constexpr int kChunksPerRow = D / 8;
-  constexpr int kPerThread = kBlockN * kChunksPerRow / kMmaThreads;
-  uint4 raw[kPerThread];
+// 2^x in one MUFU instruction (denormal results flush to 0; -inf gives 0).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One [rows][64] bf16 box of a 3-D tensor map (D, S, B*H) at (d0, row0,
+// head) into shared memory, completing on `bar`; rows past S read zeros.
+__device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap* map, unsigned bar,
+                                         int d0, int row0, int head) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(row0), "r"(head)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand at addr: start
+// address, leading byte offset (K-major: unused; MN-major: the stride from
+// one 64-column atom to the next), stride byte offset 1024 (8 rows of 128
+// bytes), layout SWIZZLE_128B.
+__device__ __forceinline__ uint64_t sw128_desc(unsigned addr, unsigned lbo_bytes) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>(lbo_bytes >> 4) << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving reads or writes of accumulators across an
+// asynchronous product's issue and wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int c = threadIdx.x + j * kMmaThreads;
-    raw[j] = make_uint4(0u, 0u, 0u, 0u);
-    if (c / kChunksPerRow < n_rows) raw[j] = __ldg(reinterpret_cast<const uint4*>(src) + c);
-  }
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int c = threadIdx.x + j * kMmaThreads;
-    const int row = c / kChunksPerRow, col = (c % kChunksPerRow) * 8;
-    if (kTranspose) {
-      const unsigned w[4] = {raw[j].x, raw[j].y, raw[j].z, raw[j].w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {  // element 2i is the low half of word i
-        dst[(col + 2 * i) * kVtPad + row] = __ushort_as_bfloat16(w[i] & 0xffffu);
-        dst[(col + 2 * i + 1) * kVtPad + row] = __ushort_as_bfloat16(w[i] >> 16);
-      }
-    } else {
-      *reinterpret_cast<uint4*>(dst + row * (D + 8) + col) = raw[j];
-    }
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define FA_D8(i)                                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define FA_D32 FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24)
+#define FA_D64 FA_D32, FA_D8(32), FA_D8(40), FA_D8(48), FA_D8(56)
+#define FA_R32                                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define FA_R64                                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "  \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "  \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d (64 x 128, fp32) = (accumulate ? d : 0) + A (64 x 16) . B (16 x 128),
+// A and B bf16 in shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FA_R64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : FA_D64
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x N, fp32) += A (64 x 16, bf16 fragments in registers) . B (16 x N),
+// B bf16 in shared memory, MN-major (the transpose bit).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const unsigned (&a)[4], uint64_t b) {
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FA_R32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : FA_D32
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  } else {
+    static_assert(N == 128, "O is 64 or 128 columns wide");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FA_R64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : FA_D64
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 }
 
-// Same contract as flash_fwd_kernel, for bf16. Warp w owns q rows
-// [16w, 16w+16) of the tile. Per kv tile it computes S = Q K^T into 8
-// accumulator fragments (16 x 64, fp32), scales and masks S in registers,
-// runs the online softmax on its two rows per thread (quad shuffles), and
-// feeds P straight from the S fragments, rounded to bf16, as the A operand
-// of P V. V is stored transposed in shared memory so that every B fragment
-// is a 32-bit load.
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                     float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk, int is_causal,
-                     int offset, float scale_log2) {
-  constexpr int KP = D + 8;
-  constexpr int kSteps = D / 16;     // k-steps of S = Q K^T
-  constexpr int kOutTiles = D / 8;   // n-tiles of O
-  constexpr int kSTiles = kBlockN / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + kBlockM * KP;
-  __nv_bfloat16* vt = ks + kBlockN * KP;
+#undef FA_D8
+#undef FA_D32
+#undef FA_D64
+#undef FA_R32
+#undef FA_R64
 
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, tig = lane % 4;  // fragment row group, thread in group
-  const int q0 = blockIdx.x * kBlockM;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const size_t q_base = (static_cast<size_t>(b) * Hq + h) * Sq * D;
-  const size_t kv_base = (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
-  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-
-  load_bf16_tile<D, false>(q + q_base + static_cast<size_t>(q0) * D, Sq - q0, qs);
-  __syncthreads();
-  unsigned qf[kSteps][4];
-  {
-    const __nv_bfloat16* qw = qs + (warp * 16 + g) * KP + tig * 2;
+// The copies a CTA's producer issues (one thread): Q's tile once, and the K
+// and V tiles of kv iteration `it` (the loop runs from the last tile down)
+// into stage it % kStages, each completing on its full barrier.
+template <int D, int kConsumers>
+__device__ __forceinline__ void load_q(unsigned smem, const CUtensorMap* q_map, int q0, int bh) {
+  using L = FwdLayout<D, kConsumers>;
+  mbar_expect_tx(smem + L::kQFull, L::kQBytes);
 #pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk) {
-      qf[kk][0] = ld_pair(qw + kk * 16);
-      qf[kk][1] = ld_pair(qw + 8 * KP + kk * 16);
-      qf[kk][2] = ld_pair(qw + kk * 16 + 8);
-      qf[kk][3] = ld_pair(qw + 8 * KP + kk * 16 + 8);
+  for (int a = 0; a < D / kAtom; ++a)
+    tma_load(smem + L::kQ + a * L::kBlockM * 128, q_map, smem + L::kQFull, a * kAtom, q0, bh);
+}
+template <int D, int kConsumers>
+__device__ __forceinline__ void load_kv(unsigned smem, const CUtensorMap* k_map,
+                                        const CUtensorMap* v_map, int it, int n_tiles,
+                                        int kv_head) {
+  using L = FwdLayout<D, kConsumers>;
+  const int s = it % kStages;
+  const int n0 = (n_tiles - 1 - it) * kTileN;
+  const unsigned k_full = smem + L::kKFull + 8 * s, v_full = smem + L::kVFull + 8 * s;
+  mbar_expect_tx(k_full, L::kTileBytes);
+#pragma unroll
+  for (int a = 0; a < D / kAtom; ++a)
+    tma_load(smem + L::kK + s * L::kTileBytes + a * kTileN * 128, k_map, k_full, a * kAtom, n0,
+             kv_head);
+  mbar_expect_tx(v_full, L::kTileBytes);
+#pragma unroll
+  for (int a = 0; a < D / kAtom; ++a)
+    tma_load(smem + L::kV + s * L::kTileBytes + a * kTileN * 128, v_map, v_full, a * kAtom, n0,
+             kv_head);
+}
+
+// One consumer warpgroup's q rows of the tile at q0: the kv loop over the
+// ring's stages, then O and the LSE written from registers. With one
+// consumer warpgroup its thread 0 is also the producer: it refills the
+// stage the previous tile released while the tensor cores run the next
+// S product (k_map and v_map are used only then).
+template <int D, int kConsumers>
+__device__ __forceinline__ void consume(unsigned smem, const CUtensorMap* k_map,
+                                        const CUtensorMap* v_map, __nv_bfloat16* __restrict__ o,
+                                        float* __restrict__ lse, int bh, int kv_head, int q0,
+                                        int n_tiles, int Sq, int Sk, int is_causal, int offset,
+                                        float scale_log2) {
+  using L = FwdLayout<D, kConsumers>;
+  const unsigned k_full = smem + L::kKFull, v_full = smem + L::kVFull, empty = smem + L::kEmpty;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // Consumer warpgroup wg. Accumulator element 4j + 2i + e of a thread sits
+  // at row row0 + 8i and column 8j + 2t + e of its 64-row product.
+  const int wg = warp / 4;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = q0 + 64 * wg + 16 * (warp % 4) + g;
+  const unsigned q_s = smem + L::kQ + wg * 64 * 128;
+  // Every row of this warpgroup sees columns [0, full_end): tiles below it
+  // need no mask. The kv loop takes the masked tiles first.
+  const int wg_row = q0 + 64 * wg;
+  const int full_end = is_causal ? max(0, min(Sk, wg_row + offset + 1)) : Sk;
+  const int n_masked = n_tiles - min(n_tiles, full_end / kTileN);
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  if (n_tiles > 0) mbar_wait(smem + L::kQFull, 0);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages;
+    const unsigned phase = (it / kStages) & 1;
+    const int n0 = (n_tiles - 1 - it) * kTileN;
+
+    // S = Q K^T (64 x 128 per warpgroup), raw scores.
+    float sc[kTileN / 2];
+    const unsigned k_s = smem + L::kK + s * L::kTileBytes;
+    mbar_wait(k_full + 8 * s, phase);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int a = kk / 4, col = (kk % 4) * 32;  // atom, byte column of the 16-wide k slice
+      wgmma_ss_n128(sc, sw128_desc(q_s + a * L::kBlockM * 128 + col, 16),
+                    sw128_desc(k_s + a * kTileN * 128 + col, 16), kk > 0);
     }
-  }
-  const int kv_end = kv_limit(q0, Sq, Sk, is_causal, offset);
-
-  float m[2] = {kMaskValue, kMaskValue}, l[2] = {0.f, 0.f};
-  float acc[kOutTiles][4];
-#pragma unroll
-  for (int n = 0; n < kOutTiles; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int n0 = 0; n0 < kv_end; n0 += kBlockN) {
-    __syncthreads();  // previous tile consumed
-    const size_t tile = kv_base + static_cast<size_t>(n0) * D;
-    load_bf16_tile<D, false>(k + tile, kv_end - n0, ks);
-    load_bf16_tile<D, true>(v + tile, kv_end - n0, vt);
-    __syncthreads();
-
-    float s[kSTiles][4];
-#pragma unroll
-    for (int j = 0; j < kSTiles; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const __nv_bfloat16* kr = ks + (j * 8 + g) * KP + tig * 2;
-#pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk)
-        mma_16816(s[j], qf[kk], ld_pair(kr + kk * 16), ld_pair(kr + kk * 16 + 8));
+    wgmma_commit();
+    if constexpr (kConsumers == 1) {
+      // Refill the stage the previous tile released, under this S product.
+      const int next = it - 1 + kStages;
+      if (threadIdx.x == 0 && it > 0 && next < n_tiles) {
+        mbar_wait(empty + 8 * (next % kStages), ((it - 1) / kStages) & 1);
+        load_kv<D, kConsumers>(smem, k_map, v_map, next, n_tiles, kv_head);
+      }
+      __syncwarp();  // warp 0 reconverges before the warpgroup-wide wait
     }
+    wgmma_wait_all();
+    fence_regs(sc);
 
-    // Element e of fragment j sits at row row0 + 8*(e/2), column
-    // n0 + 8j + 2*tig + e%2.
-    unsigned live = 0;
-    float mx[2] = {kMaskValue, kMaskValue};
+    if (it < n_masked) {  // the tiles that straddle the causal bound or S_k
 #pragma unroll
-    for (int j = 0; j < kSTiles; ++j) {
+      for (int i = 0; i < 2; ++i) {
+        const int r = row0 + 8 * i;
+        const int seen = is_causal ? min(Sk, r + offset + 1) : Sk;  // columns < seen
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n0 + j * 8 + tig * 2 + (e & 1);
-        const int r = row0 + (e >> 1) * 8;
-        if (c < kv_end && (!is_causal || c <= r + offset)) {
-          live |= 1u << (j * 4 + e);
-          s[j][e] *= scale_log2;
-          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-        }
+        for (int j = 0; j < kTileN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (n0 + 8 * j + 2 * t + e >= seen) sc[4 * j + 2 * i + e] = -CUDART_INF_F;
       }
     }
-    float alpha[2], psum[2] = {0.f, 0.f};
+
+    // Online softmax on this thread's two rows (a row spans a quad).
+    float alpha[2], m_scaled[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      alpha[i] = exp2f(m[i] - m_new);
-      m[i] = m_new;
-    }
+      float mx = m[i];
 #pragma unroll
-    for (int j = 0; j < kSTiles; ++j) {
+      for (int j = 0; j < kTileN / 8; ++j)
+        mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * i], sc[4 * j + 2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // A row that has seen no key yet keeps max -inf: exponents against 0
+      // then give p = 0 and alpha = 0, never NaN.
+      m_scaled[i] = mx == -CUDART_INF_F ? 0.f : mx * scale_log2;
+      alpha[i] = exp2_ftz(m[i] * scale_log2 - m_scaled[i]);
+      m[i] = mx;
+    }
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kTileN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = (live >> (j * 4 + e)) & 1u ? exp2f(s[j][e] - m[e >> 1]) : 0.f;
-        psum[e >> 1] += p;
-        s[j][e] = p;
+        const int i = e / 2;
+        sc[4 * j + e] = exp2_ftz(fmaf(sc[4 * j + e], scale_log2, -m_scaled[i]));
+        psum[i] += sc[4 * j + e];
       }
-    }
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 1);
-      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 2);
-      l[i] = alpha[i] * l[i] + psum[i];
-    }
+    for (int i = 0; i < 2; ++i) l[i] = alpha[i] * l[i] + psum[i];  // this thread's columns
 #pragma unroll
-    for (int n = 0; n < kOutTiles; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
+    for (int j = 0; j < D / 8; ++j) {
+      acc[4 * j] *= alpha[0];
+      acc[4 * j + 1] *= alpha[0];
+      acc[4 * j + 2] *= alpha[1];
+      acc[4 * j + 3] *= alpha[1];
+    }
+    // P rounded to bf16, as register A fragments: k slice kk is columns
+    // [16kk, 16kk + 16), accumulator tiles 2kk and 2kk + 1.
+    unsigned pa[kTileN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kTileN / 16; ++kk) {
+      pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
     }
 
-    // O += P V, one 16-column slice of P per k-step.
+    // O += P V: V's [keys][D] tile as an MN-major B operand, 16 keys (2048
+    // bytes) a k slice, its 64-column atoms kTileN * 128 bytes apart.
+    const unsigned v_s = smem + L::kV + s * L::kTileBytes;
+    mbar_wait(v_full + 8 * s, phase);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      const unsigned pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < kOutTiles; ++n) {
-        const __nv_bfloat16* vr = vt + (n * 8 + g) * kVtPad + kk * 16 + tig * 2;
-        mma_16816(acc[n], pa, ld_pair(vr), ld_pair(vr + 8));
-      }
-    }
+    for (int kk = 0; kk < kTileN / 16; ++kk)
+      wgmma_rs<D>(acc, pa[kk], sw128_desc(v_s + kk * 16 * 128, kTileN * 128));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);  // this warp is done with stage s
   }
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int r = row0 + 8 * i;
     if (r >= Sq) continue;
     // A row that saw no key has l == 0 and acc == 0: O = 0, LSE = -inf.
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    __nv_bfloat16* orow = o + q_base + static_cast<size_t>(r) * D + tig * 2;
+    __nv_bfloat16* orow = o + (static_cast<size_t>(bh) * Sq + r) * D + 2 * t;
 #pragma unroll
-    for (int n = 0; n < kOutTiles; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
-          __floats2bfloat162_rn(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
-    if (lse != nullptr && tig == 0)
-      lse[(static_cast<size_t>(b) * Hq + h) * Sq + r] =
-          l[i] > 0.f ? (m[i] + log2f(l[i])) * fat::kLn2 : -CUDART_INF_F;
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
+    if (lse != nullptr && t == 0)
+      lse[static_cast<size_t>(bh) * Sq + r] =
+          l[i] > 0.f ? (m[i] * scale_log2 + log2f(l[i])) * fat::kLn2 : -CUDART_INF_F;
+  }
+}
+
+// bf16 K1. Grid (B*Hq, q tiles), the q tile index descending along y so
+// the tiles with the most kv columns start first. Warpgroup w < kConsumers
+// owns q rows [q0 + 64w, +64); with two of them a third warpgroup is the
+// producer, whose first thread issues every TMA copy, and with one its
+// thread 0 issues them between its products. Same contract as
+// flash_fwd_kernel.
+template <int D, int kConsumers>
+__global__ void __launch_bounds__(FwdLayout<D, kConsumers>::kThreads,
+                                  kConsumers == 1 ? 3 : 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk, int is_causal,
+                       int offset, float scale_log2) {
+  using L = FwdLayout<D, kConsumers>;
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned smem = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const unsigned q_full = smem + L::kQFull, k_full = smem + L::kKFull,
+                 v_full = smem + L::kVFull, empty = smem + L::kEmpty;
+
+  const int bh = blockIdx.x;  // b * Hq + h
+  const int kv_head = (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * L::kBlockM;
+  const int n_tiles = (kv_limit(q0, L::kBlockM, Sq, Sk, is_causal, offset) + kTileN - 1) / kTileN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * kConsumers);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if constexpr (kConsumers == 1) {
+    // Thread 0 fills the ring, then refills it from inside the kv loop.
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      load_q<D, kConsumers>(smem, &q_map, q0, bh);
+      for (int it = 0; it < min(kStages, n_tiles); ++it)
+        load_kv<D, kConsumers>(smem, &k_map, &v_map, it, n_tiles, kv_head);
+    }
+    consume<D, kConsumers>(smem, &k_map, &v_map, o, lse, bh, kv_head, q0, n_tiles, Sq, Sk,
+                           is_causal, offset, scale_log2);
+  } else if (threadIdx.x >= 128 * kConsumers) {
+    // Producer warpgroup: Q once, then K and V tile by tile, last tile
+    // first. It hands its registers to the consumers (setmaxnreg): 12 warps
+    // at launch leave 168 a thread, too few for a 64 x 128 O and a 64 x 128
+    // S at D 128.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 128 * kConsumers && n_tiles > 0) {
+      load_q<D, kConsumers>(smem, &q_map, q0, bh);
+      for (int it = 0; it < n_tiles; ++it) {
+        mbar_wait(empty + 8 * (it % kStages), ((it / kStages) & 1) ^ 1);  // round 0 passes at once
+        load_kv<D, kConsumers>(smem, &k_map, &v_map, it, n_tiles, kv_head);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    consume<D, kConsumers>(smem, &k_map, &v_map, o, lse, bh, kv_head, q0, n_tiles, Sq, Sk,
+                           is_causal, offset, scale_log2);
   }
 }
 
@@ -377,17 +609,70 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, voi
   return cudaGetLastError();
 }
 
-template <int D>
+
+// cuTensorMapEncodeTiled, a libcuda function, through the runtime's entry
+// point query: the library links nothing but the CUDA runtime.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) {
+      cudaGetLastError();
+      p = nullptr;
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A 3-D map (D, rows, heads) of a contiguous bf16 [heads][rows][D] tensor,
+// boxes of [box_rows][64] with 128-byte swizzle; reads past `rows` give 0.
+cudaError_t make_map(CUtensorMap* map, const void* base, int d, int rows, int heads,
+                     int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(rows) * d * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kAtom), static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D, int kConsumers>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
                         int B, int Hq, int Hkv, int Sq, int Sk, int is_causal, int offset,
                         float scale_log2, cudaStream_t stream) {
-  const cudaError_t err = fat::allow_max_smem<flash_fwd_mma_kernel<D>>();
+  using L = FwdLayout<D, kConsumers>;
+  cudaError_t err = fat::allow_max_smem<flash_fwd_wgmma_kernel<D, kConsumers>>();
+  const int q_tiles = (Sq + L::kBlockM - 1) / L::kBlockM;
+  if (err == cudaSuccess && q_tiles > 65535) err = cudaErrorInvalidValue;
+  CUtensorMap q_map, k_map, v_map;
+  if (err == cudaSuccess) err = make_map(&q_map, q, D, Sq, B * Hq, L::kBlockM);
+  if (err == cudaSuccess) err = make_map(&k_map, k, D, Sk, B * Hkv, kTileN);
+  if (err == cudaSuccess) err = make_map(&v_map, v, D, Sk, B * Hkv, kTileN);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kBlockM - 1) / kBlockM, Hq, B);
-  flash_fwd_mma_kernel<D><<<grid, kMmaThreads, mma_smem_bytes<D>(), stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), Hq, Hkv, Sq, Sk, is_causal, offset, scale_log2);
+  flash_fwd_wgmma_kernel<D, kConsumers><<<dim3(B * Hq, q_tiles), L::kThreads, L::kBytes,
+                                           stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), Hq, Hkv,
+      Sq, Sk, is_causal, offset, scale_log2);
   return cudaGetLastError();
 }
 
@@ -395,8 +680,9 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, vo
 
 // q [B,Hq,Sq,D], k/v [B,Hkv,Sk,D], o like q, lse [B,Hq,Sq] fp32 or NULL; all
 // contiguous on the device, q, k and v 16-byte aligned. Row r sees column c
-// iff !is_causal or c <= r + offset. bf16 runs on the tensor cores, float32
-// on the FMA kernel. Returns the CUDA error code of the launch (0 = success).
+// iff !is_causal or c <= r + offset. bf16 runs the wgmma kernel (q tiles of
+// 64 rows at D 64, 128 at D 128), float32 the FMA kernel.
+// Returns the CUDA error code of the launch (0 = success).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
                                 void* lse, int B, int Hq, int Hkv, int Sq, int Sk, int D,
                                 int dtype, int is_causal, int offset, float scale_log2,
@@ -406,9 +692,10 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, voi
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == fat::kBF16 && D == 64)
-    err = launch_bf16<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, is_causal, offset, scale_log2, s);
+    err = launch_bf16<64, 1>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, is_causal, offset, scale_log2, s);
   else if (dtype == fat::kBF16 && D == 128)
-    err = launch_bf16<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, is_causal, offset, scale_log2, s);
+    err = launch_bf16<128, 2>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, is_causal, offset, scale_log2,
+                              s);
   else if (dtype == fat::kF32 && D == 64)
     err = launch_f32<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, is_causal, offset, scale_log2, s);
   else if (dtype == fat::kF32 && D == 128)

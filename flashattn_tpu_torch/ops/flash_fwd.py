@@ -100,7 +100,8 @@ def flash_attention_forward(
 
     CPU tensors take the plain version. CUDA tensors launch K1 and must be
     contiguous, 16-byte aligned bf16 or float32 with D in HEAD_DIMS;
-    anything else raises.
+    anything else raises. bf16 runs the wgmma kernel, float32 the CUDA-core
+    kernel.
     """
     if segment_ids is not None:
         raise unported("segment ids (varlen)", "A4")

@@ -1,13 +1,16 @@
-"""Device time of the decode path's kernels at the serving shapes, through
-their public entry points only.
+"""Device time of the port's kernels at the serving and training shapes,
+through their public entry points only.
 
     python -m flashattn_tpu_torch.utils.time_kernels [--tag NAME]
 
 Times, by CUDA-graph replay (utils/timing.py::cuda_time_ms), on LLAMA_1B's
 decode step (B 4, Hq 32, Hkv 4, D 64, Smax 2048, lengths 1/77/1500/2048):
 K2 on bf16, int8 and fp8 caches and the paged K2 on an int8 pool of
-256-token pages at T 1, K2 int8 at T 256 (a chunked admission's step); and
-qmm8 and qmm4 on the gate/up projection (K 2048, N 5632) at M 4 and 256.
+256-token pages at T 1, K2 int8 at T 256 (a chunked admission's step);
+qmm8 and qmm4 on the gate/up projection (K 2048, N 5632) at M 4 and 256;
+and K1, causal, at the prefill bucket (B 1, Hq 32, Hkv 4, S 256, D 64, no
+LSE), the training shape (B 4, Hq 32, Hkv 4, S 2048, D 64, with the LSE)
+and D 128 (B 4, Hq = Hkv = 8, S 16384, with the LSE).
 Prints the card's name and power limit, then one JSON line of
 milliseconds. It calls nothing but the public functions, so run as a file
 with another checkout of the package first on PYTHONPATH,
@@ -26,7 +29,7 @@ import subprocess
 
 import torch
 
-from flashattn_tpu_torch.ops import decode, kvcache, paged, quant_matmul
+from flashattn_tpu_torch.ops import decode, flash_fwd, kvcache, paged, quant_matmul
 from flashattn_tpu_torch.ops.kvcache import KVCache
 from flashattn_tpu_torch.utils.timing import cuda_time_ms
 
@@ -36,6 +39,10 @@ LENGTHS = [1, 77, 1500, 2048]
 PAGE = 256
 CHUNK = 256
 K, N = 2048, 5632
+# K1's shapes: name -> (B, Hq, Hkv, S, D, need_lse).
+K1_SHAPES = {"k1_prefill": (1, 32, 4, 256, 64, False),
+             "k1_train": (4, 32, 4, 2048, 64, True),
+             "k1_d128": (4, 8, 8, 16384, 128, True)}
 
 
 def cache_of(quant: str | None, gen: torch.Generator) -> KVCache:
@@ -94,6 +101,12 @@ def main() -> None:
         for m in (4, 256):
             x = torch.randn((m, K), generator=gen, device="cuda", dtype=torch.bfloat16)
             ms[f"qmm{bits}_m{m}"] = cuda_time_ms(lambda: quant_matmul.quant_matmul(x, qw))
+    for name, (b, hq, hkv, s, d, need_lse) in K1_SHAPES.items():
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+                   for h in (hq, hkv, hkv))
+        ms[name] = cuda_time_ms(lambda: flash_fwd.flash_attention_forward(
+            q, k, v, True, need_lse=need_lse), warmup=2, iters=5, reps=5)
+        del q, k, v
     print(json.dumps({"tag": args.tag, "ms": ms}))
 
 

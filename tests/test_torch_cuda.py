@@ -1,5 +1,7 @@
-"""Kernels K1 (flash forward), K2 (flash-decode, dense and paged, bf16/f32,
-int8 and fp8 caches), the backward kernels (B3's fused kernel, B4's dQ and
+"""Kernels K1 (flash forward; bf16 at D 64 and D 128, bitwise
+deterministic, alone on the card under torch.profiler), K2
+(flash-decode, dense and paged, bf16/f32, int8 and fp8 caches), the
+backward kernels (B3's fused kernel, B4's dQ and
 B5's dK/dV kernels) and qmm8/qmm4 (weight-only quantized matmuls) on the
 card, against their plain PyTorch versions on the same CUDA tensors, at the
 edges the smoke run does not reach: float32 inputs, rows that see no key, an
@@ -35,6 +37,11 @@ eight q heads in another order; the fused kernel's dQ atomics add in an
 order that changes between runs).
 """
 
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -47,6 +54,8 @@ from flashattn_tpu_torch.ops.attention import flash_attention, plain_flash_atten
 from flashattn_tpu_torch.utils.verify import verify_results
 
 pytestmark = pytest.mark.cuda
+
+REPO = Path(__file__).resolve().parent.parent
 
 TOL = {torch.bfloat16: dict(atol=2e-2), torch.float32: dict(atol=1e-4, rtol=1e-4)}
 
@@ -72,6 +81,12 @@ FWD_CASES = {
     "gqa8_d128": (2, 8, 1, 300, 300, 128, True, None),
     "ragged_noncausal": (1, 4, 4, 77, 333, 128, False, None),
     "shifted_right": (1, 2, 1, 65, 65, 64, True, 30),
+    "training_shape": (4, 32, 4, 2048, 2048, 64, True, None),
+    "one_row_past_a_tile": (1, 4, 2, 129, 129, 64, True, None),
+    "diagonal_crosses_kv_tile": (1, 4, 2, 64, 300, 64, True, None),
+    "whole_tiles_without_keys": (1, 4, 2, 384, 384, 128, True, -130),
+    # 32 kv tiles: the two-stage K/V ring of the 128-row D 128 kernel turns 16 times.
+    "d128_many_kv_tiles": (1, 2, 1, 4096, 4096, 128, True, None),
 }
 
 
@@ -96,6 +111,50 @@ def test_flash_fwd_kernel_matches_plain(dev, dtype, case):
         dead = -off  # rows r < -off see no key
         assert torch.equal(o[:, :, :dead], torch.zeros_like(o[:, :, :dead]))
         assert bool(torch.isneginf(lse[:, :, :dead]).all())
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_fwd_is_bitwise_deterministic(dev, d):
+    """Two bf16 K1 calls give equal bits: no atomics, one kv order."""
+    q = randn((2, 8, 1000, d), torch.bfloat16, dev, 70)
+    k = randn((2, 2, 1000, d), torch.bfloat16, dev, 71)
+    v = randn((2, 2, 1000, d), torch.bfloat16, dev, 72)
+    first = flash_fwd.flash_attention_forward(q, k, v, True)
+    second = flash_fwd.flash_attention_forward(q, k, v, True)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+K1_PROFILE = """
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from flashattn_tpu_torch.ops import flash_fwd
+
+g = torch.Generator(device="cuda").manual_seed(73)
+q = torch.randn((1, 32, 256, 64), generator=g, dtype=torch.bfloat16, device="cuda")
+k = torch.randn((1, 4, 256, 64), generator=g, dtype=torch.bfloat16, device="cuda")
+flash_fwd.flash_attention_forward(q, k, k, True)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    flash_fwd.flash_attention_forward(q, k, k, True)
+    torch.cuda.synchronize()
+print([e.name for e in prof.events()
+       if e.device_type == DeviceType.CUDA and not e.is_user_annotation])
+"""
+
+
+def test_flash_fwd_launches_only_its_kernel(dev):
+    """One bf16 K1 call runs one kernel on the card, the wgmma kernel: the
+    tensor maps are built on the host, and no PyTorch kernel runs around it.
+    Profiled in a process of its own: with a second profiler session in the
+    test process, the session of test_int8_decode_launches_only_its_kernels
+    recorded no device event in some runs."""
+    out = subprocess.run([sys.executable, "-c", K1_PROFILE], capture_output=True, text=True,
+                         cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    kernels = ast.literal_eval(out.stdout.strip().splitlines()[-1])
+    assert len(kernels) == 1 and "flash_fwd_wgmma_kernel" in kernels[0], kernels
 
 
 DECODE_CASES = {
