@@ -29,19 +29,26 @@ check:
    dequantized bf16 cache for the quantized K2, with a length mask at T 1
    and a bottom-right causal mask for K2 int8 at T 256, or torch.matmul on
    the dequantized weight; timed only, never used by the port) timed on
-   the card;
+   the card; each bound from utils/roofline.py;
 3. LLAMA_1B at full width (random weights from a seed): prefill of a
    150-token prompt and 4 teacher-forced decode steps through the kernels,
    against the same run with every kernel call on its plain version;
 4. the same for four quantized setups (int8 weights, int4 weights, int8 KV
    cache, fp8 KV cache), and a prefix admission (pages gathered back,
-   chunk_step on the suffix) against the full prompt's prefill;
+   chunk_step on the suffix) against the full prompt's prefill; then the
+   capture gate (phase_capture): the decode step captured in a CUDA graph
+   against the eager step, 4 slots, max_len 2048, 8 steps with changing
+   active rows, in five setups that run K2 in every mode, the paged K2, qmm8
+   and qmm4, the logits and every cache byte compared;
 5. the InferenceServer at LLAMA_1B width with 4 slots and max_len 2048 on 8
-   requests of 32 new tokens, counting the kernels' launches;
+   requests of 32 new tokens, every decode step a replay of the captured
+   step, counting the kernels' launches; then calibrate_device_step;
 6. the quantized paged server (int8 weights, int8 KV cache, pages of 256) on
    the same traffic: dense, paged with a pool one page short (backpressure),
    and paged with a registered 512-token prefix, chunked admission and
-   logprobs; the launches of the three runs counted together;
+   logprobs; the launches of the three runs counted together, every decode
+   step a replay; calibrate_device_step after each run and calibrate_admit
+   after the last;
 7. one LLAMA_1B AdamW train step at B 4, S 2048 through the kernels (K1 and
    the fused backward), against the same step on the plain route from the
    same weights: loss, grad_norm and every parameter's gradient;
@@ -61,6 +68,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -79,9 +87,11 @@ from flashattn_tpu_torch.models.llama import init_params
 from flashattn_tpu_torch.models.serve import InferenceServer, Request
 from flashattn_tpu_torch.ops import (_build, decode, flash_bwd, flash_bwd_fused, flash_fwd,
                                      kvcache, paged, quant_matmul)
+from flashattn_tpu_torch.ops import launches as launch_counters
 from flashattn_tpu_torch.ops.attention import plain_flash_attention
 from flashattn_tpu_torch.ops.kvcache import KVCache
-from flashattn_tpu_torch.utils.timing import attention_flops, cuda_time_ms
+from flashattn_tpu_torch.utils import roofline
+from flashattn_tpu_torch.utils.timing import cuda_time_ms
 from flashattn_tpu_torch.utils.verify import verify_results
 
 SEED = 0
@@ -110,11 +120,6 @@ QMM_TOL = dict(atol=2e-2, rtol=1e-2)  # bf16 outputs, fp32 sums in another order
 QMM_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 32000)]
 QMM_TIMED = (2048, 5632)  # the gate/up projection: the JSON line's time
 PAGE = 256
-# The card's published peaks (H100 SXM data sheet, dense): the bound of a
-# kernel is the larger of its bytes over HBM and its operations over these.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12,
-              kvcache.FP8_DTYPE: 1979e12}
 
 
 def check(ok: bool, what: str) -> None:
@@ -232,14 +237,12 @@ def nbytes(*tensors: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes: float, flops: float, dtype: torch.dtype) -> dict:
-    """The least time the card could take: the larger of the bytes over its
-    HBM rate and the operations over its peak rate for the inputs' type."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    if t_bytes >= t_ops:
-        return dict(bound_ms=t_bytes, bound_by="bytes")
-    return dict(bound_ms=t_ops, bound_by="operations")
+def bound(report: roofline.RooflineReport) -> dict:
+    """The JSON line's bound fields from utils/roofline.py: the least time
+    the card could take, the larger of the bytes over its memory rate and
+    the operations over its peak rate for the inputs' type (the card's data
+    sheet, roofline.detect_chip)."""
+    return dict(bound_ms=report.bound_ms, bound_by=report.bound_by)
 
 
 def event_time_ms(fn, warmup: int = 2, iters: int = 5) -> float:
@@ -340,8 +343,8 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
     mask = (torch.arange(s_max, device=dev)[None] < cache.length[:, None])[:, None, None]
     k2_lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
         qd[:, :, None], cache.k, cache.v, attn_mask=mask, enable_gqa=True))
-    k2_bound = bound(live_bytes + 2 * nbytes(qd) + nbytes(cache.length),
-                     4.0 * hq * d * sum(lengths), torch.bfloat16)
+    k2_bound = bound(roofline.decode_roofline(b, hq, hkv, d, lengths,
+                                              cache_dtype=torch.bfloat16))
     print(f"[kernels] K2 bound {k2_bound}, SDPA with a length mask {k2_lib:.4f} ms")
     backward, k1_bwd_err = backward_kernels(gen)
     sdpa_forward_kernels(gen)
@@ -405,9 +408,9 @@ def time_k1(tag: str, q, k, v, need_lse: bool, plain: bool = True, few=None) -> 
 
     lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), **few)
-    flops = attention_flops(b, hq, s, s, d, True)
-    out_bytes = nbytes(q) + (4 * b * hq * s if need_lse else 0)
-    lim = bound(nbytes(q, k, v) + out_bytes, flops, q.dtype)
+    report = roofline.attention_fwd_roofline(b, hq, k.shape[1], s, s, d, True,
+                                             dtype_bytes=q.element_size(), need_lse=need_lse)
+    flops, lim = report.flops, bound(report)
     print(f"[kernels] K1 {tag} B={b} Hq={hq} Hkv={k.shape[1]} S={s} D={d} causal "
           f"{'with' if need_lse else 'without'} LSE: kernel {ms:.4f} ms "
           f"({flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s), bound {lim['bound_ms']:.5f} ms by "
@@ -477,11 +480,9 @@ def quantized_cache(quant: str, gen: torch.Generator) -> KVCache:
 def decode_bound(cache_dtype: torch.dtype, qd: torch.Tensor) -> dict:
     """One decode step over the live cache: K and V once (one byte a value
     when quantized, plus two f32 scales a token and kv head), q and O once."""
-    live = sum(DEC_LENGTHS)
-    esize = torch.empty((), dtype=cache_dtype).element_size()
-    n_bytes = 2 * DEC_HKV * live * (DEC_D * esize + (4 if esize == 1 else 0))
-    n_bytes += 2 * nbytes(qd) + 4 * DEC_B
-    return bound(n_bytes, 4.0 * DEC_HQ * DEC_D * live, cache_dtype)
+    return bound(roofline.decode_roofline(DEC_B, DEC_HQ, DEC_HKV, DEC_D, DEC_LENGTHS,
+                                          cache_dtype=cache_dtype,
+                                          q_dtype_bytes=qd.element_size()))
 
 
 def quantized_decode_kernels(gen: torch.Generator) -> dict[str, dict]:
@@ -546,14 +547,13 @@ def time_int8_chunk(cache: KVCache, gen: torch.Generator) -> None:
     mask = (pos[None, None, :] <= row_pos[:, :, None])[:, None]  # [B, 1, T, Smax]
     lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, enable_gqa=True))
-    # (row, position) pairs a q head computes: row t sees min(n, n - T + t + 1).
-    seen = sum(max(0, min(n, n - t + i + 1)) for n in DEC_LENGTHS for i in range(t))
-    live = sum(DEC_LENGTHS)
-    lim = bound(2 * DEC_HKV * live * (DEC_D + 4) + 2 * nbytes(q) + 4 * DEC_B,
-                4.0 * DEC_HQ * DEC_D * seen, torch.int8)
+    # Row t of a sequence of length n sees min(n, n - T + t + 1) positions.
+    report = roofline.decode_roofline(DEC_B, DEC_HQ, DEC_HKV, DEC_D, DEC_LENGTHS, t=t,
+                                      cache_dtype=torch.int8)
+    lim = bound(report)
     print(f"[kernels] K2 int8 T={t} chunk B={DEC_B} Hq={DEC_HQ} Hkv={DEC_HKV} D={DEC_D} "
           f"Smax={DEC_SMAX} lengths={DEC_LENGTHS}: kernel {ms:.4f} ms "
-          f"({4.0 * DEC_HQ * DEC_D * seen / (ms * 1e-3) / 1e12:.2f} TOP/s), plain "
+          f"({report.flops / (ms * 1e-3) / 1e12:.2f} TOP/s), plain "
           f"{plain:.4f} ms, bound {lim['bound_ms']:.5f} ms by {lim['bound_by']}, SDPA with a "
           f"bottom-right causal mask on the dequantized bf16 cache {lib:.4f} ms")
 
@@ -662,9 +662,8 @@ def quant_matmul_kernels(gen: torch.Generator) -> dict[str, dict]:
             plain256 = cuda_time_ms(lambda: quant_matmul.quant_matmul_reference(x256, qw))
             lib = cuda_time_ms(lambda: torch.matmul(x, w_bf16))
             lib256 = cuda_time_ms(lambda: torch.matmul(x256, w_bf16))
-            lim = bound(nbytes(x, qw.w, qw.scale) + 4 * n * 2, 2.0 * 4 * k * n, torch.bfloat16)
-            lim256 = bound(nbytes(x256, qw.w, qw.scale) + 256 * n * 2, 2.0 * 256 * k * n,
-                           torch.bfloat16)
+            lim = bound(roofline.quant_matmul_roofline(4, k, n, bits))
+            lim256 = bound(roofline.quant_matmul_roofline(256, k, n, bits))
             split = (quant_matmul.qmm8_split if bits == 8 else quant_matmul.qmm4_split)(
                 4, k, n, torch.cuda.get_device_properties(0).multi_processor_count)
             plan = f", {split[1]} K-splits of {split[0]} byte rows at M<=16"
@@ -766,18 +765,12 @@ def time_backward(q, k, v, o, do, lse):
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     o_lib = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
     lib_ms = event_time_ms(lambda: torch.autograd.grad(o_lib, leaves, do, retain_graph=True))
-    fwd = attention_flops(b, hq, s, s, d, True)
-    ins = nbytes(q, k, v, o, do, lse)
-    grads = nbytes(q, k, v)
-    rows = [  # kernel ms, bytes moved, operations (fwd FLOPs x matmul passes / 2)
-        (fused_ms, ins + grads, attention_flops(b, hq, s, s, d, True, "bwd")),
-        (dq_ms, ins + nbytes(q, delta), 1.5 * fwd),  # S, dP, dQ
-        (dkv_ms, ins - nbytes(o) + nbytes(delta, k, v), 2.0 * fwd),  # S, dP, dV, dK
-    ]
     shape = f"B={b} Hq={hq} Hkv={k.shape[1]} S={s} D={d} causal {str(dtype)[6:]}"
     out = []
-    for name, (ms, n_bytes, flops) in zip(("fused", "dq", "dkv"), rows):
-        lim = bound(n_bytes, flops, dtype)
+    for name, ms in zip(("fused", "dq", "dkv"), (fused_ms, dq_ms, dkv_ms)):
+        report = roofline.attention_bwd_roofline(b, hq, k.shape[1], s, s, d, True,
+                                                 dtype_bytes=q.element_size(), kernel=name)
+        flops, lim = report.flops, bound(report)
         print(f"[kernels] backward {name} {shape}: kernel {ms:.4f} ms "
               f"({flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s), bound {lim['bound_ms']:.4f} ms "
               f"by {lim['bound_by']}, plain backward {plain_ms:.4f} ms, SDPA backward "
@@ -940,10 +933,117 @@ def prefix_admission(w8, gen: torch.Generator) -> None:
                                   "tokens) first-token logits vs the full prompt's prefill"])
 
 
+# The capture gate: 4 slots of max_len 2048 holding prompts of these
+# lengths, then CAPTURE_STEPS decode steps, eager and replayed.
+CAPTURE_LENGTHS = [5, 77, 300, 1500]
+CAPTURE_STEPS = 8
+
+
+def capture_caches(model, quant: str | None, paged_kv: bool,
+                   gen: torch.Generator) -> list:
+    """The gate's caches: dense, or a pool of PAGE-token pages in scrambled
+    order (the rest of each table row the sentinel), each slot's prompt
+    prefilled at B 1 and installed as the server admits it."""
+    cfg = model.cfg
+    slots, max_len = len(CAPTURE_LENGTHS), 2048
+    maxp = max_len // PAGE
+    if paged_kv:
+        caches = [paged.init_paged_cache(slots, cfg.num_kv_heads, slots * maxp, PAGE,
+                                         cfg.head_dim, maxp, dtype=cfg.dtype, quant=quant)
+                  for _ in range(cfg.num_layers)]
+        perm = torch.randperm(slots * maxp, generator=torch.Generator().manual_seed(SEED))
+    else:
+        caches = generate.init_caches(model, slots, max_len, quant=quant)
+    for s, n in enumerate(CAPTURE_LENGTHS):
+        prompt = torch.randint(0, cfg.vocab_size, (1, n), generator=gen, device="cuda")
+        _, single = generate.prefill(model, prompt,
+                                     generate.init_caches(model, 1, max_len, quant=quant))
+        own = paged.pages_needed(n + CAPTURE_STEPS, PAGE)
+        table = perm[s * maxp:s * maxp + own].tolist() + [slots * maxp] * (maxp - own) \
+            if paged_kv else None
+        for cache, one in zip(caches, single):
+            if paged_kv:
+                paged.write_slot_paged(cache, one, s, table)
+            else:
+                kvcache.write_slot(cache, one, s)
+    return caches
+
+
+def cache_tensors(caches: list) -> list[torch.Tensor]:
+    """Every tensor of the caches (values, scales, tables, lengths) as raw
+    bytes, for torch.equal."""
+    return [t.view(torch.uint8) for c in caches for f in dataclasses.fields(c)
+            if (t := getattr(c, f.name)) is not None]
+
+
+def clone_caches(caches: list) -> list:
+    return [dataclasses.replace(c, **{f.name: getattr(c, f.name).clone()
+                                      for f in dataclasses.fields(c)
+                                      if getattr(c, f.name) is not None})
+            for c in caches]
+
+
+def phase_capture(model, w8, gen: torch.Generator) -> None:
+    """The captured decode step (generate.DecodeGraph) against the eager
+    decode_step at LLAMA_1B width, 4 slots, max_len 2048, for bf16 weights
+    on a bf16 cache, int8 weights on an int8 cache, bf16 weights on an fp8
+    cache, int8 weights on an int8 pool of 256-token pages and int4 weights
+    on a bf16 cache (K2 in every mode, the paged K2, qmm8 and qmm4): from
+    equal caches, CAPTURE_STEPS steps with other tokens, positions and
+    active rows each step. The logits and every cache byte must be equal
+    (the same kernels on the same shapes); where they are not, the logits
+    must pass phase 3's rule with equal argmax on the active rows, and the
+    lengths must be equal."""
+    cfg = model.cfg
+    w4 = quantized_copy(model, 4)
+    setups = [  # tag, model, KV quant, paged
+        ("bf16 weights, bf16 KV", model, None, False),
+        ("int8 weights, int8 KV", w8, "int8", False),
+        ("bf16 weights, fp8 KV", model, "fp8", False),
+        (f"int8 weights, int8 paged KV (pages of {PAGE})", w8, "int8", True),
+        ("int4 weights, bf16 KV", w4, None, False),
+    ]
+    slots = len(CAPTURE_LENGTHS)
+    for tag, m, quant, paged_kv in setups:
+        eager = capture_caches(m, quant, paged_kv, gen)
+        graph = generate.DecodeGraph(m, clone_caches(eager))
+        lengths, bitwise = list(CAPTURE_LENGTHS), True
+        for i in range(CAPTURE_STEPS):
+            active = [(i + s) % 3 != 0 for s in range(slots)]
+            token = torch.randint(0, cfg.vocab_size, (slots,), generator=gen, device="cuda",
+                                  dtype=torch.int32)
+            positions = torch.tensor(lengths, dtype=torch.int32)
+            act = torch.tensor(active)
+            ref, _ = generate.decode_step(m, token, positions.cuda(), eager, active=act.cuda())
+            out = graph(token, positions.pin_memory(), act.pin_memory())
+            torch.cuda.synchronize()
+            lengths = [n + a for n, a in zip(lengths, active)]
+            if torch.equal(ref, out) and all(
+                    torch.equal(a, b) for a, b in zip(cache_tensors(eager),
+                                                      cache_tensors(graph.caches))):
+                continue
+            bitwise = False
+            compare_logits(f"captured vs eager, {tag}", [out[act]], [ref[act]],
+                           [f"step {i}, active rows {active}"])
+            check(torch.equal(out[act].argmax(-1), ref[act].argmax(-1)),
+                  f"{tag} step {i}: argmax differs between the replay and the eager step")
+        want = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        check(all(torch.equal(c.length, want) and torch.equal(g.length, want)
+                  for c, g in zip(eager, graph.caches)), f"{tag}: lengths {lengths} not kept")
+        print(f"[capture] LLAMA_1B {tag}, {slots} slots max_len 2048, lengths "
+              f"{CAPTURE_LENGTHS} + {CAPTURE_STEPS} steps with changing active rows: captured "
+              f"step {'bitwise equal to' if bitwise else 'within the logits rule of'} the "
+              f"eager step (logits and every cache byte){'' if bitwise else ', NOT bitwise'}; "
+              f"{graph.replays} replays, launches a replay {graph.launches}")
+        del eager, graph
+    del w4
+
+
 def phase_server(model, gen: torch.Generator) -> dict[str, int]:
     cfg = model.cfg
     srv = InferenceServer(model, max_slots=4, max_len=2048)
-    srv.warmup()
+    srv.warmup()  # captures the decode step
+    replays = srv.decode_graph().replays
     n_new = 32
     lens = [16 + (37 * i) % 160 for i in range(8)]
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen,
@@ -965,6 +1065,7 @@ def phase_server(model, gen: torch.Generator) -> dict[str, int]:
     check(launches["flash_fwd"] >= 8 * cfg.num_layers, f"flash_fwd launches {launches}")
     check(launches["decode"] >= cfg.num_layers * st["decode_steps"],
           f"decode launches {launches} for {st['decode_steps']} steps")
+    check_replays("[server]", srv, replays, st["decode_steps"])
     print(f"[server] LLAMA_1B 4 slots max_len 2048, 8 requests, prompts {lens}, "
           f"{n_new} new tokens each: all finished; launches {launches} over "
           f"{st['decode_steps']} decode steps")
@@ -972,22 +1073,35 @@ def phase_server(model, gen: torch.Generator) -> dict[str, int]:
           f"{st['decode_ms_avg']} ms/step, host {st['host_ms_avg']} ms/step, "
           f"wall {8 * n_new / wall:.1f} tokens/s ({8 * n_new} tokens in "
           f"{wall:.3f} s; stats() decode-phase rate {st['wall_tokens_per_s']} tokens/s)")
+    calibrate("[server]", srv)
     return launches
 
 
-# Every kernel's launch counter: (module, attribute) by the kernel's name.
-COUNTERS = {
-    "flash_fwd": (flash_fwd, "LAUNCHES"),
-    "decode": (decode, "LAUNCHES"),
-    "decode_int8": (decode, "INT8_LAUNCHES"),
-    "decode_fp8": (decode, "FP8_LAUNCHES"),
-    "paged_decode": (paged, "LAUNCHES"),
-    "qmm8": (quant_matmul, "QMM8_LAUNCHES"),
-    "qmm4": (quant_matmul, "QMM4_LAUNCHES"),
-    "flash_bwd_fused": (flash_bwd_fused, "LAUNCHES"),
-    "flash_bwd_dq": (flash_bwd, "DQ_LAUNCHES"),
-    "flash_bwd_dkv": (flash_bwd, "DKV_LAUNCHES"),
-}
+CALIB_ITERS = 10  # decode steps in calibrate_device_step's CUDA graph
+ADMIT_ITERS = 4  # admissions in each of calibrate_admit's two graphs
+
+
+def check_replays(tag: str, srv: InferenceServer, before: int, steps: int) -> None:
+    """Every decode step of the run was one replay of the server's graph."""
+    replays = srv.decode_graph().replays - before
+    check(replays == steps, f"{tag} {replays} graph replays for {steps} decode steps")
+    print(f"{tag} every decode step a CUDA-graph replay: {replays} replays, {steps} steps")
+
+
+def calibrate(tag: str, srv: InferenceServer) -> None:
+    """calibrate_device_step on the server after its run: every slot
+    inactive, CALIB_ITERS steps captured in one graph, timed by events."""
+    srv.calibrate_device_step(iters=CALIB_ITERS)
+    st = srv.stats()
+    check(st["device_step_ms"] > 0, f"{tag} calibrate_device_step: {st}")
+    print(f"{tag} calibrate_device_step({CALIB_ITERS} steps in one CUDA graph, every slot "
+          f"inactive): device_step_ms {st['device_step_ms']}, device_tokens_per_s_bound "
+          f"{st['device_tokens_per_s_bound']}")
+
+
+# Every kernel's launch counter by the kernel's name (a replay of a captured
+# decode step adds what the capture counted).
+COUNTERS = launch_counters.COUNTERS
 
 
 def phase_quant_server(w8, gen: torch.Generator) -> dict[str, int]:
@@ -996,7 +1110,9 @@ def phase_quant_server(w8, gen: torch.Generator) -> dict[str, int]:
     (a) dense, (b) paged with a pool one page short of four live requests,
     (c) paged with a registered 512-token prefix before four of the prompts,
     chunked admission of 256 and logprobs. The quantized serving path: the
-    launches are counted from just before (a) to just after (c)."""
+    launches are those of the three runs (each server's warmup, which
+    captures its decode step, and its calibration after the run are left
+    out); every decode step is one replay of the server's CUDA graph."""
     cfg = w8.cfg
     layers, per_call = cfg.num_layers, 7 * cfg.num_layers + 1
     n_new, chunk = 32, 256
@@ -1013,9 +1129,11 @@ def phase_quant_server(w8, gen: torch.Generator) -> dict[str, int]:
     }
     torch.cuda.synchronize()
     reset_launches()
-    results = {}
+    results, total = {}, dict.fromkeys(COUNTERS, 0)
     for name, option in runs.items():
         srv = InferenceServer(w8, **common, **option)
+        srv.warmup()  # captures the decode step
+        replays = srv.decode_graph().replays
         before = read_launches()
         t0 = time.perf_counter()
         pid = None
@@ -1071,6 +1189,8 @@ def phase_quant_server(w8, gen: torch.Generator) -> dict[str, int]:
             check(waited > 0, f"{name}: no request waited for pages")
             check(srv.allocator.free_pages == srv.allocator.num_pages,
                   f"{name}: pages left allocated")
+        check_replays(f"[quant-server] {name}:", srv, replays, steps)
+        total = {k: total[k] + v for k, v in added.items()}
         results[name] = got
         print(f"[quant-server] LLAMA_1B int8 weights, int8 KV, {name}: 8 requests, prompts "
               f"{[len(p) for _, p in reqs]}, {n_new} new tokens each, all finished in "
@@ -1082,19 +1202,24 @@ def phase_quant_server(w8, gen: torch.Generator) -> dict[str, int]:
         if srv.paged:
             print(f"[quant-server] {name}: pages total {st['pages_total']}, free at the end "
                   f"{srv.allocator.free_pages}")
+        calibrate(f"[quant-server] {name}:", srv)
+        if "prefix" in name:
+            admit = srv.calibrate_admit(prompt_len=768, prefix_len=512, iters=ADMIT_ITERS)
+            check(all(v > 0 for v in admit.values()), f"{name}: calibrate_admit {admit}")
+            print(f"[quant-server] {name}: calibrate_admit(prompt_len=768, prefix_len=512, "
+                  f"{ADMIT_ITERS} admissions in one CUDA graph each): {admit}")
         del srv
     check(results["b paged"] == results["a dense"], "paged server tokens differ from dense")
     print("[quant-server] (a) dense and (b) paged servers give equal tokens for all 8 requests")
-    return read_launches()
+    return total
 
 
 def reset_launches() -> None:
-    for module, attr in COUNTERS.values():
-        setattr(module, attr, 0)
+    launch_counters.reset()
 
 
 def read_launches() -> dict[str, int]:
-    return {name: getattr(module, attr) for name, (module, attr) in COUNTERS.items()}
+    return launch_counters.read()
 
 
 @contextlib.contextmanager
@@ -1217,6 +1342,7 @@ def main() -> None:
     phase_model(model, gen)
     w8 = quantized_copy(model, 8)
     quant_model = phase_quant_model(model, w8, gen)
+    phase_capture(model, w8, gen)
     launches = phase_server(model, gen)
     quant_server = phase_quant_server(w8, gen)
     del w8

@@ -7,7 +7,8 @@ per sequence the same way (chunked prefill, prefix-seeded admission). The
 caches may be dense (KVCache) or paged (PagedKVCache), bf16/f32 or
 quantized (int8/fp8); the dispatch is on the cache's type. The caches are
 updated in place (ops/kvcache.py, ops/paged.py); the functions return them
-as the JAX ones do.
+as the JAX ones do. ``DecodeGraph`` replays decode_step from one CUDA
+graph, where the JAX package jits it.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from flashattn_tpu_torch.models import llama
 from flashattn_tpu_torch.models.llama import Llama
 from flashattn_tpu_torch.models.sampling import SamplingParams, sample
+from flashattn_tpu_torch.ops import launches
 from flashattn_tpu_torch.ops.attention import flash_attention
 from flashattn_tpu_torch.ops.common import round_up
 from flashattn_tpu_torch.ops.decode import decode_attention, decode_attention_chunk
@@ -24,6 +26,7 @@ from flashattn_tpu_torch.ops.kvcache import KVCache, init_cache, update_cache
 from flashattn_tpu_torch.ops.paged import (PagedKVCache, append_paged,
                                            paged_decode_attention,
                                            paged_decode_attention_chunk)
+from flashattn_tpu_torch.utils.timing import warm
 
 
 def init_caches(model: Llama, batch: int, max_len: int,
@@ -99,6 +102,64 @@ def decode_step(
         x = x + llama.proj(o.reshape(b, cfg.num_heads * cfg.head_dim), layer.wo)
         x = x + llama._mlp_block(layer, x, cfg)
     return llama.lm_logits(x, model), caches
+
+
+class DecodeGraph:
+    """decode_step captured in one CUDA graph, for one model and one list of
+    caches (so one graph per slot count and cache kind).
+
+    It holds static ``token`` [B] int32, ``positions`` [B] int32 and
+    ``active`` [B] bool buffers and the graph's logits [B, vocab]. A call
+    copies its arguments into the buffers, replays the graph and returns
+    the logits (the same tensor at every call, overwritten by the next).
+    The graph reads and writes the caches' own tensors: a caller must write
+    into them in place (admission does) and never replace one.
+
+    Capture runs decode_step once eagerly with every row inactive (which
+    changes no cache; it loads the kernels and the libraries' state before
+    the capture), captures it, and replays it once. A wrapper called during
+    the capture launches nothing, so the capture's launch counts are taken
+    back and added again at every replay (ops/launches.py). CUDA caches
+    only; a CPU caller runs decode_step."""
+
+    def __init__(self, model: Llama, caches: list):
+        device = caches[0].length.device
+        if device.type != "cuda" or model.device != device:
+            raise ValueError(f"a captured decode step needs the model and the caches on "
+                             f"one CUDA device, got {model.device} and {device}")
+        b = caches[0].length.shape[0]
+        self.model, self.caches = model, caches
+        self.token = torch.zeros((b,), dtype=torch.int32, device=device)
+        self.positions = torch.zeros((b,), dtype=torch.int32, device=device)
+        self.active = torch.zeros((b,), dtype=torch.bool, device=device)
+        self.replays = 0
+
+        def step():
+            return decode_step(model, self.token, self.positions, caches, active=self.active)
+
+        warm(step)
+        self.graph, (self.logits, _), self.launches = launches.capture(step)
+        self.replay()
+
+    def replay(self) -> torch.Tensor:
+        """Replay the graph on what the buffers hold; returns the logits."""
+        self.graph.replay()
+        launches.advance(self.launches)
+        self.replays += 1
+        return self.logits
+
+    def __call__(self, token: torch.Tensor, positions: torch.Tensor,
+                 active: torch.Tensor) -> torch.Tensor:
+        """decode_step(model, token, positions, caches, active)'s logits:
+        the arguments are copied into the buffers (host tensors should be
+        pinned), then the graph replays."""
+        # The buffers are inference tensors when the graph was made under
+        # inference mode (a server's step), writable only inside it.
+        with torch.inference_mode():
+            self.token.copy_(token, non_blocking=True)
+            self.positions.copy_(positions, non_blocking=True)
+            self.active.copy_(active, non_blocking=True)
+        return self.replay()
 
 
 @torch.inference_mode()

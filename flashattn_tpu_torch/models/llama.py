@@ -177,7 +177,8 @@ def rope_tables(cfg: ModelConfig, positions: torch.Tensor):
     half = cfg.head_dim // 2
     exponent = -torch.arange(half, dtype=torch.float32,
                              device=positions.device) / half
-    theta = torch.tensor(cfg.rope_theta, dtype=torch.float32, device=positions.device)
+    # A fill, not a copy from the host: a CUDA graph can capture it.
+    theta = torch.full((), cfg.rope_theta, dtype=torch.float32, device=positions.device)
     freqs = torch.pow(theta, exponent)
     angles = positions[..., None].float() * freqs
     return torch.cos(angles), torch.sin(angles)

@@ -22,6 +22,13 @@ Options, as in the JAX server:
     slots by one chunk at a time;
   - ``return_logprobs=True``: the log-probability of every emitted token, in
     ``finished_logprobs``.
+
+On the card every decode step replays one CUDA graph of
+``generate.decode_step`` (``generate.DecodeGraph``), captured by
+``warmup()`` or by the first decode step; a server on the CPU runs
+decode_step eagerly. Admission (prefill, chunked prompts) runs eagerly.
+``calibrate_device_step`` and ``calibrate_admit`` time the decode step and
+an admission on the device, without changing the server's state.
 """
 
 from __future__ import annotations
@@ -40,8 +47,8 @@ from flashattn_tpu_torch.ops.common import round_up
 from flashattn_tpu_torch.ops.kvcache import init_cache, write_slot
 from flashattn_tpu_torch.ops.paged import (PageAllocator, init_paged_cache,
                                            pages_needed, pages_to_dense,
-                                           set_block_table, write_pages,
-                                           write_slot_paged)
+                                           set_block_table, write_pages)
+from flashattn_tpu_torch.utils.timing import measure_looped, measure_looped_slope
 
 
 @dataclasses.dataclass
@@ -142,6 +149,14 @@ class InferenceServer:
         self.queue: deque[Request] = deque()
         self.tokens = torch.zeros((max_slots,), dtype=torch.int32, device=self.device)
         self.finished: dict[int, list[int]] = {}
+        # A decode step's positions and active mask, written on the host and
+        # copied to the card's buffers (pinned: the copy runs asynchronously;
+        # the step's token read waits for it before the next step writes).
+        pin = self.device.type == "cuda"
+        self._positions = torch.zeros((max_slots,), dtype=torch.int32, pin_memory=pin)
+        self._active = torch.zeros((max_slots,), dtype=torch.bool, pin_memory=pin)
+        self._graph: generate.DecodeGraph | None = None  # captured on the card
+        self._device_step_s: float | None = None  # calibrate_device_step
 
     def _single_caches(self) -> list:
         """Fresh B=1 dense caches of max_len (prefill staging)."""
@@ -286,8 +301,9 @@ class InferenceServer:
             table = self._make_table(owned)
         for cache, one in zip(self.caches, single):
             one.length.fill_(plen)
-            if self.paged:
-                write_slot_paged(cache, one, s, table)
+            if self.paged:  # the owned pages alone: the table's sentinels write nothing
+                write_pages(cache, one, owned)
+                set_block_table(cache, s, table, plen)
             else:
                 write_slot(cache, one, s)
         self._start_slot(s, req, logits[0, plen - 1])
@@ -364,7 +380,7 @@ class InferenceServer:
         positions[s] = torch.arange(pos, pos + c, dtype=torch.int32)
         active = torch.zeros((b,), dtype=torch.bool)
         active[s] = True
-        logits, self.caches = generate.chunk_step(
+        logits, _ = generate.chunk_step(
             self.model, piece.to(self.device), positions.to(self.device), self.caches,
             active=active.to(self.device))
         pos += take
@@ -428,12 +444,13 @@ class InferenceServer:
         self._timing["steps"] += 1
         if not live:
             return  # an admission-only step: no decode phase
-        positions = torch.tensor([slot.position for slot in self.slots],
-                                 dtype=torch.int32).to(self.device)
-        active = torch.zeros((len(self.slots),), dtype=torch.bool)
-        active[live] = True
-        logits, self.caches = generate.decode_step(
-            self.model, self.tokens, positions, self.caches, active=active.to(self.device))
+        self._positions.numpy()[:] = [slot.position for slot in self.slots]
+        self._active.numpy()[:] = [s in live for s in range(len(self.slots))]
+        if self.device.type == "cuda":
+            logits = self.decode_graph()(self.tokens, self._positions, self._active)
+        else:
+            logits, _ = generate.decode_step(self.model, self.tokens, self._positions,
+                                             self.caches, active=self._active)
         nxt = logits.argmax(dim=-1).to(torch.int32)
         for s in live:  # sampled slots draw on the device, before the read
             slot = self.slots[s]
@@ -458,7 +475,7 @@ class InferenceServer:
                 slot.lps.append(lps[s])
             if slot.remaining <= 0 or (slot.eos is not None and tok == slot.eos):
                 self._finish(s)
-        self.tokens = nxt
+        self.tokens.copy_(nxt)
         self._timing["host_s"] += time.perf_counter() - t2
         self._timing["decode_steps"] += 1
         self._timing["decoded_tokens"] += len(live)
@@ -470,12 +487,128 @@ class InferenceServer:
         out, self.finished = self.finished, {}
         return out
 
+    def decode_graph(self) -> generate.DecodeGraph:
+        """The captured decode step of this server's caches (card only),
+        captured at the first call; a capture that fails raises."""
+        if self._graph is None:
+            self._graph = generate.DecodeGraph(self.model, self.caches)
+        return self._graph
+
+    def device_step_fn(self):
+        """The decode step that calibrate_device_step times, and its
+        arguments: the server's own token buffer, model and caches, not
+        copies. Every slot is inactive, so a call changes no cache (the JAX
+        server's step is functional and runs with every slot active); it
+        runs the live step's kernels on the same shapes, K2 over each slot's
+        current length."""
+        b = len(self.slots)
+        positions = torch.tensor([max(s.position, 1) if not s.free else 1
+                                  for s in self.slots], dtype=torch.int32).to(self.device)
+        idle = torch.zeros((b,), dtype=torch.bool, device=self.device)
+
+        def fn(tokens, model, caches):
+            return generate.decode_step(model, tokens, positions, caches, active=idle)[0]
+
+        return fn, (self.tokens, self.model, self.caches)
+
+    @torch.inference_mode()
+    def calibrate_device_step(self, iters: int = 100) -> float:
+        """Seconds of device time per decode step, stored for stats()
+        (device_step_ms and the tokens/s bound it gives). On the card
+        utils/timing.py captures a chain of steps in one CUDA graph and
+        times its replay with CUDA events (the slope between two chain
+        lengths from 50 iterations up; below, one chain, the best of three
+        replays); on the CPU it reads the host clock. Leaves every cache bit
+        for bit as it was."""
+        fn, args = self.device_step_fn()
+        if iters < 50:
+            self._device_step_s = measure_looped(fn, *args, iters=iters, repeats=3)
+        else:
+            self._device_step_s = measure_looped_slope(fn, *args)
+        return self._device_step_s
+
+    @torch.inference_mode()
+    def calibrate_admit(self, prompt_len: int, prefix_len: int,
+                        iters: int = 50) -> dict[str, float]:
+        """Device milliseconds of one admission with and without a shared
+        prefix, timed as calibrate_device_step times a step:
+
+          replicated: the whole prompt through chunk_step in pieces of at
+                      most 512, then its pages installed;
+          shared:     the prefix's pages gathered to a dense cache, the
+                      suffix through chunk_step, the suffix's pages
+                      installed (the compute of a prefix admission).
+
+        Both run on dense caches and a page pool of their own, so the live
+        pool, tables and lengths are never touched. Returns both times and
+        the device speedup of sharing."""
+        if not self.paged:
+            raise ValueError("prefix calibration needs the paged backend")
+        if not 0 < prefix_len < prompt_len <= self.max_len:
+            raise ValueError(f"need 0 < prefix_len ({prefix_len}) < prompt_len "
+                             f"({prompt_len}) <= max_len ({self.max_len})")
+        if prefix_len % self.page_size:
+            raise ValueError(f"prefix_len {prefix_len} is not a multiple of page_size "
+                             f"{self.page_size}: register_prefix shares whole pages")
+        cfg, dev = self.cfg, self.device
+        nshared = prefix_len // self.page_size
+        n_all = pages_needed(prompt_len, self.page_size)
+        pool = [init_paged_cache(1, cfg.num_kv_heads, n_all, self.page_size, cfg.head_dim,
+                                 self.max_pages_per_seq, dtype=cfg.dtype, quant=self.quant,
+                                 device=dev)
+                for _ in range(cfg.num_layers)]
+        pages_all = torch.arange(n_all, dtype=torch.int32, device=dev)
+        padded_full = min(round_up(prompt_len, self.prompt_bucket), self.max_len)
+        pos_full = torch.arange(padded_full, device=dev)
+        cal_chunk = min(512, padded_full)
+
+        def replicated(piece, model, pool, empty):
+            for cache in empty:
+                cache.length.zero_()
+            logits = None
+            for c0 in range(0, padded_full, cal_chunk):
+                logits, _ = generate.chunk_step(model, piece[:, c0:c0 + cal_chunk],
+                                                pos_full[c0:c0 + cal_chunk], empty)
+            for dst, one in zip(pool, empty):
+                write_pages(dst, one, pages_all)
+            return logits
+
+        suffix_len = prompt_len - prefix_len
+        padded_suf = min(round_up(suffix_len, self.prompt_bucket), self.max_len - prefix_len)
+        pos_suf = torch.arange(prefix_len, prefix_len + padded_suf, device=dev)
+        spages, opages = pages_all[:nshared], pages_all[nshared:]
+
+        def shared(piece, model, pool):
+            single = [pages_to_dense(cache, spages, self.max_len, length=prefix_len)
+                      for cache in pool]
+            logits, single = generate.chunk_step(model, piece, pos_suf, single)
+            for dst, one in zip(pool, single):
+                write_pages(dst, one, opages, first_block=nshared)
+            return logits
+
+        rep_args = (torch.zeros((1, padded_full), dtype=torch.int32, device=dev), self.model,
+                    pool, self._single_caches())
+        sh_args = (torch.zeros((1, padded_suf), dtype=torch.int32, device=dev), self.model,
+                   pool)
+        if iters < 50:
+            t_rep = measure_looped(replicated, *rep_args, iters=iters, repeats=3)
+            t_sh = measure_looped(shared, *sh_args, iters=iters, repeats=3)
+        else:
+            t_rep = measure_looped_slope(replicated, *rep_args)
+            t_sh = measure_looped_slope(shared, *sh_args)
+        return {
+            "prefill_ms_replicated": round(t_rep * 1e3, 3),
+            "prefill_ms_shared": round(t_sh * 1e3, 3),
+            "device_speedup": round(t_rep / t_sh, 2),
+        }
+
     @torch.inference_mode()
     def warmup(self) -> None:
         """Build the kernels and warm the libraries before traffic: one
         prefill at the first prompt bucket (or one chunk step with every slot
-        inactive, under admit_chunk) and one decode step with every slot
-        inactive; neither changes a cache."""
+        inactive, under admit_chunk), then on the card the decode step's
+        capture (decode_graph), on the CPU one decode step with every slot
+        inactive; none of them changes a cache."""
         b = len(self.slots)
         idle = torch.zeros((b,), dtype=torch.bool, device=self.device)
         if self.admit_chunk:
@@ -486,14 +619,18 @@ class InferenceServer:
                              torch.zeros((1, self.prompt_bucket), dtype=torch.int32,
                                          device=self.device),
                              self._single_caches(), return_all=True)
-        generate.decode_step(
-            self.model, self.tokens,
-            torch.zeros((b,), dtype=torch.int32, device=self.device), self.caches,
-            active=idle)
+        if self.device.type == "cuda":
+            self.decode_graph()
+        else:
+            generate.decode_step(
+                self.model, self.tokens,
+                torch.zeros((b,), dtype=torch.int32, device=self.device), self.caches,
+                active=idle)
 
     def stats(self) -> dict[str, Any]:
-        """Occupancy, queue depth, the page pool (paged) and the step-phase
-        timings."""
+        """Occupancy, queue depth, the page pool (paged), the step-phase
+        timings and, once calibrate_device_step has run, the device time of a
+        step and the tokens/s bound it sets (every slot decoding)."""
         st = {
             "active_slots": sum(not s.free for s in self.slots),
             "max_slots": len(self.slots),
@@ -525,4 +662,7 @@ class InferenceServer:
                     (t["admit_s"] + t["host_s"]) / max(wall, 1e-9), 3),
                 wall_tokens_per_s=round(t["decoded_tokens"] / max(wall, 1e-9), 1),
             )
+        if self._device_step_s:
+            st["device_step_ms"] = round(1e3 * self._device_step_s, 4)
+            st["device_tokens_per_s_bound"] = round(len(self.slots) / self._device_step_s, 1)
         return st

@@ -162,10 +162,29 @@ def set_block_table(cache: PagedKVCache, slot: int, pages, length: int) -> Paged
     return cache
 
 
+def _route_dead(live: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A scatter of n rows of which `live` [n] bool write, in fixed shapes
+    (no host read, so a CUDA graph can capture it): returns (src [n], any
+    live as a 0-d bool). Row i writes row src[i]'s value to row src[i]'s
+    target: itself when live, else the first live row, so a dead row only
+    repeats a live row's write (an indexed write has no defined winner
+    between different values at one target). With no live row the caller
+    writes row 0's target back with what it holds."""
+    first = torch.argmax(live.to(torch.int32))  # the first live row, or 0
+    src = torch.where(live, torch.arange(live.shape[0], device=live.device), first)
+    return src, live.any()
+
+
 def _put_pages(buf: torch.Tensor, pages: torch.Tensor, blocks: torch.Tensor) -> None:
-    """buf[pages[j]] = blocks[j] for the pages < len(buf); the others drop."""
-    keep = pages < buf.shape[0]
-    _raw(buf)[pages[keep].long()] = _raw(blocks)[keep]
+    """buf[pages[j]] = blocks[j] for the pages < len(buf); the others drop.
+    Fixed shapes (a CUDA graph can capture it): a dead entry repeats a live
+    one's write."""
+    if pages.numel() == 0:
+        return
+    src, any_live = _route_dead(pages < buf.shape[0])
+    idx = pages.long().clamp(max=buf.shape[0] - 1)[src]
+    raw = _raw(buf)
+    raw[idx] = torch.where(any_live, _raw(blocks)[src], raw[idx])
 
 
 def write_pages(cache: PagedKVCache, single: KVCache, pages,
@@ -173,10 +192,12 @@ def write_pages(cache: PagedKVCache, single: KVCache, pages,
     """Shard a single-sequence DENSE cache into pool pages, IN PLACE (no
     table or length update). Logical block first_block + j of the dense
     buffer lands in page pages[j]; entries >= num_pages are dropped, so a
-    caller only ever writes pages it owns. Returns `cache`."""
+    caller only ever writes pages it owns. A tensor on the cache's device
+    (as under calibrate_admit's capture) scatters in fixed shapes; a host
+    list or tensor (admission) drops them on the host and writes the owned
+    pages alone. Returns `cache`."""
     _, hkv, page, d = cache.k_pages.shape
-    pages = _as_pages(pages, cache.k_pages.device)
-    nb = pages.shape[0]
+    nb = len(pages)
     lo = first_block * page
     if single.k.shape[0] != 1 or single.k.shape[2] < lo + nb * page:
         raise ValueError(f"dense cache {tuple(single.k.shape)} holds no {nb} pages "
@@ -190,11 +211,24 @@ def write_pages(cache: PagedKVCache, single: KVCache, pages,
     def shard_s(buf):  # [1, Hkv, 1, S] -> [nb, Hkv, 1, page]
         return buf[0, :, 0, lo:lo + nb * page].reshape(hkv, nb, page).transpose(0, 1)[:, :, None]
 
-    _put_pages(cache.k_pages, pages, shard(single.k))
-    _put_pages(cache.v_pages, pages, shard(single.v))
+    if isinstance(pages, torch.Tensor) and pages.device == cache.k_pages.device:
+        def put(buf, blocks):
+            _put_pages(buf, pages, blocks)
+    else:
+        pages = pages.tolist() if isinstance(pages, torch.Tensor) else pages
+        live = [j for j, p in enumerate(pages) if p < cache.num_pages]
+        idx = torch.tensor([pages[j] for j in live], dtype=torch.long).to(cache.k_pages.device)
+        # A table row lists its owned pages first: then a slice, no gather.
+        sel = slice(0, len(live)) if live == list(range(len(live))) else live
+
+        def put(buf, blocks):
+            _raw(buf)[idx] = _raw(blocks)[sel]
+
+    put(cache.k_pages, shard(single.k))
+    put(cache.v_pages, shard(single.v))
     if cache.quantized:
-        _put_pages(cache.k_scale, pages, shard_s(single.k_scale))
-        _put_pages(cache.v_scale, pages, shard_s(single.v_scale))
+        put(cache.k_scale, shard_s(single.k_scale))
+        put(cache.v_scale, shard_s(single.v_scale))
     return cache
 
 
@@ -234,7 +268,7 @@ def pages_to_dense(cache: PagedKVCache, pages, max_len: int,
 
     return KVCache(
         k=gather(cache.k_pages, 0), v=gather(cache.v_pages, 0),
-        length=torch.tensor([length], dtype=torch.int32, device=cache.length.device),
+        length=torch.full((1,), length, dtype=torch.int32, device=cache.length.device),
         k_scale=gather_s(cache.k_scale) if cache.quantized else None,
         v_scale=gather_s(cache.v_scale) if cache.quantized else None,
     )
@@ -246,7 +280,8 @@ def append_paged(cache: PagedKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     IN PLACE: token t of sequence b lands in page table[b, (len_b + t) //
     page] at row (len_b + t) % page. Sequences must own the pages. Tokens of
     inactive rows, past the table, or aimed at a sentinel entry are dropped,
-    so a masked append never touches the pool. Returns `cache`."""
+    so a masked append never touches the pool. Fixed shapes throughout: a
+    CUDA graph can capture it. Returns `cache`."""
     b, hkv, t, d = k_new.shape
     page = cache.page_size
     if cache.quantized:
@@ -263,12 +298,14 @@ def append_paged(cache: PagedKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     live = (logical < max_pages) & (pids < cache.num_pages)
     if active is not None:
         live &= active[:, None]
-    live = live.reshape(-1)
-    pids = pids.reshape(-1)[live]
-    offs = (pos % page).reshape(-1)[live]
+    # Fixed shapes, dead tokens routed onto a live one's write: no host read.
+    src, any_live = _route_dead(live.reshape(-1))
+    pids = pids.reshape(-1).clamp(max=cache.num_pages - 1)[src]
+    offs = (pos % page).reshape(-1)[src]
 
     def put(buf, rows):  # rows [B*T, Hkv, X] in token order
-        _raw(buf)[pids, :, offs, :] = _raw(rows)[live]
+        raw = _raw(buf)
+        raw[pids, :, offs, :] = torch.where(any_live, _raw(rows)[src], raw[pids, :, offs, :])
 
     put(cache.k_pages, k_q.transpose(1, 2).reshape(b * t, hkv, d))
     put(cache.v_pages, v_q.transpose(1, 2).reshape(b * t, hkv, d))

@@ -1,4 +1,5 @@
-"""Where a LLAMA_1B server's decode step spends its time on the card.
+"""Where a LLAMA_1B server's decode step spends its time on the card, eager
+and captured in a CUDA graph, in one process.
 
     python -m flashattn_tpu_torch.utils.profile_serve
 
@@ -6,14 +7,21 @@ Builds LLAMA_1B at full width with random weights from a seed and runs two
 servers with 4 slots and max_len 2048: bf16 weights and cache, and the
 quantized configuration of chip_smoke.py phase 6 (a) (int8 weights through
 qmm8, an int8 KV cache, dense caches). Each admits 4 requests of 100-token
-prompts, then, once every slot decodes:
+prompts, then, once every slot decodes, runs STEPS steps of each of:
 
-- times STEPS server steps on the host clock (each ends with the step's
-  token read, as serving does): ms/step;
-- profiles STEPS more with torch.profiler (CPU and CUDA activity) and
-  prints the device busy time per step (the kernels' self CUDA time), the
-  card's idle share of the unprofiled step, and the kernels with the most
-  device time.
+- ``eager``: generate.decode_step with every row inactive on the server's
+  own model and caches, then the step's token read (argmax and .tolist());
+- ``replay``: the server's captured step (generate.DecodeGraph) on the same
+  inactive rows, then the same token read;
+- ``server``: InferenceServer.step() with every slot decoding (the replay,
+  the token read and the server's bookkeeping).
+
+For each it prints the ms/step on the host clock (median of STEPS) and,
+from one torch.profiler session a server (CPU and CUDA activity), the
+device busy time per step (the kernels' self CUDA time, attributed to the
+three runs by their profiler ranges) and the card's idle share; then
+calibrate_device_step's reading on the same server and the kernels with
+the most device time in the server's steps.
 
 Then it times qmm8 alone at the decode batch (M 4, K 2048, N 5632): its
 wrapper's host time per eager call (1,000 calls enqueued back to back, no
@@ -23,6 +31,7 @@ CUDA device; prints the card's name and power limit first.
 
 from __future__ import annotations
 
+import collections
 import copy
 import statistics
 import subprocess
@@ -30,8 +39,9 @@ import time
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
+from flashattn_tpu_torch.models import generate
 from flashattn_tpu_torch.models.config import LLAMA_1B
 from flashattn_tpu_torch.models.llama import init_params, quantize_params
 from flashattn_tpu_torch.models.serve import InferenceServer, Request
@@ -40,7 +50,7 @@ from flashattn_tpu_torch.utils.timing import cuda_time_ms
 
 SEED = 0
 SLOTS, PROMPT = 4, 100
-STEPS = 10  # timed, then as many profiled
+STEPS = 10  # a run's steps, timed on the host clock and profiled
 TOP = 8
 EAGER_CALLS = 1000
 
@@ -50,34 +60,66 @@ def profile_server(name: str, model, **options) -> None:
     gen = torch.Generator().manual_seed(SEED)
     for uid in range(SLOTS):
         prompt = torch.randint(0, LLAMA_1B.vocab_size, (PROMPT,), generator=gen).tolist()
-        srv.submit(Request(uid=uid, prompt=prompt, max_new_tokens=4 * STEPS))
+        srv.submit(Request(uid=uid, prompt=prompt, max_new_tokens=8 * STEPS))
     while srv.queue or any(slot.free for slot in srv.slots):
         srv.step()  # admissions
-    for _ in range(2):
-        srv.step()
-    torch.cuda.synchronize()
-    walls = []
-    for _ in range(STEPS):
-        t0 = time.perf_counter()
-        srv.step()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    wall = statistics.median(walls)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(STEPS):
-            srv.step()
+    graph = srv.decode_graph()
+    positions = torch.tensor([slot.position for slot in srv.slots],
+                             dtype=torch.int32).pin_memory()
+    idle = torch.zeros((SLOTS,), dtype=torch.bool).pin_memory()
+    positions_dev, idle_dev = positions.cuda(), idle.cuda()
+    steps = {
+        "eager": lambda: generate.decode_step(model, srv.tokens, positions_dev, srv.caches,
+                                              active=idle_dev)[0].argmax(-1).tolist(),
+        "replay": lambda: graph(srv.tokens, positions, idle).argmax(-1).tolist(),
+        "server": srv.step,
+    }
+    walls = {}
+    for run, step in steps.items():
+        for _ in range(2):
+            step()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-              and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in events) / 1e3 / STEPS
-    print(f"[profile] LLAMA_1B {name}, {SLOTS} slots decoding: {wall:.2f} ms/step median "
-          f"of {[round(w, 2) for w in walls]} (host clock), device busy {busy:.3f} ms/step, "
-          f"idle share {max(0.0, 1 - busy / wall):.3f}")
-    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    for e in events[:TOP]:
-        ms = e.self_device_time_total / 1e3 / STEPS
-        print(f"[profile]   {ms:8.3f} ms/step {100 * ms / busy:5.1f} %  "
-              f"{e.count // STEPS:5d} calls/step  {e.key[:100]}")
+        walls[run] = []
+        for _ in range(STEPS):
+            t0 = time.perf_counter()
+            step()
+            walls[run].append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for run, step in steps.items():
+            with record_function(f"profile_serve.{run}"):
+                for _ in range(STEPS):
+                    step()
+                torch.cuda.synchronize()
+    events = prof.events()
+    ranges = {e.name.split(".")[1]: e.time_range for e in events
+              if e.name.startswith("profile_serve.")}
+    busy = collections.defaultdict(float)
+    by_kernel = collections.Counter()
+    calls = collections.Counter()
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        for run, r in ranges.items():
+            if r.start <= e.time_range.start <= r.end:
+                us = e.time_range.end - e.time_range.start
+                busy[run] += us / 1e3 / STEPS
+                if run == "server":
+                    by_kernel[e.name] += us / 1e3 / STEPS
+                    calls[e.name] += 1
+    for run in steps:
+        wall = statistics.median(walls[run])
+        dev = (f"device busy {busy[run]:.3f} ms/step, idle share "
+               f"{max(0.0, 1 - busy[run] / wall):.3f}" if busy[run] else
+               "device busy not measured (the profiler recorded no device event)")
+        print(f"[profile] LLAMA_1B {name}, {SLOTS} slots, {run}: {wall:.3f} ms/step median of "
+              f"{[round(w, 3) for w in walls[run]]} (host clock), {dev}")
+    calib = srv.calibrate_device_step(iters=STEPS) * 1e3
+    print(f"[profile] LLAMA_1B {name}: calibrate_device_step({STEPS} steps in one CUDA graph, "
+          f"every slot inactive): {calib:.3f} ms/step")
+    for kernel, ms in by_kernel.most_common(TOP):
+        print(f"[profile]   server step: {ms:8.3f} ms/step "
+              f"{100 * ms / max(busy['server'], 1e-9):5.1f} %  "
+              f"{calls[kernel] // STEPS:5d} calls/step  {kernel[:100]}")
 
 
 def main() -> None:

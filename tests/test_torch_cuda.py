@@ -16,7 +16,12 @@ against the CPU. The bf16 backward's tensor-core tile also meets the
 training shape's GQA (Hq 32, Hkv 4) at S 1024 and a ragged S 1000 at D 128,
 over which its q-tile double buffer wraps many times; the split path is
 bitwise deterministic at D 64 and D 128, and fused and split agree in bf16
-and float32.
+and float32. The decode step captured in a CUDA graph (generate.DecodeGraph)
+gives the eager step's logits and cache bytes exactly, for every cache kind
+and weight width; a captured server re-admits into a freed slot as a fresh
+server admits, replays once a decode step and counts each replay's
+launches, which the profiler sees run; the calibrations leave the caches alone; the timing harness,
+the profiler helper and the roofline's card detection work on the card.
 
 These tests need a CUDA device and skip without one. On the card:
 
@@ -38,6 +43,8 @@ order that changes between runs).
 """
 
 import ast
+import dataclasses
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -50,7 +57,9 @@ from flashattn_tpu_torch.models.config import LLAMA_1B, ModelConfig
 from flashattn_tpu_torch.models.serve import InferenceServer, Request
 from flashattn_tpu_torch.ops import (decode, flash_bwd, flash_bwd_fused, flash_fwd, kvcache,
                                      paged, quant_matmul)
+from flashattn_tpu_torch.ops import launches as launch_counters
 from flashattn_tpu_torch.ops.attention import flash_attention, plain_flash_attention
+from flashattn_tpu_torch.utils import roofline, timing
 from flashattn_tpu_torch.utils.verify import verify_results
 
 pytestmark = pytest.mark.cuda
@@ -709,3 +718,324 @@ def test_llama1b_quantized_paged_server_matches_dense(dev):
         if kind == "paged":
             assert srv.allocator.free_pages == 3
     assert got["paged"] == got["dense"]
+
+
+SMALL = dict(vocab_size=256, hidden_size=256, intermediate_size=512, num_layers=2,
+             num_heads=8, num_kv_heads=2, head_dim=64)
+
+
+def small_model(dev, bits=None, **overrides):
+    """A bf16 D-64 model with random weights, its projections quantized to
+    `bits` when given."""
+    cfg = ModelConfig(**SMALL, **overrides)
+    model = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    return llama.quantize_params(model, bits) if bits else model
+
+
+def filled_caches(model, quant, paged_kv, lengths, dev, max_len=512, page=64, steps=8):
+    """Caches of len(lengths) slots holding prefilled prompts of `lengths`
+    tokens: dense, or a pool of scrambled pages (the rest of each table row
+    the sentinel) with room for `steps` more tokens."""
+    cfg = model.cfg
+    slots, maxp = len(lengths), max_len // page
+    if paged_kv:
+        caches = [paged.init_paged_cache(slots, cfg.num_kv_heads, slots * maxp, page,
+                                         cfg.head_dim, maxp, dtype=cfg.dtype, quant=quant,
+                                         device=dev) for _ in range(cfg.num_layers)]
+        perm = torch.randperm(slots * maxp, generator=torch.Generator().manual_seed(5))
+    else:
+        caches = generate.init_caches(model, slots, max_len, quant=quant)
+    gen = torch.Generator().manual_seed(6)
+    for s, n in enumerate(lengths):
+        prompt = torch.randint(0, cfg.vocab_size, (1, n), generator=gen).to(dev)
+        _, single = generate.prefill(model, prompt,
+                                     generate.init_caches(model, 1, max_len, quant=quant))
+        own = paged.pages_needed(n + steps, page)
+        for cache, one in zip(caches, single):
+            if paged_kv:
+                table = perm[s * maxp:s * maxp + own].tolist() + [slots * maxp] * (maxp - own)
+                paged.write_slot_paged(cache, one, s, table)
+            else:
+                kvcache.write_slot(cache, one, s)
+    return caches
+
+
+def cache_bytes(caches):
+    """Every tensor of the caches (values, scales, tables, lengths) as raw bytes."""
+    return [t.view(torch.uint8) for c in caches for f in dataclasses.fields(c)
+            if (t := getattr(c, f.name)) is not None]
+
+
+def clone_caches(caches):
+    return [dataclasses.replace(c, **{f.name: getattr(c, f.name).clone()
+                                      for f in dataclasses.fields(c)
+                                      if getattr(c, f.name) is not None})
+            for c in caches]
+
+
+CAPTURE_CASES = {
+    # name: (weight bits, KV quant, paged, config overrides)
+    "bf16": (None, None, False, {}),
+    "int8_weights_int8_kv": (8, "int8", False, {}),
+    "fp8_kv": (None, "fp8", False, {}),
+    "int8_weights_int8_paged_kv": (8, "int8", True, {}),
+    "int4_weights": (4, None, False, {}),
+    # a 0-d CPU tensor scales the embedding (llama.embed_tokens)
+    "scaled_embeddings": (None, None, False, dict(scale_embeddings=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CAPTURE_CASES))
+def test_captured_decode_step_equals_eager(dev, case):
+    """chip_smoke.py's capture gate at a small width: from equal caches, 8
+    steps with other tokens, positions and active rows each step, the
+    replayed step's logits and every cache byte equal the eager step's (the
+    same kernels on the same shapes)."""
+    bits, quant, paged_kv, overrides = CAPTURE_CASES[case]
+    model = small_model(dev, bits, **overrides)
+    lengths = [5, 77, 300, 64]
+    eager = filled_caches(model, quant, paged_kv, lengths, dev)
+    graph = generate.DecodeGraph(model, clone_caches(eager))
+    gen = torch.Generator().manual_seed(7)
+    for i in range(8):
+        active = [(i + s) % 3 != 0 for s in range(len(lengths))]
+        token = torch.randint(0, model.cfg.vocab_size, (len(lengths),), generator=gen,
+                              dtype=torch.int32)
+        positions = torch.tensor(lengths, dtype=torch.int32)
+        act = torch.tensor(active)
+        ref, _ = generate.decode_step(model, token.to(dev), positions.to(dev), eager,
+                                      active=act.to(dev))
+        out = graph(token.to(dev), positions.pin_memory(), act.pin_memory())
+        torch.cuda.synchronize()
+        assert torch.equal(ref, out), f"step {i}: logits differ"
+        assert all(torch.equal(a, b) for a, b in zip(cache_bytes(eager),
+                                                     cache_bytes(graph.caches))), i
+        lengths = [n + a for n, a in zip(lengths, active)]
+    assert eager[0].length.tolist() == lengths
+    assert graph.replays == 9  # one at capture, one a step
+
+
+def test_decode_graph_refuses_cpu_caches(dev):
+    model = small_model(dev)
+    cpu = generate.init_caches(llama.Llama(model.cfg, device="cpu"), 2, 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        generate.DecodeGraph(model, cpu)
+
+
+@pytest.mark.parametrize("paged_kv", [False, True])
+def test_captured_server_readmits_into_a_freed_slot(dev, paged_kv):
+    """One slot, three requests admitted into it in turn under replay (the
+    cache rows, pages and tables written in place under the graph): each
+    request's tokens equal those of a fresh captured server that runs it
+    alone; every decode step is one replay."""
+    model = small_model(dev, 8)
+    kw = dict(max_slots=1, max_len=512, quant="int8")
+    if paged_kv:
+        kw.update(paged=True, page_size=64, num_pages=4)
+    gen = torch.Generator().manual_seed(8)
+    reqs = [(uid, torch.randint(0, 256, (n,), generator=gen).tolist(), new)
+            for uid, (n, new) in enumerate([(40, 12), (7, 20), (100, 9)])]
+    srv = InferenceServer(model, **kw)
+    for uid, prompt, n in reqs:
+        srv.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n))
+    got = srv.run()
+    assert srv.decode_graph().replays == srv.stats()["decode_steps"] + 1  # + the capture's
+    for uid, prompt, n in reqs:
+        fresh = InferenceServer(model, **kw)
+        fresh.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n))
+        assert fresh.run()[uid] == got[uid], uid
+
+
+def test_captured_server_runs_are_equal(dev):
+    """Two captured servers with 2 slots on 5 requests (slots recycle mid-
+    flight, admissions land between replays) give equal tokens; the first
+    is warmed up, the second captures at its first decode step."""
+    model = small_model(dev)
+    gen = torch.Generator().manual_seed(9)
+    reqs = [(uid, torch.randint(0, 256, (5 + 23 * uid,), generator=gen).tolist(), 6 + uid)
+            for uid in range(5)]
+    outs = []
+    for warm in (True, False):
+        srv = InferenceServer(model, max_slots=2, max_len=512)
+        if warm:
+            srv.warmup()
+            assert all(int(c.length.abs().sum()) == 0 for c in srv.caches)
+        for uid, prompt, n in reqs:
+            srv.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n))
+        outs.append(srv.run())
+        assert srv.decode_graph().replays == srv.stats()["decode_steps"] + 1
+    assert outs[0] == outs[1] and sorted(outs[0]) == list(range(5))
+
+
+def test_replays_count_the_captured_launches(dev):
+    """A replay adds what one eager step launches, and the capture itself
+    adds nothing: after N replays the counters moved by N x the deltas."""
+    model = small_model(dev, 8)
+    caches = generate.init_caches(model, 2, 256, quant="int8")
+    zeros = torch.zeros((2,), dtype=torch.int32, device=dev)
+    idle = torch.zeros((2,), dtype=torch.bool, device=dev)
+    before = launch_counters.read()
+    generate.decode_step(model, zeros, zeros, caches, active=idle)
+    step = {k: v - before[k] for k, v in launch_counters.read().items() if v != before[k]}
+    assert step == {"decode_int8": 2, "qmm8": 7 * 2 + 1}
+    before = launch_counters.read()
+    graph = generate.DecodeGraph(model, caches)  # an eager step, the capture, a replay
+    assert graph.launches == step
+    for _ in range(5):
+        graph.replay()
+    torch.cuda.synchronize()
+    after = launch_counters.read()
+    assert {k: v - before[k] for k, v in after.items() if v != before[k]} == {
+        k: 7 * v for k, v in step.items()}
+
+
+REPLAY_PROFILE = r"""
+import collections, json, sys
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile, record_function
+from flashattn_tpu_torch.models import generate, llama
+from flashattn_tpu_torch.models.config import ModelConfig
+from flashattn_tpu_torch.ops import launches
+
+N = int(sys.argv[1])
+cfg = ModelConfig(**json.loads(sys.argv[2]))
+model = llama.quantize_params(
+    llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda"), 8)
+caches = generate.init_caches(model, 2, 1024, quant="int8")
+for c in caches:
+    c.length.copy_(torch.tensor([300, 1000], dtype=torch.int32))
+graph = generate.DecodeGraph(model, caches)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with record_function("run.eager"):  # the step the graph holds, on its buffers
+        generate.decode_step(model, graph.token, graph.positions, caches, active=graph.active)
+        torch.cuda.synchronize()
+    before = launches.read()
+    with record_function("run.replay"):
+        for _ in range(N):
+            graph.replay()
+        torch.cuda.synchronize()
+    after = launches.read()
+PORT = ["decode_mma_kernel", "decode_merge_kernel", "qmm_splitk_kernel", "qmm_reduce_kernel"]
+events = prof.events()
+ranges = {e.name[4:]: e.time_range for e in events if e.name.startswith("run.")}
+kernels = {run: collections.Counter() for run in ranges}
+for e in events:
+    if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+        for run, r in ranges.items():
+            if r.start <= e.time_range.start <= r.end:
+                kernels[run].update(k for k in PORT if k in e.name)
+print(json.dumps({"deltas": graph.launches, "counted": {
+    k: after[k] - before[k] for k in after if after[k] != before[k]},
+    "eager": kernels["eager"], "replay": kernels["replay"]}))
+"""
+
+
+def test_replays_run_the_captured_kernels(dev):
+    """On the card, N replays run N x the eager step's instances of the
+    port's kernels (K2's split and merge kernels, qmm8's split-K kernel
+    and its reduction), as torch.profiler records them, and the counters
+    move by N x the capture's deltas: one K2 split kernel a decode_int8
+    launch, one split-K kernel a qmm8 launch. Profiled in a process of its
+    own, as test_flash_fwd_launches_only_its_kernel."""
+    n = 5
+    out = subprocess.run([sys.executable, "-c", REPLAY_PROFILE, str(n), json.dumps(SMALL)],
+                         capture_output=True, text=True, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    deltas, eager, replay = got["deltas"], got["eager"], got["replay"]
+    assert got["counted"] == {k: n * v for k, v in deltas.items()}
+    assert set(deltas) == {"decode_int8", "qmm8"}
+    port = ["decode_mma_kernel", "decode_merge_kernel", "qmm_splitk_kernel",
+            "qmm_reduce_kernel"]
+    assert all(eager.get(k, 0) > 0 for k in port), eager
+    assert eager["decode_mma_kernel"] == deltas["decode_int8"], eager
+    assert eager["qmm_splitk_kernel"] == deltas["qmm8"], eager
+    assert all(replay.get(k, 0) == n * eager[k] for k in port), (replay, eager)
+
+
+def test_calibrations_leave_the_server_alone(dev):
+    """calibrate_device_step (one chain, and the two-chain slope) and
+    calibrate_admit on the card: positive times, and every live cache byte,
+    table and length as before, mid-flight; the run then ends with the
+    tokens of a server that never calibrated."""
+    model = small_model(dev, 8)
+    kw = dict(max_slots=2, max_len=512, quant="int8", paged=True, page_size=64)
+    reqs = [(0, list(range(3, 40)), 9), (1, list(range(100, 180)), 12)]
+    outs = []
+    for calibrated in (True, False):
+        srv = InferenceServer(model, **kw)
+        for uid, prompt, n in reqs:
+            srv.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n))
+        for _ in range(4):
+            srv.step()
+        if calibrated:
+            before = [t.clone() for t in cache_bytes(srv.caches)]
+            assert srv.calibrate_device_step(iters=4) > 0
+            assert srv.calibrate_device_step(iters=50) > 0
+            st = srv.stats()
+            assert st["device_step_ms"] > 0 and st["device_tokens_per_s_bound"] > 0
+            admit = srv.calibrate_admit(prompt_len=300, prefix_len=128, iters=2)
+            assert all(v > 0 for v in admit.values()), admit
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(before, cache_bytes(srv.caches)))
+        outs.append(srv.run())
+    assert outs[0] == outs[1]
+
+
+def test_measure_looped_times_the_device_and_counts_replays(dev):
+    """measure_looped on a K2 call: a graph of 20 calls timed by events,
+    close to cuda_time_ms's reading, and the decode counter moved by the
+    launches that ran (the warm-up call and 3 replays of 20); cuda_time_ms
+    counts its replays the same way."""
+    cache = quantized_cache("int8", 4, 4, 2048, 64, [1, 77, 1500, 2048], dev)
+    q = randn((4, 32, 64), torch.bfloat16, dev, 90)
+    before = decode.INT8_LAUNCHES
+    t = timing.measure_looped(lambda q: decode.decode_attention(q, cache), q, iters=20,
+                              repeats=2)
+    assert decode.INT8_LAUNCHES - before == 1 + 3 * 20
+    before = decode.INT8_LAUNCHES
+    ref = timing.cuda_time_ms(lambda: decode.decode_attention(q, cache)) / 1e3
+    # 3 warm-up calls, then 20 a replay: the upload's and the 5 timed.
+    assert decode.INT8_LAUNCHES - before == 3 + (1 + 5) * 20
+    assert ref / 3 < t < ref * 3, (t, ref)
+    slope = timing.measure_looped_slope(lambda q: decode.decode_attention(q, cache), q,
+                                        est=ref, repeats=1)
+    assert ref / 3 < slope < ref * 3, (slope, ref)
+
+
+PROFILE_FN = r"""
+import json, glob, sys
+import torch
+from flashattn_tpu_torch.ops import decode, kvcache
+from flashattn_tpu_torch.utils.profiling import profile_fn
+cache = kvcache.init_cache(2, 2, 256, 64)
+cache.length.fill_(100)
+q = torch.randn((2, 8, 64), dtype=torch.bfloat16, device="cuda")
+log_dir = profile_fn(lambda q: decode.decode_attention(q, cache), q, log_dir=sys.argv[1])
+events = json.load(open(glob.glob(log_dir + "/*.pt.trace.json")[0]))["traceEvents"]
+print(sorted({e["name"] for e in events if e.get("cat") == "kernel"}))
+"""
+
+
+def test_profile_fn_traces_the_card(dev, tmp_path):
+    """profile_fn's trace holds K2's kernels as device events (in a process
+    of its own: a second profiler session in the test process may record
+    no device event)."""
+    out = subprocess.run([sys.executable, "-c", PROFILE_FN, str(tmp_path / "trace")],
+                         capture_output=True, text=True, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    kernels = ast.literal_eval(out.stdout.strip().splitlines()[-1])
+    assert any("decode_mma_kernel" in k for k in kernels), kernels
+
+
+def test_detect_chip_on_the_card(dev):
+    name = torch.cuda.get_device_name(0)
+    if "H100" not in name:
+        with pytest.raises(ValueError, match="no roofline spec"):
+            roofline.detect_chip()
+        return
+    spec = roofline.detect_chip()
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    assert spec.bf16_tflops == 989.0 and spec.hbm_gib == total

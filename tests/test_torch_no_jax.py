@@ -1,8 +1,9 @@
 """The port imports no JAX: every module of flashattn_tpu_torch, and
 chip_smoke.py, import and run on the CPU in a process where `import jax`
-fails (generation, the server, two training steps, and the quantized paged
-server with a shared prefix and chunked admission). A CPU call takes the
-plain versions and launches no kernel."""
+fails (generation, the server, two training steps, the quantized paged
+server with a shared prefix and chunked admission, its calibrations, the
+timing harness and the roofline). A CPU call takes the plain versions and
+launches no kernel."""
 
 import os
 import subprocess
@@ -49,6 +50,13 @@ out = srv.run()
 assert len(out[1]) == len(out[2]) == 3 and len(srv.finished_logprobs[1]) == 3
 srv.unregister_prefix(pid)
 assert srv.allocator.free_pages == srv.allocator.num_pages
+# The server's calibrations, the timing harness and the roofline.
+assert srv.calibrate_device_step(iters=2) > 0 and srv.stats()["device_step_ms"] > 0
+assert srv.calibrate_admit(prompt_len=130, prefix_len=64, iters=1)["device_speedup"] > 0
+from flashattn_tpu_torch.utils import roofline, timing
+assert roofline.attention_fwd_roofline(1, 2, 2, 64, 64, 64, True,
+                                       chip=roofline.H100_SXM).bound_ms > 0
+assert timing.measure_looped(torch.matmul, torch.ones(4, 4), torch.ones(4, 4), iters=3) > 0
 counts = (flash_fwd.LAUNCHES, decode.LAUNCHES, decode.INT8_LAUNCHES, decode.FP8_LAUNCHES,
           paged.LAUNCHES, quant_matmul.QMM8_LAUNCHES, quant_matmul.QMM4_LAUNCHES,
           flash_bwd.DQ_LAUNCHES, flash_bwd.DKV_LAUNCHES, flash_bwd_fused.LAUNCHES)

@@ -158,7 +158,39 @@ def test_append_inactive_and_past_capacity_bit_equal(active):
     assert int(pp.length[1]) == 164
 
 
-def test_write_pages_with_sentinels_and_slot_install_bit_equal():
+@pytest.mark.parametrize("active", [None, [True, False], [False, True], [False, False]])
+@pytest.mark.parametrize("quant", [None, "int8", "fp8"])
+def test_append_dead_tokens_of_every_kind_bit_equal(quant, active):
+    """One append holding every token the JAX scatter drops beside live
+    ones: slot 0 runs past its table's last block, slot 1's second block is
+    the sentinel (unowned), and a row may be inactive, or both. The port
+    writes in fixed shapes, each dead token repeating a live token's write
+    (or, with none live, a cell's own bytes); the pool, table, lengths and
+    scales must equal JAX's."""
+    _, jp, _, pp = make_all([PAGE * MAX_PAGES - 20, 100], quant, seed=12)
+    table = [int(pp.block_table[1, 0]), NUM_PAGES] + pp.block_table[1, 2:].tolist()
+    jp = jax_paged.set_block_table(jp, 1, jnp.asarray(table, jnp.int32), 100)
+    paged.set_block_table(pp, 1, table, 100)
+    rng = np.random.default_rng(13)
+    k_new = rng.standard_normal((B, HKV, 64, D), dtype=np.float32)
+    v_new = rng.standard_normal((B, HKV, 64, D), dtype=np.float32)
+    act = None if active is None else np.asarray(active)
+    jp = jax_paged.append_paged(jp, jnp.asarray(k_new), jnp.asarray(v_new),
+                                active=None if act is None else jnp.asarray(act))
+    paged.append_paged(pp, torch.from_numpy(k_new), torch.from_numpy(v_new),
+                       active=None if act is None else torch.from_numpy(act))
+    assert_same(pp, jp, PAGED_FIELDS)
+
+
+@pytest.mark.parametrize("as_tensor", [False, True])
+def test_write_pages_with_sentinels_and_slot_install_bit_equal(as_tensor):
+    """A host list drops the unowned entries on the host; a tensor on the
+    cache's device scatters in fixed shapes (capturable). Both bit-equal to
+    JAX."""
+
+    def arg(entries):
+        return torch.tensor(entries, dtype=torch.int32) if as_tensor else entries
+
     _, jp, _, pp = make_all([200, 100], "int8", seed=5)
     rng = np.random.default_rng(11)
     n = PAGE * MAX_PAGES
@@ -172,11 +204,11 @@ def test_write_pages_with_sentinels_and_slot_install_bit_equal():
         torch.from_numpy(x), torch.from_numpy(y))
     pages = [5, NUM_PAGES, 2]  # the middle block is unowned: dropped
     jp = jax_paged.write_pages(jp, jsingle, jnp.asarray(pages, jnp.int32), first_block=1)
-    assert paged.write_pages(pp, psingle, pages, first_block=1) is pp
+    assert paged.write_pages(pp, psingle, arg(pages), first_block=1) is pp
     assert_same(pp, jp, PAGED_FIELDS)
     table = [1, 0, NUM_PAGES, NUM_PAGES]
     jp = jax_paged.write_slot_paged(jp, jsingle, 1, jnp.asarray(table, jnp.int32))
-    paged.write_slot_paged(pp, psingle, 1, table)
+    paged.write_slot_paged(pp, psingle, 1, arg(table))
     assert_same(pp, jp, PAGED_FIELDS)
     assert int(pp.length[1]) == n and pp.block_table[1].tolist() == table
 

@@ -232,3 +232,81 @@ def test_warmup_leaves_no_state(models):
     assert all(int(c.length.abs().sum()) == 0 for c in srv.caches)
     srv.submit(Request(uid=1, prompt=[3, 1, 4, 1, 5], max_new_tokens=6))
     assert srv.run()[1] == isolated(model, [3, 1, 4, 1, 5], 6)
+
+
+def cache_bytes(srv) -> list[torch.Tensor]:
+    """Copies of every tensor of the server's caches (values, scales, tables
+    and lengths), as raw bytes."""
+    out = []
+    for cache in srv.caches:
+        for name in ("k", "v", "k_pages", "v_pages", "k_scale", "v_scale", "block_table",
+                     "length"):
+            t = getattr(cache, name, None)
+            if t is not None:
+                out.append(t.view(torch.uint8).clone())
+    return out
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_step_timing_and_device_calibration(models, quant):
+    """tests/test_serve.py's calibration test: the step timers fill in, and
+    calibrate_device_step gives stats() a positive device_step_ms and
+    tokens/s bound. The port's timed step runs with every slot inactive and
+    leaves every cache byte as it was (a request is still decoding)."""
+    _, _, model = models
+    srv = InferenceServer(model, max_slots=2, max_len=512, quant=quant)
+    srv.submit(Request(uid=0, prompt=[5, 9, 3], max_new_tokens=4))
+    srv.submit(Request(uid=1, prompt=[7, 1], max_new_tokens=9))
+    for _ in range(4):
+        srv.step()
+    st = srv.stats()
+    assert st["steps"] > 0 and st["decode_ms_avg"] > 0 and st["wall_tokens_per_s"] > 0
+    assert 0.0 <= st["sched_overhead_frac"] <= 1.0
+    assert "device_step_ms" not in st
+    before = cache_bytes(srv)
+    tokens = srv.tokens.clone()
+    assert srv.calibrate_device_step(iters=8) > 0
+    assert all(torch.equal(a, b) for a, b in zip(before, cache_bytes(srv)))
+    assert torch.equal(tokens, srv.tokens)
+    st = srv.stats()
+    assert st["device_step_ms"] > 0 and st["device_tokens_per_s_bound"] > 0
+    out = srv.run()  # the calibration left the live request's state alone
+    assert out[1] == isolated(model, [7, 1], 9, quant)
+
+
+def test_device_step_fn_takes_the_servers_own_tensors(models):
+    """The port's form of tests/test_serve.py's no-weight-constants test: the
+    timed step's arguments are the server's own token buffer, model and
+    caches, not copies."""
+    _, _, model = models
+    srv = InferenceServer(model, max_slots=2, max_len=512, paged=True, page_size=128)
+    srv.submit(Request(uid=0, prompt=[5, 9, 3], max_new_tokens=2))
+    srv.run()
+    fn, (tokens, m, caches) = srv.device_step_fn()
+    assert tokens.data_ptr() == srv.tokens.data_ptr() and m is srv.model
+    assert len(caches) == len(srv.caches)
+    for c, own in zip(caches, srv.caches):
+        for name in ("k_pages", "v_pages", "block_table", "length"):
+            assert getattr(c, name).data_ptr() == getattr(own, name).data_ptr(), name
+    logits = fn(tokens, m, caches)
+    assert logits.shape == (2, CFG_KW["vocab_size"])
+
+
+def test_calibrate_admit_prefix_device_timing(models):
+    """tests/test_serve.py's calibrate_admit test: both paths' ms and the
+    speedup, positive, and no live pool page, table or length touched."""
+    _, _, model = models
+    srv = InferenceServer(model, max_slots=2, max_len=512, paged=True, page_size=128)
+    srv.submit(Request(uid=0, prompt=list(range(40)), max_new_tokens=3))
+    srv.step()
+    before = cache_bytes(srv)
+    out = srv.calibrate_admit(prompt_len=384, prefix_len=128, iters=2)
+    assert set(out) == {"prefill_ms_replicated", "prefill_ms_shared", "device_speedup"}
+    assert out["prefill_ms_replicated"] > 0 and out["prefill_ms_shared"] > 0
+    assert out["device_speedup"] > 0
+    assert all(torch.equal(a, b) for a, b in zip(before, cache_bytes(srv)))
+    with pytest.raises(ValueError, match="whole pages"):
+        srv.calibrate_admit(prompt_len=384, prefix_len=100, iters=2)
+    dense = InferenceServer(model, max_slots=1, max_len=512)
+    with pytest.raises(ValueError, match="paged"):
+        dense.calibrate_admit(prompt_len=384, prefix_len=128, iters=2)
