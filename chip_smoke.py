@@ -5,7 +5,7 @@ NVIDIA GPU.
     python3 chip_smoke.py
 
 Builds the five CUDA libraries from csrc/ (into build/flashattn_tpu_torch/,
-one nvcc each, all at once) and runs nine phases, printing one line per
+one nvcc each, all at once) and runs ten phases, printing one line per
 check:
 
 1. environment: torch/CUDA versions, the card's name and power limit, the
@@ -13,8 +13,9 @@ check:
    tensor-core kernels and the split-K kernel, no wgmma serialized), and
    the tensor-core instructions (HMMA/HGMMA/IMMA) in the SASS of each
    tensor-core kernel, which must be there for K1's bf16 kernel (HGMMA, at
-   D 64 and D 128), the bf16 fused, dQ and dK/dV kernels, qmm8's and qmm4's M > 16 kernels and every instantiation of
-   K2's;
+   D 64 and D 128, with and without a window), the bf16 fused, dQ and dK/dV
+   kernels, qmm8's and qmm4's M > 16 kernels and every instantiation of
+   K2's (with and without a window);
 2. each kernel against its plain PyTorch version on the card, at the
    serving and training paths' shapes and at their edges (K1 also at every
    backward case, where it makes the backward's O and LSE, and timed at the
@@ -29,7 +30,15 @@ check:
    dequantized bf16 cache for the quantized K2, with a length mask at T 1
    and a bottom-right causal mask for K2 int8 at T 256, or torch.matmul on
    the dequantized weight; timed only, never used by the port) timed on
-   the card; each bound from utils/roofline.py;
+   the card; each bound from utils/roofline.py; then the sliding window at
+   MISTRAL_7B's widths (window_kernels): K1 at B 1, Hq 32, Hkv 8, D 128,
+   S 4608 with windows 1, 63, 64, 65, 1000, 4096 and 8192 (past S), with
+   S_q != S_k and a pos_offset, and its float32 kernel at a small shape;
+   K2 at B 4, Hq 32, Hkv 8, D 128, Smax 8192, window 4096, 0 and 4 sinks,
+   lengths on both sides of the window, bf16/f32/int8/fp8 caches at T 1
+   and T 256, the paged K2 torch.equal to the dense K2 in each; each timed
+   beside SDPA with an explicit boolean window mask, and K2 at length 8192
+   held to at most 0.8 of the same call without a window;
 3. LLAMA_1B at full width (random weights from a seed): prefill of a
    150-token prompt and 4 teacher-forced decode steps through the kernels,
    against the same run with every kernel call on its plain version;
@@ -55,9 +64,18 @@ check:
 8. train.train for 6 AdamW steps on one repeated batch with the
    deterministic split backward selected by FLASHATTN_BWD_IMPL=split, the
    loss falling; ms, tokens/s and peak memory per step;
-9. the `kernels` JSON line: every kernel with its launches on the path that
+9. MISTRAL_7B at full width (32 layers, GQA 32/8, D 128, window 4096;
+   random weights from the seed, about 14.5 GB in bf16): a 4,608-token
+   prefill and 4 teacher-forced decode steps through the windowed kernels
+   against the plain route under phase 3's logits rule; the bf16
+   InferenceServer with 2 slots, max_len 8192 and captured decode on 4
+   requests of 4,200-6,000 prompt tokens and 32 new tokens; the same
+   traffic on the int8-KV paged server (pages of 256, admit_chunk 256, a
+   registered 1,024-token prefix before two prompts); tokens/s,
+   device_step_ms and the windowed launch counts, which must be > 0;
+10. the `kernels` JSON line: every kernel with its launches on the path that
    runs it, its error against its plain version, its time, bound, plain and
-   library times.
+   library times (the windowed K1, K2 and paged K2 from phases 2 and 9).
 
 Any failed check raises: the script then exits nonzero and does not print
 its last line. It needs a CUDA device and never falls back to the CPU. The
@@ -69,6 +87,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -82,7 +101,7 @@ import torch
 import torch.nn.functional as F
 
 from flashattn_tpu_torch.models import generate, llama, train
-from flashattn_tpu_torch.models.config import LLAMA_1B
+from flashattn_tpu_torch.models.config import LLAMA_1B, MISTRAL_7B
 from flashattn_tpu_torch.models.llama import init_params
 from flashattn_tpu_torch.models.serve import InferenceServer, Request
 from flashattn_tpu_torch.ops import (_build, decode, flash_bwd, flash_bwd_fused, flash_fwd,
@@ -170,14 +189,15 @@ def phase_environment() -> str:
                 print(f"[env] SASS {kernel}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA, "
                       f"{n['IMMA']} IMMA")
                 mma[kernel] = n
-    families = {"flash_fwd_wgmma_kernel": 2, "flash_bwd": 6, "qmm_mma_kernel": 4,
-                "decode_mma_kernel": 20}
+    families = {"flash_fwd_wgmma_kernel": 4, "flash_bwd": 6, "qmm_mma_kernel": 4,
+                "decode_mma_kernel": 40}
     counted = {f: sum(k.startswith(f) for k in mma) for f in families}
     check(counted == families and all(sum(n.values()) for n in mma.values()),
-          "K1's bf16 kernel (D 64 and D 128), the bf16 fused, dQ "
+          "K1's bf16 kernel (D 64 and D 128, with and without a window), the bf16 fused, dQ "
           "and dK/dV kernels (D 64 and 128), qmm8's and qmm4's M > 16 kernels (bf16 and "
           "float32 y) and every K2 tensor-core instantiation (bf16, int8 and fp8 caches, D 64 "
-          f"and 128, both row layouts) must run on the tensor cores: {mma}")
+          "and 128, both row layouts, with and without a window) must run on the tensor "
+          f"cores: {mma}")
     check(all(n["HGMMA"] for k, n in mma.items() if k.startswith("flash_fwd_wgmma_kernel")),
           f"K1's bf16 kernel must run on wgmma (HGMMA): {mma}")
     return name
@@ -218,9 +238,11 @@ def kernel_label(mangled: str) -> str:
         break
     else:
         return mangled
-    types = {"13__nv_bfloat16": "bf16", "13__nv_fp8_e4m3": "fp8", "f": "float", "a": "int8"}
+    types = {"13__nv_bfloat16": "bf16", "13__nv_fp8_e4m3": "fp8", "f": "float", "a": "int8",
+             "Lb0": "false", "Lb1": "true"}
     args = []
-    for t in re.finditer(r"13__nv_bfloat16|13__nv_fp8_e4m3|S\d*_|Li(\d+)|f|a", m.group(1)):
+    for t in re.finditer(r"13__nv_bfloat16|13__nv_fp8_e4m3|S\d*_|Li(\d+)|Lb[01]|f|a",
+                         m.group(1)):
         # S_, S0_, ... repeat a type already named: the first, in these kernels
         args.append(t.group(1) or (args[0] if t.group(0).startswith("S") else types[t.group(0)]))
     return f"{name}<{', '.join(args)}>"
@@ -357,6 +379,7 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
     timed.update(quantized_decode_kernels(gen))
     timed.update(paged_decode_kernel(gen))
     timed.update(quant_matmul_kernels(gen))
+    timed.update(window_kernels(gen))
     return timed
 
 
@@ -628,6 +651,177 @@ def paged_decode_kernel(gen: torch.Generator) -> dict[str, dict]:
                                  **lim)}
 
 
+# The sliding window at MISTRAL_7B's widths (phase 2's window gates).
+WIN = MISTRAL_7B.attn_window  # 4096
+K1W_SHAPE = (1, 32, 8, 4608, 128)  # B, Hq, Hkv, S, D: the phase-9 prefill
+K1W_WINDOWS = (1, 63, 64, 65, 1000, WIN, 2 * WIN)  # the last one past S
+K2W_B, K2W_HQ, K2W_HKV, K2W_D, K2W_SMAX = 4, 32, 8, 128, MISTRAL_7B.max_seq_len
+K2W_LENGTHS = [1, WIN - 96, WIN + 1, K2W_SMAX]  # on both sides of the window
+K2W_SINKS = (0, 4)
+F32_TOL = dict(atol=1e-4, rtol=1e-4)  # fp32 sums in another order, exp2 against exp
+WINDOW_GAIN = 0.8  # K2 at length 8192, window 4096: at most this share of the unwindowed call
+
+
+def window_kernels(gen: torch.Generator) -> dict[str, dict]:
+    """K1, K2 and the paged K2 with a sliding window (and sinks) against
+    their plain versions, then timed (window_k1, window_k2)."""
+    out = {"flash_fwd_window": window_k1(gen)}
+    out.update(window_k2(gen))
+    return out
+
+
+def window_mask(s_q: int, s_k: int, window: int) -> torch.Tensor:
+    """SDPA's boolean [S_q, S_k] mask of a bottom-right causal window."""
+    r = torch.arange(s_q, device="cuda")[:, None] + (s_k - s_q)
+    c = torch.arange(s_k, device="cuda")[None, :]
+    return (c <= r) & (c > r - window)
+
+
+def window_k1(gen: torch.Generator) -> dict:
+    """K1 with a window at the Mistral prefill shape, every window of
+    K1W_WINDOWS (O and LSE), then S_q 1024 against S_k 4608 with
+    pos_offset 3000 and window 1000, then the float32 kernel at a small
+    shape; timed at window 4096 without the LSE, as the prefill calls it."""
+    b, hq, hkv, s, d = K1W_SHAPE
+    q, k, v = (randn((b, h, s, d), gen) for h in (hq, hkv, hkv))
+    err = 0.0
+    cases = [(w, q, None) for w in K1W_WINDOWS] + [(1000, q[:, :, :1024].contiguous(), 3000)]
+    for w, qc, off in cases:
+        o, lse = flash_fwd.flash_attention_forward(qc, k, v, True, pos_offset=off, window=w)
+        o_ref, lse_ref = flash_fwd.flash_attention_forward_reference(qc, k, v, True,
+                                                                     pos_offset=off, window=w)
+        torch.cuda.synchronize()
+        tag = (f"K1 window={w} B={b} Hq={hq} Hkv={hkv} Sq={qc.shape[2]} Sk={s} D={d} "
+               f"pos_offset={off}")
+        err = max(err, _gate(tag + " O", o_ref, o, O_ATOL))
+        _gate(tag + " LSE", lse_ref, lse, LSE_ATOL)
+        del o, lse, o_ref, lse_ref
+    qf, kf, vf = (randn((1, h, 300, 64), gen, torch.float32) for h in (4, 2, 2))
+    o, lse = flash_fwd.flash_attention_forward(qf, kf, vf, True, window=65)
+    o_ref, lse_ref = flash_fwd.flash_attention_forward_reference(qf, kf, vf, True, window=65)
+    torch.cuda.synchronize()
+    tag = "K1 float32 window=65 B=1 Hq=4 Hkv=2 S=300 D=64"
+    _gate(tag + " O", o_ref, o, **F32_TOL)
+    _gate(tag + " LSE", lse_ref, lse, LSE_ATOL)
+
+    ms = cuda_time_ms(lambda: flash_fwd.flash_attention_forward(q, k, v, True, need_lse=False,
+                                                                window=WIN))
+    # The plain version by events around eager calls: a graph of its calls
+    # would hold several of its 2.7 GB score matrices in its pool.
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = event_time_ms(lambda: flash_fwd.flash_attention_forward_reference(
+        q, k, v, True, need_lse=False, window=WIN), warmup=1, iters=2)
+    mask = window_mask(s, s, WIN)
+    lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                              enable_gqa=True),
+                       warmup=1, iters=3, reps=3)
+    report = roofline.attention_fwd_roofline(b, hq, hkv, s, s, d, True, need_lse=False,
+                                             window=WIN)
+    lim = bound(report)
+    print(f"[kernels] K1 window={WIN} B={b} Hq={hq} Hkv={hkv} S={s} D={d} without LSE: kernel "
+          f"{ms:.4f} ms ({report.flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s of the window's "
+          f"pairs), bound {lim['bound_ms']:.5f} ms by {lim['bound_by']}, plain {plain:.4f} ms, "
+          f"SDPA with a boolean window mask {lib:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, **lim)
+
+
+def window_cache(mode: str, gen: torch.Generator, lengths: list[int]) -> KVCache:
+    """A K2W-shaped cache in `mode` (bf16, f32, int8, fp8) holding `lengths`
+    tokens, NaN past each length (fp8 code 0x7f and NaN scales when
+    quantized)."""
+    shape = (K2W_B, K2W_HKV, K2W_SMAX, K2W_D)
+    length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    if mode in ("bf16", "f32"):
+        dtype = torch.float32 if mode == "f32" else torch.bfloat16
+        cache = KVCache(k=randn(shape, gen, dtype), v=randn(shape, gen, dtype), length=length)
+    else:
+        cache = kvcache.init_cache(K2W_B, K2W_HKV, K2W_SMAX, K2W_D, quant=mode)
+        kvcache.update_cache(cache, randn(shape, gen), randn(shape, gen), assume_fits=True)
+        cache.length.copy_(length)
+    for i, n in enumerate(lengths):
+        if mode == "fp8":
+            cache.k.view(torch.uint8)[i, :, n:] = 0x7F
+            cache.v.view(torch.uint8)[i, :, n:] = 0x7F
+        if cache.quantized:
+            cache.k_scale[i, :, :, n:] = float("nan")
+            cache.v_scale[i, :, :, n:] = float("nan")
+        else:
+            cache.k[i, :, n:] = float("nan")
+            cache.v[i, :, n:] = float("nan")
+    return cache
+
+
+def window_k2(gen: torch.Generator) -> dict[str, dict]:
+    """K2 with window 4096 and 0 or 4 sinks at lengths on both sides of the
+    window, in all four cache modes at T 1 and T 256, against its plain
+    version (int8 P requantized per 64-position tile, as the kernel does),
+    and the paged K2 (pages of 256, scrambled) torch.equal to it; then both
+    timed at T 1 on full 8192-token bf16 caches, and K2 there held to at
+    most WINDOW_GAIN of the same call without a window (the live bytes
+    halve: the dead tiles are not read)."""
+    err = {"decode_window": 0.0, "paged_decode_window": 0.0}
+    for mode in ("bf16", "f32", "int8", "fp8"):
+        cache = window_cache(mode, gen, K2W_LENGTHS)
+        pool = paged_copy(cache, gen)
+        dtype = torch.float32 if mode == "f32" else torch.bfloat16
+        tol = (QUANT_DECODE_TOL if cache.quantized else
+               F32_TOL if mode == "f32" else dict(atol=O_ATOL))
+        for sink in K2W_SINKS:
+            for t in (1, 256):
+                q = randn((K2W_B, K2W_HQ, t, K2W_D), gen, dtype)
+                kw = dict(window=WIN, sink=sink)
+                o = (decode.decode_attention(q[:, :, 0].contiguous(), cache, **kw)[:, :, None]
+                     if t == 1 else decode.decode_attention_chunk(q, cache, **kw))
+                o_paged = paged.paged_decode_attention_chunk(q, pool, **kw)
+                ref = decode.decode_attention_reference(q, cache, requant_block=decode.BLOCK_KV,
+                                                        **kw)
+                torch.cuda.synchronize()
+                tag = (f"K2 {mode} window={WIN} sink={sink} B={K2W_B} Hq={K2W_HQ} "
+                       f"Hkv={K2W_HKV} D={K2W_D} Smax={K2W_SMAX} T={t} lengths={K2W_LENGTHS}")
+                check(bool(torch.isfinite(o).all()), f"{tag}: non-finite output")
+                e = _gate(tag, ref, o, **tol)
+                err["decode_window"] = max(err["decode_window"], e)
+                check(torch.equal(o_paged, o), f"paged {tag}: differs from the dense K2")
+                err["paged_decode_window"] = max(err["paged_decode_window"], e)
+                print(f"[kernels] paged {tag} (pages of {PAGE}, scrambled): torch.equal to "
+                      "the dense K2")
+                del q, o, o_paged, ref
+        del cache, pool
+
+    full = window_cache("bf16", gen, [K2W_SMAX] * K2W_B)
+    pool = paged_copy(full, gen)
+    qd = randn((K2W_B, K2W_HQ, K2W_D), gen)
+    sink = K2W_SINKS[-1]
+    kw = dict(window=WIN, sink=sink)
+    ms = cuda_time_ms(lambda: decode.decode_attention(qd, full, **kw))
+    no_window = cuda_time_ms(lambda: decode.decode_attention(qd, full))
+    paged_ms = cuda_time_ms(lambda: paged.paged_decode_attention(qd, pool, **kw))
+    plain = cuda_time_ms(lambda: decode.decode_attention_reference(qd[:, :, None], full, **kw))
+    paged_plain = cuda_time_ms(lambda: paged.paged_decode_reference(qd[:, :, None], pool, **kw))
+    pos = torch.arange(K2W_SMAX, device="cuda")
+    row = (full.length - 1)[:, None]
+    mask = ((pos[None] <= row) & ((pos[None] > row - WIN) | (pos[None] < sink)))[:, None, None]
+    lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qd[:, :, None], full.k, full.v, attn_mask=mask, enable_gqa=True))
+    lim = bound(roofline.decode_roofline(K2W_B, K2W_HQ, K2W_HKV, K2W_D, [K2W_SMAX] * K2W_B,
+                                         window=WIN, sink=sink))
+    tag = (f"K2 bf16 window={WIN} sink={sink} B={K2W_B} Hq={K2W_HQ} Hkv={K2W_HKV} D={K2W_D} "
+           f"T=1, every length {K2W_SMAX}")
+    print(f"[kernels] {tag}: kernel {ms:.4f} ms, the same call without a window {no_window:.4f} "
+          f"ms (ratio {ms / no_window:.3f}, must be <= {WINDOW_GAIN}); paged {paged_ms:.4f} ms; "
+          f"plain {plain:.4f} ms, paged plain {paged_plain:.4f} ms; bound {lim['bound_ms']:.5f} "
+          f"ms by {lim['bound_by']}; SDPA with a boolean window mask {lib:.4f} ms")
+    check(ms <= WINDOW_GAIN * no_window,
+          f"{tag}: {ms:.4f} ms is more than {WINDOW_GAIN} x the unwindowed {no_window:.4f} ms")
+    return {
+        "decode_window": dict(max_abs_err=err["decode_window"], ms=ms, plain_ms=plain,
+                              library_ms=lib, **lim),
+        "paged_decode_window": dict(max_abs_err=err["paged_decode_window"], ms=paged_ms,
+                                    plain_ms=paged_plain, library_ms=lib, **lim),
+    }
+
+
 # qmm8's and qmm4's M: the decode batch's split-K kernel up to 16 (1, 4 and
 # 16 take its three row counts), the tensor cores from 17 (a prefill bucket,
 # the 4-request chunk step at 1024).
@@ -782,19 +976,23 @@ def time_backward(q, k, v, o, do, lse):
 
 _ROUTED = {  # generation's kernel entry points -> their plain versions
     (generate, "flash_attention"): (
-        lambda q, k, v, is_causal=False, scale=None:
+        lambda q, k, v, is_causal=False, scale=None, window=None:
         flash_fwd.flash_attention_forward_reference(q, k, v, is_causal, scale,
-                                                    need_lse=False)[0]),
+                                                    need_lse=False, window=window)[0]),
     (generate, "decode_attention"): (
-        lambda q, cache, scale=None:
-        decode.decode_attention_reference(q[:, :, None], cache, scale)[:, :, 0]),
+        lambda q, cache, scale=None, window=None, sink=0:
+        decode.decode_attention_reference(q[:, :, None], cache, scale, window=window,
+                                          sink=sink)[:, :, 0]),
     (generate, "decode_attention_chunk"): (
-        lambda q, cache, scale=None: decode.decode_attention_reference(q, cache, scale)),
+        lambda q, cache, scale=None, window=None, sink=0:
+        decode.decode_attention_reference(q, cache, scale, window=window, sink=sink)),
     (generate, "paged_decode_attention"): (
-        lambda q, cache, scale=None:
-        paged.paged_decode_reference(q[:, :, None], cache, scale)[:, :, 0]),
+        lambda q, cache, scale=None, window=None, sink=0:
+        paged.paged_decode_reference(q[:, :, None], cache, scale, window=window,
+                                     sink=sink)[:, :, 0]),
     (generate, "paged_decode_attention_chunk"): (
-        lambda q, cache, scale=None: paged.paged_decode_reference(q, cache, scale)),
+        lambda q, cache, scale=None, window=None, sink=0:
+        paged.paged_decode_reference(q, cache, scale, window=window, sink=sink)),
     (llama, "quant_matmul"): (
         lambda x, qw, out_dtype=None: quant_matmul.quant_matmul_reference(x, qw, out_dtype)),
 }
@@ -814,7 +1012,8 @@ def plain_kernels():
             setattr(module, name, fn)
 
 
-def compare_logits(tag: str, kern: list, plain: list, names: list | None = None) -> None:
+def compare_logits(tag: str, kern: list, plain: list, names: list | None = None,
+                   model: str = "LLAMA_1B") -> None:
     """The serving logits rule: cosine > LOGIT_COS and max |delta| <= LOGIT_REL * max |ref|."""
     names = names or ["prefill S=150"] + [f"decode {i}" for i in range(1, len(kern))]
     for step, (a, r, name) in enumerate(zip(kern, plain, names)):
@@ -823,15 +1022,15 @@ def compare_logits(tag: str, kern: list, plain: list, names: list | None = None)
         cos = float(torch.nn.functional.cosine_similarity(a, r, dim=0))
         delta = float((a - r).abs().max())
         lim = LOGIT_REL * float(r.abs().max())
-        print(f"[model] LLAMA_1B {tag} {name}: cos {cos:.6f} (> {LOGIT_COS}), "
+        print(f"[model] {model} {tag} {name}: cos {cos:.6f} (> {LOGIT_COS}), "
               f"max|d| {delta:.4f} (<= {lim:.4f}), argmax kernel "
               f"{int(a.argmax())} plain {int(r.argmax())}")
-        check(cos > LOGIT_COS and delta <= lim, f"LLAMA_1B {tag} {name} logits disagree")
+        check(cos > LOGIT_COS and delta <= lim, f"{model} {tag} {name} logits disagree")
 
 
-def generation_run(model, prompt, forced, quant=None) -> list[torch.Tensor]:
-    """A 150-token prefill and 4 teacher-forced decode steps; their logits."""
-    caches = generate.init_caches(model, 1, 2048, quant=quant)
+def generation_run(model, prompt, forced, quant=None, max_len=2048) -> list[torch.Tensor]:
+    """A prefill of the prompt and teacher-forced decode steps; their logits."""
+    caches = generate.init_caches(model, 1, max_len, quant=quant)
     logits, caches = generate.prefill(model, prompt, caches)
     out = [logits]
     for i in range(forced.shape[0]):
@@ -1328,6 +1527,115 @@ def phase_trainer(model, gen: torch.Generator) -> dict[str, int]:
     return launches
 
 
+# Phase 9: MISTRAL_7B at full width.
+MISTRAL_PROMPT = 4608  # past the 4096-token window
+MISTRAL_SERVED = [4200, 4800, 5400, 6000]  # prompt tokens of the four requests
+MISTRAL_NEW = 32
+MISTRAL_PREFIX = 1024  # the paged server's registered prefix (4 pages of 256)
+WINDOW_COUNTERS = ("flash_fwd_window", "decode_window", "paged_decode_window")
+
+
+def mistral_server(model, tag: str, prompts: list[list[int]], prefix: list[int] | None,
+                   **options) -> dict[str, int]:
+    """One server run on the requests of `prompts` (a prompt that starts
+    with `prefix` names the registered prefix): every request finished with
+    MISTRAL_NEW valid tokens, every decode step a replay; the launches of
+    the run (warmup, prefix registration and calibration left out)."""
+    cfg = model.cfg
+    srv = InferenceServer(model, max_slots=2, max_len=cfg.max_seq_len, **options)
+    srv.warmup()  # captures the decode step
+    pid = srv.register_prefix(prefix) if prefix is not None else None
+    replays = srv.decode_graph().replays
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for uid, p in enumerate(prompts):
+        shared = prefix is not None and p[:len(prefix)] == prefix
+        srv.submit(Request(uid=uid, prompt=p, max_new_tokens=MISTRAL_NEW,
+                           prefix_id=pid if shared else None))
+    got = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    st = srv.stats()
+    check(sorted(got) == list(range(len(prompts))), f"{tag}: finished {sorted(got)}")
+    for uid, toks in got.items():
+        check(len(toks) == MISTRAL_NEW and all(0 <= x < cfg.vocab_size for x in toks),
+              f"{tag} request {uid}: {len(toks)} tokens {toks[:4]}...")
+    check_replays(f"[mistral] {tag}:", srv, replays, st["decode_steps"])
+    n = len(prompts) * MISTRAL_NEW
+    print(f"[mistral] {tag}: {len(prompts)} requests, prompts {[len(p) for p in prompts]}, "
+          f"{MISTRAL_NEW} new tokens each, all finished in {wall:.3f} s ({n / wall:.1f} "
+          f"tokens/s, {st['decode_steps']} decode steps); prefill {st['prefill_ms_avg']} "
+          f"ms/request, decode {st['decode_ms_avg']} ms/step; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    calibrate(f"[mistral] {tag}:", srv)
+    if prefix is not None:
+        admit = srv.calibrate_admit(prompt_len=MISTRAL_PREFIX + 256, prefix_len=MISTRAL_PREFIX,
+                                    iters=2)
+        check(all(v > 0 for v in admit.values()), f"{tag}: calibrate_admit {admit}")
+        print(f"[mistral] {tag}: calibrate_admit(prompt_len={MISTRAL_PREFIX + 256}, "
+              f"prefix_len={MISTRAL_PREFIX}, 2 admissions in one CUDA graph each): {admit}")
+        srv.unregister_prefix(pid)
+        check(srv.allocator.free_pages == srv.allocator.num_pages,
+              f"{tag}: pages left allocated")
+    del srv
+    return launches
+
+
+def phase_mistral(gen: torch.Generator) -> dict[str, int]:
+    """MISTRAL_7B at full width: a 4,608-token prefill and 4 teacher-forced
+    decode steps through the kernels (every layer windowed) against the
+    plain route; then the bf16 server and the int8-KV paged server with
+    chunked admission and a registered prefix. Returns the windowed
+    launches of the two server runs."""
+    cfg = MISTRAL_7B
+    layers = cfg.num_layers
+    t0 = time.perf_counter()
+    model = init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[mistral] MISTRAL_7B random weights on the card in {time.perf_counter() - t0:.2f} "
+          f"s, {sum(p.numel() for p in model.parameters()) / 1e9:.3f} B parameters, "
+          f"window {cfg.attn_window}, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    prompt = torch.randint(0, cfg.vocab_size, (1, MISTRAL_PROMPT), generator=gen, device="cuda")
+    forced = torch.randint(0, cfg.vocab_size, (4,), generator=gen, device="cuda")
+    reset_launches()
+    kern = generation_run(model, prompt, forced, max_len=cfg.max_seq_len)
+    added = read_launches()
+    want = {"flash_fwd": layers, "flash_fwd_window": layers, "decode": 4 * layers,
+            "decode_window": 4 * layers}
+    check({k: v for k, v in added.items() if v} == want,
+          f"MISTRAL_7B kernel run launched {added}, want {want}")
+    with plain_kernels():
+        plain = generation_run(model, prompt, forced, max_len=cfg.max_seq_len)
+    check(read_launches() == added, "MISTRAL_7B plain run launched a kernel")
+    compare_logits("bf16, every layer windowed", kern, plain,
+                   [f"prefill S={MISTRAL_PROMPT}"] + [f"decode {i}" for i in range(1, 5)],
+                   model="MISTRAL_7B")
+    del kern, plain
+
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen, device="cuda").tolist()
+               for n in MISTRAL_SERVED]
+    total = dict.fromkeys(WINDOW_COUNTERS, 0)
+    bf16 = mistral_server(model, "bf16 server, 2 slots, max_len 8192", prompts, None)
+    prefix = prompts[0][:MISTRAL_PREFIX]
+    served = [p if uid % 2 == 0 else prefix + p[MISTRAL_PREFIX:]
+              for uid, p in enumerate(prompts)]
+    paged_run = mistral_server(
+        model, f"int8-KV paged server (pages of {PAGE}, admit_chunk 256, a "
+        f"{MISTRAL_PREFIX}-token prefix before requests 0, 1 and 3)", served, prefix,
+        quant="int8", paged=True, page_size=PAGE, admit_chunk=256)
+    for runs in (bf16, paged_run):
+        total = {k: total[k] + runs[k] for k in total}
+    check(bf16["flash_fwd_window"] > 0 and bf16["decode_window"] > 0
+          and paged_run["paged_decode_window"] > 0,
+          f"a windowed kernel missed the Mistral servers: bf16 {bf16}, paged {paged_run}")
+    print(f"[mistral] windowed launches of the two server runs: {total}")
+    del model
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> None:
     t_start = time.perf_counter()
     name = phase_environment()
@@ -1351,11 +1659,19 @@ def main() -> None:
     launches["flash_bwd_fused"] = phase_train_step(model, gen)["flash_bwd_fused"]
     split = phase_trainer(model, gen)
     launches.update(flash_bwd_dq=split["flash_bwd_dq"], flash_bwd_dkv=split["flash_bwd_dkv"])
+    del model
+    torch.cuda.empty_cache()
+    launches.update(phase_mistral(gen))
     decode_src = ("flashattn_tpu_torch/csrc/decode.cu", "flashattn_tpu/ops/decode.py:351")
     qmm_src = "flashattn_tpu_torch/csrc/quant_matmul.cu"
     sources = {
         "flash_fwd": ("flashattn_tpu_torch/csrc/flash_fwd.cu",
                       "flashattn_tpu/ops/flash_fwd.py:469"),
+        "flash_fwd_window": ("flashattn_tpu_torch/csrc/flash_fwd.cu",
+                             "flashattn_tpu/ops/flash_fwd.py:469"),
+        "decode_window": decode_src,
+        "paged_decode_window": ("flashattn_tpu_torch/csrc/decode.cu",
+                                "flashattn_tpu/ops/paged.py:378"),
         "decode": decode_src,
         "decode_int8": decode_src,
         "decode_fp8": decode_src,

@@ -7,8 +7,9 @@
 // (launcher _decode_attention, :351, reached through decode_attention :233
 // and decode_attention_chunk :268) and its paged form
 // flashattn_tpu/ops/paged.py::_paged_decode (:378, reached through
-// paged_decode_attention :332 and paged_decode_attention_chunk :360), without
-// window, sink, soft-cap, ALiBi or LSE output.
+// paged_decode_attention :332 and paged_decode_attention_chunk :360), with
+// the sliding window and attention sinks, without soft-cap, ALiBi or LSE
+// output.
 //
 // What bounds it on the card: HBM bandwidth in principle, latency in
 // practice. Each step streams the live part of the cache once (K and V,
@@ -26,12 +27,19 @@
 //   to 16 (G*T <= 16) or 64 of the G*T query rows of one (batch, kv head)
 //   group, so the group's q heads share one read of the cache (row r is
 //   head r / T, token r % T at position length - T + r % T, and sees keys
-//   at positions <= its own), and streams one slice of [0, length) in
-//   64-position tiles. Slices past a row's length, and tiles past the last
-//   position any row of the CTA can see, are skipped, so a ragged batch
-//   streams only its live bytes. The slices are a function of the shapes
-//   alone (ops/decode.py::_num_splits), so the paged and the dense cache of
-//   one max_len give the same bits.
+//   at positions <= its own), and streams one slice of its live span in
+//   64-position tiles. The live span is [0, length), or with a window the
+//   sink tiles followed by the tiles from the one holding the earliest
+//   row's window edge to the length (live_span: the slices cut a virtual
+//   span in which the dead tiles between the sinks and the window are left
+//   out, found from the device-side length, so a captured launch stays
+//   right as the lengths grow, and a long cache streams O(window + T +
+//   sink) bytes, as the JAX kernel's clamped reads do). Slices past a
+//   row's span, and tiles past the last position any row of the CTA can
+//   see, are skipped, so a ragged batch streams only its live bytes. The
+//   slices are a function of the shapes, the window and the sink alone
+//   (ops/decode.py::_num_splits), so the paged and the dense cache of one
+//   max_len give the same bits.
 // - Rows and warps. With 16 rows or fewer (decode: G = 8 at T = 1) the 4
 //   warps share the CTA's rows and take 4 tiles at a time, one each, each
 //   warp an online softmax of its own; the 4 states merge in shared memory
@@ -63,7 +71,9 @@
 //   an H100 than this second launch.)
 // Cache rows at or past `length` are never read: their copies are zero
 // filled (a recycled slot may hold NaN there, or fp8 NaN codes, and no
-// 0 * NaN can reach a sum). A row that sees no key gets O = 0.
+// 0 * NaN can reach a sum). A row that sees no key gets O = 0. A slice that
+// sees no live position writes its (m, l = 0) and no accumulator; the
+// merge skips it.
 //
 // Modes, in the JAX kernel's order of operations:
 // - bf16: s = (q . k) * scale * log2(e) in fp32; P rounded to bf16 before
@@ -86,7 +96,8 @@
 //   (hi = bf16(x), lo = bf16(x - hi)), two products, about 16 bits of it.
 // Paged: a tile of 64 positions never straddles a page (the page size is a
 // multiple of 64), so the tile base is taken through the table,
-// table[b, n0 / page] row n0 % page. A table entry outside [0, P) (the
+// table[b, n0 / page] row n0 % page; a sink tile, left of the window, is
+// read through its own page like any other. A table entry outside [0, P) (the
 // server's sentinel for a block it does not own, which a chunk's padding
 // can reach) is never dereferenced: its tile counts as holding no key.
 //
@@ -94,6 +105,7 @@
 // split and row tiling on the CUDA cores, tiles widened to fp32 in shared
 // memory, and decode_merge_kernel as a second launch.
 #include <algorithm>
+#include <climits>
 #include <type_traits>
 
 #include "common.cuh"
@@ -127,6 +139,8 @@ struct Args {
   float* part_acc;  // [B, Hkv, splits, R, D]
   void* o;          // [B, Hq, T, D] in T
   int B, Hq, Hkv, Tc, Smax, max_pages, page, num_pages, split_len, num_splits, row_blocks;
+  int window;  // sliding window (0: none)
+  int sink;    // the first `sink` positions stay visible (with a window)
   float scale_log2;
 };
 
@@ -134,10 +148,36 @@ struct Args {
 
 // The one visibility rule: a query row at cache position row_pos sees the
 // tile's column c (position pos = n0 + c) when the column is live (inside
-// [0, length) and an owned page: c < n_live) and not in its future. Rows
-// that are not real (padding of a row block) carry row_pos -1.
-__device__ __forceinline__ bool visible(int c, int n_live, int pos, int row_pos) {
-  return c < n_live && pos <= row_pos;
+// [0, length) and an owned page: c < n_live), not in its future, and with a
+// window inside it (pos > row_pos - window) or a sink (pos < sink). Rows
+// that are not real (padding of a row block) carry row_pos -1. A caller
+// that knows the tile lies inside every row's window (or the sinks) passes
+// kWindow false and skips that test.
+template <bool kWindow = true>
+__device__ __forceinline__ bool visible(const Args& a, int c, int n_live, int pos, int row_pos) {
+  return c < n_live && pos <= row_pos &&
+         (!kWindow || a.window == 0 || pos > row_pos - a.window || pos < a.sink);
+}
+
+// The positions a sequence's rows can see, as the split pass walks them:
+// the sink tiles [0, sink_end), then the tiles from the one holding the
+// earliest row's window edge, length - T + 1 - window, on. The splits cut
+// a virtual span: virtual position v is cache position v below sink_end and
+// v + gap from there (gap, a multiple of 64, the dead tiles left out).
+// Without a window, or where the window reaches the sinks, gap = 0 and the
+// two are one. ops/decode.py::live_span bounds its length.
+struct Span {
+  int sink_end, gap;
+  __device__ __forceinline__ int pos(int v) const { return v < sink_end ? v : v + gap; }
+};
+__device__ __forceinline__ Span live_span(const Args& a, int len) {
+  Span sp{0, 0};
+  if (a.window > 0) {
+    sp.sink_end = (a.sink + kBlockN - 1) / kBlockN * kBlockN;
+    const int edge = max(len - a.Tc + 1 - a.window, 0) / kBlockN * kBlockN;
+    sp.gap = max(edge - sp.sink_end, 0);
+  }
+  return sp;
 }
 
 // Row r of a group: token r % T, at cache position length - T + r % T.
@@ -317,7 +357,9 @@ __device__ __forceinline__ int acc_dim(int nt, int e, int tig) {
     return 8 * nt + 2 * tig + (e & 1);
 }
 
-template <typename T, typename C, int D, int kTiles>
+// kWindow instantiates the window and the sinks (a.window > 0): without
+// them the kernel keeps the unwindowed one's registers and occupancy.
+template <typename T, typename C, int D, int kTiles, bool kWindow>
 __global__ void __launch_bounds__(kThreads, 1) decode_mma_kernel(const Args a, int stages) {
   using L = MmaLayout<C, D, kTiles>;
   constexpr Mode kMode = kModeOf<C>;
@@ -355,15 +397,24 @@ __global__ void __launch_bounds__(kThreads, 1) decode_mma_kernel(const Args a, i
   };
   load_q(0);
 
-  // So do the page ids of the first round's tiles.
-  const int start = sp * a.split_len;
+  // So do the page ids of the first round's tiles, at their positions
+  // without a window's gap (read again where there is one).
+  const int start = sp * a.split_len;  // in the virtual span (live_span)
   int first_pid[kTiles];
 #pragma unroll
   for (int t = 0; t < kTiles; ++t) first_pid[t] = page_of(a, b, start + t * kBlockN);
 
   const int len = min(a.length[b], a.Smax);
-  const int end = min(min(start + a.split_len, len), last_row_position(r0, nr, len, a.Tc) + 1);
-  const int n_tiles = start < end ? (end - start + kBlockN - 1) / kBlockN : 0;
+  const Span span = kWindow ? live_span(a, len) : Span{0, 0};
+  // No row of this CTA sees at or past `end`, a position in the window
+  // part of the span when there is a gap.
+  const int end = min(len, last_row_position(r0, nr, len, a.Tc) + 1);
+  const int vend = min(start + a.split_len, end - span.gap);
+  // Every row of this CTA sees a tile at or after win_full whole, as far
+  // as the window goes: only the tiles before it, outside the sinks, run
+  // the window's test.
+  const int win_full = kWindow ? end - a.window : INT_MIN;
+  const int n_tiles = start < vend ? (vend - start + kBlockN - 1) / kBlockN : 0;
   const int rounds = (n_tiles + kTiles - 1) / kTiles;
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -383,8 +434,9 @@ __global__ void __launch_bounds__(kThreads, 1) decode_mma_kernel(const Args a, i
     for (int s = 0; s < kTiles; ++s) {
       const int t = round * kTiles + s;
       if (t >= n_tiles) continue;
-      const int n0 = start + t * kBlockN;
-      const Tile tl = tile_at(a, b, hk, n0, end, round == 0 ? first_pid[s] : page_of(a, b, n0));
+      const int v0 = start + t * kBlockN, n0 = span.pos(v0);
+      const Tile tl =
+          tile_at(a, b, hk, n0, end, round == 0 && n0 == v0 ? first_pid[s] : page_of(a, b, n0));
       unsigned char* dst = st + s * L::kSlotBytes;
       // Not unrolled: the copy's addresses stay out of the registers that
       // the tile's math needs.
@@ -475,7 +527,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_mma_kernel(const Args a, i
     }
     const int t = i * kTiles + slot;
     if (t < n_tiles) {
-      const int n0 = start + t * kBlockN;
+      const int n0 = span.pos(start + t * kBlockN);
       const int n_live = tile_at(a, b, hk, n0, end).n_live;
       const unsigned char* ks = stages_mem + stage * L::kStageBytes + slot * L::kSlotBytes;
       const unsigned char* vs = ks + L::kTileBytes;
@@ -551,24 +603,35 @@ __global__ void __launch_bounds__(kThreads, 1) decode_mma_kernel(const Args a, i
       // e of s[j]: row g + 8 (e / 2), column 8 j + 2 tig + e % 2.
       unsigned live = 0u;
       float mx[2] = {kMaskValue, kMaskValue};
+      auto logits = [&](auto window) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = 8 * j + 2 * tig + (e & 1), h = e >> 1;
-          float x = s[j][e];
-          if constexpr (kMode == Mode::kInt8)
-            x *= q_scale[h] * ksc[c];
-          else if constexpr (kMode == Mode::kFp8)
-            x *= ksc[c];
-          else
-            x *= a.scale_log2;
-          if (visible(c, n_live, n0 + c, row_pos[h])) {
-            live |= 1u << (4 * j + e);
-            mx[h] = fmaxf(mx[h], x);
+          for (int e = 0; e < 4; ++e) {
+            const int c = 8 * j + 2 * tig + (e & 1), h = e >> 1;
+            float x = s[j][e];
+            if constexpr (kMode == Mode::kInt8)
+              x *= q_scale[h] * ksc[c];
+            else if constexpr (kMode == Mode::kFp8)
+              x *= ksc[c];
+            else
+              x *= a.scale_log2;
+            if (visible<decltype(window)::value>(a, c, n_live, n0 + c, row_pos[h])) {
+              live |= 1u << (4 * j + e);
+              mx[h] = fmaxf(mx[h], x);
+            }
+            s[j][e] = x;
           }
-          s[j][e] = x;
+      };
+      if constexpr (kWindow) {
+        if (n0 < win_full && n0 + kBlockN > a.sink) {
+          logits(std::true_type{});
+        } else {
+          logits(std::false_type{});
         }
+      } else {
+        logits(std::false_type{});
+      }
       float alpha[2], f[2] = {1.f, 1.f}, rmax[2] = {0.f, 0.f};
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -752,7 +815,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_mma_kernel(const Args a, i
       static_cast<T*>(a.o)[(bh * R + r0 + r) * D + dd] =
           fat::from_f<T>(den > 0.f ? num / den : 0.f);
     } else {
-      a.part_acc[(part_row + r) * D + dd] = num;
+      if (den > 0.f) a.part_acc[(part_row + r) * D + dd] = num;  // read only where l > 0
       if (dd == 0) {
         a.part_m[part_row + r] = mmax;
         a.part_l[part_row + r] = den;
@@ -789,13 +852,14 @@ __global__ void __launch_bounds__(kThreads) decode_f32_kernel(const Args a) {
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
 
   const int len = min(a.length[b], a.Smax);
-  const int start = sp * a.split_len;
-  const int end = min(start + a.split_len, len);
+  const Span span = live_span(a, len);
+  const int start = sp * a.split_len;  // [start, vend) of the virtual span
+  const int vend = min(start + a.split_len, len - span.gap);
   // Partial-result row index of (b, hk, sp, r0 + r) is part_base + r.
   const size_t part_base =
       ((static_cast<size_t>(b) * a.Hkv + hk) * a.num_splits + sp) * R + r0;
 
-  if (start >= end) {  // slice wholly past this sequence's length
+  if (start >= vend) {  // slice wholly past this sequence's span
     for (int r = tid; r < nr; r += kThreads) {
       a.part_m[part_base + r] = kMaskValue;
       a.part_l[part_base + r] = 0.f;
@@ -824,11 +888,12 @@ __global__ void __launch_bounds__(kThreads) decode_f32_kernel(const Args a) {
     st_l[r] = 0.f;
   }
 
-  for (int n0 = start; n0 < end; n0 += kBlockN) {
-    const Tile tl = tile_at(a, b, hk, n0, end);
+  for (int v0 = start; v0 < vend; v0 += kBlockN) {
+    const int n0 = span.pos(v0);
+    const Tile tl = tile_at(a, b, hk, n0, len);
     const int n_live = tl.n_live;
     __syncthreads();  // previous tile consumed; q, acc and stats stored
-    // Rows at or past `length` are never loaded (n_live stops at `end`).
+    // Rows at or past `length` are never loaded (n_live stops there).
     fat::load_tile<float, kBlockN, D, kThreads>(k + tl.base * D, n_live, ks, DP);
     fat::load_tile<float, kBlockN, D, kThreads>(v + tl.base * D, n_live, vs, D);
     __syncthreads();
@@ -837,7 +902,7 @@ __global__ void __launch_bounds__(kThreads) decode_f32_kernel(const Args a) {
     for (int i = tid; i < nr * kBlockN; i += kThreads) {
       const int r = i / kBlockN, c = i % kBlockN;
       float s = kMaskValue;
-      if (visible(c, n_live, n0 + c, row_position(r0 + r, len, a.Tc))) {
+      if (visible(a, c, n_live, n0 + c, row_position(r0 + r, len, a.Tc))) {
         float dot = 0.f;
 #pragma unroll 8
         for (int d = 0; d < D; ++d) dot = fmaf(qs[r * DP + d], ks[c * DP + d], dot);
@@ -850,8 +915,8 @@ __global__ void __launch_bounds__(kThreads) decode_f32_kernel(const Args a) {
     // Online softmax, one warp per row; lanes hold columns lane and lane+32.
     for (int r = warp; r < nr; r += kWarps) {
       const int row_pos = row_position(r0 + r, len, a.Tc);
-      const bool live0 = visible(lane, n_live, n0 + lane, row_pos);
-      const bool live1 = visible(lane + 32, n_live, n0 + lane + 32, row_pos);
+      const bool live0 = visible(a, lane, n_live, n0 + lane, row_pos);
+      const bool live1 = visible(a, lane + 32, n_live, n0 + lane + 32, row_pos);
       const float s0 = ps[r * PP + lane], s1 = ps[r * PP + lane + 32];
       float mx = fmaxf(live0 ? s0 : kMaskValue, live1 ? s1 : kMaskValue);
 #pragma unroll
@@ -895,6 +960,16 @@ __global__ void __launch_bounds__(kThreads) decode_f32_kernel(const Args a) {
 
 // ---- launchers ----
 
+// The most virtual positions live_span gives a sequence (ops/decode.py::
+// live_span): the sink tiles, the window and T - 1 more positions rounded up
+// to a tile, and one tile for the edge tile's positions before the window.
+long long live_span_bound(int Smax, int Tc, int window, int sink) {
+  if (window == 0) return Smax;
+  auto up = [](long long x) { return (x + kBlockN - 1) / kBlockN * kBlockN; };
+  return std::min<long long>(Smax, up(sink) + up(static_cast<long long>(window) + Tc - 1) +
+                                       kBlockN);
+}
+
 int max_smem_optin() {
   static const int bytes = [] {
     int dev = 0, value = 0;
@@ -923,7 +998,7 @@ cudaError_t launch_merge(const Args& a, int D, cudaStream_t stream) {
   return cudaLaunchKernelEx(&cfg, decode_merge_kernel<T>, a, D);
 }
 
-template <typename T, typename C, int D, int kTiles>
+template <typename T, typename C, int D, int kTiles, bool kWindow>
 cudaError_t launch_mma(Args a, cudaStream_t stream) {
   using L = MmaLayout<C, D, kTiles>;
   const int R = (a.Hq / a.Hkv) * a.Tc;
@@ -934,9 +1009,9 @@ cudaError_t launch_mma(Args a, cudaStream_t stream) {
   const int rounds = (a.split_len / kBlockN + kTiles - 1) / kTiles;
   const int stages =
       rounds > 1 && L::smem_bytes(2) <= static_cast<size_t>(max_smem_optin()) ? 2 : 1;
-  cudaError_t err = fat::allow_max_smem<decode_mma_kernel<T, C, D, kTiles>>();
+  cudaError_t err = fat::allow_max_smem<decode_mma_kernel<T, C, D, kTiles, kWindow>>();
   if (err != cudaSuccess) return err;
-  decode_mma_kernel<T, C, D, kTiles>
+  decode_mma_kernel<T, C, D, kTiles, kWindow>
       <<<dim3(a.B, a.Hkv * a.row_blocks, a.num_splits), kThreads, L::smem_bytes(stages),
          stream>>>(a, stages);
   err = cudaGetLastError();
@@ -963,8 +1038,10 @@ cudaError_t launch_f32(Args a, cudaStream_t stream) {
 // rows a CTA, a warp 16 of them (ops/decode.py::_layout).
 template <typename T, typename C, int D>
 cudaError_t launch_rows(const Args& a, cudaStream_t stream) {
-  if ((a.Hq / a.Hkv) * a.Tc <= 16) return launch_mma<T, C, D, 4>(a, stream);
-  return launch_mma<T, C, D, 1>(a, stream);
+  const bool few = (a.Hq / a.Hkv) * a.Tc <= 16;
+  if (a.window > 0)
+    return few ? launch_mma<T, C, D, 4, true>(a, stream) : launch_mma<T, C, D, 1, true>(a, stream);
+  return few ? launch_mma<T, C, D, 4, false>(a, stream) : launch_mma<T, C, D, 1, false>(a, stream);
 }
 
 template <typename T, int D>
@@ -987,18 +1064,22 @@ cudaError_t dispatch_cache(const Args& a, int dtype, int kv_dtype, cudaStream_t 
 // [B,Hkv,1,Smax] or [P,Hkv,1,page] for a quantized cache; length [B] int32;
 // part_m/part_l [B,Hkv,splits,R] and part_acc [B,Hkv,splits,R,D] fp32
 // scratch; o like q. All contiguous on the device, k and v 16-byte aligned;
-// split_len * num_splits >= Smax and split_len is a multiple of 64.
-// Returns the CUDA error code (0 = success).
+// window 0 (none) or the sliding window, sink the always-visible first
+// positions (needs a window); split_len a multiple of 64 and
+// split_len * num_splits >= the live span (live_span_bound: Smax without a
+// window). Returns the CUDA error code (0 = success).
 extern "C" int decode_launch(const void* q, const void* k, const void* v, const void* k_scale,
                              const void* v_scale, const void* length, const void* table,
                              void* part_m, void* part_l, void* part_acc, void* o, int B,
                              int Hq, int Hkv, int Tc, int Smax, int D, int dtype, int kv_dtype,
                              int max_pages, int page, int num_pages, int split_len,
-                             int num_splits, float scale_log2, void* stream) {
+                             int num_splits, int window, int sink, float scale_log2,
+                             void* stream) {
   const bool quantized = kv_dtype == fat::kInt8 || kv_dtype == fat::kFp8;
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Tc <= 0 || Smax <= 0 || split_len <= 0 ||
-      split_len % kBlockN != 0 || num_splits <= 0 ||
-      static_cast<long long>(split_len) * num_splits < Smax ||
+      split_len % kBlockN != 0 || num_splits <= 0 || window < 0 || sink < 0 ||
+      (sink > 0 && window == 0) ||
+      static_cast<long long>(split_len) * num_splits < live_span_bound(Smax, Tc, window, sink) ||
       (quantized && (k_scale == nullptr || v_scale == nullptr)) ||
       (table != nullptr && (page <= 0 || page % kBlockN != 0 ||
                             static_cast<long long>(max_pages) * page != Smax)))
@@ -1007,7 +1088,7 @@ extern "C" int decode_launch(const void* q, const void* k, const void* v, const 
          static_cast<const int*>(length), static_cast<const int*>(table),
          static_cast<float*>(part_m), static_cast<float*>(part_l),
          static_cast<float*>(part_acc), o, B, Hq, Hkv, Tc, Smax, max_pages, page, num_pages,
-         split_len, num_splits, 0, scale_log2};
+         split_len, num_splits, 0, window, sink, scale_log2};
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == fat::kBF16 && D == 64)

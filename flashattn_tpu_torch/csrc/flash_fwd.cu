@@ -4,7 +4,9 @@
 // (launcher flash_attention_forward, :469) and
 // flashattn_tpu/ops/flash_fwd_grid4.py::_grid4_kernel (launcher
 // flash_attention_forward_grid4, :267) on their common plain subset: causal
-// (bottom-right, or by pos_offset) or not, GQA, ragged S_q/S_k, optional LSE.
+// (bottom-right, or by pos_offset) or not, GQA, ragged S_q/S_k, optional LSE,
+// and the sliding window (causal only: row r sees column c iff
+// r + offset - window < c <= r + offset).
 // The TPU's two grid shapes, its wavefront meta arrays, h_fuse and the
 // ones-column row sum are Mosaic designs and are not carried over.
 //
@@ -34,13 +36,18 @@
 // registers, rounded to bf16 pairwise (the S accumulator layout is the
 // register A-fragment layout), and O += P V (m64nDk16) reads V's row-major
 // [keys][D] tile as an MN-major B operand, so V is never transposed. The kv
-// loop runs from the last tile down: the at most two tiles that straddle the
-// causal bound or S_k come first and are masked, every later tile is seen
-// whole by every row of the warpgroup and runs no mask code. q tiles are
-// dispatched heaviest first (the grid's slow axis walks them in descending
-// kv extent), so the short causal tiles fill the tail. No atomics: two
-// calls give the same bits. The softmax uses the exp2 domain (row max of
-// the raw scores, one FFMA and one MUFU.EX2 per exponent), fp32 (m, l),
+// loop runs over the tiles the q tile's rows reach, from the last down: the
+// at most two tiles that straddle the causal bound or S_k come first and
+// are masked, then the tiles every row of the warpgroup sees whole, which
+// run no mask code, and with a window last the at most two tiles that
+// straddle the window's left edge, masked again. Tiles wholly left of the
+// window are neither loaded nor visited. q tiles are dispatched heaviest
+// first (the grid's slow axis walks them in descending q0): a tile's kv
+// extent never falls as q0 grows, causal (a ramp) or windowed (a ramp up to
+// window + the tile's height, then flat), so the short tiles of the ramp
+// fill the tail. No atomics: two calls give the same bits. The softmax
+// uses the exp2 domain (row max of the raw scores, one FFMA and one
+// MUFU.EX2 per exponent), fp32 (m, l),
 // masked scores of -inf with a zero max for rows that have seen no key yet,
 // so rows that see no key end with l = 0: O = 0, LSE = -inf. Measured and
 // not kept (PERF.md, section 6): issuing the next tile's S with this tile's P V
@@ -81,6 +88,12 @@ __device__ __forceinline__ int kv_limit(int q0, int block_m, int Sq, int Sk, int
   return max(0, min(Sk, last_row + offset + 1));
 }
 
+// The first kv tile of `block_n` columns that a row at or after q0 can see:
+// 0, or with a window the tile of the first row's left edge.
+__device__ __forceinline__ int kv_first_tile(int q0, int offset, int window, int block_n) {
+  return window > 0 ? max(0, q0 + offset - window + 1) / block_n : 0;
+}
+
 // ---- float32: CUDA cores (fp32 FMA over shared-memory tiles) ----
 
 template <int D>
@@ -88,7 +101,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk,
-                 int is_causal, int offset, float scale_log2) {
+                 int is_causal, int offset, int window, float scale_log2) {
   constexpr int DP = D + 1;
   constexpr int PP = kBlockN + 1;
   constexpr int kDimsPerThread = D / kThreadsPerRow;
@@ -118,7 +131,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < kDimsPerThread; ++i) acc[i] = 0.f;
 
-  for (int n0 = 0; n0 < kv_end; n0 += kBlockN) {
+  for (int n0 = kv_first_tile(q0, offset, window, kBlockN) * kBlockN; n0 < kv_end;
+       n0 += kBlockN) {
     __syncthreads();  // previous tile fully consumed (and Q stored, first time)
     const size_t tile = kv_base + static_cast<size_t>(n0) * D;
     fat::load_tile<float, kBlockN, D, kThreads>(k + tile, kv_end - n0, ks, DP);
@@ -141,7 +155,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kColsPerThread; ++j) {
       const int c = n0 + t + kThreadsPerRow * j;
-      if (c < kv_end && (!is_causal || c <= qi + offset)) {
+      if (c < kv_end && (!is_causal || c <= qi + offset) &&
+          (window == 0 || c >= qi + offset - window + 1)) {
         live |= 1u << j;
         mx = fmaxf(mx, s[j]);
       }
@@ -346,8 +361,9 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const unsigned (&a)[
 #undef FA_R64
 
 // The copies a CTA's producer issues (one thread): Q's tile once, and the K
-// and V tiles of kv iteration `it` (the loop runs from the last tile down)
-// into stage it % kStages, each completing on its full barrier.
+// and V tiles of kv iteration `it` (the loop runs from the last of the
+// tiles [first, first + n_tiles) down) into stage it % kStages, each
+// completing on its full barrier.
 template <int D, int kConsumers>
 __device__ __forceinline__ void load_q(unsigned smem, const CUtensorMap* q_map, int q0, int bh) {
   using L = FwdLayout<D, kConsumers>;
@@ -358,11 +374,11 @@ __device__ __forceinline__ void load_q(unsigned smem, const CUtensorMap* q_map, 
 }
 template <int D, int kConsumers>
 __device__ __forceinline__ void load_kv(unsigned smem, const CUtensorMap* k_map,
-                                        const CUtensorMap* v_map, int it, int n_tiles,
-                                        int kv_head) {
+                                        const CUtensorMap* v_map, int it, int first,
+                                        int n_tiles, int kv_head) {
   using L = FwdLayout<D, kConsumers>;
   const int s = it % kStages;
-  const int n0 = (n_tiles - 1 - it) * kTileN;
+  const int n0 = (first + n_tiles - 1 - it) * kTileN;
   const unsigned k_full = smem + L::kKFull + 8 * s, v_full = smem + L::kVFull + 8 * s;
   mbar_expect_tx(k_full, L::kTileBytes);
 #pragma unroll
@@ -380,13 +396,14 @@ __device__ __forceinline__ void load_kv(unsigned smem, const CUtensorMap* k_map,
 // ring's stages, then O and the LSE written from registers. With one
 // consumer warpgroup its thread 0 is also the producer: it refills the
 // stage the previous tile released while the tensor cores run the next
-// S product (k_map and v_map are used only then).
-template <int D, int kConsumers>
+// S product (k_map and v_map are used only then). kWindow instantiates the
+// window's left edge: without it the loop is the causal kernel's alone.
+template <int D, int kConsumers, bool kWindow>
 __device__ __forceinline__ void consume(unsigned smem, const CUtensorMap* k_map,
                                         const CUtensorMap* v_map, __nv_bfloat16* __restrict__ o,
                                         float* __restrict__ lse, int bh, int kv_head, int q0,
-                                        int n_tiles, int Sq, int Sk, int is_causal, int offset,
-                                        float scale_log2) {
+                                        int first, int n_tiles, int Sq, int Sk, int is_causal,
+                                        int offset, int window, float scale_log2) {
   using L = FwdLayout<D, kConsumers>;
   const unsigned k_full = smem + L::kKFull, v_full = smem + L::kVFull, empty = smem + L::kEmpty;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -396,11 +413,19 @@ __device__ __forceinline__ void consume(unsigned smem, const CUtensorMap* k_map,
   const int g = lane / 4, t = lane % 4;
   const int row0 = q0 + 64 * wg + 16 * (warp % 4) + g;
   const unsigned q_s = smem + L::kQ + wg * 64 * 128;
-  // Every row of this warpgroup sees columns [0, full_end): tiles below it
-  // need no mask. The kv loop takes the masked tiles first.
+  // Every row of this warpgroup sees columns [full_begin, full_end): the
+  // tiles inside need no mask. The kv loop, last tile first, takes the
+  // n_hi tiles that reach past full_end first and the n_lo that reach
+  // below full_begin (the window's left edge) last.
   const int wg_row = q0 + 64 * wg;
   const int full_end = is_causal ? max(0, min(Sk, wg_row + offset + 1)) : Sk;
-  const int n_masked = n_tiles - min(n_tiles, full_end / kTileN);
+  const int n_hi = first + n_tiles - min(max(full_end / kTileN, first), first + n_tiles);
+  int n_lo = 0;
+  if constexpr (kWindow) {
+    const int full_begin = wg_row + 63 + offset - window + 1;
+    const int lo_free = full_begin > 0 ? (full_begin + kTileN - 1) / kTileN : 0;
+    n_lo = min(max(lo_free, first), first + n_tiles) - first;
+  }
 
   float acc[D / 2];
 #pragma unroll
@@ -411,7 +436,7 @@ __device__ __forceinline__ void consume(unsigned smem, const CUtensorMap* k_map,
   for (int it = 0; it < n_tiles; ++it) {
     const int s = it % kStages;
     const unsigned phase = (it / kStages) & 1;
-    const int n0 = (n_tiles - 1 - it) * kTileN;
+    const int n0 = (first + n_tiles - 1 - it) * kTileN;
 
     // S = Q K^T (64 x 128 per warpgroup), raw scores.
     float sc[kTileN / 2];
@@ -430,23 +455,26 @@ __device__ __forceinline__ void consume(unsigned smem, const CUtensorMap* k_map,
       const int next = it - 1 + kStages;
       if (threadIdx.x == 0 && it > 0 && next < n_tiles) {
         mbar_wait(empty + 8 * (next % kStages), ((it - 1) / kStages) & 1);
-        load_kv<D, kConsumers>(smem, k_map, v_map, next, n_tiles, kv_head);
+        load_kv<D, kConsumers>(smem, k_map, v_map, next, first, n_tiles, kv_head);
       }
       __syncwarp();  // warp 0 reconverges before the warpgroup-wide wait
     }
     wgmma_wait_all();
     fence_regs(sc);
 
-    if (it < n_masked) {  // the tiles that straddle the causal bound or S_k
+    if (it < n_hi || (kWindow && it >= n_tiles - n_lo)) {  // tiles across a bound of the rows
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int r = row0 + 8 * i;
         const int seen = is_causal ? min(Sk, r + offset + 1) : Sk;  // columns < seen
+        const int from = kWindow ? r + offset - window + 1 : 0;     // and >= from
 #pragma unroll
         for (int j = 0; j < kTileN / 8; ++j)
 #pragma unroll
-          for (int e = 0; e < 2; ++e)
-            if (n0 + 8 * j + 2 * t + e >= seen) sc[4 * j + 2 * i + e] = -CUDART_INF_F;
+          for (int e = 0; e < 2; ++e) {
+            const int c = n0 + 8 * j + 2 * t + e;
+            if (c >= seen || (kWindow && c < from)) sc[4 * j + 2 * i + e] = -CUDART_INF_F;
+          }
       }
     }
 
@@ -534,15 +562,15 @@ __device__ __forceinline__ void consume(unsigned smem, const CUtensorMap* k_map,
 // owns q rows [q0 + 64w, +64); with two of them a third warpgroup is the
 // producer, whose first thread issues every TMA copy, and with one its
 // thread 0 issues them between its products. Same contract as
-// flash_fwd_kernel.
-template <int D, int kConsumers>
+// flash_fwd_kernel; kWindow instantiates the sliding window (window > 0).
+template <int D, int kConsumers, bool kWindow>
 __global__ void __launch_bounds__(FwdLayout<D, kConsumers>::kThreads,
                                   kConsumers == 1 ? 3 : 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o,
                        float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk, int is_causal,
-                       int offset, float scale_log2) {
+                       int offset, int window, float scale_log2) {
   using L = FwdLayout<D, kConsumers>;
   extern __shared__ unsigned char smem_raw[];
   const unsigned smem = (smem_addr(smem_raw) + 1023) & ~1023u;
@@ -552,7 +580,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int bh = blockIdx.x;  // b * Hq + h
   const int kv_head = (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * L::kBlockM;
-  const int n_tiles = (kv_limit(q0, L::kBlockM, Sq, Sk, is_causal, offset) + kTileN - 1) / kTileN;
+  const int first = kWindow ? kv_first_tile(q0, offset, window, kTileN) : 0;
+  const int n_tiles = max(
+      0, (kv_limit(q0, L::kBlockM, Sq, Sk, is_causal, offset) + kTileN - 1) / kTileN - first);
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -571,10 +601,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     if (threadIdx.x == 0 && n_tiles > 0) {
       load_q<D, kConsumers>(smem, &q_map, q0, bh);
       for (int it = 0; it < min(kStages, n_tiles); ++it)
-        load_kv<D, kConsumers>(smem, &k_map, &v_map, it, n_tiles, kv_head);
+        load_kv<D, kConsumers>(smem, &k_map, &v_map, it, first, n_tiles, kv_head);
     }
-    consume<D, kConsumers>(smem, &k_map, &v_map, o, lse, bh, kv_head, q0, n_tiles, Sq, Sk,
-                           is_causal, offset, scale_log2);
+    consume<D, kConsumers, kWindow>(smem, &k_map, &v_map, o, lse, bh, kv_head, q0, first,
+                                    n_tiles, Sq, Sk, is_causal, offset, window, scale_log2);
   } else if (threadIdx.x >= 128 * kConsumers) {
     // Producer warpgroup: Q once, then K and V tile by tile, last tile
     // first. It hands its registers to the consumers (setmaxnreg): 12 warps
@@ -585,27 +615,27 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       load_q<D, kConsumers>(smem, &q_map, q0, bh);
       for (int it = 0; it < n_tiles; ++it) {
         mbar_wait(empty + 8 * (it % kStages), ((it / kStages) & 1) ^ 1);  // round 0 passes at once
-        load_kv<D, kConsumers>(smem, &k_map, &v_map, it, n_tiles, kv_head);
+        load_kv<D, kConsumers>(smem, &k_map, &v_map, it, first, n_tiles, kv_head);
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    consume<D, kConsumers>(smem, &k_map, &v_map, o, lse, bh, kv_head, q0, n_tiles, Sq, Sk,
-                           is_causal, offset, scale_log2);
+    consume<D, kConsumers, kWindow>(smem, &k_map, &v_map, o, lse, bh, kv_head, q0, first,
+                                    n_tiles, Sq, Sk, is_causal, offset, window, scale_log2);
   }
 }
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, void* lse,
                        int B, int Hq, int Hkv, int Sq, int Sk, int is_causal, int offset,
-                       float scale_log2, cudaStream_t stream) {
+                       int window, float scale_log2, cudaStream_t stream) {
   const cudaError_t err = fat::allow_max_smem<flash_fwd_kernel<D>>();
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kBlockM - 1) / kBlockM, Hq, B);
   flash_fwd_kernel<D><<<grid, kThreads, smem_bytes<D>(), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), Hq,
-      Hkv, Sq, Sk, is_causal, offset, scale_log2);
+      Hkv, Sq, Sk, is_causal, offset, window, scale_log2);
   return cudaGetLastError();
 }
 
@@ -656,12 +686,12 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int d, int rows, int he
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D, int kConsumers>
+template <int D, int kConsumers, bool kWindow>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
                         int B, int Hq, int Hkv, int Sq, int Sk, int is_causal, int offset,
-                        float scale_log2, cudaStream_t stream) {
+                        int window, float scale_log2, cudaStream_t stream) {
   using L = FwdLayout<D, kConsumers>;
-  cudaError_t err = fat::allow_max_smem<flash_fwd_wgmma_kernel<D, kConsumers>>();
+  cudaError_t err = fat::allow_max_smem<flash_fwd_wgmma_kernel<D, kConsumers, kWindow>>();
   const int q_tiles = (Sq + L::kBlockM - 1) / L::kBlockM;
   if (err == cudaSuccess && q_tiles > 65535) err = cudaErrorInvalidValue;
   CUtensorMap q_map, k_map, v_map;
@@ -669,10 +699,10 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, vo
   if (err == cudaSuccess) err = make_map(&k_map, k, D, Sk, B * Hkv, kTileN);
   if (err == cudaSuccess) err = make_map(&v_map, v, D, Sk, B * Hkv, kTileN);
   if (err != cudaSuccess) return err;
-  flash_fwd_wgmma_kernel<D, kConsumers><<<dim3(B * Hq, q_tiles), L::kThreads, L::kBytes,
-                                           stream>>>(
+  flash_fwd_wgmma_kernel<D, kConsumers, kWindow><<<dim3(B * Hq, q_tiles), L::kThreads,
+                                                    L::kBytes, stream>>>(
       q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), Hq, Hkv,
-      Sq, Sk, is_causal, offset, scale_log2);
+      Sq, Sk, is_causal, offset, window, scale_log2);
   return cudaGetLastError();
 }
 
@@ -680,25 +710,31 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, vo
 
 // q [B,Hq,Sq,D], k/v [B,Hkv,Sk,D], o like q, lse [B,Hq,Sq] fp32 or NULL; all
 // contiguous on the device, q, k and v 16-byte aligned. Row r sees column c
-// iff !is_causal or c <= r + offset. bf16 runs the wgmma kernel (q tiles of
-// 64 rows at D 64, 128 at D 128), float32 the FMA kernel.
+// iff !is_causal or c <= r + offset, and with window > 0 (causal only)
+// c >= r + offset - window + 1. bf16 runs the wgmma kernel (q tiles of 64
+// rows at D 64, 128 at D 128), float32 the FMA kernel.
 // Returns the CUDA error code of the launch (0 = success).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
                                 void* lse, int B, int Hq, int Hkv, int Sq, int Sk, int D,
-                                int dtype, int is_causal, int offset, float scale_log2,
-                                void* stream) {
-  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0)
+                                int dtype, int is_causal, int offset, int window,
+                                float scale_log2, void* stream) {
+  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || window < 0 ||
+      (window > 0 && !is_causal))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
+  const bool win = window > 0;
   if (dtype == fat::kBF16 && D == 64)
-    err = launch_bf16<64, 1>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, is_causal, offset, scale_log2, s);
+    err = (win ? launch_bf16<64, 1, true> : launch_bf16<64, 1, false>)(
+        q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, is_causal, offset, window, scale_log2, s);
   else if (dtype == fat::kBF16 && D == 128)
-    err = launch_bf16<128, 2>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, is_causal, offset, scale_log2,
-                              s);
+    err = (win ? launch_bf16<128, 2, true> : launch_bf16<128, 2, false>)(
+        q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, is_causal, offset, window, scale_log2, s);
   else if (dtype == fat::kF32 && D == 64)
-    err = launch_f32<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, is_causal, offset, scale_log2, s);
+    err = launch_f32<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, is_causal, offset, window,
+                         scale_log2, s);
   else if (dtype == fat::kF32 && D == 128)
-    err = launch_f32<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, is_causal, offset, scale_log2, s);
+    err = launch_f32<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, is_causal, offset, window,
+                          scale_log2, s);
   return static_cast<int>(err);
 }

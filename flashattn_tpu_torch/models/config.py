@@ -2,8 +2,9 @@
 
 ``ModelConfig`` keeps every field of the JAX config so that a config moves
 between the packages unchanged; ``dtype`` is a torch dtype. The port runs
-the dense Llama path; ``check_supported`` rejects the fields whose port is
-still queued.
+the dense Llama path with sliding windows (per layer with
+``window_pattern="alternate"``) and attention sinks; ``check_supported``
+rejects the fields whose port is still queued.
 """
 
 from __future__ import annotations
@@ -58,10 +59,8 @@ class ModelConfig:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a config field whose port is queued."""
-    if cfg.attn_window is not None or cfg.window_pattern is not None:
-        raise unported("sliding-window attention", "A4 and A5")
-    if cfg.attn_sink:
-        raise unported("attention sinks", "A5")
+    if cfg.window_pattern not in (None, "alternate"):
+        raise ValueError(f"unknown window_pattern {cfg.window_pattern!r}")
     if cfg.logit_softcap:
         raise unported("attention logit soft-capping", "A4 and A5")
     if cfg.use_alibi:
@@ -93,6 +92,20 @@ LLAMA_150M = ModelConfig(
     num_heads=16,
     num_kv_heads=4,
     head_dim=64,
+)
+
+# Mistral-7B geometry: GQA + 4096-token sliding-window attention.
+MISTRAL_7B = ModelConfig(
+    vocab_size=32000,
+    hidden_size=4096,
+    intermediate_size=14336,
+    num_layers=32,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    rope_theta=10000.0,
+    max_seq_len=8192,
+    attn_window=4096,
 )
 
 # Tiny config for tests.

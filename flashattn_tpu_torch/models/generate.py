@@ -8,7 +8,10 @@ caches may be dense (KVCache) or paged (PagedKVCache), bf16/f32 or
 quantized (int8/fp8); the dispatch is on the cache's type. The caches are
 updated in place (ops/kvcache.py, ops/paged.py); the functions return them
 as the JAX ones do. ``DecodeGraph`` replays decode_step from one CUDA
-graph, where the JAX package jits it.
+graph, where the JAX package jits it. Each layer attends through its
+window (llama.layer_window), and in decode and chunks through the sinks of
+a windowed layer (cfg.attn_sink); the prefill passes no sink, as the JAX
+prefill does.
 """
 
 from __future__ import annotations
@@ -39,6 +42,12 @@ def init_caches(model: Llama, batch: int, max_len: int,
     ]
 
 
+def _window_sink(cfg, i: int) -> tuple[int | None, int]:
+    """Layer i's window, and its sinks (cfg.attn_sink on a windowed layer)."""
+    win = llama.layer_window(cfg, i)
+    return win, (cfg.attn_sink if win else 0)
+
+
 def _append(cache, k, v, active=None, assume_fits=False):
     if isinstance(cache, PagedKVCache):
         return append_paged(cache, k, v, active=active)
@@ -60,14 +69,15 @@ def prefill(
     b, s = tokens.shape
     x = llama.embed_tokens(model, tokens)
     cos, sin = llama.rope_tables(cfg, torch.arange(s, device=tokens.device))
-    for layer, cache in zip(model.layers, caches):
+    for i, (layer, cache) in enumerate(zip(model.layers, caches)):
         xn = llama.rms_norm(x, layer.attn_norm, cfg.norm_eps, cfg.norm_offset)
         q, k, v = llama.qkv(layer, xn, cfg)
         q = llama.apply_rope(q, cos, sin)
         k = llama.apply_rope(k, cos, sin)
         # A fresh cache and an admission-bounded prompt: no drop guard.
         _append(cache, k, v, assume_fits=True)
-        o = flash_attention(q, k, v, is_causal=True, scale=cfg.attn_scale)
+        o = flash_attention(q, k, v, is_causal=True, scale=cfg.attn_scale,
+                            window=llama.layer_window(cfg, i))
         o = o.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
         x = x + llama.proj(o, layer.wo)
         x = x + llama._mlp_block(layer, x, cfg)
@@ -90,7 +100,7 @@ def decode_step(
     b = token.shape[0]
     x = llama.embed_tokens(model, token)  # [B, H]
     cos, sin = llama.rope_tables(cfg, positions)  # [B, D/2]
-    for layer, cache in zip(model.layers, caches):
+    for i, (layer, cache) in enumerate(zip(model.layers, caches)):
         xn = llama.rms_norm(x, layer.attn_norm, cfg.norm_eps, cfg.norm_offset)
         q, k, v = llama.qkv(layer, xn[:, None], cfg)
         q = llama.apply_rope(q, cos[:, None], sin[:, None])
@@ -98,7 +108,8 @@ def decode_step(
         _append(cache, k, v, active=active)
         attn = (paged_decode_attention if isinstance(cache, PagedKVCache)
                 else decode_attention)
-        o = attn(q[:, :, 0], cache, scale=cfg.attn_scale)  # [B, Hq, D]
+        win, sink = _window_sink(cfg, i)
+        o = attn(q[:, :, 0], cache, scale=cfg.attn_scale, window=win, sink=sink)  # [B, Hq, D]
         x = x + llama.proj(o.reshape(b, cfg.num_heads * cfg.head_dim), layer.wo)
         x = x + llama._mlp_block(layer, x, cfg)
     return llama.lm_logits(x, model), caches
@@ -181,7 +192,7 @@ def chunk_step(
     b, c = piece.shape
     x = llama.embed_tokens(model, piece)  # [B, C, H]
     cos, sin = llama.rope_tables(cfg, positions)
-    for layer, cache in zip(model.layers, caches):
+    for i, (layer, cache) in enumerate(zip(model.layers, caches)):
         xn = llama.rms_norm(x, layer.attn_norm, cfg.norm_eps, cfg.norm_offset)
         q, k, v = llama.qkv(layer, xn, cfg)
         q = llama.apply_rope(q, cos, sin)
@@ -189,7 +200,9 @@ def chunk_step(
         _append(cache, k, v, active=active)
         attn = (paged_decode_attention_chunk if isinstance(cache, PagedKVCache)
                 else decode_attention_chunk)
-        o = attn(q.contiguous(), cache, scale=cfg.attn_scale)  # [B, Hq, C, D]
+        win, sink = _window_sink(cfg, i)
+        o = attn(q.contiguous(), cache, scale=cfg.attn_scale, window=win,
+                 sink=sink)  # [B, Hq, C, D]
         o = o.transpose(1, 2).reshape(b, c, cfg.num_heads * cfg.head_dim)
         x = x + llama.proj(o, layer.wo)
         x = x + llama._mlp_block(layer, x, cfg)

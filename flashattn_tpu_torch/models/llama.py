@@ -214,14 +214,22 @@ def qkv(layer: LlamaLayer, xn: torch.Tensor, cfg: ModelConfig):
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2).contiguous()
 
 
+def layer_window(cfg: ModelConfig, layer_idx: int) -> int | None:
+    """Per-layer sliding window: Gemma-2-style 'alternate' puts the window
+    on even layers and full attention on odd ones."""
+    if cfg.window_pattern is None:
+        return cfg.attn_window
+    return cfg.attn_window if layer_idx % 2 == 0 else None
+
+
 def _attn_block(layer: LlamaLayer, x: torch.Tensor, cos: torch.Tensor,
-                sin: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+                sin: torch.Tensor, cfg: ModelConfig, window: int | None = None) -> torch.Tensor:
     b, s, _ = x.shape
     xn = rms_norm(x, layer.attn_norm, cfg.norm_eps, cfg.norm_offset)
     q, k, v = qkv(layer, xn, cfg)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    o = flash_attention(q, k, v, is_causal=True, scale=cfg.attn_scale)
+    o = flash_attention(q, k, v, is_causal=True, scale=cfg.attn_scale, window=window)
     o = o.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
     return proj(o, layer.wo)
 
@@ -232,7 +240,9 @@ def forward(model: Llama, tokens: torch.Tensor, segment_ids=None,
 
     Differentiable: attention goes through the flash autograd Function, whose
     backward runs the backward kernels. Packed documents (`segment_ids`) and
-    rematerialisation (`remat`) are not ported yet and raise."""
+    rematerialisation (`remat`) are not ported yet and raise; so does a
+    windowed layer whose input needs a gradient (no windowed backward yet,
+    ROADMAP A4), while a windowed forward without one runs K1."""
     if segment_ids is not None:
         raise unported("packed-document segment_ids", "A4")
     if remat is not False:
@@ -240,8 +250,8 @@ def forward(model: Llama, tokens: torch.Tensor, segment_ids=None,
     cfg = model.cfg
     x = embed_tokens(model, tokens)
     cos, sin = rope_tables(cfg, torch.arange(tokens.shape[1], device=tokens.device))
-    for layer in model.layers:
-        x = x + _attn_block(layer, x, cos, sin, cfg)
+    for i, layer in enumerate(model.layers):
+        x = x + _attn_block(layer, x, cos, sin, cfg, layer_window(cfg, i))
         x = x + _mlp_block(layer, x, cfg)
     return lm_logits(x, model)
 

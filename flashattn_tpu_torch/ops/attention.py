@@ -5,7 +5,10 @@ flashattn_tpu/ops/attention.py).
 JAX package's ``custom_vjp``) whose forward runs K1 with the LSE and keeps
 (q, k, v, o, lse) as residuals, and whose backward runs the backward kernels
 (ops/flash_bwd.py). Without a gradient to take, the primal runs K1 without
-writing the LSE, as the JAX primal does.
+writing the LSE, as the JAX primal does. A sliding window runs in K1
+without a gradient (prefill, a no-grad forward); its backward is not
+ported, so a windowed call that needs a gradient raises before any kernel
+runs.
 
 ``plain_flash_attention`` is the same Function over the plain versions of
 the forward and backward, the route the kernels are held against. It never
@@ -18,6 +21,7 @@ from typing import Callable
 
 import torch
 
+from flashattn_tpu_torch.ops.common import unported
 from flashattn_tpu_torch.ops.flash_bwd import (
     flash_attention_backward,
     flash_attention_backward_reference,
@@ -50,11 +54,13 @@ class FlashAttentionFunction(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
-def _attention(q, k, v, is_causal, scale, pos_offset, forward_fn, backward_fn):
+def _attention(q, k, v, is_causal, scale, pos_offset, window, forward_fn, backward_fn):
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if window is not None:
+            raise unported("sliding-window backward", "A4")
         return FlashAttentionFunction.apply(q, k, v, is_causal, scale, pos_offset,
                                             forward_fn, backward_fn)
-    o, _ = forward_fn(q, k, v, is_causal, scale, pos_offset, need_lse=False)
+    o, _ = forward_fn(q, k, v, is_causal, scale, pos_offset, need_lse=False, window=window)
     return o
 
 
@@ -65,14 +71,17 @@ def flash_attention(
     is_causal: bool = False,
     scale: float | None = None,
     pos_offset: int | None = None,
+    window: int | None = None,
 ) -> torch.Tensor:
     """Fused flash attention -> O [B, Hq, S_q, D] in q.dtype, differentiable.
 
     q: [B, Hq, S_q, D]; k, v: [B, Hkv, S_k, D] with Hkv dividing Hq. The
     causal mask aligns bottom-right unless pos_offset says otherwise. The
     backward's implementation follows flash_attention_backward's "auto"
-    (FLASHATTN_BWD_IMPL=split selects the deterministic path)."""
-    return _attention(q, k, v, is_causal, scale, pos_offset,
+    (FLASHATTN_BWD_IMPL=split selects the deterministic path). `window`
+    (needs is_causal) is forward-only: with an input that requires grad it
+    raises NotImplementedError (ROADMAP A4)."""
+    return _attention(q, k, v, is_causal, scale, pos_offset, window,
                       flash_attention_forward, flash_attention_backward)
 
 
@@ -83,9 +92,10 @@ def plain_flash_attention(
     is_causal: bool = False,
     scale: float | None = None,
     pos_offset: int | None = None,
+    window: int | None = None,
 ) -> torch.Tensor:
     """flash_attention through the plain PyTorch forward and backward, on
     any device: the reference route for checking the kernels' route."""
-    return _attention(q, k, v, is_causal, scale, pos_offset,
+    return _attention(q, k, v, is_causal, scale, pos_offset, window,
                       flash_attention_forward_reference,
                       flash_attention_backward_reference)

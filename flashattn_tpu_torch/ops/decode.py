@@ -9,6 +9,12 @@ around the two. The new tokens' K/V must already be in the cache
 (kvcache.update_cache): token t of a T-token chunk sits at position
 length - T + t and attends the positions <= its own.
 
+A sliding window (and attention sinks inside it) narrows what a row sees:
+the row at cache position row_pos sees position pos iff pos <= row_pos and
+(pos > row_pos - window or pos < sink). The kernel reads only the sink
+tiles and the tiles from the earliest row's window on, found from the
+device-side length, so a long cache streams O(window + T + sink) bytes.
+
 In the int8 mode both products run on integers, as in the JAX kernel: q is
 quantized per row (inside the kernel, with ``prep_decode_q``'s arithmetic),
 the logits are int(q·k) x q_scale x k_scale, and P x v_scale is requantized
@@ -26,10 +32,12 @@ from flashattn_tpu_torch.ops.flash_fwd import DTYPE_CODES, HEAD_DIMS
 from flashattn_tpu_torch.ops.kvcache import FP8_DTYPE, INT8_MAX, KVCache
 
 # Kernel launches in this process, by the cache's mode (set to 0 by callers
-# that count a run). Paged launches count in ops/paged.py.
+# that count a run), and those with a sliding window in any mode (counted in
+# both). Paged launches count in ops/paged.py.
 LAUNCHES = 0  # bf16/f32 cache
 INT8_LAUNCHES = 0
 FP8_LAUNCHES = 0
+WINDOW_LAUNCHES = 0
 
 BLOCK_KV = 64  # cache positions per tile in the kernel (and int8 P requantization block)
 # Query rows per CTA, and tiles a CTA takes at a time (csrc/decode.cu
@@ -44,13 +52,39 @@ TARGET_CTAS = 264
 CACHE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, FP8_DTYPE: 3}
 
 
-def _check_unported(window, sink, logit_softcap, alibi) -> None:
-    if window is not None or sink:
-        raise unported("decode window / attention sinks", "A5")
+def _check_unported(logit_softcap, alibi) -> None:
     if logit_softcap:
         raise unported("decode logit soft-capping", "A5")
     if alibi:
         raise unported("decode ALiBi", "A5")
+
+
+def check_window(window: int | None, sink: int) -> None:
+    """A window is a positive int or None; sink, the always-visible first
+    positions, a non-negative int that needs a window (as in the JAX
+    launcher)."""
+    if window is not None and (isinstance(window, bool) or not isinstance(window, int)
+                               or window < 1):
+        raise ValueError(f"window must be a positive int or None, got {window!r}")
+    if isinstance(sink, bool) or not isinstance(sink, int) or sink < 0:
+        raise ValueError(f"sink must be a non-negative int, got {sink!r}")
+    if sink and window is None:
+        raise ValueError("attention sinks need a window")
+
+
+def visible_positions(length: torch.Tensor, s_max: int, t: int, rows: int,
+                      window: int | None = None, sink: int = 0) -> torch.Tensor:
+    """[B, R, Smax] bool: row r (token r % T, at cache position
+    length - T + r % T) sees position pos iff pos < length, pos <= its
+    own and, with a window, pos > its own - window or pos < sink."""
+    length = length.long()
+    pos = torch.arange(s_max, device=length.device)[None, None, :]
+    row_pos = (length[:, None] - t
+               + torch.arange(rows, device=length.device)[None, :] % t)[:, :, None]
+    seen = (pos < length[:, None, None]) & (pos <= row_pos)
+    if window is not None:
+        seen &= (pos > row_pos - window) | (pos < sink)
+    return seen
 
 
 def prep_decode_q(q: torch.Tensor, hkv: int, int8_mode: bool, pre: float):
@@ -80,7 +114,7 @@ def jax_int8_block(s_max: int) -> int:
 
 def decode_attention_reference(
     q: torch.Tensor, cache: KVCache, scale: float | None = None,
-    requant_block: int | None = None,
+    requant_block: int | None = None, window: int | None = None, sink: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version of K2: q [B, Hq, T, D] -> [B, Hq, T, D].
 
@@ -88,9 +122,11 @@ def decode_attention_reference(
     use, so garbage (even NaN) there cannot reach the result. An int8 cache
     requantizes P over blocks of `requant_block` positions: by default the
     JAX kernel's block (jax_int8_block), which makes this the JAX kernel's
-    arithmetic; BLOCK_KV gives the CUDA kernel's."""
+    arithmetic; BLOCK_KV gives the CUDA kernel's. `window` and `sink` as in
+    visible_positions."""
+    check_window(window, sink)
     if cache.quantized:
-        return _quantized_reference(q, cache, scale, requant_block)
+        return _quantized_reference(q, cache, scale, requant_block, window, sink)
     b, hq, t, d = q.shape
     hkv, s_max = cache.k.shape[1], cache.k.shape[2]
     group = hq // hkv
@@ -105,9 +141,7 @@ def decode_attention_reference(
     # [B, Hq, T, D] -> [B, Hkv, G*T, D]: row r is head r // T, token r % T.
     qf = q.float().reshape(b, hkv, group * t, d)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale  # [B, Hkv, R, Smax]
-    row_pos = (length[:, None] - t
-               + torch.arange(group * t, device=q.device)[None, :] % t)  # [B, R]
-    visible = in_cache[:, None, :] & (pos[None, None, :] <= row_pos[:, :, None])
+    visible = visible_positions(length, s_max, t, group * t, window, sink)
     s = s.masked_fill(~visible[:, None], float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
@@ -118,7 +152,8 @@ def decode_attention_reference(
 
 
 def _quantized_reference(q: torch.Tensor, cache: KVCache, scale: float | None,
-                         requant_block: int | None) -> torch.Tensor:
+                         requant_block: int | None, window: int | None,
+                         sink: int) -> torch.Tensor:
     """Plain version of K2's int8 and fp8 modes, in the JAX kernel's order of
     operations (log2 domain, k_scale on the logits, v_scale on P). In the
     int8 mode the row streams in blocks, as in the kernels: each block's
@@ -141,8 +176,7 @@ def _quantized_reference(q: torch.Tensor, cache: KVCache, scale: float | None,
     q_rows, q_scale = prep_decode_q(q, hkv, int8_mode, scale * LOG2E)
     s = torch.matmul(q_rows.float(), kf.transpose(-1, -2))  # [B, Hkv, R, Smax]
     s = s * (q_scale * k_scale) if int8_mode else s * k_scale
-    row_pos = length[:, None] - t + torch.arange(rows, device=q.device)[None, :] % t
-    visible = in_cache[:, None, :] & (pos[None, None, :] <= row_pos[:, :, None])
+    visible = visible_positions(length, s_max, t, rows, window, sink)
     s = s.masked_fill(~visible[:, None], float("-inf"))
     block = (requant_block or jax_int8_block(s_max)) if int8_mode else s_max
     m_run = torch.full(s.shape[:-1] + (1,), float("-inf"), device=q.device)
@@ -174,16 +208,30 @@ def _layout(rows: int) -> tuple[int, int]:
     return (FEW_ROWS, 4) if rows <= FEW_ROWS else (ROW_BLOCK, 1)
 
 
-def _num_splits(b: int, hkv: int, rows: int, s_max: int) -> tuple[int, int]:
+def live_span(s_max: int, t: int, window: int | None, sink: int) -> int:
+    """The most positions a sequence's rows can see, as the kernel walks
+    them: the sink tiles, then the tiles from the one holding the earliest
+    row's window edge to the length (at most window + T - 1 positions and
+    the edge tile's 63 before them); the whole cache without a window.
+    csrc/decode.cu::live_span computes the same."""
+    if window is None:
+        return s_max
+    return min(s_max, round_up(sink, BLOCK_KV) + round_up(window + t - 1, BLOCK_KV) + BLOCK_KV)
+
+
+def _num_splits(b: int, hkv: int, rows: int, s_max: int, t: int = 1,
+                window: int | None = None, sink: int = 0) -> tuple[int, int]:
     """(split_len, num_splits): slices of a multiple of the BLOCK_KV
-    positions a CTA takes at a time, enough of them for TARGET_CTAS blocks
-    where the cache is long enough. A function of the shapes alone, so a
-    paged and a dense cache of one max_len take the same slices (and give
-    the same bits)."""
+    positions a CTA takes at a time over the live span (live_span), enough
+    of them for TARGET_CTAS blocks where the span is long enough. A
+    function of the shapes, the window and the sink alone, so a paged and a
+    dense cache of one max_len take the same slices (and give the same
+    bits), and a captured call stays right as the lengths grow."""
     row_block, tiles = _layout(rows)
+    span = live_span(s_max, t, window, sink)
     want = max(1, cdiv(TARGET_CTAS, b * hkv * cdiv(rows, row_block)))
-    split_len = round_up(cdiv(s_max, want), BLOCK_KV * tiles)
-    return split_len, cdiv(s_max, split_len)
+    split_len = round_up(cdiv(span, want), BLOCK_KV * tiles)
+    return split_len, cdiv(span, split_len)
 
 
 def _check_cuda_operands(q, k, v, k_scale, v_scale, length, table) -> None:
@@ -214,16 +262,17 @@ def _check_cuda_operands(q, k, v, k_scale, v_scale, length, table) -> None:
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            k_scale: torch.Tensor | None, v_scale: torch.Tensor | None,
            length: torch.Tensor, table: torch.Tensor | None, s_max: int,
-           scale: float) -> torch.Tensor:
+           scale: float, window: int | None = None, sink: int = 0) -> torch.Tensor:
     """Launch K2 on CUDA tensors: q [B, Hq, T, D]; k/v [B, Hkv, Smax, D]
     (dense, table None) or pages [P, Hkv, page, D] read through
     table [B, max_pages] (paged, s_max = max_pages * page; an entry outside
-    [0, P) is never read, its block holds no key)."""
+    [0, P) is never read, its block holds no key); `window` and `sink` as
+    in visible_positions."""
     _check_cuda_operands(q, k, v, k_scale, v_scale, length, table)
     b, hq, t, d = q.shape
     hkv = k.shape[1]
     rows = (hq // hkv) * t
-    split_len, splits = _num_splits(b, hkv, rows, s_max)
+    split_len, splits = _num_splits(b, hkv, rows, s_max, t, window, sink)
     f32 = dict(dtype=torch.float32, device=q.device)
     part_m = torch.empty((b, hkv, splits, rows), **f32)
     part_l = torch.empty((b, hkv, splits, rows), **f32)
@@ -244,12 +293,14 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             length.data_ptr(), ptr(table), part_m.data_ptr(), part_l.data_ptr(),
             part_acc.data_ptr(), o.data_ptr(), b, hq, hkv, t, s_max,
             d, DTYPE_CODES[q.dtype], CACHE_CODES[k.dtype], max_pages, page, num_pages,
-            split_len, splits, scale * LOG2E, stream)
+            split_len, splits, min(window or 0, s_max), min(sink, s_max), scale * LOG2E,
+            stream)
     _build.check(lib, rc, "decode")
     return o
 
 
-def _decode(q: torch.Tensor, cache: KVCache, scale: float | None) -> torch.Tensor:
+def _decode(q: torch.Tensor, cache: KVCache, scale: float | None,
+            window: int | None, sink: int) -> torch.Tensor:
     b, hq, t, d = q.shape
     if cache.k.dim() != 4 or cache.k.shape != cache.v.shape:
         raise ValueError("cache k/v must be [B, Hkv, Smax, D] of one shape")
@@ -260,12 +311,13 @@ def _decode(q: torch.Tensor, cache: KVCache, scale: float | None) -> torch.Tenso
     if not (q.device == cache.k.device == cache.v.device == cache.length.device):
         raise ValueError("q and the cache must be on one device")
     if q.device.type == "cpu":
-        return decode_attention_reference(q, cache, scale)
+        return decode_attention_reference(q, cache, scale, window=window, sink=sink)
     if scale is None:
         scale = 1.0 / d**0.5
     o = launch(q, cache.k, cache.v, cache.k_scale, cache.v_scale, cache.length, None,
-               s_max, scale)
-    global LAUNCHES, INT8_LAUNCHES, FP8_LAUNCHES
+               s_max, scale, window, sink)
+    global LAUNCHES, INT8_LAUNCHES, FP8_LAUNCHES, WINDOW_LAUNCHES
+    WINDOW_LAUNCHES += window is not None
     if cache.k.dtype == torch.int8:
         INT8_LAUNCHES += 1
     elif cache.k.dtype == FP8_DTYPE:
@@ -289,9 +341,11 @@ def decode_attention(
     CPU tensors take the plain version. CUDA tensors launch K2 and must be
     contiguous (cache k and v 16-byte aligned), with q bf16 or float32, the
     cache in q's dtype or quantized (int8/fp8 with float32 scales), and D
-    in HEAD_DIMS; anything else raises."""
-    _check_unported(window, sink, logit_softcap, alibi)
-    return _decode(q[:, :, None], cache, scale)[:, :, 0]
+    in HEAD_DIMS; anything else raises. With a `window` the new token sees
+    the last `window` positions and, with `sink`, the first `sink` ones."""
+    _check_unported(logit_softcap, alibi)
+    check_window(window, sink)
+    return _decode(q[:, :, None], cache, scale, window, sink)[:, :, 0]
 
 
 def decode_attention_chunk(
@@ -304,6 +358,9 @@ def decode_attention_chunk(
     alibi: bool = False,
 ) -> torch.Tensor:
     """T new tokens per sequence, causal within the chunk:
-    q [B, Hq, T, D] -> [B, Hq, T, D]. Same rules as decode_attention."""
-    _check_unported(window, sink, logit_softcap, alibi)
-    return _decode(q, cache, scale)
+    q [B, Hq, T, D] -> [B, Hq, T, D]. Same rules as decode_attention; with a
+    window, token t sees the positions in (its own - window, its own] and
+    those below `sink`."""
+    _check_unported(logit_softcap, alibi)
+    check_window(window, sink)
+    return _decode(q, cache, scale, window, sink)

@@ -4,7 +4,7 @@
 tensors. It serves what the JAX package splits between the wavefront kernel
 (flash_fwd.py::_fwd_kernel) and the grid4 kernel
 (flash_fwd_grid4.py::_grid4_kernel): both compute one function on the plain
-subset, and the port has one grid for it.
+subset and the sliding window, and the port has one grid for it.
 """
 
 from __future__ import annotations
@@ -15,10 +15,15 @@ from flashattn_tpu_torch.ops import _build
 from flashattn_tpu_torch.ops.common import LOG2E, unported
 from flashattn_tpu_torch.ops.reference import reference_attention_with_lse
 
-# Kernel launches in this process (set to 0 by callers that count a run).
+# Kernel launches in this process (set to 0 by callers that count a run):
+# all of them, and those with a sliding window (counted in both).
 LAUNCHES = 0
+WINDOW_LAUNCHES = 0
 
 HEAD_DIMS = (64, 128)
+# A window at least this wide reaches every key of an int32-indexed call:
+# the kernels take it so.
+WINDOW_MAX = 1 << 30
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -30,10 +35,22 @@ def flash_attention_forward_reference(
     scale: float | None = None,
     pos_offset: int | None = None,
     need_lse: bool = True,
+    window: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Plain PyTorch version of K1, on any device."""
-    o, lse = reference_attention_with_lse(q, k, v, is_causal, scale, pos_offset)
+    check_window(window, is_causal)
+    o, lse = reference_attention_with_lse(q, k, v, is_causal, scale, pos_offset, window)
     return o, (lse if need_lse else None)
+
+
+def check_window(window: int | None, is_causal: bool) -> None:
+    """A sliding window is a positive int and needs the causal mask."""
+    if window is None:
+        return
+    if isinstance(window, bool) or not isinstance(window, int) or window < 1:
+        raise ValueError(f"window must be a positive int, got {window!r}")
+    if not is_causal:
+        raise ValueError("a sliding window needs is_causal=True")
 
 
 def check_qkv(q, k, v) -> None:
@@ -93,6 +110,9 @@ def flash_attention_forward(
       scale: softmax scale, default 1/sqrt(D).
       pos_offset: q/k alignment, default S_k - S_q (bottom-right).
       need_lse: also return the LSE; False skips writing it.
+      window: sliding window, needs is_causal: row r also needs
+        c >= r + pos_offset - window + 1. K1 walks only the kv tiles it
+        reaches.
 
     Returns:
       (O [B, Hq, S_q, D] in q.dtype, LSE [B, Hq, S_q] float32 natural log or
@@ -107,8 +127,6 @@ def flash_attention_forward(
         raise unported("segment ids (varlen)", "A4")
     if dropout_rate:
         raise unported("attention dropout", "A4")
-    if window is not None:
-        raise unported("sliding-window attention", "A4")
     if logit_softcap:
         raise unported("logit soft-capping", "A4")
     if alibi:
@@ -116,9 +134,10 @@ def flash_attention_forward(
     if dyn_pos_offset is not None:
         raise unported("dyn_pos_offset", "A4")
     check_qkv(q, k, v)
+    check_window(window, is_causal)
     if q.device.type == "cpu":
         return flash_attention_forward_reference(q, k, v, is_causal, scale,
-                                                 pos_offset, need_lse)
+                                                 pos_offset, need_lse, window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     b, hq, s_q, d = q.shape
@@ -138,8 +157,9 @@ def flash_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if need_lse else None,
             b, hq, hkv, s_q, s_k, d, DTYPE_CODES[q.dtype], int(is_causal),
-            offset, scale * LOG2E, stream)
+            offset, min(window or 0, WINDOW_MAX), scale * LOG2E, stream)
     _build.check(lib, rc, "flash_fwd")
-    global LAUNCHES
+    global LAUNCHES, WINDOW_LAUNCHES
     LAUNCHES += 1
+    WINDOW_LAUNCHES += window is not None
     return o, lse

@@ -17,6 +17,7 @@ def reference_attention_with_lse(
     is_causal: bool = False,
     scale: float | None = None,
     pos_offset: int | None = None,
+    window: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Unfused attention returning (O, LSE).
 
@@ -26,6 +27,8 @@ def reference_attention_with_lse(
       scale: softmax scale, default 1/sqrt(D).
       pos_offset: q/k alignment; defaults to S_k - S_q (bottom-right, the
         JAX package's convention, not SDPA's top-left one).
+      window: sliding window (needs is_causal): row i also needs
+        j >= i + pos_offset - window + 1.
 
     Returns:
       O [B, Hq, S_q, D] in q.dtype and LSE [B, Hq, S_q] float32 in natural
@@ -46,7 +49,12 @@ def reference_attention_with_lse(
         off = s_k - s_q if pos_offset is None else pos_offset
         qi = torch.arange(s_q, device=q.device)[:, None]
         kj = torch.arange(s_k, device=q.device)[None, :]
-        s = s.masked_fill(kj > qi + off, float("-inf"))
+        hidden = kj > qi + off
+        if window is not None:
+            hidden |= kj < qi + off - window + 1
+        s = s.masked_fill(hidden, float("-inf"))
+    elif window is not None:
+        raise ValueError("a sliding window needs is_causal")
     m = s.amax(dim=-1, keepdim=True)
     m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m_safe)
@@ -64,9 +72,10 @@ def reference_attention(
     is_causal: bool = False,
     scale: float | None = None,
     pos_offset: int | None = None,
+    window: int | None = None,
 ) -> torch.Tensor:
     """Unfused attention, O only."""
-    return reference_attention_with_lse(q, k, v, is_causal, scale, pos_offset)[0]
+    return reference_attention_with_lse(q, k, v, is_causal, scale, pos_offset, window)[0]
 
 
 def reference_attention_backward(

@@ -96,18 +96,32 @@ def _float_dtype(dtype_bytes: int) -> torch.dtype:
     return {2: torch.bfloat16, 4: torch.float32}[dtype_bytes]
 
 
+def window_pairs(s_q: int, s_k: int, window: int, pos_offset: int | None = None) -> int:
+    """The (row, column) pairs a causal sliding window lets one head see:
+    row r sees the columns in [r + offset - window + 1, r + offset] inside
+    [0, S_k)."""
+    off = s_k - s_q if pos_offset is None else pos_offset
+    return sum(max(0, min(s_k, r + off + 1) - max(0, r + off - window + 1))
+               for r in range(s_q))
+
+
 def attention_fwd_roofline(
     b: int, hq: int, hkv: int, s_q: int, s_k: int, d: int,
     is_causal: bool, dtype_bytes: int = 2, chip: ChipSpec | None = None,
-    need_lse: bool = True,
+    need_lse: bool = True, window: int | None = None, pos_offset: int | None = None,
 ) -> RooflineReport:
     """The flash forward (K1): Q, K and V read once, O written once, and the
-    float32 LSE when `need_lse`."""
+    float32 LSE when `need_lse`. Operations: the JAX package's count (half
+    the square when causal), or with a window (causal) 4 D for each pair
+    the window lets a head see (window_pairs)."""
     q_bytes = b * hq * s_q * d * dtype_bytes
     kv_bytes = 2 * b * hkv * s_k * d * dtype_bytes
     lse_bytes = 4 * b * hq * s_q if need_lse else 0
-    return roofline(attention_flops(b, hq, s_q, s_k, d, is_causal),
-                    2 * q_bytes + kv_bytes + lse_bytes, _float_dtype(dtype_bytes), chip)
+    if window is None:
+        flops = attention_flops(b, hq, s_q, s_k, d, is_causal)
+    else:
+        flops = 4.0 * b * hq * d * window_pairs(s_q, s_k, window, pos_offset)
+    return roofline(flops, 2 * q_bytes + kv_bytes + lse_bytes, _float_dtype(dtype_bytes), chip)
 
 
 # The backward's kernels by the matrix products each runs over the score
@@ -141,23 +155,41 @@ def attention_bwd_roofline(
     return roofline(flops, hbm, _float_dtype(dtype_bytes), chip)
 
 
+def decode_visible(n: int, t: int, window: int | None = None, sink: int = 0) -> tuple[int, int]:
+    """A sequence of length n with T new tokens: (the (row, position) pairs
+    its T rows see, the positions some row sees). Row i sits at position
+    p = n - T + i and sees [0, p], or with a window (p - window, p] and the
+    positions below `sink`."""
+    pairs, lo_all = 0, n
+    for i in range(t):
+        p = n - t + i
+        if p < 0:
+            continue
+        lo = 0 if window is None else max(0, p - window + 1)
+        pairs += p + 1 - lo + min(sink, lo)
+        lo_all = min(lo_all, lo)
+    live = n - lo_all + min(sink, lo_all) if window is not None else n
+    return pairs, live
+
+
 def decode_roofline(
     b: int, hq: int, hkv: int, d: int, lengths: list[int], t: int = 1,
     cache_dtype: torch.dtype = torch.bfloat16, q_dtype_bytes: int = 2,
-    chip: ChipSpec | None = None,
+    chip: ChipSpec | None = None, window: int | None = None, sink: int = 0,
 ) -> RooflineReport:
     """Flash-decode (K2, dense or paged): T new tokens a sequence against
-    caches of `lengths` tokens. Bytes: each live K and V value once (one
-    byte a value when quantized, plus two float32 scales a token and kv
-    head), q read and O written once, the lengths. Operations: 4 D a q head
-    for each (row, position) pair the causal chunk sees, against the peak
-    of the cache's type."""
+    caches of `lengths` tokens, with an optional window and sinks. Bytes:
+    each live K and V value once (the positions some row sees; one byte a
+    value when quantized, plus two float32 scales a token and kv head), q
+    read and O written once, the lengths. Operations: 4 D a q head for each
+    (row, position) pair a row sees (decode_visible), against the peak of
+    the cache's type."""
     esize = torch.empty((), dtype=cache_dtype).element_size()
-    live = sum(lengths)
+    seen = [decode_visible(n, t, window, sink) for n in lengths]
+    live = sum(n for _, n in seen)
     hbm = 2 * hkv * live * (d * esize + (4 if esize == 1 else 0))
     hbm += 2 * b * hq * t * d * q_dtype_bytes + 4 * b
-    seen = sum(max(0, min(n, n - t + i + 1)) for n in lengths for i in range(t))
-    return roofline(4.0 * hq * d * seen, hbm, cache_dtype, chip)
+    return roofline(4.0 * hq * d * sum(p for p, _ in seen), hbm, cache_dtype, chip)
 
 
 def quant_matmul_roofline(m: int, k: int, n: int, bits: int,

@@ -8,9 +8,13 @@ decode step (B 4, Hq 32, Hkv 4, D 64, Smax 2048, lengths 1/77/1500/2048):
 K2 on bf16, int8 and fp8 caches and the paged K2 on an int8 pool of
 256-token pages at T 1, K2 int8 at T 256 (a chunked admission's step);
 qmm8 and qmm4 on the gate/up projection (K 2048, N 5632) at M 4 and 256;
-and K1, causal, at the prefill bucket (B 1, Hq 32, Hkv 4, S 256, D 64, no
+K1, causal, at the prefill bucket (B 1, Hq 32, Hkv 4, S 256, D 64, no
 LSE), the training shape (B 4, Hq 32, Hkv 4, S 2048, D 64, with the LSE)
-and D 128 (B 4, Hq = Hkv = 8, S 16384, with the LSE).
+and D 128 (B 4, Hq = Hkv = 8, S 16384, with the LSE); and the sliding
+window at MISTRAL_7B's shapes: K1 at a 4,608-token prefill (B 1, Hq 32,
+Hkv 8, D 128, window 4096, no LSE), K2 and the paged K2 (pages of 256) on
+a bf16 cache at T 1 (B 4, Hq 32, Hkv 8, D 128, Smax 8192, every length
+8192, window 4096, 4 sinks) beside the same K2 call without a window.
 Prints the card's name and power limit, then one JSON line of
 milliseconds. It calls nothing but the public functions, so run as a file
 with another checkout of the package first on PYTHONPATH,
@@ -43,6 +47,10 @@ K, N = 2048, 5632
 K1_SHAPES = {"k1_prefill": (1, 32, 4, 256, 64, False),
              "k1_train": (4, 32, 4, 2048, 64, True),
              "k1_d128": (4, 8, 8, 16384, 128, True)}
+# The windowed kernels at MISTRAL_7B's widths.
+WIN, SINK = 4096, 4
+K1_WINDOW = (1, 32, 8, 4608, 128)  # B, Hq, Hkv, S, D
+WIN_B, WIN_HKV, WIN_SMAX = 4, 8, 8192
 
 
 def cache_of(quant: str | None, gen: torch.Generator) -> KVCache:
@@ -107,7 +115,34 @@ def main() -> None:
         ms[name] = cuda_time_ms(lambda: flash_fwd.flash_attention_forward(
             q, k, v, True, need_lse=need_lse), warmup=2, iters=5, reps=5)
         del q, k, v
+    ms.update(windowed(gen))
     print(json.dumps({"tag": args.tag, "ms": ms}))
+
+
+def windowed(gen: torch.Generator) -> dict[str, float]:
+    """The sliding window's rows: K1 at the Mistral prefill, K2 dense and
+    paged at T 1 on full 8192-token caches, and K2 there without a window."""
+    b, hq, hkv, s, d = K1_WINDOW
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    ms = {"k1_window": cuda_time_ms(lambda: flash_fwd.flash_attention_forward(
+        q, k, v, True, need_lse=False, window=WIN))}
+    shape = (WIN_B, WIN_HKV, WIN_SMAX, d)
+    cache = KVCache(*(torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+                      for _ in range(2)),
+                    length=torch.full((WIN_B,), WIN_SMAX, dtype=torch.int32, device="cuda"))
+    maxp = WIN_SMAX // PAGE
+    pool = paged.init_paged_cache(WIN_B, WIN_HKV, WIN_B * maxp, PAGE, d, maxp, device="cuda")
+    for i in range(WIN_B):
+        row = KVCache(k=cache.k[i:i + 1], v=cache.v[i:i + 1], length=cache.length[i:i + 1])
+        paged.write_slot_paged(pool, row, i, list(range(i * maxp, (i + 1) * maxp)))
+    qd = torch.randn((WIN_B, hq, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+    ms["decode_window_bf16"] = cuda_time_ms(
+        lambda: decode.decode_attention(qd, cache, window=WIN, sink=SINK))
+    ms["decode_no_window_bf16"] = cuda_time_ms(lambda: decode.decode_attention(qd, cache))
+    ms["paged_decode_window_bf16"] = cuda_time_ms(
+        lambda: paged.paged_decode_attention(qd, pool, window=WIN, sink=SINK))
+    return ms
 
 
 if __name__ == "__main__":

@@ -782,6 +782,11 @@ CAPTURE_CASES = {
     "int4_weights": (4, None, False, {}),
     # a 0-d CPU tensor scales the embedding (llama.embed_tokens)
     "scaled_embeddings": (None, None, False, dict(scale_embeddings=True)),
+    # a window the lengths grow past, with sinks; alternate layers windowed
+    "window_sinks": (None, None, False, dict(attn_window=64, attn_sink=4)),
+    "window_alternate_int8_paged_kv": (8, "int8", True,
+                                       dict(attn_window=64, attn_sink=4,
+                                            window_pattern="alternate")),
 }
 
 
@@ -1039,3 +1044,150 @@ def test_detect_chip_on_the_card(dev):
     spec = roofline.detect_chip()
     total = torch.cuda.get_device_properties(0).total_memory / 2**30
     assert spec.bf16_tflops == 989.0 and spec.hbm_gib == total
+
+
+# ---- the sliding window and attention sinks: K1, K2 dense and paged ----
+
+WINDOW_FWD_CASES = {
+    # name: (B, Hq, Hkv, S_q, S_k, D, pos_offset, window)
+    "w1": (1, 4, 2, 300, 300, 64, None, 1),
+    "w63_d128": (1, 4, 2, 515, 515, 128, None, 63),
+    "w64": (2, 4, 1, 400, 400, 64, None, 64),
+    "w65_d128": (1, 8, 2, 333, 333, 128, None, 65),
+    "w128_tile_edges_d128": (1, 2, 1, 1024, 1024, 128, None, 128),
+    "w200_sq_below_sk": (1, 8, 2, 130, 700, 128, None, 200),
+    "w129_offset": (1, 4, 1, 256, 600, 64, 100, 129),
+    "w_past_s_d128": (1, 4, 2, 257, 257, 128, None, 1000),
+    "w100_no_key_rows": (1, 4, 2, 256, 256, 64, -120, 100),
+    "w30_rows_right_of_keys": (1, 4, 2, 200, 96, 64, 50, 30),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", sorted(WINDOW_FWD_CASES))
+def test_windowed_flash_fwd_kernel_matches_plain(dev, dtype, case):
+    """K1 with a sliding window against its plain version: windows of one
+    key, at and beside the kv tile widths (64, 128), past S; S_q != S_k,
+    pos_offset, rows that see no key on either side."""
+    b, hq, hkv, s_q, s_k, d, off, w = WINDOW_FWD_CASES[case]
+    q = randn((b, hq, s_q, d), dtype, dev, 81)
+    k = randn((b, hkv, s_k, d), dtype, dev, 82)
+    v = randn((b, hkv, s_k, d), dtype, dev, 83)
+    before = (flash_fwd.LAUNCHES, flash_fwd.WINDOW_LAUNCHES)
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, True, pos_offset=off, window=w)
+    torch.cuda.synchronize()
+    assert (flash_fwd.LAUNCHES, flash_fwd.WINDOW_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    o_ref, lse_ref = flash_fwd.flash_attention_forward_reference(
+        q, k, v, True, pos_offset=off, window=w)
+    rep = verify_results(o_ref, o, **TOL[dtype])
+    assert rep.passed, f"O: {rep}"
+    rep = verify_results(lse_ref, lse, atol=1e-3)
+    assert rep.passed, f"LSE: {rep}"
+    dead = torch.isneginf(lse_ref)
+    assert torch.equal(torch.isneginf(lse), dead)
+    assert not bool(o[dead].any())
+
+
+WINDOW_DECODE_CASES = {
+    # name: (Hq, Hkv, T, D, Smax, lengths, window, sink)
+    "t1_straddle_d128": (16, 2, 1, 128, 1024, [1, 64, 65, 130, 700, 1024], 64, 4),
+    "t1_no_sink": (8, 2, 1, 64, 512, [3, 100, 300, 512], 100, 0),
+    "t4_sink_past_tile": (8, 4, 4, 64, 1024, [4, 90, 600, 1024], 200, 70),
+    "t64_rows64_d128": (8, 2, 64, 128, 1024, [64, 100, 700, 1024], 129, 4),
+    "t256": (16, 4, 256, 64, 2048, [256, 300, 1500, 2048], 1000, 4),
+    "window_past_smax": (8, 2, 3, 64, 256, [3, 80, 256], 5000, 2),
+}
+
+
+def window_cache(quant, dtype, b, hkv, s_max, d, lengths, dev, seed):
+    if quant is not None:
+        return quantized_cache(quant, b, hkv, s_max, d, lengths, dev, seed=seed)
+    cache = kvcache.KVCache(
+        k=randn((b, hkv, s_max, d), dtype, dev, seed),
+        v=randn((b, hkv, s_max, d), dtype, dev, seed + 1),
+        length=torch.tensor(lengths, dtype=torch.int32, device=dev))
+    for i, n in enumerate(lengths):  # garbage past every length
+        cache.k[i, :, n:] = float("nan")
+        cache.v[i, :, n:] = float("nan")
+    return cache
+
+
+@pytest.mark.parametrize("mode", ["bf16", "f32", "int8", "fp8"])
+@pytest.mark.parametrize("case", sorted(WINDOW_DECODE_CASES))
+def test_windowed_decode_kernel_matches_plain(dev, mode, case):
+    """K2 with a window and sinks in all four cache modes against its plain
+    version (int8 P requantized per 64-position tile, as the kernel does):
+    lengths on both sides of the window, sinks inside and past a tile."""
+    hq, hkv, t, d, s_max, lengths, w, sink = WINDOW_DECODE_CASES[case]
+    dtype = torch.float32 if mode == "f32" else torch.bfloat16
+    quant = mode if mode in ("int8", "fp8") else None
+    cache = window_cache(quant, dtype, len(lengths), hkv, s_max, d, lengths, dev, 84)
+    q = randn((len(lengths), hq, t, d), dtype, dev, 86)
+    before = decode.WINDOW_LAUNCHES
+    o = decode.decode_attention_chunk(q, cache, window=w, sink=sink)
+    torch.cuda.synchronize()
+    assert decode.WINDOW_LAUNCHES == before + 1
+    assert bool(torch.isfinite(o).all())
+    ref = decode.decode_attention_reference(q, cache, requant_block=decode.BLOCK_KV,
+                                            window=w, sink=sink)
+    rep = verify_results(ref, o, **(QTOL if quant else TOL[dtype]))
+    assert rep.passed, rep
+    if t == 1:
+        o1 = decode.decode_attention(q[:, :, 0].contiguous(), cache, window=w, sink=sink)
+        assert torch.equal(o1, o[:, :, 0])
+
+
+@pytest.mark.parametrize("page", [64, 256])
+@pytest.mark.parametrize("quant", [None, "int8", "fp8"])
+@pytest.mark.parametrize("t", [1, 256])
+def test_windowed_paged_decode_equals_dense(dev, quant, page, t):
+    """The paged K2 with a window and sinks equals the dense K2 bit for bit
+    on the same content in scrambled pages: the sink tiles fetch their own
+    pages, left of the window's."""
+    b, hq, hkv, d, s_max = 4, 16, 4, 64, 2048
+    lengths = [256, 600, 1500, 2048]
+    cache = window_cache(quant, torch.bfloat16, b, hkv, s_max, d, lengths, dev, 87)
+    pool = paged_copy(cache, page, dev)
+    q = randn((b, hq, t, d), torch.bfloat16, dev, 89)
+    before = paged.WINDOW_LAUNCHES
+    o_paged = paged.paged_decode_attention_chunk(q, pool, window=500, sink=4)
+    o_dense = decode.decode_attention_chunk(q, cache, window=500, sink=4)
+    torch.cuda.synchronize()
+    assert paged.WINDOW_LAUNCHES == before + 1
+    assert torch.equal(o_paged, o_dense)
+    ref = paged.paged_decode_reference(q, pool, requant_block=decode.BLOCK_KV, window=500,
+                                       sink=4)
+    rep = verify_results(ref, o_paged, **(TOL[torch.bfloat16] if quant is None else QTOL))
+    assert rep.passed, rep
+
+
+def test_windowed_decode_reads_only_the_live_span(dev):
+    """A full 8192-token cache with a window of 1024 and 4 sinks: the kernel
+    reads the sink tile and the window's tiles alone. NaN everywhere else
+    cannot reach the output, and the output equals the call on a cache that
+    holds only those positions."""
+    b, hq, hkv, d, s_max, w = 2, 8, 2, 64, 8192, 1024
+    cache = window_cache(None, torch.bfloat16, b, hkv, s_max, d, [s_max, 5000], dev, 90)
+    q = randn((b, hq, d), torch.bfloat16, dev, 92)
+    clean = decode.decode_attention(q, cache, window=w, sink=4)
+    for i, n in enumerate([s_max, 5000]):
+        dead = slice(64, (n - w) // 64 * 64)  # between the sink tile and the window's tiles
+        cache.k[i, :, dead] = float("nan")
+        cache.v[i, :, dead] = float("nan")
+    poisoned = decode.decode_attention(q, cache, window=w, sink=4)
+    torch.cuda.synchronize()
+    assert torch.equal(clean, poisoned)
+
+
+def test_windowed_attention_needs_no_gradient(dev):
+    """flash_attention with a window runs K1 without a gradient and raises
+    (ROADMAP A4) before any kernel runs when an input requires one."""
+    q = randn((1, 4, 128, 64), torch.bfloat16, dev, 93)
+    k = randn((1, 2, 128, 64), torch.bfloat16, dev, 94)
+    o = flash_attention(q, k, k, is_causal=True, window=32)
+    ref, _ = flash_fwd.flash_attention_forward_reference(q, k, k, True, window=32)
+    assert verify_results(ref, o, **TOL[torch.bfloat16]).passed
+    before = launch_counters.read()
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        flash_attention(q.requires_grad_(), k, k, is_causal=True, window=32)
+    assert launch_counters.read() == before

@@ -91,7 +91,8 @@ def test_decode_empty_row_is_zero():
 
 
 @pytest.mark.parametrize("option,item", [
-    (dict(window=64), "A5"), (dict(sink=4), "A5"),
+    # A window is ported; soft-cap and ALiBi still raise beside one.
+    (dict(window=64, logit_softcap=30.0), "A5"), (dict(window=64, sink=4, alibi=True), "A5"),
     (dict(logit_softcap=30.0), "A5"), (dict(alibi=True), "A5"),
 ])
 def test_decode_unported_options_raise(option, item):

@@ -157,7 +157,6 @@ def test_init_params_is_seeded():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("attn_window", 64, "A4 and A5"), ("attn_sink", 4, "A5"),
     ("logit_softcap", 50.0, "A4 and A5"), ("use_alibi", True, "A4 and A5"),
     ("qk_norm", True, "A8"), ("attn_bias", True, "A8"),
     ("use_post_norms", True, "A8"), ("num_experts", 4, "A9"),

@@ -2,7 +2,8 @@
 chip_smoke.py, import and run on the CPU in a process where `import jax`
 fails (generation, the server, two training steps, the quantized paged
 server with a shared prefix and chunked admission, its calibrations, the
-timing harness and the roofline). A CPU call takes the plain versions and
+timing harness, the roofline, and a windowed model with sinks generating
+and serving). A CPU call takes the plain versions and
 launches no kernel."""
 
 import os
@@ -57,10 +58,22 @@ from flashattn_tpu_torch.utils import roofline, timing
 assert roofline.attention_fwd_roofline(1, 2, 2, 64, 64, 64, True,
                                        chip=roofline.H100_SXM).bound_ms > 0
 assert timing.measure_looped(torch.matmul, torch.ones(4, 4), torch.ones(4, 4), iters=3) > 0
+# A windowed model (alternate layers, sinks): generation and the paged server
+# with chunked admission, prompts past the window.
+import dataclasses
+win = llama.init_params(dataclasses.replace(TINY, attn_window=16, attn_sink=4,
+                                            window_pattern="alternate"),
+                        torch.Generator().manual_seed(1), device="cpu")
+generate.generate(win, torch.tensor([list(range(40))]), max_new_tokens=3)
+srv = InferenceServer(win, max_slots=2, max_len=128, paged=True, page_size=64,
+                      admit_chunk=32)
+srv.submit(Request(uid=3, prompt=list(range(50)), max_new_tokens=20))
+assert len(srv.run()[3]) == 20
 counts = (flash_fwd.LAUNCHES, decode.LAUNCHES, decode.INT8_LAUNCHES, decode.FP8_LAUNCHES,
           paged.LAUNCHES, quant_matmul.QMM8_LAUNCHES, quant_matmul.QMM4_LAUNCHES,
-          flash_bwd.DQ_LAUNCHES, flash_bwd.DKV_LAUNCHES, flash_bwd_fused.LAUNCHES)
-assert counts == (0,) * 10, f"CPU call counted a launch: {counts}"
+          flash_bwd.DQ_LAUNCHES, flash_bwd.DKV_LAUNCHES, flash_bwd_fused.LAUNCHES,
+          flash_fwd.WINDOW_LAUNCHES, decode.WINDOW_LAUNCHES, paged.WINDOW_LAUNCHES)
+assert counts == (0,) * 13, f"CPU call counted a launch: {counts}"
 loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
           or m == "flashattn_tpu" or m.startswith("flashattn_tpu.")]
 assert loaded == ["jax"], loaded  # only the None placeholder

@@ -91,3 +91,29 @@ def test_peaks_by_type_and_detect_chip_without_a_card():
         roofline.detect_chip()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         roofline.attention_fwd_roofline(1, 1, 1, 64, 64, 64, True)
+
+
+@pytest.mark.parametrize("n,t,window,sink", [
+    (1, 1, 4096, 4), (77, 1, 16, 0), (300, 4, 16, 4), (300, 64, 100, 70), (5, 8, 3, 1),
+    (8192, 256, 4096, 4), (50, 3, None, 0),
+])
+def test_windowed_bounds_count_the_visible_pairs(n, t, window, sink):
+    """The windowed bounds count the (row, position) pairs the rows see and
+    the positions some row sees, exactly as the visibility rule of
+    ops/decode.py gives them; the forward's pairs likewise."""
+    from flashattn_tpu_torch.ops import decode
+
+    seen = decode.visible_positions(torch.tensor([n]), n, t, t, window, sink)[0]
+    assert roofline.decode_visible(n, t, window, sink) == (int(seen.sum()),
+                                                           int(seen.any(0).sum()))
+    rep = roofline.decode_roofline(1, 4, 2, 64, [n], t=t, window=window, sink=sink, chip=H100)
+    assert rep.flops == 4.0 * 4 * 64 * int(seen.sum())
+    if window is not None and t <= 64:
+        s_q, s_k = t, n
+        r = torch.arange(s_q)[:, None] + (s_k - s_q)
+        c = torch.arange(s_k)[None, :]
+        pairs = int(((c <= r) & (c > r - window)).sum())
+        assert roofline.window_pairs(s_q, s_k, window) == pairs
+        fwd = roofline.attention_fwd_roofline(1, 2, 1, s_q, s_k, 64, True, window=window,
+                                              chip=H100)
+        assert fwd.flops == 4.0 * 2 * 64 * pairs
