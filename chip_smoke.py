@@ -5,7 +5,7 @@ NVIDIA GPU.
     python3 chip_smoke.py
 
 Builds the five CUDA libraries from csrc/ (into build/flashattn_tpu_torch/,
-one nvcc each, all at once) and runs ten phases, printing one line per
+one nvcc each, all at once) and runs eleven phases, printing one line per
 check:
 
 1. environment: torch/CUDA versions, the card's name and power limit, the
@@ -13,8 +13,9 @@ check:
    tensor-core kernels and the split-K kernel, no wgmma serialized), and
    the tensor-core instructions (HMMA/HGMMA/IMMA) in the SASS of each
    tensor-core kernel, which must be there for K1's bf16 kernel (HGMMA, at
-   D 64 and D 128, with and without a window), the bf16 fused, dQ and dK/dV
-   kernels, qmm8's and qmm4's M > 16 kernels and every instantiation of
+   D 64 and D 128, with and without a window and segment ids), the bf16
+   fused, dQ and dK/dV kernels (with and without the window and segment
+   ids), qmm8's and qmm4's M > 16 kernels and every instantiation of
    K2's (with and without a window);
 2. each kernel against its plain PyTorch version on the card, at the
    serving and training paths' shapes and at their edges (K1 also at every
@@ -38,7 +39,20 @@ check:
    lengths on both sides of the window, bf16/f32/int8/fp8 caches at T 1
    and T 256, the paged K2 torch.equal to the dense K2 in each; each timed
    beside SDPA with an explicit boolean window mask, and K2 at length 8192
-   held to at most 0.8 of the same call without a window;
+   held to at most 0.8 of the same call without a window; then the window
+   and segment ids in the backward kernels and segment ids in K1
+   (masked_kernels): K1 and B3, B4 + B5 against their plain versions with
+   windows 1, 63, 64, 65 and 1000 at D 64, at MISTRAL_7B's widths (S 4608,
+   window 4096), with S_q != S_k and a pos_offset, in float32; with
+   packed documents whose lengths are off the tile multiples and trailing
+   padding, causal and not, with a window, as a (seg_q, seg_k) pair with
+   S_q != S_k, in float32, and at the packed training row (S 8192, window
+   4096, documents of 6100, 1300, 517 and 211 tokens): padding rows' O and
+   gradients exactly 0, the split path bitwise equal across two calls;
+   the windowed kernels timed at the MISTRAL_7B prefill shape, the
+   segmented ones at the packed row, each beside its plain version, SDPA
+   (forward, or forward and backward) with the explicit boolean mask and
+   its bound over the visible pairs;
 3. LLAMA_1B at full width (random weights from a seed): prefill of a
    150-token prompt and 4 teacher-forced decode steps through the kernels,
    against the same run with every kernel call on its plain version;
@@ -73,9 +87,21 @@ check:
    traffic on the int8-KV paged server (pages of 256, admit_chunk 256, a
    registered 1,024-token prefix before two prompts); tokens/s,
    device_step_ms and the windowed launch counts, which must be > 0;
-10. the `kernels` JSON line: every kernel with its launches on the path that
+10. packed, windowed training (phase_packed): MISTRAL_7B at full width cut to
+   4 layers (32 layers with AdamW state do not fit one card), one row of
+   8,193 tokens a step from PackedDataset over four documents of 6,100,
+   1,300, 517 and 211 tokens (every row holds a document past the window,
+   boundaries off the tile multiples and trailing padding); one AdamW step
+   through the kernels (K1 with the window and segment ids, the fused
+   backward) against the same step on the plain route (which computes
+   attention one kv-head group at a time) under phase 7's gates, then
+   train.train for 5 steps through prefetch with the split backward, the
+   loss falling; ms, tokens/s and peak memory a step, and the windowed and
+   segmented launches of K1, B3, B4 and B5, which must be > 0;
+11. the `kernels` JSON line: every kernel with its launches on the path that
    runs it, its error against its plain version, its time, bound, plain and
-   library times (the windowed K1, K2 and paged K2 from phases 2 and 9).
+   library times (the windowed K1, K2 and paged K2 from phases 2 and 9, the
+   windowed and segmented K1, B3, B4 and B5 from phases 2 and 10).
 
 Any failed check raises: the script then exits nonzero and does not print
 its last line. It needs a CUDA device and never falls back to the CPU. The
@@ -97,18 +123,20 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from flashattn_tpu_torch.models import generate, llama, train
+from flashattn_tpu_torch.models import data, generate, llama, train
 from flashattn_tpu_torch.models.config import LLAMA_1B, MISTRAL_7B
 from flashattn_tpu_torch.models.llama import init_params
 from flashattn_tpu_torch.models.serve import InferenceServer, Request
 from flashattn_tpu_torch.ops import (_build, decode, flash_bwd, flash_bwd_fused, flash_fwd,
-                                     kvcache, paged, quant_matmul)
+                                     kvcache, paged, quant_matmul, varlen)
 from flashattn_tpu_torch.ops import launches as launch_counters
 from flashattn_tpu_torch.ops.attention import plain_flash_attention
 from flashattn_tpu_torch.ops.kvcache import KVCache
+from flashattn_tpu_torch.ops.reference import visible
 from flashattn_tpu_torch.utils import roofline
 from flashattn_tpu_torch.utils.timing import cuda_time_ms
 from flashattn_tpu_torch.utils.verify import verify_results
@@ -189,12 +217,13 @@ def phase_environment() -> str:
                 print(f"[env] SASS {kernel}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA, "
                       f"{n['IMMA']} IMMA")
                 mma[kernel] = n
-    families = {"flash_fwd_wgmma_kernel": 4, "flash_bwd": 6, "qmm_mma_kernel": 4,
+    families = {"flash_fwd_wgmma_kernel": 8, "flash_bwd": 18, "qmm_mma_kernel": 4,
                 "decode_mma_kernel": 40}
     counted = {f: sum(k.startswith(f) for k in mma) for f in families}
     check(counted == families and all(sum(n.values()) for n in mma.values()),
-          "K1's bf16 kernel (D 64 and D 128, with and without a window), the bf16 fused, dQ "
-          "and dK/dV kernels (D 64 and 128), qmm8's and qmm4's M > 16 kernels (bf16 and "
+          "K1's bf16 kernel (D 64 and D 128, with and without a window, with and without "
+          "segment ids), the bf16 fused, dQ and dK/dV kernels (D 64 and 128; no mask, the "
+          "window, segment ids), qmm8's and qmm4's M > 16 kernels (bf16 and "
           "float32 y) and every K2 tensor-core instantiation (bf16, int8 and fp8 caches, D 64 "
           "and 128, both row layouts, with and without a window) must run on the tensor "
           f"cores: {mma}")
@@ -380,6 +409,7 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
     timed.update(paged_decode_kernel(gen))
     timed.update(quant_matmul_kernels(gen))
     timed.update(window_kernels(gen))
+    timed.update(masked_kernels(gen))
     return timed
 
 
@@ -820,6 +850,186 @@ def window_k2(gen: torch.Generator) -> dict[str, dict]:
         "paged_decode_window": dict(max_abs_err=err["paged_decode_window"], ms=paged_ms,
                                     plain_ms=paged_plain, library_ms=lib, **lim),
     }
+
+
+# The window and segment ids in the backward kernels (B3, B4, B5) and
+# segment ids in K1 (phase 2's masked gates). Packed rows: the four
+# documents of the packed training phase (MISTRAL_7B), 8,128 tokens and 65
+# of padding in a row of 8,193, cut to the 8,192 inputs a step attends.
+PACK_DOCS = (6100, 1300, 517, 211)
+PACK_S = 8192
+BWD_WINDOWS = (1, 63, 64, 65, 1000)  # at D 64, S 1000: one key, the tile widths, past S
+MASKED_ROWS = ("flash_fwd_segments", "flash_bwd_fused_window", "flash_bwd_dq_window",
+               "flash_bwd_dkv_window", "flash_bwd_fused_segments", "flash_bwd_dq_segments",
+               "flash_bwd_dkv_segments")
+
+
+def packed_ids(lens, total: int, device) -> torch.Tensor:
+    """[1, total] ids of documents of `lens` then padding (-1)."""
+    cu = torch.tensor(np.cumsum([0, *lens]), device=device)
+    return varlen.segment_ids_from_cu_seqlens(cu, total)[None]
+
+
+def masked_case(gen, err: dict, tag: str, shape, dtype=torch.bfloat16, pos_offset=None,
+                window=None, lens=None, causal=True, k_lens=None) -> tuple:
+    """K1, then B3 (fused) and B4 + B5 (split), with a window and/or segment
+    ids against their plain versions on one set of inputs; errors go to the
+    rows of `err` (segment rows when ids are given). Padding rows' O and
+    every gradient of a padding position must be exactly 0, a window of one
+    key gives dQ = dK = 0 (each row's softmax gradient vanishes), held to
+    |x| <= 1e-4 on both sides. Returns (q, k, v, o, do, lse, kw)."""
+    b, hq, hkv, s_q, s_k, d = shape
+    q, do = (randn((b, hq, s_q, d), gen, dtype) for _ in range(2))
+    k, v = (randn((b, hkv, s_k, d), gen, dtype) for _ in range(2))
+    seg = None
+    if lens is not None:
+        seg = varlen.canonical_segments(packed_ids(lens, s_q, q.device),
+                                        packed_ids(k_lens or lens, s_k, q.device), q.device)
+    kw = dict(is_causal=causal, pos_offset=pos_offset, window=window, segment_ids=seg)
+    kind = "segments" if seg is not None else "window"
+    name = (f"{tag}: B={b} Hq={hq} Hkv={hkv} Sq={s_q} Sk={s_k} D={d} causal={causal} "
+            f"pos_offset={pos_offset} window={window} {str(dtype)[6:]}")
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, **kw)
+    o_ref, lse_ref = flash_fwd.flash_attention_forward_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    tol = dict(atol=O_ATOL) if dtype == torch.bfloat16 else F32_TOL
+    e = _gate(f"K1 {name} O", o_ref, o, **tol)
+    _gate(f"K1 {name} LSE", lse_ref, lse, LSE_ATOL)
+    if seg is not None:
+        err["flash_fwd_segments"] = max(err["flash_fwd_segments"], e)
+    dead = torch.isneginf(lse_ref)
+    check(torch.equal(torch.isneginf(lse), dead) and not bool(o[dead].any()),
+          f"K1 {name}: rows that see no key are not O = 0, LSE = -inf")
+    del o_ref, lse_ref
+    ref = flash_bwd.flash_attention_backward_reference(q, k, v, o, do, lse, **kw)
+    for impl in ("fused", "split"):
+        out = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, impl=impl, **kw)
+        torch.cuda.synchronize()
+        for grad, r, g in zip(("dQ", "dK", "dV"), ref, out):
+            row = ("flash_bwd_fused" if impl == "fused" else
+                   "flash_bwd_dq" if grad == "dQ" else "flash_bwd_dkv") + "_" + kind
+            if window == 1 and grad != "dV":
+                top = max(float(g.abs().max()), float(r.abs().max()))
+                print(f"[kernels] {impl} {grad} {name}: a window of one key, |{grad}| max "
+                      f"{top:.3g} on both sides (<= 1e-4)")
+                check(top <= 1e-4, f"{impl} {grad} {name}: a window of one key gives {top}")
+                continue
+            err[row] = max(err[row], grad_gate(f"{impl} {grad} {name}", r, g, dtype))
+        check(not bool(out[0][dead].any()), f"{impl} {name}: dQ of rows without keys is not 0")
+        if seg is not None:
+            pad_q, pad_k = kw["segment_ids"][0][0] < 0, kw["segment_ids"][1][0] < 0
+            check(not bool(out[0][:, :, pad_q].any()) and not bool(out[1][:, :, pad_k].any())
+                  and not bool(out[2][:, :, pad_k].any()),
+                  f"{impl} {name}: padding positions' gradients are not exactly 0")
+        del out
+    if seg is not None:
+        print(f"[kernels] {name}: padding rows' O and the gradients of the "
+              f"{int((seg[0] < 0).sum())} padding rows and {int((seg[1] < 0).sum())} padding "
+              f"keys are exactly 0 (fused and split)")
+    del ref
+    return q, k, v, o, do, lse, kw
+
+
+def masked_kernels(gen: torch.Generator) -> dict[str, dict]:
+    """Phase 2's window and segment gates (masked_case) for B3, B4 and B5
+    and, with segment ids, K1; the split path bitwise equal across two
+    calls with both; then each row timed (time_masked): the window rows at
+    MISTRAL_7B's prefill widths (S 4608, window 4096), the segment rows at
+    the packed training shape (S 8192, window 4096, PACK_DOCS)."""
+    err = dict.fromkeys(MASKED_ROWS, 0.0)
+    for w in BWD_WINDOWS:
+        masked_case(gen, err, f"window {w}", (1, 8, 2, 1000, 1000, 64), window=w)
+    b, hq, hkv, s, d = K1W_SHAPE
+    mistral = masked_case(gen, err, "MISTRAL_7B widths", (b, hq, hkv, s, s, d), window=WIN)
+    masked_case(gen, err, "S_q != S_k", (1, 8, 2, 600, 1500, 128), pos_offset=700, window=300)
+    masked_case(gen, err, "float32 window", (1, 4, 2, 300, 300, 64), torch.float32, window=65)
+    docs = [300, 37, 500, 119]  # off the tile multiples, then 144 of padding
+    for causal in (True, False):
+        masked_case(gen, err, "ragged documents", (1, 8, 2, 1100, 1100, 64), lens=docs,
+                    causal=causal)
+    masked_case(gen, err, "documents with a window", (1, 8, 2, 1100, 1100, 128), lens=docs,
+                window=100)
+    masked_case(gen, err, "(seg_q, seg_k) pair", (1, 8, 2, 300, 1000, 64), lens=[120, 90, 60],
+                causal=False, k_lens=[200, 250, 150, 300])
+    masked_case(gen, err, "float32 documents", (1, 4, 2, 400, 400, 64), torch.float32,
+                lens=[130, 77, 150], window=50)
+    packed = masked_case(gen, err, "packed training row", (b, hq, hkv, PACK_S, PACK_S, d),
+                         lens=PACK_DOCS, window=WIN)
+    q, k, v, o, do, lse, kw = packed
+    first = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, impl="split", **kw)
+    second = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, impl="split", **kw)
+    check(all(torch.equal(x, y) for x, y in zip(first, second)),
+          "split backward with a window and segment ids is not bitwise deterministic")
+    print("[kernels] split backward, packed training row with window and segment ids: two "
+          "runs bitwise equal (torch.equal on dQ, dK, dV)")
+    del first, second
+    timed = time_masked("window", *mistral)
+    del mistral
+    timed.update(time_masked("segments", *packed))
+    del packed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {name: dict(max_abs_err=err[name], **timed[name]) for name in MASKED_ROWS}
+
+
+def time_masked(kind: str, q, k, v, o, do, lse, kw) -> dict[str, dict]:
+    """Device ms of B3, B4 and B5 (and K1 with the LSE for segment ids) with
+    the window and segment ids of `kw`, beside their plain versions (events
+    around eager calls: a graph of them would keep several score blocks in
+    its pool), SDPA's forward or forward + backward with the explicit
+    boolean mask (timed only, never used by the port) and each bound from
+    utils/roofline.py, which counts the pairs the mask leaves visible."""
+    b, hq, s_q, d = q.shape
+    hkv, s_k = k.shape[1], k.shape[2]
+    few = dict(warmup=1, iters=3, reps=3)
+    mask = visible(s_q, s_k, kw["is_causal"], kw["pos_offset"], kw["window"],
+                   kw["segment_ids"], "cuda")
+    shape = (f"B={b} Hq={hq} Hkv={hkv} S={s_q} D={d} window={kw['window']} "
+             f"{'documents ' + str(PACK_DOCS) if kw['segment_ids'] is not None else ''}")
+    roof = dict(dtype_bytes=q.element_size(), window=kw["window"], pos_offset=kw["pos_offset"],
+                segment_ids=kw["segment_ids"])
+    out = {}
+    if kind == "segments":
+        ms = cuda_time_ms(lambda: flash_fwd.flash_attention_forward(q, k, v, **kw), **few)
+        plain = event_time_ms(lambda: flash_fwd.flash_attention_forward_reference(q, k, v, **kw),
+                              warmup=1, iters=2)
+        lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), **few)
+        report = roofline.attention_fwd_roofline(b, hq, hkv, s_q, s_k, d, kw["is_causal"],
+                                                 **roof)
+        print(f"[kernels] K1 with segment ids {shape}: kernel {ms:.4f} ms "
+              f"({report.flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s of the visible pairs), bound "
+              f"{report.bound_ms:.5f} ms by {report.bound_by}, plain {plain:.4f} ms, SDPA "
+              f"forward with a boolean mask {lib:.4f} ms")
+        out["flash_fwd_segments"] = dict(ms=ms, plain_ms=plain, library_ms=lib, **bound(report))
+    opts = {key: kw[key] for key in ("pos_offset", "window", "segment_ids")}
+    causal = kw["is_causal"]
+    fused = cuda_time_ms(lambda: flash_bwd_fused.flash_attention_backward_fused(
+        q, k, v, o, do, lse, causal, **opts), **few)
+    dq_ms = cuda_time_ms(lambda: flash_bwd.flash_bwd_dq(q, k, v, o, do, lse, causal, **opts),
+                         **few)
+    _, delta = flash_bwd.flash_bwd_dq(q, k, v, o, do, lse, causal, **opts)
+    dkv_ms = cuda_time_ms(lambda: flash_bwd.flash_bwd_dkv(q, k, v, do, lse, delta, causal,
+                                                          **opts), **few)
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = event_time_ms(lambda: flash_bwd.flash_attention_backward_reference(
+        q, k, v, o, do, lse, **kw), warmup=1, iters=2)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=mask, enable_gqa=True)
+    lib = event_time_ms(lambda: torch.autograd.grad(o_lib, leaves, do, retain_graph=True),
+                        warmup=1, iters=3)
+    del o_lib, leaves
+    for name, ms in (("fused", fused), ("dq", dq_ms), ("dkv", dkv_ms)):
+        report = roofline.attention_bwd_roofline(b, hq, hkv, s_q, s_k, d, causal, kernel=name,
+                                                 **roof)
+        print(f"[kernels] backward {name} with {kind} {shape}: kernel {ms:.4f} ms "
+              f"({report.flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s of the visible pairs), bound "
+              f"{report.bound_ms:.4f} ms by {report.bound_by}, plain backward {plain:.4f} ms, "
+              f"SDPA backward with a boolean mask {lib:.4f} ms")
+        row = {"fused": "flash_bwd_fused", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}[name]
+        out[f"{row}_{kind}"] = dict(ms=ms, plain_ms=plain, library_ms=lib, **bound(report))
+    return out
 
 
 # qmm8's and qmm4's M: the decode batch's split-K kernel up to 16 (1, 4 and
@@ -1636,9 +1846,163 @@ def phase_mistral(gen: torch.Generator) -> dict[str, int]:
     return total
 
 
+# The packed, windowed training phase: MISTRAL_7B at full width cut to
+# PACK_LAYERS layers (32 layers with AdamW state pass one card's 80 GB:
+# about 7.2 B parameters, whose weights, gradients and two moments alone
+# pass 100 GB; 4 layers hold about 1.13 B), one row of 8,193 tokens a step
+# from PackedDataset over the four PACK_DOCS documents (an epoch is one
+# row, in the epoch's seeded order): a document past the 4096-token window,
+# boundaries off the tile multiples and trailing padding in every step.
+PACK_LAYERS = 4
+PACK_STEPS = 5
+PACK_COUNTERS = ("flash_fwd_window", "flash_fwd_segments", "flash_bwd_fused_window",
+                 "flash_bwd_fused_segments", "flash_bwd_dq_window", "flash_bwd_dq_segments",
+                 "flash_bwd_dkv_window", "flash_bwd_dkv_segments")
+
+
+def check_packed_row(tokens, segs, cfg) -> str:
+    """Fails unless the row holds a document longer than the window, at
+    least two document boundaries off the 64- and 128-token tile multiples
+    and trailing padding; returns its layout."""
+    seg = segs[0]
+    live = seg >= 0
+    starts = [i for i in range(1, len(seg)) if live[i] and seg[i] != seg[i - 1]]
+    ends = starts + [int(live.sum())]
+    lengths = [b - a for a, b in zip([0] + starts, ends)]
+    off_tile = [x for x in starts if x % 64]
+    check(max(lengths) > cfg.attn_window and len(off_tile) >= 2 and not live[-1]
+          and tokens.shape == segs.shape == (1, PACK_S + 1),
+          f"packed row: documents {lengths}, boundaries {starts}, {int((~live).sum())} padding")
+    return (f"documents {lengths} (boundaries {starts}, {len(off_tile)} off the tile "
+            f"multiples), {int((~live).sum())} padding tokens")
+
+
+@contextlib.contextmanager
+def plain_packed_attention():
+    """plain_training_attention for the packed path too: the varlen entry
+    point reaches flash_attention through ops/varlen.py."""
+    saved = varlen.flash_attention
+    varlen.flash_attention = plain_flash_attention
+    try:
+        with plain_training_attention():
+            yield
+    finally:
+        varlen.flash_attention = saved
+
+
+def phase_packed(gen: torch.Generator) -> dict[str, int]:
+    """One AdamW step of the cut MISTRAL_7B on a packed row through the
+    kernels (K1 with the window and segment ids, the fused backward) against
+    the same step on the plain route from the same weights, under phase 7's
+    gates; then train.train for PACK_STEPS steps on PackedDataset batches
+    through prefetch with the split backward. Returns the launches of the
+    two runs together."""
+    cfg = dataclasses.replace(MISTRAL_7B, num_layers=PACK_LAYERS)
+    t0 = time.perf_counter()
+    model = init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[packed] MISTRAL_7B cut to {PACK_LAYERS} layers (full width: hidden "
+          f"{cfg.hidden_size}, GQA {cfg.num_heads}/{cfg.num_kv_heads}, D {cfg.head_dim}, window "
+          f"{cfg.attn_window}): {sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
+          f"parameters in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(SEED)
+    docs = [rng.integers(1, cfg.vocab_size, n).tolist() for n in PACK_DOCS]
+    dataset = data.PackedDataset(docs, batch_size=1, seq_len=PACK_S, seed=SEED)
+    batch = next(dataset.batches())
+    layout = check_packed_row(batch["tokens"], batch["segment_ids"], cfg)
+    tokens = torch.from_numpy(batch["tokens"]).cuda()
+    segs = torch.from_numpy(batch["segment_ids"]).cuda()
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    runs = {}
+    for route in ("kernels", "plain"):
+        model.load_state_dict(start)
+        state = train.init_train_state(model, TRAIN_TC)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        with plain_packed_attention() if route == "plain" else contextlib.nullcontext():
+            state, metrics = train.train_step(state, tokens, segment_ids=segs)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = read_launches()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        runs[route] = (loss, gnorm, grads, launches)
+        how = ("attention one kv-head group at a time, forward and backward; "
+               if route == "plain" else "")
+        print(f"[packed] AdamW step, {route} ({how}{layout}): loss {loss:.6f} grad_norm {gnorm:.6f}, "
+              f"{ms:.1f} ms ({PACK_S / ms * 1e3:.0f} tokens/s), peak {peak:.2f} GiB, launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        del state
+    del start
+    (l_k, n_k, g_k, launches), (l_p, n_p, g_p, plain_launches) = runs["kernels"], runs["plain"]
+    n = PACK_LAYERS
+    want = {"flash_fwd": n, "flash_fwd_window": n, "flash_fwd_segments": n,
+            "flash_bwd_fused": n, "flash_bwd_fused_window": n, "flash_bwd_fused_segments": n}
+    check({k: v for k, v in launches.items() if v} == want,
+          f"packed kernel step launched {launches}, want {want}")
+    check(not any(plain_launches.values()), f"plain packed step launched {plain_launches}")
+    cos = {name: float(F.cosine_similarity(g_k[name].float().flatten(),
+                                           g_p[name].float().flatten(), dim=0)) for name in g_k}
+    worst = min(cos, key=cos.get)
+    print(f"[packed] kernels vs plain: |dloss| {abs(l_k - l_p):.6f} (<= {LOSS_ATOL}), "
+          f"grad_norm rel {abs(n_k - n_p) / n_p:.6f} (<= {GRAD_NORM_REL}), gradient cosine "
+          f"min {cos[worst]:.6f} ({worst}) over {len(cos)} parameters (> {GRAD_COS})")
+    check(abs(l_k - l_p) <= LOSS_ATOL and abs(n_k - n_p) <= GRAD_NORM_REL * n_p
+          and cos[worst] > GRAD_COS, "packed train step: kernels and plain route disagree")
+    del runs, g_k, g_p
+    total = {k: launches[k] for k in PACK_COUNTERS}
+
+    marks, layouts = [], []
+
+    def timed(batches):
+        for batch in batches:
+            layouts.append(check_packed_row(batch["tokens"], batch["segment_ids"], cfg))
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter(), torch.cuda.max_memory_allocated()))
+            torch.cuda.reset_peak_memory_stats()
+            yield batch
+
+    os.environ[flash_bwd.IMPL_ENV] = "split"
+    reset_launches()
+    try:
+        state, hist = train.train(model, timed(data.prefetch(dataset.batches())), TRAIN_TC,
+                                  steps=PACK_STEPS, log_every=1)
+    finally:
+        del os.environ[flash_bwd.IMPL_ENV]
+    torch.cuda.synchronize()
+    marks.append((time.perf_counter(), torch.cuda.max_memory_allocated()))
+    trained = read_launches()
+    for h, row, (t0, _), (t1, peak) in zip(hist, layouts, marks, marks[1:]):
+        ms = (t1 - t0) * 1e3
+        print(f"[packed-trainer] step {h['step']}: loss {h['loss']:.6f} grad_norm "
+              f"{h['grad_norm']:.6f}, {ms:.1f} ms (host clock, synchronised), "
+              f"{PACK_S / ms * 1e3:.0f} tokens/s, max_memory_allocated {peak / 2**30:.2f} GiB; "
+              f"{row}")
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == PACK_STEPS and all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"packed trainer losses {losses}")
+    steps = PACK_STEPS * PACK_LAYERS
+    check(all(trained[k] == steps for k in PACK_COUNTERS if "fused" not in k)
+          and trained["flash_bwd_fused"] == 0, f"packed trainer launched {trained}")
+    print(f"[packed-trainer] {PACK_STEPS} AdamW steps of PackedDataset rows through prefetch, "
+          f"split backward: loss {losses[0]:.4f} -> {losses[-1]:.4f}; windowed and segmented "
+          f"launches {({k: trained[k] for k in PACK_COUNTERS})}")
+    for k in PACK_COUNTERS:
+        total[k] += trained[k]
+    check(all(total[k] > 0 for k in PACK_COUNTERS), f"packed phase missed a kernel: {total}")
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> None:
     t_start = time.perf_counter()
-    name = phase_environment()
+    device_name = phase_environment()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     timed = phase_kernels(gen)
     t0 = time.perf_counter()
@@ -1662,6 +2026,8 @@ def main() -> None:
     del model
     torch.cuda.empty_cache()
     launches.update(phase_mistral(gen))
+    for counter, n in phase_packed(gen).items():
+        launches[counter] = launches.get(counter, 0) + n
     decode_src = ("flashattn_tpu_torch/csrc/decode.cu", "flashattn_tpu/ops/decode.py:351")
     qmm_src = "flashattn_tpu_torch/csrc/quant_matmul.cu"
     sources = {
@@ -1686,6 +2052,8 @@ def main() -> None:
         "flash_bwd_dkv": ("flashattn_tpu_torch/csrc/flash_bwd.cu",
                           "flashattn_tpu/ops/flash_bwd.py:286"),
     }
+    for row in MASKED_ROWS:  # the same kernels with a window or segment ids
+        sources[row] = sources[row.rsplit("_", 1)[0]]
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], **timed[k]}
@@ -1696,7 +2064,7 @@ def main() -> None:
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

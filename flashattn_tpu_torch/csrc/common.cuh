@@ -156,6 +156,34 @@ __device__ __forceinline__ int lane_offset(int lane, int ld) {
                     : ((lane >> 4) * 8 + (lane & 7)) * ld + ((lane >> 3) & 1) * 8;
 }
 
+// Packed-document segment ids come with each 32-position block's id range
+// (min, max), [B, ceil(S / 32)] int2 (ops/flash_fwd.py::kernel_segments).
+// Two tiles whose ranges are disjoint share no id, whatever the ids' order,
+// so their pair attends to nothing; a pair whose ranges are one and the
+// same id needs no id mask.
+constexpr int kRangeRows = 32;
+
+// Blocks of ranges in one batch row of S positions.
+__device__ __forceinline__ int range_blocks(int S) { return (S + kRangeRows - 1) / kRangeRows; }
+
+// The id range of positions [p0, p0 + n) within [0, S) from one batch row's
+// block ranges; p0 and n multiples of kRangeRows, p0 < S.
+__device__ __forceinline__ int2 id_range(const int2* __restrict__ ranges, int p0, int n, int S) {
+  const int end = min(p0 + n, S);
+  int2 r = __ldg(ranges + p0 / kRangeRows);
+  for (int t = p0 / kRangeRows + 1; t * kRangeRows < end; ++t) {
+    const int2 x = __ldg(ranges + t);
+    r.x = min(r.x, x.x);
+    r.y = max(r.y, x.y);
+  }
+  return r;
+}
+
+__device__ __forceinline__ bool ids_meet(int2 a, int2 b) { return a.x <= b.y && b.x <= a.y; }
+__device__ __forceinline__ bool one_id(int2 a, int2 b) {
+  return a.x == a.y && b.x == b.y && a.x == b.x;
+}
+
 // Let a kernel ask for up to the device's opt-in maximum of dynamic shared
 // memory (above 48 KB needs this), less its static shared memory. Set once
 // per kernel, so that launches captured into a CUDA graph make no attribute

@@ -4,8 +4,9 @@
 // Replaces the TPU kernels flashattn_tpu/ops/flash_bwd.py::_dq_kernel (B4)
 // and ::_dkv_kernel (B5) (launcher flash_attention_backward, :467) on the
 // plain subset: causal (bottom-right, or by pos_offset) or not, GQA, ragged
-// S_q/S_k, rows that see no key. The TPU's wavefront meta arrays and its
-// pre-scaled operands are Mosaic designs and are not carried over.
+// S_q/S_k, rows that see no key, the sliding window and packed-document
+// segment ids. The TPU's wavefront meta arrays and its pre-scaled operands
+// are Mosaic designs and are not carried over.
 //
 // What bounds it on the card: at the training shapes (S 2048, D 64) each
 // q tile of the dQ kernel and each kv tile of the dK/dV kernel recompute
@@ -20,7 +21,8 @@
 // loads (about one per FMA).
 //
 // What the design does about it: one CTA per (64-row q tile, q head, batch)
-// for dQ, the kv loop cut at the tile's causal bound, heavy causal tiles
+// for dQ, the kv loop cut at the tile's causal bound (and, with a window,
+// started at the tile of its first row's left edge), heavy causal tiles
 // launched first. In bf16 (flash_bwd_dq_mma_kernel, FA2's dQ kernel) warp w
 // owns q rows [16w, 16w+16): Q and dO stay in shared memory (their A
 // fragments in registers at D 64), K and V tiles of 64 rows stream through a
@@ -30,8 +32,14 @@
 // until one write with the scale applied. One CTA per (64-row kv tile, kv
 // head, batch) for dK/dV (flash_bwd_mma.cuh in bf16), looping over the GQA
 // group's q heads and the live q tiles, dK and dV in registers until one
-// write. No atomics: two runs give bitwise-equal outputs, which makes this
-// the deterministic path.
+// write. The window and segment ids are instantiated apart (kMask,
+// flash_bwd.cuh's MaskKind): the kernels without them run no code of
+// theirs, the windowed ones none of the ids'. With segment ids a tile pair
+// whose id ranges (the 32-position block ranges of common.cuh) are
+// disjoint is loaded but not computed, a pair of one id runs no id mask,
+// and the others compare ids element by element (the kv tile's staged in
+// shared memory with it). No atomics: two runs give bitwise-equal outputs,
+// which makes this the deterministic path.
 #include <type_traits>
 
 #include "flash_bwd_mma.cuh"
@@ -58,8 +66,9 @@ __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ o, const T* __restrict__ dout,
                     const float* __restrict__ lse, T* __restrict__ dq,
-                    float* __restrict__ delta, int Hq, int Hkv, int Sq, int Sk, int is_causal,
-                    int offset, float scale, float scale_log2) {
+                    float* __restrict__ delta, const int* __restrict__ seg_q,
+                    const int* __restrict__ seg_k, int Hq, int Hkv, int Sq, int Sk,
+                    int is_causal, int offset, int window, float scale, float scale_log2) {
   constexpr int DP = D + 1;
   constexpr int kDims = D / kThreadsPerRow;
   extern __shared__ float smem[];
@@ -80,6 +89,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const size_t q_base = stat_base * D;
   const size_t kv_base = (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
   const int qi = q0 + r;
+  const int row_seg = seg_q != nullptr && qi < Sq ? seg_q[static_cast<size_t>(b) * Sq + qi] : 0;
 
   fat::load_tile<T, kBlock, D, kThreads>(q + q_base + static_cast<size_t>(q0) * D, Sq - q0, qs, DP);
   fat::load_tile<T, kBlock, D, kThreads>(dout + q_base + static_cast<size_t>(q0) * D, Sq - q0,
@@ -108,7 +118,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
   for (int i = 0; i < kDims; ++i) acc[i] = 0.f;
 
-  for (int n0 = 0; n0 < kv_end; n0 += kBlock) {
+  // With a window the first kv tile is that of the tile's first row's left edge.
+  const int n_first = window > 0 ? max(0, q0 + offset - window + 1) / kBlock * kBlock : 0;
+  for (int n0 = n_first; n0 < kv_end; n0 += kBlock) {
     __syncthreads();  // previous kv tile consumed (and Q, dO stored, first time)
     const size_t tile = kv_base + static_cast<size_t>(n0) * D;
     fat::load_tile<T, kBlock, D, kThreads>(k + tile, kv_end - n0, ks, DP);
@@ -122,7 +134,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     for (int j = 0; j < kColsPerThread; ++j) {
       const int c = t + kThreadsPerRow * j;
       const int col = n0 + c;
-      const bool live = col < kv_end && (!is_causal || col <= qi + offset);
+      const bool live = col < kv_end && (!is_causal || col <= qi + offset) &&
+                        (window == 0 || col >= qi + offset - window + 1) &&
+                        (seg_k == nullptr || seg_k[static_cast<size_t>(b) * Sk + col] == row_seg);
       const float p = live ? exp2f(s[j] * scale_log2 - lse2) : 0.f;
       dss[r * kPP + c] = fat::round_to<T>(p * (dp[j] - row_delta));
     }
@@ -142,23 +156,29 @@ namespace dq_mma {
 constexpr int kBr = 64;  // q rows a CTA, 16 a warp
 constexpr int kBc = 64;  // kv rows a tile
 
-template <int D>
+template <int D, int kMask>
 constexpr size_t smem_bytes() {
-  // Q, dO [kBr][D+8]; K, V [2][kBc][D+8] (bf16); LSE (log2) and delta [kBr].
-  return sizeof(__nv_bfloat16) * (2 * kBr + 4 * kBc) * (D + 8) + sizeof(float) * 2 * kBr;
+  // Q, dO [kBr][D+8]; K, V [2][kBc][D+8] (bf16); LSE (log2) and delta [kBr];
+  // with segment ids the kv tiles' ids [2][kBc].
+  return sizeof(__nv_bfloat16) * (2 * kBr + 4 * kBc) * (D + 8) + sizeof(float) * 2 * kBr +
+         (kMask == fat::bwd::kSegmentMask ? sizeof(int) * 2 * kBc : 0);
 }
 
 }  // namespace dq_mma
 
 // The contract of flash_bwd_dq_kernel, for bf16, on the tensor cores.
-template <int D>
+// kNoMask reads neither the window nor the segment ids (window 0,
+// seg_q/seg_k null), kWindowMask not the ids.
+template <int D, int kMask>
 __global__ void __launch_bounds__(fat::bwd::mma::kThreads)
 flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
                         const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                        __nv_bfloat16* __restrict__ dq, float* __restrict__ delta, int Hq,
-                        int Hkv, int Sq, int Sk, int is_causal, int offset, float scale,
-                        float scale_log2) {
+                        __nv_bfloat16* __restrict__ dq, float* __restrict__ delta,
+                        const int* __restrict__ seg_q, const int* __restrict__ seg_k,
+                        const int2* __restrict__ ranges_q, const int2* __restrict__ ranges_k,
+                        int Hq, int Hkv, int Sq, int Sk, int is_causal, int offset, int window,
+                        float scale, float scale_log2) {
   using bf16 = __nv_bfloat16;
   using dq_mma::kBc;
   using dq_mma::kBr;
@@ -176,6 +196,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   bf16* vs = ks + 2 * kBc * KP;   // [2][kBc][KP]
   float* lse2s = reinterpret_cast<float*>(vs + 2 * kBc * KP);
   float* deltas = lse2s + kBr;
+  int* segs = reinterpret_cast<int*>(deltas + kBr);  // [2][kBc], kSegmentMask
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, tig = lane % 4;  // fragment row group, thread in group
@@ -191,14 +212,30 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   // Columns [0, kv_end) can be visible to some row of the tile.
   int kv_end = Sk;
   if (is_causal) kv_end = max(0, min(Sk, min(q0 + kBr, Sq) - 1 + offset + 1));
-  const int n_tiles = (kv_end + kBc - 1) / kBc;
+  // The kv loop visits tiles [first, first + n_tiles): with a window from the
+  // tile of the first row's left edge.
+  const int first =
+      kMask != fat::bwd::kNoMask && window > 0 ? max(0, q0 + offset - window + 1) / kBc : 0;
+  const int n_tiles = max(0, (kv_end + kBc - 1) / kBc - first);
+  const bool seg = kMask == fat::bwd::kSegmentMask && seg_q != nullptr;
+  const int* seg_k_row = seg ? seg_k + static_cast<size_t>(b) * Sk : nullptr;
+  // K, V (and their segment ids) of loop iteration `it` into buffer it & 1.
+  auto load_kv = [&](int it) {
+    const int n1 = (first + it) * kBc;
+    const int nb = it & 1;
+    load_tile_async<kBc, D>(k + kv_base + static_cast<size_t>(n1) * D, kv_end - n1,
+                            ks + nb * kBc * KP);
+    load_tile_async<kBc, D>(v + kv_base + static_cast<size_t>(n1) * D, kv_end - n1,
+                            vs + nb * kBc * KP);
+    if (seg && tid < kBc) {
+      const bool valid = n1 + tid < kv_end;
+      fat::cp_async4(segs + nb * kBc + tid, seg_k_row + (valid ? n1 + tid : 0), valid);
+    }
+  };
 
   load_tile_async<kBr, D>(q + q_base + static_cast<size_t>(q0) * D, Sq - q0, qs);
   load_tile_async<kBr, D>(dout + q_base + static_cast<size_t>(q0) * D, Sq - q0, dos);
-  if (n_tiles > 0) {
-    load_tile_async<kBc, D>(k + kv_base, kv_end, ks);
-    load_tile_async<kBc, D>(v + kv_base, kv_end, vs);
-  }
+  if (n_tiles > 0) load_kv(0);
   fat::cp_async_commit();
 
   // delta of each row from O and dO in fp32: two threads a row, D/2 entries
@@ -233,6 +270,17 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   const int qr0 = q0 + wrow + g;
   const float lse2[2] = {lse2s[wrow + g], lse2s[wrow + g + 8]};
   const float dlt[2] = {deltas[wrow + g], deltas[wrow + g + 8]};
+  int row_seg[2] = {0, 0};  // the rows' segment ids
+  int2 tile_ids{};          // and the q tile's id range
+  const int2* kv_ranges = nullptr;
+  if (seg) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      row_seg[i] = qr0 + 8 * i < Sq ? __ldg(seg_q + static_cast<size_t>(b) * Sq + qr0 + 8 * i) : 0;
+    tile_ids = fat::id_range(ranges_q + static_cast<size_t>(b) * fat::range_blocks(Sq), q0, kBr,
+                             Sq);
+    kv_ranges = ranges_k + static_cast<size_t>(b) * fat::range_blocks(Sk);
+  }
   const int a_off = wrow * KP + fat::lane_offset<true>(lane, KP);  // Q/dO A fragments
   const int b_off = fat::lane_offset<false>(lane, KP);  // K/V rows as B of S and dP
   const int t_off = fat::lane_offset<true>(lane, KP);   // K as B of dQ (.trans)
@@ -252,18 +300,20 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   for (int it = 0; it < n_tiles; ++it) {
     fat::cp_async_wait_all();
     __syncthreads();  // tile `it` is in; every warp is done with tile it - 1
-    if (it + 1 < n_tiles) {
-      const int n1 = (it + 1) * kBc;
-      const int nb = (it + 1) & 1;
-      load_tile_async<kBc, D>(k + kv_base + static_cast<size_t>(n1) * D, kv_end - n1,
-                              ks + nb * kBc * KP);
-      load_tile_async<kBc, D>(v + kv_base + static_cast<size_t>(n1) * D, kv_end - n1,
-                              vs + nb * kBc * KP);
-    }
+    if (it + 1 < n_tiles) load_kv(it + 1);
     fat::cp_async_commit();
-    const int n0 = it * kBc;
+    const int n0 = (first + it) * kBc;
     const bf16* kb = ks + (it & 1) * kBc * KP;
     const bf16* vb = vs + (it & 1) * kBc * KP;
+    const int* segb = segs + (it & 1) * kBc;
+    bool seg_mask = false;  // the tile pair needs the id mask
+    if constexpr (kMask == fat::bwd::kSegmentMask) {
+      if (seg) {
+        const int2 kv_ids = fat::id_range(kv_ranges, n0, kBc, Sk);
+        if (!fat::ids_meet(tile_ids, kv_ids)) continue;  // other documents only
+        seg_mask = !fat::one_id(tile_ids, kv_ids);
+      }
+    }
 
     // S and dP: this warp's 16 q rows against the tile's 64 kv columns.
     float s[kKvTiles][4], dp[kKvTiles][4];
@@ -296,7 +346,10 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
     // Element e of fragment j: q row qr0 + 8 (e / 2), kv column
     // n0 + 8j + 2 tig + e % 2. dS in fp32, rounded to bf16 as the A
     // fragments of dS K (fragment j is half of k-step j / 2).
-    const bool edge = n0 + kBc > kv_end || (is_causal && n0 + kBc - 1 > q0 + offset);
+    bool edge = n0 + kBc > kv_end || (is_causal && n0 + kBc - 1 > q0 + offset);
+    // The window's left edge crosses the tile, or two ids meet in it.
+    if constexpr (kMask != fat::bwd::kNoMask)
+      edge = edge || seg_mask || (window > 0 && n0 < q0 + kBr - 1 + offset - window + 1);
     unsigned dsa[kKvSteps][4];
 #pragma unroll
     for (int j = 0; j < kKvTiles; ++j) {
@@ -307,6 +360,9 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
         if (edge) {
           const int col = n0 + 8 * j + 2 * tig + (e & 1), qi = qr0 + 8 * (e >> 1);
           live = col < kv_end && (!is_causal || col <= qi + offset);
+          if constexpr (kMask != fat::bwd::kNoMask)
+            live = live && (window == 0 || col >= qi + offset - window + 1) &&
+                   (!seg_mask || segb[col - n0] == row_seg[e >> 1]);
         }
         const float p = live ? exp2f(s[j][e] * scale_log2 - lse2[e >> 1]) : 0.f;
         ds[e] = p * (dp[j][e] - dlt[e >> 1]);
@@ -345,138 +401,189 @@ __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                     int Hq, int Hkv, int Sq, int Sk, int is_causal, int offset, float scale,
+                     const int* __restrict__ seg_q, const int* __restrict__ seg_k, int Hq,
+                     int Hkv, int Sq, int Sk, int is_causal, int offset, int window, float scale,
                      float scale_log2) {
-  fat::bwd::dkv_tile<T, D, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, Hq, Hkv, Sq, Sk,
-                                  is_causal, offset, scale, scale_log2);
+  fat::bwd::dkv_tile<T, D, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, seg_q, seg_k, Hq,
+                                  Hkv, Sq, Sk, is_causal, offset, window, scale, scale_log2);
 }
 
-template <int D>
+template <int D, int kMask>
 __global__ void __launch_bounds__(fat::bwd::mma::kThreads)
 flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
                          const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int Hq, int Hkv, int Sq, int Sk,
-                         int is_causal, int offset, float scale, float scale_log2) {
-  fat::bwd::mma::dkv_tile<D, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, Hq, Hkv, Sq, Sk,
-                                    is_causal, offset, scale, scale_log2);
+                         __nv_bfloat16* __restrict__ dv, const int* __restrict__ seg_q,
+                         const int* __restrict__ seg_k, const int2* __restrict__ ranges_q,
+                         const int2* __restrict__ ranges_k, int Hq, int Hkv, int Sq, int Sk,
+                         int is_causal, int offset, int window, float scale, float scale_log2) {
+  fat::bwd::mma::dkv_tile<D, false, kMask>(q, k, v, dout, lse, delta, dk, dv, nullptr, seg_q,
+                                           seg_k, ranges_q, ranges_k, Hq, Hkv, Sq, Sk, is_causal,
+                                           offset, window, scale, scale_log2);
+}
+
+// The mask arguments every launch passes after the pointers it shares.
+struct Mask {
+  const int* seg_q;  // [B, Sq] int32 or null
+  const int* seg_k;  // [B, Sk] int32 or null, null with seg_q
+  const int2* ranges_q;  // their block ranges (common.cuh), null with them
+  const int2* ranges_k;
+  int is_causal, offset, window;
+  fat::bwd::MaskKind kind() const {
+    return seg_q != nullptr ? fat::bwd::kSegmentMask
+                            : window > 0 ? fat::bwd::kWindowMask : fat::bwd::kNoMask;
+  }
+};
+
+template <int D, int kMask>
+cudaError_t launch_dq_mma(const void* q, const void* k, const void* v, const void* o,
+                          const void* dout, const void* lse, void* dq, void* delta, int B, int Hq,
+                          int Hkv, int Sq, int Sk, Mask m, float scale, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  const cudaError_t err = fat::allow_max_smem<flash_bwd_dq_mma_kernel<D, kMask>>();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + dq_mma::kBr - 1) / dq_mma::kBr, Hq, B);
+  flash_bwd_dq_mma_kernel<D, kMask>
+      <<<grid, fat::bwd::mma::kThreads, dq_mma::smem_bytes<D, kMask>(), stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+          static_cast<const float*>(lse), static_cast<bf16*>(dq), static_cast<float*>(delta),
+          m.seg_q, m.seg_k, m.ranges_q, m.ranges_k, Hq, Hkv, Sq, Sk, m.is_causal, m.offset,
+          m.window, scale, scale * 1.4426950408889634f);
+  return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const void* lse, void* dq, void* delta, int B, int Hq,
-                      int Hkv, int Sq, int Sk, int is_causal, int offset, float scale,
-                      cudaStream_t stream) {
-  const float scale_log2 = scale * 1.4426950408889634f;
-  cudaError_t err;
+                      int Hkv, int Sq, int Sk, Mask m, float scale, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    err = fat::allow_max_smem<flash_bwd_dq_mma_kernel<D>>();
-    if (err != cudaSuccess) return err;
-    const dim3 grid((Sq + dq_mma::kBr - 1) / dq_mma::kBr, Hq, B);
-    flash_bwd_dq_mma_kernel<D>
-        <<<grid, fat::bwd::mma::kThreads, dq_mma::smem_bytes<D>(), stream>>>(
-            static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-            static_cast<const T*>(o), static_cast<const T*>(dout),
-            static_cast<const float*>(lse), static_cast<T*>(dq), static_cast<float*>(delta), Hq,
-            Hkv, Sq, Sk, is_causal, offset, scale, scale_log2);
+    const auto fn = m.kind() == fat::bwd::kSegmentMask ? launch_dq_mma<D, fat::bwd::kSegmentMask>
+                    : m.kind() == fat::bwd::kWindowMask ? launch_dq_mma<D, fat::bwd::kWindowMask>
+                                                         : launch_dq_mma<D, fat::bwd::kNoMask>;
+    return fn(q, k, v, o, dout, lse, dq, delta, B, Hq, Hkv, Sq, Sk, m, scale, stream);
   } else {
-    err = fat::allow_max_smem<flash_bwd_dq_kernel<T, D>>();
+    const cudaError_t err = fat::allow_max_smem<flash_bwd_dq_kernel<T, D>>();
     if (err != cudaSuccess) return err;
     const dim3 grid((Sq + kBlock - 1) / kBlock, Hq, B);
     flash_bwd_dq_kernel<T, D><<<grid, kThreads, dq_smem_bytes<D>(), stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<const float*>(lse),
-        static_cast<T*>(dq), static_cast<float*>(delta), Hq, Hkv, Sq, Sk, is_causal, offset,
-        scale, scale_log2);
+        static_cast<T*>(dq), static_cast<float*>(delta), m.seg_q, m.seg_k, Hq, Hkv, Sq, Sk,
+        m.is_causal, m.offset, m.window, scale, scale * 1.4426950408889634f);
+    return cudaGetLastError();
   }
+}
+
+template <int D, int kMask>
+cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v, const void* dout,
+                           const void* lse, const void* delta, void* dk, void* dv, int B, int Hq,
+                           int Hkv, int Sq, int Sk, Mask m, float scale, cudaStream_t stream) {
+  namespace mma = fat::bwd::mma;
+  using bf16 = __nv_bfloat16;
+  const cudaError_t err = fat::allow_max_smem<flash_bwd_dkv_mma_kernel<D, kMask>>();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(Hkv, B, (Sk + mma::kBc - 1) / mma::kBc);
+  flash_bwd_dkv_mma_kernel<D, kMask>
+      <<<grid, mma::kThreads, mma::smem_bytes<D, false, kMask>(), stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+          static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+          m.seg_q, m.seg_k, m.ranges_q, m.ranges_k, Hq, Hkv, Sq, Sk, m.is_causal, m.offset,
+          m.window, scale, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int B, int Hq,
-                       int Hkv, int Sq, int Sk, int is_causal, int offset, float scale,
-                       cudaStream_t stream) {
-  const float scale_log2 = scale * 1.4426950408889634f;
-  cudaError_t err;
+                       int Hkv, int Sq, int Sk, Mask m, float scale, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    namespace mma = fat::bwd::mma;
-    err = fat::allow_max_smem<flash_bwd_dkv_mma_kernel<D>>();
-    if (err != cudaSuccess) return err;
-    const dim3 grid(Hkv, B, (Sk + mma::kBc - 1) / mma::kBc);
-    flash_bwd_dkv_mma_kernel<D><<<grid, mma::kThreads, mma::smem_bytes<D, false>(), stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), Hq, Hkv, Sq,
-        Sk, is_causal, offset, scale, scale_log2);
+    const auto fn = m.kind() == fat::bwd::kSegmentMask ? launch_dkv_mma<D, fat::bwd::kSegmentMask>
+                    : m.kind() == fat::bwd::kWindowMask ? launch_dkv_mma<D, fat::bwd::kWindowMask>
+                                                         : launch_dkv_mma<D, fat::bwd::kNoMask>;
+    return fn(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk, m, scale, stream);
   } else {
-    err = fat::allow_max_smem<flash_bwd_dkv_kernel<T, D>>();
+    const cudaError_t err = fat::allow_max_smem<flash_bwd_dkv_kernel<T, D>>();
     if (err != cudaSuccess) return err;
     const dim3 grid((Sk + kBlock - 1) / kBlock, Hkv, B);
     flash_bwd_dkv_kernel<T, D><<<grid, kThreads, fat::bwd::dkv_smem_bytes<D>(), stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(dout), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), Hq, Hkv, Sq,
-        Sk, is_causal, offset, scale, scale_log2);
+        static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), m.seg_q,
+        m.seg_k, Hq, Hkv, Sq, Sk, m.is_causal, m.offset, m.window, scale,
+        scale * 1.4426950408889634f);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
-bool bad_shape(int B, int Hq, int Hkv, int Sq, int Sk) {
-  return B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0;
+bool bad_args(int B, int Hq, int Hkv, int Sq, int Sk, const Mask& m) {
+  const bool seg = m.seg_q != nullptr;
+  return B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || m.window < 0 ||
+         (m.window > 0 && !m.is_causal) || seg != (m.seg_k != nullptr) ||
+         seg != (m.ranges_q != nullptr) || seg != (m.ranges_k != nullptr);
 }
 
 }  // namespace
 
 // q, o, dout, dq [B,Hq,Sq,D]; k, v [B,Hkv,Sk,D]; lse and delta [B,Hq,Sq]
-// fp32; all contiguous on the device, the [.., D] tensors 16-byte aligned.
-// Row r sees column c iff !is_causal or c <= r + offset. Writes dq (q's
-// dtype, scale applied) and delta. Returns the CUDA error code (0 = success).
+// fp32; all contiguous on the device, the [.., D] tensors 16-byte aligned;
+// seg_q [B,Sq] and seg_k [B,Sk] int32 segment ids with their block ranges
+// ranges_q [B,ceil(Sq/32)] and ranges_k [B,ceil(Sk/32)] int2 (min, max),
+// all NULL or none (the float32 kernels read the ids alone).
+// Row r sees column c iff !is_causal or c <= r + offset, with window > 0
+// (causal only) c >= r + offset - window + 1, and with segment ids
+// seg_q[b][r] == seg_k[b][c]. Writes dq (q's dtype, scale applied) and
+// delta. Returns the CUDA error code (0 = success).
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* dq, void* delta,
-                                   int B, int Hq, int Hkv, int Sq, int Sk, int D, int dtype,
-                                   int is_causal, int offset, float scale, void* stream) {
-  if (bad_shape(B, Hq, Hkv, Sq, Sk)) return static_cast<int>(cudaErrorInvalidValue);
+                                   const int* seg_q, const int* seg_k, const int2* ranges_q,
+                                   const int2* ranges_k, int B, int Hq, int Hkv, int Sq, int Sk,
+                                   int D, int dtype, int is_causal, int offset, int window,
+                                   float scale, void* stream) {
+  const Mask m{seg_q, seg_k, ranges_q, ranges_k, is_causal, offset, window};
+  if (bad_args(B, Hq, Hkv, Sq, Sk, m)) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == fat::kBF16 && D == 64)
-    err = launch_dq<__nv_bfloat16, 64>(q, k, v, o, dout, lse, dq, delta, B, Hq, Hkv, Sq, Sk,
-                                       is_causal, offset, scale, s);
+    err = launch_dq<__nv_bfloat16, 64>(q, k, v, o, dout, lse, dq, delta, B, Hq, Hkv, Sq, Sk, m,
+                                       scale, s);
   else if (dtype == fat::kBF16 && D == 128)
-    err = launch_dq<__nv_bfloat16, 128>(q, k, v, o, dout, lse, dq, delta, B, Hq, Hkv, Sq, Sk,
-                                        is_causal, offset, scale, s);
+    err = launch_dq<__nv_bfloat16, 128>(q, k, v, o, dout, lse, dq, delta, B, Hq, Hkv, Sq, Sk, m,
+                                        scale, s);
   else if (dtype == fat::kF32 && D == 64)
-    err = launch_dq<float, 64>(q, k, v, o, dout, lse, dq, delta, B, Hq, Hkv, Sq, Sk, is_causal,
-                               offset, scale, s);
+    err = launch_dq<float, 64>(q, k, v, o, dout, lse, dq, delta, B, Hq, Hkv, Sq, Sk, m, scale, s);
   else if (dtype == fat::kF32 && D == 128)
-    err = launch_dq<float, 128>(q, k, v, o, dout, lse, dq, delta, B, Hq, Hkv, Sq, Sk, is_causal,
-                                offset, scale, s);
+    err = launch_dq<float, 128>(q, k, v, o, dout, lse, dq, delta, B, Hq, Hkv, Sq, Sk, m, scale,
+                                s);
   return static_cast<int>(err);
 }
 
-// Same layout; reads the delta written by flash_bwd_dq_launch and writes dk
-// (scale applied) and dv in k's dtype, every row, summed over each kv head's
-// q heads.
+// Same layout and mask; reads the delta written by flash_bwd_dq_launch and
+// writes dk (scale applied) and dv in k's dtype, every row, summed over each
+// kv head's q heads.
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* delta,
-                                    void* dk, void* dv, int B, int Hq, int Hkv, int Sq, int Sk,
-                                    int D, int dtype, int is_causal, int offset, float scale,
-                                    void* stream) {
-  if (bad_shape(B, Hq, Hkv, Sq, Sk)) return static_cast<int>(cudaErrorInvalidValue);
+                                    void* dk, void* dv, const int* seg_q, const int* seg_k,
+                                    const int2* ranges_q, const int2* ranges_k, int B, int Hq,
+                                    int Hkv, int Sq, int Sk, int D, int dtype, int is_causal,
+                                    int offset, int window, float scale, void* stream) {
+  const Mask m{seg_q, seg_k, ranges_q, ranges_k, is_causal, offset, window};
+  if (bad_args(B, Hq, Hkv, Sq, Sk, m)) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == fat::kBF16 && D == 64)
-    err = launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk,
-                                        is_causal, offset, scale, s);
+    err = launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk, m,
+                                        scale, s);
   else if (dtype == fat::kBF16 && D == 128)
     err = launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk,
-                                         is_causal, offset, scale, s);
+                                         m, scale, s);
   else if (dtype == fat::kF32 && D == 64)
-    err = launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk,
-                                is_causal, offset, scale, s);
+    err = launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk, m, scale,
+                                s);
   else if (dtype == fat::kF32 && D == 128)
-    err = launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk,
-                                 is_causal, offset, scale, s);
+    err = launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk, m,
+                                 scale, s);
   return static_cast<int>(err);
 }

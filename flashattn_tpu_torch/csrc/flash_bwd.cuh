@@ -23,6 +23,11 @@ constexpr int kThreadsPerRow = kThreads / kBlock;        // 4
 constexpr int kColsPerThread = kBlock / kThreadsPerRow;  // 16
 constexpr int kPP = kBlock + 1;  // row stride of the [64][64] P / dS tiles
 
+// What a bf16 instantiation masks beyond the causal bound: nothing, a
+// sliding window, or segment ids (with a window when one is given). Each
+// kind runs none of the code of the kinds after it.
+enum MaskKind : int { kNoMask = 0, kWindowMask = 1, kSegmentMask = 2 };
+
 // s[j] = a[r] . c[col_j], e[j] = b[r] . f[col_j] for this thread's 16
 // columns col_j = t + 4j, over fp32 shared-memory tiles of row stride D+1.
 template <int D>
@@ -76,10 +81,13 @@ constexpr size_t dkv_smem_bytes() {
 
 // dK and dV of one kv tile (blockIdx.x) of one kv head (blockIdx.y) of one
 // batch row (blockIdx.z), summed over the q heads of its GQA group and over
-// every q tile with a row that sees the tile. With kFusedDq it also adds the
-// tile's dQ contributions, scale applied, into dq_acc (fp32, zeroed by the
-// caller) with atomics; without it nothing is shared between CTAs and
-// the result is bitwise reproducible.
+// every q tile with a row that sees the tile: from the causal bound's first
+// row to, with a sliding window (window > 0), the last row whose window
+// reaches the tile. Segment ids seg_q [B, Sq] and seg_k [B, Sk], when not
+// null, mask pairs of two documents. With kFusedDq it also adds the tile's
+// dQ contributions, scale applied, into dq_acc (fp32, zeroed by the caller)
+// with atomics; without it nothing is shared between CTAs and the result is
+// bitwise reproducible.
 //
 // dK and dV stay in registers (thread (r, t) owns kv row r, columns t + 4i)
 // until one write each; kv rows that no q row sees are written as zeros.
@@ -88,8 +96,10 @@ __device__ __forceinline__ void dkv_tile(const T* __restrict__ q, const T* __res
                                          const T* __restrict__ v, const T* __restrict__ dout,
                                          const float* __restrict__ lse,
                                          const float* __restrict__ delta, T* __restrict__ dk,
-                                         T* __restrict__ dv, float* __restrict__ dq_acc, int Hq,
-                                         int Hkv, int Sq, int Sk, int is_causal, int offset,
+                                         T* __restrict__ dv, float* __restrict__ dq_acc,
+                                         const int* __restrict__ seg_q,
+                                         const int* __restrict__ seg_k, int Hq, int Hkv, int Sq,
+                                         int Sk, int is_causal, int offset, int window,
                                          float scale, float scale_log2) {
   constexpr int DP = D + 1;
   constexpr int kDims = D / kThreadsPerRow;
@@ -124,12 +134,18 @@ __device__ __forceinline__ void dkv_tile(const T* __restrict__ q, const T* __res
   const int n_q_tiles = (Sq + kBlock - 1) / kBlock;
   const int first_row = is_causal ? max(0, kv0 - offset) : 0;
   const int q_begin = first_row >= Sq ? n_q_tiles : first_row / kBlock;
+  // Window: no q row past the last one whose window reaches the tile's last kv row.
+  const int last_row = kv0 + kBlock - 1 - offset + window - 1;
+  const int q_end = window == 0 ? n_q_tiles
+                                : last_row < 0 ? 0 : min(n_q_tiles, last_row / kBlock + 1);
+  const int kv_seg = seg_k != nullptr && kv_row < Sk ? seg_k[static_cast<size_t>(b) * Sk + kv_row]
+                                                     : 0;
 
   for (int g = 0; g < group; ++g) {
     const int h = hk * group + g;
     const size_t stat_base = (static_cast<size_t>(b) * Hq + h) * Sq;
     const size_t q_base = stat_base * D;
-    for (int qt = q_begin; qt < n_q_tiles; ++qt) {
+    for (int qt = q_begin; qt < q_end; ++qt) {
       const int q0 = qt * kBlock;
       __syncthreads();  // the previous q tile is consumed (K and V stored, first time)
       load_tile<T, kBlock, D, kThreads>(q + q_base + static_cast<size_t>(q0) * D, Sq - q0, qs, DP);
@@ -149,7 +165,9 @@ __device__ __forceinline__ void dkv_tile(const T* __restrict__ q, const T* __res
       for (int j = 0; j < kColsPerThread; ++j) {
         const int c = t + kThreadsPerRow * j;
         const int qi = q0 + c;
-        const bool live = qi < Sq && kv_row < Sk && (!is_causal || kv_row <= qi + offset);
+        const bool live = qi < Sq && kv_row < Sk && (!is_causal || kv_row <= qi + offset) &&
+                          (window == 0 || kv_row >= qi + offset - window + 1) &&
+                          (seg_q == nullptr || seg_q[static_cast<size_t>(b) * Sq + qi] == kv_seg);
         const float p = live ? exp2f(s[j] * scale_log2 - lse2s[c]) : 0.f;
         const float ds = p * (dp[j] - deltas[c]);
         pt[r * kPP + c] = round_to<T>(p);

@@ -4,7 +4,10 @@
 // Replaces the TPU kernel flashattn_tpu/ops/flash_bwd_fused.py::
 // _fused_bwd_kernel (launcher flash_attention_backward_fused, :336; B3) on
 // the plain subset: causal (bottom-right, or by pos_offset) or not, GQA,
-// ragged S_q/S_k, rows that see no key. On the TPU the dK/dV accumulators of
+// ragged S_q/S_k, rows that see no key, the sliding window and
+// packed-document segment ids (instantiated apart, flash_bwd.cuh's
+// MaskKind: the tile of flash_bwd_mma.cuh bounds its q walk by the window
+// and masks pairs of two documents). On the TPU the dK/dV accumulators of
 // a whole (batch, kv head) stay in VMEM while one sequential grid walks the
 // q tiles; no SM holds that, so this is the one-pass design of FA2 instead:
 // one CTA per (64-row kv tile, kv head, batch) keeps its tile's dK and dV in
@@ -57,49 +60,72 @@ __global__ void __launch_bounds__(kThreads)
 flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ dout,
                        const float* __restrict__ lse, const float* __restrict__ delta,
-                       T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dq_acc, int Hq,
-                       int Hkv, int Sq, int Sk, int is_causal, int offset, float scale,
-                       float scale_log2) {
-  fat::bwd::dkv_tile<T, D, true>(q, k, v, dout, lse, delta, dk, dv, dq_acc, Hq, Hkv, Sq, Sk,
-                                 is_causal, offset, scale, scale_log2);
+                       T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dq_acc,
+                       const int* __restrict__ seg_q, const int* __restrict__ seg_k, int Hq,
+                       int Hkv, int Sq, int Sk, int is_causal, int offset, int window,
+                       float scale, float scale_log2) {
+  fat::bwd::dkv_tile<T, D, true>(q, k, v, dout, lse, delta, dk, dv, dq_acc, seg_q, seg_k, Hq, Hkv,
+                                 Sq, Sk, is_causal, offset, window, scale, scale_log2);
 }
 
-template <int D>
+template <int D, int kMask>
 __global__ void __launch_bounds__(fat::bwd::mma::kThreads)
 flash_bwd_fused_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
                            const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
                            const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                           __nv_bfloat16* __restrict__ dv, float* __restrict__ dq_acc, int Hq,
-                           int Hkv, int Sq, int Sk, int is_causal, int offset, float scale,
-                           float scale_log2) {
-  fat::bwd::mma::dkv_tile<D, true>(q, k, v, dout, lse, delta, dk, dv, dq_acc, Hq, Hkv, Sq, Sk,
-                                   is_causal, offset, scale, scale_log2);
+                           __nv_bfloat16* __restrict__ dv, float* __restrict__ dq_acc,
+                           const int* __restrict__ seg_q, const int* __restrict__ seg_k,
+                           const int2* __restrict__ ranges_q, const int2* __restrict__ ranges_k,
+                           int Hq, int Hkv, int Sq, int Sk, int is_causal, int offset, int window,
+                           float scale, float scale_log2) {
+  fat::bwd::mma::dkv_tile<D, true, kMask>(q, k, v, dout, lse, delta, dk, dv, dq_acc, seg_q, seg_k,
+                                          ranges_q, ranges_k, Hq, Hkv, Sq, Sk, is_causal, offset,
+                                          window, scale, scale_log2);
+}
+
+template <int D, int kMask>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* dout,
+                       const void* lse, void* dq_acc, void* dk, void* dv, const void* delta,
+                       const int* seg_q, const int* seg_k, const int2* ranges_q,
+                       const int2* ranges_k, int B, int Hq, int Hkv, int Sq, int Sk,
+                       int is_causal, int offset, int window, float scale, cudaStream_t stream) {
+  namespace mma = fat::bwd::mma;
+  using bf16 = __nv_bfloat16;
+  const cudaError_t err = fat::allow_max_smem<flash_bwd_fused_mma_kernel<D, kMask>>();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(Hkv, B, (Sk + mma::kBc - 1) / mma::kBc);
+  flash_bwd_fused_mma_kernel<D, kMask>
+      <<<grid, mma::kThreads, mma::smem_bytes<D, true, kMask>(), stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+          static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+          static_cast<float*>(dq_acc), seg_q, seg_k, ranges_q, ranges_k, Hq, Hkv, Sq, Sk,
+          is_causal, offset, window, scale, scale * 1.4426950408889634f);
+  return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                   const void* lse, void* dq_acc, void* dk, void* dv, void* delta, int B, int Hq,
-                   int Hkv, int Sq, int Sk, int is_causal, int offset, float scale,
-                   cudaStream_t stream) {
+                   const void* lse, void* dq_acc, void* dk, void* dv, void* delta,
+                   const int* seg_q, const int* seg_k, const int2* ranges_q,
+                   const int2* ranges_k, int B, int Hq, int Hkv, int Sq, int Sk, int is_causal,
+                   int offset, int window, float scale, cudaStream_t stream) {
   const long long rows = static_cast<long long>(B) * Hq * Sq;
   flash_bwd_delta_kernel<T, D><<<static_cast<unsigned>((rows + kRowsPerCta - 1) / kRowsPerCta),
                                  kThreads, 0, stream>>>(
       static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<float*>(delta), rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const float scale_log2 = scale * 1.4426950408889634f;
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    namespace mma = fat::bwd::mma;
-    err = fat::allow_max_smem<flash_bwd_fused_mma_kernel<D>>();
-    if (err != cudaSuccess) return err;
-    const dim3 grid(Hkv, B, (Sk + mma::kBc - 1) / mma::kBc);
-    flash_bwd_fused_mma_kernel<D><<<grid, mma::kThreads, mma::smem_bytes<D, true>(), stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
-        static_cast<float*>(dq_acc), Hq, Hkv, Sq, Sk, is_causal, offset, scale, scale_log2);
+    namespace bwd = fat::bwd;
+    const auto fn = seg_q != nullptr ? launch_mma<D, bwd::kSegmentMask>
+                    : window > 0     ? launch_mma<D, bwd::kWindowMask>
+                                     : launch_mma<D, bwd::kNoMask>;
+    return fn(q, k, v, dout, lse, dq_acc, dk, dv, delta, seg_q, seg_k, ranges_q, ranges_k, B, Hq,
+              Hkv, Sq, Sk, is_causal, offset, window, scale, stream);
   } else {
+    const float scale_log2 = scale * 1.4426950408889634f;
     err = fat::allow_max_smem<flash_bwd_fused_kernel<T, D>>();
     if (err != cudaSuccess) return err;
     const dim3 grid((Sk + kBlock - 1) / kBlock, Hkv, B);
@@ -107,7 +133,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
-        static_cast<float*>(dq_acc), Hq, Hkv, Sq, Sk, is_causal, offset, scale, scale_log2);
+        static_cast<float*>(dq_acc), seg_q, seg_k, Hq, Hkv, Sq, Sk, is_causal, offset, window,
+        scale, scale_log2);
   }
   return cudaGetLastError();
 }
@@ -116,29 +143,41 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
 
 // q, o, dout [B,Hq,Sq,D]; k, v, dk, dv [B,Hkv,Sk,D]; lse and delta
 // [B,Hq,Sq] fp32; dq_acc [B,Hq,Sq,D] fp32, zeroed by the caller; all
-// contiguous on the device, the [.., D] tensors 16-byte aligned. Row r sees
-// column c iff !is_causal or c <= r + offset. Writes delta, dk (scale
-// applied) and dv in k's dtype, and adds scale * dS.K into dq_acc. Returns the CUDA error code of the launches (0 = success).
+// contiguous on the device, the [.., D] tensors 16-byte aligned; seg_q
+// [B,Sq] and seg_k [B,Sk] int32 segment ids with their block ranges
+// ranges_q [B,ceil(Sq/32)] and ranges_k [B,ceil(Sk/32)] int2 (min, max),
+// all NULL or none (the float32 kernels read the ids alone). Row r
+// sees column c iff !is_causal or c <= r + offset, with window > 0 (causal
+// only) c >= r + offset - window + 1, and with segment ids
+// seg_q[b][r] == seg_k[b][c]. Writes delta, dk (scale applied) and dv in
+// k's dtype, and adds scale * dS.K into dq_acc. Returns the CUDA error code
+// of the launches (0 = success).
 extern "C" int flash_bwd_fused_launch(const void* q, const void* k, const void* v, const void* o,
                                       const void* dout, const void* lse, void* dq_acc, void* dk,
-                                      void* dv, void* delta, int B, int Hq, int Hkv, int Sq,
-                                      int Sk, int D, int dtype, int is_causal, int offset,
-                                      float scale, void* stream) {
-  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0)
+                                      void* dv, void* delta, const int* seg_q, const int* seg_k,
+                                      const int2* ranges_q, const int2* ranges_k, int B, int Hq,
+                                      int Hkv, int Sq, int Sk, int D, int dtype, int is_causal,
+                                      int offset, int window, float scale, void* stream) {
+  const bool seg = seg_q != nullptr;
+  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || window < 0 ||
+      (window > 0 && !is_causal) || seg != (seg_k != nullptr) || seg != (ranges_q != nullptr) ||
+      seg != (ranges_k != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == fat::kBF16 && D == 64)
-    err = launch<__nv_bfloat16, 64>(q, k, v, o, dout, lse, dq_acc, dk, dv, delta, B, Hq, Hkv, Sq,
-                                    Sk, is_causal, offset, scale, s);
+    err = launch<__nv_bfloat16, 64>(q, k, v, o, dout, lse, dq_acc, dk, dv, delta, seg_q, seg_k,
+                                    ranges_q, ranges_k, B, Hq, Hkv, Sq, Sk, is_causal, offset,
+                                    window, scale, s);
   else if (dtype == fat::kBF16 && D == 128)
-    err = launch<__nv_bfloat16, 128>(q, k, v, o, dout, lse, dq_acc, dk, dv, delta, B, Hq, Hkv,
-                                     Sq, Sk, is_causal, offset, scale, s);
+    err = launch<__nv_bfloat16, 128>(q, k, v, o, dout, lse, dq_acc, dk, dv, delta, seg_q, seg_k,
+                                     ranges_q, ranges_k, B, Hq, Hkv, Sq, Sk, is_causal, offset,
+                                     window, scale, s);
   else if (dtype == fat::kF32 && D == 64)
-    err = launch<float, 64>(q, k, v, o, dout, lse, dq_acc, dk, dv, delta, B, Hq, Hkv, Sq, Sk,
-                            is_causal, offset, scale, s);
+    err = launch<float, 64>(q, k, v, o, dout, lse, dq_acc, dk, dv, delta, seg_q, seg_k, ranges_q,
+                            ranges_k, B, Hq, Hkv, Sq, Sk, is_causal, offset, window, scale, s);
   else if (dtype == fat::kF32 && D == 128)
-    err = launch<float, 128>(q, k, v, o, dout, lse, dq_acc, dk, dv, delta, B, Hq, Hkv, Sq, Sk,
-                             is_causal, offset, scale, s);
+    err = launch<float, 128>(q, k, v, o, dout, lse, dq_acc, dk, dv, delta, seg_q, seg_k, ranges_q,
+                             ranges_k, B, Hq, Hkv, Sq, Sk, is_causal, offset, window, scale, s);
   return static_cast<int>(err);
 }

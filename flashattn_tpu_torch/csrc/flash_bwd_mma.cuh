@@ -5,7 +5,15 @@
 // One CTA of 4 warps (128 threads) owns a 64-row kv tile of one kv head of
 // one batch row; warp w owns kv rows [16w, 16w+16) of it. The CTA walks the
 // q heads of the GQA group and, for each, the q tiles with a row that sees
-// the tile (kBr rows a q tile: 64 at D 64, 32 at D 128). Per tile pair, on
+// the tile (kBr rows a q tile: 64 at D 64, 32 at D 128): from the causal
+// bound's first row and, with a sliding window, up to the last row whose
+// window reaches the tile. kMask (flash_bwd.cuh's MaskKind) instantiates
+// the window, or segment ids with a window when one is given: a q tile whose
+// id range (the 32-position block ranges of common.cuh) is disjoint from
+// the kv tile's is loaded but not computed, a pair of one id runs no id
+// mask, the others compare ids element by element (the q tile's arrive with
+// its LSE, a thread's two kv rows' stay in registers); with kNoMask the tile
+// is the causal kernel's alone. Per tile pair, on
 // mma.sync m16n8k16 with fp32 accumulators:
 //
 //   S^T = K Q^T, dP^T = V dO^T      A: K, V; B: Q, dO rows (ldmatrix)
@@ -26,8 +34,8 @@
 // each (scale applied to dK); kv rows that no q row sees are written as 0.
 //
 // Shared memory: 65,536 B (fused) or 56,320 B (dK/dV) at D 64; 75,264 B or
-// 70,144 B at D 128. Registers and spills: the compiler report
-// (chip_smoke.py phase 1).
+// 70,144 B at D 128; segment ids add 512 B at D 64, 256 B at D 128. Registers
+// and spills: the compiler report (chip_smoke.py phase 1).
 #pragma once
 
 #include "flash_bwd.cuh"
@@ -47,13 +55,14 @@ __host__ __device__ constexpr int q_rows() {
   return D == 64 ? 64 : 32;
 }
 
-template <int D, bool kFusedDq>
+template <int D, bool kFusedDq, int kMask>
 constexpr size_t smem_bytes() {
   constexpr int kBr = q_rows<D>();
   return sizeof(bf16) * (2 * kBc * (D + 8)                   // K, V
                          + 2 * 2 * kBr * (D + 8)             // Q, dO: two buffers each
                          + (kFusedDq ? kBc * (kBr + 8) : 0))  // dS^T
-         + sizeof(float) * 2 * 2 * kBr;                      // LSE, delta: two buffers each
+         + sizeof(float) * 2 * 2 * kBr                       // LSE, delta: two buffers each
+         + (kMask == kSegmentMask ? sizeof(int) * 2 * kBr : 0);  // segment ids: two buffers
 }
 
 // Rows [0, n_rows) of a contiguous [kRows][D] bf16 tile into shared memory
@@ -76,16 +85,22 @@ __device__ __forceinline__ void load_tile_async(const bf16* __restrict__ src, in
 // The contract of flash_bwd.cuh's dkv_tile, for bf16, with the grid
 // (Hkv, B, kv tiles): blockIdx.z walks the kv tiles, so that a causal
 // call's heavy tiles (the first ones) are dispatched first. With kFusedDq
-// the dQ contributions are added with scale applied.
-template <int D, bool kFusedDq>
+// the dQ contributions are added with scale applied. kNoMask reads neither
+// the window nor the segment ids (window 0, seg_q/seg_k null), kWindowMask
+// not the ids.
+template <int D, bool kFusedDq, int kMask>
 __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                          const bf16* __restrict__ v,
                                          const bf16* __restrict__ dout,
                                          const float* __restrict__ lse,
                                          const float* __restrict__ delta, bf16* __restrict__ dk,
                                          bf16* __restrict__ dv, float* __restrict__ dq_acc,
-                                         int Hq, int Hkv, int Sq, int Sk, int is_causal,
-                                         int offset, float scale, float scale_log2) {
+                                         const int* __restrict__ seg_q,
+                                         const int* __restrict__ seg_k,
+                                         const int2* __restrict__ ranges_q,
+                                         const int2* __restrict__ ranges_k, int Hq, int Hkv,
+                                         int Sq, int Sk, int is_causal, int offset, int window,
+                                         float scale, float scale_log2) {
   constexpr int kBr = q_rows<D>();
   constexpr int KP = D + 8;        // row stride of the K, V, Q and dO tiles
   constexpr int SP = kBr + 8;      // row stride of dS^T
@@ -102,6 +117,7 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
   bf16* dst = dos + 2 * kBr * KP;  // [kBc][SP], fused only
   float* lses = reinterpret_cast<float*>(dst + (kFusedDq ? kBc * SP : 0));  // [2][kBr]
   float* deltas = lses + 2 * kBr;
+  int* segs = reinterpret_cast<int*>(deltas + 2 * kBr);  // [2][kBr], kSegmentMask
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, tig = lane % 4;  // fragment row group, thread in group
@@ -116,7 +132,16 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
   const int n_q_tiles = (Sq + kBr - 1) / kBr;
   const int first_row = is_causal ? max(0, kv0 - offset) : 0;
   const int q_begin = first_row >= Sq ? n_q_tiles : first_row / kBr;
-  const int n_live = n_q_tiles - q_begin;
+  // Window: q row qi sees kv row kv0 + kBc - 1 only if
+  // qi <= kv0 + kBc - 1 - offset + window - 1, so later q tiles contribute nothing.
+  int q_end = n_q_tiles;
+  if (kMask != kNoMask && window > 0) {
+    const int last_row = kv0 + kBc - 1 - offset + window - 1;
+    q_end = last_row < 0 ? 0 : min(n_q_tiles, last_row / kBr + 1);
+  }
+  const bool seg = kMask == kSegmentMask && seg_q != nullptr;
+  const int* seg_q_row = seg ? seg_q + static_cast<size_t>(b) * Sq : nullptr;
+  const int n_live = max(0, q_end - q_begin);
   const int n_iters = group * n_live;  // iteration i: q head i / n_live, q tile i % n_live
 
   // Row (b, h, q0) of the [B, Hq, Sq] statistics for iteration it.
@@ -136,6 +161,10 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
       const float* src = tid < kBr ? lse : delta;
       float* to = (tid < kBr ? lses : deltas) + buf * kBr + r;
       cp_async4(to, src + (valid ? row + r : 0), valid);
+    }
+    if (seg && tid < kBr) {
+      const bool valid = q0 + tid < Sq;
+      cp_async4(segs + buf * kBr + tid, seg_q_row + (valid ? q0 + tid : 0), valid);
     }
   };
 
@@ -163,6 +192,18 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
     for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
 
   const int kv_r0 = kv0 + wrow + g;  // this thread's kv rows: kv_r0, kv_r0 + 8
+  int kv_seg[2] = {0, 0};            // and their segment ids
+  int2 kv_ids{};                     // the kv tile's id range
+  const int2* q_ranges = nullptr;
+  if (seg) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int kr = kv_r0 + 8 * i;
+      kv_seg[i] = kr < Sk ? __ldg(seg_k + static_cast<size_t>(b) * Sk + kr) : 0;
+    }
+    kv_ids = id_range(ranges_k + static_cast<size_t>(b) * range_blocks(Sk), kv0, kBc, Sk);
+    q_ranges = ranges_q + static_cast<size_t>(b) * range_blocks(Sq);
+  }
   for (int it = 0; it < n_iters; ++it) {
     cp_async_wait_all();
     __syncthreads();  // tile `it` is in; every warp is done with tile it - 1
@@ -175,6 +216,15 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
     const bf16* dob = dos + buf * kBr * KP;
     const float* lseb = lses + buf * kBr;
     const float* deltab = deltas + buf * kBr;
+    const int* segb = segs + buf * kBr;
+    bool seg_mask = false;  // the tile pair needs the id mask
+    if constexpr (kMask == kSegmentMask) {
+      if (seg) {
+        const int2 q_ids = id_range(q_ranges, q0, kBr, Sq);
+        if (!ids_meet(q_ids, kv_ids)) continue;  // other documents only
+        seg_mask = !one_id(q_ids, kv_ids);
+      }
+    }
 
     // S^T and dP^T: this warp's 16 kv rows against the tile's kBr q columns.
     float s[kQTiles][4], dp[kQTiles][4];
@@ -208,8 +258,9 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
     // Element e of fragment j: kv row kv_r0 + 8 (e / 2), q column
     // 8j + 2 tig + e % 2. P and dS in fp32, rounded to bf16 as the A
     // fragments of dV and dK (fragment j is half of k-step j / 2).
-    const bool edge = q0 + kBr > Sq || kv0 + kBc > Sk ||
-                      (is_causal && kv0 + kBc - 1 > q0 + offset);
+    bool edge = q0 + kBr > Sq || kv0 + kBc > Sk || (is_causal && kv0 + kBc - 1 > q0 + offset);
+    if constexpr (kMask != kNoMask)  // the window's left edge crosses the tile, or two ids meet
+      edge = edge || seg_mask || (window > 0 && q0 + kBr - 1 + offset - window + 1 > kv0);
     unsigned pa[kQSteps][4], dsa[kQSteps][4];
 #pragma unroll
     for (int j = 0; j < kQTiles; ++j) {
@@ -224,6 +275,9 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
         if (edge) {
           const int qi = q0 + c + (e & 1), kr = kv_r0 + 8 * (e >> 1);
           live = qi < Sq && kr < Sk && (!is_causal || kr <= qi + offset);
+          if constexpr (kMask != kNoMask)
+            live = live && (window == 0 || kr >= qi + offset - window + 1) &&
+                   (!seg_mask || segb[c + (e & 1)] == kv_seg[e >> 1]);
         }
         const float p = live ? exp2f(s[j][e] * scale_log2 - lse2[e & 1]) : 0.f;
         s[j][e] = p;

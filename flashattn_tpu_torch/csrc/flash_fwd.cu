@@ -5,8 +5,9 @@
 // flashattn_tpu/ops/flash_fwd_grid4.py::_grid4_kernel (launcher
 // flash_attention_forward_grid4, :267) on their common plain subset: causal
 // (bottom-right, or by pos_offset) or not, GQA, ragged S_q/S_k, optional LSE,
-// and the sliding window (causal only: row r sees column c iff
-// r + offset - window < c <= r + offset).
+// the sliding window (causal only: row r sees column c iff
+// r + offset - window < c <= r + offset) and packed-document segment ids
+// (row r sees column c only if seg_q[b][r] == seg_k[b][c]).
 // The TPU's two grid shapes, its wavefront meta arrays, h_fuse and the
 // ones-column row sum are Mosaic designs and are not carried over.
 //
@@ -45,7 +46,13 @@
 // first (the grid's slow axis walks them in descending q0): a tile's kv
 // extent never falls as q0 grows, causal (a ramp) or windowed (a ramp up to
 // window + the tile's height, then flat), so the short tiles of the ramp
-// fill the tail. No atomics: two calls give the same bits. The softmax
+// fill the tail. With segment ids (kSeg) a consumer warpgroup compares its
+// rows' id range with each tile's (the 32-position block ranges of
+// common.cuh): a tile of other documents only is waited for and released,
+// not computed (the producer's walk stays the window's); a tile whose rows
+// and columns carry one id runs no id mask; the others compare each
+// thread's two row ids, kept in registers, with the tile's column ids, read
+// from device memory (L1-cached). No atomics: two calls give the same bits. The softmax
 // uses the exp2 domain (row max of the raw scores, one FFMA and one
 // MUFU.EX2 per exponent), fp32 (m, l),
 // masked scores of -inf with a zero max for rows that have seen no key yet,
@@ -74,9 +81,10 @@ constexpr int kColsPerThread = kBlockN / kThreadsPerRow;  // 16
 
 template <int D>
 constexpr size_t smem_bytes() {
-  // qs [BM][D+1], ks [BN][D+1], vs [BN][D], ps [BM][BN+1], all fp32.
+  // qs [BM][D+1], ks [BN][D+1], vs [BN][D], ps [BM][BN+1], all fp32, then
+  // the kv tile's segment ids [BN].
   return sizeof(float) * (kBlockM * (D + 1) + kBlockN * (D + 1) + kBlockN * D +
-                          kBlockM * (kBlockN + 1));
+                          kBlockM * (kBlockN + 1) + kBlockN);
 }
 
 // Columns [0, kv_limit) can be visible to some row of the block_m-row q
@@ -100,7 +108,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk,
+                 float* __restrict__ lse, const int* __restrict__ seg_q,
+                 const int* __restrict__ seg_k, int Hq, int Hkv, int Sq, int Sk,
                  int is_causal, int offset, int window, float scale_log2) {
   constexpr int DP = D + 1;
   constexpr int PP = kBlockN + 1;
@@ -110,6 +119,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* ks = qs + kBlockM * DP;
   float* vs = ks + kBlockN * DP;
   float* ps = vs + kBlockN * D;
+  int* segs = reinterpret_cast<int*>(ps + kBlockM * PP);
 
   const int tid = threadIdx.x;
   const int r = tid / kThreadsPerRow;  // this thread's row in the tile
@@ -121,6 +131,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t q_base = (static_cast<size_t>(b) * Hq + h) * Sq * D;
   const size_t kv_base = (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
   const int qi = q0 + r;
+  const int row_seg = seg_q != nullptr && qi < Sq ? seg_q[static_cast<size_t>(b) * Sq + qi] : 0;
 
   fat::load_tile<float, kBlockM, D, kThreads>(q + q_base + static_cast<size_t>(q0) * D,
                                               Sq - q0, qs, DP, scale_log2);
@@ -137,6 +148,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const size_t tile = kv_base + static_cast<size_t>(n0) * D;
     fat::load_tile<float, kBlockN, D, kThreads>(k + tile, kv_end - n0, ks, DP);
     fat::load_tile<float, kBlockN, D, kThreads>(v + tile, kv_end - n0, vs, D);
+    if (seg_k != nullptr && tid < kBlockN)
+      segs[tid] = n0 + tid < kv_end ? seg_k[static_cast<size_t>(b) * Sk + n0 + tid] : 0;
     __syncthreads();
 
     float s[kColsPerThread];
@@ -156,7 +169,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < kColsPerThread; ++j) {
       const int c = n0 + t + kThreadsPerRow * j;
       if (c < kv_end && (!is_causal || c <= qi + offset) &&
-          (window == 0 || c >= qi + offset - window + 1)) {
+          (window == 0 || c >= qi + offset - window + 1) &&
+          (seg_k == nullptr || segs[c - n0] == row_seg)) {
         live |= 1u << j;
         mx = fmaxf(mx, s[j]);
       }
@@ -397,13 +411,19 @@ __device__ __forceinline__ void load_kv(unsigned smem, const CUtensorMap* k_map,
 // consumer warpgroup its thread 0 is also the producer: it refills the
 // stage the previous tile released while the tensor cores run the next
 // S product (k_map and v_map are used only then). kWindow instantiates the
-// window's left edge: without it the loop is the causal kernel's alone.
-template <int D, int kConsumers, bool kWindow>
+// window's left edge and kSeg the segment ids (seg_q, seg_k: this batch
+// row's [Sq] and [Sk]; ranges_q, ranges_k: their block ranges): without
+// them the loop is the causal kernel's alone.
+template <int D, int kConsumers, bool kWindow, bool kSeg>
 __device__ __forceinline__ void consume(unsigned smem, const CUtensorMap* k_map,
                                         const CUtensorMap* v_map, __nv_bfloat16* __restrict__ o,
-                                        float* __restrict__ lse, int bh, int kv_head, int q0,
-                                        int first, int n_tiles, int Sq, int Sk, int is_causal,
-                                        int offset, int window, float scale_log2) {
+                                        float* __restrict__ lse, const int* __restrict__ seg_q,
+                                        const int* __restrict__ seg_k,
+                                        const int2* __restrict__ ranges_q,
+                                        const int2* __restrict__ ranges_k, int bh, int kv_head,
+                                        int q0, int first, int n_tiles, int Sq, int Sk,
+                                        int is_causal, int offset, int window,
+                                        float scale_log2) {
   using L = FwdLayout<D, kConsumers>;
   const unsigned k_full = smem + L::kKFull, v_full = smem + L::kVFull, empty = smem + L::kEmpty;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -431,12 +451,44 @@ __device__ __forceinline__ void consume(unsigned smem, const CUtensorMap* k_map,
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  int row_seg[2] = {0, 0};       // this thread's rows' segment ids
+  int2 wg_ids = make_int2(1, 0);  // the warpgroup's rows' id range (empty past Sq)
+  if constexpr (kSeg) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) row_seg[i] = row0 + 8 * i < Sq ? __ldg(seg_q + row0 + 8 * i) : 0;
+    if (wg_row < Sq) wg_ids = fat::id_range(ranges_q, wg_row, 64, Sq);
+  }
+  // Thread 0 of a lone consumer warpgroup refills the stage that iteration
+  // it - 1 released (k_map and v_map are used only here).
+  auto refill = [&](int it) {
+    if constexpr (kConsumers == 1) {
+      const int next = it - 1 + kStages;
+      if (threadIdx.x == 0 && it > 0 && next < n_tiles) {
+        mbar_wait(empty + 8 * (next % kStages), ((it - 1) / kStages) & 1);
+        load_kv<D, kConsumers>(smem, k_map, v_map, next, first, n_tiles, kv_head);
+      }
+      __syncwarp();  // warp 0 reconverges before the warpgroup-wide wait
+    }
+  };
   if (n_tiles > 0) mbar_wait(smem + L::kQFull, 0);
 
   for (int it = 0; it < n_tiles; ++it) {
     const int s = it % kStages;
     const unsigned phase = (it / kStages) & 1;
     const int n0 = (first + n_tiles - 1 - it) * kTileN;
+    bool seg_mask = false;  // the tile needs the id mask
+    if constexpr (kSeg) {
+      const int2 tile_ids = fat::id_range(ranges_k, n0, kTileN, Sk);
+      if (!fat::ids_meet(wg_ids, tile_ids)) {  // other documents only: release the stage
+        refill(it);
+        mbar_wait(k_full + 8 * s, phase);
+        mbar_wait(v_full + 8 * s, phase);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * s);
+        continue;
+      }
+      seg_mask = !fat::one_id(wg_ids, tile_ids);
+    }
 
     // S = Q K^T (64 x 128 per warpgroup), raw scores.
     float sc[kTileN / 2];
@@ -450,31 +502,44 @@ __device__ __forceinline__ void consume(unsigned smem, const CUtensorMap* k_map,
                     sw128_desc(k_s + a * kTileN * 128 + col, 16), kk > 0);
     }
     wgmma_commit();
-    if constexpr (kConsumers == 1) {
-      // Refill the stage the previous tile released, under this S product.
-      const int next = it - 1 + kStages;
-      if (threadIdx.x == 0 && it > 0 && next < n_tiles) {
-        mbar_wait(empty + 8 * (next % kStages), ((it - 1) / kStages) & 1);
-        load_kv<D, kConsumers>(smem, k_map, v_map, next, first, n_tiles, kv_head);
-      }
-      __syncwarp();  // warp 0 reconverges before the warpgroup-wide wait
-    }
+    refill(it);  // under this S product
     wgmma_wait_all();
     fence_regs(sc);
 
-    if (it < n_hi || (kWindow && it >= n_tiles - n_lo)) {  // tiles across a bound of the rows
+    if (seg_mask || it < n_hi || (kWindow && it >= n_tiles - n_lo)) {  // tiles across a bound
+      if constexpr (kSeg) {  // a column's id read once for both rows
+        int seen[2], from[2];  // row r sees the columns in [from, seen)
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = row0 + 8 * i;
-        const int seen = is_causal ? min(Sk, r + offset + 1) : Sk;  // columns < seen
-        const int from = kWindow ? r + offset - window + 1 : 0;     // and >= from
+        for (int i = 0; i < 2; ++i) {
+          const int r = row0 + 8 * i;
+          seen[i] = is_causal ? min(Sk, r + offset + 1) : Sk;
+          from[i] = kWindow ? r + offset - window + 1 : 0;
+        }
 #pragma unroll
         for (int j = 0; j < kTileN / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int c = n0 + 8 * j + 2 * t + e;
-            if (c >= seen || (kWindow && c < from)) sc[4 * j + 2 * i + e] = -CUDART_INF_F;
+            const int col_seg = seg_mask && c < Sk ? __ldg(seg_k + c) : 0;
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              if (c >= seen[i] || (kWindow && c < from[i]) || (seg_mask && col_seg != row_seg[i]))
+                sc[4 * j + 2 * i + e] = -CUDART_INF_F;
           }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = row0 + 8 * i;
+          const int seen = is_causal ? min(Sk, r + offset + 1) : Sk;  // columns < seen
+          const int from = kWindow ? r + offset - window + 1 : 0;     // and >= from
+#pragma unroll
+          for (int j = 0; j < kTileN / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = n0 + 8 * j + 2 * t + e;
+              if (c >= seen || (kWindow && c < from)) sc[4 * j + 2 * i + e] = -CUDART_INF_F;
+            }
+        }
       }
     }
 
@@ -562,15 +627,18 @@ __device__ __forceinline__ void consume(unsigned smem, const CUtensorMap* k_map,
 // owns q rows [q0 + 64w, +64); with two of them a third warpgroup is the
 // producer, whose first thread issues every TMA copy, and with one its
 // thread 0 issues them between its products. Same contract as
-// flash_fwd_kernel; kWindow instantiates the sliding window (window > 0).
-template <int D, int kConsumers, bool kWindow>
+// flash_fwd_kernel; kWindow instantiates the sliding window (window > 0),
+// kSeg the segment ids (seg_q and seg_k not null).
+template <int D, int kConsumers, bool kWindow, bool kSeg>
 __global__ void __launch_bounds__(FwdLayout<D, kConsumers>::kThreads,
                                   kConsumers == 1 ? 3 : 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o,
-                       float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk, int is_causal,
-                       int offset, int window, float scale_log2) {
+                       float* __restrict__ lse, const int* __restrict__ seg_q,
+                       const int* __restrict__ seg_k, const int2* __restrict__ ranges_q,
+                       const int2* __restrict__ ranges_k, int Hq, int Hkv, int Sq, int Sk,
+                       int is_causal, int offset, int window, float scale_log2) {
   using L = FwdLayout<D, kConsumers>;
   extern __shared__ unsigned char smem_raw[];
   const unsigned smem = (smem_addr(smem_raw) + 1023) & ~1023u;
@@ -579,6 +647,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
   const int bh = blockIdx.x;  // b * Hq + h
   const int kv_head = (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
+  const int* row_seg_q = kSeg ? seg_q + static_cast<size_t>(bh / Hq) * Sq : nullptr;
+  const int* row_seg_k = kSeg ? seg_k + static_cast<size_t>(bh / Hq) * Sk : nullptr;
+  const int2* row_ranges_q =
+      kSeg ? ranges_q + static_cast<size_t>(bh / Hq) * fat::range_blocks(Sq) : nullptr;
+  const int2* row_ranges_k =
+      kSeg ? ranges_k + static_cast<size_t>(bh / Hq) * fat::range_blocks(Sk) : nullptr;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * L::kBlockM;
   const int first = kWindow ? kv_first_tile(q0, offset, window, kTileN) : 0;
   const int n_tiles = max(
@@ -603,8 +677,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       for (int it = 0; it < min(kStages, n_tiles); ++it)
         load_kv<D, kConsumers>(smem, &k_map, &v_map, it, first, n_tiles, kv_head);
     }
-    consume<D, kConsumers, kWindow>(smem, &k_map, &v_map, o, lse, bh, kv_head, q0, first,
-                                    n_tiles, Sq, Sk, is_causal, offset, window, scale_log2);
+    consume<D, kConsumers, kWindow, kSeg>(smem, &k_map, &v_map, o, lse, row_seg_q, row_seg_k,
+                                          row_ranges_q, row_ranges_k, bh, kv_head, q0, first,
+                                          n_tiles, Sq, Sk, is_causal, offset, window,
+                                          scale_log2);
   } else if (threadIdx.x >= 128 * kConsumers) {
     // Producer warpgroup: Q once, then K and V tile by tile, last tile
     // first. It hands its registers to the consumers (setmaxnreg): 12 warps
@@ -620,22 +696,25 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    consume<D, kConsumers, kWindow>(smem, &k_map, &v_map, o, lse, bh, kv_head, q0, first,
-                                    n_tiles, Sq, Sk, is_causal, offset, window, scale_log2);
+    consume<D, kConsumers, kWindow, kSeg>(smem, &k_map, &v_map, o, lse, row_seg_q, row_seg_k,
+                                          row_ranges_q, row_ranges_k, bh, kv_head, q0, first,
+                                          n_tiles, Sq, Sk, is_causal, offset, window,
+                                          scale_log2);
   }
 }
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, void* lse,
-                       int B, int Hq, int Hkv, int Sq, int Sk, int is_causal, int offset,
-                       int window, float scale_log2, cudaStream_t stream) {
+                       const int* seg_q, const int* seg_k, int B, int Hq, int Hkv, int Sq,
+                       int Sk, int is_causal, int offset, int window, float scale_log2,
+                       cudaStream_t stream) {
   const cudaError_t err = fat::allow_max_smem<flash_fwd_kernel<D>>();
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kBlockM - 1) / kBlockM, Hq, B);
   flash_fwd_kernel<D><<<grid, kThreads, smem_bytes<D>(), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), Hq,
-      Hkv, Sq, Sk, is_causal, offset, window, scale_log2);
+      static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), seg_q,
+      seg_k, Hq, Hkv, Sq, Sk, is_causal, offset, window, scale_log2);
   return cudaGetLastError();
 }
 
@@ -686,12 +765,14 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int d, int rows, int he
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D, int kConsumers, bool kWindow>
+template <int D, int kConsumers, bool kWindow, bool kSeg>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
-                        int B, int Hq, int Hkv, int Sq, int Sk, int is_causal, int offset,
-                        int window, float scale_log2, cudaStream_t stream) {
+                        const int* seg_q, const int* seg_k, const int2* ranges_q,
+                        const int2* ranges_k, int B, int Hq, int Hkv, int Sq, int Sk,
+                        int is_causal, int offset, int window, float scale_log2,
+                        cudaStream_t stream) {
   using L = FwdLayout<D, kConsumers>;
-  cudaError_t err = fat::allow_max_smem<flash_fwd_wgmma_kernel<D, kConsumers, kWindow>>();
+  cudaError_t err = fat::allow_max_smem<flash_fwd_wgmma_kernel<D, kConsumers, kWindow, kSeg>>();
   const int q_tiles = (Sq + L::kBlockM - 1) / L::kBlockM;
   if (err == cudaSuccess && q_tiles > 65535) err = cudaErrorInvalidValue;
   CUtensorMap q_map, k_map, v_map;
@@ -699,42 +780,65 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, vo
   if (err == cudaSuccess) err = make_map(&k_map, k, D, Sk, B * Hkv, kTileN);
   if (err == cudaSuccess) err = make_map(&v_map, v, D, Sk, B * Hkv, kTileN);
   if (err != cudaSuccess) return err;
-  flash_fwd_wgmma_kernel<D, kConsumers, kWindow><<<dim3(B * Hq, q_tiles), L::kThreads,
-                                                    L::kBytes, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), Hq, Hkv,
-      Sq, Sk, is_causal, offset, window, scale_log2);
+  flash_fwd_wgmma_kernel<D, kConsumers, kWindow, kSeg>
+      <<<dim3(B * Hq, q_tiles), L::kThreads, L::kBytes, stream>>>(
+          q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), seg_q,
+          seg_k, ranges_q, ranges_k, Hq, Hkv, Sq, Sk, is_causal, offset, window, scale_log2);
   return cudaGetLastError();
+}
+
+// The bf16 kernel of head dim D (kConsumers warpgroups) for a window and
+// segment ids present or not.
+template <int D, int kConsumers>
+cudaError_t launch_bf16_any(bool win, bool seg, const void* q, const void* k, const void* v,
+                            void* o, void* lse, const int* seg_q, const int* seg_k,
+                            const int2* ranges_q, const int2* ranges_k, int B, int Hq, int Hkv,
+                            int Sq, int Sk, int is_causal, int offset, int window,
+                            float scale_log2, cudaStream_t stream) {
+  const auto fn = win ? (seg ? launch_bf16<D, kConsumers, true, true>
+                             : launch_bf16<D, kConsumers, true, false>)
+                      : (seg ? launch_bf16<D, kConsumers, false, true>
+                             : launch_bf16<D, kConsumers, false, false>);
+  return fn(q, k, v, o, lse, seg_q, seg_k, ranges_q, ranges_k, B, Hq, Hkv, Sq, Sk, is_causal,
+            offset, window, scale_log2, stream);
 }
 
 }  // namespace
 
 // q [B,Hq,Sq,D], k/v [B,Hkv,Sk,D], o like q, lse [B,Hq,Sq] fp32 or NULL; all
-// contiguous on the device, q, k and v 16-byte aligned. Row r sees column c
-// iff !is_causal or c <= r + offset, and with window > 0 (causal only)
-// c >= r + offset - window + 1. bf16 runs the wgmma kernel (q tiles of 64
+// contiguous on the device, q, k and v 16-byte aligned; seg_q [B,Sq] and
+// seg_k [B,Sk] int32 segment ids with their block ranges ranges_q
+// [B,ceil(Sq/32)] and ranges_k [B,ceil(Sk/32)] int2 (min, max), all NULL or
+// none (the float32 kernel reads the ids alone). Row r sees column c
+// iff !is_causal or c <= r + offset, with window > 0 (causal only)
+// c >= r + offset - window + 1, and with segment ids
+// seg_q[b][r] == seg_k[b][c]. bf16 runs the wgmma kernel (q tiles of 64
 // rows at D 64, 128 at D 128), float32 the FMA kernel.
 // Returns the CUDA error code of the launch (0 = success).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
-                                void* lse, int B, int Hq, int Hkv, int Sq, int Sk, int D,
-                                int dtype, int is_causal, int offset, int window,
-                                float scale_log2, void* stream) {
+                                void* lse, const int* seg_q, const int* seg_k,
+                                const int2* ranges_q, const int2* ranges_k, int B, int Hq,
+                                int Hkv, int Sq, int Sk, int D, int dtype, int is_causal,
+                                int offset, int window, float scale_log2, void* stream) {
+  const bool seg = seg_q != nullptr;
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || window < 0 ||
-      (window > 0 && !is_causal))
+      (window > 0 && !is_causal) || seg != (seg_k != nullptr) || seg != (ranges_q != nullptr) ||
+      seg != (ranges_k != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   const bool win = window > 0;
   if (dtype == fat::kBF16 && D == 64)
-    err = (win ? launch_bf16<64, 1, true> : launch_bf16<64, 1, false>)(
-        q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, is_causal, offset, window, scale_log2, s);
+    err = launch_bf16_any<64, 1>(win, seg, q, k, v, o, lse, seg_q, seg_k, ranges_q, ranges_k, B,
+                                 Hq, Hkv, Sq, Sk, is_causal, offset, window, scale_log2, s);
   else if (dtype == fat::kBF16 && D == 128)
-    err = (win ? launch_bf16<128, 2, true> : launch_bf16<128, 2, false>)(
-        q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, is_causal, offset, window, scale_log2, s);
+    err = launch_bf16_any<128, 2>(win, seg, q, k, v, o, lse, seg_q, seg_k, ranges_q, ranges_k,
+                                  B, Hq, Hkv, Sq, Sk, is_causal, offset, window, scale_log2, s);
   else if (dtype == fat::kF32 && D == 64)
-    err = launch_f32<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, is_causal, offset, window,
-                         scale_log2, s);
+    err = launch_f32<64>(q, k, v, o, lse, seg_q, seg_k, B, Hq, Hkv, Sq, Sk, is_causal, offset,
+                         window, scale_log2, s);
   else if (dtype == fat::kF32 && D == 128)
-    err = launch_f32<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, is_causal, offset, window,
-                          scale_log2, s);
+    err = launch_f32<128>(q, k, v, o, lse, seg_q, seg_k, B, Hq, Hkv, Sq, Sk, is_causal, offset,
+                          window, scale_log2, s);
   return static_cast<int>(err);
 }

@@ -18,6 +18,7 @@ from flashattn_tpu_torch.ops.attention import flash_attention
 from flashattn_tpu_torch.ops.common import card_device, unported
 from flashattn_tpu_torch.ops.quant_matmul import (QuantizedLinear, quant_matmul,
                                                   quantize_weights)
+from flashattn_tpu_torch.ops.varlen import flash_attention_varlen
 
 # Projections eligible for weight-only quantization: everything but the
 # embedding (a gather, not a product) and the norms.
@@ -223,15 +224,40 @@ def layer_window(cfg: ModelConfig, layer_idx: int) -> int | None:
 
 
 def _attn_block(layer: LlamaLayer, x: torch.Tensor, cos: torch.Tensor,
-                sin: torch.Tensor, cfg: ModelConfig, window: int | None = None) -> torch.Tensor:
+                sin: torch.Tensor, cfg: ModelConfig, window: int | None = None,
+                segment_ids: torch.Tensor | None = None) -> torch.Tensor:
     b, s, _ = x.shape
     xn = rms_norm(x, layer.attn_norm, cfg.norm_eps, cfg.norm_offset)
     q, k, v = qkv(layer, xn, cfg)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    o = flash_attention(q, k, v, is_causal=True, scale=cfg.attn_scale, window=window)
+    if segment_ids is not None:
+        o = flash_attention_varlen(q, k, v, segment_ids=segment_ids, is_causal=True,
+                                   scale=cfg.attn_scale, window=window)
+    else:
+        o = flash_attention(q, k, v, is_causal=True, scale=cfg.attn_scale, window=window)
     o = o.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
     return proj(o, layer.wo)
+
+
+def document_positions(segment_ids: torch.Tensor) -> torch.Tensor:
+    """Each token's position within its packed document: [B, S] ids ->
+    [B, S] int64 positions that restart where the id changes."""
+    b, s = segment_ids.shape
+    pos = torch.arange(s, device=segment_ids.device).expand(b, s)
+    change = torch.ones_like(segment_ids, dtype=torch.bool)
+    change[:, 1:] = segment_ids[:, 1:] != segment_ids[:, :-1]
+    starts = torch.cummax(torch.where(change, pos, torch.zeros_like(pos)), dim=1).values
+    return pos - starts
+
+
+def check_segment_ids(segment_ids, tokens: torch.Tensor) -> torch.Tensor:
+    """segment_ids as a tensor on the tokens' device, shaped like them."""
+    seg = torch.as_tensor(segment_ids, device=tokens.device)
+    if seg.shape != tokens.shape:
+        raise ValueError(f"segment_ids {tuple(seg.shape)} must be shaped like the tokens "
+                         f"{tuple(tokens.shape)}")
+    return seg
 
 
 def forward(model: Llama, tokens: torch.Tensor, segment_ids=None,
@@ -239,19 +265,23 @@ def forward(model: Llama, tokens: torch.Tensor, segment_ids=None,
     """Training/prefill forward: tokens [B, S] -> float32 logits [B, S, vocab].
 
     Differentiable: attention goes through the flash autograd Function, whose
-    backward runs the backward kernels. Packed documents (`segment_ids`) and
-    rematerialisation (`remat`) are not ported yet and raise; so does a
-    windowed layer whose input needs a gradient (no windowed backward yet,
-    ROADMAP A4), while a windowed forward without one runs K1."""
-    if segment_ids is not None:
-        raise unported("packed-document segment_ids", "A4")
+    backward runs the backward kernels (with each layer's window). With
+    segment_ids [B, S] the rows are packed documents: attention stays within
+    a document (ops/varlen.py; ids < 0 are padding) and RoPE positions
+    restart at each boundary. Rematerialisation (`remat`) is not ported yet
+    and raises (ROADMAP A3b)."""
     if remat is not False:
         raise unported(f"remat={remat!r}", "A3b")
     cfg = model.cfg
     x = embed_tokens(model, tokens)
-    cos, sin = rope_tables(cfg, torch.arange(tokens.shape[1], device=tokens.device))
+    if segment_ids is not None:
+        segment_ids = check_segment_ids(segment_ids, tokens)
+        positions = document_positions(segment_ids)
+    else:
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+    cos, sin = rope_tables(cfg, positions)
     for i, layer in enumerate(model.layers):
-        x = x + _attn_block(layer, x, cos, sin, cfg, layer_window(cfg, i))
+        x = x + _attn_block(layer, x, cos, sin, cfg, layer_window(cfg, i), segment_ids)
         x = x + _mlp_block(layer, x, cfg)
     return lm_logits(x, model)
 
@@ -259,13 +289,23 @@ def forward(model: Llama, tokens: torch.Tensor, segment_ids=None,
 def loss_fn(model: Llama, tokens: torch.Tensor, segment_ids=None,
             remat=False) -> torch.Tensor:
     """Mean next-token cross-entropy of tokens[:, :-1] -> tokens[:, 1:]
-    (tokens [B, S+1]), a float32 scalar."""
+    (tokens [B, S+1]), a float32 scalar.
+
+    With segment_ids [B, S+1] (packed documents) the predictions across a
+    document boundary and those from padding (ids < 0) are left out of the
+    mean, which runs over the valid ones (at least 1)."""
+    seg_in = None
     if segment_ids is not None:
-        raise unported("packed-document segment_ids", "A4")
-    logits = forward(model, tokens[:, :-1], remat=remat)
+        segment_ids = check_segment_ids(segment_ids, tokens)
+        seg_in = segment_ids[:, :-1]
+    logits = forward(model, tokens[:, :-1], seg_in, remat=remat)
     targets = tokens[:, 1:].long()
     gold = logits.gather(-1, targets[..., None])[..., 0]
-    return (torch.logsumexp(logits, dim=-1) - gold).mean()
+    nll = torch.logsumexp(logits, dim=-1) - gold
+    if segment_ids is None:
+        return nll.mean()
+    valid = (segment_ids[:, :-1] == segment_ids[:, 1:]) & (segment_ids[:, :-1] >= 0)
+    return torch.where(valid, nll, 0.0).sum() / valid.sum().clamp(min=1)
 
 
 def sgd_train_step(model: Llama, tokens: torch.Tensor, lr: float = 1e-3,

@@ -33,7 +33,6 @@ import torch
 
 from flashattn_tpu_torch.models import llama
 from flashattn_tpu_torch.models.llama import Llama
-from flashattn_tpu_torch.ops.common import unported
 
 STATE_FILE = "state.pt"
 
@@ -97,14 +96,16 @@ def clip_by_global_norm_(grads: list[torch.Tensor], norm: torch.Tensor,
 
 def train_step(state: dict, tokens: torch.Tensor,
                segment_ids=None) -> tuple[dict, dict]:
-    """One optimizer step on tokens [B, S+1] -> (state, {"loss", "grad_norm"}),
-    both float32 scalar tensors on the model's device."""
-    if segment_ids is not None:
-        raise unported("packed-document segment_ids", "A4")
+    """One optimizer step on tokens [B, S+1] (tensor or numpy, moved to
+    the model's device), with packed-document segment_ids [B, S+1] when
+    given (llama.loss_fn) -> (state, {"loss", "grad_norm"}), both float32
+    scalar tensors on the model's device."""
     model, opt = state["model"], state["optimizer"]
     tokens = torch.as_tensor(tokens, device=model.device)
+    if segment_ids is not None:
+        segment_ids = torch.as_tensor(segment_ids, device=model.device)
     opt.zero_grad(set_to_none=True)
-    loss = llama.loss_fn(model, tokens)
+    loss = llama.loss_fn(model, tokens, segment_ids=segment_ids)
     loss.backward()
     grads = [p.grad for p in model.parameters()]
     gnorm = global_norm(grads)
@@ -181,9 +182,10 @@ def train(
     log_every: int = 50,
 ) -> tuple[dict, list[dict]]:
     """Minimal synchronous training driver: `steps` steps on batches from
-    `data` (a [B, S+1] token array or tensor, or a dict with "tokens"),
-    resuming from ckpt_dir if it holds a checkpoint. Returns (final_state,
-    metric history)."""
+    `data` (a [B, S+1] token array or tensor, or a dict with "tokens" and
+    optionally "segment_ids", as models/data.py::PackedDataset yields them;
+    numpy batches move to the model's device), resuming from ckpt_dir if it
+    holds a checkpoint. Returns (final_state, metric history)."""
     state = init_train_state(model, tc)
     if ckpt_dir is not None and checkpoint_steps(ckpt_dir):
         state = restore_checkpoint(ckpt_dir, state)

@@ -13,6 +13,9 @@
   ``"fused"``. The JAX package picks by a VMEM estimate and an autotune
   cache; those are TPU designs and are not ported: on the card the fused
   kernel keeps only one kv tile's dK/dV on chip, so it serves every length.
+
+Every path takes the sliding window and packed-document segment ids (the
+forward's `window` and `segment_ids`, ops/flash_fwd.py).
 """
 
 from __future__ import annotations
@@ -22,18 +25,28 @@ import os
 import torch
 
 from flashattn_tpu_torch.ops import _build
-from flashattn_tpu_torch.ops.common import unported
 from flashattn_tpu_torch.ops.flash_bwd_fused import (
     check_backward_operands,
     flash_attention_backward_fused,
     launch_args,
     require_cuda,
 )
+from flashattn_tpu_torch.ops.flash_fwd import (
+    check_segments,
+    check_unported,
+    check_window,
+    kernel_segments,
+)
 from flashattn_tpu_torch.ops.reference import reference_attention_backward
 
-# Kernel launches in this process (set to 0 by callers that count a run).
+# Kernel launches in this process (set to 0 by callers that count a run):
+# each kernel's, and those with a sliding window and with segment ids.
 DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
+DQ_WINDOW_LAUNCHES = 0
+DKV_WINDOW_LAUNCHES = 0
+DQ_SEGMENT_LAUNCHES = 0
+DKV_SEGMENT_LAUNCHES = 0
 
 IMPLS = ("auto", "fused", "split")
 IMPL_ENV = "FLASHATTN_BWD_IMPL"
@@ -49,11 +62,15 @@ def flash_attention_backward_reference(
     is_causal: bool = False,
     scale: float | None = None,
     pos_offset: int | None = None,
+    window: int | None = None,
+    segment_ids=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the backward kernels (B3, B4 and B5), on any
     device."""
+    check_window(window, is_causal)
+    segment_ids = check_segments(segment_ids, q, k)
     return reference_attention_backward(q, k, v, o, do, lse, is_causal, scale,
-                                        pos_offset)
+                                        pos_offset, window, segment_ids)
 
 
 def resolve_impl(impl: str) -> str:
@@ -91,8 +108,8 @@ def flash_attention_backward(
     Args:
       q, o, do: [B, Hq, S_q, D]; k, v: [B, Hkv, S_k, D]; lse: [B, Hq, S_q]
         float32, natural log, as flash_attention_forward returns it.
-      is_causal, scale, pos_offset: as in the forward call that made o and
-        lse.
+      is_causal, scale, pos_offset, window, segment_ids: as in the forward
+        call that made o and lse.
       impl: "auto", "fused" or "split" (module docstring).
 
     Returns:
@@ -104,35 +121,30 @@ def flash_attention_backward(
     must be contiguous, 16-byte aligned bf16 or float32 with D in
     flash_fwd.HEAD_DIMS, and lse contiguous float32; anything else raises.
     """
-    if segment_ids is not None:
-        raise unported("segment ids (varlen)", "A4")
-    if dropout_rate:
-        raise unported("attention dropout", "A4")
-    if window is not None:
-        raise unported("sliding-window attention", "A4")
-    if logit_softcap:
-        raise unported("logit soft-capping", "A4")
-    if alibi:
-        raise unported("ALiBi", "A4")
-    if dyn_pos_offset is not None:
-        raise unported("dyn_pos_offset", "A4")
+    check_unported(dropout_rate, logit_softcap, alibi, dyn_pos_offset)
     impl = resolve_impl(impl)
     check_backward_operands(q, k, v, o, do, lse)
+    check_window(window, is_causal)
+    segment_ids = check_segments(segment_ids, q, k)
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, o, do, lse, is_causal,
-                                                  scale, pos_offset)
+                                                  scale, pos_offset, window, segment_ids)
     if impl == "fused":
         return flash_attention_backward_fused(q, k, v, o, do, lse, is_causal, scale,
-                                              pos_offset)
-    dq, delta = flash_bwd_dq(q, k, v, o, do, lse, is_causal, scale, pos_offset)
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, is_causal, scale, pos_offset)
+                                              pos_offset, window, segment_ids)
+    dq, delta = flash_bwd_dq(q, k, v, o, do, lse, is_causal, scale, pos_offset, window,
+                             segment_ids)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, is_causal, scale, pos_offset, window,
+                           segment_ids)
     return dq, dk, dv
 
 
-def flash_bwd_dq(q, k, v, o, do, lse, is_causal=False, scale=None, pos_offset=None):
+def flash_bwd_dq(q, k, v, o, do, lse, is_causal=False, scale=None, pos_offset=None,
+                 window=None, segment_ids=None):
     """B4's port on CUDA operands checked by flash_attention_backward:
     (dQ in q.dtype, delta = rowsum(dO * O) float32 [B, Hq, S_q])."""
     require_cuda(q)
+    segs = kernel_segments(segment_ids)
     dq = torch.empty_like(q)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     lib = _build.load("flash_bwd")
@@ -141,17 +153,21 @@ def flash_bwd_dq(q, k, v, o, do, lse, is_causal=False, scale=None, pos_offset=No
         rc = lib.flash_bwd_dq_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
-            *launch_args(q, k, is_causal, scale, pos_offset), stream)
+            *launch_args(q, k, is_causal, scale, pos_offset, window, segs), stream)
     _build.check(lib, rc, "flash_bwd_dq")
-    global DQ_LAUNCHES
+    global DQ_LAUNCHES, DQ_WINDOW_LAUNCHES, DQ_SEGMENT_LAUNCHES
     DQ_LAUNCHES += 1
+    DQ_WINDOW_LAUNCHES += window is not None
+    DQ_SEGMENT_LAUNCHES += segment_ids is not None
     return dq, delta
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, is_causal=False, scale=None, pos_offset=None):
+def flash_bwd_dkv(q, k, v, do, lse, delta, is_causal=False, scale=None, pos_offset=None,
+                  window=None, segment_ids=None):
     """B5's port on CUDA operands checked by flash_attention_backward, with
     flash_bwd_dq's delta: (dK, dV) in k.dtype."""
     require_cuda(q)
+    segs = kernel_segments(segment_ids)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _build.load("flash_bwd")
@@ -160,8 +176,10 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, is_causal=False, scale=None, pos_offs
         rc = lib.flash_bwd_dkv_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *launch_args(q, k, is_causal, scale, pos_offset), stream)
+            *launch_args(q, k, is_causal, scale, pos_offset, window, segs), stream)
     _build.check(lib, rc, "flash_bwd_dkv")
-    global DKV_LAUNCHES
+    global DKV_LAUNCHES, DKV_WINDOW_LAUNCHES, DKV_SEGMENT_LAUNCHES
     DKV_LAUNCHES += 1
+    DKV_WINDOW_LAUNCHES += window is not None
+    DKV_SEGMENT_LAUNCHES += segment_ids is not None
     return dk, dv

@@ -4,7 +4,9 @@
 tensors. It serves what the JAX package splits between the wavefront kernel
 (flash_fwd.py::_fwd_kernel) and the grid4 kernel
 (flash_fwd_grid4.py::_grid4_kernel): both compute one function on the plain
-subset and the sliding window, and the port has one grid for it.
+subset, and the port has one grid for it, which also takes the sliding
+window and packed-document segment ids (the JAX package sends those to
+_fwd_kernel).
 """
 
 from __future__ import annotations
@@ -12,13 +14,15 @@ from __future__ import annotations
 import torch
 
 from flashattn_tpu_torch.ops import _build
-from flashattn_tpu_torch.ops.common import LOG2E, unported
+from flashattn_tpu_torch.ops.common import LOG2E, cdiv, unported
 from flashattn_tpu_torch.ops.reference import reference_attention_with_lse
 
 # Kernel launches in this process (set to 0 by callers that count a run):
-# all of them, and those with a sliding window (counted in both).
+# all of them, those with a sliding window and those with segment ids (a
+# launch counts in each that applies).
 LAUNCHES = 0
 WINDOW_LAUNCHES = 0
+SEGMENT_LAUNCHES = 0
 
 HEAD_DIMS = (64, 128)
 # A window at least this wide reaches every key of an int32-indexed call:
@@ -36,10 +40,13 @@ def flash_attention_forward_reference(
     pos_offset: int | None = None,
     need_lse: bool = True,
     window: int | None = None,
+    segment_ids=None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Plain PyTorch version of K1, on any device."""
     check_window(window, is_causal)
-    o, lse = reference_attention_with_lse(q, k, v, is_causal, scale, pos_offset, window)
+    segment_ids = check_segments(segment_ids, q, k)
+    o, lse = reference_attention_with_lse(q, k, v, is_causal, scale, pos_offset, window,
+                                          segment_ids)
     return o, (lse if need_lse else None)
 
 
@@ -51,6 +58,57 @@ def check_window(window: int | None, is_causal: bool) -> None:
         raise ValueError(f"window must be a positive int, got {window!r}")
     if not is_causal:
         raise ValueError("a sliding window needs is_causal=True")
+
+
+def check_segments(segment_ids, q, k) -> tuple[torch.Tensor, torch.Tensor] | None:
+    """Packed-document ids as the kernels take them: None, or the pair
+    (seg_q [B, S_q], seg_k [B, S_k]), int32 and contiguous, on q's device.
+    Raises ValueError on anything else."""
+    if segment_ids is None:
+        return None
+    if not isinstance(segment_ids, (tuple, list)) or len(segment_ids) != 2:
+        raise ValueError("segment_ids must be a (seg_q [B, S_q], seg_k [B, S_k]) pair")
+    seg_q, seg_k = segment_ids
+    for name, seg, x in (("seg_q", seg_q, q), ("seg_k", seg_k, k)):
+        if not isinstance(seg, torch.Tensor) or tuple(seg.shape) != (x.shape[0], x.shape[2]):
+            raise ValueError(f"{name} must be a [B, S] = {[x.shape[0], x.shape[2]]} tensor, got "
+                             f"{tuple(getattr(seg, 'shape', ()))}")
+        if seg.dtype != torch.int32 or not seg.is_contiguous():
+            raise ValueError(f"{name} must be contiguous int32, got {seg.dtype}")
+        if seg.device != q.device:
+            raise ValueError(f"{name} is on {seg.device}, q on {q.device}")
+    return seg_q, seg_k
+
+
+# Positions a block of segment-id ranges covers (csrc/common.cuh kRangeRows).
+RANGE_ROWS = 32
+
+
+def id_ranges(ids: torch.Tensor) -> torch.Tensor:
+    """[B, S] ids -> [B, ceil(S / RANGE_ROWS), 2] int32: each block's (min,
+    max) id, the ragged last block over its positions alone."""
+    b, s = ids.shape
+    pad = cdiv(s, RANGE_ROWS) * RANGE_ROWS - s
+    if pad:  # repeat the last id: it widens no range
+        ids = torch.cat([ids, ids[:, -1:].expand(b, pad)], dim=1)
+    blocks = ids.view(b, -1, RANGE_ROWS)
+    return torch.stack([blocks.amin(-1), blocks.amax(-1)], dim=-1).contiguous()
+
+
+def kernel_segments(segment_ids) -> tuple:
+    """The kernels' (seg_q, seg_k, ranges_q, ranges_k) for checked segment
+    ids (check_segments), all None without them: the ids, and their block
+    ranges (id_ranges), with which the kernels skip the tile pairs of two
+    documents and the id mask on tiles of one."""
+    if segment_ids is None:
+        return None, None, None, None
+    seg_q, seg_k = segment_ids
+    return seg_q, seg_k, id_ranges(seg_q), id_ranges(seg_k)
+
+
+def pointers(*tensors) -> tuple:
+    """Device pointers of the tensors, NULL for None."""
+    return tuple(None if t is None else t.data_ptr() for t in tensors)
 
 
 def check_qkv(q, k, v) -> None:
@@ -113,6 +171,9 @@ def flash_attention_forward(
       window: sliding window, needs is_causal: row r also needs
         c >= r + pos_offset - window + 1. K1 walks only the kv tiles it
         reaches.
+      segment_ids: (seg_q [B, S_q], seg_k [B, S_k]) int32 packed-document
+        ids: row r also needs seg_q[b, r] == seg_k[b, c]
+        (ops/varlen.py canonicalises padding ids).
 
     Returns:
       (O [B, Hq, S_q, D] in q.dtype, LSE [B, Hq, S_q] float32 natural log or
@@ -123,21 +184,13 @@ def flash_attention_forward(
     anything else raises. bf16 runs the wgmma kernel, float32 the CUDA-core
     kernel.
     """
-    if segment_ids is not None:
-        raise unported("segment ids (varlen)", "A4")
-    if dropout_rate:
-        raise unported("attention dropout", "A4")
-    if logit_softcap:
-        raise unported("logit soft-capping", "A4")
-    if alibi:
-        raise unported("ALiBi", "A4")
-    if dyn_pos_offset is not None:
-        raise unported("dyn_pos_offset", "A4")
+    check_unported(dropout_rate, logit_softcap, alibi, dyn_pos_offset)
     check_qkv(q, k, v)
     check_window(window, is_causal)
+    segment_ids = check_segments(segment_ids, q, k)
     if q.device.type == "cpu":
         return flash_attention_forward_reference(q, k, v, is_causal, scale,
-                                                 pos_offset, need_lse, window)
+                                                 pos_offset, need_lse, window, segment_ids)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     b, hq, s_q, d = q.shape
@@ -150,16 +203,32 @@ def flash_attention_forward(
     o = torch.empty_like(q)
     lse = (torch.empty((b, hq, s_q), dtype=torch.float32, device=q.device)
            if need_lse else None)
+    segs = kernel_segments(segment_ids)
     lib = _build.load("flash_fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr() if need_lse else None,
+            lse.data_ptr() if need_lse else None, *pointers(*segs),
             b, hq, hkv, s_q, s_k, d, DTYPE_CODES[q.dtype], int(is_causal),
             offset, min(window or 0, WINDOW_MAX), scale * LOG2E, stream)
     _build.check(lib, rc, "flash_fwd")
-    global LAUNCHES, WINDOW_LAUNCHES
+    global LAUNCHES, WINDOW_LAUNCHES, SEGMENT_LAUNCHES
     LAUNCHES += 1
     WINDOW_LAUNCHES += window is not None
+    SEGMENT_LAUNCHES += segment_ids is not None
     return o, lse
+
+
+def check_unported(dropout_rate=0.0, logit_softcap=None, alibi=False,
+                   dyn_pos_offset=None) -> None:
+    """Raise NotImplementedError (ROADMAP A4) for an option of the JAX
+    kernels that the port does not compute yet."""
+    if dropout_rate:
+        raise unported("attention dropout", "A4")
+    if logit_softcap:
+        raise unported("logit soft-capping", "A4")
+    if alibi:
+        raise unported("ALiBi", "A4")
+    if dyn_pos_offset is not None:
+        raise unported("dyn_pos_offset", "A4")

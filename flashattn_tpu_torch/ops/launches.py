@@ -16,10 +16,12 @@ from typing import Any, Callable
 import torch
 
 # Counter name -> (module, attribute). A launch with a sliding window counts
-# in its kernel's counter and in the matching "_window" one.
+# in its kernel's counter and in the matching "_window" one, a launch with
+# segment ids in the matching "_segments" one.
 COUNTERS = {
     "flash_fwd": ("flashattn_tpu_torch.ops.flash_fwd", "LAUNCHES"),
     "flash_fwd_window": ("flashattn_tpu_torch.ops.flash_fwd", "WINDOW_LAUNCHES"),
+    "flash_fwd_segments": ("flashattn_tpu_torch.ops.flash_fwd", "SEGMENT_LAUNCHES"),
     "decode": ("flashattn_tpu_torch.ops.decode", "LAUNCHES"),
     "decode_window": ("flashattn_tpu_torch.ops.decode", "WINDOW_LAUNCHES"),
     "decode_int8": ("flashattn_tpu_torch.ops.decode", "INT8_LAUNCHES"),
@@ -29,8 +31,14 @@ COUNTERS = {
     "qmm8": ("flashattn_tpu_torch.ops.quant_matmul", "QMM8_LAUNCHES"),
     "qmm4": ("flashattn_tpu_torch.ops.quant_matmul", "QMM4_LAUNCHES"),
     "flash_bwd_fused": ("flashattn_tpu_torch.ops.flash_bwd_fused", "LAUNCHES"),
+    "flash_bwd_fused_window": ("flashattn_tpu_torch.ops.flash_bwd_fused", "WINDOW_LAUNCHES"),
+    "flash_bwd_fused_segments": ("flashattn_tpu_torch.ops.flash_bwd_fused", "SEGMENT_LAUNCHES"),
     "flash_bwd_dq": ("flashattn_tpu_torch.ops.flash_bwd", "DQ_LAUNCHES"),
+    "flash_bwd_dq_window": ("flashattn_tpu_torch.ops.flash_bwd", "DQ_WINDOW_LAUNCHES"),
+    "flash_bwd_dq_segments": ("flashattn_tpu_torch.ops.flash_bwd", "DQ_SEGMENT_LAUNCHES"),
     "flash_bwd_dkv": ("flashattn_tpu_torch.ops.flash_bwd", "DKV_LAUNCHES"),
+    "flash_bwd_dkv_window": ("flashattn_tpu_torch.ops.flash_bwd", "DKV_WINDOW_LAUNCHES"),
+    "flash_bwd_dkv_segments": ("flashattn_tpu_torch.ops.flash_bwd", "DKV_SEGMENT_LAUNCHES"),
 }
 
 

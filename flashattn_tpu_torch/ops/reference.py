@@ -2,12 +2,44 @@
 forward and backward.
 
 All math runs in float32 whatever the input dtype, so the oracle is a
-high-precision reference for bf16 kernel outputs.
+high-precision reference for bf16 kernel outputs. Both functions work one
+kv head (and the q heads of its GQA group) at a time: the same arithmetic
+as one batched call, with [B, Hq / Hkv, S_q, S_k] temporaries, so that the
+plain versions run at a packed training row of 8192 tokens beside a model
+on one card.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def visible(s_q: int, s_k: int, is_causal: bool = False, pos_offset: int | None = None,
+            window: int | None = None, segment_ids=None,
+            device: torch.device | str = "cpu") -> torch.Tensor | None:
+    """The [B or 1, 1, S_q, S_k] bool mask of the (row, column) pairs that
+    attend, or None when every pair does.
+
+    Row r sees column c iff all of: c <= r + pos_offset when is_causal
+    (pos_offset defaults to S_k - S_q); c >= r + pos_offset - window + 1
+    with a window (causal only); seg_q[b, r] == seg_k[b, c] with
+    segment_ids = (seg_q [B, S_q], seg_k [B, S_k])."""
+    mask = None
+    if is_causal:
+        off = s_k - s_q if pos_offset is None else pos_offset
+        qi = torch.arange(s_q, device=device)[:, None]
+        kj = torch.arange(s_k, device=device)[None, :]
+        mask = kj <= qi + off
+        if window is not None:
+            mask &= kj >= qi + off - window + 1
+        mask = mask[None, None]
+    elif window is not None:
+        raise ValueError("a sliding window needs is_causal")
+    if segment_ids is not None:
+        seg_q, seg_k = segment_ids
+        same = (seg_q[:, :, None] == seg_k[:, None, :])[:, None]
+        mask = same if mask is None else mask & same
+    return mask
 
 
 def reference_attention_with_lse(
@@ -18,6 +50,7 @@ def reference_attention_with_lse(
     scale: float | None = None,
     pos_offset: int | None = None,
     window: int | None = None,
+    segment_ids=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Unfused attention returning (O, LSE).
 
@@ -29,6 +62,8 @@ def reference_attention_with_lse(
         JAX package's convention, not SDPA's top-left one).
       window: sliding window (needs is_causal): row i also needs
         j >= i + pos_offset - window + 1.
+      segment_ids: (seg_q [B, S_q], seg_k [B, S_k]) packed-document ids:
+        row i also needs seg_q[b, i] == seg_k[b, j].
 
     Returns:
       O [B, Hq, S_q, D] in q.dtype and LSE [B, Hq, S_q] float32 in natural
@@ -38,31 +73,27 @@ def reference_attention_with_lse(
     hkv, s_k = k.shape[1], k.shape[2]
     if hq % hkv:
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    g = hq // hkv
     if scale is None:
         scale = 1.0 / d**0.5
-    qf, kf, vf = q.float(), k.float(), v.float()
-    if hkv != hq:
-        kf = kf.repeat_interleave(hq // hkv, dim=1)
-        vf = vf.repeat_interleave(hq // hkv, dim=1)
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
-    if is_causal:
-        off = s_k - s_q if pos_offset is None else pos_offset
-        qi = torch.arange(s_q, device=q.device)[:, None]
-        kj = torch.arange(s_k, device=q.device)[None, :]
-        hidden = kj > qi + off
-        if window is not None:
-            hidden |= kj < qi + off - window + 1
-        s = s.masked_fill(hidden, float("-inf"))
-    elif window is not None:
-        raise ValueError("a sliding window needs is_causal")
-    m = s.amax(dim=-1, keepdim=True)
-    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    p = torch.exp(s - m_safe)
-    l = p.sum(dim=-1, keepdim=True)
-    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
-    o = torch.matmul(p / l_safe, vf)
-    lse = (m_safe + torch.log(l))[..., 0]
-    return o.to(q.dtype), lse
+    mask = visible(s_q, s_k, is_causal, pos_offset, window, segment_ids, q.device)
+    outs, lses = [], []
+    for h in range(hkv):
+        qf = q[:, h * g:(h + 1) * g].float()
+        kf, vf = k[:, h:h + 1].float(), v[:, h:h + 1].float()
+        s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+        if mask is not None:
+            s = s.masked_fill(~mask, float("-inf"))
+        m = s.amax(dim=-1, keepdim=True)
+        m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        p = torch.exp(s - m_safe)
+        del s
+        l = p.sum(dim=-1, keepdim=True)
+        l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+        outs.append(torch.matmul(p / l_safe, vf).to(q.dtype))
+        lses.append((m_safe + torch.log(l))[..., 0])
+        del p
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=1)
 
 
 def reference_attention(
@@ -73,9 +104,11 @@ def reference_attention(
     scale: float | None = None,
     pos_offset: int | None = None,
     window: int | None = None,
+    segment_ids=None,
 ) -> torch.Tensor:
     """Unfused attention, O only."""
-    return reference_attention_with_lse(q, k, v, is_causal, scale, pos_offset, window)[0]
+    return reference_attention_with_lse(q, k, v, is_causal, scale, pos_offset, window,
+                                        segment_ids)[0]
 
 
 def reference_attention_backward(
@@ -88,6 +121,8 @@ def reference_attention_backward(
     is_causal: bool = False,
     scale: float | None = None,
     pos_offset: int | None = None,
+    window: int | None = None,
+    segment_ids=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Attention gradients from the forward's O and LSE, computed the
     backward kernels' way (a plain version of all three at once):
@@ -95,10 +130,11 @@ def reference_attention_backward(
         P = exp(S*scale - LSE), delta = rowsum(dO*O), dS = P*(dO.V^T - delta),
         dQ = scale*dS.K, dK = scale*dS^T.Q, dV = P^T.dO,
 
-    with dK and dV summed over the q heads of each kv head (GQA). P and dS
-    are rounded to the input dtype before the products that consume them,
-    as the kernels feed their matrix units. A row whose LSE is -inf (it
-    sees no key) contributes exactly 0.
+    over the pairs that attend (`visible`: causal, window, segment ids), with
+    dK and dV summed over the q heads of each kv head (GQA). P and dS are
+    rounded to the input dtype before the products that consume them, as
+    the kernels feed their matrix units. A row whose LSE is -inf (it sees no
+    key) contributes exactly 0.
 
     Returns (dQ in q.dtype, dK and dV in k.dtype), shaped like q, k, v.
     """
@@ -109,29 +145,27 @@ def reference_attention_backward(
     g = hq // hkv
     if scale is None:
         scale = 1.0 / d**0.5
-    qf, kf, vf = q.float(), k.float(), v.float()
-    dof = do.float()
-    if g > 1:
-        kf = kf.repeat_interleave(g, dim=1)
-        vf = vf.repeat_interleave(g, dim=1)
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
-    live = torch.isfinite(lse)[..., None]  # [B, Hq, S_q, 1]
-    if is_causal:
-        off = s_k - s_q if pos_offset is None else pos_offset
-        qi = torch.arange(s_q, device=q.device)[:, None]
-        kj = torch.arange(s_k, device=q.device)[None, :]
-        live = live & (kj <= qi + off)
-    p = torch.where(live, torch.exp(s - lse[..., None].masked_fill(
-        ~torch.isfinite(lse[..., None]), 0.0)), 0.0)
-    del s
-    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
-    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)
-    p = p.to(q.dtype).float()
-    ds = ds.to(q.dtype).float()
-    dq = torch.matmul(ds, kf) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
-    dv = torch.matmul(p.transpose(-1, -2), dof)
-    if g > 1:
-        dk = dk.view(b, hkv, g, s_k, d).sum(dim=2)
-        dv = dv.view(b, hkv, g, s_k, d).sum(dim=2)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(k.dtype)
+    mask = visible(s_q, s_k, is_causal, pos_offset, window, segment_ids, q.device)
+    dqs, dks, dvs = [], [], []
+    for h in range(hkv):
+        heads = slice(h * g, (h + 1) * g)
+        qf, dof = q[:, heads].float(), do[:, heads].float()
+        kf, vf = k[:, h:h + 1].float(), v[:, h:h + 1].float()
+        lse_h = lse[:, heads, :, None]
+        live = torch.isfinite(lse_h)  # [B, g, S_q, 1]
+        if mask is not None:
+            live = live & mask
+        s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+        p = torch.where(live, torch.exp(s - lse_h.masked_fill(~torch.isfinite(lse_h), 0.0)),
+                        0.0)
+        del s, live
+        delta = (dof * o[:, heads].float()).sum(dim=-1, keepdim=True)
+        ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)
+        p = p.to(q.dtype).float()
+        ds = ds.to(q.dtype).float()
+        dqs.append((torch.matmul(ds, kf) * scale).to(q.dtype))
+        dks.append((torch.matmul(ds.transpose(-1, -2), qf) * scale).sum(dim=1, keepdim=True))
+        dvs.append(torch.matmul(p.transpose(-1, -2), dof).sum(dim=1, keepdim=True))
+        del p, ds
+    return (torch.cat(dqs, dim=1), torch.cat(dks, dim=1).to(k.dtype),
+            torch.cat(dvs, dim=1).to(k.dtype))

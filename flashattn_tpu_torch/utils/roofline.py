@@ -15,6 +15,7 @@ import dataclasses
 
 import torch
 
+from flashattn_tpu_torch.ops.reference import visible
 from flashattn_tpu_torch.utils.timing import attention_flops
 
 
@@ -105,23 +106,53 @@ def window_pairs(s_q: int, s_k: int, window: int, pos_offset: int | None = None)
                for r in range(s_q))
 
 
+def segment_pairs(seg_q: torch.Tensor, seg_k: torch.Tensor, is_causal: bool = False,
+                  window: int | None = None, pos_offset: int | None = None) -> int:
+    """The (batch row, row, column) pairs one head sees under packed-document
+    ids seg_q [B, S_q] and seg_k [B, S_k] (row r sees column c only if
+    seg_q[b, r] == seg_k[b, c]), with or without the causal mask and a
+    window: counted on the ids' device, 1024 rows at a time."""
+    s_q, s_k = seg_q.shape[1], seg_k.shape[1]
+    off = s_k - s_q if pos_offset is None else pos_offset
+    total = 0
+    for r0 in range(0, s_q, 1024):
+        r1 = min(s_q, r0 + 1024)
+        mask = visible(r1 - r0, s_k, is_causal, off + r0, window, (seg_q[:, r0:r1], seg_k),
+                       seg_q.device)
+        total += int(mask.sum())
+    return total
+
+
+def _attention_work(b, hq, s_q, s_k, d, is_causal, window, pos_offset, segment_ids):
+    """(the forward's operations, the segment ids' bytes): the JAX package's
+    count (half the square when causal) on the plain subset, else 4 D for
+    each pair a head sees (window_pairs, segment_pairs)."""
+    if segment_ids is not None:
+        pairs = segment_pairs(*segment_ids, is_causal, window, pos_offset)
+        return 4.0 * hq * d * pairs, 4 * b * (s_q + s_k)
+    if window is not None:
+        return 4.0 * b * hq * d * window_pairs(s_q, s_k, window, pos_offset), 0
+    return attention_flops(b, hq, s_q, s_k, d, is_causal), 0
+
+
 def attention_fwd_roofline(
     b: int, hq: int, hkv: int, s_q: int, s_k: int, d: int,
     is_causal: bool, dtype_bytes: int = 2, chip: ChipSpec | None = None,
     need_lse: bool = True, window: int | None = None, pos_offset: int | None = None,
+    segment_ids=None,
 ) -> RooflineReport:
-    """The flash forward (K1): Q, K and V read once, O written once, and the
-    float32 LSE when `need_lse`. Operations: the JAX package's count (half
-    the square when causal), or with a window (causal) 4 D for each pair
-    the window lets a head see (window_pairs)."""
+    """The flash forward (K1): Q, K and V read once, O written once, the
+    float32 LSE when `need_lse`, and the int32 segment ids when given.
+    Operations: the JAX package's count (half the square when causal), or
+    with a window (causal) or segment ids (seg_q, seg_k) 4 D for each pair a
+    head sees (window_pairs, segment_pairs)."""
     q_bytes = b * hq * s_q * d * dtype_bytes
     kv_bytes = 2 * b * hkv * s_k * d * dtype_bytes
     lse_bytes = 4 * b * hq * s_q if need_lse else 0
-    if window is None:
-        flops = attention_flops(b, hq, s_q, s_k, d, is_causal)
-    else:
-        flops = 4.0 * b * hq * d * window_pairs(s_q, s_k, window, pos_offset)
-    return roofline(flops, 2 * q_bytes + kv_bytes + lse_bytes, _float_dtype(dtype_bytes), chip)
+    flops, seg_bytes = _attention_work(b, hq, s_q, s_k, d, is_causal, window, pos_offset,
+                                       segment_ids)
+    return roofline(flops, 2 * q_bytes + kv_bytes + lse_bytes + seg_bytes,
+                    _float_dtype(dtype_bytes), chip)
 
 
 # The backward's kernels by the matrix products each runs over the score
@@ -136,12 +167,15 @@ _BWD_KERNELS = {
 def attention_bwd_roofline(
     b: int, hq: int, hkv: int, s_q: int, s_k: int, d: int,
     is_causal: bool, dtype_bytes: int = 2, chip: ChipSpec | None = None,
-    kernel: str = "fused",
+    kernel: str = "fused", window: int | None = None, pos_offset: int | None = None,
+    segment_ids=None,
 ) -> RooflineReport:
     """The flash backward. ``kernel="fused"`` (B3, the default) is the whole
     backward, 2.5 x the forward's FLOPs as in the JAX package; the split
-    path's kernels recompute S: ``"dq"`` (B4) 1.5 x, ``"dkv"`` (B5) 2 x.
-    Bytes: every operand the kernel reads once, every result written once."""
+    path's kernels recompute S: ``"dq"`` (B4) 1.5 x, ``"dkv"`` (B5) 2 x; the
+    forward's FLOPs as attention_fwd_roofline counts them (the pairs a head
+    sees under a window or segment ids). Bytes: every operand the kernel
+    reads once (the segment ids too), every result written once."""
     if kernel not in _BWD_KERNELS:
         raise ValueError(f"kernel must be one of {sorted(_BWD_KERNELS)}: {kernel!r}")
     q = b * hq * s_q * d * dtype_bytes  # Q, O, dO and dQ each
@@ -151,8 +185,10 @@ def attention_bwd_roofline(
     hbm = {"fused": reads + q + 2 * kv,
            "dq": reads + q + row,
            "dkv": reads - q + row + 2 * kv}[kernel]
-    flops = _BWD_KERNELS[kernel] / 2 * attention_flops(b, hq, s_q, s_k, d, is_causal)
-    return roofline(flops, hbm, _float_dtype(dtype_bytes), chip)
+    fwd_flops, seg_bytes = _attention_work(b, hq, s_q, s_k, d, is_causal, window, pos_offset,
+                                           segment_ids)
+    return roofline(_BWD_KERNELS[kernel] / 2 * fwd_flops, hbm + seg_bytes,
+                    _float_dtype(dtype_bytes), chip)
 
 
 def decode_visible(n: int, t: int, window: int | None = None, sink: int = 0) -> tuple[int, int]:

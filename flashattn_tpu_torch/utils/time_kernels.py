@@ -10,11 +10,16 @@ K2 on bf16, int8 and fp8 caches and the paged K2 on an int8 pool of
 qmm8 and qmm4 on the gate/up projection (K 2048, N 5632) at M 4 and 256;
 K1, causal, at the prefill bucket (B 1, Hq 32, Hkv 4, S 256, D 64, no
 LSE), the training shape (B 4, Hq 32, Hkv 4, S 2048, D 64, with the LSE)
-and D 128 (B 4, Hq = Hkv = 8, S 16384, with the LSE); and the sliding
-window at MISTRAL_7B's shapes: K1 at a 4,608-token prefill (B 1, Hq 32,
+and D 128 (B 4, Hq = Hkv = 8, S 16384, with the LSE); the backward
+kernels, causal, at the training shape: B3 (fused) and B4 (dQ) and B5
+(dK/dV); the sliding window at MISTRAL_7B's shapes: K1 at a 4,608-token prefill (B 1, Hq 32,
 Hkv 8, D 128, window 4096, no LSE), K2 and the paged K2 (pages of 256) on
 a bf16 cache at T 1 (B 4, Hq 32, Hkv 8, D 128, Smax 8192, every length
-8192, window 4096, 4 sinks) beside the same K2 call without a window.
+8192, window 4096, 4 sinks) beside the same K2 call without a window;
+and, where the package has them (ops/flash_bwd.py's segment counters),
+the packed training row (B 1, Hq 32, Hkv 8, D 128, S 8192, window 4096,
+documents of 6100, 1300, 517 and 211 tokens, then 64 of padding): K1 with
+the LSE and B3, B4 and B5 with the window and segment ids.
 Prints the card's name and power limit, then one JSON line of
 milliseconds. It calls nothing but the public functions, so run as a file
 with another checkout of the package first on PYTHONPATH,
@@ -22,18 +27,21 @@ with another checkout of the package first on PYTHONPATH,
     PYTHONPATH=<other checkout> python flashattn_tpu_torch/utils/time_kernels.py --tag old
 
 it times that checkout's kernels: two versions compared in turns on one
-card. Needs a CUDA device.
+card. `--only k1,backward` times those groups alone (decode, qmm, k1,
+backward, window, packed). Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 
 import torch
 
-from flashattn_tpu_torch.ops import decode, flash_fwd, kvcache, paged, quant_matmul
+from flashattn_tpu_torch.ops import (decode, flash_bwd, flash_bwd_fused, flash_fwd, kvcache, paged,
+                                     quant_matmul)
 from flashattn_tpu_torch.ops.kvcache import KVCache
 from flashattn_tpu_torch.utils.timing import cuda_time_ms
 
@@ -51,6 +59,9 @@ K1_SHAPES = {"k1_prefill": (1, 32, 4, 256, 64, False),
 WIN, SINK = 4096, 4
 K1_WINDOW = (1, 32, 8, 4608, 128)  # B, Hq, Hkv, S, D
 WIN_B, WIN_HKV, WIN_SMAX = 4, 8, 8192
+GROUPS = ("decode", "qmm", "k1", "backward", "window", "packed")
+# The packed training row of chip_smoke.py's packed phase.
+PACK_DOCS, PACK_S = (6100, 1300, 517, 211), 8192
 
 
 def cache_of(quant: str | None, gen: torch.Generator) -> KVCache:
@@ -83,13 +94,36 @@ def pool_of(cache: KVCache) -> paged.PagedKVCache:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--tag", default="", help="a label printed with the numbers")
+    parser.add_argument("--only", default=",".join(GROUPS),
+                        help=f"comma-separated groups to time, of {','.join(GROUPS)}")
     args = parser.parse_args()
+    only = set(args.only.split(","))
+    if not only <= set(GROUPS):
+        raise SystemExit(f"--only takes groups of {GROUPS}, got {args.only}")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0])
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    ms = {}
+    if "decode" in only:
+        ms.update(decode_rows(gen))
+    if "qmm" in only:
+        ms.update(qmm_rows(gen))
+    if "k1" in only:
+        ms.update(k1_rows(gen))
+    if "backward" in only:
+        ms.update(backward(gen, K1_SHAPES["k1_train"][:5], "train"))
+    if "window" in only:
+        ms.update(windowed(gen))
+    if "packed" in only and hasattr(flash_bwd, "DQ_SEGMENT_LAUNCHES"):
+        ms.update(packed(gen))
+    print(json.dumps({"tag": args.tag, "ms": ms}))
+
+
+def decode_rows(gen: torch.Generator) -> dict[str, float]:
+    """K2 on bf16, int8 and fp8 caches at T 1, int8 at T 256, the paged K2."""
     ms = {}
     qd = torch.randn((B, HQ, D), generator=gen, device="cuda", dtype=torch.bfloat16)
     for quant in (None, "int8", "fp8"):
@@ -103,20 +137,65 @@ def main() -> None:
             pool = pool_of(cache)
             ms["paged_decode_int8"] = cuda_time_ms(
                 lambda: paged.paged_decode_attention(qd, pool))
+    return ms
+
+
+def qmm_rows(gen: torch.Generator) -> dict[str, float]:
+    """qmm8 and qmm4 on the gate/up projection at M 4 and 256."""
+    ms = {}
     w = torch.randn((K, N), generator=gen, device="cuda") * 0.02
     for bits in (8, 4):
         qw = quant_matmul.quantize_weights(w, bits)
         for m in (4, 256):
             x = torch.randn((m, K), generator=gen, device="cuda", dtype=torch.bfloat16)
             ms[f"qmm{bits}_m{m}"] = cuda_time_ms(lambda: quant_matmul.quant_matmul(x, qw))
+    return ms
+
+
+def k1_rows(gen: torch.Generator) -> dict[str, float]:
+    """K1, causal, at K1_SHAPES."""
+    ms = {}
     for name, (b, hq, hkv, s, d, need_lse) in K1_SHAPES.items():
         q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda", dtype=torch.bfloat16)
                    for h in (hq, hkv, hkv))
         ms[name] = cuda_time_ms(lambda: flash_fwd.flash_attention_forward(
             q, k, v, True, need_lse=need_lse), warmup=2, iters=5, reps=5)
         del q, k, v
-    ms.update(windowed(gen))
-    print(json.dumps({"tag": args.tag, "ms": ms}))
+    return ms
+
+
+def backward(gen: torch.Generator, shape, tag: str, **opts) -> dict[str, float]:
+    """B3, B4 and B5 (causal) at shape (B, Hq, Hkv, S, D) with the forward's
+    O and LSE, and the options (window, segment_ids) of both."""
+    b, hq, hkv, s, d = shape
+    q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+                   for h in (hq, hkv, hkv, hq))
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, True, **opts)
+    few = dict(warmup=2, iters=5, reps=5)
+    out = {f"b3_{tag}": cuda_time_ms(lambda: flash_bwd_fused.flash_attention_backward_fused(
+               q, k, v, o, do, lse, True, **opts), **few),
+           f"b4_{tag}": cuda_time_ms(lambda: flash_bwd.flash_bwd_dq(q, k, v, o, do, lse, True,
+                                                                    **opts), **few)}
+    _, delta = flash_bwd.flash_bwd_dq(q, k, v, o, do, lse, True, **opts)
+    out[f"b5_{tag}"] = cuda_time_ms(lambda: flash_bwd.flash_bwd_dkv(q, k, v, do, lse, delta, True,
+                                                                    **opts), **few)
+    if "segment_ids" in opts:
+        out[f"k1_{tag}"] = cuda_time_ms(lambda: flash_fwd.flash_attention_forward(
+            q, k, v, True, **opts), **few)
+    return out
+
+
+def packed(gen: torch.Generator) -> dict[str, float]:
+    """K1, B3, B4 and B5 with the window and segment ids at the packed
+    training row."""
+    # Imported here: a checkout from before segment ids has no ops/varlen.py.
+    from flashattn_tpu_torch.ops.varlen import canonical_segments, segment_ids_from_cu_seqlens
+
+    cu = torch.tensor([0, *itertools.accumulate(PACK_DOCS)], device="cuda")
+    ids = segment_ids_from_cu_seqlens(cu, PACK_S)[None]
+    seg = canonical_segments(ids, ids, ids.device)
+    b, hq, hkv, _, d = K1_WINDOW
+    return backward(gen, (b, hq, hkv, PACK_S, d), "packed", window=WIN, segment_ids=seg)
 
 
 def windowed(gen: torch.Generator) -> dict[str, float]:

@@ -21,7 +21,14 @@ gives the eager step's logits and cache bytes exactly, for every cache kind
 and weight width; a captured server re-admits into a freed slot as a fresh
 server admits, replays once a decode step and counts each replay's
 launches, which the profiler sees run; the calibrations leave the caches alone; the timing harness,
-the profiler helper and the roofline's card detection work on the card.
+the profiler helper and the roofline's card detection work on the card. The
+backward kernels take the sliding window (windows of one key to past S,
+GQA at D 128, S_q != S_k with a pos_offset, rows without keys, MISTRAL_7B's
+widths) and, with K1, packed-document segment ids (ragged documents and
+padding, causal or not, with a window, a (seg_q, seg_k) pair with S_q !=
+S_k; padding's outputs and gradients exactly 0), the split path bitwise
+equal with both; varlen attention, the packed model's loss and a train
+step run through the kernels.
 
 These tests need a CUDA device and skip without one. On the card:
 
@@ -1180,14 +1187,223 @@ def test_windowed_decode_reads_only_the_live_span(dev):
 
 
 def test_windowed_attention_needs_no_gradient(dev):
-    """flash_attention with a window runs K1 without a gradient and raises
-    (ROADMAP A4) before any kernel runs when an input requires one."""
+    """flash_attention with a window runs K1 alone (no LSE, no backward)
+    without a gradient; when an input requires one it runs K1 with the LSE
+    and the windowed backward, whose gradients match the plain route's."""
     q = randn((1, 4, 128, 64), torch.bfloat16, dev, 93)
     k = randn((1, 2, 128, 64), torch.bfloat16, dev, 94)
+    before = launch_counters.read()
     o = flash_attention(q, k, k, is_causal=True, window=32)
+    added = {n: c - before[n] for n, c in launch_counters.read().items() if c != before[n]}
+    assert added == {"flash_fwd": 1, "flash_fwd_window": 1}
     ref, _ = flash_fwd.flash_attention_forward_reference(q, k, k, True, window=32)
     assert verify_results(ref, o, **TOL[torch.bfloat16]).passed
+    leaves = [q.clone().requires_grad_(), k.clone().requires_grad_()]
+    got = torch.autograd.grad(flash_attention(leaves[0], leaves[1], leaves[1], is_causal=True,
+                                              window=32), leaves, q)
+    want = torch.autograd.grad(plain_flash_attention(leaves[0], leaves[1], leaves[1],
+                                                     is_causal=True, window=32), leaves, q)
+    for r, g in zip(want, got):
+        rep = verify_results(r, g, **GRAD_TOL[torch.bfloat16])
+        assert rep.passed, rep
+
+
+# ---- the window and segment ids in the backward kernels (B3, B4, B5), segment ids in K1 ----
+
+WINDOW_BWD_CASES = {
+    # name: (B, Hq, Hkv, S_q, S_k, D, pos_offset, window)
+    "w1": (1, 8, 2, 1000, 1000, 64, None, 1),
+    "w63": (1, 8, 2, 1000, 1000, 64, None, 63),
+    "w64": (1, 8, 2, 1000, 1000, 64, None, 64),
+    "w65": (1, 8, 2, 1000, 1000, 64, None, 65),
+    "w1000_past_s": (1, 8, 2, 1000, 1000, 64, None, 1000),
+    "w129_d128_gqa": (1, 8, 1, 700, 700, 128, None, 129),
+    "w300_sq_below_sk_offset": (1, 8, 2, 600, 1500, 128, 700, 300),
+    "w100_no_key_rows": (1, 4, 2, 256, 256, 64, -120, 100),
+    # MISTRAL_7B's widths past the 4096-token window
+    "mistral_w4096": (1, 32, 8, 4608, 4608, 128, None, 4096),
+}
+
+
+def window_bwd_inputs(case, dtype, dev):
+    b, hq, hkv, s_q, s_k, d, off, w = WINDOW_BWD_CASES[case]
+    q, do = (randn((b, hq, s_q, d), dtype, dev, seed) for seed in (95, 96))
+    k, v = (randn((b, hkv, s_k, d), dtype, dev, seed) for seed in (97, 98))
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, True, pos_offset=off, window=w)
+    return (q, k, v, o, do, lse), dict(is_causal=True, pos_offset=off, window=w)
+
+
+def assert_grads_match(ref, out, dtype, window=None):
+    """The three gradients against the plain version. With a window of one
+    key a row's softmax gradient vanishes (dS = P (dP - delta) = 0), so dQ
+    and dK are rounding noise on both sides: held to |x| <= 1e-4 instead."""
+    for name, r, g in zip(("dQ", "dK", "dV"), ref, out):
+        assert g.dtype == dtype and g.shape == r.shape and bool(torch.isfinite(g).all()), name
+        if window == 1 and name != "dV":
+            assert float(g.abs().max()) <= 1e-4 and float(r.abs().max()) <= 1e-4, name
+            continue
+        rep = verify_results(r, g, **GRAD_TOL[dtype])
+        assert rep.passed, f"{name}: {rep}"
+
+
+def window_launches():
+    c = launch_counters.read()
+    return (c["flash_bwd_fused_window"], c["flash_bwd_dq_window"], c["flash_bwd_dkv_window"])
+
+
+@pytest.mark.parametrize("impl", ["fused", "split"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", sorted(WINDOW_BWD_CASES))
+def test_windowed_backward_kernels_match_plain(dev, impl, dtype, case):
+    """B3 (fused) and B4 + B5 (split) with a sliding window against their
+    plain version: windows of one key, at and beside the 64-row tiles, past
+    S, with GQA at D 128, S_q != S_k with a pos_offset, rows that see no
+    key (their dQ exactly 0), and MISTRAL_7B's widths."""
+    if dtype == torch.float32 and case == "mistral_w4096":
+        pytest.skip("the float32 CUDA-core kernels are held at the small shapes")
+    args, kw = window_bwd_inputs(case, dtype, dev)
+    before = window_launches()
+    out = flash_bwd.flash_attention_backward(*args, impl=impl, **kw)
+    torch.cuda.synchronize()
+    added = tuple(a - b for a, b in zip(window_launches(), before))
+    assert added == ((1, 0, 0) if impl == "fused" else (0, 1, 1))
+    ref = flash_bwd.flash_attention_backward_reference(*args, **kw)
+    assert_grads_match(ref, out, dtype, kw["window"])
+    dead = torch.isneginf(args[5])  # rows that see no key
+    assert not bool(out[0][dead].any())
+
+
+def segments(lens, total, dev, k_total=None):
+    """Canonical ids of documents of `lens` then padding: (seg_q [1, total]
+    with -1, seg_k [1, k_total or total] with -2)."""
+    ids = torch.full((total,), -1, dtype=torch.int32)
+    off = 0
+    for i, n in enumerate(lens):
+        ids[off:off + n] = i
+        off += n
+    seg_k = torch.where(ids < 0, -2, ids).to(torch.int32)[:k_total]
+    return ids[None].to(dev).contiguous(), seg_k[None].to(dev).contiguous()
+
+
+SEGMENT_CASES = {
+    # name: (Hq, Hkv, S_q, D, causal, window, lens): lengths off the tile
+    # multiples, trailing padding
+    "causal": (8, 2, 1100, 64, True, None, [300, 37, 500, 119]),
+    "noncausal": (8, 2, 1100, 64, False, None, [300, 37, 500, 119]),
+    "causal_d128": (8, 2, 1100, 128, True, None, [300, 37, 500, 119]),
+    "window100_d128": (8, 2, 1100, 128, True, 100, [300, 37, 500, 119]),
+    "window65_one_doc_per_tile": (4, 4, 700, 64, True, 65, [64, 64, 65, 63, 200, 1, 128]),
+}
+
+
+def segment_inputs(case, dtype, dev):
+    hq, hkv, s, d, causal, w, lens = SEGMENT_CASES[case]
+    q, do = (randn((1, hq, s, d), dtype, dev, seed) for seed in (101, 102))
+    k, v = (randn((1, hkv, s, d), dtype, dev, seed) for seed in (103, 104))
+    seg = segments(lens, s, dev)
+    return (q, k, v, do), dict(is_causal=causal, window=w, segment_ids=seg), sum(lens)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
+def test_segmented_kernels_match_plain(dev, dtype, case):
+    """K1, then B3 and B4 + B5, with segment ids (and a window) against their
+    plain versions; padding rows' O and LSE and every gradient of a padding
+    position exactly 0 / -inf; each kernel counts its segmented launch."""
+    (q, k, v, do), kw, live = segment_inputs(case, dtype, dev)
     before = launch_counters.read()
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        flash_attention(q.requires_grad_(), k, k, is_causal=True, window=32)
-    assert launch_counters.read() == before
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, kw["is_causal"], window=kw["window"],
+                                               segment_ids=kw["segment_ids"])
+    o_ref, lse_ref = flash_fwd.flash_attention_forward_reference(
+        q, k, v, kw["is_causal"], window=kw["window"], segment_ids=kw["segment_ids"])
+    torch.cuda.synchronize()
+    assert verify_results(o_ref, o, **TOL[dtype]).passed
+    assert verify_results(lse_ref, lse, atol=1e-3).passed
+    assert not bool(o[:, :, live:].any()) and bool(torch.isneginf(lse[:, :, live:]).all())
+    ref = flash_bwd.flash_attention_backward_reference(q, k, v, o, do, lse, **kw)
+    for impl in ("fused", "split"):
+        out = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, impl=impl, **kw)
+        torch.cuda.synchronize()
+        assert_grads_match(ref, out, dtype)
+        for g in out:
+            assert not bool(g[:, :, live:].any())
+    added = {n: c - before[n] for n, c in launch_counters.read().items() if c != before[n]}
+    assert all(added.get(n) == 1 for n in ("flash_fwd_segments", "flash_bwd_fused_segments",
+                                           "flash_bwd_dq_segments", "flash_bwd_dkv_segments"))
+
+
+def test_segment_pair_with_sq_below_sk(dev):
+    """A (seg_q, seg_k) pair, S_q 300 against S_k 1000, causal with a
+    pos_offset of 600 and not causal: K1 and both backward paths."""
+    q, do = (randn((1, 8, 300, 64), torch.bfloat16, dev, seed) for seed in (105, 106))
+    k, v = (randn((1, 2, 1000, 64), torch.bfloat16, dev, seed) for seed in (107, 108))
+    seg_q = torch.sort(torch.randint(-1, 5, (1, 300), generator=torch.Generator().manual_seed(0)),
+                       dim=1).values.to(torch.int32).to(dev)
+    _, seg_k = segments([200, 250, 150, 300], 1000, dev)
+    for causal, off in ((True, 600), (False, None)):
+        kw = dict(is_causal=causal, pos_offset=off, segment_ids=(seg_q, seg_k))
+        o, lse = flash_fwd.flash_attention_forward(q, k, v, **kw)
+        o_ref, _ = flash_fwd.flash_attention_forward_reference(q, k, v, **kw)
+        assert verify_results(o_ref, o, **TOL[torch.bfloat16]).passed
+        ref = flash_bwd.flash_attention_backward_reference(q, k, v, o, do, lse, **kw)
+        for impl in ("fused", "split"):
+            assert_grads_match(ref, flash_bwd.flash_attention_backward(
+                q, k, v, o, do, lse, impl=impl, **kw), torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_split_is_bitwise_deterministic_with_window_and_segments(dev, d):
+    (q, k, v, do), kw, _ = segment_inputs("window100_d128", torch.bfloat16, dev)
+    q, k, v, do = (x[..., :d].contiguous() for x in (q, k, v, do))
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, True, window=kw["window"],
+                                               segment_ids=kw["segment_ids"])
+    first = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, impl="split", **kw)
+    second = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, impl="split", **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_segment_ids_must_be_int32_on_the_card(dev):
+    (q, k, v, do), kw, _ = segment_inputs("causal", torch.bfloat16, dev)
+    seg_q, seg_k = kw["segment_ids"]
+    for bad in ((seg_q.long(), seg_k), (seg_q.cpu(), seg_k.cpu()), (seg_q[:, :-1], seg_k)):
+        with pytest.raises(ValueError):
+            flash_fwd.flash_attention_forward(q, k, v, True, segment_ids=bad)
+
+
+def test_varlen_and_packed_model_run_the_kernels(dev):
+    """flash_attention_varlen, llama.loss_fn(segment_ids=...) and
+    train.train_step(segment_ids=...) on CUDA tensors go through K1 and the
+    backward kernels with segment ids (and each layer's window), and their
+    gradients match the plain route's."""
+    from flashattn_tpu_torch.ops.varlen import flash_attention_varlen
+
+    ids = segments([100, 37, 200], 400, dev)[0]
+    leaves = [randn((1, h, 400, 64), torch.bfloat16, dev, 110 + i).requires_grad_()
+              for i, h in enumerate((8, 2, 2))]
+    before = launch_counters.read()
+    o = flash_attention_varlen(*leaves, segment_ids=ids, is_causal=True, window=50)
+    got = torch.autograd.grad(o, leaves, o.detach())
+    added = {n: c - before[n] for n, c in launch_counters.read().items() if c != before[n]}
+    assert added == {"flash_fwd": 1, "flash_fwd_window": 1, "flash_fwd_segments": 1,
+                     "flash_bwd_fused": 1, "flash_bwd_fused_window": 1,
+                     "flash_bwd_fused_segments": 1}
+    seg = (ids, torch.where(ids < 0, -2, ids).to(torch.int32))
+    want = torch.autograd.grad(plain_flash_attention(*leaves, is_causal=True, window=50,
+                                                     segment_ids=seg), leaves, o.detach())
+    for r, g in zip(want, got):
+        assert verify_results(r, g, **GRAD_TOL[torch.bfloat16]).passed
+
+    cfg = ModelConfig(vocab_size=256, hidden_size=256, intermediate_size=512, num_layers=2,
+                      num_heads=4, num_kv_heads=2, head_dim=64, attn_window=64,
+                      dtype=torch.float32)
+    model = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    tokens = torch.randint(0, 256, (2, 301), generator=torch.Generator(device=dev).manual_seed(1),
+                           device=dev)
+    segs = torch.cat([segments([150, 100], 301, dev)[0], segments([301], 301, dev)[0]])
+    state = train.init_train_state(model, train.TrainConfig(warmup_steps=1))
+    before = launch_counters.read()
+    state, metrics = train.train_step(state, tokens, segment_ids=segs)
+    added = {n: c - before[n] for n, c in launch_counters.read().items() if c != before[n]}
+    assert added["flash_fwd_segments"] == added["flash_bwd_fused_segments"] == 2
+    assert added["flash_fwd_window"] == added["flash_bwd_fused_window"] == 2
+    assert torch.isfinite(metrics["loss"])

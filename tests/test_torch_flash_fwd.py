@@ -99,9 +99,10 @@ def test_reference_matches_jax_oracle():
 
 
 @pytest.mark.parametrize("option", [
-    # The window is ported (tests/test_torch_window.py); soft-cap still
-    # raises beside it.
-    dict(segment_ids=(0, 0)), dict(dropout_rate=0.1), dict(window=16, logit_softcap=30.0),
+    # The window and segment ids are ported (tests/test_torch_window.py,
+    # tests/test_torch_varlen.py); dropout and soft-cap still raise beside them.
+    dict(segment_ids=(0, 0), dropout_rate=0.1), dict(dropout_rate=0.1),
+    dict(window=16, logit_softcap=30.0),
     dict(logit_softcap=30.0), dict(alibi=True), dict(dyn_pos_offset=0),
 ])
 def test_unported_options_raise(option):

@@ -2,9 +2,11 @@
 chip_smoke.py, import and run on the CPU in a process where `import jax`
 fails (generation, the server, two training steps, the quantized paged
 server with a shared prefix and chunked admission, its calibrations, the
-timing harness, the roofline, and a windowed model with sinks generating
-and serving). A CPU call takes the plain versions and
-launches no kernel."""
+timing harness, the roofline, a windowed model with sinks generating
+and serving, and packed windowed training: ops/varlen.py's
+flash_attention_varlen with its gradient, and models/data.py's
+PackedDataset through prefetch into train.train). A CPU call takes the
+plain versions and launches no kernel."""
 
 import os
 import subprocess
@@ -69,11 +71,30 @@ srv = InferenceServer(win, max_slots=2, max_len=128, paged=True, page_size=64,
                       admit_chunk=32)
 srv.submit(Request(uid=3, prompt=list(range(50)), max_new_tokens=20))
 assert len(srv.run()[3]) == 20
+# Packed, windowed training: varlen attention with its gradient, then
+# PackedDataset batches through prefetch into the trainer.
+from flashattn_tpu_torch.models import data
+from flashattn_tpu_torch.ops.varlen import flash_attention_varlen
+q = torch.randn((1, 4, 50, 16), requires_grad=True)
+ids = torch.tensor([[0] * 20 + [1] * 25 + [-1] * 5], dtype=torch.int32)
+flash_attention_varlen(q, q[:, :2], q[:, :2], segment_ids=ids, is_causal=True,
+                       window=8).sum().backward()
+assert q.grad is not None
+ds = data.PackedDataset([list(range(1, n)) for n in (30, 12, 45, 7)], batch_size=2,
+                        seq_len=32, seed=0)
+state, hist = train.train(win, data.prefetch(ds.batches()), train.TrainConfig(warmup_steps=1),
+                          steps=2, log_every=1)
+assert state["step"] == 2 and len(hist) == 2
+from flashattn_tpu_torch.ops import launches
+assert not any(launches.read().values()), f"CPU call counted a launch: {launches.read()}"
 counts = (flash_fwd.LAUNCHES, decode.LAUNCHES, decode.INT8_LAUNCHES, decode.FP8_LAUNCHES,
           paged.LAUNCHES, quant_matmul.QMM8_LAUNCHES, quant_matmul.QMM4_LAUNCHES,
           flash_bwd.DQ_LAUNCHES, flash_bwd.DKV_LAUNCHES, flash_bwd_fused.LAUNCHES,
-          flash_fwd.WINDOW_LAUNCHES, decode.WINDOW_LAUNCHES, paged.WINDOW_LAUNCHES)
-assert counts == (0,) * 13, f"CPU call counted a launch: {counts}"
+          flash_fwd.WINDOW_LAUNCHES, decode.WINDOW_LAUNCHES, paged.WINDOW_LAUNCHES,
+          flash_fwd.SEGMENT_LAUNCHES, flash_bwd_fused.WINDOW_LAUNCHES,
+          flash_bwd_fused.SEGMENT_LAUNCHES, flash_bwd.DQ_WINDOW_LAUNCHES,
+          flash_bwd.DKV_SEGMENT_LAUNCHES)
+assert counts == (0,) * 18, f"CPU call counted a launch: {counts}"
 loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
           or m == "flashattn_tpu" or m.startswith("flashattn_tpu.")]
 assert loaded == ["jax"], loaded  # only the None placeholder

@@ -117,3 +117,37 @@ def test_windowed_bounds_count_the_visible_pairs(n, t, window, sink):
         fwd = roofline.attention_fwd_roofline(1, 2, 1, s_q, s_k, 64, True, window=window,
                                               chip=H100)
         assert fwd.flops == 4.0 * 2 * 64 * pairs
+
+
+@pytest.mark.parametrize("causal,window,pos_offset", [
+    (False, None, None), (True, None, None), (True, 7, None), (True, 5, 3), (True, 1, None),
+])
+def test_segment_bounds_count_the_visible_pairs(causal, window, pos_offset):
+    """Under segment ids the forward's and the three backward kernels'
+    operations scale with the (batch row, row, column) pairs a head sees,
+    counted here by brute force over ragged documents and padding (q -1,
+    k -2), S_q 37 against S_k 45; the bytes add the ids once."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    b, s_q, s_k = 2, 37, 45
+    seg_q = np.sort(rng.integers(-1, 4, (b, s_q)), axis=1).astype(np.int32)
+    seg_k = np.sort(rng.integers(0, 4, (b, s_k)), axis=1).astype(np.int32)
+    seg_k[:, -3:] = -2
+    off = s_k - s_q if pos_offset is None else pos_offset
+    pairs = sum(int(seg_q[i, r] == seg_k[i, c]
+                    and (not causal or c <= r + off)
+                    and (window is None or c >= r + off - window + 1))
+                for i in range(b) for r in range(s_q) for c in range(s_k))
+    segs = (torch.from_numpy(seg_q), torch.from_numpy(seg_k))
+    assert roofline.segment_pairs(*segs, causal, window, pos_offset) == pairs
+    kw = dict(chip=H100, window=window, pos_offset=pos_offset, segment_ids=segs)
+    fwd = roofline.attention_fwd_roofline(b, 4, 2, s_q, s_k, 64, causal, **kw)
+    plain = roofline.attention_fwd_roofline(b, 4, 2, s_q, s_k, 64, causal, chip=H100)
+    assert fwd.flops == 4.0 * 4 * 64 * pairs
+    assert fwd.hbm_bytes == plain.hbm_bytes + 4 * b * (s_q + s_k)
+    for kernel, products in (("fused", 5), ("dq", 3), ("dkv", 4)):
+        bwd = roofline.attention_bwd_roofline(b, 4, 2, s_q, s_k, 64, causal, kernel=kernel, **kw)
+        assert bwd.flops == products / 2 * fwd.flops
+        assert bwd.hbm_bytes == roofline.attention_bwd_roofline(
+            b, 4, 2, s_q, s_k, 64, causal, kernel=kernel, chip=H100).hbm_bytes + 4 * b * (s_q + s_k)

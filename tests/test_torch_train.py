@@ -208,22 +208,28 @@ def test_train_driver_with_resume(tmp_path):
 
 
 def test_remat_and_segment_ids_raise():
+    """remat raises (ROADMAP A3b); segment ids of another shape than the
+    tokens raise, and a dict batch trains with or without them (one id for
+    every token: the same loss as no ids)."""
     model = port_model(jax_params())
     toks = torch.from_numpy(tokens(s=16))
     for remat in (True, "dots", "attn"):
         with pytest.raises(NotImplementedError, match="ROADMAP A3b"):
             llama.loss_fn(model, toks, remat=remat)
     segs = torch.zeros_like(toks)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        llama.loss_fn(model, toks, segment_ids=segs)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        llama.forward(model, toks, segment_ids=segs)
+    with pytest.raises(ValueError, match="shaped like the tokens"):
+        llama.loss_fn(model, toks, segment_ids=segs[:, 1:])
+    with pytest.raises(ValueError, match="shaped like the tokens"):
+        llama.forward(model, toks, segment_ids=segs[:, :-1])
+    with torch.no_grad():
+        assert float(llama.loss_fn(model, toks, segment_ids=segs)) == pytest.approx(
+            float(llama.loss_fn(model, toks)), rel=1e-6)
     state = train.init_train_state(model, TC)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        train.train(model, iter([{"tokens": toks, "segment_ids": segs}]), TC, steps=1)
     state, _ = train.train_step(state, toks)  # a dict batch without segment ids trains
-    _, hist = train.train(model, iter([{"tokens": toks}]), TC, steps=1, log_every=1)
-    assert len(hist) == 1
+    _, hist = train.train(model, iter([{"tokens": toks, "segment_ids": segs}]), TC, steps=1,
+                          log_every=1)
+    _, hist2 = train.train(model, iter([{"tokens": toks}]), TC, steps=1, log_every=1)
+    assert len(hist) == len(hist2) == 1
 
 
 def test_constructors_default_to_the_card(monkeypatch):

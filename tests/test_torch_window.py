@@ -1,9 +1,13 @@
 """The sliding window and attention sinks in the port's kernel glue (the
 plain paths on the CPU) against the JAX package's kernels in interpret
-mode, on the same numpy inputs: the flash forward (K1) with a window, and
-dense and paged flash-decode (K2) with a window and sinks in every cache
-mode, at T 1 and T 4; and a windowed flash_attention that needs a gradient
-raises (ROADMAP A4) before any kernel runs.
+mode, on the same numpy inputs: the flash forward (K1) with a window, its
+gradients through flash_attention (the backward kernels' plain version)
+against jax.grad of the JAX flash_attention, and the port's backward
+against the JAX split and fused backward kernels; dense and paged
+flash-decode (K2) with a window and sinks in every cache mode, at T 1 and
+T 4. A window without is_causal raises, with or without a gradient.
+Windowed gradients in float32: atol 1e-5, rtol 1e-5 (tests/test_window.py's
+gate).
 
 Tolerances: float32 atol 2e-5, rtol 1e-5 (exp2 against exp and another
 summation order); int8 and fp8 caches atol 2e-3, rtol 1e-3 (one exp2 ulp
@@ -23,8 +27,10 @@ from flashattn_tpu.ops import decode as jax_decode
 from flashattn_tpu.ops import kvcache as jax_kv
 from flashattn_tpu.ops import paged as jax_paged
 from flashattn_tpu.ops.common import BlockSizes
+from flashattn_tpu.ops.attention import flash_attention as jax_flash_attention
+from flashattn_tpu.ops.flash_bwd import flash_attention_backward as jax_backward
 from flashattn_tpu.ops.flash_fwd import flash_attention_forward as jax_forward
-from flashattn_tpu_torch.ops import decode, flash_fwd, kvcache, launches, paged
+from flashattn_tpu_torch.ops import decode, flash_bwd, flash_fwd, kvcache, launches, paged
 from flashattn_tpu_torch.ops.attention import flash_attention
 from flashattn_tpu_torch.utils.verify import verify_results
 
@@ -34,7 +40,9 @@ torch.set_num_threads(1)
 
 TOL = {"f32": dict(atol=2e-5, rtol=1e-5), "bf16": dict(atol=2e-2, rtol=1e-2),
        "int8": dict(atol=2e-3, rtol=1e-3), "fp8": dict(atol=2e-3, rtol=1e-3)}
-BS = BlockSizes(block_q=128, block_kv=128)
+BS = BlockSizes(block_q=128, block_kv=128, block_q_dq=128, block_kv_dq=128,
+                block_q_dkv=128, block_kv_dkv=128, block_q_fused=128, block_kv_fused=128)
+GRAD_TOL = dict(atol=1e-5, rtol=1e-5)
 
 
 def make_qkv(hq, hkv, s_q, s_k, d=64, seed=0):
@@ -84,15 +92,75 @@ def test_window_needs_causal_and_a_positive_width():
 
 
 def test_windowed_attention_with_a_gradient_raises():
-    """The windowed backward is not ported: a windowed call whose input
-    needs a gradient raises before any kernel runs; without one it runs."""
+    """A window without is_causal raises before any kernel runs, whether the
+    call needs a gradient or not; with is_causal a windowed call that needs
+    a gradient runs the forward and the backward (their plain versions on
+    CPU tensors: no launch is counted)."""
     q, k, v = (torch.from_numpy(a) for a in make_qkv(4, 2, 32, 32, d=16))
     before = launches.read()
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        flash_attention(q.clone().requires_grad_(), k, v, is_causal=True, window=8)
-    with torch.no_grad():
-        flash_attention(q.clone().requires_grad_(), k, v, is_causal=True, window=8)
+    with pytest.raises(ValueError, match="is_causal"):
+        flash_attention(q.clone().requires_grad_(), k, v, is_causal=False, window=8)
+    with torch.no_grad(), pytest.raises(ValueError, match="is_causal"):
+        flash_attention(q, k, v, is_causal=False, window=8)
+    leaf = q.clone().requires_grad_()
+    flash_attention(leaf, k, v, is_causal=True, window=8).sum().backward()
+    assert leaf.grad is not None and bool(torch.isfinite(leaf.grad).all())
     assert launches.read() == before  # CPU tensors take the plain versions
+
+
+def make_grad_inputs(hq, hkv, s, d=64, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((1, h, s, d), dtype=np.float32)
+                 for h in (hq, hkv, hkv, hq))
+
+
+GRAD_CASES = {
+    # name: (Hq, Hkv, S, window): tests/test_window.py::test_window_grads'
+    # windows at S 512, ::test_window_with_ragged_tail's S 500, and GQA.
+    "w64": (2, 2, 512, 64),
+    "w300": (2, 2, 512, 300),
+    "ragged_tail_w200": (2, 2, 500, 200),
+    "gqa4_2_w100": (4, 2, 300, 100),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+def test_windowed_grads_match_jax(case):
+    """O and dQ/dK/dV of a windowed flash_attention against jax.grad through
+    the JAX package's flash_attention (its windowed kernels, interpret mode)."""
+    hq, hkv, s, w = GRAD_CASES[case]
+    q, k, v, do = make_grad_inputs(hq, hkv, s, seed=s + w)
+    o_j, vjp = jax.vjp(lambda q, k, v: jax_flash_attention(
+        q, k, v, is_causal=True, window=w, block_sizes=BS), *map(jnp.asarray, (q, k, v)))
+    grads_j = vjp(jnp.asarray(do))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    o = flash_attention(*leaves, is_causal=True, window=w)
+    o.backward(torch.from_numpy(do))
+    rep = verify_results(np.asarray(o_j), o.detach(), **GRAD_TOL)
+    assert rep.passed, f"O: {rep}"
+    for name, ref, leaf in zip(("dQ", "dK", "dV"), grads_j, leaves):
+        rep = verify_results(np.asarray(ref), leaf.grad, **GRAD_TOL)
+        assert rep.passed, f"{name}: {rep}"
+
+
+@pytest.mark.parametrize("impl", ["split", "fused"])
+def test_windowed_backward_matches_jax_kernels(impl):
+    """flash_attention_backward with a window and a pos_offset (S_q < S_k)
+    against the JAX package's split (dQ, dK/dV) and fused kernels, on the
+    same O and LSE."""
+    hq, hkv, s_q, s_k, w, off = 4, 2, 130, 256, 64, 100
+    q, k, v = make_qkv(hq, hkv, s_q, s_k, seed=7)
+    do = np.random.default_rng(8).standard_normal(q.shape, dtype=np.float32)
+    o, lse = flash_fwd.flash_attention_forward(*map(torch.from_numpy, (q, k, v)), True,
+                                               pos_offset=off, window=w)
+    ref = jax_backward(*map(jnp.asarray, (q, k, v, o.numpy(), do, lse.numpy())),
+                       is_causal=True, block_sizes=BS, impl=impl, pos_offset=off, window=w)
+    out = flash_bwd.flash_attention_backward(*map(torch.from_numpy, (q, k, v)), o,
+                                             torch.from_numpy(do), lse, True, impl=impl,
+                                             pos_offset=off, window=w)
+    for name, r, g in zip(("dQ", "dK", "dV"), ref, out):
+        rep = verify_results(np.asarray(r), g, **GRAD_TOL)
+        assert rep.passed, f"{name}: {rep}"
 
 
 # ---- flash-decode: dense and paged, every cache mode ----

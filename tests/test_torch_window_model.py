@@ -6,14 +6,19 @@ config (GQA 4/2, window 16) with window_pattern None and "alternate" and
 0 or 4 sinks, prompts longer than the window, and decoding past it;
 generate and InferenceServer (dense, paged with backpressure, a registered
 prefix, chunked admission, an int8 KV cache) give the JAX server's greedy
-tokens. Also the forward/decode half of
-tests/test_window.py::test_windowed_model_train_decode_agree and
-::test_decode_attention_sinks, on the port.
+tokens. Also tests/test_window.py::test_windowed_model_train_decode_agree
+(the forward with a gradient, the no-grad forward and the teacher-forced
+decode agree) and ::test_decode_attention_sinks on the port, and the
+windowed loss's gradients (the backward kernels' plain version with the
+window) against jax.value_and_grad of the JAX loss_fn, with window_pattern
+None and "alternate".
 
 float32 models. Greedy tokens must be equal; teacher-forced decode logits
 against the forward's within rtol 2e-4, atol 2e-4, and the sinks against
 their numpy oracle within atol 1e-5, rtol 1e-5 (the JAX tests' own
-tolerances); MISTRAL_7B's fields equal the JAX config's."""
+tolerances); the loss within 1e-5 of JAX's and its gradients atol 1e-5,
+rtol 1e-4 (tests/test_torch_train.py's rule); MISTRAL_7B's fields equal the
+JAX config's."""
 
 import dataclasses
 
@@ -31,6 +36,7 @@ from flashattn_tpu_torch.models import config, generate, llama
 from flashattn_tpu_torch.models.convert import params_from_jax
 from flashattn_tpu_torch.models.serve import InferenceServer, Request
 from flashattn_tpu_torch.ops import decode, kvcache
+from flashattn_tpu_torch.utils.verify import verify_results
 
 # One intra-op thread: the suite's workers share the machine's cores, and
 # torch would start one thread a core in each of them.
@@ -135,10 +141,10 @@ def test_windowed_prefix_admission_matches_jax(alternate):
 
 
 def test_windowed_forward_matches_decode_steps():
-    """tests/test_window.py::test_windowed_model_train_decode_agree, its
-    forward/decode half on the port: attn_window threads through the
-    no-grad forward (K1's plain version) and the decode path alike, so the
-    teacher-forced decode logits equal the forward's at every position."""
+    """tests/test_window.py::test_windowed_model_train_decode_agree on the
+    port: attn_window threads through the training forward (with a
+    gradient: the autograd Function with the window), the no-grad forward
+    (K1's plain version) and the decode path alike, so the three agree."""
     kw = dict(vocab_size=64, hidden_size=64, intermediate_size=128, num_layers=2,
               num_heads=2, num_kv_heads=2, head_dim=32, max_seq_len=256, attn_window=40)
     params = jax_llama.init_params(jax_config.ModelConfig(dtype=jnp.float32, **kw),
@@ -148,8 +154,10 @@ def test_windowed_forward_matches_decode_steps():
     tokens = torch.from_numpy(np.random.default_rng(1).integers(0, 64, (1, 96)))
     with torch.no_grad():
         forward = llama.forward(model, tokens)  # [1, S, V]
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        llama.loss_fn(model, torch.cat([tokens, tokens[:, :1]], dim=1))  # needs a gradient
+    train_logits = llama.forward(model, tokens)
+    assert train_logits.requires_grad
+    np.testing.assert_allclose(train_logits.detach().numpy(), forward.numpy(), rtol=2e-4,
+                               atol=2e-4)
     caches = generate.init_caches(model, 1, 128)
     logits, caches = generate.prefill(model, tokens[:, :1], caches)
     np.testing.assert_allclose(logits.numpy(), forward[:, 0].numpy(), rtol=2e-4, atol=2e-4)
@@ -192,3 +200,25 @@ def test_decode_attention_sinks(t_chunk):
                     p /= p.sum()
                     out[bi, h, g, t] = p @ vn[bi, h, vis]
     np.testing.assert_allclose(o.numpy(), out.reshape(b, hq, t_chunk, d), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("pattern", [None, "alternate"])
+def test_windowed_loss_grads_match_jax(pattern):
+    """The windowed model's loss and gradients (window 40, 96 tokens: the
+    window bites) against jax.value_and_grad(llama.loss_fn)."""
+    kw = dict(vocab_size=64, hidden_size=64, intermediate_size=128, num_layers=2,
+              num_heads=4, num_kv_heads=2, head_dim=32, max_seq_len=256, attn_window=40,
+              window_pattern=pattern)
+    jcfg = jax_config.ModelConfig(dtype=jnp.float32, **kw)
+    params = jax_llama.init_params(jcfg, jax.random.PRNGKey(3))
+    model = llama.Llama(config.ModelConfig(dtype=torch.float32, **kw), device="cpu")
+    model.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, params)))
+    tokens = np.random.default_rng(4).integers(0, 64, (2, 97)).astype(np.int32)
+    jloss, jgrads = jax.value_and_grad(jax_llama.loss_fn)(params, jnp.asarray(tokens), jcfg)
+    loss = llama.loss_fn(model, torch.from_numpy(tokens))
+    loss.backward()
+    assert float(loss.detach()) == pytest.approx(float(jloss), rel=1e-5)
+    ref = params_from_jax(jax.tree_util.tree_map(np.asarray, jgrads))
+    for name, p in model.named_parameters():
+        rep = verify_results(ref[name], p.grad, atol=1e-5, rtol=1e-4)
+        assert rep.passed, f"grad {name}: {rep}"
