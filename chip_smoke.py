@@ -5,7 +5,7 @@ NVIDIA GPU.
     python3 chip_smoke.py
 
 Builds the five CUDA libraries from csrc/ (into build/flashattn_tpu_torch/,
-one nvcc each, all at once) and runs eleven phases, printing one line per
+one nvcc each, all at once) and runs twelve phases, printing one line per
 check:
 
 1. environment: torch/CUDA versions, the card's name and power limit, the
@@ -13,10 +13,11 @@ check:
    tensor-core kernels and the split-K kernel, no wgmma serialized), and
    the tensor-core instructions (HMMA/HGMMA/IMMA) in the SASS of each
    tensor-core kernel, which must be there for K1's bf16 kernel (HGMMA, at
-   D 64 and D 128, with and without a window and segment ids), the bf16
+   D 64, 128 and 256, with and without a window and segment ids, and its
+   ten D 256 and soft-cap instantiations named), the bf16
    fused, dQ and dK/dV kernels (with and without the window and segment
    ids), qmm8's and qmm4's M > 16 kernels and every instantiation of
-   K2's (with and without a window);
+   K2's (D 64, 128 and 256, with and without a window);
 2. each kernel against its plain PyTorch version on the card, at the
    serving and training paths' shapes and at their edges (K1 also at every
    backward case, where it makes the backward's O and LSE, and timed at the
@@ -52,7 +53,18 @@ check:
    the windowed kernels timed at the MISTRAL_7B prefill shape, the
    segmented ones at the packed row, each beside its plain version, SDPA
    (forward, or forward and backward) with the explicit boolean mask and
-   its bound over the visible pairs;
+   its bound over the visible pairs; then the logit soft-cap and head dim
+   256 at GEMMA2_9B's widths (softcap_kernels): K1 at B 1, Hq 16, Hkv 8,
+   S 4608, D 256, cap 50 with window 4096 and without, each also on hot
+   inputs whose logits reach the cap, without the cap, the cap at D 64 and
+   128 (normal and hot), S_q != S_k with a pos_offset, non-causal and
+   float32 at a small shape; K2 at B 2, Hq 16, Hkv 8, D 256, Smax 8192,
+   cap 50, lengths on both sides of the window, window 4096 and none,
+   bf16/f32/int8/fp8 caches at T 1 and T 256 (hot inputs on bf16 at T 1,
+   int8 and fp8 at T 256), the paged K2 torch.equal to the dense K2 in
+   each; each timed beside SDPA without the cap (with the
+   boolean window mask on a local layer) and, where it compiles,
+   flex_attention with a soft-cap score_mod (a competitor only);
 3. LLAMA_1B at full width (random weights from a seed): prefill of a
    150-token prompt and 4 teacher-forced decode steps through the kernels,
    against the same run with every kernel call on its plain version;
@@ -98,10 +110,21 @@ check:
    train.train for 5 steps through prefetch with the split backward, the
    loss falling; ms, tokens/s and peak memory a step, and the windowed and
    segmented launches of K1, B3, B4 and B5, which must be > 0;
-11. the `kernels` JSON line: every kernel with its launches on the path that
+11. GEMMA2_9B at full width and depth (phase_gemma: 42 layers, hidden 3584,
+   GQA 16/8, D 256, a 4096-token window on even layers, soft-caps 50 and
+   30, post-norms; random weights from the seed, about 18.5 GB in bf16): a
+   4,608-token prefill and 4 teacher-forced decode steps through the
+   soft-capped kernels against the plain route under phase 3's logits
+   rule; the bf16 server (2 slots, max_len 8192, captured decode) and the
+   int8-KV paged server (pages of 256, admit_chunk 256, a 1,024-token
+   prefix before two prompts) on phase 9's traffic; tokens/s,
+   device_step_ms, peak memory and the soft-capped launches of K1, K2 and
+   the paged K2, which must be > 0;
+12. the `kernels` JSON line: every kernel with its launches on the path that
    runs it, its error against its plain version, its time, bound, plain and
    library times (the windowed K1, K2 and paged K2 from phases 2 and 9, the
-   windowed and segmented K1, B3, B4 and B5 from phases 2 and 10).
+   windowed and segmented K1, B3, B4 and B5 from phases 2 and 10, the
+   soft-capped K1, K2 and paged K2 from phases 2 and 11).
 
 Any failed check raises: the script then exits nonzero and does not print
 its last line. It needs a CUDA device and never falls back to the CPU. The
@@ -128,7 +151,7 @@ import torch
 import torch.nn.functional as F
 
 from flashattn_tpu_torch.models import data, generate, llama, train
-from flashattn_tpu_torch.models.config import LLAMA_1B, MISTRAL_7B
+from flashattn_tpu_torch.models.config import GEMMA2_9B, LLAMA_1B, MISTRAL_7B
 from flashattn_tpu_torch.models.llama import init_params
 from flashattn_tpu_torch.models.serve import InferenceServer, Request
 from flashattn_tpu_torch.ops import (_build, decode, flash_bwd, flash_bwd_fused, flash_fwd,
@@ -217,18 +240,23 @@ def phase_environment() -> str:
                 print(f"[env] SASS {kernel}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA, "
                       f"{n['IMMA']} IMMA")
                 mma[kernel] = n
-    families = {"flash_fwd_wgmma_kernel": 8, "flash_bwd": 18, "qmm_mma_kernel": 4,
-                "decode_mma_kernel": 40}
+    families = {"flash_fwd_wgmma_kernel": 18, "flash_bwd": 18, "qmm_mma_kernel": 4,
+                "decode_mma_kernel": 60}
     counted = {f: sum(k.startswith(f) for k in mma) for f in families}
     check(counted == families and all(sum(n.values()) for n in mma.values()),
-          "K1's bf16 kernel (D 64 and D 128, with and without a window, with and without "
-          "segment ids), the bf16 fused, dQ and dK/dV kernels (D 64 and 128; no mask, the "
-          "window, segment ids), qmm8's and qmm4's M > 16 kernels (bf16 and "
-          "float32 y) and every K2 tensor-core instantiation (bf16, int8 and fp8 caches, D 64 "
-          "and 128, both row layouts, with and without a window) must run on the tensor "
-          f"cores: {mma}")
+          "K1's bf16 kernel (D 64, 128 and 256, with and without a window, with and without "
+          "segment ids, and the soft-cap with and without a window), the bf16 fused, dQ and "
+          "dK/dV kernels (D 64 and 128; no mask, the window, segment ids), qmm8's and qmm4's "
+          "M > 16 kernels (bf16 and float32 y) and every K2 tensor-core instantiation (bf16, "
+          "int8 and fp8 caches, D 64, 128 and 256, both row layouts, with and without a "
+          f"window) must run on the tensor cores: {mma}")
     check(all(n["HGMMA"] for k, n in mma.items() if k.startswith("flash_fwd_wgmma_kernel")),
           f"K1's bf16 kernel must run on wgmma (HGMMA): {mma}")
+    new = [k for k in mma if k.startswith("flash_fwd_wgmma_kernel")
+           and (k.startswith("flash_fwd_wgmma_kernel<256") or k.endswith("true>"))]
+    check(len(new) == 10, f"K1's D 256 and soft-cap instantiations: {new}")
+    print(f"[env] K1's D 256 and soft-cap instantiations run on wgmma (HGMMA), no spill: "
+          f"{ {k: mma[k]['HGMMA'] for k in new} }")
     return name
 
 
@@ -410,6 +438,7 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
     timed.update(quant_matmul_kernels(gen))
     timed.update(window_kernels(gen))
     timed.update(masked_kernels(gen))
+    timed.update(softcap_kernels(gen))
     return timed
 
 
@@ -756,17 +785,17 @@ def window_k1(gen: torch.Generator) -> dict:
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, **lim)
 
 
-def window_cache(mode: str, gen: torch.Generator, lengths: list[int]) -> KVCache:
-    """A K2W-shaped cache in `mode` (bf16, f32, int8, fp8) holding `lengths`
-    tokens, NaN past each length (fp8 code 0x7f and NaN scales when
-    quantized)."""
-    shape = (K2W_B, K2W_HKV, K2W_SMAX, K2W_D)
+def window_cache(mode: str, gen: torch.Generator, lengths: list[int],
+                 shape=(K2W_B, K2W_HKV, K2W_SMAX, K2W_D)) -> KVCache:
+    """A cache of `shape` (B, Hkv, Smax, D; K2W's by default) in `mode`
+    (bf16, f32, int8, fp8) holding `lengths` tokens, NaN past each length
+    (fp8 code 0x7f and NaN scales when quantized)."""
     length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     if mode in ("bf16", "f32"):
         dtype = torch.float32 if mode == "f32" else torch.bfloat16
         cache = KVCache(k=randn(shape, gen, dtype), v=randn(shape, gen, dtype), length=length)
     else:
-        cache = kvcache.init_cache(K2W_B, K2W_HKV, K2W_SMAX, K2W_D, quant=mode)
+        cache = kvcache.init_cache(*shape, quant=mode)
         kvcache.update_cache(cache, randn(shape, gen), randn(shape, gen), assume_fits=True)
         cache.length.copy_(length)
     for i, n in enumerate(lengths):
@@ -850,6 +879,222 @@ def window_k2(gen: torch.Generator) -> dict[str, dict]:
         "paged_decode_window": dict(max_abs_err=err["paged_decode_window"], ms=paged_ms,
                                     plain_ms=paged_plain, library_ms=lib, **lim),
     }
+
+
+# The logit soft-cap and head dim 256 in K1 and K2 at GEMMA2_9B's widths
+# (phase 2's soft-cap gates): its prefill (S 4608, past the local layers'
+# 4096-token window) and its decode step (B 2, Smax 8192).
+CAP = GEMMA2_9B.logit_softcap  # 50
+GWIN = GEMMA2_9B.attn_window  # 4096
+GEMMA_PREFILL = (1, 16, 8, 4608, 256)  # B, Hq, Hkv, S, D
+GK2_B, GK2_HQ, GK2_HKV, GK2_D, GK2_SMAX = 2, 16, 8, 256, GEMMA2_9B.max_seq_len
+GK2_LENGTHS = ([1, GK2_SMAX], [GWIN - 96, GWIN + 1])  # on both sides of the window
+HOT = 30.0  # q's factor on the hot inputs: logits to about +-100, the tanh saturated
+
+
+def softcap_kernels(gen: torch.Generator) -> dict[str, dict]:
+    """K1, K2 and the paged K2 with the soft-cap (and D 256) against their
+    plain versions, then timed (softcap_k1, softcap_k2)."""
+    out = {"flash_fwd_softcap": softcap_k1(gen)}
+    out.update(softcap_k2(gen))
+    return out
+
+
+def k1_case(tag: str, q, k, v, causal: bool, err: float, f32: bool = False, **kw) -> float:
+    """One K1 call (O and LSE) against its plain version; the largest O
+    error so far."""
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, causal, **kw)
+    o_ref, lse_ref = flash_fwd.flash_attention_forward_reference(q, k, v, causal, **kw)
+    torch.cuda.synchronize()
+    tag = (f"K1 {tag} B={q.shape[0]} Hq={q.shape[1]} Hkv={k.shape[1]} Sq={q.shape[2]} "
+           f"Sk={k.shape[2]} D={q.shape[3]} causal={causal} {kw}")
+    e = _gate(tag + " O", o_ref, o, **(F32_TOL if f32 else dict(atol=O_ATOL)))
+    _gate(tag + " LSE", lse_ref, lse, LSE_ATOL)
+    return max(err, e)
+
+
+def flex_softcap_ms(q, k, v, window: int | None) -> float | None:
+    """torch.nn.attention.flex_attention with a soft-cap score_mod and the
+    causal (and window) block mask, compiled: a competitor only, never used
+    by the port. None, with the reason printed, where it does not compile
+    on this machine."""
+    try:
+        from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+        def score_mod(score, b, h, q_idx, kv_idx):
+            return CAP * torch.tanh(score / CAP)
+
+        def mask_mod(b, h, q_idx, kv_idx):
+            seen = kv_idx <= q_idx
+            return seen & (kv_idx > q_idx - window) if window else seen
+
+        s = q.shape[2]
+        block_mask = create_block_mask(mask_mod, None, None, s, s, device="cuda")
+        flex = torch.compile(flex_attention, dynamic=False)
+        run = lambda: flex(q, k, v, score_mod=score_mod, block_mask=block_mask,  # noqa: E731
+                           enable_gqa=True)
+        out = run()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), "flex_attention gave non-finite output")
+        return event_time_ms(run, warmup=2, iters=10)
+    except Exception as e:  # a competitor that does not build here is reported, not run
+        print(f"[kernels] flex_attention with a soft-cap score_mod (window={window}) did not "
+              f"run on this machine: {type(e).__name__}: {str(e).splitlines()[0][:200]}")
+        return None
+
+
+def softcap_k1(gen: torch.Generator) -> dict:
+    """K1 with the soft-cap: at GEMMA2_9B's prefill (cap 50, global and
+    local layers, each also on hot inputs whose logits reach the cap),
+    D 256 without the cap, the cap at D 64 and D 128 (normal and hot), S_q
+    1024 against S_k 4608 with pos_offset 3000, non-causal, and the float32 kernel at a small
+    shape; then timed at the prefill as the model calls it (no LSE), beside
+    SDPA without the cap (with the boolean window mask on a local layer)
+    and flex_attention with a soft-cap score_mod where it compiles."""
+    b, hq, hkv, s, d = GEMMA_PREFILL
+    q, k, v = (randn((b, h, s, d), gen) for h in (hq, hkv, hkv))
+    err = 0.0
+    hot = (q * HOT).to(torch.bfloat16)
+    for w in (None, GWIN):
+        err = k1_case("GEMMA2_9B prefill", q, k, v, True, err, window=w, logit_softcap=CAP)
+        err = k1_case(f"hot (q x {HOT:g})", hot, k, v, True, err, window=w, logit_softcap=CAP)
+    del hot
+    err = k1_case("D 256 without a cap", q, k, v, True, err)
+    for dd, hk, w in ((64, 4, None), (128, 8, 1000)):
+        qd, kd, vd = (randn((1, h, 2048, dd), gen) for h in (32, hk, hk))
+        err = k1_case("cap 30", qd, kd, vd, True, err, window=w, logit_softcap=30.0)
+        err = k1_case(f"cap 30 hot (q x {HOT:g})", (qd * HOT).to(torch.bfloat16), kd, vd, True,
+                      err, window=w, logit_softcap=30.0)
+    err = k1_case("S_q != S_k", q[:, :, :1024].contiguous(), k, v, True, err, pos_offset=3000,
+                  window=1000, logit_softcap=CAP)
+    err = k1_case("non-causal", q[:, :, :2048].contiguous(), k[:, :, :2048].contiguous(),
+                  v[:, :, :2048].contiguous(), False, err, logit_softcap=CAP)
+    qf, kf, vf = (randn((1, h, 300, 256), gen, torch.float32) for h in (4, 2, 2))
+    for w in (None, 65):
+        k1_case("float32", qf, kf, vf, True, 0.0, f32=True, window=w, logit_softcap=30.0)
+
+    rows = {}
+    for w, layer in ((None, "global"), (GWIN, "local")):
+        ms = cuda_time_ms(lambda: flash_fwd.flash_attention_forward(
+            q, k, v, True, need_lse=False, window=w, logit_softcap=CAP))
+        gc.collect()
+        torch.cuda.empty_cache()
+        plain = event_time_ms(lambda: flash_fwd.flash_attention_forward_reference(
+            q, k, v, True, need_lse=False, window=w, logit_softcap=CAP), warmup=1, iters=2)
+        if w is None:
+            lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+        else:
+            mask = window_mask(s, s, w)
+            lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True), warmup=1, iters=3, reps=3)
+        flex = flex_softcap_ms(q, k, v, w)
+        report = roofline.attention_fwd_roofline(b, hq, hkv, s, s, d, True, need_lse=False,
+                                                 window=w)
+        lim = bound(report)
+        print(f"[kernels] K1 soft-cap {CAP:g} {layer} layer (window={w}) B={b} Hq={hq} "
+              f"Hkv={hkv} S={s} D={d} without LSE: kernel {ms:.4f} ms "
+              f"({report.flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s), bound {lim['bound_ms']:.5f}"
+              f" ms by {lim['bound_by']}, plain {plain:.4f} ms, SDPA without the cap"
+              f"{' with a boolean window mask' if w else ''} {lib:.4f} ms, flex_attention with "
+              f"a soft-cap score_mod " + (f"{flex:.4f} ms" if flex else "not run"))
+        rows[layer] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, **lim)
+    return rows["global"]
+
+
+def softcap_k2(gen: torch.Generator) -> dict[str, dict]:
+    """K2 with cap 50 at GEMMA2_9B's decode widths (B 2, Hq 16, Hkv 8,
+    D 256, Smax 8192) with lengths on both sides of the window, window 4096
+    and none, in all four cache modes at T 1 and T 256 (and hot inputs on
+    the bf16 cache at T 1 and the int8 and fp8 caches at T 256), against
+    its plain version (int8 P requantized per 64-position tile, as the
+    kernel does), and the paged K2 torch.equal to
+    it in each case; then both timed at T 1 on full 8192-token bf16 caches
+    (global and local layers) beside SDPA without the cap, and the int8
+    cache at T 256 (the paged server's admission chunk)."""
+    shape = (GK2_B, GK2_HKV, GK2_SMAX, GK2_D)
+    err = {"decode_softcap": 0.0, "paged_decode_softcap": 0.0}
+    for mode in ("bf16", "f32", "int8", "fp8"):
+        dtype = torch.float32 if mode == "f32" else torch.bfloat16
+        tol = (QUANT_DECODE_TOL if mode in ("int8", "fp8") else
+               F32_TOL if mode == "f32" else dict(atol=O_ATOL))
+        for lengths in GK2_LENGTHS:
+            cache = window_cache(mode, gen, lengths, shape)
+            pool = paged_copy(cache, gen)
+            for w in (None, GWIN):
+                for t in (1, 256):
+                    hot = (mode, t) in (("bf16", 1), ("int8", 256), ("fp8", 256))
+                    heats = (1.0, HOT) if hot else (1.0,)
+                    for heat in heats:
+                        q = (randn((GK2_B, GK2_HQ, t, GK2_D), gen) * heat).to(dtype)
+                        kw = dict(window=w, logit_softcap=CAP)
+                        o = (decode.decode_attention(q[:, :, 0].contiguous(), cache,
+                                                     **kw)[:, :, None]
+                             if t == 1 else decode.decode_attention_chunk(q, cache, **kw))
+                        o_paged = paged.paged_decode_attention_chunk(q, pool, **kw)
+                        ref = decode.decode_attention_reference(
+                            q, cache, requant_block=decode.BLOCK_KV, **kw)
+                        torch.cuda.synchronize()
+                        tag = (f"K2 {mode} soft-cap {CAP:g} window={w} B={GK2_B} Hq={GK2_HQ} "
+                               f"Hkv={GK2_HKV} D={GK2_D} Smax={GK2_SMAX} T={t} "
+                               f"lengths={lengths}" + (f" hot (q x {heat:g})" if heat != 1.0
+                                                       else ""))
+                        check(bool(torch.isfinite(o).all()), f"{tag}: non-finite output")
+                        e = _gate(tag, ref, o, **tol)
+                        err["decode_softcap"] = max(err["decode_softcap"], e)
+                        check(torch.equal(o_paged, o), f"paged {tag}: differs from the dense K2")
+                        err["paged_decode_softcap"] = max(err["paged_decode_softcap"], e)
+                        print(f"[kernels] paged {tag} (pages of {PAGE}, scrambled): "
+                              "torch.equal to the dense K2")
+                        del q, o, o_paged, ref
+            del cache, pool
+
+    full = window_cache("bf16", gen, [GK2_SMAX] * GK2_B, shape)
+    pool = paged_copy(full, gen)
+    qd = randn((GK2_B, GK2_HQ, GK2_D), gen)
+    pos = torch.arange(GK2_SMAX, device="cuda")
+    rows = {}
+    for w, layer in ((None, "global"), (GWIN, "local")):
+        kw = dict(window=w, logit_softcap=CAP)
+        ms = cuda_time_ms(lambda: decode.decode_attention(qd, full, **kw))
+        paged_ms = cuda_time_ms(lambda: paged.paged_decode_attention(qd, pool, **kw))
+        plain = cuda_time_ms(lambda: decode.decode_attention_reference(qd[:, :, None], full,
+                                                                       **kw))
+        paged_plain = cuda_time_ms(lambda: paged.paged_decode_reference(qd[:, :, None], pool,
+                                                                        **kw))
+        if w is None:
+            lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                qd[:, :, None], full.k, full.v, enable_gqa=True))
+        else:
+            row = (full.length - 1)[:, None]
+            mask = ((pos[None] <= row) & (pos[None] > row - w))[:, None, None]
+            lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                qd[:, :, None], full.k, full.v, attn_mask=mask, enable_gqa=True))
+        lim = bound(roofline.decode_roofline(GK2_B, GK2_HQ, GK2_HKV, GK2_D, [GK2_SMAX] * GK2_B,
+                                             window=w))
+        print(f"[kernels] K2 bf16 soft-cap {CAP:g} {layer} layer (window={w}) B={GK2_B} "
+              f"Hq={GK2_HQ} Hkv={GK2_HKV} D={GK2_D} T=1, every length {GK2_SMAX}: kernel "
+              f"{ms:.4f} ms, paged {paged_ms:.4f} ms; plain {plain:.4f} ms, paged plain "
+              f"{paged_plain:.4f} ms; bound {lim['bound_ms']:.5f} ms by {lim['bound_by']}; "
+              f"SDPA without the cap{' with a boolean window mask' if w else ''} {lib:.4f} ms")
+        rows[layer] = {
+            "decode_softcap": dict(max_abs_err=err["decode_softcap"], ms=ms, plain_ms=plain,
+                                   library_ms=lib, **lim),
+            "paged_decode_softcap": dict(max_abs_err=err["paged_decode_softcap"],
+                                         ms=paged_ms, plain_ms=paged_plain, library_ms=lib,
+                                         **lim)}
+    del full, pool
+    cache8 = window_cache("int8", gen, [GK2_SMAX] * GK2_B, shape)
+    q8 = randn((GK2_B, GK2_HQ, CHUNK_T, GK2_D), gen)
+    for w in (None, GWIN):
+        ms = cuda_time_ms(lambda: decode.decode_attention_chunk(q8, cache8, window=w,
+                                                                logit_softcap=CAP))
+        lim = bound(roofline.decode_roofline(GK2_B, GK2_HQ, GK2_HKV, GK2_D, [GK2_SMAX] * GK2_B,
+                                             t=CHUNK_T, cache_dtype=torch.int8, window=w))
+        print(f"[kernels] K2 int8 soft-cap {CAP:g} window={w} B={GK2_B} Hq={GK2_HQ} "
+              f"Hkv={GK2_HKV} D={GK2_D} T={CHUNK_T}, every length {GK2_SMAX}: kernel "
+              f"{ms:.4f} ms, bound {lim['bound_ms']:.5f} ms by {lim['bound_by']}")
+    return rows["global"]
 
 
 # The window and segment ids in the backward kernels (B3, B4, B5) and
@@ -1186,23 +1431,26 @@ def time_backward(q, k, v, o, do, lse):
 
 _ROUTED = {  # generation's kernel entry points -> their plain versions
     (generate, "flash_attention"): (
-        lambda q, k, v, is_causal=False, scale=None, window=None:
+        lambda q, k, v, is_causal=False, scale=None, window=None, logit_softcap=None:
         flash_fwd.flash_attention_forward_reference(q, k, v, is_causal, scale,
-                                                    need_lse=False, window=window)[0]),
+                                                    need_lse=False, window=window,
+                                                    logit_softcap=logit_softcap)[0]),
     (generate, "decode_attention"): (
-        lambda q, cache, scale=None, window=None, sink=0:
+        lambda q, cache, scale=None, window=None, sink=0, logit_softcap=None:
         decode.decode_attention_reference(q[:, :, None], cache, scale, window=window,
-                                          sink=sink)[:, :, 0]),
+                                          sink=sink, logit_softcap=logit_softcap)[:, :, 0]),
     (generate, "decode_attention_chunk"): (
-        lambda q, cache, scale=None, window=None, sink=0:
-        decode.decode_attention_reference(q, cache, scale, window=window, sink=sink)),
+        lambda q, cache, scale=None, window=None, sink=0, logit_softcap=None:
+        decode.decode_attention_reference(q, cache, scale, window=window, sink=sink,
+                                          logit_softcap=logit_softcap)),
     (generate, "paged_decode_attention"): (
-        lambda q, cache, scale=None, window=None, sink=0:
+        lambda q, cache, scale=None, window=None, sink=0, logit_softcap=None:
         paged.paged_decode_reference(q[:, :, None], cache, scale, window=window,
-                                     sink=sink)[:, :, 0]),
+                                     sink=sink, logit_softcap=logit_softcap)[:, :, 0]),
     (generate, "paged_decode_attention_chunk"): (
-        lambda q, cache, scale=None, window=None, sink=0:
-        paged.paged_decode_reference(q, cache, scale, window=window, sink=sink)),
+        lambda q, cache, scale=None, window=None, sink=0, logit_softcap=None:
+        paged.paged_decode_reference(q, cache, scale, window=window, sink=sink,
+                                     logit_softcap=logit_softcap)),
     (llama, "quant_matmul"): (
         lambda x, qw, out_dtype=None: quant_matmul.quant_matmul_reference(x, qw, out_dtype)),
 }
@@ -1745,12 +1993,13 @@ MISTRAL_PREFIX = 1024  # the paged server's registered prefix (4 pages of 256)
 WINDOW_COUNTERS = ("flash_fwd_window", "decode_window", "paged_decode_window")
 
 
-def mistral_server(model, tag: str, prompts: list[list[int]], prefix: list[int] | None,
-                   **options) -> dict[str, int]:
+def long_prompt_server(model, tag: str, prompts: list[list[int]], prefix: list[int] | None,
+                       log: str = "[mistral]", **options) -> dict[str, int]:
     """One server run on the requests of `prompts` (a prompt that starts
     with `prefix` names the registered prefix): every request finished with
     MISTRAL_NEW valid tokens, every decode step a replay; the launches of
-    the run (warmup, prefix registration and calibration left out)."""
+    the run (warmup, prefix registration and calibration left out). Lines
+    print under `log`."""
     cfg = model.cfg
     srv = InferenceServer(model, max_slots=2, max_len=cfg.max_seq_len, **options)
     srv.warmup()  # captures the decode step
@@ -1758,6 +2007,7 @@ def mistral_server(model, tag: str, prompts: list[list[int]], prefix: list[int] 
     replays = srv.decode_graph().replays
     torch.cuda.synchronize()
     reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for uid, p in enumerate(prompts):
         shared = prefix is not None and p[:len(prefix)] == prefix
@@ -1772,19 +2022,20 @@ def mistral_server(model, tag: str, prompts: list[list[int]], prefix: list[int] 
     for uid, toks in got.items():
         check(len(toks) == MISTRAL_NEW and all(0 <= x < cfg.vocab_size for x in toks),
               f"{tag} request {uid}: {len(toks)} tokens {toks[:4]}...")
-    check_replays(f"[mistral] {tag}:", srv, replays, st["decode_steps"])
+    check_replays(f"{log} {tag}:", srv, replays, st["decode_steps"])
     n = len(prompts) * MISTRAL_NEW
-    print(f"[mistral] {tag}: {len(prompts)} requests, prompts {[len(p) for p in prompts]}, "
+    print(f"{log} {tag}: {len(prompts)} requests, prompts {[len(p) for p in prompts]}, "
           f"{MISTRAL_NEW} new tokens each, all finished in {wall:.3f} s ({n / wall:.1f} "
           f"tokens/s, {st['decode_steps']} decode steps); prefill {st['prefill_ms_avg']} "
-          f"ms/request, decode {st['decode_ms_avg']} ms/step; launches "
+          f"ms/request, decode {st['decode_ms_avg']} ms/step; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
           f"{ {k: v for k, v in launches.items() if v} }")
-    calibrate(f"[mistral] {tag}:", srv)
+    calibrate(f"{log} {tag}:", srv)
     if prefix is not None:
         admit = srv.calibrate_admit(prompt_len=MISTRAL_PREFIX + 256, prefix_len=MISTRAL_PREFIX,
                                     iters=2)
         check(all(v > 0 for v in admit.values()), f"{tag}: calibrate_admit {admit}")
-        print(f"[mistral] {tag}: calibrate_admit(prompt_len={MISTRAL_PREFIX + 256}, "
+        print(f"{log} {tag}: calibrate_admit(prompt_len={MISTRAL_PREFIX + 256}, "
               f"prefix_len={MISTRAL_PREFIX}, 2 admissions in one CUDA graph each): {admit}")
         srv.unregister_prefix(pid)
         check(srv.allocator.free_pages == srv.allocator.num_pages,
@@ -1827,11 +2078,11 @@ def phase_mistral(gen: torch.Generator) -> dict[str, int]:
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen, device="cuda").tolist()
                for n in MISTRAL_SERVED]
     total = dict.fromkeys(WINDOW_COUNTERS, 0)
-    bf16 = mistral_server(model, "bf16 server, 2 slots, max_len 8192", prompts, None)
+    bf16 = long_prompt_server(model, "bf16 server, 2 slots, max_len 8192", prompts, None)
     prefix = prompts[0][:MISTRAL_PREFIX]
     served = [p if uid % 2 == 0 else prefix + p[MISTRAL_PREFIX:]
               for uid, p in enumerate(prompts)]
-    paged_run = mistral_server(
+    paged_run = long_prompt_server(
         model, f"int8-KV paged server (pages of {PAGE}, admit_chunk 256, a "
         f"{MISTRAL_PREFIX}-token prefix before requests 0, 1 and 3)", served, prefix,
         quant="int8", paged=True, page_size=PAGE, admit_chunk=256)
@@ -2000,6 +2251,76 @@ def phase_packed(gen: torch.Generator) -> dict[str, int]:
     return total
 
 
+# GEMMA2_9B at full width and depth (phase 11): 42 layers alternating a
+# 4096-token local window (even layers) and global attention, head dim 256,
+# soft-caps 50 (attention) and 30 (final), post-norms; random bf16 weights
+# from the seed, about 18.5 GB. The traffic is phase 9's: 4 prompts of
+# 4,200-6,000 tokens (every local layer's window cuts), 32 new tokens each.
+SOFTCAP_COUNTERS = ("flash_fwd_softcap", "decode_softcap", "paged_decode_softcap")
+
+
+def phase_gemma(gen: torch.Generator) -> dict[str, int]:
+    """GEMMA2_9B at full width and depth: a 4,608-token prefill and 4
+    teacher-forced decode steps through the kernels (K1 and K2 with the cap
+    on every layer, the window on the even ones) against the plain route
+    under phase 3's logits rule; then the bf16 server and the int8-KV
+    paged server with chunked admission and a registered prefix. Returns
+    the soft-capped launches of the two server runs."""
+    cfg = GEMMA2_9B
+    layers = cfg.num_layers
+    t0 = time.perf_counter()
+    model = init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[gemma] GEMMA2_9B random weights on the card in {time.perf_counter() - t0:.2f} s, "
+          f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B parameters, head dim "
+          f"{cfg.head_dim}, soft-caps {cfg.logit_softcap:g}/{cfg.final_logit_softcap:g}, "
+          f"window {cfg.attn_window} on even layers, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    prompt = torch.randint(0, cfg.vocab_size, (1, MISTRAL_PROMPT), generator=gen, device="cuda")
+    forced = torch.randint(0, cfg.vocab_size, (4,), generator=gen, device="cuda")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    kern = generation_run(model, prompt, forced, max_len=cfg.max_seq_len)
+    run_s = time.perf_counter() - t0
+    added = read_launches()
+    local = (layers + 1) // 2
+    want = {"flash_fwd": layers, "flash_fwd_window": local, "flash_fwd_softcap": layers,
+            "decode": 4 * layers, "decode_window": 4 * local, "decode_softcap": 4 * layers}
+    check({k: v for k, v in added.items() if v} == want,
+          f"GEMMA2_9B kernel run launched {added}, want {want}")
+    print(f"[gemma] kernel run (prefill S={MISTRAL_PROMPT} and 4 decode steps) in "
+          f"{run_s:.3f} s, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"launches {want}")
+    with plain_kernels():
+        plain = generation_run(model, prompt, forced, max_len=cfg.max_seq_len)
+    check(read_launches() == added, "GEMMA2_9B plain run launched a kernel")
+    compare_logits("bf16, soft-capped, alternate windows", kern, plain,
+                   [f"prefill S={MISTRAL_PROMPT}"] + [f"decode {i}" for i in range(1, 5)],
+                   model="GEMMA2_9B")
+    del kern, plain
+
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen, device="cuda").tolist()
+               for n in MISTRAL_SERVED]
+    bf16 = long_prompt_server(model, "bf16 server, 2 slots, max_len 8192", prompts, None,
+                              log="[gemma]")
+    prefix = prompts[0][:MISTRAL_PREFIX]
+    served = [p if uid % 2 == 0 else prefix + p[MISTRAL_PREFIX:]
+              for uid, p in enumerate(prompts)]
+    paged_run = long_prompt_server(
+        model, f"int8-KV paged server (pages of {PAGE}, admit_chunk 256, a "
+        f"{MISTRAL_PREFIX}-token prefix before requests 0, 1 and 3)", served, prefix,
+        log="[gemma]", quant="int8", paged=True, page_size=PAGE, admit_chunk=256)
+    total = {k: bf16[k] + paged_run[k] for k in SOFTCAP_COUNTERS}
+    check(bf16["flash_fwd_softcap"] > 0 and bf16["decode_softcap"] > 0
+          and paged_run["paged_decode_softcap"] > 0,
+          f"a soft-capped kernel missed the Gemma servers: bf16 {bf16}, paged {paged_run}")
+    print(f"[gemma] soft-capped launches of the two server runs: {total}")
+    del model
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> None:
     t_start = time.perf_counter()
     device_name = phase_environment()
@@ -2028,6 +2349,7 @@ def main() -> None:
     launches.update(phase_mistral(gen))
     for counter, n in phase_packed(gen).items():
         launches[counter] = launches.get(counter, 0) + n
+    launches.update(phase_gemma(gen))
     decode_src = ("flashattn_tpu_torch/csrc/decode.cu", "flashattn_tpu/ops/decode.py:351")
     qmm_src = "flashattn_tpu_torch/csrc/quant_matmul.cu"
     sources = {
@@ -2043,6 +2365,11 @@ def main() -> None:
         "decode_fp8": decode_src,
         "paged_decode": ("flashattn_tpu_torch/csrc/decode.cu",
                          "flashattn_tpu/ops/paged.py:378"),
+        "flash_fwd_softcap": ("flashattn_tpu_torch/csrc/flash_fwd.cu",
+                              "flashattn_tpu/ops/flash_fwd.py:469"),
+        "decode_softcap": decode_src,
+        "paged_decode_softcap": ("flashattn_tpu_torch/csrc/decode.cu",
+                                 "flashattn_tpu/ops/paged.py:378"),
         "qmm8": (qmm_src, "flashattn_tpu/ops/quant_matmul.py:81"),
         "qmm4": (qmm_src, "flashattn_tpu/ops/quant_matmul.py:123"),
         "flash_bwd_fused": ("flashattn_tpu_torch/csrc/flash_bwd_fused.cu",

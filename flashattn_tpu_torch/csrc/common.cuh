@@ -96,6 +96,19 @@ __device__ __forceinline__ void mma_16816(float* c, const unsigned* a, unsigned 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// tanh(x) for the logit soft-cap of K1 and K2: s = tanh(s / cap) * cap, as
+// 1 - 2 / (2^(2 x log2 e) + 1) with ex2.approx and rcp.approx (two MUFU
+// instructions; relative error about 2^-21, absolute error near 0 a few ulp
+// of 1). tanh.approx.f32 (one MUFU.TANH, relative error about 2^-11: with
+// cap 50 up to 0.035 in a logit's exp2 domain) fails K1's float32 gate.
+// 2^(2x log2 e) = inf gives 1, 0 gives -1.
+__device__ __forceinline__ float softcap_tanh(float x) {
+  float e, r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(e) : "f"(x * 2.8853900817779268f));  // 2 log2(e)
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(e + 1.f));
+  return fmaf(-2.f, r, 1.f);
+}
+
 // (lo, hi) rounded to bf16 and packed: lo in the low half (lower index).
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

@@ -8,8 +8,8 @@
 // and decode_attention_chunk :268) and its paged form
 // flashattn_tpu/ops/paged.py::_paged_decode (:378, reached through
 // paged_decode_attention :332 and paged_decode_attention_chunk :360), with
-// the sliding window and attention sinks, without soft-cap, ALiBi or LSE
-// output.
+// the sliding window, attention sinks and the logit soft-cap, at head dims
+// 64, 128 and 256, without ALiBi or LSE output.
 //
 // What bounds it on the card: HBM bandwidth in principle, latency in
 // practice. Each step streams the live part of the cache once (K and V,
@@ -44,7 +44,13 @@
 //   warps share the CTA's rows and take 4 tiles at a time, one each, each
 //   warp an online softmax of its own; the 4 states merge in shared memory
 //   at the end in warp order. With more rows each warp owns 16 of the 64
-//   rows and all 4 walk the same tiles.
+//   rows and all 4 walk the same tiles. At D 256 a warp holding a 16 x 256
+//   fp32 O (128 registers) beside S, P and the int8 mode's requantization
+//   spilled, so there two warps share each 16 rows and tile (kHalves): both
+//   compute the same S and P over all 256 dims, each P.V into its half of
+//   the dims; the CTA takes 2 tiles at a time for up to 16 rows, and 32
+//   rows one tile at a time above (their bf16 K and V tiles, 64 positions
+//   x 512 bytes, take twice the shared memory of D 128's).
 // - Tensor cores. Per tile a warp computes S (16 rows x 64 positions) and
 //   P.V on mma.sync, P going from the S accumulators to the A fragments in
 //   registers: m16n8k16 bf16 with fp32 accumulators for a bf16 or an fp8
@@ -75,6 +81,12 @@
 // sees no live position writes its (m, l = 0) and no accumulator; the
 // merge skips it.
 //
+// The soft-cap (a.cap_log2 > 0) turns each dequantized, scaled logit x,
+// true units under a cap (q is pre-scaled by scale alone), into
+// tanh(x * inv_cap) * cap * log2(e) before the length, window and sink
+// masks, as the JAX kernel does (common.cuh softcap_tanh); the kernel
+// tests the flag once a tile, and a call without a cap runs no tanh.
+//
 // Modes, in the JAX kernel's order of operations:
 // - bf16: s = (q . k) * scale * log2(e) in fp32; P rounded to bf16 before
 //   P . V, as the JAX kernel feeds its MXU; l sums the unrounded P.
@@ -83,7 +95,7 @@
 //   f32(1/127), 1e-8), q8 = clamp(rint(q_pre / q_scale), +-127) (IEEE
 //   division). s = int(q8 . k) * (q_scale * k_scale[pos]), the dot in int32,
 //   exact. Per row and 64-position tile, pvs = p * v_scale[pos],
-//   rmax = max(pvs) (1 where 0), p8 = rint(pvs * (127 / rmax)) and
+//   rmax = max(pvs) (1 below kRmaxMin), p8 = rint(pvs * (127 / rmax)) and
 //   pv = int(p8 . v) * (rmax / 127), exact again; l sums p, not pvs. The
 //   JAX kernel requantizes P over a block of block_kv positions (4096,
 //   clamped to Smax); this kernel per 64-position tile, whose row maximum is
@@ -117,6 +129,11 @@ using bf16 = __nv_bfloat16;
 using fp8 = __nv_fp8_e4m3;
 
 constexpr int kBlockN = 64;  // cache positions per tile (the int8 P requantization block)
+// A tile whose largest P x v_scale is below 2^-100 requantizes to zeros
+// (rmax taken as 1): the JAX kernel's rule for rmax == 0, widened because a
+// tile far below the row's maximum can leave rmax subnormal, or so small
+// that 127 / rmax overflows and 0 * inf gives NaN.
+constexpr float kRmaxMin = 0x1p-100f;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 
@@ -141,7 +158,9 @@ struct Args {
   int B, Hq, Hkv, Tc, Smax, max_pages, page, num_pages, split_len, num_splits, row_blocks;
   int window;  // sliding window (0: none)
   int sink;    // the first `sink` positions stay visible (with a window)
-  float scale_log2;
+  float scale_log2;  // q's pre-scale: scale * log2(e), or scale under a soft-cap
+  float inv_cap;     // 1 / cap, with cap_log2 = cap * log2(e) (0: no soft-cap)
+  float cap_log2;
 };
 
 // ---- shared by both kernels ----
@@ -236,8 +255,8 @@ __device__ __forceinline__ float warp_sum(float x) {
 // at a time for the weights, then the dims, so that each step's loads are
 // in flight together; the partials are read past L1 (other CTAs wrote
 // them). A fixed order of operations: every caller gets the same bits.
-template <typename T>
-__device__ __forceinline__ void merge_row(const Args& a, size_t row, int R, int D, T* out) {
+template <typename T, int D>
+__device__ __forceinline__ void merge_row(const Args& a, size_t row, int R, T* out) {
   constexpr unsigned kAll = 0xffffffffu;
   const int lane = threadIdx.x % 32;
   float mmax = kMaskValue;
@@ -247,7 +266,10 @@ __device__ __forceinline__ void merge_row(const Args& a, size_t row, int R, int 
       mmax = fmaxf(mmax, __ldcg(a.part_m + idx));
   }
   mmax = warp_max(mmax);
-  float num[4] = {0.f, 0.f, 0.f, 0.f};  // dims lane + 32 c, D <= 128
+  constexpr int kPer = D / 32;
+  float num[kPer];  // dims lane + 32 c
+#pragma unroll
+  for (int c = 0; c < kPer; ++c) num[c] = 0.f;
   float den = 0.f;
   for (int s0 = 0; s0 < a.num_splits; s0 += 32) {
     const size_t idx = row + static_cast<size_t>(s0 + lane) * R;
@@ -264,29 +286,28 @@ __device__ __forceinline__ void merge_row(const Args& a, size_t row, int R, int 
       if (wj > 0.f) {  // uniform over the warp
         const float* acc = a.part_acc + (row + static_cast<size_t>(s0 + j) * R) * D + lane;
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (32 * c < D) num[c] = fmaf(wj, __ldcg(acc + 32 * c), num[c]);
+        for (int c = 0; c < kPer; ++c) num[c] = fmaf(wj, __ldcg(acc + 32 * c), num[c]);
       }
     }
   }
 #pragma unroll
-  for (int c = 0; c < 4; ++c)
-    if (32 * c < D) out[lane + 32 * c] = fat::from_f<T>(den > 0.f ? num[c] / den : 0.f);
+  for (int c = 0; c < kPer; ++c)
+    out[lane + 32 * c] = fat::from_f<T>(den > 0.f ? num[c] / den : 0.f);
 }
 
 constexpr int kMergeRows = 4;  // rows a merge CTA, one a warp
 
 // Launched as a programmatic dependent of the split kernel: its CTAs may
 // start while the split kernel finishes, and wait here for its partials.
-template <typename T>
-__global__ void __launch_bounds__(32 * kMergeRows) decode_merge_kernel(const Args a, int D) {
+template <typename T, int D>
+__global__ void __launch_bounds__(32 * kMergeRows) decode_merge_kernel(const Args a) {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int R = (a.Hq / a.Hkv) * a.Tc;
   const int row = blockIdx.x * kMergeRows + threadIdx.x / 32;  // (b * Hkv + hk) * R + r
   if (row >= a.B * a.Hkv * R) return;
   const size_t bh = row / R;
-  merge_row(a, bh * a.num_splits * R + row % R, R, D,
-            static_cast<T*>(a.o) + static_cast<size_t>(row) * D);
+  merge_row<T, D>(a, bh * a.num_splits * R + row % R, R,
+                  static_cast<T*>(a.o) + static_cast<size_t>(row) * D);
 }
 
 // ---- bf16 q with any cache, f32 q with a quantized one: the tensor cores ----
@@ -295,10 +316,12 @@ __global__ void __launch_bounds__(32 * kMergeRows) decode_merge_kernel(const Arg
 // q_scale [kRows], then `stages` stages of kTiles tile slots, each K and V
 // [64][kLd] in the cache's type and k_scale, v_scale [64] f32; the final
 // merge of the warps' states, [4][16][kRedLd] f32 and m, l [4][16], reuses
-// the stage memory.
+// the stage memory. kHalves warps share each 16 rows and tile, each with
+// D / kHalves of O's dims.
 template <typename C, int D, int kTiles>
 struct MmaLayout {
-  static constexpr int kRows = 16 * kWarps / kTiles;  // query rows a CTA
+  static constexpr int kHalves = D > 128 ? 2 : 1;
+  static constexpr int kRows = 16 * kWarps / (kTiles * kHalves);  // query rows a CTA
   static constexpr int kRowBytes = D * static_cast<int>(sizeof(C));
   static constexpr int kLd = kRowBytes + 16;  // conflict-free ldmatrix rows
   static constexpr int kTileBytes = kBlockN * kLd;
@@ -365,7 +388,8 @@ __global__ void __launch_bounds__(kThreads, 1) decode_mma_kernel(const Args a, i
   constexpr Mode kMode = kModeOf<C>;
   constexpr bool kBytes = kMode != Mode::kPlain;
   constexpr int kRows = L::kRows;
-  constexpr int kNt = D / 8;  // P.V accumulator n-tiles
+  constexpr int kDh = D / L::kHalves;  // O's dims a warp holds
+  constexpr int kNt = kDh / 8;         // P.V accumulator n-tiles
   static_assert(kBytes || std::is_same_v<T, bf16>, "a bf16 cache takes bf16 q");
   const T* __restrict__ q = static_cast<const T*>(a.q);
   const unsigned char* __restrict__ kc = static_cast<const unsigned char*>(a.k);
@@ -376,7 +400,9 @@ __global__ void __launch_bounds__(kThreads, 1) decode_mma_kernel(const Args a, i
   const int sp = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, tig = lane % 4;
-  const int rg = warp / kTiles, slot = warp % kTiles;  // this warp's row group and tile slot
+  // This warp's half of O's dims, row group and tile slot.
+  const int half = warp % L::kHalves, rg = warp / L::kHalves / kTiles;
+  const int slot = warp / L::kHalves % kTiles;
 
   // This CTA's q rows, 4 of a warp's at a time (warp w rows w, w + 4, ...;
   // lane l dims l, l + 32, ...); the first 4 into registers first: they do
@@ -603,7 +629,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_mma_kernel(const Args a, i
       // e of s[j]: row g + 8 (e / 2), column 8 j + 2 tig + e % 2.
       unsigned live = 0u;
       float mx[2] = {kMaskValue, kMaskValue};
-      auto logits = [&](auto window) {
+      auto logits = [&](auto window, auto capped) {
 #pragma unroll
         for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -616,6 +642,8 @@ __global__ void __launch_bounds__(kThreads, 1) decode_mma_kernel(const Args a, i
               x *= ksc[c];
             else
               x *= a.scale_log2;
+            if constexpr (decltype(capped)::value)
+              x = fat::softcap_tanh(x * a.inv_cap) * a.cap_log2;
             if (visible<decltype(window)::value>(a, c, n_live, n0 + c, row_pos[h])) {
               live |= 1u << (4 * j + e);
               mx[h] = fmaxf(mx[h], x);
@@ -623,14 +651,20 @@ __global__ void __launch_bounds__(kThreads, 1) decode_mma_kernel(const Args a, i
             s[j][e] = x;
           }
       };
+      auto run_logits = [&](auto window) {  // the soft-cap's flag, once a tile
+        if (a.cap_log2 > 0.f)
+          logits(window, std::true_type{});
+        else
+          logits(window, std::false_type{});
+      };
       if constexpr (kWindow) {
         if (n0 < win_full && n0 + kBlockN > a.sink) {
-          logits(std::true_type{});
+          run_logits(std::true_type{});
         } else {
-          logits(std::false_type{});
+          run_logits(std::false_type{});
         }
       } else {
-        logits(std::false_type{});
+        run_logits(std::false_type{});
       }
       float alpha[2], f[2] = {1.f, 1.f}, rmax[2] = {0.f, 0.f};
 #pragma unroll
@@ -659,7 +693,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_mma_kernel(const Args a, i
         for (int h = 0; h < 2; ++h) {
           rmax[h] = fmaxf(rmax[h], __shfl_xor_sync(0xffffffffu, rmax[h], 1));
           rmax[h] = fmaxf(rmax[h], __shfl_xor_sync(0xffffffffu, rmax[h], 2));
-          rmax[h] = rmax[h] == 0.f ? 1.f : rmax[h];
+          rmax[h] = rmax[h] < kRmaxMin ? 1.f : rmax[h];
           f[h] = rmax[h] / 127.f;
           const float mul = 127.f / rmax[h];
 #pragma unroll
@@ -687,15 +721,16 @@ __global__ void __launch_bounds__(kThreads, 1) decode_mma_kernel(const Args a, i
                           static_cast<unsigned>(s[j + 1][e + 1]) << 24;
           }
 #pragma unroll
-        for (int c16 = 0; c16 < D / 16; ++c16) {
-          int pvi[2][4];  // even and odd dims of 16 c16 .. + 15
+        for (int c16 = 0; c16 < kDh / 16; ++c16) {
+          const int cb = 16 * (c16 + half * (kDh / 16));  // bytes of this warp's dims
+          int pvi[2][4];  // even and odd dims of cb .. cb + 15
 #pragma unroll
           for (int j = 0; j < 2; ++j) pvi[j][0] = pvi[j][1] = pvi[j][2] = pvi[j][3] = 0;
 #pragma unroll
           for (int kk = 0; kk < 2; ++kk) {
-            // Matrix m: positions 32 kk + 8 m .. + 7 at bytes 16 c16 .. + 15.
+            // Matrix m: positions 32 kk + 8 m .. + 7 at bytes cb .. cb + 15.
             unsigned r[4];
-            ldsm_x4_t(r, vs + (32 * kk + 8 * (lane / 8) + lane % 8) * L::kLd + 16 * c16);
+            ldsm_x4_t(r, vs + (32 * kk + 8 * (lane / 8) + lane % 8) * L::kLd + cb);
             mma_s8(pvi[0], pa8[kk], __byte_perm(r[0], r[1], 0x6420u),
                    __byte_perm(r[2], r[3], 0x6420u));
             mma_s8(pvi[1], pa8[kk], __byte_perm(r[0], r[1], 0x7531u),
@@ -713,52 +748,57 @@ __global__ void __launch_bounds__(kThreads, 1) decode_mma_kernel(const Args a, i
         // lo halves): element e of s[j] is row g + 8 (e / 2), position
         // 8 j + 2 tig + e % 2.
         constexpr int kParts = kMode == Mode::kFp8 ? 2 : 1;
-        unsigned pa[4][kParts][4];
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
+        auto pack_p = [&](int kk, unsigned (&pk)[kParts][4]) {
 #pragma unroll
           for (int i2 = 0; i2 < 4; ++i2) {
             const float x0 = s[2 * kk + i2 / 2][2 * (i2 & 1)];
             const float x1 = s[2 * kk + i2 / 2][2 * (i2 & 1) + 1];
-            pa[kk][0][i2] = fat::pack_bf16(x0, x1);
+            pk[0][i2] = fat::pack_bf16(x0, x1);
             if constexpr (kParts == 2)
-              pa[kk][1][i2] = fat::pack_bf16(x0 - fat::round_to<bf16>(x0),
-                                             x1 - fat::round_to<bf16>(x1));
+              pk[1][i2] = fat::pack_bf16(x0 - fat::round_to<bf16>(x0),
+                                         x1 - fat::round_to<bf16>(x1));
           }
+        };
+        // This warp's dims 16 c16 .. + 15 (2 n-tiles of O) += P's k step
+        // kk . V; the dims start at cb of the tile's rows.
+        auto pv_step = [&](int c16, int kk, const unsigned (&pk)[kParts][4]) {
+          const int cb = 16 * (c16 + half * (kDh / 16));
+          unsigned r[4];
+          if constexpr (kBytes) {
+            // Matrices: positions 16 kk + 0..7 and + 8..15 at bytes
+            // cb .. cb + 15. Bytes of r[i]: (pos 2 tig, dim 2 g),
+            // (2 tig, 2 g + 1), (2 tig + 1, 2 g), (2 tig + 1, 2 g + 1);
+            // permuted to the even dim's pair low, the odd dim's high.
+            ldsm_x2_t(r, vs + (16 * kk + lane % 8 + 8 * ((lane / 8) & 1)) * L::kLd + cb);
+            const unsigned lo = __byte_perm(r[0], 0u, 0x3120u);
+            const unsigned hi = __byte_perm(r[1], 0u, 0x3120u);
+            r[0] = widen2(lo);
+            r[1] = widen2(hi);
+            r[2] = widen2(lo >> 16);
+            r[3] = widen2(hi >> 16);
+          } else {
+            constexpr int kLdV = L::kLd / 2;
+            fat::ldsm_x4_t(r, reinterpret_cast<const bf16*>(vs) + (16 * kk) * kLdV + cb +
+                                  fat::lane_offset<true>(lane, kLdV));
+          }
+#pragma unroll
+          for (int part = 0; part < kParts; ++part) {
+            fat::mma_16816(o[2 * c16], pk[part], r[0], r[1]);
+            fat::mma_16816(o[2 * c16 + 1], pk[part], r[2], r[3]);
+          }
+        };
 #pragma unroll
         for (int nt = 0; nt < kNt; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) o[nt][e] *= alpha[e >> 1];
+        unsigned pa[4][kParts][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) pack_p(kk, pa[kk]);
         // P.V into O, 16 dims (2 n-tiles) at a time.
 #pragma unroll
-        for (int c16 = 0; c16 < D / 16; ++c16) {
+        for (int c16 = 0; c16 < kDh / 16; ++c16)
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            unsigned r[4];
-            if constexpr (kBytes) {
-              // Matrices: positions 16 kk + 0..7 and + 8..15 at bytes
-              // 16 c16 .. + 15. Bytes of r[i]: (pos 2 tig, dim 2 g),
-              // (2 tig, 2 g + 1), (2 tig + 1, 2 g), (2 tig + 1, 2 g + 1);
-              // permuted to the even dim's pair low, the odd dim's high.
-              ldsm_x2_t(r, vs + (16 * kk + lane % 8 + 8 * ((lane / 8) & 1)) * L::kLd + 16 * c16);
-              const unsigned lo = __byte_perm(r[0], 0u, 0x3120u);
-              const unsigned hi = __byte_perm(r[1], 0u, 0x3120u);
-              r[0] = widen2(lo);
-              r[1] = widen2(hi);
-              r[2] = widen2(lo >> 16);
-              r[3] = widen2(hi >> 16);
-            } else {
-              constexpr int kLdV = L::kLd / 2;
-              fat::ldsm_x4_t(r, reinterpret_cast<const bf16*>(vs) + (16 * kk) * kLdV +
-                                    16 * c16 + fat::lane_offset<true>(lane, kLdV));
-            }
-#pragma unroll
-            for (int part = 0; part < kParts; ++part) {
-              fat::mma_16816(o[2 * c16], pa[kk][part], r[0], r[1]);
-              fat::mma_16816(o[2 * c16 + 1], pa[kk][part], r[2], r[3]);
-            }
-          }
-        }
+          for (int kk = 0; kk < 4; ++kk) pv_step(c16, kk, pa[kk]);
       }
     }
     __syncthreads();  // every warp is done with this stage
@@ -795,20 +835,23 @@ __global__ void __launch_bounds__(kThreads, 1) decode_mma_kernel(const Args a, i
   const size_t bh = static_cast<size_t>(b) * a.Hkv + hk;
   const size_t part_row = (bh * a.num_splits + sp) * R + r0;
   for (int i = tid; i < nr * D; i += kThreads) {
-    const int r = i / D, dd = i % D;
-    const int w0 = (r / 16) * kTiles, rr = r % 16;
+    const int r = i / D, dd = i % D, rr = r % 16;
+    // The warps of row r's group that hold dim dd, one a tile slot, and
+    // the dim's place in their accumulators.
+    const int w0 = (r / 16) * kTiles * L::kHalves + dd / kDh, dh = dd % kDh;
+    constexpr int kStep = L::kHalves;
     float mmax = kMaskValue;
 #pragma unroll
-    for (int w = w0; w < w0 + kTiles; ++w)
+    for (int w = w0; w < w0 + kTiles * kStep; w += kStep)
       if (red_l[w * 16 + rr] > 0.f) mmax = fmaxf(mmax, red_m[w * 16 + rr]);
     float num = 0.f, den = 0.f;
 #pragma unroll
-    for (int w = w0; w < w0 + kTiles; ++w) {
+    for (int w = w0; w < w0 + kTiles * kStep; w += kStep) {
       const float lw = red_l[w * 16 + rr];
       if (lw > 0.f) {
         const float wt = exp2f(red_m[w * 16 + rr] - mmax);
         den = fmaf(wt, lw, den);
-        num = fmaf(wt, red_acc[(w * 16 + rr) * L::kRedLd + dd], num);
+        num = fmaf(wt, red_acc[(w * 16 + rr) * L::kRedLd + dh], num);
       }
     }
     if (a.num_splits == 1) {
@@ -826,7 +869,10 @@ __global__ void __launch_bounds__(kThreads, 1) decode_mma_kernel(const Args a, i
 
 // ---- f32 q and cache: the CUDA cores ----
 
-constexpr int kF32Rows = 64;  // query rows per CTA
+// Query rows a CTA of decode_f32_kernel: 64, 32 at D 256, where the
+// layout's shared memory at 64 rows would pass 227 KB.
+template <int D>
+constexpr int kF32Rows = D > 128 ? 32 : 64;
 
 // Shared memory of decode_f32_kernel, in floats, for `rb` rows: qs [rb][D+1],
 // ks [BN][D+1], vs [BN][D], ps [rb][BN+1], acc [rb][D], m, l, alpha [rb].
@@ -844,10 +890,10 @@ __global__ void __launch_bounds__(kThreads) decode_f32_kernel(const Args a) {
   const float* __restrict__ k = static_cast<const float*>(a.k);
   const float* __restrict__ v = static_cast<const float*>(a.v);
   const int R = (a.Hq / a.Hkv) * a.Tc;
-  const int RB = min(kF32Rows, R);  // rows the shared-memory layout holds
+  const int RB = min(kF32Rows<D>, R);  // rows the shared-memory layout holds
   const int b = blockIdx.x, hk = blockIdx.y / a.row_blocks;
-  const int r0 = (blockIdx.y % a.row_blocks) * kF32Rows;
-  const int nr = min(kF32Rows, R - r0);
+  const int r0 = (blockIdx.y % a.row_blocks) * kF32Rows<D>;
+  const int nr = min(kF32Rows<D>, R - r0);
   const int sp = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
 
@@ -906,7 +952,7 @@ __global__ void __launch_bounds__(kThreads) decode_f32_kernel(const Args a) {
         float dot = 0.f;
 #pragma unroll 8
         for (int d = 0; d < D; ++d) dot = fmaf(qs[r * DP + d], ks[c * DP + d], dot);
-        s = dot;
+        s = a.cap_log2 > 0.f ? fat::softcap_tanh(dot * a.inv_cap) * a.cap_log2 : dot;
       }
       ps[r * PP + c] = s;
     }
@@ -982,8 +1028,8 @@ int max_smem_optin() {
   return bytes;
 }
 
-template <typename T>
-cudaError_t launch_merge(const Args& a, int D, cudaStream_t stream) {
+template <typename T, int D>
+cudaError_t launch_merge(const Args& a, cudaStream_t stream) {
   const int R = (a.Hq / a.Hkv) * a.Tc;
   const int rows = a.B * a.Hkv * R;
   cudaLaunchAttribute attr{};
@@ -995,7 +1041,7 @@ cudaError_t launch_merge(const Args& a, int D, cudaStream_t stream) {
   cfg.stream = stream;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, decode_merge_kernel<T>, a, D);
+  return cudaLaunchKernelEx(&cfg, decode_merge_kernel<T, D>, a);
 }
 
 template <typename T, typename C, int D, int kTiles, bool kWindow>
@@ -1016,32 +1062,36 @@ cudaError_t launch_mma(Args a, cudaStream_t stream) {
          stream>>>(a, stages);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.num_splits == 1) return err;
-  return launch_merge<T>(a, D, stream);
+  return launch_merge<T, D>(a, stream);
 }
 
 template <int D>
 cudaError_t launch_f32(Args a, cudaStream_t stream) {
   const int R = (a.Hq / a.Hkv) * a.Tc;
-  a.row_blocks = (R + kF32Rows - 1) / kF32Rows;
+  a.row_blocks = (R + kF32Rows<D> - 1) / kF32Rows<D>;
   if (static_cast<long long>(a.Hkv) * a.row_blocks > 65535 || a.num_splits > 65535)
     return cudaErrorInvalidConfiguration;
   cudaError_t err = fat::allow_max_smem<decode_f32_kernel<D>>();
   if (err != cudaSuccess) return err;
   decode_f32_kernel<D><<<dim3(a.B, a.Hkv * a.row_blocks, a.num_splits), kThreads,
-                         f32_smem_bytes(std::min(R, kF32Rows), D), stream>>>(a);
+                         f32_smem_bytes(std::min(R, kF32Rows<D>), D), stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_merge<float>(a, D, stream);
+  return launch_merge<float, D>(a, stream);
 }
 
-// Up to 16 query rows a group: 4 tiles at a time, one a warp; more: 64
-// rows a CTA, a warp 16 of them (ops/decode.py::_layout).
+// Up to 16 query rows a group: 4 tiles at a time, one a warp (2 at D 256,
+// two warps a tile); more: 64 rows a CTA, a warp 16 of them (32 rows at
+// D 256) (ops/decode.py::_layout).
 template <typename T, typename C, int D>
 cudaError_t launch_rows(const Args& a, cudaStream_t stream) {
+  constexpr int kFew = MmaLayout<C, D, 1>::kHalves == 2 ? 2 : 4;
   const bool few = (a.Hq / a.Hkv) * a.Tc <= 16;
   if (a.window > 0)
-    return few ? launch_mma<T, C, D, 4, true>(a, stream) : launch_mma<T, C, D, 1, true>(a, stream);
-  return few ? launch_mma<T, C, D, 4, false>(a, stream) : launch_mma<T, C, D, 1, false>(a, stream);
+    return few ? launch_mma<T, C, D, kFew, true>(a, stream)
+               : launch_mma<T, C, D, 1, true>(a, stream);
+  return few ? launch_mma<T, C, D, kFew, false>(a, stream)
+             : launch_mma<T, C, D, 1, false>(a, stream);
 }
 
 template <typename T, int D>
@@ -1066,19 +1116,22 @@ cudaError_t dispatch_cache(const Args& a, int dtype, int kv_dtype, cudaStream_t 
 // scratch; o like q. All contiguous on the device, k and v 16-byte aligned;
 // window 0 (none) or the sliding window, sink the always-visible first
 // positions (needs a window); split_len a multiple of 64 and
-// split_len * num_splits >= the live span (live_span_bound: Smax without a
-// window). Returns the CUDA error code (0 = success).
+// split_len * num_splits >= the live span (live_span_bound: Smax without a window); scale_log2 q's
+// pre-scale and, for a soft-cap, inv_cap = 1 / cap and cap_log2 =
+// cap * log2(e) (both 0 without one). Returns the CUDA error code
+// (0 = success).
 extern "C" int decode_launch(const void* q, const void* k, const void* v, const void* k_scale,
                              const void* v_scale, const void* length, const void* table,
                              void* part_m, void* part_l, void* part_acc, void* o, int B,
                              int Hq, int Hkv, int Tc, int Smax, int D, int dtype, int kv_dtype,
                              int max_pages, int page, int num_pages, int split_len,
                              int num_splits, int window, int sink, float scale_log2,
-                             void* stream) {
+                             float inv_cap, float cap_log2, void* stream) {
   const bool quantized = kv_dtype == fat::kInt8 || kv_dtype == fat::kFp8;
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Tc <= 0 || Smax <= 0 || split_len <= 0 ||
       split_len % kBlockN != 0 || num_splits <= 0 || window < 0 || sink < 0 ||
-      (sink > 0 && window == 0) ||
+      (sink > 0 && window == 0) || inv_cap < 0.f || cap_log2 < 0.f ||
+      (inv_cap > 0.f) != (cap_log2 > 0.f) ||
       static_cast<long long>(split_len) * num_splits < live_span_bound(Smax, Tc, window, sink) ||
       (quantized && (k_scale == nullptr || v_scale == nullptr)) ||
       (table != nullptr && (page <= 0 || page % kBlockN != 0 ||
@@ -1088,16 +1141,20 @@ extern "C" int decode_launch(const void* q, const void* k, const void* v, const 
          static_cast<const int*>(length), static_cast<const int*>(table),
          static_cast<float*>(part_m), static_cast<float*>(part_l),
          static_cast<float*>(part_acc), o, B, Hq, Hkv, Tc, Smax, max_pages, page, num_pages,
-         split_len, num_splits, 0, window, sink, scale_log2};
+         split_len, num_splits, 0, window, sink, scale_log2, inv_cap, cap_log2};
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == fat::kBF16 && D == 64)
     err = dispatch_cache<bf16, 64>(a, dtype, kv_dtype, s);
   else if (dtype == fat::kBF16 && D == 128)
     err = dispatch_cache<bf16, 128>(a, dtype, kv_dtype, s);
+  else if (dtype == fat::kBF16 && D == 256)
+    err = dispatch_cache<bf16, 256>(a, dtype, kv_dtype, s);
   else if (dtype == fat::kF32 && D == 64)
     err = dispatch_cache<float, 64>(a, dtype, kv_dtype, s);
   else if (dtype == fat::kF32 && D == 128)
     err = dispatch_cache<float, 128>(a, dtype, kv_dtype, s);
+  else if (dtype == fat::kF32 && D == 256)
+    err = dispatch_cache<float, 256>(a, dtype, kv_dtype, s);
   return static_cast<int>(err);
 }

@@ -6,8 +6,10 @@
 // flash_attention_forward_grid4, :267) on their common plain subset: causal
 // (bottom-right, or by pos_offset) or not, GQA, ragged S_q/S_k, optional LSE,
 // the sliding window (causal only: row r sees column c iff
-// r + offset - window < c <= r + offset) and packed-document segment ids
-// (row r sees column c only if seg_q[b][r] == seg_k[b][c]).
+// r + offset - window < c <= r + offset), packed-document segment ids
+// (row r sees column c only if seg_q[b][r] == seg_k[b][c]) and the logit
+// soft-cap (s = tanh(s / cap) * cap on the scaled logits, before any mask),
+// at head dims 64, 128 and 256.
 // The TPU's two grid shapes, its wavefront meta arrays, h_fuse and the
 // ones-column row sum are Mosaic designs and are not carried over.
 //
@@ -25,17 +27,24 @@
 //
 // What the design does about it (flash_fwd_wgmma_kernel, bf16): a CTA owns
 // a q tile of 64 rows (one consumer warpgroup) at D 64 and of 128 rows (two)
-// at D 128. At D 64 three 64-row CTAs share an SM, so one CTA's prologue,
-// epilogue and softmax run under another's products; at D 128 a CTA has an
-// SM to itself and its two warpgroups share each K/V tile. One producer warp
-// copies Q once and the 128-column K and V tiles of the kv loop by TMA into
+// at D 128 and 256. At D 64 three 64-row CTAs share an SM, so one CTA's
+// prologue, epilogue and softmax run under another's products; at D 128 and
+// 256 a CTA has an SM to itself and its two warpgroups share each K/V tile.
+// A kv tile is 128 columns, 64 at D 256 (FwdLayout::kTileN), where Q's
+// 64 KB and a two-stage ring of 128-column K and V tiles (256 KB) would not
+// fit the SM's 227 KB: the 64-column ring takes 128 KB. There a consumer
+// thread holds a 64 x 256 fp32 O (128 registers), S and P of a 64-column
+// tile (48): setmaxnreg gives the consumers 240 a thread and the producer
+// 24, as at D 128. One producer warp copies Q once and the K and V tiles of
+// the kv loop by TMA into
 // a two-stage ring with 128-byte swizzle (3-D tensor maps, so the ragged
 // last tile of a head reads zeros, not the next head), signalling
 // full/empty mbarriers; the next tile's copy runs under the current tile's
 // products. Both products run on wgmma with fp32 accumulators: S = Q K^T
-// (m64n128k16, Q and K from shared memory, K-major), then P stays in
-// registers, rounded to bf16 pairwise (the S accumulator layout is the
-// register A-fragment layout), and O += P V (m64nDk16) reads V's row-major
+// (m64nNk16 with N the tile's columns, Q and K from shared memory,
+// K-major), then P stays in registers, rounded to bf16 pairwise (the S
+// accumulator layout is the register A-fragment layout), and O += P V
+// (m64nDk16, one m64n256k16 at D 256) reads V's row-major
 // [keys][D] tile as an MN-major B operand, so V is never transposed. The kv
 // loop runs over the tiles the q tile's rows reach, from the last down: the
 // at most two tiles that straddle the causal bound or S_k come first and
@@ -52,7 +61,12 @@
 // not computed (the producer's walk stays the window's); a tile whose rows
 // and columns carry one id runs no id mask; the others compare each
 // thread's two row ids, kept in registers, with the tile's column ids, read
-// from device memory (L1-cached). No atomics: two calls give the same bits. The softmax
+// from device memory (L1-cached). With the soft-cap (kCap) the raw scores
+// become tanh(s * scale / cap) * cap * log2(e) right after the S product,
+// before every mask (common.cuh softcap_tanh): only scale folds before the
+// tanh, as in the JAX kernel, and the softmax then runs on the exp2-domain
+// logits as they are; without it the kernel has no tanh code at all.
+// No atomics: two calls give the same bits. The softmax
 // uses the exp2 domain (row max of the raw scores, one FFMA and one
 // MUFU.EX2 per exponent), fp32 (m, l),
 // masked scores of -inf with a zero max for rows that have seen no key yet,
@@ -63,7 +77,8 @@
 //
 // float32 runs a CUDA-core kernel (flash_fwd_kernel): four threads per q
 // row, each computing 16 logits of the tile and D/4 output columns, P
-// rounded to the input dtype for P.V as the TPU kernel feeds its MXU.
+// rounded to the input dtype for P.V as the TPU kernel feeds its MXU; the
+// soft-cap there is a uniform branch (cap_log2 > 0).
 #include <cuda.h>  // CUtensorMap and its enums: declarations only, libcuda is not linked
 
 #include "common.cuh"
@@ -110,7 +125,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, const int* __restrict__ seg_q,
                  const int* __restrict__ seg_k, int Hq, int Hkv, int Sq, int Sk,
-                 int is_causal, int offset, int window, float scale_log2) {
+                 int is_causal, int offset, int window, float scale_log2, float cap_log2) {
   constexpr int DP = D + 1;
   constexpr int PP = kBlockN + 1;
   constexpr int kDimsPerThread = D / kThreadsPerRow;
@@ -161,6 +176,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kColsPerThread; ++j)
         s[j] = fmaf(qd, ks[(t + kThreadsPerRow * j) * DP + d], s[j]);
+    }
+    if (cap_log2 > 0.f) {  // q carries scale / cap: s is the capped logit's tanh argument
+#pragma unroll
+      for (int j = 0; j < kColsPerThread; ++j) s[j] = fat::softcap_tanh(s[j]) * cap_log2;
     }
 
     unsigned live = 0;
@@ -222,7 +241,6 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 using fat::pack_bf16;
 using fat::smem_addr;
 
-constexpr int kTileN = 128;  // kv columns per tile
 constexpr int kAtom = 64;    // bf16 columns of one 128-byte swizzle atom
 constexpr int kStages = 2;   // K/V ring depth
 
@@ -232,6 +250,7 @@ constexpr int kStages = 2;   // K/V ring depth
 // 1024-byte boundary, as the swizzle pattern repeats every 8 rows.
 template <int D, int kConsumers>
 struct FwdLayout {
+  static constexpr int kTileN = D > 128 ? 64 : 128;  // kv columns per tile
   static constexpr int kBlockM = 64 * kConsumers;
   static constexpr int kQBytes = kBlockM * D * 2;
   static constexpr int kTileBytes = kTileN * D * 2;  // one K or V tile
@@ -244,6 +263,7 @@ struct FwdLayout {
   static constexpr int kVFull = kKFull + 8 * kStages;
   static constexpr int kEmpty = kVFull + 8 * kStages;
   static constexpr int kBytes = kEmpty + 8 * kStages + 1024;  // + the base's alignment
+  static_assert(kBytes <= 232448, "an H100 CTA takes at most 227 KB of shared memory");
   // + a producer warpgroup beside two consumer warpgroups; one consumer
   // warpgroup is its own producer, so three 4-warp CTAs share an SM at D 64
   // with 168 registers a thread (see flash_fwd_wgmma_kernel).
@@ -328,22 +348,45 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #define FA_R32                                                                           \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define FA_D128 \
+  FA_D64, FA_D8(64), FA_D8(72), FA_D8(80), FA_D8(88), FA_D8(96), FA_D8(104), FA_D8(112), FA_D8(120)
 #define FA_R64                                                                           \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "  \
   "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "  \
   "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define FA_R128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, " \
+  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, " \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, " \
+  "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, " \
+  "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, " \
+  "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, " \
+  "%126, %127}"
 
-// d (64 x 128, fp32) = (accumulate ? d : 0) + A (64 x 16) . B (16 x 128),
-// A and B bf16 in shared memory, both K-major.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FA_R64
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : FA_D64
-      : "l"(a), "l"(b), "r"(accumulate));
+// d (64 x N, fp32) = (accumulate ? d : 0) + A (64 x 16) . B (16 x N),
+// A and B bf16 in shared memory, both K-major; N is 64 or 128.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                         int accumulate) {
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FA_R32
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : FA_D32
+        : "l"(a), "l"(b), "r"(accumulate));
+  } else {
+    static_assert(N == 128, "S is 64 or 128 columns wide");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FA_R64
+        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : FA_D64
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
 }
 
 // d (64 x N, fp32) += A (64 x 16, bf16 fragments in registers) . B (16 x N),
@@ -357,13 +400,20 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const unsigned (&a)[
         ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
         : FA_D32
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  } else {
-    static_assert(N == 128, "O is 64 or 128 columns wide");
+  } else if constexpr (N == 128) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FA_R64
         ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
         : FA_D64
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  } else {
+    static_assert(N == 256, "O is 64, 128 or 256 columns wide");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " FA_R128
+        ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : FA_D128
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 }
@@ -371,8 +421,10 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const unsigned (&a)[
 #undef FA_D8
 #undef FA_D32
 #undef FA_D64
+#undef FA_D128
 #undef FA_R32
 #undef FA_R64
+#undef FA_R128
 
 // The copies a CTA's producer issues (one thread): Q's tile once, and the K
 // and V tiles of kv iteration `it` (the loop runs from the last of the
@@ -391,6 +443,7 @@ __device__ __forceinline__ void load_kv(unsigned smem, const CUtensorMap* k_map,
                                         const CUtensorMap* v_map, int it, int first,
                                         int n_tiles, int kv_head) {
   using L = FwdLayout<D, kConsumers>;
+  constexpr int kTileN = L::kTileN;
   const int s = it % kStages;
   const int n0 = (first + n_tiles - 1 - it) * kTileN;
   const unsigned k_full = smem + L::kKFull + 8 * s, v_full = smem + L::kVFull + 8 * s;
@@ -413,8 +466,9 @@ __device__ __forceinline__ void load_kv(unsigned smem, const CUtensorMap* k_map,
 // S product (k_map and v_map are used only then). kWindow instantiates the
 // window's left edge and kSeg the segment ids (seg_q, seg_k: this batch
 // row's [Sq] and [Sk]; ranges_q, ranges_k: their block ranges): without
-// them the loop is the causal kernel's alone.
-template <int D, int kConsumers, bool kWindow, bool kSeg>
+// them the loop is the causal kernel's alone; kCap the soft-cap (scale_log2
+// then carries scale / cap, cap_log2 cap * log2(e)).
+template <int D, int kConsumers, bool kWindow, bool kSeg, bool kCap>
 __device__ __forceinline__ void consume(unsigned smem, const CUtensorMap* k_map,
                                         const CUtensorMap* v_map, __nv_bfloat16* __restrict__ o,
                                         float* __restrict__ lse, const int* __restrict__ seg_q,
@@ -423,8 +477,12 @@ __device__ __forceinline__ void consume(unsigned smem, const CUtensorMap* k_map,
                                         const int2* __restrict__ ranges_k, int bh, int kv_head,
                                         int q0, int first, int n_tiles, int Sq, int Sk,
                                         int is_causal, int offset, int window,
-                                        float scale_log2) {
+                                        float scale_log2, float cap_log2) {
   using L = FwdLayout<D, kConsumers>;
+  constexpr int kTileN = L::kTileN;
+  // The softmax's factor from a score to the exp2 domain: the capped
+  // scores are there already.
+  const float mul = kCap ? 1.f : scale_log2;
   const unsigned k_full = smem + L::kKFull, v_full = smem + L::kVFull, empty = smem + L::kEmpty;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   // Consumer warpgroup wg. Accumulator element 4j + 2i + e of a thread sits
@@ -490,7 +548,7 @@ __device__ __forceinline__ void consume(unsigned smem, const CUtensorMap* k_map,
       seg_mask = !fat::one_id(wg_ids, tile_ids);
     }
 
-    // S = Q K^T (64 x 128 per warpgroup), raw scores.
+    // S = Q K^T (64 x kTileN per warpgroup), raw scores.
     float sc[kTileN / 2];
     const unsigned k_s = smem + L::kK + s * L::kTileBytes;
     mbar_wait(k_full + 8 * s, phase);
@@ -498,13 +556,18 @@ __device__ __forceinline__ void consume(unsigned smem, const CUtensorMap* k_map,
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const int a = kk / 4, col = (kk % 4) * 32;  // atom, byte column of the 16-wide k slice
-      wgmma_ss_n128(sc, sw128_desc(q_s + a * L::kBlockM * 128 + col, 16),
-                    sw128_desc(k_s + a * kTileN * 128 + col, 16), kk > 0);
+      wgmma_ss<kTileN>(sc, sw128_desc(q_s + a * L::kBlockM * 128 + col, 16),
+                       sw128_desc(k_s + a * kTileN * 128 + col, 16), kk > 0);
     }
     wgmma_commit();
     refill(it);  // under this S product
     wgmma_wait_all();
     fence_regs(sc);
+    if constexpr (kCap) {  // before any mask: masked scores then become -inf
+#pragma unroll
+      for (int i = 0; i < kTileN / 2; ++i)
+        sc[i] = fat::softcap_tanh(sc[i] * scale_log2) * cap_log2;
+    }
 
     if (seg_mask || it < n_hi || (kWindow && it >= n_tiles - n_lo)) {  // tiles across a bound
       if constexpr (kSeg) {  // a column's id read once for both rows
@@ -555,8 +618,8 @@ __device__ __forceinline__ void consume(unsigned smem, const CUtensorMap* k_map,
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       // A row that has seen no key yet keeps max -inf: exponents against 0
       // then give p = 0 and alpha = 0, never NaN.
-      m_scaled[i] = mx == -CUDART_INF_F ? 0.f : mx * scale_log2;
-      alpha[i] = exp2_ftz(m[i] * scale_log2 - m_scaled[i]);
+      m_scaled[i] = mx == -CUDART_INF_F ? 0.f : mx * mul;
+      alpha[i] = exp2_ftz(m[i] * mul - m_scaled[i]);
       m[i] = mx;
     }
     float psum[2] = {0.f, 0.f};
@@ -565,7 +628,7 @@ __device__ __forceinline__ void consume(unsigned smem, const CUtensorMap* k_map,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = e / 2;
-        sc[4 * j + e] = exp2_ftz(fmaf(sc[4 * j + e], scale_log2, -m_scaled[i]));
+        sc[4 * j + e] = exp2_ftz(fmaf(sc[4 * j + e], mul, -m_scaled[i]));
         psum[i] += sc[4 * j + e];
       }
 #pragma unroll
@@ -618,7 +681,7 @@ __device__ __forceinline__ void consume(unsigned smem, const CUtensorMap* k_map,
           __floats2bfloat162_rn(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
     if (lse != nullptr && t == 0)
       lse[static_cast<size_t>(bh) * Sq + r] =
-          l[i] > 0.f ? (m[i] * scale_log2 + log2f(l[i])) * fat::kLn2 : -CUDART_INF_F;
+          l[i] > 0.f ? (m[i] * mul + log2f(l[i])) * fat::kLn2 : -CUDART_INF_F;
   }
 }
 
@@ -628,8 +691,9 @@ __device__ __forceinline__ void consume(unsigned smem, const CUtensorMap* k_map,
 // producer, whose first thread issues every TMA copy, and with one its
 // thread 0 issues them between its products. Same contract as
 // flash_fwd_kernel; kWindow instantiates the sliding window (window > 0),
-// kSeg the segment ids (seg_q and seg_k not null).
-template <int D, int kConsumers, bool kWindow, bool kSeg>
+// kSeg the segment ids (seg_q and seg_k not null), kCap the soft-cap
+// (cap_log2 > 0).
+template <int D, int kConsumers, bool kWindow, bool kSeg, bool kCap>
 __global__ void __launch_bounds__(FwdLayout<D, kConsumers>::kThreads,
                                   kConsumers == 1 ? 3 : 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -638,8 +702,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        float* __restrict__ lse, const int* __restrict__ seg_q,
                        const int* __restrict__ seg_k, const int2* __restrict__ ranges_q,
                        const int2* __restrict__ ranges_k, int Hq, int Hkv, int Sq, int Sk,
-                       int is_causal, int offset, int window, float scale_log2) {
+                       int is_causal, int offset, int window, float scale_log2,
+                       float cap_log2) {
   using L = FwdLayout<D, kConsumers>;
+  constexpr int kTileN = L::kTileN;
   extern __shared__ unsigned char smem_raw[];
   const unsigned smem = (smem_addr(smem_raw) + 1023) & ~1023u;
   const unsigned q_full = smem + L::kQFull, k_full = smem + L::kKFull,
@@ -677,15 +743,15 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       for (int it = 0; it < min(kStages, n_tiles); ++it)
         load_kv<D, kConsumers>(smem, &k_map, &v_map, it, first, n_tiles, kv_head);
     }
-    consume<D, kConsumers, kWindow, kSeg>(smem, &k_map, &v_map, o, lse, row_seg_q, row_seg_k,
-                                          row_ranges_q, row_ranges_k, bh, kv_head, q0, first,
-                                          n_tiles, Sq, Sk, is_causal, offset, window,
-                                          scale_log2);
+    consume<D, kConsumers, kWindow, kSeg, kCap>(smem, &k_map, &v_map, o, lse, row_seg_q,
+                                                row_seg_k, row_ranges_q, row_ranges_k, bh,
+                                                kv_head, q0, first, n_tiles, Sq, Sk, is_causal,
+                                                offset, window, scale_log2, cap_log2);
   } else if (threadIdx.x >= 128 * kConsumers) {
     // Producer warpgroup: Q once, then K and V tile by tile, last tile
     // first. It hands its registers to the consumers (setmaxnreg): 12 warps
     // at launch leave 168 a thread, too few for a 64 x 128 O and a 64 x 128
-    // S at D 128.
+    // S at D 128, or a 64 x 256 O and a 64 x 64 S at D 256.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 128 * kConsumers && n_tiles > 0) {
       load_q<D, kConsumers>(smem, &q_map, q0, bh);
@@ -696,10 +762,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    consume<D, kConsumers, kWindow, kSeg>(smem, &k_map, &v_map, o, lse, row_seg_q, row_seg_k,
-                                          row_ranges_q, row_ranges_k, bh, kv_head, q0, first,
-                                          n_tiles, Sq, Sk, is_causal, offset, window,
-                                          scale_log2);
+    consume<D, kConsumers, kWindow, kSeg, kCap>(smem, &k_map, &v_map, o, lse, row_seg_q,
+                                                row_seg_k, row_ranges_q, row_ranges_k, bh,
+                                                kv_head, q0, first, n_tiles, Sq, Sk, is_causal,
+                                                offset, window, scale_log2, cap_log2);
   }
 }
 
@@ -707,14 +773,14 @@ template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, void* lse,
                        const int* seg_q, const int* seg_k, int B, int Hq, int Hkv, int Sq,
                        int Sk, int is_causal, int offset, int window, float scale_log2,
-                       cudaStream_t stream) {
+                       float cap_log2, cudaStream_t stream) {
   const cudaError_t err = fat::allow_max_smem<flash_fwd_kernel<D>>();
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kBlockM - 1) / kBlockM, Hq, B);
   flash_fwd_kernel<D><<<grid, kThreads, smem_bytes<D>(), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), seg_q,
-      seg_k, Hq, Hkv, Sq, Sk, is_causal, offset, window, scale_log2);
+      seg_k, Hq, Hkv, Sq, Sk, is_causal, offset, window, scale_log2, cap_log2);
   return cudaGetLastError();
 }
 
@@ -765,42 +831,49 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int d, int rows, int he
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D, int kConsumers, bool kWindow, bool kSeg>
+template <int D, int kConsumers, bool kWindow, bool kSeg, bool kCap>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
                         const int* seg_q, const int* seg_k, const int2* ranges_q,
                         const int2* ranges_k, int B, int Hq, int Hkv, int Sq, int Sk,
                         int is_causal, int offset, int window, float scale_log2,
-                        cudaStream_t stream) {
+                        float cap_log2, cudaStream_t stream) {
   using L = FwdLayout<D, kConsumers>;
-  cudaError_t err = fat::allow_max_smem<flash_fwd_wgmma_kernel<D, kConsumers, kWindow, kSeg>>();
+  cudaError_t err =
+      fat::allow_max_smem<flash_fwd_wgmma_kernel<D, kConsumers, kWindow, kSeg, kCap>>();
   const int q_tiles = (Sq + L::kBlockM - 1) / L::kBlockM;
   if (err == cudaSuccess && q_tiles > 65535) err = cudaErrorInvalidValue;
   CUtensorMap q_map, k_map, v_map;
   if (err == cudaSuccess) err = make_map(&q_map, q, D, Sq, B * Hq, L::kBlockM);
-  if (err == cudaSuccess) err = make_map(&k_map, k, D, Sk, B * Hkv, kTileN);
-  if (err == cudaSuccess) err = make_map(&v_map, v, D, Sk, B * Hkv, kTileN);
+  if (err == cudaSuccess) err = make_map(&k_map, k, D, Sk, B * Hkv, L::kTileN);
+  if (err == cudaSuccess) err = make_map(&v_map, v, D, Sk, B * Hkv, L::kTileN);
   if (err != cudaSuccess) return err;
-  flash_fwd_wgmma_kernel<D, kConsumers, kWindow, kSeg>
+  flash_fwd_wgmma_kernel<D, kConsumers, kWindow, kSeg, kCap>
       <<<dim3(B * Hq, q_tiles), L::kThreads, L::kBytes, stream>>>(
           q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), seg_q,
-          seg_k, ranges_q, ranges_k, Hq, Hkv, Sq, Sk, is_causal, offset, window, scale_log2);
+          seg_k, ranges_q, ranges_k, Hq, Hkv, Sq, Sk, is_causal, offset, window, scale_log2,
+          cap_log2);
   return cudaGetLastError();
 }
 
-// The bf16 kernel of head dim D (kConsumers warpgroups) for a window and
-// segment ids present or not.
+// The bf16 kernel of head dim D (kConsumers warpgroups) for a window,
+// segment ids and a soft-cap present or not (the soft-cap with or without
+// the window, never with segment ids: the caller refuses that pair).
 template <int D, int kConsumers>
-cudaError_t launch_bf16_any(bool win, bool seg, const void* q, const void* k, const void* v,
-                            void* o, void* lse, const int* seg_q, const int* seg_k,
-                            const int2* ranges_q, const int2* ranges_k, int B, int Hq, int Hkv,
-                            int Sq, int Sk, int is_causal, int offset, int window,
-                            float scale_log2, cudaStream_t stream) {
-  const auto fn = win ? (seg ? launch_bf16<D, kConsumers, true, true>
-                             : launch_bf16<D, kConsumers, true, false>)
-                      : (seg ? launch_bf16<D, kConsumers, false, true>
-                             : launch_bf16<D, kConsumers, false, false>);
+cudaError_t launch_bf16_any(bool win, bool seg, bool cap, const void* q, const void* k,
+                            const void* v, void* o, void* lse, const int* seg_q,
+                            const int* seg_k, const int2* ranges_q, const int2* ranges_k, int B,
+                            int Hq, int Hkv, int Sq, int Sk, int is_causal, int offset,
+                            int window, float scale_log2, float cap_log2,
+                            cudaStream_t stream) {
+  const auto fn =
+      cap ? (win ? launch_bf16<D, kConsumers, true, false, true>
+                 : launch_bf16<D, kConsumers, false, false, true>)
+      : win ? (seg ? launch_bf16<D, kConsumers, true, true, false>
+                   : launch_bf16<D, kConsumers, true, false, false>)
+            : (seg ? launch_bf16<D, kConsumers, false, true, false>
+                   : launch_bf16<D, kConsumers, false, false, false>);
   return fn(q, k, v, o, lse, seg_q, seg_k, ranges_q, ranges_k, B, Hq, Hkv, Sq, Sk, is_causal,
-            offset, window, scale_log2, stream);
+            offset, window, scale_log2, cap_log2, stream);
 }
 
 }  // namespace
@@ -812,33 +885,47 @@ cudaError_t launch_bf16_any(bool win, bool seg, const void* q, const void* k, co
 // none (the float32 kernel reads the ids alone). Row r sees column c
 // iff !is_causal or c <= r + offset, with window > 0 (causal only)
 // c >= r + offset - window + 1, and with segment ids
-// seg_q[b][r] == seg_k[b][c]. bf16 runs the wgmma kernel (q tiles of 64
-// rows at D 64, 128 at D 128), float32 the FMA kernel.
-// Returns the CUDA error code of the launch (0 = success).
+// seg_q[b][r] == seg_k[b][c]. The logits s (q . k) become s * scale_log2 in
+// the exp2 domain, or with cap_log2 > 0 (the soft-cap: cap * log2(e), and
+// scale_log2 then scale / cap) tanh(s * scale_log2) * cap_log2; the
+// bf16 kernel takes no soft-cap with segment ids. bf16 runs the wgmma
+// kernel (q tiles of 64 rows at D 64, 128 at D 128 and 256), float32 the
+// FMA kernel. Returns the CUDA error code of the launch (0 = success).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
                                 void* lse, const int* seg_q, const int* seg_k,
                                 const int2* ranges_q, const int2* ranges_k, int B, int Hq,
                                 int Hkv, int Sq, int Sk, int D, int dtype, int is_causal,
-                                int offset, int window, float scale_log2, void* stream) {
+                                int offset, int window, float scale_log2, float cap_log2,
+                                void* stream) {
   const bool seg = seg_q != nullptr;
+  const bool cap = cap_log2 > 0.f;
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || window < 0 ||
       (window > 0 && !is_causal) || seg != (seg_k != nullptr) || seg != (ranges_q != nullptr) ||
-      seg != (ranges_k != nullptr))
+      seg != (ranges_k != nullptr) || cap_log2 < 0.f || (cap && seg && dtype == fat::kBF16))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   const bool win = window > 0;
   if (dtype == fat::kBF16 && D == 64)
-    err = launch_bf16_any<64, 1>(win, seg, q, k, v, o, lse, seg_q, seg_k, ranges_q, ranges_k, B,
-                                 Hq, Hkv, Sq, Sk, is_causal, offset, window, scale_log2, s);
+    err = launch_bf16_any<64, 1>(win, seg, cap, q, k, v, o, lse, seg_q, seg_k, ranges_q,
+                                 ranges_k, B, Hq, Hkv, Sq, Sk, is_causal, offset, window,
+                                 scale_log2, cap_log2, s);
   else if (dtype == fat::kBF16 && D == 128)
-    err = launch_bf16_any<128, 2>(win, seg, q, k, v, o, lse, seg_q, seg_k, ranges_q, ranges_k,
-                                  B, Hq, Hkv, Sq, Sk, is_causal, offset, window, scale_log2, s);
+    err = launch_bf16_any<128, 2>(win, seg, cap, q, k, v, o, lse, seg_q, seg_k, ranges_q,
+                                  ranges_k, B, Hq, Hkv, Sq, Sk, is_causal, offset, window,
+                                  scale_log2, cap_log2, s);
+  else if (dtype == fat::kBF16 && D == 256)
+    err = launch_bf16_any<256, 2>(win, seg, cap, q, k, v, o, lse, seg_q, seg_k, ranges_q,
+                                  ranges_k, B, Hq, Hkv, Sq, Sk, is_causal, offset, window,
+                                  scale_log2, cap_log2, s);
   else if (dtype == fat::kF32 && D == 64)
     err = launch_f32<64>(q, k, v, o, lse, seg_q, seg_k, B, Hq, Hkv, Sq, Sk, is_causal, offset,
-                         window, scale_log2, s);
+                         window, scale_log2, cap_log2, s);
   else if (dtype == fat::kF32 && D == 128)
     err = launch_f32<128>(q, k, v, o, lse, seg_q, seg_k, B, Hq, Hkv, Sq, Sk, is_causal, offset,
-                          window, scale_log2, s);
+                          window, scale_log2, cap_log2, s);
+  else if (dtype == fat::kF32 && D == 256)
+    err = launch_f32<256>(q, k, v, o, lse, seg_q, seg_k, B, Hq, Hkv, Sq, Sk, is_causal, offset,
+                          window, scale_log2, cap_log2, s);
   return static_cast<int>(err);
 }

@@ -3,8 +3,9 @@
 ``ModelConfig`` keeps every field of the JAX config so that a config moves
 between the packages unchanged; ``dtype`` is a torch dtype. The port runs
 the dense Llama path with sliding windows (per layer with
-``window_pattern="alternate"``) and attention sinks; ``check_supported``
-rejects the fields whose port is still queued.
+``window_pattern="alternate"``), attention sinks, the attention logit
+soft-cap and Gemma-2's post-norms; ``check_supported`` rejects the fields
+whose port is still queued.
 """
 
 from __future__ import annotations
@@ -61,16 +62,12 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a config field whose port is queued."""
     if cfg.window_pattern not in (None, "alternate"):
         raise ValueError(f"unknown window_pattern {cfg.window_pattern!r}")
-    if cfg.logit_softcap:
-        raise unported("attention logit soft-capping", "A4 and A5")
     if cfg.use_alibi:
         raise unported("ALiBi", "A4 and A5")
     if cfg.qk_norm:
         raise unported("q/k RMSNorm", "A8")
     if cfg.attn_bias:
         raise unported("attention biases", "A8")
-    if cfg.use_post_norms:
-        raise unported("post-norms", "A8")
     if cfg.num_experts:
         raise unported("mixture-of-experts FFN", "A9")
     if cfg.rope_scaling is not None:
@@ -106,6 +103,32 @@ MISTRAL_7B = ModelConfig(
     rope_theta=10000.0,
     max_seq_len=8192,
     attn_window=4096,
+)
+
+# Gemma-2-9B geometry: alternating 4096-token local / global attention,
+# sandwich norms, GeGLU, attn+final soft-caps, scaled tied embeddings
+# (flashattn_tpu/models/config.py GEMMA2_9B, field for field).
+GEMMA2_9B = ModelConfig(
+    vocab_size=256128,
+    hidden_size=3584,
+    intermediate_size=14336,
+    num_layers=42,
+    num_heads=16,
+    num_kv_heads=8,
+    head_dim=256,
+    rope_theta=10000.0,
+    norm_eps=1e-6,
+    max_seq_len=8192,
+    tie_embeddings=True,
+    attn_window=4096,
+    window_pattern="alternate",
+    logit_softcap=50.0,
+    final_logit_softcap=30.0,
+    mlp_activation="gelu_tanh",
+    use_post_norms=True,
+    scale_embeddings=True,
+    attn_scale=256**-0.5,  # query_pre_attn_scalar = head_dim
+    norm_offset=1.0,
 )
 
 # Tiny config for tests.

@@ -2,8 +2,9 @@
 
 Both packages keep projections in [in, out] layout under the same names, so
 the conversion is a plain copy: no transposes, no renames beyond flattening
-``layers[i][name]`` into ``layers.{i}.{name}``. Weight-only quantized
-projections keep their bytes too (int8, or the packed int4 layout).
+``layers[i][name]`` into ``layers.{i}.{name}`` (Gemma-2's ``post_attn_norm``
+and ``post_mlp_norm`` included). Weight-only quantized projections keep
+their bytes too (int8, or the packed int4 layout).
 """
 
 from __future__ import annotations

@@ -11,7 +11,9 @@ as the JAX ones do. ``DecodeGraph`` replays decode_step from one CUDA
 graph, where the JAX package jits it. Each layer attends through its
 window (llama.layer_window), and in decode and chunks through the sinks of
 a windowed layer (cfg.attn_sink); the prefill passes no sink, as the JAX
-prefill does.
+prefill does. Every attention call takes cfg.logit_softcap, and with
+cfg.use_post_norms each block's output goes through its post-norm
+(llama.residuals) before the residual add, as in the JAX functions.
 """
 
 from __future__ import annotations
@@ -77,11 +79,12 @@ def prefill(
         # A fresh cache and an admission-bounded prompt: no drop guard.
         _append(cache, k, v, assume_fits=True)
         o = flash_attention(q, k, v, is_causal=True, scale=cfg.attn_scale,
-                            window=llama.layer_window(cfg, i))
+                            window=llama.layer_window(cfg, i),
+                            logit_softcap=cfg.logit_softcap)
         o = o.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
-        x = x + llama.proj(o, layer.wo)
-        x = x + llama._mlp_block(layer, x, cfg)
+        x = llama.residuals(layer, x, llama.proj(o, layer.wo), cfg)
     return llama.lm_logits(x if return_all else x[:, -1], model), caches
+
 
 
 @torch.inference_mode()
@@ -109,9 +112,10 @@ def decode_step(
         attn = (paged_decode_attention if isinstance(cache, PagedKVCache)
                 else decode_attention)
         win, sink = _window_sink(cfg, i)
-        o = attn(q[:, :, 0], cache, scale=cfg.attn_scale, window=win, sink=sink)  # [B, Hq, D]
-        x = x + llama.proj(o.reshape(b, cfg.num_heads * cfg.head_dim), layer.wo)
-        x = x + llama._mlp_block(layer, x, cfg)
+        o = attn(q[:, :, 0], cache, scale=cfg.attn_scale, window=win, sink=sink,
+                 logit_softcap=cfg.logit_softcap)  # [B, Hq, D]
+        x = llama.residuals(layer, x, llama.proj(o.reshape(b, cfg.num_heads * cfg.head_dim),
+                                            layer.wo), cfg)
     return llama.lm_logits(x, model), caches
 
 
@@ -202,10 +206,9 @@ def chunk_step(
                 else decode_attention_chunk)
         win, sink = _window_sink(cfg, i)
         o = attn(q.contiguous(), cache, scale=cfg.attn_scale, window=win,
-                 sink=sink)  # [B, Hq, C, D]
+                 sink=sink, logit_softcap=cfg.logit_softcap)  # [B, Hq, C, D]
         o = o.transpose(1, 2).reshape(b, c, cfg.num_heads * cfg.head_dim)
-        x = x + llama.proj(o, layer.wo)
-        x = x + llama._mlp_block(layer, x, cfg)
+        x = llama.residuals(layer, x, llama.proj(o, layer.wo), cfg)
     return llama.lm_logits(x, model), caches
 
 

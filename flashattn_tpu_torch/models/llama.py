@@ -46,6 +46,9 @@ class LlamaLayer(nn.Module):
         self.w_gate = param(h, f)
         self.w_up = param(h, f)
         self.w_down = param(f, h)
+        if cfg.use_post_norms:  # Gemma-2's sandwich norms on each block's output
+            self.post_attn_norm = param(h)
+            self.post_mlp_norm = param(h)
 
 
 class Llama(nn.Module):
@@ -97,6 +100,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     for layer in model.layers:
         layer.attn_norm.fill_(1.0 - cfg.norm_offset)
         layer.mlp_norm.fill_(1.0 - cfg.norm_offset)
+        if cfg.use_post_norms:
+            layer.post_attn_norm.fill_(1.0 - cfg.norm_offset)
+            layer.post_mlp_norm.fill_(1.0 - cfg.norm_offset)
         dense(layer.wq, h)
         dense(layer.wk, h)
         dense(layer.wv, h)
@@ -205,6 +211,20 @@ def _mlp_block(layer: LlamaLayer, x: torch.Tensor, cfg: ModelConfig) -> torch.Te
     return proj(act.to(x.dtype) * proj(xn, layer.w_up), layer.w_down)
 
 
+def residuals(layer: LlamaLayer, x: torch.Tensor, a: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """x plus the attention block's output `a`, then plus the MLP block's;
+    with cfg.use_post_norms each output goes through its own RMSNorm first
+    (Gemma-2's sandwich norms), as the JAX layer does."""
+    def post(name: str, y: torch.Tensor) -> torch.Tensor:
+        if not cfg.use_post_norms:
+            return y
+        return rms_norm(y, getattr(layer, name), cfg.norm_eps, cfg.norm_offset)
+
+    x = x + post("post_attn_norm", a)
+    return x + post("post_mlp_norm", _mlp_block(layer, x, cfg))
+
+
 def qkv(layer: LlamaLayer, xn: torch.Tensor, cfg: ModelConfig):
     """Projections of xn [B, S, H] -> q [B, Hq, S, D], k/v [B, Hkv, S, D]
     (before RoPE); v is made contiguous for the kernels."""
@@ -233,9 +253,11 @@ def _attn_block(layer: LlamaLayer, x: torch.Tensor, cos: torch.Tensor,
     k = apply_rope(k, cos, sin)
     if segment_ids is not None:
         o = flash_attention_varlen(q, k, v, segment_ids=segment_ids, is_causal=True,
-                                   scale=cfg.attn_scale, window=window)
+                                   scale=cfg.attn_scale, window=window,
+                                   logit_softcap=cfg.logit_softcap)
     else:
-        o = flash_attention(q, k, v, is_causal=True, scale=cfg.attn_scale, window=window)
+        o = flash_attention(q, k, v, is_causal=True, scale=cfg.attn_scale, window=window,
+                            logit_softcap=cfg.logit_softcap)
     o = o.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
     return proj(o, layer.wo)
 
@@ -269,7 +291,8 @@ def forward(model: Llama, tokens: torch.Tensor, segment_ids=None,
     segment_ids [B, S] the rows are packed documents: attention stays within
     a document (ops/varlen.py; ids < 0 are padding) and RoPE positions
     restart at each boundary. Rematerialisation (`remat`) is not ported yet
-    and raises (ROADMAP A3b)."""
+    and raises (ROADMAP A3b). A soft-capped model (cfg.logit_softcap) runs
+    without a gradient only: its backward is ROADMAP A4 (ii)."""
     if remat is not False:
         raise unported(f"remat={remat!r}", "A3b")
     cfg = model.cfg
@@ -281,8 +304,8 @@ def forward(model: Llama, tokens: torch.Tensor, segment_ids=None,
         positions = torch.arange(tokens.shape[1], device=tokens.device)
     cos, sin = rope_tables(cfg, positions)
     for i, layer in enumerate(model.layers):
-        x = x + _attn_block(layer, x, cos, sin, cfg, layer_window(cfg, i), segment_ids)
-        x = x + _mlp_block(layer, x, cfg)
+        x = residuals(layer, x, _attn_block(layer, x, cos, sin, cfg, layer_window(cfg, i),
+                                            segment_ids), cfg)
     return lm_logits(x, model)
 
 

@@ -6,7 +6,9 @@ JAX package's ``custom_vjp``) whose forward runs K1 with the LSE and keeps
 (q, k, v, o, lse) and the segment ids as residuals, and whose backward runs
 the backward kernels (ops/flash_bwd.py) with the same causal mask, window
 and segment ids. Without a gradient to take, the primal runs K1 without
-writing the LSE, as the JAX primal does.
+writing the LSE, as the JAX primal does; only the primal takes a logit
+soft-cap or D 256 (the backward kernels' are ROADMAP A4 (ii)): with a
+gradient to take, either raises before any launch.
 
 ``plain_flash_attention`` is the same Function over the plain versions of
 the forward and backward, the route the kernels are held against. It never
@@ -19,11 +21,13 @@ from typing import Callable
 
 import torch
 
+from flashattn_tpu_torch.ops import flash_bwd
 from flashattn_tpu_torch.ops.flash_bwd import (
     flash_attention_backward,
     flash_attention_backward_reference,
 )
 from flashattn_tpu_torch.ops.flash_fwd import (
+    check_backward_unported,
     flash_attention_forward,
     flash_attention_forward_reference,
 )
@@ -56,14 +60,18 @@ class FlashAttentionFunction(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None, None, None, None
 
 
-def _attention(q, k, v, is_causal, scale, pos_offset, window, segment_ids, forward_fn,
-               backward_fn):
+def _attention(q, k, v, is_causal, scale, pos_offset, window, segment_ids, logit_softcap,
+               forward_fn, backward_fn):
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        check_backward_unported(logit_softcap=logit_softcap)
+        if q.device.type == "cuda" and q.shape[-1] not in flash_bwd.HEAD_DIMS:
+            raise ValueError(f"head_dim {q.shape[-1]}: the backward kernels take "
+                             f"{flash_bwd.HEAD_DIMS} (ROADMAP A4 (ii))")
         seg_q, seg_k = (None, None) if segment_ids is None else segment_ids
         return FlashAttentionFunction.apply(q, k, v, seg_q, seg_k, is_causal, scale,
                                             pos_offset, window, forward_fn, backward_fn)
     o, _ = forward_fn(q, k, v, is_causal, scale, pos_offset, need_lse=False, window=window,
-                      segment_ids=segment_ids)
+                      segment_ids=segment_ids, logit_softcap=logit_softcap)
     return o
 
 
@@ -76,6 +84,7 @@ def flash_attention(
     pos_offset: int | None = None,
     window: int | None = None,
     segment_ids=None,
+    logit_softcap: float | None = None,
 ) -> torch.Tensor:
     """Fused flash attention -> O [B, Hq, S_q, D] in q.dtype, differentiable.
 
@@ -86,9 +95,11 @@ def flash_attention(
     documents go through ops/varlen.py) restrict it further, in the forward
     and the backward. The backward's implementation follows
     flash_attention_backward's "auto" (FLASHATTN_BWD_IMPL=split selects the
-    deterministic path)."""
+    deterministic path). `logit_softcap` (cap * tanh(s / cap) before the
+    mask) and D 256 run without a gradient only: with one they raise
+    before any launch (ROADMAP A4 (ii))."""
     return _attention(q, k, v, is_causal, scale, pos_offset, window, segment_ids,
-                      flash_attention_forward, flash_attention_backward)
+                      logit_softcap, flash_attention_forward, flash_attention_backward)
 
 
 def plain_flash_attention(
@@ -100,9 +111,10 @@ def plain_flash_attention(
     pos_offset: int | None = None,
     window: int | None = None,
     segment_ids=None,
+    logit_softcap: float | None = None,
 ) -> torch.Tensor:
     """flash_attention through the plain PyTorch forward and backward, on
     any device: the reference route for checking the kernels' route."""
     return _attention(q, k, v, is_causal, scale, pos_offset, window, segment_ids,
-                      flash_attention_forward_reference,
+                      logit_softcap, flash_attention_forward_reference,
                       flash_attention_backward_reference)

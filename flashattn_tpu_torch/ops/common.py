@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import math
+import numbers
 
 import numpy as np
 import torch
@@ -35,6 +36,25 @@ def card_device(device: torch.device | str = "cuda") -> torch.device:
             "no CUDA device: flashattn_tpu_torch runs its kernels on the "
             "card; pass device='cpu' to run the plain PyTorch versions")
     return device
+
+
+def check_softcap(logit_softcap) -> float | None:
+    """A logit soft-cap as the kernels take it: None (also for 0 or None:
+    off, as the JAX package's falsy test reads it) or a positive finite
+    float. Raises ValueError on anything else."""
+    if not logit_softcap:
+        return None
+    if isinstance(logit_softcap, bool) or not isinstance(logit_softcap, numbers.Real) \
+            or not math.isfinite(logit_softcap) or logit_softcap < 0:
+        raise ValueError(f"logit_softcap must be a positive number or None, got "
+                         f"{logit_softcap!r}")
+    return float(logit_softcap)
+
+
+def softcap(s: torch.Tensor, cap: float | None) -> torch.Tensor:
+    """cap * tanh(s / cap) on the scaled logits (identity without a cap):
+    the plain versions' soft-cap, before any mask."""
+    return s if cap is None else cap * torch.tanh(s / cap)
 
 
 def unported(feature: str, item: str) -> NotImplementedError:

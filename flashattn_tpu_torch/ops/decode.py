@@ -20,6 +20,11 @@ quantized per row (inside the kernel, with ``prep_decode_q``'s arithmetic),
 the logits are int(q·k) x q_scale x k_scale, and P x v_scale is requantized
 per row and 64-position tile to int8 before P·V. The fp8 mode converts k
 and v exactly and folds k_scale into the logits and v_scale into P.
+
+A logit soft-cap (Gemma-2) goes on the dequantized, scaled logits before
+any mask, as in the JAX kernel: q is pre-scaled by `scale` alone (in the
+int8 mode before it is quantized), and the logits become
+tanh(s * (1 / cap)) * cap * log2(e) in the exp2 domain.
 """
 
 from __future__ import annotations
@@ -27,19 +32,24 @@ from __future__ import annotations
 import torch
 
 from flashattn_tpu_torch.ops import _build
-from flashattn_tpu_torch.ops.common import LOG2E, cdiv, round_up, unported
+from flashattn_tpu_torch.ops.common import (LOG2E, cdiv, check_softcap, round_up, softcap,
+                                            unported)
 from flashattn_tpu_torch.ops.flash_fwd import DTYPE_CODES, HEAD_DIMS
 from flashattn_tpu_torch.ops.kvcache import FP8_DTYPE, INT8_MAX, KVCache
 
 # Kernel launches in this process, by the cache's mode (set to 0 by callers
-# that count a run), and those with a sliding window in any mode (counted in
-# both). Paged launches count in ops/paged.py.
+# that count a run), and those with a sliding window or a logit soft-cap in
+# any mode (counted in both). Paged launches count in ops/paged.py.
 LAUNCHES = 0  # bf16/f32 cache
 INT8_LAUNCHES = 0
 FP8_LAUNCHES = 0
 WINDOW_LAUNCHES = 0
+SOFTCAP_LAUNCHES = 0
 
 BLOCK_KV = 64  # cache positions per tile in the kernel (and int8 P requantization block)
+# A requantization block whose largest P x v_scale is below this becomes zeros
+# (csrc/decode.cu kRmaxMin): 127 / rmax must stay finite.
+RMAX_MIN = 2.0**-100
 # Query rows per CTA, and tiles a CTA takes at a time (csrc/decode.cu
 # launch_rows): up to FEW_ROWS rows (a decode step's group), the 4 warps
 # share the rows and take a tile each; more rows, a warp owns 16 of 64 and
@@ -52,11 +62,22 @@ TARGET_CTAS = 264
 CACHE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, FP8_DTYPE: 3}
 
 
-def _check_unported(logit_softcap, alibi) -> None:
-    if logit_softcap:
-        raise unported("decode logit soft-capping", "A5")
+def _check_unported(alibi) -> None:
     if alibi:
         raise unported("decode ALiBi", "A5")
+
+
+def pre_scale(scale: float, cap: float | None) -> float:
+    """What q is scaled by before the products (prep_decode_q's `pre`):
+    scale * log2(e), or `scale` alone under a soft-cap, whose tanh takes
+    the true logits (the JAX launcher's rule)."""
+    return scale * LOG2E if cap is None else scale
+
+
+def softcap_log2(s: torch.Tensor, cap: float | None) -> torch.Tensor:
+    """The JAX kernel's soft-cap of true logits into the exp2 domain:
+    tanh(s * (1 / cap)) * (cap * log2(e)); identity without a cap."""
+    return s if cap is None else torch.tanh(s * (1.0 / cap)) * (cap * LOG2E)
 
 
 def check_window(window: int | None, sink: int) -> None:
@@ -115,6 +136,7 @@ def jax_int8_block(s_max: int) -> int:
 def decode_attention_reference(
     q: torch.Tensor, cache: KVCache, scale: float | None = None,
     requant_block: int | None = None, window: int | None = None, sink: int = 0,
+    logit_softcap: float | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of K2: q [B, Hq, T, D] -> [B, Hq, T, D].
 
@@ -123,10 +145,12 @@ def decode_attention_reference(
     requantizes P over blocks of `requant_block` positions: by default the
     JAX kernel's block (jax_int8_block), which makes this the JAX kernel's
     arithmetic; BLOCK_KV gives the CUDA kernel's. `window` and `sink` as in
-    visible_positions."""
+    visible_positions; `logit_softcap` caps the scaled logits before the
+    masks."""
     check_window(window, sink)
+    cap = check_softcap(logit_softcap)
     if cache.quantized:
-        return _quantized_reference(q, cache, scale, requant_block, window, sink)
+        return _quantized_reference(q, cache, scale, requant_block, window, sink, cap)
     b, hq, t, d = q.shape
     hkv, s_max = cache.k.shape[1], cache.k.shape[2]
     group = hq // hkv
@@ -141,6 +165,7 @@ def decode_attention_reference(
     # [B, Hq, T, D] -> [B, Hkv, G*T, D]: row r is head r // T, token r % T.
     qf = q.float().reshape(b, hkv, group * t, d)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale  # [B, Hkv, R, Smax]
+    s = softcap(s, cap)
     visible = visible_positions(length, s_max, t, group * t, window, sink)
     s = s.masked_fill(~visible[:, None], float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
@@ -153,7 +178,7 @@ def decode_attention_reference(
 
 def _quantized_reference(q: torch.Tensor, cache: KVCache, scale: float | None,
                          requant_block: int | None, window: int | None,
-                         sink: int) -> torch.Tensor:
+                         sink: int, cap: float | None) -> torch.Tensor:
     """Plain version of K2's int8 and fp8 modes, in the JAX kernel's order of
     operations (log2 domain, k_scale on the logits, v_scale on P). In the
     int8 mode the row streams in blocks, as in the kernels: each block's
@@ -173,9 +198,9 @@ def _quantized_reference(q: torch.Tensor, cache: KVCache, scale: float | None,
     vf = torch.where(keep, cache.v.float(), 0.0)
     k_scale = torch.where(in_cache[:, None, None, :], cache.k_scale, 0.0)  # [B,Hkv,1,Smax]
     v_scale = torch.where(in_cache[:, None, None, :], cache.v_scale, 0.0)
-    q_rows, q_scale = prep_decode_q(q, hkv, int8_mode, scale * LOG2E)
+    q_rows, q_scale = prep_decode_q(q, hkv, int8_mode, pre_scale(scale, cap))
     s = torch.matmul(q_rows.float(), kf.transpose(-1, -2))  # [B, Hkv, R, Smax]
-    s = s * (q_scale * k_scale) if int8_mode else s * k_scale
+    s = softcap_log2(s * (q_scale * k_scale) if int8_mode else s * k_scale, cap)
     visible = visible_positions(length, s_max, t, rows, window, sink)
     s = s.masked_fill(~visible[:, None], float("-inf"))
     block = (requant_block or jax_int8_block(s_max)) if int8_mode else s_max
@@ -192,7 +217,7 @@ def _quantized_reference(q: torch.Tensor, cache: KVCache, scale: float | None,
         pvs = p * v_scale[..., n0:n0 + block]
         if int8_mode:
             rmax = pvs.amax(dim=-1, keepdim=True)
-            rmax = torch.where(rmax == 0.0, torch.ones_like(rmax), rmax)
+            rmax = torch.where(rmax < RMAX_MIN, torch.ones_like(rmax), rmax)
             p8 = torch.round(pvs * (127.0 / rmax))
             pv = torch.matmul(p8, vf[:, :, n0:n0 + block]) * (rmax / 127.0)
         else:
@@ -203,9 +228,21 @@ def _quantized_reference(q: torch.Tensor, cache: KVCache, scale: float | None,
     return o.reshape(b, hq, t, d).to(q.dtype)
 
 
-def _layout(rows: int) -> tuple[int, int]:
-    """(query rows a CTA, tiles it takes at a time) for `rows` rows a group."""
-    return (FEW_ROWS, 4) if rows <= FEW_ROWS else (ROW_BLOCK, 1)
+def _layout(rows: int, halves: bool = False) -> tuple[int, int]:
+    """(query rows a CTA, tiles it takes at a time) for `rows` rows a group.
+    With up to FEW_ROWS rows the 4 warps take 4 tiles at a time, with more
+    a warp owns 16 of ROW_BLOCK rows. With `halves` (split_dims: D 256) two
+    warps share each 16 rows and tile, each with half of O's dims: 2 tiles
+    at a time, or ROW_BLOCK / 2 rows (csrc/decode.cu MmaLayout)."""
+    if rows <= FEW_ROWS:
+        return FEW_ROWS, (2 if halves else 4)
+    return (ROW_BLOCK // 2 if halves else ROW_BLOCK), 1
+
+
+def split_dims(cache_dtype: torch.dtype, d: int) -> bool:
+    """Whether K2's tensor-core kernel splits O's dims between two warps
+    (_layout's `halves`): at D 256; the float32 kernel tiles its own way."""
+    return cache_dtype != torch.float32 and d > 128
 
 
 def live_span(s_max: int, t: int, window: int | None, sink: int) -> int:
@@ -220,14 +257,15 @@ def live_span(s_max: int, t: int, window: int | None, sink: int) -> int:
 
 
 def _num_splits(b: int, hkv: int, rows: int, s_max: int, t: int = 1,
-                window: int | None = None, sink: int = 0) -> tuple[int, int]:
+                window: int | None = None, sink: int = 0,
+                halves: bool = False) -> tuple[int, int]:
     """(split_len, num_splits): slices of a multiple of the BLOCK_KV
     positions a CTA takes at a time over the live span (live_span), enough
     of them for TARGET_CTAS blocks where the span is long enough. A
     function of the shapes, the window and the sink alone, so a paged and a
     dense cache of one max_len take the same slices (and give the same
     bits), and a captured call stays right as the lengths grow."""
-    row_block, tiles = _layout(rows)
+    row_block, tiles = _layout(rows, halves)
     span = live_span(s_max, t, window, sink)
     want = max(1, cdiv(TARGET_CTAS, b * hkv * cdiv(rows, row_block)))
     split_len = round_up(cdiv(span, want), BLOCK_KV * tiles)
@@ -262,17 +300,19 @@ def _check_cuda_operands(q, k, v, k_scale, v_scale, length, table) -> None:
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            k_scale: torch.Tensor | None, v_scale: torch.Tensor | None,
            length: torch.Tensor, table: torch.Tensor | None, s_max: int,
-           scale: float, window: int | None = None, sink: int = 0) -> torch.Tensor:
+           scale: float, window: int | None = None, sink: int = 0,
+           cap: float | None = None) -> torch.Tensor:
     """Launch K2 on CUDA tensors: q [B, Hq, T, D]; k/v [B, Hkv, Smax, D]
     (dense, table None) or pages [P, Hkv, page, D] read through
     table [B, max_pages] (paged, s_max = max_pages * page; an entry outside
     [0, P) is never read, its block holds no key); `window` and `sink` as
-    in visible_positions."""
+    in visible_positions; `cap` a checked soft-cap (check_softcap) or None."""
     _check_cuda_operands(q, k, v, k_scale, v_scale, length, table)
     b, hq, t, d = q.shape
     hkv = k.shape[1]
     rows = (hq // hkv) * t
-    split_len, splits = _num_splits(b, hkv, rows, s_max, t, window, sink)
+    split_len, splits = _num_splits(b, hkv, rows, s_max, t, window, sink,
+                                    split_dims(k.dtype, d))
     f32 = dict(dtype=torch.float32, device=q.device)
     part_m = torch.empty((b, hkv, splits, rows), **f32)
     part_l = torch.empty((b, hkv, splits, rows), **f32)
@@ -293,14 +333,15 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             length.data_ptr(), ptr(table), part_m.data_ptr(), part_l.data_ptr(),
             part_acc.data_ptr(), o.data_ptr(), b, hq, hkv, t, s_max,
             d, DTYPE_CODES[q.dtype], CACHE_CODES[k.dtype], max_pages, page, num_pages,
-            split_len, splits, min(window or 0, s_max), min(sink, s_max), scale * LOG2E,
-            stream)
+            split_len, splits, min(window or 0, s_max), min(sink, s_max),
+            pre_scale(scale, cap), 0.0 if cap is None else 1.0 / cap,
+            0.0 if cap is None else cap * LOG2E, stream)
     _build.check(lib, rc, "decode")
     return o
 
 
 def _decode(q: torch.Tensor, cache: KVCache, scale: float | None,
-            window: int | None, sink: int) -> torch.Tensor:
+            window: int | None, sink: int, cap: float | None) -> torch.Tensor:
     b, hq, t, d = q.shape
     if cache.k.dim() != 4 or cache.k.shape != cache.v.shape:
         raise ValueError("cache k/v must be [B, Hkv, Smax, D] of one shape")
@@ -311,13 +352,15 @@ def _decode(q: torch.Tensor, cache: KVCache, scale: float | None,
     if not (q.device == cache.k.device == cache.v.device == cache.length.device):
         raise ValueError("q and the cache must be on one device")
     if q.device.type == "cpu":
-        return decode_attention_reference(q, cache, scale, window=window, sink=sink)
+        return decode_attention_reference(q, cache, scale, window=window, sink=sink,
+                                          logit_softcap=cap)
     if scale is None:
         scale = 1.0 / d**0.5
     o = launch(q, cache.k, cache.v, cache.k_scale, cache.v_scale, cache.length, None,
-               s_max, scale, window, sink)
-    global LAUNCHES, INT8_LAUNCHES, FP8_LAUNCHES, WINDOW_LAUNCHES
+               s_max, scale, window, sink, cap)
+    global LAUNCHES, INT8_LAUNCHES, FP8_LAUNCHES, WINDOW_LAUNCHES, SOFTCAP_LAUNCHES
     WINDOW_LAUNCHES += window is not None
+    SOFTCAP_LAUNCHES += cap is not None
     if cache.k.dtype == torch.int8:
         INT8_LAUNCHES += 1
     elif cache.k.dtype == FP8_DTYPE:
@@ -342,10 +385,13 @@ def decode_attention(
     contiguous (cache k and v 16-byte aligned), with q bf16 or float32, the
     cache in q's dtype or quantized (int8/fp8 with float32 scales), and D
     in HEAD_DIMS; anything else raises. With a `window` the new token sees
-    the last `window` positions and, with `sink`, the first `sink` ones."""
-    _check_unported(logit_softcap, alibi)
+    the last `window` positions and, with `sink`, the first `sink` ones.
+    `logit_softcap` caps the scaled logits (cap * tanh(s / cap)) before the
+    masks; None or 0 is off."""
+    _check_unported(alibi)
     check_window(window, sink)
-    return _decode(q[:, :, None], cache, scale, window, sink)[:, :, 0]
+    return _decode(q[:, :, None], cache, scale, window, sink,
+                   check_softcap(logit_softcap))[:, :, 0]
 
 
 def decode_attention_chunk(
@@ -361,6 +407,6 @@ def decode_attention_chunk(
     q [B, Hq, T, D] -> [B, Hq, T, D]. Same rules as decode_attention; with a
     window, token t sees the positions in (its own - window, its own] and
     those below `sink`."""
-    _check_unported(logit_softcap, alibi)
+    _check_unported(alibi)
     check_window(window, sink)
-    return _decode(q, cache, scale, window, sink)
+    return _decode(q, cache, scale, window, sink, check_softcap(logit_softcap))

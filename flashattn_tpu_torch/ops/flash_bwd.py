@@ -15,7 +15,9 @@
   kernel keeps only one kv tile's dK/dV on chip, so it serves every length.
 
 Every path takes the sliding window and packed-document segment ids (the
-forward's `window` and `segment_ids`, ops/flash_fwd.py).
+forward's `window` and `segment_ids`, ops/flash_fwd.py). The kernels take
+HEAD_DIMS, not the forward's D 256, and no logit soft-cap (both ROADMAP
+A4 (ii)).
 """
 
 from __future__ import annotations
@@ -32,8 +34,8 @@ from flashattn_tpu_torch.ops.flash_bwd_fused import (
     require_cuda,
 )
 from flashattn_tpu_torch.ops.flash_fwd import (
+    check_backward_unported,
     check_segments,
-    check_unported,
     check_window,
     kernel_segments,
 )
@@ -47,6 +49,9 @@ DQ_WINDOW_LAUNCHES = 0
 DKV_WINDOW_LAUNCHES = 0
 DQ_SEGMENT_LAUNCHES = 0
 DKV_SEGMENT_LAUNCHES = 0
+
+# Head dims the backward kernels take (the forward's: flash_fwd.HEAD_DIMS).
+HEAD_DIMS = (64, 128)
 
 IMPLS = ("auto", "fused", "split")
 IMPL_ENV = "FLASHATTN_BWD_IMPL"
@@ -119,11 +124,11 @@ def flash_attention_backward(
 
     CPU tensors take the plain version. CUDA tensors launch the kernels and
     must be contiguous, 16-byte aligned bf16 or float32 with D in
-    flash_fwd.HEAD_DIMS, and lse contiguous float32; anything else raises.
+    HEAD_DIMS, and lse contiguous float32; anything else raises.
     """
-    check_unported(dropout_rate, logit_softcap, alibi, dyn_pos_offset)
+    check_backward_unported(dropout_rate, logit_softcap, alibi, dyn_pos_offset)
     impl = resolve_impl(impl)
-    check_backward_operands(q, k, v, o, do, lse)
+    check_backward_operands(q, k, v, o, do, lse, HEAD_DIMS)
     check_window(window, is_causal)
     segment_ids = check_segments(segment_ids, q, k)
     if q.device.type == "cpu":

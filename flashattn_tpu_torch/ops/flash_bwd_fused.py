@@ -36,10 +36,11 @@ WINDOW_LAUNCHES = 0
 SEGMENT_LAUNCHES = 0
 
 
-def check_backward_operands(q, k, v, o, do, lse) -> None:
+def check_backward_operands(q, k, v, o, do, lse, head_dims: tuple[int, ...]) -> None:
     """Shapes, devices and, on the card, what the backward kernels take:
-    o and do shaped like q, lse [B, Hq, S_q] (float32 on the card), plus the
-    forward's checks. Raises ValueError."""
+    o and do shaped like q, lse [B, Hq, S_q] (float32 on the card), D in
+    `head_dims` (flash_bwd.HEAD_DIMS), plus the forward's checks. Raises
+    ValueError."""
     check_qkv(q, k, v)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must be "
@@ -52,7 +53,7 @@ def check_backward_operands(q, k, v, o, do, lse) -> None:
         return
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    check_kernel_operands(q=q, k=k, v=v, o=o, do=do)
+    check_kernel_operands(head_dims, q=q, k=k, v=v, o=o, do=do)
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous float32, got {lse.dtype}")
 

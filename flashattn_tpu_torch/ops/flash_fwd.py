@@ -5,8 +5,8 @@ tensors. It serves what the JAX package splits between the wavefront kernel
 (flash_fwd.py::_fwd_kernel) and the grid4 kernel
 (flash_fwd_grid4.py::_grid4_kernel): both compute one function on the plain
 subset, and the port has one grid for it, which also takes the sliding
-window and packed-document segment ids (the JAX package sends those to
-_fwd_kernel).
+window, packed-document segment ids and the logit soft-cap (the JAX package
+sends those to _fwd_kernel).
 """
 
 from __future__ import annotations
@@ -14,17 +14,19 @@ from __future__ import annotations
 import torch
 
 from flashattn_tpu_torch.ops import _build
-from flashattn_tpu_torch.ops.common import LOG2E, cdiv, unported
+from flashattn_tpu_torch.ops.common import LOG2E, cdiv, check_softcap, unported
 from flashattn_tpu_torch.ops.reference import reference_attention_with_lse
 
 # Kernel launches in this process (set to 0 by callers that count a run):
-# all of them, those with a sliding window and those with segment ids (a
-# launch counts in each that applies).
+# all of them, those with a sliding window, those with segment ids and
+# those with a logit soft-cap (a launch counts in each that applies).
 LAUNCHES = 0
 WINDOW_LAUNCHES = 0
 SEGMENT_LAUNCHES = 0
+SOFTCAP_LAUNCHES = 0
 
-HEAD_DIMS = (64, 128)
+# Head dims K1 and K2 take (the backward kernels': flash_bwd.HEAD_DIMS).
+HEAD_DIMS = (64, 128, 256)
 # A window at least this wide reaches every key of an int32-indexed call:
 # the kernels take it so.
 WINDOW_MAX = 1 << 30
@@ -41,12 +43,13 @@ def flash_attention_forward_reference(
     need_lse: bool = True,
     window: int | None = None,
     segment_ids=None,
+    logit_softcap: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Plain PyTorch version of K1, on any device."""
     check_window(window, is_causal)
     segment_ids = check_segments(segment_ids, q, k)
     o, lse = reference_attention_with_lse(q, k, v, is_causal, scale, pos_offset, window,
-                                          segment_ids)
+                                          segment_ids, logit_softcap)
     return o, (lse if need_lse else None)
 
 
@@ -126,15 +129,16 @@ def check_qkv(q, k, v) -> None:
         raise ValueError("q, k and v must be on one device")
 
 
-def check_kernel_operands(**tensors: torch.Tensor) -> None:
+def check_kernel_operands(head_dims: tuple[int, ...] = HEAD_DIMS, /,
+                          **tensors: torch.Tensor) -> None:
     """What the attention kernels take on the card: one dtype of
-    DTYPE_CODES, D in HEAD_DIMS, contiguous, 16-byte aligned; raise
-    ValueError on anything else."""
+    DTYPE_CODES, D in `head_dims` (the forward's HEAD_DIMS by default),
+    contiguous, 16-byte aligned; raise ValueError on anything else."""
     names = "/".join(tensors)
     ts = list(tensors.values())
     d = ts[0].shape[-1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    if d not in head_dims:
+        raise ValueError(f"head_dim {d} not in {head_dims}")
     if ts[0].dtype not in DTYPE_CODES or any(t.dtype != ts[0].dtype for t in ts):
         raise ValueError(f"dtypes {'/'.join(str(t.dtype) for t in ts)} of {names}: "
                          f"need one of {list(DTYPE_CODES)} for all")
@@ -174,6 +178,8 @@ def flash_attention_forward(
       segment_ids: (seg_q [B, S_q], seg_k [B, S_k]) int32 packed-document
         ids: row r also needs seg_q[b, r] == seg_k[b, c]
         (ops/varlen.py canonicalises padding ids).
+      logit_softcap: cap * tanh(s / cap) on the scaled logits s, before
+        any mask (Gemma-2); None or 0 is off.
 
     Returns:
       (O [B, Hq, S_q, D] in q.dtype, LSE [B, Hq, S_q] float32 natural log or
@@ -184,13 +190,14 @@ def flash_attention_forward(
     anything else raises. bf16 runs the wgmma kernel, float32 the CUDA-core
     kernel.
     """
-    check_unported(dropout_rate, logit_softcap, alibi, dyn_pos_offset)
+    check_forward_unported(dropout_rate, alibi, dyn_pos_offset)
     check_qkv(q, k, v)
     check_window(window, is_causal)
     segment_ids = check_segments(segment_ids, q, k)
+    cap = check_softcap(logit_softcap)
     if q.device.type == "cpu":
-        return flash_attention_forward_reference(q, k, v, is_causal, scale,
-                                                 pos_offset, need_lse, window, segment_ids)
+        return flash_attention_forward_reference(q, k, v, is_causal, scale, pos_offset,
+                                                 need_lse, window, segment_ids, cap)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     b, hq, s_q, d = q.shape
@@ -203,7 +210,13 @@ def flash_attention_forward(
     o = torch.empty_like(q)
     lse = (torch.empty((b, hq, s_q), dtype=torch.float32, device=q.device)
            if need_lse else None)
+    if cap is not None and segment_ids is not None:
+        raise unported("logit soft-capping with segment ids on the card", "A4 (ii)")
     segs = kernel_segments(segment_ids)
+    # The kernel's logits in the exp2 domain: s * scale * log2(e), or with
+    # a cap tanh(s * scale / cap) * cap * log2(e) (only `scale` folds before
+    # the tanh, as in the JAX launcher).
+    pre, cap_log2 = (scale * LOG2E, 0.0) if cap is None else (scale / cap, cap * LOG2E)
     lib = _build.load("flash_fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -211,24 +224,31 @@ def flash_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if need_lse else None, *pointers(*segs),
             b, hq, hkv, s_q, s_k, d, DTYPE_CODES[q.dtype], int(is_causal),
-            offset, min(window or 0, WINDOW_MAX), scale * LOG2E, stream)
+            offset, min(window or 0, WINDOW_MAX), pre, cap_log2, stream)
     _build.check(lib, rc, "flash_fwd")
-    global LAUNCHES, WINDOW_LAUNCHES, SEGMENT_LAUNCHES
+    global LAUNCHES, WINDOW_LAUNCHES, SEGMENT_LAUNCHES, SOFTCAP_LAUNCHES
     LAUNCHES += 1
     WINDOW_LAUNCHES += window is not None
     SEGMENT_LAUNCHES += segment_ids is not None
+    SOFTCAP_LAUNCHES += cap is not None
     return o, lse
 
 
-def check_unported(dropout_rate=0.0, logit_softcap=None, alibi=False,
-                   dyn_pos_offset=None) -> None:
+def check_forward_unported(dropout_rate=0.0, alibi=False, dyn_pos_offset=None) -> None:
     """Raise NotImplementedError (ROADMAP A4) for an option of the JAX
-    kernels that the port does not compute yet."""
+    forward kernel that K1 does not compute yet."""
     if dropout_rate:
         raise unported("attention dropout", "A4")
-    if logit_softcap:
-        raise unported("logit soft-capping", "A4")
     if alibi:
         raise unported("ALiBi", "A4")
     if dyn_pos_offset is not None:
         raise unported("dyn_pos_offset", "A4")
+
+
+def check_backward_unported(dropout_rate=0.0, logit_softcap=None, alibi=False,
+                            dyn_pos_offset=None) -> None:
+    """The forward's check, and the soft-cap, which the backward kernels do
+    not compute yet (ROADMAP A4 (ii))."""
+    check_forward_unported(dropout_rate, alibi, dyn_pos_offset)
+    if check_softcap(logit_softcap) is not None:
+        raise unported("logit soft-capping in the backward", "A4 (ii)")

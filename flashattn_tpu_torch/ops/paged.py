@@ -25,14 +25,16 @@ import dataclasses
 import torch
 
 from flashattn_tpu_torch.ops import decode
-from flashattn_tpu_torch.ops.common import card_device, cdiv
+from flashattn_tpu_torch.ops.common import card_device, cdiv, check_softcap
 from flashattn_tpu_torch.ops.kvcache import (KVCache, _raw, quantize_tokens,
                                              store_dtype_for)
 
 # Paged K2 launches in this process, in any cache mode (set to 0 by callers
-# that count a run), and those with a sliding window (counted in both).
+# that count a run), and those with a sliding window or a logit soft-cap
+# (counted in both).
 LAUNCHES = 0
 WINDOW_LAUNCHES = 0
+SOFTCAP_LAUNCHES = 0
 
 PAGE_MULTIPLE = decode.BLOCK_KV  # a kernel tile never straddles a page
 
@@ -343,30 +345,33 @@ def paged_to_dense_reference(cache: PagedKVCache) -> KVCache:
 
 def paged_decode_reference(q: torch.Tensor, cache: PagedKVCache, scale: float | None = None,
                            requant_block: int | None = None, window: int | None = None,
-                           sink: int = 0) -> torch.Tensor:
+                           sink: int = 0, logit_softcap: float | None = None) -> torch.Tensor:
     """Plain version of the paged K2: the pages gathered through the table,
     then the dense plain version. An int8 pool requantizes P per page by
     default, as the JAX paged kernel does (its block is the page)."""
     return decode.decode_attention_reference(q, paged_to_dense_reference(cache), scale,
-                                             requant_block or cache.page_size, window, sink)
+                                             requant_block or cache.page_size, window, sink,
+                                             logit_softcap)
 
 
 def _paged_decode(q: torch.Tensor, cache: PagedKVCache, scale: float | None,
-                  window: int | None, sink: int):
+                  window: int | None, sink: int, cap: float | None):
     b, hq, t, d = q.shape
     p, hkv, page, dk = cache.k_pages.shape
     if b != cache.batch or dk != d or hq % hkv:
         raise ValueError(f"q {tuple(q.shape)} does not match the paged cache "
                          f"{tuple(cache.k_pages.shape)}, batch {cache.batch}")
     if q.device.type == "cpu":
-        return paged_decode_reference(q, cache, scale, window=window, sink=sink)
+        return paged_decode_reference(q, cache, scale, window=window, sink=sink,
+                                      logit_softcap=cap)
     if scale is None:
         scale = 1.0 / d**0.5
     o = decode.launch(q, cache.k_pages, cache.v_pages, cache.k_scale, cache.v_scale,
-                      cache.length, cache.block_table, cache.max_len, scale, window, sink)
-    global LAUNCHES, WINDOW_LAUNCHES
+                      cache.length, cache.block_table, cache.max_len, scale, window, sink, cap)
+    global LAUNCHES, WINDOW_LAUNCHES, SOFTCAP_LAUNCHES
     LAUNCHES += 1
     WINDOW_LAUNCHES += window is not None
+    SOFTCAP_LAUNCHES += cap is not None
     return o
 
 
@@ -383,10 +388,12 @@ def paged_decode_attention(
     q [B, Hq, D] -> [B, Hq, D]. CPU tensors take the plain version (the
     pages gathered through the table, then the dense plain version); CUDA
     tensors launch K2 through the table, under decode_attention's rules
-    (window and sink included; a sink tile is read through its own page)."""
-    decode._check_unported(logit_softcap, alibi)
+    (window, sink and soft-cap included; a sink tile is read through its own
+    page)."""
+    decode._check_unported(alibi)
     decode.check_window(window, sink)
-    return _paged_decode(q[:, :, None], cache, scale, window, sink)[:, :, 0]
+    return _paged_decode(q[:, :, None], cache, scale, window, sink,
+                         check_softcap(logit_softcap))[:, :, 0]
 
 
 def paged_decode_attention_chunk(
@@ -401,6 +408,6 @@ def paged_decode_attention_chunk(
     """T new tokens per sequence, causal within the chunk, against the paged
     cache (chunked prefill): q [B, Hq, T, D] -> [B, Hq, T, D]. The chunk's
     K/V must already be appended."""
-    decode._check_unported(logit_softcap, alibi)
+    decode._check_unported(alibi)
     decode.check_window(window, sink)
-    return _paged_decode(q, cache, scale, window, sink)
+    return _paged_decode(q, cache, scale, window, sink, check_softcap(logit_softcap))

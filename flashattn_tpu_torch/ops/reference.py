@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from flashattn_tpu_torch.ops.common import check_softcap, softcap
+
 
 def visible(s_q: int, s_k: int, is_causal: bool = False, pos_offset: int | None = None,
             window: int | None = None, segment_ids=None,
@@ -51,6 +53,7 @@ def reference_attention_with_lse(
     pos_offset: int | None = None,
     window: int | None = None,
     segment_ids=None,
+    logit_softcap: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Unfused attention returning (O, LSE).
 
@@ -64,6 +67,8 @@ def reference_attention_with_lse(
         j >= i + pos_offset - window + 1.
       segment_ids: (seg_q [B, S_q], seg_k [B, S_k]) packed-document ids:
         row i also needs seg_q[b, i] == seg_k[b, j].
+      logit_softcap: cap * tanh(s / cap) on the scaled logits, before any
+        mask (Gemma-2); None or 0 is off.
 
     Returns:
       O [B, Hq, S_q, D] in q.dtype and LSE [B, Hq, S_q] float32 in natural
@@ -76,12 +81,13 @@ def reference_attention_with_lse(
     g = hq // hkv
     if scale is None:
         scale = 1.0 / d**0.5
+    cap = check_softcap(logit_softcap)
     mask = visible(s_q, s_k, is_causal, pos_offset, window, segment_ids, q.device)
     outs, lses = [], []
     for h in range(hkv):
         qf = q[:, h * g:(h + 1) * g].float()
         kf, vf = k[:, h:h + 1].float(), v[:, h:h + 1].float()
-        s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+        s = softcap(torch.matmul(qf, kf.transpose(-1, -2)) * scale, cap)
         if mask is not None:
             s = s.masked_fill(~mask, float("-inf"))
         m = s.amax(dim=-1, keepdim=True)
@@ -105,10 +111,11 @@ def reference_attention(
     pos_offset: int | None = None,
     window: int | None = None,
     segment_ids=None,
+    logit_softcap: float | None = None,
 ) -> torch.Tensor:
     """Unfused attention, O only."""
     return reference_attention_with_lse(q, k, v, is_causal, scale, pos_offset, window,
-                                        segment_ids)[0]
+                                        segment_ids, logit_softcap)[0]
 
 
 def reference_attention_backward(

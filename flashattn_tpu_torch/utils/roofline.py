@@ -145,7 +145,10 @@ def attention_fwd_roofline(
     float32 LSE when `need_lse`, and the int32 segment ids when given.
     Operations: the JAX package's count (half the square when causal), or
     with a window (causal) or segment ids (seg_q, seg_k) 4 D for each pair a
-    head sees (window_pairs, segment_pairs)."""
+    head sees (window_pairs, segment_pairs). A logit soft-cap adds nothing
+    to the count: its tanh, like the exponentials, runs beside the products
+    on the special-function units, so the bound stays the products' and the
+    bytes' (decode_roofline too). Any head dim (64 to 256) counts alike."""
     q_bytes = b * hq * s_q * d * dtype_bytes
     kv_bytes = 2 * b * hkv * s_k * d * dtype_bytes
     lse_bytes = 4 * b * hq * s_q if need_lse else 0

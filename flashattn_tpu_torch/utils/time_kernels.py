@@ -19,7 +19,14 @@ a bf16 cache at T 1 (B 4, Hq 32, Hkv 8, D 128, Smax 8192, every length
 and, where the package has them (ops/flash_bwd.py's segment counters),
 the packed training row (B 1, Hq 32, Hkv 8, D 128, S 8192, window 4096,
 documents of 6100, 1300, 517 and 211 tokens, then 64 of padding): K1 with
-the LSE and B3, B4 and B5 with the window and segment ids.
+the LSE and B3, B4 and B5 with the window and segment ids; and, where the
+package has the soft-cap (ops/flash_fwd.py's SOFTCAP_LAUNCHES), GEMMA2_9B's
+rows with cap 50: K1 at its prefill (B 1, Hq 16, Hkv 8, S 4608, D 256, no
+LSE) on a global layer, a local one (window 4096) and without the cap, K1
+with the cap at the MISTRAL_7B window row (the cap's own cost at D 128),
+and K2 on a bf16 cache at T 1 (B 2, Hq 16, Hkv 8, D 256, Smax 8192, every
+length 8192) global and local, the paged K2 (pages of 256) global, and K2
+on an int8 cache at T 256.
 Prints the card's name and power limit, then one JSON line of
 milliseconds. It calls nothing but the public functions, so run as a file
 with another checkout of the package first on PYTHONPATH,
@@ -28,7 +35,7 @@ with another checkout of the package first on PYTHONPATH,
 
 it times that checkout's kernels: two versions compared in turns on one
 card. `--only k1,backward` times those groups alone (decode, qmm, k1,
-backward, window, packed). Needs a CUDA device.
+backward, window, packed, softcap). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -59,7 +66,11 @@ K1_SHAPES = {"k1_prefill": (1, 32, 4, 256, 64, False),
 WIN, SINK = 4096, 4
 K1_WINDOW = (1, 32, 8, 4608, 128)  # B, Hq, Hkv, S, D
 WIN_B, WIN_HKV, WIN_SMAX = 4, 8, 8192
-GROUPS = ("decode", "qmm", "k1", "backward", "window", "packed")
+GROUPS = ("decode", "qmm", "k1", "backward", "window", "packed", "softcap")
+# GEMMA2_9B's rows: its prefill (B, Hq, Hkv, S, D) and its decode step.
+CAP = 50.0
+K1_GEMMA = (1, 16, 8, 4608, 256)
+GEMMA_B, GEMMA_SMAX = 2, 8192
 # The packed training row of chip_smoke.py's packed phase.
 PACK_DOCS, PACK_S = (6100, 1300, 517, 211), 8192
 
@@ -119,6 +130,8 @@ def main() -> None:
         ms.update(windowed(gen))
     if "packed" in only and hasattr(flash_bwd, "DQ_SEGMENT_LAUNCHES"):
         ms.update(packed(gen))
+    if "softcap" in only and hasattr(flash_fwd, "SOFTCAP_LAUNCHES"):
+        ms.update(softcapped(gen))
     print(json.dumps({"tag": args.tag, "ms": ms}))
 
 
@@ -221,6 +234,51 @@ def windowed(gen: torch.Generator) -> dict[str, float]:
     ms["decode_no_window_bf16"] = cuda_time_ms(lambda: decode.decode_attention(qd, cache))
     ms["paged_decode_window_bf16"] = cuda_time_ms(
         lambda: paged.paged_decode_attention(qd, pool, window=WIN, sink=SINK))
+    return ms
+
+
+def softcapped(gen: torch.Generator) -> dict[str, float]:
+    """GEMMA2_9B's soft-capped rows (module docstring)."""
+    b, hq, hkv, s, d = K1_GEMMA
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    ms = {}
+    for name, kw in (("k1_gemma", dict(logit_softcap=CAP)),
+                     ("k1_gemma_window", dict(window=WIN, logit_softcap=CAP)),
+                     ("k1_d256", {})):
+        ms[name] = cuda_time_ms(lambda: flash_fwd.flash_attention_forward(
+            q, k, v, True, need_lse=False, **kw))
+    b, hq, hkv, s, d = K1_WINDOW
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    ms["k1_window_softcap"] = cuda_time_ms(lambda: flash_fwd.flash_attention_forward(
+        q, k, v, True, need_lse=False, window=WIN, logit_softcap=CAP))
+    del q, k, v
+    _, hq, hkv, _, d = K1_GEMMA
+    shape = (GEMMA_B, hkv, GEMMA_SMAX, d)
+    length = torch.full((GEMMA_B,), GEMMA_SMAX, dtype=torch.int32, device="cuda")
+    kv = [torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+          for _ in range(2)]
+    cache = KVCache(*kv, length=length)
+    maxp = GEMMA_SMAX // PAGE
+    pool = paged.init_paged_cache(GEMMA_B, hkv, GEMMA_B * maxp, PAGE, d, maxp, device="cuda")
+    for i in range(GEMMA_B):
+        row = KVCache(k=cache.k[i:i + 1], v=cache.v[i:i + 1], length=cache.length[i:i + 1])
+        paged.write_slot_paged(pool, row, i, list(range(i * maxp, (i + 1) * maxp)))
+    qd = torch.randn((GEMMA_B, hq, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+    ms["decode_gemma_bf16"] = cuda_time_ms(
+        lambda: decode.decode_attention(qd, cache, logit_softcap=CAP))
+    ms["decode_gemma_window_bf16"] = cuda_time_ms(
+        lambda: decode.decode_attention(qd, cache, window=WIN, logit_softcap=CAP))
+    ms["paged_decode_gemma_bf16"] = cuda_time_ms(
+        lambda: paged.paged_decode_attention(qd, pool, logit_softcap=CAP))
+    del pool
+    cache8 = kvcache.init_cache(GEMMA_B, hkv, GEMMA_SMAX, d, quant="int8", device="cuda")
+    kvcache.update_cache(cache8, *kv, assume_fits=True)
+    q256 = torch.randn((GEMMA_B, hq, CHUNK, d), generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    ms[f"decode_gemma_int8_t{CHUNK}"] = cuda_time_ms(
+        lambda: decode.decode_attention_chunk(q256, cache8, logit_softcap=CAP))
     return ms
 
 

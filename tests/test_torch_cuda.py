@@ -28,7 +28,11 @@ widths) and, with K1, packed-document segment ids (ragged documents and
 padding, causal or not, with a window, a (seg_q, seg_k) pair with S_q !=
 S_k; padding's outputs and gradients exactly 0), the split path bitwise
 equal with both; varlen attention, the packed model's loss and a train
-step run through the kernels.
+step run through the kernels. K1 and K2 (dense and paged, every cache
+mode) take head dim 256 and the logit soft-cap (caps of 5 to 50 on logits
+that pass them, with windows, sinks, S_q != S_k and rows without keys;
+paged equal to dense bit for bit), a gradient with either raises before
+any launch, and a tiny Gemma-2 model on the card matches the CPU.
 
 These tests need a CUDA device and skip without one. On the card:
 
@@ -1407,3 +1411,195 @@ def test_varlen_and_packed_model_run_the_kernels(dev):
     assert added["flash_fwd_segments"] == added["flash_bwd_fused_segments"] == 2
     assert added["flash_fwd_window"] == added["flash_bwd_fused_window"] == 2
     assert torch.isfinite(metrics["loss"])
+
+
+# ---- the logit soft-cap and head dim 256: K1, K2 dense and paged ----
+
+SOFTCAP_FWD_CASES = {
+    # name: (B, Hq, Hkv, S_q, S_k, D, causal, pos_offset, window, cap)
+    "d256_cap50": (1, 4, 2, 700, 700, 256, True, None, None, 50.0),
+    "d256_cap50_w300": (1, 4, 2, 700, 700, 256, True, None, 300, 50.0),
+    "d256_nocap": (2, 4, 1, 333, 333, 256, True, None, None, None),
+    "d256_nocap_w65": (1, 8, 2, 515, 515, 256, True, None, 65, None),
+    "d256_cap5_noncausal": (1, 4, 4, 77, 333, 256, False, None, None, 5.0),
+    "d256_cap30_sq_below_sk": (1, 8, 2, 130, 700, 256, True, 400, 200, 30.0),
+    "d256_cap50_no_key_rows": (1, 4, 2, 256, 256, 256, True, -70, None, 50.0),
+    "d256_tile_edges": (1, 2, 1, 129, 129, 256, True, None, 64, 50.0),
+    "d64_cap30": (1, 8, 2, 600, 600, 64, True, None, None, 30.0),
+    "d64_cap30_w100": (1, 8, 2, 600, 600, 64, True, None, 100, 30.0),
+    "d128_cap50": (1, 8, 2, 515, 515, 128, True, None, None, 50.0),
+    "d128_cap5_w63_noncausal_gqa": (2, 8, 1, 300, 300, 128, False, None, None, 5.0),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", sorted(SOFTCAP_FWD_CASES))
+def test_softcap_and_d256_flash_fwd_kernel_match_plain(dev, dtype, case):
+    """K1 at D 256 and with the soft-cap against its plain version: caps
+    of 5 to 50 on inputs whose logits pass them (q x 8), with and without a
+    window, causal or not, S_q != S_k with a pos_offset, rows that see no
+    key, a q tile one row past the 128-row tile; the soft-capped launches
+    counted."""
+    b, hq, hkv, s_q, s_k, d, causal, off, w, cap = SOFTCAP_FWD_CASES[case]
+    q = randn((b, hq, s_q, d), dtype, dev, 101) * 8
+    k = randn((b, hkv, s_k, d), dtype, dev, 102)
+    v = randn((b, hkv, s_k, d), dtype, dev, 103)
+    before = flash_fwd.SOFTCAP_LAUNCHES
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, causal, pos_offset=off, window=w,
+                                               logit_softcap=cap)
+    torch.cuda.synchronize()
+    assert flash_fwd.SOFTCAP_LAUNCHES == before + (cap is not None)
+    o_ref, lse_ref = flash_fwd.flash_attention_forward_reference(
+        q, k, v, causal, pos_offset=off, window=w, logit_softcap=cap)
+    rep = verify_results(o_ref, o, **TOL[dtype])
+    assert rep.passed, f"O: {rep}"
+    rep = verify_results(lse_ref, lse, atol=1e-3)
+    assert rep.passed, f"LSE: {rep}"
+    dead = torch.isneginf(lse_ref)
+    assert torch.equal(torch.isneginf(lse), dead)
+    assert not bool(o[dead].any())
+
+
+SOFTCAP_DECODE_CASES = {
+    # name: (Hq, Hkv, T, D, Smax, lengths, window, sink, cap)
+    "d256_t1": (16, 8, 1, 256, 1024, [1, 64, 65, 700], None, 0, 50.0),
+    "d256_t1_window_sink": (16, 8, 1, 256, 1024, [3, 100, 700, 1024], 100, 4, 50.0),
+    "d256_t4_nocap": (8, 2, 4, 256, 512, [4, 90, 300, 512], None, 0, None),
+    "d256_t256": (16, 8, 256, 256, 2048, [256, 300, 1500, 2048], 1000, 4, 50.0),
+    "d128_t1_cap30": (16, 2, 1, 128, 1024, [1, 64, 65, 1024], 64, 4, 30.0),
+    "d64_t4_cap5": (8, 4, 4, 64, 1024, [4, 90, 600, 1024], None, 0, 5.0),
+}
+
+
+@pytest.mark.parametrize("mode", ["bf16", "f32", "int8", "fp8"])
+@pytest.mark.parametrize("case", sorted(SOFTCAP_DECODE_CASES))
+def test_softcap_and_d256_decode_kernel_match_plain(dev, mode, case):
+    """K2 at D 256 and with the soft-cap in all four cache modes against
+    its plain version (int8 P requantized per 64-position tile, as the
+    kernel does), on q whose logits pass the cap (x 6): lengths on both
+    sides of a window, sinks, one row a group and 16 (G 2 and 8), chunks of
+    4 and 256."""
+    hq, hkv, t, d, s_max, lengths, w, sink, cap = SOFTCAP_DECODE_CASES[case]
+    dtype = torch.float32 if mode == "f32" else torch.bfloat16
+    quant = mode if mode in ("int8", "fp8") else None
+    cache = window_cache(quant, dtype, len(lengths), hkv, s_max, d, lengths, dev, 104)
+    q = randn((len(lengths), hq, t, d), dtype, dev, 106) * 6
+    before = decode.SOFTCAP_LAUNCHES
+    o = decode.decode_attention_chunk(q, cache, window=w, sink=sink, logit_softcap=cap)
+    torch.cuda.synchronize()
+    assert decode.SOFTCAP_LAUNCHES == before + (cap is not None)
+    assert bool(torch.isfinite(o).all())
+    ref = decode.decode_attention_reference(q, cache, requant_block=decode.BLOCK_KV,
+                                            window=w, sink=sink, logit_softcap=cap)
+    rep = verify_results(ref, o, **(QTOL if quant else TOL[dtype]))
+    assert rep.passed, rep
+    if t == 1:
+        o1 = decode.decode_attention(q[:, :, 0].contiguous(), cache, window=w, sink=sink,
+                                     logit_softcap=cap)
+        assert torch.equal(o1, o[:, :, 0])
+
+
+@pytest.mark.parametrize("cap", [None, 50.0])
+@pytest.mark.parametrize("t", [1, 256])
+@pytest.mark.parametrize("d", [64, 256])
+def test_int8_decode_kernel_on_peaked_rows_matches_plain(dev, d, t, cap):
+    """K2's int8 mode on q x 100, whose rows leave most 64-position tiles
+    so far below their maximum that P x v_scale is subnormal or zero there:
+    such a tile requantizes to zeros (csrc/decode.cu kRmaxMin), finite and
+    within the quantized gate of the plain version."""
+    lengths = [1, 700, 2048]
+    cache = window_cache("int8", torch.bfloat16, len(lengths), 2, 2048, d, lengths, dev, 107)
+    q = randn((len(lengths), 8, t, d), torch.bfloat16, dev, 108) * 100
+    o = decode.decode_attention_chunk(q, cache, logit_softcap=cap)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(o).all())
+    ref = decode.decode_attention_reference(q, cache, requant_block=decode.BLOCK_KV,
+                                            logit_softcap=cap)
+    rep = verify_results(ref, o, **QTOL)
+    assert rep.passed, rep
+
+
+@pytest.mark.parametrize("page", [64, 256])
+@pytest.mark.parametrize("quant", [None, "int8", "fp8"])
+@pytest.mark.parametrize("t", [1, 256])
+def test_softcap_d256_paged_decode_equals_dense(dev, quant, page, t):
+    """The paged K2 at D 256 with cap 50, a window and sinks equals the
+    dense K2 bit for bit on the same content in scrambled pages."""
+    b, hq, hkv, d, s_max = 2, 16, 8, 256, 2048
+    lengths = [600, 2048]
+    cache = window_cache(quant, torch.bfloat16, b, hkv, s_max, d, lengths, dev, 107)
+    pool = paged_copy(cache, page, dev)
+    q = randn((b, hq, t, d), torch.bfloat16, dev, 109) * 6
+    kw = dict(window=500, sink=4, logit_softcap=50.0)
+    before = paged.SOFTCAP_LAUNCHES
+    o_paged = paged.paged_decode_attention_chunk(q, pool, **kw)
+    o_dense = decode.decode_attention_chunk(q, cache, **kw)
+    torch.cuda.synchronize()
+    assert paged.SOFTCAP_LAUNCHES == before + 1
+    assert torch.equal(o_paged, o_dense)
+    ref = paged.paged_decode_reference(q, pool, requant_block=decode.BLOCK_KV, **kw)
+    rep = verify_results(ref, o_paged, **(TOL[torch.bfloat16] if quant is None else QTOL))
+    assert rep.passed, rep
+
+
+def test_softcap_and_d256_need_no_gradient(dev):
+    """Training with a cap or at D 256 is ROADMAP A4 (ii): flash_attention
+    raises before any launch when a gradient is needed, the backward
+    refuses D 256, and K1 refuses a cap with segment ids; without a
+    gradient the primal runs K1 alone."""
+    q = randn((1, 4, 128, 256), torch.bfloat16, dev, 110)
+    k = randn((1, 2, 128, 256), torch.bfloat16, dev, 111)
+    before = launch_counters.read()
+    with pytest.raises(NotImplementedError, match=r"A4 \(ii\)"):
+        flash_attention(q.clone().requires_grad_(), k, k, is_causal=True, logit_softcap=50.0)
+    with pytest.raises(ValueError, match="head_dim 256"):
+        flash_attention(q.clone().requires_grad_(), k, k, is_causal=True)
+    assert launch_counters.read() == before
+    o = flash_attention(q, k, k, is_causal=True, logit_softcap=50.0)
+    added = {n: c - before[n] for n, c in launch_counters.read().items() if c != before[n]}
+    assert added == {"flash_fwd": 1, "flash_fwd_softcap": 1}
+    ref, _ = flash_fwd.flash_attention_forward_reference(q, k, k, True, logit_softcap=50.0)
+    assert verify_results(ref, o, **TOL[torch.bfloat16]).passed
+    o_, lse = flash_fwd.flash_attention_forward(q, k, k, True)
+    with pytest.raises(ValueError, match="head_dim 256"):
+        flash_bwd.flash_attention_backward(q, k, k, o_, o_, lse, is_causal=True)
+    seg = torch.zeros((1, 128), dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match=r"A4 \(ii\)"):
+        flash_fwd.flash_attention_forward(q, k, k, True, segment_ids=(seg, seg),
+                                          logit_softcap=50.0)
+
+
+def test_tiny_gemma_on_card_matches_cpu(dev):
+    """A float32 model with every Gemma-2 field (D 256, alternate window of
+    16, caps 50 and 30, post-norms) through K1 and K2 on the card against
+    the plain versions on the CPU: a prefill past the window and decode
+    steps; atol 1e-3, rtol 1e-3 (float32 kernels: exp2 against exp and
+    sums in another order, through 3 layers)."""
+    cfg = ModelConfig(vocab_size=128, hidden_size=128, intermediate_size=256, num_layers=3,
+                      num_heads=2, num_kv_heads=1, head_dim=256, max_seq_len=256,
+                      dtype=torch.float32, norm_eps=1e-6, tie_embeddings=True, attn_window=16,
+                      window_pattern="alternate", logit_softcap=50.0, final_logit_softcap=30.0,
+                      mlp_activation="gelu_tanh", use_post_norms=True, scale_embeddings=True,
+                      attn_scale=256**-0.5, norm_offset=1.0)
+    cpu = llama.init_params(cfg, torch.Generator().manual_seed(5), device="cpu")
+    with torch.no_grad():
+        for layer in cpu.layers:
+            layer.wq.mul_(12.0)  # logits that reach the cap
+    card = llama.Llama(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    prompt = torch.randint(0, 128, (2, 40), generator=torch.Generator().manual_seed(6))
+    forced = torch.randint(0, 128, (3, 2), generator=torch.Generator().manual_seed(7))
+    outs = []
+    for model in (cpu, card):
+        caches = generate.init_caches(model, 2, 128)
+        logits, caches = generate.prefill(model, prompt.to(model.device), caches,
+                                          return_all=True)
+        steps = [logits.cpu()]
+        for i in range(3):
+            pos = torch.full((2,), 40 + i, dtype=torch.int32, device=model.device)
+            logits, caches = generate.decode_step(model, forced[i].to(model.device), pos, caches)
+            steps.append(logits.cpu())
+        outs.append(steps)
+    for i, (want, got) in enumerate(zip(*outs)):
+        rep = verify_results(want, got, atol=1e-3, rtol=1e-3)
+        assert rep.passed, f"step {i}: {rep}"

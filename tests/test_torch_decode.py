@@ -91,9 +91,10 @@ def test_decode_empty_row_is_zero():
 
 
 @pytest.mark.parametrize("option,item", [
-    # A window is ported; soft-cap and ALiBi still raise beside one.
-    (dict(window=64, logit_softcap=30.0), "A5"), (dict(window=64, sink=4, alibi=True), "A5"),
-    (dict(logit_softcap=30.0), "A5"), (dict(alibi=True), "A5"),
+    # The window and the soft-cap are ported; ALiBi still raises beside them.
+    (dict(window=64, logit_softcap=30.0, alibi=True), "A5"),
+    (dict(window=64, sink=4, alibi=True), "A5"),
+    (dict(logit_softcap=30.0, alibi=True), "A5"), (dict(alibi=True), "A5"),
 ])
 def test_decode_unported_options_raise(option, item):
     rng = np.random.default_rng(2)

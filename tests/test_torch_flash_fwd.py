@@ -100,10 +100,12 @@ def test_reference_matches_jax_oracle():
 
 @pytest.mark.parametrize("option", [
     # The window and segment ids are ported (tests/test_torch_window.py,
-    # tests/test_torch_varlen.py); dropout and soft-cap still raise beside them.
+    # tests/test_torch_varlen.py), and so is the soft-cap
+    # (tests/test_torch_softcap.py); dropout, ALiBi and dyn_pos_offset still
+    # raise beside them.
     dict(segment_ids=(0, 0), dropout_rate=0.1), dict(dropout_rate=0.1),
-    dict(window=16, logit_softcap=30.0),
-    dict(logit_softcap=30.0), dict(alibi=True), dict(dyn_pos_offset=0),
+    dict(window=16, logit_softcap=30.0, alibi=True),
+    dict(logit_softcap=30.0, dropout_rate=0.1), dict(alibi=True), dict(dyn_pos_offset=0),
 ])
 def test_unported_options_raise(option):
     q, k, v = (torch.from_numpy(a) for a in make_qkv(2, 1, 8, 8, d=8))

@@ -157,9 +157,9 @@ def test_init_params_is_seeded():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("logit_softcap", 50.0, "A4 and A5"), ("use_alibi", True, "A4 and A5"),
+    ("use_alibi", True, "A4 and A5"),
     ("qk_norm", True, "A8"), ("attn_bias", True, "A8"),
-    ("use_post_norms", True, "A8"), ("num_experts", 4, "A9"),
+    ("num_experts", 4, "A9"),
     ("rope_scaling", (8.0, 1.0, 4.0, 8192), "A8"),
     ("rope_longrope", ((1.0,), (1.0,), 4096, 1.0), "A8"),
 ])
@@ -167,6 +167,13 @@ def test_unported_config_fields_raise(field, value, item):
     cfg = dataclasses.replace(ModelConfig(), **{field: value})
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         check_supported(cfg)
+
+
+@pytest.mark.parametrize("field,value", [("logit_softcap", 50.0), ("use_post_norms", True)])
+def test_gemma2_config_fields_are_supported(field, value):
+    """The attention soft-cap and the post-norms are ported (the Gemma-2
+    model's parity: tests/test_torch_gemma_model.py)."""
+    check_supported(dataclasses.replace(ModelConfig(), **{field: value}))
 
 
 # ---- quantized weights, quantized KV caches, chunked steps, paged caches ----

@@ -3,9 +3,11 @@ chip_smoke.py, import and run on the CPU in a process where `import jax`
 fails (generation, the server, two training steps, the quantized paged
 server with a shared prefix and chunked admission, its calibrations, the
 timing harness, the roofline, a windowed model with sinks generating
-and serving, and packed windowed training: ops/varlen.py's
+and serving, packed windowed training: ops/varlen.py's
 flash_attention_varlen with its gradient, and models/data.py's
-PackedDataset through prefetch into train.train). A CPU call takes the
+PackedDataset through prefetch into train.train, and a Gemma-2-shaped
+model (D 256, soft-caps, post-norms, alternate windows) generating and
+serving from an int8 KV pool with chunked admission). A CPU call takes the
 plain versions and launches no kernel."""
 
 import os
@@ -85,6 +87,18 @@ ds = data.PackedDataset([list(range(1, n)) for n in (30, 12, 45, 7)], batch_size
 state, hist = train.train(win, data.prefetch(ds.batches()), train.TrainConfig(warmup_steps=1),
                           steps=2, log_every=1)
 assert state["step"] == 2 and len(hist) == 2
+# A Gemma-2-shaped model: head dim 256, attention and final soft-caps,
+# post-norms, alternate windows; generation and the int8-KV paged server.
+gemma = llama.init_params(dataclasses.replace(
+    TINY, head_dim=256, num_layers=2, attn_window=16, window_pattern="alternate",
+    logit_softcap=50.0, final_logit_softcap=30.0, use_post_norms=True, norm_offset=1.0,
+    mlp_activation="gelu_tanh", scale_embeddings=True, tie_embeddings=True),
+    torch.Generator().manual_seed(2), device="cpu")
+generate.generate(gemma, torch.tensor([list(range(30))]), max_new_tokens=3)
+srv = InferenceServer(gemma, max_slots=2, max_len=128, quant="int8", paged=True,
+                      page_size=64, admit_chunk=32)
+srv.submit(Request(uid=4, prompt=list(range(45)), max_new_tokens=4))
+assert len(srv.run()[4]) == 4
 from flashattn_tpu_torch.ops import launches
 assert not any(launches.read().values()), f"CPU call counted a launch: {launches.read()}"
 counts = (flash_fwd.LAUNCHES, decode.LAUNCHES, decode.INT8_LAUNCHES, decode.FP8_LAUNCHES,
@@ -93,8 +107,9 @@ counts = (flash_fwd.LAUNCHES, decode.LAUNCHES, decode.INT8_LAUNCHES, decode.FP8_
           flash_fwd.WINDOW_LAUNCHES, decode.WINDOW_LAUNCHES, paged.WINDOW_LAUNCHES,
           flash_fwd.SEGMENT_LAUNCHES, flash_bwd_fused.WINDOW_LAUNCHES,
           flash_bwd_fused.SEGMENT_LAUNCHES, flash_bwd.DQ_WINDOW_LAUNCHES,
-          flash_bwd.DKV_SEGMENT_LAUNCHES)
-assert counts == (0,) * 18, f"CPU call counted a launch: {counts}"
+          flash_bwd.DKV_SEGMENT_LAUNCHES, flash_fwd.SOFTCAP_LAUNCHES,
+          decode.SOFTCAP_LAUNCHES, paged.SOFTCAP_LAUNCHES)
+assert counts == (0,) * 21, f"CPU call counted a launch: {counts}"
 loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
           or m == "flashattn_tpu" or m.startswith("flashattn_tpu.")]
 assert loaded == ["jax"], loaded  # only the None placeholder

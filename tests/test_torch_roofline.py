@@ -20,6 +20,7 @@ ATTN_SHAPES = [  # (B, Hq, Hkv, S_q, S_k, D, causal)
     (4, 32, 4, 2048, 2048, 64, True),
     (4, 8, 8, 16384, 16384, 128, True),
     (2, 8, 2, 512, 1024, 128, False),
+    (1, 16, 8, 4608, 4608, 256, True),  # GEMMA2_9B's prefill, head dim 256
 ]
 
 
@@ -151,3 +152,16 @@ def test_segment_bounds_count_the_visible_pairs(causal, window, pos_offset):
         assert bwd.flops == products / 2 * fwd.flops
         assert bwd.hbm_bytes == roofline.attention_bwd_roofline(
             b, 4, 2, s_q, s_k, 64, causal, kernel=kernel, chip=H100).hbm_bytes + 4 * b * (s_q + s_k)
+
+
+def test_head_dim_256_decode_bound_counts_its_bytes():
+    """K2 at GEMMA2_9B's decode step (B 2, Hq 16, Hkv 8, D 256, full
+    8192-token bf16 caches): the live K and V once, q and O, the lengths;
+    4 D operations a q head and seen position. A soft-cap adds no
+    operation to the count (utils/roofline.py)."""
+    rep = roofline.decode_roofline(2, 16, 8, 256, [8192, 8192], chip=H100)
+    assert rep.hbm_bytes == 2 * 8 * 16384 * 256 * 2 + 2 * 2 * 16 * 256 * 2 + 4 * 2
+    assert rep.flops == 4.0 * 16 * 256 * 16384
+    assert rep.bound_by == "bytes"
+    half = roofline.decode_roofline(2, 16, 8, 128, [8192, 8192], chip=H100)
+    assert rep.hbm_bytes == pytest.approx(2 * half.hbm_bytes, rel=1e-3)
