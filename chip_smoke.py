@@ -5,7 +5,7 @@ NVIDIA GPU.
     python3 chip_smoke.py
 
 Builds the five CUDA libraries from csrc/ (into build/flashattn_tpu_torch/,
-one nvcc each, all at once) and runs twelve phases, printing one line per
+one nvcc each, all at once) and runs thirteen phases, printing one line per
 check:
 
 1. environment: torch/CUDA versions, the card's name and power limit, the
@@ -13,11 +13,12 @@ check:
    tensor-core kernels and the split-K kernel, no wgmma serialized), and
    the tensor-core instructions (HMMA/HGMMA/IMMA) in the SASS of each
    tensor-core kernel, which must be there for K1's bf16 kernel (HGMMA, at
-   D 64, 128 and 256, with and without a window and segment ids, and its
-   ten D 256 and soft-cap instantiations named), the bf16
-   fused, dQ and dK/dV kernels (with and without the window and segment
-   ids), qmm8's and qmm4's M > 16 kernels and every instantiation of
-   K2's (D 64, 128 and 256, with and without a window);
+   D 64, 128 and 256, with and without a window, segment ids and the
+   soft-cap, its sixteen D 256 and soft-cap instantiations named), the
+   bf16 fused, dQ and dK/dV kernels (D 64, 128 and 256, with and without
+   the window, segment ids and the soft-cap, their 36 D 256 and soft-cap
+   instantiations named), qmm8's and qmm4's M > 16 kernels and every
+   instantiation of K2's (D 64, 128 and 256, with and without a window);
 2. each kernel against its plain PyTorch version on the card, at the
    serving and training paths' shapes and at their edges (K1 also at every
    backward case, where it makes the backward's O and LSE, and timed at the
@@ -64,7 +65,16 @@ check:
    int8 and fp8 at T 256), the paged K2 torch.equal to the dense K2 in
    each; each timed beside SDPA without the cap (with the
    boolean window mask on a local layer) and, where it compiles,
-   flex_attention with a soft-cap score_mod (a competitor only);
+   flex_attention with a soft-cap score_mod (a competitor only); then the
+   soft-cap in the backward kernels (softcap_backward_kernels): K1 (the cap
+   with segment ids), B3 and B4 + B5 against their plain versions at D 64,
+   128 and 256 with the cap alone, a window, documents, both, hot inputs
+   (q x 30), S_q != S_k with a pos_offset, non-causal and float32, then at
+   GEMMA2_9B's packed training row (B 1, Hq 16, Hkv 8, D 256, S 8192, the
+   packed row's documents, cap 50) on a global and a local layer, the
+   split path bitwise equal across two calls, each timed beside its plain
+   version, SDPA's backward with a boolean mask and no cap, flex_attention's
+   backward with a soft-cap score_mod where it compiles, and its bound;
 3. LLAMA_1B at full width (random weights from a seed): prefill of a
    150-token prompt and 4 teacher-forced decode steps through the kernels,
    against the same run with every kernel call on its plain version;
@@ -120,11 +130,20 @@ check:
    prefix before two prompts) on phase 9's traffic; tokens/s,
    device_step_ms, peak memory and the soft-capped launches of K1, K2 and
    the paged K2, which must be > 0;
-12. the `kernels` JSON line: every kernel with its launches on the path that
+12. packed Gemma-2 training (phase_gemma_packed): GEMMA2_9B at full width cut
+   to 4 layers (layers 0 and 2 local, 1 and 3 global; about 1.71 B
+   parameters), phase 10's packed row, an AdamW step through the kernels
+   against the plain route under phase 7's gates, then 5 train.train steps
+   with the split backward, the loss falling; ms, tokens/s and peak memory
+   a step, and the soft-capped and segmented launches of K1, B3, B4 and B5,
+   which must be > 0;
+13. the `kernels` JSON line: every kernel with its launches on the path that
    runs it, its error against its plain version, its time, bound, plain and
    library times (the windowed K1, K2 and paged K2 from phases 2 and 9, the
    windowed and segmented K1, B3, B4 and B5 from phases 2 and 10, the
-   soft-capped K1, K2 and paged K2 from phases 2 and 11).
+   soft-capped K1, K2 and paged K2 from phases 2 and 11, the soft-capped
+   B3, B4 and B5 from phases 2 and 12, timed at GEMMA2_9B's packed row on a
+   global layer).
 
 Any failed check raises: the script then exits nonzero and does not print
 its last line. It needs a CUDA device and never falls back to the CPU. The
@@ -240,13 +259,13 @@ def phase_environment() -> str:
                 print(f"[env] SASS {kernel}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA, "
                       f"{n['IMMA']} IMMA")
                 mma[kernel] = n
-    families = {"flash_fwd_wgmma_kernel": 18, "flash_bwd": 18, "qmm_mma_kernel": 4,
+    families = {"flash_fwd_wgmma_kernel": 24, "flash_bwd": 54, "qmm_mma_kernel": 4,
                 "decode_mma_kernel": 60}
     counted = {f: sum(k.startswith(f) for k in mma) for f in families}
     check(counted == families and all(sum(n.values()) for n in mma.values()),
-          "K1's bf16 kernel (D 64, 128 and 256, with and without a window, with and without "
-          "segment ids, and the soft-cap with and without a window), the bf16 fused, dQ and "
-          "dK/dV kernels (D 64 and 128; no mask, the window, segment ids), qmm8's and qmm4's "
+          "K1's bf16 kernel (D 64, 128 and 256, with and without a window, segment ids and "
+          "the soft-cap), the bf16 fused, dQ and dK/dV kernels (D 64, 128 and 256; no mask, "
+          "the window, segment ids; with and without the soft-cap), qmm8's and qmm4's "
           "M > 16 kernels (bf16 and float32 y) and every K2 tensor-core instantiation (bf16, "
           "int8 and fp8 caches, D 64, 128 and 256, both row layouts, with and without a "
           f"window) must run on the tensor cores: {mma}")
@@ -254,9 +273,14 @@ def phase_environment() -> str:
           f"K1's bf16 kernel must run on wgmma (HGMMA): {mma}")
     new = [k for k in mma if k.startswith("flash_fwd_wgmma_kernel")
            and (k.startswith("flash_fwd_wgmma_kernel<256") or k.endswith("true>"))]
-    check(len(new) == 10, f"K1's D 256 and soft-cap instantiations: {new}")
+    check(len(new) == 16, f"K1's D 256 and soft-cap instantiations: {new}")
     print(f"[env] K1's D 256 and soft-cap instantiations run on wgmma (HGMMA), no spill: "
           f"{ {k: mma[k]['HGMMA'] for k in new} }")
+    new = [k for k in mma if k.startswith("flash_bwd")
+           and ("<256" in k or k.endswith("true>"))]
+    check(len(new) == 36, f"the backward's D 256 and soft-cap instantiations: {new}")
+    print(f"[env] the backward's D 256 and soft-cap instantiations run on mma.sync (HMMA), no "
+          f"spill: { {k: mma[k]['HMMA'] for k in new} }")
     return name
 
 
@@ -894,9 +918,15 @@ HOT = 30.0  # q's factor on the hot inputs: logits to about +-100, the tanh satu
 
 def softcap_kernels(gen: torch.Generator) -> dict[str, dict]:
     """K1, K2 and the paged K2 with the soft-cap (and D 256) against their
-    plain versions, then timed (softcap_k1, softcap_k2)."""
+    plain versions, then timed (softcap_k1, softcap_k2); then the backward
+    kernels with the cap and K1 with the cap and segment ids
+    (softcap_backward_kernels)."""
     out = {"flash_fwd_softcap": softcap_k1(gen)}
     out.update(softcap_k2(gen))
+    backward = softcap_backward_kernels(gen)
+    k1 = out["flash_fwd_softcap"]
+    k1["max_abs_err"] = max(k1["max_abs_err"], backward.pop("flash_fwd_softcap")["max_abs_err"])
+    out.update(backward)
     return out
 
 
@@ -913,33 +943,46 @@ def k1_case(tag: str, q, k, v, causal: bool, err: float, f32: bool = False, **kw
     return max(err, e)
 
 
-def flex_softcap_ms(q, k, v, window: int | None) -> float | None:
+def flex_softcap_ms(q, k, v, window: int | None, segment_ids=None, do=None,
+                    cap: float = CAP) -> float | None:
     """torch.nn.attention.flex_attention with a soft-cap score_mod and the
-    causal (and window) block mask, compiled: a competitor only, never used
-    by the port. None, with the reason printed, where it does not compile
-    on this machine."""
+    causal (window, segment-id) block mask, compiled, S_q == S_k: its
+    forward, or with `do` its backward (autograd.grad of O against do): a
+    competitor only, never used by the port. None, with the reason printed,
+    where it does not compile on this machine."""
+    what = "backward" if do is not None else "forward"
     try:
         from torch.nn.attention.flex_attention import create_block_mask, flex_attention
 
         def score_mod(score, b, h, q_idx, kv_idx):
-            return CAP * torch.tanh(score / CAP)
+            return cap * torch.tanh(score / cap)
 
         def mask_mod(b, h, q_idx, kv_idx):
             seen = kv_idx <= q_idx
-            return seen & (kv_idx > q_idx - window) if window else seen
+            if window:
+                seen = seen & (kv_idx > q_idx - window)
+            if segment_ids is not None:
+                seen = seen & (segment_ids[0][b, q_idx] == segment_ids[1][b, kv_idx])
+            return seen
 
         s = q.shape[2]
-        block_mask = create_block_mask(mask_mod, None, None, s, s, device="cuda")
+        batch = None if segment_ids is None else q.shape[0]
+        block_mask = create_block_mask(mask_mod, batch, None, s, s, device="cuda")
         flex = torch.compile(flex_attention, dynamic=False)
-        run = lambda: flex(q, k, v, score_mod=score_mod, block_mask=block_mask,  # noqa: E731
-                           enable_gqa=True)
-        out = run()
+        leaves = [t.detach().requires_grad_(do is not None) for t in (q, k, v)]
+        out = flex(*leaves, score_mod=score_mod, block_mask=block_mask, enable_gqa=True)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(out).all()), "flex_attention gave non-finite output")
-        return event_time_ms(run, warmup=2, iters=10)
+        if do is None:
+            run = lambda: flex(q, k, v, score_mod=score_mod,  # noqa: E731
+                               block_mask=block_mask, enable_gqa=True)
+        else:
+            run = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)  # noqa: E731
+        return event_time_ms(run, warmup=2, iters=10 if do is None else 3)
     except Exception as e:  # a competitor that does not build here is reported, not run
-        print(f"[kernels] flex_attention with a soft-cap score_mod (window={window}) did not "
-              f"run on this machine: {type(e).__name__}: {str(e).splitlines()[0][:200]}")
+        print(f"[kernels] flex_attention {what} with a soft-cap score_mod (window={window}, "
+              f"segment ids {segment_ids is not None}) did not run on this machine: "
+              f"{type(e).__name__}: {str(e).splitlines()[0][:200] if str(e) else ''}")
         return None
 
 
@@ -1116,32 +1159,40 @@ def packed_ids(lens, total: int, device) -> torch.Tensor:
 
 
 def masked_case(gen, err: dict, tag: str, shape, dtype=torch.bfloat16, pos_offset=None,
-                window=None, lens=None, causal=True, k_lens=None) -> tuple:
-    """K1, then B3 (fused) and B4 + B5 (split), with a window and/or segment
-    ids against their plain versions on one set of inputs; errors go to the
-    rows of `err` (segment rows when ids are given). Padding rows' O and
-    every gradient of a padding position must be exactly 0, a window of one
-    key gives dQ = dK = 0 (each row's softmax gradient vanishes), held to
-    |x| <= 1e-4 on both sides. Returns (q, k, v, o, do, lse, kw)."""
+                window=None, lens=None, causal=True, k_lens=None, logit_softcap=None,
+                heat=1.0) -> tuple:
+    """K1, then B3 (fused) and B4 + B5 (split), with a window, segment ids
+    and/or a logit soft-cap against their plain versions on one set of
+    inputs (q times `heat`: 30 saturates a cap's tanh); errors go to the
+    rows of `err` (soft-cap rows with a cap, else segment rows when ids are
+    given). Padding rows' O and every gradient of a padding position must
+    be exactly 0, a window of one key gives dQ = dK = 0 (each row's softmax
+    gradient vanishes), held to |x| <= 1e-4 on both sides. Returns (q, k,
+    v, o, do, lse, kw)."""
     b, hq, hkv, s_q, s_k, d = shape
     q, do = (randn((b, hq, s_q, d), gen, dtype) for _ in range(2))
+    if heat != 1.0:
+        q = (q.float() * heat).to(dtype)
     k, v = (randn((b, hkv, s_k, d), gen, dtype) for _ in range(2))
     seg = None
     if lens is not None:
         seg = varlen.canonical_segments(packed_ids(lens, s_q, q.device),
                                         packed_ids(k_lens or lens, s_k, q.device), q.device)
-    kw = dict(is_causal=causal, pos_offset=pos_offset, window=window, segment_ids=seg)
-    kind = "segments" if seg is not None else "window"
+    kw = dict(is_causal=causal, pos_offset=pos_offset, window=window, segment_ids=seg,
+              logit_softcap=logit_softcap)
+    kind = "softcap" if logit_softcap else "segments" if seg is not None else "window"
     name = (f"{tag}: B={b} Hq={hq} Hkv={hkv} Sq={s_q} Sk={s_k} D={d} causal={causal} "
-            f"pos_offset={pos_offset} window={window} {str(dtype)[6:]}")
+            f"pos_offset={pos_offset} window={window} cap={logit_softcap} "
+            f"{'hot (q x %g) ' % heat if heat != 1.0 else ''}{str(dtype)[6:]}")
     o, lse = flash_fwd.flash_attention_forward(q, k, v, **kw)
     o_ref, lse_ref = flash_fwd.flash_attention_forward_reference(q, k, v, **kw)
     torch.cuda.synchronize()
     tol = dict(atol=O_ATOL) if dtype == torch.bfloat16 else F32_TOL
     e = _gate(f"K1 {name} O", o_ref, o, **tol)
     _gate(f"K1 {name} LSE", lse_ref, lse, LSE_ATOL)
-    if seg is not None:
-        err["flash_fwd_segments"] = max(err["flash_fwd_segments"], e)
+    fwd_row = "flash_fwd_" + ("softcap" if logit_softcap else "segments")
+    if seg is not None or logit_softcap:
+        err[fwd_row] = max(err[fwd_row], e)
     dead = torch.isneginf(lse_ref)
     check(torch.equal(torch.isneginf(lse), dead) and not bool(o[dead].any()),
           f"K1 {name}: rows that see no key are not O = 0, LSE = -inf")
@@ -1217,37 +1268,49 @@ def masked_kernels(gen: torch.Generator) -> dict[str, dict]:
     return {name: dict(max_abs_err=err[name], **timed[name]) for name in MASKED_ROWS}
 
 
-def time_masked(kind: str, q, k, v, o, do, lse, kw) -> dict[str, dict]:
-    """Device ms of B3, B4 and B5 (and K1 with the LSE for segment ids) with
-    the window and segment ids of `kw`, beside their plain versions (events
-    around eager calls: a graph of them would keep several score blocks in
-    its pool), SDPA's forward or forward + backward with the explicit
-    boolean mask (timed only, never used by the port) and each bound from
-    utils/roofline.py, which counts the pairs the mask leaves visible."""
+def time_masked(kind: str, q, k, v, o, do, lse, kw, layer: str = "") -> dict[str, dict]:
+    """Device ms of B3, B4 and B5 (and K1 with the LSE where there are
+    segment ids) with the window, segment ids and soft-cap of `kw`, beside
+    their plain versions (events around eager calls: a graph of them would
+    keep several score blocks in its pool), SDPA's forward or forward +
+    backward with the explicit boolean mask (without the cap: timed only,
+    never used by the port), with a cap flex_attention's forward or
+    backward with a soft-cap score_mod where it compiles (the library time
+    then, as it computes the same function), and each bound from
+    utils/roofline.py, which counts the pairs the mask leaves visible (a
+    cap adds nothing). Rows are named by kernel and `kind`."""
     b, hq, s_q, d = q.shape
     hkv, s_k = k.shape[1], k.shape[2]
     few = dict(warmup=1, iters=3, reps=3)
+    cap = kw.get("logit_softcap")
     mask = visible(s_q, s_k, kw["is_causal"], kw["pos_offset"], kw["window"],
                    kw["segment_ids"], "cuda")
-    shape = (f"B={b} Hq={hq} Hkv={hkv} S={s_q} D={d} window={kw['window']} "
+    shape = (f"{layer}B={b} Hq={hq} Hkv={hkv} S={s_q} D={d} window={kw['window']} "
+             f"{'cap ' + format(cap, 'g') + ' ' if cap else ''}"
              f"{'documents ' + str(PACK_DOCS) if kw['segment_ids'] is not None else ''}")
     roof = dict(dtype_bytes=q.element_size(), window=kw["window"], pos_offset=kw["pos_offset"],
                 segment_ids=kw["segment_ids"])
+    flex_kw = dict(window=kw["window"], segment_ids=kw["segment_ids"], cap=cap)
     out = {}
-    if kind == "segments":
+    if kw["segment_ids"] is not None:
         ms = cuda_time_ms(lambda: flash_fwd.flash_attention_forward(q, k, v, **kw), **few)
         plain = event_time_ms(lambda: flash_fwd.flash_attention_forward_reference(q, k, v, **kw),
                               warmup=1, iters=2)
         lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True), **few)
+        flex = flex_softcap_ms(q, k, v, **flex_kw) if cap else None
         report = roofline.attention_fwd_roofline(b, hq, hkv, s_q, s_k, d, kw["is_causal"],
                                                  **roof)
         print(f"[kernels] K1 with segment ids {shape}: kernel {ms:.4f} ms "
               f"({report.flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s of the visible pairs), bound "
               f"{report.bound_ms:.5f} ms by {report.bound_by}, plain {plain:.4f} ms, SDPA "
-              f"forward with a boolean mask {lib:.4f} ms")
-        out["flash_fwd_segments"] = dict(ms=ms, plain_ms=plain, library_ms=lib, **bound(report))
+              f"forward with a boolean mask{' (no cap)' if cap else ''} {lib:.4f} ms"
+              + (f", flex_attention with a soft-cap score_mod "
+                 f"{f'{flex:.4f} ms' if flex else 'not run'}" if cap else ""))
+        out[f"flash_fwd_{kind}"] = dict(ms=ms, plain_ms=plain, library_ms=flex or lib,
+                                        **bound(report))
     opts = {key: kw[key] for key in ("pos_offset", "window", "segment_ids")}
+    opts["logit_softcap"] = cap
     causal = kw["is_causal"]
     fused = cuda_time_ms(lambda: flash_bwd_fused.flash_attention_backward_fused(
         q, k, v, o, do, lse, causal, **opts), **few)
@@ -1265,15 +1328,79 @@ def time_masked(kind: str, q, k, v, o, do, lse, kw) -> dict[str, dict]:
     lib = event_time_ms(lambda: torch.autograd.grad(o_lib, leaves, do, retain_graph=True),
                         warmup=1, iters=3)
     del o_lib, leaves
+    flex = flex_softcap_ms(q, k, v, do=do, **flex_kw) if cap else None
+    gc.collect()
+    torch.cuda.empty_cache()
     for name, ms in (("fused", fused), ("dq", dq_ms), ("dkv", dkv_ms)):
         report = roofline.attention_bwd_roofline(b, hq, hkv, s_q, s_k, d, causal, kernel=name,
                                                  **roof)
         print(f"[kernels] backward {name} with {kind} {shape}: kernel {ms:.4f} ms "
               f"({report.flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s of the visible pairs), bound "
               f"{report.bound_ms:.4f} ms by {report.bound_by}, plain backward {plain:.4f} ms, "
-              f"SDPA backward with a boolean mask {lib:.4f} ms")
+              f"SDPA backward with a boolean mask{' (no cap)' if cap else ''} {lib:.4f} ms"
+              + (f", flex_attention backward with a soft-cap score_mod "
+                 f"{f'{flex:.4f} ms' if flex else 'not run'}" if cap else ""))
         row = {"fused": "flash_bwd_fused", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}[name]
-        out[f"{row}_{kind}"] = dict(ms=ms, plain_ms=plain, library_ms=lib, **bound(report))
+        out[f"{row}_{kind}"] = dict(ms=ms, plain_ms=plain, library_ms=flex or lib,
+                                    **bound(report))
+    return out
+
+
+# The soft-cap in the backward kernels (B3, B4, B5) and with segment ids in
+# K1 (phase 2's soft-capped backward gates), then GEMMA2_9B's packed
+# training row: Hq 16, Hkv 8, D 256, S 8192 over PACK_DOCS, cap 50, on a
+# global layer and a local one (window 4096).
+SOFTCAP_BWD_ROWS = ("flash_bwd_fused_softcap", "flash_bwd_dq_softcap", "flash_bwd_dkv_softcap")
+
+
+def softcap_backward_kernels(gen: torch.Generator) -> dict[str, dict]:
+    """masked_case with the soft-cap: at D 64, 128 and 256, causal, with a
+    window, segment ids, both, and hot inputs (q x HOT); S_q != S_k with a
+    pos_offset, non-causal, float32; then at GEMMA2_9B's packed training
+    row, global and local, where the split path must be bitwise equal across
+    two calls, and each row is timed (time_masked). Returns the global
+    layer's rows, and K1's largest error with the cap and segment ids under
+    "flash_fwd_softcap"."""
+    err = dict.fromkeys(("flash_fwd_softcap", *SOFTCAP_BWD_ROWS), 0.0)
+    docs = [300, 37, 500, 119]  # off the tile multiples, then 144 of padding
+    for d, cap in ((64, 30.0), (128, 30.0), (256, CAP)):
+        shape = (1, 8, 2, 1100, 1100, d)
+        masked_case(gen, err, "cap", shape, logit_softcap=cap)
+        masked_case(gen, err, "cap with a window", shape, window=129, logit_softcap=cap)
+        masked_case(gen, err, "cap with documents", shape, lens=docs, logit_softcap=cap)
+        masked_case(gen, err, "cap with documents and a window", shape, lens=docs, window=100,
+                    logit_softcap=cap)
+        masked_case(gen, err, "cap", shape, lens=docs, window=65, logit_softcap=cap, heat=HOT)
+    masked_case(gen, err, "S_q != S_k", (1, 8, 2, 600, 1500, 256), pos_offset=700, window=300,
+                logit_softcap=CAP)
+    masked_case(gen, err, "non-causal", (1, 4, 4, 300, 300, 256), causal=False,
+                logit_softcap=5.0)
+    masked_case(gen, err, "float32", (1, 4, 2, 300, 300, 256), torch.float32,
+                lens=[130, 77, 50], window=50, logit_softcap=30.0)
+    masked_case(gen, err, "float32", (1, 4, 2, 300, 300, 64), torch.float32, logit_softcap=5.0,
+                heat=HOT)
+    b, hq, hkv, _, d = GEMMA_PREFILL
+    timed = {}
+    for w, layer in ((None, "global"), (GWIN, "local")):
+        row = masked_case(gen, err, f"GEMMA2_9B packed training row, {layer} layer",
+                          (b, hq, hkv, PACK_S, PACK_S, d), lens=PACK_DOCS, window=w,
+                          logit_softcap=CAP)
+        q, k, v, o, do, lse, kw = row
+        first = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, impl="split", **kw)
+        second = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, impl="split", **kw)
+        check(all(torch.equal(x, y) for x, y in zip(first, second)),
+              f"split backward with the cap at D 256 ({layer} layer) is not bitwise "
+              "deterministic")
+        print(f"[kernels] split backward, GEMMA2_9B packed training row, {layer} layer: two "
+              "runs bitwise equal (torch.equal on dQ, dK, dV)")
+        del first, second
+        timed[layer] = time_masked("softcap", *row, layer=f"{layer} layer ")
+        del row, q, k, v, o, do, lse, kw
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = {name: dict(max_abs_err=err[name], **timed["global"][name])
+           for name in SOFTCAP_BWD_ROWS}
+    out["flash_fwd_softcap"] = dict(max_abs_err=err["flash_fwd_softcap"])
     return out
 
 
@@ -2142,28 +2269,39 @@ def plain_packed_attention():
 
 
 def phase_packed(gen: torch.Generator) -> dict[str, int]:
-    """One AdamW step of the cut MISTRAL_7B on a packed row through the
-    kernels (K1 with the window and segment ids, the fused backward) against
-    the same step on the plain route from the same weights, under phase 7's
-    gates; then train.train for PACK_STEPS steps on PackedDataset batches
-    through prefetch with the split backward. Returns the launches of the
-    two runs together."""
-    cfg = dataclasses.replace(MISTRAL_7B, num_layers=PACK_LAYERS)
+    """Phase 10: packed_training on MISTRAL_7B cut to PACK_LAYERS layers."""
+    return packed_training(gen, dataclasses.replace(MISTRAL_7B, num_layers=PACK_LAYERS),
+                           "MISTRAL_7B", "[packed]", PACK_COUNTERS)
+
+
+def packed_training(gen: torch.Generator, cfg, name: str, log: str,
+                    counters: tuple[str, ...]) -> dict[str, int]:
+    """One AdamW step of `cfg` (full width, cut in depth) on a packed row
+    through the kernels (K1 with each layer's window, segment ids and the
+    cap, the fused backward) against the same step on the plain route from
+    the same weights, under phase 7's gates; then train.train for
+    PACK_STEPS steps on PackedDataset batches through prefetch with the
+    split backward, the loss falling; ms, tokens/s and peak memory a step.
+    Returns the launches of `counters` over the two runs, each of which
+    must be > 0. Lines print under `log`."""
     t0 = time.perf_counter()
     model = init_params(cfg, gen, device="cuda")
     torch.cuda.synchronize()
-    print(f"[packed] MISTRAL_7B cut to {PACK_LAYERS} layers (full width: hidden "
-          f"{cfg.hidden_size}, GQA {cfg.num_heads}/{cfg.num_kv_heads}, D {cfg.head_dim}, window "
-          f"{cfg.attn_window}): {sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
-          f"parameters in {time.perf_counter() - t0:.2f} s")
+    n = cfg.num_layers
+    local = sum(llama.layer_window(cfg, i) is not None for i in range(n))
+    print(f"{log} {name} cut to {n} layers (full width: hidden {cfg.hidden_size}, GQA "
+          f"{cfg.num_heads}/{cfg.num_kv_heads}, D {cfg.head_dim}, window {cfg.attn_window} on "
+          f"{local} layers, soft-cap {cfg.logit_softcap}): "
+          f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B parameters in "
+          f"{time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(SEED)
-    docs = [rng.integers(1, cfg.vocab_size, n).tolist() for n in PACK_DOCS]
+    docs = [rng.integers(1, cfg.vocab_size, n_tok).tolist() for n_tok in PACK_DOCS]
     dataset = data.PackedDataset(docs, batch_size=1, seq_len=PACK_S, seed=SEED)
     batch = next(dataset.batches())
     layout = check_packed_row(batch["tokens"], batch["segment_ids"], cfg)
     tokens = torch.from_numpy(batch["tokens"]).cuda()
     segs = torch.from_numpy(batch["segment_ids"]).cuda()
-    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    start = {k: p.detach().clone() for k, p in model.named_parameters()}
     runs = {}
     for route in ("kernels", "plain"):
         model.load_state_dict(start)
@@ -2179,33 +2317,36 @@ def phase_packed(gen: torch.Generator) -> dict[str, int]:
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         launches = read_launches()
-        grads = {n: p.grad for n, p in model.named_parameters()}
+        grads = {k: p.grad for k, p in model.named_parameters()}
         peak = torch.cuda.max_memory_allocated() / 2**30
         runs[route] = (loss, gnorm, grads, launches)
         how = ("attention one kv-head group at a time, forward and backward; "
                if route == "plain" else "")
-        print(f"[packed] AdamW step, {route} ({how}{layout}): loss {loss:.6f} grad_norm {gnorm:.6f}, "
-              f"{ms:.1f} ms ({PACK_S / ms * 1e3:.0f} tokens/s), peak {peak:.2f} GiB, launches "
-              f"{ {k: v for k, v in launches.items() if v} }")
+        print(f"{log} AdamW step, {route} ({how}{layout}): loss {loss:.6f} grad_norm "
+              f"{gnorm:.6f}, {ms:.1f} ms ({PACK_S / ms * 1e3:.0f} tokens/s), peak {peak:.2f} "
+              f"GiB, launches { {k: v for k, v in launches.items() if v} }")
         del state
     del start
     (l_k, n_k, g_k, launches), (l_p, n_p, g_p, plain_launches) = runs["kernels"], runs["plain"]
-    n = PACK_LAYERS
-    want = {"flash_fwd": n, "flash_fwd_window": n, "flash_fwd_segments": n,
-            "flash_bwd_fused": n, "flash_bwd_fused_window": n, "flash_bwd_fused_segments": n}
+    capped = n if cfg.logit_softcap else 0
+    per_step = {"flash_fwd": n, "flash_fwd_window": local, "flash_fwd_segments": n,
+                "flash_fwd_softcap": capped}
+    want = dict(per_step, flash_bwd_fused=n, flash_bwd_fused_window=local,
+                flash_bwd_fused_segments=n, flash_bwd_fused_softcap=capped)
+    want = {k: v for k, v in want.items() if v}
     check({k: v for k, v in launches.items() if v} == want,
-          f"packed kernel step launched {launches}, want {want}")
+          f"{name} packed kernel step launched {launches}, want {want}")
     check(not any(plain_launches.values()), f"plain packed step launched {plain_launches}")
-    cos = {name: float(F.cosine_similarity(g_k[name].float().flatten(),
-                                           g_p[name].float().flatten(), dim=0)) for name in g_k}
+    cos = {k: float(F.cosine_similarity(g_k[k].float().flatten(), g_p[k].float().flatten(),
+                                        dim=0)) for k in g_k}
     worst = min(cos, key=cos.get)
-    print(f"[packed] kernels vs plain: |dloss| {abs(l_k - l_p):.6f} (<= {LOSS_ATOL}), "
+    print(f"{log} kernels vs plain: |dloss| {abs(l_k - l_p):.6f} (<= {LOSS_ATOL}), "
           f"grad_norm rel {abs(n_k - n_p) / n_p:.6f} (<= {GRAD_NORM_REL}), gradient cosine "
           f"min {cos[worst]:.6f} ({worst}) over {len(cos)} parameters (> {GRAD_COS})")
     check(abs(l_k - l_p) <= LOSS_ATOL and abs(n_k - n_p) <= GRAD_NORM_REL * n_p
-          and cos[worst] > GRAD_COS, "packed train step: kernels and plain route disagree")
+          and cos[worst] > GRAD_COS, f"{name} packed train step: kernels and plain route disagree")
     del runs, g_k, g_p
-    total = {k: launches[k] for k in PACK_COUNTERS}
+    total = {k: launches[k] for k in counters}
 
     marks, layouts = [], []
 
@@ -2229,22 +2370,24 @@ def phase_packed(gen: torch.Generator) -> dict[str, int]:
     trained = read_launches()
     for h, row, (t0, _), (t1, peak) in zip(hist, layouts, marks, marks[1:]):
         ms = (t1 - t0) * 1e3
-        print(f"[packed-trainer] step {h['step']}: loss {h['loss']:.6f} grad_norm "
+        print(f"{log}-trainer step {h['step']}: loss {h['loss']:.6f} grad_norm "
               f"{h['grad_norm']:.6f}, {ms:.1f} ms (host clock, synchronised), "
               f"{PACK_S / ms * 1e3:.0f} tokens/s, max_memory_allocated {peak / 2**30:.2f} GiB; "
               f"{row}")
     losses = [h["loss"] for h in hist]
     check(len(hist) == PACK_STEPS and all(map(math.isfinite, losses)) and losses[-1] < losses[0],
-          f"packed trainer losses {losses}")
-    steps = PACK_STEPS * PACK_LAYERS
-    check(all(trained[k] == steps for k in PACK_COUNTERS if "fused" not in k)
-          and trained["flash_bwd_fused"] == 0, f"packed trainer launched {trained}")
-    print(f"[packed-trainer] {PACK_STEPS} AdamW steps of PackedDataset rows through prefetch, "
-          f"split backward: loss {losses[0]:.4f} -> {losses[-1]:.4f}; windowed and segmented "
-          f"launches {({k: trained[k] for k in PACK_COUNTERS})}")
-    for k in PACK_COUNTERS:
+          f"{name} packed trainer losses {losses}")
+    split = {k.replace("flash_bwd_fused", kernel): v for k, v in want.items()
+             if k.startswith("flash_bwd_fused") for kernel in ("flash_bwd_dq", "flash_bwd_dkv")}
+    trained_want = {k: PACK_STEPS * v for k, v in {**per_step, **split}.items() if v}
+    check({k: v for k, v in trained.items() if v} == trained_want,
+          f"{name} packed trainer launched {trained}, want {trained_want}")
+    print(f"{log}-trainer {PACK_STEPS} AdamW steps of PackedDataset rows through prefetch, "
+          f"split backward: loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches "
+          f"{({k: trained[k] for k in counters})}")
+    for k in counters:
         total[k] += trained[k]
-    check(all(total[k] > 0 for k in PACK_COUNTERS), f"packed phase missed a kernel: {total}")
+    check(all(total[k] > 0 for k in counters), f"{name} packed phase missed a kernel: {total}")
     del model, state
     gc.collect()
     torch.cuda.empty_cache()
@@ -2321,6 +2464,22 @@ def phase_gemma(gen: torch.Generator) -> dict[str, int]:
     return total
 
 
+# Phase 12: GEMMA2_9B trained on packed rows, full width cut to PACK_LAYERS
+# layers (42 layers with AdamW state pass one card: 9.24 B parameters; 4
+# hold about 1.71 B, the 918 M tied embedding and 198 M a layer): layers 0
+# and 2 local (window 4096), 1 and 3 global, cap 50 on every layer, through
+# the soft-capped, segmented and windowed K1, B3, B4 and B5 at D 256.
+GEMMA_PACK_COUNTERS = ("flash_fwd_softcap", "flash_fwd_segments", "flash_fwd_window",
+                       *SOFTCAP_BWD_ROWS, "flash_bwd_fused_segments", "flash_bwd_dq_segments",
+                       "flash_bwd_dkv_segments")
+
+
+def phase_gemma_packed(gen: torch.Generator) -> dict[str, int]:
+    """Phase 12: packed_training on GEMMA2_9B cut to PACK_LAYERS layers."""
+    return packed_training(gen, dataclasses.replace(GEMMA2_9B, num_layers=PACK_LAYERS),
+                           "GEMMA2_9B", "[gemma-packed]", GEMMA_PACK_COUNTERS)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     device_name = phase_environment()
@@ -2350,6 +2509,8 @@ def main() -> None:
     for counter, n in phase_packed(gen).items():
         launches[counter] = launches.get(counter, 0) + n
     launches.update(phase_gemma(gen))
+    for counter, n in phase_gemma_packed(gen).items():
+        launches[counter] = launches.get(counter, 0) + n
     decode_src = ("flashattn_tpu_torch/csrc/decode.cu", "flashattn_tpu/ops/decode.py:351")
     qmm_src = "flashattn_tpu_torch/csrc/quant_matmul.cu"
     sources = {
@@ -2379,8 +2540,8 @@ def main() -> None:
         "flash_bwd_dkv": ("flashattn_tpu_torch/csrc/flash_bwd.cu",
                           "flashattn_tpu/ops/flash_bwd.py:286"),
     }
-    for row in MASKED_ROWS:  # the same kernels with a window or segment ids
-        sources[row] = sources[row.rsplit("_", 1)[0]]
+    for row in MASKED_ROWS + SOFTCAP_BWD_ROWS:  # the same kernels with a window, segment
+        sources[row] = sources[row.rsplit("_", 1)[0]]  # ids or a soft-cap
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], **timed[k]}

@@ -4,8 +4,9 @@
 // Replaces the TPU kernels flashattn_tpu/ops/flash_bwd.py::_dq_kernel (B4)
 // and ::_dkv_kernel (B5) (launcher flash_attention_backward, :467) on the
 // plain subset: causal (bottom-right, or by pos_offset) or not, GQA, ragged
-// S_q/S_k, rows that see no key, the sliding window and packed-document
-// segment ids. The TPU's wavefront meta arrays and its pre-scaled operands
+// S_q/S_k, rows that see no key, the sliding window, packed-document
+// segment ids and the logit soft-cap (its exact tanh derivative), at D 64,
+// 128 and 256. The TPU's wavefront meta arrays and its pre-scaled operands
 // are Mosaic designs and are not carried over.
 //
 // What bounds it on the card: at the training shapes (S 2048, D 64) each
@@ -39,36 +40,42 @@
 // disjoint is loaded but not computed, a pair of one id runs no id mask,
 // and the others compare ids element by element (the kv tile's staged in
 // shared memory with it). No atomics: two runs give bitwise-equal outputs,
-// which makes this the deterministic path.
+// which makes this the deterministic path. The soft-cap is a template flag
+// of the bf16 kernels (kCap, flash_bwd_mma.cuh): the uncapped ones run none
+// of its code. At D 256 the bf16 dQ kernel streams 32-row kv tiles (a warp's
+// 16 x 256 fp32 dQ fills half its registers) and the dK/dV tile runs 8 warps
+// (flash_bwd_mma.cuh); the float32 kernels use 32-row tiles (Tile<256>).
 #include <type_traits>
 
 #include "flash_bwd_mma.cuh"
 
 namespace {
 
-using fat::bwd::kBlock;
-using fat::bwd::kColsPerThread;
-using fat::bwd::kPP;
-using fat::bwd::kThreads;
 using fat::bwd::kThreadsPerRow;
+using fat::bwd::Tile;
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
-  // qs, dos (the q tile), ks, vs (the kv tile), [D+1] rows; dS [64][65].
-  return sizeof(float) * (4 * kBlock * (D + 1) + kBlock * kPP);
+  // qs, dos (the q tile), ks, vs (the kv tile), [D+1] rows; dS [kRows][kPP].
+  return sizeof(float) * (4 * Tile<D>::kRows * (D + 1) + Tile<D>::kRows * Tile<D>::kPP);
 }
 
 // dQ of one q tile of one q head, and delta = rowsum(dO * O) of its rows,
 // written to delta [B, Hq, Sq] for the dK/dV kernel. Rows that see no key
 // get dQ = 0. float32; bf16 runs flash_bwd_dq_mma_kernel.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Tile<D>::kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ o, const T* __restrict__ dout,
                     const float* __restrict__ lse, T* __restrict__ dq,
                     float* __restrict__ delta, const int* __restrict__ seg_q,
                     const int* __restrict__ seg_k, int Hq, int Hkv, int Sq, int Sk,
-                    int is_causal, int offset, int window, float scale, float scale_log2) {
+                    int is_causal, int offset, int window, float scale, float scale_log2,
+                    float cap_log2) {
+  constexpr int kBlock = Tile<D>::kRows;
+  constexpr int kThreads = Tile<D>::kThreads;
+  constexpr int kPP = Tile<D>::kPP;
+  constexpr int kColsPerThread = Tile<D>::kCols;
   constexpr int DP = D + 1;
   constexpr int kDims = D / kThreadsPerRow;
   extern __shared__ float smem[];
@@ -137,8 +144,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       const bool live = col < kv_end && (!is_causal || col <= qi + offset) &&
                         (window == 0 || col >= qi + offset - window + 1) &&
                         (seg_k == nullptr || seg_k[static_cast<size_t>(b) * Sk + col] == row_seg);
-      const float p = live ? exp2f(s[j] * scale_log2 - lse2) : 0.f;
-      dss[r * kPP + c] = fat::round_to<T>(p * (dp[j] - row_delta));
+      dss[r * kPP + c] = fat::round_to<T>(
+          fat::bwd::p_and_ds(s[j], dp[j], row_delta, lse2, live, scale_log2, cap_log2).y);
     }
     __syncwarp();  // row r's four threads wrote all of its dS
     fat::bwd::row_times_tile<D>(dss, r, t, ks, acc);  // dQ += dS K
@@ -154,12 +161,18 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 namespace dq_mma {
 
 constexpr int kBr = 64;  // q rows a CTA, 16 a warp
-constexpr int kBc = 64;  // kv rows a tile
+
+// kv rows a tile: 32 at D 256, where a warp's dQ takes 128 registers.
+template <int D>
+__host__ __device__ constexpr int kv_rows() {
+  return D == 256 ? 32 : 64;
+}
 
 template <int D, int kMask>
 constexpr size_t smem_bytes() {
   // Q, dO [kBr][D+8]; K, V [2][kBc][D+8] (bf16); LSE (log2) and delta [kBr];
   // with segment ids the kv tiles' ids [2][kBc].
+  constexpr int kBc = kv_rows<D>();
   return sizeof(__nv_bfloat16) * (2 * kBr + 4 * kBc) * (D + 8) + sizeof(float) * 2 * kBr +
          (kMask == fat::bwd::kSegmentMask ? sizeof(int) * 2 * kBc : 0);
 }
@@ -168,8 +181,9 @@ constexpr size_t smem_bytes() {
 
 // The contract of flash_bwd_dq_kernel, for bf16, on the tensor cores.
 // kNoMask reads neither the window nor the segment ids (window 0,
-// seg_q/seg_k null), kWindowMask not the ids.
-template <int D, int kMask>
+// seg_q/seg_k null), kWindowMask not the ids; kCap the soft-cap (as the
+// dK/dV tile of flash_bwd_mma.cuh), cap_log2 is not read without it.
+template <int D, int kMask, bool kCap>
 __global__ void __launch_bounds__(fat::bwd::mma::kThreads)
 flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
@@ -178,10 +192,10 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
                         const int* __restrict__ seg_q, const int* __restrict__ seg_k,
                         const int2* __restrict__ ranges_q, const int2* __restrict__ ranges_k,
                         int Hq, int Hkv, int Sq, int Sk, int is_causal, int offset, int window,
-                        float scale, float scale_log2) {
+                        float scale, float scale_log2, float cap_log2) {
   using bf16 = __nv_bfloat16;
-  using dq_mma::kBc;
   using dq_mma::kBr;
+  constexpr int kBc = dq_mma::kv_rows<D>();
   using fat::bwd::mma::load_tile_async;
   constexpr int KP = D + 8;           // row stride of every tile
   constexpr int kDSteps = D / 16;     // k-steps of S and dP
@@ -268,15 +282,26 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
 
   // This thread's q rows: qr0 and qr0 + 8.
   const int qr0 = q0 + wrow + g;
-  const float lse2[2] = {lse2s[wrow + g], lse2s[wrow + g + 8]};
-  const float dlt[2] = {deltas[wrow + g], deltas[wrow + g + 8]};
+  // At D 256, where dQ fills half the registers, the rows' LSE, delta and
+  // segment ids are read where used (shared memory, L1) instead of held.
+  constexpr bool kLean = D == 256;
+  float lse2[2] = {0.f, 0.f}, dlt[2] = {0.f, 0.f};
+  if constexpr (!kLean) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) lse2[i] = lse2s[wrow + g + 8 * i], dlt[i] = deltas[wrow + g + 8 * i];
+  }
+  auto row_lse2 = [&](int i) { return kLean ? lse2s[wrow + g + 8 * i] : lse2[i]; };
+  auto row_delta = [&](int i) { return kLean ? deltas[wrow + g + 8 * i] : dlt[i]; };
   int row_seg[2] = {0, 0};  // the rows' segment ids
+  auto row_id = [&](int qi) {
+    return qi < Sq ? __ldg(seg_q + static_cast<size_t>(b) * Sq + qi) : 0;
+  };
   int2 tile_ids{};          // and the q tile's id range
   const int2* kv_ranges = nullptr;
   if (seg) {
 #pragma unroll
     for (int i = 0; i < 2; ++i)
-      row_seg[i] = qr0 + 8 * i < Sq ? __ldg(seg_q + static_cast<size_t>(b) * Sq + qr0 + 8 * i) : 0;
+      if (!kLean) row_seg[i] = row_id(qr0 + 8 * i);
     tile_ids = fat::id_range(ranges_q + static_cast<size_t>(b) * fat::range_blocks(Sq), q0, kBr,
                              Sq);
     kv_ranges = ranges_k + static_cast<size_t>(b) * fat::range_blocks(Sk);
@@ -362,10 +387,16 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
           live = col < kv_end && (!is_causal || col <= qi + offset);
           if constexpr (kMask != fat::bwd::kNoMask)
             live = live && (window == 0 || col >= qi + offset - window + 1) &&
-                   (!seg_mask || segb[col - n0] == row_seg[e >> 1]);
+                   (!seg_mask || segb[col - n0] == (kLean ? row_id(qi) : row_seg[e >> 1]));
         }
-        const float p = live ? exp2f(s[j][e] * scale_log2 - lse2[e >> 1]) : 0.f;
-        ds[e] = p * (dp[j][e] - dlt[e >> 1]);
+        if constexpr (kCap) {  // p_and_ds's arithmetic, written out as the uncapped one is
+          const float tc = fat::softcap_tanh(s[j][e] * scale_log2);
+          const float p = live ? exp2f(tc * cap_log2 - row_lse2(e >> 1)) : 0.f;
+          ds[e] = p * (dp[j][e] - row_delta(e >> 1)) * ((1.f - tc) * (1.f + tc));
+        } else {
+          const float p = live ? exp2f(s[j][e] * scale_log2 - row_lse2(e >> 1)) : 0.f;
+          ds[e] = p * (dp[j][e] - row_delta(e >> 1));
+        }
       }
       dsa[j / 2][2 * (j % 2)] = fat::pack_bf16(ds[0], ds[1]);
       dsa[j / 2][2 * (j % 2) + 1] = fat::pack_bf16(ds[2], ds[3]);
@@ -397,19 +428,20 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Tile<D>::kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                      const int* __restrict__ seg_q, const int* __restrict__ seg_k, int Hq,
                      int Hkv, int Sq, int Sk, int is_causal, int offset, int window, float scale,
-                     float scale_log2) {
+                     float scale_log2, float cap_log2) {
   fat::bwd::dkv_tile<T, D, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, seg_q, seg_k, Hq,
-                                  Hkv, Sq, Sk, is_causal, offset, window, scale, scale_log2);
+                                  Hkv, Sq, Sk, is_causal, offset, window, scale, scale_log2,
+                                  cap_log2);
 }
 
-template <int D, int kMask>
-__global__ void __launch_bounds__(fat::bwd::mma::kThreads)
+template <int D, int kMask, bool kCap>
+__global__ void __launch_bounds__(fat::bwd::mma::threads<D>())
 flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
@@ -417,103 +449,119 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
                          __nv_bfloat16* __restrict__ dv, const int* __restrict__ seg_q,
                          const int* __restrict__ seg_k, const int2* __restrict__ ranges_q,
                          const int2* __restrict__ ranges_k, int Hq, int Hkv, int Sq, int Sk,
-                         int is_causal, int offset, int window, float scale, float scale_log2) {
-  fat::bwd::mma::dkv_tile<D, false, kMask>(q, k, v, dout, lse, delta, dk, dv, nullptr, seg_q,
-                                           seg_k, ranges_q, ranges_k, Hq, Hkv, Sq, Sk, is_causal,
-                                           offset, window, scale, scale_log2);
+                         int is_causal, int offset, int window, float scale, float scale_log2,
+                         float cap_log2) {
+  fat::bwd::mma::dkv_tile<D, false, kMask, kCap>(q, k, v, dout, lse, delta, dk, dv, nullptr,
+                                                 seg_q, seg_k, ranges_q, ranges_k, Hq, Hkv, Sq,
+                                                 Sk, is_causal, offset, window, scale,
+                                                 scale_log2, cap_log2);
 }
 
-// The mask arguments every launch passes after the pointers it shares.
+// The mask and logit arguments every launch passes after the pointers it
+// shares.
 struct Mask {
   const int* seg_q;  // [B, Sq] int32 or null
   const int* seg_k;  // [B, Sk] int32 or null, null with seg_q
   const int2* ranges_q;  // their block ranges (common.cuh), null with them
   const int2* ranges_k;
   int is_causal, offset, window;
+  float scale;       // dQ's and dK's factor
+  float scale_log2;  // the logits' factor: scale * log2(e), or scale / cap
+  float cap_log2;    // cap * log2(e) with a soft-cap, else 0
   fat::bwd::MaskKind kind() const {
     return seg_q != nullptr ? fat::bwd::kSegmentMask
                             : window > 0 ? fat::bwd::kWindowMask : fat::bwd::kNoMask;
   }
+  bool cap() const { return cap_log2 > 0.f; }
 };
 
-template <int D, int kMask>
+template <int D, int kMask, bool kCap>
 cudaError_t launch_dq_mma(const void* q, const void* k, const void* v, const void* o,
                           const void* dout, const void* lse, void* dq, void* delta, int B, int Hq,
-                          int Hkv, int Sq, int Sk, Mask m, float scale, cudaStream_t stream) {
+                          int Hkv, int Sq, int Sk, const Mask& m, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
-  const cudaError_t err = fat::allow_max_smem<flash_bwd_dq_mma_kernel<D, kMask>>();
+  const cudaError_t err = fat::allow_max_smem<flash_bwd_dq_mma_kernel<D, kMask, kCap>>();
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + dq_mma::kBr - 1) / dq_mma::kBr, Hq, B);
-  flash_bwd_dq_mma_kernel<D, kMask>
+  flash_bwd_dq_mma_kernel<D, kMask, kCap>
       <<<grid, fat::bwd::mma::kThreads, dq_mma::smem_bytes<D, kMask>(), stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
           static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
           static_cast<const float*>(lse), static_cast<bf16*>(dq), static_cast<float*>(delta),
           m.seg_q, m.seg_k, m.ranges_q, m.ranges_k, Hq, Hkv, Sq, Sk, m.is_causal, m.offset,
-          m.window, scale, scale * 1.4426950408889634f);
+          m.window, m.scale, m.scale_log2, m.cap_log2);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const void* lse, void* dq, void* delta, int B, int Hq,
-                      int Hkv, int Sq, int Sk, Mask m, float scale, cudaStream_t stream) {
+                      int Hkv, int Sq, int Sk, const Mask& m, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    const auto fn = m.kind() == fat::bwd::kSegmentMask ? launch_dq_mma<D, fat::bwd::kSegmentMask>
-                    : m.kind() == fat::bwd::kWindowMask ? launch_dq_mma<D, fat::bwd::kWindowMask>
-                                                         : launch_dq_mma<D, fat::bwd::kNoMask>;
-    return fn(q, k, v, o, dout, lse, dq, delta, B, Hq, Hkv, Sq, Sk, m, scale, stream);
+    using fat::bwd::kNoMask, fat::bwd::kSegmentMask, fat::bwd::kWindowMask;
+    const auto fn = m.cap() ? (m.kind() == kSegmentMask  ? launch_dq_mma<D, kSegmentMask, true>
+                               : m.kind() == kWindowMask ? launch_dq_mma<D, kWindowMask, true>
+                                                         : launch_dq_mma<D, kNoMask, true>)
+                            : (m.kind() == kSegmentMask  ? launch_dq_mma<D, kSegmentMask, false>
+                               : m.kind() == kWindowMask ? launch_dq_mma<D, kWindowMask, false>
+                                                         : launch_dq_mma<D, kNoMask, false>);
+    return fn(q, k, v, o, dout, lse, dq, delta, B, Hq, Hkv, Sq, Sk, m, stream);
   } else {
     const cudaError_t err = fat::allow_max_smem<flash_bwd_dq_kernel<T, D>>();
     if (err != cudaSuccess) return err;
-    const dim3 grid((Sq + kBlock - 1) / kBlock, Hq, B);
-    flash_bwd_dq_kernel<T, D><<<grid, kThreads, dq_smem_bytes<D>(), stream>>>(
+    const dim3 grid((Sq + Tile<D>::kRows - 1) / Tile<D>::kRows, Hq, B);
+    flash_bwd_dq_kernel<T, D><<<grid, Tile<D>::kThreads, dq_smem_bytes<D>(), stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<const float*>(lse),
         static_cast<T*>(dq), static_cast<float*>(delta), m.seg_q, m.seg_k, Hq, Hkv, Sq, Sk,
-        m.is_causal, m.offset, m.window, scale, scale * 1.4426950408889634f);
+        m.is_causal, m.offset, m.window, m.scale, m.scale_log2, m.cap_log2);
     return cudaGetLastError();
   }
 }
 
-template <int D, int kMask>
+template <int D, int kMask, bool kCap>
 cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, void* dk, void* dv, int B, int Hq,
-                           int Hkv, int Sq, int Sk, Mask m, float scale, cudaStream_t stream) {
+                           int Hkv, int Sq, int Sk, const Mask& m, cudaStream_t stream) {
   namespace mma = fat::bwd::mma;
   using bf16 = __nv_bfloat16;
-  const cudaError_t err = fat::allow_max_smem<flash_bwd_dkv_mma_kernel<D, kMask>>();
+  const cudaError_t err = fat::allow_max_smem<flash_bwd_dkv_mma_kernel<D, kMask, kCap>>();
   if (err != cudaSuccess) return err;
   const dim3 grid(Hkv, B, (Sk + mma::kBc - 1) / mma::kBc);
-  flash_bwd_dkv_mma_kernel<D, kMask>
-      <<<grid, mma::kThreads, mma::smem_bytes<D, false, kMask>(), stream>>>(
+  flash_bwd_dkv_mma_kernel<D, kMask, kCap>
+      <<<grid, mma::threads<D>(), mma::smem_bytes<D, false, kMask>(), stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
           static_cast<const bf16*>(dout), static_cast<const float*>(lse),
           static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
           m.seg_q, m.seg_k, m.ranges_q, m.ranges_k, Hq, Hkv, Sq, Sk, m.is_causal, m.offset,
-          m.window, scale, scale * 1.4426950408889634f);
+          m.window, m.scale, m.scale_log2, m.cap_log2);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int B, int Hq,
-                       int Hkv, int Sq, int Sk, Mask m, float scale, cudaStream_t stream) {
+                       int Hkv, int Sq, int Sk, const Mask& m, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    const auto fn = m.kind() == fat::bwd::kSegmentMask ? launch_dkv_mma<D, fat::bwd::kSegmentMask>
-                    : m.kind() == fat::bwd::kWindowMask ? launch_dkv_mma<D, fat::bwd::kWindowMask>
-                                                         : launch_dkv_mma<D, fat::bwd::kNoMask>;
-    return fn(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk, m, scale, stream);
+    using fat::bwd::kNoMask, fat::bwd::kSegmentMask, fat::bwd::kWindowMask;
+    const auto fn = m.cap() ? (m.kind() == kSegmentMask  ? launch_dkv_mma<D, kSegmentMask, true>
+                               : m.kind() == kWindowMask ? launch_dkv_mma<D, kWindowMask, true>
+                                                         : launch_dkv_mma<D, kNoMask, true>)
+                            : (m.kind() == kSegmentMask  ? launch_dkv_mma<D, kSegmentMask, false>
+                               : m.kind() == kWindowMask ? launch_dkv_mma<D, kWindowMask, false>
+                                                         : launch_dkv_mma<D, kNoMask, false>);
+    return fn(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk, m, stream);
   } else {
     const cudaError_t err = fat::allow_max_smem<flash_bwd_dkv_kernel<T, D>>();
     if (err != cudaSuccess) return err;
-    const dim3 grid((Sk + kBlock - 1) / kBlock, Hkv, B);
-    flash_bwd_dkv_kernel<T, D><<<grid, kThreads, fat::bwd::dkv_smem_bytes<D>(), stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), m.seg_q,
-        m.seg_k, Hq, Hkv, Sq, Sk, m.is_causal, m.offset, m.window, scale,
-        scale * 1.4426950408889634f);
+    const dim3 grid((Sk + Tile<D>::kRows - 1) / Tile<D>::kRows, Hkv, B);
+    flash_bwd_dkv_kernel<T, D>
+        <<<grid, Tile<D>::kThreads, fat::bwd::dkv_smem_bytes<D>(), stream>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+            static_cast<const T*>(dout), static_cast<const float*>(lse),
+            static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), m.seg_q,
+            m.seg_k, Hq, Hkv, Sq, Sk, m.is_causal, m.offset, m.window, m.scale, m.scale_log2,
+            m.cap_log2);
     return cudaGetLastError();
   }
 }
@@ -522,7 +570,7 @@ bool bad_args(int B, int Hq, int Hkv, int Sq, int Sk, const Mask& m) {
   const bool seg = m.seg_q != nullptr;
   return B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || m.window < 0 ||
          (m.window > 0 && !m.is_causal) || seg != (m.seg_k != nullptr) ||
-         seg != (m.ranges_q != nullptr) || seg != (m.ranges_k != nullptr);
+         seg != (m.ranges_q != nullptr) || seg != (m.ranges_k != nullptr) || m.cap_log2 < 0.f;
 }
 
 }  // namespace
@@ -534,56 +582,58 @@ bool bad_args(int B, int Hq, int Hkv, int Sq, int Sk, const Mask& m) {
 // all NULL or none (the float32 kernels read the ids alone).
 // Row r sees column c iff !is_causal or c <= r + offset, with window > 0
 // (causal only) c >= r + offset - window + 1, and with segment ids
-// seg_q[b][r] == seg_k[b][c]. Writes dq (q's dtype, scale applied) and
-// delta. Returns the CUDA error code (0 = success).
+// seg_q[b][r] == seg_k[b][c]. The logits s (q . k) are s * scale_log2 in
+// the exp2 domain (scale_log2 = scale * log2(e)), or with cap_log2 > 0 (the
+// soft-cap: cap * log2(e), and scale_log2 then scale / cap)
+// tanh(s * scale_log2) * cap_log2, as the forward made them. D is 64, 128
+// or 256. Writes dq (q's dtype, scale applied) and delta. Returns the CUDA
+// error code (0 = success).
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* dq, void* delta,
                                    const int* seg_q, const int* seg_k, const int2* ranges_q,
                                    const int2* ranges_k, int B, int Hq, int Hkv, int Sq, int Sk,
                                    int D, int dtype, int is_causal, int offset, int window,
-                                   float scale, void* stream) {
-  const Mask m{seg_q, seg_k, ranges_q, ranges_k, is_causal, offset, window};
+                                   float scale, float scale_log2, float cap_log2, void* stream) {
+  const Mask m{seg_q, seg_k, ranges_q, ranges_k, is_causal, offset, window,
+               scale, scale_log2, cap_log2};
   if (bad_args(B, Hq, Hkv, Sq, Sk, m)) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == fat::kBF16 && D == 64)
-    err = launch_dq<__nv_bfloat16, 64>(q, k, v, o, dout, lse, dq, delta, B, Hq, Hkv, Sq, Sk, m,
-                                       scale, s);
-  else if (dtype == fat::kBF16 && D == 128)
-    err = launch_dq<__nv_bfloat16, 128>(q, k, v, o, dout, lse, dq, delta, B, Hq, Hkv, Sq, Sk, m,
-                                        scale, s);
-  else if (dtype == fat::kF32 && D == 64)
-    err = launch_dq<float, 64>(q, k, v, o, dout, lse, dq, delta, B, Hq, Hkv, Sq, Sk, m, scale, s);
-  else if (dtype == fat::kF32 && D == 128)
-    err = launch_dq<float, 128>(q, k, v, o, dout, lse, dq, delta, B, Hq, Hkv, Sq, Sk, m, scale,
-                                s);
-  return static_cast<int>(err);
+  const auto fn = dtype == fat::kBF16 ? (D == 64    ? launch_dq<__nv_bfloat16, 64>
+                                         : D == 128 ? launch_dq<__nv_bfloat16, 128>
+                                         : D == 256 ? launch_dq<__nv_bfloat16, 256>
+                                                    : nullptr)
+                  : dtype == fat::kF32 ? (D == 64    ? launch_dq<float, 64>
+                                          : D == 128 ? launch_dq<float, 128>
+                                          : D == 256 ? launch_dq<float, 256>
+                                                     : nullptr)
+                                       : nullptr;
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(fn(q, k, v, o, dout, lse, dq, delta, B, Hq, Hkv, Sq, Sk, m, s));
 }
 
-// Same layout and mask; reads the delta written by flash_bwd_dq_launch and
-// writes dk (scale applied) and dv in k's dtype, every row, summed over each
-// kv head's q heads.
+// Same layout, mask and logits; reads the delta written by
+// flash_bwd_dq_launch and writes dk (scale applied) and dv in k's dtype,
+// every row, summed over each kv head's q heads.
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* delta,
                                     void* dk, void* dv, const int* seg_q, const int* seg_k,
                                     const int2* ranges_q, const int2* ranges_k, int B, int Hq,
                                     int Hkv, int Sq, int Sk, int D, int dtype, int is_causal,
-                                    int offset, int window, float scale, void* stream) {
-  const Mask m{seg_q, seg_k, ranges_q, ranges_k, is_causal, offset, window};
+                                    int offset, int window, float scale, float scale_log2,
+                                    float cap_log2, void* stream) {
+  const Mask m{seg_q, seg_k, ranges_q, ranges_k, is_causal, offset, window,
+               scale, scale_log2, cap_log2};
   if (bad_args(B, Hq, Hkv, Sq, Sk, m)) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == fat::kBF16 && D == 64)
-    err = launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk, m,
-                                        scale, s);
-  else if (dtype == fat::kBF16 && D == 128)
-    err = launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk,
-                                         m, scale, s);
-  else if (dtype == fat::kF32 && D == 64)
-    err = launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk, m, scale,
-                                s);
-  else if (dtype == fat::kF32 && D == 128)
-    err = launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk, m,
-                                 scale, s);
-  return static_cast<int>(err);
+  const auto fn = dtype == fat::kBF16 ? (D == 64    ? launch_dkv<__nv_bfloat16, 64>
+                                         : D == 128 ? launch_dkv<__nv_bfloat16, 128>
+                                         : D == 256 ? launch_dkv<__nv_bfloat16, 256>
+                                                    : nullptr)
+                  : dtype == fat::kF32 ? (D == 64    ? launch_dkv<float, 64>
+                                          : D == 128 ? launch_dkv<float, 128>
+                                          : D == 256 ? launch_dkv<float, 256>
+                                                     : nullptr)
+                                       : nullptr;
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(fn(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk, m, s));
 }

@@ -3,13 +3,18 @@
 // (flash_bwd_fused.cu) and B5 (flash_bwd.cu). bf16 runs on the tensor cores
 // instead (flash_bwd_mma.cuh, and flash_bwd.cu's flash_bwd_dq_mma_kernel).
 //
-// Every kernel here works on 64 x 64 score tiles with 256 threads: thread
-// (r = tid / 4, t = tid % 4) owns row r of the tile and the 16 columns
-// t, t + 4, ..., t + 60, so a row's four threads sit in one warp and meet
-// with quad shuffles or __syncwarp. Tiles are widened to fp32 in shared
-// memory (row stride D + 1, conflict-free column walks); products run on the
-// CUDA cores with fp32 accumulators. P and dS are rounded to the input dtype
-// before the products that consume them, as the TPU kernels feed their MXU.
+// Every kernel here works on square score tiles of Tile<D>::kRows rows
+// (64, or 32 at D 256, whose 64-row tiles would pass the card's shared
+// memory) with 4 threads a row: thread (r = tid / 4, t = tid % 4) owns row r
+// of the tile and the columns t, t + 4, ..., so a row's four threads sit in
+// one warp and meet with quad shuffles or __syncwarp. Tiles are widened to
+// fp32 in shared memory (row stride D + 1, conflict-free column walks);
+// products run on the CUDA cores with fp32 accumulators. P and dS are
+// rounded to the input dtype before the products that consume them, as the
+// TPU kernels feed their MXU. With a logit soft-cap (cap_log2 > 0, a
+// uniform branch: float32 is the kernels' exact gate, not a fast path) the
+// logit is tanh(s * scale_log2) * cap_log2 with scale_log2 = scale / cap,
+// and dS takes the tanh's derivative (1 - t)(1 + t).
 #pragma once
 
 #include "common.cuh"
@@ -17,18 +22,23 @@
 namespace fat {
 namespace bwd {
 
-constexpr int kBlock = 64;  // q rows and kv rows per tile
-constexpr int kThreads = 256;
-constexpr int kThreadsPerRow = kThreads / kBlock;        // 4
-constexpr int kColsPerThread = kBlock / kThreadsPerRow;  // 16
-constexpr int kPP = kBlock + 1;  // row stride of the [64][64] P / dS tiles
+constexpr int kThreadsPerRow = 4;
+
+// The float32 tile of head dim D.
+template <int D>
+struct Tile {
+  static constexpr int kRows = D == 256 ? 32 : 64;  // q rows and kv rows per tile
+  static constexpr int kThreads = kThreadsPerRow * kRows;
+  static constexpr int kCols = kRows / kThreadsPerRow;  // score columns a thread
+  static constexpr int kPP = kRows + 1;  // row stride of the [kRows][kRows] P / dS tiles
+};
 
 // What a bf16 instantiation masks beyond the causal bound: nothing, a
 // sliding window, or segment ids (with a window when one is given). Each
 // kind runs none of the code of the kinds after it.
 enum MaskKind : int { kNoMask = 0, kWindowMask = 1, kSegmentMask = 2 };
 
-// s[j] = a[r] . c[col_j], e[j] = b[r] . f[col_j] for this thread's 16
+// s[j] = a[r] . c[col_j], e[j] = b[r] . f[col_j] for this thread's
 // columns col_j = t + 4j, over fp32 shared-memory tiles of row stride D+1.
 template <int D>
 __device__ __forceinline__ void two_score_rows(const float* __restrict__ a,
@@ -38,13 +48,13 @@ __device__ __forceinline__ void two_score_rows(const float* __restrict__ a,
                                                float* s, float* e) {
   constexpr int DP = D + 1;
 #pragma unroll
-  for (int j = 0; j < kColsPerThread; ++j) s[j] = e[j] = 0.f;
+  for (int j = 0; j < Tile<D>::kCols; ++j) s[j] = e[j] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
     const float ad = a[r * DP + d];
     const float bd = b[r * DP + d];
 #pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) {
+    for (int j = 0; j < Tile<D>::kCols; ++j) {
       const int col = (t + kThreadsPerRow * j) * DP + d;
       s[j] = fmaf(ad, c[col], s[j]);
       e[j] = fmaf(bd, f[col], e[j]);
@@ -52,14 +62,14 @@ __device__ __forceinline__ void two_score_rows(const float* __restrict__ a,
   }
 }
 
-// acc[i] += sum_c w[r][c] * x[c][t + 4i] over the tile's 64 columns c:
+// acc[i] += sum_c w[r][c] * x[c][t + 4i] over the tile's columns c:
 // one row of (w . x) for this thread's D/4 output columns.
 template <int D>
 __device__ __forceinline__ void row_times_tile(const float* __restrict__ w, int r, int t,
                                                const float* __restrict__ x, float* acc) {
   constexpr int DP = D + 1;
-  for (int c = 0; c < kBlock; ++c) {
-    const float wc = w[r * kPP + c];
+  for (int c = 0; c < Tile<D>::kRows; ++c) {
+    const float wc = w[r * Tile<D>::kPP + c];
 #pragma unroll
     for (int i = 0; i < D / kThreadsPerRow; ++i)
       acc[i] = fmaf(wc, x[c * DP + t + kThreadsPerRow * i], acc[i]);
@@ -72,11 +82,32 @@ __device__ __forceinline__ float lse_log2(float lse) {
   return lse == -CUDART_INF_F ? CUDART_INF_F : lse * 1.4426950408889634f;
 }
 
+// P and dS of one score (a raw product s = q . k): p = exp2(logit - lse2),
+// masked to 0 when !live, with the logit s * scale_log2, or with a soft-cap
+// (cap_log2 > 0, a uniform branch; scale_log2 then scale / cap) t *
+// cap_log2 for t = tanh(s * scale_log2), the forward's tanh; ds = p (dp -
+// delta), times (1 - t)(1 + t) under the cap: d(cap tanh(x / cap)) / dx =
+// 1 - t^2, kept precise where |t| nears 1. The float32 kernels call it; the
+// bf16 kernels write the same arithmetic out per kCap (inlined through
+// this helper, ptxas allotted B4's uncapped D 64 kernel differently and it
+// spilled 12 bytes).
+__device__ __forceinline__ float2 p_and_ds(float s, float dp, float delta, float lse2, bool live,
+                                           float scale_log2, float cap_log2) {
+  if (cap_log2 > 0.f) {
+    const float tc = softcap_tanh(s * scale_log2);
+    const float p = live ? exp2f(tc * cap_log2 - lse2) : 0.f;
+    return make_float2(p, p * (dp - delta) * ((1.f - tc) * (1.f + tc)));
+  }
+  const float p = live ? exp2f(s * scale_log2 - lse2) : 0.f;
+  return make_float2(p, p * (dp - delta));
+}
+
 // Shared memory of the dK/dV kernels: K, V (the tile's kv rows), Q, dO (the
 // current q tile), P^T and dS^T, and the q tile's LSE and delta.
 template <int D>
 constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (4 * kBlock * (D + 1) + 2 * kBlock * kPP + 2 * kBlock);
+  using L = Tile<D>;
+  return sizeof(float) * (4 * L::kRows * (D + 1) + 2 * L::kRows * L::kPP + 2 * L::kRows);
 }
 
 // dK and dV of one kv tile (blockIdx.x) of one kv head (blockIdx.y) of one
@@ -100,7 +131,11 @@ __device__ __forceinline__ void dkv_tile(const T* __restrict__ q, const T* __res
                                          const int* __restrict__ seg_q,
                                          const int* __restrict__ seg_k, int Hq, int Hkv, int Sq,
                                          int Sk, int is_causal, int offset, int window,
-                                         float scale, float scale_log2) {
+                                         float scale, float scale_log2, float cap_log2) {
+  constexpr int kBlock = Tile<D>::kRows;
+  constexpr int kThreads = Tile<D>::kThreads;
+  constexpr int kPP = Tile<D>::kPP;
+  constexpr int kColsPerThread = Tile<D>::kCols;
   constexpr int DP = D + 1;
   constexpr int kDims = D / kThreadsPerRow;
   extern __shared__ float smem[];
@@ -168,10 +203,9 @@ __device__ __forceinline__ void dkv_tile(const T* __restrict__ q, const T* __res
         const bool live = qi < Sq && kv_row < Sk && (!is_causal || kv_row <= qi + offset) &&
                           (window == 0 || kv_row >= qi + offset - window + 1) &&
                           (seg_q == nullptr || seg_q[static_cast<size_t>(b) * Sq + qi] == kv_seg);
-        const float p = live ? exp2f(s[j] * scale_log2 - lse2s[c]) : 0.f;
-        const float ds = p * (dp[j] - deltas[c]);
-        pt[r * kPP + c] = round_to<T>(p);
-        dst[r * kPP + c] = round_to<T>(ds);
+        const float2 pd = p_and_ds(s[j], dp[j], deltas[c], lse2s[c], live, scale_log2, cap_log2);
+        pt[r * kPP + c] = round_to<T>(pd.x);
+        dst[r * kPP + c] = round_to<T>(pd.y);
       }
       __syncwarp();  // row r's four threads wrote all of its P^T and dS^T
 

@@ -7,7 +7,9 @@
 // ragged S_q/S_k, rows that see no key, the sliding window and
 // packed-document segment ids (instantiated apart, flash_bwd.cuh's
 // MaskKind: the tile of flash_bwd_mma.cuh bounds its q walk by the window
-// and masks pairs of two documents). On the TPU the dK/dV accumulators of
+// and masks pairs of two documents), and the logit soft-cap with its exact
+// tanh derivative (kCap, a template flag of the bf16 kernel), at D 64, 128
+// and 256 (8 warps a kv tile at D 256, flash_bwd_mma.cuh). On the TPU the dK/dV accumulators of
 // a whole (batch, kv head) stay in VMEM while one sequential grid walks the
 // q tiles; no SM holds that, so this is the one-pass design of FA2 instead:
 // one CTA per (64-row kv tile, kv head, batch) keeps its tile's dK and dV in
@@ -32,10 +34,10 @@
 
 namespace {
 
-using fat::bwd::kBlock;
-using fat::bwd::kThreads;
+using fat::bwd::Tile;
 
-constexpr int kRowsPerCta = kThreads / 32;  // delta pre-pass: one warp per row
+constexpr int kThreads = 256;  // delta pre-pass
+constexpr int kRowsPerCta = kThreads / 32;  // one warp per row
 
 // delta[row] = sum_d dO[row][d] * O[row][d] over rows = B * Hq * Sq.
 template <typename T, int D>
@@ -56,20 +58,20 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Tile<D>::kThreads)
 flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ dout,
                        const float* __restrict__ lse, const float* __restrict__ delta,
                        T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dq_acc,
                        const int* __restrict__ seg_q, const int* __restrict__ seg_k, int Hq,
                        int Hkv, int Sq, int Sk, int is_causal, int offset, int window,
-                       float scale, float scale_log2) {
+                       float scale, float scale_log2, float cap_log2) {
   fat::bwd::dkv_tile<T, D, true>(q, k, v, dout, lse, delta, dk, dv, dq_acc, seg_q, seg_k, Hq, Hkv,
-                                 Sq, Sk, is_causal, offset, window, scale, scale_log2);
+                                 Sq, Sk, is_causal, offset, window, scale, scale_log2, cap_log2);
 }
 
-template <int D, int kMask>
-__global__ void __launch_bounds__(fat::bwd::mma::kThreads)
+template <int D, int kMask, bool kCap>
+__global__ void __launch_bounds__(fat::bwd::mma::threads<D>())
 flash_bwd_fused_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
                            const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
@@ -78,30 +80,32 @@ flash_bwd_fused_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloa
                            const int* __restrict__ seg_q, const int* __restrict__ seg_k,
                            const int2* __restrict__ ranges_q, const int2* __restrict__ ranges_k,
                            int Hq, int Hkv, int Sq, int Sk, int is_causal, int offset, int window,
-                           float scale, float scale_log2) {
-  fat::bwd::mma::dkv_tile<D, true, kMask>(q, k, v, dout, lse, delta, dk, dv, dq_acc, seg_q, seg_k,
-                                          ranges_q, ranges_k, Hq, Hkv, Sq, Sk, is_causal, offset,
-                                          window, scale, scale_log2);
+                           float scale, float scale_log2, float cap_log2) {
+  fat::bwd::mma::dkv_tile<D, true, kMask, kCap>(q, k, v, dout, lse, delta, dk, dv, dq_acc, seg_q,
+                                                seg_k, ranges_q, ranges_k, Hq, Hkv, Sq, Sk,
+                                                is_causal, offset, window, scale, scale_log2,
+                                                cap_log2);
 }
 
-template <int D, int kMask>
+template <int D, int kMask, bool kCap>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, void* dq_acc, void* dk, void* dv, const void* delta,
                        const int* seg_q, const int* seg_k, const int2* ranges_q,
                        const int2* ranges_k, int B, int Hq, int Hkv, int Sq, int Sk,
-                       int is_causal, int offset, int window, float scale, cudaStream_t stream) {
+                       int is_causal, int offset, int window, float scale, float scale_log2,
+                       float cap_log2, cudaStream_t stream) {
   namespace mma = fat::bwd::mma;
   using bf16 = __nv_bfloat16;
-  const cudaError_t err = fat::allow_max_smem<flash_bwd_fused_mma_kernel<D, kMask>>();
+  const cudaError_t err = fat::allow_max_smem<flash_bwd_fused_mma_kernel<D, kMask, kCap>>();
   if (err != cudaSuccess) return err;
   const dim3 grid(Hkv, B, (Sk + mma::kBc - 1) / mma::kBc);
-  flash_bwd_fused_mma_kernel<D, kMask>
-      <<<grid, mma::kThreads, mma::smem_bytes<D, true, kMask>(), stream>>>(
+  flash_bwd_fused_mma_kernel<D, kMask, kCap>
+      <<<grid, mma::threads<D>(), mma::smem_bytes<D, true, kMask>(), stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
           static_cast<const bf16*>(dout), static_cast<const float*>(lse),
           static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
           static_cast<float*>(dq_acc), seg_q, seg_k, ranges_q, ranges_k, Hq, Hkv, Sq, Sk,
-          is_causal, offset, window, scale, scale * 1.4426950408889634f);
+          is_causal, offset, window, scale, scale_log2, cap_log2);
   return cudaGetLastError();
 }
 
@@ -110,7 +114,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
                    const void* lse, void* dq_acc, void* dk, void* dv, void* delta,
                    const int* seg_q, const int* seg_k, const int2* ranges_q,
                    const int2* ranges_k, int B, int Hq, int Hkv, int Sq, int Sk, int is_causal,
-                   int offset, int window, float scale, cudaStream_t stream) {
+                   int offset, int window, float scale, float scale_log2, float cap_log2,
+                   cudaStream_t stream) {
   const long long rows = static_cast<long long>(B) * Hq * Sq;
   flash_bwd_delta_kernel<T, D><<<static_cast<unsigned>((rows + kRowsPerCta - 1) / kRowsPerCta),
                                  kThreads, 0, stream>>>(
@@ -119,22 +124,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   if (err != cudaSuccess) return err;
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     namespace bwd = fat::bwd;
-    const auto fn = seg_q != nullptr ? launch_mma<D, bwd::kSegmentMask>
-                    : window > 0     ? launch_mma<D, bwd::kWindowMask>
-                                     : launch_mma<D, bwd::kNoMask>;
+    const bool cap = cap_log2 > 0.f;
+    const auto fn = seg_q != nullptr ? (cap ? launch_mma<D, bwd::kSegmentMask, true>
+                                            : launch_mma<D, bwd::kSegmentMask, false>)
+                    : window > 0     ? (cap ? launch_mma<D, bwd::kWindowMask, true>
+                                            : launch_mma<D, bwd::kWindowMask, false>)
+                                     : (cap ? launch_mma<D, bwd::kNoMask, true>
+                                            : launch_mma<D, bwd::kNoMask, false>);
     return fn(q, k, v, dout, lse, dq_acc, dk, dv, delta, seg_q, seg_k, ranges_q, ranges_k, B, Hq,
-              Hkv, Sq, Sk, is_causal, offset, window, scale, stream);
+              Hkv, Sq, Sk, is_causal, offset, window, scale, scale_log2, cap_log2, stream);
   } else {
-    const float scale_log2 = scale * 1.4426950408889634f;
     err = fat::allow_max_smem<flash_bwd_fused_kernel<T, D>>();
     if (err != cudaSuccess) return err;
-    const dim3 grid((Sk + kBlock - 1) / kBlock, Hkv, B);
-    flash_bwd_fused_kernel<T, D><<<grid, kThreads, fat::bwd::dkv_smem_bytes<D>(), stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
-        static_cast<float*>(dq_acc), seg_q, seg_k, Hq, Hkv, Sq, Sk, is_causal, offset, window,
-        scale, scale_log2);
+    const dim3 grid((Sk + Tile<D>::kRows - 1) / Tile<D>::kRows, Hkv, B);
+    flash_bwd_fused_kernel<T, D>
+        <<<grid, Tile<D>::kThreads, fat::bwd::dkv_smem_bytes<D>(), stream>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+            static_cast<const T*>(dout), static_cast<const float*>(lse),
+            static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
+            static_cast<float*>(dq_acc), seg_q, seg_k, Hq, Hkv, Sq, Sk, is_causal, offset,
+            window, scale, scale_log2, cap_log2);
   }
   return cudaGetLastError();
 }
@@ -149,35 +158,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
 // all NULL or none (the float32 kernels read the ids alone). Row r
 // sees column c iff !is_causal or c <= r + offset, with window > 0 (causal
 // only) c >= r + offset - window + 1, and with segment ids
-// seg_q[b][r] == seg_k[b][c]. Writes delta, dk (scale applied) and dv in
-// k's dtype, and adds scale * dS.K into dq_acc. Returns the CUDA error code
-// of the launches (0 = success).
+// seg_q[b][r] == seg_k[b][c]. The logits s (q . k) are s * scale_log2 in
+// the exp2 domain (scale_log2 = scale * log2(e)), or with cap_log2 > 0 (the
+// soft-cap: cap * log2(e), and scale_log2 then scale / cap)
+// tanh(s * scale_log2) * cap_log2, as the forward made them. D is 64, 128
+// or 256. Writes delta, dk (scale applied) and dv in k's dtype, and adds
+// scale * dS.K into dq_acc. Returns the CUDA error code of the launches
+// (0 = success).
 extern "C" int flash_bwd_fused_launch(const void* q, const void* k, const void* v, const void* o,
                                       const void* dout, const void* lse, void* dq_acc, void* dk,
                                       void* dv, void* delta, const int* seg_q, const int* seg_k,
                                       const int2* ranges_q, const int2* ranges_k, int B, int Hq,
                                       int Hkv, int Sq, int Sk, int D, int dtype, int is_causal,
-                                      int offset, int window, float scale, void* stream) {
+                                      int offset, int window, float scale, float scale_log2,
+                                      float cap_log2, void* stream) {
   const bool seg = seg_q != nullptr;
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || window < 0 ||
       (window > 0 && !is_causal) || seg != (seg_k != nullptr) || seg != (ranges_q != nullptr) ||
-      seg != (ranges_k != nullptr))
+      seg != (ranges_k != nullptr) || cap_log2 < 0.f)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == fat::kBF16 && D == 64)
-    err = launch<__nv_bfloat16, 64>(q, k, v, o, dout, lse, dq_acc, dk, dv, delta, seg_q, seg_k,
-                                    ranges_q, ranges_k, B, Hq, Hkv, Sq, Sk, is_causal, offset,
-                                    window, scale, s);
-  else if (dtype == fat::kBF16 && D == 128)
-    err = launch<__nv_bfloat16, 128>(q, k, v, o, dout, lse, dq_acc, dk, dv, delta, seg_q, seg_k,
-                                     ranges_q, ranges_k, B, Hq, Hkv, Sq, Sk, is_causal, offset,
-                                     window, scale, s);
-  else if (dtype == fat::kF32 && D == 64)
-    err = launch<float, 64>(q, k, v, o, dout, lse, dq_acc, dk, dv, delta, seg_q, seg_k, ranges_q,
-                            ranges_k, B, Hq, Hkv, Sq, Sk, is_causal, offset, window, scale, s);
-  else if (dtype == fat::kF32 && D == 128)
-    err = launch<float, 128>(q, k, v, o, dout, lse, dq_acc, dk, dv, delta, seg_q, seg_k, ranges_q,
-                             ranges_k, B, Hq, Hkv, Sq, Sk, is_causal, offset, window, scale, s);
-  return static_cast<int>(err);
+  const auto fn = dtype == fat::kBF16 ? (D == 64    ? launch<__nv_bfloat16, 64>
+                                         : D == 128 ? launch<__nv_bfloat16, 128>
+                                         : D == 256 ? launch<__nv_bfloat16, 256>
+                                                    : nullptr)
+                  : dtype == fat::kF32 ? (D == 64    ? launch<float, 64>
+                                          : D == 128 ? launch<float, 128>
+                                          : D == 256 ? launch<float, 256>
+                                                     : nullptr)
+                                       : nullptr;
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(fn(q, k, v, o, dout, lse, dq_acc, dk, dv, delta, seg_q, seg_k,
+                             ranges_q, ranges_k, B, Hq, Hkv, Sq, Sk, is_causal, offset, window,
+                             scale, scale_log2, cap_log2, static_cast<cudaStream_t>(stream)));
 }

@@ -2,10 +2,14 @@
 // shared by B3's fused kernel (flash_bwd_fused.cu) and B5's dK/dV kernel
 // (flash_bwd.cu). float32 keeps the CUDA-core tile of flash_bwd.cuh.
 //
-// One CTA of 4 warps (128 threads) owns a 64-row kv tile of one kv head of
-// one batch row; warp w owns kv rows [16w, 16w+16) of it. The CTA walks the
+// One CTA owns a 64-row kv tile of one kv head of one batch row; warp w of
+// its 4 row warps owns kv rows [16w, 16w+16) of it. At D 256 a warp's dK and
+// dV (16 x 256 fp32 each) would not fit its registers beside S^T and dP^T,
+// so the CTA has 8 warps: warps w and w + 4 share rows [16w, 16w+16), each
+// computes S^T, P^T, dP^T and dS^T of them in full and keeps dK and dV of
+// one half of D (as K2 splits O at D 256). The CTA walks the
 // q heads of the GQA group and, for each, the q tiles with a row that sees
-// the tile (kBr rows a q tile: 64 at D 64, 32 at D 128): from the causal
+// the tile (kBr rows a q tile: 64 at D 64, 32 at D 128 and 256): from the causal
 // bound's first row and, with a sliding window, up to the last row whose
 // window reaches the tile. kMask (flash_bwd.cuh's MaskKind) instantiates
 // the window, or segment ids with a window when one is given: a q tile whose
@@ -17,7 +21,10 @@
 // mma.sync m16n8k16 with fp32 accumulators:
 //
 //   S^T = K Q^T, dP^T = V dO^T      A: K, V; B: Q, dO rows (ldmatrix)
-//   P^T = exp2(S^T scale_log2 - lse2), dS^T = P^T (dP^T - delta), masked
+//   P^T = exp2(S^T scale_log2 - lse2), dS^T = P^T (dP^T - delta), masked;
+//   with the soft-cap (kCap; scale_log2 then scale / cap) t = tanh(S^T
+//   scale_log2) by the forward's tanh (common.cuh softcap_tanh), P^T =
+//   exp2(t cap_log2 - lse2), and dS^T times (1 - t)(1 + t)
 //   dV += P^T dO, dK += dS^T Q      A: P^T and dS^T from the accumulators,
 //                                   rounded to bf16; B: dO, Q (ldmatrix.trans)
 //   fused only: dS^T to shared memory (bf16), dQ_tile = scale dS K
@@ -34,8 +41,9 @@
 // each (scale applied to dK); kv rows that no q row sees are written as 0.
 //
 // Shared memory: 65,536 B (fused) or 56,320 B (dK/dV) at D 64; 75,264 B or
-// 70,144 B at D 128; segment ids add 512 B at D 64, 256 B at D 128. Registers
-// and spills: the compiler report (chip_smoke.py phase 1).
+// 70,144 B at D 128; 140,800 B or 135,680 B at D 256; segment ids add 512 B
+// at D 64, 256 B at D 128 and 256. Registers and spills: the compiler report
+// (chip_smoke.py phase 1).
 #pragma once
 
 #include "flash_bwd.cuh"
@@ -46,13 +54,25 @@ namespace mma {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kWarps = 4;
+constexpr int kWarps = 4;  // warps a 16-row group each, over a CTA's kv rows
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBc = 16 * kWarps;  // kv rows a CTA
 
 template <int D>
 __host__ __device__ constexpr int q_rows() {
   return D == 64 ? 64 : 32;
+}
+
+// Warps that share each 16-row group, each with D / halves() of dK and dV.
+template <int D>
+__host__ __device__ constexpr int halves() {
+  return D == 256 ? 2 : 1;
+}
+
+// Threads of the dK/dV tile's CTA.
+template <int D>
+__host__ __device__ constexpr int threads() {
+  return kThreads * halves<D>();
 }
 
 template <int D, bool kFusedDq, int kMask>
@@ -66,16 +86,17 @@ constexpr size_t smem_bytes() {
 }
 
 // Rows [0, n_rows) of a contiguous [kRows][D] bf16 tile into shared memory
-// with row stride D + 8, by cp.async; rows past n_rows are zeros.
-template <int kRows, int D>
+// with row stride D + 8, by cp.async from kNThreads threads; rows past
+// n_rows are zeros.
+template <int kRows, int D, int kNThreads = kThreads>
 __device__ __forceinline__ void load_tile_async(const bf16* __restrict__ src, int n_rows,
                                                 bf16* __restrict__ dst) {
   constexpr int kChunksPerRow = D / 8;
   constexpr int kChunks = kRows * kChunksPerRow;
-  static_assert(kChunks % kThreads == 0, "whole 16-byte chunks for every thread");
+  static_assert(kChunks % kNThreads == 0, "whole 16-byte chunks for every thread");
 #pragma unroll
-  for (int j = 0; j < kChunks / kThreads; ++j) {
-    const int c = threadIdx.x + j * kThreads;
+  for (int j = 0; j < kChunks / kNThreads; ++j) {
+    const int c = threadIdx.x + j * kNThreads;
     const int row = c / kChunksPerRow, col = (c % kChunksPerRow) * 8;
     const bool valid = row < n_rows;
     cp_async16(dst + row * (D + 8) + col, valid ? src + row * D + col : src, valid);
@@ -87,8 +108,8 @@ __device__ __forceinline__ void load_tile_async(const bf16* __restrict__ src, in
 // call's heavy tiles (the first ones) are dispatched first. With kFusedDq
 // the dQ contributions are added with scale applied. kNoMask reads neither
 // the window nor the segment ids (window 0, seg_q/seg_k null), kWindowMask
-// not the ids.
-template <int D, bool kFusedDq, int kMask>
+// not the ids. Without kCap, cap_log2 is not read.
+template <int D, bool kFusedDq, int kMask, bool kCap>
 __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                          const bf16* __restrict__ v,
                                          const bf16* __restrict__ dout,
@@ -100,14 +121,16 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
                                          const int2* __restrict__ ranges_q,
                                          const int2* __restrict__ ranges_k, int Hq, int Hkv,
                                          int Sq, int Sk, int is_causal, int offset, int window,
-                                         float scale, float scale_log2) {
+                                         float scale, float scale_log2, float cap_log2) {
   constexpr int kBr = q_rows<D>();
+  constexpr int kNThreads = threads<D>();
+  constexpr int kNWarps = kNThreads / 32;
   constexpr int KP = D + 8;        // row stride of the K, V, Q and dO tiles
   constexpr int SP = kBr + 8;      // row stride of dS^T
   constexpr int kDSteps = D / 16;  // k-steps of S^T and dP^T
   constexpr int kQTiles = kBr / 8;  // their n-tiles
   constexpr int kQSteps = kBr / 16;  // k-steps of dV and dK
-  constexpr int kDTiles = D / 8;     // their n-tiles
+  constexpr int kDTiles = D / 8 / halves<D>();  // their n-tiles: this warp's part of D
   constexpr bool kResident = D == 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);
@@ -121,7 +144,9 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, tig = lane % 4;  // fragment row group, thread in group
-  const int wrow = warp * 16;              // this warp's kv rows in the tile
+  // This warp's kv rows in the tile and its first dK/dV column.
+  const int wrow = (halves<D>() == 1 ? warp : warp % kWarps) * 16;
+  const int dcol = halves<D>() == 1 ? 0 : (warp / kWarps) * 8 * kDTiles;
   const int hk = blockIdx.x, b = blockIdx.y;
   const int kv0 = blockIdx.z * kBc;
   const int group = Hq / Hkv;
@@ -153,8 +178,8 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
     int q0;
     const size_t row = stat_row(it, q0);
     const int buf = it & 1;
-    load_tile_async<kBr, D>(q + row * D, Sq - q0, qs + buf * kBr * KP);
-    load_tile_async<kBr, D>(dout + row * D, Sq - q0, dos + buf * kBr * KP);
+    load_tile_async<kBr, D, kNThreads>(q + row * D, Sq - q0, qs + buf * kBr * KP);
+    load_tile_async<kBr, D, kNThreads>(dout + row * D, Sq - q0, dos + buf * kBr * KP);
     if (tid < 2 * kBr) {
       const int r = tid % kBr;
       const bool valid = q0 + r < Sq;
@@ -168,8 +193,8 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
     }
   };
 
-  load_tile_async<kBc, D>(k + kv_base + static_cast<size_t>(kv0) * D, Sk - kv0, ks);
-  load_tile_async<kBc, D>(v + kv_base + static_cast<size_t>(kv0) * D, Sk - kv0, vs);
+  load_tile_async<kBc, D, kNThreads>(k + kv_base + static_cast<size_t>(kv0) * D, Sk - kv0, ks);
+  load_tile_async<kBc, D, kNThreads>(v + kv_base + static_cast<size_t>(kv0) * D, Sk - kv0, vs);
   if (n_iters > 0) load_q_tile(0);
   cp_async_commit();
   cp_async_wait_all();
@@ -279,30 +304,39 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
             live = live && (window == 0 || kr >= qi + offset - window + 1) &&
                    (!seg_mask || segb[c + (e & 1)] == kv_seg[e >> 1]);
         }
-        const float p = live ? exp2f(s[j][e] * scale_log2 - lse2[e & 1]) : 0.f;
-        s[j][e] = p;
-        dp[j][e] = p * (dp[j][e] - dlt[e & 1]);
+        if constexpr (kCap) {  // p_and_ds's arithmetic, written out as the uncapped one is
+          const float tc = softcap_tanh(s[j][e] * scale_log2);
+          const float p = live ? exp2f(tc * cap_log2 - lse2[e & 1]) : 0.f;
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - dlt[e & 1]) * ((1.f - tc) * (1.f + tc));
+        } else {
+          const float p = live ? exp2f(s[j][e] * scale_log2 - lse2[e & 1]) : 0.f;
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - dlt[e & 1]);
+        }
       }
       pa[j / 2][2 * (j % 2)] = pack_bf16(s[j][0], s[j][1]);
       pa[j / 2][2 * (j % 2) + 1] = pack_bf16(s[j][2], s[j][3]);
       dsa[j / 2][2 * (j % 2)] = pack_bf16(dp[j][0], dp[j][1]);
       dsa[j / 2][2 * (j % 2) + 1] = pack_bf16(dp[j][2], dp[j][3]);
       if constexpr (kFusedDq) {
-        bf16* r = dst + (wrow + g) * SP + c;
-        *reinterpret_cast<unsigned*>(r) = dsa[j / 2][2 * (j % 2)];
-        *reinterpret_cast<unsigned*>(r + 8 * SP) = dsa[j / 2][2 * (j % 2) + 1];
+        if (halves<D>() == 1 || warp < kWarps) {  // one warp of each row group writes dS^T
+          bf16* r = dst + (wrow + g) * SP + c;
+          *reinterpret_cast<unsigned*>(r) = dsa[j / 2][2 * (j % 2)];
+          *reinterpret_cast<unsigned*>(r + 8 * SP) = dsa[j / 2][2 * (j % 2) + 1];
+        }
       }
     }
 
-    // dV += P^T dO and dK += dS^T Q, two n-tiles of D a step.
+    // dV += P^T dO and dK += dS^T Q over this warp's columns, two n-tiles a step.
     const int t_off = lane_offset<true>(lane, KP);
 #pragma unroll
     for (int kk = 0; kk < kQSteps; ++kk) {
 #pragma unroll
       for (int np = 0; np < kDTiles / 2; ++np) {
         unsigned bo[4], bq[4];
-        ldsm_x4_t(bo, dob + 16 * kk * KP + 16 * np + t_off);
-        ldsm_x4_t(bq, qb + 16 * kk * KP + 16 * np + t_off);
+        ldsm_x4_t(bo, dob + 16 * kk * KP + dcol + 16 * np + t_off);
+        ldsm_x4_t(bq, qb + 16 * kk * KP + dcol + 16 * np + t_off);
         mma_16816(dv_acc[2 * np], pa[kk], bo[0], bo[1]);
         mma_16816(dv_acc[2 * np + 1], pa[kk], bo[2], bo[3]);
         mma_16816(dk_acc[2 * np], dsa[kk], bq[0], bq[1]);
@@ -313,11 +347,11 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
     if constexpr (kFusedDq) {
       __syncthreads();  // every warp's rows of dS^T are written
       // dQ of the tile = scale dS K: warps split the kBr q rows into 16-row
-      // groups and, when fewer than four groups, D into column groups; at D
-      // 128 a warp's 64 columns go in two passes, which keeps its registers
-      // within the file.
+      // groups and, when fewer groups than warps, D into column groups; at
+      // D 128 and 256 a warp's 64 columns go in two passes, which keeps its
+      // registers within the file.
       constexpr int kRowGroups = kBr / 16;
-      constexpr int kCols = D * kRowGroups / kWarps;
+      constexpr int kCols = D * kRowGroups / kNWarps;
       constexpr int kPass = D == 64 ? kCols : 32;
       const int qr = (warp % kRowGroups) * 16;
       const bool odd = tig & 1;
@@ -360,8 +394,8 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
   for (int i = 0; i < 2; ++i) {
     const int kr = kv_r0 + 8 * i;
     if (kr >= Sk) continue;
-    bf16* dk_row = dk + kv_base + static_cast<size_t>(kr) * D + 2 * tig;
-    bf16* dv_row = dv + kv_base + static_cast<size_t>(kr) * D + 2 * tig;
+    bf16* dk_row = dk + kv_base + static_cast<size_t>(kr) * D + dcol + 2 * tig;
+    bf16* dv_row = dv + kv_base + static_cast<size_t>(kr) * D + dcol + 2 * tig;
 #pragma unroll
     for (int n = 0; n < kDTiles; ++n) {
       *reinterpret_cast<__nv_bfloat162*>(dk_row + 8 * n) =

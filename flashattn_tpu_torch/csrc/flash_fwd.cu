@@ -856,8 +856,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, vo
 }
 
 // The bf16 kernel of head dim D (kConsumers warpgroups) for a window,
-// segment ids and a soft-cap present or not (the soft-cap with or without
-// the window, never with segment ids: the caller refuses that pair).
+// segment ids and a soft-cap, each present or not.
 template <int D, int kConsumers>
 cudaError_t launch_bf16_any(bool win, bool seg, bool cap, const void* q, const void* k,
                             const void* v, void* o, void* lse, const int* seg_q,
@@ -866,8 +865,10 @@ cudaError_t launch_bf16_any(bool win, bool seg, bool cap, const void* q, const v
                             int window, float scale_log2, float cap_log2,
                             cudaStream_t stream) {
   const auto fn =
-      cap ? (win ? launch_bf16<D, kConsumers, true, false, true>
-                 : launch_bf16<D, kConsumers, false, false, true>)
+      cap ? (win ? (seg ? launch_bf16<D, kConsumers, true, true, true>
+                        : launch_bf16<D, kConsumers, true, false, true>)
+                 : (seg ? launch_bf16<D, kConsumers, false, true, true>
+                        : launch_bf16<D, kConsumers, false, false, true>))
       : win ? (seg ? launch_bf16<D, kConsumers, true, true, false>
                    : launch_bf16<D, kConsumers, true, false, false>)
             : (seg ? launch_bf16<D, kConsumers, false, true, false>
@@ -887,10 +888,10 @@ cudaError_t launch_bf16_any(bool win, bool seg, bool cap, const void* q, const v
 // c >= r + offset - window + 1, and with segment ids
 // seg_q[b][r] == seg_k[b][c]. The logits s (q . k) become s * scale_log2 in
 // the exp2 domain, or with cap_log2 > 0 (the soft-cap: cap * log2(e), and
-// scale_log2 then scale / cap) tanh(s * scale_log2) * cap_log2; the
-// bf16 kernel takes no soft-cap with segment ids. bf16 runs the wgmma
-// kernel (q tiles of 64 rows at D 64, 128 at D 128 and 256), float32 the
-// FMA kernel. Returns the CUDA error code of the launch (0 = success).
+// scale_log2 then scale / cap) tanh(s * scale_log2) * cap_log2. bf16 runs
+// the wgmma kernel (q tiles of 64 rows at D 64, 128 at D 128 and 256),
+// float32 the FMA kernel. Returns the CUDA error code of the launch (0 =
+// success).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
                                 void* lse, const int* seg_q, const int* seg_k,
                                 const int2* ranges_q, const int2* ranges_k, int B, int Hq,
@@ -901,7 +902,7 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, voi
   const bool cap = cap_log2 > 0.f;
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || window < 0 ||
       (window > 0 && !is_causal) || seg != (seg_k != nullptr) || seg != (ranges_q != nullptr) ||
-      seg != (ranges_k != nullptr) || cap_log2 < 0.f || (cap && seg && dtype == fat::kBF16))
+      seg != (ranges_k != nullptr) || cap_log2 < 0.f)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;

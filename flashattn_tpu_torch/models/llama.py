@@ -290,9 +290,9 @@ def forward(model: Llama, tokens: torch.Tensor, segment_ids=None,
     backward runs the backward kernels (with each layer's window). With
     segment_ids [B, S] the rows are packed documents: attention stays within
     a document (ops/varlen.py; ids < 0 are padding) and RoPE positions
-    restart at each boundary. Rematerialisation (`remat`) is not ported yet
-    and raises (ROADMAP A3b). A soft-capped model (cfg.logit_softcap) runs
-    without a gradient only: its backward is ROADMAP A4 (ii)."""
+    restart at each boundary. A soft-capped model (cfg.logit_softcap,
+    Gemma-2) trains too, packed or not: the backward kernels take the cap.
+    Rematerialisation (`remat`) is not ported yet and raises (ROADMAP A3b)."""
     if remat is not False:
         raise unported(f"remat={remat!r}", "A3b")
     cfg = model.cfg

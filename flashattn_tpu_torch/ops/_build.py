@@ -29,9 +29,9 @@ ENTRY_POINTS = {
     "flash_fwd": {"flash_fwd_launch": [_P] * 9 + [_I] * 10 + [_F, _F, _P]},
     "decode": {"decode_launch": [_P] * 11 + [_I] * 15 + [_F, _F, _F, _P]},
     "quant_matmul": {"quant_matmul_launch": [_P] * 5 + [_I] * 7 + [_P]},
-    "flash_bwd": {"flash_bwd_dq_launch": [_P] * 12 + [_I] * 10 + [_F, _P],
-                  "flash_bwd_dkv_launch": [_P] * 12 + [_I] * 10 + [_F, _P]},
-    "flash_bwd_fused": {"flash_bwd_fused_launch": [_P] * 14 + [_I] * 10 + [_F, _P]},
+    "flash_bwd": {"flash_bwd_dq_launch": [_P] * 12 + [_I] * 10 + [_F] * 3 + [_P],
+                  "flash_bwd_dkv_launch": [_P] * 12 + [_I] * 10 + [_F] * 3 + [_P]},
+    "flash_bwd_fused": {"flash_bwd_fused_launch": [_P] * 14 + [_I] * 10 + [_F] * 3 + [_P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

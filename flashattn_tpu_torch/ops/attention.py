@@ -4,11 +4,9 @@ flashattn_tpu/ops/attention.py).
 ``flash_attention`` is differentiable: a ``torch.autograd.Function`` (the
 JAX package's ``custom_vjp``) whose forward runs K1 with the LSE and keeps
 (q, k, v, o, lse) and the segment ids as residuals, and whose backward runs
-the backward kernels (ops/flash_bwd.py) with the same causal mask, window
-and segment ids. Without a gradient to take, the primal runs K1 without
-writing the LSE, as the JAX primal does; only the primal takes a logit
-soft-cap or D 256 (the backward kernels' are ROADMAP A4 (ii)): with a
-gradient to take, either raises before any launch.
+the backward kernels (ops/flash_bwd.py) with the same causal mask, window,
+segment ids and logit soft-cap. Without a gradient to take, the primal runs
+K1 without writing the LSE, as the JAX primal does.
 
 ``plain_flash_attention`` is the same Function over the plain versions of
 the forward and backward, the route the kernels are held against. It never
@@ -21,13 +19,11 @@ from typing import Callable
 
 import torch
 
-from flashattn_tpu_torch.ops import flash_bwd
 from flashattn_tpu_torch.ops.flash_bwd import (
     flash_attention_backward,
     flash_attention_backward_reference,
 )
 from flashattn_tpu_torch.ops.flash_fwd import (
-    check_backward_unported,
     flash_attention_forward,
     flash_attention_forward_reference,
 )
@@ -36,40 +32,40 @@ from flashattn_tpu_torch.ops.flash_fwd import (
 class FlashAttentionFunction(torch.autograd.Function):
     """O = attention(q, k, v) with residuals (q, k, v, o, lse) and the
     segment ids; the forward and backward functions are arguments, so the
-    kernels and the plain versions share this Function. The segment ids
-    (int32, no gradient) get None."""
+    kernels and the plain versions share this Function. The options (the
+    causal mask, scale, pos_offset, window and logit soft-cap) reach both
+    functions alike. The segment ids (int32, no gradient) get None."""
 
     @staticmethod
     def forward(ctx, q, k, v, seg_q, seg_k, is_causal: bool, scale: float | None,
-                pos_offset: int | None, window: int | None, forward_fn: Callable,
-                backward_fn: Callable):
+                pos_offset: int | None, window: int | None, logit_softcap: float | None,
+                forward_fn: Callable, backward_fn: Callable):
         segment_ids = None if seg_q is None else (seg_q, seg_k)
         o, lse = forward_fn(q, k, v, is_causal, scale, pos_offset, need_lse=True,
-                            window=window, segment_ids=segment_ids)
+                            window=window, segment_ids=segment_ids,
+                            logit_softcap=logit_softcap)
         ctx.save_for_backward(q, k, v, o, lse, seg_q, seg_k)
-        ctx.options = (is_causal, scale, pos_offset, window, backward_fn)
+        ctx.options = (is_causal, scale, pos_offset, window, logit_softcap, backward_fn)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse, seg_q, seg_k = ctx.saved_tensors
-        is_causal, scale, pos_offset, window, backward_fn = ctx.options
+        is_causal, scale, pos_offset, window, logit_softcap, backward_fn = ctx.options
         dq, dk, dv = backward_fn(q, k, v, o, do.contiguous(), lse, is_causal=is_causal,
                                  scale=scale, pos_offset=pos_offset, window=window,
-                                 segment_ids=None if seg_q is None else (seg_q, seg_k))
-        return dq, dk, dv, None, None, None, None, None, None, None, None
+                                 segment_ids=None if seg_q is None else (seg_q, seg_k),
+                                 logit_softcap=logit_softcap)
+        return dq, dk, dv, None, None, None, None, None, None, None, None, None
 
 
 def _attention(q, k, v, is_causal, scale, pos_offset, window, segment_ids, logit_softcap,
                forward_fn, backward_fn):
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        check_backward_unported(logit_softcap=logit_softcap)
-        if q.device.type == "cuda" and q.shape[-1] not in flash_bwd.HEAD_DIMS:
-            raise ValueError(f"head_dim {q.shape[-1]}: the backward kernels take "
-                             f"{flash_bwd.HEAD_DIMS} (ROADMAP A4 (ii))")
         seg_q, seg_k = (None, None) if segment_ids is None else segment_ids
         return FlashAttentionFunction.apply(q, k, v, seg_q, seg_k, is_causal, scale,
-                                            pos_offset, window, forward_fn, backward_fn)
+                                            pos_offset, window, logit_softcap, forward_fn,
+                                            backward_fn)
     o, _ = forward_fn(q, k, v, is_causal, scale, pos_offset, need_lse=False, window=window,
                       segment_ids=segment_ids, logit_softcap=logit_softcap)
     return o
@@ -95,9 +91,9 @@ def flash_attention(
     documents go through ops/varlen.py) restrict it further, in the forward
     and the backward. The backward's implementation follows
     flash_attention_backward's "auto" (FLASHATTN_BWD_IMPL=split selects the
-    deterministic path). `logit_softcap` (cap * tanh(s / cap) before the
-    mask) and D 256 run without a gradient only: with one they raise
-    before any launch (ROADMAP A4 (ii))."""
+    deterministic path). `logit_softcap` (cap * tanh(s / cap) on the
+    scaled logits, before the mask) reaches the forward and the backward
+    alike."""
     return _attention(q, k, v, is_causal, scale, pos_offset, window, segment_ids,
                       logit_softcap, flash_attention_forward, flash_attention_backward)
 

@@ -14,10 +14,11 @@
   cache; those are TPU designs and are not ported: on the card the fused
   kernel keeps only one kv tile's dK/dV on chip, so it serves every length.
 
-Every path takes the sliding window and packed-document segment ids (the
-forward's `window` and `segment_ids`, ops/flash_fwd.py). The kernels take
-HEAD_DIMS, not the forward's D 256, and no logit soft-cap (both ROADMAP
-A4 (ii)).
+Every path takes the sliding window, packed-document segment ids and the
+logit soft-cap (the forward's `window`, `segment_ids` and `logit_softcap`,
+ops/flash_fwd.py), at the forward's head dims (HEAD_DIMS): with a cap the
+kernels rebuild P from the capped logits and multiply dS by the tanh's
+derivative, 1 - t^2.
 """
 
 from __future__ import annotations
@@ -33,8 +34,9 @@ from flashattn_tpu_torch.ops.flash_bwd_fused import (
     launch_args,
     require_cuda,
 )
+from flashattn_tpu_torch.ops.common import check_softcap
 from flashattn_tpu_torch.ops.flash_fwd import (
-    check_backward_unported,
+    check_forward_unported,
     check_segments,
     check_window,
     kernel_segments,
@@ -42,16 +44,19 @@ from flashattn_tpu_torch.ops.flash_fwd import (
 from flashattn_tpu_torch.ops.reference import reference_attention_backward
 
 # Kernel launches in this process (set to 0 by callers that count a run):
-# each kernel's, and those with a sliding window and with segment ids.
+# each kernel's, and those with a sliding window, with segment ids and with
+# a logit soft-cap.
 DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
 DQ_WINDOW_LAUNCHES = 0
 DKV_WINDOW_LAUNCHES = 0
 DQ_SEGMENT_LAUNCHES = 0
 DKV_SEGMENT_LAUNCHES = 0
+DQ_SOFTCAP_LAUNCHES = 0
+DKV_SOFTCAP_LAUNCHES = 0
 
 # Head dims the backward kernels take (the forward's: flash_fwd.HEAD_DIMS).
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 IMPLS = ("auto", "fused", "split")
 IMPL_ENV = "FLASHATTN_BWD_IMPL"
@@ -69,13 +74,14 @@ def flash_attention_backward_reference(
     pos_offset: int | None = None,
     window: int | None = None,
     segment_ids=None,
+    logit_softcap: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the backward kernels (B3, B4 and B5), on any
     device."""
     check_window(window, is_causal)
     segment_ids = check_segments(segment_ids, q, k)
     return reference_attention_backward(q, k, v, o, do, lse, is_causal, scale,
-                                        pos_offset, window, segment_ids)
+                                        pos_offset, window, segment_ids, logit_softcap)
 
 
 def resolve_impl(impl: str) -> str:
@@ -113,8 +119,8 @@ def flash_attention_backward(
     Args:
       q, o, do: [B, Hq, S_q, D]; k, v: [B, Hkv, S_k, D]; lse: [B, Hq, S_q]
         float32, natural log, as flash_attention_forward returns it.
-      is_causal, scale, pos_offset, window, segment_ids: as in the forward
-        call that made o and lse.
+      is_causal, scale, pos_offset, window, segment_ids, logit_softcap: as in
+        the forward call that made o and lse.
       impl: "auto", "fused" or "split" (module docstring).
 
     Returns:
@@ -126,28 +132,30 @@ def flash_attention_backward(
     must be contiguous, 16-byte aligned bf16 or float32 with D in
     HEAD_DIMS, and lse contiguous float32; anything else raises.
     """
-    check_backward_unported(dropout_rate, logit_softcap, alibi, dyn_pos_offset)
+    check_forward_unported(dropout_rate, alibi, dyn_pos_offset)
     impl = resolve_impl(impl)
     check_backward_operands(q, k, v, o, do, lse, HEAD_DIMS)
     check_window(window, is_causal)
     segment_ids = check_segments(segment_ids, q, k)
+    cap = check_softcap(logit_softcap)
     if q.device.type == "cpu":
-        return flash_attention_backward_reference(q, k, v, o, do, lse, is_causal,
-                                                  scale, pos_offset, window, segment_ids)
+        return flash_attention_backward_reference(q, k, v, o, do, lse, is_causal, scale,
+                                                  pos_offset, window, segment_ids, cap)
     if impl == "fused":
         return flash_attention_backward_fused(q, k, v, o, do, lse, is_causal, scale,
-                                              pos_offset, window, segment_ids)
+                                              pos_offset, window, segment_ids, cap)
     dq, delta = flash_bwd_dq(q, k, v, o, do, lse, is_causal, scale, pos_offset, window,
-                             segment_ids)
+                             segment_ids, cap)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, is_causal, scale, pos_offset, window,
-                           segment_ids)
+                           segment_ids, cap)
     return dq, dk, dv
 
 
 def flash_bwd_dq(q, k, v, o, do, lse, is_causal=False, scale=None, pos_offset=None,
-                 window=None, segment_ids=None):
+                 window=None, segment_ids=None, logit_softcap=None):
     """B4's port on CUDA operands checked by flash_attention_backward:
-    (dQ in q.dtype, delta = rowsum(dO * O) float32 [B, Hq, S_q])."""
+    (dQ in q.dtype, delta = rowsum(dO * O) float32 [B, Hq, S_q]);
+    logit_softcap as common.check_softcap returns it."""
     require_cuda(q)
     segs = kernel_segments(segment_ids)
     dq = torch.empty_like(q)
@@ -158,19 +166,22 @@ def flash_bwd_dq(q, k, v, o, do, lse, is_causal=False, scale=None, pos_offset=No
         rc = lib.flash_bwd_dq_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
-            *launch_args(q, k, is_causal, scale, pos_offset, window, segs), stream)
+            *launch_args(q, k, is_causal, scale, pos_offset, window, segs, logit_softcap),
+            stream)
     _build.check(lib, rc, "flash_bwd_dq")
-    global DQ_LAUNCHES, DQ_WINDOW_LAUNCHES, DQ_SEGMENT_LAUNCHES
+    global DQ_LAUNCHES, DQ_WINDOW_LAUNCHES, DQ_SEGMENT_LAUNCHES, DQ_SOFTCAP_LAUNCHES
     DQ_LAUNCHES += 1
     DQ_WINDOW_LAUNCHES += window is not None
     DQ_SEGMENT_LAUNCHES += segment_ids is not None
+    DQ_SOFTCAP_LAUNCHES += logit_softcap is not None
     return dq, delta
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, is_causal=False, scale=None, pos_offset=None,
-                  window=None, segment_ids=None):
+                  window=None, segment_ids=None, logit_softcap=None):
     """B5's port on CUDA operands checked by flash_attention_backward, with
-    flash_bwd_dq's delta: (dK, dV) in k.dtype."""
+    flash_bwd_dq's delta: (dK, dV) in k.dtype; logit_softcap as
+    common.check_softcap returns it."""
     require_cuda(q)
     segs = kernel_segments(segment_ids)
     dk = torch.empty_like(k)
@@ -181,10 +192,12 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, is_causal=False, scale=None, pos_offs
         rc = lib.flash_bwd_dkv_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *launch_args(q, k, is_causal, scale, pos_offset, window, segs), stream)
+            *launch_args(q, k, is_causal, scale, pos_offset, window, segs, logit_softcap),
+            stream)
     _build.check(lib, rc, "flash_bwd_dkv")
-    global DKV_LAUNCHES, DKV_WINDOW_LAUNCHES, DKV_SEGMENT_LAUNCHES
+    global DKV_LAUNCHES, DKV_WINDOW_LAUNCHES, DKV_SEGMENT_LAUNCHES, DKV_SOFTCAP_LAUNCHES
     DKV_LAUNCHES += 1
     DKV_WINDOW_LAUNCHES += window is not None
     DKV_SEGMENT_LAUNCHES += segment_ids is not None
+    DKV_SOFTCAP_LAUNCHES += logit_softcap is not None
     return dk, dv

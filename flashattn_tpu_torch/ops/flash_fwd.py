@@ -25,7 +25,7 @@ WINDOW_LAUNCHES = 0
 SEGMENT_LAUNCHES = 0
 SOFTCAP_LAUNCHES = 0
 
-# Head dims K1 and K2 take (the backward kernels': flash_bwd.HEAD_DIMS).
+# Head dims K1, K2 and the backward kernels take.
 HEAD_DIMS = (64, 128, 256)
 # A window at least this wide reaches every key of an int32-indexed call:
 # the kernels take it so.
@@ -210,13 +210,8 @@ def flash_attention_forward(
     o = torch.empty_like(q)
     lse = (torch.empty((b, hq, s_q), dtype=torch.float32, device=q.device)
            if need_lse else None)
-    if cap is not None and segment_ids is not None:
-        raise unported("logit soft-capping with segment ids on the card", "A4 (ii)")
     segs = kernel_segments(segment_ids)
-    # The kernel's logits in the exp2 domain: s * scale * log2(e), or with
-    # a cap tanh(s * scale / cap) * cap * log2(e) (only `scale` folds before
-    # the tanh, as in the JAX launcher).
-    pre, cap_log2 = (scale * LOG2E, 0.0) if cap is None else (scale / cap, cap * LOG2E)
+    pre, cap_log2 = logit_factors(scale, cap)
     lib = _build.load("flash_fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -234,6 +229,14 @@ def flash_attention_forward(
     return o, lse
 
 
+def logit_factors(scale: float, cap: float | None) -> tuple[float, float]:
+    """(pre, cap_log2): the kernels' logits in the exp2 domain are s * pre
+    (pre = scale * log2(e)), or with a cap tanh(s * pre) * cap_log2 (pre =
+    scale / cap, cap_log2 = cap * log2(e): only `scale` folds before the
+    tanh, as in the JAX launcher). K1 and the backward kernels take both."""
+    return (scale * LOG2E, 0.0) if cap is None else (scale / cap, cap * LOG2E)
+
+
 def check_forward_unported(dropout_rate=0.0, alibi=False, dyn_pos_offset=None) -> None:
     """Raise NotImplementedError (ROADMAP A4) for an option of the JAX
     forward kernel that K1 does not compute yet."""
@@ -243,12 +246,3 @@ def check_forward_unported(dropout_rate=0.0, alibi=False, dyn_pos_offset=None) -
         raise unported("ALiBi", "A4")
     if dyn_pos_offset is not None:
         raise unported("dyn_pos_offset", "A4")
-
-
-def check_backward_unported(dropout_rate=0.0, logit_softcap=None, alibi=False,
-                            dyn_pos_offset=None) -> None:
-    """The forward's check, and the soft-cap, which the backward kernels do
-    not compute yet (ROADMAP A4 (ii))."""
-    check_forward_unported(dropout_rate, alibi, dyn_pos_offset)
-    if check_softcap(logit_softcap) is not None:
-        raise unported("logit soft-capping in the backward", "A4 (ii)")

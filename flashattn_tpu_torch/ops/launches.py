@@ -37,12 +37,15 @@ COUNTERS = {
     "flash_bwd_fused": ("flashattn_tpu_torch.ops.flash_bwd_fused", "LAUNCHES"),
     "flash_bwd_fused_window": ("flashattn_tpu_torch.ops.flash_bwd_fused", "WINDOW_LAUNCHES"),
     "flash_bwd_fused_segments": ("flashattn_tpu_torch.ops.flash_bwd_fused", "SEGMENT_LAUNCHES"),
+    "flash_bwd_fused_softcap": ("flashattn_tpu_torch.ops.flash_bwd_fused", "SOFTCAP_LAUNCHES"),
     "flash_bwd_dq": ("flashattn_tpu_torch.ops.flash_bwd", "DQ_LAUNCHES"),
     "flash_bwd_dq_window": ("flashattn_tpu_torch.ops.flash_bwd", "DQ_WINDOW_LAUNCHES"),
     "flash_bwd_dq_segments": ("flashattn_tpu_torch.ops.flash_bwd", "DQ_SEGMENT_LAUNCHES"),
+    "flash_bwd_dq_softcap": ("flashattn_tpu_torch.ops.flash_bwd", "DQ_SOFTCAP_LAUNCHES"),
     "flash_bwd_dkv": ("flashattn_tpu_torch.ops.flash_bwd", "DKV_LAUNCHES"),
     "flash_bwd_dkv_window": ("flashattn_tpu_torch.ops.flash_bwd", "DKV_WINDOW_LAUNCHES"),
     "flash_bwd_dkv_segments": ("flashattn_tpu_torch.ops.flash_bwd", "DKV_SEGMENT_LAUNCHES"),
+    "flash_bwd_dkv_softcap": ("flashattn_tpu_torch.ops.flash_bwd", "DKV_SOFTCAP_LAUNCHES"),
 }
 
 

@@ -130,6 +130,7 @@ def reference_attention_backward(
     pos_offset: int | None = None,
     window: int | None = None,
     segment_ids=None,
+    logit_softcap: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Attention gradients from the forward's O and LSE, computed the
     backward kernels' way (a plain version of all three at once):
@@ -138,10 +139,14 @@ def reference_attention_backward(
         dQ = scale*dS.K, dK = scale*dS^T.Q, dV = P^T.dO,
 
     over the pairs that attend (`visible`: causal, window, segment ids), with
-    dK and dV summed over the q heads of each kv head (GQA). P and dS are
-    rounded to the input dtype before the products that consume them, as
-    the kernels feed their matrix units. A row whose LSE is -inf (it sees no
-    key) contributes exactly 0.
+    dK and dV summed over the q heads of each kv head (GQA). With a logit
+    soft-cap the logit is cap*t for t = tanh(S*scale/cap), P = exp(cap*t -
+    LSE), and dS takes the tanh's derivative, times 1 - t^2 (computed as
+    (1 - t)(1 + t)); dQ and dK keep the factor scale, since
+    d(cap*tanh(x*scale/cap))/dx = scale*(1 - t^2). P and dS are rounded to
+    the input dtype before the products that consume them, as the kernels
+    feed their matrix units. A row whose LSE is -inf (it sees no key)
+    contributes exactly 0.
 
     Returns (dQ in q.dtype, dK and dV in k.dtype), shaped like q, k, v.
     """
@@ -152,6 +157,7 @@ def reference_attention_backward(
     g = hq // hkv
     if scale is None:
         scale = 1.0 / d**0.5
+    cap = check_softcap(logit_softcap)
     mask = visible(s_q, s_k, is_causal, pos_offset, window, segment_ids, q.device)
     dqs, dks, dvs = [], [], []
     for h in range(hkv):
@@ -163,11 +169,18 @@ def reference_attention_backward(
         if mask is not None:
             live = live & mask
         s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+        t = None
+        if cap is not None:
+            t = torch.tanh(s / cap)
+            s = cap * t
         p = torch.where(live, torch.exp(s - lse_h.masked_fill(~torch.isfinite(lse_h), 0.0)),
                         0.0)
         del s, live
         delta = (dof * o[:, heads].float()).sum(dim=-1, keepdim=True)
         ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)
+        if t is not None:
+            ds = ds * ((1.0 - t) * (1.0 + t))
+            del t
         p = p.to(q.dtype).float()
         ds = ds.to(q.dtype).float()
         dqs.append((torch.matmul(ds, kf) * scale).to(q.dtype))

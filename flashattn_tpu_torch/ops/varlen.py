@@ -69,12 +69,12 @@ def flash_attention_varlen(
       window: sliding window (needs is_causal). It depends only on q_pos -
         k_pos, so the global window restricted by the ids is each
         document's.
+      logit_softcap: cap * tanh(s / cap) on the scaled logits, before the
+        mask (Gemma-2), in the forward and the backward.
 
-    Fully padded rows get O = 0 and gradients 0. Soft-capping and ALiBi are
-    not ported (ROADMAP A4) and raise.
+    Fully padded rows get O = 0 and gradients 0. ALiBi is not ported
+    (ROADMAP A4) and raises.
     """
-    if logit_softcap:
-        raise unported("logit soft-capping", "A4")
     if alibi or alibi_slopes is not None:
         raise unported("ALiBi", "A4")
     if (segment_ids is None) == (cu_seqlens is None):
@@ -89,4 +89,4 @@ def flash_attention_varlen(
         seg_q = seg_k = segment_ids
     segs = canonical_segments(seg_q, seg_k, q.device)
     return flash_attention(q, k, v, is_causal=is_causal, scale=scale, window=window,
-                           segment_ids=segs)
+                           segment_ids=segs, logit_softcap=logit_softcap)

@@ -177,8 +177,12 @@ def attention_bwd_roofline(
     backward, 2.5 x the forward's FLOPs as in the JAX package; the split
     path's kernels recompute S: ``"dq"`` (B4) 1.5 x, ``"dkv"`` (B5) 2 x; the
     forward's FLOPs as attention_fwd_roofline counts them (the pairs a head
-    sees under a window or segment ids). Bytes: every operand the kernel
-    reads once (the segment ids too), every result written once."""
+    sees under a window or segment ids). A logit soft-cap adds nothing, as
+    in the forward: its tanh and the derivative's (1 - t)(1 + t) run beside
+    the products, on the special-function units and the FMA pipes, so the
+    bound stays the products' and the bytes'; any head dim (64 to 256)
+    counts alike. Bytes: every operand the kernel reads once (the segment
+    ids too), every result written once."""
     if kernel not in _BWD_KERNELS:
         raise ValueError(f"kernel must be one of {sorted(_BWD_KERNELS)}: {kernel!r}")
     q = b * hq * s_q * d * dtype_bytes  # Q, O, dO and dQ each

@@ -26,7 +26,11 @@ LSE) on a global layer, a local one (window 4096) and without the cap, K1
 with the cap at the MISTRAL_7B window row (the cap's own cost at D 128),
 and K2 on a bf16 cache at T 1 (B 2, Hq 16, Hkv 8, D 256, Smax 8192, every
 length 8192) global and local, the paged K2 (pages of 256) global, and K2
-on an int8 cache at T 256.
+on an int8 cache at T 256; and, where the backward kernels take the
+soft-cap (ops/flash_bwd.py's DQ_SOFTCAP_LAUNCHES), GEMMA2_9B's packed
+training row (B 1, Hq 16, Hkv 8, D 256, S 8192, the packed row's
+documents): K1 with the LSE and B3, B4 and B5 with cap 50 on a global
+layer, a local one (window 4096) and the global one without the cap.
 Prints the card's name and power limit, then one JSON line of
 milliseconds. It calls nothing but the public functions, so run as a file
 with another checkout of the package first on PYTHONPATH,
@@ -35,7 +39,7 @@ with another checkout of the package first on PYTHONPATH,
 
 it times that checkout's kernels: two versions compared in turns on one
 card. `--only k1,backward` times those groups alone (decode, qmm, k1,
-backward, window, packed, softcap). Needs a CUDA device.
+backward, window, packed, softcap, gemma_packed). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -66,7 +70,7 @@ K1_SHAPES = {"k1_prefill": (1, 32, 4, 256, 64, False),
 WIN, SINK = 4096, 4
 K1_WINDOW = (1, 32, 8, 4608, 128)  # B, Hq, Hkv, S, D
 WIN_B, WIN_HKV, WIN_SMAX = 4, 8, 8192
-GROUPS = ("decode", "qmm", "k1", "backward", "window", "packed", "softcap")
+GROUPS = ("decode", "qmm", "k1", "backward", "window", "packed", "softcap", "gemma_packed")
 # GEMMA2_9B's rows: its prefill (B, Hq, Hkv, S, D) and its decode step.
 CAP = 50.0
 K1_GEMMA = (1, 16, 8, 4608, 256)
@@ -132,6 +136,8 @@ def main() -> None:
         ms.update(packed(gen))
     if "softcap" in only and hasattr(flash_fwd, "SOFTCAP_LAUNCHES"):
         ms.update(softcapped(gen))
+    if "gemma_packed" in only and hasattr(flash_bwd, "DQ_SOFTCAP_LAUNCHES"):
+        ms.update(gemma_packed(gen))
     print(json.dumps({"tag": args.tag, "ms": ms}))
 
 
@@ -179,7 +185,8 @@ def k1_rows(gen: torch.Generator) -> dict[str, float]:
 
 def backward(gen: torch.Generator, shape, tag: str, **opts) -> dict[str, float]:
     """B3, B4 and B5 (causal) at shape (B, Hq, Hkv, S, D) with the forward's
-    O and LSE, and the options (window, segment_ids) of both."""
+    O and LSE, and the options (window, segment_ids, logit_softcap) of both;
+    K1 with the LSE too where there are segment ids."""
     b, hq, hkv, s, d = shape
     q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device="cuda", dtype=torch.bfloat16)
                    for h in (hq, hkv, hkv, hq))
@@ -198,17 +205,34 @@ def backward(gen: torch.Generator, shape, tag: str, **opts) -> dict[str, float]:
     return out
 
 
-def packed(gen: torch.Generator) -> dict[str, float]:
-    """K1, B3, B4 and B5 with the window and segment ids at the packed
-    training row."""
+def packed_ids():
+    """The packed training row's canonical (seg_q, seg_k)."""
     # Imported here: a checkout from before segment ids has no ops/varlen.py.
     from flashattn_tpu_torch.ops.varlen import canonical_segments, segment_ids_from_cu_seqlens
 
     cu = torch.tensor([0, *itertools.accumulate(PACK_DOCS)], device="cuda")
     ids = segment_ids_from_cu_seqlens(cu, PACK_S)[None]
-    seg = canonical_segments(ids, ids, ids.device)
+    return canonical_segments(ids, ids, ids.device)
+
+
+def packed(gen: torch.Generator) -> dict[str, float]:
+    """K1, B3, B4 and B5 with the window and segment ids at the packed
+    training row."""
     b, hq, hkv, _, d = K1_WINDOW
-    return backward(gen, (b, hq, hkv, PACK_S, d), "packed", window=WIN, segment_ids=seg)
+    return backward(gen, (b, hq, hkv, PACK_S, d), "packed", window=WIN,
+                    segment_ids=packed_ids())
+
+
+def gemma_packed(gen: torch.Generator) -> dict[str, float]:
+    """K1, B3, B4 and B5 at GEMMA2_9B's packed training row with cap 50, on
+    a global layer, a local one (window 4096), and without the cap."""
+    b, hq, hkv, _, d = K1_GEMMA
+    shape, seg = (b, hq, hkv, PACK_S, d), packed_ids()
+    ms = backward(gen, shape, "gemma_packed", segment_ids=seg, logit_softcap=CAP)
+    ms.update(backward(gen, shape, "gemma_packed_local", segment_ids=seg, window=WIN,
+                       logit_softcap=CAP))
+    ms.update(backward(gen, shape, "gemma_packed_nocap", segment_ids=seg))
+    return ms
 
 
 def windowed(gen: torch.Generator) -> dict[str, float]:

@@ -31,8 +31,12 @@ equal with both; varlen attention, the packed model's loss and a train
 step run through the kernels. K1 and K2 (dense and paged, every cache
 mode) take head dim 256 and the logit soft-cap (caps of 5 to 50 on logits
 that pass them, with windows, sinks, S_q != S_k and rows without keys;
-paged equal to dense bit for bit), a gradient with either raises before
-any launch, and a tiny Gemma-2 model on the card matches the CPU.
+paged equal to dense bit for bit), and a tiny Gemma-2 model on the card
+matches the CPU. The backward kernels take the soft-cap (its tanh
+derivative) and D 256, with a window, segment ids (K1 too) and hot inputs
+whose logits saturate the tanh, the split path bitwise equal at D 256;
+gradients through flash_attention and varlen with a cap run them, and a
+tiny Gemma-2 model's loss gradients on the card match the CPU's.
 
 These tests need a CUDA device and skip without one. On the card:
 
@@ -1542,31 +1546,157 @@ def test_softcap_d256_paged_decode_equals_dense(dev, quant, page, t):
     assert rep.passed, rep
 
 
-def test_softcap_and_d256_need_no_gradient(dev):
-    """Training with a cap or at D 256 is ROADMAP A4 (ii): flash_attention
-    raises before any launch when a gradient is needed, the backward
-    refuses D 256, and K1 refuses a cap with segment ids; without a
-    gradient the primal runs K1 alone."""
-    q = randn((1, 4, 128, 256), torch.bfloat16, dev, 110)
-    k = randn((1, 2, 128, 256), torch.bfloat16, dev, 111)
-    before = launch_counters.read()
-    with pytest.raises(NotImplementedError, match=r"A4 \(ii\)"):
-        flash_attention(q.clone().requires_grad_(), k, k, is_causal=True, logit_softcap=50.0)
-    with pytest.raises(ValueError, match="head_dim 256"):
-        flash_attention(q.clone().requires_grad_(), k, k, is_causal=True)
-    assert launch_counters.read() == before
-    o = flash_attention(q, k, k, is_causal=True, logit_softcap=50.0)
-    added = {n: c - before[n] for n, c in launch_counters.read().items() if c != before[n]}
-    assert added == {"flash_fwd": 1, "flash_fwd_softcap": 1}
-    ref, _ = flash_fwd.flash_attention_forward_reference(q, k, k, True, logit_softcap=50.0)
-    assert verify_results(ref, o, **TOL[torch.bfloat16]).passed
-    o_, lse = flash_fwd.flash_attention_forward(q, k, k, True)
-    with pytest.raises(ValueError, match="head_dim 256"):
-        flash_bwd.flash_attention_backward(q, k, k, o_, o_, lse, is_causal=True)
-    seg = torch.zeros((1, 128), dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match=r"A4 \(ii\)"):
-        flash_fwd.flash_attention_forward(q, k, k, True, segment_ids=(seg, seg),
-                                          logit_softcap=50.0)
+SOFTCAP_BWD_CASES = {
+    # name: (Hq, Hkv, S, D, window, documents, heat, cap): q times `heat`
+    # (30: logits of about +-100, the tanh saturated, its derivative near 0)
+    "d64_causal_cap30": (8, 2, 700, 64, None, None, 1.0, 30.0),
+    "d64_window65_segments_cap5": (8, 2, 700, 64, 65, [300, 37, 250], 1.0, 5.0),
+    "d64_hot_window100_cap30": (8, 2, 700, 64, 100, None, 30.0, 30.0),
+    "d128_window100_cap30": (8, 2, 700, 128, 100, None, 1.0, 30.0),
+    "d128_segments_cap50": (8, 2, 700, 128, None, [300, 37, 250], 1.0, 50.0),
+    "d128_hot_cap50": (8, 1, 515, 128, None, None, 30.0, 50.0),
+    "d256_causal_cap50": (4, 2, 700, 256, None, None, 1.0, 50.0),
+    "d256_window129_cap50": (4, 2, 700, 256, 129, None, 1.0, 50.0),
+    "d256_segments_cap50": (4, 2, 700, 256, None, [300, 37, 250], 1.0, 50.0),
+    "d256_window65_segments_cap30": (4, 2, 700, 256, 65, [300, 37, 250], 1.0, 30.0),
+    "d256_hot_cap50": (4, 2, 515, 256, None, None, 30.0, 50.0),
+    "d256_hot_window100_segments_cap50": (8, 2, 515, 256, 100, [200, 1, 250], 30.0, 50.0),
+    "d256_nocap": (4, 1, 333, 256, None, None, 1.0, None),
+    "d256_nocap_window65_segments": (4, 2, 515, 256, 65, [200, 1, 250], 1.0, None),
+}
+
+
+def softcap_bwd_inputs(case, dtype, dev):
+    """(q, k, v, do) and the call's options; O and LSE come from K1."""
+    hq, hkv, s, d, w, docs, heat, cap = SOFTCAP_BWD_CASES[case]
+    q = (randn((1, hq, s, d), torch.float32, dev, 121) * heat).to(dtype)
+    do = randn((1, hq, s, d), dtype, dev, 122)
+    k, v = (randn((1, hkv, s, d), dtype, dev, seed) for seed in (123, 124))
+    seg = segments(docs, s, dev) if docs is not None else None
+    return (q, k, v, do), dict(is_causal=True, window=w, segment_ids=seg, logit_softcap=cap)
+
+
+def softcap_launches():
+    c = launch_counters.read()
+    return {n: c[n] for n in ("flash_fwd_softcap", "flash_bwd_fused_softcap",
+                              "flash_bwd_dq_softcap", "flash_bwd_dkv_softcap")}
+
+
+@pytest.mark.parametrize("impl", ["fused", "split"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", sorted(SOFTCAP_BWD_CASES))
+def test_softcap_and_d256_backward_kernels_match_plain(dev, impl, dtype, case):
+    """K1 (with the LSE), then B3 (fused) or B4 + B5 (split), with the
+    soft-cap at D 64, 128 and 256 against their plain versions: causal,
+    a window, segment ids (documents off the tiles, padding), both, hot
+    inputs whose logits saturate the tanh, and D 256 without a cap; the
+    soft-capped launches counted, padding's outputs and gradients exactly
+    0."""
+    (q, k, v, do), kw = softcap_bwd_inputs(case, dtype, dev)
+    cap = kw["logit_softcap"]
+    before = softcap_launches()
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, **kw)
+    o_ref, lse_ref = flash_fwd.flash_attention_forward_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert verify_results(o_ref, o, **TOL[dtype]).passed
+    assert verify_results(lse_ref, lse, atol=1e-3).passed
+    out = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, impl=impl, **kw)
+    torch.cuda.synchronize()
+    added = {n: c - before[n] for n, c in softcap_launches().items()}
+    on = int(cap is not None)
+    assert added == {"flash_fwd_softcap": on, "flash_bwd_fused_softcap": on * (impl == "fused"),
+                     "flash_bwd_dq_softcap": on * (impl == "split"),
+                     "flash_bwd_dkv_softcap": on * (impl == "split")}
+    ref = flash_bwd.flash_attention_backward_reference(q, k, v, o, do, lse, **kw)
+    assert_grads_match(ref, out, dtype)
+    if kw["segment_ids"] is not None:
+        pad = kw["segment_ids"][0][0] < 0
+        assert not bool(o[:, :, pad].any())
+        assert all(not bool(g[:, :, pad].any()) for g in out)
+
+
+@pytest.mark.parametrize("case", ["d256_window65_segments_cap30", "d256_hot_cap50"])
+def test_split_is_bitwise_deterministic_with_softcap_at_d256(dev, case):
+    (q, k, v, do), kw = softcap_bwd_inputs(case, torch.bfloat16, dev)
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, **kw)
+    first = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, impl="split", **kw)
+    second = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, impl="split", **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_softcap_and_d256_gradients_run_the_kernels(dev):
+    """A gradient through flash_attention with a cap at D 256 (formerly
+    refused) runs K1 and the fused kernel, both soft-capped, and matches
+    the plain route; varlen with a cap and segment ids runs them with the
+    ids; K1 takes a cap with segment ids."""
+    from flashattn_tpu_torch.ops.varlen import flash_attention_varlen
+
+    leaves = [randn((1, h, 400, 256), torch.bfloat16, dev, 130 + i).requires_grad_()
+              for i, h in enumerate((4, 2, 2))]
+    do = randn((1, 4, 400, 256), torch.bfloat16, dev, 133)
+    ids = segments([150, 37, 200], 400, dev)[0]
+    for route in ("dense", "varlen"):
+        before = launch_counters.read()
+        if route == "dense":
+            o = flash_attention(*leaves, is_causal=True, logit_softcap=50.0, window=100)
+            seg = None
+        else:
+            o = flash_attention_varlen(*leaves, segment_ids=ids, is_causal=True,
+                                       logit_softcap=50.0)
+            seg = (ids, torch.where(ids < 0, -2, ids).to(torch.int32))
+        got = torch.autograd.grad(o, leaves, do)
+        added = {n: c - before[n] for n, c in launch_counters.read().items() if c != before[n]}
+        extra = ("window" if route == "dense" else "segments")
+        assert added == {n: 1 for n in ("flash_fwd", "flash_fwd_softcap", f"flash_fwd_{extra}",
+                                        "flash_bwd_fused", "flash_bwd_fused_softcap",
+                                        f"flash_bwd_fused_{extra}")}, added
+        o_ref = plain_flash_attention(*leaves, is_causal=True, logit_softcap=50.0,
+                                      window=100 if route == "dense" else None, segment_ids=seg)
+        want = torch.autograd.grad(o_ref, leaves, do)
+        assert verify_results(o_ref, o, **TOL[torch.bfloat16]).passed
+        assert_grads_match(want, got, torch.bfloat16)
+
+
+def test_tiny_gemma_trains_on_card_like_cpu(dev):
+    """A float32 model with every Gemma-2 field (D 256, alternate window of
+    16, caps 50 and 30, post-norms): loss_fn and its gradients on a packed
+    row through K1 and the backward kernels, split and fused, against the
+    plain versions on the CPU; loss within 1e-4, gradients atol 1e-3, rtol
+    1e-3 (float32 kernels: exp2 against exp and sums in another order,
+    through 2 layers)."""
+    cfg = ModelConfig(vocab_size=128, hidden_size=128, intermediate_size=256, num_layers=2,
+                      num_heads=2, num_kv_heads=1, head_dim=256, max_seq_len=256,
+                      dtype=torch.float32, norm_eps=1e-6, tie_embeddings=True, attn_window=16,
+                      window_pattern="alternate", logit_softcap=50.0, final_logit_softcap=30.0,
+                      mlp_activation="gelu_tanh", use_post_norms=True, scale_embeddings=True,
+                      attn_scale=256**-0.5, norm_offset=1.0)
+    cpu = llama.init_params(cfg, torch.Generator().manual_seed(8), device="cpu")
+    with torch.no_grad():
+        for layer in cpu.layers:
+            layer.wq.mul_(12.0)  # logits that reach the cap
+    card = llama.Llama(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.randint(0, 128, (1, 97), generator=torch.Generator().manual_seed(9))
+    ids = torch.full((1, 97), -1, dtype=torch.int32)
+    ids[0, :40], ids[0, 40:90] = 0, 1
+    cpu.zero_grad()
+    want = llama.loss_fn(cpu, tokens, segment_ids=ids)
+    want.backward()
+    for impl in ("fused", "split"):
+        card.zero_grad()
+        before = launch_counters.read()
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv(flash_bwd.IMPL_ENV, impl)
+            got = llama.loss_fn(card, tokens.to(dev), segment_ids=ids.to(dev))
+            got.backward()
+        added = {n: c - before[n] for n, c in launch_counters.read().items() if c != before[n]}
+        kernels = ["flash_bwd_fused"] if impl == "fused" else ["flash_bwd_dq", "flash_bwd_dkv"]
+        assert all(added[f"{k}_{x}"] == 2 for k in ["flash_fwd", *kernels]
+                   for x in ("softcap", "segments"))
+        assert abs(float(got) - float(want)) <= 1e-4
+        for (name, p), q in zip(card.named_parameters(), cpu.parameters()):
+            rep = verify_results(q.grad, p.grad.cpu(), atol=1e-3, rtol=1e-3)
+            assert rep.passed, f"{impl} grad {name}: {rep}"
 
 
 def test_tiny_gemma_on_card_matches_cpu(dev):

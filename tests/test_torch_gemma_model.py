@@ -11,7 +11,7 @@ the port's own teacher-forced decode
 (tests/test_softcap.py::test_softcapped_model_train_decode_agree); the
 InferenceServer, dense and int8-KV paged with chunked admission, against
 the JAX server's greedy tokens; GEMMA2_9B equal to the JAX preset field by
-field. A gradient through a soft-capped model raises (ROADMAP A4 (ii)).
+field. Training such a model: tests/test_torch_gemma_train.py.
 
 float32 models. Logits within atol 1e-4, rtol 1e-4 of JAX's
 (tests/test_torch_model.py's gate); the forward against the teacher-forced
@@ -162,13 +162,6 @@ def test_gemma_forward_matches_decode_steps(gemma):
                                               torch.full((1,), t, dtype=torch.int32), caches)
         np.testing.assert_allclose(logits.numpy(), train_logits[:, t].numpy(), rtol=2e-4,
                                    atol=2e-4, err_msg=f"position {t}")
-
-
-def test_gemma_gradient_raises_naming_a4_ii(gemma):
-    _, _, model = gemma
-    tokens = torch.zeros((1, 9), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A4 \(ii\)"):
-        llama.loss_fn(model, tokens)
 
 
 REQS = [  # (uid, prompt, new tokens): prompts past the window, slots recycling

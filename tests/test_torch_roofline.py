@@ -165,3 +165,30 @@ def test_head_dim_256_decode_bound_counts_its_bytes():
     assert rep.bound_by == "bytes"
     half = roofline.decode_roofline(2, 16, 8, 128, [8192, 8192], chip=H100)
     assert rep.hbm_bytes == pytest.approx(2 * half.hbm_bytes, rel=1e-3)
+
+
+@pytest.mark.parametrize("kernel,local,global_", [
+    ("fused", 0.7290, 0.8122), ("dq", 0.4374, 0.4873), ("dkv", 0.5832, 0.6497),
+])
+def test_gemma_packed_backward_bounds(kernel, local, global_):
+    """B3, B4 and B5 at GEMMA2_9B's packed training row (B 1, Hq 16, Hkv 8,
+    D 256, S 8192, documents of 6100, 1300, 517 and 211 tokens then
+    padding): the local layer's (window 4096) bounds equal the MISTRAL_7B
+    packed row's (Hq D is 16 x 256 = 32 x 128; PERF.md's kernel table), the
+    global layer's count every causal pair within a document; the soft-cap
+    adds nothing."""
+    ids = torch.full((1, 8192), -1, dtype=torch.int32)
+    off = 0
+    for i, n in enumerate((6100, 1300, 517, 211)):
+        ids[0, off:off + n] = i
+        off += n
+    segs = (ids, torch.where(ids < 0, -2, ids).to(torch.int32))
+    kw = dict(chip=H100, kernel=kernel, segment_ids=segs)
+    mistral = roofline.attention_bwd_roofline(1, 32, 8, 8192, 8192, 128, True, window=4096, **kw)
+    gemma = roofline.attention_bwd_roofline(1, 16, 8, 8192, 8192, 256, True, window=4096, **kw)
+    assert gemma.flops == mistral.flops and gemma.bound_by == "operations"
+    assert round(gemma.bound_ms, 4) == local
+    wide = roofline.attention_bwd_roofline(1, 16, 8, 8192, 8192, 256, True, **kw)
+    pairs = sum(n * (n + 1) // 2 for n in (6100, 1300, 517, 211))
+    assert wide.flops == {"fused": 5, "dq": 3, "dkv": 4}[kernel] / 2 * 4.0 * 16 * 256 * pairs
+    assert round(wide.bound_ms, 4) == global_

@@ -4,9 +4,8 @@ version on the CPU) against the JAX package's kernel in interpret mode on
 the same numpy inputs, at D 64 and D 256, causal or not, with a window and
 with S_q != S_k and a pos_offset; the int8 decode mode's q scales under a
 cap, bit for bit (the decode kernels' parity: tests/
-test_torch_softcap_decode.py). Training with a cap is ROADMAP A4 (ii): a
-gradient through flash_attention with a cap raises before any launch, and
-the backward kernels take D 64 and 128 only.
+test_torch_softcap_decode.py). Training with a cap (the backward):
+tests/test_torch_softcap_bwd.py.
 
 Tolerance: atol 1e-4, rtol 1e-4 in float32 (tests/test_softcap.py's gate:
 the JAX kernel folds the scale into q before the dot, the plain version
@@ -22,8 +21,8 @@ import torch
 from flashattn_tpu.ops import decode as jax_decode
 from flashattn_tpu.ops.attention import flash_attention as jax_flash_attention
 from flashattn_tpu.ops.common import BlockSizes
-from flashattn_tpu_torch.ops import decode, flash_bwd, flash_fwd, launches
-from flashattn_tpu_torch.ops.attention import flash_attention, plain_flash_attention
+from flashattn_tpu_torch.ops import decode, flash_fwd
+from flashattn_tpu_torch.ops.attention import flash_attention
 from flashattn_tpu_torch.utils.verify import verify_results
 
 # One intra-op thread: the suite's workers share the machine's cores, and
@@ -102,41 +101,6 @@ def test_bad_softcap_raises(bad):
     q, k, v = (torch.from_numpy(x) for x in make_qkv(2, 1, 8, 8, 8))
     with pytest.raises(ValueError, match="logit_softcap"):
         flash_fwd.flash_attention_forward(q, k, v, True, logit_softcap=bad)
-
-
-def test_gradient_with_a_softcap_raises_naming_a4_ii():
-    """Training with a cap is ROADMAP A4 (ii): flash_attention and the
-    plain route raise before any launch when a gradient is needed, and the
-    backward refuses the cap; without a gradient the primal runs."""
-    q, k, v = (torch.from_numpy(x) for x in make_qkv(2, 1, 32, 32, 16))
-    before = launches.read()
-    for fn in (flash_attention, plain_flash_attention):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A4 \(ii\)"):
-            fn(q.clone().requires_grad_(), k, v, is_causal=True, logit_softcap=30.0)
-        with torch.no_grad():
-            assert bool(torch.isfinite(fn(q, k, v, is_causal=True, logit_softcap=30.0)).all())
-    o, lse = flash_fwd.flash_attention_forward(q, k, v, True, logit_softcap=30.0)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A4 \(ii\)"):
-        flash_bwd.flash_attention_backward(q, k, v, o, torch.ones_like(o), lse,
-                                           is_causal=True, logit_softcap=30.0)
-    assert launches.read() == before
-
-
-def test_backward_kernels_take_d64_and_d128_only():
-    """K1 and K2 take D 256, the backward kernels (D 64 and 128) do not:
-    the kernel-operand check refuses D 256 for them (on the card the
-    backward and a gradient through flash_attention raise it; the CPU
-    paths are the plain versions, which take any D)."""
-    assert flash_fwd.HEAD_DIMS == (64, 128, 256)
-    assert flash_bwd.HEAD_DIMS == (64, 128)
-    for d in (64, 128, 256):
-        q, k, v = (torch.zeros((1, 2, 8, d), dtype=torch.bfloat16) for _ in range(3))
-        flash_fwd.check_kernel_operands(q=q, k=k, v=v)
-        if d in flash_bwd.HEAD_DIMS:
-            flash_fwd.check_kernel_operands(flash_bwd.HEAD_DIMS, q=q, k=k, v=v, o=q, do=q)
-        else:
-            with pytest.raises(ValueError, match="head_dim 256"):
-                flash_fwd.check_kernel_operands(flash_bwd.HEAD_DIMS, q=q, k=k, v=v, o=q, do=q)
 
 
 jax_prep_decode_q = jax.jit(jax_decode.prep_decode_q, static_argnums=(1, 2, 3))

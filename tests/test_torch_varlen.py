@@ -209,7 +209,7 @@ def test_unported_options_raise():
     q = torch.zeros((1, 2, 8, 16))
     ids = torch.zeros((1, 8), dtype=torch.int32)
     before = launches.read()
-    for kw in (dict(logit_softcap=30.0), dict(alibi=True), dict(alibi_slopes=torch.ones(2))):
+    for kw in (dict(alibi=True), dict(alibi_slopes=torch.ones(2))):
         with pytest.raises(NotImplementedError, match="ROADMAP A4"):
             flash_attention_varlen(q, q, q, segment_ids=ids, is_causal=True, **kw)
     assert launches.read() == before
