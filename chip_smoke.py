@@ -6,7 +6,7 @@ NVIDIA GPU.
 
 Builds the five CUDA libraries from csrc/ (into build/flashattn_tpu_torch/,
 one nvcc each, all at once) and runs thirteen phases, printing one line per
-check:
+check, then the kernels line:
 
 1. environment: torch/CUDA versions, the card's name and power limit, the
    kernels' build time and their compiler report (no spills in the
@@ -137,7 +137,22 @@ check:
    with the split backward, the loss falling; ms, tokens/s and peak memory
    a step, and the soft-capped and segmented launches of K1, B3, B4 and B5,
    which must be > 0;
-13. the `kernels` JSON line: every kernel with its launches on the path that
+13. rematerialisation and the measured backward (phase_remat): (a)
+   LLAMA_1B at B 4, S 2048, one loss_fn backward a remat policy (False,
+   True, "dots", "attn") and backward path from the same weights, the loss
+   bit for bit equal to no remat's, the gradients too with the split
+   backward and under phase 7's gates with the fused one, K1 launched once
+   a layer (twice under True and "dots"); then sgd_train_step for each
+   policy and path (ms/step, tokens/s, peak memory, the bytes a layer holds
+   after the forward, device busy and idle share; utils/profile_train.py)
+   and B 8 with "attn"; (d) autotune at that training shape in the run's
+   own cache file, then impl="auto" launching the winner's kernels and
+   FLASHATTN_BWD_IMPL overriding it; (b) GEMMA2_9B cut to 4 layers on phase
+   12's packed row under the split gates of (a) for False, "attn" and True;
+   (c) GEMMA2_9B at its full 42 layers, B 1, S 4096, 5 sgd_train_steps
+   with remat="attn", the loss falling, and the peak without remat
+   reckoned from (b)'s bytes a layer;
+14. the `kernels` JSON line: every kernel with its launches on the path that
    runs it, its error against its plain version, its time, bound, plain and
    library times (the windowed K1, K2 and paged K2 from phases 2 and 9, the
    windowed and segmented K1, B3, B4 and B5 from phases 2 and 10, the
@@ -160,8 +175,10 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -173,13 +190,13 @@ from flashattn_tpu_torch.models import data, generate, llama, train
 from flashattn_tpu_torch.models.config import GEMMA2_9B, LLAMA_1B, MISTRAL_7B
 from flashattn_tpu_torch.models.llama import init_params
 from flashattn_tpu_torch.models.serve import InferenceServer, Request
-from flashattn_tpu_torch.ops import (_build, decode, flash_bwd, flash_bwd_fused, flash_fwd,
-                                     kvcache, paged, quant_matmul, varlen)
+from flashattn_tpu_torch.ops import (_build, autotune, decode, flash_bwd, flash_bwd_fused,
+                                     flash_fwd, kvcache, paged, quant_matmul, varlen)
 from flashattn_tpu_torch.ops import launches as launch_counters
 from flashattn_tpu_torch.ops.attention import plain_flash_attention
 from flashattn_tpu_torch.ops.kvcache import KVCache
 from flashattn_tpu_torch.ops.reference import visible
-from flashattn_tpu_torch.utils import roofline
+from flashattn_tpu_torch.utils import profile_train, roofline
 from flashattn_tpu_torch.utils.timing import cuda_time_ms
 from flashattn_tpu_torch.utils.verify import verify_results
 
@@ -2480,7 +2497,261 @@ def phase_gemma_packed(gen: torch.Generator) -> dict[str, int]:
                            "GEMMA2_9B", "[gemma-packed]", GEMMA_PACK_COUNTERS)
 
 
+# Phase 13: rematerialisation and the measured fused-or-split backward.
+# (a) LLAMA_1B at full width, B 4, S 2048 (phase 7's shape); (b) GEMMA2_9B
+# cut to PACK_LAYERS layers on phase 12's packed row; (c) GEMMA2_9B at its
+# full depth, B 1, S 4096, unpacked, GEMMA_FULL_STEPS sgd_train_steps on one
+# repeated batch (about 9.24 B parameters: weights and gradients take
+# 34.4 GiB, and without remat every layer's activations stay as well);
+# (d) autotune at LLAMA_1B's training shape.
+REMAT_B8 = 8
+GEMMA_FULL_S = 4096
+GEMMA_FULL_STEPS = 5
+GEMMA_FULL_LR = 1e-2
+REMAT_K1 = {False: 1, True: 2, "dots": 2, "attn": 1}  # K1 launches a layer a step
+
+
+def remat_launch_want(remat, impl: str, layers: int, extra: dict | None = None) -> dict:
+    """The kernel launches one loss and backward should count: K1 once a
+    layer, twice under True and "dots" (the recompute); the backward's
+    kernels once a layer; `extra` (counter -> launches) added."""
+    want = {"flash_fwd": REMAT_K1[remat] * layers}
+    if impl == "fused":
+        want["flash_bwd_fused"] = layers
+    else:
+        want.update(flash_bwd_dq=layers, flash_bwd_dkv=layers)
+    for k, n in (extra or {}).items():
+        want[k] = want.get(k, 0) + n
+    return want
+
+
+def add_launches(total: dict[str, int], got: dict[str, int]) -> None:
+    for k, n in got.items():
+        total[k] = total.get(k, 0) + n
+
+
+def remat_gates(model, tokens, log: str, policies, segment_ids=None,
+                extra=lambda remat, impl: None, impls=("split", "fused")
+                ) -> tuple[dict[str, int], dict]:
+    """One loss_fn(...).backward() a policy and backward path (`impls`)
+    from the same weights: the loss must equal remat=False's bit for bit;
+    the gradients with the split backward (no atomics) too, with the fused
+    one (dQ by float atomics, in an order that changes between runs)
+    within phase 7's gates. The launches must be remat_launch_want's (`extra(remat, impl)`:
+    the windowed, segmented and capped launches). Prints each policy's peak
+    and the bytes its layers' forward held per layer; returns the launches
+    of all the runs and the bytes per layer by policy."""
+    layers = model.cfg.num_layers
+    total: dict[str, int] = {}
+    held = {}
+    for impl in impls:
+        ref = None
+        for remat in (False, *policies):
+            model.zero_grad(set_to_none=True)
+            gc.collect()
+            torch.cuda.empty_cache()  # the last run's freed blocks: no fragments
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            with profile_train.backward_impl(impl):
+                loss = llama.loss_fn(model, tokens, segment_ids, remat=remat)
+                loss.backward()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            got = {k: n for k, n in read_launches().items() if n}
+            want = remat_launch_want(remat, impl, layers, extra(remat, impl))
+            check(got == want, f"{log} remat={remat!r} {impl}: launched {got}, want {want}")
+            add_launches(total, got)
+            grads = {k: p.grad for k, p in model.named_parameters()}
+            model.zero_grad(set_to_none=True)
+            loss = loss.detach()
+            if impl == "split":
+                held[remat] = profile_train.layer_bytes(model, tokens, remat, segment_ids)
+            if ref is None:
+                ref = (loss, grads)
+                print(f"{log} loss_fn + backward, remat=False, {impl}: loss {float(loss):.6f}, "
+                      f"peak {peak:.2f} GiB, launches {got}")
+                continue
+            l_ref, g_ref = ref
+            check(torch.equal(loss, l_ref), f"{log} remat={remat!r} {impl}: loss "
+                  f"{float(loss)!r} != {float(l_ref)!r} without remat")
+            equal = all(torch.equal(grads[k], g_ref[k]) for k in grads)
+            cos = {k: float(F.cosine_similarity(grads[k].float().flatten(),
+                                                g_ref[k].float().flatten(), dim=0))
+                   for k in grads}
+            worst = min(cos, key=cos.get)
+            n_k = float(torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g.float()) for g in grads.values()])))
+            n_r = float(torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g.float()) for g in g_ref.values()])))
+            if impl == "split":
+                check(equal, f"{log} remat={remat!r} split: gradients not bit for bit equal")
+                how = "gradients bit for bit equal (the split backward is deterministic)"
+            else:
+                check(abs(n_k - n_r) <= GRAD_NORM_REL * n_r and cos[worst] > GRAD_COS,
+                      f"{log} remat={remat!r} fused: gradients disagree")
+                how = (f"gradients {'bit for bit equal' if equal else 'within phase 7 gates'}"
+                       f" (fused: dQ by atomics): grad_norm rel {abs(n_k - n_r) / n_r:.2e} "
+                       f"(<= {GRAD_NORM_REL}), cosine min {cos[worst]:.6f} ({worst}, > {GRAD_COS})")
+            print(f"{log} loss_fn + backward, remat={remat!r}, {impl}: loss bit for bit equal "
+                  f"to remat=False's ({float(loss):.6f}); {how}; peak {peak:.2f} GiB, "
+                  f"launches {got}")
+            del grads
+        del ref
+    for remat, b in held.items():
+        print(f"{log} remat={remat!r}: {b / 1e6:.1f} MB a layer held after the layers' forward")
+    return total, held
+
+
+def phase_remat(gen: torch.Generator) -> dict[str, int]:
+    """Phase 13: remat and autotune (the comment above). Returns the
+    launches of the gated runs of (a) and (b) and of (c)'s steps (not the
+    timed arms', read a step at a time, nor autotune's timings)."""
+    total: dict[str, int] = {}
+    # (a) LLAMA_1B at full width.
+    cfg = LLAMA_1B
+    model = init_params(cfg, gen, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1), generator=gen,
+                           device="cuda")
+    got, _ = remat_gates(model, tokens, "[remat]", llama.REMAT_POLICIES)
+    add_launches(total, got)
+    for arm in profile_train.remat_arms(model, tokens):
+        want = remat_launch_want(arm["remat"], arm["impl"], cfg.num_layers)
+        check(arm["launches"] == want, f"[remat] arm {arm['remat']!r} {arm['impl']}: launched "
+              f"{arm['launches']} a step, want {want}")
+    tokens8 = torch.randint(0, cfg.vocab_size, (REMAT_B8, TRAIN_S + 1), generator=gen,
+                            device="cuda")
+    arm = profile_train.remat_arm(model, tokens8, "attn", "fused")
+    check(arm["launches"] == remat_launch_want("attn", "fused", cfg.num_layers),
+          f"[remat] B={REMAT_B8} attn launched {arm['launches']}")
+    print(f"[remat] LLAMA_1B B={REMAT_B8} S={TRAIN_S} sgd_train_step remat='attn' fused: "
+          f"{arm['ms']:.1f} ms/step (median of {[round(w, 1) for w in arm['walls']]}), "
+          f"{arm['tokens_per_s']:.0f} tokens/s, peak {arm['peak_gib']:.2f} GiB, "
+          f"{arm['layer_mb']:.1f} MB a layer held after the forward, device busy "
+          f"{arm['busy_ms']:.1f} ms (idle share {arm['idle']:.3f})")
+    del model, tokens8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) autotune at LLAMA_1B's training shape, in the run's own cache file.
+    b, hq, hkv, d = TRAIN_B, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = randn((b, hq, TRAIN_S, d), gen)
+    k, v = randn((b, hkv, TRAIN_S, d), gen), randn((b, hkv, TRAIN_S, d), gen)
+    entry = autotune.autotune(q, k, v, is_causal=True, verbose=True)
+    check(autotune.cached_bwd_impl(b, hq, hkv, TRAIN_S, TRAIN_S, d, True, q.dtype)
+          == entry["bwd_impl"], f"[autotune] the cache does not hold {entry}")
+    reset_launches()
+    check(autotune.autotune(q, k, v, is_causal=True) == entry
+          and not any(read_launches().values()), "[autotune] a cache hit measured again")
+    winner = entry["bwd_impl"]
+    loser = "split" if winner == "fused" else "fused"
+    print(f"[autotune] LLAMA_1B training shape B={b} Hq={hq} Hkv={hkv} S={TRAIN_S} D={d} "
+          f"causal bf16: fused {entry['fused_ms']:.3f} ms, split {entry['split_ms']:.3f} ms "
+          f"(cuda_time_ms, device time) -> {winner}; cache {autotune.cache_path()}")
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, True)
+    kernels = {"fused": ("flash_bwd_fused",), "split": ("flash_bwd_dq", "flash_bwd_dkv")}
+    for env, impl in ((None, winner), (loser, loser)):
+        reset_launches()
+        with profile_train.backward_impl(env) if env else contextlib.nullcontext():
+            flash_bwd.flash_attention_backward(q, k, v, o, q, lse, True, impl="auto")
+        got = {k: n for k, n in read_launches().items() if n}
+        check(got == {name: 1 for name in kernels[impl]},
+              f"[autotune] impl='auto' with {flash_bwd.IMPL_ENV}={env}: launched {got}")
+        print(f"[autotune] impl='auto' with {flash_bwd.IMPL_ENV}={env}: launched {got}")
+    del q, k, v, o, lse
+
+    # (b) GEMMA2_9B cut to PACK_LAYERS layers on phase 12's packed row.
+    cfg = dataclasses.replace(GEMMA2_9B, num_layers=PACK_LAYERS)
+    model = init_params(cfg, gen, device="cuda")
+    rng = np.random.default_rng(SEED)
+    docs = [rng.integers(1, cfg.vocab_size, n_tok).tolist() for n_tok in PACK_DOCS]
+    batch = next(data.PackedDataset(docs, batch_size=1, seq_len=PACK_S, seed=SEED).batches())
+    print(f"[remat-gemma] GEMMA2_9B cut to {PACK_LAYERS} layers, packed row: "
+          f"{check_packed_row(batch['tokens'], batch['segment_ids'], cfg)}")
+    tokens = torch.from_numpy(batch["tokens"]).cuda()
+    segs = torch.from_numpy(batch["segment_ids"]).cuda()
+    local = sum(llama.layer_window(cfg, i) is not None for i in range(PACK_LAYERS))
+
+    def gemma_extra(remat, impl):
+        fwd = REMAT_K1[remat]
+        out = {"flash_fwd_window": fwd * local, "flash_fwd_segments": fwd * PACK_LAYERS,
+               "flash_fwd_softcap": fwd * PACK_LAYERS}
+        for kern in kernels[impl]:
+            out.update({f"{kern}_window": local, f"{kern}_segments": PACK_LAYERS,
+                        f"{kern}_softcap": PACK_LAYERS})
+        return out
+
+    # The split backward alone: bit for bit. Without remat this row peaks at
+    # 69 GiB (split) and 72 GiB (fused); the fused gates run in (a) and (c).
+    got, held = remat_gates(model, tokens, "[remat-gemma]", ("attn", True), segs, gemma_extra,
+                            impls=("split",))
+    add_launches(total, got)
+    saved_none = held[False] - held["attn"]  # bytes a layer that "attn" recomputes
+    print(f"[remat-gemma] without remat a layer holds {held[False] / 1e6:.1f} MB at S={PACK_S}; "
+          f"'attn' {held['attn'] / 1e6:.1f} MB, True {held[True] / 1e6:.1f} MB")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) GEMMA2_9B at full depth.
+    cfg = GEMMA2_9B
+    t0 = time.perf_counter()
+    model = init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[remat-gemma-42] GEMMA2_9B, {cfg.num_layers} layers: {n_params / 1e9:.3f} B random "
+          f"bf16 parameters in {time.perf_counter() - t0:.2f} s")
+    tokens = torch.randint(0, cfg.vocab_size, (1, GEMMA_FULL_S + 1), generator=gen,
+                           device="cuda")
+    losses, walls = [], []
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    for step in range(GEMMA_FULL_STEPS):
+        t0 = time.perf_counter()
+        loss = llama.sgd_train_step(model, tokens, GEMMA_FULL_LR, remat="attn")[0]
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        print(f"[remat-gemma-42] step {step + 1}: loss {losses[-1]:.6f}, {walls[-1]:.1f} ms "
+              f"(host clock, synchronised), {GEMMA_FULL_S / walls[-1] * 1e3:.0f} tokens/s")
+    peak = torch.cuda.max_memory_allocated()
+    got = {k: n for k, n in read_launches().items() if n}
+    layers, local = cfg.num_layers, (cfg.num_layers + 1) // 2
+    want = {"flash_fwd": layers, "flash_fwd_window": local, "flash_fwd_softcap": layers,
+            "flash_bwd_fused": layers, "flash_bwd_fused_window": local,
+            "flash_bwd_fused_softcap": layers}
+    want = {k: GEMMA_FULL_STEPS * n for k, n in want.items()}
+    check(got == want, f"[remat-gemma-42] launched {got}, want {want}")
+    add_launches(total, got)
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"[remat-gemma-42] losses {losses}")
+    ms = statistics.median(walls[1:])
+    # Without remat each layer would also hold what "attn" recomputes:
+    # (b)'s difference per layer, scaled from S 8192 to S 4096 (linear in
+    # the tokens: the flash kernels keep no [S, S] tensor).
+    reckoned = peak + layers * saved_none * GEMMA_FULL_S / PACK_S
+    print(f"[remat-gemma-42] GEMMA2_9B {layers} layers B=1 S={GEMMA_FULL_S} sgd_train_step "
+          f"remat='attn' (lr {GEMMA_FULL_LR}), fused backward: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; {ms:.1f} ms/step (median of steps 2-{GEMMA_FULL_STEPS}), "
+          f"{GEMMA_FULL_S / ms * 1e3:.0f} tokens/s, peak {peak / 2**30:.2f} GiB; without remat "
+          f"reckoned {reckoned / 2**30:.1f} GiB ({layers} x {saved_none / 1e6:.0f} MB x "
+          f"{GEMMA_FULL_S}/{PACK_S} more), past the card's "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f} GiB: not run")
+    del model, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> None:
+    # autotune's cache in a directory of this run: no winner measured
+    # elsewhere steers impl="auto", and phase 13 writes none outside.
+    with tempfile.TemporaryDirectory() as cache_dir:
+        os.environ[autotune.CACHE_ENV] = os.path.join(cache_dir, "autotune.json")
+        run()
+
+
+def run() -> None:
     t_start = time.perf_counter()
     device_name = phase_environment()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -2510,6 +2781,8 @@ def main() -> None:
         launches[counter] = launches.get(counter, 0) + n
     launches.update(phase_gemma(gen))
     for counter, n in phase_gemma_packed(gen).items():
+        launches[counter] = launches.get(counter, 0) + n
+    for counter, n in phase_remat(gen).items():
         launches[counter] = launches.get(counter, 0) + n
     decode_src = ("flashattn_tpu_torch/csrc/decode.cu", "flashattn_tpu/ops/decode.py:351")
     qmm_src = "flashattn_tpu_torch/csrc/quant_matmul.cu"

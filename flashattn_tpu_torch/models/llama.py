@@ -5,17 +5,29 @@ The parameters keep the JAX package's names and its [in, out] layout
 (models/convert.py). Attention runs the port's kernels; every other piece is
 plain PyTorch. Models are built on the card unless the caller names another
 device.
+
+Training takes the JAX package's rematerialisation (``remat`` of
+``forward``, ``loss_fn`` and ``sgd_train_step``): each layer runs under
+``torch.utils.checkpoint`` (non-reentrant) and its backward recomputes
+what the policy did not keep. The policies save operator outputs, so the
+pieces they name are operators: the attention forward
+(ops/attention.py's ``flash_fwd``) and ``attention_operands`` below, the
+q/k/v projections with RoPE, which lays q, k and v out as the kernel takes
+them.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from flashattn_tpu_torch.models.config import ModelConfig, check_supported
 from flashattn_tpu_torch.ops.attention import flash_attention
-from flashattn_tpu_torch.ops.common import card_device, unported
+from flashattn_tpu_torch.ops.common import card_device
 from flashattn_tpu_torch.ops.quant_matmul import (QuantizedLinear, quant_matmul,
                                                   quantize_weights)
 from flashattn_tpu_torch.ops.varlen import flash_attention_varlen
@@ -228,11 +240,78 @@ def residuals(layer: LlamaLayer, x: torch.Tensor, a: torch.Tensor,
 def qkv(layer: LlamaLayer, xn: torch.Tensor, cfg: ModelConfig):
     """Projections of xn [B, S, H] -> q [B, Hq, S, D], k/v [B, Hkv, S, D]
     (before RoPE); v is made contiguous for the kernels."""
+    return _qkv(xn, layer.wq, layer.wk, layer.wv, cfg.num_heads, cfg.num_kv_heads,
+                cfg.head_dim)
+
+
+def _qkv(xn, wq, wk, wv, num_heads: int, num_kv_heads: int, head_dim: int):
     b, s = xn.shape[:2]
-    q = proj(xn, layer.wq).view(b, s, cfg.num_heads, cfg.head_dim)
-    k = proj(xn, layer.wk).view(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = proj(xn, layer.wv).view(b, s, cfg.num_kv_heads, cfg.head_dim)
+    q = proj(xn, wq).view(b, s, num_heads, head_dim)
+    k = proj(xn, wk).view(b, s, num_kv_heads, head_dim)
+    v = proj(xn, wv).view(b, s, num_kv_heads, head_dim)
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2).contiguous()
+
+
+def rope_backward(g: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """The gradient through apply_rope (a rotation by the same angles, so
+    the inverse one), computed as autograd computes it: in float32, each
+    half rounded to g's dtype."""
+    half = g.shape[-1] // 2
+    if cos.dim() == 2:
+        cos_b, sin_b = cos[None, None], sin[None, None]
+    else:
+        cos_b, sin_b = cos[:, None], sin[:, None]
+    g1, g2 = g[..., :half].float(), g[..., half:].float()
+    return torch.cat([(g1 * cos_b + g2 * sin_b).to(g.dtype),
+                      (g2 * cos_b - g1 * sin_b).to(g.dtype)], dim=-1)
+
+
+@torch.library.custom_op(
+    "flashattn_tpu_torch::attention_operands", mutates_args=(),
+    schema="(Tensor xn, Tensor wq, Tensor wk, Tensor wv, Tensor cos, Tensor sin, "
+           "int num_heads, int num_kv_heads) -> (Tensor, Tensor, Tensor)")
+def attention_operands(xn, wq, wk, wv, cos, sin, num_heads, num_kv_heads):
+    """The attention kernel's q, k and v from the normed input xn [B, S, H]:
+    the projections, RoPE on q and k, the [B, H, S, D] layout (qkv and
+    apply_rope). One operator, so that remat="attn" keeps its outputs, the
+    kernel's operands, and its recompute runs no projection."""
+    q, k, v = _qkv(xn, wq, wk, wv, num_heads, num_kv_heads, wq.shape[1] // num_heads)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+@attention_operands.register_fake
+def _(xn, wq, wk, wv, cos, sin, num_heads, num_kv_heads):
+    b, s = xn.shape[:2]
+    d = wq.shape[1] // num_heads
+    return (xn.new_empty(b, num_heads, s, d), xn.new_empty(b, num_kv_heads, s, d),
+            xn.new_empty(b, num_kv_heads, s, d))
+
+
+def _operands_setup(ctx, inputs, output):
+    xn, wq, wk, wv, cos, sin, _, _ = inputs
+    ctx.save_for_backward(xn, wq, wk, wv, cos, sin)
+
+
+def _operands_backward(ctx, dq, dk, dv):
+    """d xn, d wq, d wk, d wv from the gradients of q, k and v: the
+    projections' products as torch.matmul's autograd forms them."""
+    xn, wq, wk, wv, cos, sin = ctx.saved_tensors
+    b, s, h = xn.shape
+    grads = [g.transpose(1, 2).reshape(b * s, -1)
+             for g in (rope_backward(dq, cos, sin), rope_backward(dk, cos, sin), dv)]
+    weights = (wq, wk, wv)
+    dxn = None
+    if ctx.needs_input_grad[0]:
+        for g, w in zip(grads, weights):
+            term = g.mm(w.t())
+            dxn = term if dxn is None else dxn + term
+        dxn = dxn.view(b, s, h)
+    x2 = xn.reshape(b * s, h).t()
+    dws = [x2.mm(g) if ctx.needs_input_grad[1 + i] else None for i, g in enumerate(grads)]
+    return dxn, *dws, None, None, None, None
+
+
+attention_operands.register_autograd(_operands_backward, setup_context=_operands_setup)
 
 
 def layer_window(cfg: ModelConfig, layer_idx: int) -> int | None:
@@ -248,9 +327,13 @@ def _attn_block(layer: LlamaLayer, x: torch.Tensor, cos: torch.Tensor,
                 segment_ids: torch.Tensor | None = None) -> torch.Tensor:
     b, s, _ = x.shape
     xn = rms_norm(x, layer.attn_norm, cfg.norm_eps, cfg.norm_offset)
-    q, k, v = qkv(layer, xn, cfg)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if isinstance(layer.wq, QuantizedLinear):  # the int8/int4 kernels: no gradient
+        q, k, v = qkv(layer, xn, cfg)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    else:
+        q, k, v = attention_operands(xn, layer.wq, layer.wk, layer.wv, cos, sin,
+                                     cfg.num_heads, cfg.num_kv_heads)
     if segment_ids is not None:
         o = flash_attention_varlen(q, k, v, segment_ids=segment_ids, is_causal=True,
                                    scale=cfg.attn_scale, window=window,
@@ -282,6 +365,58 @@ def check_segment_ids(segment_ids, tokens: torch.Tensor) -> torch.Tensor:
     return seg
 
 
+def _layer(layer: LlamaLayer, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+           cfg: ModelConfig, window: int | None, segment_ids: torch.Tensor | None
+           ) -> torch.Tensor:
+    """One decoder block (the JAX forward's layer_fn)."""
+    return residuals(layer, x, _attn_block(layer, x, cos, sin, cfg, window, segment_ids), cfg)
+
+
+REMAT_POLICIES = (True, "dots", "attn")  # and False (or any falsy value): no remat
+
+
+def _saved_ops(remat) -> list | None:
+    """The operators whose outputs a remat policy keeps: None for remat=True
+    (only the layer's input), the projections' products for "dots"
+    (dots_with_no_batch_dims_saveable; the q/k/v ones are inside
+    attention_operands), the attention kernel's operands and outputs for
+    "attn" (the JAX package's flash_resid: q, k, v, O and LSE)."""
+    ops = torch.ops.flashattn_tpu_torch
+    if remat == "dots":
+        return [torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                ops.attention_operands.default]
+    if remat == "attn":
+        return [ops.attention_operands.default, ops.flash_fwd.default,
+                ops.flash_fwd_plain.default]
+    return None
+
+
+def layers_forward(model: Llama, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                   segment_ids: torch.Tensor | None = None, remat=False) -> torch.Tensor:
+    """The decoder blocks on the embedded x [B, S, H], each with its window.
+
+    With remat (and a gradient to take) each block runs under
+    torch.utils.checkpoint and keeps only its input and what the policy
+    names (_saved_ops); its backward recomputes the rest: True recomputes
+    the whole block, attention kernel included, "dots" the elementwise work
+    and the attention kernel, "attn" everything but the q/k/v projections
+    and the attention kernel."""
+    if remat and remat not in REMAT_POLICIES:
+        raise ValueError(f"remat must be False or one of {REMAT_POLICIES}, got {remat!r}")
+    cfg = model.cfg
+    layer_fn = _layer
+    if remat and torch.is_grad_enabled():
+        saved = _saved_ops(remat)
+        context_fn = (functools.partial(create_selective_checkpoint_contexts, saved)
+                      if saved else None)
+        layer_fn = functools.partial(
+            checkpoint, _layer, use_reentrant=False, preserve_rng_state=False,
+            **({"context_fn": context_fn} if context_fn else {}))
+    for i, layer in enumerate(model.layers):
+        x = layer_fn(layer, x, cos, sin, cfg, layer_window(cfg, i), segment_ids)
+    return x
+
+
 def forward(model: Llama, tokens: torch.Tensor, segment_ids=None,
             remat=False) -> torch.Tensor:
     """Training/prefill forward: tokens [B, S] -> float32 logits [B, S, vocab].
@@ -292,9 +427,16 @@ def forward(model: Llama, tokens: torch.Tensor, segment_ids=None,
     a document (ops/varlen.py; ids < 0 are padding) and RoPE positions
     restart at each boundary. A soft-capped model (cfg.logit_softcap,
     Gemma-2) trains too, packed or not: the backward kernels take the cap.
-    Rematerialisation (`remat`) is not ported yet and raises (ROADMAP A3b)."""
-    if remat is not False:
-        raise unported(f"remat={remat!r}", "A3b")
+
+    remat (rematerialisation, packed or not): False keeps every layer's
+    activations for the backward; True keeps only each layer's input and
+    recomputes the layer in the backward, attention kernel included; "dots"
+    also keeps the projections' outputs, so the backward replays the
+    elementwise work and the attention kernel; "attn" keeps the attention
+    kernel's residuals (q, k, v as the kernel takes them, O and LSE), so
+    the backward runs no attention forward and no q/k/v projection but
+    recomputes the rest (layers_forward). Each trades the activations'
+    memory for time; the loss and gradients stay as without remat."""
     cfg = model.cfg
     x = embed_tokens(model, tokens)
     if segment_ids is not None:
@@ -303,10 +445,7 @@ def forward(model: Llama, tokens: torch.Tensor, segment_ids=None,
     else:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
     cos, sin = rope_tables(cfg, positions)
-    for i, layer in enumerate(model.layers):
-        x = residuals(layer, x, _attn_block(layer, x, cos, sin, cfg, layer_window(cfg, i),
-                                            segment_ids), cfg)
-    return lm_logits(x, model)
+    return lm_logits(layers_forward(model, x, cos, sin, segment_ids, remat), model)
 
 
 def loss_fn(model: Llama, tokens: torch.Tensor, segment_ids=None,
@@ -333,7 +472,8 @@ def loss_fn(model: Llama, tokens: torch.Tensor, segment_ids=None,
 
 def sgd_train_step(model: Llama, tokens: torch.Tensor, lr: float = 1e-3,
                    remat=False) -> tuple[torch.Tensor, Llama]:
-    """Loss, gradients and a plain SGD update -> (loss, model).
+    """Loss, gradients and a plain SGD update -> (loss, model); `remat` as in
+    forward.
 
     The JAX function returns new parameters; this one updates the model in
     place (p -= lr * g in the parameters' dtype) and returns it."""

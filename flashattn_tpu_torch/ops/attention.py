@@ -8,6 +8,14 @@ the backward kernels (ops/flash_bwd.py) with the same causal mask, window,
 segment ids and logit soft-cap. Without a gradient to take, the primal runs
 K1 without writing the LSE, as the JAX primal does.
 
+Under a gradient the Function's forward calls K1 through a registered
+operator, ``torch.ops.flashattn_tpu_torch.flash_fwd`` (the plain route's is
+``flash_fwd_plain``): an operator the dispatcher sees, so that selective
+activation checkpointing (models/llama.py, remat="attn") can keep its
+outputs, the residuals the JAX package tags ``flash_resid``, and its
+recompute launches no K1. Each operator returns (O, LSE) as new tensors
+and has a fake implementation for shape propagation.
+
 ``plain_flash_attention`` is the same Function over the plain versions of
 the forward and backward, the route the kernels are held against. It never
 lets autograd record the plain attention's [S_q, S_k] intermediates.
@@ -29,21 +37,48 @@ from flashattn_tpu_torch.ops.flash_fwd import (
 )
 
 
+# The forward routes as operators: (q, k, v, seg_q, seg_k, is_causal, scale,
+# pos_offset, window, logit_softcap) -> (O, LSE).
+_FWD_SCHEMA = ("(Tensor q, Tensor k, Tensor v, Tensor? seg_q, Tensor? seg_k, bool is_causal, "
+               "float? scale, int? pos_offset, int? window, float? logit_softcap) "
+               "-> (Tensor, Tensor)")
+
+
+def _forward_op(name: str, forward_fn: Callable):
+    """Register forward_fn (need_lse=True) as flashattn_tpu_torch::<name>."""
+    def impl(q, k, v, seg_q, seg_k, is_causal, scale, pos_offset, window, logit_softcap):
+        return forward_fn(q, k, v, is_causal, scale, pos_offset, need_lse=True, window=window,
+                          segment_ids=None if seg_q is None else (seg_q, seg_k),
+                          logit_softcap=logit_softcap)
+
+    op = torch.library.custom_op(f"flashattn_tpu_torch::{name}", impl, mutates_args=(),
+                                 schema=_FWD_SCHEMA)
+
+    @op.register_fake
+    def _(q, k, v, seg_q, seg_k, is_causal, scale, pos_offset, window, logit_softcap):
+        return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+    return op
+
+
+flash_fwd_op = _forward_op("flash_fwd", flash_attention_forward)
+flash_fwd_plain_op = _forward_op("flash_fwd_plain", flash_attention_forward_reference)
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """O = attention(q, k, v) with residuals (q, k, v, o, lse) and the
-    segment ids; the forward and backward functions are arguments, so the
-    kernels and the plain versions share this Function. The options (the
-    causal mask, scale, pos_offset, window and logit soft-cap) reach both
-    functions alike. The segment ids (int32, no gradient) get None."""
+    segment ids; the forward operator and the backward function are
+    arguments, so the kernels and the plain versions share this Function.
+    The options (the causal mask, scale, pos_offset, window and logit
+    soft-cap) reach both alike. The segment ids (int32, no gradient) get
+    None."""
 
     @staticmethod
     def forward(ctx, q, k, v, seg_q, seg_k, is_causal: bool, scale: float | None,
                 pos_offset: int | None, window: int | None, logit_softcap: float | None,
-                forward_fn: Callable, backward_fn: Callable):
-        segment_ids = None if seg_q is None else (seg_q, seg_k)
-        o, lse = forward_fn(q, k, v, is_causal, scale, pos_offset, need_lse=True,
-                            window=window, segment_ids=segment_ids,
-                            logit_softcap=logit_softcap)
+                forward_op: Callable, backward_fn: Callable):
+        o, lse = forward_op(q, k, v, seg_q, seg_k, is_causal, scale, pos_offset, window,
+                            logit_softcap)
         ctx.save_for_backward(q, k, v, o, lse, seg_q, seg_k)
         ctx.options = (is_causal, scale, pos_offset, window, logit_softcap, backward_fn)
         return o
@@ -60,11 +95,11 @@ class FlashAttentionFunction(torch.autograd.Function):
 
 
 def _attention(q, k, v, is_causal, scale, pos_offset, window, segment_ids, logit_softcap,
-               forward_fn, backward_fn):
+               forward_fn, forward_op, backward_fn):
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         seg_q, seg_k = (None, None) if segment_ids is None else segment_ids
         return FlashAttentionFunction.apply(q, k, v, seg_q, seg_k, is_causal, scale,
-                                            pos_offset, window, logit_softcap, forward_fn,
+                                            pos_offset, window, logit_softcap, forward_op,
                                             backward_fn)
     o, _ = forward_fn(q, k, v, is_causal, scale, pos_offset, need_lse=False, window=window,
                       segment_ids=segment_ids, logit_softcap=logit_softcap)
@@ -95,7 +130,8 @@ def flash_attention(
     scaled logits, before the mask) reaches the forward and the backward
     alike."""
     return _attention(q, k, v, is_causal, scale, pos_offset, window, segment_ids,
-                      logit_softcap, flash_attention_forward, flash_attention_backward)
+                      logit_softcap, flash_attention_forward, flash_fwd_op,
+                      flash_attention_backward)
 
 
 def plain_flash_attention(
@@ -112,5 +148,5 @@ def plain_flash_attention(
     """flash_attention through the plain PyTorch forward and backward, on
     any device: the reference route for checking the kernels' route."""
     return _attention(q, k, v, is_causal, scale, pos_offset, window, segment_ids,
-                      logit_softcap, flash_attention_forward_reference,
+                      logit_softcap, flash_attention_forward_reference, flash_fwd_plain_op,
                       flash_attention_backward_reference)

@@ -10,9 +10,11 @@
   deterministic path.
 - ``"auto"``: ``FLASHATTN_BWD_IMPL`` from the environment when set (read at
   every call, so one variable selects the path for a whole model), else
-  ``"fused"``. The JAX package picks by a VMEM estimate and an autotune
-  cache; those are TPU designs and are not ported: on the card the fused
-  kernel keeps only one kv tile's dK/dV on chip, so it serves every length.
+  the winner that ops/autotune.py measured at this shape on this card
+  (``cached_bwd_impl``), else ``"fused"`` (``resolve_impl``). The JAX
+  package also weighs a VMEM estimate, a TPU design that is not ported:
+  on the card the fused kernel keeps only one kv tile's dK/dV on chip, so
+  it serves every length.
 
 Every path takes the sliding window, packed-document segment ids and the
 logit soft-cap (the forward's `window`, `segment_ids` and `logit_softcap`,
@@ -27,7 +29,7 @@ import os
 
 import torch
 
-from flashattn_tpu_torch.ops import _build
+from flashattn_tpu_torch.ops import _build, autotune
 from flashattn_tpu_torch.ops.flash_bwd_fused import (
     check_backward_operands,
     flash_attention_backward_fused,
@@ -84,14 +86,19 @@ def flash_attention_backward_reference(
                                         pos_offset, window, segment_ids, logit_softcap)
 
 
-def resolve_impl(impl: str) -> str:
-    """"fused" or "split" for an `impl` argument (see the module docstring)."""
+def resolve_impl(impl: str, shape: tuple | None = None) -> str:
+    """"fused" or "split" for an `impl` argument, in the JAX package's
+    order: an explicit impl; for "auto" FLASHATTN_BWD_IMPL; then the
+    autotune winner for `shape`, (b, hq, hkv, s_q, s_k, d, is_causal,
+    dtype) on the card (None: no lookup); then "fused"."""
     if impl not in IMPLS:
         raise ValueError(f"impl {impl!r} not in {IMPLS}")
     if impl == "auto":
         impl = os.environ.get(IMPL_ENV, "auto")
         if impl not in IMPLS:
             raise ValueError(f"{IMPL_ENV}={impl!r} not in {IMPLS}")
+    if impl == "auto" and shape is not None:
+        impl = autotune.cached_bwd_impl(*shape) or "auto"
     return "fused" if impl == "auto" else impl
 
 
@@ -121,7 +128,8 @@ def flash_attention_backward(
         float32, natural log, as flash_attention_forward returns it.
       is_causal, scale, pos_offset, window, segment_ids, logit_softcap: as in
         the forward call that made o and lse.
-      impl: "auto", "fused" or "split" (module docstring).
+      impl: "auto", "fused" or "split" (module docstring; the CPU's plain
+        version serves all three).
 
     Returns:
       (dQ [B, Hq, S_q, D] in q.dtype, dK and dV [B, Hkv, S_k, D] in k.dtype),
@@ -133,8 +141,9 @@ def flash_attention_backward(
     HEAD_DIMS, and lse contiguous float32; anything else raises.
     """
     check_forward_unported(dropout_rate, alibi, dyn_pos_offset)
-    impl = resolve_impl(impl)
     check_backward_operands(q, k, v, o, do, lse, HEAD_DIMS)
+    shape = (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3], is_causal, q.dtype)
+    impl = resolve_impl(impl, shape if q.is_cuda else None)
     check_window(window, is_causal)
     segment_ids = check_segments(segment_ids, q, k)
     cap = check_softcap(logit_softcap)

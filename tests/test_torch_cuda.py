@@ -1733,3 +1733,92 @@ def test_tiny_gemma_on_card_matches_cpu(dev):
     for i, (want, got) in enumerate(zip(*outs)):
         rep = verify_results(want, got, atol=1e-3, rtol=1e-3)
         assert rep.passed, f"step {i}: {rep}"
+
+
+REMAT_K1 = {False: 1, True: 2, "dots": 2, "attn": 1}  # K1 launches a layer
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("impl", ["fused", "split"])
+@pytest.mark.parametrize("remat", [True, "dots", "attn"])
+def test_remat_on_the_kernels(dev, remat, impl, packed):
+    """A bf16 model (D 64, GQA 4/2, 3 layers) under remat on the kernels:
+    K1 once a layer without remat and under "attn", twice under True and
+    "dots"; the backward's kernels once a layer; the loss equal to the loss
+    without remat bit for bit, the gradients too with the split backward
+    and within the bf16-gradient gate with the fused one (dQ by atomics)."""
+    cfg = ModelConfig(vocab_size=256, hidden_size=256, intermediate_size=512, num_layers=3,
+                      num_heads=4, num_kv_heads=2, head_dim=64, max_seq_len=512,
+                      dtype=torch.bfloat16)
+    model = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(11), device=dev)
+    tokens = torch.randint(0, 256, (2, 301), generator=torch.Generator().manual_seed(12))
+    ids = None
+    if packed:
+        ids = torch.full((2, 301), -1, dtype=torch.int32)
+        ids[:, :130], ids[:, 130:290] = 0, 1
+        ids = ids.to(dev)
+    kernels = ["flash_bwd_fused"] if impl == "fused" else ["flash_bwd_dq", "flash_bwd_dkv"]
+    runs = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv(flash_bwd.IMPL_ENV, impl)
+        for policy in (False, remat):
+            model.zero_grad(set_to_none=True)
+            before = launch_counters.read()
+            loss = llama.loss_fn(model, tokens.to(dev), segment_ids=ids, remat=policy)
+            loss.backward()
+            added = {n: c - before[n] for n, c in launch_counters.read().items()
+                     if c != before[n]}
+            want = {"flash_fwd": REMAT_K1[policy] * cfg.num_layers,
+                    **{k: cfg.num_layers for k in kernels}}
+            if packed:
+                want.update({f"{k}_segments": n for k, n in list(want.items())})
+            assert added == want, policy
+            runs[policy] = (loss.detach(), [p.grad for p in model.parameters()])
+    (loss, grads), (ref_loss, ref_grads) = runs[remat], runs[False]
+    assert torch.equal(loss, ref_loss)
+    for g, r in zip(grads, ref_grads):
+        if impl == "split":
+            assert torch.equal(g, r)
+        else:
+            assert verify_results(r, g, **GRAD_TOL[torch.bfloat16]).passed
+
+
+def test_autotune_on_the_card(dev, tmp_path, monkeypatch):
+    """autotune times fused and split at the shape, caches the winner in
+    the given file and returns it; a cache hit launches nothing, force
+    measures again; impl="auto" then launches the winner's kernels and
+    FLASHATTN_BWD_IMPL overrides it."""
+    from flashattn_tpu_torch.ops import autotune
+
+    monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "autotune.json"))
+    monkeypatch.delenv(flash_bwd.IMPL_ENV, raising=False)
+    q = randn((2, 8, 512, 64), torch.bfloat16, dev, 21)
+    k = randn((2, 2, 512, 64), torch.bfloat16, dev, 22)
+    v = randn((2, 2, 512, 64), torch.bfloat16, dev, 23)
+    assert autotune.cached_bwd_impl(2, 8, 2, 512, 512, 64, True, torch.bfloat16) is None
+    entry = autotune.autotune(q, k, v, is_causal=True)
+    assert entry["bwd_impl"] in ("fused", "split") and entry["fused_ms"] > 0 < entry["split_ms"]
+    assert entry["bwd_impl"] == ("fused" if entry["fused_ms"] <= entry["split_ms"] else "split")
+    key = autotune._key(2, 8, 2, 512, 512, 64, True, torch.bfloat16)
+    assert key.startswith(torch.cuda.get_device_name().replace(" ", "") + "|")
+    assert json.loads((tmp_path / "autotune.json").read_text()) == {key: entry}
+    assert autotune.cached_bwd_impl(2, 8, 2, 512, 512, 64, True, torch.bfloat16) == \
+        entry["bwd_impl"]
+    assert autotune.cached_bwd_impl(2, 8, 2, 512, 512, 64, False, torch.bfloat16) is None
+    before = launch_counters.read()
+    assert autotune.autotune(q, k, v, is_causal=True) == entry
+    assert launch_counters.read() == before  # a hit measures nothing
+    fresh = autotune.autotune(q, k, v, is_causal=True, force=True)
+    assert launch_counters.read() != before  # force measures again
+    assert set(fresh) == set(entry) and fresh["bwd_impl"] in ("fused", "split")
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, True)
+    kernels = {"fused": {"flash_bwd_fused": 1}, "split": {"flash_bwd_dq": 1, "flash_bwd_dkv": 1}}
+    winner = autotune.cached_bwd_impl(2, 8, 2, 512, 512, 64, True, torch.bfloat16)
+    loser = "split" if winner == "fused" else "fused"
+    for env, impl in ((None, winner), (loser, loser)):
+        if env:
+            monkeypatch.setenv(flash_bwd.IMPL_ENV, env)
+        before = launch_counters.read()
+        flash_bwd.flash_attention_backward(q, k, v, o, q, lse, True, impl="auto")
+        added = {n: c - before[n] for n, c in launch_counters.read().items() if c != before[n]}
+        assert added == kernels[impl], env

@@ -207,15 +207,12 @@ def test_train_driver_with_resume(tmp_path):
     assert state2["step"] == 7  # resumed from step 5
 
 
-def test_remat_and_segment_ids_raise():
-    """remat raises (ROADMAP A3b); segment ids of another shape than the
-    tokens raise, and a dict batch trains with or without them (one id for
-    every token: the same loss as no ids)."""
+def test_segment_ids_shape_and_dict_batches():
+    """Segment ids of another shape than the tokens raise, and a dict batch
+    trains with or without them (one id for every token: the same loss as
+    no ids)."""
     model = port_model(jax_params())
     toks = torch.from_numpy(tokens(s=16))
-    for remat in (True, "dots", "attn"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A3b"):
-            llama.loss_fn(model, toks, remat=remat)
     segs = torch.zeros_like(toks)
     with pytest.raises(ValueError, match="shaped like the tokens"):
         llama.loss_fn(model, toks, segment_ids=segs[:, 1:])
