@@ -5,8 +5,8 @@ NVIDIA GPU.
     python3 chip_smoke.py
 
 Builds the five CUDA libraries from csrc/ (into build/flashattn_tpu_torch/,
-one nvcc each, all at once) and runs thirteen phases, printing one line per
-check, then the kernels line:
+one nvcc each, all at once) and runs fifteen phases, printing one line per
+check and each phase's seconds, then the kernels line:
 
 1. environment: torch/CUDA versions, the card's name and power limit, the
    kernels' build time and their compiler report (no spills in the
@@ -63,9 +63,10 @@ check, then the kernels line:
    cap 50, lengths on both sides of the window, window 4096 and none,
    bf16/f32/int8/fp8 caches at T 1 and T 256 (hot inputs on bf16 at T 1,
    int8 and fp8 at T 256), the paged K2 torch.equal to the dense K2 in
-   each; each timed beside SDPA without the cap (with the
-   boolean window mask on a local layer) and, where it compiles,
-   flex_attention with a soft-cap score_mod (a competitor only); then the
+   each; each timed beside flex_attention with a soft-cap score_mod,
+   the same function (where it compiles), and SDPA without the cap (with
+   the boolean window mask on a local layer; another function, printed as
+   an extra); then the
    soft-cap in the backward kernels (softcap_backward_kernels): K1 (the cap
    with segment ids), B3 and B4 + B5 against their plain versions at D 64,
    128 and 256 with the cap alone, a window, documents, both, hot inputs
@@ -152,13 +153,36 @@ check, then the kernels line:
    (c) GEMMA2_9B at its full 42 layers, B 1, S 4096, 5 sgd_train_steps
    with remat="attn", the loss falling, and the peak without remat
    reckoned from (b)'s bytes a layer;
-14. the `kernels` JSON line: every kernel with its launches on the path that
+14. Hugging Face model families at full width and depth (phase_families):
+   QWEN3_8B (36 layers, q/k RMSNorm, 8.19 B parameters) and then LLAMA31_8B
+   (32 layers, the llama3 RoPE remap, 8.03 B), each from random bf16
+   weights under the Hugging Face names and layouts through
+   models/convert.py::params_from_hf, freed before the next: a 2,000-token
+   prefill and 4 teacher-forced decode steps through the kernels against
+   the plain route under phase 3's logits rule; the bf16 server and the
+   int8-KV paged server on phase 9's traffic (max_len 8192); LLAMA31_8B
+   also a 16,384-token prompt, its last position's logits from 512-token
+   chunks (K2) against prefill (K1), then served with admit_chunk 512 and
+   32 new tokens; K1 at that prompt's attention against its plain version
+   in 1024-row slices and timed;
+15. speculative decoding (phase_speculate): target LLAMA_1B, drafts
+   LLAMA_1B itself and LLAMA_150M, k 4, a 128-token prompt, 64 new
+   tokens, greedy, dense and paged, in float32 and in bf16: the tokens
+   equal generate.generate's (in bf16 up to a tie at bf16's rounding,
+   where generate's own logits hold both tokens within phase 3's logits
+   tolerance), the
+   float32 self-draft's acceptance 1.0, the K1 and K2 launches those the
+   models' calls make; a sampled bf16 run twice from one seed the same;
+   acceptance and tokens/s against generate; K2 bf16 at T 5 (the
+   verification) against its plain version and timed;
+16. the `kernels` JSON line: every kernel with its launches on the path that
    runs it, its error against its plain version, its time, bound, plain and
    library times (the windowed K1, K2 and paged K2 from phases 2 and 9, the
    windowed and segmented K1, B3, B4 and B5 from phases 2 and 10, the
    soft-capped K1, K2 and paged K2 from phases 2 and 11, the soft-capped
    B3, B4 and B5 from phases 2 and 12, timed at GEMMA2_9B's packed row on a
-   global layer).
+   global layer; K1 at LLAMA31_8B's 16,384-token prompt from phase 14 and
+   K2 at T 5 from phase 15, rows of their own).
 
 Any failed check raises: the script then exits nonzero and does not print
 its last line. It needs a CUDA device and never falls back to the CPU. The
@@ -175,7 +199,9 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -186,14 +212,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from flashattn_tpu_torch.models import data, generate, llama, train
-from flashattn_tpu_torch.models.config import GEMMA2_9B, LLAMA_1B, MISTRAL_7B
+from flashattn_tpu_torch.models import convert, data, generate, llama, train
+from flashattn_tpu_torch.models.config import (GEMMA2_9B, LLAMA31_8B, LLAMA_1B, LLAMA_150M,
+                                               MISTRAL_7B, QWEN3_8B)
 from flashattn_tpu_torch.models.llama import init_params
+from flashattn_tpu_torch.models.sampling import SamplingParams
 from flashattn_tpu_torch.models.serve import InferenceServer, Request
+from flashattn_tpu_torch.models.speculate import speculative_generate
 from flashattn_tpu_torch.ops import (_build, autotune, decode, flash_bwd, flash_bwd_fused,
                                      flash_fwd, kvcache, paged, quant_matmul, varlen)
 from flashattn_tpu_torch.ops import launches as launch_counters
 from flashattn_tpu_torch.ops.attention import plain_flash_attention
+from flashattn_tpu_torch.ops.common import round_up
 from flashattn_tpu_torch.ops.kvcache import KVCache
 from flashattn_tpu_torch.ops.reference import visible
 from flashattn_tpu_torch.utils import profile_train, roofline
@@ -963,10 +993,12 @@ def k1_case(tag: str, q, k, v, causal: bool, err: float, f32: bool = False, **kw
 def flex_softcap_ms(q, k, v, window: int | None, segment_ids=None, do=None,
                     cap: float = CAP) -> float | None:
     """torch.nn.attention.flex_attention with a soft-cap score_mod and the
-    causal (window, segment-id) block mask, compiled, S_q == S_k: its
-    forward, or with `do` its backward (autograd.grad of O against do): a
-    competitor only, never used by the port. None, with the reason printed,
-    where it does not compile on this machine."""
+    causal (window, segment-id) block mask, compiled, the S_q queries at
+    the last S_q of the S_k positions (S_q == S_k in training and prefill,
+    1 at a decode step): its forward, or with `do` its backward
+    (autograd.grad of O against do): a competitor only, never used by the
+    port. None, with the reason printed, where it does not compile on this
+    machine."""
     what = "backward" if do is not None else "forward"
     try:
         from torch.nn.attention.flex_attention import create_block_mask, flex_attention
@@ -974,17 +1006,19 @@ def flex_softcap_ms(q, k, v, window: int | None, segment_ids=None, do=None,
         def score_mod(score, b, h, q_idx, kv_idx):
             return cap * torch.tanh(score / cap)
 
+        s_q, s_k = q.shape[2], k.shape[2]
+        off = s_k - s_q  # bottom-right alignment
+
         def mask_mod(b, h, q_idx, kv_idx):
-            seen = kv_idx <= q_idx
+            seen = kv_idx <= q_idx + off
             if window:
-                seen = seen & (kv_idx > q_idx - window)
+                seen = seen & (kv_idx > q_idx + off - window)
             if segment_ids is not None:
                 seen = seen & (segment_ids[0][b, q_idx] == segment_ids[1][b, kv_idx])
             return seen
 
-        s = q.shape[2]
         batch = None if segment_ids is None else q.shape[0]
-        block_mask = create_block_mask(mask_mod, batch, None, s, s, device="cuda")
+        block_mask = create_block_mask(mask_mod, batch, None, s_q, s_k, device="cuda")
         flex = torch.compile(flex_attention, dynamic=False)
         leaves = [t.detach().requires_grad_(do is not None) for t in (q, k, v)]
         out = flex(*leaves, score_mod=score_mod, block_mask=block_mask, enable_gqa=True)
@@ -1055,10 +1089,11 @@ def softcap_k1(gen: torch.Generator) -> dict:
         print(f"[kernels] K1 soft-cap {CAP:g} {layer} layer (window={w}) B={b} Hq={hq} "
               f"Hkv={hkv} S={s} D={d} without LSE: kernel {ms:.4f} ms "
               f"({report.flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s), bound {lim['bound_ms']:.5f}"
-              f" ms by {lim['bound_by']}, plain {plain:.4f} ms, SDPA without the cap"
-              f"{' with a boolean window mask' if w else ''} {lib:.4f} ms, flex_attention with "
-              f"a soft-cap score_mod " + (f"{flex:.4f} ms" if flex else "not run"))
-        rows[layer] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, **lim)
+              f" ms by {lim['bound_by']}, plain {plain:.4f} ms, library: flex_attention with "
+              f"a soft-cap score_mod " + (f"{flex:.4f} ms" if flex else "not run")
+              + f" (extra, another function: SDPA without the cap"
+              f"{' with a boolean window mask' if w else ''} {lib:.4f} ms)")
+        rows[layer] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=flex, **lim)
     return rows["global"]
 
 
@@ -1132,16 +1167,23 @@ def softcap_k2(gen: torch.Generator) -> dict[str, dict]:
                 qd[:, :, None], full.k, full.v, attn_mask=mask, enable_gqa=True))
         lim = bound(roofline.decode_roofline(GK2_B, GK2_HQ, GK2_HKV, GK2_D, [GK2_SMAX] * GK2_B,
                                              window=w))
+        # The library call computes the same function: flex_attention with
+        # the cap's score_mod (every length is GK2_SMAX: the causal mask of
+        # the last position keeps them all).
+        flex = flex_softcap_ms(qd[:, :, None], full.k, full.v, w)
         print(f"[kernels] K2 bf16 soft-cap {CAP:g} {layer} layer (window={w}) B={GK2_B} "
               f"Hq={GK2_HQ} Hkv={GK2_HKV} D={GK2_D} T=1, every length {GK2_SMAX}: kernel "
               f"{ms:.4f} ms, paged {paged_ms:.4f} ms; plain {plain:.4f} ms, paged plain "
               f"{paged_plain:.4f} ms; bound {lim['bound_ms']:.5f} ms by {lim['bound_by']}; "
-              f"SDPA without the cap{' with a boolean window mask' if w else ''} {lib:.4f} ms")
+              f"library: flex_attention with a soft-cap score_mod "
+              + (f"{flex:.4f} ms" if flex else "not run")
+              + f" (extra, another function: SDPA without the cap"
+              f"{' with a boolean window mask' if w else ''} {lib:.4f} ms)")
         rows[layer] = {
             "decode_softcap": dict(max_abs_err=err["decode_softcap"], ms=ms, plain_ms=plain,
-                                   library_ms=lib, **lim),
+                                   library_ms=flex, **lim),
             "paged_decode_softcap": dict(max_abs_err=err["paged_decode_softcap"],
-                                         ms=paged_ms, plain_ms=paged_plain, library_ms=lib,
+                                         ms=paged_ms, plain_ms=paged_plain, library_ms=flex,
                                          **lim)}
     del full, pool
     cache8 = window_cache("int8", gen, [GK2_SMAX] * GK2_B, shape)
@@ -2138,14 +2180,16 @@ WINDOW_COUNTERS = ("flash_fwd_window", "decode_window", "paged_decode_window")
 
 
 def long_prompt_server(model, tag: str, prompts: list[list[int]], prefix: list[int] | None,
-                       log: str = "[mistral]", **options) -> dict[str, int]:
+                       log: str = "[mistral]", max_len: int | None = None,
+                       **options) -> dict[str, int]:
     """One server run on the requests of `prompts` (a prompt that starts
     with `prefix` names the registered prefix): every request finished with
     MISTRAL_NEW valid tokens, every decode step a replay; the launches of
     the run (warmup, prefix registration and calibration left out). Lines
-    print under `log`."""
+    print under `log`. The slots hold max_len tokens (cfg.max_seq_len by
+    default)."""
     cfg = model.cfg
-    srv = InferenceServer(model, max_slots=2, max_len=cfg.max_seq_len, **options)
+    srv = InferenceServer(model, max_slots=2, max_len=max_len or cfg.max_seq_len, **options)
     srv.warmup()  # captures the decode step
     pid = srv.register_prefix(prefix) if prefix is not None else None
     replays = srv.decode_graph().replays
@@ -2743,6 +2787,560 @@ def phase_remat(gen: torch.Generator) -> dict[str, int]:
     return total
 
 
+# Phase 14: QWEN3_8B and LLAMA31_8B at full width and depth, each freed
+# before the next. Random weights under the Hugging Face names and layouts
+# (Qwen3's q_norm/k_norm, [out, in] projections) are written as a sharded
+# safetensors checkpoint directory with its config.json, as save_pretrained
+# lays one out, and read back on the card by models/convert.py::load_hf_dir
+# (the repo's own reader; no transformers, no safetensors), every tensor
+# bit-equal to params_from_hf's conversion of the same weights. Each: a
+# FAMILY_PROMPT-token prefill and 4 teacher-forced decode steps through the
+# kernels against the plain route under phase 3's logits rule, then the
+# bf16 server and the int8-KV paged server on phase 9's traffic (max_len
+# 8192). LLAMA31_8B also serves one LONG_PROMPT-token prompt (twice its
+# 8,192-token original context: the llama3 remap is why users serve it)
+# with admit_chunk LONG_CHUNK, its last prompt position's logits from the
+# chunks (K2) held against prefill's (K1).
+FAMILY_PROMPT = 2000
+FAMILY_MAX_LEN = 8192
+LONG_PROMPT = 16384
+LONG_CHUNK = 512
+LONG_NEW = 32
+
+
+def hf_state_dict(cfg, gen: torch.Generator, device="cuda") -> dict[str, torch.Tensor]:
+    """Random weights of `cfg` under the Hugging Face Llama/Qwen names and
+    layouts (projections [out, in]; q_norm/k_norm with cfg.qk_norm, q/k/v
+    biases with cfg.attn_bias, lm_head unless tied), drawn from `gen` in
+    cfg.dtype as init_params draws: normal, scaled by fan-in**-0.5; norms
+    at 1, biases 0.02 x normal."""
+    h, d, f = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
+    nq, nkv = cfg.num_heads * d, cfg.num_kv_heads * d
+
+    def dense(out_f, in_f):
+        w = torch.randn((out_f, in_f), generator=gen, dtype=cfg.dtype, device=device)
+        return w.mul_(in_f**-0.5)
+
+    def ones(n):
+        return torch.ones(n, dtype=cfg.dtype, device=device)
+
+    sd = {"model.embed_tokens.weight": dense(cfg.vocab_size, h), "model.norm.weight": ones(h)}
+    if not cfg.tie_embeddings:
+        sd["lm_head.weight"] = dense(cfg.vocab_size, h)
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        sd.update({p + "input_layernorm.weight": ones(h),
+                   p + "post_attention_layernorm.weight": ones(h),
+                   p + "self_attn.q_proj.weight": dense(nq, h),
+                   p + "self_attn.k_proj.weight": dense(nkv, h),
+                   p + "self_attn.v_proj.weight": dense(nkv, h),
+                   p + "self_attn.o_proj.weight": dense(h, nq),
+                   p + "mlp.gate_proj.weight": dense(f, h),
+                   p + "mlp.up_proj.weight": dense(f, h),
+                   p + "mlp.down_proj.weight": dense(h, f)})
+        if cfg.qk_norm:
+            sd[p + "self_attn.q_norm.weight"] = ones(d)
+            sd[p + "self_attn.k_norm.weight"] = ones(d)
+        if cfg.attn_bias:
+            for name, n in (("q", nq), ("k", nkv), ("v", nkv)):
+                sd[p + f"self_attn.{name}_proj.bias"] = torch.randn(
+                    n, generator=gen, dtype=cfg.dtype, device=device).mul_(0.02)
+    return sd
+
+
+ST_DTYPES = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32"}
+SHARD_BYTES = 5 * 10**9  # save_pretrained's default max_shard_size, "5GB"
+
+
+def hf_config(cfg) -> dict:
+    """The config.json of `cfg` as transformers writes it for a Qwen3
+    (cfg.qk_norm) or Llama checkpoint."""
+    out = dict(model_type="qwen3" if cfg.qk_norm else "llama", vocab_size=cfg.vocab_size,
+               hidden_size=cfg.hidden_size, intermediate_size=cfg.intermediate_size,
+               num_hidden_layers=cfg.num_layers, num_attention_heads=cfg.num_heads,
+               num_key_value_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+               rope_theta=cfg.rope_theta, rms_norm_eps=cfg.norm_eps,
+               max_position_embeddings=cfg.max_seq_len,
+               tie_word_embeddings=cfg.tie_embeddings, attention_bias=cfg.attn_bias,
+               torch_dtype=str(cfg.dtype).removeprefix("torch."))
+    if cfg.rope_scaling is not None:
+        factor, low, high, orig = cfg.rope_scaling
+        out["rope_scaling"] = dict(rope_type="llama3", factor=factor, low_freq_factor=low,
+                                   high_freq_factor=high, original_max_position_embeddings=orig)
+    return out
+
+
+def write_hf_checkpoint(path, sd: dict[str, torch.Tensor], cfg,
+                        shard_bytes: int = SHARD_BYTES) -> int:
+    """`sd` and `cfg` as a Hugging Face checkpoint directory at `path`:
+    shards model-0000i-of-0000n.safetensors of at most shard_bytes each (an
+    8-byte little-endian header length, a JSON header padded to 8 bytes,
+    the raw bytes), model.safetensors.index.json and config.json. Tensors
+    go to the host one at a time. Returns the bytes of the weights."""
+    path = Path(path)
+    shards: list[list[str]] = [[]]
+    size = 0
+    for name, t in sd.items():
+        n = t.numel() * t.element_size()
+        if shards[-1] and size + n > shard_bytes:
+            shards.append([])
+            size = 0
+        shards[-1].append(name)
+        size += n
+    weight_map, total = {}, 0
+    for i, names in enumerate(shards):
+        fname = f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        header, offset = {}, 0
+        for name in names:
+            t = sd[name]
+            n = t.numel() * t.element_size()
+            header[name] = {"dtype": ST_DTYPES[t.dtype], "shape": list(t.shape),
+                            "data_offsets": [offset, offset + n]}
+            offset += n
+            weight_map[name] = fname
+        head = json.dumps(header).encode()
+        head += b" " * (-len(head) % 8)
+        with open(path / fname, "wb") as f:
+            f.write(struct.pack("<Q", len(head)) + head)
+            for name in names:
+                f.write(sd[name].detach().contiguous().view(torch.uint8).cpu().numpy().data)
+        total += offset
+    (path / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map}))
+    (path / "config.json").write_text(json.dumps(hf_config(cfg)))
+    return total
+
+
+def load_from_hf_dir(cfg, name: str, gen: torch.Generator, log: str):
+    """`cfg`'s model from random HF-named weights: written as a checkpoint
+    directory (write_hf_checkpoint) in a temporary directory, converted by
+    params_from_hf for the comparison, the HF copy freed, then read by
+    load_hf_dir onto the card, timed, its config and every tensor held
+    equal to the conversion's. The read is from the page cache (the files
+    were just written)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    hf = hf_state_dict(cfg, gen)
+    with tempfile.TemporaryDirectory(prefix="hf_checkpoint_") as ckpt:
+        need = sum(t.numel() * t.element_size() for t in hf.values())
+        free = shutil.disk_usage(ckpt).free
+        check(free > need * 1.05, f"{name}: {free / 1e9:.1f} GB free for a "
+              f"{need / 1e9:.1f} GB checkpoint")
+        t0 = time.perf_counter()
+        nbytes = write_hf_checkpoint(ckpt, hf, cfg)
+        write_s = time.perf_counter() - t0
+        want = convert.params_from_hf(hf, cfg)
+        del hf
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        model, loaded = convert.load_hf_dir(ckpt, cfg.dtype, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        load_peak = torch.cuda.max_memory_allocated() - base
+        shards = len(list(Path(ckpt).glob("*.safetensors")))
+    check(loaded == cfg, f"{name}: load_hf_dir read the config {loaded}")
+    got = model.state_dict()
+    check(set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want),
+          f"{name}: load_hf_dir's tensors differ from params_from_hf's")
+    del want, got
+    n = sum(p.numel() for p in model.parameters())
+    features = ", ".join(f for f, on in (("q/k RMSNorm", cfg.qk_norm),
+                                          (f"llama3 RoPE {cfg.rope_scaling}", cfg.rope_scaling),
+                                          ("q/k/v biases", cfg.attn_bias)) if on)
+    print(f"{log} {name}: {cfg.num_layers} layers, hidden {cfg.hidden_size}, GQA "
+          f"{cfg.num_heads}/{cfg.num_kv_heads}, D {cfg.head_dim}, vocab {cfg.vocab_size}, "
+          f"{features}; {n / 1e9:.3f} B random bf16 parameters under the Hugging Face names, "
+          f"written as {shards} safetensors shards ({nbytes / 1e9:.2f} GB) in {write_s:.2f} s, "
+          f"read by load_hf_dir onto the card in {load_s:.2f} s ({nbytes / 1e9 / load_s:.2f} "
+          f"GB/s, page cache), equal to params_from_hf's tensors; load peak "
+          f"{load_peak / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB held before, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held after")
+    return model
+
+
+def family_model_run(cfg, name: str, gen: torch.Generator) -> tuple[dict[str, int], dict]:
+    """Phase 14 for one preset (the comment above). Returns the launches of
+    its server runs (and of the long prompt's) and, for LLAMA31_8B, the
+    kernels line's row of K1 at the long prompt."""
+    log = f"[{name.lower()}]"
+    layers = cfg.num_layers
+    model = load_from_hf_dir(cfg, name, gen, log)
+    prompt = torch.randint(0, cfg.vocab_size, (1, FAMILY_PROMPT), generator=gen, device="cuda")
+    forced = torch.randint(0, cfg.vocab_size, (4,), generator=gen, device="cuda")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    kern = generation_run(model, prompt, forced, max_len=FAMILY_MAX_LEN)
+    run_s = time.perf_counter() - t0
+    added = {k: v for k, v in read_launches().items() if v}
+    want = {"flash_fwd": layers, "decode": 4 * layers}
+    check(added == want, f"{name} kernel run launched {added}, want {want}")
+    print(f"{log} kernel run (prefill S={FAMILY_PROMPT} and 4 decode steps) in {run_s:.3f} s, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {added}")
+    with plain_kernels():
+        plain = generation_run(model, prompt, forced, max_len=FAMILY_MAX_LEN)
+    check({k: v for k, v in read_launches().items() if v} == want,
+          f"{name} plain run launched a kernel")
+    compare_logits("bf16", kern, plain,
+                   [f"prefill S={FAMILY_PROMPT}"] + [f"decode {i}" for i in range(1, 5)],
+                   model=name)
+    del kern, plain
+
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen, device="cuda").tolist()
+               for n in MISTRAL_SERVED]
+    bf16 = long_prompt_server(model, f"bf16 server, 2 slots, max_len {FAMILY_MAX_LEN}", prompts,
+                              None, log=log, max_len=FAMILY_MAX_LEN)
+    prefix = prompts[0][:MISTRAL_PREFIX]
+    served = [p if uid % 2 == 0 else prefix + p[MISTRAL_PREFIX:]
+              for uid, p in enumerate(prompts)]
+    paged_run = long_prompt_server(
+        model, f"int8-KV paged server (pages of {PAGE}, admit_chunk 256, a "
+        f"{MISTRAL_PREFIX}-token prefix before requests 0, 1 and 3)", served, prefix,
+        log=log, max_len=FAMILY_MAX_LEN, quant="int8", paged=True, page_size=PAGE,
+        admit_chunk=256)
+    check(bf16["flash_fwd"] > 0 and bf16["decode"] > 0 and paged_run["paged_decode"] > 0,
+          f"a kernel missed the {name} servers: bf16 {bf16}, paged {paged_run}")
+    total = {k: bf16[k] + paged_run[k] for k in ("flash_fwd", "decode", "paged_decode")}
+    row = None
+    if cfg.rope_scaling is not None:
+        long_launches, row = long_prompt_admission(model, name, gen, log)
+        for k, n in long_launches.items():
+            total[k] = total.get(k, 0) + n
+    print(f"{log} launches of the server runs: {total}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total, row
+
+
+def long_prompt_admission(model, name: str, gen: torch.Generator, log: str
+                          ) -> tuple[dict[str, int], dict]:
+    """LLAMA31_8B on one LONG_PROMPT-token prompt: prefill (K1) and the same
+    prompt in LONG_CHUNK-token chunks through chunk_step (K2 at T
+    LONG_CHUNK, what chunked admission runs), their last-position logits
+    under phase 3's rule; then the server (1 slot, admit_chunk LONG_CHUNK,
+    LONG_NEW new tokens, logprobs), its first token's log-probability
+    against the chunks' logits. Returns the launches of the three runs and
+    the kernels line's row of K1 at this prompt (k1_long_prompt), its
+    launches those the counter took in the prefill."""
+    cfg = model.cfg
+    layers = cfg.num_layers
+    max_len = LONG_PROMPT + LONG_CHUNK
+    prompt = torch.randint(0, cfg.vocab_size, (1, LONG_PROMPT), generator=gen, device="cuda")
+    total: dict[str, int] = {}
+
+    def timed(fn):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in read_launches().items() if v}
+        add_launches(total, got)
+        return out, (time.perf_counter() - t0) * 1e3, got
+
+    ref, prefill_ms, k1_launches = timed(lambda: generate.prefill(
+        model, prompt, generate.init_caches(model, 1, max_len))[0])
+    check(k1_launches == {"flash_fwd": layers}, f"{name} long prefill launched {k1_launches}")
+    (got, caches), chunk_ms, k2_launches = timed(lambda: generate.chunked_prefill(
+        model, prompt, generate.init_caches(model, 1, max_len), chunk=LONG_CHUNK))
+    n_chunks = LONG_PROMPT // LONG_CHUNK
+    check(k2_launches == {"decode": layers * n_chunks},
+          f"{name} chunked prefill launched {k2_launches}")
+    kv_gib = sum(c.k.nbytes + c.v.nbytes for c in caches) / 2**30
+    del caches
+    print(f"{log} {LONG_PROMPT}-token prompt ({LONG_PROMPT // 8192}x the llama3 original "
+          f"context {cfg.rope_scaling[3]}): prefill (K1) {prefill_ms:.1f} ms, the same prompt "
+          f"in {n_chunks} chunks of {LONG_CHUNK} through chunk_step (K2 at T={LONG_CHUNK}) "
+          f"{chunk_ms:.1f} ms (host clock, synchronised; first calls at these shapes); KV "
+          f"cache {kv_gib:.2f} GiB (max_len {max_len})")
+    compare_logits(f"{LONG_PROMPT}-token prompt, chunks (K2) vs prefill (K1)", [got], [ref],
+                   ["last prompt position"], model=name)
+    srv = InferenceServer(model, max_slots=1, max_len=max_len, admit_chunk=LONG_CHUNK,
+                          return_logprobs=True)
+    srv.warmup()
+    srv.submit(Request(uid=0, prompt=prompt[0].tolist(), max_new_tokens=LONG_NEW))
+    torch.cuda.reset_peak_memory_stats()
+    out, wall_ms, srv_launches = timed(srv.run)
+    st = srv.stats()
+    toks, lps = out[0], srv.finished_logprobs[0]
+    check(len(toks) == LONG_NEW and all(0 <= x < cfg.vocab_size for x in toks),
+          f"{name} long request: {len(toks)} tokens")
+    want_lp = float(torch.log_softmax(got[0].float(), -1)[toks[0]])
+    lim = 2 * LOGIT_REL * float(got.abs().max())
+    print(f"{log} server, 1 slot, admit_chunk {LONG_CHUNK}: {LONG_PROMPT}-token prompt and "
+          f"{LONG_NEW} new tokens in {wall_ms / 1e3:.3f} s; admission {st['prefill_ms_avg']} ms "
+          f"(chunks summed, host clock), decode {st['decode_ms_avg']} ms/step "
+          f"({LONG_NEW - 1} steps), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"first token {toks[0]}, log-probability {lps[0]:.4f} against the chunked prefill's "
+          f"{want_lp:.4f} (|d| <= {lim:.4f}); launches {srv_launches}")
+    check(abs(lps[0] - want_lp) <= lim, f"{name} long request's first log-probability")
+    check(srv_launches.get("decode", 0) >= layers * n_chunks, f"{name} server {srv_launches}")
+    del srv, got, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = k1_long_prompt(cfg, gen, log)
+    row["launches"] = k1_launches["flash_fwd"]  # the long prompt's prefill, counted
+    return total, row
+
+
+def k1_long_prompt(cfg, gen: torch.Generator, log: str) -> dict:
+    """K1 at the long prompt's attention (B 1, Hq 32, Hkv 8, S 16384,
+    D 128, causal, no LSE: as prefill calls it) against its plain version
+    computed in 1024-row slices of q (each slice's rows at their global
+    positions, pos_offset), the whole output compared; kernel, plain (the
+    slices' sum), bound and SDPA's causal forward timed. The kernels line's
+    row."""
+    b, hq, hkv, s, d = 1, cfg.num_heads, cfg.num_kv_heads, LONG_PROMPT, cfg.head_dim
+    q, k, v = (randn((b, n, s, d), gen) for n in (hq, hkv, hkv))
+    o, _ = flash_fwd.flash_attention_forward(q, k, v, True, need_lse=False)
+    rows = 1024
+
+    def plain():
+        return torch.cat([flash_fwd.flash_attention_forward_reference(
+            q[:, :, r:r + rows], k, v, True, need_lse=False, pos_offset=r)[0]
+            for r in range(0, s, rows)], dim=2)
+
+    tag = f"K1 {cfg.num_layers}-layer model's {s}-token prompt B={b} Hq={hq} Hkv={hkv} D={d}"
+    err = _gate(tag + " O (plain in 1024-row slices)", plain(), o, O_ATOL)
+    del o
+    ms = cuda_time_ms(lambda: flash_fwd.flash_attention_forward(q, k, v, True, need_lse=False),
+                      warmup=1, iters=3, reps=3)
+    plain_ms = event_time_ms(plain, warmup=1, iters=1)
+    lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                              enable_gqa=True),
+                       warmup=1, iters=3, reps=3)
+    report = roofline.attention_fwd_roofline(b, hq, hkv, s, s, d, True, need_lse=False)
+    lim = bound(report)
+    print(f"{log} {tag} causal without LSE: kernel {ms:.4f} ms "
+          f"({report.flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s), bound {lim['bound_ms']:.5f} ms "
+          f"by {lim['bound_by']}, plain (1024-row slices) {plain_ms:.3f} ms, SDPA causal "
+          f"forward {lib:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib, **lim)
+
+
+def phase_families(gen: torch.Generator) -> tuple[dict[str, int], dict]:
+    """Phase 14: QWEN3_8B, then LLAMA31_8B (family_model_run). Returns the
+    launches of both and the kernels line's row of K1 at LLAMA31_8B's long
+    prompt."""
+    total: dict[str, int] = {}
+    qwen, _ = family_model_run(QWEN3_8B, "QWEN3_8B", gen)
+    add_launches(total, qwen)
+    llama31, row = family_model_run(LLAMA31_8B, "LLAMA31_8B", gen)
+    add_launches(total, llama31)
+    return total, row
+
+
+# Phase 15: speculative decoding (models/speculate.py), target LLAMA_1B,
+# drafts LLAMA_1B itself (it accepts everything: the full-accept rollback
+# and re-ingest) and LLAMA_150M (the JAX package's pairing,
+# benchmarks/speculate_bench.py); k SPEC_K, a SPEC_PROMPT-token prompt,
+# SPEC_NEW new tokens, greedy, dense and paged (pages of SPEC_PAGE): the
+# target verifies each round in one chunk_step, K2 at T = SPEC_K + 1. In
+# float32 the verification's logits and the decode step's differ by
+# rounding only far below the gaps between logits, so the tokens must equal
+# generate's and the self-draft accept every draft. In bf16 (the preset)
+# the two paths round differently (cuBLAS at M 1 against M 5, K2's splits
+# at T 1 against T 5): where the tokens leave generate's, generate's own
+# logits, teacher-forced on the speculative tokens, must give every
+# speculative token, there and at every later position, or hold it within
+# TIE_ULPS bf16 steps of their largest logit: a tie at bf16's rounding.
+TIE_ULPS = 4
+SPEC_K = 4
+SPEC_PROMPT = 128
+SPEC_NEW = 64
+SPEC_PAGE = 128
+
+
+@contextlib.contextmanager
+def step_census():
+    """Counts the generate.decode_step and generate.chunk_step calls made
+    while active, by (the model's layer count, T): the K2 launches they make
+    are one a layer a call."""
+    calls: dict[tuple[int, int], int] = {}
+    saved = generate.decode_step, generate.chunk_step
+
+    def decode_step(model, token, *args, **kw):
+        calls[model.cfg.num_layers, 1] = calls.get((model.cfg.num_layers, 1), 0) + 1
+        return saved[0](model, token, *args, **kw)
+
+    def chunk_step(model, piece, *args, **kw):
+        key = (model.cfg.num_layers, piece.shape[1])
+        calls[key] = calls.get(key, 0) + 1
+        return saved[1](model, piece, *args, **kw)
+
+    generate.decode_step, generate.chunk_step = decode_step, chunk_step
+    try:
+        yield calls
+    finally:
+        generate.decode_step, generate.chunk_step = saved
+
+
+def bf16_ties(model, prompt: torch.Tensor, got: torch.Tensor) -> str:
+    """generate's prefill and decode steps teacher-forced on the speculative
+    tokens got [1, n]: at each position the speculative token must be
+    generate's argmax or lie within TIE_ULPS bf16 steps (of the largest
+    logit) below it. Returns the finding."""
+    n = got.shape[1]
+    caches = generate.init_caches(model, 1, round_up(prompt.shape[1] + SPEC_NEW, 128))
+    logits, caches = generate.prefill(model, prompt, caches)
+    ties = []
+    for i in range(n):
+        row = logits[0].float()
+        a, b = int(row.argmax()), int(got[0, i])
+        if a != b:
+            top = float(row[a])
+            ulps = (top - float(row[b])) / 2.0 ** (math.floor(math.log2(abs(top))) - 7)
+            check(ulps <= TIE_ULPS,
+                  f"[speculate] bf16 token {b} at {i} against generate's {a} after the same "
+                  f"tokens: logits {top:.4f} and {float(row[b]):.4f}, {ulps:.1f} bf16 steps "
+                  f"apart (> {TIE_ULPS})")
+            ties.append(f"{i}: {ulps:.0f}")
+        if i + 1 < n:
+            pos = torch.tensor([prompt.shape[1] + i], dtype=torch.int32, device="cuda")
+            logits, caches = generate.decode_step(model, got[:, i].int(), pos, caches)
+    return (f"generate teacher-forced on these tokens gives each but {len(ties)}, each a tie "
+            f"within {TIE_ULPS} bf16 steps (position: steps {', '.join(ties)})")
+
+
+def phase_speculate(gen: torch.Generator) -> tuple[dict[str, int], dict]:
+    """Phase 15 (the comment above), in float32 and then in bf16: each
+    draft, dense and paged, its tokens against generate.generate's, its
+    acceptance and tokens/s against generate's, its K1 and K2 launches those
+    its model calls make (step_census); then a sampled bf16 run twice from
+    one generator seed gives one output. Returns the launches of the runs
+    and the kernels line's row of K2 at T = SPEC_K + 1 (verify_k2). That
+    row's launches are those of the dense bf16 runs at T = SPEC_K + 1: the
+    counter counts K2's launches at every T under "decode", and the census
+    of calls by (layers, T), held equal to that count run by run, splits
+    them by T."""
+    total: dict[str, int] = {}
+    at_t = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(LLAMA_1B, dtype=dtype)
+        name = f"LLAMA_1B {str(dtype).split('.')[-1]}"
+        target = init_params(cfg, gen, device="cuda")
+        drafts = {f"{name} (self-draft)": target,
+                  f"LLAMA_150M {str(dtype).split('.')[-1]}": init_params(
+                      dataclasses.replace(LLAMA_150M, dtype=dtype), gen, device="cuda")}
+        prompt = torch.randint(0, cfg.vocab_size, (1, SPEC_PROMPT), generator=gen,
+                               device="cuda")
+        generate.generate(target, prompt, max_new_tokens=8)  # warm the path
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = generate.generate(target, prompt, max_new_tokens=SPEC_NEW)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        print(f"[speculate] target {name} generate.generate: {SPEC_NEW} tokens after a "
+              f"{SPEC_PROMPT}-token prompt in {gen_s:.3f} s ({SPEC_NEW / gen_s:.1f} tokens/s, "
+              f"eager decode steps, host clock)")
+        for dname, draft in drafts.items():
+            for paged_kv in (False, True):
+                speculative_generate(target, draft, prompt, max_new_tokens=8, k=SPEC_K,
+                                     paged=paged_kv, page_size=SPEC_PAGE)  # warm the path
+                torch.cuda.synchronize()
+                reset_launches()
+                t0 = time.perf_counter()
+                with step_census() as calls:
+                    got, rate = speculative_generate(target, draft, prompt,
+                                                     max_new_tokens=SPEC_NEW, k=SPEC_K,
+                                                     paged=paged_kv, page_size=SPEC_PAGE)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = {k: v for k, v in read_launches().items() if v}
+                add_launches(total, launches)
+                how = f"paged (pages of {SPEC_PAGE})" if paged_kv else "dense"
+                kv = "paged_decode" if paged_kv else "decode"
+                k2 = sum(layers * n for (layers, _), n in calls.items())
+                check(launches == {"flash_fwd": cfg.num_layers + draft.cfg.num_layers, kv: k2},
+                      f"[speculate] {dname} {how} launched {launches}, its calls {calls} make "
+                      f"{k2} K2 launches")
+                first = next((i for i, (a, b) in enumerate(zip(got[0].tolist(),
+                                                               want[0].tolist())) if a != b),
+                             None)
+                if first is None:
+                    finding = "tokens equal generate's"
+                else:
+                    check(dtype == torch.bfloat16, f"[speculate] {dname} {how}: tokens leave "
+                          f"generate's at {first}")
+                    finding = (f"tokens leave generate's at {first}; "
+                               + bf16_ties(target, prompt, got))
+                if draft is target and dtype == torch.float32:
+                    check(rate == 1.0, f"[speculate] {dname} {how}: acceptance {rate}")
+                if dtype == torch.bfloat16 and not paged_kv:
+                    at_t += sum(layers * n for (layers, t), n in calls.items() if t == SPEC_K + 1)
+                quality = ("; random weights: the rate says nothing of a trained pair"
+                           if draft is not target else "")
+                print(f"[speculate] draft {dname}, {how}, k {SPEC_K}: acceptance {rate:.4f}"
+                      f"{quality}; {SPEC_NEW} tokens in {wall:.3f} s ({SPEC_NEW / wall:.1f} "
+                      f"tokens/s against generate's {SPEC_NEW / gen_s:.1f}); {finding}; calls "
+                      f"(layers, T): {dict(sorted(calls.items()))}; launches {launches}")
+        if dtype == torch.bfloat16:
+            sp = SamplingParams(temperature=0.8, top_k=50)
+            runs = [speculative_generate(target, drafts["LLAMA_150M bfloat16"], prompt,
+                                         max_new_tokens=SPEC_NEW, k=SPEC_K, sampling=sp,
+                                         generator=torch.Generator(device="cuda").manual_seed(SEED))
+                    for _ in range(2)]
+            check(torch.equal(runs[0][0], runs[1][0]) and runs[0][1] == runs[1][1],
+                  "[speculate] two sampled runs from one seed differ")
+            check(all(0 <= x < cfg.vocab_size for x in runs[0][0][0].tolist()),
+                  "[speculate] sampled tokens out of range")
+            print(f"[speculate] sampled ({sp}), {name}, draft LLAMA_150M, generator seed "
+                  f"{SEED}: two runs give the same {SPEC_NEW} tokens, acceptance "
+                  f"{runs[0][1]:.4f}")
+        del drafts, target
+        gc.collect()
+        torch.cuda.empty_cache()
+    row = verify_k2(gen)
+    row["launches"] = at_t
+    print(f"[speculate] K2 launches at T={SPEC_K + 1} in the dense bf16 runs (verifications "
+          f"and full re-ingests): {at_t}")
+    return total, row
+
+
+def verify_k2(gen: torch.Generator) -> dict:
+    """K2 bf16 at T = SPEC_K + 1 as the target verifies (LLAMA_1B: B 1, Hq 32,
+    Hkv 4, D 64; the speculation's cache of max_len 256 holding 165 tokens,
+    the 5 new ones included) against its plain version, then timed beside
+    its bound and SDPA with a bottom-right causal mask. The kernels line's
+    row."""
+    cfg = LLAMA_1B
+    t, s_max, n = SPEC_K + 1, 256, SPEC_PROMPT + 32 + SPEC_K + 1
+    b, hq, hkv, d = 1, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    cache = KVCache(k=randn((b, hkv, s_max, d), gen), v=randn((b, hkv, s_max, d), gen),
+                    length=torch.tensor([n], dtype=torch.int32, device="cuda"))
+    q = randn((b, hq, t, d), gen)
+    o = decode.decode_attention_chunk(q, cache)
+    tag = f"K2 bf16 T={t} B={b} Hq={hq} Hkv={hkv} D={d} Smax={s_max} length {n}"
+    err = _gate(tag, decode.decode_attention_reference(q, cache), o, O_ATOL)
+    ms = cuda_time_ms(lambda: decode.decode_attention_chunk(q, cache))
+    plain = cuda_time_ms(lambda: decode.decode_attention_reference(q, cache))
+    pos = torch.arange(s_max, device="cuda")
+    row_pos = n - t + torch.arange(t, device="cuda")
+    mask = (pos[None] <= row_pos[:, None])[None, None]  # [1, 1, T, Smax]
+    lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, cache.k, cache.v,
+                                                              attn_mask=mask, enable_gqa=True))
+    lim = bound(roofline.decode_roofline(b, hq, hkv, d, [n], t=t))
+    print(f"[speculate] {tag} (the verification): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"bound {lim['bound_ms']:.5f} ms by {lim['bound_by']}, SDPA with a bottom-right causal "
+          f"mask {lib:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, **lim)
+
+
+class PhaseClock:
+    """Prints each phase's seconds as it ends."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def done(self, phase: str) -> None:
+        now = time.perf_counter()
+        print(f"[time] phase {phase}: {now - self.t:.1f} s")
+        self.t = now
+
+
 def main() -> None:
     # autotune's cache in a directory of this run: no winner measured
     # elsewhere steers impl="auto", and phase 13 writes none outside.
@@ -2753,9 +3351,12 @@ def main() -> None:
 
 def run() -> None:
     t_start = time.perf_counter()
+    clock = PhaseClock()
     device_name = phase_environment()
+    clock.done("1 environment and build")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     timed = phase_kernels(gen)
+    clock.done("2 kernels against their plain versions")
     t0 = time.perf_counter()
     model = init_params(LLAMA_1B, gen, device="cuda")
     torch.cuda.synchronize()
@@ -2771,19 +3372,29 @@ def run() -> None:
     del w8
     launches.update({k: quant_server[k] for k in ("decode_int8", "paged_decode", "qmm8")})
     launches.update({k: quant_model[k] for k in ("decode_fp8", "qmm4")})
+    clock.done("3-6 LLAMA_1B serving")
     launches["flash_bwd_fused"] = phase_train_step(model, gen)["flash_bwd_fused"]
     split = phase_trainer(model, gen)
     launches.update(flash_bwd_dq=split["flash_bwd_dq"], flash_bwd_dkv=split["flash_bwd_dkv"])
     del model
     torch.cuda.empty_cache()
+    clock.done("7-8 LLAMA_1B training")
     launches.update(phase_mistral(gen))
-    for counter, n in phase_packed(gen).items():
-        launches[counter] = launches.get(counter, 0) + n
+    clock.done("9 MISTRAL_7B serving")
+    add_launches(launches, phase_packed(gen))
+    clock.done("10 packed MISTRAL_7B training")
     launches.update(phase_gemma(gen))
-    for counter, n in phase_gemma_packed(gen).items():
-        launches[counter] = launches.get(counter, 0) + n
-    for counter, n in phase_remat(gen).items():
-        launches[counter] = launches.get(counter, 0) + n
+    clock.done("11 GEMMA2_9B serving")
+    add_launches(launches, phase_gemma_packed(gen))
+    clock.done("12 packed GEMMA2_9B training")
+    add_launches(launches, phase_remat(gen))
+    clock.done("13 remat and autotune")
+    families, k1_long = phase_families(gen)
+    add_launches(launches, families)
+    clock.done("14 QWEN3_8B and LLAMA31_8B from Hugging Face names")
+    spec, k2_verify = phase_speculate(gen)
+    add_launches(launches, spec)
+    clock.done("15 speculative decoding")
     decode_src = ("flashattn_tpu_torch/csrc/decode.cu", "flashattn_tpu/ops/decode.py:351")
     qmm_src = "flashattn_tpu_torch/csrc/quant_matmul.cu"
     sources = {
@@ -2820,6 +3431,14 @@ def run() -> None:
          "launches": launches[k], **timed[k]}
         for k, (src, rep) in sources.items()
     ]
+    # K1 at LLAMA31_8B's 16,384-token prompt and K2 at the speculative
+    # verifier's T: rows of their own, their launches counted in phases 14
+    # and 15.
+    kernels.append({"name": "flash_fwd_long_prompt", "route": "cuda",
+                    "source": sources["flash_fwd"][0], "replaces": sources["flash_fwd"][1],
+                    **k1_long})
+    kernels.append({"name": f"decode_t{SPEC_K + 1}", "route": "cuda", "source": decode_src[0],
+                    "replaces": decode_src[1], **k2_verify})
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was never launched on its path: {[k['name'] for k in kernels if not k['launches']]}")
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

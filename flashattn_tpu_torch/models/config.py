@@ -4,8 +4,9 @@
 between the packages unchanged; ``dtype`` is a torch dtype. The port runs
 the dense Llama path with sliding windows (per layer with
 ``window_pattern="alternate"``), attention sinks, the attention logit
-soft-cap and Gemma-2's post-norms; ``check_supported`` rejects the fields
-whose port is still queued.
+soft-cap, Gemma-2's post-norms, Qwen3's q/k RMSNorm, Qwen2's q/k/v biases
+and the llama3 and longrope RoPE variants; ``check_supported`` rejects the
+fields whose port is still queued (ALiBi, the mixture-of-experts FFN).
 """
 
 from __future__ import annotations
@@ -64,16 +65,8 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError(f"unknown window_pattern {cfg.window_pattern!r}")
     if cfg.use_alibi:
         raise unported("ALiBi", "A4 and A5")
-    if cfg.qk_norm:
-        raise unported("q/k RMSNorm", "A8")
-    if cfg.attn_bias:
-        raise unported("attention biases", "A8")
     if cfg.num_experts:
         raise unported("mixture-of-experts FFN", "A9")
-    if cfg.rope_scaling is not None:
-        raise unported("rope_scaling", "A8")
-    if cfg.rope_longrope is not None:
-        raise unported("rope_longrope", "A8")
     if cfg.mlp_activation not in ("silu", "gelu_tanh"):
         raise ValueError(f"unknown mlp_activation {cfg.mlp_activation!r}")
 
@@ -105,6 +98,26 @@ MISTRAL_7B = ModelConfig(
     attn_window=4096,
 )
 
+# Llama-3-8B geometry (the JAX package's BASELINE config 5, "8B decode").
+LLAMA_8B = ModelConfig(
+    vocab_size=128256,
+    hidden_size=4096,
+    intermediate_size=14336,
+    num_layers=32,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    rope_theta=500000.0,
+    max_seq_len=8192,
+)
+
+# Llama-3.1-8B: the same geometry; the llama3 RoPE remap unlocks 128k context.
+LLAMA31_8B = dataclasses.replace(
+    LLAMA_8B,
+    rope_scaling=(8.0, 1.0, 4.0, 8192),
+    max_seq_len=131072,
+)
+
 # Gemma-2-9B geometry: alternating 4096-token local / global attention,
 # sandwich norms, GeGLU, attn+final soft-caps, scaled tied embeddings
 # (flashattn_tpu/models/config.py GEMMA2_9B, field for field).
@@ -129,6 +142,21 @@ GEMMA2_9B = ModelConfig(
     scale_embeddings=True,
     attn_scale=256**-0.5,  # query_pre_attn_scalar = head_dim
     norm_offset=1.0,
+)
+
+# Qwen3-8B geometry: per-head q/k RMSNorm, explicit head_dim.
+QWEN3_8B = ModelConfig(
+    vocab_size=151936,
+    hidden_size=4096,
+    intermediate_size=12288,
+    num_layers=36,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    rope_theta=1000000.0,
+    norm_eps=1e-6,
+    max_seq_len=32768,
+    qk_norm=True,
 )
 
 # Tiny config for tests.

@@ -13,7 +13,10 @@ window (llama.layer_window), and in decode and chunks through the sinks of
 a windowed layer (cfg.attn_sink); the prefill passes no sink, as the JAX
 prefill does. Every attention call takes cfg.logit_softcap, and with
 cfg.use_post_norms each block's output goes through its post-norm
-(llama.residuals) before the residual add, as in the JAX functions.
+(llama.residuals) before the residual add, as in the JAX functions. Each
+takes q, k and v from llama.attention_inputs (biases, q/k norm, RoPE),
+and its RoPE tables from llama.rope_tables, which picks longrope's factor
+set on the device, so a captured step picks it anew at each replay.
 """
 
 from __future__ import annotations
@@ -73,9 +76,7 @@ def prefill(
     cos, sin = llama.rope_tables(cfg, torch.arange(s, device=tokens.device))
     for i, (layer, cache) in enumerate(zip(model.layers, caches)):
         xn = llama.rms_norm(x, layer.attn_norm, cfg.norm_eps, cfg.norm_offset)
-        q, k, v = llama.qkv(layer, xn, cfg)
-        q = llama.apply_rope(q, cos, sin)
-        k = llama.apply_rope(k, cos, sin)
+        q, k, v = llama.attention_inputs(layer, xn, cos, sin, cfg)
         # A fresh cache and an admission-bounded prompt: no drop guard.
         _append(cache, k, v, assume_fits=True)
         o = flash_attention(q, k, v, is_causal=True, scale=cfg.attn_scale,
@@ -105,9 +106,7 @@ def decode_step(
     cos, sin = llama.rope_tables(cfg, positions)  # [B, D/2]
     for i, (layer, cache) in enumerate(zip(model.layers, caches)):
         xn = llama.rms_norm(x, layer.attn_norm, cfg.norm_eps, cfg.norm_offset)
-        q, k, v = llama.qkv(layer, xn[:, None], cfg)
-        q = llama.apply_rope(q, cos[:, None], sin[:, None])
-        k = llama.apply_rope(k, cos[:, None], sin[:, None])
+        q, k, v = llama.attention_inputs(layer, xn[:, None], cos[:, None], sin[:, None], cfg)
         _append(cache, k, v, active=active)
         attn = (paged_decode_attention if isinstance(cache, PagedKVCache)
                 else decode_attention)
@@ -198,9 +197,7 @@ def chunk_step(
     cos, sin = llama.rope_tables(cfg, positions)
     for i, (layer, cache) in enumerate(zip(model.layers, caches)):
         xn = llama.rms_norm(x, layer.attn_norm, cfg.norm_eps, cfg.norm_offset)
-        q, k, v = llama.qkv(layer, xn, cfg)
-        q = llama.apply_rope(q, cos, sin)
-        k = llama.apply_rope(k, cos, sin)
+        q, k, v = llama.attention_inputs(layer, xn, cos, sin, cfg)
         _append(cache, k, v, active=active)
         attn = (paged_decode_attention_chunk if isinstance(cache, PagedKVCache)
                 else decode_attention_chunk)

@@ -12,13 +12,19 @@ Training takes the JAX package's rematerialisation (``remat`` of
 what the policy did not keep. The policies save operator outputs, so the
 pieces they name are operators: the attention forward
 (ops/attention.py's ``flash_fwd``) and ``attention_operands`` below, the
-q/k/v projections with RoPE, which lays q, k and v out as the kernel takes
-them.
+q/k/v projections with their biases, the q/k norm and RoPE, which lays q,
+k and v out as the kernel takes them.
+
+The model-family fields of the JAX config are ported: Qwen2's q/k/v
+biases (``attn_bias``), Qwen3's q/k RMSNorm (``qk_norm``), Llama-3.1's
+llama3 RoPE (``rope_scaling``) and Phi-3's longrope (``rope_longrope``);
+every site that feeds attention takes q, k and v from ``attention_inputs``.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -58,9 +64,16 @@ class LlamaLayer(nn.Module):
         self.w_gate = param(h, f)
         self.w_up = param(h, f)
         self.w_down = param(f, h)
+        if cfg.attn_bias:  # Qwen2's additive q/k/v biases
+            self.bq = param(nq * hd)
+            self.bk = param(nkv * hd)
+            self.bv = param(nkv * hd)
         if cfg.use_post_norms:  # Gemma-2's sandwich norms on each block's output
             self.post_attn_norm = param(h)
             self.post_mlp_norm = param(h)
+        if cfg.qk_norm:  # Qwen3's per-head RMSNorm of q and k over head_dim
+            self.q_norm = param(hd)
+            self.k_norm = param(hd)
 
 
 class Llama(nn.Module):
@@ -115,6 +128,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         if cfg.use_post_norms:
             layer.post_attn_norm.fill_(1.0 - cfg.norm_offset)
             layer.post_mlp_norm.fill_(1.0 - cfg.norm_offset)
+        if cfg.qk_norm:
+            layer.q_norm.fill_(1.0 - cfg.norm_offset)
+            layer.k_norm.fill_(1.0 - cfg.norm_offset)
+        if cfg.attn_bias:
+            for b in (layer.bq, layer.bk, layer.bv):
+                b.zero_()
         dense(layer.wq, h)
         dense(layer.wk, h)
         dense(layer.wv, h)
@@ -192,15 +211,44 @@ def lm_logits(x: torch.Tensor, model: Llama) -> torch.Tensor:
 
 
 def rope_tables(cfg: ModelConfig, positions: torch.Tensor):
-    """positions [..., S] -> (cos, sin) [..., S, head_dim/2] float32."""
+    """positions [..., S] -> (cos, sin) [..., S, head_dim/2] float32.
+
+    With cfg.rope_longrope (Phi-3) the frequencies divide by the long
+    factor set once the call's largest position passes the original
+    context (the JAX rule: a maximum over the whole call, batch included),
+    else by the short set, and cos and sin scale by the attention factor.
+    The choice is made on the device (torch.where over both sets), so a
+    captured decode step makes it anew at each replay. With
+    cfg.rope_scaling (Llama-3.1) the long wavelengths stretch by the
+    factor, the short ones stay and the band between interpolates. Nothing
+    here copies from the host: a CUDA graph can capture it."""
     half = cfg.head_dim // 2
-    exponent = -torch.arange(half, dtype=torch.float32,
-                             device=positions.device) / half
-    # A fill, not a copy from the host: a CUDA graph can capture it.
-    theta = torch.full((), cfg.rope_theta, dtype=torch.float32, device=positions.device)
+    device = positions.device
+    exponent = -torch.arange(half, dtype=torch.float32, device=device) / half
+    theta = torch.full((), cfg.rope_theta, dtype=torch.float32, device=device)
     freqs = torch.pow(theta, exponent)
+    if cfg.rope_longrope is not None:
+        short_f, long_f, orig_max, attn_factor = cfg.rope_longrope
+        short = freqs / _factor_table(tuple(short_f), device)
+        long = freqs / _factor_table(tuple(long_f), device)
+        freqs = torch.where(positions.max() + 1 > orig_max, long, short)
+        angles = positions[..., None].float() * freqs
+        return torch.cos(angles) * attn_factor, torch.sin(angles) * attn_factor
+    if cfg.rope_scaling is not None:
+        factor, low_f, high_f, orig_max = cfg.rope_scaling
+        wavelen = 2.0 * math.pi / freqs
+        smooth = ((orig_max / wavelen - low_f) / (high_f - low_f)).clamp(0.0, 1.0)
+        freqs = (1.0 - smooth) * freqs / factor + smooth * freqs
     angles = positions[..., None].float() * freqs
     return torch.cos(angles), torch.sin(angles)
+
+
+@functools.lru_cache(maxsize=None)
+def _factor_table(factors: tuple[float, ...], device: torch.device) -> torch.Tensor:
+    """A longrope factor set as a float32 tensor on `device`, made once (at
+    the first, eager call: a capture then reads it without a host copy)."""
+    with torch.inference_mode(False):  # an ordinary tensor, whatever the caller's mode
+        return torch.tensor(factors, dtype=torch.float32, device=device)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -237,19 +285,51 @@ def residuals(layer: LlamaLayer, x: torch.Tensor, a: torch.Tensor,
     return x + post("post_mlp_norm", _mlp_block(layer, x, cfg))
 
 
-def qkv(layer: LlamaLayer, xn: torch.Tensor, cfg: ModelConfig):
-    """Projections of xn [B, S, H] -> q [B, Hq, S, D], k/v [B, Hkv, S, D]
-    (before RoPE); v is made contiguous for the kernels."""
-    return _qkv(xn, layer.wq, layer.wk, layer.wv, cfg.num_heads, cfg.num_kv_heads,
-                cfg.head_dim)
+def _optional(layer: LlamaLayer, *names: str) -> tuple:
+    """The layer's parameters of these names, None where a config has none."""
+    return tuple(getattr(layer, name, None) for name in names)
 
 
-def _qkv(xn, wq, wk, wv, num_heads: int, num_kv_heads: int, head_dim: int):
+def _heads(xn, w, bias, heads: int, head_dim: int) -> torch.Tensor:
+    """One projection (plus its bias) of xn [B, S, H] as [B, heads, S, D]."""
     b, s = xn.shape[:2]
-    q = proj(xn, wq).view(b, s, num_heads, head_dim)
-    k = proj(xn, wk).view(b, s, num_kv_heads, head_dim)
-    v = proj(xn, wv).view(b, s, num_kv_heads, head_dim)
-    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2).contiguous()
+    y = proj(xn, w)
+    if bias is not None:
+        y = y + bias
+    return y.view(b, s, heads, head_dim).transpose(1, 2)
+
+
+def _operands(xn, wq, wk, wv, cos, sin, num_heads: int, num_kv_heads: int, bq=None, bk=None,
+              bv=None, q_norm=None, k_norm=None, norm_eps: float = 0.0,
+              norm_offset: float = 0.0, head_dim: int | None = None):
+    """attention_inputs' arithmetic, in the JAX package's order: the
+    projections and their biases, the q/k RMSNorm, RoPE on q and k."""
+    head_dim = head_dim or wq.shape[1] // num_heads
+    q = _heads(xn, wq, bq, num_heads, head_dim)
+    k = _heads(xn, wk, bk, num_kv_heads, head_dim)
+    v = _heads(xn, wv, bv, num_kv_heads, head_dim).contiguous()  # as the kernels take it
+    if q_norm is not None:
+        q = rms_norm(q, q_norm, norm_eps, norm_offset)
+        k = rms_norm(k, k_norm, norm_eps, norm_offset)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def attention_inputs(layer: LlamaLayer, xn: torch.Tensor, cos: torch.Tensor,
+                     sin: torch.Tensor, cfg: ModelConfig):
+    """The attention kernel's q [B, Hq, S, D] and k, v [B, Hkv, S, D] from
+    the normed input xn [B, S, H]: the projections, the q/k/v biases
+    (cfg.attn_bias), the q/k RMSNorm (cfg.qk_norm) and RoPE on q and k, in
+    the JAX package's order. Every site that feeds attention (the layer's
+    forward, prefill, decode_step, chunk_step) takes its operands from
+    here. Plain weights go through the attention_operands operator, whose
+    outputs remat="attn" keeps and whose backward is registered;
+    quantized weights (no gradient) run the same function directly."""
+    args = (xn, layer.wq, layer.wk, layer.wv, cos, sin, cfg.num_heads, cfg.num_kv_heads,
+            *_optional(layer, "bq", "bk", "bv", "q_norm", "k_norm"), cfg.norm_eps,
+            cfg.norm_offset)
+    if isinstance(layer.wq, QuantizedLinear):
+        return _operands(*args, head_dim=cfg.head_dim)
+    return attention_operands(*args)
 
 
 def rope_backward(g: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -266,21 +346,38 @@ def rope_backward(g: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torc
                       (g2 * cos_b - g1 * sin_b).to(g.dtype)], dim=-1)
 
 
+def rms_norm_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, eps: float,
+                      offset: float, need_w: bool):
+    """(d x, d w) of rms_norm(x, w, eps, offset) for the output gradient g,
+    as autograd forms them (d w None unless need_w)."""
+    with torch.enable_grad():
+        x = x.detach().requires_grad_()
+        w = w.detach().requires_grad_(need_w)
+        y = rms_norm(x, w, eps, offset)
+        grads = torch.autograd.grad(y, (x, w) if need_w else (x,), g)
+    return grads[0], (grads[1] if need_w else None)
+
+
 @torch.library.custom_op(
     "flashattn_tpu_torch::attention_operands", mutates_args=(),
     schema="(Tensor xn, Tensor wq, Tensor wk, Tensor wv, Tensor cos, Tensor sin, "
-           "int num_heads, int num_kv_heads) -> (Tensor, Tensor, Tensor)")
-def attention_operands(xn, wq, wk, wv, cos, sin, num_heads, num_kv_heads):
+           "int num_heads, int num_kv_heads, Tensor? bq=None, Tensor? bk=None, "
+           "Tensor? bv=None, Tensor? q_norm=None, Tensor? k_norm=None, "
+           "float norm_eps=0.0, float norm_offset=0.0) -> (Tensor, Tensor, Tensor)")
+def attention_operands(xn, wq, wk, wv, cos, sin, num_heads, num_kv_heads, bq=None, bk=None,
+                       bv=None, q_norm=None, k_norm=None, norm_eps=0.0, norm_offset=0.0):
     """The attention kernel's q, k and v from the normed input xn [B, S, H]:
-    the projections, RoPE on q and k, the [B, H, S, D] layout (qkv and
-    apply_rope). One operator, so that remat="attn" keeps its outputs, the
-    kernel's operands, and its recompute runs no projection."""
-    q, k, v = _qkv(xn, wq, wk, wv, num_heads, num_kv_heads, wq.shape[1] // num_heads)
-    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+    the projections and their biases, the q/k RMSNorm, RoPE on q and k,
+    the [B, H, S, D] layout (attention_inputs' arithmetic). One operator, so
+    that remat="attn" keeps its outputs, the kernel's operands, and its
+    recompute runs no projection."""
+    return _operands(xn, wq, wk, wv, cos, sin, num_heads, num_kv_heads, bq, bk, bv, q_norm,
+                     k_norm, norm_eps, norm_offset)
 
 
 @attention_operands.register_fake
-def _(xn, wq, wk, wv, cos, sin, num_heads, num_kv_heads):
+def _(xn, wq, wk, wv, cos, sin, num_heads, num_kv_heads, bq=None, bk=None, bv=None,
+      q_norm=None, k_norm=None, norm_eps=0.0, norm_offset=0.0):
     b, s = xn.shape[:2]
     d = wq.shape[1] // num_heads
     return (xn.new_empty(b, num_heads, s, d), xn.new_empty(b, num_kv_heads, s, d),
@@ -288,27 +385,44 @@ def _(xn, wq, wk, wv, cos, sin, num_heads, num_kv_heads):
 
 
 def _operands_setup(ctx, inputs, output):
-    xn, wq, wk, wv, cos, sin, _, _ = inputs
-    ctx.save_for_backward(xn, wq, wk, wv, cos, sin)
+    xn, wq, wk, wv, cos, sin, num_heads, num_kv_heads, bq, bk, _, q_norm, k_norm, eps, \
+        offset = inputs
+    ctx.save_for_backward(xn, wq, wk, wv, cos, sin, bq, bk, q_norm, k_norm)
+    ctx.heads, ctx.norm = (num_heads, num_kv_heads), (eps, offset)
 
 
 def _operands_backward(ctx, dq, dk, dv):
-    """d xn, d wq, d wk, d wv from the gradients of q, k and v: the
-    projections' products as torch.matmul's autograd forms them."""
-    xn, wq, wk, wv, cos, sin = ctx.saved_tensors
+    """The gradients of xn, the weights, the biases and the q/k norms from
+    those of q, k and v: the RoPE backward, then the RMSNorm backward over
+    D (from the q and k projections, recomputed), then the projections'
+    products as torch.matmul's autograd forms them; a bias's gradient is
+    its projection's summed over B and S."""
+    xn, wq, wk, wv, cos, sin, bq, bk, q_norm, k_norm = ctx.saved_tensors
+    (nq, nkv), (eps, offset) = ctx.heads, ctx.norm
+    # One flag an argument the caller passed (the optional ones may be left out).
+    need = ctx.needs_input_grad + (False,) * (15 - len(ctx.needs_input_grad))
     b, s, h = xn.shape
-    grads = [g.transpose(1, 2).reshape(b * s, -1)
-             for g in (rope_backward(dq, cos, sin), rope_backward(dk, cos, sin), dv)]
+    d = wq.shape[1] // nq
+    gq, gk = rope_backward(dq, cos, sin), rope_backward(dk, cos, sin)
+    dnorms = [None, None]
+    if q_norm is not None:
+        gq, dnorms[0] = rms_norm_backward(_heads(xn, wq, bq, nq, d), q_norm, gq, eps, offset,
+                                          need[11])
+        gk, dnorms[1] = rms_norm_backward(_heads(xn, wk, bk, nkv, d), k_norm, gk, eps, offset,
+                                          need[12])
+    grads = [g.transpose(1, 2).reshape(b * s, -1) for g in (gq, gk, dv)]
     weights = (wq, wk, wv)
     dxn = None
-    if ctx.needs_input_grad[0]:
+    if need[0]:
         for g, w in zip(grads, weights):
             term = g.mm(w.t())
             dxn = term if dxn is None else dxn + term
         dxn = dxn.view(b, s, h)
     x2 = xn.reshape(b * s, h).t()
-    dws = [x2.mm(g) if ctx.needs_input_grad[1 + i] else None for i, g in enumerate(grads)]
-    return dxn, *dws, None, None, None, None
+    dws = [x2.mm(g) if need[1 + i] else None for i, g in enumerate(grads)]
+    dbs = [g.sum(0) if need[8 + i] else None for i, g in enumerate(grads)]
+    out = (dxn, *dws, None, None, None, None, *dbs, *dnorms, None, None)
+    return out[:len(ctx.needs_input_grad)]
 
 
 attention_operands.register_autograd(_operands_backward, setup_context=_operands_setup)
@@ -327,13 +441,7 @@ def _attn_block(layer: LlamaLayer, x: torch.Tensor, cos: torch.Tensor,
                 segment_ids: torch.Tensor | None = None) -> torch.Tensor:
     b, s, _ = x.shape
     xn = rms_norm(x, layer.attn_norm, cfg.norm_eps, cfg.norm_offset)
-    if isinstance(layer.wq, QuantizedLinear):  # the int8/int4 kernels: no gradient
-        q, k, v = qkv(layer, xn, cfg)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-    else:
-        q, k, v = attention_operands(xn, layer.wq, layer.wk, layer.wv, cos, sin,
-                                     cfg.num_heads, cfg.num_kv_heads)
+    q, k, v = attention_inputs(layer, xn, cos, sin, cfg)
     if segment_ids is not None:
         o = flash_attention_varlen(q, k, v, segment_ids=segment_ids, is_causal=True,
                                    scale=cfg.attn_scale, window=window,
@@ -437,15 +545,20 @@ def forward(model: Llama, tokens: torch.Tensor, segment_ids=None,
     the backward runs no attention forward and no q/k/v projection but
     recomputes the rest (layers_forward). Each trades the activations'
     memory for time; the loss and gradients stay as without remat."""
-    cfg = model.cfg
     x = embed_tokens(model, tokens)
     if segment_ids is not None:
         segment_ids = check_segment_ids(segment_ids, tokens)
-        positions = document_positions(segment_ids)
-    else:
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
-    cos, sin = rope_tables(cfg, positions)
+    cos, sin = input_tables(model.cfg, tokens, segment_ids)
     return lm_logits(layers_forward(model, x, cos, sin, segment_ids, remat), model)
+
+
+def input_tables(cfg: ModelConfig, tokens: torch.Tensor,
+                 segment_ids: torch.Tensor | None = None):
+    """The RoPE tables of a training or prefill input tokens [B, S]:
+    positions 0..S-1, or restarting at each document of segment_ids."""
+    positions = (torch.arange(tokens.shape[1], device=tokens.device) if segment_ids is None
+                 else document_positions(segment_ids))
+    return rope_tables(cfg, positions)
 
 
 def loss_fn(model: Llama, tokens: torch.Tensor, segment_ids=None,

@@ -27,6 +27,19 @@ def sample(
     live on the logits' device."""
     if params.temperature == 0.0:
         return logits.argmax(dim=-1).to(torch.int32)
+    probs = transformed_probs(logits, params)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+
+
+def transformed_probs(
+    logits: torch.Tensor,  # [..., V] float32
+    params: SamplingParams = SamplingParams(),
+) -> torch.Tensor:
+    """The distribution `sample` draws from: the softmax after the
+    temperature, top-k and top-p transforms (masked entries are 0).
+    Speculative sampling needs these probabilities for both models."""
+    if params.temperature <= 0.0:
+        raise ValueError("greedy sampling (temperature 0) has no distribution")
     logits = logits / params.temperature
     if params.top_k:
         kth = torch.topk(logits, params.top_k, dim=-1).values[..., -1:]
@@ -42,5 +55,4 @@ def sample(
                              torch.full_like(sorted_logits, float("inf")))
         cutoff = cutoff.amin(dim=-1, keepdim=True)
         logits = logits.masked_fill(logits < cutoff, float("-inf"))
-    probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+    return torch.softmax(logits, dim=-1)

@@ -130,9 +130,7 @@ def layer_bytes(model, tokens, remat, segment_ids=None) -> float:
     before = torch.cuda.memory_allocated()
     x = llama.embed_tokens(model, inputs)
     seg = None if segment_ids is None else segment_ids[:, :-1]
-    positions = (torch.arange(inputs.shape[1], device=inputs.device) if seg is None
-                 else llama.document_positions(seg))
-    cos, sin = llama.rope_tables(cfg, positions)
+    cos, sin = llama.input_tables(cfg, inputs, seg)
     x = llama.layers_forward(model, x, cos, sin, seg, remat)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated() - before - cos.nbytes - sin.nbytes

@@ -802,6 +802,14 @@ CAPTURE_CASES = {
     "window_alternate_int8_paged_kv": (8, "int8", True,
                                        dict(attn_window=64, attn_sink=4,
                                             window_pattern="alternate")),
+    # Qwen's q/k norm and biases; longrope whose original context (302) the
+    # third slot's positions pass during the steps: the replay picks the
+    # long factor set on the device, as the eager step does
+    "qk_norm_bias": (None, None, False, dict(qk_norm=True, attn_bias=True)),
+    "longrope_crossing": (None, None, True,
+                          dict(rope_longrope=(tuple(1.0 + 0.03 * i for i in range(32)),
+                                              tuple(2.0 + 0.2 * i for i in range(32)),
+                                              302, 1.19))),
 }
 
 
@@ -1822,3 +1830,100 @@ def test_autotune_on_the_card(dev, tmp_path, monkeypatch):
         flash_bwd.flash_attention_backward(q, k, v, o, q, lse, True, impl="auto")
         added = {n: c - before[n] for n, c in launch_counters.read().items() if c != before[n]}
         assert added == kernels[impl], env
+
+
+# ---- model families, speculative decoding ----
+
+FAMILY_CONFIGS = {
+    # Qwen3: q/k RMSNorm; Qwen2: q/k/v biases; Llama-3.1: the llama3 remap
+    # (original context 32, past it in the prompt); Phi-3: longrope (original
+    # context 48, crossed by the decode steps)
+    "qwen3": dict(qk_norm=True, norm_eps=1e-6, rope_theta=1000000.0),
+    "qwen2": dict(attn_bias=True),
+    "llama31": dict(rope_scaling=(8.0, 1.0, 4.0, 32), rope_theta=500000.0),
+    "longrope": dict(rope_longrope=(tuple(1.0 + 0.03 * i for i in range(32)),
+                                    tuple(2.0 + 0.2 * i for i in range(32)), 48, 1.19)),
+}
+
+
+@pytest.mark.parametrize("family", sorted(FAMILY_CONFIGS))
+def test_model_family_on_card_matches_cpu(dev, family):
+    """A small float32 model of each family (D 64) through K1 and K2 on the
+    card against the plain versions on the CPU, with its biases and q/k norm
+    weights perturbed: a 40-token prefill and 12 decode steps, then a chunk
+    of 5 (the speculative verifier's T); atol 1e-3, rtol 1e-3."""
+    cfg = ModelConfig(**dict(SMALL, dtype=torch.float32, **FAMILY_CONFIGS[family]))
+    cpu = llama.init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(4)
+        for name, p in cpu.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("bq", "bk", "bv", "q_norm", "k_norm"):
+                p.add_(0.1 * torch.randn(p.shape, generator=g))
+    card = llama.Llama(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    prompt = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(6))
+    forced = torch.randint(0, cfg.vocab_size, (12, 2), generator=torch.Generator().manual_seed(7))
+    piece = torch.randint(0, cfg.vocab_size, (2, 5), generator=torch.Generator().manual_seed(8))
+    outs = []
+    for model in (cpu, card):
+        d = model.device
+        caches = generate.init_caches(model, 2, 128)
+        logits, caches = generate.prefill(model, prompt.to(d), caches, return_all=True)
+        steps = [logits.cpu()]
+        for i in range(12):
+            pos = torch.full((2,), 40 + i, dtype=torch.int32, device=d)
+            logits, caches = generate.decode_step(model, forced[i].to(d), pos, caches)
+            steps.append(logits.cpu())
+        logits, caches = generate.chunk_step(model, piece.to(d), torch.arange(52, 57, device=d),
+                                             caches)
+        steps.append(logits.cpu())
+        outs.append(steps)
+    for i, (want, got) in enumerate(zip(*outs)):
+        rep = verify_results(want, got, atol=1e-3, rtol=1e-3)
+        assert rep.passed, f"call {i}: {rep}"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("family", ["qwen3", "llama31"])
+def test_load_hf_dir_on_card_equals_cpu(dev, tmp_path, family, dtype):
+    """load_hf_dir onto the card (each tensor copied as stored, then
+    transposed and cast there) from a sharded bf16 safetensors checkpoint
+    written by chip_smoke.py's writer: the config and every tensor equal
+    the CPU load's bit for bit."""
+    import chip_smoke
+    from flashattn_tpu_torch.models import convert
+
+    cfg = ModelConfig(**dict(SMALL, **FAMILY_CONFIGS[family]))
+    hf = chip_smoke.hf_state_dict(cfg, torch.Generator().manual_seed(2), device="cpu")
+    chip_smoke.write_hf_checkpoint(tmp_path, hf, cfg, shard_bytes=1 << 20)
+    card, card_cfg = convert.load_hf_dir(tmp_path, dtype, device=dev)
+    cpu, cpu_cfg = convert.load_hf_dir(tmp_path, dtype, device="cpu")
+    assert card_cfg == cpu_cfg == dataclasses.replace(cfg, dtype=dtype)
+    want = cpu.state_dict()
+    for name, got in card.state_dict().items():
+        assert got.device.type == "cuda" and got.dtype == dtype, name
+        assert torch.equal(got.cpu(), want[name]), name
+
+
+@pytest.mark.parametrize("paged_kv", [False, True])
+@pytest.mark.parametrize("draft_layers", [2, 1])
+def test_speculation_on_card_equals_generate(dev, paged_kv, draft_layers):
+    """Greedy speculative_generate on the card (the target verifying k + 1 = 5
+    tokens in one chunked K2 call): the target's generate tokens on the card,
+    token for token, dense and paged; the self-draft accepts everything."""
+    from flashattn_tpu_torch.models.speculate import speculative_generate
+
+    target = small_model(dev)
+    draft = (target if draft_layers == 2 else
+             llama.init_params(ModelConfig(**dict(SMALL, num_layers=1)),
+                               torch.Generator(device=dev).manual_seed(9), device=dev))
+    prompt = torch.randint(0, 256, (1, 37), generator=torch.Generator().manual_seed(1)).to(dev)
+    want = generate.generate(target, prompt, max_new_tokens=24)
+    before = launch_counters.read()
+    got, rate = speculative_generate(target, draft, prompt, max_new_tokens=24, k=4,
+                                     paged=paged_kv, page_size=128)
+    ran = {k: v - before[k] for k, v in launch_counters.read().items() if v != before[k]}
+    assert got.tolist() == want.tolist(), (rate, got, want)
+    assert (rate == 1.0) == (draft is target)
+    assert ran["flash_fwd"] == target.cfg.num_layers + draft.cfg.num_layers
+    assert ran["paged_decode" if paged_kv else "decode"] > 0

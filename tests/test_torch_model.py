@@ -158,15 +158,24 @@ def test_init_params_is_seeded():
 
 @pytest.mark.parametrize("field,value,item", [
     ("use_alibi", True, "A4 and A5"),
-    ("qk_norm", True, "A8"), ("attn_bias", True, "A8"),
     ("num_experts", 4, "A9"),
-    ("rope_scaling", (8.0, 1.0, 4.0, 8192), "A8"),
-    ("rope_longrope", ((1.0,), (1.0,), 4096, 1.0), "A8"),
 ])
 def test_unported_config_fields_raise(field, value, item):
     cfg = dataclasses.replace(ModelConfig(), **{field: value})
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         check_supported(cfg)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("qk_norm", True), ("attn_bias", True),
+    ("rope_scaling", (8.0, 1.0, 4.0, 8192)),
+    ("rope_longrope", ((1.0,), (1.0,), 4096, 1.0)),
+])
+def test_model_family_fields_are_supported(field, value):
+    """Qwen3's q/k norm, Qwen2's biases and the llama3 and longrope RoPE
+    variants are ported (their parity with the JAX model:
+    tests/test_torch_model_families.py)."""
+    check_supported(dataclasses.replace(ModelConfig(), **{field: value}))
 
 
 @pytest.mark.parametrize("field,value", [("logit_softcap", 50.0), ("use_post_norms", True)])

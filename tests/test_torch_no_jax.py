@@ -5,10 +5,12 @@ server with a shared prefix and chunked admission, its calibrations, the
 timing harness, the roofline, a windowed model with sinks generating
 and serving, packed windowed training: ops/varlen.py's
 flash_attention_varlen with its gradient, and models/data.py's
-PackedDataset through prefetch into train.train, and a Gemma-2-shaped
-model (D 256, soft-caps, post-norms, alternate windows) generating and
-serving from an int8 KV pool with chunked admission). A CPU call takes the
-plain versions and launches no kernel."""
+PackedDataset through prefetch into train.train, a Gemma-2-shaped model
+(D 256, soft-caps, post-norms, alternate windows) generating and serving
+from an int8 KV pool with chunked admission, and a Qwen3-shaped model read
+by load_hf_dir from a safetensors checkpoint, served from an int8 KV pool
+and decoded speculatively). A CPU call takes the plain versions and
+launches no kernel."""
 
 import os
 import subprocess
@@ -99,6 +101,34 @@ srv = InferenceServer(gemma, max_slots=2, max_len=128, quant="int8", paged=True,
                       page_size=64, admit_chunk=32)
 srv.submit(Request(uid=4, prompt=list(range(45)), max_new_tokens=4))
 assert len(srv.run()[4]) == 4
+# A Qwen3-shaped model (q/k RMSNorm, D 128) loaded by load_hf_dir from a
+# sharded safetensors checkpoint under the Hugging Face names (written by
+# chip_smoke.py's writer: no safetensors package), through the int8-KV paged
+# server with chunked admission, then speculative decoding (self-draft,
+# paged caches).
+import tempfile
+from pathlib import Path
+from flashattn_tpu_torch.models import convert
+from flashattn_tpu_torch.models.speculate import speculative_generate
+qcfg = dataclasses.replace(TINY, head_dim=128, num_heads=4, num_kv_heads=2, qk_norm=True,
+                           norm_eps=1e-6, rope_theta=1e6)
+hf = chip_smoke.hf_state_dict(qcfg, torch.Generator().manual_seed(3), device="cpu")
+with tempfile.TemporaryDirectory() as ckpt:
+    chip_smoke.write_hf_checkpoint(ckpt, hf, qcfg, shard_bytes=1 << 20)
+    assert len(list(Path(ckpt).glob("model-*-of-*.safetensors"))) > 1
+    qwen, loaded_cfg = convert.load_hf_dir(ckpt, torch.bfloat16, device="cpu")
+assert loaded_cfg == qcfg, loaded_cfg
+want = convert.params_from_hf(hf, qcfg)
+assert all(torch.equal(v, want[k]) for k, v in qwen.state_dict().items())
+srv = InferenceServer(qwen, max_slots=2, max_len=128, quant="int8", paged=True, page_size=64,
+                      admit_chunk=32)
+srv.submit(Request(uid=5, prompt=list(range(45)), max_new_tokens=4))
+srv.submit(Request(uid=6, prompt=[7, 8, 9], max_new_tokens=4))
+out = srv.run()
+assert len(out[5]) == len(out[6]) == 4
+toks, rate = speculative_generate(qwen, qwen, torch.tensor([list(range(20))]), max_new_tokens=6,
+                                  k=2, paged=True, page_size=64)
+assert rate == 1.0 and toks.shape == (1, 6)
 from flashattn_tpu_torch.ops import launches
 assert not any(launches.read().values()), f"CPU call counted a launch: {launches.read()}"
 counts = (flash_fwd.LAUNCHES, decode.LAUNCHES, decode.INT8_LAUNCHES, decode.FP8_LAUNCHES,

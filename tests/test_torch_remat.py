@@ -189,7 +189,7 @@ def rope_inputs(b=2, s=24, h=64, nq=4, nkv=2, d=16, dtype=torch.float32, seed=0)
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_operands_against_autograd(dtype):
-    """The operator's outputs are qkv + apply_rope's bit for bit; its
+    """The operator's outputs are the projections + apply_rope's bit for bit; its
     registered backward matches autograd through them (bf16: the same
     roundings, the three dxn terms summed in another order)."""
     xn, ws, cos, sin, cfg = rope_inputs(dtype=dtype)
@@ -200,7 +200,9 @@ def test_attention_operands_against_autograd(dtype):
         for p, w in zip((layer.wq, layer.wk, layer.wv), ws):
             p.copy_(w)
     xn_ref = xn.clone().requires_grad_()
-    q, k, v = llama.qkv(layer, xn_ref, cfg)
+    b, s = xn.shape[:2]
+    q, k, v = ((xn_ref @ w).view(b, s, -1, cfg.head_dim).transpose(1, 2)
+               for w in (layer.wq, layer.wk, layer.wv))
     ref = (llama.apply_rope(q, cos, sin), llama.apply_rope(k, cos, sin), v)
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
