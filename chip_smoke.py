@@ -5,7 +5,7 @@ NVIDIA GPU.
     python3 chip_smoke.py
 
 Builds the five CUDA libraries from csrc/ (into build/flashattn_tpu_torch/,
-one nvcc each, all at once) and runs fifteen phases, printing one line per
+one nvcc each, all at once) and runs sixteen phases, printing one line per
 check and each phase's seconds, then the kernels line:
 
 1. environment: torch/CUDA versions, the card's name and power limit, the
@@ -175,14 +175,42 @@ check and each phase's seconds, then the kernels line:
    models' calls make; a sampled bf16 run twice from one seed the same;
    acceptance and tokens/s against generate; K2 bf16 at T 5 (the
    verification) against its plain version and timed;
-16. the `kernels` JSON line: every kernel with its launches on the path that
+16. mixture-of-experts models (phase_moe), every FFN the grouped dispatch
+   (parallel/moe.py::moe_ffn_grouped; the masked-dense loop is the plain
+   route), their configs the public config.json files through
+   config_from_hf: Qwen3-30B-A3B at full width and depth (48 layers, GQA
+   32/4 at D 128, q/k RMSNorm, 128 experts of 768, top 8; 30.5 B random
+   bf16 parameters): the FFN of layer 0 on a 2,000-token prompt's hidden
+   states, grouped against masked-dense at T 2 and 2,000, both timed beside
+   the bound of the experts the routing touches; a 2,000-token prefill and
+   4 teacher-forced decode steps through the kernels, the routing of every
+   (token, layer) recorded: the free-running plain route's flips printed
+   with their margins, then the plain route with its routing
+   teacher-forced to the kernel run's picks under phase 3's logits rule,
+   every pick it would have made otherwise a near-tie (within TIE_ULPS
+   bf16 steps of its own k-th logit); one eager decode_step
+   and one chunk_step under set_sync_debug_mode("error"); phase 4's
+   capture gate, bitwise; the bf16 server, a bf16 paged server (its tokens
+   equal to the dense server's) and the int8-KV paged server (admit_chunk
+   512, a 1,024-token prefix) on phase 9's traffic at max_len 8192, with
+   device_step_ms beside the step's weights' read; then its widths cut to
+   4 layers in float32, free-running, under the logits rule with no
+   excuse; then
+   Qwen1.5-MoE-A2.7B (24 layers, 16/16 heads, q/k/v biases, 60 experts of
+   1408, top 4 with full-softmax gates, a sigmoid-gated shared expert;
+   14.3 B parameters) written under the Hugging Face names as a sharded
+   safetensors directory and read by load_hf_dir (its depth cut, and
+   printed, only if the disk cannot hold it): the logits gate, the sync
+   gate, the bf16 and int8-KV paged servers;
+17. the `kernels` JSON line: every kernel with its launches on the path that
    runs it, its error against its plain version, its time, bound, plain and
    library times (the windowed K1, K2 and paged K2 from phases 2 and 9, the
    windowed and segmented K1, B3, B4 and B5 from phases 2 and 10, the
    soft-capped K1, K2 and paged K2 from phases 2 and 11, the soft-capped
    B3, B4 and B5 from phases 2 and 12, timed at GEMMA2_9B's packed row on a
    global layer; K1 at LLAMA31_8B's 16,384-token prompt from phase 14 and
-   K2 at T 5 from phase 15, rows of their own).
+   K2 at T 5 from phase 15, rows of their own; the launches of K1, K2 and
+   the paged K2 in phase 16's servers added to their rows).
 
 Any failed check raises: the script then exits nonzero and does not print
 its last line. It needs a CUDA device and never falls back to the CPU. The
@@ -226,6 +254,7 @@ from flashattn_tpu_torch.ops.attention import plain_flash_attention
 from flashattn_tpu_torch.ops.common import round_up
 from flashattn_tpu_torch.ops.kvcache import KVCache
 from flashattn_tpu_torch.ops.reference import visible
+from flashattn_tpu_torch.parallel import moe
 from flashattn_tpu_torch.utils import profile_train, roofline
 from flashattn_tpu_torch.utils.timing import cuda_time_ms
 from flashattn_tpu_torch.utils.verify import verify_results
@@ -1639,6 +1668,8 @@ _ROUTED = {  # generation's kernel entry points -> their plain versions
                                      logit_softcap=logit_softcap)),
     (llama, "quant_matmul"): (
         lambda x, qw, out_dtype=None: quant_matmul.quant_matmul_reference(x, qw, out_dtype)),
+    # The MoE FFN's card route (the grouped dispatch) -> the masked-dense loop.
+    (moe, "moe_ffn_grouped"): moe.moe_ffn_dense_reference,
 }
 
 
@@ -1656,20 +1687,33 @@ def plain_kernels():
             setattr(module, name, fn)
 
 
+def rule_numbers(a: torch.Tensor, r: torch.Tensor) -> tuple[float, float, float]:
+    """(cosine, max |a - r|, LOGIT_REL * max |r|) of two logits tensors, in
+    float32: the logits rule holds when cosine > LOGIT_COS and the delta is
+    at most the limit."""
+    a, r = a.float().flatten(), r.float().flatten()
+    cos = float(torch.nn.functional.cosine_similarity(a, r, dim=0))
+    return cos, float((a - r).abs().max()), LOGIT_REL * float(r.abs().max())
+
+
+def logits_rule(tag: str, a: torch.Tensor, r: torch.Tensor, name: str, model: str) -> bool:
+    """The serving logits rule on one call's logits, printed: cosine >
+    LOGIT_COS and max |delta| <= LOGIT_REL * max |ref|. Non-finite logits
+    fail the run."""
+    check(bool(torch.isfinite(a).all()), f"{tag} {name}: non-finite logits")
+    cos, delta, lim = rule_numbers(a, r)
+    print(f"[model] {model} {tag} {name}: cos {cos:.6f} (> {LOGIT_COS}), "
+          f"max|d| {delta:.4f} (<= {lim:.4f}), argmax kernel "
+          f"{int(a.float().argmax())} plain {int(r.float().argmax())}")
+    return cos > LOGIT_COS and delta <= lim
+
+
 def compare_logits(tag: str, kern: list, plain: list, names: list | None = None,
                    model: str = "LLAMA_1B") -> None:
-    """The serving logits rule: cosine > LOGIT_COS and max |delta| <= LOGIT_REL * max |ref|."""
+    """The serving logits rule (logits_rule) on every call."""
     names = names or ["prefill S=150"] + [f"decode {i}" for i in range(1, len(kern))]
-    for step, (a, r, name) in enumerate(zip(kern, plain, names)):
-        a, r = a.float().flatten(), r.float().flatten()
-        check(bool(torch.isfinite(a).all()), f"{tag} {name}: non-finite logits")
-        cos = float(torch.nn.functional.cosine_similarity(a, r, dim=0))
-        delta = float((a - r).abs().max())
-        lim = LOGIT_REL * float(r.abs().max())
-        print(f"[model] {model} {tag} {name}: cos {cos:.6f} (> {LOGIT_COS}), "
-              f"max|d| {delta:.4f} (<= {lim:.4f}), argmax kernel "
-              f"{int(a.argmax())} plain {int(r.argmax())}")
-        check(cos > LOGIT_COS and delta <= lim, f"{model} {tag} {name} logits disagree")
+    for a, r, name in zip(kern, plain, names):
+        check(logits_rule(tag, a, r, name, model), f"{model} {tag} {name} logits disagree")
 
 
 def generation_run(model, prompt, forced, quant=None, max_len=2048) -> list[torch.Tensor]:
@@ -1831,13 +1875,8 @@ def phase_capture(model, w8, gen: torch.Generator) -> None:
     decode_step at LLAMA_1B width, 4 slots, max_len 2048, for bf16 weights
     on a bf16 cache, int8 weights on an int8 cache, bf16 weights on an fp8
     cache, int8 weights on an int8 pool of 256-token pages and int4 weights
-    on a bf16 cache (K2 in every mode, the paged K2, qmm8 and qmm4): from
-    equal caches, CAPTURE_STEPS steps with other tokens, positions and
-    active rows each step. The logits and every cache byte must be equal
-    (the same kernels on the same shapes); where they are not, the logits
-    must pass phase 3's rule with equal argmax on the active rows, and the
-    lengths must be equal."""
-    cfg = model.cfg
+    on a bf16 cache (K2 in every mode, the paged K2, qmm8 and qmm4):
+    capture_gate in each."""
     w4 = quantized_copy(model, 4)
     setups = [  # tag, model, KV quant, paged
         ("bf16 weights, bf16 KV", model, None, False),
@@ -1846,40 +1885,53 @@ def phase_capture(model, w8, gen: torch.Generator) -> None:
         (f"int8 weights, int8 paged KV (pages of {PAGE})", w8, "int8", True),
         ("int4 weights, bf16 KV", w4, None, False),
     ]
-    slots = len(CAPTURE_LENGTHS)
     for tag, m, quant, paged_kv in setups:
-        eager = capture_caches(m, quant, paged_kv, gen)
-        graph = generate.DecodeGraph(m, clone_caches(eager))
-        lengths, bitwise = list(CAPTURE_LENGTHS), True
-        for i in range(CAPTURE_STEPS):
-            active = [(i + s) % 3 != 0 for s in range(slots)]
-            token = torch.randint(0, cfg.vocab_size, (slots,), generator=gen, device="cuda",
-                                  dtype=torch.int32)
-            positions = torch.tensor(lengths, dtype=torch.int32)
-            act = torch.tensor(active)
-            ref, _ = generate.decode_step(m, token, positions.cuda(), eager, active=act.cuda())
-            out = graph(token, positions.pin_memory(), act.pin_memory())
-            torch.cuda.synchronize()
-            lengths = [n + a for n, a in zip(lengths, active)]
-            if torch.equal(ref, out) and all(
-                    torch.equal(a, b) for a, b in zip(cache_tensors(eager),
-                                                      cache_tensors(graph.caches))):
-                continue
-            bitwise = False
-            compare_logits(f"captured vs eager, {tag}", [out[act]], [ref[act]],
-                           [f"step {i}, active rows {active}"])
-            check(torch.equal(out[act].argmax(-1), ref[act].argmax(-1)),
-                  f"{tag} step {i}: argmax differs between the replay and the eager step")
-        want = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-        check(all(torch.equal(c.length, want) and torch.equal(g.length, want)
-                  for c, g in zip(eager, graph.caches)), f"{tag}: lengths {lengths} not kept")
-        print(f"[capture] LLAMA_1B {tag}, {slots} slots max_len 2048, lengths "
-              f"{CAPTURE_LENGTHS} + {CAPTURE_STEPS} steps with changing active rows: captured "
-              f"step {'bitwise equal to' if bitwise else 'within the logits rule of'} the "
-              f"eager step (logits and every cache byte){'' if bitwise else ', NOT bitwise'}; "
-              f"{graph.replays} replays, launches a replay {graph.launches}")
-        del eager, graph
+        capture_gate(tag, m, quant, paged_kv, gen)
     del w4
+
+
+def capture_gate(tag: str, m, quant: str | None, paged_kv: bool, gen: torch.Generator,
+                 name: str = "LLAMA_1B", bitwise: bool = False) -> None:
+    """From equal caches (capture_caches), CAPTURE_STEPS steps of the eager
+    decode_step and of its CUDA-graph replay with other tokens, positions
+    and active rows each step. The logits and every cache byte must be
+    equal (the same kernels on the same shapes); where they are not, the
+    logits must pass phase 3's rule with equal argmax on the active rows
+    (with `bitwise`, they must be equal), and the lengths must be equal."""
+    cfg = m.cfg
+    slots = len(CAPTURE_LENGTHS)
+    eager = capture_caches(m, quant, paged_kv, gen)
+    graph = generate.DecodeGraph(m, clone_caches(eager))
+    lengths, equal = list(CAPTURE_LENGTHS), True
+    for i in range(CAPTURE_STEPS):
+        active = [(i + s) % 3 != 0 for s in range(slots)]
+        token = torch.randint(0, cfg.vocab_size, (slots,), generator=gen, device="cuda",
+                              dtype=torch.int32)
+        positions = torch.tensor(lengths, dtype=torch.int32)
+        act = torch.tensor(active)
+        ref, _ = generate.decode_step(m, token, positions.cuda(), eager, active=act.cuda())
+        out = graph(token, positions.pin_memory(), act.pin_memory())
+        torch.cuda.synchronize()
+        lengths = [n + a for n, a in zip(lengths, active)]
+        if torch.equal(ref, out) and all(
+                torch.equal(a, b) for a, b in zip(cache_tensors(eager),
+                                                  cache_tensors(graph.caches))):
+            continue
+        equal = False
+        check(not bitwise, f"{name} {tag} step {i}: the replay differs from the eager step")
+        compare_logits(f"captured vs eager, {tag}", [out[act]], [ref[act]],
+                       [f"step {i}, active rows {active}"], model=name)
+        check(torch.equal(out[act].argmax(-1), ref[act].argmax(-1)),
+              f"{tag} step {i}: argmax differs between the replay and the eager step")
+    want = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    check(all(torch.equal(c.length, want) and torch.equal(g.length, want)
+              for c, g in zip(eager, graph.caches)), f"{tag}: lengths {lengths} not kept")
+    print(f"[capture] {name} {tag}, {slots} slots max_len 2048, lengths "
+          f"{CAPTURE_LENGTHS} + {CAPTURE_STEPS} steps with changing active rows: captured "
+          f"step {'bitwise equal to' if equal else 'within the logits rule of'} the "
+          f"eager step (logits and every cache byte){'' if equal else ', NOT bitwise'}; "
+          f"{graph.replays} replays, launches a replay {graph.launches}")
+    del eager, graph
 
 
 def phase_server(model, gen: torch.Generator) -> dict[str, int]:
@@ -2181,13 +2233,13 @@ WINDOW_COUNTERS = ("flash_fwd_window", "decode_window", "paged_decode_window")
 
 def long_prompt_server(model, tag: str, prompts: list[list[int]], prefix: list[int] | None,
                        log: str = "[mistral]", max_len: int | None = None,
-                       **options) -> dict[str, int]:
+                       tokens: dict | None = None, **options) -> dict[str, int]:
     """One server run on the requests of `prompts` (a prompt that starts
     with `prefix` names the registered prefix): every request finished with
     MISTRAL_NEW valid tokens, every decode step a replay; the launches of
     the run (warmup, prefix registration and calibration left out). Lines
     print under `log`. The slots hold max_len tokens (cfg.max_seq_len by
-    default)."""
+    default). The requests' tokens go into `tokens` where given."""
     cfg = model.cfg
     srv = InferenceServer(model, max_slots=2, max_len=max_len or cfg.max_seq_len, **options)
     srv.warmup()  # captures the decode step
@@ -2211,6 +2263,8 @@ def long_prompt_server(model, tag: str, prompts: list[list[int]], prefix: list[i
         check(len(toks) == MISTRAL_NEW and all(0 <= x < cfg.vocab_size for x in toks),
               f"{tag} request {uid}: {len(toks)} tokens {toks[:4]}...")
     check_replays(f"{log} {tag}:", srv, replays, st["decode_steps"])
+    if tokens is not None:
+        tokens.update(got)
     n = len(prompts) * MISTRAL_NEW
     print(f"{log} {tag}: {len(prompts)} requests, prompts {[len(p) for p in prompts]}, "
           f"{MISTRAL_NEW} new tokens each, all finished in {wall:.3f} s ({n / wall:.1f} "
@@ -2218,6 +2272,10 @@ def long_prompt_server(model, tag: str, prompts: list[list[int]], prefix: list[i
           f"ms/request, decode {st['decode_ms_avg']} ms/step; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
           f"{ {k: v for k, v in launches.items() if v} }")
+    # The calibrations capture graphs, whose private memory pool cannot take
+    # the allocator's cached free blocks: hand those back to the device
+    # first (beside a 61 GB model they are what is left).
+    torch.cuda.empty_cache()
     calibrate(f"{log} {tag}:", srv)
     if prefix is not None:
         admit = srv.calibrate_admit(prompt_len=MISTRAL_PREFIX + 256, prefix_len=MISTRAL_PREFIX,
@@ -2811,9 +2869,13 @@ LONG_NEW = 32
 def hf_state_dict(cfg, gen: torch.Generator, device="cuda") -> dict[str, torch.Tensor]:
     """Random weights of `cfg` under the Hugging Face Llama/Qwen names and
     layouts (projections [out, in]; q_norm/k_norm with cfg.qk_norm, q/k/v
-    biases with cfg.attn_bias, lm_head unless tied), drawn from `gen` in
-    cfg.dtype as init_params draws: normal, scaled by fan-in**-0.5; norms
-    at 1, biases 0.02 x normal."""
+    biases with cfg.attn_bias, lm_head unless tied; with cfg.num_experts the
+    Qwen MoE families' router mlp.gate and one entry an expert and
+    projection, mlp.experts.j.{gate,up,down}_proj, and with
+    cfg.moe_shared_intermediate Qwen2-MoE's mlp.shared_expert.* and
+    mlp.shared_expert_gate), drawn from `gen` in cfg.dtype as init_params
+    draws: normal, scaled by fan-in**-0.5; norms at 1, biases 0.02 x
+    normal."""
     h, d, f = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
     nq, nkv = cfg.num_heads * d, cfg.num_kv_heads * d
 
@@ -2834,10 +2896,23 @@ def hf_state_dict(cfg, gen: torch.Generator, device="cuda") -> dict[str, torch.T
                    p + "self_attn.q_proj.weight": dense(nq, h),
                    p + "self_attn.k_proj.weight": dense(nkv, h),
                    p + "self_attn.v_proj.weight": dense(nkv, h),
-                   p + "self_attn.o_proj.weight": dense(h, nq),
-                   p + "mlp.gate_proj.weight": dense(f, h),
-                   p + "mlp.up_proj.weight": dense(f, h),
-                   p + "mlp.down_proj.weight": dense(h, f)})
+                   p + "self_attn.o_proj.weight": dense(h, nq)})
+        if cfg.num_experts:
+            sd[p + "mlp.gate.weight"] = dense(cfg.num_experts, h)
+            for j in range(cfg.num_experts):
+                sd.update({p + f"mlp.experts.{j}.gate_proj.weight": dense(f, h),
+                           p + f"mlp.experts.{j}.up_proj.weight": dense(f, h),
+                           p + f"mlp.experts.{j}.down_proj.weight": dense(h, f)})
+            if cfg.moe_shared_intermediate:
+                fs = cfg.moe_shared_intermediate
+                sd.update({p + "mlp.shared_expert.gate_proj.weight": dense(fs, h),
+                           p + "mlp.shared_expert.up_proj.weight": dense(fs, h),
+                           p + "mlp.shared_expert.down_proj.weight": dense(h, fs),
+                           p + "mlp.shared_expert_gate.weight": dense(1, h)})
+        else:
+            sd.update({p + "mlp.gate_proj.weight": dense(f, h),
+                       p + "mlp.up_proj.weight": dense(f, h),
+                       p + "mlp.down_proj.weight": dense(h, f)})
         if cfg.qk_norm:
             sd[p + "self_attn.q_norm.weight"] = ones(d)
             sd[p + "self_attn.k_norm.weight"] = ones(d)
@@ -2854,7 +2929,9 @@ SHARD_BYTES = 5 * 10**9  # save_pretrained's default max_shard_size, "5GB"
 
 def hf_config(cfg) -> dict:
     """The config.json of `cfg` as transformers writes it for a Qwen3
-    (cfg.qk_norm) or Llama checkpoint."""
+    (cfg.qk_norm) or Llama checkpoint, or with cfg.num_experts a Qwen3-MoE
+    (cfg.qk_norm) or Qwen2-MoE one (its expert width, which the port keeps
+    in intermediate_size, as moe_intermediate_size)."""
     out = dict(model_type="qwen3" if cfg.qk_norm else "llama", vocab_size=cfg.vocab_size,
                hidden_size=cfg.hidden_size, intermediate_size=cfg.intermediate_size,
                num_hidden_layers=cfg.num_layers, num_attention_heads=cfg.num_heads,
@@ -2867,6 +2944,13 @@ def hf_config(cfg) -> dict:
         factor, low, high, orig = cfg.rope_scaling
         out["rope_scaling"] = dict(rope_type="llama3", factor=factor, low_freq_factor=low,
                                    high_freq_factor=high, original_max_position_embeddings=orig)
+    if cfg.num_experts:
+        out.update(model_type="qwen3_moe" if cfg.qk_norm else "qwen2_moe",
+                   num_experts=cfg.num_experts, num_experts_per_tok=cfg.top_k_experts,
+                   norm_topk_prob=cfg.moe_norm_topk, moe_intermediate_size=cfg.intermediate_size,
+                   decoder_sparse_step=1, mlp_only_layers=[])
+        if cfg.moe_shared_intermediate:
+            out["shared_expert_intermediate_size"] = cfg.moe_shared_intermediate
     return out
 
 
@@ -2946,9 +3030,13 @@ def load_from_hf_dir(cfg, name: str, gen: torch.Generator, log: str):
           f"{name}: load_hf_dir's tensors differ from params_from_hf's")
     del want, got
     n = sum(p.numel() for p in model.parameters())
-    features = ", ".join(f for f, on in (("q/k RMSNorm", cfg.qk_norm),
-                                          (f"llama3 RoPE {cfg.rope_scaling}", cfg.rope_scaling),
-                                          ("q/k/v biases", cfg.attn_bias)) if on)
+    features = ", ".join(f for f, on in (
+        ("q/k RMSNorm", cfg.qk_norm), (f"llama3 RoPE {cfg.rope_scaling}", cfg.rope_scaling),
+        ("q/k/v biases", cfg.attn_bias),
+        (f"{cfg.num_experts} experts of width {cfg.intermediate_size}, top "
+         f"{cfg.top_k_experts}", cfg.num_experts),
+        (f"a shared expert of width {cfg.moe_shared_intermediate}",
+         cfg.moe_shared_intermediate)) if on)
     print(f"{log} {name}: {cfg.num_layers} layers, hidden {cfg.hidden_size}, GQA "
           f"{cfg.num_heads}/{cfg.num_kv_heads}, D {cfg.head_dim}, vocab {cfg.vocab_size}, "
           f"{features}; {n / 1e9:.3f} B random bf16 parameters under the Hugging Face names, "
@@ -3178,6 +3266,11 @@ def step_census():
         generate.decode_step, generate.chunk_step = saved
 
 
+def bf16_steps(a: float, b: float) -> float:
+    """|a - b| in bf16 steps at a's magnitude (8 significant bits)."""
+    return abs(a - b) / 2.0 ** (math.floor(math.log2(abs(a))) - 7)
+
+
 def bf16_ties(model, prompt: torch.Tensor, got: torch.Tensor) -> str:
     """generate's prefill and decode steps teacher-forced on the speculative
     tokens got [1, n]: at each position the speculative token must be
@@ -3192,7 +3285,7 @@ def bf16_ties(model, prompt: torch.Tensor, got: torch.Tensor) -> str:
         a, b = int(row.argmax()), int(got[0, i])
         if a != b:
             top = float(row[a])
-            ulps = (top - float(row[b])) / 2.0 ** (math.floor(math.log2(abs(top))) - 7)
+            ulps = bf16_steps(top, float(row[b]))
             check(ulps <= TIE_ULPS,
                   f"[speculate] bf16 token {b} at {i} against generate's {a} after the same "
                   f"tokens: logits {top:.4f} and {float(row[b]):.4f}, {ulps:.1f} bf16 steps "
@@ -3329,6 +3422,437 @@ def verify_k2(gen: torch.Generator) -> dict:
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, **lim)
 
 
+# Phase 16: mixture-of-experts models, every layer's FFN the grouped
+# dispatch (parallel/moe.py::moe_ffn_grouped; the masked-dense loop,
+# moe_ffn_dense_reference, is the plain route). The configs are the public
+# config.json files (Hugging Face Qwen/Qwen3-30B-A3B and
+# Qwen/Qwen1.5-MoE-A2.7B, the fields the port reads) through
+# config_from_hf, which takes the expert width from moe_intermediate_size.
+# Qwen3-30B-A3B: 48 layers, GQA 32/4 (group 8) at D 128, q/k RMSNorm, 128
+# experts of 768, top 8 renormalised; 30.5 B parameters, 61.1 GB in bf16,
+# random weights from the seed. Qwen1.5-MoE-A2.7B: 24 layers, 16/16 heads
+# (group 1) at D 128, q/k/v biases, 60 experts of 1408, top 4 with the
+# full softmax's gates, a shared expert of 5632 behind a sigmoid gate; 14.3
+# B parameters, written under the Hugging Face names as a sharded
+# safetensors directory and read back by load_hf_dir.
+QWEN3_30B_A3B_JSON = dict(
+    model_type="qwen3_moe", vocab_size=151936, hidden_size=2048, intermediate_size=6144,
+    moe_intermediate_size=768, num_hidden_layers=48, num_attention_heads=32,
+    num_key_value_heads=4, head_dim=128, num_experts=128, num_experts_per_tok=8,
+    norm_topk_prob=True, decoder_sparse_step=1, mlp_only_layers=[],
+    max_position_embeddings=40960, rope_theta=1000000.0, rms_norm_eps=1e-06,
+    tie_word_embeddings=False, attention_bias=False, sliding_window=None,
+    use_sliding_window=False, rope_scaling=None, torch_dtype="bfloat16")
+QWEN15_MOE_JSON = dict(
+    model_type="qwen2_moe", vocab_size=151936, hidden_size=2048, intermediate_size=5632,
+    moe_intermediate_size=1408, shared_expert_intermediate_size=5632, num_hidden_layers=24,
+    num_attention_heads=16, num_key_value_heads=16, num_experts=60, num_experts_per_tok=4,
+    norm_topk_prob=False, decoder_sparse_step=1, mlp_only_layers=[],
+    max_position_embeddings=8192, rope_theta=1000000.0, rms_norm_eps=1e-06,
+    tie_word_embeddings=False, sliding_window=32768, use_sliding_window=False,
+    torch_dtype="bfloat16")
+MOE_F32_LAYERS = 4  # the float32 run of Qwen3-30B-A3B's widths (about 12 GB)
+MOE_ADMIT_CHUNK = 512
+MOE_COUNTERS = ("flash_fwd", "decode", "paged_decode")
+
+
+@contextlib.contextmanager
+def moe_calls():
+    """Counts the calls of the MoE FFN's two routes (moe_ffn_grouped, the
+    card's; moe_ffn_dense_reference, the masked-dense loop) made while
+    active. A captured step's replays call neither: eager calls only."""
+    calls = {"grouped": 0, "dense": 0}
+    saved = moe.moe_ffn_grouped, moe.moe_ffn_dense_reference
+
+    def counted(key, fn):
+        def call(*args, **kw):
+            calls[key] += 1
+            return fn(*args, **kw)
+        return call
+
+    moe.moe_ffn_grouped = counted("grouped", saved[0])
+    moe.moe_ffn_dense_reference = counted("dense", saved[1])
+    try:
+        yield calls
+    finally:
+        moe.moe_ffn_grouped, moe.moe_ffn_dense_reference = saved
+
+
+@contextlib.contextmanager
+def router_log():
+    """Records each router_gates call made while active, in order: its
+    picks (sorted within each token) and its float32 logits [T, E]. A
+    run's calls go layer by layer, call by call."""
+    calls: list[tuple[torch.Tensor, torch.Tensor]] = []
+    saved = moe.router_gates
+
+    def gates(x, router_w, top_k, norm_topk=True):
+        ids, g = saved(x, router_w, top_k, norm_topk)
+        calls.append((torch.sort(ids, dim=-1).values, torch.matmul(x.float(), router_w.float())))
+        return ids, g
+
+    moe.router_gates = gates
+    try:
+        yield calls
+    finally:
+        moe.router_gates = saved
+
+
+def routing_flips(kern: list, plain: list, layers: int) -> list[tuple[int, int, int, float]]:
+    """(call, layer, token, margin) of every (token, layer) whose picks
+    differ between two runs of one model, call for call: the margin is the
+    plain run's k-th and (k+1)-th logits' distance in bf16 steps."""
+    check(len(kern) == len(plain), f"{len(kern)} router calls against {len(plain)}")
+    flips = []
+    for c, ((k_ids, _), (p_ids, logits)) in enumerate(zip(kern, plain)):
+        edge = torch.topk(logits, k_ids.shape[-1] + 1, dim=-1).values[:, -2:]
+        for t in (k_ids != p_ids).any(-1).nonzero()[:, 0].tolist():
+            flips.append((c, c % layers, t, bf16_steps(float(edge[t, 0]), float(edge[t, 1]))))
+    return flips
+
+
+@contextlib.contextmanager
+def forced_routing(picks: list):
+    """router_gates made to return, call by call, the picks another run
+    recorded (router_log's), with gates from this run's own logits by the
+    same formula; yields (ties, logits): the ties are (call, token, margin)
+    wherever this run's own top k differ from the forced picks, the margin
+    the distance in bf16 steps from its own k-th logit down to the lowest
+    forced one; the logits this run's routers computed, call by call."""
+    ties: list[tuple[int, int, float]] = []
+    seen: list[torch.Tensor] = []
+    saved = moe.router_gates
+    calls = iter(enumerate(picks))
+
+    def gates(x, router_w, top_k, norm_topk=True):
+        c, (ids, _) = next(calls)
+        logits = torch.matmul(x.float(), router_w.float())
+        seen.append(logits)
+        vals = logits.gather(-1, ids)
+        g = (torch.softmax(vals, dim=-1) if norm_topk
+             else torch.exp(vals - torch.logsumexp(logits, dim=-1, keepdim=True)))
+        own = torch.topk(logits, top_k, dim=-1)
+        kth, low = own.values[:, -1], vals.min(dim=-1).values
+        moved = (torch.sort(own.indices, dim=-1).values != ids).any(-1)
+        for t in moved.nonzero()[:, 0].tolist():
+            ties.append((c, t, bf16_steps(float(kth[t]), float(low[t]))))
+        return ids, g
+
+    moe.router_gates = gates
+    try:
+        yield ties, seen
+    finally:
+        moe.router_gates = saved
+
+
+def moe_logits_gate(model, name: str, prompt, forced, log: str, bf16: bool) -> None:
+    """A prefill of the prompt and teacher-forced decode steps through the
+    kernels and the grouped dispatch against the plain route (attention's
+    plain versions and the masked-dense loop) under phase 3's logits rule,
+    the routing of both runs recorded and every (token, layer) whose picks
+    differ printed with its margin.
+
+    In bf16 the two routes round the hidden state differently, picks flip
+    at near-ties, and a flipped token then differs by a whole expert, so
+    the runs drift apart and flip more, at any margin: the free-running
+    pair prints its flips and logits ungated. The gate is a second plain
+    run with the routing teacher-forced to the kernel run's picks (as phase
+    15 teacher-forces generate on the speculative tokens): its logits must
+    pass the rule, and so must every layer's router logits over all its
+    calls against the kernel run's: the routers saw the same inputs up to
+    rounding, so every pick the plain route would have made otherwise is a
+    near-tie at that rounding; those picks print with their margins and the
+    share within TIE_ULPS bf16 steps. In float32 (`bf16` False) the
+    free-running plain run must pass the rule: no flip excuses a miss."""
+    cfg = model.cfg
+    layers = cfg.num_layers
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with moe_calls() as calls, router_log() as kern_route:
+        kern = generation_run(model, prompt, forced, max_len=FAMILY_MAX_LEN)
+    run_s = time.perf_counter() - t0
+    added = {k: v for k, v in read_launches().items() if v}
+    want = {"flash_fwd": layers, "decode": forced.shape[0] * layers}
+    check(added == want, f"{name} kernel run launched {added}, want {want}")
+    n_calls = (forced.shape[0] + 1) * layers
+    check(calls == {"grouped": n_calls, "dense": 0},
+          f"{name} kernel run's MoE calls {calls}, want {n_calls} grouped and no masked-dense")
+    print(f"{log} kernel run (prefill S={prompt.shape[1]} and {forced.shape[0]} decode steps) "
+          f"in {run_s:.3f} s, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"launches {added}, MoE FFN calls {calls}")
+    with plain_kernels(), router_log() as plain_route:
+        plain = generation_run(model, prompt, forced, max_len=FAMILY_MAX_LEN)
+    check({k: v for k, v in read_launches().items() if v} == want,
+          f"{name} plain run launched a kernel")
+    flips = routing_flips(kern_route, plain_route, layers)
+    names = [f"prefill S={prompt.shape[1]}"] + [f"decode {i}" for i in range(1, len(kern))]
+    tag = f"{str(cfg.dtype).removeprefix('torch.')}, {layers} layers"
+    pairs = sum(int(ids.shape[0]) for ids, _ in kern_route)
+    first = {}
+    for c, layer, t, m in flips:
+        first.setdefault(layer, (names[c // layers], t, m))
+    print(f"{log} {name} {tag}, free-running routes: picks differ at {len(flips)} of {pairs} "
+          f"(token, layer) pairs, in {len(first)} of {layers} layers; margins in bf16 steps "
+          f"(plain route's k-th vs (k+1)-th logit) of each layer's first: "
+          + ", ".join(f"layer {layer} {nm} token {t} {m:.2f}"
+                      for layer, (nm, t, m) in sorted(first.items())[:12])
+          + f"{' ...' if len(first) > 12 else ''}; largest of all "
+          f"{max((m for *_, m in flips), default=0.0):.2f}")
+    if not bf16:
+        compare_logits(f"{tag}, free-running routes", kern, plain, names, model=name)
+        del kern, plain
+        return
+    for a, r, nm in zip(kern, plain, names):
+        logits_rule(f"{tag}, free-running routes (not gated)", a, r, nm, name)
+    del plain
+    with plain_kernels(), forced_routing(kern_route) as (ties, plain_logits):
+        plain = generation_run(model, prompt, forced, max_len=FAMILY_MAX_LEN)
+    compare_logits(f"{tag}, plain route's routing forced to the kernel run's picks", kern, plain,
+                   names, model=name)
+    routers = []
+    for layer in range(layers):
+        a = torch.cat([kern_route[c][1] for c in range(layer, len(kern_route), layers)])
+        r = torch.cat([plain_logits[c] for c in range(layer, len(plain_logits), layers)])
+        routers.append((layer, *rule_numbers(a, r)))
+    worst_cos = min(routers, key=lambda x: x[1])
+    worst_rel = max(routers, key=lambda x: x[2] / x[3])
+    print(f"{log} {name} {tag}, forced routing: every layer's router logits (all calls) "
+          f"against the kernel run's under the logits rule: lowest cos {worst_cos[1]:.6f} (layer "
+          f"{worst_cos[0]}), largest max|d| {worst_rel[2]:.4f} of its limit {worst_rel[3]:.4f} "
+          f"(layer {worst_rel[0]})")
+    for layer, cos, delta, lim in routers:
+        check(cos > LOGIT_COS and delta <= lim, f"{name} {tag}: layer {layer}'s router logits "
+              f"disagree with the kernel run's: cos {cos:.6f}, max|d| {delta:.4f} (<= {lim:.4f})")
+    by_layer: dict[int, float] = {}
+    for c, _, m in ties:
+        by_layer[c % layers] = max(by_layer.get(c % layers, 0.0), m)
+    near = sum(m <= TIE_ULPS for *_, m in ties)
+    print(f"{log} {name} {tag}, forced routing: the plain route's own top {cfg.top_k_experts} "
+          f"differ from the kernel run's picks at {len(ties)} of {pairs} (token, layer) pairs, "
+          f"{near} of them within {TIE_ULPS} bf16 steps; largest margin (bf16 steps from its "
+          f"k-th logit down to the lowest forced one) by layer: "
+          + ", ".join(f"{layer}: {m:.2f}" for layer, m in sorted(by_layer.items())))
+    del kern, plain, plain_logits
+
+
+def moe_module_gate(model, prompt, log: str) -> None:
+    """moe_ffn_grouped against the masked-dense loop on layer 0's MLP input
+    for the prompt (the embedding through layer 0's attention and
+    mlp_norm), at T 2 (a decode step's two slots) and the whole prompt:
+    bf16 verify_results at O_ATOL, the same router ids on both sides; each
+    route timed by CUDA graph beside its bound (utils/roofline.py's
+    moe_roofline over the experts the routing touches) and the bytes every
+    expert holds (what the masked-dense loop reads)."""
+    cfg = model.cfg
+    layer = model.layers[0]
+    params = layer.moe.routed()
+    args = (cfg.top_k_experts, cfg.mlp_activation, cfg.moe_norm_topk)
+    with torch.inference_mode():
+        x = llama.embed_tokens(model, prompt)
+        cos, sin = llama.input_tables(cfg, prompt)
+        x = x + llama._attn_block(layer, x, cos, sin, cfg)
+        xn = llama.rms_norm(x, layer.mlp_norm, cfg.norm_eps, cfg.norm_offset)[0]
+    for t in (2, xn.shape[0]):
+        xt = xn[:t].contiguous()
+        with torch.inference_mode():
+            got = moe.moe_ffn_grouped(xt, params, *args)
+            want = moe.moe_ffn_dense_reference(xt, params, *args)
+            ids, _ = moe.router_gates(xt, params["router"], cfg.top_k_experts, cfg.moe_norm_topk)
+            ms = cuda_time_ms(lambda: moe.moe_ffn_grouped(xt, params, *args))
+            plain_ms = cuda_time_ms(lambda: moe.moe_ffn_dense_reference(xt, params, *args),
+                                    warmup=1, iters=3, reps=3)
+        rep = verify_results(want, got, atol=O_ATOL)
+        touched = int(torch.unique(ids).numel())
+        lim = roofline.moe_roofline(t, cfg.hidden_size, cfg.intermediate_size, cfg.num_experts,
+                                    cfg.top_k_experts, touched)
+        every = 3 * cfg.num_experts * cfg.hidden_size * cfg.intermediate_size * 2
+        print(f"{log} MoE FFN, layer 0, T={t} ({cfg.num_experts} experts of "
+              f"{cfg.intermediate_size}, top {cfg.top_k_experts}, {touched} experts touched): "
+              f"grouped dispatch against the masked-dense loop {rep} (atol={O_ATOL}, rtol=0.01, "
+              f"cos>0.999), bitwise {'equal' if torch.equal(got, want) else 'different'}; "
+              f"grouped {ms:.4f} ms, masked-dense {plain_ms:.4f} ms, bound {lim.bound_ms:.4f} ms "
+              f"by {lim.bound_by} ({lim.hbm_bytes / 1e9:.3f} GB, {lim.flops / 1e12:.4f} "
+              f"TFLOP; every expert {every / 1e9:.2f} GB)")
+        check(rep.passed, f"MoE FFN T={t}: the grouped dispatch disagrees with the "
+              f"masked-dense loop: {rep}")
+
+
+def moe_sync_gate(model, gen: torch.Generator, log: str) -> float:
+    """One eager decode_step (2 slots) and one chunk_step (2 x 512 tokens)
+    of the MoE model under torch.cuda.set_sync_debug_mode("error"): any
+    operation that waits on the card from the host raises. Returns the
+    bytes of weights that decode step reads: all but the experts', and
+    the experts its routing touched in each layer."""
+    cfg = model.cfg
+    b, n = 2, 300
+    caches = generate.init_caches(model, b, 2048)
+    prompt = torch.randint(0, cfg.vocab_size, (b, n), generator=gen, device="cuda")
+    _, caches = generate.prefill(model, prompt, caches)
+    token = torch.randint(0, cfg.vocab_size, (b,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    pos = torch.full((b,), n, dtype=torch.int32, device="cuda")
+    piece = torch.randint(0, cfg.vocab_size, (b, MOE_ADMIT_CHUNK), generator=gen, device="cuda")
+    positions = torch.arange(n + 1, n + 1 + MOE_ADMIT_CHUNK, device="cuda")
+    generate.decode_step(model, token, pos, clone_caches(caches))  # loads every library
+    generate.chunk_step(model, piece, positions, clone_caches(caches))
+    torch.cuda.synchronize()
+    with router_log() as route:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            generate.decode_step(model, token, pos, caches)
+            generate.chunk_step(model, piece, positions, caches)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    touched = sum(int(torch.unique(ids).numel()) for ids, _ in route[:cfg.num_layers])
+    expert = 3 * cfg.hidden_size * cfg.intermediate_size * 2
+    others = sum(p.numel() * p.element_size() for name, p in model.named_parameters()
+                 if not re.search(r"\.moe\.w_(gate|up|down)$", name))
+    others -= model.embed.numel() * model.embed.element_size()  # two rows read, not the table
+    print(f"{log} set_sync_debug_mode('error') around an eager decode_step (B={b}) and a "
+          f"chunk_step (B={b}, {MOE_ADMIT_CHUNK} tokens): no operation synchronised with the "
+          f"host; that decode step's routing touched {touched} experts over "
+          f"{cfg.num_layers} layers ({touched / cfg.num_layers:.1f} a layer), its weights' "
+          f"read {(others + touched * expert) / 1e9:.2f} GB ({others / 1e9:.2f} GB besides the "
+          f"experts)")
+    del caches
+    return others + touched * expert
+
+
+def moe_servers(model, name: str, gen: torch.Generator, log: str, step_bytes: float,
+                bf16_paged: bool) -> dict[str, int]:
+    """Phase 9's traffic (4 requests of 4,200-6,000 prompt tokens, 32 new,
+    2 slots, max_len 8192) on the bf16 server and the int8-KV paged server
+    (pages of 256, admit_chunk MOE_ADMIT_CHUNK, a 1,024-token prefix before
+    requests 1 and 3); with bf16_paged also a bf16 paged server, whose
+    tokens must equal the bf16 dense server's. device_step_ms beside the
+    weights' read of a step (step_bytes at 3.35 TB/s). Every eager MoE call
+    through the grouped dispatch. Returns the launches of the runs."""
+    cfg = model.cfg
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen, device="cuda").tolist()
+               for n in MISTRAL_SERVED]
+    runs = {}
+    dense_tokens, paged_tokens = {}, {}
+    with moe_calls() as calls:
+        runs["bf16"] = long_prompt_server(model, f"bf16 server, 2 slots, max_len "
+                                          f"{FAMILY_MAX_LEN}", prompts, None, log=log,
+                                          max_len=FAMILY_MAX_LEN, tokens=dense_tokens)
+        if bf16_paged:
+            runs["bf16 paged"] = long_prompt_server(
+                model, f"bf16 paged server (pages of {PAGE})", prompts, None, log=log,
+                max_len=FAMILY_MAX_LEN, tokens=paged_tokens, paged=True, page_size=PAGE)
+        prefix = prompts[0][:MISTRAL_PREFIX]
+        served = [p if uid % 2 == 0 else prefix + p[MISTRAL_PREFIX:]
+                  for uid, p in enumerate(prompts)]
+        runs["int8-KV paged"] = long_prompt_server(
+            model, f"int8-KV paged server (pages of {PAGE}, admit_chunk {MOE_ADMIT_CHUNK}, a "
+            f"{MISTRAL_PREFIX}-token prefix before requests 1 and 3)", served, prefix, log=log,
+            max_len=FAMILY_MAX_LEN, quant="int8", paged=True, page_size=PAGE,
+            admit_chunk=MOE_ADMIT_CHUNK)
+    check(calls["dense"] == 0 and calls["grouped"] > 0,
+          f"{name} servers' MoE calls {calls}: the masked-dense loop ran")
+    if bf16_paged:
+        check(paged_tokens == dense_tokens,
+              f"{name}: the bf16 paged server's tokens differ from the dense server's")
+        print(f"{log} {name}: the bf16 paged and dense servers give equal tokens for all "
+              f"{len(prompts)} requests")
+    bound_ms = step_bytes / 3.35e12 * 1e3
+    print(f"{log} {name}: a decode step's weights' read {step_bytes / 1e9:.2f} GB, "
+          f"{bound_ms:.3f} ms at 3.35 TB/s (device_step_ms of each server above); eager MoE "
+          f"calls {calls}")
+    check(runs["bf16"]["flash_fwd"] > 0 and runs["bf16"]["decode"] > 0
+          and runs["int8-KV paged"]["paged_decode"] > 0,
+          f"a kernel missed the {name} servers: {runs}")
+    total: dict[str, int] = {}
+    for run in runs.values():
+        add_launches(total, {k: run[k] for k in MOE_COUNTERS})
+    return total
+
+
+def moe_hf_config(source: dict, dtype: torch.dtype = torch.bfloat16, layers: int | None = None):
+    """config_from_hf of a public config.json (its depth cut to `layers`)."""
+    fields = dict(source, **({"num_hidden_layers": layers} if layers else {}))
+    return convert.config_from_hf(fields, dtype)
+
+
+def phase_moe(gen: torch.Generator) -> dict[str, int]:
+    """Phase 16 (the comment above). Qwen3-30B-A3B in bf16 at full width
+    and depth: the module gate, the whole-model logits gate (the plain
+    route's routing teacher-forced to the kernel run's, every pick it
+    would change a near-tie), the sync-debug gate, phase 4's capture gate
+    (bitwise), the servers; then its widths cut to MOE_F32_LAYERS layers in
+    float32, free-running, where no flip excuses a miss; then Qwen1.5-MoE-A2.7B from its
+    Hugging Face directory: the logits gate and the servers. Each model is
+    freed before the next. Returns the launches of the server runs."""
+    log = "[moe]"
+    total: dict[str, int] = {}
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on: the router's float32 product must run in float32")
+    cfg = moe_hf_config(QWEN3_30B_A3B_JSON)
+    name = "Qwen3-30B-A3B"
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    print(f"{log} {name}: {cfg.num_layers} layers, hidden {cfg.hidden_size}, GQA "
+          f"{cfg.num_heads}/{cfg.num_kv_heads}, D {cfg.head_dim}, q/k RMSNorm, "
+          f"{cfg.num_experts} experts of {cfg.intermediate_size} (config.json's "
+          f"moe_intermediate_size), top {cfg.top_k_experts} renormalised; {n / 1e9:.3f} B "
+          f"random bf16 parameters on the card in {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    prompt = torch.randint(0, cfg.vocab_size, (1, FAMILY_PROMPT), generator=gen, device="cuda")
+    forced = torch.randint(0, cfg.vocab_size, (4,), generator=gen, device="cuda")
+    moe_module_gate(model, prompt, log)
+    moe_logits_gate(model, name, prompt, forced, log, bf16=True)
+    step_bytes = moe_sync_gate(model, gen, log)
+    capture_gate("bf16 weights, bf16 KV", model, None, False, gen, name=name, bitwise=True)
+    add_launches(total, moe_servers(model, name, gen, log, step_bytes, bf16_paged=True))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg32 = moe_hf_config(QWEN3_30B_A3B_JSON, torch.float32, layers=MOE_F32_LAYERS)
+    model = init_params(cfg32, gen, device="cuda")
+    print(f"{log} {name} widths cut to {MOE_F32_LAYERS} layers in float32: "
+          f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B parameters, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    moe_logits_gate(model, f"{name} ({MOE_F32_LAYERS} layers)", prompt, forced, log,
+                    bf16=False)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    name = "Qwen1.5-MoE-A2.7B"
+    cfg = moe_hf_config(QWEN15_MOE_JSON)
+    def weight_bytes(layers: int) -> int:
+        meta = llama.Llama(dataclasses.replace(cfg, num_layers=layers), device="meta")
+        return sum(p.numel() * p.element_size() for p in meta.parameters())
+
+    per_layer = weight_bytes(1) - weight_bytes(0)
+    need = weight_bytes(cfg.num_layers) * 1.05
+    free = shutil.disk_usage(tempfile.gettempdir()).free
+    if free < need:
+        fit = max(1, int((free / 1.05 - weight_bytes(0)) / per_layer))
+        print(f"{log} {name}: {free / 1e9:.1f} GB free on the disk for a {need / 1e9:.1f} GB "
+              f"checkpoint: depth cut to {fit} of {cfg.num_layers} layers for the loader's "
+              f"round trip and this model's gates and servers")
+        cfg = moe_hf_config(QWEN15_MOE_JSON, layers=fit)
+    model = load_from_hf_dir(cfg, name, gen, log)
+    prompt = torch.randint(0, cfg.vocab_size, (1, FAMILY_PROMPT), generator=gen, device="cuda")
+    forced = torch.randint(0, cfg.vocab_size, (4,), generator=gen, device="cuda")
+    moe_logits_gate(model, name, prompt, forced, log, bf16=True)
+    step_bytes = moe_sync_gate(model, gen, log)
+    add_launches(total, moe_servers(model, name, gen, log, step_bytes, bf16_paged=False))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{log} launches of the server runs: {total}")
+    return total
+
+
 class PhaseClock:
     """Prints each phase's seconds as it ends."""
 
@@ -3395,6 +3919,8 @@ def run() -> None:
     spec, k2_verify = phase_speculate(gen)
     add_launches(launches, spec)
     clock.done("15 speculative decoding")
+    add_launches(launches, phase_moe(gen))
+    clock.done("16 Qwen3-30B-A3B and Qwen1.5-MoE-A2.7B, mixture-of-experts")
     decode_src = ("flashattn_tpu_torch/csrc/decode.cu", "flashattn_tpu/ops/decode.py:351")
     qmm_src = "flashattn_tpu_torch/csrc/quant_matmul.cu"
     sources = {

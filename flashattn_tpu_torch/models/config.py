@@ -2,11 +2,15 @@
 
 ``ModelConfig`` keeps every field of the JAX config so that a config moves
 between the packages unchanged; ``dtype`` is a torch dtype. The port runs
-the dense Llama path with sliding windows (per layer with
+the Llama path with sliding windows (per layer with
 ``window_pattern="alternate"``), attention sinks, the attention logit
-soft-cap, Gemma-2's post-norms, Qwen3's q/k RMSNorm, Qwen2's q/k/v biases
-and the llama3 and longrope RoPE variants; ``check_supported`` rejects the
-fields whose port is still queued (ALiBi, the mixture-of-experts FFN).
+soft-cap, Gemma-2's post-norms, Qwen3's q/k RMSNorm, Qwen2's q/k/v biases,
+the llama3 and longrope RoPE variants and the mixture-of-experts FFN on one
+device (``num_experts``, ``top_k_experts``, ``moe_norm_topk``,
+``moe_shared_intermediate``; ``moe_dispatch`` and ``moe_capacity_factor``
+choose a dispatcher over an ``ep`` mesh only, as in the JAX package, and
+keep their defaults here); ``check_supported`` rejects the field whose
+port is still queued (ALiBi).
 """
 
 from __future__ import annotations
@@ -65,8 +69,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError(f"unknown window_pattern {cfg.window_pattern!r}")
     if cfg.use_alibi:
         raise unported("ALiBi", "A4 and A5")
-    if cfg.num_experts:
-        raise unported("mixture-of-experts FFN", "A9")
     if cfg.mlp_activation not in ("silu", "gelu_tanh"):
         raise ValueError(f"unknown mlp_activation {cfg.mlp_activation!r}")
 
@@ -169,4 +171,19 @@ TINY = ModelConfig(
     num_kv_heads=4,
     head_dim=32,
     max_seq_len=512,
+)
+
+# Tiny Mixtral-style MoE config for tests (the JAX package's TINY_MOE).
+TINY_MOE = ModelConfig(
+    vocab_size=256,
+    hidden_size=128,
+    intermediate_size=256,
+    num_layers=2,
+    num_heads=4,
+    num_kv_heads=2,
+    head_dim=32,
+    max_seq_len=256,
+    num_experts=4,
+    top_k_experts=2,
+    moe_capacity_factor=8.0,  # the JAX preset's; read only by a dispatcher over an ep mesh
 )

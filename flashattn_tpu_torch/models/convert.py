@@ -4,19 +4,26 @@
     projections in [in, out] layout under the same names, so the conversion
     is a plain copy: no transposes, no renames beyond flattening
     ``layers[i][name]`` into ``layers.{i}.{name}`` (Gemma-2's
-    ``post_attn_norm`` and ``post_mlp_norm`` included). Weight-only quantized
-    projections keep their bytes too (int8, or the packed int4 layout).
+    ``post_attn_norm`` and ``post_mlp_norm`` included; a MoE layer's nested
+    ``moe`` tree into ``layers.{i}.moe.{router, ..., shared.w_gate}``).
+    Weight-only quantized projections keep their bytes too (int8, or the
+    packed int4 layout).
   - ``config_from_hf`` and ``params_from_hf``: a Hugging Face Llama-family
     checkpoint (Llama, Llama-3.1's llama3 RoPE, Mistral, Qwen2's biases,
     Qwen3's q/k norm, Phi-3's fused projections and longrope, Gemma,
-    Gemma-2), as the JAX package's models/convert.py maps it: HF stores a
-    projection as [out, in], so every one transposes; HF's RoPE is the same
-    rotate-half convention. The config comes from a transformers config
-    object or from the plain dict of a ``config.json``.
+    Gemma-2, and the mixture-of-experts families Mixtral, Qwen3-MoE and
+    Qwen2-MoE with its shared expert), as the JAX package's
+    models/convert.py maps it: HF stores a projection as [out, in], so
+    every one transposes; HF's RoPE is the same rotate-half convention; HF
+    keeps one entry an expert and projection, and the port stacks them on
+    axis 0, each copied into its slice of a tensor made at the layer's
+    first entry of that projection. The config comes from a transformers
+    config object or from the plain dict of a ``config.json``.
   - ``load_hf_dir``: a checkpoint directory (``config.json`` and single or
     sharded ``*.safetensors``, or ``pytorch_model*.bin``) read with neither
     transformers nor safetensors installed, one tensor at a time, so the
-    host never holds a second copy of the weights.
+    host never holds a second copy of the weights (nor a stacked copy of
+    the experts: each entry goes to the device, into its slice).
   - The command line writes the port's checkpoint (``model.pt``, a
     ``torch.save`` of the state dict, and ``config.json``), which
     ``load_converted`` reads back:
@@ -43,7 +50,6 @@ import torch
 
 from flashattn_tpu_torch.models.config import ModelConfig
 from flashattn_tpu_torch.models.llama import Llama
-from flashattn_tpu_torch.ops.common import unported
 
 def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """Flatten a JAX parameter tree of numpy arrays into a state dict.
@@ -55,11 +61,19 @@ def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     for name, value in tree.items():
         if name == "layers":
             for i, layer in enumerate(value):
-                for key, leaf in layer.items():
-                    _put(state_dict, f"layers.{i}.{key}", leaf)
+                _put_tree(state_dict, f"layers.{i}.", layer)
         else:
             _put(state_dict, name, value)
     return state_dict
+
+
+def _put_tree(state_dict: dict[str, torch.Tensor], prefix: str, tree: Mapping) -> None:
+    """Every leaf of a (nested: a MoE layer's ``moe``) dict under `prefix`."""
+    for key, leaf in tree.items():
+        if isinstance(leaf, Mapping):
+            _put_tree(state_dict, f"{prefix}{key}.", leaf)
+        else:
+            _put(state_dict, prefix + key, leaf)
 
 
 def _put(state_dict: dict[str, torch.Tensor], name: str, leaf) -> None:
@@ -100,8 +114,14 @@ def config_from_hf(hf_config, dtype: torch.dtype = torch.bfloat16) -> ModelConfi
     RoPE detected from model_type and rope_scaling. A config.json leaves
     out what equals transformers' base defaults, so a field missing from a
     dict takes that default (tie_word_embeddings: True). Mixture-of-experts
-    families map as in the JAX package; the model then refuses them
-    (check_supported, ROADMAP A9)."""
+    families map as in the JAX package, every layer a MoE layer (a config
+    with dense layers among them raises), with one difference: the Qwen MoE
+    families' intermediate_size is their expert width,
+    ``moe_intermediate_size``, where the JAX function keeps HF's
+    ``intermediate_size`` (Qwen3-30B-A3B: 768, not 6144). The JAX forward
+    takes the experts' shapes from the weights; the port's model allocates
+    them from the config (ROADMAP §C). Mixtral's intermediate_size is
+    already its expert width."""
     def get(name, default=None):
         return _field(hf_config, name, default)
 
@@ -125,9 +145,16 @@ def config_from_hf(hf_config, dtype: torch.dtype = torch.bfloat16) -> ModelConfi
     if mt == "mixtral":
         extra = dict(num_experts=get("num_local_experts"),
                      top_k_experts=get("num_experts_per_tok"))
+    intermediate = get("intermediate_size")
     if mt in ("qwen3_moe", "qwen2_moe"):
+        if get("decoder_sparse_step", 1) != 1 or get("mlp_only_layers"):
+            raise NotImplementedError(
+                f"{mt}: dense MLP layers among the MoE layers (decoder_sparse_step "
+                f"{get('decoder_sparse_step', 1)}, mlp_only_layers {get('mlp_only_layers')}) "
+                "are not supported, as in the JAX package")
         extra = dict(num_experts=get("num_experts"), top_k_experts=get("num_experts_per_tok"),
                      moe_norm_topk=bool(get("norm_topk_prob")))
+        intermediate = get("moe_intermediate_size")
         if mt == "qwen3_moe":
             extra["qk_norm"] = True
         else:
@@ -159,7 +186,7 @@ def config_from_hf(hf_config, dtype: torch.dtype = torch.bfloat16) -> ModelConfi
         **extra,
         vocab_size=get("vocab_size"),
         hidden_size=get("hidden_size"),
-        intermediate_size=get("intermediate_size"),
+        intermediate_size=intermediate,
         num_layers=get("num_hidden_layers"),
         num_heads=heads,
         num_kv_heads=get("num_key_value_heads") or heads,
@@ -179,7 +206,11 @@ def config_from_hf(hf_config, dtype: torch.dtype = torch.bfloat16) -> ModelConfi
 
 
 _LAYER_KEY = re.compile(r"model\.layers\.(\d+)\.(.+)")
-_MOE_KEY = re.compile(r"block_sparse_moe\.|mlp\.experts\.|mlp\.gate\.weight|mlp\.shared_expert")
+# One expert's projection: Mixtral's block_sparse_moe.experts.j.w1/w3/w2, the
+# Qwen MoE families' mlp.experts.j.gate_proj/up_proj/down_proj.
+_EXPERT_KEY = re.compile(r"(?:block_sparse_moe|mlp)\.experts\.(\d+)\.(\w+)\.weight")
+_EXPERT_PROJ = {"w1": "w_gate", "w3": "w_up", "w2": "w_down", "gate_proj": "w_gate",
+                "up_proj": "w_up", "down_proj": "w_down"}
 _LINEAR = {  # HF [out, in] weights -> the port's [in, out] parameters
     "self_attn.q_proj.weight": "wq", "self_attn.k_proj.weight": "wk",
     "self_attn.v_proj.weight": "wv", "self_attn.o_proj.weight": "wo",
@@ -195,41 +226,53 @@ _VECTOR = {  # as they are
     "pre_feedforward_layernorm.weight": "mlp_norm",
     "post_feedforward_layernorm.weight": "post_mlp_norm",
 }
+_MOE_LINEAR = {  # the router and Qwen2-MoE's shared expert, [out, in] -> [in, out]
+    "block_sparse_moe.gate.weight": "moe.router", "mlp.gate.weight": "moe.router",
+    "mlp.shared_expert.gate_proj.weight": "moe.shared.w_gate",
+    "mlp.shared_expert.up_proj.weight": "moe.shared.w_up",
+    "mlp.shared_expert.down_proj.weight": "moe.shared.w_down",
+    "mlp.shared_expert_gate.weight": "moe.shared_gate",  # [1, H] -> [H, 1]
+}
 
 
 def _hf_entries(name: str, tensor: torch.Tensor, cfg: ModelConfig
-               ) -> list[tuple[str, torch.Tensor]]:
-    """The port's (name, tensor) pairs of one HF checkpoint entry, as views
-    of `tensor`: [out, in] weights transposed, Phi-3's fused qkv_proj and
-    gate_up_proj split; none for an entry the port keeps no copy of (a
-    tied head, RoPE's inv_freq buffers). Raises for a mixture-of-experts
-    entry (ROADMAP A9) and for an entry with no place in the model."""
+               ) -> list[tuple[str, torch.Tensor, int | None]]:
+    """The port's (name, view, slot) triples of one HF checkpoint entry, the
+    views of `tensor`: [out, in] weights transposed, Phi-3's fused qkv_proj
+    and gate_up_proj split; an expert's projection names its stacked
+    tensor and its slot (the expert's index), every other entry slot None;
+    none for an entry the port keeps no copy of (a tied head, RoPE's
+    inv_freq buffers). Raises for an entry with no place in the model."""
     if name == "model.embed_tokens.weight":
-        return [("embed", tensor)]
+        return [("embed", tensor, None)]
     if name == "model.norm.weight":
-        return [("final_norm", tensor)]
+        return [("final_norm", tensor, None)]
     if name == "lm_head.weight":
-        return [] if cfg.tie_embeddings else [("lm_head", tensor.t())]
+        return [] if cfg.tie_embeddings else [("lm_head", tensor.t(), None)]
     m = _LAYER_KEY.fullmatch(name)
     key = m.group(2) if m else ""
     if key.endswith("rotary_emb.inv_freq"):
         return []
-    if _MOE_KEY.match(key):
-        raise unported("mixture-of-experts FFN", "A9")
     p = f"layers.{m.group(1)}." if m else ""
+    expert = _EXPERT_KEY.fullmatch(key)
+    if cfg.num_experts and expert and expert.group(2) in _EXPERT_PROJ \
+            and int(expert.group(1)) < cfg.num_experts:
+        return [(p + "moe." + _EXPERT_PROJ[expert.group(2)], tensor.t(), int(expert.group(1)))]
+    if cfg.num_experts and key in _MOE_LINEAR:
+        return [(p + _MOE_LINEAR[key], tensor.t(), None)]
     if key in _LINEAR:
-        return [(p + _LINEAR[key], tensor.t())]
+        return [(p + _LINEAR[key], tensor.t(), None)]
     if key == "post_attention_layernorm.weight":
-        return [(p + ("post_attn_norm" if cfg.use_post_norms else "mlp_norm"), tensor)]
+        return [(p + ("post_attn_norm" if cfg.use_post_norms else "mlp_norm"), tensor, None)]
     if key in _VECTOR:
-        return [(p + _VECTOR[key], tensor)]
+        return [(p + _VECTOR[key], tensor, None)]
     if key == "self_attn.qkv_proj.weight":  # Phi-3: [q; k; v] rows
         nq, nkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
-        return [(p + "wq", tensor[:nq].t()), (p + "wk", tensor[nq:nq + nkv].t()),
-                (p + "wv", tensor[nq + nkv:].t())]
+        return [(p + "wq", tensor[:nq].t(), None), (p + "wk", tensor[nq:nq + nkv].t(), None),
+                (p + "wv", tensor[nq + nkv:].t(), None)]
     if key == "mlp.gate_up_proj.weight":  # Phi-3: [gate; up] rows
         half = tensor.shape[0] // 2
-        return [(p + "w_gate", tensor[:half].t()), (p + "w_up", tensor[half:].t())]
+        return [(p + "w_gate", tensor[:half].t(), None), (p + "w_up", tensor[half:].t(), None)]
     raise ValueError(f"checkpoint entry {name!r} has no place in the port's Llama model")
 
 
@@ -239,18 +282,50 @@ def _copy(view: torch.Tensor, dtype: torch.dtype, device=None) -> torch.Tensor:
     return out.copy_(view)
 
 
+class _StateDict:
+    """A state dict of Llama(cfg) in cfg.dtype, built from _hf_entries'
+    triples on the views' device: a whole tensor copied, or an expert's
+    projection copied into its slot of the stacked [num_experts, ...]
+    tensor, made at the first entry that names it."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.out: dict[str, torch.Tensor] = {}
+        self.slots: dict[str, set[int]] = {}
+
+    def put(self, key: str, view: torch.Tensor, slot: int | None) -> None:
+        if slot is None:
+            self.out[key] = _copy(view, self.cfg.dtype)
+            return
+        if key not in self.out:
+            self.out[key] = torch.empty((self.cfg.num_experts, *view.shape),
+                                        dtype=self.cfg.dtype, device=view.device)
+            self.slots[key] = set()
+        self.out[key][slot].copy_(view)
+        self.slots[key].add(slot)
+
+    def result(self) -> dict[str, torch.Tensor]:
+        """The state dict; raises where a stacked tensor lacks an expert."""
+        for key, slots in self.slots.items():
+            if len(slots) != self.cfg.num_experts:
+                missing = sorted(set(range(self.cfg.num_experts)) - slots)
+                raise ValueError(f"the checkpoint lacks experts {missing} of {key}")
+        return self.out
+
+
 def params_from_hf(state_dict: Mapping[str, torch.Tensor], cfg: ModelConfig
                    ) -> dict[str, torch.Tensor]:
     """An HF Llama-family state dict -> a state dict of Llama(cfg), in
     cfg.dtype on the tensors' device: weights transposed, fused
-    projections split, Gemma-2's norm names followed, q_norm/k_norm and
-    the biases carried, a tied head dropped. New tensors: the input is not
-    changed and shares no memory with the result."""
-    out: dict[str, torch.Tensor] = {}
+    projections split, experts stacked, Gemma-2's norm names followed,
+    q_norm/k_norm and the biases carried, a tied head dropped. New
+    tensors: the input is not changed and shares no memory with the
+    result."""
+    out = _StateDict(cfg)
     for name, tensor in state_dict.items():
-        for key, view in _hf_entries(name, tensor, cfg):
-            out[key] = _copy(view, cfg.dtype)
-    return out
+        for key, view, slot in _hf_entries(name, tensor, cfg):
+            out.put(key, view, slot)
+    return out.result()
 
 
 def llama_from_state_dict(cfg: ModelConfig, state_dict: Mapping[str, torch.Tensor]) -> Llama:
@@ -323,20 +398,20 @@ def load_hf_dir(path: str | Path, dtype: torch.dtype = torch.bfloat16,
     """A Hugging Face checkpoint directory -> (Llama on `device`, its config),
     with neither transformers nor safetensors: ``config.json`` through
     config_from_hf, the weights through read_hf_tensors and _hf_entries,
-    tensor by tensor (each one copied to the device, then transposed or
-    split there and cast to `dtype`), so the host holds one tensor at a
-    time beside the mapped files."""
+    tensor by tensor (each one copied to the device, then transposed, split
+    or copied into its expert's slot there and cast to `dtype`), so the host
+    holds one tensor at a time beside the mapped files."""
     path = Path(path)
     cfg = config_from_hf(json.loads((path / "config.json").read_text()), dtype)
     device = torch.device(device)
-    params: dict[str, torch.Tensor] = {}
+    params = _StateDict(cfg)
     for name, tensor in read_hf_tensors(path):
         if not _hf_entries(name, tensor, cfg):  # kept nowhere: not copied
             continue
-        raw = tensor.to(device)  # as stored; transposed and split on the device
-        for key, view in _hf_entries(name, raw, cfg):
-            params[key] = _copy(view, dtype)
-    return llama_from_state_dict(cfg, params), cfg
+        raw = tensor.to(device)  # as stored; transposed, split or stacked on the device
+        for key, view, slot in _hf_entries(name, raw, cfg):
+            params.put(key, view, slot)
+    return llama_from_state_dict(cfg, params.result()), cfg
 
 
 # ---------------- the port's converted checkpoints ----------------

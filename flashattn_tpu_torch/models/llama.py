@@ -19,6 +19,12 @@ The model-family fields of the JAX config are ported: Qwen2's q/k/v
 biases (``attn_bias``), Qwen3's q/k RMSNorm (``qk_norm``), Llama-3.1's
 llama3 RoPE (``rope_scaling``) and Phi-3's longrope (``rope_longrope``);
 every site that feeds attention takes q, k and v from ``attention_inputs``.
+
+A mixture-of-experts config (``num_experts``: Mixtral, Qwen3-MoE,
+Qwen2-MoE with its shared expert) holds ``moe`` in each layer in place of
+the dense MLP's weights; its FFN is parallel/moe.py's grouped dispatch,
+the JAX single-device function (moe_ffn_dense_reference) computed over the
+picked experts only.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from flashattn_tpu_torch.ops.common import card_device
 from flashattn_tpu_torch.ops.quant_matmul import (QuantizedLinear, quant_matmul,
                                                   quantize_weights)
 from flashattn_tpu_torch.ops.varlen import flash_attention_varlen
+from flashattn_tpu_torch.parallel import moe
 
 # Projections eligible for weight-only quantization: everything but the
 # embedding (a gather, not a product) and the norms.
@@ -61,9 +68,13 @@ class LlamaLayer(nn.Module):
         self.wv = param(h, nkv * hd)
         self.wo = param(nq * hd, h)
         self.mlp_norm = param(h)
-        self.w_gate = param(h, f)
-        self.w_up = param(h, f)
-        self.w_down = param(f, h)
+        if cfg.num_experts:  # routed experts (and a shared one) in place of the MLP
+            self.moe = moe.Experts(h, f, cfg.num_experts, cfg.moe_shared_intermediate,
+                                   cfg.dtype, device)
+        else:
+            self.w_gate = param(h, f)
+            self.w_up = param(h, f)
+            self.w_down = param(f, h)
         if cfg.attn_bias:  # Qwen2's additive q/k/v biases
             self.bq = param(nq * hd)
             self.bk = param(nkv * hd)
@@ -77,8 +88,9 @@ class LlamaLayer(nn.Module):
 
 
 class Llama(nn.Module):
-    """Parameters of the dense decoder: ``embed``, ``final_norm``,
-    ``lm_head`` (untied configs) and ``layers.{i}.{wq, wk, ...}``.
+    """Parameters of the decoder: ``embed``, ``final_norm``, ``lm_head``
+    (untied configs) and ``layers.{i}.{wq, wk, ...}`` (a MoE layer's
+    experts under ``layers.{i}.moe``: moe.Experts).
 
     The computation lives in the functions of this module and in
     models/generate.py, as in the JAX package."""
@@ -138,9 +150,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         dense(layer.wk, h)
         dense(layer.wv, h)
         dense(layer.wo, cfg.num_heads * cfg.head_dim)
-        dense(layer.w_gate, h)
-        dense(layer.w_up, h)
-        dense(layer.w_down, cfg.intermediate_size)
+        if cfg.num_experts:
+            drawn = moe.init_moe_params(generator, h, cfg.intermediate_size, cfg.num_experts,
+                                        cfg.dtype)
+            for name, value in drawn.items():
+                getattr(layer.moe, name).copy_(value)
+            if cfg.moe_shared_intermediate:
+                shared = layer.moe.shared
+                dense(shared.w_gate, h)
+                dense(shared.w_up, h)
+                dense(shared.w_down, cfg.moe_shared_intermediate)
+                dense(layer.moe.shared_gate, h)
+        else:
+            dense(layer.w_gate, h)
+            dense(layer.w_up, h)
+            dense(layer.w_down, cfg.intermediate_size)
     return model
 
 
@@ -160,7 +184,9 @@ def quantize_params(model: Llama, bits: int = 8) -> Llama:
     """Weight-only quantization of every projection and of an untied
     lm_head, IN PLACE: each becomes a QuantizedLinear module (buffers ``w``
     and ``scale``, quantized as the JAX package's quantize_params does). The
-    embedding and the norms stay in the compute dtype. Returns `model`."""
+    embedding and the norms stay in the compute dtype, and so does a MoE
+    layer's ``moe`` (router and experts): the JAX function quantizes a
+    layer's top-level projections only. Returns `model`."""
     def swap(module: nn.Module, name: str) -> None:
         qw = quantize_weights(getattr(module, name), bits)
         delattr(module, name)  # a parameter slot takes no module
@@ -170,7 +196,8 @@ def quantize_params(model: Llama, bits: int = 8) -> Llama:
         swap(model, "lm_head")
     for layer in model.layers:
         for key in _QUANT_KEYS:
-            swap(layer, key)
+            if key in layer._parameters:  # a MoE layer has no dense MLP weights
+                swap(layer, key)
     return model
 
 
@@ -265,10 +292,29 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 def _mlp_block(layer: LlamaLayer, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     xn = rms_norm(x, layer.mlp_norm, cfg.norm_eps, cfg.norm_offset)
+    if cfg.num_experts:
+        return _moe_block(layer.moe, xn, cfg)
     gate = proj(xn, layer.w_gate).float()
     act = (F.gelu(gate, approximate="tanh") if cfg.mlp_activation == "gelu_tanh"
            else F.silu(gate))
     return proj(act.to(x.dtype) * proj(xn, layer.w_up), layer.w_down)
+
+
+def _moe_block(experts: moe.Experts, xn: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The MoE FFN of the normed xn [..., H]: the routed experts by the
+    grouped dispatch, plus, with cfg.moe_shared_intermediate (Qwen2-MoE),
+    the always-on shared expert times sigmoid(xn shared_gate), both in
+    float32 and the routed output rounded first, as the JAX layer adds
+    them."""
+    flat = xn.reshape(-1, xn.shape[-1])
+    out = moe.moe_ffn_grouped(flat, experts.routed(), cfg.top_k_experts, cfg.mlp_activation,
+                              cfg.moe_norm_topk)
+    if cfg.moe_shared_intermediate:
+        sh = experts.shared
+        shared_y = moe.swiglu(flat, sh.w_gate, sh.w_up, sh.w_down, cfg.mlp_activation).float()
+        coef = torch.sigmoid(torch.matmul(flat.float(), experts.shared_gate.float()))
+        out = (out.float() + coef * shared_y).to(xn.dtype)
+    return out.view(xn.shape)
 
 
 def residuals(layer: LlamaLayer, x: torch.Tensor, a: torch.Tensor,

@@ -1,0 +1,190 @@
+"""Mixture-of-experts FFN on one device (counterpart of flashattn_tpu/parallel/moe.py).
+
+Top-k routing with no capacity and no dropped token: each token's FFN
+output is the sum over its k picked experts of gate x SwiGLU expert(x).
+
+- ``moe_ffn_dense_reference`` is the JAX module's single-device function
+  and the plain version here: masked-dense, every expert over every token,
+  a float32 accumulator in ascending expert id. On the card it would read
+  every expert at every decode step (Qwen3-30B-A3B: 58 GB a step).
+- ``moe_ffn_grouped`` is the card route, the same function by a grouped
+  dispatch: the T·k (token, pick) pairs sorted by expert (a stable sort),
+  each expert's rows through its three products in one grouped product
+  each (``torch._grouped_mm``, the expert offsets on the device), the
+  outputs gathered back through the inverse permutation and summed in
+  float32 in each token's ascending expert order, the dense loop's order.
+  It rounds where the JAX function does: g and u in the compute dtype,
+  act(g) in float32 rounded to it, times u, then y in it. It reads nothing
+  back to the host and makes no shape that depends on the data (the
+  counts by a fixed-size scatter_add_ into E counters; no bincount,
+  nonzero, unique or boolean indexing), so a CUDA graph captures it with
+  the decode step (models/generate.py::DecodeGraph). The CPU runs the
+  same code.
+
+The expert products are plain matrix products, which the JAX package
+leaves to XLA outside any Pallas kernel; PyTorch computes them here, as
+torch.matmul computes the dense projections. ``moe_ffn`` and
+``moe_ffn_a2a``, the expert-parallel dispatchers, need an ``ep`` mesh of
+several cards (ROADMAP A9).
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from flashattn_tpu_torch.ops.common import unported
+
+ROUTED = ("router", "w_gate", "w_up", "w_down")  # the routed experts' parameters
+
+
+class Experts(nn.Module):
+    """A MoE layer's parameters, the JAX tree's ``layers[i]["moe"]``: router
+    [H, E], w_gate and w_up [E, H, F], w_down [E, F, H] (experts stacked on
+    axis 0, each in [in, out] layout); with a shared expert of width
+    `shared` (Qwen2-MoE), ``shared.{w_gate, w_up, w_down}`` and
+    ``shared_gate`` [H, 1]."""
+
+    def __init__(self, hidden: int, intermediate: int, num_experts: int, shared: int = 0,
+                 dtype: torch.dtype = torch.bfloat16, device: torch.device | str = "cuda"):
+        super().__init__()
+
+        def param(*shape):
+            return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+
+        self.router = param(hidden, num_experts)
+        self.w_gate = param(num_experts, hidden, intermediate)
+        self.w_up = param(num_experts, hidden, intermediate)
+        self.w_down = param(num_experts, intermediate, hidden)
+        if shared:
+            self.shared = nn.Module()
+            self.shared.w_gate = param(hidden, shared)
+            self.shared.w_up = param(hidden, shared)
+            self.shared.w_down = param(shared, hidden)
+            self.shared_gate = param(hidden, 1)
+
+    def routed(self) -> dict[str, torch.Tensor]:
+        """The routed experts' parameters as the FFN functions take them."""
+        return {name: getattr(self, name) for name in ROUTED}
+
+
+@torch.no_grad()
+def init_moe_params(generator: torch.Generator, hidden: int, intermediate: int,
+                    num_experts: int, dtype: torch.dtype = torch.float32
+                    ) -> dict[str, torch.Tensor]:
+    """Router and SwiGLU experts at the JAX package's scales (normal draws
+    in float32 times h**-0.5, w_down's times f**-0.5, cast to `dtype`),
+    experts stacked on axis 0, on the generator's device."""
+    def dense(shape, scale):
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=generator.device)
+        return (w * scale).to(dtype)
+
+    e, h, f = num_experts, hidden, intermediate
+    return {"router": dense((h, e), h**-0.5), "w_gate": dense((e, h, f), h**-0.5),
+            "w_up": dense((e, h, f), h**-0.5), "w_down": dense((e, f, h), f**-0.5)}
+
+
+def router_gates(x: torch.Tensor, router_w: torch.Tensor, top_k: int,
+                 norm_topk: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [T, H] -> (expert ids [T, k] int64, gates [T, k] float32), the
+    picks in descending logit order.
+
+    The logits are float32 (x and the router cast up; a float32 product on
+    the card runs in full float32 unless a caller turns TF32 on, and it
+    must not: near-ties between the k-th and (k+1)-th logit decide a pick).
+    norm_topk (Mixtral, Qwen3-MoE): a softmax over the picked logits;
+    without it (Qwen2-MoE) the picks keep their probabilities of the full
+    softmax, exp(top - logsumexp(all))."""
+    logits = torch.matmul(x.float(), router_w.float())
+    top_vals, top_idx = torch.topk(logits, top_k, dim=-1)
+    if norm_topk:
+        gates = torch.softmax(top_vals, dim=-1)
+    else:
+        gates = torch.exp(top_vals - torch.logsumexp(logits, dim=-1, keepdim=True))
+    return top_idx, gates
+
+
+def _act(g: torch.Tensor, name: str) -> torch.Tensor:
+    """The MLP's activation of a float32 tensor: tanh-approximate GELU
+    ("gelu_tanh") or SiLU."""
+    return F.gelu(g, approximate="tanh") if name == "gelu_tanh" else F.silu(g)
+
+
+def swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
+           act: str = "silu") -> torch.Tensor:
+    """One gated expert: (act(x wg) * (x wu)) wd, each product in x's dtype,
+    the activation in float32."""
+    g = torch.matmul(x, wg)
+    u = torch.matmul(x, wu)
+    return torch.matmul(_act(g.float(), act).to(x.dtype) * u, wd)
+
+
+def moe_ffn_dense_reference(x: torch.Tensor, params: Mapping[str, torch.Tensor],
+                            top_k: int = 2, activation: str = "silu",
+                            norm_topk: bool = True) -> torch.Tensor:
+    """The plain version: every expert over every token, each token's output
+    the sum of y x its gate (0 where unpicked) in a float32 accumulator, in
+    ascending expert id; x [T, H] -> [T, H] in x's dtype."""
+    ids, gates = router_gates(x, params["router"], top_k, norm_topk)
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for j in range(params["w_gate"].shape[0]):
+        weight = torch.where(ids == j, gates, 0.0).sum(dim=-1)
+        y = swiglu(x, params["w_gate"][j], params["w_up"][j], params["w_down"][j], activation)
+        acc = acc + y.float() * weight[:, None]
+    return acc.to(x.dtype)
+
+
+def moe_ffn_grouped(x: torch.Tensor, params: Mapping[str, torch.Tensor], top_k: int = 2,
+                    activation: str = "silu", norm_topk: bool = True) -> torch.Tensor:
+    """moe_ffn_dense_reference's function by a grouped dispatch (the module
+    docstring): x [T, H] -> [T, H] in x's dtype. The products touch only
+    the picked experts' weights and rows."""
+    t, h = x.shape
+    e = params["router"].shape[1]
+    ids, gates = router_gates(x, params["router"], top_k, norm_topk)
+    # Each token's picks in ascending expert id: the dense loop's order.
+    ids, order = torch.sort(ids, dim=-1)
+    gates = gates.gather(-1, order)
+    flat = ids.reshape(-1)  # pair p is token p // k's pick
+    n = flat.shape[0]
+    perm = torch.sort(flat, stable=True).indices  # the pairs grouped by expert
+    counts = torch.zeros(e, dtype=torch.int32, device=x.device)
+    counts.scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    offs = torch.cumsum(counts, 0, dtype=torch.int32)  # each expert's end row
+    xs = x.index_select(0, perm // top_k)
+    g = torch._grouped_mm(xs, params["w_gate"], offs=offs)
+    u = torch._grouped_mm(xs, params["w_up"], offs=offs)
+    a = _act(g.float(), activation).to(x.dtype) * u
+    ys = torch._grouped_mm(a, params["w_down"], offs=offs)
+    inv = torch.empty_like(perm).scatter_(0, perm, torch.arange(n, device=x.device))
+    y = ys.index_select(0, inv).view(t, top_k, h)
+    acc = y[:, 0].float() * gates[:, :1]
+    for j in range(1, top_k):  # a fixed order: no atomics, the same sum at every run
+        acc = acc + y[:, j].float() * gates[:, j:j + 1]
+    return acc.to(x.dtype)
+
+
+def router_aux_loss(x: torch.Tensor, router_w: torch.Tensor, top_k: int = 2) -> torch.Tensor:
+    """The Switch Transformer's load-balancing loss, E · Σ_e f_e · p_e: f_e
+    the share of tokens whose top pick is e, p_e the mean router
+    probability of e (1 at uniform dispatch). top_k is unused, as in the
+    JAX function."""
+    e = router_w.shape[1]
+    logits = torch.matmul(x.float(), router_w.float())
+    probs = torch.softmax(logits, dim=-1)
+    f = F.one_hot(logits.argmax(dim=-1), e).float().mean(dim=0)
+    return e * (f * probs.mean(dim=0)).sum()
+
+
+def moe_ffn(*args, **kwargs):
+    """The masked-dense expert-parallel FFN over an ``ep`` mesh: ROADMAP A9."""
+    raise unported("moe_ffn, the expert-parallel FFN over an ep mesh", "A9")
+
+
+def moe_ffn_a2a(*args, **kwargs):
+    """The all_to_all capacity dispatch over an ``ep`` mesh: ROADMAP A9."""
+    raise unported("moe_ffn_a2a, the all_to_all expert dispatch over an ep mesh", "A9")

@@ -243,3 +243,20 @@ def quant_matmul_roofline(m: int, k: int, n: int, bits: int,
     weights to bf16 for the products)."""
     hbm = 2 * m * k + k * n * bits // 8 + 4 * n + 2 * m * n
     return roofline(2.0 * m * k * n, hbm, torch.bfloat16, chip)
+
+
+def moe_roofline(t: int, hidden: int, intermediate: int, num_experts: int, top_k: int,
+                 experts_touched: int, dtype: torch.dtype = torch.bfloat16,
+                 chip: ChipSpec | None = None) -> RooflineReport:
+    """The mixture-of-experts FFN of T tokens (parallel/moe.py): the float32
+    router product and three SwiGLU products over each token's top_k
+    experts. Bytes: x read and the output written once, the router and
+    the weights of the experts this call's routing touches
+    (`experts_touched`, counted from its ids: what these inputs need, not
+    all E). Operations: 2 T H E for the router, 6 T k H F for the experts,
+    against the peak of the weights' type."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    hbm = esize * (2 * t * hidden + hidden * num_experts
+                   + experts_touched * 3 * hidden * intermediate)
+    flops = 2.0 * t * hidden * num_experts + 6.0 * t * top_k * hidden * intermediate
+    return roofline(flops, hbm, dtype, chip)

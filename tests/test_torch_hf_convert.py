@@ -1,15 +1,17 @@
 """Hugging Face checkpoints into the port (models/convert.py), against
 transformers and against the JAX package, in float32 on the CPU.
 
-The ten non-MoE families of tests/test_hf_parity.py, each a tiny random
-transformers model: its weights through config_from_hf and params_from_hf
-into the port, whose logits must match transformers' at rtol/atol 2e-3
+The families of tests/test_hf_parity.py (ten, and its three
+mixture-of-experts cases: Mixtral, Qwen3-MoE with both routing conventions
+and Qwen2-MoE with its shared expert), each a tiny random transformers
+model: its weights through config_from_hf and params_from_hf into the
+port (experts stacked; the Qwen MoE families' expert width from
+moe_intermediate_size), whose logits must match transformers' at rtol/atol 2e-3
 (the JAX test's tolerance) and the JAX llama.forward's on the JAX
 package's conversion of the same weights at 1e-4 (tests/test_torch_model.py's
 tolerance; the two conversions are equal bit for bit); where the JAX test
-generates, the port's greedy tokens must equal transformers'. The loader,
-the command line and the refusal of MoE entries:
-tests/test_torch_hf_loader.py."""
+generates, the port's greedy tokens must equal transformers'. The loader
+and the command line: tests/test_torch_hf_loader.py."""
 
 import dataclasses
 
@@ -82,6 +84,29 @@ FAMILIES = {
                                           "long_factor": [2.0 + 0.25 * i for i in range(HALF)]},
                             tie_word_embeddings=False, sliding_window=None, pad_token_id=0),
                       23, [(2, 48), (2, 96)], None),  # both sides of the 64 boundary
+    # tests/test_hf_parity.py's mixture-of-experts cases: Mixtral's
+    # block_sparse_moe experts, Qwen3-MoE's mlp.experts under both routing
+    # conventions, Qwen2-MoE's shared expert and biases.
+    "mixtral_moe": ("MixtralConfig", "MixtralForCausalLM",
+                    _base(num_local_experts=4, num_experts_per_tok=2, rope_theta=10000.0,
+                          sliding_window=None, tie_word_embeddings=False), 31, [(2, 48)],
+                    ([[7, 3, 99, 21, 5]], 8)),
+    "qwen3_moe_norm_topk": ("Qwen3MoeConfig", "Qwen3MoeForCausalLM",
+                            _base(moe_intermediate_size=192, head_dim=48, num_experts=4,
+                                  num_experts_per_tok=2, norm_topk_prob=True,
+                                  rms_norm_eps=1e-6, tie_word_embeddings=False),
+                            37, [(2, 48)], None),
+    "qwen3_moe_full_softmax": ("Qwen3MoeConfig", "Qwen3MoeForCausalLM",
+                               _base(moe_intermediate_size=192, head_dim=48, num_experts=4,
+                                     num_experts_per_tok=2, norm_topk_prob=False,
+                                     rms_norm_eps=1e-6, tie_word_embeddings=False),
+                               37, [(2, 48)], None),
+    "qwen2_moe_shared": ("Qwen2MoeConfig", "Qwen2MoeForCausalLM",
+                         _base(moe_intermediate_size=192, shared_expert_intermediate_size=224,
+                               num_experts=4, num_experts_per_tok=2, norm_topk_prob=False,
+                               decoder_sparse_step=1, mlp_only_layers=[], rms_norm_eps=1e-6,
+                               tie_word_embeddings=False, use_sliding_window=False),
+                         41, [(2, 48)], None),
 }
 # The tenth case of tests/test_hf_parity.py, the Llama model's greedy
 # generation, is "llama"'s case of the generation test.
@@ -108,15 +133,13 @@ def test_hf_family_logits_match_transformers_and_jax(family):
     jcfg = jax_convert.config_from_hf(hf_cfg, dtype=jnp.float32)
     jcfg = dataclasses.replace(jcfg, attn_window=cfg.attn_window)
     jparams = jax_convert.params_from_hf(model.state_dict(), jcfg)
-    # The same converted weights on both sides, bit for bit.
+    # The same converted weights on both sides, bit for bit (a MoE layer's
+    # experts stacked alike).
     ours = port.state_dict()
-    leaves = {"embed": jparams["embed"], "final_norm": jparams["final_norm"],
-              **({"lm_head": jparams["lm_head"]} if "lm_head" in jparams else {}),
-              **{f"layers.{i}.{k}": v for i, layer in enumerate(jparams["layers"])
-                 for k, v in layer.items()}}
+    leaves = convert.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
     assert set(leaves) == set(ours)
     for name, value in leaves.items():
-        np.testing.assert_array_equal(ours[name].numpy(), np.asarray(value), err_msg=name)
+        np.testing.assert_array_equal(ours[name].numpy(), value.numpy(), err_msg=name)
 
     rng = np.random.default_rng(FAMILIES[family][3])
     for shape in FAMILIES[family][4]:

@@ -24,6 +24,7 @@ from flashattn_tpu_torch.models import generate, llama
 from flashattn_tpu_torch.models.config import ModelConfig, check_supported
 from flashattn_tpu_torch.models.convert import params_from_jax
 from flashattn_tpu_torch.ops import paged
+from flashattn_tpu_torch.parallel import moe
 from flashattn_tpu_torch.utils.verify import verify_results
 
 # One intra-op thread: the suite's workers share the machine's cores, and
@@ -158,7 +159,6 @@ def test_init_params_is_seeded():
 
 @pytest.mark.parametrize("field,value,item", [
     ("use_alibi", True, "A4 and A5"),
-    ("num_experts", 4, "A9"),
 ])
 def test_unported_config_fields_raise(field, value, item):
     cfg = dataclasses.replace(ModelConfig(), **{field: value})
@@ -166,15 +166,25 @@ def test_unported_config_fields_raise(field, value, item):
         check_supported(cfg)
 
 
+@pytest.mark.parametrize("dispatcher", ["moe_ffn", "moe_ffn_a2a"])
+def test_ep_dispatchers_raise_naming_a9(dispatcher):
+    """The expert-parallel MoE dispatchers need an ep mesh of several cards
+    (ROADMAP A9); the single-device FFN is ported (tests/test_torch_moe.py)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        getattr(moe, dispatcher)(torch.zeros(4, 8), {}, axis_name="ep")
+
+
 @pytest.mark.parametrize("field,value", [
     ("qk_norm", True), ("attn_bias", True),
     ("rope_scaling", (8.0, 1.0, 4.0, 8192)),
     ("rope_longrope", ((1.0,), (1.0,), 4096, 1.0)),
+    ("num_experts", 4),
 ])
 def test_model_family_fields_are_supported(field, value):
-    """Qwen3's q/k norm, Qwen2's biases and the llama3 and longrope RoPE
-    variants are ported (their parity with the JAX model:
-    tests/test_torch_model_families.py)."""
+    """Qwen3's q/k norm, Qwen2's biases, the llama3 and longrope RoPE
+    variants and the mixture-of-experts FFN are ported (their parity with
+    the JAX model: tests/test_torch_model_families.py,
+    tests/test_torch_moe_model.py)."""
     check_supported(dataclasses.replace(ModelConfig(), **{field: value}))
 
 

@@ -7,9 +7,10 @@ and serving, packed windowed training: ops/varlen.py's
 flash_attention_varlen with its gradient, and models/data.py's
 PackedDataset through prefetch into train.train, a Gemma-2-shaped model
 (D 256, soft-caps, post-norms, alternate windows) generating and serving
-from an int8 KV pool with chunked admission, and a Qwen3-shaped model read
+from an int8 KV pool with chunked admission, a Qwen3-shaped model read
 by load_hf_dir from a safetensors checkpoint, served from an int8 KV pool
-and decoded speculatively). A CPU call takes the plain versions and
+and decoded speculatively, and a Qwen2-MoE-shaped model, its experts read
+from one entry each by load_hf_dir, served from an int8 KV pool). A CPU call takes the plain versions and
 launches no kernel."""
 
 import os
@@ -129,6 +130,22 @@ assert len(out[5]) == len(out[6]) == 4
 toks, rate = speculative_generate(qwen, qwen, torch.tensor([list(range(20))]), max_new_tokens=6,
                                   k=2, paged=True, page_size=64)
 assert rate == 1.0 and toks.shape == (1, 6)
+# A Qwen2-MoE-shaped model (routed experts, a shared expert, biases) read by
+# load_hf_dir from a sharded checkpoint of one entry an expert, then the
+# int8-KV paged server with chunked admission: every FFN the grouped dispatch.
+mcfg = chip_smoke.moe_hf_config(dict(chip_smoke.QWEN15_MOE_JSON, hidden_size=64,
+                                     num_attention_heads=2, num_key_value_heads=2,
+                                     moe_intermediate_size=32, shared_expert_intermediate_size=48,
+                                     num_experts=6, num_hidden_layers=2, vocab_size=128))
+hf = chip_smoke.hf_state_dict(mcfg, torch.Generator().manual_seed(4), device="cpu")
+with tempfile.TemporaryDirectory() as ckpt:
+    chip_smoke.write_hf_checkpoint(ckpt, hf, mcfg, shard_bytes=1 << 15)
+    moe_model, loaded_cfg = convert.load_hf_dir(ckpt, torch.bfloat16, device="cpu")
+assert loaded_cfg == mcfg and moe_model.layers[1].moe.w_gate.shape == (6, 64, 32), loaded_cfg
+srv = InferenceServer(moe_model, max_slots=2, max_len=128, quant="int8", paged=True,
+                      page_size=64, admit_chunk=32)
+srv.submit(Request(uid=7, prompt=list(range(45)), max_new_tokens=4))
+assert len(srv.run()[7]) == 4
 from flashattn_tpu_torch.ops import launches
 assert not any(launches.read().values()), f"CPU call counted a launch: {launches.read()}"
 counts = (flash_fwd.LAUNCHES, decode.LAUNCHES, decode.INT8_LAUNCHES, decode.FP8_LAUNCHES,

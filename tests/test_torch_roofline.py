@@ -192,3 +192,23 @@ def test_gemma_packed_backward_bounds(kernel, local, global_):
     pairs = sum(n * (n + 1) // 2 for n in (6100, 1300, 517, 211))
     assert wide.flops == {"fused": 5, "dq": 3, "dkv": 4}[kernel] / 2 * 4.0 * 16 * 256 * pairs
     assert round(wide.bound_ms, 4) == global_
+
+
+@pytest.mark.parametrize("t,touched,by", [(2, 16, "bytes"), (2000, 128, "bytes"),
+                                          (16384, 128, "operations")])
+def test_moe_bound_counts_the_touched_experts(t, touched, by):
+    """The MoE FFN's bound at Qwen3-30B-A3B's widths (H 2048, F 768, 128
+    experts, top 8): a decode step's two tokens touch at most 16 experts,
+    and their 9.44 MB each bound it by bytes; a 2,000-token prefill reads
+    every expert once, 1.21 GB, and its 6 T k H F operations (0.15 ms)
+    still take less than the bytes (0.36 ms): 125 rows an expert; from
+    about 7,000 tokens the operations bound it."""
+    h, f, e, k = 2048, 768, 128, 8
+    rep = roofline.moe_roofline(t, h, f, e, k, touched, chip=H100)
+    assert rep.hbm_bytes == 2 * (2 * t * h + h * e + touched * 3 * h * f)
+    assert rep.flops == 2.0 * t * h * e + 6.0 * t * k * h * f
+    assert rep.bound_by == by
+    if by == "bytes":
+        assert rep.bound_ms == pytest.approx(rep.hbm_bytes / 3.35e12 * 1e3)
+    else:
+        assert rep.bound_ms == pytest.approx(rep.flops / 989e12 * 1e3)
