@@ -4,8 +4,8 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the five CUDA libraries from csrc/ (into build/flashattn_tpu_torch/,
-one nvcc each, all at once) and runs sixteen phases, printing one line per
+Builds the six CUDA libraries from csrc/ (into build/flashattn_tpu_torch/,
+one nvcc each, all at once) and runs seventeen phases, printing one line per
 check and each phase's seconds, then the kernels line:
 
 1. environment: torch/CUDA versions, the card's name and power limit, the
@@ -14,11 +14,13 @@ check and each phase's seconds, then the kernels line:
    the tensor-core instructions (HMMA/HGMMA/IMMA) in the SASS of each
    tensor-core kernel, which must be there for K1's bf16 kernel (HGMMA, at
    D 64, 128 and 256, with and without a window, segment ids and the
-   soft-cap, its sixteen D 256 and soft-cap instantiations named), the
+   soft-cap, or ALiBi with and without a window, its 22 D 256, soft-cap and
+   ALiBi instantiations named), the
    bf16 fused, dQ and dK/dV kernels (D 64, 128 and 256, with and without
    the window, segment ids and the soft-cap, their 36 D 256 and soft-cap
    instantiations named), qmm8's and qmm4's M > 16 kernels and every
-   instantiation of K2's (D 64, 128 and 256, with and without a window);
+   instantiation of K2's (D 64, 128 and 256, with and without a window, with
+   and without ALiBi: the ALiBi ones in a library of their own);
 2. each kernel against its plain PyTorch version on the card, at the
    serving and training paths' shapes and at their edges (K1 also at every
    backward case, where it makes the backward's O and LSE, and timed at the
@@ -76,6 +78,20 @@ check and each phase's seconds, then the kernels line:
    split path bitwise equal across two calls, each timed beside its plain
    version, SDPA's backward with a boolean mask and no cap, flex_attention's
    backward with a soft-cap score_mod where it compiles, and its bound;
+   then ALiBi (alibi_kernels): K1 at the serving prefill and at LLAMA_8B's
+   heads over a 4,608-token prefill with and without a window, at D 256,
+   S_q != S_k with a pos_offset, non-causal, one head of the steepest
+   standard slope over 16,384 keys and in float32; K2 at the decode step's
+   shape in all four cache modes at T 1 and T 256 and at LLAMA_8B's heads
+   with a window and sinks, the paged K2 torch.equal to it, one steep head
+   on an int8 cache of 2,048; each timed beside the same kernel without
+   ALiBi, its plain version, its bound and flex_attention with an ALiBi
+   score_mod; then K2's LSE output (decode_lse) against its plain version
+   (merged from 16 slices and from one, bf16 and int8, with and without
+   ALiBi, an empty slot's -inf), and the path that uses it, a
+   sequence-split decode on one card (the cache cut in two, K2 with the
+   LSE on each, merged by the log-sum-exp rule) against K2 on the whole
+   cache, timed beside flex_attention returning the LSE;
 3. LLAMA_1B at full width (random weights from a seed): prefill of a
    150-token prompt and 4 teacher-forced decode steps through the kernels,
    against the same run with every kernel call on its plain version;
@@ -187,8 +203,11 @@ check and each phase's seconds, then the kernels line:
    (token, layer) recorded: the free-running plain route's flips printed
    with their margins, then the plain route with its routing
    teacher-forced to the kernel run's picks under phase 3's logits rule,
-   every pick it would have made otherwise a near-tie (within TIE_ULPS
-   bf16 steps of its own k-th logit); one eager decode_step
+   every layer's router logits under the rule too, and every pick it would
+   have made otherwise explained, pair by pair, by the two runs' router
+   logits (r_p - r_f <= |a_p - r_p| + |a_f - r_f|, float32 slack; the
+   worst ratio of each layer printed; the count within TIE_ULPS bf16 steps
+   printed for information); one eager decode_step
    and one chunk_step under set_sync_debug_mode("error"); phase 4's
    capture gate, bitwise; the bf16 server, a bf16 paged server (its tokens
    equal to the dense server's) and the int8-KV paged server (admit_chunk
@@ -202,7 +221,18 @@ check and each phase's seconds, then the kernels line:
    safetensors directory and read by load_hf_dir (its depth cut, and
    printed, only if the disk cannot hold it): the logits gate, the sync
    gate, the bf16 and int8-KV paged servers;
-17. the `kernels` JSON line: every kernel with its launches on the path that
+17. an ALiBi model (phase_alibi): LLAMA_8B with use_alibi at full width and
+   depth (32 layers, hidden 4,096, GQA 32/8 at D 128: the attention shape
+   of MPT-7B and BLOOM-7B1; RoPE off; 8.0 B random bf16 parameters): a
+   2,000-token prefill and 4 teacher-forced decode steps through the ALiBi
+   kernels against the plain route under phase 3's logits rule, on a bf16
+   and an int8 KV cache; one eager decode_step and one chunk_step under
+   set_sync_debug_mode("error"); phase 4's capture gate, bitwise; the bf16
+   server, the bf16 paged server (its tokens equal to the dense server's)
+   and the int8-KV paged server (admit_chunk 512, a 1,024-token prefix) on
+   phase 9's traffic at max_len 8192, device_step_ms beside the step's
+   weights' read; every launch of theirs an ALiBi launch;
+18. the `kernels` JSON line: every kernel with its launches on the path that
    runs it, its error against its plain version, its time, bound, plain and
    library times (the windowed K1, K2 and paged K2 from phases 2 and 9, the
    windowed and segmented K1, B3, B4 and B5 from phases 2 and 10, the
@@ -210,7 +240,9 @@ check and each phase's seconds, then the kernels line:
    B3, B4 and B5 from phases 2 and 12, timed at GEMMA2_9B's packed row on a
    global layer; K1 at LLAMA31_8B's 16,384-token prompt from phase 14 and
    K2 at T 5 from phase 15, rows of their own; the launches of K1, K2 and
-   the paged K2 in phase 16's servers added to their rows).
+   the paged K2 in phase 16's servers added to their rows; the ALiBi K1, K2
+   (bf16 and int8) and paged K2 from phases 2 and 17; K2 with the LSE from
+   phase 2, its launches those of the sequence-split decode).
 
 Any failed check raises: the script then exits nonzero and does not print
 its last line. It needs a CUDA device and never falls back to the CPU. The
@@ -241,8 +273,8 @@ import torch
 import torch.nn.functional as F
 
 from flashattn_tpu_torch.models import convert, data, generate, llama, train
-from flashattn_tpu_torch.models.config import (GEMMA2_9B, LLAMA31_8B, LLAMA_1B, LLAMA_150M,
-                                               MISTRAL_7B, QWEN3_8B)
+from flashattn_tpu_torch.models.config import (GEMMA2_9B, LLAMA31_8B, LLAMA_1B, LLAMA_8B,
+                                               LLAMA_150M, MISTRAL_7B, QWEN3_8B)
 from flashattn_tpu_torch.models.llama import init_params
 from flashattn_tpu_torch.models.sampling import SamplingParams
 from flashattn_tpu_torch.models.serve import InferenceServer, Request
@@ -260,7 +292,8 @@ from flashattn_tpu_torch.utils.timing import cuda_time_ms
 from flashattn_tpu_torch.utils.verify import verify_results
 
 SEED = 0
-LIBRARIES = ("flash_fwd", "decode", "flash_bwd", "flash_bwd_fused", "quant_matmul")
+LIBRARIES = ("flash_fwd", "decode", "decode_alibi", "flash_bwd", "flash_bwd_fused",
+             "quant_matmul")
 O_ATOL = 2e-2  # bf16 outputs against the fp32 plain version
 LSE_ATOL = 1e-2
 GRAD_TOL = {  # gradients against the plain version on the same inputs
@@ -329,29 +362,33 @@ def phase_environment() -> str:
                     check("0 bytes spill stores, 0 bytes spill loads" in line,
                           f"{kernel} spills: {line.strip()}")
     mma = {}
-    for lib in ("flash_fwd", "flash_bwd", "flash_bwd_fused", "quant_matmul", "decode"):
+    for lib in ("flash_fwd", "flash_bwd", "flash_bwd_fused", "quant_matmul", "decode",
+                "decode_alibi"):
         for kernel, n in tensor_core_instructions(lib).items():
             if "mma_kernel" in kernel:
                 print(f"[env] SASS {kernel}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA, "
                       f"{n['IMMA']} IMMA")
                 mma[kernel] = n
-    families = {"flash_fwd_wgmma_kernel": 24, "flash_bwd": 54, "qmm_mma_kernel": 4,
-                "decode_mma_kernel": 60}
+    families = {"flash_fwd_wgmma_kernel": 30, "flash_bwd": 54, "qmm_mma_kernel": 4,
+                "decode_mma_kernel": 120}
     counted = {f: sum(k.startswith(f) for k in mma) for f in families}
     check(counted == families and all(sum(n.values()) for n in mma.values()),
           "K1's bf16 kernel (D 64, 128 and 256, with and without a window, segment ids and "
-          "the soft-cap), the bf16 fused, dQ and dK/dV kernels (D 64, 128 and 256; no mask, "
+          "the soft-cap, or ALiBi with and without a window), the bf16 fused, dQ and dK/dV "
+          "kernels (D 64, 128 and 256; no mask, "
           "the window, segment ids; with and without the soft-cap), qmm8's and qmm4's "
           "M > 16 kernels (bf16 and float32 y) and every K2 tensor-core instantiation (bf16, "
           "int8 and fp8 caches, D 64, 128 and 256, both row layouts, with and without a "
-          f"window) must run on the tensor cores: {mma}")
+          f"window, and ALiBi's) must run on the tensor cores: {mma}")
     check(all(n["HGMMA"] for k, n in mma.items() if k.startswith("flash_fwd_wgmma_kernel")),
           f"K1's bf16 kernel must run on wgmma (HGMMA): {mma}")
-    new = [k for k in mma if k.startswith("flash_fwd_wgmma_kernel")
-           and (k.startswith("flash_fwd_wgmma_kernel<256") or k.endswith("true>"))]
-    check(len(new) == 16, f"K1's D 256 and soft-cap instantiations: {new}")
-    print(f"[env] K1's D 256 and soft-cap instantiations run on wgmma (HGMMA), no spill: "
-          f"{ {k: mma[k]['HGMMA'] for k in new} }")
+    # K1's template arguments: D, consumers, window, segment ids, soft-cap, ALiBi.
+    k1 = {k: k[k.index("<") + 1:-1].split(", ") for k in mma
+          if k.startswith("flash_fwd_wgmma_kernel")}
+    new = [k for k, args in k1.items() if args[0] == "256" or "true" in args[4:]]
+    check(len(new) == 22, f"K1's D 256, soft-cap and ALiBi instantiations: {new}")
+    print(f"[env] K1's D 256, soft-cap and ALiBi instantiations run on wgmma (HGMMA), no "
+          f"spill: { {k: mma[k]['HGMMA'] for k in new} }")
     new = [k for k in mma if k.startswith("flash_bwd")
            and ("<256" in k or k.endswith("true>"))]
     check(len(new) == 36, f"the backward's D 256 and soft-cap instantiations: {new}")
@@ -539,6 +576,7 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
     timed.update(window_kernels(gen))
     timed.update(masked_kernels(gen))
     timed.update(softcap_kernels(gen))
+    timed.update(alibi_kernels(gen))
     return timed
 
 
@@ -1228,6 +1266,370 @@ def softcap_k2(gen: torch.Generator) -> dict[str, dict]:
     return rows["global"]
 
 
+# ALiBi (phase 2's ALiBi gates; phase 17 serves LLAMA_8B with use_alibi):
+# K1 at the serving prefill (K1_SHAPES) and at LLAMA_8B's heads over phase
+# 9's 4,608-token prefill, K2 at the decode step's shape (DEC_*) at T 1 and
+# T 256, and at LLAMA_8B's heads with a window and sinks.
+ALIBI_PREFILL = (1, 32, 8, 4608, 128)  # B, Hq, Hkv, S, D
+ALIBI_STEEP = 0.8408964276313782  # default_alibi_slopes(32)[0]: 0.84 a position
+LSE_SPLIT = 1024  # the sequence-split decode's first part: positions [0, 1024)
+
+
+def flex_ms(q, k, v, ends=None, slopes=None, window=None, return_lse=False,
+            what="ALiBi") -> float | None:
+    """torch.nn.attention.flex_attention, compiled, over the causal block
+    mask of the S_q queries at the positions ends[b] - S_q + i (ends: a [B]
+    int32 tensor of sequence lengths, or every sequence S_k long), with the
+    ALiBi score_mod slope_h * (key position - query position) where slopes
+    are given, returning the LSE too with `return_lse`: its forward, a
+    competitor only, never used by the port. None, with the reason printed,
+    where it does not compile on this machine. Dynamo's caches are emptied
+    first: the earlier competitors' compilations would otherwise pass its
+    recompile limit, and it would run flex_attention eagerly."""
+    try:
+        from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+        torch._dynamo.reset()
+
+        b, _, s_q, _ = q.shape
+        s_k = k.shape[2]
+        ends = (torch.full((b,), s_k, dtype=torch.int32, device="cuda") if ends is None
+                else ends)
+
+        def row(b_i, q_idx):
+            return ends[b_i] - s_q + q_idx
+
+        def mask_mod(b_i, h, q_idx, kv_idx):
+            seen = kv_idx <= row(b_i, q_idx)
+            if window:
+                seen = seen & (kv_idx > row(b_i, q_idx) - window)
+            return seen
+
+        def score_mod(score, b_i, h, q_idx, kv_idx):
+            if slopes is None:
+                return score
+            return score + slopes[h] * (kv_idx - row(b_i, q_idx)).to(torch.float32)
+
+        block_mask = create_block_mask(mask_mod, b, None, s_q, s_k, device="cuda")
+        flex = torch.compile(flex_attention, dynamic=False)
+        run = lambda: flex(q, k, v, score_mod=score_mod, block_mask=block_mask,  # noqa: E731
+                           enable_gqa=True, return_lse=return_lse)
+        out = run()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out[0] if return_lse else out).all()),
+              "flex_attention gave non-finite output")
+        return event_time_ms(run, warmup=2, iters=10)
+    except Exception as e:  # a competitor that does not build here is reported, not run
+        print(f"[kernels] flex_attention with {what} (window={window}) did not run on this "
+              f"machine: {type(e).__name__}: "
+              f"{str(e).splitlines()[0][:200] if str(e) else ''}")
+        return None
+
+
+def alibi_kernels(gen: torch.Generator) -> dict[str, dict]:
+    """K1, K2 and the paged K2 with ALiBi against their plain versions,
+    then timed (alibi_k1, alibi_k2), and K2's LSE output (decode_lse)."""
+    out = {"flash_fwd_alibi": alibi_k1(gen)}
+    out.update(alibi_k2(gen))
+    out["decode_lse"] = decode_lse(gen)
+    return out
+
+
+def alibi_k1(gen: torch.Generator) -> dict:
+    """K1 with ALiBi (the standard slopes): at the serving prefill (D 64)
+    and at LLAMA_8B's heads over a 4,608-token prefill (D 128), with and
+    without a 1,000-token window; D 256; S_q 1024 against S_k 4608 with
+    pos_offset 3000; non-causal; one head at the steepest standard slope
+    over 16,384 keys (biases near -20,000 in the log2 domain on its far
+    tiles); the float32 kernel at a small shape. Then timed, as the model
+    calls it (no LSE), at both prefill shapes beside K1 without ALiBi on
+    the same inputs, its plain version, its bound (the plain causal count:
+    ALiBi adds no pair) and flex_attention with an ALiBi score_mod. The
+    row is LLAMA_8B's."""
+    err = 0.0
+    b, hq, hkv, s, d = K1_SHAPES["prefill"]
+    pq, pk, pv = (randn((b, h, s, d), gen) for h in (hq, hkv, hkv))
+    err = k1_case("ALiBi, serving prefill", pq, pk, pv, True, err, alibi=True)
+    b, hq, hkv, s, d = ALIBI_PREFILL
+    q, k, v = (randn((b, h, s, d), gen) for h in (hq, hkv, hkv))
+    for w in (None, 1000):
+        err = k1_case("ALiBi, LLAMA_8B heads", q, k, v, True, err, window=w, alibi=True)
+    q2, k2, v2 = (randn((1, h, 2048, 256), gen) for h in (16, 8, 8))
+    for w in (None, 1000):
+        err = k1_case("ALiBi, D 256", q2, k2, v2, True, err, window=w, alibi=True)
+    del q2, k2, v2
+    err = k1_case("ALiBi, S_q != S_k", q[:, :, :1024].contiguous(), k, v, True, err,
+                  pos_offset=3000, window=1000, alibi=True)
+    err = k1_case("ALiBi, non-causal", q[:, :, :2048].contiguous(), k[:, :, :2048].contiguous(),
+                  v[:, :, :2048].contiguous(), False, err, alibi=True)
+    ql, kl, vl = (randn((1, 1, 16384, 128), gen) for _ in range(3))
+    err = k1_case(f"ALiBi, one head of slope {ALIBI_STEEP:.4f} over 16,384 keys", ql, kl, vl,
+                  True, err, alibi=True,
+                  alibi_slopes=torch.tensor([ALIBI_STEEP], device="cuda"))
+    del ql, kl, vl
+    qf, kf, vf = (randn((1, h, 300, 128), gen, torch.float32) for h in (4, 2, 2))
+    for w in (None, 65):
+        k1_case("ALiBi, float32", qf, kf, vf, True, 0.0, f32=True, window=w, alibi=True)
+
+    rows = {}
+    for tag, (qq, kk, vv) in (("serving prefill", (pq, pk, pv)),
+                              ("LLAMA_8B prefill", (q, k, v))):
+        b, hq, s, d = qq.shape
+        hkv = kk.shape[1]
+        slopes = flash_fwd.alibi_table(True, None, hq, qq.device)
+        ms = cuda_time_ms(lambda: flash_fwd.flash_attention_forward(
+            qq, kk, vv, True, need_lse=False, alibi=True))
+        base = cuda_time_ms(lambda: flash_fwd.flash_attention_forward(
+            qq, kk, vv, True, need_lse=False))
+        gc.collect()
+        torch.cuda.empty_cache()
+        plain = event_time_ms(lambda: flash_fwd.flash_attention_forward_reference(
+            qq, kk, vv, True, need_lse=False, alibi=True), warmup=1, iters=2)
+        flex = flex_ms(qq, kk, vv, slopes=slopes)
+        report = roofline.attention_fwd_roofline(b, hq, hkv, s, s, d, True, need_lse=False)
+        lim = bound(report)
+        print(f"[kernels] K1 ALiBi {tag} B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal without "
+              f"LSE: kernel {ms:.4f} ms ({report.flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; "
+              f"without ALiBi {base:.4f} ms, ratio {ms / base:.3f}), bound "
+              f"{lim['bound_ms']:.5f} ms by {lim['bound_by']}, plain {plain:.4f} ms, library: "
+              f"flex_attention with an ALiBi score_mod "
+              + (f"{flex:.4f} ms" if flex else "not run"))
+        rows[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=flex, **lim)
+    return rows["LLAMA_8B prefill"]
+
+
+def alibi_k2(gen: torch.Generator) -> dict[str, dict]:
+    """K2 with ALiBi (the standard slopes) against its plain version (int8
+    P requantized per 64-position tile, as the kernel does) at the decode
+    step's shape (lengths 1/77/1500/2048, NaN past each) in all four cache
+    modes at T 1 and T 256, the paged K2 torch.equal to it on the bf16 and
+    int8 caches; at LLAMA_8B's heads (Hq 32, Hkv 8, D 128, Smax 8192) with
+    window 4096 and 4 sinks, lengths on both sides of the window; one head
+    at the steepest standard slope on an int8 cache of 2,048 at T 1 and
+    256. Then timed at the decode shape (bf16 and int8 at T 1 and T 256,
+    the paged int8 pool at T 1) beside K2 without ALiBi on the same inputs,
+    the plain version, the bound (ALiBi adds no pair) and flex_attention
+    with an ALiBi score_mod and the length mask (on the dequantized cache
+    for int8). Rows: decode_alibi (bf16), decode_int8_alibi,
+    paged_decode_alibi (int8 pool), each at T 1."""
+    shape = (DEC_B, DEC_HKV, DEC_SMAX, DEC_D)
+    err = {"decode_alibi": 0.0, "decode_int8_alibi": 0.0, "paged_decode_alibi": 0.0}
+    caches = {}
+    for mode in ("bf16", "f32", "int8", "fp8"):
+        dtype = torch.float32 if mode == "f32" else torch.bfloat16
+        tol = (QUANT_DECODE_TOL if mode in ("int8", "fp8") else
+               F32_TOL if mode == "f32" else dict(atol=O_ATOL))
+        cache = window_cache(mode, gen, DEC_LENGTHS, shape)
+        pool = paged_copy(cache, gen) if mode in ("bf16", "int8") else None
+        for t in (1, 256):
+            q = randn((DEC_B, DEC_HQ, t, DEC_D), gen, dtype)
+            o = (decode.decode_attention(q[:, :, 0].contiguous(), cache, alibi=True)[:, :, None]
+                 if t == 1 else decode.decode_attention_chunk(q, cache, alibi=True))
+            ref = decode.decode_attention_reference(q, cache, requant_block=decode.BLOCK_KV,
+                                                    alibi=True)
+            torch.cuda.synchronize()
+            tag = (f"K2 {mode} ALiBi B={DEC_B} Hq={DEC_HQ} Hkv={DEC_HKV} D={DEC_D} "
+                   f"Smax={DEC_SMAX} T={t} lengths={DEC_LENGTHS} (NaN past each length)")
+            check(bool(torch.isfinite(o).all()), f"{tag}: non-finite output")
+            e = _gate(tag, ref, o, **tol)
+            row = "decode_int8_alibi" if mode == "int8" else "decode_alibi"
+            err[row] = max(err[row], e)
+            if pool is not None:
+                o_paged = paged.paged_decode_attention_chunk(q, pool, alibi=True)
+                check(torch.equal(o_paged, o), f"paged {tag}: differs from the dense K2")
+                print(f"[kernels] paged {tag} (pages of {PAGE}, scrambled): torch.equal to "
+                      "the dense K2")
+                err["paged_decode_alibi"] = max(err["paged_decode_alibi"], e)
+        if mode in ("bf16", "int8"):
+            caches[mode] = (cache, pool)
+    wshape = (K2W_B, K2W_HKV, K2W_SMAX, K2W_D)
+    for mode in ("bf16", "int8"):
+        cache = window_cache(mode, gen, K2W_LENGTHS, wshape)
+        pool = paged_copy(cache, gen)
+        for t in (1, 256):
+            q = randn((K2W_B, K2W_HQ, t, K2W_D), gen)
+            kw = dict(window=WIN, sink=4, alibi=True)
+            o = decode.decode_attention_chunk(q, cache, **kw)
+            o_paged = paged.paged_decode_attention_chunk(q, pool, **kw)
+            ref = decode.decode_attention_reference(q, cache, requant_block=decode.BLOCK_KV,
+                                                    **kw)
+            torch.cuda.synchronize()
+            tag = (f"K2 {mode} ALiBi window={WIN} sink=4 B={K2W_B} Hq={K2W_HQ} Hkv={K2W_HKV} "
+                   f"D={K2W_D} Smax={K2W_SMAX} T={t} lengths={K2W_LENGTHS}")
+            e = _gate(tag, ref, o, **(QUANT_DECODE_TOL if mode == "int8" else
+                                      dict(atol=O_ATOL)))
+            check(torch.equal(o_paged, o), f"paged {tag}: differs from the dense K2")
+            row = "decode_int8_alibi" if mode == "int8" else "decode_alibi"
+            err[row] = max(err[row], e)
+            err["paged_decode_alibi"] = max(err["paged_decode_alibi"], e)
+        del cache, pool
+    steep = window_cache("int8", gen, [2048], (1, 1, 2048, DEC_D))
+    slopes = torch.tensor([ALIBI_STEEP], device="cuda")
+    for t in (1, 256):
+        q = randn((1, 1, t, DEC_D), gen)
+        o = decode.decode_attention_chunk(q, steep, alibi=True, alibi_slopes=slopes)
+        ref = decode.decode_attention_reference(q, steep, requant_block=decode.BLOCK_KV,
+                                                alibi=True, alibi_slopes=slopes)
+        torch.cuda.synchronize()
+        tag = f"K2 int8 ALiBi one head of slope {ALIBI_STEEP:.4f}, Smax 2048, T={t}"
+        check(bool(torch.isfinite(o).all()), f"{tag}: non-finite output")
+        err["decode_int8_alibi"] = max(err["decode_int8_alibi"],
+                                       _gate(tag, ref, o, **QUANT_DECODE_TOL))
+
+    slopes = flash_fwd.alibi_table(True, None, DEC_HQ, torch.device("cuda"))
+    ends = torch.tensor(DEC_LENGTHS, dtype=torch.int32, device="cuda")
+    rows = {}
+    for mode in ("bf16", "int8"):
+        cache, pool = caches[mode]
+        k = cache.k if mode == "bf16" else kvcache.dequantize(cache.k, cache.k_scale)
+        v = cache.v if mode == "bf16" else kvcache.dequantize(cache.v, cache.v_scale)
+        for t in (1, CHUNK_T):
+            q = randn((DEC_B, DEC_HQ, t, DEC_D), gen)
+            one = q[:, :, 0].contiguous()
+            if t == 1:
+                ms = cuda_time_ms(lambda: decode.decode_attention(one, cache, alibi=True))
+                base = cuda_time_ms(lambda: decode.decode_attention(one, cache))
+            else:
+                ms = cuda_time_ms(lambda: decode.decode_attention_chunk(q, cache, alibi=True))
+                base = cuda_time_ms(lambda: decode.decode_attention_chunk(q, cache))
+            plain = cuda_time_ms(lambda: decode.decode_attention_reference(
+                q, cache, requant_block=decode.BLOCK_KV, alibi=True), warmup=1, iters=2, reps=3)
+            # The lengths' masked-out rows hold NaN; flex's mask keeps them out.
+            k_live = torch.nan_to_num(k)
+            v_live = torch.nan_to_num(v)
+            flex = flex_ms(q, k_live, v_live, ends=ends, slopes=slopes)
+            lim = bound(roofline.decode_roofline(DEC_B, DEC_HQ, DEC_HKV, DEC_D, DEC_LENGTHS,
+                                                 t=t, cache_dtype=cache.k.dtype))
+            print(f"[kernels] K2 {mode} ALiBi B={DEC_B} Hq={DEC_HQ} Hkv={DEC_HKV} D={DEC_D} "
+                  f"Smax={DEC_SMAX} T={t} lengths={DEC_LENGTHS}: kernel {ms:.4f} ms (without "
+                  f"ALiBi {base:.4f} ms, ratio {ms / base:.3f}), plain {plain:.4f} ms, bound "
+                  f"{lim['bound_ms']:.5f} ms by {lim['bound_by']}, library: flex_attention "
+                  f"with an ALiBi score_mod and the length mask"
+                  + (" on the dequantized bf16 cache" if mode == "int8" else "") + " "
+                  + (f"{flex:.4f} ms" if flex else "not run"))
+            if t == 1:
+                row = "decode_int8_alibi" if mode == "int8" else "decode_alibi"
+                rows[row] = dict(max_abs_err=err[row], ms=ms, plain_ms=plain, library_ms=flex,
+                                 **lim)
+        if mode == "int8":
+            qd = randn((DEC_B, DEC_HQ, DEC_D), gen)
+            ms = cuda_time_ms(lambda: paged.paged_decode_attention(qd, pool, alibi=True))
+            base = cuda_time_ms(lambda: paged.paged_decode_attention(qd, pool))
+            plain = cuda_time_ms(lambda: paged.paged_decode_reference(
+                qd[:, :, None], pool, requant_block=decode.BLOCK_KV, alibi=True))
+            flex = flex_ms(qd[:, :, None], k_live, v_live, ends=ends, slopes=slopes)
+            lim = bound(roofline.decode_roofline(DEC_B, DEC_HQ, DEC_HKV, DEC_D, DEC_LENGTHS,
+                                                 cache_dtype=torch.int8))
+            print(f"[kernels] paged K2 int8 ALiBi T=1 decode step (pages of {PAGE}): kernel "
+                  f"{ms:.4f} ms (without ALiBi {base:.4f} ms), plain {plain:.4f} ms, bound "
+                  f"{lim['bound_ms']:.5f} ms by {lim['bound_by']}, library: flex_attention "
+                  f"with an ALiBi score_mod on the dequantized bf16 cache "
+                  + (f"{flex:.4f} ms" if flex else "not run"))
+            rows["paged_decode_alibi"] = dict(max_abs_err=err["paged_decode_alibi"], ms=ms,
+                                              plain_ms=plain, library_ms=flex, **lim)
+    return rows
+
+
+def split_cache(cache: KVCache, at: int) -> tuple[KVCache, KVCache]:
+    """A bf16 cache's positions [0, at) and [at, Smax) as two caches of
+    their own (each from position 0, with its own lengths): the two halves
+    of a sequence-split decode."""
+    n = cache.length.long()
+    first = KVCache(k=cache.k[:, :, :at].contiguous(), v=cache.v[:, :, :at].contiguous(),
+                    length=n.clamp(max=at).to(torch.int32))
+    second = KVCache(k=cache.k[:, :, at:].contiguous(), v=cache.v[:, :, at:].contiguous(),
+                     length=(n - at).clamp(min=0).to(torch.int32))
+    return first, second
+
+
+def lse_merge(parts: list[tuple[torch.Tensor, torch.Tensor]]) -> tuple[torch.Tensor,
+                                                                        torch.Tensor]:
+    """Slices' (O, LSE) merged by the log-sum-exp rule, as a sequence-split
+    decode merges them (the JAX package's parallel/serving.py: the LSEs'
+    maximum, then the weighted sum): (O, LSE); a row no slice saw gets O 0,
+    LSE -inf."""
+    lse = torch.stack([l for _, l in parts])  # [P, B, Hq, T]
+    m = lse.amax(0)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(lse - m_safe)  # 0 for a slice that saw no key
+    den = w.sum(0)
+    o = sum(wi[..., None] * oi.float() for wi, (oi, _) in zip(w, parts))
+    o = o / torch.where(den > 0, den, torch.ones_like(den))[..., None]
+    return o, torch.where(den > 0, m_safe + torch.log(den), float("-inf"))
+
+
+def decode_lse(gen: torch.Generator) -> dict:
+    """K2's LSE output (decode._decode_attention(with_lse=True)) against
+    its plain version, LSE_ATOL: at the decode shape (16 slices merged by
+    decode_merge_kernel) and at T 256 (one slice: the split kernel writes
+    it), bf16 and int8 caches, with and without ALiBi, and a slot of length
+    0 (LSE -inf, O 0). Then the path that uses it, a sequence-split decode
+    (what the JAX package's parallel/serving.py does across cards), on one
+    card: the bf16 decode step's cache cut at position LSE_SPLIT into two
+    caches, K2 with the LSE on each (the row's launches, counted alone),
+    merged by the log-sum-exp rule (lse_merge) and held against K2 on the
+    whole cache: O under O_ATOL, LSE under LSE_ATOL. Timed at the decode
+    shape beside K2 without the LSE, the plain version, the bound (the
+    decode step's bytes and the LSE written) and flex_attention returning
+    the LSE."""
+    err = 0.0
+    shape = (DEC_B, DEC_HKV, DEC_SMAX, DEC_D)
+    lengths = [0] + DEC_LENGTHS[1:]
+    for mode in ("bf16", "int8"):
+        cache = window_cache(mode, gen, lengths, shape)
+        for t in (1, CHUNK_T):
+            for alibi in (False, True):
+                q = randn((DEC_B, DEC_HQ, t, DEC_D), gen)
+                o, lse = decode._decode_attention(q, cache, with_lse=True, alibi=alibi)
+                o_ref, lse_ref = decode.decode_attention_reference(
+                    q, cache, requant_block=decode.BLOCK_KV, alibi=alibi, with_lse=True)
+                torch.cuda.synchronize()
+                tag = (f"K2 {mode} LSE output B={DEC_B} Hq={DEC_HQ} Hkv={DEC_HKV} D={DEC_D} "
+                       f"Smax={DEC_SMAX} T={t} lengths={lengths} alibi={alibi}")
+                check(bool(torch.isneginf(lse[0]).all()) and not bool(o[0].any()),
+                      f"{tag}: the empty slot's LSE is not -inf or its O not 0")
+                err = max(err, _gate(tag + " LSE", lse_ref[1:], lse[1:], LSE_ATOL))
+                _gate(tag + " O", o_ref, o, **(QUANT_DECODE_TOL if mode == "int8" else
+                                              dict(atol=O_ATOL)))
+                check(torch.equal(o, decode.decode_attention_chunk(q, cache, alibi=alibi)),
+                      f"{tag}: O differs from the call without the LSE")
+
+    cache = window_cache("bf16", gen, DEC_LENGTHS, shape)
+    halves = split_cache(cache, LSE_SPLIT)
+    qd = randn((DEC_B, DEC_HQ, 1, DEC_D), gen)
+    torch.cuda.synchronize()
+    reset_launches()
+    parts = [decode._decode_attention(qd, half, with_lse=True) for half in halves]
+    torch.cuda.synchronize()
+    launches = read_launches()["decode_lse"]
+    o, lse = lse_merge(parts)
+    o_whole, lse_whole = decode._decode_attention(qd, cache, with_lse=True)
+    torch.cuda.synchronize()
+    tag = (f"sequence-split decode, bf16 cache cut at position {LSE_SPLIT} (lengths "
+           f"{DEC_LENGTHS} -> {halves[0].length.tolist()} + {halves[1].length.tolist()}), "
+           f"two K2 calls with the LSE merged by the log-sum-exp rule, against K2 on the whole "
+           f"cache")
+    _gate(tag + " O", o_whole.float(), o, O_ATOL)
+    _gate(tag + " LSE", lse_whole, lse, LSE_ATOL)
+    print(f"[kernels] {tag}: {launches} K2 launches with the LSE")
+
+    ms = cuda_time_ms(lambda: decode._decode_attention(qd, cache, with_lse=True))
+    base = cuda_time_ms(lambda: decode._decode_attention(qd, cache))
+    plain = cuda_time_ms(lambda: decode.decode_attention_reference(qd, cache, with_lse=True))
+    ends = torch.tensor(DEC_LENGTHS, dtype=torch.int32, device="cuda")
+    flex = flex_ms(qd, torch.nan_to_num(cache.k), torch.nan_to_num(cache.v), ends=ends,
+                   return_lse=True, what="the LSE returned")
+    report = roofline.decode_roofline(DEC_B, DEC_HQ, DEC_HKV, DEC_D, DEC_LENGTHS)
+    lim = bound(roofline.roofline(report.flops, report.hbm_bytes + 4 * DEC_B * DEC_HQ,
+                                  torch.bfloat16))
+    print(f"[kernels] K2 bf16 with the LSE T=1 decode step: kernel {ms:.4f} ms (without the LSE "
+          f"{base:.4f} ms), plain {plain:.4f} ms, bound {lim['bound_ms']:.5f} ms by "
+          f"{lim['bound_by']}, library: flex_attention returning the LSE, length mask "
+          + (f"{flex:.4f} ms" if flex else "not run"))
+    return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain, library_ms=flex,
+                **lim)
+
+
 # The window and segment ids in the backward kernels (B3, B4, B5) and
 # segment ids in K1 (phase 2's masked gates). Packed rows: the four
 # documents of the packed training phase (MISTRAL_7B), 8,128 tokens and 65
@@ -1644,41 +2046,47 @@ def time_backward(q, k, v, o, do, lse):
     return out
 
 
-_ROUTED = {  # generation's kernel entry points -> their plain versions
-    (generate, "flash_attention"): (
-        lambda q, k, v, is_causal=False, scale=None, window=None, logit_softcap=None:
-        flash_fwd.flash_attention_forward_reference(q, k, v, is_causal, scale,
-                                                    need_lse=False, window=window,
-                                                    logit_softcap=logit_softcap)[0]),
-    (generate, "decode_attention"): (
-        lambda q, cache, scale=None, window=None, sink=0, logit_softcap=None:
-        decode.decode_attention_reference(q[:, :, None], cache, scale, window=window,
-                                          sink=sink, logit_softcap=logit_softcap)[:, :, 0]),
-    (generate, "decode_attention_chunk"): (
-        lambda q, cache, scale=None, window=None, sink=0, logit_softcap=None:
-        decode.decode_attention_reference(q, cache, scale, window=window, sink=sink,
-                                          logit_softcap=logit_softcap)),
-    (generate, "paged_decode_attention"): (
-        lambda q, cache, scale=None, window=None, sink=0, logit_softcap=None:
-        paged.paged_decode_reference(q[:, :, None], cache, scale, window=window,
-                                     sink=sink, logit_softcap=logit_softcap)[:, :, 0]),
-    (generate, "paged_decode_attention_chunk"): (
-        lambda q, cache, scale=None, window=None, sink=0, logit_softcap=None:
-        paged.paged_decode_reference(q, cache, scale, window=window, sink=sink,
-                                     logit_softcap=logit_softcap)),
-    (llama, "quant_matmul"): (
-        lambda x, qw, out_dtype=None: quant_matmul.quant_matmul_reference(x, qw, out_dtype)),
-    # The MoE FFN's card route (the grouped dispatch) -> the masked-dense loop.
-    (moe, "moe_ffn_grouped"): moe.moe_ffn_dense_reference,
-}
+def routed(requant_block: int | None = None) -> dict:
+    """Generation's kernel entry points -> their plain versions; the int8
+    mode's P requantized over the JAX kernel's block, or over
+    `requant_block` positions where given (decode.BLOCK_KV: the card
+    kernel's arithmetic)."""
+    def dense(q, cache, scale=None, window=None, sink=0, logit_softcap=None, alibi=False):
+        return decode.decode_attention_reference(q, cache, scale, requant_block, window, sink,
+                                                 logit_softcap, alibi)
+
+    def pool(q, cache, scale=None, window=None, sink=0, logit_softcap=None, alibi=False):
+        return paged.paged_decode_reference(q, cache, scale, requant_block, window, sink,
+                                            logit_softcap, alibi)
+
+    return {
+        (generate, "flash_attention"): (
+            lambda q, k, v, is_causal=False, scale=None, window=None, logit_softcap=None,
+            alibi=False:
+            flash_fwd.flash_attention_forward_reference(q, k, v, is_causal, scale,
+                                                        need_lse=False, window=window,
+                                                        logit_softcap=logit_softcap,
+                                                        alibi=alibi)[0]),
+        (generate, "decode_attention"): lambda q, *a, **kw: dense(q[:, :, None], *a,
+                                                                  **kw)[:, :, 0],
+        (generate, "decode_attention_chunk"): dense,
+        (generate, "paged_decode_attention"): lambda q, *a, **kw: pool(q[:, :, None], *a,
+                                                                       **kw)[:, :, 0],
+        (generate, "paged_decode_attention_chunk"): pool,
+        (llama, "quant_matmul"): (
+            lambda x, qw, out_dtype=None: quant_matmul.quant_matmul_reference(x, qw, out_dtype)),
+        # The MoE FFN's card route (the grouped dispatch) -> the masked-dense loop.
+        (moe, "moe_ffn_grouped"): moe.moe_ffn_dense_reference,
+    }
 
 
 @contextlib.contextmanager
-def plain_kernels():
+def plain_kernels(requant_block: int | None = None):
     """Route the model's kernel calls (attention and quantized projections)
-    to their plain versions."""
-    saved = {key: getattr(*key) for key in _ROUTED}
-    for (module, name), fn in _ROUTED.items():
+    to their plain versions (routed)."""
+    table = routed(requant_block)
+    saved = {key: getattr(*key) for key in table}
+    for (module, name), fn in table.items():
         setattr(module, name, fn)
     try:
         yield
@@ -3511,27 +3919,63 @@ def routing_flips(kern: list, plain: list, layers: int) -> list[tuple[int, int, 
     return flips
 
 
+# Float32 slack of the changed-pick rule (pick_margins): 8 float32 steps of
+# the four logits' magnitudes, for the rounding of its differences.
+PICK_SLACK = 8 * 2.0**-24
+
+
+def pick_margins(a: torch.Tensor, r: torch.Tensor, forced: torch.Tensor,
+                 own: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The changed-pick rule of one router call, on the device: the kernel
+    run's router logits a [T, E] picked `forced` [T, k]; the plain run's r
+    would have picked `own` [T, k]. For every pair of a pick e_f the plain
+    route would not make and one e_p it would make instead, the kernel run
+    ranked a_f >= a_p and the plain run r_p >= r_f, so
+    r_p - r_f <= |a_p - r_p| + |a_f - r_f|: the margin the plain route
+    gives up is covered by the two logits' rounding differences. Returns
+    (the largest (r_p - r_f) / (|a_p - r_p| + |a_f - r_f| + slack) over the
+    pairs, which the rule holds at 1; the number of pairs), 0-dim tensors;
+    -inf and 0 where no pick changed. A route that mis-indexes picks or
+    experts breaks it."""
+    def side(ids, other):
+        out = torch.zeros_like(r, dtype=torch.bool).scatter_(1, other, True)
+        return r.gather(1, ids), (a - r).abs().gather(1, ids), a.gather(1, ids).abs(), \
+            ~out.gather(1, ids)
+
+    r_f, d_f, a_f, m_f = side(forced, own)  # forced picks the plain route would not make
+    r_p, d_p, a_p, m_p = side(own, forced)  # its own picks the kernel run did not make
+    pair = m_p[:, :, None] & m_f[:, None, :]
+    slack = PICK_SLACK * (a_p[:, :, None] + r_p.abs()[:, :, None] + a_f[:, None, :]
+                          + r_f.abs()[:, None, :])
+    ratio = (r_p[:, :, None] - r_f[:, None, :]) / (d_p[:, :, None] + d_f[:, None, :] + slack)
+    return torch.where(pair, ratio, float("-inf")).amax(), pair.sum()
+
+
 @contextlib.contextmanager
 def forced_routing(picks: list):
     """router_gates made to return, call by call, the picks another run
     recorded (router_log's), with gates from this run's own logits by the
-    same formula; yields (ties, logits): the ties are (call, token, margin)
-    wherever this run's own top k differ from the forced picks, the margin
-    the distance in bf16 steps from its own k-th logit down to the lowest
-    forced one; the logits this run's routers computed, call by call."""
+    same formula; yields (ties, logits, margins): the ties are (call,
+    token, margin) wherever this run's own top k differ from the forced
+    picks, the margin the distance in bf16 steps from its own k-th logit
+    down to the lowest forced one; the logits this run's routers computed,
+    call by call; each call's pick_margins against the recorded run's
+    router logits."""
     ties: list[tuple[int, int, float]] = []
     seen: list[torch.Tensor] = []
+    margins: list[tuple[torch.Tensor, torch.Tensor]] = []
     saved = moe.router_gates
     calls = iter(enumerate(picks))
 
     def gates(x, router_w, top_k, norm_topk=True):
-        c, (ids, _) = next(calls)
+        c, (ids, kern_logits) = next(calls)
         logits = torch.matmul(x.float(), router_w.float())
         seen.append(logits)
         vals = logits.gather(-1, ids)
         g = (torch.softmax(vals, dim=-1) if norm_topk
              else torch.exp(vals - torch.logsumexp(logits, dim=-1, keepdim=True)))
         own = torch.topk(logits, top_k, dim=-1)
+        margins.append(pick_margins(kern_logits, logits, ids, own.indices))
         kth, low = own.values[:, -1], vals.min(dim=-1).values
         moved = (torch.sort(own.indices, dim=-1).values != ids).any(-1)
         for t in moved.nonzero()[:, 0].tolist():
@@ -3540,7 +3984,7 @@ def forced_routing(picks: list):
 
     moe.router_gates = gates
     try:
-        yield ties, seen
+        yield ties, seen, margins
     finally:
         moe.router_gates = saved
 
@@ -3559,11 +4003,17 @@ def moe_logits_gate(model, name: str, prompt, forced, log: str, bf16: bool) -> N
     run with the routing teacher-forced to the kernel run's picks (as phase
     15 teacher-forces generate on the speculative tokens): its logits must
     pass the rule, and so must every layer's router logits over all its
-    calls against the kernel run's: the routers saw the same inputs up to
-    rounding, so every pick the plain route would have made otherwise is a
-    near-tie at that rounding; those picks print with their margins and the
-    share within TIE_ULPS bf16 steps. In float32 (`bf16` False) the
-    free-running plain run must pass the rule: no flip excuses a miss."""
+    calls against the kernel run's; and every pick the plain route would
+    have made otherwise must be explained by those router logits'
+    differences, pair by pair (pick_margins: r_p - r_f <= |a_p - r_p| +
+    |a_f - r_f| in logit units with float32 slack; the worst ratio of each
+    layer prints). A bound in bf16 steps cannot be the gate: the same
+    rounding makes more steps on larger logits, and the margins grow with
+    depth (on Qwen3-30B-A3B: 1.25 steps at layer 0, 8.42 at layer 45, every
+    layer's router logits within the rule). The count of changed picks within
+    TIE_ULPS bf16 steps prints for information. In float32 (`bf16` False)
+    the free-running plain run must pass the rule: no flip excuses a
+    miss."""
     cfg = model.cfg
     layers = cfg.num_layers
     reset_launches()
@@ -3606,7 +4056,7 @@ def moe_logits_gate(model, name: str, prompt, forced, log: str, bf16: bool) -> N
     for a, r, nm in zip(kern, plain, names):
         logits_rule(f"{tag}, free-running routes (not gated)", a, r, nm, name)
     del plain
-    with plain_kernels(), forced_routing(kern_route) as (ties, plain_logits):
+    with plain_kernels(), forced_routing(kern_route) as (ties, plain_logits, margins):
         plain = generation_run(model, prompt, forced, max_len=FAMILY_MAX_LEN)
     compare_logits(f"{tag}, plain route's routing forced to the kernel run's picks", kern, plain,
                    names, model=name)
@@ -3624,14 +4074,29 @@ def moe_logits_gate(model, name: str, prompt, forced, log: str, bf16: bool) -> N
     for layer, cos, delta, lim in routers:
         check(cos > LOGIT_COS and delta <= lim, f"{name} {tag}: layer {layer}'s router logits "
               f"disagree with the kernel run's: cos {cos:.6f}, max|d| {delta:.4f} (<= {lim:.4f})")
+    ratio = torch.stack([m for m, _ in margins]).tolist()
+    counts = torch.stack([n for _, n in margins]).tolist()
+    worst: dict[int, float] = {}
+    for c, x in enumerate(ratio):
+        worst[c % layers] = max(worst.get(c % layers, -math.inf), x)
+    print(f"{log} {name} {tag}, forced routing: {sum(counts)} (forced pick, own pick) pairs "
+          f"where the plain route would pick otherwise, each held to r_p - r_f <= |a_p - r_p| + "
+          f"|a_f - r_f| + {PICK_SLACK * 2**24:g} float32 steps; worst ratio by layer (<= 1): "
+          + ", ".join(f"{layer}: {x:.3f}" for layer, x in sorted(worst.items())
+                      if x > -math.inf))
+    bad = {layer: x for layer, x in worst.items() if x > 1.0}
+    check(not bad, f"{name} {tag}: changed picks that the router logits' differences do not "
+          f"explain (a forced route that mis-indexes picks or experts?), worst ratio by layer "
+          f"{bad}")
     by_layer: dict[int, float] = {}
     for c, _, m in ties:
         by_layer[c % layers] = max(by_layer.get(c % layers, 0.0), m)
     near = sum(m <= TIE_ULPS for *_, m in ties)
-    print(f"{log} {name} {tag}, forced routing: the plain route's own top {cfg.top_k_experts} "
-          f"differ from the kernel run's picks at {len(ties)} of {pairs} (token, layer) pairs, "
-          f"{near} of them within {TIE_ULPS} bf16 steps; largest margin (bf16 steps from its "
-          f"k-th logit down to the lowest forced one) by layer: "
+    print(f"{log} {name} {tag}, forced routing, for information (not a gate): the plain "
+          f"route's own top {cfg.top_k_experts} differ from the kernel run's picks at "
+          f"{len(ties)} of {pairs} (token, layer) pairs, {near} of them within {TIE_ULPS} bf16 "
+          f"steps; largest margin (bf16 steps from its k-th logit down to the lowest forced "
+          f"one) by layer: "
           + ", ".join(f"{layer}: {m:.2f}" for layer, m in sorted(by_layer.items())))
     del kern, plain, plain_logits
 
@@ -3678,12 +4143,11 @@ def moe_module_gate(model, prompt, log: str) -> None:
               f"masked-dense loop: {rep}")
 
 
-def moe_sync_gate(model, gen: torch.Generator, log: str) -> float:
+def sync_gate(model, gen: torch.Generator, log: str, around=contextlib.nullcontext):
     """One eager decode_step (2 slots) and one chunk_step (2 x 512 tokens)
-    of the MoE model under torch.cuda.set_sync_debug_mode("error"): any
-    operation that waits on the card from the host raises. Returns the
-    bytes of weights that decode step reads: all but the experts', and
-    the experts its routing touched in each layer."""
+    under torch.cuda.set_sync_debug_mode("error"): any operation that waits
+    on the card from the host raises. `around` wraps the two calls (a
+    recorder); returns what it yields."""
     cfg = model.cfg
     b, n = 2, 300
     caches = generate.init_caches(model, b, 2048)
@@ -3697,7 +4161,7 @@ def moe_sync_gate(model, gen: torch.Generator, log: str) -> float:
     generate.decode_step(model, token, pos, clone_caches(caches))  # loads every library
     generate.chunk_step(model, piece, positions, clone_caches(caches))
     torch.cuda.synchronize()
-    with router_log() as route:
+    with around() as recorded:
         torch.cuda.set_sync_debug_mode("error")
         try:
             generate.decode_step(model, token, pos, caches)
@@ -3705,53 +4169,60 @@ def moe_sync_gate(model, gen: torch.Generator, log: str) -> float:
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+    print(f"{log} set_sync_debug_mode('error') around an eager decode_step (B={b}) and a "
+          f"chunk_step (B={b}, {MOE_ADMIT_CHUNK} tokens): no operation synchronised with the "
+          f"host")
+    del caches
+    return recorded
+
+
+def moe_sync_gate(model, gen: torch.Generator, log: str) -> float:
+    """sync_gate on a MoE model, its routing recorded. Returns the bytes of
+    weights that decode step reads: all but the experts', and the experts
+    its routing touched in each layer."""
+    cfg = model.cfg
+    route = sync_gate(model, gen, log, around=router_log)
     touched = sum(int(torch.unique(ids).numel()) for ids, _ in route[:cfg.num_layers])
     expert = 3 * cfg.hidden_size * cfg.intermediate_size * 2
     others = sum(p.numel() * p.element_size() for name, p in model.named_parameters()
                  if not re.search(r"\.moe\.w_(gate|up|down)$", name))
     others -= model.embed.numel() * model.embed.element_size()  # two rows read, not the table
-    print(f"{log} set_sync_debug_mode('error') around an eager decode_step (B={b}) and a "
-          f"chunk_step (B={b}, {MOE_ADMIT_CHUNK} tokens): no operation synchronised with the "
-          f"host; that decode step's routing touched {touched} experts over "
+    print(f"{log} the decode step's routing touched {touched} experts over "
           f"{cfg.num_layers} layers ({touched / cfg.num_layers:.1f} a layer), its weights' "
           f"read {(others + touched * expert) / 1e9:.2f} GB ({others / 1e9:.2f} GB besides the "
           f"experts)")
-    del caches
     return others + touched * expert
 
 
-def moe_servers(model, name: str, gen: torch.Generator, log: str, step_bytes: float,
-                bf16_paged: bool) -> dict[str, int]:
+def servers(model, name: str, gen: torch.Generator, log: str, step_bytes: float,
+            bf16_paged: bool, counters=MOE_COUNTERS) -> dict[str, dict[str, int]]:
     """Phase 9's traffic (4 requests of 4,200-6,000 prompt tokens, 32 new,
     2 slots, max_len 8192) on the bf16 server and the int8-KV paged server
     (pages of 256, admit_chunk MOE_ADMIT_CHUNK, a 1,024-token prefix before
     requests 1 and 3); with bf16_paged also a bf16 paged server, whose
     tokens must equal the bf16 dense server's. device_step_ms beside the
-    weights' read of a step (step_bytes at 3.35 TB/s). Every eager MoE call
-    through the grouped dispatch. Returns the launches of the runs."""
+    weights' read of a step (step_bytes at 3.35 TB/s). Returns each run's
+    launches of `counters`."""
     cfg = model.cfg
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen, device="cuda").tolist()
                for n in MISTRAL_SERVED]
     runs = {}
     dense_tokens, paged_tokens = {}, {}
-    with moe_calls() as calls:
-        runs["bf16"] = long_prompt_server(model, f"bf16 server, 2 slots, max_len "
-                                          f"{FAMILY_MAX_LEN}", prompts, None, log=log,
-                                          max_len=FAMILY_MAX_LEN, tokens=dense_tokens)
-        if bf16_paged:
-            runs["bf16 paged"] = long_prompt_server(
-                model, f"bf16 paged server (pages of {PAGE})", prompts, None, log=log,
-                max_len=FAMILY_MAX_LEN, tokens=paged_tokens, paged=True, page_size=PAGE)
-        prefix = prompts[0][:MISTRAL_PREFIX]
-        served = [p if uid % 2 == 0 else prefix + p[MISTRAL_PREFIX:]
-                  for uid, p in enumerate(prompts)]
-        runs["int8-KV paged"] = long_prompt_server(
-            model, f"int8-KV paged server (pages of {PAGE}, admit_chunk {MOE_ADMIT_CHUNK}, a "
-            f"{MISTRAL_PREFIX}-token prefix before requests 1 and 3)", served, prefix, log=log,
-            max_len=FAMILY_MAX_LEN, quant="int8", paged=True, page_size=PAGE,
-            admit_chunk=MOE_ADMIT_CHUNK)
-    check(calls["dense"] == 0 and calls["grouped"] > 0,
-          f"{name} servers' MoE calls {calls}: the masked-dense loop ran")
+    runs["bf16"] = long_prompt_server(model, f"bf16 server, 2 slots, max_len "
+                                      f"{FAMILY_MAX_LEN}", prompts, None, log=log,
+                                      max_len=FAMILY_MAX_LEN, tokens=dense_tokens)
+    if bf16_paged:
+        runs["bf16 paged"] = long_prompt_server(
+            model, f"bf16 paged server (pages of {PAGE})", prompts, None, log=log,
+            max_len=FAMILY_MAX_LEN, tokens=paged_tokens, paged=True, page_size=PAGE)
+    prefix = prompts[0][:MISTRAL_PREFIX]
+    served = [p if uid % 2 == 0 else prefix + p[MISTRAL_PREFIX:]
+              for uid, p in enumerate(prompts)]
+    runs["int8-KV paged"] = long_prompt_server(
+        model, f"int8-KV paged server (pages of {PAGE}, admit_chunk {MOE_ADMIT_CHUNK}, a "
+        f"{MISTRAL_PREFIX}-token prefix before requests 1 and 3)", served, prefix, log=log,
+        max_len=FAMILY_MAX_LEN, quant="int8", paged=True, page_size=PAGE,
+        admit_chunk=MOE_ADMIT_CHUNK)
     if bf16_paged:
         check(paged_tokens == dense_tokens,
               f"{name}: the bf16 paged server's tokens differ from the dense server's")
@@ -3759,14 +4230,25 @@ def moe_servers(model, name: str, gen: torch.Generator, log: str, step_bytes: fl
               f"{len(prompts)} requests")
     bound_ms = step_bytes / 3.35e12 * 1e3
     print(f"{log} {name}: a decode step's weights' read {step_bytes / 1e9:.2f} GB, "
-          f"{bound_ms:.3f} ms at 3.35 TB/s (device_step_ms of each server above); eager MoE "
-          f"calls {calls}")
+          f"{bound_ms:.3f} ms at 3.35 TB/s (device_step_ms of each server above)")
     check(runs["bf16"]["flash_fwd"] > 0 and runs["bf16"]["decode"] > 0
           and runs["int8-KV paged"]["paged_decode"] > 0,
           f"a kernel missed the {name} servers: {runs}")
+    return {tag: {k: run[k] for k in counters} for tag, run in runs.items()}
+
+
+def moe_servers(model, name: str, gen: torch.Generator, log: str, step_bytes: float,
+                bf16_paged: bool) -> dict[str, int]:
+    """servers() on a MoE model, every eager MoE call through the grouped
+    dispatch. Returns the launches of the runs, summed."""
+    with moe_calls() as calls:
+        runs = servers(model, name, gen, log, step_bytes, bf16_paged)
+    check(calls["dense"] == 0 and calls["grouped"] > 0,
+          f"{name} servers' MoE calls {calls}: the masked-dense loop ran")
+    print(f"{log} {name}: eager MoE calls of the servers {calls}")
     total: dict[str, int] = {}
     for run in runs.values():
-        add_launches(total, {k: run[k] for k in MOE_COUNTERS})
+        add_launches(total, run)
     return total
 
 
@@ -3853,6 +4335,88 @@ def phase_moe(gen: torch.Generator) -> dict[str, int]:
     return total
 
 
+ALIBI_COUNTERS = ("flash_fwd", "decode", "paged_decode", "flash_fwd_alibi", "decode_alibi",
+                  "paged_decode_alibi")
+
+
+def phase_alibi(gen: torch.Generator) -> dict[str, int]:
+    """Phase 17 (the comment above): LLAMA_8B with use_alibi at full width
+    and depth, random weights from the seed. Logits gates (bf16 KV and
+    int8 KV, kernels against the plain route), the sync-debug gate, phase
+    4's capture gate (bitwise), the bf16, bf16 paged and int8-KV paged
+    servers. Returns the ALiBi launches of its kernel runs and servers by
+    row: flash_fwd_alibi, decode_alibi (bf16 caches), decode_int8_alibi,
+    paged_decode_alibi."""
+    log = "[alibi]"
+    cfg = dataclasses.replace(LLAMA_8B, use_alibi=True)
+    name = "LLAMA_8B with use_alibi"
+    layers = cfg.num_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    print(f"{log} {name}: {layers} layers, hidden {cfg.hidden_size}, GQA {cfg.num_heads}/"
+          f"{cfg.num_kv_heads}, D {cfg.head_dim}, vocab {cfg.vocab_size}, RoPE off, ALiBi with "
+          f"the standard slopes (2^-8(h+1)/{cfg.num_heads}); {n / 1e9:.3f} B random bf16 "
+          f"parameters on the card in {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    check(llama.rope_tables(cfg, torch.arange(4, device="cuda")) == (None, None),
+          f"{name}: RoPE tables built for an ALiBi model")
+    prompt = torch.randint(0, cfg.vocab_size, (1, FAMILY_PROMPT), generator=gen, device="cuda")
+    forced = torch.randint(0, cfg.vocab_size, (4,), generator=gen, device="cuda")
+    names = [f"prefill S={FAMILY_PROMPT}"] + [f"decode {i}" for i in range(1, 5)]
+    rows = {"flash_fwd_alibi": 0, "decode_alibi": 0, "decode_int8_alibi": 0,
+            "paged_decode_alibi": 0}
+    for quant, kv, mode in ((None, "bf16 KV", "decode"), ("int8", "int8 KV", "decode_int8")):
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        kern = generation_run(model, prompt, forced, quant=quant, max_len=FAMILY_MAX_LEN)
+        run_s = time.perf_counter() - t0
+        added = {k: v for k, v in read_launches().items() if v}
+        want = {"flash_fwd": layers, "flash_fwd_alibi": layers, mode: 4 * layers,
+                "decode_alibi": 4 * layers}
+        check(added == want, f"{name} {kv} kernel run launched {added}, want {want}")
+        print(f"{log} {kv} kernel run (prefill S={FAMILY_PROMPT} and 4 decode steps) in "
+              f"{run_s:.3f} s, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+              f"launches {added}")
+        # int8 KV: the plain route requantizes P per 64-position tile, as K2
+        # does (the JAX kernel's 4,096-position block loses more of the far
+        # keys' P: another arithmetic, not the kernel's).
+        with plain_kernels(decode.BLOCK_KV if quant else None):
+            plain = generation_run(model, prompt, forced, quant=quant, max_len=FAMILY_MAX_LEN)
+        check({k: v for k, v in read_launches().items() if v} == want,
+              f"{name} {kv} plain run launched a kernel")
+        compare_logits(kv, kern, plain, names, model=name)
+        del kern, plain
+        rows["flash_fwd_alibi"] += added["flash_fwd_alibi"]
+        rows[f"{mode}_alibi"] += added["decode_alibi"]
+    sync_gate(model, gen, log)
+    tables = flash_fwd.standard_slope_table.cache_info().currsize
+    capture_gate("bf16 weights, bf16 KV", model, None, False, gen, name=name, bitwise=True)
+    check(flash_fwd.standard_slope_table.cache_info().currsize == tables,
+          f"{name}: a slope table was built during the capture gate")
+    step_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    step_bytes -= model.embed.numel() * model.embed.element_size()  # two rows read
+    runs = servers(model, name, gen, log, step_bytes, bf16_paged=True, counters=ALIBI_COUNTERS)
+    for tag, run in runs.items():
+        check(run["flash_fwd_alibi"] == run["flash_fwd"]
+              and run["decode_alibi"] == run["decode"]
+              and run["paged_decode_alibi"] == run["paged_decode"],
+              f"{name} {tag} server: a launch without ALiBi: {run}")
+        rows["flash_fwd_alibi"] += run["flash_fwd_alibi"]
+        rows["decode_alibi"] += run["decode_alibi"]
+        rows["paged_decode_alibi"] += run["paged_decode_alibi"]
+    print(f"{log} {name}: ALiBi launches of the kernel runs and servers by row {rows}")
+    check(all(rows.values()), f"{name}: an ALiBi kernel missed its path: {rows}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 class PhaseClock:
     """Prints each phase's seconds as it ends."""
 
@@ -3921,6 +4485,9 @@ def run() -> None:
     clock.done("15 speculative decoding")
     add_launches(launches, phase_moe(gen))
     clock.done("16 Qwen3-30B-A3B and Qwen1.5-MoE-A2.7B, mixture-of-experts")
+    launches.update(phase_alibi(gen))
+    clock.done("17 LLAMA_8B with ALiBi")
+    launches["decode_lse"] = timed["decode_lse"].pop("launches")
     decode_src = ("flashattn_tpu_torch/csrc/decode.cu", "flashattn_tpu/ops/decode.py:351")
     qmm_src = "flashattn_tpu_torch/csrc/quant_matmul.cu"
     sources = {
@@ -3941,6 +4508,13 @@ def run() -> None:
         "decode_softcap": decode_src,
         "paged_decode_softcap": ("flashattn_tpu_torch/csrc/decode.cu",
                                  "flashattn_tpu/ops/paged.py:378"),
+        "flash_fwd_alibi": ("flashattn_tpu_torch/csrc/flash_fwd.cu",
+                            "flashattn_tpu/ops/flash_fwd.py:469"),
+        "decode_alibi": ("flashattn_tpu_torch/csrc/decode_alibi.cu", decode_src[1]),
+        "decode_int8_alibi": ("flashattn_tpu_torch/csrc/decode_alibi.cu", decode_src[1]),
+        "paged_decode_alibi": ("flashattn_tpu_torch/csrc/decode_alibi.cu",
+                               "flashattn_tpu/ops/paged.py:378"),
+        "decode_lse": decode_src,
         "qmm8": (qmm_src, "flashattn_tpu/ops/quant_matmul.py:81"),
         "qmm4": (qmm_src, "flashattn_tpu/ops/quant_matmul.py:123"),
         "flash_bwd_fused": ("flashattn_tpu_torch/csrc/flash_bwd_fused.cu",

@@ -14,6 +14,7 @@ namespace fat {
 // -inf - -inf, so no NaN can enter the running statistics.
 constexpr float kMaskValue = -0.7f * FLT_MAX;
 constexpr float kLn2 = 0.69314718055994531f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 // Element types the kernels take; the Python wrappers pass these codes.
 enum DType : int { kF32 = 0, kBF16 = 1, kInt8 = 2, kFp8 = 3 };

@@ -7,9 +7,11 @@
 // (bottom-right, or by pos_offset) or not, GQA, ragged S_q/S_k, optional LSE,
 // the sliding window (causal only: row r sees column c iff
 // r + offset - window < c <= r + offset), packed-document segment ids
-// (row r sees column c only if seg_q[b][r] == seg_k[b][c]) and the logit
-// soft-cap (s = tanh(s / cap) * cap on the scaled logits, before any mask),
-// at head dims 64, 128 and 256.
+// (row r sees column c only if seg_q[b][r] == seg_k[b][c]), the logit
+// soft-cap (s = tanh(s / cap) * cap on the scaled logits, before any mask)
+// and ALiBi (slope_h * (c - r - offset) added to the scaled logits, before
+// any mask; not with segment ids or the soft-cap), at head dims 64, 128 and
+// 256.
 // The TPU's two grid shapes, its wavefront meta arrays, h_fuse and the
 // ones-column row sum are Mosaic designs and are not carried over.
 //
@@ -65,7 +67,18 @@
 // become tanh(s * scale / cap) * cap * log2(e) right after the S product,
 // before every mask (common.cuh softcap_tanh): only scale folds before the
 // tanh, as in the JAX kernel, and the softmax then runs on the exp2-domain
-// logits as they are; without it the kernel has no tanh code at all.
+// logits as they are; without it the kernel has no tanh code at all. With
+// ALiBi (kAlibi) every tile's raw scores become s * scale * log2(e) +
+// slope * log2(e) * (c - r - offset) before the masks, the interior tiles
+// included: a thread's two rows each take their row term (the tile's first
+// column of its lanes less the row and the offset, times the slope) once a
+// tile, and each score one FMA of the slope by its column's constant
+// offset within the tile and one of its raw score by the scale. The kv loop
+// walks from the last tile down, where the bias is largest (the causal
+// diagonal's, near 0), so the running max is set first and the far tiles'
+// biases (about -slope * S) underflow their exponents to 0; a row whose
+// first tiles hide every key keeps its max at -inf and alpha 0, as without
+// the bias.
 // No atomics: two calls give the same bits. The softmax
 // uses the exp2 domain (row max of the raw scores, one FFMA and one
 // MUFU.EX2 per exponent), fp32 (m, l),
@@ -78,7 +91,7 @@
 // float32 runs a CUDA-core kernel (flash_fwd_kernel): four threads per q
 // row, each computing 16 logits of the tile and D/4 output columns, P
 // rounded to the input dtype for P.V as the TPU kernel feeds its MXU; the
-// soft-cap there is a uniform branch (cap_log2 > 0).
+// soft-cap (cap_log2 > 0) and ALiBi (slopes not null) are uniform branches.
 #include <cuda.h>  // CUtensorMap and its enums: declarations only, libcuda is not linked
 
 #include "common.cuh"
@@ -124,8 +137,9 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, const int* __restrict__ seg_q,
-                 const int* __restrict__ seg_k, int Hq, int Hkv, int Sq, int Sk,
-                 int is_causal, int offset, int window, float scale_log2, float cap_log2) {
+                 const int* __restrict__ seg_k, const float* __restrict__ slopes, int Hq,
+                 int Hkv, int Sq, int Sk, int is_causal, int offset, int window,
+                 float scale_log2, float cap_log2) {
   constexpr int DP = D + 1;
   constexpr int PP = kBlockN + 1;
   constexpr int kDimsPerThread = D / kThreadsPerRow;
@@ -180,6 +194,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (cap_log2 > 0.f) {  // q carries scale / cap: s is the capped logit's tanh argument
 #pragma unroll
       for (int j = 0; j < kColsPerThread; ++j) s[j] = fat::softcap_tanh(s[j]) * cap_log2;
+    }
+    if (slopes != nullptr) {  // ALiBi: + slope * log2(e) * (c - row - offset)
+      const float slope = slopes[h] * fat::kLog2e;
+#pragma unroll
+      for (int j = 0; j < kColsPerThread; ++j)
+        s[j] = fmaf(slope, static_cast<float>(n0 + t + kThreadsPerRow * j - qi - offset), s[j]);
     }
 
     unsigned live = 0;
@@ -467,8 +487,9 @@ __device__ __forceinline__ void load_kv(unsigned smem, const CUtensorMap* k_map,
 // window's left edge and kSeg the segment ids (seg_q, seg_k: this batch
 // row's [Sq] and [Sk]; ranges_q, ranges_k: their block ranges): without
 // them the loop is the causal kernel's alone; kCap the soft-cap (scale_log2
-// then carries scale / cap, cap_log2 cap * log2(e)).
-template <int D, int kConsumers, bool kWindow, bool kSeg, bool kCap>
+// then carries scale / cap, cap_log2 cap * log2(e)); kAlibi ALiBi with this
+// head's slope times log2(e), slope_log2.
+template <int D, int kConsumers, bool kWindow, bool kSeg, bool kCap, bool kAlibi>
 __device__ __forceinline__ void consume(unsigned smem, const CUtensorMap* k_map,
                                         const CUtensorMap* v_map, __nv_bfloat16* __restrict__ o,
                                         float* __restrict__ lse, const int* __restrict__ seg_q,
@@ -477,12 +498,12 @@ __device__ __forceinline__ void consume(unsigned smem, const CUtensorMap* k_map,
                                         const int2* __restrict__ ranges_k, int bh, int kv_head,
                                         int q0, int first, int n_tiles, int Sq, int Sk,
                                         int is_causal, int offset, int window,
-                                        float scale_log2, float cap_log2) {
+                                        float scale_log2, float cap_log2, float slope_log2) {
   using L = FwdLayout<D, kConsumers>;
   constexpr int kTileN = L::kTileN;
-  // The softmax's factor from a score to the exp2 domain: the capped
-  // scores are there already.
-  const float mul = kCap ? 1.f : scale_log2;
+  // The softmax's factor from a score to the exp2 domain: the capped and
+  // the biased scores are there already.
+  const float mul = kCap || kAlibi ? 1.f : scale_log2;
   const unsigned k_full = smem + L::kKFull, v_full = smem + L::kVFull, empty = smem + L::kEmpty;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   // Consumer warpgroup wg. Accumulator element 4j + 2i + e of a thread sits
@@ -567,6 +588,21 @@ __device__ __forceinline__ void consume(unsigned smem, const CUtensorMap* k_map,
 #pragma unroll
       for (int i = 0; i < kTileN / 2; ++i)
         sc[i] = fat::softcap_tanh(sc[i] * scale_log2) * cap_log2;
+    }
+    if constexpr (kAlibi) {  // every tile, before any mask: masked scores then become -inf
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        // Element 4j + 2i + e: column n0 + 8j + 2t + e of row row0 + 8i.
+        const float row_term =
+            slope_log2 * static_cast<float>(n0 + 2 * t - (row0 + 8 * i) - offset);
+#pragma unroll
+        for (int j = 0; j < kTileN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = sc[4 * j + 2 * i + e];
+            x = fmaf(x, scale_log2, fmaf(slope_log2, static_cast<float>(8 * j + e), row_term));
+          }
+      }
     }
 
     if (seg_mask || it < n_hi || (kWindow && it >= n_tiles - n_lo)) {  // tiles across a bound
@@ -692,8 +728,9 @@ __device__ __forceinline__ void consume(unsigned smem, const CUtensorMap* k_map,
 // thread 0 issues them between its products. Same contract as
 // flash_fwd_kernel; kWindow instantiates the sliding window (window > 0),
 // kSeg the segment ids (seg_q and seg_k not null), kCap the soft-cap
-// (cap_log2 > 0).
-template <int D, int kConsumers, bool kWindow, bool kSeg, bool kCap>
+// (cap_log2 > 0), kAlibi ALiBi (slopes, the (Hq,) table, not null; never
+// with kSeg or kCap).
+template <int D, int kConsumers, bool kWindow, bool kSeg, bool kCap, bool kAlibi>
 __global__ void __launch_bounds__(FwdLayout<D, kConsumers>::kThreads,
                                   kConsumers == 1 ? 3 : 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -701,9 +738,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o,
                        float* __restrict__ lse, const int* __restrict__ seg_q,
                        const int* __restrict__ seg_k, const int2* __restrict__ ranges_q,
-                       const int2* __restrict__ ranges_k, int Hq, int Hkv, int Sq, int Sk,
-                       int is_causal, int offset, int window, float scale_log2,
-                       float cap_log2) {
+                       const int2* __restrict__ ranges_k, const float* __restrict__ slopes,
+                       int Hq, int Hkv, int Sq, int Sk, int is_causal, int offset, int window,
+                       float scale_log2, float cap_log2) {
+  static_assert(!(kAlibi && (kSeg || kCap)), "ALiBi takes no segment ids and no soft-cap");
   using L = FwdLayout<D, kConsumers>;
   constexpr int kTileN = L::kTileN;
   extern __shared__ unsigned char smem_raw[];
@@ -723,6 +761,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int first = kWindow ? kv_first_tile(q0, offset, window, kTileN) : 0;
   const int n_tiles = max(
       0, (kv_limit(q0, L::kBlockM, Sq, Sk, is_causal, offset) + kTileN - 1) / kTileN - first);
+  const float slope_log2 = kAlibi ? __ldg(slopes + bh % Hq) * fat::kLog2e : 0.f;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -743,10 +782,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       for (int it = 0; it < min(kStages, n_tiles); ++it)
         load_kv<D, kConsumers>(smem, &k_map, &v_map, it, first, n_tiles, kv_head);
     }
-    consume<D, kConsumers, kWindow, kSeg, kCap>(smem, &k_map, &v_map, o, lse, row_seg_q,
-                                                row_seg_k, row_ranges_q, row_ranges_k, bh,
-                                                kv_head, q0, first, n_tiles, Sq, Sk, is_causal,
-                                                offset, window, scale_log2, cap_log2);
+    consume<D, kConsumers, kWindow, kSeg, kCap, kAlibi>(
+        smem, &k_map, &v_map, o, lse, row_seg_q, row_seg_k, row_ranges_q, row_ranges_k, bh,
+        kv_head, q0, first, n_tiles, Sq, Sk, is_causal, offset, window, scale_log2, cap_log2,
+        slope_log2);
   } else if (threadIdx.x >= 128 * kConsumers) {
     // Producer warpgroup: Q once, then K and V tile by tile, last tile
     // first. It hands its registers to the consumers (setmaxnreg): 12 warps
@@ -762,25 +801,25 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    consume<D, kConsumers, kWindow, kSeg, kCap>(smem, &k_map, &v_map, o, lse, row_seg_q,
-                                                row_seg_k, row_ranges_q, row_ranges_k, bh,
-                                                kv_head, q0, first, n_tiles, Sq, Sk, is_causal,
-                                                offset, window, scale_log2, cap_log2);
+    consume<D, kConsumers, kWindow, kSeg, kCap, kAlibi>(
+        smem, &k_map, &v_map, o, lse, row_seg_q, row_seg_k, row_ranges_q, row_ranges_k, bh,
+        kv_head, q0, first, n_tiles, Sq, Sk, is_causal, offset, window, scale_log2, cap_log2,
+        slope_log2);
   }
 }
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, void* lse,
-                       const int* seg_q, const int* seg_k, int B, int Hq, int Hkv, int Sq,
-                       int Sk, int is_causal, int offset, int window, float scale_log2,
-                       float cap_log2, cudaStream_t stream) {
+                       const int* seg_q, const int* seg_k, const float* slopes, int B, int Hq,
+                       int Hkv, int Sq, int Sk, int is_causal, int offset, int window,
+                       float scale_log2, float cap_log2, cudaStream_t stream) {
   const cudaError_t err = fat::allow_max_smem<flash_fwd_kernel<D>>();
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kBlockM - 1) / kBlockM, Hq, B);
   flash_fwd_kernel<D><<<grid, kThreads, smem_bytes<D>(), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), seg_q,
-      seg_k, Hq, Hkv, Sq, Sk, is_causal, offset, window, scale_log2, cap_log2);
+      seg_k, slopes, Hq, Hkv, Sq, Sk, is_causal, offset, window, scale_log2, cap_log2);
   return cudaGetLastError();
 }
 
@@ -831,15 +870,15 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int d, int rows, int he
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D, int kConsumers, bool kWindow, bool kSeg, bool kCap>
+template <int D, int kConsumers, bool kWindow, bool kSeg, bool kCap, bool kAlibi>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
                         const int* seg_q, const int* seg_k, const int2* ranges_q,
-                        const int2* ranges_k, int B, int Hq, int Hkv, int Sq, int Sk,
-                        int is_causal, int offset, int window, float scale_log2,
+                        const int2* ranges_k, const float* slopes, int B, int Hq, int Hkv,
+                        int Sq, int Sk, int is_causal, int offset, int window, float scale_log2,
                         float cap_log2, cudaStream_t stream) {
   using L = FwdLayout<D, kConsumers>;
-  cudaError_t err =
-      fat::allow_max_smem<flash_fwd_wgmma_kernel<D, kConsumers, kWindow, kSeg, kCap>>();
+  cudaError_t err = fat::allow_max_smem<
+      flash_fwd_wgmma_kernel<D, kConsumers, kWindow, kSeg, kCap, kAlibi>>();
   const int q_tiles = (Sq + L::kBlockM - 1) / L::kBlockM;
   if (err == cudaSuccess && q_tiles > 65535) err = cudaErrorInvalidValue;
   CUtensorMap q_map, k_map, v_map;
@@ -847,34 +886,37 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, vo
   if (err == cudaSuccess) err = make_map(&k_map, k, D, Sk, B * Hkv, L::kTileN);
   if (err == cudaSuccess) err = make_map(&v_map, v, D, Sk, B * Hkv, L::kTileN);
   if (err != cudaSuccess) return err;
-  flash_fwd_wgmma_kernel<D, kConsumers, kWindow, kSeg, kCap>
+  flash_fwd_wgmma_kernel<D, kConsumers, kWindow, kSeg, kCap, kAlibi>
       <<<dim3(B * Hq, q_tiles), L::kThreads, L::kBytes, stream>>>(
           q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), seg_q,
-          seg_k, ranges_q, ranges_k, Hq, Hkv, Sq, Sk, is_causal, offset, window, scale_log2,
-          cap_log2);
+          seg_k, ranges_q, ranges_k, slopes, Hq, Hkv, Sq, Sk, is_causal, offset, window,
+          scale_log2, cap_log2);
   return cudaGetLastError();
 }
 
 // The bf16 kernel of head dim D (kConsumers warpgroups) for a window,
-// segment ids and a soft-cap, each present or not.
+// segment ids and a soft-cap, each present or not, or for ALiBi (slopes not
+// null) with or without a window.
 template <int D, int kConsumers>
 cudaError_t launch_bf16_any(bool win, bool seg, bool cap, const void* q, const void* k,
                             const void* v, void* o, void* lse, const int* seg_q,
-                            const int* seg_k, const int2* ranges_q, const int2* ranges_k, int B,
-                            int Hq, int Hkv, int Sq, int Sk, int is_causal, int offset,
-                            int window, float scale_log2, float cap_log2,
-                            cudaStream_t stream) {
+                            const int* seg_k, const int2* ranges_q, const int2* ranges_k,
+                            const float* slopes, int B, int Hq, int Hkv, int Sq, int Sk,
+                            int is_causal, int offset, int window, float scale_log2,
+                            float cap_log2, cudaStream_t stream) {
   const auto fn =
-      cap ? (win ? (seg ? launch_bf16<D, kConsumers, true, true, true>
-                        : launch_bf16<D, kConsumers, true, false, true>)
-                 : (seg ? launch_bf16<D, kConsumers, false, true, true>
-                        : launch_bf16<D, kConsumers, false, false, true>))
-      : win ? (seg ? launch_bf16<D, kConsumers, true, true, false>
-                   : launch_bf16<D, kConsumers, true, false, false>)
-            : (seg ? launch_bf16<D, kConsumers, false, true, false>
-                   : launch_bf16<D, kConsumers, false, false, false>);
-  return fn(q, k, v, o, lse, seg_q, seg_k, ranges_q, ranges_k, B, Hq, Hkv, Sq, Sk, is_causal,
-            offset, window, scale_log2, cap_log2, stream);
+      slopes != nullptr ? (win ? launch_bf16<D, kConsumers, true, false, false, true>
+                               : launch_bf16<D, kConsumers, false, false, false, true>)
+      : cap ? (win ? (seg ? launch_bf16<D, kConsumers, true, true, true, false>
+                          : launch_bf16<D, kConsumers, true, false, true, false>)
+                   : (seg ? launch_bf16<D, kConsumers, false, true, true, false>
+                          : launch_bf16<D, kConsumers, false, false, true, false>))
+      : win ? (seg ? launch_bf16<D, kConsumers, true, true, false, false>
+                   : launch_bf16<D, kConsumers, true, false, false, false>)
+            : (seg ? launch_bf16<D, kConsumers, false, true, false, false>
+                   : launch_bf16<D, kConsumers, false, false, false, false>);
+  return fn(q, k, v, o, lse, seg_q, seg_k, ranges_q, ranges_k, slopes, B, Hq, Hkv, Sq, Sk,
+            is_causal, offset, window, scale_log2, cap_log2, stream);
 }
 
 }  // namespace
@@ -883,50 +925,53 @@ cudaError_t launch_bf16_any(bool win, bool seg, bool cap, const void* q, const v
 // contiguous on the device, q, k and v 16-byte aligned; seg_q [B,Sq] and
 // seg_k [B,Sk] int32 segment ids with their block ranges ranges_q
 // [B,ceil(Sq/32)] and ranges_k [B,ceil(Sk/32)] int2 (min, max), all NULL or
-// none (the float32 kernel reads the ids alone). Row r sees column c
-// iff !is_causal or c <= r + offset, with window > 0 (causal only)
+// none (the float32 kernel reads the ids alone); slopes the (Hq,) float32
+// ALiBi table or NULL (not with segment ids or a soft-cap). Row r sees
+// column c iff !is_causal or c <= r + offset, with window > 0 (causal only)
 // c >= r + offset - window + 1, and with segment ids
 // seg_q[b][r] == seg_k[b][c]. The logits s (q . k) become s * scale_log2 in
 // the exp2 domain, or with cap_log2 > 0 (the soft-cap: cap * log2(e), and
-// scale_log2 then scale / cap) tanh(s * scale_log2) * cap_log2. bf16 runs
+// scale_log2 then scale / cap) tanh(s * scale_log2) * cap_log2; ALiBi adds
+// slopes[h] * log2(e) * (c - r - offset). bf16 runs
 // the wgmma kernel (q tiles of 64 rows at D 64, 128 at D 128 and 256),
 // float32 the FMA kernel. Returns the CUDA error code of the launch (0 =
 // success).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
                                 void* lse, const int* seg_q, const int* seg_k,
-                                const int2* ranges_q, const int2* ranges_k, int B, int Hq,
-                                int Hkv, int Sq, int Sk, int D, int dtype, int is_causal,
-                                int offset, int window, float scale_log2, float cap_log2,
-                                void* stream) {
+                                const int2* ranges_q, const int2* ranges_k,
+                                const float* slopes, int B, int Hq, int Hkv, int Sq, int Sk,
+                                int D, int dtype, int is_causal, int offset, int window,
+                                float scale_log2, float cap_log2, void* stream) {
   const bool seg = seg_q != nullptr;
   const bool cap = cap_log2 > 0.f;
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || window < 0 ||
       (window > 0 && !is_causal) || seg != (seg_k != nullptr) || seg != (ranges_q != nullptr) ||
-      seg != (ranges_k != nullptr) || cap_log2 < 0.f)
+      seg != (ranges_k != nullptr) || cap_log2 < 0.f ||
+      (slopes != nullptr && (seg || cap)))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   const bool win = window > 0;
   if (dtype == fat::kBF16 && D == 64)
     err = launch_bf16_any<64, 1>(win, seg, cap, q, k, v, o, lse, seg_q, seg_k, ranges_q,
-                                 ranges_k, B, Hq, Hkv, Sq, Sk, is_causal, offset, window,
+                                 ranges_k, slopes, B, Hq, Hkv, Sq, Sk, is_causal, offset, window,
                                  scale_log2, cap_log2, s);
   else if (dtype == fat::kBF16 && D == 128)
     err = launch_bf16_any<128, 2>(win, seg, cap, q, k, v, o, lse, seg_q, seg_k, ranges_q,
-                                  ranges_k, B, Hq, Hkv, Sq, Sk, is_causal, offset, window,
+                                  ranges_k, slopes, B, Hq, Hkv, Sq, Sk, is_causal, offset, window,
                                   scale_log2, cap_log2, s);
   else if (dtype == fat::kBF16 && D == 256)
     err = launch_bf16_any<256, 2>(win, seg, cap, q, k, v, o, lse, seg_q, seg_k, ranges_q,
-                                  ranges_k, B, Hq, Hkv, Sq, Sk, is_causal, offset, window,
+                                  ranges_k, slopes, B, Hq, Hkv, Sq, Sk, is_causal, offset, window,
                                   scale_log2, cap_log2, s);
   else if (dtype == fat::kF32 && D == 64)
-    err = launch_f32<64>(q, k, v, o, lse, seg_q, seg_k, B, Hq, Hkv, Sq, Sk, is_causal, offset,
-                         window, scale_log2, cap_log2, s);
+    err = launch_f32<64>(q, k, v, o, lse, seg_q, seg_k, slopes, B, Hq, Hkv, Sq, Sk,
+                         is_causal, offset, window, scale_log2, cap_log2, s);
   else if (dtype == fat::kF32 && D == 128)
-    err = launch_f32<128>(q, k, v, o, lse, seg_q, seg_k, B, Hq, Hkv, Sq, Sk, is_causal, offset,
-                          window, scale_log2, cap_log2, s);
+    err = launch_f32<128>(q, k, v, o, lse, seg_q, seg_k, slopes, B, Hq, Hkv, Sq, Sk,
+                          is_causal, offset, window, scale_log2, cap_log2, s);
   else if (dtype == fat::kF32 && D == 256)
-    err = launch_f32<256>(q, k, v, o, lse, seg_q, seg_k, B, Hq, Hkv, Sq, Sk, is_causal, offset,
-                          window, scale_log2, cap_log2, s);
+    err = launch_f32<256>(q, k, v, o, lse, seg_q, seg_k, slopes, B, Hq, Hkv, Sq, Sk,
+                          is_causal, offset, window, scale_log2, cap_log2, s);
   return static_cast<int>(err);
 }

@@ -9,8 +9,10 @@ the llama3 and longrope RoPE variants and the mixture-of-experts FFN on one
 device (``num_experts``, ``top_k_experts``, ``moe_norm_topk``,
 ``moe_shared_intermediate``; ``moe_dispatch`` and ``moe_capacity_factor``
 choose a dispatcher over an ``ep`` mesh only, as in the JAX package, and
-keep their defaults here); ``check_supported`` rejects the field whose
-port is still queued (ALiBi).
+keep their defaults here) and ALiBi (``use_alibi``: RoPE off, the standard
+slopes' bias in the prefill and decode kernels; its training waits for
+ROADMAP A4, and a gradient through it raises); ``check_supported`` rejects
+a value it does not know.
 """
 
 from __future__ import annotations
@@ -18,8 +20,6 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-
-from flashattn_tpu_torch.ops.common import unported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,11 +64,9 @@ class ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a config field whose port is queued."""
+    """Raise ValueError for a config value the port does not know."""
     if cfg.window_pattern not in (None, "alternate"):
         raise ValueError(f"unknown window_pattern {cfg.window_pattern!r}")
-    if cfg.use_alibi:
-        raise unported("ALiBi", "A4 and A5")
     if cfg.mlp_activation not in ("silu", "gelu_tanh"):
         raise ValueError(f"unknown mlp_activation {cfg.mlp_activation!r}")
 

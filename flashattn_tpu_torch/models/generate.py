@@ -16,7 +16,11 @@ cfg.use_post_norms each block's output goes through its post-norm
 (llama.residuals) before the residual add, as in the JAX functions. Each
 takes q, k and v from llama.attention_inputs (biases, q/k norm, RoPE),
 and its RoPE tables from llama.rope_tables, which picks longrope's factor
-set on the device, so a captured step picks it anew at each replay.
+set on the device, so a captured step picks it anew at each replay. An
+ALiBi model (cfg.use_alibi) has no RoPE tables (None) and passes `alibi`
+to every attention call: the kernels read the standard slope table, made
+once per head count and device (ops/flash_fwd.py::alibi_table) by the
+first, eager call, so a captured step reads that buffer and builds none.
 """
 
 from __future__ import annotations
@@ -81,7 +85,7 @@ def prefill(
         _append(cache, k, v, assume_fits=True)
         o = flash_attention(q, k, v, is_causal=True, scale=cfg.attn_scale,
                             window=llama.layer_window(cfg, i),
-                            logit_softcap=cfg.logit_softcap)
+                            logit_softcap=cfg.logit_softcap, alibi=cfg.use_alibi)
         o = o.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
         x = llama.residuals(layer, x, llama.proj(o, layer.wo), cfg)
     return llama.lm_logits(x if return_all else x[:, -1], model), caches
@@ -103,16 +107,18 @@ def decode_step(
     cfg = model.cfg
     b = token.shape[0]
     x = llama.embed_tokens(model, token)  # [B, H]
-    cos, sin = llama.rope_tables(cfg, positions)  # [B, D/2]
+    cos, sin = llama.rope_tables(cfg, positions)  # [B, D/2], or None
+    if cos is not None:
+        cos, sin = cos[:, None], sin[:, None]
     for i, (layer, cache) in enumerate(zip(model.layers, caches)):
         xn = llama.rms_norm(x, layer.attn_norm, cfg.norm_eps, cfg.norm_offset)
-        q, k, v = llama.attention_inputs(layer, xn[:, None], cos[:, None], sin[:, None], cfg)
+        q, k, v = llama.attention_inputs(layer, xn[:, None], cos, sin, cfg)
         _append(cache, k, v, active=active)
         attn = (paged_decode_attention if isinstance(cache, PagedKVCache)
                 else decode_attention)
         win, sink = _window_sink(cfg, i)
         o = attn(q[:, :, 0], cache, scale=cfg.attn_scale, window=win, sink=sink,
-                 logit_softcap=cfg.logit_softcap)  # [B, Hq, D]
+                 logit_softcap=cfg.logit_softcap, alibi=cfg.use_alibi)  # [B, Hq, D]
         x = llama.residuals(layer, x, llama.proj(o.reshape(b, cfg.num_heads * cfg.head_dim),
                                             layer.wo), cfg)
     return llama.lm_logits(x, model), caches
@@ -202,8 +208,8 @@ def chunk_step(
         attn = (paged_decode_attention_chunk if isinstance(cache, PagedKVCache)
                 else decode_attention_chunk)
         win, sink = _window_sink(cfg, i)
-        o = attn(q.contiguous(), cache, scale=cfg.attn_scale, window=win,
-                 sink=sink, logit_softcap=cfg.logit_softcap)  # [B, Hq, C, D]
+        o = attn(q.contiguous(), cache, scale=cfg.attn_scale, window=win, sink=sink,
+                 logit_softcap=cfg.logit_softcap, alibi=cfg.use_alibi)  # [B, Hq, C, D]
         o = o.transpose(1, 2).reshape(b, c, cfg.num_heads * cfg.head_dim)
         x = llama.residuals(layer, x, llama.proj(o, layer.wo), cfg)
     return llama.lm_logits(x, model), caches

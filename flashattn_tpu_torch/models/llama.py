@@ -19,6 +19,9 @@ The model-family fields of the JAX config are ported: Qwen2's q/k/v
 biases (``attn_bias``), Qwen3's q/k RMSNorm (``qk_norm``), Llama-3.1's
 llama3 RoPE (``rope_scaling``) and Phi-3's longrope (``rope_longrope``);
 every site that feeds attention takes q, k and v from ``attention_inputs``.
+An ALiBi model (``use_alibi``) carries position in the attention's bias
+and not in RoPE: its ``rope_tables`` are (None, None), and every attention
+call passes ``alibi``.
 
 A mixture-of-experts config (``num_experts``: Mixtral, Qwen3-MoE,
 Qwen2-MoE with its shared expert) holds ``moe`` in each layer in place of
@@ -248,7 +251,10 @@ def rope_tables(cfg: ModelConfig, positions: torch.Tensor):
     captured decode step makes it anew at each replay. With
     cfg.rope_scaling (Llama-3.1) the long wavelengths stretch by the
     factor, the short ones stay and the band between interpolates. Nothing
-    here copies from the host: a CUDA graph can capture it."""
+    here copies from the host: a CUDA graph can capture it. An ALiBi model
+    (cfg.use_alibi) has no RoPE: (None, None)."""
+    if cfg.use_alibi:
+        return None, None
     half = cfg.head_dim // 2
     device = positions.device
     exponent = -torch.arange(half, dtype=torch.float32, device=device) / half
@@ -349,7 +355,8 @@ def _operands(xn, wq, wk, wv, cos, sin, num_heads: int, num_kv_heads: int, bq=No
               bv=None, q_norm=None, k_norm=None, norm_eps: float = 0.0,
               norm_offset: float = 0.0, head_dim: int | None = None):
     """attention_inputs' arithmetic, in the JAX package's order: the
-    projections and their biases, the q/k RMSNorm, RoPE on q and k."""
+    projections and their biases, the q/k RMSNorm, RoPE on q and k (none
+    when cos is None: an ALiBi model)."""
     head_dim = head_dim or wq.shape[1] // num_heads
     q = _heads(xn, wq, bq, num_heads, head_dim)
     k = _heads(xn, wk, bk, num_kv_heads, head_dim)
@@ -357,6 +364,8 @@ def _operands(xn, wq, wk, wv, cos, sin, num_heads: int, num_kv_heads: int, bq=No
     if q_norm is not None:
         q = rms_norm(q, q_norm, norm_eps, norm_offset)
         k = rms_norm(k, k_norm, norm_eps, norm_offset)
+    if cos is None:  # in the kernel's layout, as apply_rope leaves them
+        return q.contiguous(), k.contiguous(), v
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
@@ -381,7 +390,9 @@ def attention_inputs(layer: LlamaLayer, xn: torch.Tensor, cos: torch.Tensor,
 def rope_backward(g: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """The gradient through apply_rope (a rotation by the same angles, so
     the inverse one), computed as autograd computes it: in float32, each
-    half rounded to g's dtype."""
+    half rounded to g's dtype; g itself without RoPE (cos None)."""
+    if cos is None:
+        return g
     half = g.shape[-1] // 2
     if cos.dim() == 2:
         cos_b, sin_b = cos[None, None], sin[None, None]
@@ -406,7 +417,7 @@ def rms_norm_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, eps: fl
 
 @torch.library.custom_op(
     "flashattn_tpu_torch::attention_operands", mutates_args=(),
-    schema="(Tensor xn, Tensor wq, Tensor wk, Tensor wv, Tensor cos, Tensor sin, "
+    schema="(Tensor xn, Tensor wq, Tensor wk, Tensor wv, Tensor? cos, Tensor? sin, "
            "int num_heads, int num_kv_heads, Tensor? bq=None, Tensor? bk=None, "
            "Tensor? bv=None, Tensor? q_norm=None, Tensor? k_norm=None, "
            "float norm_eps=0.0, float norm_offset=0.0) -> (Tensor, Tensor, Tensor)")
@@ -491,10 +502,10 @@ def _attn_block(layer: LlamaLayer, x: torch.Tensor, cos: torch.Tensor,
     if segment_ids is not None:
         o = flash_attention_varlen(q, k, v, segment_ids=segment_ids, is_causal=True,
                                    scale=cfg.attn_scale, window=window,
-                                   logit_softcap=cfg.logit_softcap)
+                                   logit_softcap=cfg.logit_softcap, alibi=cfg.use_alibi)
     else:
         o = flash_attention(q, k, v, is_causal=True, scale=cfg.attn_scale, window=window,
-                            logit_softcap=cfg.logit_softcap)
+                            logit_softcap=cfg.logit_softcap, alibi=cfg.use_alibi)
     o = o.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
     return proj(o, layer.wo)
 

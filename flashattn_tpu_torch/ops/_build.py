@@ -26,8 +26,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of each library's entry points: {function: argtypes}.
 ENTRY_POINTS = {
-    "flash_fwd": {"flash_fwd_launch": [_P] * 9 + [_I] * 10 + [_F, _F, _P]},
-    "decode": {"decode_launch": [_P] * 11 + [_I] * 15 + [_F, _F, _F, _P]},
+    "flash_fwd": {"flash_fwd_launch": [_P] * 10 + [_I] * 10 + [_F, _F, _P]},
+    "decode": {"decode_launch": [_P] * 13 + [_I] * 15 + [_F, _F, _F, _P]},
+    "decode_alibi": {"decode_launch": [_P] * 13 + [_I] * 15 + [_F, _F, _F, _P]},
     "quant_matmul": {"quant_matmul_launch": [_P] * 5 + [_I] * 7 + [_P]},
     "flash_bwd": {"flash_bwd_dq_launch": [_P] * 12 + [_I] * 10 + [_F] * 3 + [_P],
                   "flash_bwd_dkv_launch": [_P] * 12 + [_I] * 10 + [_F] * 3 + [_P]},

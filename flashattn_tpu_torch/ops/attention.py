@@ -6,7 +6,9 @@ JAX package's ``custom_vjp``) whose forward runs K1 with the LSE and keeps
 (q, k, v, o, lse) and the segment ids as residuals, and whose backward runs
 the backward kernels (ops/flash_bwd.py) with the same causal mask, window,
 segment ids and logit soft-cap. Without a gradient to take, the primal runs
-K1 without writing the LSE, as the JAX primal does.
+K1 without writing the LSE, as the JAX primal does. ALiBi runs in the
+forward alone: its backward is not ported (ROADMAP A4), so a call that
+would take a gradient through it raises.
 
 Under a gradient the Function's forward calls K1 through a registered
 operator, ``torch.ops.flashattn_tpu_torch.flash_fwd`` (the plain route's is
@@ -27,6 +29,7 @@ from typing import Callable
 
 import torch
 
+from flashattn_tpu_torch.ops.common import unported
 from flashattn_tpu_torch.ops.flash_bwd import (
     flash_attention_backward,
     flash_attention_backward_reference,
@@ -95,14 +98,17 @@ class FlashAttentionFunction(torch.autograd.Function):
 
 
 def _attention(q, k, v, is_causal, scale, pos_offset, window, segment_ids, logit_softcap,
-               forward_fn, forward_op, backward_fn):
+               alibi, alibi_slopes, forward_fn, forward_op, backward_fn):
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if alibi:
+            raise unported("ALiBi backward", "A4")
         seg_q, seg_k = (None, None) if segment_ids is None else segment_ids
         return FlashAttentionFunction.apply(q, k, v, seg_q, seg_k, is_causal, scale,
                                             pos_offset, window, logit_softcap, forward_op,
                                             backward_fn)
     o, _ = forward_fn(q, k, v, is_causal, scale, pos_offset, need_lse=False, window=window,
-                      segment_ids=segment_ids, logit_softcap=logit_softcap)
+                      segment_ids=segment_ids, logit_softcap=logit_softcap, alibi=alibi,
+                      alibi_slopes=alibi_slopes)
     return o
 
 
@@ -116,6 +122,8 @@ def flash_attention(
     window: int | None = None,
     segment_ids=None,
     logit_softcap: float | None = None,
+    alibi: bool = False,
+    alibi_slopes: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Fused flash attention -> O [B, Hq, S_q, D] in q.dtype, differentiable.
 
@@ -128,10 +136,12 @@ def flash_attention(
     flash_attention_backward's "auto" (FLASHATTN_BWD_IMPL=split selects the
     deterministic path). `logit_softcap` (cap * tanh(s / cap) on the
     scaled logits, before the mask) reaches the forward and the backward
-    alike."""
+    alike. `alibi` (with `alibi_slopes`, as flash_attention_forward takes
+    them) is forward-only: under a gradient it raises NotImplementedError
+    (ROADMAP A4)."""
     return _attention(q, k, v, is_causal, scale, pos_offset, window, segment_ids,
-                      logit_softcap, flash_attention_forward, flash_fwd_op,
-                      flash_attention_backward)
+                      logit_softcap, alibi, alibi_slopes, flash_attention_forward,
+                      flash_fwd_op, flash_attention_backward)
 
 
 def plain_flash_attention(
@@ -144,9 +154,11 @@ def plain_flash_attention(
     window: int | None = None,
     segment_ids=None,
     logit_softcap: float | None = None,
+    alibi: bool = False,
+    alibi_slopes: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """flash_attention through the plain PyTorch forward and backward, on
     any device: the reference route for checking the kernels' route."""
     return _attention(q, k, v, is_causal, scale, pos_offset, window, segment_ids,
-                      logit_softcap, flash_attention_forward_reference, flash_fwd_plain_op,
-                      flash_attention_backward_reference)
+                      logit_softcap, alibi, alibi_slopes, flash_attention_forward_reference,
+                      flash_fwd_plain_op, flash_attention_backward_reference)

@@ -1,7 +1,8 @@
 """Flash-decode (counterpart of flashattn_tpu/ops/decode.py).
 
 ``decode_attention`` and ``decode_attention_chunk`` launch kernel K2
-(csrc/decode.cu) on CUDA tensors: split-KV over the cache's positions, the
+(csrc/decode.cuh; built as csrc/decode.cu, and csrc/decode_alibi.cu for
+ALiBi) on CUDA tensors: split-KV over the cache's positions, the
 query rows tiled over the grid, the products on the tensor cores (an f32
 cache's on the CUDA cores), then a second kernel merging the slices. The
 cache may be bf16/f32 or quantized (int8, fp8); no PyTorch kernel runs
@@ -25,6 +26,12 @@ A logit soft-cap (Gemma-2) goes on the dequantized, scaled logits before
 any mask, as in the JAX kernel: q is pre-scaled by `scale` alone (in the
 int8 mode before it is quantized), and the logits become
 tanh(s * (1 / cap)) * cap * log2(e) in the exp2 domain.
+
+ALiBi adds slope_h * (pos - row_pos) to the scaled logits before the masks
+(in the exp2 domain slope_h * log2(e) * (pos - row_pos), as in the JAX
+kernel), h the row's query head; the slopes come from
+flash_fwd.alibi_table. ``_decode_attention(with_lse=True)`` also returns
+the rows' natural-log LSE, -inf for a row that sees no key.
 """
 
 from __future__ import annotations
@@ -32,25 +39,27 @@ from __future__ import annotations
 import torch
 
 from flashattn_tpu_torch.ops import _build
-from flashattn_tpu_torch.ops.common import (LOG2E, cdiv, check_softcap, round_up, softcap,
-                                            unported)
-from flashattn_tpu_torch.ops.flash_fwd import DTYPE_CODES, HEAD_DIMS
+from flashattn_tpu_torch.ops.common import LN2, LOG2E, cdiv, check_softcap, round_up, softcap
+from flashattn_tpu_torch.ops.flash_fwd import DTYPE_CODES, HEAD_DIMS, alibi_table
 from flashattn_tpu_torch.ops.kvcache import FP8_DTYPE, INT8_MAX, KVCache
 
 # Kernel launches in this process, by the cache's mode (set to 0 by callers
-# that count a run), and those with a sliding window or a logit soft-cap in
-# any mode (counted in both). Paged launches count in ops/paged.py.
+# that count a run), and those with a sliding window, a logit soft-cap,
+# ALiBi or the LSE output in any mode (counted in both). Paged launches
+# count in ops/paged.py.
 LAUNCHES = 0  # bf16/f32 cache
 INT8_LAUNCHES = 0
 FP8_LAUNCHES = 0
 WINDOW_LAUNCHES = 0
 SOFTCAP_LAUNCHES = 0
+ALIBI_LAUNCHES = 0
+LSE_LAUNCHES = 0
 
 BLOCK_KV = 64  # cache positions per tile in the kernel (and int8 P requantization block)
 # A requantization block whose largest P x v_scale is below this becomes zeros
-# (csrc/decode.cu kRmaxMin): 127 / rmax must stay finite.
+# (csrc/decode.cuh kRmaxMin): 127 / rmax must stay finite.
 RMAX_MIN = 2.0**-100
-# Query rows per CTA, and tiles a CTA takes at a time (csrc/decode.cu
+# Query rows per CTA, and tiles a CTA takes at a time (csrc/decode.cuh
 # launch_rows): up to FEW_ROWS rows (a decode step's group), the 4 warps
 # share the rows and take a tile each; more rows, a warp owns 16 of 64 and
 # the warps walk the same tiles.
@@ -60,11 +69,6 @@ ROW_BLOCK = 64
 TARGET_CTAS = 264
 # Storage dtype -> the kernel's cache-type code (csrc/common.cuh DType).
 CACHE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, FP8_DTYPE: 3}
-
-
-def _check_unported(alibi) -> None:
-    if alibi:
-        raise unported("decode ALiBi", "A5")
 
 
 def pre_scale(scale: float, cap: float | None) -> float:
@@ -100,12 +104,30 @@ def visible_positions(length: torch.Tensor, s_max: int, t: int, rows: int,
     own and, with a window, pos > its own - window or pos < sink."""
     length = length.long()
     pos = torch.arange(s_max, device=length.device)[None, None, :]
-    row_pos = (length[:, None] - t
-               + torch.arange(rows, device=length.device)[None, :] % t)[:, :, None]
+    row_pos = row_positions(length, t, rows)
     seen = (pos < length[:, None, None]) & (pos <= row_pos)
     if window is not None:
         seen &= (pos > row_pos - window) | (pos < sink)
     return seen
+
+
+def row_positions(length: torch.Tensor, t: int, rows: int) -> torch.Tensor:
+    """[B, R, 1] int64: row r's cache position, length - T + r % T."""
+    length = length.long()
+    return (length[:, None] - t
+            + torch.arange(rows, device=length.device)[None, :] % t)[:, :, None]
+
+
+def row_distances(length: torch.Tensor, s_max: int, t: int, rows: int) -> torch.Tensor:
+    """[B, 1, R, Smax] float32 pos - row_pos, ALiBi's distance."""
+    pos = torch.arange(s_max, device=length.device)[None, None, :]
+    return (pos - row_positions(length, t, rows)).float()[:, None]
+
+
+def row_slopes(slopes: torch.Tensor, hkv: int, t: int) -> torch.Tensor:
+    """(Hq,) slopes -> [1, Hkv, R, 1], row r of group hk taking its query
+    head's, hk * G + r // T."""
+    return slopes.reshape(hkv, -1).repeat_interleave(t, dim=1)[None, :, :, None]
 
 
 def prep_decode_q(q: torch.Tensor, hkv: int, int8_mode: bool, pre: float):
@@ -136,9 +158,12 @@ def jax_int8_block(s_max: int) -> int:
 def decode_attention_reference(
     q: torch.Tensor, cache: KVCache, scale: float | None = None,
     requant_block: int | None = None, window: int | None = None, sink: int = 0,
-    logit_softcap: float | None = None,
-) -> torch.Tensor:
-    """Plain PyTorch version of K2: q [B, Hq, T, D] -> [B, Hq, T, D].
+    logit_softcap: float | None = None, alibi: bool = False,
+    alibi_slopes: torch.Tensor | None = None, with_lse: bool = False,
+):
+    """Plain PyTorch version of K2: q [B, Hq, T, D] -> [B, Hq, T, D], and
+    with `with_lse` (o, the rows' LSE [B, Hq, T] float32 in natural log,
+    -inf for a row that sees no key).
 
     fp32 math. Cache rows at or past a sequence's length are zeroed before
     use, so garbage (even NaN) there cannot reach the result. An int8 cache
@@ -146,11 +171,15 @@ def decode_attention_reference(
     JAX kernel's block (jax_int8_block), which makes this the JAX kernel's
     arithmetic; BLOCK_KV gives the CUDA kernel's. `window` and `sink` as in
     visible_positions; `logit_softcap` caps the scaled logits before the
-    masks."""
+    masks; `alibi` (with `alibi_slopes`, as flash_fwd.alibi_table takes
+    them) adds slope_h * (pos - row_pos) to them."""
     check_window(window, sink)
     cap = check_softcap(logit_softcap)
+    slopes = alibi_table(alibi, alibi_slopes, q.shape[1], q.device, cap)
     if cache.quantized:
-        return _quantized_reference(q, cache, scale, requant_block, window, sink, cap)
+        o, lse = _quantized_reference(q, cache, scale, requant_block, window, sink, cap,
+                                      slopes)
+        return (o, lse) if with_lse else o
     b, hq, t, d = q.shape
     hkv, s_max = cache.k.shape[1], cache.k.shape[2]
     group = hq // hkv
@@ -166,6 +195,8 @@ def decode_attention_reference(
     qf = q.float().reshape(b, hkv, group * t, d)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale  # [B, Hkv, R, Smax]
     s = softcap(s, cap)
+    if slopes is not None:
+        s = s + row_slopes(slopes, hkv, t) * row_distances(length, s_max, t, group * t)
     visible = visible_positions(length, s_max, t, group * t, window, sink)
     s = s.masked_fill(~visible[:, None], float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
@@ -173,17 +204,23 @@ def decode_attention_reference(
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     o = torch.matmul(p / torch.where(l == 0.0, torch.ones_like(l), l), vf)
-    return o.reshape(b, hq, t, d).to(q.dtype)
+    o = o.reshape(b, hq, t, d).to(q.dtype)
+    if not with_lse:
+        return o
+    lse = torch.where(l > 0.0, m + torch.log(l), float("-inf"))
+    return o, lse.reshape(b, hq, t)
 
 
 def _quantized_reference(q: torch.Tensor, cache: KVCache, scale: float | None,
                          requant_block: int | None, window: int | None,
-                         sink: int, cap: float | None) -> torch.Tensor:
+                         sink: int, cap: float | None, slopes: torch.Tensor | None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K2's int8 and fp8 modes, in the JAX kernel's order of
-    operations (log2 domain, k_scale on the logits, v_scale on P). In the
-    int8 mode the row streams in blocks, as in the kernels: each block's
-    P x v_scale (P against the running row maximum) is requantized to int8
-    over the block, and the partial sums merge online."""
+    operations (log2 domain, k_scale on the logits, v_scale on P, ALiBi's
+    slope * log2(e) * distance added after the scales). In the int8 mode the
+    row streams in blocks, as in the kernels: each block's P x v_scale (P
+    against the running row maximum) is requantized to int8 over the block,
+    and the partial sums merge online. Returns (o, natural-log LSE)."""
     b, hq, t, d = q.shape
     hkv, s_max = cache.k.shape[1], cache.k.shape[2]
     rows = (hq // hkv) * t
@@ -201,6 +238,8 @@ def _quantized_reference(q: torch.Tensor, cache: KVCache, scale: float | None,
     q_rows, q_scale = prep_decode_q(q, hkv, int8_mode, pre_scale(scale, cap))
     s = torch.matmul(q_rows.float(), kf.transpose(-1, -2))  # [B, Hkv, R, Smax]
     s = softcap_log2(s * (q_scale * k_scale) if int8_mode else s * k_scale, cap)
+    if slopes is not None:
+        s = s + (row_slopes(slopes, hkv, t) * LOG2E) * row_distances(length, s_max, t, rows)
     visible = visible_positions(length, s_max, t, rows, window, sink)
     s = s.masked_fill(~visible[:, None], float("-inf"))
     block = (requant_block or jax_int8_block(s_max)) if int8_mode else s_max
@@ -225,7 +264,8 @@ def _quantized_reference(q: torch.Tensor, cache: KVCache, scale: float | None,
         acc = acc * alpha + pv
         m_run = m_new
     o = acc / torch.where(l == 0.0, torch.ones_like(l), l)
-    return o.reshape(b, hq, t, d).to(q.dtype)
+    lse = torch.where(l > 0.0, (m_run + torch.log2(l)) * LN2, float("-inf"))
+    return o.reshape(b, hq, t, d).to(q.dtype), lse.reshape(b, hq, t)
 
 
 def _layout(rows: int, halves: bool = False) -> tuple[int, int]:
@@ -233,7 +273,7 @@ def _layout(rows: int, halves: bool = False) -> tuple[int, int]:
     With up to FEW_ROWS rows the 4 warps take 4 tiles at a time, with more
     a warp owns 16 of ROW_BLOCK rows. With `halves` (split_dims: D 256) two
     warps share each 16 rows and tile, each with half of O's dims: 2 tiles
-    at a time, or ROW_BLOCK / 2 rows (csrc/decode.cu MmaLayout)."""
+    at a time, or ROW_BLOCK / 2 rows (csrc/decode.cuh MmaLayout)."""
     if rows <= FEW_ROWS:
         return FEW_ROWS, (2 if halves else 4)
     return (ROW_BLOCK // 2 if halves else ROW_BLOCK), 1
@@ -250,7 +290,7 @@ def live_span(s_max: int, t: int, window: int | None, sink: int) -> int:
     them: the sink tiles, then the tiles from the one holding the earliest
     row's window edge to the length (at most window + T - 1 positions and
     the edge tile's 63 before them); the whole cache without a window.
-    csrc/decode.cu::live_span computes the same."""
+    csrc/decode.cuh::live_span computes the same."""
     if window is None:
         return s_max
     return min(s_max, round_up(sink, BLOCK_KV) + round_up(window + t - 1, BLOCK_KV) + BLOCK_KV)
@@ -301,12 +341,16 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            k_scale: torch.Tensor | None, v_scale: torch.Tensor | None,
            length: torch.Tensor, table: torch.Tensor | None, s_max: int,
            scale: float, window: int | None = None, sink: int = 0,
-           cap: float | None = None) -> torch.Tensor:
+           cap: float | None = None, slopes: torch.Tensor | None = None,
+           with_lse: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Launch K2 on CUDA tensors: q [B, Hq, T, D]; k/v [B, Hkv, Smax, D]
     (dense, table None) or pages [P, Hkv, page, D] read through
     table [B, max_pages] (paged, s_max = max_pages * page; an entry outside
     [0, P) is never read, its block holds no key); `window` and `sink` as
-    in visible_positions; `cap` a checked soft-cap (check_softcap) or None."""
+    in visible_positions; `cap` a checked soft-cap (check_softcap) or None;
+    `slopes` the (Hq,) float32 ALiBi table on q's device (alibi_table) or
+    None. Returns (o, the LSE [B, Hq, T] float32 with `with_lse`, else
+    None)."""
     _check_cuda_operands(q, k, v, k_scale, v_scale, length, table)
     b, hq, t, d = q.shape
     hkv = k.shape[1]
@@ -318,6 +362,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     part_l = torch.empty((b, hkv, splits, rows), **f32)
     part_acc = torch.empty((b, hkv, splits, rows, d), **f32)
     o = torch.empty_like(q)
+    lse = torch.empty((b, hq, t), **f32) if with_lse else None
     page = k.shape[2] if table is not None else 0
     max_pages = table.shape[1] if table is not None else 0
     num_pages = k.shape[0] if table is not None else 0
@@ -325,23 +370,32 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     def ptr(x):
         return 0 if x is None else x.data_ptr()
 
-    lib = _build.load("decode")
+    # ALiBi's instantiations are a library of their own (csrc/decode_alibi.cu).
+    lib = _build.load("decode" if slopes is None else "decode_alibi")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.decode_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale), ptr(v_scale),
-            length.data_ptr(), ptr(table), part_m.data_ptr(), part_l.data_ptr(),
-            part_acc.data_ptr(), o.data_ptr(), b, hq, hkv, t, s_max,
+            length.data_ptr(), ptr(table), ptr(slopes), part_m.data_ptr(), part_l.data_ptr(),
+            part_acc.data_ptr(), o.data_ptr(), ptr(lse), b, hq, hkv, t, s_max,
             d, DTYPE_CODES[q.dtype], CACHE_CODES[k.dtype], max_pages, page, num_pages,
             split_len, splits, min(window or 0, s_max), min(sink, s_max),
             pre_scale(scale, cap), 0.0 if cap is None else 1.0 / cap,
             0.0 if cap is None else cap * LOG2E, stream)
     _build.check(lib, rc, "decode")
-    return o
+    return o, lse
 
 
-def _decode(q: torch.Tensor, cache: KVCache, scale: float | None,
-            window: int | None, sink: int, cap: float | None) -> torch.Tensor:
+def _decode_attention(q: torch.Tensor, cache: KVCache, scale: float | None = None,
+                      window: int | None = None, sink: int = 0, with_lse: bool = False,
+                      logit_softcap: float | None = None, alibi: bool = False,
+                      alibi_slopes: torch.Tensor | None = None):
+    """K2 on a dense cache, q [B, Hq, T, D] -> o [B, Hq, T, D], and with
+    `with_lse` (o, LSE [B, Hq, T] float32, natural log, -inf for a row that
+    sees no key): the JAX launcher _decode_attention, which the public
+    functions below call. The options as in decode_attention_chunk."""
+    check_window(window, sink)
+    cap = check_softcap(logit_softcap)
     b, hq, t, d = q.shape
     if cache.k.dim() != 4 or cache.k.shape != cache.v.shape:
         raise ValueError("cache k/v must be [B, Hkv, Smax, D] of one shape")
@@ -353,21 +407,26 @@ def _decode(q: torch.Tensor, cache: KVCache, scale: float | None,
         raise ValueError("q and the cache must be on one device")
     if q.device.type == "cpu":
         return decode_attention_reference(q, cache, scale, window=window, sink=sink,
-                                          logit_softcap=cap)
+                                          logit_softcap=cap, alibi=alibi,
+                                          alibi_slopes=alibi_slopes, with_lse=with_lse)
+    slopes = alibi_table(alibi, alibi_slopes, hq, q.device, cap)
     if scale is None:
         scale = 1.0 / d**0.5
-    o = launch(q, cache.k, cache.v, cache.k_scale, cache.v_scale, cache.length, None,
-               s_max, scale, window, sink, cap)
-    global LAUNCHES, INT8_LAUNCHES, FP8_LAUNCHES, WINDOW_LAUNCHES, SOFTCAP_LAUNCHES
+    o, lse = launch(q, cache.k, cache.v, cache.k_scale, cache.v_scale, cache.length, None,
+                    s_max, scale, window, sink, cap, slopes, with_lse)
+    global LAUNCHES, INT8_LAUNCHES, FP8_LAUNCHES, WINDOW_LAUNCHES, SOFTCAP_LAUNCHES, \
+        ALIBI_LAUNCHES, LSE_LAUNCHES
     WINDOW_LAUNCHES += window is not None
     SOFTCAP_LAUNCHES += cap is not None
+    ALIBI_LAUNCHES += slopes is not None
+    LSE_LAUNCHES += with_lse
     if cache.k.dtype == torch.int8:
         INT8_LAUNCHES += 1
     elif cache.k.dtype == FP8_DTYPE:
         FP8_LAUNCHES += 1
     else:
         LAUNCHES += 1
-    return o
+    return (o, lse) if with_lse else o
 
 
 def decode_attention(
@@ -378,6 +437,7 @@ def decode_attention(
     sink: int = 0,
     logit_softcap: float | None = None,
     alibi: bool = False,
+    alibi_slopes: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One new token per sequence: q [B, Hq, D] -> [B, Hq, D].
 
@@ -387,11 +447,12 @@ def decode_attention(
     in HEAD_DIMS; anything else raises. With a `window` the new token sees
     the last `window` positions and, with `sink`, the first `sink` ones.
     `logit_softcap` caps the scaled logits (cap * tanh(s / cap)) before the
-    masks; None or 0 is off."""
-    _check_unported(alibi)
-    check_window(window, sink)
-    return _decode(q[:, :, None], cache, scale, window, sink,
-                   check_softcap(logit_softcap))[:, :, 0]
+    masks; None or 0 is off. `alibi` adds slope_h * (pos - row_pos) to them
+    (the (Hq,) `alibi_slopes`, None for default_alibi_slopes; not with a
+    soft-cap)."""
+    return _decode_attention(q[:, :, None], cache, scale, window, sink,
+                             logit_softcap=logit_softcap, alibi=alibi,
+                             alibi_slopes=alibi_slopes)[:, :, 0]
 
 
 def decode_attention_chunk(
@@ -402,11 +463,11 @@ def decode_attention_chunk(
     sink: int = 0,
     logit_softcap: float | None = None,
     alibi: bool = False,
+    alibi_slopes: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """T new tokens per sequence, causal within the chunk:
     q [B, Hq, T, D] -> [B, Hq, T, D]. Same rules as decode_attention; with a
     window, token t sees the positions in (its own - window, its own] and
-    those below `sink`."""
-    _check_unported(alibi)
-    check_window(window, sink)
-    return _decode(q, cache, scale, window, sink, check_softcap(logit_softcap))
+    those below `sink`; ALiBi's distance is from the token's own position."""
+    return _decode_attention(q, cache, scale, window, sink, logit_softcap=logit_softcap,
+                             alibi=alibi, alibi_slopes=alibi_slopes)

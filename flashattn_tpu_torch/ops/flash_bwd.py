@@ -36,7 +36,7 @@ from flashattn_tpu_torch.ops.flash_bwd_fused import (
     launch_args,
     require_cuda,
 )
-from flashattn_tpu_torch.ops.common import check_softcap
+from flashattn_tpu_torch.ops.common import check_softcap, unported
 from flashattn_tpu_torch.ops.flash_fwd import (
     check_forward_unported,
     check_segments,
@@ -140,7 +140,9 @@ def flash_attention_backward(
     must be contiguous, 16-byte aligned bf16 or float32 with D in
     HEAD_DIMS, and lse contiguous float32; anything else raises.
     """
-    check_forward_unported(dropout_rate, alibi, dyn_pos_offset)
+    if alibi:
+        raise unported("ALiBi backward", "A4")
+    check_forward_unported(dropout_rate, dyn_pos_offset)
     check_backward_operands(q, k, v, o, do, lse, HEAD_DIMS)
     shape = (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3], is_causal, q.dtype)
     impl = resolve_impl(impl, shape if q.is_cuda else None)

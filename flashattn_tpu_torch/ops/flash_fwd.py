@@ -5,11 +5,19 @@ tensors. It serves what the JAX package splits between the wavefront kernel
 (flash_fwd.py::_fwd_kernel) and the grid4 kernel
 (flash_fwd_grid4.py::_grid4_kernel): both compute one function on the plain
 subset, and the port has one grid for it, which also takes the sliding
-window, packed-document segment ids and the logit soft-cap (the JAX package
-sends those to _fwd_kernel).
+window, packed-document segment ids, the logit soft-cap and ALiBi (the JAX
+package sends those to _fwd_kernel).
+
+ALiBi adds slope_h * (col - row - pos_offset) to the scaled logits (the
+query head's slope under GQA). The kernels read the (Hq,) float32 slope
+table from device memory (``alibi_table``); the standard table is built
+once per head count and device, so a captured call reads a buffer that
+outlives it.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -18,12 +26,14 @@ from flashattn_tpu_torch.ops.common import LOG2E, cdiv, check_softcap, unported
 from flashattn_tpu_torch.ops.reference import reference_attention_with_lse
 
 # Kernel launches in this process (set to 0 by callers that count a run):
-# all of them, those with a sliding window, those with segment ids and
-# those with a logit soft-cap (a launch counts in each that applies).
+# all of them, those with a sliding window, those with segment ids, those
+# with a logit soft-cap and those with ALiBi (a launch counts in each that
+# applies).
 LAUNCHES = 0
 WINDOW_LAUNCHES = 0
 SEGMENT_LAUNCHES = 0
 SOFTCAP_LAUNCHES = 0
+ALIBI_LAUNCHES = 0
 
 # Head dims K1, K2 and the backward kernels take.
 HEAD_DIMS = (64, 128, 256)
@@ -31,6 +41,46 @@ HEAD_DIMS = (64, 128, 256)
 # the kernels take it so.
 WINDOW_MAX = 1 << 30
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def default_alibi_slopes(num_heads: int, device: torch.device | str = "cpu") -> torch.Tensor:
+    """The standard ALiBi slope table, 2^(-8 (h + 1) / H) for h in [0, H),
+    float32 (the JAX package's default_alibi_slopes: no other rule for a
+    head count that is not a power of two)."""
+    h = torch.arange(num_heads, dtype=torch.float32, device=device)
+    return torch.exp2(-8.0 * (h + 1) / num_heads)
+
+
+@functools.lru_cache(maxsize=None)
+def standard_slope_table(hq: int, device: torch.device) -> torch.Tensor:
+    """default_alibi_slopes(hq) on `device`, made once (at the first, eager
+    call: a captured call then reads the same buffer)."""
+    with torch.inference_mode(False):  # an ordinary tensor, whatever the caller's mode
+        return default_alibi_slopes(hq).to(device)
+
+
+def alibi_table(alibi: bool, alibi_slopes, hq: int, device: torch.device,
+                cap: float | None = None) -> torch.Tensor | None:
+    """The (Hq,) float32 slopes of a call on `device`, None without ALiBi.
+
+    alibi_slopes None takes the standard table, made once per (Hq, device)
+    (standard_slope_table); given slopes must be an (Hq,) tensor, moved to `device`
+    as float32 (no copy when they are already so). ALiBi with a logit
+    soft-cap raises ValueError, as the JAX kernels' assert does, and so do
+    slopes without alibi."""
+    if not alibi:
+        if alibi_slopes is not None:
+            raise ValueError("alibi_slopes needs alibi=True")
+        return None
+    if cap is not None:
+        raise ValueError("ALiBi and a logit soft-cap together: pick one (as in the JAX "
+                         "package)")
+    if alibi_slopes is None:
+        return standard_slope_table(hq, torch.device(device))
+    if not isinstance(alibi_slopes, torch.Tensor) or tuple(alibi_slopes.shape) != (hq,):
+        raise ValueError(f"alibi_slopes must be an ({hq},) tensor, got "
+                         f"{tuple(getattr(alibi_slopes, 'shape', ()))}")
+    return alibi_slopes.to(device=device, dtype=torch.float32).contiguous()
 
 
 def flash_attention_forward_reference(
@@ -44,12 +94,15 @@ def flash_attention_forward_reference(
     window: int | None = None,
     segment_ids=None,
     logit_softcap: float | None = None,
+    alibi: bool = False,
+    alibi_slopes: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Plain PyTorch version of K1, on any device."""
     check_window(window, is_causal)
     segment_ids = check_segments(segment_ids, q, k)
+    slopes = alibi_table(alibi, alibi_slopes, q.shape[1], q.device, check_softcap(logit_softcap))
     o, lse = reference_attention_with_lse(q, k, v, is_causal, scale, pos_offset, window,
-                                          segment_ids, logit_softcap)
+                                          segment_ids, logit_softcap, slopes)
     return o, (lse if need_lse else None)
 
 
@@ -162,6 +215,7 @@ def flash_attention_forward(
     window: int | None = None,
     logit_softcap: float | None = None,
     alibi: bool = False,
+    alibi_slopes: torch.Tensor | None = None,
     dyn_pos_offset=None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Fused attention forward.
@@ -180,6 +234,10 @@ def flash_attention_forward(
         (ops/varlen.py canonicalises padding ids).
       logit_softcap: cap * tanh(s / cap) on the scaled logits s, before
         any mask (Gemma-2); None or 0 is off.
+      alibi: add slope_h * (c - r - pos_offset) to the scaled logits
+        (ALiBi), h the query head; with `window` too, not with segment ids
+        (ROADMAP A4) nor a soft-cap (ValueError).
+      alibi_slopes: the (Hq,) slopes; None takes default_alibi_slopes.
 
     Returns:
       (O [B, Hq, S_q, D] in q.dtype, LSE [B, Hq, S_q] float32 natural log or
@@ -190,19 +248,23 @@ def flash_attention_forward(
     anything else raises. bf16 runs the wgmma kernel, float32 the CUDA-core
     kernel.
     """
-    check_forward_unported(dropout_rate, alibi, dyn_pos_offset)
+    check_forward_unported(dropout_rate, dyn_pos_offset)
     check_qkv(q, k, v)
     check_window(window, is_causal)
     segment_ids = check_segments(segment_ids, q, k)
     cap = check_softcap(logit_softcap)
+    if alibi and segment_ids is not None:
+        raise unported("ALiBi with segment ids", "A4")
     if q.device.type == "cpu":
         return flash_attention_forward_reference(q, k, v, is_causal, scale, pos_offset,
-                                                 need_lse, window, segment_ids, cap)
+                                                 need_lse, window, segment_ids, cap, alibi,
+                                                 alibi_slopes)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     b, hq, s_q, d = q.shape
     hkv, s_k = k.shape[1], k.shape[2]
     check_kernel_operands(q=q, k=k, v=v)
+    slopes = alibi_table(alibi, alibi_slopes, hq, q.device, cap)
     if scale is None:
         scale = 1.0 / d**0.5
     offset = s_k - s_q if pos_offset is None else int(pos_offset)
@@ -217,15 +279,16 @@ def flash_attention_forward(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr() if need_lse else None, *pointers(*segs),
+            lse.data_ptr() if need_lse else None, *pointers(*segs, slopes),
             b, hq, hkv, s_q, s_k, d, DTYPE_CODES[q.dtype], int(is_causal),
             offset, min(window or 0, WINDOW_MAX), pre, cap_log2, stream)
     _build.check(lib, rc, "flash_fwd")
-    global LAUNCHES, WINDOW_LAUNCHES, SEGMENT_LAUNCHES, SOFTCAP_LAUNCHES
+    global LAUNCHES, WINDOW_LAUNCHES, SEGMENT_LAUNCHES, SOFTCAP_LAUNCHES, ALIBI_LAUNCHES
     LAUNCHES += 1
     WINDOW_LAUNCHES += window is not None
     SEGMENT_LAUNCHES += segment_ids is not None
     SOFTCAP_LAUNCHES += cap is not None
+    ALIBI_LAUNCHES += slopes is not None
     return o, lse
 
 
@@ -237,12 +300,10 @@ def logit_factors(scale: float, cap: float | None) -> tuple[float, float]:
     return (scale * LOG2E, 0.0) if cap is None else (scale / cap, cap * LOG2E)
 
 
-def check_forward_unported(dropout_rate=0.0, alibi=False, dyn_pos_offset=None) -> None:
+def check_forward_unported(dropout_rate=0.0, dyn_pos_offset=None) -> None:
     """Raise NotImplementedError (ROADMAP A4) for an option of the JAX
     forward kernel that K1 does not compute yet."""
     if dropout_rate:
         raise unported("attention dropout", "A4")
-    if alibi:
-        raise unported("ALiBi", "A4")
     if dyn_pos_offset is not None:
         raise unported("dyn_pos_offset", "A4")

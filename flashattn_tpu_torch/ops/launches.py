@@ -18,20 +18,25 @@ import torch
 # Counter name -> (module, attribute). A launch with a sliding window counts
 # in its kernel's counter and in the matching "_window" one, a launch with
 # segment ids in the matching "_segments" one, a launch with a logit
-# soft-cap in the matching "_softcap" one.
+# soft-cap in the matching "_softcap" one, a launch with ALiBi in the
+# matching "_alibi" one, a K2 launch that writes the LSE in "decode_lse".
 COUNTERS = {
     "flash_fwd": ("flashattn_tpu_torch.ops.flash_fwd", "LAUNCHES"),
     "flash_fwd_window": ("flashattn_tpu_torch.ops.flash_fwd", "WINDOW_LAUNCHES"),
     "flash_fwd_segments": ("flashattn_tpu_torch.ops.flash_fwd", "SEGMENT_LAUNCHES"),
     "flash_fwd_softcap": ("flashattn_tpu_torch.ops.flash_fwd", "SOFTCAP_LAUNCHES"),
+    "flash_fwd_alibi": ("flashattn_tpu_torch.ops.flash_fwd", "ALIBI_LAUNCHES"),
     "decode": ("flashattn_tpu_torch.ops.decode", "LAUNCHES"),
     "decode_window": ("flashattn_tpu_torch.ops.decode", "WINDOW_LAUNCHES"),
     "decode_softcap": ("flashattn_tpu_torch.ops.decode", "SOFTCAP_LAUNCHES"),
+    "decode_alibi": ("flashattn_tpu_torch.ops.decode", "ALIBI_LAUNCHES"),
+    "decode_lse": ("flashattn_tpu_torch.ops.decode", "LSE_LAUNCHES"),
     "decode_int8": ("flashattn_tpu_torch.ops.decode", "INT8_LAUNCHES"),
     "decode_fp8": ("flashattn_tpu_torch.ops.decode", "FP8_LAUNCHES"),
     "paged_decode": ("flashattn_tpu_torch.ops.paged", "LAUNCHES"),
     "paged_decode_window": ("flashattn_tpu_torch.ops.paged", "WINDOW_LAUNCHES"),
     "paged_decode_softcap": ("flashattn_tpu_torch.ops.paged", "SOFTCAP_LAUNCHES"),
+    "paged_decode_alibi": ("flashattn_tpu_torch.ops.paged", "ALIBI_LAUNCHES"),
     "qmm8": ("flashattn_tpu_torch.ops.quant_matmul", "QMM8_LAUNCHES"),
     "qmm4": ("flashattn_tpu_torch.ops.quant_matmul", "QMM4_LAUNCHES"),
     "flash_bwd_fused": ("flashattn_tpu_torch.ops.flash_bwd_fused", "LAUNCHES"),

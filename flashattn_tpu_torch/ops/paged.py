@@ -7,7 +7,7 @@ memory holds the sum of the live contexts rather than batch x Smax:
   - ``k_pages``/``v_pages``: [num_pages, Hkv, page_size, D];
   - ``block_table``: [B, max_pages_per_seq] int32: logical block j of
     sequence b lives in physical page ``block_table[b, j]``;
-  - the decode kernel is K2 itself (csrc/decode.cu), reading each 64-position
+  - the decode kernel is K2 itself (csrc/decode.cuh), reading each 64-position
     tile through the table. A paged and a dense cache of the same max_len
     and content give the same output, bit for bit.
 
@@ -26,15 +26,17 @@ import torch
 
 from flashattn_tpu_torch.ops import decode
 from flashattn_tpu_torch.ops.common import card_device, cdiv, check_softcap
+from flashattn_tpu_torch.ops.flash_fwd import alibi_table
 from flashattn_tpu_torch.ops.kvcache import (KVCache, _raw, quantize_tokens,
                                              store_dtype_for)
 
 # Paged K2 launches in this process, in any cache mode (set to 0 by callers
-# that count a run), and those with a sliding window or a logit soft-cap
-# (counted in both).
+# that count a run), and those with a sliding window, a logit soft-cap or
+# ALiBi (counted in both).
 LAUNCHES = 0
 WINDOW_LAUNCHES = 0
 SOFTCAP_LAUNCHES = 0
+ALIBI_LAUNCHES = 0
 
 PAGE_MULTIPLE = decode.BLOCK_KV  # a kernel tile never straddles a page
 
@@ -345,17 +347,22 @@ def paged_to_dense_reference(cache: PagedKVCache) -> KVCache:
 
 def paged_decode_reference(q: torch.Tensor, cache: PagedKVCache, scale: float | None = None,
                            requant_block: int | None = None, window: int | None = None,
-                           sink: int = 0, logit_softcap: float | None = None) -> torch.Tensor:
+                           sink: int = 0, logit_softcap: float | None = None,
+                           alibi: bool = False, alibi_slopes: torch.Tensor | None = None
+                           ) -> torch.Tensor:
     """Plain version of the paged K2: the pages gathered through the table,
     then the dense plain version. An int8 pool requantizes P per page by
     default, as the JAX paged kernel does (its block is the page)."""
     return decode.decode_attention_reference(q, paged_to_dense_reference(cache), scale,
                                              requant_block or cache.page_size, window, sink,
-                                             logit_softcap)
+                                             logit_softcap, alibi, alibi_slopes)
 
 
 def _paged_decode(q: torch.Tensor, cache: PagedKVCache, scale: float | None,
-                  window: int | None, sink: int, cap: float | None):
+                  window: int | None, sink: int, logit_softcap: float | None, alibi: bool,
+                  alibi_slopes: torch.Tensor | None) -> torch.Tensor:
+    decode.check_window(window, sink)
+    cap = check_softcap(logit_softcap)
     b, hq, t, d = q.shape
     p, hkv, page, dk = cache.k_pages.shape
     if b != cache.batch or dk != d or hq % hkv:
@@ -363,15 +370,18 @@ def _paged_decode(q: torch.Tensor, cache: PagedKVCache, scale: float | None,
                          f"{tuple(cache.k_pages.shape)}, batch {cache.batch}")
     if q.device.type == "cpu":
         return paged_decode_reference(q, cache, scale, window=window, sink=sink,
-                                      logit_softcap=cap)
+                                      logit_softcap=cap, alibi=alibi, alibi_slopes=alibi_slopes)
+    slopes = alibi_table(alibi, alibi_slopes, hq, q.device, cap)
     if scale is None:
         scale = 1.0 / d**0.5
-    o = decode.launch(q, cache.k_pages, cache.v_pages, cache.k_scale, cache.v_scale,
-                      cache.length, cache.block_table, cache.max_len, scale, window, sink, cap)
-    global LAUNCHES, WINDOW_LAUNCHES, SOFTCAP_LAUNCHES
+    o, _ = decode.launch(q, cache.k_pages, cache.v_pages, cache.k_scale, cache.v_scale,
+                         cache.length, cache.block_table, cache.max_len, scale, window, sink,
+                         cap, slopes)
+    global LAUNCHES, WINDOW_LAUNCHES, SOFTCAP_LAUNCHES, ALIBI_LAUNCHES
     LAUNCHES += 1
     WINDOW_LAUNCHES += window is not None
     SOFTCAP_LAUNCHES += cap is not None
+    ALIBI_LAUNCHES += slopes is not None
     return o
 
 
@@ -383,17 +393,16 @@ def paged_decode_attention(
     sink: int = 0,
     logit_softcap: float | None = None,
     alibi: bool = False,
+    alibi_slopes: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One new token per sequence against the paged cache:
     q [B, Hq, D] -> [B, Hq, D]. CPU tensors take the plain version (the
     pages gathered through the table, then the dense plain version); CUDA
     tensors launch K2 through the table, under decode_attention's rules
-    (window, sink and soft-cap included; a sink tile is read through its own
-    page)."""
-    decode._check_unported(alibi)
-    decode.check_window(window, sink)
-    return _paged_decode(q[:, :, None], cache, scale, window, sink,
-                         check_softcap(logit_softcap))[:, :, 0]
+    (window, sink, soft-cap and ALiBi included; a sink tile is read through
+    its own page)."""
+    return _paged_decode(q[:, :, None], cache, scale, window, sink, logit_softcap, alibi,
+                         alibi_slopes)[:, :, 0]
 
 
 def paged_decode_attention_chunk(
@@ -404,10 +413,9 @@ def paged_decode_attention_chunk(
     sink: int = 0,
     logit_softcap: float | None = None,
     alibi: bool = False,
+    alibi_slopes: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """T new tokens per sequence, causal within the chunk, against the paged
     cache (chunked prefill): q [B, Hq, T, D] -> [B, Hq, T, D]. The chunk's
     K/V must already be appended."""
-    decode._check_unported(alibi)
-    decode.check_window(window, sink)
-    return _paged_decode(q, cache, scale, window, sink, check_softcap(logit_softcap))
+    return _paged_decode(q, cache, scale, window, sink, logit_softcap, alibi, alibi_slopes)

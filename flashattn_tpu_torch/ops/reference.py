@@ -44,6 +44,17 @@ def visible(s_q: int, s_k: int, is_causal: bool = False, pos_offset: int | None 
     return mask
 
 
+def alibi_bias(slopes: torch.Tensor, s_q: int, s_k: int,
+               pos_offset: int | None = None) -> torch.Tensor:
+    """[1, H, S_q, S_k] float32 ALiBi bias slope_h * (col - row - pos_offset)
+    (pos_offset defaults to S_k - S_q): 0 on the causal diagonal, falling
+    linearly into the past, as the JAX oracle adds it to the scaled logits."""
+    off = s_k - s_q if pos_offset is None else pos_offset
+    dist = (torch.arange(s_k, device=slopes.device)[None, :]
+            - torch.arange(s_q, device=slopes.device)[:, None] - off).float()
+    return slopes.float()[None, :, None, None] * dist[None, None]
+
+
 def reference_attention_with_lse(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -54,6 +65,7 @@ def reference_attention_with_lse(
     window: int | None = None,
     segment_ids=None,
     logit_softcap: float | None = None,
+    alibi_slopes: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Unfused attention returning (O, LSE).
 
@@ -69,6 +81,9 @@ def reference_attention_with_lse(
         row i also needs seg_q[b, i] == seg_k[b, j].
       logit_softcap: cap * tanh(s / cap) on the scaled logits, before any
         mask (Gemma-2); None or 0 is off.
+      alibi_slopes: (Hq,) slopes of ALiBi (alibi_bias: slope_h * (j - i -
+        pos_offset) added to the scaled logits, the query head's slope
+        under GQA), or None for none.
 
     Returns:
       O [B, Hq, S_q, D] in q.dtype and LSE [B, Hq, S_q] float32 in natural
@@ -88,6 +103,8 @@ def reference_attention_with_lse(
         qf = q[:, h * g:(h + 1) * g].float()
         kf, vf = k[:, h:h + 1].float(), v[:, h:h + 1].float()
         s = softcap(torch.matmul(qf, kf.transpose(-1, -2)) * scale, cap)
+        if alibi_slopes is not None:
+            s = s + alibi_bias(alibi_slopes[h * g:(h + 1) * g], s_q, s_k, pos_offset)
         if mask is not None:
             s = s.masked_fill(~mask, float("-inf"))
         m = s.amax(dim=-1, keepdim=True)
@@ -112,10 +129,11 @@ def reference_attention(
     window: int | None = None,
     segment_ids=None,
     logit_softcap: float | None = None,
+    alibi_slopes: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Unfused attention, O only."""
     return reference_attention_with_lse(q, k, v, is_causal, scale, pos_offset, window,
-                                        segment_ids, logit_softcap)[0]
+                                        segment_ids, logit_softcap, alibi_slopes)[0]
 
 
 def reference_attention_backward(

@@ -30,8 +30,12 @@ on an int8 cache at T 256; and, where the backward kernels take the
 soft-cap (ops/flash_bwd.py's DQ_SOFTCAP_LAUNCHES), GEMMA2_9B's packed
 training row (B 1, Hq 16, Hkv 8, D 256, S 8192, the packed row's
 documents): K1 with the LSE and B3, B4 and B5 with cap 50 on a global
-layer, a local one (window 4096) and the global one without the cap.
-Prints the card's name and power limit, then one JSON line of
+layer, a local one (window 4096) and the global one without the cap; and,
+where the package has ALiBi (ops/flash_fwd.py's ALIBI_LAUNCHES), K1 with
+ALiBi at the prefill bucket and at LLAMA_8B's heads over a 4,608-token
+prefill (B 1, Hq 32, Hkv 8, D 128, no LSE), K2 with ALiBi at the decode
+step on bf16 and int8 caches at T 1 and the int8 cache at T 256, the
+paged K2 with ALiBi on the int8 pool at T 1. Prints the card's name and power limit, then one JSON line of
 milliseconds. It calls nothing but the public functions, so run as a file
 with another checkout of the package first on PYTHONPATH,
 
@@ -39,7 +43,7 @@ with another checkout of the package first on PYTHONPATH,
 
 it times that checkout's kernels: two versions compared in turns on one
 card. `--only k1,backward` times those groups alone (decode, qmm, k1,
-backward, window, packed, softcap, gemma_packed). Needs a CUDA device.
+backward, window, packed, softcap, gemma_packed, alibi). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -70,7 +74,8 @@ K1_SHAPES = {"k1_prefill": (1, 32, 4, 256, 64, False),
 WIN, SINK = 4096, 4
 K1_WINDOW = (1, 32, 8, 4608, 128)  # B, Hq, Hkv, S, D
 WIN_B, WIN_HKV, WIN_SMAX = 4, 8, 8192
-GROUPS = ("decode", "qmm", "k1", "backward", "window", "packed", "softcap", "gemma_packed")
+GROUPS = ("decode", "qmm", "k1", "backward", "window", "packed", "softcap", "gemma_packed",
+          "alibi")
 # GEMMA2_9B's rows: its prefill (B, Hq, Hkv, S, D) and its decode step.
 CAP = 50.0
 K1_GEMMA = (1, 16, 8, 4608, 256)
@@ -138,6 +143,8 @@ def main() -> None:
         ms.update(softcapped(gen))
     if "gemma_packed" in only and hasattr(flash_bwd, "DQ_SOFTCAP_LAUNCHES"):
         ms.update(gemma_packed(gen))
+    if "alibi" in only and hasattr(flash_fwd, "ALIBI_LAUNCHES"):
+        ms.update(alibi(gen))
     print(json.dumps({"tag": args.tag, "ms": ms}))
 
 
@@ -303,6 +310,29 @@ def softcapped(gen: torch.Generator) -> dict[str, float]:
                        dtype=torch.bfloat16)
     ms[f"decode_gemma_int8_t{CHUNK}"] = cuda_time_ms(
         lambda: decode.decode_attention_chunk(q256, cache8, logit_softcap=CAP))
+    return ms
+
+
+def alibi(gen: torch.Generator) -> dict[str, float]:
+    """The ALiBi rows (module docstring), the standard slopes."""
+    ms = {}
+    for name, (b, hq, hkv, s, d) in (("k1_prefill_alibi", K1_SHAPES["k1_prefill"][:5]),
+                                     ("k1_llama8b_alibi", (1, 32, 8, 4608, 128))):
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+                   for h in (hq, hkv, hkv))
+        ms[name] = cuda_time_ms(lambda: flash_fwd.flash_attention_forward(
+            q, k, v, True, need_lse=False, alibi=True))
+    qd = torch.randn((B, HQ, D), generator=gen, device="cuda", dtype=torch.bfloat16)
+    for quant in (None, "int8"):
+        cache = cache_of(quant, gen)
+        ms[f"decode_{quant or 'bf16'}_alibi"] = cuda_time_ms(
+            lambda: decode.decode_attention(qd, cache, alibi=True))
+    q256 = torch.randn((B, HQ, CHUNK, D), generator=gen, device="cuda", dtype=torch.bfloat16)
+    ms[f"decode_int8_t{CHUNK}_alibi"] = cuda_time_ms(
+        lambda: decode.decode_attention_chunk(q256, cache, alibi=True))
+    pool = pool_of(cache)
+    ms["paged_decode_int8_alibi"] = cuda_time_ms(
+        lambda: paged.paged_decode_attention(qd, pool, alibi=True))
     return ms
 
 

@@ -36,7 +36,12 @@ matches the CPU. The backward kernels take the soft-cap (its tanh
 derivative) and D 256, with a window, segment ids (K1 too) and hot inputs
 whose logits saturate the tanh, the split path bitwise equal at D 256;
 gradients through flash_attention and varlen with a cap run them, and a
-tiny Gemma-2 model's loss gradients on the card match the CPU's.
+tiny Gemma-2 model's loss gradients on the card match the CPU's. K1 and K2
+(dense and paged, every cache mode) take ALiBi (D 64, 128 and 256, with a
+window, S_q != S_k, rows without keys, one steep head over 16,384 keys and
+over an int8 cache of 2,048; paged equal to dense bit for bit), K2 writes
+the rows' LSE (merged or from one slice; -inf for an empty slot), and a
+tiny ALiBi model on the card matches the CPU and captures its step.
 
 These tests need a CUDA device and skip without one. On the card:
 
@@ -1517,7 +1522,7 @@ def test_softcap_and_d256_decode_kernel_match_plain(dev, mode, case):
 def test_int8_decode_kernel_on_peaked_rows_matches_plain(dev, d, t, cap):
     """K2's int8 mode on q x 100, whose rows leave most 64-position tiles
     so far below their maximum that P x v_scale is subnormal or zero there:
-    such a tile requantizes to zeros (csrc/decode.cu kRmaxMin), finite and
+    such a tile requantizes to zeros (csrc/decode.cuh kRmaxMin), finite and
     within the quantized gate of the plain version."""
     lengths = [1, 700, 2048]
     cache = window_cache("int8", torch.bfloat16, len(lengths), 2, 2048, d, lengths, dev, 107)
@@ -1987,3 +1992,195 @@ def test_moe_decode_step_captures_and_never_syncs(dev):
     got = graph(token.cpu().pin_memory(), pos.cpu().pin_memory(), active.cpu().pin_memory())
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# ---- ALiBi: K1, K2 dense and paged; K2's LSE output ----
+
+STEEP = [0.8408964276313782]  # default_alibi_slopes(32)[0]: head 0 of 32, 0.84 a position
+
+ALIBI_FWD_CASES = {
+    # name: (B, Hq, Hkv, S_q, S_k, D, causal, pos_offset, window, slopes)
+    "d64": (1, 8, 2, 600, 600, 64, True, None, None, None),
+    "d64_w100": (1, 8, 2, 600, 600, 64, True, None, 100, None),
+    "d64_noncausal_sq_below_sk": (1, 4, 4, 77, 333, 64, False, None, None, None),
+    "d64_no_key_rows": (1, 4, 2, 256, 256, 64, True, -70, None, None),
+    "d128": (1, 8, 2, 515, 515, 128, True, None, None, None),
+    "d128_w63_gqa": (2, 8, 1, 300, 300, 128, True, None, 63, None),
+    "d128_sq_below_sk_offset_w200": (1, 8, 2, 130, 700, 128, True, 400, 200, None),
+    "d128_s16384_steep": (1, 1, 1, 16384, 16384, 128, True, None, None, STEEP),
+    "d256": (1, 4, 2, 700, 700, 256, True, None, None, None),
+    "d256_w300": (1, 4, 2, 700, 700, 256, True, None, 300, None),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", sorted(ALIBI_FWD_CASES))
+def test_alibi_flash_fwd_kernel_matches_plain(dev, dtype, case):
+    """K1 with ALiBi at D 64, 128 and 256, with and without a window,
+    against its plain version: causal or not, S_q != S_k with a pos_offset,
+    rows that see no key, and one steep head (0.84 a position) over 16,384
+    keys, whose far tiles carry biases near -20,000 in the log2 domain; the
+    ALiBi launches counted."""
+    b, hq, hkv, s_q, s_k, d, causal, off, w, slopes = ALIBI_FWD_CASES[case]
+    if slopes is not None:
+        slopes = torch.tensor(slopes, device=dev)
+    q = randn((b, hq, s_q, d), dtype, dev, 201)
+    k = randn((b, hkv, s_k, d), dtype, dev, 202)
+    v = randn((b, hkv, s_k, d), dtype, dev, 203)
+    kw = dict(pos_offset=off, window=w, alibi=True, alibi_slopes=slopes)
+    before = flash_fwd.ALIBI_LAUNCHES
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, causal, **kw)
+    torch.cuda.synchronize()
+    assert flash_fwd.ALIBI_LAUNCHES == before + 1
+    assert bool(torch.isfinite(o).all())
+    o_ref, lse_ref = flash_fwd.flash_attention_forward_reference(q, k, v, causal, **kw)
+    rep = verify_results(o_ref, o, **TOL[dtype])
+    assert rep.passed, f"O: {rep}"
+    rep = verify_results(lse_ref, lse, atol=1e-3)
+    assert rep.passed, f"LSE: {rep}"
+    dead = torch.isneginf(lse_ref)
+    assert torch.equal(torch.isneginf(lse), dead)
+    assert not bool(o[dead].any())
+
+
+ALIBI_DECODE_CASES = {
+    # name: (Hq, Hkv, T, D, Smax, lengths, window, sink)
+    "t1_decode_shape": (32, 4, 1, 64, 2048, [1, 77, 1500, 2048], None, 0),
+    "t256": (32, 4, 256, 64, 2048, [256, 300, 1500, 2048], None, 0),
+    "t1_d128_window_sink": (32, 8, 1, 128, 1024, [3, 100, 700, 1024], 100, 4),
+    "t256_d128_window": (32, 8, 256, 128, 2048, [256, 300, 1500, 2048], 1000, 4),
+    "t4_d256": (16, 8, 4, 256, 512, [4, 90, 300, 512], None, 0),
+}
+
+
+@pytest.mark.parametrize("mode", ["bf16", "f32", "int8", "fp8"])
+@pytest.mark.parametrize("case", sorted(ALIBI_DECODE_CASES))
+def test_alibi_decode_kernel_matches_plain(dev, mode, case):
+    """K2 with ALiBi in all four cache modes against its plain version
+    (int8 P requantized per 64-position tile, as the kernel does): the
+    decode shape, chunks of 4 and 256, a window with sinks, D 64, 128 and
+    256; the ALiBi launches counted."""
+    hq, hkv, t, d, s_max, lengths, w, sink = ALIBI_DECODE_CASES[case]
+    dtype = torch.float32 if mode == "f32" else torch.bfloat16
+    quant = mode if mode in ("int8", "fp8") else None
+    cache = window_cache(quant, dtype, len(lengths), hkv, s_max, d, lengths, dev, 204)
+    q = randn((len(lengths), hq, t, d), dtype, dev, 206)
+    before = decode.ALIBI_LAUNCHES
+    o = decode.decode_attention_chunk(q, cache, window=w, sink=sink, alibi=True)
+    torch.cuda.synchronize()
+    assert decode.ALIBI_LAUNCHES == before + 1
+    assert bool(torch.isfinite(o).all())
+    ref = decode.decode_attention_reference(q, cache, requant_block=decode.BLOCK_KV,
+                                            window=w, sink=sink, alibi=True)
+    rep = verify_results(ref, o, **(QTOL if quant else TOL[dtype]))
+    assert rep.passed, rep
+    if t == 1:
+        o1 = decode.decode_attention(q[:, :, 0].contiguous(), cache, window=w, sink=sink,
+                                     alibi=True)
+        assert torch.equal(o1, o[:, :, 0])
+
+
+@pytest.mark.parametrize("t", [1, 256])
+def test_int8_decode_kernel_on_a_steep_alibi_head_matches_plain(dev, t):
+    """One head at ALiBi's steepest standard slope (head 0 of 32, 0.84 a
+    position) over a cache of 2,048 in int8: a tile one behind the
+    diagonal already has P below 2^-100, which requantizes to zeros
+    (csrc/decode.cuh kRmaxMin); O finite and within the quantized gate."""
+    lengths = [2048]
+    cache = window_cache("int8", torch.bfloat16, 1, 1, 2048, 64, lengths, dev, 207)
+    q = randn((1, 1, t, 64), torch.bfloat16, dev, 208)
+    slopes = torch.tensor(STEEP, device=dev)
+    o = decode.decode_attention_chunk(q, cache, alibi=True, alibi_slopes=slopes)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(o).all())
+    ref = decode.decode_attention_reference(q, cache, requant_block=decode.BLOCK_KV,
+                                            alibi=True, alibi_slopes=slopes)
+    rep = verify_results(ref, o, **QTOL)
+    assert rep.passed, rep
+
+
+@pytest.mark.parametrize("page", [64, 256])
+@pytest.mark.parametrize("quant", [None, "int8", "fp8"])
+@pytest.mark.parametrize("t", [1, 256])
+def test_alibi_paged_decode_equals_dense(dev, quant, page, t):
+    """The paged K2 with ALiBi (LLAMA_8B's heads, GQA 32/8 at D 128) equals
+    the dense K2 bit for bit on the same content in scrambled pages."""
+    b, hq, hkv, d, s_max = 2, 32, 8, 128, 2048
+    lengths = [600, 2048]
+    cache = window_cache(quant, torch.bfloat16, b, hkv, s_max, d, lengths, dev, 209)
+    pool = paged_copy(cache, page, dev)
+    q = randn((b, hq, t, d), torch.bfloat16, dev, 210)
+    before = paged.ALIBI_LAUNCHES
+    o_paged = paged.paged_decode_attention_chunk(q, pool, alibi=True)
+    o_dense = decode.decode_attention_chunk(q, cache, alibi=True)
+    torch.cuda.synchronize()
+    assert paged.ALIBI_LAUNCHES == before + 1
+    assert torch.equal(o_paged, o_dense)
+    ref = paged.paged_decode_reference(q, pool, requant_block=decode.BLOCK_KV, alibi=True)
+    rep = verify_results(ref, o_paged, **(TOL[torch.bfloat16] if quant is None else QTOL))
+    assert rep.passed, rep
+
+
+@pytest.mark.parametrize("alibi", [False, True])
+@pytest.mark.parametrize("t", [1, 256])
+@pytest.mark.parametrize("mode", ["bf16", "f32", "int8", "fp8"])
+def test_decode_lse_output_matches_plain(dev, mode, t, alibi):
+    """K2's LSE output (_decode_attention(with_lse=True)) against its plain
+    version, atol 1e-3: at T 1 the decode shape's 16 slices merged
+    (decode_merge_kernel writes it), at T 256 one slice (the split
+    kernel's epilogue writes it); a slot of length 0 gives O 0 and LSE
+    -inf; O equals the call without the LSE bit for bit."""
+    lengths = [0, 77, 1500, 2048] if t == 1 else [0, 300, 1500, 2048]
+    dtype = torch.float32 if mode == "f32" else torch.bfloat16
+    quant = mode if mode in ("int8", "fp8") else None
+    cache = window_cache(quant, dtype, 4, 4, 2048, 64, lengths, dev, 211)
+    q = randn((4, 32, t, 64), dtype, dev, 212)
+    before = decode.LSE_LAUNCHES
+    o, lse = decode._decode_attention(q, cache, with_lse=True, alibi=alibi)
+    torch.cuda.synchronize()
+    assert decode.LSE_LAUNCHES == before + 1
+    assert lse.shape == (4, 32, t) and lse.dtype == torch.float32
+    o_ref, lse_ref = decode.decode_attention_reference(q, cache, requant_block=decode.BLOCK_KV,
+                                                       alibi=alibi, with_lse=True)
+    assert bool(torch.isneginf(lse[0]).all()) and not bool(o[0].any())
+    assert bool(torch.isfinite(lse[1:]).all())
+    rep = verify_results(lse_ref[1:], lse[1:], atol=1e-3)
+    assert rep.passed, f"LSE: {rep}"
+    rep = verify_results(o_ref, o, **(QTOL if quant else TOL[dtype]))
+    assert rep.passed, f"O: {rep}"
+    assert torch.equal(o, decode.decode_attention_chunk(q, cache, alibi=alibi))
+
+
+def test_alibi_model_on_card_matches_cpu_and_captures(dev):
+    """A small float32 ALiBi model (RoPE off): prefill and decode steps
+    through K1 and K2 on the card against the plain versions on the CPU,
+    atol 1e-3, rtol 1e-3 (test_model_steps_on_card_match_cpu's), its ALiBi
+    launches counted; the decode step captured in a CUDA graph gives the
+    eager step's logits exactly and builds no slope table at capture."""
+    cfg = ModelConfig(**dict(SMALL, use_alibi=True, dtype=torch.float32))
+    cpu = llama.init_params(cfg, torch.Generator().manual_seed(4), device="cpu")
+    model = llama.Llama(cfg, dev)
+    model.load_state_dict(cpu.state_dict())
+    prompt = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(5))
+    token = torch.tensor([7, 11], dtype=torch.int32)
+    pos = torch.full((2,), 40, dtype=torch.int32)
+    before = launch_counters.read()
+    caches = generate.init_caches(model, 2, 256)
+    logits, caches = generate.prefill(model, prompt.to(dev), caches)
+    step, _ = generate.decode_step(model, token.to(dev), pos.to(dev), clone_caches(caches))
+    torch.cuda.synchronize()
+    after = launch_counters.read()
+    assert after["flash_fwd_alibi"] - before["flash_fwd_alibi"] == cfg.num_layers
+    assert after["decode_alibi"] - before["decode_alibi"] == cfg.num_layers
+    cpu_logits, cpu_caches = generate.prefill(cpu, prompt, generate.init_caches(cpu, 2, 256))
+    cpu_step, _ = generate.decode_step(cpu, token, pos, cpu_caches)
+    for name, ref, out in (("prefill", cpu_logits, logits), ("decode", cpu_step, step)):
+        rep = verify_results(ref, out.cpu(), atol=1e-3, rtol=1e-3)
+        assert rep.passed, f"{name}: {rep}"
+    tables = flash_fwd.standard_slope_table.cache_info().currsize
+    graph = generate.DecodeGraph(model, caches)
+    assert flash_fwd.standard_slope_table.cache_info().currsize == tables
+    active = torch.ones(2, dtype=torch.bool)
+    got = graph(token.pin_memory(), pos.pin_memory(), active.pin_memory())
+    torch.cuda.synchronize()
+    assert torch.equal(got, step)

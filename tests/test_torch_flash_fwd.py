@@ -100,15 +100,19 @@ def test_reference_matches_jax_oracle():
 
 @pytest.mark.parametrize("option", [
     # The window and segment ids are ported (tests/test_torch_window.py,
-    # tests/test_torch_varlen.py), and so is the soft-cap
-    # (tests/test_torch_softcap.py); dropout, ALiBi and dyn_pos_offset still
-    # raise beside them.
+    # tests/test_torch_varlen.py), and so are the soft-cap
+    # (tests/test_torch_softcap.py) and ALiBi (tests/test_torch_alibi.py);
+    # dropout and dyn_pos_offset still raise beside them, and so does ALiBi
+    # with segment ids.
     dict(segment_ids=(0, 0), dropout_rate=0.1), dict(dropout_rate=0.1),
-    dict(window=16, logit_softcap=30.0, alibi=True),
-    dict(logit_softcap=30.0, dropout_rate=0.1), dict(alibi=True), dict(dyn_pos_offset=0),
+    dict(window=16, alibi=True, dropout_rate=0.1),
+    dict(logit_softcap=30.0, dropout_rate=0.1), dict(alibi=True, dyn_pos_offset=0),
+    dict(dyn_pos_offset=0), dict(alibi=True, segment_ids="ids"),
 ])
 def test_unported_options_raise(option):
     q, k, v = (torch.from_numpy(a) for a in make_qkv(2, 1, 8, 8, d=8))
+    if option.get("segment_ids") == "ids":
+        option = dict(option, segment_ids=(torch.zeros((1, 8), dtype=torch.int32),) * 2)
     with pytest.raises(NotImplementedError, match="ROADMAP A4"):
         flash_fwd.flash_attention_forward(q, k, v, **option)
 

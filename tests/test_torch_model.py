@@ -8,7 +8,9 @@ layers; the packages sum in different orders), also with int8/int4 weights
 int8/fp8 KV cache (K2's quantized-mode parity, tests/test_torch_decode.py,
 carried through two layers). Quantized weights convert bit for bit."""
 
+import contextlib
 import dataclasses
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -23,7 +25,7 @@ from flashattn_tpu.ops import paged as jax_paged
 from flashattn_tpu_torch.models import generate, llama
 from flashattn_tpu_torch.models.config import ModelConfig, check_supported
 from flashattn_tpu_torch.models.convert import params_from_jax
-from flashattn_tpu_torch.ops import paged
+from flashattn_tpu_torch.ops import attention, paged
 from flashattn_tpu_torch.parallel import moe
 from flashattn_tpu_torch.utils.verify import verify_results
 
@@ -157,13 +159,23 @@ def test_init_params_is_seeded():
     assert abs(float(a.layers[0].wq.detach().std()) - cfg.hidden_size**-0.5) < 0.01
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("use_alibi", True, "A4 and A5"),
-])
-def test_unported_config_fields_raise(field, value, item):
-    cfg = dataclasses.replace(ModelConfig(), **{field: value})
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        check_supported(cfg)
+@pytest.mark.parametrize("route", ["kernels", "plain"])
+def test_alibi_under_grad_raises_naming_a4(route):
+    """An ALiBi model serves (check_supported passes it) but its backward is
+    not ported: a loss whose gradient would flow through ALiBi raises
+    naming ROADMAP A4 on both attention routes, and never trains silently."""
+    cfg = ModelConfig(dtype=torch.float32, use_alibi=True, **CONFIGS["llama"])
+    check_supported(cfg)
+    model = llama.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (1, 9), generator=torch.Generator().manual_seed(1))
+    with contextlib.ExitStack() as stack:
+        if route == "plain":  # the model's attention on its plain Function
+            stack.enter_context(mock.patch.object(llama, "flash_attention",
+                                                  attention.plain_flash_attention))
+        with pytest.raises(NotImplementedError, match="ALiBi backward.*ROADMAP A4"):
+            llama.loss_fn(model, tokens)
+        with torch.no_grad():  # no gradient to take: the forward runs
+            assert bool(torch.isfinite(llama.forward(model, tokens[:, :-1])).all())
 
 
 @pytest.mark.parametrize("dispatcher", ["moe_ffn", "moe_ffn_a2a"])

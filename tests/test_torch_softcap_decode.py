@@ -161,7 +161,7 @@ def test_decode_cpu_call_with_a_cap_counts_no_launch():
     (1, 16, 8, 128, 8192, (1664, 5)),  # a prefix admission's 128-token suffix
 ])
 def test_d256_split_rule(b, hq, hkv, t, s_max, want):
-    """At D 256 two warps share each 16 rows and tile (csrc/decode.cu
+    """At D 256 two warps share each 16 rows and tile (csrc/decode.cuh
     MmaLayout::kHalves): up to 16 rows a group take 2 tiles at a time, more
     take 32 rows a CTA; slices of a multiple of the tiles a CTA takes,
     covering Smax, a function of the shapes alone (the float32 kernel's
