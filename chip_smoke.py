@@ -4,8 +4,8 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the six CUDA libraries from csrc/ (into build/flashattn_tpu_torch/,
-one nvcc each, all at once) and runs seventeen phases, printing one line per
+Builds the eight CUDA libraries from csrc/ (into build/flashattn_tpu_torch/,
+one nvcc each, all at once) and runs eighteen phases, printing one line per
 check and each phase's seconds, then the kernels line:
 
 1. environment: torch/CUDA versions, the card's name and power limit, the
@@ -14,11 +14,12 @@ check and each phase's seconds, then the kernels line:
    the tensor-core instructions (HMMA/HGMMA/IMMA) in the SASS of each
    tensor-core kernel, which must be there for K1's bf16 kernel (HGMMA, at
    D 64, 128 and 256, with and without a window, segment ids and the
-   soft-cap, or ALiBi with and without a window, its 22 D 256, soft-cap and
-   ALiBi instantiations named), the
+   soft-cap, or ALiBi with and without a window and segment ids, its 28
+   D 256, soft-cap and ALiBi instantiations named), the
    bf16 fused, dQ and dK/dV kernels (D 64, 128 and 256, with and without
-   the window, segment ids and the soft-cap, their 36 D 256 and soft-cap
-   instantiations named), qmm8's and qmm4's M > 16 kernels and every
+   the window, segment ids and the soft-cap, or with ALiBi in libraries of
+   their own, their 63 D 256, soft-cap and ALiBi instantiations named),
+   qmm8's and qmm4's M > 16 kernels and every
    instantiation of K2's (D 64, 128 and 256, with and without a window, with
    and without ALiBi: the ALiBi ones in a library of their own);
 2. each kernel against its plain PyTorch version on the card, at the
@@ -91,7 +92,19 @@ check and each phase's seconds, then the kernels line:
    ALiBi, an empty slot's -inf), and the path that uses it, a
    sequence-split decode on one card (the cache cut in two, K2 with the
    LSE on each, merged by the log-sum-exp rule) against K2 on the whole
-   cache, timed beside flex_attention returning the LSE;
+   cache, timed beside flex_attention returning the LSE; then ALiBi in the
+   backward kernels and with segment ids in K1 (alibi_backward_kernels):
+   K1, B3 and B4 + B5 against their plain versions at D 64, 128 and 256
+   with ALiBi alone, a window, documents, both, S_q != S_k with a
+   pos_offset, rows without keys, non-causal, a window of one key, one
+   head of the steepest standard slope over 8,192 keys and float32, then
+   at LLAMA_8B's packed training row (B 1, Hq 32, Hkv 8, D 128, S 8192,
+   the packed row's documents), the split path bitwise equal across two
+   calls, each timed beside its plain version, SDPA's with a boolean mask
+   and no ALiBi, flex_attention's with an ALiBi score_mod and the document
+   block mask where it compiles, and its bound; ALiBi's cost in B3, B4, B5
+   and K1 (the same kernels without ALiBi on the same inputs) there and at
+   LLAMA_8B's unpacked row of 4,096 tokens;
 3. LLAMA_1B at full width (random weights from a seed): prefill of a
    150-token prompt and 4 teacher-forced decode steps through the kernels,
    against the same run with every kernel call on its plain version;
@@ -232,7 +245,15 @@ check and each phase's seconds, then the kernels line:
    and the int8-KV paged server (admit_chunk 512, a 1,024-token prefix) on
    phase 9's traffic at max_len 8192, device_step_ms beside the step's
    weights' read; every launch of theirs an ALiBi launch;
-18. the `kernels` JSON line: every kernel with its launches on the path that
+18. ALiBi training (phase_alibi_train): LLAMA_8B with use_alibi at full
+   width, (a) cut to 4 layers on phase 10's packed row of 8,192 tokens, one
+   AdamW step through the kernels (K1 with ALiBi and segment ids, B3 with
+   ALiBi) against the plain route under phase 7's gates (every gradient's
+   cosine printed), then 5 train.train steps on the split backward (B4, B5
+   with ALiBi), the loss falling; (b) all 32 layers at B 1, S 4096,
+   unpacked, remat="attn", 5 sgd_train_steps, finite and falling losses,
+   ms a step, tokens/s and peak memory printed;
+19. the `kernels` JSON line: every kernel with its launches on the path that
    runs it, its error against its plain version, its time, bound, plain and
    library times (the windowed K1, K2 and paged K2 from phases 2 and 9, the
    windowed and segmented K1, B3, B4 and B5 from phases 2 and 10, the
@@ -242,7 +263,9 @@ check and each phase's seconds, then the kernels line:
    K2 at T 5 from phase 15, rows of their own; the launches of K1, K2 and
    the paged K2 in phase 16's servers added to their rows; the ALiBi K1, K2
    (bf16 and int8) and paged K2 from phases 2 and 17; K2 with the LSE from
-   phase 2, its launches those of the sequence-split decode).
+   phase 2, its launches those of the sequence-split decode; K1 with ALiBi
+   and segment ids and B3, B4 and B5 with ALiBi from phases 2 and 18, timed
+   at LLAMA_8B's packed row).
 
 Any failed check raises: the script then exits nonzero and does not print
 its last line. It needs a CUDA device and never falls back to the CPU. The
@@ -292,8 +315,8 @@ from flashattn_tpu_torch.utils.timing import cuda_time_ms
 from flashattn_tpu_torch.utils.verify import verify_results
 
 SEED = 0
-LIBRARIES = ("flash_fwd", "decode", "decode_alibi", "flash_bwd", "flash_bwd_fused",
-             "quant_matmul")
+LIBRARIES = ("flash_fwd", "decode", "decode_alibi", "flash_bwd", "flash_bwd_alibi",
+             "flash_bwd_fused", "flash_bwd_fused_alibi", "quant_matmul")
 O_ATOL = 2e-2  # bf16 outputs against the fp32 plain version
 LSE_ATOL = 1e-2
 GRAD_TOL = {  # gradients against the plain version on the same inputs
@@ -362,21 +385,21 @@ def phase_environment() -> str:
                     check("0 bytes spill stores, 0 bytes spill loads" in line,
                           f"{kernel} spills: {line.strip()}")
     mma = {}
-    for lib in ("flash_fwd", "flash_bwd", "flash_bwd_fused", "quant_matmul", "decode",
-                "decode_alibi"):
+    for lib in LIBRARIES:
         for kernel, n in tensor_core_instructions(lib).items():
             if "mma_kernel" in kernel:
                 print(f"[env] SASS {kernel}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA, "
                       f"{n['IMMA']} IMMA")
                 mma[kernel] = n
-    families = {"flash_fwd_wgmma_kernel": 30, "flash_bwd": 54, "qmm_mma_kernel": 4,
+    families = {"flash_fwd_wgmma_kernel": 36, "flash_bwd": 81, "qmm_mma_kernel": 4,
                 "decode_mma_kernel": 120}
     counted = {f: sum(k.startswith(f) for k in mma) for f in families}
     check(counted == families and all(sum(n.values()) for n in mma.values()),
           "K1's bf16 kernel (D 64, 128 and 256, with and without a window, segment ids and "
-          "the soft-cap, or ALiBi with and without a window), the bf16 fused, dQ and dK/dV "
-          "kernels (D 64, 128 and 256; no mask, "
-          "the window, segment ids; with and without the soft-cap), qmm8's and qmm4's "
+          "the soft-cap, or ALiBi with and without a window and segment ids), the bf16 fused, "
+          "dQ and dK/dV kernels (D 64, 128 and 256; no mask, "
+          "the window, segment ids; with and without the soft-cap, or with ALiBi), qmm8's and "
+          "qmm4's "
           "M > 16 kernels (bf16 and float32 y) and every K2 tensor-core instantiation (bf16, "
           "int8 and fp8 caches, D 64, 128 and 256, both row layouts, with and without a "
           f"window, and ALiBi's) must run on the tensor cores: {mma}")
@@ -386,14 +409,17 @@ def phase_environment() -> str:
     k1 = {k: k[k.index("<") + 1:-1].split(", ") for k in mma
           if k.startswith("flash_fwd_wgmma_kernel")}
     new = [k for k, args in k1.items() if args[0] == "256" or "true" in args[4:]]
-    check(len(new) == 22, f"K1's D 256, soft-cap and ALiBi instantiations: {new}")
+    check(len(new) == 28, f"K1's D 256, soft-cap and ALiBi instantiations: {new}")
     print(f"[env] K1's D 256, soft-cap and ALiBi instantiations run on wgmma (HGMMA), no "
           f"spill: { {k: mma[k]['HGMMA'] for k in new} }")
-    new = [k for k in mma if k.startswith("flash_bwd")
-           and ("<256" in k or k.endswith("true>"))]
-    check(len(new) == 36, f"the backward's D 256 and soft-cap instantiations: {new}")
-    print(f"[env] the backward's D 256 and soft-cap instantiations run on mma.sync (HMMA), no "
-          f"spill: { {k: mma[k]['HMMA'] for k in new} }")
+    # The backward's template arguments: D, mask kind, soft-cap, ALiBi.
+    bwd = {k: k[k.index("<") + 1:-1].split(", ") for k in mma if k.startswith("flash_bwd")}
+    new = [k for k, args in bwd.items() if args[0] == "256" or "true" in args[2:]]
+    alibi = [k for k, args in bwd.items() if args[3] == "true"]
+    check(len(new) == 63 and len(alibi) == 27 and not any(bwd[k][2] == "true" for k in alibi),
+          f"the backward's D 256, soft-cap and ALiBi instantiations: {new}")
+    print(f"[env] the backward's D 256, soft-cap and ALiBi instantiations run on mma.sync "
+          f"(HMMA), no spill: { {k: mma[k]['HMMA'] for k in new} }")
     return name
 
 
@@ -1057,24 +1083,29 @@ def k1_case(tag: str, q, k, v, causal: bool, err: float, f32: bool = False, **kw
     return max(err, e)
 
 
-def flex_softcap_ms(q, k, v, window: int | None, segment_ids=None, do=None,
-                    cap: float = CAP) -> float | None:
-    """torch.nn.attention.flex_attention with a soft-cap score_mod and the
-    causal (window, segment-id) block mask, compiled, the S_q queries at
+def flex_mod_ms(q, k, v, window: int | None, segment_ids=None, do=None,
+                cap: float = CAP, slopes: torch.Tensor | None = None) -> float | None:
+    """torch.nn.attention.flex_attention with a soft-cap score_mod, or with
+    `slopes` an ALiBi one (slope_h * (key position - query position)), and
+    the causal (window, segment-id) block mask, compiled, the S_q queries at
     the last S_q of the S_k positions (S_q == S_k in training and prefill,
     1 at a decode step): its forward, or with `do` its backward
     (autograd.grad of O against do): a competitor only, never used by the
     port. None, with the reason printed, where it does not compile on this
     machine."""
     what = "backward" if do is not None else "forward"
+    mod = "a soft-cap" if slopes is None else "an ALiBi"
     try:
         from torch.nn.attention.flex_attention import create_block_mask, flex_attention
 
-        def score_mod(score, b, h, q_idx, kv_idx):
-            return cap * torch.tanh(score / cap)
-
+        torch._dynamo.reset()  # the earlier compilations would pass its recompile limit
         s_q, s_k = q.shape[2], k.shape[2]
         off = s_k - s_q  # bottom-right alignment
+
+        def score_mod(score, b, h, q_idx, kv_idx):
+            if slopes is not None:
+                return score + slopes[h] * (kv_idx - q_idx - off).to(torch.float32)
+            return cap * torch.tanh(score / cap)
 
         def mask_mod(b, h, q_idx, kv_idx):
             seen = kv_idx <= q_idx + off
@@ -1098,7 +1129,7 @@ def flex_softcap_ms(q, k, v, window: int | None, segment_ids=None, do=None,
             run = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)  # noqa: E731
         return event_time_ms(run, warmup=2, iters=10 if do is None else 3)
     except Exception as e:  # a competitor that does not build here is reported, not run
-        print(f"[kernels] flex_attention {what} with a soft-cap score_mod (window={window}, "
+        print(f"[kernels] flex_attention {what} with {mod} score_mod (window={window}, "
               f"segment ids {segment_ids is not None}) did not run on this machine: "
               f"{type(e).__name__}: {str(e).splitlines()[0][:200] if str(e) else ''}")
         return None
@@ -1149,7 +1180,7 @@ def softcap_k1(gen: torch.Generator) -> dict:
             mask = window_mask(s, s, w)
             lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, enable_gqa=True), warmup=1, iters=3, reps=3)
-        flex = flex_softcap_ms(q, k, v, w)
+        flex = flex_mod_ms(q, k, v, w)
         report = roofline.attention_fwd_roofline(b, hq, hkv, s, s, d, True, need_lse=False,
                                                  window=w)
         lim = bound(report)
@@ -1237,7 +1268,7 @@ def softcap_k2(gen: torch.Generator) -> dict[str, dict]:
         # The library call computes the same function: flex_attention with
         # the cap's score_mod (every length is GK2_SMAX: the causal mask of
         # the last position keeps them all).
-        flex = flex_softcap_ms(qd[:, :, None], full.k, full.v, w)
+        flex = flex_mod_ms(qd[:, :, None], full.k, full.v, w)
         print(f"[kernels] K2 bf16 soft-cap {CAP:g} {layer} layer (window={w}) B={GK2_B} "
               f"Hq={GK2_HQ} Hkv={GK2_HKV} D={GK2_D} T=1, every length {GK2_SMAX}: kernel "
               f"{ms:.4f} ms, paged {paged_ms:.4f} ms; plain {plain:.4f} ms, paged plain "
@@ -1328,10 +1359,13 @@ def flex_ms(q, k, v, ends=None, slopes=None, window=None, return_lse=False,
 
 def alibi_kernels(gen: torch.Generator) -> dict[str, dict]:
     """K1, K2 and the paged K2 with ALiBi against their plain versions,
-    then timed (alibi_k1, alibi_k2), and K2's LSE output (decode_lse)."""
+    then timed (alibi_k1, alibi_k2), K2's LSE output (decode_lse), and the
+    backward kernels with ALiBi, K1 with ALiBi and segment ids
+    (alibi_backward_kernels)."""
     out = {"flash_fwd_alibi": alibi_k1(gen)}
     out.update(alibi_k2(gen))
     out["decode_lse"] = decode_lse(gen)
+    out.update(alibi_backward_kernels(gen))
     return out
 
 
@@ -1650,12 +1684,14 @@ def packed_ids(lens, total: int, device) -> torch.Tensor:
 
 def masked_case(gen, err: dict, tag: str, shape, dtype=torch.bfloat16, pos_offset=None,
                 window=None, lens=None, causal=True, k_lens=None, logit_softcap=None,
-                heat=1.0) -> tuple:
-    """K1, then B3 (fused) and B4 + B5 (split), with a window, segment ids
-    and/or a logit soft-cap against their plain versions on one set of
-    inputs (q times `heat`: 30 saturates a cap's tanh); errors go to the
-    rows of `err` (soft-cap rows with a cap, else segment rows when ids are
-    given). Padding rows' O and every gradient of a padding position must
+                heat=1.0, alibi=False, alibi_slopes=None) -> tuple:
+    """K1, then B3 (fused) and B4 + B5 (split), with a window, segment ids,
+    a logit soft-cap and/or ALiBi against their plain versions on one set
+    of inputs (q times `heat`: 30 saturates a cap's tanh); errors go to the
+    rows of `err` (soft-cap rows with a cap, ALiBi rows with ALiBi, else
+    segment rows when ids are given; K1's to its row with segment ids).
+    Rows that see no key get O = 0, LSE = -inf and dQ = 0. Padding rows' O
+    and every gradient of a padding position must
     be exactly 0, a window of one key gives dQ = dK = 0 (each row's softmax
     gradient vanishes), held to |x| <= 1e-4 on both sides. Returns (q, k,
     v, o, do, lse, kw)."""
@@ -1669,10 +1705,13 @@ def masked_case(gen, err: dict, tag: str, shape, dtype=torch.bfloat16, pos_offse
         seg = varlen.canonical_segments(packed_ids(lens, s_q, q.device),
                                         packed_ids(k_lens or lens, s_k, q.device), q.device)
     kw = dict(is_causal=causal, pos_offset=pos_offset, window=window, segment_ids=seg,
-              logit_softcap=logit_softcap)
-    kind = "softcap" if logit_softcap else "segments" if seg is not None else "window"
+              logit_softcap=logit_softcap, alibi=alibi, alibi_slopes=alibi_slopes)
+    kind = ("softcap" if logit_softcap else "alibi" if alibi else
+            "segments" if seg is not None else "window")
+    slopes = ("" if not alibi else " ALiBi " + ("standard slopes" if alibi_slopes is None else
+                                                f"slopes {alibi_slopes.tolist()}"))
     name = (f"{tag}: B={b} Hq={hq} Hkv={hkv} Sq={s_q} Sk={s_k} D={d} causal={causal} "
-            f"pos_offset={pos_offset} window={window} cap={logit_softcap} "
+            f"pos_offset={pos_offset} window={window} cap={logit_softcap}{slopes} "
             f"{'hot (q x %g) ' % heat if heat != 1.0 else ''}{str(dtype)[6:]}")
     o, lse = flash_fwd.flash_attention_forward(q, k, v, **kw)
     o_ref, lse_ref = flash_fwd.flash_attention_forward_reference(q, k, v, **kw)
@@ -1680,8 +1719,9 @@ def masked_case(gen, err: dict, tag: str, shape, dtype=torch.bfloat16, pos_offse
     tol = dict(atol=O_ATOL) if dtype == torch.bfloat16 else F32_TOL
     e = _gate(f"K1 {name} O", o_ref, o, **tol)
     _gate(f"K1 {name} LSE", lse_ref, lse, LSE_ATOL)
-    fwd_row = "flash_fwd_" + ("softcap" if logit_softcap else "segments")
-    if seg is not None or logit_softcap:
+    fwd_row = "flash_fwd_" + ("softcap" if logit_softcap else
+                              "alibi_segments" if alibi else "segments")
+    if (seg is not None or logit_softcap) and fwd_row in err:
         err[fwd_row] = max(err[fwd_row], e)
     dead = torch.isneginf(lse_ref)
     check(torch.equal(torch.isneginf(lse), dead) and not bool(o[dead].any()),
@@ -1760,15 +1800,16 @@ def masked_kernels(gen: torch.Generator) -> dict[str, dict]:
 
 def time_masked(kind: str, q, k, v, o, do, lse, kw, layer: str = "") -> dict[str, dict]:
     """Device ms of B3, B4 and B5 (and K1 with the LSE where there are
-    segment ids) with the window, segment ids and soft-cap of `kw`, beside
-    their plain versions (events around eager calls: a graph of them would
-    keep several score blocks in its pool), SDPA's forward or forward +
-    backward with the explicit boolean mask (without the cap: timed only,
-    never used by the port), with a cap flex_attention's forward or
-    backward with a soft-cap score_mod where it compiles (the library time
-    then, as it computes the same function), and each bound from
-    utils/roofline.py, which counts the pairs the mask leaves visible (a
-    cap adds nothing). Rows are named by kernel and `kind`."""
+    segment ids) with the window, segment ids, soft-cap and ALiBi of `kw`,
+    beside their plain versions (events around eager calls: a graph of them
+    would keep several score blocks in its pool), SDPA's forward or
+    forward + backward with the explicit boolean mask (without the cap or
+    ALiBi: timed only, never used by the port), with a cap or ALiBi
+    flex_attention's forward or backward with a soft-cap or ALiBi score_mod
+    where it compiles (the library time then, as it computes the same
+    function), and each bound from utils/roofline.py, which counts the
+    pairs the mask leaves visible (a cap or ALiBi adds nothing). Rows are
+    named by kernel and `kind` (K1's with ALiBi "flash_fwd_alibi_segments")."""
     b, hq, s_q, d = q.shape
     hkv, s_k = k.shape[1], k.shape[2]
     few = dict(warmup=1, iters=3, reps=3)
@@ -1780,7 +1821,12 @@ def time_masked(kind: str, q, k, v, o, do, lse, kw, layer: str = "") -> dict[str
              f"{'documents ' + str(PACK_DOCS) if kw['segment_ids'] is not None else ''}")
     roof = dict(dtype_bytes=q.element_size(), window=kw["window"], pos_offset=kw["pos_offset"],
                 segment_ids=kw["segment_ids"])
-    flex_kw = dict(window=kw["window"], segment_ids=kw["segment_ids"], cap=cap)
+    slopes = (flash_fwd.alibi_table(True, kw["alibi_slopes"], hq, q.device) if kw["alibi"]
+              else None)
+    flex_kw = dict(window=kw["window"], segment_ids=kw["segment_ids"], cap=cap, slopes=slopes)
+    mod = cap or slopes is not None  # flex_attention is the library with a score_mod
+    lib_name = ("flex_attention" + (" with a soft-cap" if cap else " with an ALiBi")
+                + " score_mod")
     out = {}
     if kw["segment_ids"] is not None:
         ms = cuda_time_ms(lambda: flash_fwd.flash_attention_forward(q, k, v, **kw), **few)
@@ -1788,18 +1834,19 @@ def time_masked(kind: str, q, k, v, o, do, lse, kw, layer: str = "") -> dict[str
                               warmup=1, iters=2)
         lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True), **few)
-        flex = flex_softcap_ms(q, k, v, **flex_kw) if cap else None
+        flex = flex_mod_ms(q, k, v, **flex_kw) if mod else None
         report = roofline.attention_fwd_roofline(b, hq, hkv, s_q, s_k, d, kw["is_causal"],
                                                  **roof)
-        print(f"[kernels] K1 with segment ids {shape}: kernel {ms:.4f} ms "
+        print(f"[kernels] K1 with segment ids{' and ' + kind if mod else ''} {shape}: kernel "
+              f"{ms:.4f} ms "
               f"({report.flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s of the visible pairs), bound "
               f"{report.bound_ms:.5f} ms by {report.bound_by}, plain {plain:.4f} ms, SDPA "
-              f"forward with a boolean mask{' (no cap)' if cap else ''} {lib:.4f} ms"
-              + (f", flex_attention with a soft-cap score_mod "
-                 f"{f'{flex:.4f} ms' if flex else 'not run'}" if cap else ""))
-        out[f"flash_fwd_{kind}"] = dict(ms=ms, plain_ms=plain, library_ms=flex or lib,
-                                        **bound(report))
-    opts = {key: kw[key] for key in ("pos_offset", "window", "segment_ids")}
+              f"forward with a boolean mask{f' (no {kind})' if mod else ''} {lib:.4f} ms"
+              + (f", {lib_name} {f'{flex:.4f} ms' if flex else 'not run'}" if mod else ""))
+        k1_row = "flash_fwd_alibi_segments" if kind == "alibi" else f"flash_fwd_{kind}"
+        out[k1_row] = dict(ms=ms, plain_ms=plain, library_ms=flex or lib, **bound(report))
+    opts = {key: kw[key] for key in ("pos_offset", "window", "segment_ids", "alibi",
+                                     "alibi_slopes")}
     opts["logit_softcap"] = cap
     causal = kw["is_causal"]
     fused = cuda_time_ms(lambda: flash_bwd_fused.flash_attention_backward_fused(
@@ -1818,7 +1865,7 @@ def time_masked(kind: str, q, k, v, o, do, lse, kw, layer: str = "") -> dict[str
     lib = event_time_ms(lambda: torch.autograd.grad(o_lib, leaves, do, retain_graph=True),
                         warmup=1, iters=3)
     del o_lib, leaves
-    flex = flex_softcap_ms(q, k, v, do=do, **flex_kw) if cap else None
+    flex = flex_mod_ms(q, k, v, do=do, **flex_kw) if mod else None
     gc.collect()
     torch.cuda.empty_cache()
     for name, ms in (("fused", fused), ("dq", dq_ms), ("dkv", dkv_ms)):
@@ -1827,9 +1874,9 @@ def time_masked(kind: str, q, k, v, o, do, lse, kw, layer: str = "") -> dict[str
         print(f"[kernels] backward {name} with {kind} {shape}: kernel {ms:.4f} ms "
               f"({report.flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s of the visible pairs), bound "
               f"{report.bound_ms:.4f} ms by {report.bound_by}, plain backward {plain:.4f} ms, "
-              f"SDPA backward with a boolean mask{' (no cap)' if cap else ''} {lib:.4f} ms"
-              + (f", flex_attention backward with a soft-cap score_mod "
-                 f"{f'{flex:.4f} ms' if flex else 'not run'}" if cap else ""))
+              f"SDPA backward with a boolean mask{f' (no {kind})' if mod else ''} {lib:.4f} ms"
+              + (f", {lib_name} backward {f'{flex:.4f} ms' if flex else 'not run'}" if mod
+                 else ""))
         row = {"fused": "flash_bwd_fused", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}[name]
         out[f"{row}_{kind}"] = dict(ms=ms, plain_ms=plain, library_ms=flex or lib,
                                     **bound(report))
@@ -1892,6 +1939,107 @@ def softcap_backward_kernels(gen: torch.Generator) -> dict[str, dict]:
            for name in SOFTCAP_BWD_ROWS}
     out["flash_fwd_softcap"] = dict(max_abs_err=err["flash_fwd_softcap"])
     return out
+
+
+# ALiBi in the backward kernels (B3, B4, B5) and with segment ids in K1
+# (phase 2's ALiBi backward gates; phase 18 trains LLAMA_8B with use_alibi),
+# then LLAMA_8B's packed training row (B 1, Hq 32, Hkv 8, D 128, S 8192 over
+# PACK_DOCS, causal, no window: phase 18 (a)) and its unpacked row at
+# ALIBI_FULL_S (phase 18 (b)).
+ALIBI_BWD_ROWS = ("flash_fwd_alibi_segments", "flash_bwd_fused_alibi", "flash_bwd_dq_alibi",
+                  "flash_bwd_dkv_alibi")
+ALIBI_FULL_S = 4096
+
+
+def alibi_backward_kernels(gen: torch.Generator) -> dict[str, dict]:
+    """masked_case with ALiBi (the standard slopes unless named): at D 64,
+    128 and 256, causal, with a window, segment ids, both; S_q != S_k with
+    a pos_offset; rows that see no key; non-causal; a window of one key;
+    one head at the steepest standard slope over 8,192 keys; float32; then
+    LLAMA_8B's packed training row, where the split path must be bitwise
+    equal across two calls and each row is timed (time_masked), and its
+    unpacked row at ALIBI_FULL_S; at both, the same kernels without ALiBi
+    on the same q, k, v and dO, timed in the same way (alibi_cost).
+    Returns the packed row's rows."""
+    err = dict.fromkeys(ALIBI_BWD_ROWS, 0.0)
+    docs = [300, 37, 500, 119]  # off the tile multiples, then 144 of padding
+    for d in (64, 128, 256):
+        shape = (1, 8, 2, 1100, 1100, d)
+        masked_case(gen, err, "ALiBi", shape, alibi=True)
+        masked_case(gen, err, "ALiBi with a window", shape, window=129, alibi=True)
+        masked_case(gen, err, "ALiBi with documents", shape, lens=docs, alibi=True)
+        masked_case(gen, err, "ALiBi with documents and a window", shape, lens=docs, window=100,
+                    alibi=True)
+    masked_case(gen, err, "ALiBi, S_q != S_k", (1, 8, 2, 600, 1500, 128), pos_offset=700,
+                window=300, alibi=True)
+    masked_case(gen, err, "ALiBi, rows without keys", (1, 8, 2, 300, 300, 64), pos_offset=-70,
+                alibi=True)
+    masked_case(gen, err, "ALiBi, non-causal", (1, 4, 4, 300, 300, 256), causal=False,
+                alibi=True)
+    masked_case(gen, err, "ALiBi, a window of one key", (1, 8, 2, 1000, 1000, 64), window=1,
+                alibi=True)
+    masked_case(gen, err, "ALiBi, one steep head", (1, 1, 1, PACK_S, PACK_S, 128), alibi=True,
+                alibi_slopes=torch.tensor([ALIBI_STEEP], device="cuda"))
+    masked_case(gen, err, "ALiBi, float32", (1, 4, 2, 300, 300, 64), torch.float32,
+                lens=[130, 77, 50], window=50, alibi=True)
+    masked_case(gen, err, "ALiBi, float32", (1, 4, 2, 300, 300, 256), torch.float32,
+                alibi=True)
+    b, hq, hkv, _, d = ALIBI_PREFILL
+    row = masked_case(gen, err, "LLAMA_8B packed training row", (b, hq, hkv, PACK_S, PACK_S, d),
+                      lens=PACK_DOCS, alibi=True)
+    q, k, v, o, do, lse, kw = row
+    first = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, impl="split", **kw)
+    second = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, impl="split", **kw)
+    check(all(torch.equal(x, y) for x, y in zip(first, second)),
+          "split backward with ALiBi and segment ids is not bitwise deterministic")
+    print("[kernels] split backward, LLAMA_8B packed training row with ALiBi and segment ids: "
+          "two runs bitwise equal (torch.equal on dQ, dK, dV)")
+    del first, second
+    timed = time_masked("alibi", *row)
+    alibi_cost("LLAMA_8B packed training row", *row)
+    del row, q, k, v, o, do, lse, kw
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = masked_case(gen, err, "LLAMA_8B training row", (b, hq, hkv, ALIBI_FULL_S,
+                                                            ALIBI_FULL_S, d), alibi=True)
+    alibi_cost("LLAMA_8B training row", *row)
+    del row
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {name: dict(max_abs_err=err[name], **timed[name]) for name in ALIBI_BWD_ROWS}
+
+
+def alibi_cost(tag: str, q, k, v, o, do, lse, kw) -> None:
+    """ALiBi's cost in B3, B4 and B5 (and in K1 with the LSE where there are
+    segment ids): each timed with ALiBi on masked_case's O and LSE and
+    without it on K1's O and LSE without ALiBi, same q, k, v and dO, device
+    time (cuda_time_ms), the ratio printed."""
+    few = dict(warmup=1, iters=3, reps=3)
+    base = dict(kw, alibi=False, alibi_slopes=None)
+    o0, lse0 = flash_fwd.flash_attention_forward(q, k, v, **base)
+    causal = kw["is_causal"]
+    ratios = {}
+    for name, args, opts in (("alibi", (o, lse), kw), ("none", (o0, lse0), base)):
+        opts = {key: opts[key] for key in ("pos_offset", "window", "segment_ids", "alibi",
+                                          "alibi_slopes")}
+        oo, ll = args
+        _, delta = flash_bwd.flash_bwd_dq(q, k, v, oo, do, ll, causal, **opts)
+        ms = {"B3": cuda_time_ms(lambda: flash_bwd_fused.flash_attention_backward_fused(
+                  q, k, v, oo, do, ll, causal, **opts), **few),
+              "B4": cuda_time_ms(lambda: flash_bwd.flash_bwd_dq(q, k, v, oo, do, ll, causal,
+                                                                **opts), **few),
+              "B5": cuda_time_ms(lambda: flash_bwd.flash_bwd_dkv(q, k, v, do, ll, delta, causal,
+                                                                 **opts), **few)}
+        if kw["segment_ids"] is not None:
+            ms["K1"] = cuda_time_ms(lambda: flash_fwd.flash_attention_forward(
+                q, k, v, causal, **opts), **few)
+        ratios[name] = ms
+    print(f"[kernels] ALiBi's cost, {tag} B={q.shape[0]} Hq={q.shape[1]} Hkv={k.shape[1]} "
+          f"S={q.shape[2]} D={q.shape[3]}: "
+          + ", ".join(f"{kern} {ratios['alibi'][kern]:.4f} ms with ALiBi, "
+                      f"{ratios['none'][kern]:.4f} ms without "
+                      f"({ratios['alibi'][kern] / ratios['none'][kern] - 1:+.1%})"
+                      for kern in ratios["alibi"]))
 
 
 # qmm8's and qmm4's M: the decode batch's split-K kernel up to 16 (1, 4 and
@@ -2766,16 +2914,17 @@ PACK_COUNTERS = ("flash_fwd_window", "flash_fwd_segments", "flash_bwd_fused_wind
 
 
 def check_packed_row(tokens, segs, cfg) -> str:
-    """Fails unless the row holds a document longer than the window, at
-    least two document boundaries off the 64- and 128-token tile multiples
-    and trailing padding; returns its layout."""
+    """Fails unless the row holds a document longer than the window (where
+    cfg has one), at least two document boundaries off the 64- and
+    128-token tile multiples and trailing padding; returns its layout."""
     seg = segs[0]
     live = seg >= 0
     starts = [i for i in range(1, len(seg)) if live[i] and seg[i] != seg[i - 1]]
     ends = starts + [int(live.sum())]
     lengths = [b - a for a, b in zip([0] + starts, ends)]
     off_tile = [x for x in starts if x % 64]
-    check(max(lengths) > cfg.attn_window and len(off_tile) >= 2 and not live[-1]
+    check((cfg.attn_window is None or max(lengths) > cfg.attn_window) and len(off_tile) >= 2
+          and not live[-1]
           and tokens.shape == segs.shape == (1, PACK_S + 1),
           f"packed row: documents {lengths}, boundaries {starts}, {int((~live).sum())} padding")
     return (f"documents {lengths} (boundaries {starts}, {len(off_tile)} off the tile "
@@ -2805,7 +2954,8 @@ def packed_training(gen: torch.Generator, cfg, name: str, log: str,
                     counters: tuple[str, ...]) -> dict[str, int]:
     """One AdamW step of `cfg` (full width, cut in depth) on a packed row
     through the kernels (K1 with each layer's window, segment ids and the
-    cap, the fused backward) against the same step on the plain route from
+    cap or ALiBi, the fused backward) against the same step on the plain
+    route from
     the same weights, under phase 7's gates; then train.train for
     PACK_STEPS steps on PackedDataset batches through prefetch with the
     split backward, the loss falling; ms, tokens/s and peak memory a step.
@@ -2818,7 +2968,7 @@ def packed_training(gen: torch.Generator, cfg, name: str, log: str,
     local = sum(llama.layer_window(cfg, i) is not None for i in range(n))
     print(f"{log} {name} cut to {n} layers (full width: hidden {cfg.hidden_size}, GQA "
           f"{cfg.num_heads}/{cfg.num_kv_heads}, D {cfg.head_dim}, window {cfg.attn_window} on "
-          f"{local} layers, soft-cap {cfg.logit_softcap}): "
+          f"{local} layers, soft-cap {cfg.logit_softcap}, ALiBi {cfg.use_alibi}): "
           f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B parameters in "
           f"{time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(SEED)
@@ -2856,10 +3006,13 @@ def packed_training(gen: torch.Generator, cfg, name: str, log: str,
     del start
     (l_k, n_k, g_k, launches), (l_p, n_p, g_p, plain_launches) = runs["kernels"], runs["plain"]
     capped = n if cfg.logit_softcap else 0
+    biased = n if cfg.use_alibi else 0
     per_step = {"flash_fwd": n, "flash_fwd_window": local, "flash_fwd_segments": n,
-                "flash_fwd_softcap": capped}
+                "flash_fwd_softcap": capped, "flash_fwd_alibi": biased,
+                "flash_fwd_alibi_segments": biased}
     want = dict(per_step, flash_bwd_fused=n, flash_bwd_fused_window=local,
-                flash_bwd_fused_segments=n, flash_bwd_fused_softcap=capped)
+                flash_bwd_fused_segments=n, flash_bwd_fused_softcap=capped,
+                flash_bwd_fused_alibi=biased)
     want = {k: v for k, v in want.items() if v}
     check({k: v for k, v in launches.items() if v} == want,
           f"{name} packed kernel step launched {launches}, want {want}")
@@ -2867,6 +3020,8 @@ def packed_training(gen: torch.Generator, cfg, name: str, log: str,
     cos = {k: float(F.cosine_similarity(g_k[k].float().flatten(), g_p[k].float().flatten(),
                                         dim=0)) for k in g_k}
     worst = min(cos, key=cos.get)
+    print(f"{log} gradient cosines, kernels vs plain: "
+          f"{ {k: round(c, 6) for k, c in sorted(cos.items(), key=lambda x: x[1])} }")
     print(f"{log} kernels vs plain: |dloss| {abs(l_k - l_p):.6f} (<= {LOSS_ATOL}), "
           f"grad_norm rel {abs(n_k - n_p) / n_p:.6f} (<= {GRAD_NORM_REL}), gradient cosine "
           f"min {cos[worst]:.6f} ({worst}) over {len(cos)} parameters (> {GRAD_COS})")
@@ -4417,6 +4572,70 @@ def phase_alibi(gen: torch.Generator) -> dict[str, int]:
     return rows
 
 
+# Phase 18: training LLAMA_8B with use_alibi (the attention shape of MPT-7B
+# and BLOOM-7B1: GQA 32/8 at D 128, RoPE off). (a) cut to PACK_LAYERS layers
+# (about 1.9 B parameters: the 32 layers with AdamW's two float32 moments
+# pass one card's 80 GB) on the packed row of 8,192 tokens, packed_training:
+# K1 with ALiBi and segment ids, B3 with ALiBi against the plain route under
+# phase 7's gates, then PACK_STEPS train.train steps on the split backward.
+# (b) all 32 layers, B 1, ALIBI_FULL_S tokens unpacked, remat="attn",
+# GEMMA_FULL_STEPS sgd_train_steps on one repeated batch (8.03 B parameters:
+# 16.1 GB of bf16 weights and as much of gradients, 2.1 GB of float32
+# logits, about 0.12 GB of kept residuals a layer).
+ALIBI_TRAIN_ROWS = ("flash_fwd_alibi", "flash_fwd_alibi_segments", "flash_bwd_fused_alibi",
+                    "flash_bwd_dq_alibi", "flash_bwd_dkv_alibi")
+
+
+def phase_alibi_train(gen: torch.Generator) -> dict[str, int]:
+    """Phase 18 (the comment above). Returns the ALiBi launches of (a)'s
+    gated step and trainer and of (b)'s steps, by row."""
+    cfg = dataclasses.replace(LLAMA_8B, use_alibi=True)
+    name = "LLAMA_8B with use_alibi"
+    total = packed_training(gen, dataclasses.replace(cfg, num_layers=PACK_LAYERS), name,
+                            "[alibi-packed]", ALIBI_TRAIN_ROWS)
+    log = "[alibi-32]"
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{log} {name}, {cfg.num_layers} layers: {n_params / 1e9:.3f} B random bf16 "
+          f"parameters in {time.perf_counter() - t0:.2f} s")
+    tokens = torch.randint(0, cfg.vocab_size, (1, ALIBI_FULL_S + 1), generator=gen,
+                           device="cuda")
+    losses, walls = [], []
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    for step in range(GEMMA_FULL_STEPS):
+        t0 = time.perf_counter()
+        loss = llama.sgd_train_step(model, tokens, GEMMA_FULL_LR, remat="attn")[0]
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        print(f"{log} step {step + 1}: loss {losses[-1]:.6f}, {walls[-1]:.1f} ms (host clock, "
+              f"synchronised), {ALIBI_FULL_S / walls[-1] * 1e3:.0f} tokens/s")
+    peak = torch.cuda.max_memory_allocated()
+    got = {k: n for k, n in read_launches().items() if n}
+    layers = cfg.num_layers
+    want = {k: GEMMA_FULL_STEPS * layers for k in ("flash_fwd", "flash_fwd_alibi",
+                                                   "flash_bwd_fused", "flash_bwd_fused_alibi")}
+    check(got == want, f"{log} launched {got}, want {want}")
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0], f"{log} losses {losses}")
+    ms = statistics.median(walls[1:])
+    print(f"{log} {name} {layers} layers B=1 S={ALIBI_FULL_S} sgd_train_step remat='attn' "
+          f"(lr {GEMMA_FULL_LR}), fused backward: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"{ms:.1f} ms/step (median of steps 2-{GEMMA_FULL_STEPS}), "
+          f"{ALIBI_FULL_S / ms * 1e3:.0f} tokens/s, peak {peak / 2**30:.2f} GiB "
+          f"(max_memory_allocated)")
+    add_launches(total, {k: got.get(k, 0) for k in ALIBI_TRAIN_ROWS})
+    del model, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{log} ALiBi launches of phase 18 by row: {total}")
+    return total
+
+
 class PhaseClock:
     """Prints each phase's seconds as it ends."""
 
@@ -4487,6 +4706,8 @@ def run() -> None:
     clock.done("16 Qwen3-30B-A3B and Qwen1.5-MoE-A2.7B, mixture-of-experts")
     launches.update(phase_alibi(gen))
     clock.done("17 LLAMA_8B with ALiBi")
+    add_launches(launches, phase_alibi_train(gen))
+    clock.done("18 LLAMA_8B with ALiBi training")
     launches["decode_lse"] = timed["decode_lse"].pop("launches")
     decode_src = ("flashattn_tpu_torch/csrc/decode.cu", "flashattn_tpu/ops/decode.py:351")
     qmm_src = "flashattn_tpu_torch/csrc/quant_matmul.cu"
@@ -4523,6 +4744,14 @@ def run() -> None:
                          "flashattn_tpu/ops/flash_bwd.py:138"),
         "flash_bwd_dkv": ("flashattn_tpu_torch/csrc/flash_bwd.cu",
                           "flashattn_tpu/ops/flash_bwd.py:286"),
+        "flash_fwd_alibi_segments": ("flashattn_tpu_torch/csrc/flash_fwd.cu",
+                                     "flashattn_tpu/ops/flash_fwd.py:469"),
+        "flash_bwd_fused_alibi": ("flashattn_tpu_torch/csrc/flash_bwd_fused_alibi.cu",
+                                  "flashattn_tpu/ops/flash_bwd_fused.py:336"),
+        "flash_bwd_dq_alibi": ("flashattn_tpu_torch/csrc/flash_bwd_alibi.cu",
+                               "flashattn_tpu/ops/flash_bwd.py:138"),
+        "flash_bwd_dkv_alibi": ("flashattn_tpu_torch/csrc/flash_bwd_alibi.cu",
+                                "flashattn_tpu/ops/flash_bwd.py:286"),
     }
     for row in MASKED_ROWS + SOFTCAP_BWD_ROWS:  # the same kernels with a window, segment
         sources[row] = sources[row.rsplit("_", 1)[0]]  # ids or a soft-cap

@@ -14,7 +14,10 @@
 // TPU kernels feed their MXU. With a logit soft-cap (cap_log2 > 0, a
 // uniform branch: float32 is the kernels' exact gate, not a fast path) the
 // logit is tanh(s * scale_log2) * cap_log2 with scale_log2 = scale / cap,
-// and dS takes the tanh's derivative (1 - t)(1 + t).
+// and dS takes the tanh's derivative (1 - t)(1 + t). ALiBi (slopes not
+// null, a uniform branch too) adds slope * log2(e) * (c - r - offset) to
+// the scaled logit with one FMA, as K1's float32 kernel does; the bias has
+// no gradient, so dS keeps its formula.
 #pragma once
 
 #include "common.cuh"
@@ -37,6 +40,26 @@ struct Tile {
 // sliding window, or segment ids (with a window when one is given). Each
 // kind runs none of the code of the kinds after it.
 enum MaskKind : int { kNoMask = 0, kWindowMask = 1, kSegmentMask = 2 };
+
+// ALiBi in the bf16 backward kernels forms each score's bias as K1's bf16
+// kernel does (flash_fwd.cu consume), term for term, since P is rebuilt
+// from K1's LSE: K1's kv tiles are kFwdTileN<D> columns, and a score at
+// column c = n0 + 8j + 2t + e (n0 the tile's first column, t = lane % 4)
+// of row r takes row_term = slope_log2 * (n0 + 2t - r - offset), then
+// bias = fmaf(slope_log2, 8j + e, row_term), then the logit
+// fmaf(s, scale_log2, bias). At S 8192 the steepest standard slope's bias
+// nears 10^4 in the log2 domain, where another rounding would show in P.
+template <int D>
+__host__ __device__ constexpr int fwd_tile_n() {
+  return D > 128 ? 64 : 128;  // flash_fwd.cu FwdLayout::kTileN
+}
+
+// Column c's split in K1's bias: its tile's first column plus 2t, and its
+// offset 8j + e from there (c & 6 is 2t: n0 and 8j are multiples of 8).
+template <int D>
+__device__ __forceinline__ int alibi_inner(int c) {
+  return (c & (fwd_tile_n<D>() - 1)) - (c & 6);
+}
 
 // s[j] = a[r] . c[col_j], e[j] = b[r] . f[col_j] for this thread's
 // columns col_j = t + 4j, over fp32 shared-memory tiles of row stride D+1.
@@ -85,21 +108,33 @@ __device__ __forceinline__ float lse_log2(float lse) {
 // P and dS of one score (a raw product s = q . k): p = exp2(logit - lse2),
 // masked to 0 when !live, with the logit s * scale_log2, or with a soft-cap
 // (cap_log2 > 0, a uniform branch; scale_log2 then scale / cap) t *
-// cap_log2 for t = tanh(s * scale_log2), the forward's tanh; ds = p (dp -
-// delta), times (1 - t)(1 + t) under the cap: d(cap tanh(x / cap)) / dx =
-// 1 - t^2, kept precise where |t| nears 1. The float32 kernels call it; the
-// bf16 kernels write the same arithmetic out per kCap (inlined through
-// this helper, ptxas allotted B4's uncapped D 64 kernel differently and it
-// spilled 12 bytes).
+// cap_log2 for t = tanh(s * scale_log2), the forward's tanh, or with ALiBi
+// (slope_log2, the head's slope times log2(e), not 0: a uniform branch; a
+// slope of 0 adds nothing either way) s * scale_log2 + slope_log2 * dist,
+// dist = c - r - offset; ds = p (dp - delta), times (1 - t)(1 + t) under
+// the cap: d(cap tanh(x / cap)) / dx = 1 - t^2, kept precise where |t|
+// nears 1. The float32 kernels call it; the bf16 kernels write the same
+// arithmetic out per kCap and kAlibi (inlined through this helper, ptxas
+// allotted B4's uncapped D 64 kernel differently and it spilled 12 bytes).
 __device__ __forceinline__ float2 p_and_ds(float s, float dp, float delta, float lse2, bool live,
-                                           float scale_log2, float cap_log2) {
+                                           float scale_log2, float cap_log2, float slope_log2,
+                                           int dist) {
   if (cap_log2 > 0.f) {
     const float tc = softcap_tanh(s * scale_log2);
     const float p = live ? exp2f(tc * cap_log2 - lse2) : 0.f;
     return make_float2(p, p * (dp - delta) * ((1.f - tc) * (1.f + tc)));
   }
-  const float p = live ? exp2f(s * scale_log2 - lse2) : 0.f;
+  float p;
+  if (slope_log2 != 0.f)
+    p = live ? exp2f(fmaf(slope_log2, static_cast<float>(dist), s * scale_log2) - lse2) : 0.f;
+  else
+    p = live ? exp2f(s * scale_log2 - lse2) : 0.f;
   return make_float2(p, p * (dp - delta));
+}
+
+// A head's ALiBi slope times log2(e), 0 without ALiBi (slopes null).
+__device__ __forceinline__ float slope_log2_of(const float* __restrict__ slopes, int h) {
+  return slopes != nullptr ? __ldg(slopes + h) * kLog2e : 0.f;
 }
 
 // Shared memory of the dK/dV kernels: K, V (the tile's kv rows), Q, dO (the
@@ -115,7 +150,8 @@ constexpr size_t dkv_smem_bytes() {
 // every q tile with a row that sees the tile: from the causal bound's first
 // row to, with a sliding window (window > 0), the last row whose window
 // reaches the tile. Segment ids seg_q [B, Sq] and seg_k [B, Sk], when not
-// null, mask pairs of two documents. With kFusedDq it also adds the tile's
+// null, mask pairs of two documents; slopes [Hq], when not null, add
+// ALiBi (p_and_ds). With kFusedDq it also adds the tile's
 // dQ contributions, scale applied, into dq_acc (fp32, zeroed by the caller)
 // with atomics; without it nothing is shared between CTAs and the result is
 // bitwise reproducible.
@@ -129,8 +165,9 @@ __device__ __forceinline__ void dkv_tile(const T* __restrict__ q, const T* __res
                                          const float* __restrict__ delta, T* __restrict__ dk,
                                          T* __restrict__ dv, float* __restrict__ dq_acc,
                                          const int* __restrict__ seg_q,
-                                         const int* __restrict__ seg_k, int Hq, int Hkv, int Sq,
-                                         int Sk, int is_causal, int offset, int window,
+                                         const int* __restrict__ seg_k,
+                                         const float* __restrict__ slopes, int Hq, int Hkv,
+                                         int Sq, int Sk, int is_causal, int offset, int window,
                                          float scale, float scale_log2, float cap_log2) {
   constexpr int kBlock = Tile<D>::kRows;
   constexpr int kThreads = Tile<D>::kThreads;
@@ -178,6 +215,7 @@ __device__ __forceinline__ void dkv_tile(const T* __restrict__ q, const T* __res
 
   for (int g = 0; g < group; ++g) {
     const int h = hk * group + g;
+    const float slope_log2 = slope_log2_of(slopes, h);
     const size_t stat_base = (static_cast<size_t>(b) * Hq + h) * Sq;
     const size_t q_base = stat_base * D;
     for (int qt = q_begin; qt < q_end; ++qt) {
@@ -203,7 +241,8 @@ __device__ __forceinline__ void dkv_tile(const T* __restrict__ q, const T* __res
         const bool live = qi < Sq && kv_row < Sk && (!is_causal || kv_row <= qi + offset) &&
                           (window == 0 || kv_row >= qi + offset - window + 1) &&
                           (seg_q == nullptr || seg_q[static_cast<size_t>(b) * Sq + qi] == kv_seg);
-        const float2 pd = p_and_ds(s[j], dp[j], deltas[c], lse2s[c], live, scale_log2, cap_log2);
+        const float2 pd = p_and_ds(s[j], dp[j], deltas[c], lse2s[c], live, scale_log2, cap_log2,
+                                   slope_log2, kv_row - qi - offset);
         pt[r * kPP + c] = round_to<T>(pd.x);
         dst[r * kPP + c] = round_to<T>(pd.y);
       }

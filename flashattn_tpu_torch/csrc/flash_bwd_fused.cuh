@@ -1,0 +1,213 @@
+// Flash-attention backward, fused path, for Hopper (sm_90a): a delta
+// pre-pass, then one kernel that computes dQ, dK and dV in one pass. Two
+// libraries build from this header: flash_bwd_fused.cu (every instantiation
+// without ALiBi) and flash_bwd_fused_alibi.cu (ALiBi's), side by side.
+//
+// Replaces the TPU kernel flashattn_tpu/ops/flash_bwd_fused.py::
+// _fused_bwd_kernel (launcher flash_attention_backward_fused, :336; B3) on
+// the plain subset: causal (bottom-right, or by pos_offset) or not, GQA,
+// ragged S_q/S_k, rows that see no key, the sliding window and
+// packed-document segment ids (instantiated apart, flash_bwd.cuh's
+// MaskKind: the tile of flash_bwd_mma.cuh bounds its q walk by the window
+// and masks pairs of two documents), and the logit soft-cap with its exact
+// tanh derivative (kCap, a template flag of the bf16 kernel) or ALiBi
+// (kAlibi, the bias as K1 formed it: flash_bwd.cuh fwd_tile_n; the float32
+// kernel takes it as a runtime argument), at D 64, 128 and 256 (8 warps a kv tile at D 256, flash_bwd_mma.cuh). On the TPU the dK/dV accumulators of
+// a whole (batch, kv head) stay in VMEM while one sequential grid walks the
+// q tiles; no SM holds that, so this is the one-pass design of FA2 instead:
+// one CTA per (64-row kv tile, kv head, batch) keeps its tile's dK and dV in
+// registers while it walks the GQA group's q heads and the live q tiles,
+// computing S, P, dP and dS once per tile pair, and adds each tile's dQ
+// contribution, scale applied, into an fp32 buffer with atomics. The caller
+// zeroes that buffer and casts it afterwards.
+//
+// What bounds it on the card: arithmetic, about 2.5x the forward's FLOPs
+// (five products a tile pair), so the tensor cores' rate; then the dQ
+// reductions into L2 (64 x D fp32 a tile pair). bf16 runs the tensor-core
+// tile of flash_bwd_mma.cuh (mma.sync m16n8k16, bf16 operands in shared
+// memory, cp.async double buffer of the q tiles, dQ by float4 atomicAdd:
+// 16 x D / 4 a tile pair); float32 keeps the CUDA-core tile of
+// flash_bwd.cuh (64 x D scalar atomics a tile pair). Compared with the split
+// path it computes S and dP once instead of twice. The atomics sum in an
+// order that changes between runs, so dQ is not bitwise reproducible; the
+// split path (flash_bwd.cu) is the deterministic one.
+#pragma once
+
+#include <type_traits>
+
+#include "flash_bwd_mma.cuh"
+
+namespace {
+
+using fat::bwd::Tile;
+
+constexpr int kThreads = 256;  // delta pre-pass
+constexpr int kRowsPerCta = kThreads / 32;  // one warp per row
+
+// delta[row] = sum_d dO[row][d] * O[row][d] over rows = B * Hq * Sq.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                       float* __restrict__ delta, long long rows) {
+  const int lane = threadIdx.x % 32;
+  const long long row = static_cast<long long>(blockIdx.x) * kRowsPerCta + threadIdx.x / 32;
+  if (row >= rows) return;  // whole warps leave together
+  const T* orow = o + row * D;
+  const T* dorow = dout + row * D;
+  float sum = 0.f;
+#pragma unroll
+  for (int i = lane; i < D; i += 32) sum = fmaf(fat::to_f(dorow[i]), fat::to_f(orow[i]), sum);
+#pragma unroll
+  for (int m = 16; m > 0; m /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, m);
+  if (lane == 0) delta[row] = sum;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(Tile<D>::kThreads)
+flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dq_acc,
+                       const int* __restrict__ seg_q, const int* __restrict__ seg_k,
+                       const float* __restrict__ slopes, int Hq, int Hkv, int Sq, int Sk,
+                       int is_causal, int offset, int window, float scale, float scale_log2,
+                       float cap_log2) {
+  fat::bwd::dkv_tile<T, D, true>(q, k, v, dout, lse, delta, dk, dv, dq_acc, seg_q, seg_k, slopes,
+                                 Hq, Hkv, Sq, Sk, is_causal, offset, window, scale, scale_log2,
+                                 cap_log2);
+}
+
+template <int D, int kMask, bool kCap, bool kAlibi>
+__global__ void __launch_bounds__(fat::bwd::mma::threads<D>())
+flash_bwd_fused_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                           const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, float* __restrict__ dq_acc,
+                           const int* __restrict__ seg_q, const int* __restrict__ seg_k,
+                           const int2* __restrict__ ranges_q, const int2* __restrict__ ranges_k,
+                           const float* __restrict__ slopes, int Hq, int Hkv, int Sq, int Sk,
+                           int is_causal, int offset, int window, float scale, float scale_log2,
+                           float cap_log2) {
+  fat::bwd::mma::dkv_tile<D, true, kMask, kCap, kAlibi>(
+      q, k, v, dout, lse, delta, dk, dv, dq_acc, seg_q, seg_k, ranges_q, ranges_k, slopes, Hq,
+      Hkv, Sq, Sk, is_causal, offset, window, scale, scale_log2, cap_log2);
+}
+
+template <int D, int kMask, bool kCap, bool kAlibi>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* dout,
+                       const void* lse, void* dq_acc, void* dk, void* dv, const void* delta,
+                       const int* seg_q, const int* seg_k, const int2* ranges_q,
+                       const int2* ranges_k, const float* slopes, int B, int Hq, int Hkv, int Sq,
+                       int Sk, int is_causal, int offset, int window, float scale,
+                       float scale_log2, float cap_log2, cudaStream_t stream) {
+  namespace mma = fat::bwd::mma;
+  using bf16 = __nv_bfloat16;
+  const cudaError_t err =
+      fat::allow_max_smem<flash_bwd_fused_mma_kernel<D, kMask, kCap, kAlibi>>();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(Hkv, B, (Sk + mma::kBc - 1) / mma::kBc);
+  flash_bwd_fused_mma_kernel<D, kMask, kCap, kAlibi>
+      <<<grid, mma::threads<D>(), mma::smem_bytes<D, true, kMask>(), stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+          static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+          static_cast<float*>(dq_acc), seg_q, seg_k, ranges_q, ranges_k, slopes, Hq, Hkv, Sq,
+          Sk, is_causal, offset, window, scale, scale_log2, cap_log2);
+  return cudaGetLastError();
+}
+
+// With kAlibi the bf16 kernels of ALiBi (no cap), else those without it.
+template <typename T, int D, bool kAlibi>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                   const void* lse, void* dq_acc, void* dk, void* dv, void* delta,
+                   const int* seg_q, const int* seg_k, const int2* ranges_q,
+                   const int2* ranges_k, const float* slopes, int B, int Hq, int Hkv, int Sq,
+                   int Sk, int is_causal, int offset, int window, float scale, float scale_log2,
+                   float cap_log2, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(B) * Hq * Sq;
+  flash_bwd_delta_kernel<T, D><<<static_cast<unsigned>((rows + kRowsPerCta - 1) / kRowsPerCta),
+                                 kThreads, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<float*>(delta), rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    namespace bwd = fat::bwd;
+    const bool cap = cap_log2 > 0.f;
+    decltype(&launch_mma<D, bwd::kNoMask, false, kAlibi>) fn;
+    if constexpr (kAlibi)
+      fn = seg_q != nullptr ? launch_mma<D, bwd::kSegmentMask, false, true>
+           : window > 0     ? launch_mma<D, bwd::kWindowMask, false, true>
+                            : launch_mma<D, bwd::kNoMask, false, true>;
+    else
+      fn = seg_q != nullptr ? (cap ? launch_mma<D, bwd::kSegmentMask, true, false>
+                                   : launch_mma<D, bwd::kSegmentMask, false, false>)
+           : window > 0     ? (cap ? launch_mma<D, bwd::kWindowMask, true, false>
+                                   : launch_mma<D, bwd::kWindowMask, false, false>)
+                            : (cap ? launch_mma<D, bwd::kNoMask, true, false>
+                                   : launch_mma<D, bwd::kNoMask, false, false>);
+    return fn(q, k, v, dout, lse, dq_acc, dk, dv, delta, seg_q, seg_k, ranges_q, ranges_k, slopes,
+              B, Hq, Hkv, Sq, Sk, is_causal, offset, window, scale, scale_log2, cap_log2, stream);
+  } else {
+    err = fat::allow_max_smem<flash_bwd_fused_kernel<T, D>>();
+    if (err != cudaSuccess) return err;
+    const dim3 grid((Sk + Tile<D>::kRows - 1) / Tile<D>::kRows, Hkv, B);
+    flash_bwd_fused_kernel<T, D>
+        <<<grid, Tile<D>::kThreads, fat::bwd::dkv_smem_bytes<D>(), stream>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+            static_cast<const T*>(dout), static_cast<const float*>(lse),
+            static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
+            static_cast<float*>(dq_acc), seg_q, seg_k, slopes, Hq, Hkv, Sq, Sk, is_causal,
+            offset, window, scale, scale_log2, cap_log2);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q, o, dout [B,Hq,Sq,D]; k, v, dk, dv [B,Hkv,Sk,D]; lse and delta
+// [B,Hq,Sq] fp32; dq_acc [B,Hq,Sq,D] fp32, zeroed by the caller; all
+// contiguous on the device, the [.., D] tensors 16-byte aligned; seg_q
+// [B,Sq] and seg_k [B,Sk] int32 segment ids with their block ranges
+// ranges_q [B,ceil(Sq/32)] and ranges_k [B,ceil(Sk/32)] int2 (min, max),
+// all NULL or none (the float32 kernels read the ids alone); slopes the
+// (Hq,) float32 ALiBi table, not NULL in the ALiBi library
+// (flash_bwd_fused_alibi.cu) and NULL in the other (flash_bwd_fused.cu),
+// never with a soft-cap. Row r sees column c iff !is_causal or
+// c <= r + offset, with window > 0 (causal only) c >= r + offset - window + 1,
+// and with segment ids seg_q[b][r] == seg_k[b][c]. The logits s (q . k) are
+// s * scale_log2 in the exp2 domain (scale_log2 = scale * log2(e)), or with
+// cap_log2 > 0 (the soft-cap: cap * log2(e), and scale_log2 then
+// scale / cap) tanh(s * scale_log2) * cap_log2, as the forward made them;
+// ALiBi adds slopes[h] * log2(e) * (c - r - offset). D is 64, 128 or 256.
+// Writes delta, dk (scale applied) and dv in k's dtype, and adds
+// scale * dS.K into dq_acc. Returns the CUDA error code of the launches
+// (0 = success).
+template <bool kAlibi>
+int fused_launch_impl(const void* q, const void* k, const void* v, const void* o,
+                      const void* dout, const void* lse, void* dq_acc, void* dk, void* dv,
+                      void* delta, const int* seg_q, const int* seg_k, const int2* ranges_q,
+                      const int2* ranges_k, const float* slopes, int B, int Hq, int Hkv, int Sq,
+                      int Sk, int D, int dtype, int is_causal, int offset, int window,
+                      float scale, float scale_log2, float cap_log2, void* stream) {
+  const bool seg = seg_q != nullptr;
+  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || window < 0 ||
+      (window > 0 && !is_causal) || seg != (seg_k != nullptr) || seg != (ranges_q != nullptr) ||
+      seg != (ranges_k != nullptr) || cap_log2 < 0.f || (slopes != nullptr) != kAlibi ||
+      (kAlibi && cap_log2 > 0.f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto fn = dtype == fat::kBF16 ? (D == 64    ? launch<__nv_bfloat16, 64, kAlibi>
+                                         : D == 128 ? launch<__nv_bfloat16, 128, kAlibi>
+                                         : D == 256 ? launch<__nv_bfloat16, 256, kAlibi>
+                                                    : nullptr)
+                  : dtype == fat::kF32 ? (D == 64    ? launch<float, 64, kAlibi>
+                                          : D == 128 ? launch<float, 128, kAlibi>
+                                          : D == 256 ? launch<float, 256, kAlibi>
+                                                     : nullptr)
+                                       : nullptr;
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(fn(q, k, v, o, dout, lse, dq_acc, dk, dv, delta, seg_q, seg_k,
+                             ranges_q, ranges_k, slopes, B, Hq, Hkv, Sq, Sk, is_causal, offset,
+                             window, scale, scale_log2, cap_log2,
+                             static_cast<cudaStream_t>(stream)));
+}

@@ -1,0 +1,22 @@
+// B3 with ALiBi, the fused backward (csrc/flash_bwd_fused.cuh holds the
+// kernels and their design): the library of the ALiBi instantiations (the
+// bf16 kernel's kAlibi: no mask, the window, segment ids with or without a
+// window; never with the soft-cap); the float32 kernel takes ALiBi as a
+// runtime argument. Replaces, with flash_bwd_fused.cu, the TPU kernel
+// flashattn_tpu/ops/flash_bwd_fused.py::_fused_bwd_kernel with its alibi
+// slopes.
+#include "flash_bwd_fused.cuh"
+
+// fused_launch_impl<true>'s contract (flash_bwd_fused.cuh); slopes must not be null.
+extern "C" int flash_bwd_fused_launch(const void* q, const void* k, const void* v, const void* o,
+                                      const void* dout, const void* lse, void* dq_acc, void* dk,
+                                      void* dv, void* delta, const int* seg_q, const int* seg_k,
+                                      const int2* ranges_q, const int2* ranges_k,
+                                      const float* slopes, int B, int Hq, int Hkv, int Sq, int Sk,
+                                      int D, int dtype, int is_causal, int offset, int window,
+                                      float scale, float scale_log2, float cap_log2,
+                                      void* stream) {
+  return fused_launch_impl<true>(q, k, v, o, dout, lse, dq_acc, dk, dv, delta, seg_q, seg_k,
+                                 ranges_q, ranges_k, slopes, B, Hq, Hkv, Sq, Sk, D, dtype,
+                                 is_causal, offset, window, scale, scale_log2, cap_log2, stream);
+}

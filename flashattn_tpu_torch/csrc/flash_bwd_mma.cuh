@@ -24,7 +24,12 @@
 //   P^T = exp2(S^T scale_log2 - lse2), dS^T = P^T (dP^T - delta), masked;
 //   with the soft-cap (kCap; scale_log2 then scale / cap) t = tanh(S^T
 //   scale_log2) by the forward's tanh (common.cuh softcap_tanh), P^T =
-//   exp2(t cap_log2 - lse2), and dS^T times (1 - t)(1 + t)
+//   exp2(t cap_log2 - lse2), and dS^T times (1 - t)(1 + t); with ALiBi
+//   (kAlibi, never with kCap) the logit is S^T scale_log2 plus the bias
+//   K1 formed (flash_bwd.cuh fwd_tile_n): a thread's two kv rows (the
+//   bias's columns) keep their column terms for the CTA's life, its q
+//   columns (the bias's rows) take their row terms once a tile pair, each
+//   score one FMA for the bias and one for the scale; dS^T keeps its formula
 //   dV += P^T dO, dK += dS^T Q      A: P^T and dS^T from the accumulators,
 //                                   rounded to bf16; B: dO, Q (ldmatrix.trans)
 //   fused only: dS^T to shared memory (bf16), dQ_tile = scale dS K
@@ -35,9 +40,9 @@
 // 8-row phase of an ldmatrix reads 32 distinct banks. Q, dO, LSE and delta of
 // the next q tile arrive by cp.async in a second buffer while the current
 // one computes: one barrier a tile pair (two when fused). At D 64 the K and
-// V fragments stay in registers for the CTA's life; at D 128 they are read
-// from shared memory per k-step, which keeps dK, dV, S^T and dP^T in
-// registers without spills. dK and dV stay in registers until one write
+// V fragments stay in registers for the CTA's life (not in the fused
+// kernel with ALiBi); at D 128 they are read from shared memory per k-step,
+// which keeps dK, dV, S^T and dP^T in registers without spills. dK and dV stay in registers until one write
 // each (scale applied to dK); kv rows that no q row sees are written as 0.
 //
 // Shared memory: 65,536 B (fused) or 56,320 B (dK/dV) at D 64; 75,264 B or
@@ -108,8 +113,9 @@ __device__ __forceinline__ void load_tile_async(const bf16* __restrict__ src, in
 // call's heavy tiles (the first ones) are dispatched first. With kFusedDq
 // the dQ contributions are added with scale applied. kNoMask reads neither
 // the window nor the segment ids (window 0, seg_q/seg_k null), kWindowMask
-// not the ids. Without kCap, cap_log2 is not read.
-template <int D, bool kFusedDq, int kMask, bool kCap>
+// not the ids. Without kCap, cap_log2 is not read; without kAlibi, slopes
+// ([Hq] float32) are not.
+template <int D, bool kFusedDq, int kMask, bool kCap, bool kAlibi>
 __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                          const bf16* __restrict__ v,
                                          const bf16* __restrict__ dout,
@@ -119,9 +125,11 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
                                          const int* __restrict__ seg_q,
                                          const int* __restrict__ seg_k,
                                          const int2* __restrict__ ranges_q,
-                                         const int2* __restrict__ ranges_k, int Hq, int Hkv,
+                                         const int2* __restrict__ ranges_k,
+                                         const float* __restrict__ slopes, int Hq, int Hkv,
                                          int Sq, int Sk, int is_causal, int offset, int window,
                                          float scale, float scale_log2, float cap_log2) {
+  static_assert(!(kCap && kAlibi), "ALiBi takes no soft-cap");
   constexpr int kBr = q_rows<D>();
   constexpr int kNThreads = threads<D>();
   constexpr int kNWarps = kNThreads / 32;
@@ -131,7 +139,10 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
   constexpr int kQTiles = kBr / 8;  // their n-tiles
   constexpr int kQSteps = kBr / 16;  // k-steps of dV and dK
   constexpr int kDTiles = D / 8 / halves<D>();  // their n-tiles: this warp's part of D
-  constexpr bool kResident = D == 64;
+  // K's and V's A fragments stay in registers at D 64, but not beside
+  // ALiBi's terms in the fused kernel (with segment ids it spilled 20
+  // bytes): there they are read per k-step, as at D 128.
+  constexpr bool kResident = D == 64 && !(kFusedDq && kAlibi);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* vs = ks + kBc * KP;
@@ -229,6 +240,17 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
     kv_ids = id_range(ranges_k + static_cast<size_t>(b) * range_blocks(Sk), kv0, kBc, Sk);
     q_ranges = ranges_q + static_cast<size_t>(b) * range_blocks(Sq);
   }
+  // ALiBi's terms as K1 forms them: this thread's kv rows kv_r0 + 8i are
+  // the bias's columns, each with its offset in K1's tile, alibi_inner
+  // (kv0 and wrow are multiples of 16, so every one shares its tile's start
+  // and its 2t = g & 6); a q row r's row term is slope_log2 * (col_base - r).
+  float alibi_col[2] = {0.f, 0.f};
+  int col_base = 0;
+  if constexpr (kAlibi) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) alibi_col[i] = static_cast<float>(alibi_inner<D>(kv_r0 + 8 * i));
+    col_base = kv_r0 - alibi_inner<D>(kv_r0) - offset;
+  }
   for (int it = 0; it < n_iters; ++it) {
     cp_async_wait_all();
     __syncthreads();  // tile `it` is in; every warp is done with tile it - 1
@@ -242,6 +264,7 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
     const float* lseb = lses + buf * kBr;
     const float* deltab = deltas + buf * kBr;
     const int* segb = segs + buf * kBr;
+    const float slope_log2 = kAlibi ? slope_log2_of(slopes, hk * group + it / n_live) : 0.f;
     bool seg_mask = false;  // the tile pair needs the id mask
     if constexpr (kMask == kSegmentMask) {
       if (seg) {
@@ -294,6 +317,12 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
       const float2 dl = *reinterpret_cast<const float2*>(deltab + c);
       const float lse2[2] = {lse_log2(l.x), lse_log2(l.y)};
       const float dlt[2] = {dl.x, dl.y};
+      float row_term[2] = {0.f, 0.f};  // ALiBi's, of q rows q0 + c and q0 + c + 1
+      if constexpr (kAlibi) {
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+          row_term[x] = slope_log2 * static_cast<float>(col_base - (q0 + c + x));
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         bool live = true;
@@ -309,6 +338,12 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
           const float p = live ? exp2f(tc * cap_log2 - lse2[e & 1]) : 0.f;
           s[j][e] = p;
           dp[j][e] = p * (dp[j][e] - dlt[e & 1]) * ((1.f - tc) * (1.f + tc));
+        } else if constexpr (kAlibi) {  // K1's logit: fmaf(s, scale, fmaf(slope, inner, row))
+          const float x = fmaf(s[j][e], scale_log2,
+                               fmaf(slope_log2, alibi_col[e >> 1], row_term[e & 1]));
+          const float p = live ? exp2f(x - lse2[e & 1]) : 0.f;
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - dlt[e & 1]);
         } else {
           const float p = live ? exp2f(s[j][e] * scale_log2 - lse2[e & 1]) : 0.f;
           s[j][e] = p;

@@ -10,8 +10,8 @@
 // (row r sees column c only if seg_q[b][r] == seg_k[b][c]), the logit
 // soft-cap (s = tanh(s / cap) * cap on the scaled logits, before any mask)
 // and ALiBi (slope_h * (c - r - offset) added to the scaled logits, before
-// any mask; not with segment ids or the soft-cap), at head dims 64, 128 and
-// 256.
+// any mask, with or without the window and segment ids; not with the
+// soft-cap), at head dims 64, 128 and 256.
 // The TPU's two grid shapes, its wavefront meta arrays, h_fuse and the
 // ones-column row sum are Mosaic designs and are not carried over.
 //
@@ -78,7 +78,11 @@
 // diagonal's, near 0), so the running max is set first and the far tiles'
 // biases (about -slope * S) underflow their exponents to 0; a row whose
 // first tiles hide every key keeps its max at -inf and alpha 0, as without
-// the bias.
+// the bias. With segment ids too (packed documents) the bias uses the
+// global packed positions, which within a document is the document's own
+// distance: the id mask then composes with it unchanged, and a tile of
+// other documents is skipped as without the bias. The backward kernels
+// rebuild this bias term for term (flash_bwd.cuh fwd_tile_n).
 // No atomics: two calls give the same bits. The softmax
 // uses the exp2 domain (row max of the raw scores, one FFMA and one
 // MUFU.EX2 per exponent), fp32 (m, l),
@@ -729,7 +733,7 @@ __device__ __forceinline__ void consume(unsigned smem, const CUtensorMap* k_map,
 // flash_fwd_kernel; kWindow instantiates the sliding window (window > 0),
 // kSeg the segment ids (seg_q and seg_k not null), kCap the soft-cap
 // (cap_log2 > 0), kAlibi ALiBi (slopes, the (Hq,) table, not null; never
-// with kSeg or kCap).
+// with kCap).
 template <int D, int kConsumers, bool kWindow, bool kSeg, bool kCap, bool kAlibi>
 __global__ void __launch_bounds__(FwdLayout<D, kConsumers>::kThreads,
                                   kConsumers == 1 ? 3 : 1)
@@ -741,7 +745,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const int2* __restrict__ ranges_k, const float* __restrict__ slopes,
                        int Hq, int Hkv, int Sq, int Sk, int is_causal, int offset, int window,
                        float scale_log2, float cap_log2) {
-  static_assert(!(kAlibi && (kSeg || kCap)), "ALiBi takes no segment ids and no soft-cap");
+  static_assert(!(kAlibi && kCap), "ALiBi takes no soft-cap");
   using L = FwdLayout<D, kConsumers>;
   constexpr int kTileN = L::kTileN;
   extern __shared__ unsigned char smem_raw[];
@@ -896,7 +900,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, vo
 
 // The bf16 kernel of head dim D (kConsumers warpgroups) for a window,
 // segment ids and a soft-cap, each present or not, or for ALiBi (slopes not
-// null) with or without a window.
+// null) with or without a window and segment ids.
 template <int D, int kConsumers>
 cudaError_t launch_bf16_any(bool win, bool seg, bool cap, const void* q, const void* k,
                             const void* v, void* o, void* lse, const int* seg_q,
@@ -905,8 +909,10 @@ cudaError_t launch_bf16_any(bool win, bool seg, bool cap, const void* q, const v
                             int is_causal, int offset, int window, float scale_log2,
                             float cap_log2, cudaStream_t stream) {
   const auto fn =
-      slopes != nullptr ? (win ? launch_bf16<D, kConsumers, true, false, false, true>
-                               : launch_bf16<D, kConsumers, false, false, false, true>)
+      slopes != nullptr ? (win ? (seg ? launch_bf16<D, kConsumers, true, true, false, true>
+                                      : launch_bf16<D, kConsumers, true, false, false, true>)
+                               : (seg ? launch_bf16<D, kConsumers, false, true, false, true>
+                                      : launch_bf16<D, kConsumers, false, false, false, true>))
       : cap ? (win ? (seg ? launch_bf16<D, kConsumers, true, true, true, false>
                           : launch_bf16<D, kConsumers, true, false, true, false>)
                    : (seg ? launch_bf16<D, kConsumers, false, true, true, false>
@@ -926,7 +932,7 @@ cudaError_t launch_bf16_any(bool win, bool seg, bool cap, const void* q, const v
 // seg_k [B,Sk] int32 segment ids with their block ranges ranges_q
 // [B,ceil(Sq/32)] and ranges_k [B,ceil(Sk/32)] int2 (min, max), all NULL or
 // none (the float32 kernel reads the ids alone); slopes the (Hq,) float32
-// ALiBi table or NULL (not with segment ids or a soft-cap). Row r sees
+// ALiBi table or NULL (not with a soft-cap). Row r sees
 // column c iff !is_causal or c <= r + offset, with window > 0 (causal only)
 // c >= r + offset - window + 1, and with segment ids
 // seg_q[b][r] == seg_k[b][c]. The logits s (q . k) become s * scale_log2 in
@@ -947,7 +953,7 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, voi
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || window < 0 ||
       (window > 0 && !is_causal) || seg != (seg_k != nullptr) || seg != (ranges_q != nullptr) ||
       seg != (ranges_k != nullptr) || cap_log2 < 0.f ||
-      (slopes != nullptr && (seg || cap)))
+      (slopes != nullptr && cap))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;

@@ -10,9 +10,8 @@ device (``num_experts``, ``top_k_experts``, ``moe_norm_topk``,
 ``moe_shared_intermediate``; ``moe_dispatch`` and ``moe_capacity_factor``
 choose a dispatcher over an ``ep`` mesh only, as in the JAX package, and
 keep their defaults here) and ALiBi (``use_alibi``: RoPE off, the standard
-slopes' bias in the prefill and decode kernels; its training waits for
-ROADMAP A4, and a gradient through it raises); ``check_supported`` rejects
-a value it does not know.
+slopes' bias in the prefill, decode and backward kernels, packed rows
+too); ``check_supported`` rejects a value it does not know.
 """
 
 from __future__ import annotations

@@ -28,12 +28,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRY_POINTS = {
     "flash_fwd": {"flash_fwd_launch": [_P] * 10 + [_I] * 10 + [_F, _F, _P]},
     "decode": {"decode_launch": [_P] * 13 + [_I] * 15 + [_F, _F, _F, _P]},
-    "decode_alibi": {"decode_launch": [_P] * 13 + [_I] * 15 + [_F, _F, _F, _P]},
     "quant_matmul": {"quant_matmul_launch": [_P] * 5 + [_I] * 7 + [_P]},
-    "flash_bwd": {"flash_bwd_dq_launch": [_P] * 12 + [_I] * 10 + [_F] * 3 + [_P],
-                  "flash_bwd_dkv_launch": [_P] * 12 + [_I] * 10 + [_F] * 3 + [_P]},
-    "flash_bwd_fused": {"flash_bwd_fused_launch": [_P] * 14 + [_I] * 10 + [_F] * 3 + [_P]},
+    "flash_bwd": {"flash_bwd_dq_launch": [_P] * 13 + [_I] * 10 + [_F] * 3 + [_P],
+                  "flash_bwd_dkv_launch": [_P] * 13 + [_I] * 10 + [_F] * 3 + [_P]},
+    "flash_bwd_fused": {"flash_bwd_fused_launch": [_P] * 15 + [_I] * 10 + [_F] * 3 + [_P]},
 }
+# The library of a kernel's ALiBi instantiations has its sibling's entry points.
+ENTRY_POINTS.update({f"{name}_alibi": ENTRY_POINTS[name]
+                     for name in ("decode", "flash_bwd", "flash_bwd_fused")})
 
 _loaded: dict[str, ctypes.CDLL] = {}
 # Seconds spent compiling per library in this process (0.0 when loaded from

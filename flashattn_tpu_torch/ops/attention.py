@@ -3,12 +3,12 @@ flashattn_tpu/ops/attention.py).
 
 ``flash_attention`` is differentiable: a ``torch.autograd.Function`` (the
 JAX package's ``custom_vjp``) whose forward runs K1 with the LSE and keeps
-(q, k, v, o, lse) and the segment ids as residuals, and whose backward runs
-the backward kernels (ops/flash_bwd.py) with the same causal mask, window,
-segment ids and logit soft-cap. Without a gradient to take, the primal runs
-K1 without writing the LSE, as the JAX primal does. ALiBi runs in the
-forward alone: its backward is not ported (ROADMAP A4), so a call that
-would take a gradient through it raises.
+(q, k, v, o, lse), the segment ids and ALiBi's (Hq,) float32 slope table as
+residuals, and whose backward runs the backward kernels (ops/flash_bwd.py)
+with the same causal mask, window, segment ids, logit soft-cap and ALiBi
+slopes. The slopes get no gradient (the JAX package returns zeros for
+them). Without a gradient to take, the primal runs K1 without writing the
+LSE, as the JAX primal does.
 
 Under a gradient the Function's forward calls K1 through a registered
 operator, ``torch.ops.flashattn_tpu_torch.flash_fwd`` (the plain route's is
@@ -29,36 +29,41 @@ from typing import Callable
 
 import torch
 
-from flashattn_tpu_torch.ops.common import unported
+from flashattn_tpu_torch.ops.common import check_softcap
 from flashattn_tpu_torch.ops.flash_bwd import (
     flash_attention_backward,
     flash_attention_backward_reference,
 )
 from flashattn_tpu_torch.ops.flash_fwd import (
+    alibi_table,
     flash_attention_forward,
     flash_attention_forward_reference,
 )
 
 
 # The forward routes as operators: (q, k, v, seg_q, seg_k, is_causal, scale,
-# pos_offset, window, logit_softcap) -> (O, LSE).
+# pos_offset, window, logit_softcap, alibi_slopes) -> (O, LSE); ALiBi is on
+# when alibi_slopes, the (Hq,) float32 table, is given.
 _FWD_SCHEMA = ("(Tensor q, Tensor k, Tensor v, Tensor? seg_q, Tensor? seg_k, bool is_causal, "
-               "float? scale, int? pos_offset, int? window, float? logit_softcap) "
-               "-> (Tensor, Tensor)")
+               "float? scale, int? pos_offset, int? window, float? logit_softcap, "
+               "Tensor? alibi_slopes=None) -> (Tensor, Tensor)")
 
 
 def _forward_op(name: str, forward_fn: Callable):
     """Register forward_fn (need_lse=True) as flashattn_tpu_torch::<name>."""
-    def impl(q, k, v, seg_q, seg_k, is_causal, scale, pos_offset, window, logit_softcap):
+    def impl(q, k, v, seg_q, seg_k, is_causal, scale, pos_offset, window, logit_softcap,
+             alibi_slopes=None):
         return forward_fn(q, k, v, is_causal, scale, pos_offset, need_lse=True, window=window,
                           segment_ids=None if seg_q is None else (seg_q, seg_k),
-                          logit_softcap=logit_softcap)
+                          logit_softcap=logit_softcap, alibi=alibi_slopes is not None,
+                          alibi_slopes=alibi_slopes)
 
     op = torch.library.custom_op(f"flashattn_tpu_torch::{name}", impl, mutates_args=(),
                                  schema=_FWD_SCHEMA)
 
     @op.register_fake
-    def _(q, k, v, seg_q, seg_k, is_causal, scale, pos_offset, window, logit_softcap):
+    def _(q, k, v, seg_q, seg_k, is_causal, scale, pos_offset, window, logit_softcap,
+          alibi_slopes=None):
         return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
 
     return op
@@ -69,43 +74,44 @@ flash_fwd_plain_op = _forward_op("flash_fwd_plain", flash_attention_forward_refe
 
 
 class FlashAttentionFunction(torch.autograd.Function):
-    """O = attention(q, k, v) with residuals (q, k, v, o, lse) and the
-    segment ids; the forward operator and the backward function are
-    arguments, so the kernels and the plain versions share this Function.
-    The options (the causal mask, scale, pos_offset, window and logit
-    soft-cap) reach both alike. The segment ids (int32, no gradient) get
-    None."""
+    """O = attention(q, k, v) with residuals (q, k, v, o, lse), the segment
+    ids and the ALiBi slopes; the forward operator and the backward function
+    are arguments, so the kernels and the plain versions share this
+    Function. The options (the causal mask, scale, pos_offset, window,
+    logit soft-cap and ALiBi slopes) reach both alike. The segment ids
+    (int32) and the slopes get no gradient: None."""
 
     @staticmethod
     def forward(ctx, q, k, v, seg_q, seg_k, is_causal: bool, scale: float | None,
                 pos_offset: int | None, window: int | None, logit_softcap: float | None,
-                forward_op: Callable, backward_fn: Callable):
+                alibi_slopes: torch.Tensor | None, forward_op: Callable, backward_fn: Callable):
         o, lse = forward_op(q, k, v, seg_q, seg_k, is_causal, scale, pos_offset, window,
-                            logit_softcap)
-        ctx.save_for_backward(q, k, v, o, lse, seg_q, seg_k)
+                            logit_softcap, alibi_slopes)
+        ctx.save_for_backward(q, k, v, o, lse, seg_q, seg_k, alibi_slopes)
         ctx.options = (is_causal, scale, pos_offset, window, logit_softcap, backward_fn)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse, seg_q, seg_k = ctx.saved_tensors
+        q, k, v, o, lse, seg_q, seg_k, slopes = ctx.saved_tensors
         is_causal, scale, pos_offset, window, logit_softcap, backward_fn = ctx.options
         dq, dk, dv = backward_fn(q, k, v, o, do.contiguous(), lse, is_causal=is_causal,
                                  scale=scale, pos_offset=pos_offset, window=window,
                                  segment_ids=None if seg_q is None else (seg_q, seg_k),
-                                 logit_softcap=logit_softcap)
-        return dq, dk, dv, None, None, None, None, None, None, None, None, None
+                                 logit_softcap=logit_softcap, alibi=slopes is not None,
+                                 alibi_slopes=slopes)
+        return dq, dk, dv, None, None, None, None, None, None, None, None, None, None
 
 
 def _attention(q, k, v, is_causal, scale, pos_offset, window, segment_ids, logit_softcap,
                alibi, alibi_slopes, forward_fn, forward_op, backward_fn):
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        if alibi:
-            raise unported("ALiBi backward", "A4")
         seg_q, seg_k = (None, None) if segment_ids is None else segment_ids
+        slopes = alibi_table(alibi, alibi_slopes, q.shape[1], q.device,
+                             check_softcap(logit_softcap))
         return FlashAttentionFunction.apply(q, k, v, seg_q, seg_k, is_causal, scale,
-                                            pos_offset, window, logit_softcap, forward_op,
-                                            backward_fn)
+                                            pos_offset, window, logit_softcap, slopes,
+                                            forward_op, backward_fn)
     o, _ = forward_fn(q, k, v, is_causal, scale, pos_offset, need_lse=False, window=window,
                       segment_ids=segment_ids, logit_softcap=logit_softcap, alibi=alibi,
                       alibi_slopes=alibi_slopes)
@@ -135,10 +141,9 @@ def flash_attention(
     and the backward. The backward's implementation follows
     flash_attention_backward's "auto" (FLASHATTN_BWD_IMPL=split selects the
     deterministic path). `logit_softcap` (cap * tanh(s / cap) on the
-    scaled logits, before the mask) reaches the forward and the backward
-    alike. `alibi` (with `alibi_slopes`, as flash_attention_forward takes
-    them) is forward-only: under a gradient it raises NotImplementedError
-    (ROADMAP A4)."""
+    scaled logits, before the mask) and `alibi` (with `alibi_slopes`, as
+    flash_attention_forward takes them; not with a cap) reach the forward
+    and the backward alike; the slopes get no gradient."""
     return _attention(q, k, v, is_causal, scale, pos_offset, window, segment_ids,
                       logit_softcap, alibi, alibi_slopes, flash_attention_forward,
                       flash_fwd_op, flash_attention_backward)

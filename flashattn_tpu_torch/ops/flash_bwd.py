@@ -16,11 +16,15 @@
   on the card the fused kernel keeps only one kv tile's dK/dV on chip, so
   it serves every length.
 
-Every path takes the sliding window, packed-document segment ids and the
-logit soft-cap (the forward's `window`, `segment_ids` and `logit_softcap`,
-ops/flash_fwd.py), at the forward's head dims (HEAD_DIMS): with a cap the
-kernels rebuild P from the capped logits and multiply dS by the tanh's
-derivative, 1 - t^2.
+Every path takes the sliding window, packed-document segment ids, the
+logit soft-cap and ALiBi (the forward's `window`, `segment_ids`,
+`logit_softcap`, `alibi` and `alibi_slopes`, ops/flash_fwd.py), at the
+forward's head dims (HEAD_DIMS): with a cap the kernels rebuild P from the
+capped logits and multiply dS by the tanh's derivative, 1 - t^2; with
+ALiBi they rebuild P from the biased logits, the bias formed as K1 forms
+it, and dS keeps its formula (the bias has no gradient). ALiBi's kernels
+are libraries of their own (csrc/flash_bwd_alibi.cu,
+csrc/flash_bwd_fused_alibi.cu).
 """
 
 from __future__ import annotations
@@ -36,8 +40,9 @@ from flashattn_tpu_torch.ops.flash_bwd_fused import (
     launch_args,
     require_cuda,
 )
-from flashattn_tpu_torch.ops.common import check_softcap, unported
+from flashattn_tpu_torch.ops.common import check_softcap
 from flashattn_tpu_torch.ops.flash_fwd import (
+    alibi_table,
     check_forward_unported,
     check_segments,
     check_window,
@@ -46,8 +51,8 @@ from flashattn_tpu_torch.ops.flash_fwd import (
 from flashattn_tpu_torch.ops.reference import reference_attention_backward
 
 # Kernel launches in this process (set to 0 by callers that count a run):
-# each kernel's, and those with a sliding window, with segment ids and with
-# a logit soft-cap.
+# each kernel's, and those with a sliding window, with segment ids, with a
+# logit soft-cap and with ALiBi.
 DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
 DQ_WINDOW_LAUNCHES = 0
@@ -56,6 +61,8 @@ DQ_SEGMENT_LAUNCHES = 0
 DKV_SEGMENT_LAUNCHES = 0
 DQ_SOFTCAP_LAUNCHES = 0
 DKV_SOFTCAP_LAUNCHES = 0
+DQ_ALIBI_LAUNCHES = 0
+DKV_ALIBI_LAUNCHES = 0
 
 # Head dims the backward kernels take (the forward's: flash_fwd.HEAD_DIMS).
 HEAD_DIMS = (64, 128, 256)
@@ -77,13 +84,16 @@ def flash_attention_backward_reference(
     window: int | None = None,
     segment_ids=None,
     logit_softcap: float | None = None,
+    alibi: bool = False,
+    alibi_slopes: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the backward kernels (B3, B4 and B5), on any
     device."""
     check_window(window, is_causal)
     segment_ids = check_segments(segment_ids, q, k)
+    slopes = alibi_table(alibi, alibi_slopes, q.shape[1], q.device, check_softcap(logit_softcap))
     return reference_attention_backward(q, k, v, o, do, lse, is_causal, scale,
-                                        pos_offset, window, segment_ids, logit_softcap)
+                                        pos_offset, window, segment_ids, logit_softcap, slopes)
 
 
 def resolve_impl(impl: str, shape: tuple | None = None) -> str:
@@ -119,6 +129,7 @@ def flash_attention_backward(
     window: int | None = None,
     logit_softcap: float | None = None,
     alibi: bool = False,
+    alibi_slopes: torch.Tensor | None = None,
     dyn_pos_offset=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients of flash attention from the forward's O and LSE.
@@ -126,8 +137,9 @@ def flash_attention_backward(
     Args:
       q, o, do: [B, Hq, S_q, D]; k, v: [B, Hkv, S_k, D]; lse: [B, Hq, S_q]
         float32, natural log, as flash_attention_forward returns it.
-      is_causal, scale, pos_offset, window, segment_ids, logit_softcap: as in
-        the forward call that made o and lse.
+      is_causal, scale, pos_offset, window, segment_ids, logit_softcap,
+        alibi, alibi_slopes: as in the forward call that made o and lse
+        (ALiBi with a soft-cap raises ValueError, as there).
       impl: "auto", "fused" or "split" (module docstring; the CPU's plain
         version serves all three).
 
@@ -140,8 +152,6 @@ def flash_attention_backward(
     must be contiguous, 16-byte aligned bf16 or float32 with D in
     HEAD_DIMS, and lse contiguous float32; anything else raises.
     """
-    if alibi:
-        raise unported("ALiBi backward", "A4")
     check_forward_unported(dropout_rate, dyn_pos_offset)
     check_backward_operands(q, k, v, o, do, lse, HEAD_DIMS)
     shape = (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3], is_causal, q.dtype)
@@ -149,66 +159,85 @@ def flash_attention_backward(
     check_window(window, is_causal)
     segment_ids = check_segments(segment_ids, q, k)
     cap = check_softcap(logit_softcap)
+    slopes = alibi_table(alibi, alibi_slopes, q.shape[1], q.device, cap)
+    bias = dict(alibi=slopes is not None, alibi_slopes=slopes)
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, o, do, lse, is_causal, scale,
-                                                  pos_offset, window, segment_ids, cap)
+                                                  pos_offset, window, segment_ids, cap, **bias)
     if impl == "fused":
         return flash_attention_backward_fused(q, k, v, o, do, lse, is_causal, scale,
-                                              pos_offset, window, segment_ids, cap)
+                                              pos_offset, window, segment_ids, cap, **bias)
     dq, delta = flash_bwd_dq(q, k, v, o, do, lse, is_causal, scale, pos_offset, window,
-                             segment_ids, cap)
+                             segment_ids, cap, **bias)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, is_causal, scale, pos_offset, window,
-                           segment_ids, cap)
+                           segment_ids, cap, **bias)
     return dq, dk, dv
 
 
+def _library(slopes) -> str:
+    """The split kernels' library: ALiBi's instantiations are one of their
+    own (csrc/flash_bwd_alibi.cu)."""
+    return "flash_bwd" if slopes is None else "flash_bwd_alibi"
+
+
 def flash_bwd_dq(q, k, v, o, do, lse, is_causal=False, scale=None, pos_offset=None,
-                 window=None, segment_ids=None, logit_softcap=None):
+                 window=None, segment_ids=None, logit_softcap=None, alibi=False,
+                 alibi_slopes=None):
     """B4's port on CUDA operands checked by flash_attention_backward:
     (dQ in q.dtype, delta = rowsum(dO * O) float32 [B, Hq, S_q]);
-    logit_softcap as common.check_softcap returns it."""
+    logit_softcap as common.check_softcap returns it; alibi and alibi_slopes
+    as the forward takes them (flash_fwd.alibi_table)."""
     require_cuda(q)
     segs = kernel_segments(segment_ids)
+    slopes = alibi_table(alibi, alibi_slopes, q.shape[1], q.device, logit_softcap)
     dq = torch.empty_like(q)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    lib = _build.load("flash_bwd")
+    lib = _build.load(_library(slopes))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_bwd_dq_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
-            *launch_args(q, k, is_causal, scale, pos_offset, window, segs, logit_softcap),
+            *launch_args(q, k, is_causal, scale, pos_offset, window, segs, logit_softcap,
+                         slopes),
             stream)
     _build.check(lib, rc, "flash_bwd_dq")
     global DQ_LAUNCHES, DQ_WINDOW_LAUNCHES, DQ_SEGMENT_LAUNCHES, DQ_SOFTCAP_LAUNCHES
+    global DQ_ALIBI_LAUNCHES
     DQ_LAUNCHES += 1
     DQ_WINDOW_LAUNCHES += window is not None
     DQ_SEGMENT_LAUNCHES += segment_ids is not None
     DQ_SOFTCAP_LAUNCHES += logit_softcap is not None
+    DQ_ALIBI_LAUNCHES += slopes is not None
     return dq, delta
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, is_causal=False, scale=None, pos_offset=None,
-                  window=None, segment_ids=None, logit_softcap=None):
+                  window=None, segment_ids=None, logit_softcap=None, alibi=False,
+                  alibi_slopes=None):
     """B5's port on CUDA operands checked by flash_attention_backward, with
-    flash_bwd_dq's delta: (dK, dV) in k.dtype; logit_softcap as
-    common.check_softcap returns it."""
+    flash_bwd_dq's delta: (dK, dV) in k.dtype; logit_softcap, alibi and
+    alibi_slopes as flash_bwd_dq takes them."""
     require_cuda(q)
     segs = kernel_segments(segment_ids)
+    slopes = alibi_table(alibi, alibi_slopes, q.shape[1], q.device, logit_softcap)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lib = _build.load("flash_bwd")
+    lib = _build.load(_library(slopes))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_bwd_dkv_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *launch_args(q, k, is_causal, scale, pos_offset, window, segs, logit_softcap),
+            *launch_args(q, k, is_causal, scale, pos_offset, window, segs, logit_softcap,
+                         slopes),
             stream)
     _build.check(lib, rc, "flash_bwd_dkv")
     global DKV_LAUNCHES, DKV_WINDOW_LAUNCHES, DKV_SEGMENT_LAUNCHES, DKV_SOFTCAP_LAUNCHES
+    global DKV_ALIBI_LAUNCHES
     DKV_LAUNCHES += 1
     DKV_WINDOW_LAUNCHES += window is not None
     DKV_SEGMENT_LAUNCHES += segment_ids is not None
     DKV_SOFTCAP_LAUNCHES += logit_softcap is not None
+    DKV_ALIBI_LAUNCHES += slopes is not None
     return dk, dv

@@ -10,9 +10,11 @@ one kernel per (kv tile, kv head, batch) that computes S, P, dP and dS once
 per tile pair, keeps dK and dV in registers and adds dQ, scale applied,
 with fp32 atomics into a zeroed buffer that one cast turns into dQ. The
 sums land in another order on every run, so dQ is not bitwise reproducible;
-ops/flash_bwd.py's "split" path is. A sliding window, segment ids and a
-logit soft-cap run in the kernel's instantiation for them; a launch with
-one also counts in WINDOW_LAUNCHES, SEGMENT_LAUNCHES or SOFTCAP_LAUNCHES.
+ops/flash_bwd.py's "split" path is. A sliding window, segment ids, a logit
+soft-cap and ALiBi run in the kernel's instantiation for them (ALiBi's in a
+library of their own, csrc/flash_bwd_fused_alibi.cu); a launch with one
+also counts in WINDOW_LAUNCHES, SEGMENT_LAUNCHES, SOFTCAP_LAUNCHES or
+ALIBI_LAUNCHES.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from flashattn_tpu_torch.ops import _build
 from flashattn_tpu_torch.ops.flash_fwd import (
     DTYPE_CODES,
     WINDOW_MAX,
+    alibi_table,
     check_kernel_operands,
     check_qkv,
     kernel_segments,
@@ -31,11 +34,13 @@ from flashattn_tpu_torch.ops.flash_fwd import (
 )
 
 # Kernel launches in this process (set to 0 by callers that count a run):
-# all, with a sliding window, with segment ids, with a logit soft-cap.
+# all, with a sliding window, with segment ids, with a logit soft-cap, with
+# ALiBi.
 LAUNCHES = 0
 WINDOW_LAUNCHES = 0
 SEGMENT_LAUNCHES = 0
 SOFTCAP_LAUNCHES = 0
+ALIBI_LAUNCHES = 0
 
 
 def check_backward_operands(q, k, v, o, do, lse, head_dims: tuple[int, ...]) -> None:
@@ -67,20 +72,20 @@ def require_cuda(q) -> None:
 
 
 def launch_args(q, k, is_causal, scale, pos_offset, window=None, segs=(None,) * 4,
-                cap: float | None = None) -> tuple:
-    """(seg_q, seg_k, ranges_q, ranges_k, B, Hq, Hkv, S_q, S_k, D, dtype
-    code, causal, offset, window, scale, pre, cap_log2), the arguments every
-    backward launch entry point takes after its tensor pointers; segs as
-    flash_fwd.kernel_segments returns them (the caller keeps them alive
-    until the launch has been issued), cap as common.check_softcap returns
-    it, pre and cap_log2 as K1's launcher passes them
-    (flash_fwd.logit_factors)."""
+                cap: float | None = None, slopes: torch.Tensor | None = None) -> tuple:
+    """(seg_q, seg_k, ranges_q, ranges_k, slopes, B, Hq, Hkv, S_q, S_k, D,
+    dtype code, causal, offset, window, scale, pre, cap_log2), the arguments
+    every backward launch entry point takes after its tensor pointers; segs
+    as flash_fwd.kernel_segments returns them and slopes as
+    flash_fwd.alibi_table does (the caller keeps them alive until the launch
+    has been issued), cap as common.check_softcap returns it, pre and
+    cap_log2 as K1's launcher passes them (flash_fwd.logit_factors)."""
     b, hq, s_q, d = q.shape
     hkv, s_k = k.shape[1], k.shape[2]
     if scale is None:
         scale = 1.0 / d**0.5
     offset = s_k - s_q if pos_offset is None else int(pos_offset)
-    return (*pointers(*segs), b, hq, hkv, s_q, s_k, d, DTYPE_CODES[q.dtype],
+    return (*pointers(*segs, slopes), b, hq, hkv, s_q, s_k, d, DTYPE_CODES[q.dtype],
             int(is_causal), offset, min(window or 0, WINDOW_MAX), scale,
             *logit_factors(scale, cap))
 
@@ -98,18 +103,22 @@ def flash_attention_backward_fused(
     window: int | None = None,
     segment_ids=None,
     logit_softcap: float | None = None,
+    alibi: bool = False,
+    alibi_slopes: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """B3's port on CUDA operands checked by flash_attention_backward:
     (dQ in q.dtype, dK and dV in k.dtype); logit_softcap as
-    common.check_softcap returns it."""
+    common.check_softcap returns it; alibi and alibi_slopes as the forward
+    takes them (flash_fwd.alibi_table)."""
     require_cuda(q)
     segs = kernel_segments(segment_ids)
-    args = launch_args(q, k, is_causal, scale, pos_offset, window, segs, logit_softcap)
+    slopes = alibi_table(alibi, alibi_slopes, q.shape[1], q.device, logit_softcap)
+    args = launch_args(q, k, is_causal, scale, pos_offset, window, segs, logit_softcap, slopes)
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    lib = _build.load("flash_bwd_fused")
+    lib = _build.load("flash_bwd_fused" if slopes is None else "flash_bwd_fused_alibi")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_bwd_fused_launch(
@@ -117,9 +126,10 @@ def flash_attention_backward_fused(
             lse.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             delta.data_ptr(), *args, stream)
     _build.check(lib, rc, "flash_bwd_fused")
-    global LAUNCHES, WINDOW_LAUNCHES, SEGMENT_LAUNCHES, SOFTCAP_LAUNCHES
+    global LAUNCHES, WINDOW_LAUNCHES, SEGMENT_LAUNCHES, SOFTCAP_LAUNCHES, ALIBI_LAUNCHES
     LAUNCHES += 1
     WINDOW_LAUNCHES += window is not None
     SEGMENT_LAUNCHES += segment_ids is not None
     SOFTCAP_LAUNCHES += logit_softcap is not None
+    ALIBI_LAUNCHES += slopes is not None
     return dq_acc.to(q.dtype), dk, dv

@@ -27,13 +27,14 @@ from flashattn_tpu_torch.ops.reference import reference_attention_with_lse
 
 # Kernel launches in this process (set to 0 by callers that count a run):
 # all of them, those with a sliding window, those with segment ids, those
-# with a logit soft-cap and those with ALiBi (a launch counts in each that
-# applies).
+# with a logit soft-cap, those with ALiBi and those with ALiBi and segment
+# ids (a launch counts in each that applies).
 LAUNCHES = 0
 WINDOW_LAUNCHES = 0
 SEGMENT_LAUNCHES = 0
 SOFTCAP_LAUNCHES = 0
 ALIBI_LAUNCHES = 0
+ALIBI_SEGMENT_LAUNCHES = 0
 
 # Head dims K1, K2 and the backward kernels take.
 HEAD_DIMS = (64, 128, 256)
@@ -235,8 +236,9 @@ def flash_attention_forward(
       logit_softcap: cap * tanh(s / cap) on the scaled logits s, before
         any mask (Gemma-2); None or 0 is off.
       alibi: add slope_h * (c - r - pos_offset) to the scaled logits
-        (ALiBi), h the query head; with `window` too, not with segment ids
-        (ROADMAP A4) nor a soft-cap (ValueError).
+        (ALiBi), h the query head; with `window` and `segment_ids` too
+        (packed documents: the global positions' distance, which within a
+        document is its own), not with a soft-cap (ValueError).
       alibi_slopes: the (Hq,) slopes; None takes default_alibi_slopes.
 
     Returns:
@@ -253,8 +255,6 @@ def flash_attention_forward(
     check_window(window, is_causal)
     segment_ids = check_segments(segment_ids, q, k)
     cap = check_softcap(logit_softcap)
-    if alibi and segment_ids is not None:
-        raise unported("ALiBi with segment ids", "A4")
     if q.device.type == "cpu":
         return flash_attention_forward_reference(q, k, v, is_causal, scale, pos_offset,
                                                  need_lse, window, segment_ids, cap, alibi,
@@ -284,11 +284,13 @@ def flash_attention_forward(
             offset, min(window or 0, WINDOW_MAX), pre, cap_log2, stream)
     _build.check(lib, rc, "flash_fwd")
     global LAUNCHES, WINDOW_LAUNCHES, SEGMENT_LAUNCHES, SOFTCAP_LAUNCHES, ALIBI_LAUNCHES
+    global ALIBI_SEGMENT_LAUNCHES
     LAUNCHES += 1
     WINDOW_LAUNCHES += window is not None
     SEGMENT_LAUNCHES += segment_ids is not None
     SOFTCAP_LAUNCHES += cap is not None
     ALIBI_LAUNCHES += slopes is not None
+    ALIBI_SEGMENT_LAUNCHES += slopes is not None and segment_ids is not None
     return o, lse
 
 

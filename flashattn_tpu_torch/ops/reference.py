@@ -149,6 +149,7 @@ def reference_attention_backward(
     window: int | None = None,
     segment_ids=None,
     logit_softcap: float | None = None,
+    alibi_slopes: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Attention gradients from the forward's O and LSE, computed the
     backward kernels' way (a plain version of all three at once):
@@ -161,7 +162,10 @@ def reference_attention_backward(
     soft-cap the logit is cap*t for t = tanh(S*scale/cap), P = exp(cap*t -
     LSE), and dS takes the tanh's derivative, times 1 - t^2 (computed as
     (1 - t)(1 + t)); dQ and dK keep the factor scale, since
-    d(cap*tanh(x*scale/cap))/dx = scale*(1 - t^2). P and dS are rounded to
+    d(cap*tanh(x*scale/cap))/dx = scale*(1 - t^2). With alibi_slopes (Hq,)
+    the logit also takes alibi_bias, as reference_attention_with_lse adds
+    it; the bias has no gradient, so dS, dQ, dK and dV keep their formulas.
+    P and dS are rounded to
     the input dtype before the products that consume them, as the kernels
     feed their matrix units. A row whose LSE is -inf (it sees no key)
     contributes exactly 0.
@@ -191,6 +195,8 @@ def reference_attention_backward(
         if cap is not None:
             t = torch.tanh(s / cap)
             s = cap * t
+        if alibi_slopes is not None:
+            s = s + alibi_bias(alibi_slopes[heads], s_q, s_k, pos_offset)
         p = torch.where(live, torch.exp(s - lse_h.masked_fill(~torch.isfinite(lse_h), 0.0)),
                         0.0)
         del s, live

@@ -16,7 +16,6 @@ from __future__ import annotations
 import torch
 
 from flashattn_tpu_torch.ops.attention import flash_attention
-from flashattn_tpu_torch.ops.common import unported
 
 
 def segment_ids_from_cu_seqlens(cu_seqlens: torch.Tensor, total_len: int) -> torch.Tensor:
@@ -71,12 +70,15 @@ def flash_attention_varlen(
         document's.
       logit_softcap: cap * tanh(s / cap) on the scaled logits, before the
         mask (Gemma-2), in the forward and the backward.
+      alibi, alibi_slopes: ALiBi (as flash_attention takes them; None
+        slopes take the standard table), in the forward and the backward.
+        The bias slope_h * (k_pos - q_pos) uses the global packed positions:
+        it depends only on their difference, so within a document it is the
+        document's own bias, and pairs of two documents are masked by the
+        ids.
 
-    Fully padded rows get O = 0 and gradients 0. ALiBi is not ported
-    (ROADMAP A4) and raises.
+    Fully padded rows get O = 0 and gradients 0.
     """
-    if alibi or alibi_slopes is not None:
-        raise unported("ALiBi", "A4")
     if (segment_ids is None) == (cu_seqlens is None):
         raise ValueError("pass exactly one of segment_ids / cu_seqlens")
     if cu_seqlens is not None:
@@ -89,4 +91,5 @@ def flash_attention_varlen(
         seg_q = seg_k = segment_ids
     segs = canonical_segments(seg_q, seg_k, q.device)
     return flash_attention(q, k, v, is_causal=is_causal, scale=scale, window=window,
-                           segment_ids=segs, logit_softcap=logit_softcap)
+                           segment_ids=segs, logit_softcap=logit_softcap, alibi=alibi,
+                           alibi_slopes=alibi_slopes)

@@ -148,7 +148,9 @@ def attention_fwd_roofline(
     head sees (window_pairs, segment_pairs). A logit soft-cap adds nothing
     to the count: its tanh, like the exponentials, runs beside the products
     on the special-function units, so the bound stays the products' and the
-    bytes' (decode_roofline too). Any head dim (64 to 256) counts alike."""
+    bytes' (decode_roofline too). Nor does ALiBi: it masks no pair, and its
+    bias is FMAs beside the products; its (Hq,) slope table, 4 Hq bytes, is
+    left out of the bytes. Any head dim (64 to 256) counts alike."""
     q_bytes = b * hq * s_q * d * dtype_bytes
     kv_bytes = 2 * b * hkv * s_k * d * dtype_bytes
     lse_bytes = 4 * b * hq * s_q if need_lse else 0
@@ -180,8 +182,9 @@ def attention_bwd_roofline(
     sees under a window or segment ids). A logit soft-cap adds nothing, as
     in the forward: its tanh and the derivative's (1 - t)(1 + t) run beside
     the products, on the special-function units and the FMA pipes, so the
-    bound stays the products' and the bytes'; any head dim (64 to 256)
-    counts alike. Bytes: every operand the kernel reads once (the segment
+    bound stays the products' and the bytes'; nor does ALiBi, as in the
+    forward (the bias has no gradient); any head dim (64 to 256) counts
+    alike. Bytes: every operand the kernel reads once (the segment
     ids too), every result written once."""
     if kernel not in _BWD_KERNELS:
         raise ValueError(f"kernel must be one of {sorted(_BWD_KERNELS)}: {kernel!r}")

@@ -35,7 +35,11 @@ where the package has ALiBi (ops/flash_fwd.py's ALIBI_LAUNCHES), K1 with
 ALiBi at the prefill bucket and at LLAMA_8B's heads over a 4,608-token
 prefill (B 1, Hq 32, Hkv 8, D 128, no LSE), K2 with ALiBi at the decode
 step on bf16 and int8 caches at T 1 and the int8 cache at T 256, the
-paged K2 with ALiBi on the int8 pool at T 1. Prints the card's name and power limit, then one JSON line of
+paged K2 with ALiBi on the int8 pool at T 1; and, where the backward
+kernels take ALiBi (ops/flash_bwd.py's DQ_ALIBI_LAUNCHES), LLAMA_8B's
+training rows with ALiBi (B 1, Hq 32, Hkv 8, D 128): K1 with the LSE and
+B3, B4 and B5 on the packed row (S 8192, the packed row's documents) and
+B3, B4 and B5 on the unpacked row of 4,096 tokens. Prints the card's name and power limit, then one JSON line of
 milliseconds. It calls nothing but the public functions, so run as a file
 with another checkout of the package first on PYTHONPATH,
 
@@ -43,7 +47,8 @@ with another checkout of the package first on PYTHONPATH,
 
 it times that checkout's kernels: two versions compared in turns on one
 card. `--only k1,backward` times those groups alone (decode, qmm, k1,
-backward, window, packed, softcap, gemma_packed, alibi). Needs a CUDA device.
+backward, window, packed, softcap, gemma_packed, alibi, alibi_train). Needs
+a CUDA device.
 """
 
 from __future__ import annotations
@@ -75,7 +80,7 @@ WIN, SINK = 4096, 4
 K1_WINDOW = (1, 32, 8, 4608, 128)  # B, Hq, Hkv, S, D
 WIN_B, WIN_HKV, WIN_SMAX = 4, 8, 8192
 GROUPS = ("decode", "qmm", "k1", "backward", "window", "packed", "softcap", "gemma_packed",
-          "alibi")
+          "alibi", "alibi_train")
 # GEMMA2_9B's rows: its prefill (B, Hq, Hkv, S, D) and its decode step.
 CAP = 50.0
 K1_GEMMA = (1, 16, 8, 4608, 256)
@@ -145,6 +150,8 @@ def main() -> None:
         ms.update(gemma_packed(gen))
     if "alibi" in only and hasattr(flash_fwd, "ALIBI_LAUNCHES"):
         ms.update(alibi(gen))
+    if "alibi_train" in only and hasattr(flash_bwd, "DQ_ALIBI_LAUNCHES"):
+        ms.update(alibi_train(gen))
     print(json.dumps({"tag": args.tag, "ms": ms}))
 
 
@@ -192,8 +199,8 @@ def k1_rows(gen: torch.Generator) -> dict[str, float]:
 
 def backward(gen: torch.Generator, shape, tag: str, **opts) -> dict[str, float]:
     """B3, B4 and B5 (causal) at shape (B, Hq, Hkv, S, D) with the forward's
-    O and LSE, and the options (window, segment_ids, logit_softcap) of both;
-    K1 with the LSE too where there are segment ids."""
+    O and LSE, and the options (window, segment_ids, logit_softcap, alibi)
+    of both; K1 with the LSE too where there are segment ids."""
     b, hq, hkv, s, d = shape
     q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device="cuda", dtype=torch.bfloat16)
                    for h in (hq, hkv, hkv, hq))
@@ -333,6 +340,15 @@ def alibi(gen: torch.Generator) -> dict[str, float]:
     pool = pool_of(cache)
     ms["paged_decode_int8_alibi"] = cuda_time_ms(
         lambda: paged.paged_decode_attention(qd, pool, alibi=True))
+    return ms
+
+
+def alibi_train(gen: torch.Generator) -> dict[str, float]:
+    """LLAMA_8B's training rows with ALiBi (module docstring)."""
+    b, hq, hkv, _, d = K1_WINDOW
+    ms = backward(gen, (b, hq, hkv, PACK_S, d), "alibi_packed", segment_ids=packed_ids(),
+                  alibi=True)
+    ms.update(backward(gen, (b, hq, hkv, 4096, d), "alibi_s4096", alibi=True))
     return ms
 
 

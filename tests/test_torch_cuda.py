@@ -41,7 +41,13 @@ tiny Gemma-2 model's loss gradients on the card match the CPU's. K1 and K2
 window, S_q != S_k, rows without keys, one steep head over 16,384 keys and
 over an int8 cache of 2,048; paged equal to dense bit for bit), K2 writes
 the rows' LSE (merged or from one slice; -inf for an empty slot), and a
-tiny ALiBi model on the card matches the CPU and captures its step.
+tiny ALiBi model on the card matches the CPU and captures its step. The
+backward kernels take ALiBi (D 64, 128 and 256; no mask, a window, segment
+ids with and without a window, GQA, S_q != S_k with a pos_offset, rows
+without keys, one steep head over 4,096 keys; bf16 and float32, fused and
+split), K1 takes ALiBi with segment ids, the split path is bitwise equal
+with ALiBi, gradients through flash_attention and varlen with ALiBi run
+them, and a tiny ALiBi model's loss gradients on the card match the CPU's.
 
 These tests need a CUDA device and skip without one. On the card:
 
@@ -2184,3 +2190,163 @@ def test_alibi_model_on_card_matches_cpu_and_captures(dev):
     got = graph(token.pin_memory(), pos.pin_memory(), active.pin_memory())
     torch.cuda.synchronize()
     assert torch.equal(got, step)
+
+
+# ---- ALiBi in the backward kernels (B3, B4, B5) and with segment ids in K1 ----
+
+ALIBI_BWD_CASES = {
+    # name: (Hq, Hkv, S_q, S_k, D, window, documents, pos_offset, slopes)
+    "d64_causal": (8, 2, 700, 700, 64, None, None, None, None),
+    "d64_window65_segments": (8, 2, 700, 700, 64, 65, [300, 37, 250], None, None),
+    "d64_sq_below_sk_offset": (8, 2, 300, 700, 64, None, None, 500, None),
+    "d64_no_key_rows": (4, 2, 256, 256, 64, None, None, -70, None),
+    "d128_segments": (8, 2, 700, 700, 128, None, [300, 37, 250], None, None),
+    "d128_window100_gqa": (8, 1, 515, 515, 128, 100, None, None, None),
+    "d128_steep_s4096": (1, 1, 4096, 4096, 128, None, None, None, STEEP),
+    "d256_causal": (4, 2, 700, 700, 256, None, None, None, None),
+    "d256_window129_segments": (4, 2, 700, 700, 256, 129, [300, 37, 250], None, None),
+    "d256_sq_below_sk_offset_w200": (4, 2, 130, 700, 256, 200, None, 400, None),
+}
+
+
+def alibi_bwd_inputs(case, dtype, dev):
+    """(q, k, v, do) and the call's options; O and LSE come from K1."""
+    hq, hkv, s_q, s_k, d, w, docs, off, slopes = ALIBI_BWD_CASES[case]
+    q = randn((1, hq, s_q, d), dtype, dev, 221)
+    do = randn((1, hq, s_q, d), dtype, dev, 222)
+    k, v = (randn((1, hkv, s_k, d), dtype, dev, seed) for seed in (223, 224))
+    seg = segments(docs, s_q, dev) if docs is not None else None
+    return (q, k, v, do), dict(is_causal=True, window=w, segment_ids=seg, pos_offset=off,
+                               alibi=True,
+                               alibi_slopes=None if slopes is None else torch.tensor(
+                                   slopes, device=dev))
+
+
+def alibi_launches():
+    c = launch_counters.read()
+    return {n: c[n] for n in ("flash_fwd_alibi", "flash_fwd_alibi_segments",
+                              "flash_bwd_fused_alibi", "flash_bwd_dq_alibi",
+                              "flash_bwd_dkv_alibi")}
+
+
+@pytest.mark.parametrize("impl", ["fused", "split"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", sorted(ALIBI_BWD_CASES))
+def test_alibi_backward_kernels_match_plain(dev, impl, dtype, case):
+    """K1 with ALiBi (with the LSE; with segment ids where the case has
+    documents), then B3 (fused) or B4 + B5 (split) with ALiBi at D 64, 128
+    and 256 against their plain versions: no mask, a window, segment ids
+    (documents off the tiles, padding) with and without a window, GQA,
+    S_q != S_k with a pos_offset, rows that see no key, and one steep head
+    (0.84 a position) over 4,096 keys; the ALiBi launches counted; rows
+    without keys get dQ = 0, padding's outputs and gradients exactly 0."""
+    (q, k, v, do), kw = alibi_bwd_inputs(case, dtype, dev)
+    seg = kw["segment_ids"] is not None
+    before = alibi_launches()
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, **kw)
+    o_ref, lse_ref = flash_fwd.flash_attention_forward_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    rep = verify_results(o_ref, o, **TOL[dtype])
+    assert rep.passed, f"O: {rep}"
+    assert verify_results(lse_ref, lse, atol=1e-3).passed
+    out = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, impl=impl, **kw)
+    torch.cuda.synchronize()
+    added = {n: c - before[n] for n, c in alibi_launches().items()}
+    assert added == {"flash_fwd_alibi": 1, "flash_fwd_alibi_segments": int(seg),
+                     "flash_bwd_fused_alibi": int(impl == "fused"),
+                     "flash_bwd_dq_alibi": int(impl == "split"),
+                     "flash_bwd_dkv_alibi": int(impl == "split")}
+    ref = flash_bwd.flash_attention_backward_reference(q, k, v, o, do, lse, **kw)
+    assert_grads_match(ref, out, dtype)
+    dead = torch.isneginf(lse)
+    assert torch.equal(dead, torch.isneginf(lse_ref))
+    assert not bool(out[0][dead].any())
+    if seg:
+        pad = kw["segment_ids"][0][0] < 0
+        assert not bool(o[:, :, pad].any())
+        assert all(not bool(g[:, :, pad].any()) for g in out)
+
+
+@pytest.mark.parametrize("case", ["d64_window65_segments", "d256_window129_segments",
+                                  "d128_steep_s4096"])
+def test_split_is_bitwise_deterministic_with_alibi(dev, case):
+    (q, k, v, do), kw = alibi_bwd_inputs(case, torch.bfloat16, dev)
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, **kw)
+    first = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, impl="split", **kw)
+    second = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, impl="split", **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_alibi_gradients_run_the_kernels(dev):
+    """A gradient through flash_attention with ALiBi (formerly refused) runs
+    K1 and the fused kernel with ALiBi and matches the plain route; varlen
+    with ALiBi and segment ids runs K1 with both and the backward with the
+    ids; ALiBi with a cap still raises."""
+    from flashattn_tpu_torch.ops.varlen import flash_attention_varlen
+
+    leaves = [randn((1, h, 400, 128), torch.bfloat16, dev, 230 + i).requires_grad_()
+              for i, h in enumerate((8, 2, 2))]
+    do = randn((1, 8, 400, 128), torch.bfloat16, dev, 233)
+    ids = segments([150, 37, 200], 400, dev)[0]
+    for route in ("dense", "varlen"):
+        before = launch_counters.read()
+        if route == "dense":
+            o = flash_attention(*leaves, is_causal=True, alibi=True, window=100)
+            seg = None
+        else:
+            o = flash_attention_varlen(*leaves, segment_ids=ids, is_causal=True, alibi=True)
+            seg = (ids, torch.where(ids < 0, -2, ids).to(torch.int32))
+        got = torch.autograd.grad(o, leaves, do)
+        added = {n: c - before[n] for n, c in launch_counters.read().items() if c != before[n]}
+        extra = ("window" if route == "dense" else "segments")
+        want = {n: 1 for n in ("flash_fwd", "flash_fwd_alibi", f"flash_fwd_{extra}",
+                               "flash_bwd_fused", "flash_bwd_fused_alibi",
+                               f"flash_bwd_fused_{extra}")}
+        if route == "varlen":
+            want["flash_fwd_alibi_segments"] = 1
+        assert added == want, added
+        o_ref = plain_flash_attention(*leaves, is_causal=True, alibi=True,
+                                      window=100 if route == "dense" else None, segment_ids=seg)
+        want_grads = torch.autograd.grad(o_ref, leaves, do)
+        assert verify_results(o_ref, o, **TOL[torch.bfloat16]).passed
+        assert_grads_match(want_grads, got, torch.bfloat16)
+    with pytest.raises(ValueError, match="pick one"):
+        flash_attention(*leaves, is_causal=True, alibi=True, logit_softcap=30.0)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_tiny_alibi_model_trains_on_card_like_cpu(dev, packed):
+    """A float32 ALiBi model (RoPE off; D 64, GQA 8/2): loss_fn and its
+    gradients, unpacked and on a packed row, through K1 and the backward
+    kernels with ALiBi, split and fused, against the plain versions on the
+    CPU; loss within 1e-4, gradients atol 1e-3, rtol 1e-3 (float32 kernels:
+    exp2 against exp and sums in another order, through 2 layers)."""
+    cfg = ModelConfig(**dict(SMALL, use_alibi=True, dtype=torch.float32, num_layers=2))
+    cpu = llama.init_params(cfg, torch.Generator().manual_seed(12), device="cpu")
+    card = llama.Llama(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.randint(0, cfg.vocab_size, (1, 97),
+                           generator=torch.Generator().manual_seed(13))
+    ids = None
+    if packed:
+        ids = torch.full((1, 97), -1, dtype=torch.int32)
+        ids[0, :40], ids[0, 40:90] = 0, 1
+    cpu.zero_grad()
+    want = llama.loss_fn(cpu, tokens, segment_ids=ids)
+    want.backward()
+    for impl in ("fused", "split"):
+        card.zero_grad()
+        before = launch_counters.read()
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv(flash_bwd.IMPL_ENV, impl)
+            got = llama.loss_fn(card, tokens.to(dev),
+                                segment_ids=None if ids is None else ids.to(dev))
+            got.backward()
+        added = {n: c - before[n] for n, c in launch_counters.read().items() if c != before[n]}
+        kernels = ["flash_bwd_fused"] if impl == "fused" else ["flash_bwd_dq", "flash_bwd_dkv"]
+        assert all(added[f"{k}_alibi"] == cfg.num_layers for k in ["flash_fwd", *kernels])
+        assert added.get("flash_fwd_alibi_segments", 0) == cfg.num_layers * packed
+        assert abs(float(got) - float(want)) <= 1e-4
+        for (name, p), q in zip(card.named_parameters(), cpu.parameters()):
+            rep = verify_results(q.grad, p.grad.cpu(), atol=1e-3, rtol=1e-3)
+            assert rep.passed, f"{impl} grad {name}: {rep}"

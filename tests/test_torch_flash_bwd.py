@@ -146,11 +146,13 @@ def test_impl_choice_and_env_override(monkeypatch):
 
 @pytest.mark.parametrize("option", [
     dict(dropout_rate=0.1, segment_ids=(0, 0)), dict(dropout_rate=0.1),
-    dict(alibi=True, logit_softcap=30.0), dict(alibi=True), dict(dyn_pos_offset=0),
+    dict(alibi=True, logit_softcap=30.0, dropout_rate=0.1), dict(alibi=True, dyn_pos_offset=0),
+    dict(dyn_pos_offset=0),
 ])
 def test_unported_options_raise(option):
-    """Dropout, ALiBi and dyn_pos_offset raise (ROADMAP A4), also beside
-    the window, segment ids and the soft-cap, which are ported."""
+    """Dropout and dyn_pos_offset raise (ROADMAP A4), also beside the
+    window, segment ids, the soft-cap and ALiBi, which are ported (ALiBi:
+    tests/test_torch_alibi_bwd.py)."""
     arrays = [torch.from_numpy(a) for a in make_inputs(2, 1, 8, 8, False, None, d=8)]
     with pytest.raises(NotImplementedError, match="ROADMAP A4"):
         flash_bwd.flash_attention_backward(*arrays, **option)

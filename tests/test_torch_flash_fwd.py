@@ -101,13 +101,13 @@ def test_reference_matches_jax_oracle():
 @pytest.mark.parametrize("option", [
     # The window and segment ids are ported (tests/test_torch_window.py,
     # tests/test_torch_varlen.py), and so are the soft-cap
-    # (tests/test_torch_softcap.py) and ALiBi (tests/test_torch_alibi.py);
-    # dropout and dyn_pos_offset still raise beside them, and so does ALiBi
-    # with segment ids.
+    # (tests/test_torch_softcap.py) and ALiBi, with segment ids too
+    # (tests/test_torch_alibi.py, tests/test_torch_alibi_bwd.py); dropout
+    # and dyn_pos_offset still raise beside them.
     dict(segment_ids=(0, 0), dropout_rate=0.1), dict(dropout_rate=0.1),
     dict(window=16, alibi=True, dropout_rate=0.1),
     dict(logit_softcap=30.0, dropout_rate=0.1), dict(alibi=True, dyn_pos_offset=0),
-    dict(dyn_pos_offset=0), dict(alibi=True, segment_ids="ids"),
+    dict(dyn_pos_offset=0), dict(alibi=True, segment_ids="ids", dropout_rate=0.1),
 ])
 def test_unported_options_raise(option):
     q, k, v = (torch.from_numpy(a) for a in make_qkv(2, 1, 8, 8, d=8))

@@ -1,9 +1,10 @@
 """Packed documents (segment ids, cu_seqlens) through the port's
 flash_attention_varlen (the kernels' plain versions on the CPU) against the
 JAX package's flash_attention_varlen (its kernels in interpret mode), on
-the same numpy inputs: tests/test_varlen.py but its ALiBi case (not
-ported: it raises, ROADMAP A4), plus the window with segment ids, a
-(seg_q, seg_k) pair with S_q != S_k, and the ids' canonical padding.
+the same numpy inputs: tests/test_varlen.py (its ALiBi case with the
+gradients in tests/test_torch_alibi_bwd.py), plus the window with segment
+ids, a (seg_q, seg_k) pair with S_q != S_k, and the ids' canonical
+padding.
 
 Tolerances: float32 atol 1e-5, rtol 1e-5 (tests/test_varlen.py's gate);
 bf16 atol 2e-2, rtol 2e-2 against the float32 unpacked oracle, as there.
@@ -206,12 +207,27 @@ def test_padding_ids_are_canonical():
 
 
 def test_unported_options_raise():
-    q = torch.zeros((1, 2, 8, 16))
+    """ALiBi is ported in varlen attention, its gradient too; slopes
+    without alibi and ALiBi with a cap raise ValueError, and the backward's
+    dyn_pos_offset beside ALiBi and segment ids still raises naming
+    ROADMAP A4; nothing launches on the CPU."""
+    q = torch.zeros((1, 2, 8, 16), requires_grad=True)
     ids = torch.zeros((1, 8), dtype=torch.int32)
     before = launches.read()
-    for kw in (dict(alibi=True), dict(alibi_slopes=torch.ones(2))):
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-            flash_attention_varlen(q, q, q, segment_ids=ids, is_causal=True, **kw)
+    o = flash_attention_varlen(q, q, q, segment_ids=ids, is_causal=True, alibi=True)
+    (grad,) = torch.autograd.grad(o.sum(), q)
+    assert bool(torch.isfinite(grad).all())
+    with pytest.raises(ValueError, match="needs alibi=True"):
+        flash_attention_varlen(q, q, q, segment_ids=ids, is_causal=True,
+                               alibi_slopes=torch.ones(2))
+    with pytest.raises(ValueError, match="pick one"):
+        flash_attention_varlen(q, q, q, segment_ids=ids, is_causal=True, alibi=True,
+                               logit_softcap=30.0)
+    from flashattn_tpu_torch.ops import flash_bwd
+    x = q.detach()
+    with pytest.raises(NotImplementedError, match="dyn_pos_offset.*ROADMAP A4"):
+        flash_bwd.flash_attention_backward(x, x, x, x, x, x[..., 0], segment_ids=(ids, ids),
+                                           alibi=True, dyn_pos_offset=0)
     assert launches.read() == before
 
 
