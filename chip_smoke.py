@@ -4,8 +4,8 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the eight CUDA libraries from csrc/ (into build/flashattn_tpu_torch/,
-one nvcc each, all at once) and runs eighteen phases, printing one line per
+Builds the eleven CUDA libraries from csrc/ (into build/flashattn_tpu_torch/,
+one nvcc each, all at once) and runs nineteen phases, printing one line per
 check and each phase's seconds, then the kernels line:
 
 1. environment: torch/CUDA versions, the card's name and power limit, the
@@ -15,10 +15,12 @@ check and each phase's seconds, then the kernels line:
    tensor-core kernel, which must be there for K1's bf16 kernel (HGMMA, at
    D 64, 128 and 256, with and without a window, segment ids and the
    soft-cap, or ALiBi with and without a window and segment ids, its 28
-   D 256, soft-cap and ALiBi instantiations named), the
+   D 256, soft-cap and ALiBi instantiations named; each again with
+   dropout in a library of its own, the 36 named), the
    bf16 fused, dQ and dK/dV kernels (D 64, 128 and 256, with and without
    the window, segment ids and the soft-cap, or with ALiBi in libraries of
-   their own, their 63 D 256, soft-cap and ALiBi instantiations named),
+   their own, their 63 D 256, soft-cap and ALiBi instantiations named; each
+   again with dropout in libraries of their own, the 81 named),
    qmm8's and qmm4's M > 16 kernels and every
    instantiation of K2's (D 64, 128 and 256, with and without a window, with
    and without ALiBi: the ALiBi ones in a library of their own);
@@ -253,7 +255,32 @@ check and each phase's seconds, then the kernels line:
    with ALiBi), the loss falling; (b) all 32 layers at B 1, S 4096,
    unpacked, remat="attn", 5 sgd_train_steps, finite and falling losses,
    ms a step, tokens/s and peak memory printed;
-19. the `kernels` JSON line: every kernel with its launches on the path that
+19. flash attention with dropout (phase_dropout): (a) each kernel's keep
+   mask read out of its outputs (utils/dropout_readout.py: q = 0 makes P
+   uniform, one-hot V, K or dO) against the plain dropout_keep_mask on the
+   card, zero mismatches, in bf16 and float32, D 64, 128 and 256, GQA
+   32/4, rates 0.1 and 0.5, seeds -7, 0 and 2^31 - 1, 1,024 keys; K1's
+   keep fraction on a 4096 x 4096 tile within 5e-3 of 1 - rate; (b) K1, B3
+   and B4 + B5 with dropout 0.1 against their plain versions on the same
+   mask at LLAMA_1B's training attention (B 4, Hq 32, Hkv 4, S 2048, D 64,
+   causal) and on the packed rows of MISTRAL_7B (window 4096, segment
+   ids), GEMMA2_9B (D 256, cap 50) and LLAMA_8B with ALiBi; (c) rate 0
+   equal to the call without dropout bit for bit, the LSE with dropout
+   the LSE without it, a seed tensor on the card the int seed's bits; the
+   main path, flash_attention(..., dropout_rate=0.1, dropout_seed=seed)
+   and its gradients at the source's headline shape (B 4, H 8, S 16384,
+   D 128, causal, bf16) on the fused and the split backward, the seed a
+   CUDA tensor stepped as a trainer would: K1's O and the split and fused
+   dQ against the plain forward and backward on three 256-row slices of
+   every head, K1's O and the split and fused dQ, dK and dV of batch 0,
+   head 0 (all 16,384 rows and keys) against the plain versions, the
+   fused gradients against the split ones, one seed's O and split
+   gradients bitwise equal twice, the next seed's O another; every launch
+   counted; (d) K1, B3, B4 and B5 with dropout timed at the training
+   attention and the headline shape beside the same kernels without
+   dropout, the plain route (training shape), SDPA with dropout_p
+   (Philox's mask: timed only) and the bound;
+20. the `kernels` JSON line: every kernel with its launches on the path that
    runs it, its error against its plain version, its time, bound, plain and
    library times (the windowed K1, K2 and paged K2 from phases 2 and 9, the
    windowed and segmented K1, B3, B4 and B5 from phases 2 and 10, the
@@ -265,7 +292,9 @@ check and each phase's seconds, then the kernels line:
    (bf16 and int8) and paged K2 from phases 2 and 17; K2 with the LSE from
    phase 2, its launches those of the sequence-split decode; K1 with ALiBi
    and segment ids and B3, B4 and B5 with ALiBi from phases 2 and 18, timed
-   at LLAMA_8B's packed row).
+   at LLAMA_8B's packed row; K1, B3, B4 and B5 with dropout from phase 19,
+   timed at LLAMA_1B's training attention, their launches the headline
+   path's).
 
 Any failed check raises: the script then exits nonzero and does not print
 its last line. It needs a CUDA device and never falls back to the CPU. The
@@ -303,20 +332,22 @@ from flashattn_tpu_torch.models.sampling import SamplingParams
 from flashattn_tpu_torch.models.serve import InferenceServer, Request
 from flashattn_tpu_torch.models.speculate import speculative_generate
 from flashattn_tpu_torch.ops import (_build, autotune, decode, flash_bwd, flash_bwd_fused,
-                                     flash_fwd, kvcache, paged, quant_matmul, varlen)
+                                     flash_fwd, kvcache, paged, quant_matmul, reference,
+                                     varlen)
 from flashattn_tpu_torch.ops import launches as launch_counters
-from flashattn_tpu_torch.ops.attention import plain_flash_attention
+from flashattn_tpu_torch.ops.attention import flash_attention, plain_flash_attention
 from flashattn_tpu_torch.ops.common import round_up
 from flashattn_tpu_torch.ops.kvcache import KVCache
 from flashattn_tpu_torch.ops.reference import visible
 from flashattn_tpu_torch.parallel import moe
-from flashattn_tpu_torch.utils import profile_train, roofline
+from flashattn_tpu_torch.utils import dropout_readout, profile_train, roofline, sass
 from flashattn_tpu_torch.utils.timing import cuda_time_ms
 from flashattn_tpu_torch.utils.verify import verify_results
 
 SEED = 0
 LIBRARIES = ("flash_fwd", "decode", "decode_alibi", "flash_bwd", "flash_bwd_alibi",
-             "flash_bwd_fused", "flash_bwd_fused_alibi", "quant_matmul")
+             "flash_bwd_fused", "flash_bwd_fused_alibi", "quant_matmul", "flash_fwd_dropout",
+             "flash_bwd_dropout", "flash_bwd_fused_dropout")
 O_ATOL = 2e-2  # bf16 outputs against the fp32 plain version
 LSE_ATOL = 1e-2
 GRAD_TOL = {  # gradients against the plain version on the same inputs
@@ -377,7 +408,7 @@ def phase_environment() -> str:
             check("wgmma.mma_async instructions are serialized" not in line,
                   f"{lib}: {line.strip()}")
             if entry:
-                kernel = kernel_label(entry.group(1))
+                kernel = sass.kernel_label(entry.group(1))
             elif "registers" in line or "spill" in line:
                 print(f"[env] ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
                 if "spill" in line and ("mma_kernel" in kernel
@@ -391,81 +422,57 @@ def phase_environment() -> str:
                 print(f"[env] SASS {kernel}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA, "
                       f"{n['IMMA']} IMMA")
                 mma[kernel] = n
-    families = {"flash_fwd_wgmma_kernel": 36, "flash_bwd": 81, "qmm_mma_kernel": 4,
+    families = {"flash_fwd_wgmma_kernel": 72, "flash_bwd": 162, "qmm_mma_kernel": 4,
                 "decode_mma_kernel": 120}
     counted = {f: sum(k.startswith(f) for k in mma) for f in families}
     check(counted == families and all(sum(n.values()) for n in mma.values()),
           "K1's bf16 kernel (D 64, 128 and 256, with and without a window, segment ids and "
-          "the soft-cap, or ALiBi with and without a window and segment ids), the bf16 fused, "
+          "the soft-cap, or ALiBi with and without a window and segment ids; each with and "
+          "without dropout), the bf16 fused, "
           "dQ and dK/dV kernels (D 64, 128 and 256; no mask, "
-          "the window, segment ids; with and without the soft-cap, or with ALiBi), qmm8's and "
-          "qmm4's "
+          "the window, segment ids; with and without the soft-cap, or with ALiBi; each with "
+          "and without dropout), qmm8's and qmm4's "
           "M > 16 kernels (bf16 and float32 y) and every K2 tensor-core instantiation (bf16, "
           "int8 and fp8 caches, D 64, 128 and 256, both row layouts, with and without a "
           f"window, and ALiBi's) must run on the tensor cores: {mma}")
     check(all(n["HGMMA"] for k, n in mma.items() if k.startswith("flash_fwd_wgmma_kernel")),
           f"K1's bf16 kernel must run on wgmma (HGMMA): {mma}")
-    # K1's template arguments: D, consumers, window, segment ids, soft-cap, ALiBi.
+    # K1's template arguments: D, consumers, window, segment ids, soft-cap,
+    # ALiBi, dropout.
     k1 = {k: k[k.index("<") + 1:-1].split(", ") for k in mma
           if k.startswith("flash_fwd_wgmma_kernel")}
-    new = [k for k, args in k1.items() if args[0] == "256" or "true" in args[4:]]
+    new = [k for k, args in k1.items()
+           if args[6] == "false" and (args[0] == "256" or "true" in args[4:6])]
+    drop = [k for k, args in k1.items() if args[6] == "true"]
     check(len(new) == 28, f"K1's D 256, soft-cap and ALiBi instantiations: {new}")
-    print(f"[env] K1's D 256, soft-cap and ALiBi instantiations run on wgmma (HGMMA), no "
-          f"spill: { {k: mma[k]['HGMMA'] for k in new} }")
-    # The backward's template arguments: D, mask kind, soft-cap, ALiBi.
+    check(len(drop) == 36, f"K1's dropout instantiations: {drop}")
+    print(f"[env] K1's D 256, soft-cap, ALiBi and dropout instantiations run on wgmma (HGMMA), "
+          f"no spill: { {k: mma[k]['HGMMA'] for k in new + drop} }")
+    # The backward's template arguments: D, mask kind, soft-cap, ALiBi, dropout.
     bwd = {k: k[k.index("<") + 1:-1].split(", ") for k in mma if k.startswith("flash_bwd")}
-    new = [k for k, args in bwd.items() if args[0] == "256" or "true" in args[2:]]
-    alibi = [k for k, args in bwd.items() if args[3] == "true"]
+    new = [k for k, args in bwd.items()
+           if args[4] == "false" and (args[0] == "256" or "true" in args[2:4])]
+    alibi = [k for k, args in bwd.items() if args[3] == "true" and args[4] == "false"]
+    drop = [k for k, args in bwd.items() if args[4] == "true"]
     check(len(new) == 63 and len(alibi) == 27 and not any(bwd[k][2] == "true" for k in alibi),
           f"the backward's D 256, soft-cap and ALiBi instantiations: {new}")
-    print(f"[env] the backward's D 256, soft-cap and ALiBi instantiations run on mma.sync "
-          f"(HMMA), no spill: { {k: mma[k]['HMMA'] for k in new} }")
+    check(len(drop) == 81, f"the backward's dropout instantiations: {drop}")
+    print(f"[env] the backward's D 256, soft-cap, ALiBi and dropout instantiations run on "
+          f"mma.sync (HMMA), no spill: { {k: mma[k]['HMMA'] for k in new + drop} }")
     return name
 
 
 def tensor_core_instructions(lib: str) -> dict[str, dict[str, int]]:
     """Tensor-core instructions (HMMA, HGMMA, IMMA) by kind in the SASS of
-    each kernel of a built library (cuobjdump beside nvcc)."""
-    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(lib))],
-                          capture_output=True, text=True, check=True, timeout=300).stdout
-    counts, kernel = {}, None
-    for line in sass.splitlines():
-        entry = re.search(r"Function : (\S+)", line)
-        if entry:
-            kernel = kernel_label(entry.group(1))
-            counts[kernel] = dict.fromkeys(("HMMA", "HGMMA", "IMMA"), 0)
-        elif kernel is not None:
-            op = re.search(r"\b(HMMA|HGMMA|IMMA)\.", line)
+    each kernel of a built library (utils/sass.py)."""
+    counts = {}
+    for kernel, ins in sass.kernels(sass.dump(_build.library_path(lib))).items():
+        counts[kernel] = dict.fromkeys(("HMMA", "HGMMA", "IMMA"), 0)
+        for text in ins:
+            op = re.search(r"\b(HMMA|HGMMA|IMMA)\.", text)
             if op:
                 counts[kernel][op.group(1)] += 1
     return counts
-
-
-def kernel_label(mangled: str) -> str:
-    """'flash_fwd_mma_kernel<64>' from the mangled name of a kernel in csrc/:
-    a name is its length then its characters (it may hold digits, and
-    follow other digits, as in an anonymous namespace's), then its template
-    arguments."""
-    for run in re.finditer(r"\d+", mangled):
-        for i in range(run.start(), run.end()):
-            name = mangled[run.end():run.end() + int(mangled[i:run.end()])]
-            m = re.match(r"I(.*?)E+v", mangled[run.end() + len(name):])
-            if name.endswith("_kernel") and m:
-                break
-        else:
-            continue
-        break
-    else:
-        return mangled
-    types = {"13__nv_bfloat16": "bf16", "13__nv_fp8_e4m3": "fp8", "f": "float", "a": "int8",
-             "Lb0": "false", "Lb1": "true"}
-    args = []
-    for t in re.finditer(r"13__nv_bfloat16|13__nv_fp8_e4m3|S\d*_|Li(\d+)|Lb[01]|f|a",
-                         m.group(1)):
-        # S_, S0_, ... repeat a type already named: the first, in these kernels
-        args.append(t.group(1) or (args[0] if t.group(0).startswith("S") else types[t.group(0)]))
-    return f"{name}<{', '.join(args)}>"
 
 
 def _gate(name: str, ref, out, atol: float, rtol: float = 1e-2) -> float:
@@ -1684,12 +1691,14 @@ def packed_ids(lens, total: int, device) -> torch.Tensor:
 
 def masked_case(gen, err: dict, tag: str, shape, dtype=torch.bfloat16, pos_offset=None,
                 window=None, lens=None, causal=True, k_lens=None, logit_softcap=None,
-                heat=1.0, alibi=False, alibi_slopes=None) -> tuple:
+                heat=1.0, alibi=False, alibi_slopes=None, dropout_rate=0.0,
+                dropout_seed=None) -> tuple:
     """K1, then B3 (fused) and B4 + B5 (split), with a window, segment ids,
-    a logit soft-cap and/or ALiBi against their plain versions on one set
-    of inputs (q times `heat`: 30 saturates a cap's tanh); errors go to the
-    rows of `err` (soft-cap rows with a cap, ALiBi rows with ALiBi, else
-    segment rows when ids are given; K1's to its row with segment ids).
+    a logit soft-cap, ALiBi and/or dropout against their plain versions on
+    one set of inputs (q times `heat`: 30 saturates a cap's tanh); errors
+    go to the rows of `err` (dropout rows with dropout, soft-cap rows with a
+    cap, ALiBi rows with ALiBi, else segment rows when ids are given; K1's
+    to its row with segment ids or with dropout).
     Rows that see no key get O = 0, LSE = -inf and dQ = 0. Padding rows' O
     and every gradient of a padding position must
     be exactly 0, a window of one key gives dQ = dK = 0 (each row's softmax
@@ -1705,13 +1714,15 @@ def masked_case(gen, err: dict, tag: str, shape, dtype=torch.bfloat16, pos_offse
         seg = varlen.canonical_segments(packed_ids(lens, s_q, q.device),
                                         packed_ids(k_lens or lens, s_k, q.device), q.device)
     kw = dict(is_causal=causal, pos_offset=pos_offset, window=window, segment_ids=seg,
-              logit_softcap=logit_softcap, alibi=alibi, alibi_slopes=alibi_slopes)
-    kind = ("softcap" if logit_softcap else "alibi" if alibi else
-            "segments" if seg is not None else "window")
+              logit_softcap=logit_softcap, alibi=alibi, alibi_slopes=alibi_slopes,
+              dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+    kind = ("dropout" if dropout_rate else "softcap" if logit_softcap else "alibi" if alibi
+            else "segments" if seg is not None else "window")
     slopes = ("" if not alibi else " ALiBi " + ("standard slopes" if alibi_slopes is None else
                                                 f"slopes {alibi_slopes.tolist()}"))
     name = (f"{tag}: B={b} Hq={hq} Hkv={hkv} Sq={s_q} Sk={s_k} D={d} causal={causal} "
             f"pos_offset={pos_offset} window={window} cap={logit_softcap}{slopes} "
+            f"{f'dropout {dropout_rate} seed {dropout_seed} ' if dropout_rate else ''}"
             f"{'hot (q x %g) ' % heat if heat != 1.0 else ''}{str(dtype)[6:]}")
     o, lse = flash_fwd.flash_attention_forward(q, k, v, **kw)
     o_ref, lse_ref = flash_fwd.flash_attention_forward_reference(q, k, v, **kw)
@@ -1719,9 +1730,9 @@ def masked_case(gen, err: dict, tag: str, shape, dtype=torch.bfloat16, pos_offse
     tol = dict(atol=O_ATOL) if dtype == torch.bfloat16 else F32_TOL
     e = _gate(f"K1 {name} O", o_ref, o, **tol)
     _gate(f"K1 {name} LSE", lse_ref, lse, LSE_ATOL)
-    fwd_row = "flash_fwd_" + ("softcap" if logit_softcap else
+    fwd_row = "flash_fwd_" + ("dropout" if dropout_rate else "softcap" if logit_softcap else
                               "alibi_segments" if alibi else "segments")
-    if (seg is not None or logit_softcap) and fwd_row in err:
+    if (seg is not None or logit_softcap or dropout_rate) and fwd_row in err:
         err[fwd_row] = max(err[fwd_row], e)
     dead = torch.isneginf(lse_ref)
     check(torch.equal(torch.isneginf(lse), dead) and not bool(o[dead].any()),
@@ -4636,6 +4647,311 @@ def phase_alibi_train(gen: torch.Generator) -> dict[str, int]:
     return total
 
 
+# Phase 19: attention dropout through flash_attention(dropout_rate=,
+# dropout_seed=) at the source's headline shape (bench.py's B 4, H 8,
+# S 16384, D 128, causal, bf16), every gate against the plain
+# dropout_keep_mask and the plain route on the same mask.
+DROPOUT_ROWS = ("flash_fwd_dropout", "flash_bwd_fused_dropout", "flash_bwd_dq_dropout",
+                "flash_bwd_dkv_dropout")
+DROP_RATE = 0.1
+DROP_SEED = 20181
+# The readouts' (dtype, D, rate, seed), each at B 2, GQA 32/4, S_k 1024
+# (eight kv tiles of K1 at D 64 and 128, sixteen at D 256), S_q 256 for K1
+# and 128 (256 at D 256) for the backward's.
+DROP_READS = [(torch.bfloat16, 64, 0.1, -7), (torch.bfloat16, 128, 0.5, 0),
+              (torch.bfloat16, 256, 0.1, 2**31 - 1), (torch.float32, 64, 0.5, 2**31 - 1),
+              (torch.float32, 128, 0.1, -7), (torch.float32, 256, 0.5, 0)]
+DROP_FRACTION_S = 4096
+DROP_FRACTION_TOL = 5e-3
+
+
+def dropout_readouts() -> None:
+    """Phase 19 (a): each kernel's keep mask read out of its outputs
+    (utils/dropout_readout.py: q = 0 makes P uniform; one-hot V for K1, one
+    hot K with v = dO = e_0 for B4, one-hot dO of one head a group for B3's
+    and B5's dV) against the plain dropout_keep_mask on the card, zero
+    mismatches allowed; then K1's keep fraction on a 4096 x 4096 tile."""
+    dev = torch.device("cuda")
+    b, hq, hkv, s_k = 2, 32, 4, 1024
+    for dtype, d, rate, seed in DROP_READS:
+        s_fwd, s_bwd = 256, 256 if d == 256 else 128
+        want = dropout_readout.plain_mask(b, hq, s_fwd, s_k, rate, seed, dev)
+        args = (b, hq, hkv, s_bwd, s_k, d, dtype, rate, seed, dev)
+        reads = {"K1": dropout_readout.forward_mask(b, hq, hkv, s_fwd, s_k, d, dtype, rate,
+                                                    seed, dev),
+                 "B4": dropout_readout.dq_mask(*args),
+                 "B3": dropout_readout.dv_mask(*args, impl="fused"),
+                 "B5": dropout_readout.dv_mask(*args, impl="split")}
+        torch.cuda.synchronize()
+        for name, got in reads.items():
+            ref = want[:, :, :got.shape[2]]  # the mask keys on the arrays' rows
+            bad = int((got != ref).sum())
+            print(f"[dropout] readout {name} B={b} Hq={hq} Hkv={hkv} Sq={got.shape[2]} "
+                  f"Sk={s_k} D={d} {str(dtype)[6:]} rate {rate} seed {seed}: {bad} of "
+                  f"{ref.numel()} elements differ from dropout_keep_mask (kept "
+                  f"{float(ref.float().mean()):.4f})")
+            check(bad == 0, f"dropout readout {name} {dtype} D={d} rate {rate} seed {seed}: "
+                            f"{bad} mismatches")
+    for rate in (0.1, 0.5):
+        got = dropout_readout.forward_mask(1, 1, 1, DROP_FRACTION_S, DROP_FRACTION_S, 64,
+                                           torch.bfloat16, rate, DROP_SEED, dev)
+        frac = float(got.float().mean())
+        bad = int((got != dropout_readout.plain_mask(1, 1, DROP_FRACTION_S, DROP_FRACTION_S,
+                                                     rate, DROP_SEED, dev)).sum())
+        print(f"[dropout] K1's keep fraction on a {DROP_FRACTION_S} x {DROP_FRACTION_S} tile, "
+              f"rate {rate}: {frac:.5f} (1 - rate {1 - rate}, within {DROP_FRACTION_TOL}); "
+              f"{bad} elements differ from dropout_keep_mask")
+        check(abs(frac - (1 - rate)) <= DROP_FRACTION_TOL and bad == 0,
+              f"K1's keep fraction at rate {rate}: {frac}, {bad} mismatches")
+
+
+def dropout_kernels(gen: torch.Generator) -> tuple[dict[str, float], tuple]:
+    """Phase 19 (b) beside the headline path: K1, B3 and B4 + B5 with
+    dropout against their plain versions on the same mask (masked_case) at
+    LLAMA_1B's training attention (B 4, Hq 32, Hkv 4, S 2048, D 64, causal),
+    then on the packed rows of MISTRAL_7B (window 4096 and segment ids),
+    GEMMA2_9B (D 256, cap 50, segment ids) and LLAMA_8B with ALiBi (segment
+    ids), rate DROP_RATE. Returns the rows' largest errors and LLAMA_1B's
+    inputs."""
+    err = dict.fromkeys(DROPOUT_ROWS, 0.0)
+    drop = dict(dropout_rate=DROP_RATE, dropout_seed=DROP_SEED)
+    train_row = masked_case(gen, err, "LLAMA_1B training attention with dropout",
+                            (TRAIN_B, 32, 4, TRAIN_S, TRAIN_S, 64), **drop)
+    masked_case(gen, err, "MISTRAL_7B packed row with dropout", (1, 32, 8, PACK_S, PACK_S, 128),
+                lens=PACK_DOCS, window=WIN, **drop)
+    gc.collect()
+    torch.cuda.empty_cache()
+    masked_case(gen, err, "GEMMA2_9B packed row with dropout", (1, 16, 8, PACK_S, PACK_S, 256),
+                lens=PACK_DOCS, logit_softcap=CAP, **drop)
+    gc.collect()
+    torch.cuda.empty_cache()
+    masked_case(gen, err, "LLAMA_8B packed row with ALiBi and dropout",
+                (1, 32, 8, PACK_S, PACK_S, 128), lens=PACK_DOCS, alibi=True, **drop)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return err, train_row
+
+
+def dropout_path(gen: torch.Generator) -> tuple[dict[str, int], dict[str, float]]:
+    """Phase 19's main path: flash_attention(q, k, v, is_causal=True,
+    dropout_rate=DROP_RATE, dropout_seed=seed) and its gradients at the
+    headline shape, the seed a CUDA tensor that changes from step to step
+    as a trainer's would: a step on the fused backward (the default) and
+    one on the split backward (FLASHATTN_BWD_IMPL=split) with one seed, the
+    split step again with it and a step with the next seed. Then, against
+    the plain forward and backward on the same mask (ops/reference.py):
+    K1's O and the split and fused dQ on three 256-row slices of every head
+    (the rows' scores against every key; their position passed as
+    pos_offset and dropout_row0), and K1's O and the split and fused dQ,
+    dK and dV of batch 0, head 0 whole (MHA: bh stays 0 in the [1, 1]
+    slice, so the mask is the same; the plain backward's score blocks are
+    [1, 1, 16384, 16384], 1 GiB each in float32); the fused gradients
+    against the split ones; the same seed's O and split gradients bitwise
+    equal, the next seed's O another. Returns the launches the path
+    counted and the largest errors by kernels-line row."""
+    b, h, hkv, s, d = K1_SHAPES["D=128 headline"]
+    leaves = [randn((b, n, s, d), gen).requires_grad_() for n in (h, hkv, hkv)]
+    do = randn((b, h, s, d), gen)
+    seed = torch.tensor(DROP_SEED, dtype=torch.int32, device="cuda")
+    tag = f"B={b} Hq={h} Hkv={hkv} S={s} D={d} causal dropout {DROP_RATE}"
+
+    def step(impl: str):
+        os.environ[flash_bwd.IMPL_ENV] = impl
+        try:
+            o = flash_attention(*leaves, is_causal=True, dropout_rate=DROP_RATE,
+                                dropout_seed=seed)
+            return (o.detach(), *torch.autograd.grad(o, leaves, do))
+        finally:
+            del os.environ[flash_bwd.IMPL_ENV]
+
+    reset_launches()
+    t0 = time.perf_counter()
+    fused = step("fused")
+    split = step("split")
+    again = step("split")
+    seed += 1
+    other = step("split")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: n for k, n in read_launches().items() if n}
+    print(f"[dropout] path {tag}: 4 forward + backward steps through flash_attention in "
+          f"{wall:.2f} s (host clock, first calls included); launched {got}")
+    want = {"flash_fwd": 4, "flash_fwd_dropout": 4, "flash_bwd_fused": 1,
+            "flash_bwd_fused_dropout": 1, "flash_bwd_dq": 3, "flash_bwd_dq_dropout": 3,
+            "flash_bwd_dkv": 3, "flash_bwd_dkv_dropout": 3}
+    check(got == want, f"[dropout] path launched {got}, want {want}")
+    check(all(torch.equal(x, y) for x, y in zip(split, again)),
+          "[dropout] one seed, two split steps: O or the gradients differ")
+    check(not torch.equal(other[0], split[0]), "[dropout] another seed gave the same O")
+    print(f"[dropout] path {tag}: one seed twice, O and the split gradients bitwise equal "
+          f"(torch.equal); the next seed's O differs")
+    check(torch.equal(fused[0], split[0]), "[dropout] the fused and split steps' O differ")
+    del again, other
+    for name, a, g in zip(("dQ", "dK", "dV"), split[1:], fused[1:]):
+        grad_gate(f"fused {name} against split {name}, {tag}", a, g, torch.bfloat16)
+    check(bool(torch.isfinite(split[0]).all()), f"K1 {tag}: non-finite O")
+    q, k, v = (t.detach() for t in leaves)
+    o = split[0]
+    drop = dict(dropout_rate=DROP_RATE, dropout_seed=DROP_SEED)
+    err = dict.fromkeys(DROPOUT_ROWS, 0.0)
+    rows = 256
+    for r0 in (0, s // 2 - rows // 2, s - rows):
+        sl = slice(r0, r0 + rows)
+        where = f"{tag}, q rows [{r0}, {r0 + rows})"
+        o_ref, lse_ref = reference.reference_attention_with_lse(
+            q[:, :, sl], k, v, True, pos_offset=r0, dropout_row0=r0, **drop)
+        err["flash_fwd_dropout"] = max(err["flash_fwd_dropout"],
+                                       _gate(f"K1 {where} O", o_ref, o[:, :, sl], O_ATOL))
+        dq_ref = reference.reference_attention_backward(
+            q[:, :, sl], k, v, o[:, :, sl], do[:, :, sl], lse_ref, True, pos_offset=r0,
+            dropout_row0=r0, **drop)[0]
+        err["flash_bwd_dq_dropout"] = max(err["flash_bwd_dq_dropout"], grad_gate(
+            f"B4 {where} dQ", dq_ref, split[1][:, :, sl], torch.bfloat16))
+        err["flash_bwd_fused_dropout"] = max(err["flash_bwd_fused_dropout"], grad_gate(
+            f"B3 {where} dQ", dq_ref, fused[1][:, :, sl], torch.bfloat16))
+        del o_ref, lse_ref, dq_ref
+    one = slice(0, 1)
+    where = f"{tag}, batch 0 head 0, every row"
+    o_ref, lse_ref = reference.reference_attention_with_lse(q[one, one], k[one, one],
+                                                            v[one, one], True, **drop)
+    err["flash_fwd_dropout"] = max(err["flash_fwd_dropout"],
+                                   _gate(f"K1 {where} O", o_ref, o[one, one], O_ATOL))
+    del o_ref
+    ref = reference.reference_attention_backward(q[one, one], k[one, one], v[one, one],
+                                                 o[one, one], do[one, one], lse_ref, True,
+                                                 **drop)
+    del lse_ref
+    for name, r, a, g in zip(("dQ", "dK", "dV"), ref, split[1:], fused[1:]):
+        row = "flash_bwd_dq_dropout" if name == "dQ" else "flash_bwd_dkv_dropout"
+        err[row] = max(err[row], grad_gate(f"B4/B5 {where} {name}", r, a[one, one],
+                                           torch.bfloat16))
+        err["flash_bwd_fused_dropout"] = max(err["flash_bwd_fused_dropout"], grad_gate(
+            f"B3 {where} {name}", r, g[one, one], torch.bfloat16))
+    del ref, fused, split, leaves, q, k, v, o
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: got[k] for k in DROPOUT_ROWS}, err
+
+
+def dropout_identities(q, k, v, o, do, lse, kw) -> None:
+    """Phase 19 (c) on LLAMA_1B's training attention: rate 0 (with a seed)
+    gives the bits of the call without dropout, K1 and the split backward,
+    and launches no dropout kernel; a seed tensor on the card gives the int
+    seed's bits."""
+    clean = dict(kw, dropout_rate=0.0, dropout_seed=None)
+    zero = dict(kw, dropout_rate=0.0)
+    before = {n: read_launches()[n] for n in DROPOUT_ROWS}
+    o0, lse0 = flash_fwd.flash_attention_forward(q, k, v, **clean)
+    o1, lse1 = flash_fwd.flash_attention_forward(q, k, v, **zero)
+    g0 = flash_bwd.flash_attention_backward(q, k, v, o0, do, lse0, impl="split", **clean)
+    g1 = flash_bwd.flash_attention_backward(q, k, v, o0, do, lse0, impl="split", **zero)
+    check(torch.equal(o0, o1) and torch.equal(lse0, lse1)
+          and all(torch.equal(a, b) for a, b in zip(g0, g1)),
+          "[dropout] rate 0 differs from the call without dropout")
+    check({n: read_launches()[n] for n in DROPOUT_ROWS} == before,
+          "[dropout] rate 0 launched a dropout kernel")
+    check(torch.equal(lse0, lse), "[dropout] the LSE with dropout is not the LSE without it")
+    seed_t = torch.tensor(kw["dropout_seed"], dtype=torch.int32, device="cuda")
+    o2, _ = flash_fwd.flash_attention_forward(q, k, v, **dict(kw, dropout_seed=seed_t))
+    check(torch.equal(o2, o), "[dropout] a seed tensor on the card differs from the int seed")
+    print("[dropout] LLAMA_1B training attention: rate 0 gives the bits without dropout "
+          "(K1 O and LSE, the split gradients) and launches no dropout kernel; the LSE with "
+          "dropout is the LSE without it; a seed tensor on the card gives the int seed's O")
+
+
+def time_dropout(label: str, q, k, v, o, do, lse, drop: dict, plain: bool) -> dict[str, dict]:
+    """Phase 19 (d): K1, B3, B4 and B5 with dropout (`drop`: the rate and
+    seed) timed on the card (device ms, cuda_time_ms) beside the same
+    kernels without dropout on the same inputs, the plain route (events;
+    unless `plain` is False, where its score blocks would not fit), SDPA's
+    forward or forward + backward with dropout_p (its mask is Philox's,
+    another mask: timed only, never a route or an oracle) and the bound of
+    utils/roofline.py (dropout adds no product and no byte). Returns the
+    kernels line's rows."""
+    few = dict(warmup=1, iters=3, reps=3)
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    ms, base = {}, {}
+    for opts, into in ((drop, ms), ({}, base)):
+        into["K1"] = cuda_time_ms(lambda: flash_fwd.flash_attention_forward(
+            q, k, v, True, **opts), **few)
+        into["B3"] = cuda_time_ms(lambda: flash_bwd_fused.flash_attention_backward_fused(
+            q, k, v, o, do, lse, True, **opts), **few)
+        into["B4"] = cuda_time_ms(lambda: flash_bwd.flash_bwd_dq(q, k, v, o, do, lse, True,
+                                                                 **opts), **few)
+        _, delta = flash_bwd.flash_bwd_dq(q, k, v, o, do, lse, True, **opts)
+        into["B5"] = cuda_time_ms(lambda: flash_bwd.flash_bwd_dkv(q, k, v, do, lse, delta, True,
+                                                                  **opts), **few)
+    gqa = hkv != hq
+    lib_f = event_time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, dropout_p=drop["dropout_rate"], is_causal=True, enable_gqa=gqa), iters=5)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o_lib = F.scaled_dot_product_attention(*leaves, dropout_p=drop["dropout_rate"],
+                                           is_causal=True, enable_gqa=gqa)
+    lib_b = event_time_ms(lambda: torch.autograd.grad(o_lib, leaves, do, retain_graph=True),
+                          iters=3)
+    del o_lib, leaves
+    plain_f = plain_b = None
+    if plain:
+        plain_f = event_time_ms(lambda: flash_fwd.flash_attention_forward_reference(
+            q, k, v, True, **drop), warmup=1, iters=2)
+        plain_b = event_time_ms(lambda: flash_bwd.flash_attention_backward_reference(
+            q, k, v, o, do, lse, True, **drop), warmup=1, iters=2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    shape = f"{label} B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal {str(q.dtype)[6:]}"
+    out = {}
+    for name, row in (("K1", "flash_fwd_dropout"), ("B3", "flash_bwd_fused_dropout"),
+                      ("B4", "flash_bwd_dq_dropout"), ("B5", "flash_bwd_dkv_dropout")):
+        roof = dict(dtype_bytes=q.element_size())
+        report = (roofline.attention_fwd_roofline(b, hq, hkv, s, s, d, True, **roof)
+                  if name == "K1" else roofline.attention_bwd_roofline(
+                      b, hq, hkv, s, s, d, True,
+                      kernel={"B3": "fused", "B4": "dq", "B5": "dkv"}[name], **roof))
+        lib = lib_f if name == "K1" else lib_b
+        plain_ms = plain_f if name == "K1" else plain_b
+        print(f"[dropout] {name} with dropout {drop['dropout_rate']}, {shape}: kernel "
+              f"{ms[name]:.4f} ms ({report.flops / (ms[name] * 1e-3) / 1e12:.2f} TFLOP/s), "
+              f"without dropout {base[name]:.4f} ms ({ms[name] / base[name] - 1:+.1%}), bound "
+              f"{report.bound_ms:.5f} ms by {report.bound_by}, plain "
+              + (f"{plain_ms:.4f} ms" if plain else "left out (its score blocks would not fit)")
+              + f", SDPA {'forward' if name == 'K1' else 'backward'} with dropout_p (another "
+              f"mask, Philox) {lib:.4f} ms")
+        out[row] = dict(ms=ms[name], plain_ms=plain_ms, library_ms=lib, **bound(report))
+    return out
+
+
+def phase_dropout(gen: torch.Generator) -> tuple[dict[str, int], dict[str, dict]]:
+    """Phase 19 (the comment above): (a) the readouts, (b) the kernels
+    against the plain route beside the headline path, (c) rate 0 and the
+    seeds, the main path at the headline shape, (d) the timings. Returns
+    the path's launches and the kernels line's rows."""
+    t0 = time.perf_counter()
+    dropout_readouts()
+    print(f"[dropout] (a) readouts in {time.perf_counter() - t0:.1f} s")
+    err, train_row = dropout_kernels(gen)
+    dropout_identities(*train_row)
+    launches, path_err = dropout_path(gen)
+    err = {n: max(err[n], path_err[n]) for n in DROPOUT_ROWS}
+    q, k, v, o, do, lse, kw = train_row
+    # the seed on the card, as a trainer passes it: an int adds a fill kernel a call
+    drop = dict(dropout_rate=DROP_RATE,
+                dropout_seed=torch.tensor(DROP_SEED, dtype=torch.int32, device="cuda"))
+    timed = time_dropout("LLAMA_1B training attention", q, k, v, o, do, lse, drop, plain=True)
+    del train_row, q, k, v, o, do, lse, kw
+    gc.collect()
+    torch.cuda.empty_cache()
+    b, h, hkv, s, d = K1_SHAPES["D=128 headline"]
+    q, k, v, do = (randn((b, n, s, d), gen) for n in (h, hkv, hkv, h))
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, True, **drop)
+    time_dropout("headline", q, k, v, o, do, lse, drop, plain=False)
+    del q, k, v, o, do, lse
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[dropout] launches of phase 19's path by row: {launches}")
+    return launches, {n: dict(max_abs_err=err[n], **timed[n]) for n in DROPOUT_ROWS}
+
+
 class PhaseClock:
     """Prints each phase's seconds as it ends."""
 
@@ -4708,6 +5024,10 @@ def run() -> None:
     clock.done("17 LLAMA_8B with ALiBi")
     add_launches(launches, phase_alibi_train(gen))
     clock.done("18 LLAMA_8B with ALiBi training")
+    drop_launches, drop_rows = phase_dropout(gen)
+    launches.update(drop_launches)
+    timed.update(drop_rows)
+    clock.done("19 flash attention with dropout")
     launches["decode_lse"] = timed["decode_lse"].pop("launches")
     decode_src = ("flashattn_tpu_torch/csrc/decode.cu", "flashattn_tpu/ops/decode.py:351")
     qmm_src = "flashattn_tpu_torch/csrc/quant_matmul.cu"
@@ -4752,6 +5072,14 @@ def run() -> None:
                                "flashattn_tpu/ops/flash_bwd.py:138"),
         "flash_bwd_dkv_alibi": ("flashattn_tpu_torch/csrc/flash_bwd_alibi.cu",
                                 "flashattn_tpu/ops/flash_bwd.py:286"),
+        "flash_fwd_dropout": ("flashattn_tpu_torch/csrc/flash_fwd_dropout.cu",
+                              "flashattn_tpu/ops/flash_fwd.py:469"),
+        "flash_bwd_fused_dropout": ("flashattn_tpu_torch/csrc/flash_bwd_fused_dropout.cu",
+                                    "flashattn_tpu/ops/flash_bwd_fused.py:336"),
+        "flash_bwd_dq_dropout": ("flashattn_tpu_torch/csrc/flash_bwd_dropout.cu",
+                                 "flashattn_tpu/ops/flash_bwd.py:138"),
+        "flash_bwd_dkv_dropout": ("flashattn_tpu_torch/csrc/flash_bwd_dropout.cu",
+                                  "flashattn_tpu/ops/flash_bwd.py:286"),
     }
     for row in MASKED_ROWS + SOFTCAP_BWD_ROWS:  # the same kernels with a window, segment
         sources[row] = sources[row.rsplit("_", 1)[0]]  # ids or a soft-cap

@@ -198,6 +198,47 @@ __device__ __forceinline__ bool one_id(int2 a, int2 b) {
   return a.x == a.y && b.x == b.y && a.x == b.x;
 }
 
+// Attention dropout's keep mask (ops/common.py::dropout_keep_mask, the JAX
+// package's flashattn_tpu/ops/common.py::dropout_keep_mask, bit for bit): a
+// pure function of the int32 seed, bh = b * Hq + the query head, the
+// query's row and the key's column in the arrays, so K1 and the backward
+// kernels each regenerate it and none stores it. The hash on uint32:
+// h = (row * 0x9E3779B1) ^ (col * 0x85EBCA77) ^ (seed + bh * 0x27D4EB2F),
+// then xxhash's avalanche; an element is kept iff h >= threshold. A kernel
+// forms the head term once, each row's term (row * 0x9E3779B1 ^ the head
+// term) once a row and each column's once a column, so a score costs the
+// xor, the avalanche (2 IMAD, 3 shifts, 3 xors) and the compare.
+struct Dropout {
+  const int* seed;     // the int32 seed, on the device
+  unsigned threshold;  // uint32(rate * 2^32)
+  float scale;         // 1 / (1 - rate), float32
+};
+
+// seed + bh * 0x27D4EB2F.
+__device__ __forceinline__ unsigned dropout_head(const Dropout& d, int bh) {
+  return static_cast<unsigned>(__ldg(d.seed)) + static_cast<unsigned>(bh) * 0x27D4EB2Fu;
+}
+__device__ __forceinline__ unsigned dropout_row(int row, unsigned head) {
+  return static_cast<unsigned>(row) * 0x9E3779B1u ^ head;
+}
+__device__ __forceinline__ unsigned dropout_col(int col) {
+  return static_cast<unsigned>(col) * 0x85EBCA77u;
+}
+// The column term of col + i from col's: (col + i) * c = col * c + i * c mod 2^32.
+__device__ __forceinline__ unsigned dropout_col_step(unsigned col_term, int i) {
+  return col_term + static_cast<unsigned>(i) * 0x85EBCA77u;
+}
+__device__ __forceinline__ bool dropout_keep(unsigned row_term, unsigned col_term,
+                                             unsigned threshold) {
+  unsigned h = row_term ^ col_term;
+  h ^= h >> 15;
+  h *= 0x2C1B3C6Du;
+  h ^= h >> 12;
+  h *= 0x297A2D39u;
+  h ^= h >> 15;
+  return h >= threshold;
+}
+
 // Let a kernel ask for up to the device's opt-in maximum of dynamic shared
 // memory (above 48 KB needs this), less its static shared memory. Set once
 // per kernel, so that launches captured into a CUDA graph make no attribute

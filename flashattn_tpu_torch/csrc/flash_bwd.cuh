@@ -17,7 +17,10 @@
 // and dS takes the tanh's derivative (1 - t)(1 + t). ALiBi (slopes not
 // null, a uniform branch too) adds slope * log2(e) * (c - r - offset) to
 // the scaled logit with one FMA, as K1's float32 kernel does; the bias has
-// no gradient, so dS keeps its formula.
+// no gradient, so dS keeps its formula. Dropout (kDropout, a template flag:
+// the dropout libraries instantiate it) rebuilds K1's keep mask M
+// (common.cuh dropout_keep) and with c = 1 / (1 - rate) takes dP to c M dP
+// before dS = P (dP - delta), and M P into dV, c folded into dV's write.
 #pragma once
 
 #include "common.cuh"
@@ -151,14 +154,15 @@ constexpr size_t dkv_smem_bytes() {
 // row to, with a sliding window (window > 0), the last row whose window
 // reaches the tile. Segment ids seg_q [B, Sq] and seg_k [B, Sk], when not
 // null, mask pairs of two documents; slopes [Hq], when not null, add
-// ALiBi (p_and_ds). With kFusedDq it also adds the tile's
-// dQ contributions, scale applied, into dq_acc (fp32, zeroed by the caller)
+// ALiBi (p_and_ds); kDropout applies drop's keep mask. With kFusedDq it
+// also adds the tile's dQ contributions, scale applied, into dq_acc (fp32,
+// zeroed by the caller)
 // with atomics; without it nothing is shared between CTAs and the result is
 // bitwise reproducible.
 //
 // dK and dV stay in registers (thread (r, t) owns kv row r, columns t + 4i)
 // until one write each; kv rows that no q row sees are written as zeros.
-template <typename T, int D, bool kFusedDq>
+template <typename T, int D, bool kFusedDq, bool kDropout>
 __device__ __forceinline__ void dkv_tile(const T* __restrict__ q, const T* __restrict__ k,
                                          const T* __restrict__ v, const T* __restrict__ dout,
                                          const float* __restrict__ lse,
@@ -168,7 +172,8 @@ __device__ __forceinline__ void dkv_tile(const T* __restrict__ q, const T* __res
                                          const int* __restrict__ seg_k,
                                          const float* __restrict__ slopes, int Hq, int Hkv,
                                          int Sq, int Sk, int is_causal, int offset, int window,
-                                         float scale, float scale_log2, float cap_log2) {
+                                         float scale, float scale_log2, float cap_log2,
+                                         const Dropout& drop) {
   constexpr int kBlock = Tile<D>::kRows;
   constexpr int kThreads = Tile<D>::kThreads;
   constexpr int kPP = Tile<D>::kPP;
@@ -212,10 +217,12 @@ __device__ __forceinline__ void dkv_tile(const T* __restrict__ q, const T* __res
                                 : last_row < 0 ? 0 : min(n_q_tiles, last_row / kBlock + 1);
   const int kv_seg = seg_k != nullptr && kv_row < Sk ? seg_k[static_cast<size_t>(b) * Sk + kv_row]
                                                      : 0;
+  const unsigned drop_col = kDropout ? dropout_col(kv_row) : 0u;  // the hash's column: kv_row
 
   for (int g = 0; g < group; ++g) {
     const int h = hk * group + g;
     const float slope_log2 = slope_log2_of(slopes, h);
+    const unsigned drop_head = kDropout ? dropout_head(drop, b * Hq + h) : 0u;
     const size_t stat_base = (static_cast<size_t>(b) * Hq + h) * Sq;
     const size_t q_base = stat_base * D;
     for (int qt = q_begin; qt < q_end; ++qt) {
@@ -241,9 +248,14 @@ __device__ __forceinline__ void dkv_tile(const T* __restrict__ q, const T* __res
         const bool live = qi < Sq && kv_row < Sk && (!is_causal || kv_row <= qi + offset) &&
                           (window == 0 || kv_row >= qi + offset - window + 1) &&
                           (seg_q == nullptr || seg_q[static_cast<size_t>(b) * Sq + qi] == kv_seg);
+        bool keep = true;  // dropout: dV takes M P, dS is P (c M dP - delta)
+        if constexpr (kDropout) {
+          keep = dropout_keep(dropout_row(qi, drop_head), drop_col, drop.threshold);
+          dp[j] = keep ? dp[j] * drop.scale : 0.f;
+        }
         const float2 pd = p_and_ds(s[j], dp[j], deltas[c], lse2s[c], live, scale_log2, cap_log2,
                                    slope_log2, kv_row - qi - offset);
-        pt[r * kPP + c] = round_to<T>(pd.x);
+        pt[r * kPP + c] = round_to<T>(keep ? pd.x : 0.f);
         dst[r * kPP + c] = round_to<T>(pd.y);
       }
       __syncwarp();  // row r's four threads wrote all of its P^T and dS^T
@@ -279,7 +291,7 @@ __device__ __forceinline__ void dkv_tile(const T* __restrict__ q, const T* __res
 #pragma unroll
     for (int i = 0; i < kDims; ++i) {
       dk_row[kThreadsPerRow * i] = from_f<T>(dk_acc[i] * scale);
-      dv_row[kThreadsPerRow * i] = from_f<T>(dv_acc[i]);
+      dv_row[kThreadsPerRow * i] = from_f<T>(kDropout ? dv_acc[i] * drop.scale : dv_acc[i]);
     }
   }
 }

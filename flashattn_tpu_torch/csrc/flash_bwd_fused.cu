@@ -1,12 +1,13 @@
 // B3, the fused backward (csrc/flash_bwd_fused.cuh holds the kernels and
 // their design), replacing the TPU kernel
 // flashattn_tpu/ops/flash_bwd_fused.py::_fused_bwd_kernel: the library of
-// every instantiation without ALiBi (bf16 and float32, no mask, the window,
-// segment ids, the soft-cap). flash_bwd_fused_alibi.cu builds the ALiBi
-// instantiations into a library of their own, compiled beside this one.
+// every instantiation without ALiBi or dropout (bf16 and float32, no mask,
+// the window, segment ids, the soft-cap). flash_bwd_fused_alibi.cu and
+// flash_bwd_fused_dropout.cu build the ALiBi and the dropout instantiations
+// into libraries of their own, compiled beside this one.
 #include "flash_bwd_fused.cuh"
 
-// fused_launch_impl<false>'s contract (flash_bwd_fused.cuh); slopes must be null.
+// fused_launch_impl<false, false>'s contract (flash_bwd_fused.cuh); slopes must be null.
 extern "C" int flash_bwd_fused_launch(const void* q, const void* k, const void* v, const void* o,
                                       const void* dout, const void* lse, void* dq_acc, void* dk,
                                       void* dv, void* delta, const int* seg_q, const int* seg_k,
@@ -15,7 +16,8 @@ extern "C" int flash_bwd_fused_launch(const void* q, const void* k, const void* 
                                       int D, int dtype, int is_causal, int offset, int window,
                                       float scale, float scale_log2, float cap_log2,
                                       void* stream) {
-  return fused_launch_impl<false>(q, k, v, o, dout, lse, dq_acc, dk, dv, delta, seg_q, seg_k,
-                                  ranges_q, ranges_k, slopes, B, Hq, Hkv, Sq, Sk, D, dtype,
-                                  is_causal, offset, window, scale, scale_log2, cap_log2, stream);
+  return fused_launch_impl<false, false>(q, k, v, o, dout, lse, dq_acc, dk, dv, delta, seg_q,
+                                        seg_k, ranges_q, ranges_k, slopes, B, Hq, Hkv, Sq, Sk, D,
+                                        dtype, is_causal, offset, window, scale, scale_log2,
+                                        cap_log2, fat::Dropout{}, stream);
 }

@@ -1,7 +1,9 @@
 // Flash-attention backward, fused path, for Hopper (sm_90a): a delta
-// pre-pass, then one kernel that computes dQ, dK and dV in one pass. Two
+// pre-pass, then one kernel that computes dQ, dK and dV in one pass. Three
 // libraries build from this header: flash_bwd_fused.cu (every instantiation
-// without ALiBi) and flash_bwd_fused_alibi.cu (ALiBi's), side by side.
+// without ALiBi or dropout), flash_bwd_fused_alibi.cu (ALiBi's) and
+// flash_bwd_fused_dropout.cu (dropout's, with ALiBi or without), side by
+// side.
 //
 // Replaces the TPU kernel flashattn_tpu/ops/flash_bwd_fused.py::
 // _fused_bwd_kernel (launcher flash_attention_backward_fused, :336; B3) on
@@ -12,7 +14,10 @@
 // and masks pairs of two documents), and the logit soft-cap with its exact
 // tanh derivative (kCap, a template flag of the bf16 kernel) or ALiBi
 // (kAlibi, the bias as K1 formed it: flash_bwd.cuh fwd_tile_n; the float32
-// kernel takes it as a runtime argument), at D 64, 128 and 256 (8 warps a kv tile at D 256, flash_bwd_mma.cuh). On the TPU the dK/dV accumulators of
+// kernel takes it as a runtime argument) and dropout (kDropout: the
+// forward's keep mask rebuilt from the seed, common.cuh dropout_keep; the
+// JAX kernel's at flash_bwd_fused.py:236-247), at D 64, 128 and 256 (8
+// warps a kv tile at D 256, flash_bwd_mma.cuh). On the TPU the dK/dV accumulators of
 // a whole (batch, kv head) stay in VMEM while one sequential grid walks the
 // q tiles; no SM holds that, so this is the one-pass design of FA2 instead:
 // one CTA per (64-row kv tile, kv head, batch) keeps its tile's dK and dV in
@@ -62,7 +67,7 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   if (lane == 0) delta[row] = sum;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kDropout>
 __global__ void __launch_bounds__(Tile<D>::kThreads)
 flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ dout,
@@ -71,13 +76,13 @@ flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const int* __restrict__ seg_q, const int* __restrict__ seg_k,
                        const float* __restrict__ slopes, int Hq, int Hkv, int Sq, int Sk,
                        int is_causal, int offset, int window, float scale, float scale_log2,
-                       float cap_log2) {
-  fat::bwd::dkv_tile<T, D, true>(q, k, v, dout, lse, delta, dk, dv, dq_acc, seg_q, seg_k, slopes,
-                                 Hq, Hkv, Sq, Sk, is_causal, offset, window, scale, scale_log2,
-                                 cap_log2);
+                       float cap_log2, const fat::Dropout drop) {
+  fat::bwd::dkv_tile<T, D, true, kDropout>(q, k, v, dout, lse, delta, dk, dv, dq_acc, seg_q,
+                                           seg_k, slopes, Hq, Hkv, Sq, Sk, is_causal, offset,
+                                           window, scale, scale_log2, cap_log2, drop);
 }
 
-template <int D, int kMask, bool kCap, bool kAlibi>
+template <int D, int kMask, bool kCap, bool kAlibi, bool kDropout>
 __global__ void __launch_bounds__(fat::bwd::mma::threads<D>())
 flash_bwd_fused_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
@@ -88,43 +93,45 @@ flash_bwd_fused_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloa
                            const int2* __restrict__ ranges_q, const int2* __restrict__ ranges_k,
                            const float* __restrict__ slopes, int Hq, int Hkv, int Sq, int Sk,
                            int is_causal, int offset, int window, float scale, float scale_log2,
-                           float cap_log2) {
-  fat::bwd::mma::dkv_tile<D, true, kMask, kCap, kAlibi>(
+                           float cap_log2, const fat::Dropout drop) {
+  fat::bwd::mma::dkv_tile<D, true, kMask, kCap, kAlibi, kDropout>(
       q, k, v, dout, lse, delta, dk, dv, dq_acc, seg_q, seg_k, ranges_q, ranges_k, slopes, Hq,
-      Hkv, Sq, Sk, is_causal, offset, window, scale, scale_log2, cap_log2);
+      Hkv, Sq, Sk, is_causal, offset, window, scale, scale_log2, cap_log2, drop);
 }
 
-template <int D, int kMask, bool kCap, bool kAlibi>
+template <int D, int kMask, bool kCap, bool kAlibi, bool kDropout>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, void* dq_acc, void* dk, void* dv, const void* delta,
                        const int* seg_q, const int* seg_k, const int2* ranges_q,
                        const int2* ranges_k, const float* slopes, int B, int Hq, int Hkv, int Sq,
                        int Sk, int is_causal, int offset, int window, float scale,
-                       float scale_log2, float cap_log2, cudaStream_t stream) {
+                       float scale_log2, float cap_log2, const fat::Dropout& drop,
+                       cudaStream_t stream) {
   namespace mma = fat::bwd::mma;
   using bf16 = __nv_bfloat16;
   const cudaError_t err =
-      fat::allow_max_smem<flash_bwd_fused_mma_kernel<D, kMask, kCap, kAlibi>>();
+      fat::allow_max_smem<flash_bwd_fused_mma_kernel<D, kMask, kCap, kAlibi, kDropout>>();
   if (err != cudaSuccess) return err;
   const dim3 grid(Hkv, B, (Sk + mma::kBc - 1) / mma::kBc);
-  flash_bwd_fused_mma_kernel<D, kMask, kCap, kAlibi>
+  flash_bwd_fused_mma_kernel<D, kMask, kCap, kAlibi, kDropout>
       <<<grid, mma::threads<D>(), mma::smem_bytes<D, true, kMask>(), stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
           static_cast<const bf16*>(dout), static_cast<const float*>(lse),
           static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
           static_cast<float*>(dq_acc), seg_q, seg_k, ranges_q, ranges_k, slopes, Hq, Hkv, Sq,
-          Sk, is_causal, offset, window, scale, scale_log2, cap_log2);
+          Sk, is_causal, offset, window, scale, scale_log2, cap_log2, drop);
   return cudaGetLastError();
 }
 
-// With kAlibi the bf16 kernels of ALiBi (no cap), else those without it.
-template <typename T, int D, bool kAlibi>
+// With kAlibi the bf16 kernels of ALiBi (no cap), else those without it;
+// with kDropout those of dropout, else those without it.
+template <typename T, int D, bool kAlibi, bool kDropout>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const void* lse, void* dq_acc, void* dk, void* dv, void* delta,
                    const int* seg_q, const int* seg_k, const int2* ranges_q,
                    const int2* ranges_k, const float* slopes, int B, int Hq, int Hkv, int Sq,
                    int Sk, int is_causal, int offset, int window, float scale, float scale_log2,
-                   float cap_log2, cudaStream_t stream) {
+                   float cap_log2, const fat::Dropout& drop, cudaStream_t stream) {
   const long long rows = static_cast<long long>(B) * Hq * Sq;
   flash_bwd_delta_kernel<T, D><<<static_cast<unsigned>((rows + kRowsPerCta - 1) / kRowsPerCta),
                                  kThreads, 0, stream>>>(
@@ -134,31 +141,33 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     namespace bwd = fat::bwd;
     const bool cap = cap_log2 > 0.f;
-    decltype(&launch_mma<D, bwd::kNoMask, false, kAlibi>) fn;
+    constexpr bool X = kDropout;
+    decltype(&launch_mma<D, bwd::kNoMask, false, kAlibi, X>) fn;
     if constexpr (kAlibi)
-      fn = seg_q != nullptr ? launch_mma<D, bwd::kSegmentMask, false, true>
-           : window > 0     ? launch_mma<D, bwd::kWindowMask, false, true>
-                            : launch_mma<D, bwd::kNoMask, false, true>;
+      fn = seg_q != nullptr ? launch_mma<D, bwd::kSegmentMask, false, true, X>
+           : window > 0     ? launch_mma<D, bwd::kWindowMask, false, true, X>
+                            : launch_mma<D, bwd::kNoMask, false, true, X>;
     else
-      fn = seg_q != nullptr ? (cap ? launch_mma<D, bwd::kSegmentMask, true, false>
-                                   : launch_mma<D, bwd::kSegmentMask, false, false>)
-           : window > 0     ? (cap ? launch_mma<D, bwd::kWindowMask, true, false>
-                                   : launch_mma<D, bwd::kWindowMask, false, false>)
-                            : (cap ? launch_mma<D, bwd::kNoMask, true, false>
-                                   : launch_mma<D, bwd::kNoMask, false, false>);
+      fn = seg_q != nullptr ? (cap ? launch_mma<D, bwd::kSegmentMask, true, false, X>
+                                   : launch_mma<D, bwd::kSegmentMask, false, false, X>)
+           : window > 0     ? (cap ? launch_mma<D, bwd::kWindowMask, true, false, X>
+                                   : launch_mma<D, bwd::kWindowMask, false, false, X>)
+                            : (cap ? launch_mma<D, bwd::kNoMask, true, false, X>
+                                   : launch_mma<D, bwd::kNoMask, false, false, X>);
     return fn(q, k, v, dout, lse, dq_acc, dk, dv, delta, seg_q, seg_k, ranges_q, ranges_k, slopes,
-              B, Hq, Hkv, Sq, Sk, is_causal, offset, window, scale, scale_log2, cap_log2, stream);
+              B, Hq, Hkv, Sq, Sk, is_causal, offset, window, scale, scale_log2, cap_log2, drop,
+              stream);
   } else {
-    err = fat::allow_max_smem<flash_bwd_fused_kernel<T, D>>();
+    err = fat::allow_max_smem<flash_bwd_fused_kernel<T, D, kDropout>>();
     if (err != cudaSuccess) return err;
     const dim3 grid((Sk + Tile<D>::kRows - 1) / Tile<D>::kRows, Hkv, B);
-    flash_bwd_fused_kernel<T, D>
+    flash_bwd_fused_kernel<T, D, kDropout>
         <<<grid, Tile<D>::kThreads, fat::bwd::dkv_smem_bytes<D>(), stream>>>(
             static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
             static_cast<const T*>(dout), static_cast<const float*>(lse),
             static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
             static_cast<float*>(dq_acc), seg_q, seg_k, slopes, Hq, Hkv, Sq, Sk, is_causal,
-            offset, window, scale, scale_log2, cap_log2);
+            offset, window, scale, scale_log2, cap_log2, drop);
   }
   return cudaGetLastError();
 }
@@ -179,35 +188,39 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
 // s * scale_log2 in the exp2 domain (scale_log2 = scale * log2(e)), or with
 // cap_log2 > 0 (the soft-cap: cap * log2(e), and scale_log2 then
 // scale / cap) tanh(s * scale_log2) * cap_log2, as the forward made them;
-// ALiBi adds slopes[h] * log2(e) * (c - r - offset). D is 64, 128 or 256.
+// ALiBi adds slopes[h] * log2(e) * (c - r - offset). With kDropout (the
+// library flash_bwd_fused_dropout.cu, ALiBi or not) the forward's keep mask
+// of drop drops P in dV and dP in dS. D is 64, 128 or 256.
 // Writes delta, dk (scale applied) and dv in k's dtype, and adds
 // scale * dS.K into dq_acc. Returns the CUDA error code of the launches
 // (0 = success).
-template <bool kAlibi>
+template <bool kAlibi, bool kDropout>
 int fused_launch_impl(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const void* lse, void* dq_acc, void* dk, void* dv,
                       void* delta, const int* seg_q, const int* seg_k, const int2* ranges_q,
                       const int2* ranges_k, const float* slopes, int B, int Hq, int Hkv, int Sq,
                       int Sk, int D, int dtype, int is_causal, int offset, int window,
-                      float scale, float scale_log2, float cap_log2, void* stream) {
+                      float scale, float scale_log2, float cap_log2, const fat::Dropout& drop,
+                      void* stream) {
   const bool seg = seg_q != nullptr;
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || window < 0 ||
       (window > 0 && !is_causal) || seg != (seg_k != nullptr) || seg != (ranges_q != nullptr) ||
       seg != (ranges_k != nullptr) || cap_log2 < 0.f || (slopes != nullptr) != kAlibi ||
       (kAlibi && cap_log2 > 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto fn = dtype == fat::kBF16 ? (D == 64    ? launch<__nv_bfloat16, 64, kAlibi>
-                                         : D == 128 ? launch<__nv_bfloat16, 128, kAlibi>
-                                         : D == 256 ? launch<__nv_bfloat16, 256, kAlibi>
+  constexpr bool A = kAlibi, X = kDropout;
+  const auto fn = dtype == fat::kBF16 ? (D == 64    ? launch<__nv_bfloat16, 64, A, X>
+                                         : D == 128 ? launch<__nv_bfloat16, 128, A, X>
+                                         : D == 256 ? launch<__nv_bfloat16, 256, A, X>
                                                     : nullptr)
-                  : dtype == fat::kF32 ? (D == 64    ? launch<float, 64, kAlibi>
-                                          : D == 128 ? launch<float, 128, kAlibi>
-                                          : D == 256 ? launch<float, 256, kAlibi>
+                  : dtype == fat::kF32 ? (D == 64    ? launch<float, 64, A, X>
+                                          : D == 128 ? launch<float, 128, A, X>
+                                          : D == 256 ? launch<float, 256, A, X>
                                                      : nullptr)
                                        : nullptr;
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(fn(q, k, v, o, dout, lse, dq_acc, dk, dv, delta, seg_q, seg_k,
                              ranges_q, ranges_k, slopes, B, Hq, Hkv, Sq, Sk, is_causal, offset,
-                             window, scale, scale_log2, cap_log2,
+                             window, scale, scale_log2, cap_log2, drop,
                              static_cast<cudaStream_t>(stream)));
 }

@@ -29,7 +29,12 @@
 //   K1 formed (flash_bwd.cuh fwd_tile_n): a thread's two kv rows (the
 //   bias's columns) keep their column terms for the CTA's life, its q
 //   columns (the bias's rows) take their row terms once a tile pair, each
-//   score one FMA for the bias and one for the scale; dS^T keeps its formula
+//   score one FMA for the bias and one for the scale; dS^T keeps its formula;
+//   with dropout (kDropout) K1's keep mask M (common.cuh dropout_keep, its
+//   column a thread's kv row, fixed for the CTA's life, its row the q
+//   column, whose term is formed once a tile pair): dP^T becomes
+//   c M dP^T (c = 1 / (1 - rate)) before dS^T, P^T meets dO as M P^T
+//   and c is folded into dV's write
 //   dV += P^T dO, dK += dS^T Q      A: P^T and dS^T from the accumulators,
 //                                   rounded to bf16; B: dO, Q (ldmatrix.trans)
 //   fused only: dS^T to shared memory (bf16), dQ_tile = scale dS K
@@ -114,8 +119,8 @@ __device__ __forceinline__ void load_tile_async(const bf16* __restrict__ src, in
 // the dQ contributions are added with scale applied. kNoMask reads neither
 // the window nor the segment ids (window 0, seg_q/seg_k null), kWindowMask
 // not the ids. Without kCap, cap_log2 is not read; without kAlibi, slopes
-// ([Hq] float32) are not.
-template <int D, bool kFusedDq, int kMask, bool kCap, bool kAlibi>
+// ([Hq] float32) are not; without kDropout, drop is not.
+template <int D, bool kFusedDq, int kMask, bool kCap, bool kAlibi, bool kDropout>
 __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                          const bf16* __restrict__ v,
                                          const bf16* __restrict__ dout,
@@ -128,7 +133,8 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
                                          const int2* __restrict__ ranges_k,
                                          const float* __restrict__ slopes, int Hq, int Hkv,
                                          int Sq, int Sk, int is_causal, int offset, int window,
-                                         float scale, float scale_log2, float cap_log2) {
+                                         float scale, float scale_log2, float cap_log2,
+                                         const Dropout& drop) {
   static_assert(!(kCap && kAlibi), "ALiBi takes no soft-cap");
   constexpr int kBr = q_rows<D>();
   constexpr int kNThreads = threads<D>();
@@ -140,9 +146,9 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
   constexpr int kQSteps = kBr / 16;  // k-steps of dV and dK
   constexpr int kDTiles = D / 8 / halves<D>();  // their n-tiles: this warp's part of D
   // K's and V's A fragments stay in registers at D 64, but not beside
-  // ALiBi's terms in the fused kernel (with segment ids it spilled 20
-  // bytes): there they are read per k-step, as at D 128.
-  constexpr bool kResident = D == 64 && !(kFusedDq && kAlibi);
+  // ALiBi's terms or dropout's in the fused kernel (with ALiBi and segment
+  // ids it spilled 20 bytes): there they are read per k-step, as at D 128.
+  constexpr bool kResident = D == 64 && !(kFusedDq && (kAlibi || kDropout));
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* vs = ks + kBc * KP;
@@ -251,6 +257,12 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
     for (int i = 0; i < 2; ++i) alibi_col[i] = static_cast<float>(alibi_inner<D>(kv_r0 + 8 * i));
     col_base = kv_r0 - alibi_inner<D>(kv_r0) - offset;
   }
+  // Dropout's column terms: this thread's kv rows kv_r0 + 8i.
+  unsigned drop_col[2] = {0u, 0u};
+  if constexpr (kDropout) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) drop_col[i] = dropout_col(kv_r0 + 8 * i);
+  }
   for (int it = 0; it < n_iters; ++it) {
     cp_async_wait_all();
     __syncthreads();  // tile `it` is in; every warp is done with tile it - 1
@@ -265,6 +277,8 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
     const float* deltab = deltas + buf * kBr;
     const int* segb = segs + buf * kBr;
     const float slope_log2 = kAlibi ? slope_log2_of(slopes, hk * group + it / n_live) : 0.f;
+    const unsigned drop_head =
+        kDropout ? dropout_head(drop, b * Hq + hk * group + it / n_live) : 0u;
     bool seg_mask = false;  // the tile pair needs the id mask
     if constexpr (kMask == kSegmentMask) {
       if (seg) {
@@ -323,8 +337,18 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
         for (int x = 0; x < 2; ++x)
           row_term[x] = slope_log2 * static_cast<float>(col_base - (q0 + c + x));
       }
+      unsigned drop_row[2] = {0u, 0u};  // dropout's, of q rows q0 + c and q0 + c + 1
+      if constexpr (kDropout) {
+#pragma unroll
+        for (int x = 0; x < 2; ++x) drop_row[x] = dropout_row(q0 + c + x, drop_head);
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
+        bool keep = true;  // dropout: dP^T to c M dP^T here, P^T to M P^T below
+        if constexpr (kDropout) {
+          keep = dropout_keep(drop_row[e & 1], drop_col[e >> 1], drop.threshold);
+          dp[j][e] = keep ? dp[j][e] * drop.scale : 0.f;
+        }
         bool live = true;
         if (edge) {
           const int qi = q0 + c + (e & 1), kr = kv_r0 + 8 * (e >> 1);
@@ -349,6 +373,7 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
           s[j][e] = p;
           dp[j][e] = p * (dp[j][e] - dlt[e & 1]);
         }
+        if constexpr (kDropout) s[j][e] = keep ? s[j][e] : 0.f;
       }
       pa[j / 2][2 * (j % 2)] = pack_bf16(s[j][0], s[j][1]);
       pa[j / 2][2 * (j % 2) + 1] = pack_bf16(s[j][2], s[j][3]);
@@ -435,8 +460,12 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
     for (int n = 0; n < kDTiles; ++n) {
       *reinterpret_cast<__nv_bfloat162*>(dk_row + 8 * n) =
           __floats2bfloat162_rn(dk_acc[n][2 * i] * scale, dk_acc[n][2 * i + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv_row + 8 * n) =
-          __floats2bfloat162_rn(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+      if constexpr (kDropout)  // c of c M P^T
+        *reinterpret_cast<__nv_bfloat162*>(dv_row + 8 * n) = __floats2bfloat162_rn(
+            dv_acc[n][2 * i] * drop.scale, dv_acc[n][2 * i + 1] * drop.scale);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(dv_row + 8 * n) =
+            __floats2bfloat162_rn(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
     }
   }
 }

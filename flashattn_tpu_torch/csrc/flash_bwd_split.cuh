@@ -1,7 +1,9 @@
 // Flash-attention backward, split path, for Hopper (sm_90a): the dQ kernel
-// (with delta) and the dK/dV kernel, run one after the other. Two libraries
-// build from this header: flash_bwd.cu (every instantiation without ALiBi)
-// and flash_bwd_alibi.cu (ALiBi's), compiled side by side.
+// (with delta) and the dK/dV kernel, run one after the other. Three
+// libraries build from this header: flash_bwd.cu (every instantiation
+// without ALiBi or dropout), flash_bwd_alibi.cu (ALiBi's) and
+// flash_bwd_dropout.cu (dropout's, with ALiBi or without), compiled side by
+// side.
 //
 // Replaces the TPU kernels flashattn_tpu/ops/flash_bwd.py::_dq_kernel (B4)
 // and ::_dkv_kernel (B5) (launcher flash_attention_backward, :467) on the
@@ -50,7 +52,13 @@
 // that the instantiations without it keep their code (a runtime flag
 // shared by every instantiation slowed the windowed kernels by 23-55 %,
 // PERF.md). The float32
-// kernels take ALiBi as a runtime argument (flash_bwd.cuh p_and_ds). At
+// kernels take ALiBi as a runtime argument (flash_bwd.cuh p_and_ds).
+// Dropout (the JAX kernels' at flash_bwd.py:253-263 and :396-437) is a
+// template flag of every kernel (kDropout), instantiated in its library
+// alone: the forward's keep mask rebuilt from the seed (common.cuh
+// dropout_keep); the dQ kernel takes dP to c M dP before dS (c = 1 / (1 -
+// rate)), its rows' hash terms formed once a CTA and its columns' once a
+// tile; the dK/dV tile as flash_bwd_mma.cuh says. At
 // D 256 the bf16 dQ kernel streams 32-row kv tiles (a warp's
 // 16 x 256 fp32 dQ fills half its registers) and the dK/dV tile runs 8 warps
 // (flash_bwd_mma.cuh); the float32 kernels use 32-row tiles (Tile<256>).
@@ -74,7 +82,7 @@ constexpr size_t dq_smem_bytes() {
 // dQ of one q tile of one q head, and delta = rowsum(dO * O) of its rows,
 // written to delta [B, Hq, Sq] for the dK/dV kernel. Rows that see no key
 // get dQ = 0. float32; bf16 runs flash_bwd_dq_mma_kernel.
-template <typename T, int D>
+template <typename T, int D, bool kDropout>
 __global__ void __launch_bounds__(Tile<D>::kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ o, const T* __restrict__ dout,
@@ -82,7 +90,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     float* __restrict__ delta, const int* __restrict__ seg_q,
                     const int* __restrict__ seg_k, const float* __restrict__ slopes, int Hq,
                     int Hkv, int Sq, int Sk, int is_causal, int offset, int window, float scale,
-                    float scale_log2, float cap_log2) {
+                    float scale_log2, float cap_log2, const fat::Dropout drop) {
   constexpr int kBlock = Tile<D>::kRows;
   constexpr int kThreads = Tile<D>::kThreads;
   constexpr int kPP = Tile<D>::kPP;
@@ -109,6 +117,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const size_t kv_base = (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
   const int qi = q0 + r;
   const int row_seg = seg_q != nullptr && qi < Sq ? seg_q[static_cast<size_t>(b) * Sq + qi] : 0;
+  const unsigned drop_row =
+      kDropout ? fat::dropout_row(qi, fat::dropout_head(drop, b * Hq + h)) : 0u;
 
   fat::load_tile<T, kBlock, D, kThreads>(q + q_base + static_cast<size_t>(q0) * D, Sq - q0, qs, DP);
   fat::load_tile<T, kBlock, D, kThreads>(dout + q_base + static_cast<size_t>(q0) * D, Sq - q0,
@@ -156,6 +166,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       const bool live = col < kv_end && (!is_causal || col <= qi + offset) &&
                         (window == 0 || col >= qi + offset - window + 1) &&
                         (seg_k == nullptr || seg_k[static_cast<size_t>(b) * Sk + col] == row_seg);
+      if constexpr (kDropout)  // dS = P (c M dP - delta)
+        dp[j] = fat::dropout_keep(drop_row, fat::dropout_col(col), drop.threshold)
+                    ? dp[j] * drop.scale
+                    : 0.f;
       dss[r * kPP + c] = fat::round_to<T>(fat::bwd::p_and_ds(
           s[j], dp[j], row_delta, lse2, live, scale_log2, cap_log2, slope_log2, col - qi - offset).y);
     }
@@ -193,10 +207,10 @@ constexpr size_t smem_bytes() {
 
 // The contract of flash_bwd_dq_kernel, for bf16, on the tensor cores.
 // kNoMask reads neither the window nor the segment ids (window 0,
-// seg_q/seg_k null), kWindowMask not the ids; kCap the soft-cap and kAlibi
-// ALiBi (as the dK/dV tile of flash_bwd_mma.cuh), cap_log2 and slopes are
-// not read without them.
-template <int D, int kMask, bool kCap, bool kAlibi>
+// seg_q/seg_k null), kWindowMask not the ids; kCap the soft-cap, kAlibi
+// ALiBi (as the dK/dV tile of flash_bwd_mma.cuh) and kDropout dropout;
+// cap_log2, slopes and drop are not read without them.
+template <int D, int kMask, bool kCap, bool kAlibi, bool kDropout>
 __global__ void __launch_bounds__(fat::bwd::mma::kThreads)
 flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
@@ -206,7 +220,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
                         const int2* __restrict__ ranges_q, const int2* __restrict__ ranges_k,
                         const float* __restrict__ slopes, int Hq, int Hkv, int Sq, int Sk,
                         int is_causal, int offset, int window, float scale, float scale_log2,
-                        float cap_log2) {
+                        float cap_log2, const fat::Dropout drop) {
   static_assert(!(kCap && kAlibi), "ALiBi takes no soft-cap");
   using bf16 = __nv_bfloat16;
   using dq_mma::kBr;
@@ -328,6 +342,13 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   // (kLean) the row terms are formed where used.
   const float slope_log2 = kAlibi ? fat::bwd::slope_log2_of(slopes, h) : 0.f;
   constexpr int kFwdN = fat::bwd::fwd_tile_n<D>();
+  // Dropout's terms of this thread's rows qr0 and qr0 + 8 (bh = b * Hq + h).
+  unsigned drop_row[2] = {0u, 0u};
+  if constexpr (kDropout) {
+    const unsigned head = fat::dropout_head(drop, b * Hq + h);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) drop_row[i] = fat::dropout_row(qr0 + 8 * i, head);
+  }
   const int a_off = wrow * KP + fat::lane_offset<true>(lane, KP);  // Q/dO A fragments
   const int b_off = fat::lane_offset<false>(lane, KP);  // K/V rows as B of S and dP
   const int t_off = fat::lane_offset<true>(lane, KP);   // K as B of dQ (.trans)
@@ -408,11 +429,18 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
     if constexpr (kMask != fat::bwd::kNoMask)
       edge = edge || seg_mask || (window > 0 && n0 < q0 + kBr - 1 + offset - window + 1);
     unsigned dsa[kKvSteps][4];
+    const unsigned drop_col = kDropout ? fat::dropout_col(n0 + 2 * tig) : 0u;
 #pragma unroll
     for (int j = 0; j < kKvTiles; ++j) {
       float ds[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
+        if constexpr (kDropout)  // dS = P (c M dP - delta)
+          dp[j][e] = fat::dropout_keep(drop_row[e >> 1],
+                                       fat::dropout_col_step(drop_col, 8 * j + (e & 1)),
+                                       drop.threshold)
+                         ? dp[j][e] * drop.scale
+                         : 0.f;
         bool live = true;
         if (edge) {
           const int col = n0 + 8 * j + 2 * tig + (e & 1), qi = qr0 + 8 * (e >> 1);
@@ -465,7 +493,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kDropout>
 __global__ void __launch_bounds__(Tile<D>::kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
@@ -473,13 +501,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      const int* __restrict__ seg_q, const int* __restrict__ seg_k,
                      const float* __restrict__ slopes, int Hq, int Hkv, int Sq, int Sk,
                      int is_causal, int offset, int window, float scale, float scale_log2,
-                     float cap_log2) {
-  fat::bwd::dkv_tile<T, D, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, seg_q, seg_k,
-                                  slopes, Hq, Hkv, Sq, Sk, is_causal, offset, window, scale,
-                                  scale_log2, cap_log2);
+                     float cap_log2, const fat::Dropout drop) {
+  fat::bwd::dkv_tile<T, D, false, kDropout>(q, k, v, dout, lse, delta, dk, dv, nullptr, seg_q,
+                                            seg_k, slopes, Hq, Hkv, Sq, Sk, is_causal, offset,
+                                            window, scale, scale_log2, cap_log2, drop);
 }
 
-template <int D, int kMask, bool kCap, bool kAlibi>
+template <int D, int kMask, bool kCap, bool kAlibi, bool kDropout>
 __global__ void __launch_bounds__(fat::bwd::mma::threads<D>())
 flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
@@ -489,10 +517,10 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
                          const int* __restrict__ seg_k, const int2* __restrict__ ranges_q,
                          const int2* __restrict__ ranges_k, const float* __restrict__ slopes,
                          int Hq, int Hkv, int Sq, int Sk, int is_causal, int offset, int window,
-                         float scale, float scale_log2, float cap_log2) {
-  fat::bwd::mma::dkv_tile<D, false, kMask, kCap, kAlibi>(
+                         float scale, float scale_log2, float cap_log2, const fat::Dropout drop) {
+  fat::bwd::mma::dkv_tile<D, false, kMask, kCap, kAlibi, kDropout>(
       q, k, v, dout, lse, delta, dk, dv, nullptr, seg_q, seg_k, ranges_q, ranges_k, slopes, Hq,
-      Hkv, Sq, Sk, is_causal, offset, window, scale, scale_log2, cap_log2);
+      Hkv, Sq, Sk, is_causal, offset, window, scale, scale_log2, cap_log2, drop);
 }
 
 // The mask and logit arguments every launch passes after the pointers it
@@ -507,6 +535,7 @@ struct Mask {
   float scale;       // dQ's and dK's factor
   float scale_log2;  // the logits' factor: scale * log2(e), or scale / cap
   float cap_log2;    // cap * log2(e) with a soft-cap, else 0
+  fat::Dropout drop;  // read by the kDropout kernels alone
   fat::bwd::MaskKind kind() const {
     return seg_q != nullptr ? fat::bwd::kSegmentMask
                             : window > 0 ? fat::bwd::kWindowMask : fat::bwd::kNoMask;
@@ -514,114 +543,117 @@ struct Mask {
   bool cap() const { return cap_log2 > 0.f; }
 };
 
-template <int D, int kMask, bool kCap, bool kAlibi>
+template <int D, int kMask, bool kCap, bool kAlibi, bool kDropout>
 cudaError_t launch_dq_mma(const void* q, const void* k, const void* v, const void* o,
                           const void* dout, const void* lse, void* dq, void* delta, int B, int Hq,
                           int Hkv, int Sq, int Sk, const Mask& m, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   const cudaError_t err =
-      fat::allow_max_smem<flash_bwd_dq_mma_kernel<D, kMask, kCap, kAlibi>>();
+      fat::allow_max_smem<flash_bwd_dq_mma_kernel<D, kMask, kCap, kAlibi, kDropout>>();
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + dq_mma::kBr - 1) / dq_mma::kBr, Hq, B);
-  flash_bwd_dq_mma_kernel<D, kMask, kCap, kAlibi>
+  flash_bwd_dq_mma_kernel<D, kMask, kCap, kAlibi, kDropout>
       <<<grid, fat::bwd::mma::kThreads, dq_mma::smem_bytes<D, kMask>(), stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
           static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
           static_cast<const float*>(lse), static_cast<bf16*>(dq), static_cast<float*>(delta),
           m.seg_q, m.seg_k, m.ranges_q, m.ranges_k, m.slopes, Hq, Hkv, Sq, Sk, m.is_causal,
-          m.offset, m.window, m.scale, m.scale_log2, m.cap_log2);
+          m.offset, m.window, m.scale, m.scale_log2, m.cap_log2, m.drop);
   return cudaGetLastError();
 }
 
-// With kAlibi the bf16 kernels of ALiBi (no cap), else those without it.
-template <typename T, int D, bool kAlibi>
+// With kAlibi the bf16 kernels of ALiBi (no cap), else those without it;
+// with kDropout those of dropout, else those without it.
+template <typename T, int D, bool kAlibi, bool kDropout>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const void* lse, void* dq, void* delta, int B, int Hq,
                       int Hkv, int Sq, int Sk, const Mask& m, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     using fat::bwd::kNoMask, fat::bwd::kSegmentMask, fat::bwd::kWindowMask;
     const auto kind = m.kind();
+    constexpr bool X = kDropout;
     if constexpr (kAlibi) {
-      const auto fn = kind == kSegmentMask  ? launch_dq_mma<D, kSegmentMask, false, true>
-                      : kind == kWindowMask ? launch_dq_mma<D, kWindowMask, false, true>
-                                            : launch_dq_mma<D, kNoMask, false, true>;
+      const auto fn = kind == kSegmentMask  ? launch_dq_mma<D, kSegmentMask, false, true, X>
+                      : kind == kWindowMask ? launch_dq_mma<D, kWindowMask, false, true, X>
+                                            : launch_dq_mma<D, kNoMask, false, true, X>;
       return fn(q, k, v, o, dout, lse, dq, delta, B, Hq, Hkv, Sq, Sk, m, stream);
     } else {
       const auto fn =
-          m.cap() ? (kind == kSegmentMask  ? launch_dq_mma<D, kSegmentMask, true, false>
-                     : kind == kWindowMask ? launch_dq_mma<D, kWindowMask, true, false>
-                                           : launch_dq_mma<D, kNoMask, true, false>)
-                  : (kind == kSegmentMask  ? launch_dq_mma<D, kSegmentMask, false, false>
-                     : kind == kWindowMask ? launch_dq_mma<D, kWindowMask, false, false>
-                                           : launch_dq_mma<D, kNoMask, false, false>);
+          m.cap() ? (kind == kSegmentMask  ? launch_dq_mma<D, kSegmentMask, true, false, X>
+                     : kind == kWindowMask ? launch_dq_mma<D, kWindowMask, true, false, X>
+                                           : launch_dq_mma<D, kNoMask, true, false, X>)
+                  : (kind == kSegmentMask  ? launch_dq_mma<D, kSegmentMask, false, false, X>
+                     : kind == kWindowMask ? launch_dq_mma<D, kWindowMask, false, false, X>
+                                           : launch_dq_mma<D, kNoMask, false, false, X>);
       return fn(q, k, v, o, dout, lse, dq, delta, B, Hq, Hkv, Sq, Sk, m, stream);
     }
   } else {
-    const cudaError_t err = fat::allow_max_smem<flash_bwd_dq_kernel<T, D>>();
+    const cudaError_t err = fat::allow_max_smem<flash_bwd_dq_kernel<T, D, kDropout>>();
     if (err != cudaSuccess) return err;
     const dim3 grid((Sq + Tile<D>::kRows - 1) / Tile<D>::kRows, Hq, B);
-    flash_bwd_dq_kernel<T, D><<<grid, Tile<D>::kThreads, dq_smem_bytes<D>(), stream>>>(
+    flash_bwd_dq_kernel<T, D, kDropout><<<grid, Tile<D>::kThreads, dq_smem_bytes<D>(), stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<const float*>(lse),
         static_cast<T*>(dq), static_cast<float*>(delta), m.seg_q, m.seg_k, m.slopes, Hq, Hkv,
-        Sq, Sk, m.is_causal, m.offset, m.window, m.scale, m.scale_log2, m.cap_log2);
+        Sq, Sk, m.is_causal, m.offset, m.window, m.scale, m.scale_log2, m.cap_log2, m.drop);
     return cudaGetLastError();
   }
 }
 
-template <int D, int kMask, bool kCap, bool kAlibi>
+template <int D, int kMask, bool kCap, bool kAlibi, bool kDropout>
 cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, void* dk, void* dv, int B, int Hq,
                            int Hkv, int Sq, int Sk, const Mask& m, cudaStream_t stream) {
   namespace mma = fat::bwd::mma;
   using bf16 = __nv_bfloat16;
   const cudaError_t err =
-      fat::allow_max_smem<flash_bwd_dkv_mma_kernel<D, kMask, kCap, kAlibi>>();
+      fat::allow_max_smem<flash_bwd_dkv_mma_kernel<D, kMask, kCap, kAlibi, kDropout>>();
   if (err != cudaSuccess) return err;
   const dim3 grid(Hkv, B, (Sk + mma::kBc - 1) / mma::kBc);
-  flash_bwd_dkv_mma_kernel<D, kMask, kCap, kAlibi>
+  flash_bwd_dkv_mma_kernel<D, kMask, kCap, kAlibi, kDropout>
       <<<grid, mma::threads<D>(), mma::smem_bytes<D, false, kMask>(), stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
           static_cast<const bf16*>(dout), static_cast<const float*>(lse),
           static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
           m.seg_q, m.seg_k, m.ranges_q, m.ranges_k, m.slopes, Hq, Hkv, Sq, Sk, m.is_causal,
-          m.offset, m.window, m.scale, m.scale_log2, m.cap_log2);
+          m.offset, m.window, m.scale, m.scale_log2, m.cap_log2, m.drop);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool kAlibi>
+template <typename T, int D, bool kAlibi, bool kDropout>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int B, int Hq,
                        int Hkv, int Sq, int Sk, const Mask& m, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     using fat::bwd::kNoMask, fat::bwd::kSegmentMask, fat::bwd::kWindowMask;
     const auto kind = m.kind();
+    constexpr bool X = kDropout;
     if constexpr (kAlibi) {
-      const auto fn = kind == kSegmentMask  ? launch_dkv_mma<D, kSegmentMask, false, true>
-                      : kind == kWindowMask ? launch_dkv_mma<D, kWindowMask, false, true>
-                                            : launch_dkv_mma<D, kNoMask, false, true>;
+      const auto fn = kind == kSegmentMask  ? launch_dkv_mma<D, kSegmentMask, false, true, X>
+                      : kind == kWindowMask ? launch_dkv_mma<D, kWindowMask, false, true, X>
+                                            : launch_dkv_mma<D, kNoMask, false, true, X>;
       return fn(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk, m, stream);
     } else {
       const auto fn =
-          m.cap() ? (kind == kSegmentMask  ? launch_dkv_mma<D, kSegmentMask, true, false>
-                     : kind == kWindowMask ? launch_dkv_mma<D, kWindowMask, true, false>
-                                           : launch_dkv_mma<D, kNoMask, true, false>)
-                  : (kind == kSegmentMask  ? launch_dkv_mma<D, kSegmentMask, false, false>
-                     : kind == kWindowMask ? launch_dkv_mma<D, kWindowMask, false, false>
-                                           : launch_dkv_mma<D, kNoMask, false, false>);
+          m.cap() ? (kind == kSegmentMask  ? launch_dkv_mma<D, kSegmentMask, true, false, X>
+                     : kind == kWindowMask ? launch_dkv_mma<D, kWindowMask, true, false, X>
+                                           : launch_dkv_mma<D, kNoMask, true, false, X>)
+                  : (kind == kSegmentMask  ? launch_dkv_mma<D, kSegmentMask, false, false, X>
+                     : kind == kWindowMask ? launch_dkv_mma<D, kWindowMask, false, false, X>
+                                           : launch_dkv_mma<D, kNoMask, false, false, X>);
       return fn(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk, m, stream);
     }
   } else {
-    const cudaError_t err = fat::allow_max_smem<flash_bwd_dkv_kernel<T, D>>();
+    const cudaError_t err = fat::allow_max_smem<flash_bwd_dkv_kernel<T, D, kDropout>>();
     if (err != cudaSuccess) return err;
     const dim3 grid((Sk + Tile<D>::kRows - 1) / Tile<D>::kRows, Hkv, B);
-    flash_bwd_dkv_kernel<T, D>
+    flash_bwd_dkv_kernel<T, D, kDropout>
         <<<grid, Tile<D>::kThreads, fat::bwd::dkv_smem_bytes<D>(), stream>>>(
             static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
             static_cast<const T*>(dout), static_cast<const float*>(lse),
             static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), m.seg_q,
             m.seg_k, m.slopes, Hq, Hkv, Sq, Sk, m.is_causal, m.offset, m.window, m.scale,
-            m.scale_log2, m.cap_log2);
+            m.scale_log2, m.cap_log2, m.drop);
     return cudaGetLastError();
   }
 }
@@ -652,26 +684,29 @@ bool bad_args(int B, int Hq, int Hkv, int Sq, int Sk, const Mask& m) {
 // the exp2 domain (scale_log2 = scale * log2(e)), or with cap_log2 > 0 (the
 // soft-cap: cap * log2(e), and scale_log2 then scale / cap)
 // tanh(s * scale_log2) * cap_log2, as the forward made them; ALiBi adds
-// slopes[h] * log2(e) * (c - r - offset). D is 64, 128 or 256. Writes dq
-// (q's dtype, scale applied) and delta. Returns the CUDA error code
-// (0 = success).
-template <bool kAlibi>
+// slopes[h] * log2(e) * (c - r - offset). With kDropout (the library
+// flash_bwd_dropout.cu, ALiBi or not) the forward's keep mask of drop
+// drops dP in dS. D is 64, 128 or 256. Writes dq (q's dtype, scale
+// applied) and delta. Returns the CUDA error code (0 = success).
+template <bool kAlibi, bool kDropout>
 int dq_launch_impl(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const void* lse, void* dq, void* delta, const int* seg_q, const int* seg_k,
                    const int2* ranges_q, const int2* ranges_k, const float* slopes, int B, int Hq,
                    int Hkv, int Sq, int Sk, int D, int dtype, int is_causal, int offset,
-                   int window, float scale, float scale_log2, float cap_log2, void* stream) {
-  const Mask m{seg_q,     seg_k,  ranges_q, ranges_k, slopes,     is_causal,
-               offset,    window, scale,    scale_log2, cap_log2};
+                   int window, float scale, float scale_log2, float cap_log2,
+                   const fat::Dropout& drop, void* stream) {
+  const Mask m{seg_q,  seg_k, ranges_q,   ranges_k, slopes, is_causal, offset,
+               window, scale, scale_log2, cap_log2, drop};
   if (bad_args<kAlibi>(B, Hq, Hkv, Sq, Sk, m)) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  const auto fn = dtype == fat::kBF16 ? (D == 64    ? launch_dq<__nv_bfloat16, 64, kAlibi>
-                                         : D == 128 ? launch_dq<__nv_bfloat16, 128, kAlibi>
-                                         : D == 256 ? launch_dq<__nv_bfloat16, 256, kAlibi>
+  constexpr bool A = kAlibi, X = kDropout;
+  const auto fn = dtype == fat::kBF16 ? (D == 64    ? launch_dq<__nv_bfloat16, 64, A, X>
+                                         : D == 128 ? launch_dq<__nv_bfloat16, 128, A, X>
+                                         : D == 256 ? launch_dq<__nv_bfloat16, 256, A, X>
                                                     : nullptr)
-                  : dtype == fat::kF32 ? (D == 64    ? launch_dq<float, 64, kAlibi>
-                                          : D == 128 ? launch_dq<float, 128, kAlibi>
-                                          : D == 256 ? launch_dq<float, 256, kAlibi>
+                  : dtype == fat::kF32 ? (D == 64    ? launch_dq<float, 64, A, X>
+                                          : D == 128 ? launch_dq<float, 128, A, X>
+                                          : D == 256 ? launch_dq<float, 256, A, X>
                                                      : nullptr)
                                        : nullptr;
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -680,25 +715,26 @@ int dq_launch_impl(const void* q, const void* k, const void* v, const void* o, c
 
 // Same layout, mask and logits; reads the delta written by the dQ launch
 // and writes dk (scale applied) and dv in k's dtype, every row, summed over
-// each kv head's q heads.
-template <bool kAlibi>
+// each kv head's q heads; with kDropout drops P in dV and dP in dS.
+template <bool kAlibi, bool kDropout>
 int dkv_launch_impl(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, void* dk, void* dv, const int* seg_q,
                     const int* seg_k, const int2* ranges_q, const int2* ranges_k,
                     const float* slopes, int B, int Hq, int Hkv, int Sq, int Sk, int D, int dtype,
                     int is_causal, int offset, int window, float scale, float scale_log2,
-                    float cap_log2, void* stream) {
-  const Mask m{seg_q,     seg_k,  ranges_q, ranges_k, slopes,     is_causal,
-               offset,    window, scale,    scale_log2, cap_log2};
+                    float cap_log2, const fat::Dropout& drop, void* stream) {
+  const Mask m{seg_q,  seg_k, ranges_q,   ranges_k, slopes, is_causal, offset,
+               window, scale, scale_log2, cap_log2, drop};
   if (bad_args<kAlibi>(B, Hq, Hkv, Sq, Sk, m)) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  const auto fn = dtype == fat::kBF16 ? (D == 64    ? launch_dkv<__nv_bfloat16, 64, kAlibi>
-                                         : D == 128 ? launch_dkv<__nv_bfloat16, 128, kAlibi>
-                                         : D == 256 ? launch_dkv<__nv_bfloat16, 256, kAlibi>
+  constexpr bool A = kAlibi, X = kDropout;
+  const auto fn = dtype == fat::kBF16 ? (D == 64    ? launch_dkv<__nv_bfloat16, 64, A, X>
+                                         : D == 128 ? launch_dkv<__nv_bfloat16, 128, A, X>
+                                         : D == 256 ? launch_dkv<__nv_bfloat16, 256, A, X>
                                                     : nullptr)
-                  : dtype == fat::kF32 ? (D == 64    ? launch_dkv<float, 64, kAlibi>
-                                          : D == 128 ? launch_dkv<float, 128, kAlibi>
-                                          : D == 256 ? launch_dkv<float, 256, kAlibi>
+                  : dtype == fat::kF32 ? (D == 64    ? launch_dkv<float, 64, A, X>
+                                          : D == 128 ? launch_dkv<float, 128, A, X>
+                                          : D == 256 ? launch_dkv<float, 256, A, X>
                                                      : nullptr)
                                        : nullptr;
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);

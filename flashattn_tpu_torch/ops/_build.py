@@ -23,7 +23,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "flashattn
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # C signatures of each library's entry points: {function: argtypes}.
 ENTRY_POINTS = {
     "flash_fwd": {"flash_fwd_launch": [_P] * 10 + [_I] * 10 + [_F, _F, _P]},
@@ -36,6 +36,11 @@ ENTRY_POINTS = {
 # The library of a kernel's ALiBi instantiations has its sibling's entry points.
 ENTRY_POINTS.update({f"{name}_alibi": ENTRY_POINTS[name]
                      for name in ("decode", "flash_bwd", "flash_bwd_fused")})
+# The dropout libraries' take the dropout's seed (a pointer to it on the
+# device), threshold and scale before the stream (ops/flash_fwd.py::dropout_args).
+ENTRY_POINTS.update({f"{name}_dropout": {fn: args[:-1] + [_P, _U, _F, _P]
+                                         for fn, args in ENTRY_POINTS[name].items()}
+                     for name in ("flash_fwd", "flash_bwd", "flash_bwd_fused")})
 
 _loaded: dict[str, ctypes.CDLL] = {}
 # Seconds spent compiling per library in this process (0.0 when loaded from

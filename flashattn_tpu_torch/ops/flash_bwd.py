@@ -40,19 +40,21 @@ from flashattn_tpu_torch.ops.flash_bwd_fused import (
     launch_args,
     require_cuda,
 )
-from flashattn_tpu_torch.ops.common import check_softcap
+from flashattn_tpu_torch.ops.common import check_dropout, check_softcap
 from flashattn_tpu_torch.ops.flash_fwd import (
     alibi_table,
     check_forward_unported,
     check_segments,
     check_window,
+    device_seed,
+    dropout_args,
     kernel_segments,
 )
 from flashattn_tpu_torch.ops.reference import reference_attention_backward
 
 # Kernel launches in this process (set to 0 by callers that count a run):
 # each kernel's, and those with a sliding window, with segment ids, with a
-# logit soft-cap and with ALiBi.
+# logit soft-cap, with ALiBi and with dropout.
 DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
 DQ_WINDOW_LAUNCHES = 0
@@ -63,6 +65,8 @@ DQ_SOFTCAP_LAUNCHES = 0
 DKV_SOFTCAP_LAUNCHES = 0
 DQ_ALIBI_LAUNCHES = 0
 DKV_ALIBI_LAUNCHES = 0
+DQ_DROPOUT_LAUNCHES = 0
+DKV_DROPOUT_LAUNCHES = 0
 
 # Head dims the backward kernels take (the forward's: flash_fwd.HEAD_DIMS).
 HEAD_DIMS = (64, 128, 256)
@@ -86,14 +90,18 @@ def flash_attention_backward_reference(
     logit_softcap: float | None = None,
     alibi: bool = False,
     alibi_slopes: torch.Tensor | None = None,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the backward kernels (B3, B4 and B5), on any
     device."""
     check_window(window, is_causal)
     segment_ids = check_segments(segment_ids, q, k)
     slopes = alibi_table(alibi, alibi_slopes, q.shape[1], q.device, check_softcap(logit_softcap))
+    rate = check_dropout(dropout_rate, dropout_seed)
     return reference_attention_backward(q, k, v, o, do, lse, is_causal, scale,
-                                        pos_offset, window, segment_ids, logit_softcap, slopes)
+                                        pos_offset, window, segment_ids, logit_softcap, slopes,
+                                        rate, dropout_seed)
 
 
 def resolve_impl(impl: str, shape: tuple | None = None) -> str:
@@ -126,6 +134,7 @@ def flash_attention_backward(
     *,
     segment_ids=None,
     dropout_rate: float = 0.0,
+    dropout_seed=None,
     window: int | None = None,
     logit_softcap: float | None = None,
     alibi: bool = False,
@@ -138,8 +147,9 @@ def flash_attention_backward(
       q, o, do: [B, Hq, S_q, D]; k, v: [B, Hkv, S_k, D]; lse: [B, Hq, S_q]
         float32, natural log, as flash_attention_forward returns it.
       is_causal, scale, pos_offset, window, segment_ids, logit_softcap,
-        alibi, alibi_slopes: as in the forward call that made o and lse
-        (ALiBi with a soft-cap raises ValueError, as there).
+        alibi, alibi_slopes, dropout_rate, dropout_seed: as in the forward
+        call that made o and lse (ALiBi with a soft-cap raises ValueError,
+        as there; the same seed rebuilds the forward's dropout mask).
       impl: "auto", "fused" or "split" (module docstring; the CPU's plain
         version serves all three).
 
@@ -152,7 +162,7 @@ def flash_attention_backward(
     must be contiguous, 16-byte aligned bf16 or float32 with D in
     HEAD_DIMS, and lse contiguous float32; anything else raises.
     """
-    check_forward_unported(dropout_rate, dyn_pos_offset)
+    check_forward_unported(dyn_pos_offset)
     check_backward_operands(q, k, v, o, do, lse, HEAD_DIMS)
     shape = (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3], is_causal, q.dtype)
     impl = resolve_impl(impl, shape if q.is_cuda else None)
@@ -160,7 +170,9 @@ def flash_attention_backward(
     segment_ids = check_segments(segment_ids, q, k)
     cap = check_softcap(logit_softcap)
     slopes = alibi_table(alibi, alibi_slopes, q.shape[1], q.device, cap)
-    bias = dict(alibi=slopes is not None, alibi_slopes=slopes)
+    rate = check_dropout(dropout_rate, dropout_seed)
+    bias = dict(alibi=slopes is not None, alibi_slopes=slopes, dropout_rate=rate,
+                dropout_seed=dropout_seed)
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, o, do, lse, is_causal, scale,
                                                   pos_offset, window, segment_ids, cap, **bias)
@@ -174,25 +186,30 @@ def flash_attention_backward(
     return dq, dk, dv
 
 
-def _library(slopes) -> str:
-    """The split kernels' library: ALiBi's instantiations are one of their
-    own (csrc/flash_bwd_alibi.cu)."""
-    return "flash_bwd" if slopes is None else "flash_bwd_alibi"
+def _library(slopes, rate: float) -> str:
+    """The split kernels' library: dropout's instantiations (with ALiBi or
+    without) are one of their own (csrc/flash_bwd_dropout.cu), and so are
+    ALiBi's without dropout (csrc/flash_bwd_alibi.cu)."""
+    return ("flash_bwd_dropout" if rate else "flash_bwd" if slopes is None
+            else "flash_bwd_alibi")
 
 
 def flash_bwd_dq(q, k, v, o, do, lse, is_causal=False, scale=None, pos_offset=None,
                  window=None, segment_ids=None, logit_softcap=None, alibi=False,
-                 alibi_slopes=None):
+                 alibi_slopes=None, dropout_rate=0.0, dropout_seed=None):
     """B4's port on CUDA operands checked by flash_attention_backward:
     (dQ in q.dtype, delta = rowsum(dO * O) float32 [B, Hq, S_q]);
     logit_softcap as common.check_softcap returns it; alibi and alibi_slopes
-    as the forward takes them (flash_fwd.alibi_table)."""
+    as the forward takes them (flash_fwd.alibi_table); dropout_rate as
+    common.check_dropout returns it, with the forward's dropout_seed."""
     require_cuda(q)
     segs = kernel_segments(segment_ids)
     slopes = alibi_table(alibi, alibi_slopes, q.shape[1], q.device, logit_softcap)
     dq = torch.empty_like(q)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    lib = _build.load(_library(slopes))
+    seed = device_seed(dropout_seed, q.device) if dropout_rate else None
+    drop = dropout_args(dropout_rate, seed) if dropout_rate else ()
+    lib = _build.load(_library(slopes, dropout_rate))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_bwd_dq_launch(
@@ -200,30 +217,33 @@ def flash_bwd_dq(q, k, v, o, do, lse, is_causal=False, scale=None, pos_offset=No
             lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
             *launch_args(q, k, is_causal, scale, pos_offset, window, segs, logit_softcap,
                          slopes),
-            stream)
+            *drop, stream)
     _build.check(lib, rc, "flash_bwd_dq")
     global DQ_LAUNCHES, DQ_WINDOW_LAUNCHES, DQ_SEGMENT_LAUNCHES, DQ_SOFTCAP_LAUNCHES
-    global DQ_ALIBI_LAUNCHES
+    global DQ_ALIBI_LAUNCHES, DQ_DROPOUT_LAUNCHES
     DQ_LAUNCHES += 1
     DQ_WINDOW_LAUNCHES += window is not None
     DQ_SEGMENT_LAUNCHES += segment_ids is not None
     DQ_SOFTCAP_LAUNCHES += logit_softcap is not None
     DQ_ALIBI_LAUNCHES += slopes is not None
+    DQ_DROPOUT_LAUNCHES += dropout_rate > 0
     return dq, delta
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, is_causal=False, scale=None, pos_offset=None,
                   window=None, segment_ids=None, logit_softcap=None, alibi=False,
-                  alibi_slopes=None):
+                  alibi_slopes=None, dropout_rate=0.0, dropout_seed=None):
     """B5's port on CUDA operands checked by flash_attention_backward, with
-    flash_bwd_dq's delta: (dK, dV) in k.dtype; logit_softcap, alibi and
-    alibi_slopes as flash_bwd_dq takes them."""
+    flash_bwd_dq's delta: (dK, dV) in k.dtype; logit_softcap, alibi,
+    alibi_slopes, dropout_rate and dropout_seed as flash_bwd_dq takes them."""
     require_cuda(q)
     segs = kernel_segments(segment_ids)
     slopes = alibi_table(alibi, alibi_slopes, q.shape[1], q.device, logit_softcap)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lib = _build.load(_library(slopes))
+    seed = device_seed(dropout_seed, q.device) if dropout_rate else None
+    drop = dropout_args(dropout_rate, seed) if dropout_rate else ()
+    lib = _build.load(_library(slopes, dropout_rate))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_bwd_dkv_launch(
@@ -231,13 +251,14 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, is_causal=False, scale=None, pos_offs
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             *launch_args(q, k, is_causal, scale, pos_offset, window, segs, logit_softcap,
                          slopes),
-            stream)
+            *drop, stream)
     _build.check(lib, rc, "flash_bwd_dkv")
     global DKV_LAUNCHES, DKV_WINDOW_LAUNCHES, DKV_SEGMENT_LAUNCHES, DKV_SOFTCAP_LAUNCHES
-    global DKV_ALIBI_LAUNCHES
+    global DKV_ALIBI_LAUNCHES, DKV_DROPOUT_LAUNCHES
     DKV_LAUNCHES += 1
     DKV_WINDOW_LAUNCHES += window is not None
     DKV_SEGMENT_LAUNCHES += segment_ids is not None
     DKV_SOFTCAP_LAUNCHES += logit_softcap is not None
     DKV_ALIBI_LAUNCHES += slopes is not None
+    DKV_DROPOUT_LAUNCHES += dropout_rate > 0
     return dk, dv

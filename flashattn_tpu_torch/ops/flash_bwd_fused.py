@@ -14,7 +14,9 @@ ops/flash_bwd.py's "split" path is. A sliding window, segment ids, a logit
 soft-cap and ALiBi run in the kernel's instantiation for them (ALiBi's in a
 library of their own, csrc/flash_bwd_fused_alibi.cu); a launch with one
 also counts in WINDOW_LAUNCHES, SEGMENT_LAUNCHES, SOFTCAP_LAUNCHES or
-ALIBI_LAUNCHES.
+ALIBI_LAUNCHES. Dropout (the forward's rate and seed: the kernel rebuilds
+its keep mask) runs the instantiations of csrc/flash_bwd_fused_dropout.cu,
+every option beside it, and counts in DROPOUT_LAUNCHES.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from flashattn_tpu_torch.ops.flash_fwd import (
     alibi_table,
     check_kernel_operands,
     check_qkv,
+    device_seed,
+    dropout_args,
     kernel_segments,
     logit_factors,
     pointers,
@@ -35,12 +39,13 @@ from flashattn_tpu_torch.ops.flash_fwd import (
 
 # Kernel launches in this process (set to 0 by callers that count a run):
 # all, with a sliding window, with segment ids, with a logit soft-cap, with
-# ALiBi.
+# ALiBi, with dropout.
 LAUNCHES = 0
 WINDOW_LAUNCHES = 0
 SEGMENT_LAUNCHES = 0
 SOFTCAP_LAUNCHES = 0
 ALIBI_LAUNCHES = 0
+DROPOUT_LAUNCHES = 0
 
 
 def check_backward_operands(q, k, v, o, do, lse, head_dims: tuple[int, ...]) -> None:
@@ -105,11 +110,14 @@ def flash_attention_backward_fused(
     logit_softcap: float | None = None,
     alibi: bool = False,
     alibi_slopes: torch.Tensor | None = None,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """B3's port on CUDA operands checked by flash_attention_backward:
     (dQ in q.dtype, dK and dV in k.dtype); logit_softcap as
     common.check_softcap returns it; alibi and alibi_slopes as the forward
-    takes them (flash_fwd.alibi_table)."""
+    takes them (flash_fwd.alibi_table); dropout_rate as
+    common.check_dropout returns it, with the forward's dropout_seed."""
     require_cuda(q)
     segs = kernel_segments(segment_ids)
     slopes = alibi_table(alibi, alibi_slopes, q.shape[1], q.device, logit_softcap)
@@ -118,18 +126,23 @@ def flash_attention_backward_fused(
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    lib = _build.load("flash_bwd_fused" if slopes is None else "flash_bwd_fused_alibi")
+    seed = device_seed(dropout_seed, q.device) if dropout_rate else None
+    drop = dropout_args(dropout_rate, seed) if dropout_rate else ()
+    lib = _build.load("flash_bwd_fused_dropout" if dropout_rate
+                      else "flash_bwd_fused" if slopes is None else "flash_bwd_fused_alibi")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_bwd_fused_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            delta.data_ptr(), *args, stream)
+            delta.data_ptr(), *args, *drop, stream)
     _build.check(lib, rc, "flash_bwd_fused")
     global LAUNCHES, WINDOW_LAUNCHES, SEGMENT_LAUNCHES, SOFTCAP_LAUNCHES, ALIBI_LAUNCHES
+    global DROPOUT_LAUNCHES
     LAUNCHES += 1
     WINDOW_LAUNCHES += window is not None
     SEGMENT_LAUNCHES += segment_ids is not None
     SOFTCAP_LAUNCHES += logit_softcap is not None
     ALIBI_LAUNCHES += slopes is not None
+    DROPOUT_LAUNCHES += dropout_rate > 0
     return dq_acc.to(q.dtype), dk, dv

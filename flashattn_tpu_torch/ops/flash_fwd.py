@@ -13,6 +13,14 @@ query head's slope under GQA). The kernels read the (Hq,) float32 slope
 table from device memory (``alibi_table``); the standard table is built
 once per head count and device, so a captured call reads a buffer that
 outlives it.
+
+Attention dropout (``dropout_rate`` > 0 with ``dropout_seed``) keeps the
+unnormalised probabilities that meet V where common.dropout_keep_mask
+keeps them, times 1 / (1 - rate), and zeroes the others; the LSE stays
+that without dropout. Its kernels are a library of their own
+(csrc/flash_fwd_dropout.cu), every option beside it; a rate of 0 runs the
+library without dropout. ``dyn_pos_offset`` still raises (ROADMAP A4, whose
+remainder it is; only ring attention, A9, passes it).
 """
 
 from __future__ import annotations
@@ -22,19 +30,28 @@ import functools
 import torch
 
 from flashattn_tpu_torch.ops import _build
-from flashattn_tpu_torch.ops.common import LOG2E, cdiv, check_softcap, unported
+from flashattn_tpu_torch.ops.common import (
+    LOG2E,
+    cdiv,
+    check_dropout,
+    check_softcap,
+    dropout_scale,
+    dropout_threshold,
+    unported,
+)
 from flashattn_tpu_torch.ops.reference import reference_attention_with_lse
 
 # Kernel launches in this process (set to 0 by callers that count a run):
 # all of them, those with a sliding window, those with segment ids, those
-# with a logit soft-cap, those with ALiBi and those with ALiBi and segment
-# ids (a launch counts in each that applies).
+# with a logit soft-cap, those with ALiBi, those with ALiBi and segment
+# ids and those with dropout (a launch counts in each that applies).
 LAUNCHES = 0
 WINDOW_LAUNCHES = 0
 SEGMENT_LAUNCHES = 0
 SOFTCAP_LAUNCHES = 0
 ALIBI_LAUNCHES = 0
 ALIBI_SEGMENT_LAUNCHES = 0
+DROPOUT_LAUNCHES = 0
 
 # Head dims K1, K2 and the backward kernels take.
 HEAD_DIMS = (64, 128, 256)
@@ -97,13 +114,17 @@ def flash_attention_forward_reference(
     logit_softcap: float | None = None,
     alibi: bool = False,
     alibi_slopes: torch.Tensor | None = None,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Plain PyTorch version of K1, on any device."""
     check_window(window, is_causal)
     segment_ids = check_segments(segment_ids, q, k)
     slopes = alibi_table(alibi, alibi_slopes, q.shape[1], q.device, check_softcap(logit_softcap))
+    rate = check_dropout(dropout_rate, dropout_seed)
     o, lse = reference_attention_with_lse(q, k, v, is_causal, scale, pos_offset, window,
-                                          segment_ids, logit_softcap, slopes)
+                                          segment_ids, logit_softcap, slopes, rate,
+                                          dropout_seed)
     return o, (lse if need_lse else None)
 
 
@@ -163,6 +184,26 @@ def kernel_segments(segment_ids) -> tuple:
     return seg_q, seg_k, id_ranges(seg_q), id_ranges(seg_k)
 
 
+def device_seed(seed, device: torch.device) -> torch.Tensor:
+    """The dropout seed (checked by common.check_dropout) as the kernels
+    read it, a one-element int32 tensor on the card: a seed tensor there
+    as it is (never read on the host: a captured call reads it at each
+    replay); an int, or a tensor on the CPU, written by a fill kernel (no
+    host-to-device copy, so a captured call takes it too)."""
+    if isinstance(seed, torch.Tensor) and seed.device.type == "cuda":
+        if seed.device != device:
+            raise ValueError(f"dropout_seed is on {seed.device}, q on {device}")
+        return seed
+    return torch.full((1,), int(seed), dtype=torch.int32, device=device)
+
+
+def dropout_args(rate: float, seed: torch.Tensor) -> tuple:
+    """(seed pointer, threshold, scale), the dropout libraries' last
+    arguments before the stream, for a rate checked by common.check_dropout
+    and device_seed's tensor, which the caller holds until the launch."""
+    return seed.data_ptr(), dropout_threshold(rate), dropout_scale(rate)
+
+
 def pointers(*tensors) -> tuple:
     """Device pointers of the tensors, NULL for None."""
     return tuple(None if t is None else t.data_ptr() for t in tensors)
@@ -213,6 +254,7 @@ def flash_attention_forward(
     *,
     segment_ids=None,
     dropout_rate: float = 0.0,
+    dropout_seed=None,
     window: int | None = None,
     logit_softcap: float | None = None,
     alibi: bool = False,
@@ -240,6 +282,12 @@ def flash_attention_forward(
         (packed documents: the global positions' distance, which within a
         document is its own), not with a soft-cap (ValueError).
       alibi_slopes: the (Hq,) slopes; None takes default_alibi_slopes.
+      dropout_rate: attention dropout in [0, 1) (module docstring), beside
+        every option above; 0 is off.
+      dropout_seed: needed when dropout_rate > 0: an int32 int or a
+        one-element int32 tensor (on the card: read there, never on the
+        host). The mask keys on bh = b * Hq + h and the arrays' row and
+        column, so the backward, given the same seed, rebuilds it.
 
     Returns:
       (O [B, Hq, S_q, D] in q.dtype, LSE [B, Hq, S_q] float32 natural log or
@@ -250,15 +298,16 @@ def flash_attention_forward(
     anything else raises. bf16 runs the wgmma kernel, float32 the CUDA-core
     kernel.
     """
-    check_forward_unported(dropout_rate, dyn_pos_offset)
+    check_forward_unported(dyn_pos_offset)
     check_qkv(q, k, v)
     check_window(window, is_causal)
     segment_ids = check_segments(segment_ids, q, k)
     cap = check_softcap(logit_softcap)
+    rate = check_dropout(dropout_rate, dropout_seed)
     if q.device.type == "cpu":
         return flash_attention_forward_reference(q, k, v, is_causal, scale, pos_offset,
                                                  need_lse, window, segment_ids, cap, alibi,
-                                                 alibi_slopes)
+                                                 alibi_slopes, rate, dropout_seed)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     b, hq, s_q, d = q.shape
@@ -274,23 +323,26 @@ def flash_attention_forward(
            if need_lse else None)
     segs = kernel_segments(segment_ids)
     pre, cap_log2 = logit_factors(scale, cap)
-    lib = _build.load("flash_fwd")
+    seed = device_seed(dropout_seed, q.device) if rate else None
+    drop = dropout_args(rate, seed) if rate else ()
+    lib = _build.load("flash_fwd_dropout" if rate else "flash_fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if need_lse else None, *pointers(*segs, slopes),
             b, hq, hkv, s_q, s_k, d, DTYPE_CODES[q.dtype], int(is_causal),
-            offset, min(window or 0, WINDOW_MAX), pre, cap_log2, stream)
+            offset, min(window or 0, WINDOW_MAX), pre, cap_log2, *drop, stream)
     _build.check(lib, rc, "flash_fwd")
     global LAUNCHES, WINDOW_LAUNCHES, SEGMENT_LAUNCHES, SOFTCAP_LAUNCHES, ALIBI_LAUNCHES
-    global ALIBI_SEGMENT_LAUNCHES
+    global ALIBI_SEGMENT_LAUNCHES, DROPOUT_LAUNCHES
     LAUNCHES += 1
     WINDOW_LAUNCHES += window is not None
     SEGMENT_LAUNCHES += segment_ids is not None
     SOFTCAP_LAUNCHES += cap is not None
     ALIBI_LAUNCHES += slopes is not None
     ALIBI_SEGMENT_LAUNCHES += slopes is not None and segment_ids is not None
+    DROPOUT_LAUNCHES += rate > 0
     return o, lse
 
 
@@ -302,10 +354,9 @@ def logit_factors(scale: float, cap: float | None) -> tuple[float, float]:
     return (scale * LOG2E, 0.0) if cap is None else (scale / cap, cap * LOG2E)
 
 
-def check_forward_unported(dropout_rate=0.0, dyn_pos_offset=None) -> None:
-    """Raise NotImplementedError (ROADMAP A4) for an option of the JAX
-    forward kernel that K1 does not compute yet."""
-    if dropout_rate:
-        raise unported("attention dropout", "A4")
+def check_forward_unported(dyn_pos_offset=None) -> None:
+    """Raise NotImplementedError (ROADMAP A4) for dyn_pos_offset, the one
+    option of the JAX flash kernels that K1 and the backward kernels do
+    not compute yet (only ring attention, ROADMAP A9, passes it)."""
     if dyn_pos_offset is not None:
         raise unported("dyn_pos_offset", "A4")

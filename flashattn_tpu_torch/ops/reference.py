@@ -13,7 +13,17 @@ from __future__ import annotations
 
 import torch
 
-from flashattn_tpu_torch.ops.common import check_softcap, softcap
+from flashattn_tpu_torch.ops.common import (
+    check_softcap,
+    dropout_keep_mask,
+    dropout_scale,
+    softcap,
+)
+
+# Query rows of a dropout mask hashed at a time: the hash's int64
+# temporaries stay [B, Hq / Hkv, 256, S_k], a few hundred MB at a training
+# shape, beside the [B, Hq / Hkv, S_q, S_k] bool mask.
+DROPOUT_ROWS = 256
 
 
 def visible(s_q: int, s_k: int, is_causal: bool = False, pos_offset: int | None = None,
@@ -55,6 +65,22 @@ def alibi_bias(slopes: torch.Tensor, s_q: int, s_k: int,
     return slopes.float()[None, :, None, None] * dist[None, None]
 
 
+def dropout_keep(seed, rate: float, b: int, hq: int, heads: slice, s_q: int, s_k: int,
+                 device, row0: int = 0) -> torch.Tensor:
+    """The [B, len(heads), S_q, S_k] bool keep mask of the q heads `heads`
+    (common.dropout_keep_mask: bh = b * Hq + h, the arrays' rows and
+    columns; the rows start at row0, where q is rows [row0, row0 + S_q) of
+    a larger call), hashed DROPOUT_ROWS query rows at a time."""
+    bh = (torch.arange(b, device=device)[:, None] * hq
+          + torch.arange(heads.start, heads.stop, device=device)[None, :])[:, :, None, None]
+    cols = torch.arange(s_k, device=device)
+    keep = torch.empty((b, heads.stop - heads.start, s_q, s_k), dtype=torch.bool, device=device)
+    for r0 in range(0, s_q, DROPOUT_ROWS):
+        rows = row0 + torch.arange(r0, min(s_q, r0 + DROPOUT_ROWS), device=device)[:, None]
+        keep[:, :, r0:r0 + DROPOUT_ROWS] = dropout_keep_mask(seed, bh, rows, cols, rate)
+    return keep
+
+
 def reference_attention_with_lse(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -66,6 +92,9 @@ def reference_attention_with_lse(
     segment_ids=None,
     logit_softcap: float | None = None,
     alibi_slopes: torch.Tensor | None = None,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
+    dropout_row0: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Unfused attention returning (O, LSE).
 
@@ -84,6 +113,14 @@ def reference_attention_with_lse(
       alibi_slopes: (Hq,) slopes of ALiBi (alibi_bias: slope_h * (j - i -
         pos_offset) added to the scaled logits, the query head's slope
         under GQA), or None for none.
+      dropout_rate, dropout_seed: attention dropout (rate in [0, 1), 0 off,
+        checked by the callers): the unnormalised probabilities that meet V
+        keep dropout_keep's elements, times dropout_scale(rate), the
+        others 0; the row sums, and so the LSE, stay those without
+        dropout, as in the JAX kernels.
+      dropout_row0: the array row of q's first row, where q is a slice of
+        the rows of a larger call (the mask keys on the arrays' rows; with
+        is_causal pass that call's pos_offset + dropout_row0 as pos_offset).
 
     Returns:
       O [B, Hq, S_q, D] in q.dtype and LSE [B, Hq, S_q] float32 in natural
@@ -113,6 +150,11 @@ def reference_attention_with_lse(
         del s
         l = p.sum(dim=-1, keepdim=True)
         l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+        if dropout_rate:
+            keep = dropout_keep(dropout_seed, dropout_rate, b, hq, slice(h * g, (h + 1) * g),
+                                s_q, s_k, q.device, dropout_row0)
+            p = torch.where(keep, p * dropout_scale(dropout_rate), 0.0)
+            del keep
         outs.append(torch.matmul(p / l_safe, vf).to(q.dtype))
         lses.append((m_safe + torch.log(l))[..., 0])
         del p
@@ -130,10 +172,13 @@ def reference_attention(
     segment_ids=None,
     logit_softcap: float | None = None,
     alibi_slopes: torch.Tensor | None = None,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
 ) -> torch.Tensor:
     """Unfused attention, O only."""
     return reference_attention_with_lse(q, k, v, is_causal, scale, pos_offset, window,
-                                        segment_ids, logit_softcap, alibi_slopes)[0]
+                                        segment_ids, logit_softcap, alibi_slopes,
+                                        dropout_rate, dropout_seed)[0]
 
 
 def reference_attention_backward(
@@ -150,6 +195,9 @@ def reference_attention_backward(
     segment_ids=None,
     logit_softcap: float | None = None,
     alibi_slopes: torch.Tensor | None = None,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
+    dropout_row0: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Attention gradients from the forward's O and LSE, computed the
     backward kernels' way (a plain version of all three at once):
@@ -165,10 +213,14 @@ def reference_attention_backward(
     d(cap*tanh(x*scale/cap))/dx = scale*(1 - t^2). With alibi_slopes (Hq,)
     the logit also takes alibi_bias, as reference_attention_with_lse adds
     it; the bias has no gradient, so dS, dQ, dK and dV keep their formulas.
-    P and dS are rounded to
-    the input dtype before the products that consume them, as the kernels
-    feed their matrix units. A row whose LSE is -inf (it sees no key)
-    contributes exactly 0.
+    With dropout (dropout_rate > 0) the forward's keep mask M is rebuilt
+    (dropout_keep) and c = dropout_scale(rate): dV = (c M*P)^T.dO, dP
+    becomes c M*dP, and dS = P*(c M*dP - delta) with the clean P; delta
+    comes from the dropped O; dropout_row0 as the forward takes it (on a
+    slice of q's rows, dQ is those rows' and dK, dV their share). P and dS
+    are rounded to the input dtype before the products that consume them,
+    as the kernels feed their matrix units. A row whose LSE is -inf (it
+    sees no key) contributes exactly 0.
 
     Returns (dQ in q.dtype, dK and dV in k.dtype), shaped like q, k, v.
     """
@@ -201,10 +253,20 @@ def reference_attention_backward(
                         0.0)
         del s, live
         delta = (dof * o[:, heads].float()).sum(dim=-1, keepdim=True)
-        ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)
+        dp = torch.matmul(dof, vf.transpose(-1, -2))
+        if dropout_rate:
+            keep = dropout_keep(dropout_seed, dropout_rate, b, hq, heads, s_q, s_k, q.device,
+                                dropout_row0)
+            c = dropout_scale(dropout_rate)
+            dp = torch.where(keep, dp * c, 0.0)
+        ds = p * (dp - delta)
+        del dp
         if t is not None:
             ds = ds * ((1.0 - t) * (1.0 + t))
             del t
+        if dropout_rate:
+            p = torch.where(keep, p * c, 0.0)  # dV sees the dropped P
+            del keep
         p = p.to(q.dtype).float()
         ds = ds.to(q.dtype).float()
         dqs.append((torch.matmul(ds, kf) * scale).to(q.dtype))

@@ -39,7 +39,10 @@ paged K2 with ALiBi on the int8 pool at T 1; and, where the backward
 kernels take ALiBi (ops/flash_bwd.py's DQ_ALIBI_LAUNCHES), LLAMA_8B's
 training rows with ALiBi (B 1, Hq 32, Hkv 8, D 128): K1 with the LSE and
 B3, B4 and B5 on the packed row (S 8192, the packed row's documents) and
-B3, B4 and B5 on the unpacked row of 4,096 tokens. Prints the card's name and power limit, then one JSON line of
+B3, B4 and B5 on the unpacked row of 4,096 tokens; and, where the
+kernels take attention dropout (ops/flash_fwd.py's DROPOUT_LAUNCHES), K1
+with the LSE and B3, B4 and B5 with dropout (rate 0.1) at the training
+shape and at D 128 (B 4, Hq = Hkv = 8, S 16384). Prints the card's name and power limit, then one JSON line of
 milliseconds. It calls nothing but the public functions, so run as a file
 with another checkout of the package first on PYTHONPATH,
 
@@ -47,7 +50,8 @@ with another checkout of the package first on PYTHONPATH,
 
 it times that checkout's kernels: two versions compared in turns on one
 card. `--only k1,backward` times those groups alone (decode, qmm, k1,
-backward, window, packed, softcap, gemma_packed, alibi, alibi_train). Needs
+backward, window, packed, softcap, gemma_packed, alibi, alibi_train,
+dropout). Needs
 a CUDA device.
 """
 
@@ -80,7 +84,7 @@ WIN, SINK = 4096, 4
 K1_WINDOW = (1, 32, 8, 4608, 128)  # B, Hq, Hkv, S, D
 WIN_B, WIN_HKV, WIN_SMAX = 4, 8, 8192
 GROUPS = ("decode", "qmm", "k1", "backward", "window", "packed", "softcap", "gemma_packed",
-          "alibi", "alibi_train")
+          "alibi", "alibi_train", "dropout")
 # GEMMA2_9B's rows: its prefill (B, Hq, Hkv, S, D) and its decode step.
 CAP = 50.0
 K1_GEMMA = (1, 16, 8, 4608, 256)
@@ -152,6 +156,8 @@ def main() -> None:
         ms.update(alibi(gen))
     if "alibi_train" in only and hasattr(flash_bwd, "DQ_ALIBI_LAUNCHES"):
         ms.update(alibi_train(gen))
+    if "dropout" in only and hasattr(flash_fwd, "DROPOUT_LAUNCHES"):
+        ms.update(dropout(gen))
     print(json.dumps({"tag": args.tag, "ms": ms}))
 
 
@@ -199,8 +205,9 @@ def k1_rows(gen: torch.Generator) -> dict[str, float]:
 
 def backward(gen: torch.Generator, shape, tag: str, **opts) -> dict[str, float]:
     """B3, B4 and B5 (causal) at shape (B, Hq, Hkv, S, D) with the forward's
-    O and LSE, and the options (window, segment_ids, logit_softcap, alibi)
-    of both; K1 with the LSE too where there are segment ids."""
+    O and LSE, and the options (window, segment_ids, logit_softcap, alibi,
+    dropout_rate and dropout_seed) of both; K1 with the LSE too where there
+    are segment ids or dropout."""
     b, hq, hkv, s, d = shape
     q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device="cuda", dtype=torch.bfloat16)
                    for h in (hq, hkv, hkv, hq))
@@ -213,7 +220,7 @@ def backward(gen: torch.Generator, shape, tag: str, **opts) -> dict[str, float]:
     _, delta = flash_bwd.flash_bwd_dq(q, k, v, o, do, lse, True, **opts)
     out[f"b5_{tag}"] = cuda_time_ms(lambda: flash_bwd.flash_bwd_dkv(q, k, v, do, lse, delta, True,
                                                                     **opts), **few)
-    if "segment_ids" in opts:
+    if "segment_ids" in opts or "dropout_rate" in opts:
         out[f"k1_{tag}"] = cuda_time_ms(lambda: flash_fwd.flash_attention_forward(
             q, k, v, True, **opts), **few)
     return out
@@ -349,6 +356,17 @@ def alibi_train(gen: torch.Generator) -> dict[str, float]:
     ms = backward(gen, (b, hq, hkv, PACK_S, d), "alibi_packed", segment_ids=packed_ids(),
                   alibi=True)
     ms.update(backward(gen, (b, hq, hkv, 4096, d), "alibi_s4096", alibi=True))
+    return ms
+
+
+def dropout(gen: torch.Generator) -> dict[str, float]:
+    """K1, B3, B4 and B5 with dropout (rate 0.1) at the training shape and
+    at D 128 (module docstring), the seed a tensor on the card, as a
+    trainer passes it (an int seed adds a fill kernel a call)."""
+    drop = dict(dropout_rate=0.1,
+                dropout_seed=torch.tensor(20181, dtype=torch.int32, device="cuda"))
+    ms = backward(gen, K1_SHAPES["k1_train"][:5], "train_dropout", **drop)
+    ms.update(backward(gen, K1_SHAPES["k1_d128"][:5], "d128_dropout", **drop))
     return ms
 
 

@@ -125,9 +125,12 @@ def test_alibi_option_rules():
     assert bool(torch.isfinite(grad).all()) and bool(grad.any())
     with pytest.raises(ValueError, match="pick one"):
         flash_attention(q, k, v, True, alibi=True, logit_softcap=30.0)
-    # Dropout and dyn_pos_offset beside ALiBi still raise, naming ROADMAP A4.
-    with pytest.raises(NotImplementedError, match="attention dropout.*ROADMAP A4"):
-        flash_fwd.flash_attention_forward(q, k, v, True, alibi=True, dropout_rate=0.1)
+    # Dropout beside ALiBi runs (ported: tests/test_torch_dropout.py), its
+    # LSE that without dropout; dyn_pos_offset still raises, naming ROADMAP A4.
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, True, alibi=True, dropout_rate=0.1,
+                                               dropout_seed=3)
+    assert bool(torch.isfinite(o).all())
+    assert torch.equal(lse, flash_fwd.flash_attention_forward(q, k, v, True, alibi=True)[1])
     with pytest.raises(NotImplementedError, match="dyn_pos_offset.*ROADMAP A4"):
         flash_fwd.flash_attention_forward(q, k, v, True, alibi=True, dyn_pos_offset=0)
     with torch.no_grad():  # no gradient to take: the forward alone runs

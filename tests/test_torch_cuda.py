@@ -48,6 +48,14 @@ without keys, one steep head over 4,096 keys; bf16 and float32, fused and
 split), K1 takes ALiBi with segment ids, the split path is bitwise equal
 with ALiBi, gradients through flash_attention and varlen with ALiBi run
 them, and a tiny ALiBi model's loss gradients on the card match the CPU's.
+K1, B3, B4 and B5 take attention dropout: each kernel's keep mask, read
+out of its outputs (utils/dropout_readout.py), equals the plain
+dropout_keep_mask bit for bit (bf16 and float32, D 64, 128 and 256, GQA,
+rates 0.1 and 0.5, seeds -7, 0 and 2^31 - 1); the kernels match their
+plain versions on the same mask beside every option; rate 0 gives the
+bits of the call without dropout; one seed gives one result, an int or a
+tensor on the card; a gradient through flash_attention with dropout runs
+them; the libraries without dropout hold none of its kernels.
 
 These tests need a CUDA device and skip without one. On the card:
 
@@ -71,6 +79,7 @@ order that changes between runs).
 import ast
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -2350,3 +2359,208 @@ def test_tiny_alibi_model_trains_on_card_like_cpu(dev, packed):
         for (name, p), q in zip(card.named_parameters(), cpu.parameters()):
             rep = verify_results(q.grad, p.grad.cpu(), atol=1e-3, rtol=1e-3)
             assert rep.passed, f"{impl} grad {name}: {rep}"
+
+
+# ---- Attention dropout in K1, B3, B4 and B5 ----
+
+DROP_READ_CASES = {
+    # name: (dtype, B, Hq, Hkv, S_q, S_k, D, rate, seed)
+    "bf16_d64": (torch.bfloat16, 2, 8, 2, 128, 384, 64, 0.1, -7),
+    "bf16_d128": (torch.bfloat16, 1, 8, 2, 128, 384, 128, 0.5, 0),
+    "bf16_d256": (torch.bfloat16, 1, 4, 2, 256, 512, 256, 0.1, 2**31 - 1),
+    "f32_d64": (torch.float32, 1, 8, 2, 128, 256, 64, 0.5, 2**31 - 1),
+    "f32_d128": (torch.float32, 2, 4, 4, 128, 256, 128, 0.1, 0),
+    "f32_d256": (torch.float32, 1, 4, 1, 256, 256, 256, 0.5, -7),
+}
+
+
+@pytest.mark.parametrize("kernel", ["k1", "b3", "b4", "b5"])
+@pytest.mark.parametrize("case", sorted(DROP_READ_CASES))
+def test_dropout_mask_reads_out_bit_for_bit(dev, case, kernel):
+    """Each kernel's keep mask, read out of its outputs
+    (utils/dropout_readout.py: q = 0, one-hot V, dO or K), equals the plain
+    dropout_keep_mask at every element: GQA, several kv tiles, both dtypes,
+    D 64, 128 and 256, rates 0.1 and 0.5, seeds -7, 0 and 2^31 - 1."""
+    from flashattn_tpu_torch.utils import dropout_readout as readout
+
+    dtype, b, hq, hkv, s_q, s_k, d, rate, seed = DROP_READ_CASES[case]
+    args = (b, hq, hkv, s_q, s_k, d, dtype, rate, seed, dev)
+    got = {"k1": lambda: readout.forward_mask(*args), "b4": lambda: readout.dq_mask(*args),
+           "b3": lambda: readout.dv_mask(*args, impl="fused"),
+           "b5": lambda: readout.dv_mask(*args, impl="split")}[kernel]()
+    want = readout.plain_mask(b, hq, s_q, s_k, rate, seed, dev)
+    assert int((got != want).sum()) == 0
+    assert abs(float(want.float().mean()) - (1 - rate)) < 0.02
+
+
+DROP_CASES = {
+    # name: (Hq, Hkv, S_q, S_k, D, causal, window, documents, pos_offset, cap, alibi)
+    "d64_causal_gqa": (8, 2, 700, 700, 64, True, None, None, None, None, False),
+    "d64_noncausal": (4, 4, 300, 515, 64, False, None, None, None, None, False),
+    "d64_window65_segments": (8, 2, 700, 700, 64, True, 65, [300, 37, 250], None, None, False),
+    "d64_no_key_rows": (4, 2, 256, 256, 64, True, None, None, -70, None, False),
+    "d128_sq_below_sk_offset": (8, 2, 300, 700, 128, True, None, None, 500, None, False),
+    "d128_softcap30": (8, 2, 515, 515, 128, True, None, None, None, 30.0, False),
+    "d128_alibi_segments": (8, 2, 700, 700, 128, True, None, [300, 37, 250], None, None, True),
+    "d256_cap50_window129": (4, 2, 700, 700, 256, True, 129, None, None, 50.0, False),
+    "d256_alibi_window": (4, 2, 400, 400, 256, True, 100, None, None, None, True),
+}
+
+
+def dropout_inputs(case, dtype, dev, rate=0.2, seed=1234):
+    """(q, k, v, do) and the call's options, dropout among them."""
+    hq, hkv, s_q, s_k, d, causal, w, docs, off, cap, alibi = DROP_CASES[case]
+    q = randn((1, hq, s_q, d), dtype, dev, 241)
+    do = randn((1, hq, s_q, d), dtype, dev, 242)
+    k, v = (randn((1, hkv, s_k, d), dtype, dev, seed_) for seed_ in (243, 244))
+    seg = segments(docs, s_q, dev) if docs is not None else None
+    return (q, k, v, do), dict(is_causal=causal, window=w, segment_ids=seg, pos_offset=off,
+                               logit_softcap=cap, alibi=alibi, dropout_rate=rate,
+                               dropout_seed=seed)
+
+
+def dropout_launches():
+    c = launch_counters.read()
+    return {n: c[n] for n in ("flash_fwd_dropout", "flash_bwd_fused_dropout",
+                              "flash_bwd_dq_dropout", "flash_bwd_dkv_dropout")}
+
+
+@pytest.mark.parametrize("impl", ["fused", "split"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", sorted(DROP_CASES))
+def test_dropout_kernels_match_plain(dev, impl, dtype, case):
+    """K1 with dropout (with the LSE), then B3 (fused) or B4 + B5 (split)
+    with dropout against their plain versions on the same mask, beside every
+    option: GQA, non-causal, a window, segment ids, rows that see no key,
+    S_q != S_k with a pos_offset, the soft-cap, ALiBi, D 64, 128 and 256;
+    the LSE is that without dropout; the dropout launches counted."""
+    (q, k, v, do), kw = dropout_inputs(case, dtype, dev)
+    before = dropout_launches()
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, **kw)
+    o_ref, lse_ref = flash_fwd.flash_attention_forward_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    rep = verify_results(o_ref, o, **TOL[dtype])
+    assert rep.passed, f"O: {rep}"
+    clean = dict(kw, dropout_rate=0.0)
+    assert verify_results(lse_ref, lse, atol=1e-3).passed
+    assert torch.equal(lse, flash_fwd.flash_attention_forward(q, k, v, **clean)[1])
+    out = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, impl=impl, **kw)
+    torch.cuda.synchronize()
+    added = {n: c - before[n] for n, c in dropout_launches().items()}
+    assert added == {"flash_fwd_dropout": 1, "flash_bwd_fused_dropout": int(impl == "fused"),
+                     "flash_bwd_dq_dropout": int(impl == "split"),
+                     "flash_bwd_dkv_dropout": int(impl == "split")}
+    ref = flash_bwd.flash_attention_backward_reference(q, k, v, o, do, lse, **kw)
+    assert_grads_match(ref, out, dtype)
+    assert not bool(out[0][torch.isneginf(lse)].any())
+
+
+def test_dropout_rate_zero_and_seeds(dev):
+    """Rate 0 gives the bits of the call without dropout (forward and both
+    backward paths) and launches no dropout kernel; the same seed gives
+    the same bits (an int seed and a seed tensor on the card alike, O and
+    the split gradients); another seed another O."""
+    (q, k, v, do), kw = dropout_inputs("d64_causal_gqa", torch.bfloat16, dev)
+    clean = dict(kw, dropout_rate=0.0, dropout_seed=None)
+    before = dropout_launches()
+    o0, lse0 = flash_fwd.flash_attention_forward(q, k, v, **clean)
+    o1, lse1 = flash_fwd.flash_attention_forward(q, k, v, **dict(kw, dropout_rate=0.0))
+    assert torch.equal(o0, o1) and torch.equal(lse0, lse1)
+    for impl in ("fused", "split"):
+        g0 = flash_bwd.flash_attention_backward(q, k, v, o0, do, lse0, impl=impl, **clean)
+        g1 = flash_bwd.flash_attention_backward(q, k, v, o0, do, lse0, impl=impl,
+                                                **dict(kw, dropout_rate=0.0))
+        # the fused dQ adds by atomics in a changing order: the split path is the bitwise one
+        assert all(torch.equal(a, b) for a, b in zip(g0[int(impl == "fused"):],
+                                                     g1[int(impl == "fused"):]))
+    assert dropout_launches() == before
+    seed_t = torch.tensor(kw["dropout_seed"], dtype=torch.int32, device=dev)
+    outs = [flash_fwd.flash_attention_forward(q, k, v, **dict(kw, dropout_seed=s))
+            for s in (kw["dropout_seed"], kw["dropout_seed"], seed_t)]
+    assert all(torch.equal(outs[0][0], o[0]) for o in outs[1:])
+    o, lse = outs[0]
+    grads = [flash_bwd.flash_attention_backward(q, k, v, o, do, lse, impl="split",
+                                                **dict(kw, dropout_seed=s))
+             for s in (kw["dropout_seed"], seed_t)]
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    other = flash_fwd.flash_attention_forward(q, k, v, **dict(kw, dropout_seed=7))[0]
+    assert not torch.equal(other, o)
+
+
+def test_dropout_call_captures_with_either_seed(dev):
+    """K1 with dropout captured in a CUDA graph (launches.capture): with an
+    int seed (written on the card by a fill kernel inside the graph) each
+    replay gives the eager call's bits; with a seed tensor on the card each
+    replay reads it anew, so a new value there gives that seed's bits."""
+    (q, k, v, _), kw = dropout_inputs("d64_causal_gqa", torch.bfloat16, dev)
+    kw.pop("dropout_seed")
+    eager = {s: flash_fwd.flash_attention_forward(q, k, v, dropout_seed=s, **kw)[0]
+             for s in (11, 12)}
+    seed_t = torch.tensor(11, dtype=torch.int32, device=dev)
+    for seed in (11, seed_t):
+        graph, (o, _), counted = launch_counters.capture(
+            lambda: flash_fwd.flash_attention_forward(q, k, v, dropout_seed=seed, **kw))
+        assert counted == {"flash_fwd": 1, "flash_fwd_dropout": 1}
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(o, eager[11])
+        if isinstance(seed, torch.Tensor):
+            seed.fill_(12)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(o, eager[12])
+
+
+def test_dropout_gradients_run_the_kernels(dev):
+    """A gradient through flash_attention with dropout runs K1 and the
+    fused kernel with dropout, the backward rebuilding the forward's mask
+    from the seed (a seed tensor on the card, never read on the host), and
+    matches the plain route on the same mask."""
+    leaves = [randn((1, h, 400, 128), torch.bfloat16, dev, 250 + i).requires_grad_()
+              for i, h in enumerate((8, 2, 2))]
+    do = randn((1, 8, 400, 128), torch.bfloat16, dev, 253)
+    seed = torch.tensor(-5, dtype=torch.int32, device=dev)
+    before = launch_counters.read()
+    o = flash_attention(*leaves, is_causal=True, dropout_rate=0.3, dropout_seed=seed)
+    got = torch.autograd.grad(o, leaves, do)
+    added = {n: c - before[n] for n, c in launch_counters.read().items() if c != before[n]}
+    assert added == {n: 1 for n in ("flash_fwd", "flash_fwd_dropout", "flash_bwd_fused",
+                                    "flash_bwd_fused_dropout")}, added
+    o_ref = plain_flash_attention(*leaves, is_causal=True, dropout_rate=0.3, dropout_seed=-5)
+    want = torch.autograd.grad(o_ref, leaves, do)
+    assert verify_results(o_ref, o, **TOL[torch.bfloat16]).passed
+    assert_grads_match(want, got, torch.bfloat16)
+
+
+def test_libraries_without_dropout_hold_no_dropout_kernel(dev):
+    """The kernels without dropout still build from their own libraries
+    (flash_fwd, flash_bwd, flash_bwd_alibi, flash_bwd_fused,
+    flash_bwd_fused_alibi: each kernel's dropout flag false), and the
+    dropout libraries hold the dropout instantiations alone, every kind of
+    the others: the ptxas report's entry functions."""
+    from flashattn_tpu_torch.ops import _build
+
+    def flags(lib):
+        """{dropout flag "0"/"1": kernel names} of the library's kernels:
+        the last template argument of each mangled name (K1's bf16
+        kernel's 7th, the backward's bf16 kernels' 5th, the float32
+        kernels' 3rd or 2nd), the delta pre-pass left out."""
+        _build.load(lib)
+        log = _build.library_path(lib).with_suffix(".log").read_text()
+        got = {}
+        for name in re.findall(r"Compiling entry function '([^']+)'", log):
+            m = re.search(r"([a-z_0-9]+_kernel)I(.*?)EEv", name)
+            if m is None or "delta" in m.group(1):
+                continue
+            flag = re.search(r"Lb([01])E$", m.group(2))
+            got.setdefault(flag.group(1) if flag else "?", []).append(m.group(1))
+        return got
+
+    for lib, n in (("flash_fwd", 39), ("flash_bwd", 42), ("flash_bwd_alibi", 24),
+                   ("flash_bwd_fused", 21), ("flash_bwd_fused_alibi", 12)):
+        got = flags(lib)
+        assert set(got) == {"0"} and len(got["0"]) == n, (lib, got)
+    for lib, n in (("flash_fwd_dropout", 39), ("flash_bwd_dropout", 60),
+                   ("flash_bwd_fused_dropout", 30)):
+        got = flags(lib)
+        assert set(got) == {"1"} and len(got["1"]) == n, (lib, got)

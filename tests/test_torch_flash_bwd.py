@@ -19,7 +19,7 @@ import torch
 from flashattn_tpu.ops.attention import flash_attention as jax_flash_attention
 from flashattn_tpu.ops.common import BlockSizes
 from flashattn_tpu.ops.flash_bwd import flash_attention_backward as jax_backward
-from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused
+from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
 from flashattn_tpu_torch.ops.attention import flash_attention, plain_flash_attention
 from flashattn_tpu_torch.ops.reference import (
     reference_attention_backward,
@@ -144,18 +144,47 @@ def test_impl_choice_and_env_override(monkeypatch):
     assert os.environ[flash_bwd.IMPL_ENV] == "fastest"
 
 
-@pytest.mark.parametrize("option", [
-    dict(dropout_rate=0.1, segment_ids=(0, 0)), dict(dropout_rate=0.1),
-    dict(alibi=True, logit_softcap=30.0, dropout_rate=0.1), dict(alibi=True, dyn_pos_offset=0),
-    dict(dyn_pos_offset=0),
-])
+@pytest.mark.parametrize("option", [dict(alibi=True, dyn_pos_offset=0), dict(dyn_pos_offset=0)])
 def test_unported_options_raise(option):
-    """Dropout and dyn_pos_offset raise (ROADMAP A4), also beside the
-    window, segment ids, the soft-cap and ALiBi, which are ported (ALiBi:
-    tests/test_torch_alibi_bwd.py)."""
+    """dyn_pos_offset raises (ROADMAP A4), also beside ALiBi, which is
+    ported (tests/test_torch_alibi_bwd.py); dropout, which raised beside
+    them before, runs (test_dropout_options_match_jax)."""
     arrays = [torch.from_numpy(a) for a in make_inputs(2, 1, 8, 8, False, None, d=8)]
     with pytest.raises(NotImplementedError, match="ROADMAP A4"):
         flash_bwd.flash_attention_backward(*arrays, **option)
+
+
+@pytest.mark.parametrize("option", [
+    dict(dropout_rate=0.1, segment_ids="ids"), dict(dropout_rate=0.1),
+    dict(alibi=True, logit_softcap=30.0, dropout_rate=0.1),
+], ids=["segments", "alone", "alibi_softcap"])
+def test_dropout_options_match_jax(option):
+    """The backward's option sets that raised before: with dropout alone
+    and beside segment ids, the plain backward against the JAX kernels
+    (split, on one O and LSE of the plain forward with the same rate and
+    seed); with ALiBi and the soft-cap, which neither package takes
+    together, both differentiable entry points refuse ("pick one")."""
+    q, k, v, _, do, _ = make_inputs(2, 1, 128, 128, True, None, seed=5)
+    opts = dict(option, dropout_seed=77)
+    if "logit_softcap" in option:
+        with pytest.raises(AssertionError, match="pick one"):
+            jax.grad(lambda q: jnp.sum(jax_flash_attention(q, jnp.asarray(k), jnp.asarray(v),
+                                                           is_causal=True, block_sizes=BS,
+                                                           **opts)))(jnp.asarray(q))
+        with pytest.raises(ValueError, match="pick one"):
+            flash_attention(torch.from_numpy(q).requires_grad_(), torch.from_numpy(k),
+                            torch.from_numpy(v), is_causal=True, **opts)
+        return
+    jopts, topts = dict(opts), dict(opts)
+    if option.get("segment_ids") == "ids":
+        ids = np.repeat(np.arange(2, dtype=np.int32), [70, 58])[None]
+        jopts["segment_ids"] = (jnp.asarray(ids),) * 2
+        topts["segment_ids"] = (torch.from_numpy(ids),) * 2
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = flash_fwd.flash_attention_forward(tq, tk, tv, True, **topts)
+    ref = jax_backward(*map(jnp.asarray, (q, k, v, o.numpy(), do, lse.numpy())),
+                       is_causal=True, block_sizes=BS, impl="split", **jopts)
+    assert_close(ref, flash_bwd.flash_attention_backward(tq, tk, tv, o, tdo, lse, True, **topts))
 
 
 @pytest.mark.parametrize("bad", ["o_shape", "do_shape", "lse_shape"])

@@ -98,23 +98,38 @@ def test_reference_matches_jax_oracle():
     assert_close((np.asarray(o_j), np.asarray(lse_j)), (o_t, lse_t))
 
 
-@pytest.mark.parametrize("option", [
-    # The window and segment ids are ported (tests/test_torch_window.py,
-    # tests/test_torch_varlen.py), and so are the soft-cap
-    # (tests/test_torch_softcap.py) and ALiBi, with segment ids too
-    # (tests/test_torch_alibi.py, tests/test_torch_alibi_bwd.py); dropout
-    # and dyn_pos_offset still raise beside them.
-    dict(segment_ids=(0, 0), dropout_rate=0.1), dict(dropout_rate=0.1),
-    dict(window=16, alibi=True, dropout_rate=0.1),
-    dict(logit_softcap=30.0, dropout_rate=0.1), dict(alibi=True, dyn_pos_offset=0),
-    dict(dyn_pos_offset=0), dict(alibi=True, segment_ids="ids", dropout_rate=0.1),
-])
+@pytest.mark.parametrize("option", [dict(alibi=True, dyn_pos_offset=0), dict(dyn_pos_offset=0)])
 def test_unported_options_raise(option):
+    """dyn_pos_offset (only ring attention passes it) still raises, naming
+    ROADMAP A4, also beside ALiBi; the options that raised beside it before
+    run now (test_dropout_options_match_jax)."""
     q, k, v = (torch.from_numpy(a) for a in make_qkv(2, 1, 8, 8, d=8))
-    if option.get("segment_ids") == "ids":
-        option = dict(option, segment_ids=(torch.zeros((1, 8), dtype=torch.int32),) * 2)
     with pytest.raises(NotImplementedError, match="ROADMAP A4"):
         flash_fwd.flash_attention_forward(q, k, v, **option)
+
+
+@pytest.mark.parametrize("option", [
+    dict(segment_ids="ids", dropout_rate=0.1), dict(dropout_rate=0.1),
+    dict(window=16, alibi=True, dropout_rate=0.1),
+    dict(logit_softcap=30.0, dropout_rate=0.1), dict(alibi=True, segment_ids="ids", dropout_rate=0.1),
+], ids=["segments", "alone", "window_alibi", "softcap", "alibi_segments"])
+def test_dropout_options_match_jax(option):
+    """Attention dropout (ported: tests/test_torch_dropout.py), alone and
+    beside segment ids, a window with ALiBi, the soft-cap and ALiBi with
+    segment ids, the option sets that raised before: O and the LSE of the
+    plain forward against the JAX forward (its wavefront kernel; grid4
+    takes no dropout) with the same rate and seed."""
+    q, k, v = make_qkv(4, 2, 128, 128, seed=3)
+    jopts, topts = dict(option, dropout_seed=-21), dict(option, dropout_seed=-21)
+    if option.get("segment_ids") == "ids":
+        ids = np.repeat(np.arange(3, dtype=np.int32), [50, 40, 38])[None]
+        jopts["segment_ids"] = (jnp.asarray(ids),) * 2
+        topts["segment_ids"] = (torch.from_numpy(ids),) * 2
+    o_j, lse_j = jax_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), is_causal=True,
+                             block_sizes=BlockSizes(block_q=128, block_kv=128), **jopts)
+    o_t, lse_t = flash_fwd.flash_attention_forward(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), is_causal=True, **topts)
+    assert_close((np.asarray(o_j), np.asarray(lse_j)), (o_t, lse_t))
 
 
 @pytest.mark.parametrize("bad", ["rank", "kv_shape", "gqa"])
