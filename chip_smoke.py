@@ -4,8 +4,8 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the eleven CUDA libraries from csrc/ (into build/flashattn_tpu_torch/,
-one nvcc each, all at once) and runs nineteen phases, printing one line per
+Builds the fourteen CUDA libraries from csrc/ (into build/flashattn_tpu_torch/,
+one nvcc each, all at once) and runs twenty phases, printing one line per
 check and each phase's seconds, then the kernels line:
 
 1. environment: torch/CUDA versions, the card's name and power limit, the
@@ -16,11 +16,14 @@ check and each phase's seconds, then the kernels line:
    D 64, 128 and 256, with and without a window, segment ids and the
    soft-cap, or ALiBi with and without a window and segment ids, its 28
    D 256, soft-cap and ALiBi instantiations named; each again with
-   dropout in a library of its own, the 36 named), the
+   dropout in a library of its own, the 36 named; the 12 instantiations of
+   the offset read on the card, dyn_pos_offset, at D 64 and 128 in a
+   library of their own), the
    bf16 fused, dQ and dK/dV kernels (D 64, 128 and 256, with and without
    the window, segment ids and the soft-cap, or with ALiBi in libraries of
    their own, their 63 D 256, soft-cap and ALiBi instantiations named; each
-   again with dropout in libraries of their own, the 81 named),
+   again with dropout in libraries of their own, the 81 named; the 30 of
+   the offset read on the card in libraries of their own),
    qmm8's and qmm4's M > 16 kernels and every
    instantiation of K2's (D 64, 128 and 256, with and without a window, with
    and without ALiBi: the ALiBi ones in a library of their own);
@@ -184,9 +187,10 @@ check and each phase's seconds, then the kernels line:
    (c) GEMMA2_9B at its full 42 layers, B 1, S 4096, 5 sgd_train_steps
    with remat="attn", the loss falling, and the peak without remat
    reckoned from (b)'s bytes a layer;
-14. Hugging Face model families at full width and depth (phase_families):
-   QWEN3_8B (36 layers, q/k RMSNorm, 8.19 B parameters) and then LLAMA31_8B
-   (32 layers, the llama3 RoPE remap, 8.03 B), each from random bf16
+14. Hugging Face model families at full width (phase_families), their
+   depth cut for the run's time limit: QWEN3_8B at FAMILY_QWEN_LAYERS of
+   its 36 layers (q/k RMSNorm) and then LLAMA31_8B at
+   FAMILY_LLAMA31_LAYERS of its 32 (the llama3 RoPE remap), each from random bf16
    weights under the Hugging Face names and layouts through
    models/convert.py::params_from_hf, freed before the next: a 2,000-token
    prefill and 4 teacher-forced decode steps through the kernels against
@@ -209,9 +213,10 @@ check and each phase's seconds, then the kernels line:
 16. mixture-of-experts models (phase_moe), every FFN the grouped dispatch
    (parallel/moe.py::moe_ffn_grouped; the masked-dense loop is the plain
    route), their configs the public config.json files through
-   config_from_hf: Qwen3-30B-A3B at full width and depth (48 layers, GQA
-   32/4 at D 128, q/k RMSNorm, 128 experts of 768, top 8; 30.5 B random
-   bf16 parameters): the FFN of layer 0 on a 2,000-token prompt's hidden
+   config_from_hf: Qwen3-30B-A3B at full width, its depth cut to
+   MOE_LAYERS of its 48 layers for the run's time limit (GQA 32/4 at D
+   128, q/k RMSNorm, 128 experts of 768, top 8; random bf16 parameters):
+   the FFN of layer 0 on a 2,000-token prompt's hidden
    states, grouped against masked-dense at T 2 and 2,000, both timed beside
    the bound of the experts the routing touches; a 2,000-token prefill and
    4 teacher-forced decode steps through the kernels, the routing of every
@@ -230,12 +235,13 @@ check and each phase's seconds, then the kernels line:
    device_step_ms beside the step's weights' read; then its widths cut to
    4 layers in float32, free-running, under the logits rule with no
    excuse; then
-   Qwen1.5-MoE-A2.7B (24 layers, 16/16 heads, q/k/v biases, 60 experts of
-   1408, top 4 with full-softmax gates, a sigmoid-gated shared expert;
-   14.3 B parameters) written under the Hugging Face names as a sharded
-   safetensors directory and read by load_hf_dir (its depth cut, and
-   printed, only if the disk cannot hold it): the logits gate, the sync
-   gate, the bf16 and int8-KV paged servers;
+   Qwen1.5-MoE-A2.7B (16/16 heads, q/k/v biases, 60 experts of 1408, top 4
+   with full-softmax gates, a sigmoid-gated shared expert) cut to
+   MOE_HF_LAYERS of its 24 layers (the run's time limit, or
+   fewer where the disk cannot hold them; printed), written under the
+   Hugging Face names as a sharded safetensors directory and read by
+   load_hf_dir: the logits gate, the sync gate, the bf16 and int8-KV paged
+   servers;
 17. an ALiBi model (phase_alibi): LLAMA_8B with use_alibi at full width and
    depth (32 layers, hidden 4,096, GQA 32/8 at D 128: the attention shape
    of MPT-7B and BLOOM-7B1; RoPE off; 8.0 B random bf16 parameters): a
@@ -280,7 +286,25 @@ check and each phase's seconds, then the kernels line:
    attention and the headline shape beside the same kernels without
    dropout, the plain route (training shape), SDPA with dropout_p
    (Philox's mask: timed only) and the bound;
-20. the `kernels` JSON line: every kernel with its launches on the path that
+20. context parallelism (phase_context_parallel): two ranks,
+   processes started with spawn (CUDA cannot be forked) after phase 1
+   built every library, sharing cuda:0 through a gloo process group (each
+   exchange staged through host memory, "gloo-host", printed), joined by
+   the parent within CP_JOIN_S seconds; a rank that raises or hangs fails
+   the run. (a) sharded_ring_attention at B 1, Hq 32, Hkv 8, S 16,384,
+   D 128, bf16 (8,192 positions a rank: LLAMA31_8B's attention at phase
+   14's prompt length) in the ring, zigzag, zigzag with window 4,096 and
+   ALiBi (the dyn_pos_offset kernels; the fused and then the split
+   backward, selected by FLASHATTN_BWD_IMPL) and Ulysses modes, causal, its O and gradients held by rank 0
+   against K1 and the backward on the whole sequence in its one process
+   (the bf16 gates); (b) LLAMA_1B at full width and depth (22 layers), sp
+   2, B 1, S 4,096: 3 AdamW steps of train.train under the mesh against the
+   same steps in one process on the same tokens (phase 7's gates: each
+   step's loss and grad norm, the last step's summed gradients' cosines;
+   finite losses, the last below the first); phase 2 holds K1, B3, B4 and B5 with
+   dyn_pos_offset against their plain versions at (a)'s zigzag chunk pair
+   and times them (dynoff_kernels);
+21. the `kernels` JSON line: every kernel with its launches on the path that
    runs it, its error against its plain version, its time, bound, plain and
    library times (the windowed K1, K2 and paged K2 from phases 2 and 9, the
    windowed and segmented K1, B3, B4 and B5 from phases 2 and 10, the
@@ -294,7 +318,9 @@ check and each phase's seconds, then the kernels line:
    and segment ids and B3, B4 and B5 with ALiBi from phases 2 and 18, timed
    at LLAMA_8B's packed row; K1, B3, B4 and B5 with dropout from phase 19,
    timed at LLAMA_1B's training attention, their launches the headline
-   path's).
+   path's; K1, B3, B4 and B5 with dyn_pos_offset from phases 2 and 20,
+   their launches those of phase 20 (a)'s window + ALiBi zigzag on both
+   ranks).
 
 Any failed check raises: the script then exits nonzero and does not print
 its last line. It needs a CUDA device and never falls back to the CPU. The
@@ -347,7 +373,8 @@ from flashattn_tpu_torch.utils.verify import verify_results
 SEED = 0
 LIBRARIES = ("flash_fwd", "decode", "decode_alibi", "flash_bwd", "flash_bwd_alibi",
              "flash_bwd_fused", "flash_bwd_fused_alibi", "quant_matmul", "flash_fwd_dropout",
-             "flash_bwd_dropout", "flash_bwd_fused_dropout")
+             "flash_bwd_dropout", "flash_bwd_fused_dropout", "flash_fwd_dynoff",
+             "flash_bwd_dynoff", "flash_bwd_fused_dynoff")
 O_ATOL = 2e-2  # bf16 outputs against the fp32 plain version
 LSE_ATOL = 1e-2
 GRAD_TOL = {  # gradients against the plain version on the same inputs
@@ -422,43 +449,54 @@ def phase_environment() -> str:
                 print(f"[env] SASS {kernel}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA, "
                       f"{n['IMMA']} IMMA")
                 mma[kernel] = n
-    families = {"flash_fwd_wgmma_kernel": 72, "flash_bwd": 162, "qmm_mma_kernel": 4,
-                "decode_mma_kernel": 120}
+    families = {"flash_fwd_wgmma_kernel": 72, "flash_fwd_dyn_wgmma_kernel": 12, "flash_bwd": 192,
+                "qmm_mma_kernel": 4, "decode_mma_kernel": 120}
     counted = {f: sum(k.startswith(f) for k in mma) for f in families}
     check(counted == families and all(sum(n.values()) for n in mma.values()),
           "K1's bf16 kernel (D 64, 128 and 256, with and without a window, segment ids and "
           "the soft-cap, or ALiBi with and without a window and segment ids; each with and "
-          "without dropout), the bf16 fused, "
+          "without dropout; the offset read on the card at D 64 and 128), the bf16 fused, "
           "dQ and dK/dV kernels (D 64, 128 and 256; no mask, "
           "the window, segment ids; with and without the soft-cap, or with ALiBi; each with "
-          "and without dropout), qmm8's and qmm4's "
+          "and without dropout; the offset read on the card), qmm8's and qmm4's "
           "M > 16 kernels (bf16 and float32 y) and every K2 tensor-core instantiation (bf16, "
           "int8 and fp8 caches, D 64, 128 and 256, both row layouts, with and without a "
           f"window, and ALiBi's) must run on the tensor cores: {mma}")
-    check(all(n["HGMMA"] for k, n in mma.items() if k.startswith("flash_fwd_wgmma_kernel")),
+    check(all(n["HGMMA"] for k, n in mma.items()
+              if k.startswith(("flash_fwd_wgmma_kernel", "flash_fwd_dyn_wgmma_kernel"))),
           f"K1's bf16 kernel must run on wgmma (HGMMA): {mma}")
     # K1's template arguments: D, consumers, window, segment ids, soft-cap,
-    # ALiBi, dropout.
+    # ALiBi, dropout; the kernel of the offset read on the card: D,
+    # consumers, window, segment ids, ALiBi.
     k1 = {k: k[k.index("<") + 1:-1].split(", ") for k in mma
           if k.startswith("flash_fwd_wgmma_kernel")}
     new = [k for k, args in k1.items()
            if args[6] == "false" and (args[0] == "256" or "true" in args[4:6])]
     drop = [k for k, args in k1.items() if args[6] == "true"]
+    dyn = [k for k in mma if k.startswith("flash_fwd_dyn_wgmma_kernel")]
     check(len(new) == 28, f"K1's D 256, soft-cap and ALiBi instantiations: {new}")
     check(len(drop) == 36, f"K1's dropout instantiations: {drop}")
-    print(f"[env] K1's D 256, soft-cap, ALiBi and dropout instantiations run on wgmma (HGMMA), "
-          f"no spill: { {k: mma[k]['HGMMA'] for k in new + drop} }")
-    # The backward's template arguments: D, mask kind, soft-cap, ALiBi, dropout.
+    check(len(dyn) == 12 and all(k[k.index("<") + 1:].split(",")[0] in ("64", "128")
+                                 for k in dyn),
+          f"K1's instantiations of the offset on the card: {dyn}")
+    print(f"[env] K1's D 256, soft-cap, ALiBi, dropout and card-offset instantiations run on "
+          f"wgmma (HGMMA), no spill: { {k: mma[k]['HGMMA'] for k in new + drop + dyn} }")
+    # The backward's template arguments: D, mask kind, soft-cap, ALiBi,
+    # dropout, the offset read on the card.
     bwd = {k: k[k.index("<") + 1:-1].split(", ") for k in mma if k.startswith("flash_bwd")}
-    new = [k for k, args in bwd.items()
-           if args[4] == "false" and (args[0] == "256" or "true" in args[2:4])]
-    alibi = [k for k, args in bwd.items() if args[3] == "true" and args[4] == "false"]
+    new = [k for k, args in bwd.items() if args[4] == args[5] == "false"
+           and (args[0] == "256" or "true" in args[2:4])]
+    alibi = [k for k, args in bwd.items() if args[3] == "true" and args[4] == args[5] == "false"]
     drop = [k for k, args in bwd.items() if args[4] == "true"]
+    dyn = [k for k, args in bwd.items() if args[5] == "true"]
     check(len(new) == 63 and len(alibi) == 27 and not any(bwd[k][2] == "true" for k in alibi),
           f"the backward's D 256, soft-cap and ALiBi instantiations: {new}")
     check(len(drop) == 81, f"the backward's dropout instantiations: {drop}")
-    print(f"[env] the backward's D 256, soft-cap, ALiBi and dropout instantiations run on "
-          f"mma.sync (HMMA), no spill: { {k: mma[k]['HMMA'] for k in new + drop} }")
+    check(len(dyn) == 30 and all(bwd[k][0] in ("64", "128") for k in dyn),
+          f"the backward's instantiations of the offset on the card: {dyn}")
+    print(f"[env] the backward's D 256, soft-cap, ALiBi, dropout and card-offset "
+          f"instantiations run on mma.sync (HMMA), no spill: "
+          f"{ {k: mma[k]['HMMA'] for k in new + drop + dyn} }")
     return name
 
 
@@ -610,6 +648,7 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
     timed.update(masked_kernels(gen))
     timed.update(softcap_kernels(gen))
     timed.update(alibi_kernels(gen))
+    timed.update(dynoff_kernels(gen))
     return timed
 
 
@@ -3419,8 +3458,9 @@ def phase_remat(gen: torch.Generator) -> dict[str, int]:
     return total
 
 
-# Phase 14: QWEN3_8B and LLAMA31_8B at full width and depth, each freed
-# before the next. Random weights under the Hugging Face names and layouts
+# Phase 14: QWEN3_8B and LLAMA31_8B at full width, their depth cut to
+# FAMILY_QWEN_LAYERS and FAMILY_LLAMA31_LAYERS to keep the run inside its
+# time limit, each freed before the next. Random weights under the Hugging Face names and layouts
 # (Qwen3's q_norm/k_norm, [out, in] projections) are written as a sharded
 # safetensors checkpoint directory with its config.json, as save_pretrained
 # lays one out, and read back on the card by models/convert.py::load_hf_dir
@@ -3783,14 +3823,24 @@ def k1_long_prompt(cfg, gen: torch.Generator, log: str) -> dict:
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib, **lim)
 
 
+FAMILY_QWEN_LAYERS = 12  # of 36
+FAMILY_LLAMA31_LAYERS = 16  # of 32
+
+
 def phase_families(gen: torch.Generator) -> tuple[dict[str, int], dict]:
     """Phase 14: QWEN3_8B, then LLAMA31_8B (family_model_run). Returns the
     launches of both and the kernels line's row of K1 at LLAMA31_8B's long
     prompt."""
     total: dict[str, int] = {}
-    qwen, _ = family_model_run(QWEN3_8B, "QWEN3_8B", gen)
+    print(f"[qwen3_8b] QWEN3_8B's depth cut to {FAMILY_QWEN_LAYERS} of "
+          f"{QWEN3_8B.num_layers} layers (the run's time limit)")
+    qwen, _ = family_model_run(dataclasses.replace(QWEN3_8B, num_layers=FAMILY_QWEN_LAYERS),
+                               "QWEN3_8B", gen)
     add_launches(total, qwen)
-    llama31, row = family_model_run(LLAMA31_8B, "LLAMA31_8B", gen)
+    print(f"[llama31_8b] LLAMA31_8B's depth cut to {FAMILY_LLAMA31_LAYERS} of "
+          f"{LLAMA31_8B.num_layers} layers (the run's time limit)")
+    llama31, row = family_model_run(
+        dataclasses.replace(LLAMA31_8B, num_layers=FAMILY_LLAMA31_LAYERS), "LLAMA31_8B", gen)
     add_launches(total, llama31)
     return total, row
 
@@ -3812,7 +3862,7 @@ def phase_families(gen: torch.Generator) -> tuple[dict[str, int], dict]:
 TIE_ULPS = 4
 SPEC_K = 4
 SPEC_PROMPT = 128
-SPEC_NEW = 64
+SPEC_NEW = 32  # cut from 64 to keep the run inside its time limit
 SPEC_PAGE = 128
 
 
@@ -4026,6 +4076,8 @@ QWEN15_MOE_JSON = dict(
     tie_word_embeddings=False, sliding_window=32768, use_sliding_window=False,
     torch_dtype="bfloat16")
 MOE_F32_LAYERS = 4  # the float32 run of Qwen3-30B-A3B's widths (about 12 GB)
+MOE_HF_LAYERS = 8  # Qwen1.5-MoE-A2.7B's loader round trip, cut from 24 for the time limit
+MOE_LAYERS = 24  # Qwen3-30B-A3B, cut from 48 for the time limit
 MOE_ADMIT_CHUNK = 512
 MOE_COUNTERS = ("flash_fwd", "decode", "paged_decode")
 
@@ -4437,8 +4489,10 @@ def phase_moe(gen: torch.Generator) -> dict[str, int]:
     total: dict[str, int] = {}
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 is on: the router's float32 product must run in float32")
-    cfg = moe_hf_config(QWEN3_30B_A3B_JSON)
+    cfg = moe_hf_config(QWEN3_30B_A3B_JSON, layers=MOE_LAYERS)
     name = "Qwen3-30B-A3B"
+    print(f"{log} {name}: depth cut to {MOE_LAYERS} of {QWEN3_30B_A3B_JSON['num_hidden_layers']} "
+          f"layers (the run's time limit)")
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4474,7 +4528,10 @@ def phase_moe(gen: torch.Generator) -> dict[str, int]:
     torch.cuda.empty_cache()
 
     name = "Qwen1.5-MoE-A2.7B"
-    cfg = moe_hf_config(QWEN15_MOE_JSON)
+    cfg = moe_hf_config(QWEN15_MOE_JSON, layers=MOE_HF_LAYERS)
+    print(f"{log} {name}: depth cut to {MOE_HF_LAYERS} of {QWEN15_MOE_JSON['num_hidden_layers']} "
+          f"layers (the run's time limit)")
+
     def weight_bytes(layers: int) -> int:
         meta = llama.Llama(dataclasses.replace(cfg, num_layers=layers), device="meta")
         return sum(p.numel() * p.element_size() for p in meta.parameters())
@@ -4952,6 +5009,381 @@ def phase_dropout(gen: torch.Generator) -> tuple[dict[str, int], dict[str, dict]
     return launches, {n: dict(max_abs_err=err[n], **timed[n]) for n in DROPOUT_ROWS}
 
 
+# Phase 2's kernels with the q/k alignment read on the card (dyn_pos_offset):
+# at (a)'s zigzag chunk pair, B 1, Hq 32, Hkv 8, a 4,096-row chunk against a
+# 4,096-key chunk, D 128, bf16, the offset (2n-1 - rank - src) C of rank 1's
+# first hop at n = 2 (C = 4,096), the window 4,096 and ALiBi: phase 20 (a)'s
+# case "zigzag, window 4,096 + ALiBi".
+DYNOFF_ROWS = ("flash_fwd_dynoff", "flash_bwd_fused_dynoff", "flash_bwd_dq_dynoff",
+               "flash_bwd_dkv_dynoff")
+DYN_SHAPE = (1, 32, 8, 4096, 128)  # B, Hq, Hkv, S (rows = keys), D
+DYN_OFFSET = 4096
+DYN_WINDOW = 4096
+
+
+def flex_dyn_ms(q, k, v, off: int, window: int, slopes, do) -> tuple:
+    """torch.nn.attention.flex_attention over the left edge of a window at
+    the alignment `off` (key c seen by query r iff c >= r + off - window +
+    1, no causal bound), with the ALiBi score_mod slope_h * (c - r - off),
+    compiled once: (its forward's ms, its backward's ms, autograd.grad of O
+    against do); a competitor only, never used by the port. (None, None),
+    with the reason printed, where it does not compile on this machine."""
+    try:
+        from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+        torch._dynamo.reset()
+        s_q, s_k = q.shape[2], k.shape[2]
+
+        def score_mod(score, b, h, q_idx, kv_idx):
+            return score + slopes[h] * (kv_idx - q_idx - off).to(torch.float32)
+
+        def mask_mod(b, h, q_idx, kv_idx):
+            return kv_idx >= q_idx + off - window + 1
+
+        block_mask = create_block_mask(mask_mod, None, None, s_q, s_k, device="cuda")
+        flex = torch.compile(flex_attention, dynamic=False)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flex(*leaves, score_mod=score_mod, block_mask=block_mask, enable_gqa=True)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), "flex_attention gave non-finite output")
+        with torch.no_grad():
+            fwd = event_time_ms(lambda: flex(q, k, v, score_mod=score_mod,
+                                             block_mask=block_mask, enable_gqa=True),
+                                warmup=2, iters=10)
+        bwd = event_time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+                            warmup=2, iters=3)
+        return fwd, bwd
+    except Exception as e:  # a competitor that does not build here is reported, not run
+        print(f"[dynoff] flex_attention with the left edge and ALiBi did not run on this "
+              f"machine: {type(e).__name__}: "
+              f"{str(e).splitlines()[0][:200] if str(e) else ''}")
+        return None, None
+
+
+def dynoff_kernels(gen: torch.Generator) -> dict[str, dict]:
+    """K1, B3, B4 and B5 with dyn_pos_offset (their libraries
+    flash_fwd_dynoff and flash_bwd{,_fused}_dynoff) against their plain
+    versions at DYN_SHAPE with the window's left edge and ALiBi, the offset
+    a CUDA tensor (read on the card); the second oracle, an offset at
+    S_k (every pair causally visible) equal to the causal kernels with
+    pos_offset = offset within the bf16 gates; D 64 with segment ids and
+    the window alone against the plain versions; then the four timed beside
+    the plain versions, flex_attention with the same mask and bias, and the
+    bound of utils/roofline.py over the visible pairs of the left edge.
+    Returns the kernels line's rows (their launches come from phase 20)."""
+    b, hq, hkv, s, d = DYN_SHAPE
+    q, do = (randn((b, hq, s, d), gen) for _ in range(2))
+    k, v = (randn((b, hkv, s, d), gen) for _ in range(2))
+    off_t = torch.tensor([DYN_OFFSET], dtype=torch.int32, device="cuda")
+    kw = dict(window=DYN_WINDOW, alibi=True)
+    tag = (f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} dyn_pos_offset {DYN_OFFSET} (a card tensor), "
+           f"window {DYN_WINDOW}, ALiBi")
+    err = dict.fromkeys(DYNOFF_ROWS, 0.0)
+    reset_launches()
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, False, dyn_pos_offset=off_t, **kw)
+    o_ref, lse_ref = flash_fwd.flash_attention_forward_reference(q, k, v, False,
+                                                                 dyn_pos_offset=DYN_OFFSET, **kw)
+    err["flash_fwd_dynoff"] = _gate(f"K1 {tag} O", o_ref, o, O_ATOL)
+    _gate(f"K1 {tag} LSE", lse_ref, lse, LSE_ATOL)
+    dead = torch.isneginf(lse_ref)
+    check(torch.equal(dead, torch.isneginf(lse)) and not bool(o[dead].any()),
+          "K1 with the offset: rows without a key differ")
+    ref = flash_bwd.flash_attention_backward_reference(q, k, v, o, do, lse, False,
+                                                       dyn_pos_offset=DYN_OFFSET, **kw)
+    for impl, rows in (("fused", ("flash_bwd_fused_dynoff",)),
+                       ("split", ("flash_bwd_dq_dynoff", "flash_bwd_dkv_dynoff"))):
+        got = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, False, impl=impl,
+                                                 dyn_pos_offset=off_t, **kw)
+        for name, r, g in zip(("dQ", "dK", "dV"), ref, got):
+            e = grad_gate(f"{impl} {name} {tag}", r, g, torch.bfloat16)
+            row = rows[0] if impl == "fused" or name == "dQ" else rows[1]  # B4 dQ, B5 dK, dV
+            err[row] = max(err[row], e)
+    launched = {n: c for n, c in read_launches().items() if n in DYNOFF_ROWS}
+    check(launched == {"flash_fwd_dynoff": 1, "flash_bwd_fused_dynoff": 1,
+                       "flash_bwd_dq_dynoff": 1, "flash_bwd_dkv_dynoff": 1},
+          f"the offset's kernels launched {launched}")
+    # The second oracle: at an offset of S_k every pair is causally visible.
+    o_d, lse_d = flash_fwd.flash_attention_forward(q, k, v, False, dyn_pos_offset=s, **kw)
+    o_c, lse_c = flash_fwd.flash_attention_forward(q, k, v, True, pos_offset=s, **kw)
+    _gate(f"K1 offset {s} on the card vs causal pos_offset {s} O", o_c, o_d, O_ATOL)
+    _gate(f"K1 offset {s} on the card vs causal pos_offset {s} LSE", lse_c, lse_d, LSE_ATOL)
+    for impl in ("fused", "split"):
+        g_d = flash_bwd.flash_attention_backward(q, k, v, o_d, do, lse_d, False, impl=impl,
+                                                 dyn_pos_offset=s, **kw)
+        g_c = flash_bwd.flash_attention_backward(q, k, v, o_c, do, lse_c, True, impl=impl,
+                                                 pos_offset=s, **kw)
+        for name, r, g in zip(("dQ", "dK", "dV"), g_c, g_d):
+            grad_gate(f"{impl} {name} offset {s} on the card vs causal pos_offset {s}", r, g,
+                      torch.bfloat16)
+    del o_d, lse_d, o_c, lse_c, g_d, g_c, ref, got
+    # D 64 with segment ids (two documents, padding) and the window alone.
+    q6, k6, v6, do6 = (randn((1, 8, 1024, 64), gen) for _ in range(4))
+    ids = torch.full((1, 1024), -1, dtype=torch.int32, device="cuda")
+    ids[0, :400], ids[0, 400:1000] = 0, 1
+    kw6 = dict(window=700, segment_ids=varlen.canonical_segments(ids, ids, "cuda"))
+    o6, lse6 = flash_fwd.flash_attention_forward(q6, k6, v6, False, dyn_pos_offset=300, **kw6)
+    o6r, _ = flash_fwd.flash_attention_forward_reference(q6, k6, v6, False, dyn_pos_offset=300,
+                                                         **kw6)
+    _gate("K1 D=64 segment ids, window 700, offset 300 O", o6r, o6, O_ATOL)
+    ref6 = flash_bwd.flash_attention_backward_reference(q6, k6, v6, o6, do6, lse6, False,
+                                                        dyn_pos_offset=300, **kw6)
+    for impl in ("fused", "split"):
+        got6 = flash_bwd.flash_attention_backward(q6, k6, v6, o6, do6, lse6, False, impl=impl,
+                                                  dyn_pos_offset=300, **kw6)
+        for name, r, g in zip(("dQ", "dK", "dV"), ref6, got6):
+            grad_gate(f"{impl} {name} D=64 segment ids, window 700, offset 300", r, g,
+                      torch.bfloat16)
+    del q6, k6, v6, do6, o6, o6r, ref6, got6
+    # Times: device ms of the kernels (captured graphs read the offset on the card).
+    few = dict(warmup=1, iters=5, reps=3)
+    dyn = dict(dyn_pos_offset=off_t, **kw)
+    ms = {"flash_fwd_dynoff": cuda_time_ms(
+        lambda: flash_fwd.flash_attention_forward(q, k, v, False, **dyn), **few)}
+    ms["flash_bwd_fused_dynoff"] = cuda_time_ms(
+        lambda: flash_bwd_fused.flash_attention_backward_fused(q, k, v, o, do, lse, False, **dyn),
+        **few)
+    ms["flash_bwd_dq_dynoff"] = cuda_time_ms(
+        lambda: flash_bwd.flash_bwd_dq(q, k, v, o, do, lse, False, **dyn), **few)
+    _, delta = flash_bwd.flash_bwd_dq(q, k, v, o, do, lse, False, **dyn)
+    ms["flash_bwd_dkv_dynoff"] = cuda_time_ms(
+        lambda: flash_bwd.flash_bwd_dkv(q, k, v, do, lse, delta, False, **dyn), **few)
+    plain = dict(dyn_pos_offset=DYN_OFFSET, **kw)
+    plain_f = event_time_ms(lambda: flash_fwd.flash_attention_forward_reference(
+        q, k, v, False, **plain), warmup=1, iters=2)
+    plain_b = event_time_ms(lambda: flash_bwd.flash_attention_backward_reference(
+        q, k, v, o, do, lse, False, **plain), warmup=1, iters=2)
+    slopes = flash_fwd.default_alibi_slopes(hq, "cuda")
+    lib_f, lib_b = flex_dyn_ms(q, k, v, DYN_OFFSET, DYN_WINDOW, slopes, do)
+    roof = dict(window=DYN_WINDOW, pos_offset=DYN_OFFSET)
+    out = {}
+    for row, kernel in zip(DYNOFF_ROWS, ("fwd", "fused", "dq", "dkv")):
+        report = (roofline.attention_fwd_roofline(b, hq, hkv, s, s, d, False, **roof)
+                  if kernel == "fwd" else
+                  roofline.attention_bwd_roofline(b, hq, hkv, s, s, d, False, kernel=kernel,
+                                                  **roof))
+        plain_ms, lib = (plain_f, lib_f) if kernel == "fwd" else (plain_b, lib_b)
+        print(f"[dynoff] {row} {tag}: kernel {ms[row]:.4f} ms "
+              f"({report.flops / (ms[row] * 1e-3) / 1e12:.2f} TFLOP/s over the visible pairs), "
+              f"bound {report.bound_ms:.5f} ms by {report.bound_by}, plain {plain_ms:.4f} ms, "
+              f"flex_attention {'forward' if kernel == 'fwd' else 'backward'} "
+              + (f"{lib:.4f} ms" if lib is not None else "did not run"))
+        out[row] = dict(max_abs_err=err[row], ms=ms[row], plain_ms=plain_ms, library_ms=lib,
+                        **bound(report))
+    del q, k, v, o, do, lse, delta
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# Phase 20: context parallelism. Two ranks, spawned processes sharing the
+# one card (cuda:0) through a gloo process group: every exchange is staged
+# through host memory (parallel/distributed.py, "gloo-host"). Times taken
+# while two ranks share one card say nothing of context parallelism's
+# speed and are printed as wall time only.
+CP_WORLD = 2
+CP_OPS_SHAPE = (1, 32, 8, 16384, 128)  # LLAMA31_8B's attention at phase 14's prompt length
+CP_CASES = {
+    "ring, causal": dict(mode="ring"),
+    "zigzag, causal": dict(mode="zigzag"),
+    "zigzag, window 4096 + ALiBi": dict(mode="zigzag", window=DYN_WINDOW, alibi=True),
+    # The split backward, selected as a user selects it: FLASHATTN_BWD_IMPL.
+    "zigzag, window 4096 + ALiBi, split backward": dict(mode="zigzag", window=DYN_WINDOW,
+                                                        alibi=True, bwd="split"),
+    "ulysses, causal": dict(mode="ulysses"),
+}
+CP_TRAIN_S = 4096
+CP_TRAIN_STEPS = 3
+CP_JOIN_S = 900  # the ranks' time limit, joined by the parent
+CP_GLOO_S = 300  # a collective's time limit
+
+
+def cp_ops(mesh, rank: int) -> dict[str, int]:
+    """Phase 20 (a) in rank `rank`: each CP_CASES case through
+    sharded_ring_attention (the global view, on every rank) and its
+    gradients, rank 0 holding them against K1 and the backward on the
+    whole sequence in its one process. Returns the launches of the
+    window + ALiBi zigzag cases (the offset's kernels' path: the fused
+    backward, then the split one)."""
+    from flashattn_tpu_torch import parallel
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    b, hq, hkv, s, d = CP_OPS_SHAPE
+    q, do = (randn((b, hq, s, d), gen) for _ in range(2))
+    k, v = (randn((b, hkv, s, d), gen) for _ in range(2))
+    shape = f"B={b} Hq={hq} Hkv={hkv} S={s} ({s // CP_WORLD} a rank) D={d} bf16"
+    path = dict.fromkeys(DYNOFF_ROWS, 0)
+    for name, case in CP_CASES.items():
+        kw = {a: x for a, x in case.items() if a != "bwd"}
+        impl = case.get("bwd", "auto")
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with (profile_train.backward_impl(impl) if impl != "auto"
+              else contextlib.nullcontext()):
+            o = parallel.sharded_ring_attention(*leaves, mesh, True, **kw)
+            grads = torch.autograd.grad(o, leaves, do)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {n: c for n, c in read_launches().items() if c}
+        split = impl == "split"
+        check(got.get("flash_fwd", 0) > 0
+              and got.get("flash_bwd_dq" if split else "flash_bwd_fused", 0) > 0,
+              f"[cp] rank {rank} {name}: launched {got}")
+        if "window" in kw:
+            bwd = ("flash_bwd_dq_dynoff", "flash_bwd_dkv_dynoff") if split else (
+                "flash_bwd_fused_dynoff",)
+            check(all(got.get(n, 0) > 0 for n in ("flash_fwd_dynoff",) + bwd),
+                  f"[cp] rank {rank} {name}: the offset's kernels launched {got}")
+            add_launches(path, {n: got.get(n, 0) for n in DYNOFF_ROWS})
+        print(f"[cp] rank {rank} {name}, {shape}: forward and gradients in {wall:.2f} s wall "
+              f"(two ranks on one card over gloo-host: not a speed), launches {got}", flush=True)
+        if rank == 0:
+            opts = dict(window=kw.get("window"), alibi=kw.get("alibi", False))
+            o_ref, lse_ref = flash_fwd.flash_attention_forward(q, k, v, True, **opts)
+            g_ref = flash_bwd.flash_attention_backward(q, k, v, o_ref, do, lse_ref, True,
+                                                       impl=impl, **opts)
+            _gate(f"[cp] {name} O against one process's K1 on the whole sequence", o_ref, o,
+                  O_ATOL)
+            for gname, r, g in zip(("dQ", "dK", "dV"), g_ref, grads):
+                grad_gate(f"[cp] {name} {gname} against one process's backward", r, g,
+                          torch.bfloat16)
+            del o_ref, lse_ref, g_ref
+        del o, grads, leaves
+        torch.cuda.empty_cache()
+    return path
+
+
+def cp_train(mesh, rank: int) -> None:
+    """Phase 20 (b) in rank `rank`: LLAMA_1B at full width and depth, the
+    sequence over sp: CP_TRAIN_STEPS steps of train.train under the mesh
+    against the same steps in one process, phase 7's gates (every step's
+    loss and grad norm, the last step's gradients' cosines); rank 0 runs
+    the one-process side."""
+    import itertools
+
+    cfg = LLAMA_1B
+    tokens = torch.randint(0, cfg.vocab_size, (1, CP_TRAIN_S + 1),
+                           generator=torch.Generator(device="cuda").manual_seed(SEED + 21),
+                           device="cuda")
+
+    def model():
+        return init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED + 22),
+                           device="cuda")
+
+    log = f"[cp-train] rank {rank}"
+    m = model()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, hist = train.train(m, itertools.repeat(tokens), TRAIN_TC, steps=CP_TRAIN_STEPS,
+                              log_every=1, mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {n: c for n, c in read_launches().items() if c}
+    # The contiguous causal ring: rank r runs r + 1 hops a layer a step.
+    hops = (rank + 1) * cfg.num_layers * CP_TRAIN_STEPS
+    check(got.get("flash_fwd") == hops
+          and got.get("flash_bwd_fused", 0) + got.get("flash_bwd_dq", 0) == hops,
+          f"{log}: the mesh's steps launched {got}, want {hops} K1 and backward launches")
+    losses = [h["loss"] for h in hist]
+    print(f"{log}: LLAMA_1B {cfg.num_layers} layers, S={CP_TRAIN_S} over sp {CP_WORLD} "
+          f"({CP_TRAIN_S // CP_WORLD} a rank), train.train under the mesh, {CP_TRAIN_STEPS} "
+          f"AdamW steps in {wall:.1f} s wall (not a speed): losses {losses}, grad norms "
+          f"{[h['grad_norm'] for h in hist]}, launches {got}", flush=True)
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"{log}: losses {losses}")
+    if rank == 0:  # one process, the same steps from the same weights
+        ref_model = model()
+        ref_state, ref = train.train(ref_model, itertools.repeat(tokens), TRAIN_TC,
+                                     steps=CP_TRAIN_STEPS, log_every=1)
+        for h, r in zip(hist, ref):
+            dl = abs(h["loss"] - r["loss"])
+            dn = abs(h["grad_norm"] - r["grad_norm"]) / r["grad_norm"]
+            print(f"[cp-train] step {h['step']}: loss {h['loss']:.6f} vs one process "
+                  f"{r['loss']:.6f} (|d| {dl:.6f} <= {LOSS_ATOL}), grad_norm "
+                  f"{h['grad_norm']:.6f} vs {r['grad_norm']:.6f} (rel {dn:.6f} <= "
+                  f"{GRAD_NORM_REL})", flush=True)
+            check(dl <= LOSS_ATOL and dn <= GRAD_NORM_REL,
+                  f"[cp-train] step {h['step']}: the mesh and one process disagree")
+        # The last step's gradients (summed over the ranks, then clipped by
+        # one factor: their directions are the raw gradients').
+        ref_grads = dict(ref_model.named_parameters())
+        cos = {n: float(F.cosine_similarity(p.grad.float().flatten(),
+                                            ref_grads[n].grad.float().flatten(), dim=0))
+               for n, p in m.named_parameters()}
+        worst = min(cos, key=cos.get)
+        print(f"[cp-train] step {CP_TRAIN_STEPS}'s gradients, the mesh vs one process: cosine "
+              f"min {cos[worst]:.6f} ({worst}) over {len(cos)} parameters (> {GRAD_COS})",
+              flush=True)
+        check(cos[worst] > GRAD_COS, "[cp-train] the mesh's gradients disagree with one "
+              "process's")
+        del ref_model, ref_state
+    del m, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+
+
+def cp_rank(rank: int, world: int, store: str, out: str) -> None:
+    """One rank of phase 20: joins the gloo group, runs (a) and (b) and
+    writes the launches of the offset kernels' path to `out`/rank<r>.pt.
+    Raises on any failed gate: the process then exits nonzero."""
+    from flashattn_tpu_torch import parallel
+    from flashattn_tpu_torch.parallel.distributed import transport
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parallel.initialize_distributed("gloo", f"file://{store}", world, rank, timeout=CP_GLOO_S)
+    mesh = parallel.make_mesh({"sp": world})
+    if rank == 0:
+        print(f"[cp] {world} ranks on {torch.cuda.get_device_name(0)} (cuda:0, shared), "
+              f"process group gloo, transport of their exchanges: "
+              f"{transport(mesh.group('sp'), torch.device('cuda'))}", flush=True)
+    path = cp_ops(mesh, rank)
+    torch.distributed.barrier()
+    cp_train(mesh, rank)
+    torch.save(path, os.path.join(out, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def phase_context_parallel() -> dict[str, int]:
+    """Phase 20 (the comment above): spawns CP_WORLD ranks (cp_rank) and
+    joins them within CP_JOIN_S seconds; a rank that fails or hangs fails
+    the phase, and none outlives it. Returns the offset kernels' launches
+    on (a)'s zigzag window + ALiBi path, summed over the ranks."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "store")
+        procs = [ctx.Process(target=cp_rank, args=(r, CP_WORLD, store, tmp))
+                 for r in range(CP_WORLD)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + CP_JOIN_S
+        try:
+            while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break  # one failed: the other would wait on it until its timeout
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                p.join(30)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * CP_WORLD, f"[cp] the ranks exited with {codes} (a rank failed, "
+              f"or passed {CP_JOIN_S} s)")
+        launches = dict.fromkeys(DYNOFF_ROWS, 0)
+        for r in range(CP_WORLD):
+            add_launches(launches, torch.load(os.path.join(tmp, f"rank{r}.pt")))
+    print(f"[cp] the offset's kernels on (a)'s zigzag window + ALiBi path, both ranks: "
+          f"{launches}")
+    return launches
+
+
 class PhaseClock:
     """Prints each phase's seconds as it ends."""
 
@@ -5028,6 +5460,8 @@ def run() -> None:
     launches.update(drop_launches)
     timed.update(drop_rows)
     clock.done("19 flash attention with dropout")
+    launches.update(phase_context_parallel())
+    clock.done("20 context parallelism on two ranks")
     launches["decode_lse"] = timed["decode_lse"].pop("launches")
     decode_src = ("flashattn_tpu_torch/csrc/decode.cu", "flashattn_tpu/ops/decode.py:351")
     qmm_src = "flashattn_tpu_torch/csrc/quant_matmul.cu"
@@ -5080,6 +5514,14 @@ def run() -> None:
                                  "flashattn_tpu/ops/flash_bwd.py:138"),
         "flash_bwd_dkv_dropout": ("flashattn_tpu_torch/csrc/flash_bwd_dropout.cu",
                                   "flashattn_tpu/ops/flash_bwd.py:286"),
+        "flash_fwd_dynoff": ("flashattn_tpu_torch/csrc/flash_fwd_dynoff.cu",
+                             "flashattn_tpu/ops/flash_fwd.py:469"),
+        "flash_bwd_fused_dynoff": ("flashattn_tpu_torch/csrc/flash_bwd_fused_dynoff.cu",
+                                   "flashattn_tpu/ops/flash_bwd_fused.py:336"),
+        "flash_bwd_dq_dynoff": ("flashattn_tpu_torch/csrc/flash_bwd_dynoff.cu",
+                                "flashattn_tpu/ops/flash_bwd.py:138"),
+        "flash_bwd_dkv_dynoff": ("flashattn_tpu_torch/csrc/flash_bwd_dynoff.cu",
+                                 "flashattn_tpu/ops/flash_bwd.py:286"),
     }
     for row in MASKED_ROWS + SOFTCAP_BWD_ROWS:  # the same kernels with a window, segment
         sources[row] = sources[row.rsplit("_", 1)[0]]  # ids or a soft-cap

@@ -1,13 +1,14 @@
 // B4 and B5, the split backward (csrc/flash_bwd_split.cuh holds the kernels
 // and their design), replacing the TPU kernels
 // flashattn_tpu/ops/flash_bwd.py::_dq_kernel and ::_dkv_kernel: the library
-// of every instantiation without ALiBi or dropout (bf16 and float32, no
-// mask, the window, segment ids, the soft-cap). flash_bwd_alibi.cu and
-// flash_bwd_dropout.cu build the ALiBi and the dropout instantiations into
+// of every instantiation without ALiBi, dropout or the offset on the card
+// (bf16 and float32, no mask, the window, segment ids, the soft-cap).
+// flash_bwd_alibi.cu, flash_bwd_dropout.cu and flash_bwd_dynoff.cu build
+// the ALiBi, the dropout and the device-offset instantiations into
 // libraries of their own, compiled beside this one.
 #include "flash_bwd_split.cuh"
 
-// dq_launch_impl<false, false>'s contract (flash_bwd_split.cuh); slopes must be null.
+// dq_launch_impl<false, false, false>'s contract (flash_bwd_split.cuh); slopes must be null.
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* dq, void* delta,
                                    const int* seg_q, const int* seg_k, const int2* ranges_q,
@@ -15,13 +16,13 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, 
                                    int Hkv, int Sq, int Sk, int D, int dtype, int is_causal,
                                    int offset, int window, float scale, float scale_log2,
                                    float cap_log2, void* stream) {
-  return dq_launch_impl<false, false>(q, k, v, o, dout, lse, dq, delta, seg_q, seg_k, ranges_q,
-                                     ranges_k, slopes, B, Hq, Hkv, Sq, Sk, D, dtype, is_causal,
-                                     offset, window, scale, scale_log2, cap_log2, fat::Dropout{},
-                                     stream);
+  return dq_launch_impl<false, false, false>(
+      q, k, v, o, dout, lse, dq, delta, seg_q, seg_k, ranges_q, ranges_k, slopes, B, Hq, Hkv, Sq,
+      Sk, D, dtype, is_causal, offset, window, scale, scale_log2, cap_log2, fat::Dropout{},
+      nullptr, stream);
 }
 
-// dkv_launch_impl<false, false>'s contract (flash_bwd_split.cuh); slopes must be null.
+// dkv_launch_impl<false, false, false>'s contract (flash_bwd_split.cuh); slopes must be null.
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* delta,
                                     void* dk, void* dv, const int* seg_q, const int* seg_k,
@@ -30,8 +31,8 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                     int D, int dtype, int is_causal, int offset, int window,
                                     float scale, float scale_log2, float cap_log2,
                                     void* stream) {
-  return dkv_launch_impl<false, false>(q, k, v, dout, lse, delta, dk, dv, seg_q, seg_k, ranges_q,
-                                      ranges_k, slopes, B, Hq, Hkv, Sq, Sk, D, dtype, is_causal,
-                                      offset, window, scale, scale_log2, cap_log2,
-                                      fat::Dropout{}, stream);
+  return dkv_launch_impl<false, false, false>(
+      q, k, v, dout, lse, delta, dk, dv, seg_q, seg_k, ranges_q, ranges_k, slopes, B, Hq, Hkv, Sq,
+      Sk, D, dtype, is_causal, offset, window, scale, scale_log2, cap_log2, fat::Dropout{},
+      nullptr, stream);
 }

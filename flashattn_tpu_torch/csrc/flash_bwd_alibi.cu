@@ -7,7 +7,7 @@
 // alibi slopes.
 #include "flash_bwd_split.cuh"
 
-// dq_launch_impl<true, false>'s contract (flash_bwd_split.cuh); slopes must not be null.
+// dq_launch_impl<true, false, false>'s contract (flash_bwd_split.cuh); slopes must not be null.
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* dq, void* delta,
                                    const int* seg_q, const int* seg_k, const int2* ranges_q,
@@ -15,13 +15,13 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, 
                                    int Hkv, int Sq, int Sk, int D, int dtype, int is_causal,
                                    int offset, int window, float scale, float scale_log2,
                                    float cap_log2, void* stream) {
-  return dq_launch_impl<true, false>(q, k, v, o, dout, lse, dq, delta, seg_q, seg_k, ranges_q,
-                                     ranges_k, slopes, B, Hq, Hkv, Sq, Sk, D, dtype, is_causal,
-                                     offset, window, scale, scale_log2, cap_log2, fat::Dropout{},
-                                     stream);
+  return dq_launch_impl<true, false, false>(
+      q, k, v, o, dout, lse, dq, delta, seg_q, seg_k, ranges_q, ranges_k, slopes, B, Hq, Hkv, Sq,
+      Sk, D, dtype, is_causal, offset, window, scale, scale_log2, cap_log2, fat::Dropout{},
+      nullptr, stream);
 }
 
-// dkv_launch_impl<true, false>'s contract (flash_bwd_split.cuh); slopes must not be null.
+// dkv_launch_impl<true, false, false>'s contract (flash_bwd_split.cuh); slopes must not be null.
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* delta,
                                     void* dk, void* dv, const int* seg_q, const int* seg_k,
@@ -30,8 +30,8 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                     int D, int dtype, int is_causal, int offset, int window,
                                     float scale, float scale_log2, float cap_log2,
                                     void* stream) {
-  return dkv_launch_impl<true, false>(q, k, v, dout, lse, delta, dk, dv, seg_q, seg_k, ranges_q,
-                                      ranges_k, slopes, B, Hq, Hkv, Sq, Sk, D, dtype, is_causal,
-                                      offset, window, scale, scale_log2, cap_log2,
-                                      fat::Dropout{}, stream);
+  return dkv_launch_impl<true, false, false>(
+      q, k, v, dout, lse, delta, dk, dv, seg_q, seg_k, ranges_q, ranges_k, slopes, B, Hq, Hkv, Sq,
+      Sk, D, dtype, is_causal, offset, window, scale, scale_log2, cap_log2, fat::Dropout{},
+      nullptr, stream);
 }

@@ -7,9 +7,9 @@
 // ::_dkv_kernel with their dropout (flash_bwd.py:253-263, :396-437).
 #include "flash_bwd_split.cuh"
 
-// dq_launch_impl<slopes != NULL, true>'s contract (flash_bwd_split.cuh); the
-// dropout's int32 seed is read from `seed` on the device; keep iff the
-// hash >= threshold; scale 1 / (1 - rate).
+// dq_launch_impl<slopes != NULL, true, false>'s contract
+// (flash_bwd_split.cuh); the dropout's int32 seed is read from `seed` on the
+// device; keep iff the hash >= threshold; scale 1 / (1 - rate).
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* dq, void* delta,
                                    const int* seg_q, const int* seg_k, const int2* ranges_q,
@@ -19,14 +19,16 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, 
                                    float cap_log2, const int* seed, unsigned threshold,
                                    float dropout_scale, void* stream) {
   const fat::Dropout drop{seed, threshold, dropout_scale};
-  const auto impl = slopes != nullptr ? dq_launch_impl<true, true> : dq_launch_impl<false, true>;
+  const auto impl = slopes != nullptr ? dq_launch_impl<true, true, false>
+                                      : dq_launch_impl<false, true, false>;
   return impl(q, k, v, o, dout, lse, dq, delta, seg_q, seg_k, ranges_q, ranges_k, slopes, B, Hq,
               Hkv, Sq, Sk, D, dtype, is_causal, offset, window, scale, scale_log2, cap_log2, drop,
-              stream);
+              nullptr, stream);
 }
 
-// dkv_launch_impl<slopes != NULL, true>'s contract (flash_bwd_split.cuh),
-// the dropout's arguments as flash_bwd_dq_launch takes them.
+// dkv_launch_impl<slopes != NULL, true, false>'s contract
+// (flash_bwd_split.cuh), the dropout's arguments as flash_bwd_dq_launch
+// takes them.
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* delta,
                                     void* dk, void* dv, const int* seg_q, const int* seg_k,
@@ -37,8 +39,9 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                     const int* seed, unsigned threshold,
                                     float dropout_scale, void* stream) {
   const fat::Dropout drop{seed, threshold, dropout_scale};
-  const auto impl = slopes != nullptr ? dkv_launch_impl<true, true> : dkv_launch_impl<false, true>;
+  const auto impl = slopes != nullptr ? dkv_launch_impl<true, true, false>
+                                      : dkv_launch_impl<false, true, false>;
   return impl(q, k, v, dout, lse, delta, dk, dv, seg_q, seg_k, ranges_q, ranges_k, slopes, B, Hq,
               Hkv, Sq, Sk, D, dtype, is_causal, offset, window, scale, scale_log2, cap_log2, drop,
-              stream);
+              nullptr, stream);
 }

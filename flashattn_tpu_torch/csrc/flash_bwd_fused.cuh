@@ -1,9 +1,11 @@
 // Flash-attention backward, fused path, for Hopper (sm_90a): a delta
-// pre-pass, then one kernel that computes dQ, dK and dV in one pass. Three
+// pre-pass, then one kernel that computes dQ, dK and dV in one pass. Four
 // libraries build from this header: flash_bwd_fused.cu (every instantiation
-// without ALiBi or dropout), flash_bwd_fused_alibi.cu (ALiBi's) and
-// flash_bwd_fused_dropout.cu (dropout's, with ALiBi or without), side by
-// side.
+// without ALiBi, dropout or the offset read on the card),
+// flash_bwd_fused_alibi.cu (ALiBi's), flash_bwd_fused_dropout.cu (dropout's,
+// with ALiBi or without) and flash_bwd_fused_dynoff.cu (kDyn's: the q/k
+// alignment read on the card once a CTA, not causal, the window's left edge
+// and ALiBi), side by side.
 //
 // Replaces the TPU kernel flashattn_tpu/ops/flash_bwd_fused.py::
 // _fused_bwd_kernel (launcher flash_attention_backward_fused, :336; B3) on
@@ -82,7 +84,7 @@ flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                            window, scale, scale_log2, cap_log2, drop);
 }
 
-template <int D, int kMask, bool kCap, bool kAlibi, bool kDropout>
+template <int D, int kMask, bool kCap, bool kAlibi, bool kDropout, bool kDyn>
 __global__ void __launch_bounds__(fat::bwd::mma::threads<D>())
 flash_bwd_fused_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
@@ -93,45 +95,51 @@ flash_bwd_fused_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloa
                            const int2* __restrict__ ranges_q, const int2* __restrict__ ranges_k,
                            const float* __restrict__ slopes, int Hq, int Hkv, int Sq, int Sk,
                            int is_causal, int offset, int window, float scale, float scale_log2,
-                           float cap_log2, const fat::Dropout drop) {
+                           float cap_log2, const fat::Dropout drop,
+                           const int* __restrict__ dyn_offset) {
+  // kDyn: the q/k alignment from the card bounds the q walk and masks alike.
   fat::bwd::mma::dkv_tile<D, true, kMask, kCap, kAlibi, kDropout>(
       q, k, v, dout, lse, delta, dk, dv, dq_acc, seg_q, seg_k, ranges_q, ranges_k, slopes, Hq,
-      Hkv, Sq, Sk, is_causal, offset, window, scale, scale_log2, cap_log2, drop);
+      Hkv, Sq, Sk, is_causal, kDyn ? __ldg(dyn_offset) : offset, window, scale, scale_log2,
+      cap_log2, drop);
 }
 
-template <int D, int kMask, bool kCap, bool kAlibi, bool kDropout>
+template <int D, int kMask, bool kCap, bool kAlibi, bool kDropout, bool kDyn>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, void* dq_acc, void* dk, void* dv, const void* delta,
                        const int* seg_q, const int* seg_k, const int2* ranges_q,
                        const int2* ranges_k, const float* slopes, int B, int Hq, int Hkv, int Sq,
                        int Sk, int is_causal, int offset, int window, float scale,
                        float scale_log2, float cap_log2, const fat::Dropout& drop,
-                       cudaStream_t stream) {
+                       const int* dyn_offset, cudaStream_t stream) {
   namespace mma = fat::bwd::mma;
   using bf16 = __nv_bfloat16;
-  const cudaError_t err =
-      fat::allow_max_smem<flash_bwd_fused_mma_kernel<D, kMask, kCap, kAlibi, kDropout>>();
+  const cudaError_t err = fat::allow_max_smem<
+      flash_bwd_fused_mma_kernel<D, kMask, kCap, kAlibi, kDropout, kDyn>>();
   if (err != cudaSuccess) return err;
   const dim3 grid(Hkv, B, (Sk + mma::kBc - 1) / mma::kBc);
-  flash_bwd_fused_mma_kernel<D, kMask, kCap, kAlibi, kDropout>
+  flash_bwd_fused_mma_kernel<D, kMask, kCap, kAlibi, kDropout, kDyn>
       <<<grid, mma::threads<D>(), mma::smem_bytes<D, true, kMask>(), stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
           static_cast<const bf16*>(dout), static_cast<const float*>(lse),
           static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
           static_cast<float*>(dq_acc), seg_q, seg_k, ranges_q, ranges_k, slopes, Hq, Hkv, Sq,
-          Sk, is_causal, offset, window, scale, scale_log2, cap_log2, drop);
+          Sk, is_causal, offset, window, scale, scale_log2, cap_log2, drop, dyn_offset);
   return cudaGetLastError();
 }
 
 // With kAlibi the bf16 kernels of ALiBi (no cap), else those without it;
-// with kDropout those of dropout, else those without it.
-template <typename T, int D, bool kAlibi, bool kDropout>
+// with kDropout those of dropout, else those without it; with kDyn those
+// that read the offset on the card (bf16, no cap, no dropout; a window or
+// ALiBi).
+template <typename T, int D, bool kAlibi, bool kDropout, bool kDyn>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const void* lse, void* dq_acc, void* dk, void* dv, void* delta,
                    const int* seg_q, const int* seg_k, const int2* ranges_q,
                    const int2* ranges_k, const float* slopes, int B, int Hq, int Hkv, int Sq,
                    int Sk, int is_causal, int offset, int window, float scale, float scale_log2,
-                   float cap_log2, const fat::Dropout& drop, cudaStream_t stream) {
+                   float cap_log2, const fat::Dropout& drop, const int* dyn_offset,
+                   cudaStream_t stream) {
   const long long rows = static_cast<long long>(B) * Hq * Sq;
   flash_bwd_delta_kernel<T, D><<<static_cast<unsigned>((rows + kRowsPerCta - 1) / kRowsPerCta),
                                  kThreads, 0, stream>>>(
@@ -141,22 +149,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     namespace bwd = fat::bwd;
     const bool cap = cap_log2 > 0.f;
-    constexpr bool X = kDropout;
-    decltype(&launch_mma<D, bwd::kNoMask, false, kAlibi, X>) fn;
+    constexpr bool X = kDropout, Y = kDyn;
+    decltype(&launch_mma<D, bwd::kNoMask, false, kAlibi, X, Y>) fn;
     if constexpr (kAlibi)
-      fn = seg_q != nullptr ? launch_mma<D, bwd::kSegmentMask, false, true, X>
-           : window > 0     ? launch_mma<D, bwd::kWindowMask, false, true, X>
-                            : launch_mma<D, bwd::kNoMask, false, true, X>;
+      fn = seg_q != nullptr ? launch_mma<D, bwd::kSegmentMask, false, true, X, Y>
+           : window > 0     ? launch_mma<D, bwd::kWindowMask, false, true, X, Y>
+                            : launch_mma<D, bwd::kNoMask, false, true, X, Y>;
+    else if constexpr (kDyn)  // the window, with or without segment ids
+      fn = seg_q != nullptr ? launch_mma<D, bwd::kSegmentMask, false, false, X, Y>
+                            : launch_mma<D, bwd::kWindowMask, false, false, X, Y>;
     else
-      fn = seg_q != nullptr ? (cap ? launch_mma<D, bwd::kSegmentMask, true, false, X>
-                                   : launch_mma<D, bwd::kSegmentMask, false, false, X>)
-           : window > 0     ? (cap ? launch_mma<D, bwd::kWindowMask, true, false, X>
-                                   : launch_mma<D, bwd::kWindowMask, false, false, X>)
-                            : (cap ? launch_mma<D, bwd::kNoMask, true, false, X>
-                                   : launch_mma<D, bwd::kNoMask, false, false, X>);
+      fn = seg_q != nullptr ? (cap ? launch_mma<D, bwd::kSegmentMask, true, false, X, Y>
+                                   : launch_mma<D, bwd::kSegmentMask, false, false, X, Y>)
+           : window > 0     ? (cap ? launch_mma<D, bwd::kWindowMask, true, false, X, Y>
+                                   : launch_mma<D, bwd::kWindowMask, false, false, X, Y>)
+                            : (cap ? launch_mma<D, bwd::kNoMask, true, false, X, Y>
+                                   : launch_mma<D, bwd::kNoMask, false, false, X, Y>);
     return fn(q, k, v, dout, lse, dq_acc, dk, dv, delta, seg_q, seg_k, ranges_q, ranges_k, slopes,
               B, Hq, Hkv, Sq, Sk, is_causal, offset, window, scale, scale_log2, cap_log2, drop,
-              stream);
+              dyn_offset, stream);
   } else {
     err = fat::allow_max_smem<flash_bwd_fused_kernel<T, D, kDropout>>();
     if (err != cudaSuccess) return err;
@@ -194,33 +205,39 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
 // Writes delta, dk (scale applied) and dv in k's dtype, and adds
 // scale * dS.K into dq_acc. Returns the CUDA error code of the launches
 // (0 = success).
-template <bool kAlibi, bool kDropout>
+template <bool kAlibi, bool kDropout, bool kDyn>
 int fused_launch_impl(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const void* lse, void* dq_acc, void* dk, void* dv,
                       void* delta, const int* seg_q, const int* seg_k, const int2* ranges_q,
                       const int2* ranges_k, const float* slopes, int B, int Hq, int Hkv, int Sq,
                       int Sk, int D, int dtype, int is_causal, int offset, int window,
                       float scale, float scale_log2, float cap_log2, const fat::Dropout& drop,
-                      void* stream) {
+                      const int* dyn_offset, void* stream) {
   const bool seg = seg_q != nullptr;
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || window < 0 ||
-      (window > 0 && !is_causal) || seg != (seg_k != nullptr) || seg != (ranges_q != nullptr) ||
-      seg != (ranges_k != nullptr) || cap_log2 < 0.f || (slopes != nullptr) != kAlibi ||
-      (kAlibi && cap_log2 > 0.f))
+      (window > 0 && !is_causal && !kDyn) || seg != (seg_k != nullptr) ||
+      seg != (ranges_q != nullptr) || seg != (ranges_k != nullptr) || cap_log2 < 0.f ||
+      (slopes != nullptr) != kAlibi || (kAlibi && cap_log2 > 0.f) ||
+      (kDyn && (is_causal || dyn_offset == nullptr || cap_log2 > 0.f ||
+                (window == 0 && !kAlibi) || dtype != fat::kBF16 || D > 128)))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr bool A = kAlibi, X = kDropout;
-  const auto fn = dtype == fat::kBF16 ? (D == 64    ? launch<__nv_bfloat16, 64, A, X>
-                                         : D == 128 ? launch<__nv_bfloat16, 128, A, X>
-                                         : D == 256 ? launch<__nv_bfloat16, 256, A, X>
-                                                    : nullptr)
-                  : dtype == fat::kF32 ? (D == 64    ? launch<float, 64, A, X>
-                                          : D == 128 ? launch<float, 128, A, X>
-                                          : D == 256 ? launch<float, 256, A, X>
-                                                     : nullptr)
-                                       : nullptr;
+  decltype(&launch<__nv_bfloat16, 64, A, X, kDyn>) fn = nullptr;
+  if constexpr (kDyn)
+    fn = D == 64 ? launch<__nv_bfloat16, 64, A, X, true> : launch<__nv_bfloat16, 128, A, X, true>;
+  else
+    fn = dtype == fat::kBF16 ? (D == 64    ? launch<__nv_bfloat16, 64, A, X, false>
+                                : D == 128 ? launch<__nv_bfloat16, 128, A, X, false>
+                                : D == 256 ? launch<__nv_bfloat16, 256, A, X, false>
+                                           : nullptr)
+         : dtype == fat::kF32 ? (D == 64    ? launch<float, 64, A, X, false>
+                                 : D == 128 ? launch<float, 128, A, X, false>
+                                 : D == 256 ? launch<float, 256, A, X, false>
+                                            : nullptr)
+                              : nullptr;
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(fn(q, k, v, o, dout, lse, dq_acc, dk, dv, delta, seg_q, seg_k,
                              ranges_q, ranges_k, slopes, B, Hq, Hkv, Sq, Sk, is_causal, offset,
-                             window, scale, scale_log2, cap_log2, drop,
+                             window, scale, scale_log2, cap_log2, drop, dyn_offset,
                              static_cast<cudaStream_t>(stream)));
 }

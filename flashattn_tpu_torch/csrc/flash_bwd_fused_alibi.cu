@@ -7,7 +7,7 @@
 // slopes.
 #include "flash_bwd_fused.cuh"
 
-// fused_launch_impl<true, false>'s contract (flash_bwd_fused.cuh); slopes must not be null.
+// fused_launch_impl<true, false, false>'s contract (flash_bwd_fused.cuh); slopes must not be null.
 extern "C" int flash_bwd_fused_launch(const void* q, const void* k, const void* v, const void* o,
                                       const void* dout, const void* lse, void* dq_acc, void* dk,
                                       void* dv, void* delta, const int* seg_q, const int* seg_k,
@@ -16,8 +16,8 @@ extern "C" int flash_bwd_fused_launch(const void* q, const void* k, const void* 
                                       int D, int dtype, int is_causal, int offset, int window,
                                       float scale, float scale_log2, float cap_log2,
                                       void* stream) {
-  return fused_launch_impl<true, false>(q, k, v, o, dout, lse, dq_acc, dk, dv, delta, seg_q,
-                                        seg_k, ranges_q, ranges_k, slopes, B, Hq, Hkv, Sq, Sk, D,
-                                        dtype, is_causal, offset, window, scale, scale_log2,
-                                        cap_log2, fat::Dropout{}, stream);
+  return fused_launch_impl<true, false, false>(q, k, v, o, dout, lse, dq_acc, dk, dv, delta, seg_q,
+                                       seg_k, ranges_q, ranges_k, slopes, B, Hq, Hkv, Sq, Sk, D,
+                                       dtype, is_causal, offset, window, scale, scale_log2,
+                                       cap_log2, fat::Dropout{}, nullptr, stream);
 }

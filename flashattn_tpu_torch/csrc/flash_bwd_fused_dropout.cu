@@ -8,9 +8,9 @@
 // (flash_bwd_fused.py:236-247).
 #include "flash_bwd_fused.cuh"
 
-// fused_launch_impl<slopes != NULL, true>'s contract (flash_bwd_fused.cuh);
-// the dropout's int32 seed is read from `seed` on the device; keep iff the
-// hash >= threshold; scale 1 / (1 - rate).
+// fused_launch_impl<slopes != NULL, true, false>'s contract
+// (flash_bwd_fused.cuh); the dropout's int32 seed is read from `seed` on the
+// device; keep iff the hash >= threshold; scale 1 / (1 - rate).
 extern "C" int flash_bwd_fused_launch(const void* q, const void* k, const void* v, const void* o,
                                       const void* dout, const void* lse, void* dq_acc, void* dk,
                                       void* dv, void* delta, const int* seg_q, const int* seg_k,
@@ -21,9 +21,9 @@ extern "C" int flash_bwd_fused_launch(const void* q, const void* k, const void* 
                                       const int* seed, unsigned threshold,
                                       float dropout_scale, void* stream) {
   const fat::Dropout drop{seed, threshold, dropout_scale};
-  const auto impl =
-      slopes != nullptr ? fused_launch_impl<true, true> : fused_launch_impl<false, true>;
+  const auto impl = slopes != nullptr ? fused_launch_impl<true, true, false>
+                                      : fused_launch_impl<false, true, false>;
   return impl(q, k, v, o, dout, lse, dq_acc, dk, dv, delta, seg_q, seg_k, ranges_q, ranges_k,
               slopes, B, Hq, Hkv, Sq, Sk, D, dtype, is_causal, offset, window, scale, scale_log2,
-              cap_log2, drop, stream);
+              cap_log2, drop, nullptr, stream);
 }

@@ -1,9 +1,11 @@
 // Flash-attention backward, split path, for Hopper (sm_90a): the dQ kernel
-// (with delta) and the dK/dV kernel, run one after the other. Three
+// (with delta) and the dK/dV kernel, run one after the other. Four
 // libraries build from this header: flash_bwd.cu (every instantiation
-// without ALiBi or dropout), flash_bwd_alibi.cu (ALiBi's) and
-// flash_bwd_dropout.cu (dropout's, with ALiBi or without), compiled side by
-// side.
+// without ALiBi, dropout or the offset read on the card), flash_bwd_alibi.cu
+// (ALiBi's), flash_bwd_dropout.cu (dropout's, with ALiBi or without) and
+// flash_bwd_dynoff.cu (kDyn's: the q/k alignment read on the card once a
+// CTA, not causal, the window's left edge and ALiBi; the walks start from
+// it), compiled side by side.
 //
 // Replaces the TPU kernels flashattn_tpu/ops/flash_bwd.py::_dq_kernel (B4)
 // and ::_dkv_kernel (B5) (launcher flash_attention_backward, :467) on the
@@ -210,7 +212,7 @@ constexpr size_t smem_bytes() {
 // seg_q/seg_k null), kWindowMask not the ids; kCap the soft-cap, kAlibi
 // ALiBi (as the dK/dV tile of flash_bwd_mma.cuh) and kDropout dropout;
 // cap_log2, slopes and drop are not read without them.
-template <int D, int kMask, bool kCap, bool kAlibi, bool kDropout>
+template <int D, int kMask, bool kCap, bool kAlibi, bool kDropout, bool kDyn>
 __global__ void __launch_bounds__(fat::bwd::mma::kThreads)
 flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
@@ -219,9 +221,12 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
                         const int* __restrict__ seg_q, const int* __restrict__ seg_k,
                         const int2* __restrict__ ranges_q, const int2* __restrict__ ranges_k,
                         const float* __restrict__ slopes, int Hq, int Hkv, int Sq, int Sk,
-                        int is_causal, int offset, int window, float scale, float scale_log2,
-                        float cap_log2, const fat::Dropout drop) {
+                        int is_causal, int offset_arg, int window, float scale,
+                        float scale_log2, float cap_log2, const fat::Dropout drop,
+                        const int* __restrict__ dyn_offset) {
   static_assert(!(kCap && kAlibi), "ALiBi takes no soft-cap");
+  // kDyn: the q/k alignment is read from the card; the kv walk starts from it.
+  const int offset = kDyn ? __ldg(dyn_offset) : offset_arg;
   using bf16 = __nv_bfloat16;
   using dq_mma::kBr;
   constexpr int kBc = dq_mma::kv_rows<D>();
@@ -507,7 +512,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                                             window, scale, scale_log2, cap_log2, drop);
 }
 
-template <int D, int kMask, bool kCap, bool kAlibi, bool kDropout>
+template <int D, int kMask, bool kCap, bool kAlibi, bool kDropout, bool kDyn>
 __global__ void __launch_bounds__(fat::bwd::mma::threads<D>())
 flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
@@ -517,10 +522,13 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
                          const int* __restrict__ seg_k, const int2* __restrict__ ranges_q,
                          const int2* __restrict__ ranges_k, const float* __restrict__ slopes,
                          int Hq, int Hkv, int Sq, int Sk, int is_causal, int offset, int window,
-                         float scale, float scale_log2, float cap_log2, const fat::Dropout drop) {
+                         float scale, float scale_log2, float cap_log2, const fat::Dropout drop,
+                         const int* __restrict__ dyn_offset) {
+  // kDyn: the q/k alignment from the card bounds the q walk and masks alike.
   fat::bwd::mma::dkv_tile<D, false, kMask, kCap, kAlibi, kDropout>(
       q, k, v, dout, lse, delta, dk, dv, nullptr, seg_q, seg_k, ranges_q, ranges_k, slopes, Hq,
-      Hkv, Sq, Sk, is_causal, offset, window, scale, scale_log2, cap_log2, drop);
+      Hkv, Sq, Sk, is_causal, kDyn ? __ldg(dyn_offset) : offset, window, scale, scale_log2,
+      cap_log2, drop);
 }
 
 // The mask and logit arguments every launch passes after the pointers it
@@ -536,6 +544,7 @@ struct Mask {
   float scale_log2;  // the logits' factor: scale * log2(e), or scale / cap
   float cap_log2;    // cap * log2(e) with a soft-cap, else 0
   fat::Dropout drop;  // read by the kDropout kernels alone
+  const int* dyn_offset;  // the int32 offset on the card, read by the kDyn kernels alone
   fat::bwd::MaskKind kind() const {
     return seg_q != nullptr ? fat::bwd::kSegmentMask
                             : window > 0 ? fat::bwd::kWindowMask : fat::bwd::kNoMask;
@@ -543,48 +552,54 @@ struct Mask {
   bool cap() const { return cap_log2 > 0.f; }
 };
 
-template <int D, int kMask, bool kCap, bool kAlibi, bool kDropout>
+template <int D, int kMask, bool kCap, bool kAlibi, bool kDropout, bool kDyn>
 cudaError_t launch_dq_mma(const void* q, const void* k, const void* v, const void* o,
                           const void* dout, const void* lse, void* dq, void* delta, int B, int Hq,
                           int Hkv, int Sq, int Sk, const Mask& m, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   const cudaError_t err =
-      fat::allow_max_smem<flash_bwd_dq_mma_kernel<D, kMask, kCap, kAlibi, kDropout>>();
+      fat::allow_max_smem<flash_bwd_dq_mma_kernel<D, kMask, kCap, kAlibi, kDropout, kDyn>>();
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + dq_mma::kBr - 1) / dq_mma::kBr, Hq, B);
-  flash_bwd_dq_mma_kernel<D, kMask, kCap, kAlibi, kDropout>
+  flash_bwd_dq_mma_kernel<D, kMask, kCap, kAlibi, kDropout, kDyn>
       <<<grid, fat::bwd::mma::kThreads, dq_mma::smem_bytes<D, kMask>(), stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
           static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
           static_cast<const float*>(lse), static_cast<bf16*>(dq), static_cast<float*>(delta),
           m.seg_q, m.seg_k, m.ranges_q, m.ranges_k, m.slopes, Hq, Hkv, Sq, Sk, m.is_causal,
-          m.offset, m.window, m.scale, m.scale_log2, m.cap_log2, m.drop);
+          m.offset, m.window, m.scale, m.scale_log2, m.cap_log2, m.drop, m.dyn_offset);
   return cudaGetLastError();
 }
 
 // With kAlibi the bf16 kernels of ALiBi (no cap), else those without it;
-// with kDropout those of dropout, else those without it.
-template <typename T, int D, bool kAlibi, bool kDropout>
+// with kDropout those of dropout, else those without it; with kDyn those
+// that read the offset on the card (bf16, no cap, no dropout; a window or
+// ALiBi).
+template <typename T, int D, bool kAlibi, bool kDropout, bool kDyn>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const void* lse, void* dq, void* delta, int B, int Hq,
                       int Hkv, int Sq, int Sk, const Mask& m, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     using fat::bwd::kNoMask, fat::bwd::kSegmentMask, fat::bwd::kWindowMask;
     const auto kind = m.kind();
-    constexpr bool X = kDropout;
+    constexpr bool X = kDropout, Y = kDyn;
     if constexpr (kAlibi) {
-      const auto fn = kind == kSegmentMask  ? launch_dq_mma<D, kSegmentMask, false, true, X>
-                      : kind == kWindowMask ? launch_dq_mma<D, kWindowMask, false, true, X>
-                                            : launch_dq_mma<D, kNoMask, false, true, X>;
+      const auto fn = kind == kSegmentMask  ? launch_dq_mma<D, kSegmentMask, false, true, X, Y>
+                      : kind == kWindowMask ? launch_dq_mma<D, kWindowMask, false, true, X, Y>
+                                            : launch_dq_mma<D, kNoMask, false, true, X, Y>;
+      return fn(q, k, v, o, dout, lse, dq, delta, B, Hq, Hkv, Sq, Sk, m, stream);
+    } else if constexpr (kDyn) {  // the window, with or without segment ids
+      const auto fn = kind == kSegmentMask ? launch_dq_mma<D, kSegmentMask, false, false, X, Y>
+                                           : launch_dq_mma<D, kWindowMask, false, false, X, Y>;
       return fn(q, k, v, o, dout, lse, dq, delta, B, Hq, Hkv, Sq, Sk, m, stream);
     } else {
       const auto fn =
-          m.cap() ? (kind == kSegmentMask  ? launch_dq_mma<D, kSegmentMask, true, false, X>
-                     : kind == kWindowMask ? launch_dq_mma<D, kWindowMask, true, false, X>
-                                           : launch_dq_mma<D, kNoMask, true, false, X>)
-                  : (kind == kSegmentMask  ? launch_dq_mma<D, kSegmentMask, false, false, X>
-                     : kind == kWindowMask ? launch_dq_mma<D, kWindowMask, false, false, X>
-                                           : launch_dq_mma<D, kNoMask, false, false, X>);
+          m.cap() ? (kind == kSegmentMask  ? launch_dq_mma<D, kSegmentMask, true, false, X, Y>
+                     : kind == kWindowMask ? launch_dq_mma<D, kWindowMask, true, false, X, Y>
+                                           : launch_dq_mma<D, kNoMask, true, false, X, Y>)
+                  : (kind == kSegmentMask  ? launch_dq_mma<D, kSegmentMask, false, false, X, Y>
+                     : kind == kWindowMask ? launch_dq_mma<D, kWindowMask, false, false, X, Y>
+                                           : launch_dq_mma<D, kNoMask, false, false, X, Y>);
       return fn(q, k, v, o, dout, lse, dq, delta, B, Hq, Hkv, Sq, Sk, m, stream);
     }
   } else {
@@ -600,47 +615,51 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o
   }
 }
 
-template <int D, int kMask, bool kCap, bool kAlibi, bool kDropout>
+template <int D, int kMask, bool kCap, bool kAlibi, bool kDropout, bool kDyn>
 cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, void* dk, void* dv, int B, int Hq,
                            int Hkv, int Sq, int Sk, const Mask& m, cudaStream_t stream) {
   namespace mma = fat::bwd::mma;
   using bf16 = __nv_bfloat16;
   const cudaError_t err =
-      fat::allow_max_smem<flash_bwd_dkv_mma_kernel<D, kMask, kCap, kAlibi, kDropout>>();
+      fat::allow_max_smem<flash_bwd_dkv_mma_kernel<D, kMask, kCap, kAlibi, kDropout, kDyn>>();
   if (err != cudaSuccess) return err;
   const dim3 grid(Hkv, B, (Sk + mma::kBc - 1) / mma::kBc);
-  flash_bwd_dkv_mma_kernel<D, kMask, kCap, kAlibi, kDropout>
+  flash_bwd_dkv_mma_kernel<D, kMask, kCap, kAlibi, kDropout, kDyn>
       <<<grid, mma::threads<D>(), mma::smem_bytes<D, false, kMask>(), stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
           static_cast<const bf16*>(dout), static_cast<const float*>(lse),
           static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
           m.seg_q, m.seg_k, m.ranges_q, m.ranges_k, m.slopes, Hq, Hkv, Sq, Sk, m.is_causal,
-          m.offset, m.window, m.scale, m.scale_log2, m.cap_log2, m.drop);
+          m.offset, m.window, m.scale, m.scale_log2, m.cap_log2, m.drop, m.dyn_offset);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool kAlibi, bool kDropout>
+template <typename T, int D, bool kAlibi, bool kDropout, bool kDyn>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int B, int Hq,
                        int Hkv, int Sq, int Sk, const Mask& m, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     using fat::bwd::kNoMask, fat::bwd::kSegmentMask, fat::bwd::kWindowMask;
     const auto kind = m.kind();
-    constexpr bool X = kDropout;
+    constexpr bool X = kDropout, Y = kDyn;
     if constexpr (kAlibi) {
-      const auto fn = kind == kSegmentMask  ? launch_dkv_mma<D, kSegmentMask, false, true, X>
-                      : kind == kWindowMask ? launch_dkv_mma<D, kWindowMask, false, true, X>
-                                            : launch_dkv_mma<D, kNoMask, false, true, X>;
+      const auto fn = kind == kSegmentMask  ? launch_dkv_mma<D, kSegmentMask, false, true, X, Y>
+                      : kind == kWindowMask ? launch_dkv_mma<D, kWindowMask, false, true, X, Y>
+                                            : launch_dkv_mma<D, kNoMask, false, true, X, Y>;
+      return fn(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk, m, stream);
+    } else if constexpr (kDyn) {  // the window, with or without segment ids
+      const auto fn = kind == kSegmentMask ? launch_dkv_mma<D, kSegmentMask, false, false, X, Y>
+                                           : launch_dkv_mma<D, kWindowMask, false, false, X, Y>;
       return fn(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk, m, stream);
     } else {
       const auto fn =
-          m.cap() ? (kind == kSegmentMask  ? launch_dkv_mma<D, kSegmentMask, true, false, X>
-                     : kind == kWindowMask ? launch_dkv_mma<D, kWindowMask, true, false, X>
-                                           : launch_dkv_mma<D, kNoMask, true, false, X>)
-                  : (kind == kSegmentMask  ? launch_dkv_mma<D, kSegmentMask, false, false, X>
-                     : kind == kWindowMask ? launch_dkv_mma<D, kWindowMask, false, false, X>
-                                           : launch_dkv_mma<D, kNoMask, false, false, X>);
+          m.cap() ? (kind == kSegmentMask  ? launch_dkv_mma<D, kSegmentMask, true, false, X, Y>
+                     : kind == kWindowMask ? launch_dkv_mma<D, kWindowMask, true, false, X, Y>
+                                           : launch_dkv_mma<D, kNoMask, true, false, X, Y>)
+                  : (kind == kSegmentMask  ? launch_dkv_mma<D, kSegmentMask, false, false, X, Y>
+                     : kind == kWindowMask ? launch_dkv_mma<D, kWindowMask, false, false, X, Y>
+                                           : launch_dkv_mma<D, kNoMask, false, false, X, Y>);
       return fn(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk, m, stream);
     }
   } else {
@@ -659,14 +678,18 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 }
 
 // kAlibi: the library of the ALiBi instantiations, which takes slopes and
-// only slopes; else the other, which takes none.
-template <bool kAlibi>
-bool bad_args(int B, int Hq, int Hkv, int Sq, int Sk, const Mask& m) {
+// only slopes; else the other, which takes none. kDyn: the library of the
+// offset on the card, not causal, a window or ALiBi, no soft-cap, no
+// dropout, bf16 at D 64 or 128.
+template <bool kAlibi, bool kDyn>
+bool bad_args(int B, int Hq, int Hkv, int Sq, int Sk, int D, int dtype, const Mask& m) {
   const bool seg = m.seg_q != nullptr;
   return B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || m.window < 0 ||
-         (m.window > 0 && !m.is_causal) || seg != (m.seg_k != nullptr) ||
+         (m.window > 0 && !m.is_causal && !kDyn) || seg != (m.seg_k != nullptr) ||
          seg != (m.ranges_q != nullptr) || seg != (m.ranges_k != nullptr) || m.cap_log2 < 0.f ||
-         (m.slopes != nullptr) != kAlibi || (kAlibi && m.cap());
+         (m.slopes != nullptr) != kAlibi || (kAlibi && m.cap()) ||
+         (kDyn && (m.is_causal || m.dyn_offset == nullptr || m.cap() ||
+                   (m.window == 0 && !kAlibi) || dtype != fat::kBF16 || D > 128));
 }
 
 }  // namespace
@@ -688,27 +711,33 @@ bool bad_args(int B, int Hq, int Hkv, int Sq, int Sk, const Mask& m) {
 // flash_bwd_dropout.cu, ALiBi or not) the forward's keep mask of drop
 // drops dP in dS. D is 64, 128 or 256. Writes dq (q's dtype, scale
 // applied) and delta. Returns the CUDA error code (0 = success).
-template <bool kAlibi, bool kDropout>
+template <bool kAlibi, bool kDropout, bool kDyn>
 int dq_launch_impl(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const void* lse, void* dq, void* delta, const int* seg_q, const int* seg_k,
                    const int2* ranges_q, const int2* ranges_k, const float* slopes, int B, int Hq,
                    int Hkv, int Sq, int Sk, int D, int dtype, int is_causal, int offset,
                    int window, float scale, float scale_log2, float cap_log2,
-                   const fat::Dropout& drop, void* stream) {
+                   const fat::Dropout& drop, const int* dyn_offset, void* stream) {
   const Mask m{seg_q,  seg_k, ranges_q,   ranges_k, slopes, is_causal, offset,
-               window, scale, scale_log2, cap_log2, drop};
-  if (bad_args<kAlibi>(B, Hq, Hkv, Sq, Sk, m)) return static_cast<int>(cudaErrorInvalidValue);
+               window, scale, scale_log2, cap_log2, drop,   dyn_offset};
+  if (bad_args<kAlibi, kDyn>(B, Hq, Hkv, Sq, Sk, D, dtype, m))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   constexpr bool A = kAlibi, X = kDropout;
-  const auto fn = dtype == fat::kBF16 ? (D == 64    ? launch_dq<__nv_bfloat16, 64, A, X>
-                                         : D == 128 ? launch_dq<__nv_bfloat16, 128, A, X>
-                                         : D == 256 ? launch_dq<__nv_bfloat16, 256, A, X>
-                                                    : nullptr)
-                  : dtype == fat::kF32 ? (D == 64    ? launch_dq<float, 64, A, X>
-                                          : D == 128 ? launch_dq<float, 128, A, X>
-                                          : D == 256 ? launch_dq<float, 256, A, X>
-                                                     : nullptr)
-                                       : nullptr;
+  decltype(&launch_dq<__nv_bfloat16, 64, A, X, kDyn>) fn = nullptr;
+  if constexpr (kDyn)
+    fn = D == 64 ? launch_dq<__nv_bfloat16, 64, A, X, true>
+                 : launch_dq<__nv_bfloat16, 128, A, X, true>;
+  else
+    fn = dtype == fat::kBF16 ? (D == 64    ? launch_dq<__nv_bfloat16, 64, A, X, false>
+                                : D == 128 ? launch_dq<__nv_bfloat16, 128, A, X, false>
+                                : D == 256 ? launch_dq<__nv_bfloat16, 256, A, X, false>
+                                           : nullptr)
+         : dtype == fat::kF32 ? (D == 64    ? launch_dq<float, 64, A, X, false>
+                                 : D == 128 ? launch_dq<float, 128, A, X, false>
+                                 : D == 256 ? launch_dq<float, 256, A, X, false>
+                                            : nullptr)
+                              : nullptr;
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(fn(q, k, v, o, dout, lse, dq, delta, B, Hq, Hkv, Sq, Sk, m, s));
 }
@@ -716,27 +745,34 @@ int dq_launch_impl(const void* q, const void* k, const void* v, const void* o, c
 // Same layout, mask and logits; reads the delta written by the dQ launch
 // and writes dk (scale applied) and dv in k's dtype, every row, summed over
 // each kv head's q heads; with kDropout drops P in dV and dP in dS.
-template <bool kAlibi, bool kDropout>
+template <bool kAlibi, bool kDropout, bool kDyn>
 int dkv_launch_impl(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, void* dk, void* dv, const int* seg_q,
                     const int* seg_k, const int2* ranges_q, const int2* ranges_k,
                     const float* slopes, int B, int Hq, int Hkv, int Sq, int Sk, int D, int dtype,
                     int is_causal, int offset, int window, float scale, float scale_log2,
-                    float cap_log2, const fat::Dropout& drop, void* stream) {
+                    float cap_log2, const fat::Dropout& drop, const int* dyn_offset,
+                    void* stream) {
   const Mask m{seg_q,  seg_k, ranges_q,   ranges_k, slopes, is_causal, offset,
-               window, scale, scale_log2, cap_log2, drop};
-  if (bad_args<kAlibi>(B, Hq, Hkv, Sq, Sk, m)) return static_cast<int>(cudaErrorInvalidValue);
+               window, scale, scale_log2, cap_log2, drop,   dyn_offset};
+  if (bad_args<kAlibi, kDyn>(B, Hq, Hkv, Sq, Sk, D, dtype, m))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   constexpr bool A = kAlibi, X = kDropout;
-  const auto fn = dtype == fat::kBF16 ? (D == 64    ? launch_dkv<__nv_bfloat16, 64, A, X>
-                                         : D == 128 ? launch_dkv<__nv_bfloat16, 128, A, X>
-                                         : D == 256 ? launch_dkv<__nv_bfloat16, 256, A, X>
-                                                    : nullptr)
-                  : dtype == fat::kF32 ? (D == 64    ? launch_dkv<float, 64, A, X>
-                                          : D == 128 ? launch_dkv<float, 128, A, X>
-                                          : D == 256 ? launch_dkv<float, 256, A, X>
-                                                     : nullptr)
-                                       : nullptr;
+  decltype(&launch_dkv<__nv_bfloat16, 64, A, X, kDyn>) fn = nullptr;
+  if constexpr (kDyn)
+    fn = D == 64 ? launch_dkv<__nv_bfloat16, 64, A, X, true>
+                 : launch_dkv<__nv_bfloat16, 128, A, X, true>;
+  else
+    fn = dtype == fat::kBF16 ? (D == 64    ? launch_dkv<__nv_bfloat16, 64, A, X, false>
+                                : D == 128 ? launch_dkv<__nv_bfloat16, 128, A, X, false>
+                                : D == 256 ? launch_dkv<__nv_bfloat16, 256, A, X, false>
+                                           : nullptr)
+         : dtype == fat::kF32 ? (D == 64    ? launch_dkv<float, 64, A, X, false>
+                                 : D == 128 ? launch_dkv<float, 128, A, X, false>
+                                 : D == 256 ? launch_dkv<float, 256, A, X, false>
+                                            : nullptr)
+                              : nullptr;
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(fn(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk, m, s));
 }

@@ -1,6 +1,9 @@
 // K1: flash-attention forward, O and the natural-log LSE, for Hopper (sm_90a).
-// Two libraries build from this header: flash_fwd.cu (every instantiation
-// without dropout) and flash_fwd_dropout.cu (kDropout's), side by side.
+// Three libraries build from this header: flash_fwd.cu (every instantiation
+// without dropout or the offset read on the card), flash_fwd_dropout.cu
+// (kDropout's) and flash_fwd_dynoff.cu (kDyn's: the q/k alignment read from
+// the card once a CTA, so one launch shape serves every offset; the call is
+// not causal and the window is its left edge alone), side by side.
 //
 // Replaces the TPU kernels flashattn_tpu/ops/flash_fwd.py::_fwd_kernel
 // (launcher flash_attention_forward, :469) and
@@ -777,16 +780,13 @@ __device__ __forceinline__ void consume(unsigned smem, const CUtensorMap* k_map,
 // and dropout's together pass the 168 a thread of three CTAs an SM (they
 // spilled 8-24 bytes): that kernel runs two CTAs an SM.
 template <int D, int kConsumers, bool kWindow, bool kSeg, bool kCap, bool kAlibi, bool kDropout>
-__global__ void __launch_bounds__(FwdLayout<D, kConsumers>::kThreads,
-                                  kConsumers == 1 ? (kSeg && kDropout ? 2 : 3) : 1)
-flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
-                       const __grid_constant__ CUtensorMap k_map,
-                       const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o,
-                       float* __restrict__ lse, const int* __restrict__ seg_q,
-                       const int* __restrict__ seg_k, const int2* __restrict__ ranges_q,
-                       const int2* __restrict__ ranges_k, const float* __restrict__ slopes,
-                       int Hq, int Hkv, int Sq, int Sk, int is_causal, int offset, int window,
-                       float scale_log2, float cap_log2, const fat::Dropout drop) {
+__device__ __forceinline__ void fwd_wgmma_cta(
+    const CUtensorMap* q_map, const CUtensorMap* k_map, const CUtensorMap* v_map,
+    __nv_bfloat16* __restrict__ o, float* __restrict__ lse, const int* __restrict__ seg_q,
+    const int* __restrict__ seg_k, const int2* __restrict__ ranges_q,
+    const int2* __restrict__ ranges_k, const float* __restrict__ slopes, int Hq, int Hkv, int Sq,
+    int Sk, int is_causal, int offset, int window, float scale_log2, float cap_log2,
+    const fat::Dropout& drop) {
   static_assert(!(kAlibi && kCap), "ALiBi takes no soft-cap");
   using L = FwdLayout<D, kConsumers>;
   constexpr int kTileN = L::kTileN;
@@ -824,12 +824,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   if constexpr (kConsumers == 1) {
     // Thread 0 fills the ring, then refills it from inside the kv loop.
     if (threadIdx.x == 0 && n_tiles > 0) {
-      load_q<D, kConsumers>(smem, &q_map, q0, bh);
+      load_q<D, kConsumers>(smem, q_map, q0, bh);
       for (int it = 0; it < min(kStages, n_tiles); ++it)
-        load_kv<D, kConsumers>(smem, &k_map, &v_map, it, first, n_tiles, kv_head);
+        load_kv<D, kConsumers>(smem, k_map, v_map, it, first, n_tiles, kv_head);
     }
     consume<D, kConsumers, kWindow, kSeg, kCap, kAlibi, kDropout>(
-        smem, &k_map, &v_map, o, lse, row_seg_q, row_seg_k, row_ranges_q, row_ranges_k, bh,
+        smem, k_map, v_map, o, lse, row_seg_q, row_seg_k, row_ranges_q, row_ranges_k, bh,
         kv_head, q0, first, n_tiles, Sq, Sk, is_causal, offset, window, scale_log2, cap_log2,
         slope_log2, drop);
   } else if (threadIdx.x >= 128 * kConsumers) {
@@ -839,19 +839,56 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     // S at D 128, or a 64 x 256 O and a 64 x 64 S at D 256.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 128 * kConsumers && n_tiles > 0) {
-      load_q<D, kConsumers>(smem, &q_map, q0, bh);
+      load_q<D, kConsumers>(smem, q_map, q0, bh);
       for (int it = 0; it < n_tiles; ++it) {
         mbar_wait(empty + 8 * (it % kStages), ((it / kStages) & 1) ^ 1);  // round 0 passes at once
-        load_kv<D, kConsumers>(smem, &k_map, &v_map, it, first, n_tiles, kv_head);
+        load_kv<D, kConsumers>(smem, k_map, v_map, it, first, n_tiles, kv_head);
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     consume<D, kConsumers, kWindow, kSeg, kCap, kAlibi, kDropout>(
-        smem, &k_map, &v_map, o, lse, row_seg_q, row_seg_k, row_ranges_q, row_ranges_k, bh,
+        smem, k_map, v_map, o, lse, row_seg_q, row_seg_k, row_ranges_q, row_ranges_k, bh,
         kv_head, q0, first, n_tiles, Sq, Sk, is_causal, offset, window, scale_log2, cap_log2,
         slope_log2, drop);
   }
+}
+
+template <int D, int kConsumers, bool kWindow, bool kSeg, bool kCap, bool kAlibi, bool kDropout>
+__global__ void __launch_bounds__(FwdLayout<D, kConsumers>::kThreads,
+                                  kConsumers == 1 ? (kSeg && kDropout ? 2 : 3) : 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, const int* __restrict__ seg_q,
+                       const int* __restrict__ seg_k, const int2* __restrict__ ranges_q,
+                       const int2* __restrict__ ranges_k, const float* __restrict__ slopes,
+                       int Hq, int Hkv, int Sq, int Sk, int is_causal, int offset, int window,
+                       float scale_log2, float cap_log2, const fat::Dropout drop) {
+  fwd_wgmma_cta<D, kConsumers, kWindow, kSeg, kCap, kAlibi, kDropout>(
+      &q_map, &k_map, &v_map, o, lse, seg_q, seg_k, ranges_q, ranges_k, slopes, Hq, Hkv, Sq, Sk,
+      is_causal, offset, window, scale_log2, cap_log2, drop);
+}
+
+// K1 with the q/k alignment read from the card (dyn_pos_offset): the
+// kernel above's CTA with `offset` read once at its start, so one launch
+// shape serves every offset and the producer's walk and the consumers'
+// start from one value; not causal (the window is its left edge alone), no
+// soft-cap, no dropout. A kernel of its own, so that the kernels above
+// keep their parameters.
+template <int D, int kConsumers, bool kWindow, bool kSeg, bool kAlibi>
+__global__ void __launch_bounds__(FwdLayout<D, kConsumers>::kThreads, kConsumers == 1 ? 3 : 1)
+flash_fwd_dyn_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                           const int* __restrict__ seg_q, const int* __restrict__ seg_k,
+                           const int2* __restrict__ ranges_q, const int2* __restrict__ ranges_k,
+                           const float* __restrict__ slopes, int Hq, int Hkv, int Sq, int Sk,
+                           int window, float scale_log2, const int* __restrict__ dyn_offset) {
+  fwd_wgmma_cta<D, kConsumers, kWindow, kSeg, false, kAlibi, false>(
+      &q_map, &k_map, &v_map, o, lse, seg_q, seg_k, ranges_q, ranges_k, slopes, Hq, Hkv, Sq, Sk,
+      0, __ldg(dyn_offset), window, scale_log2, 0.f, fat::Dropout{});
 }
 
 template <int D, bool kDropout>
@@ -917,15 +954,22 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int d, int rows, int he
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D, int kConsumers, bool kWindow, bool kSeg, bool kCap, bool kAlibi, bool kDropout>
+template <int D, int kConsumers, bool kWindow, bool kSeg, bool kCap, bool kAlibi, bool kDropout,
+          bool kDyn>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
                         const int* seg_q, const int* seg_k, const int2* ranges_q,
                         const int2* ranges_k, const float* slopes, int B, int Hq, int Hkv,
                         int Sq, int Sk, int is_causal, int offset, int window, float scale_log2,
-                        float cap_log2, const fat::Dropout& drop, cudaStream_t stream) {
+                        float cap_log2, const fat::Dropout& drop, const int* dyn_offset,
+                        cudaStream_t stream) {
   using L = FwdLayout<D, kConsumers>;
-  cudaError_t err = fat::allow_max_smem<
-      flash_fwd_wgmma_kernel<D, kConsumers, kWindow, kSeg, kCap, kAlibi, kDropout>>();
+  static_assert(!kDyn || !(kCap || kDropout), "the card offset takes no soft-cap or dropout");
+  cudaError_t err;
+  if constexpr (kDyn)
+    err = fat::allow_max_smem<flash_fwd_dyn_wgmma_kernel<D, kConsumers, kWindow, kSeg, kAlibi>>();
+  else
+    err = fat::allow_max_smem<
+        flash_fwd_wgmma_kernel<D, kConsumers, kWindow, kSeg, kCap, kAlibi, kDropout>>();
   const int q_tiles = (Sq + L::kBlockM - 1) / L::kBlockM;
   if (err == cudaSuccess && q_tiles > 65535) err = cudaErrorInvalidValue;
   CUtensorMap q_map, k_map, v_map;
@@ -933,41 +977,64 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, vo
   if (err == cudaSuccess) err = make_map(&k_map, k, D, Sk, B * Hkv, L::kTileN);
   if (err == cudaSuccess) err = make_map(&v_map, v, D, Sk, B * Hkv, L::kTileN);
   if (err != cudaSuccess) return err;
-  flash_fwd_wgmma_kernel<D, kConsumers, kWindow, kSeg, kCap, kAlibi, kDropout>
-      <<<dim3(B * Hq, q_tiles), L::kThreads, L::kBytes, stream>>>(
-          q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), seg_q,
-          seg_k, ranges_q, ranges_k, slopes, Hq, Hkv, Sq, Sk, is_causal, offset, window,
-          scale_log2, cap_log2, drop);
+  const dim3 grid(B * Hq, q_tiles);
+  auto* out = static_cast<__nv_bfloat16*>(o);
+  auto* lse_f = static_cast<float*>(lse);
+  if constexpr (kDyn)
+    flash_fwd_dyn_wgmma_kernel<D, kConsumers, kWindow, kSeg, kAlibi>
+        <<<grid, L::kThreads, L::kBytes, stream>>>(q_map, k_map, v_map, out, lse_f, seg_q, seg_k,
+                                                    ranges_q, ranges_k, slopes, Hq, Hkv, Sq, Sk,
+                                                    window, scale_log2, dyn_offset);
+  else
+    flash_fwd_wgmma_kernel<D, kConsumers, kWindow, kSeg, kCap, kAlibi, kDropout>
+        <<<grid, L::kThreads, L::kBytes, stream>>>(q_map, k_map, v_map, out, lse_f, seg_q, seg_k,
+                                                    ranges_q, ranges_k, slopes, Hq, Hkv, Sq, Sk,
+                                                    is_causal, offset, window, scale_log2,
+                                                    cap_log2, drop);
   return cudaGetLastError();
 }
 
 // The bf16 kernel of head dim D (kConsumers warpgroups) for a window,
 // segment ids and a soft-cap, each present or not, or for ALiBi (slopes not
-// null) with or without a window and segment ids; kDropout's or not.
-template <int D, int kConsumers, bool kDropout>
+// null) with or without a window and segment ids; kDropout's or not. With
+// kDyn (the offset read from dyn_offset on the card) a window, ALiBi or
+// both, with or without segment ids, and neither the soft-cap nor dropout.
+template <int D, int kConsumers, bool kDropout, bool kDyn>
 cudaError_t launch_bf16_any(bool win, bool seg, bool cap, const void* q, const void* k,
                             const void* v, void* o, void* lse, const int* seg_q,
                             const int* seg_k, const int2* ranges_q, const int2* ranges_k,
                             const float* slopes, int B, int Hq, int Hkv, int Sq, int Sk,
                             int is_causal, int offset, int window, float scale_log2,
-                            float cap_log2, const fat::Dropout& drop, cudaStream_t stream) {
+                            float cap_log2, const fat::Dropout& drop, const int* dyn_offset,
+                            cudaStream_t stream) {
   constexpr int C = kConsumers;
   constexpr bool X = kDropout;
-  const auto fn =
-      slopes != nullptr ? (win ? (seg ? launch_bf16<D, C, true, true, false, true, X>
-                                      : launch_bf16<D, C, true, false, false, true, X>)
-                               : (seg ? launch_bf16<D, C, false, true, false, true, X>
-                                      : launch_bf16<D, C, false, false, false, true, X>))
-      : cap ? (win ? (seg ? launch_bf16<D, C, true, true, true, false, X>
-                          : launch_bf16<D, C, true, false, true, false, X>)
-                   : (seg ? launch_bf16<D, C, false, true, true, false, X>
-                          : launch_bf16<D, C, false, false, true, false, X>))
-      : win ? (seg ? launch_bf16<D, C, true, true, false, false, X>
-                   : launch_bf16<D, C, true, false, false, false, X>)
-            : (seg ? launch_bf16<D, C, false, true, false, false, X>
-                   : launch_bf16<D, C, false, false, false, false, X>);
+  decltype(&launch_bf16<D, C, false, false, false, false, X, kDyn>) fn;
+  if constexpr (kDyn) {
+    if (cap || (!win && slopes == nullptr)) return cudaErrorInvalidValue;
+    fn = slopes != nullptr ? (win ? (seg ? launch_bf16<D, C, true, true, false, true, X, true>
+                                         : launch_bf16<D, C, true, false, false, true, X, true>)
+                                  : (seg ? launch_bf16<D, C, false, true, false, true, X, true>
+                                         : launch_bf16<D, C, false, false, false, true, X, true>))
+                           : (seg ? launch_bf16<D, C, true, true, false, false, X, true>
+                                  : launch_bf16<D, C, true, false, false, false, X, true>);
+  } else {
+    fn = slopes != nullptr
+             ? (win ? (seg ? launch_bf16<D, C, true, true, false, true, X, false>
+                           : launch_bf16<D, C, true, false, false, true, X, false>)
+                    : (seg ? launch_bf16<D, C, false, true, false, true, X, false>
+                           : launch_bf16<D, C, false, false, false, true, X, false>))
+         : cap ? (win ? (seg ? launch_bf16<D, C, true, true, true, false, X, false>
+                             : launch_bf16<D, C, true, false, true, false, X, false>)
+                      : (seg ? launch_bf16<D, C, false, true, true, false, X, false>
+                             : launch_bf16<D, C, false, false, true, false, X, false>))
+         : win ? (seg ? launch_bf16<D, C, true, true, false, false, X, false>
+                      : launch_bf16<D, C, true, false, false, false, X, false>)
+               : (seg ? launch_bf16<D, C, false, true, false, false, X, false>
+                      : launch_bf16<D, C, false, false, false, false, X, false>);
+  }
   return fn(q, k, v, o, lse, seg_q, seg_k, ranges_q, ranges_k, slopes, B, Hq, Hkv, Sq, Sk,
-            is_causal, offset, window, scale_log2, cap_log2, drop, stream);
+            is_causal, offset, window, scale_log2, cap_log2, drop, dyn_offset, stream);
 }
 
 }  // namespace
@@ -985,49 +1052,57 @@ cudaError_t launch_bf16_any(bool win, bool seg, bool cap, const void* q, const v
 // scale_log2 then scale / cap) tanh(s * scale_log2) * cap_log2; ALiBi adds
 // slopes[h] * log2(e) * (c - r - offset). With kDropout (the library
 // flash_fwd_dropout.cu) P V takes the elements dropout_keep keeps, O is
-// scaled by drop.scale, the LSE is that without dropout. bf16 runs
+// scaled by drop.scale, the LSE is that without dropout. With kDyn (the
+// library flash_fwd_dynoff.cu) the offset is the int32 at dyn_offset on the
+// device, not `offset`, and the call is not causal: the window, needed
+// without ALiBi, is its left edge alone (c >= r + offset - window + 1);
+// bf16 at D 64 and 128, no soft-cap, no dropout. bf16 runs
 // the wgmma kernel (q tiles of 64 rows at D 64, 128 at D 128 and 256),
 // float32 the FMA kernel. Returns the CUDA error code of the launch (0 =
 // success).
-template <bool kDropout>
+template <bool kDropout, bool kDyn>
 int fwd_launch_impl(const void* q, const void* k, const void* v, void* o, void* lse,
                     const int* seg_q, const int* seg_k, const int2* ranges_q,
                     const int2* ranges_k, const float* slopes, int B, int Hq, int Hkv, int Sq,
                     int Sk, int D, int dtype, int is_causal, int offset, int window,
-                    float scale_log2, float cap_log2, const fat::Dropout& drop, void* stream) {
+                    float scale_log2, float cap_log2, const fat::Dropout& drop,
+                    const int* dyn_offset, void* stream) {
   const bool seg = seg_q != nullptr;
   const bool cap = cap_log2 > 0.f;
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || window < 0 ||
-      (window > 0 && !is_causal) || seg != (seg_k != nullptr) || seg != (ranges_q != nullptr) ||
-      seg != (ranges_k != nullptr) || cap_log2 < 0.f ||
-      (slopes != nullptr && cap))
+      (window > 0 && !is_causal && !kDyn) || seg != (seg_k != nullptr) ||
+      seg != (ranges_q != nullptr) || seg != (ranges_k != nullptr) || cap_log2 < 0.f ||
+      (slopes != nullptr && cap) ||
+      (kDyn && (is_causal || dyn_offset == nullptr || dtype != fat::kBF16 || D > 128)))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   const bool win = window > 0;
   if (dtype == fat::kBF16 && D == 64)
-    err = launch_bf16_any<64, 1, kDropout>(win, seg, cap, q, k, v, o, lse, seg_q, seg_k,
-                                           ranges_q, ranges_k, slopes, B, Hq, Hkv, Sq, Sk,
-                                           is_causal, offset, window, scale_log2, cap_log2, drop,
-                                           s);
+    err = launch_bf16_any<64, 1, kDropout, kDyn>(win, seg, cap, q, k, v, o, lse, seg_q, seg_k,
+                                                 ranges_q, ranges_k, slopes, B, Hq, Hkv, Sq, Sk,
+                                                 is_causal, offset, window, scale_log2, cap_log2,
+                                                 drop, dyn_offset, s);
   else if (dtype == fat::kBF16 && D == 128)
-    err = launch_bf16_any<128, 2, kDropout>(win, seg, cap, q, k, v, o, lse, seg_q, seg_k,
-                                            ranges_q, ranges_k, slopes, B, Hq, Hkv, Sq, Sk,
-                                            is_causal, offset, window, scale_log2, cap_log2,
-                                            drop, s);
-  else if (dtype == fat::kBF16 && D == 256)
-    err = launch_bf16_any<256, 2, kDropout>(win, seg, cap, q, k, v, o, lse, seg_q, seg_k,
-                                            ranges_q, ranges_k, slopes, B, Hq, Hkv, Sq, Sk,
-                                            is_causal, offset, window, scale_log2, cap_log2,
-                                            drop, s);
-  else if (dtype == fat::kF32 && D == 64)
-    err = launch_f32<64, kDropout>(q, k, v, o, lse, seg_q, seg_k, slopes, B, Hq, Hkv, Sq, Sk,
-                                   is_causal, offset, window, scale_log2, cap_log2, drop, s);
-  else if (dtype == fat::kF32 && D == 128)
-    err = launch_f32<128, kDropout>(q, k, v, o, lse, seg_q, seg_k, slopes, B, Hq, Hkv, Sq, Sk,
-                                    is_causal, offset, window, scale_log2, cap_log2, drop, s);
-  else if (dtype == fat::kF32 && D == 256)
-    err = launch_f32<256, kDropout>(q, k, v, o, lse, seg_q, seg_k, slopes, B, Hq, Hkv, Sq, Sk,
-                                    is_causal, offset, window, scale_log2, cap_log2, drop, s);
+    err = launch_bf16_any<128, 2, kDropout, kDyn>(win, seg, cap, q, k, v, o, lse, seg_q, seg_k,
+                                                  ranges_q, ranges_k, slopes, B, Hq, Hkv, Sq,
+                                                  Sk, is_causal, offset, window, scale_log2,
+                                                  cap_log2, drop, dyn_offset, s);
+  if constexpr (!kDyn) {
+    if (dtype == fat::kBF16 && D == 256)
+      err = launch_bf16_any<256, 2, kDropout, false>(win, seg, cap, q, k, v, o, lse, seg_q,
+                                                     seg_k, ranges_q, ranges_k, slopes, B, Hq,
+                                                     Hkv, Sq, Sk, is_causal, offset, window,
+                                                     scale_log2, cap_log2, drop, nullptr, s);
+    else if (dtype == fat::kF32 && D == 64)
+      err = launch_f32<64, kDropout>(q, k, v, o, lse, seg_q, seg_k, slopes, B, Hq, Hkv, Sq, Sk,
+                                     is_causal, offset, window, scale_log2, cap_log2, drop, s);
+    else if (dtype == fat::kF32 && D == 128)
+      err = launch_f32<128, kDropout>(q, k, v, o, lse, seg_q, seg_k, slopes, B, Hq, Hkv, Sq, Sk,
+                                      is_causal, offset, window, scale_log2, cap_log2, drop, s);
+    else if (dtype == fat::kF32 && D == 256)
+      err = launch_f32<256, kDropout>(q, k, v, o, lse, seg_q, seg_k, slopes, B, Hq, Hkv, Sq, Sk,
+                                      is_causal, offset, window, scale_log2, cap_log2, drop, s);
+  }
   return static_cast<int>(err);
 }

@@ -6,7 +6,7 @@
 // (flash_fwd.py:378-392).
 #include "flash_fwd.cuh"
 
-// fwd_launch_impl<true>'s contract (flash_fwd.cuh); the dropout's int32
+// fwd_launch_impl<true, false>'s contract (flash_fwd.cuh); the dropout's int32
 // seed is read from `seed` on the device; keep iff the hash >= threshold;
 // O scaled by dropout_scale.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
@@ -17,7 +17,7 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, voi
                                 float scale_log2, float cap_log2, const int* seed,
                                 unsigned threshold, float dropout_scale, void* stream) {
   const fat::Dropout drop{seed, threshold, dropout_scale};
-  return fwd_launch_impl<true>(q, k, v, o, lse, seg_q, seg_k, ranges_q, ranges_k, slopes, B,
-                               Hq, Hkv, Sq, Sk, D, dtype, is_causal, offset, window, scale_log2,
-                               cap_log2, drop, stream);
+  return fwd_launch_impl<true, false>(q, k, v, o, lse, seg_q, seg_k, ranges_q, ranges_k,
+                                      slopes, B, Hq, Hkv, Sq, Sk, D, dtype, is_causal, offset,
+                                      window, scale_log2, cap_log2, drop, nullptr, stream);
 }

@@ -28,6 +28,18 @@ Qwen2-MoE with its shared expert) holds ``moe`` in each layer in place of
 the dense MLP's weights; its FFN is parallel/moe.py's grouped dispatch,
 the JAX single-device function (moe_ffn_dense_reference) computed over the
 picked experts only.
+
+Context parallelism (the JAX functions' ``mesh``): ``forward``, ``loss_fn``
+and ``sgd_train_step`` (and models/train.py) take a parallel/mesh.py Mesh
+with ``data`` and ``sp`` axes over the ranks of a process group. Every rank
+passes the global tokens; it keeps its batch rows (``data``) and its
+contiguous sequence shard (``sp``), RoPE at the global positions, and the
+layers' attention runs the contiguous ring over ``sp``
+(parallel/ring.py). The loss is the global mean (each rank's sum over the
+global count, summed over the ranks), and the parameter gradients are
+summed over every rank (``reduce_gradients``). A ``model``, ``pp`` or
+``ep`` axis (tensor, pipeline or expert parallelism) raises naming ROADMAP
+A9.
 """
 
 from __future__ import annotations
@@ -42,11 +54,13 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 
 from flashattn_tpu_torch.models.config import ModelConfig, check_supported
 from flashattn_tpu_torch.ops.attention import flash_attention
-from flashattn_tpu_torch.ops.common import card_device
+from flashattn_tpu_torch.ops.common import card_device, unported
 from flashattn_tpu_torch.ops.quant_matmul import (QuantizedLinear, quant_matmul,
                                                   quantize_weights)
 from flashattn_tpu_torch.ops.varlen import flash_attention_varlen
 from flashattn_tpu_torch.parallel import moe
+from flashattn_tpu_torch.parallel.distributed import all_reduce
+from flashattn_tpu_torch.parallel.ring import ring_flash_attention
 
 # Projections eligible for weight-only quantization: everything but the
 # embedding (a gather, not a product) and the norms.
@@ -495,11 +509,17 @@ def layer_window(cfg: ModelConfig, layer_idx: int) -> int | None:
 
 def _attn_block(layer: LlamaLayer, x: torch.Tensor, cos: torch.Tensor,
                 sin: torch.Tensor, cfg: ModelConfig, window: int | None = None,
-                segment_ids: torch.Tensor | None = None) -> torch.Tensor:
+                segment_ids: torch.Tensor | None = None, mesh=None) -> torch.Tensor:
     b, s, _ = x.shape
     xn = rms_norm(x, layer.attn_norm, cfg.norm_eps, cfg.norm_offset)
     q, k, v = attention_inputs(layer, xn, cos, sin, cfg)
-    if segment_ids is not None:
+    if mesh is not None and mesh.size("sp") > 1:  # x is this rank's sequence shard
+        o = ring_flash_attention(q, k, v, mesh.group("sp"), is_causal=True, scale=cfg.attn_scale,
+                                 window=window, logit_softcap=cfg.logit_softcap,
+                                 alibi=cfg.use_alibi,
+                                 segment_ids=None if segment_ids is None
+                                 else (segment_ids, segment_ids))
+    elif segment_ids is not None:
         o = flash_attention_varlen(q, k, v, segment_ids=segment_ids, is_causal=True,
                                    scale=cfg.attn_scale, window=window,
                                    logit_softcap=cfg.logit_softcap, alibi=cfg.use_alibi)
@@ -531,10 +551,11 @@ def check_segment_ids(segment_ids, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _layer(layer: LlamaLayer, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-           cfg: ModelConfig, window: int | None, segment_ids: torch.Tensor | None
-           ) -> torch.Tensor:
+           cfg: ModelConfig, window: int | None, segment_ids: torch.Tensor | None,
+           mesh=None) -> torch.Tensor:
     """One decoder block (the JAX forward's layer_fn)."""
-    return residuals(layer, x, _attn_block(layer, x, cos, sin, cfg, window, segment_ids), cfg)
+    return residuals(layer, x, _attn_block(layer, x, cos, sin, cfg, window, segment_ids, mesh),
+                     cfg)
 
 
 REMAT_POLICIES = (True, "dots", "attn")  # and False (or any falsy value): no remat
@@ -557,7 +578,8 @@ def _saved_ops(remat) -> list | None:
 
 
 def layers_forward(model: Llama, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-                   segment_ids: torch.Tensor | None = None, remat=False) -> torch.Tensor:
+                   segment_ids: torch.Tensor | None = None, remat=False,
+                   mesh=None) -> torch.Tensor:
     """The decoder blocks on the embedded x [B, S, H], each with its window.
 
     With remat (and a gradient to take) each block runs under
@@ -565,7 +587,8 @@ def layers_forward(model: Llama, x: torch.Tensor, cos: torch.Tensor, sin: torch.
     names (_saved_ops); its backward recomputes the rest: True recomputes
     the whole block, attention kernel included, "dots" the elementwise work
     and the attention kernel, "attn" everything but the q/k/v projections
-    and the attention kernel."""
+    and the attention kernel. Under a mesh x, cos, sin and segment_ids are
+    this rank's shards and attention runs the ring over "sp"."""
     if remat and remat not in REMAT_POLICIES:
         raise ValueError(f"remat must be False or one of {REMAT_POLICIES}, got {remat!r}")
     cfg = model.cfg
@@ -578,12 +601,12 @@ def layers_forward(model: Llama, x: torch.Tensor, cos: torch.Tensor, sin: torch.
             checkpoint, _layer, use_reentrant=False, preserve_rng_state=False,
             **({"context_fn": context_fn} if context_fn else {}))
     for i, layer in enumerate(model.layers):
-        x = layer_fn(layer, x, cos, sin, cfg, layer_window(cfg, i), segment_ids)
+        x = layer_fn(layer, x, cos, sin, cfg, layer_window(cfg, i), segment_ids, mesh)
     return x
 
 
 def forward(model: Llama, tokens: torch.Tensor, segment_ids=None,
-            remat=False) -> torch.Tensor:
+            remat=False, mesh=None) -> torch.Tensor:
     """Training/prefill forward: tokens [B, S] -> float32 logits [B, S, vocab].
 
     Differentiable: attention goes through the flash autograd Function, whose
@@ -601,12 +624,25 @@ def forward(model: Llama, tokens: torch.Tensor, segment_ids=None,
     kernel's residuals (q, k, v as the kernel takes them, O and LSE), so
     the backward runs no attention forward and no q/k/v projection but
     recomputes the rest (layers_forward). Each trades the activations'
-    memory for time; the loss and gradients stay as without remat."""
-    x = embed_tokens(model, tokens)
+    memory for time; the loss and gradients stay as without remat.
+
+    mesh (a parallel/mesh.py Mesh with "data" and "sp" axes; module
+    docstring): tokens (and segment_ids) are the global [B, S] on every
+    rank, and the result is this rank's logits [B / data, S / sp, vocab]:
+    its batch rows and its sequence shard, at the global positions."""
     if segment_ids is not None:
         segment_ids = check_segment_ids(segment_ids, tokens)
     cos, sin = input_tables(model.cfg, tokens, segment_ids)
-    return lm_logits(layers_forward(model, x, cos, sin, segment_ids, remat), model)
+    if mesh is not None:
+        check_mesh(mesh)
+        tokens = shard_rows(tokens, mesh)
+        if segment_ids is not None:
+            segment_ids = shard_rows(segment_ids, mesh)
+        if cos is not None:  # [S, D/2] or per row [B, S, D/2]
+            cos, sin = ((shard_rows(t, mesh) if t.dim() == 3 else
+                         shard_rows(t[None], mesh, batch=False)[0]) for t in (cos, sin))
+    x = embed_tokens(model, tokens)
+    return lm_logits(layers_forward(model, x, cos, sin, segment_ids, remat, mesh), model)
 
 
 def input_tables(cfg: ModelConfig, tokens: torch.Tensor,
@@ -619,37 +655,104 @@ def input_tables(cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def loss_fn(model: Llama, tokens: torch.Tensor, segment_ids=None,
-            remat=False) -> torch.Tensor:
+            remat=False, mesh=None) -> torch.Tensor:
     """Mean next-token cross-entropy of tokens[:, :-1] -> tokens[:, 1:]
     (tokens [B, S+1]), a float32 scalar.
 
     With segment_ids [B, S+1] (packed documents) the predictions across a
     document boundary and those from padding (ids < 0) are left out of the
-    mean, which runs over the valid ones (at least 1)."""
+    mean, which runs over the valid ones (at least 1).
+
+    mesh: the global tokens on every rank, shifted before the sequence is
+    split (S must split over "sp", B over "data"); each rank's sum of its
+    predictions' losses over the global count, summed over the ranks: every
+    rank returns the global mean, and its backward gives this rank's share
+    of the gradients (reduce_gradients sums them)."""
     seg_in = None
     if segment_ids is not None:
         segment_ids = check_segment_ids(segment_ids, tokens)
         seg_in = segment_ids[:, :-1]
-    logits = forward(model, tokens[:, :-1], seg_in, remat=remat)
+    logits = forward(model, tokens[:, :-1], seg_in, remat=remat, mesh=mesh)
     targets = tokens[:, 1:].long()
+    valid = None
+    if segment_ids is not None:
+        valid = (segment_ids[:, :-1] == segment_ids[:, 1:]) & (segment_ids[:, :-1] >= 0)
+    count = targets.numel() if valid is None else valid.sum().clamp(min=1)
+    if mesh is not None:
+        targets = shard_rows(targets, mesh)
+        valid = None if valid is None else shard_rows(valid, mesh)
     gold = logits.gather(-1, targets[..., None])[..., 0]
     nll = torch.logsumexp(logits, dim=-1) - gold
-    if segment_ids is None:
+    if mesh is None and valid is None:
         return nll.mean()
-    valid = (segment_ids[:, :-1] == segment_ids[:, 1:]) & (segment_ids[:, :-1] >= 0)
-    return torch.where(valid, nll, 0.0).sum() / valid.sum().clamp(min=1)
+    total = (nll if valid is None else torch.where(valid, nll, 0.0)).sum() / count
+    return total if mesh is None else _SumOverRanks.apply(total)
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """The sum of each rank's value over every rank; the gradient passes to
+    each rank's own term unchanged (the loss is the sum of the ranks'
+    terms)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return all_reduce(x.detach().clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def check_mesh(mesh) -> None:
+    """A mesh the model takes: "data" and "sp" axes; tensor, pipeline and
+    expert parallelism ("model", "pp", "ep" axes above size 1) raise
+    NotImplementedError naming ROADMAP A9."""
+    for axis, what in (("model", "tensor parallelism"), ("pp", "pipeline parallelism"),
+                       ("ep", "expert parallelism")):
+        if mesh.size(axis) > 1:
+            raise unported(f"a mesh with a {axis!r} axis ({what}) in the model", "A9")
+
+
+def shard_rows(x: torch.Tensor, mesh, batch: bool = True) -> torch.Tensor:
+    """This rank's block of a global [B, S, ...] tensor: rows over "data"
+    (with `batch`), contiguous sequence shards over "sp"."""
+    if batch:
+        b, n = x.shape[0], mesh.size("data")
+        if b % n:
+            raise ValueError(f"batch {b} does not split over {n} data ranks")
+        x = x.narrow(0, mesh.index("data") * (b // n), b // n)
+    s, n = x.shape[1], mesh.size("sp")
+    if s % n:
+        raise ValueError(f"sequence {s} does not split over {n} sp ranks")
+    return x.narrow(1, mesh.index("sp") * (s // n), s // n)
+
+
+def reduce_gradients(model: nn.Module) -> None:
+    """Sum every parameter's gradient over every rank of the process group
+    (the data and sp axes of the mesh the loss ran under), in place: one
+    all-reduce a dtype, of the gradients laid end to end."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    for dtype in dict.fromkeys(g.dtype for g in grads):
+        same = [g for g in grads if g.dtype == dtype]
+        flat = all_reduce(torch.cat([g.reshape(-1) for g in same]))
+        for g, part in zip(same, flat.split([g.numel() for g in same])):
+            g.copy_(part.view_as(g))
 
 
 def sgd_train_step(model: Llama, tokens: torch.Tensor, lr: float = 1e-3,
-                   remat=False) -> tuple[torch.Tensor, Llama]:
-    """Loss, gradients and a plain SGD update -> (loss, model); `remat` as in
-    forward.
+                   remat=False, mesh=None) -> tuple[torch.Tensor, Llama]:
+    """Loss, gradients and a plain SGD update -> (loss, model); `remat` and
+    `mesh` as in forward and loss_fn (under a mesh the gradients are summed
+    over the ranks before the update, so every rank's parameters stay
+    equal).
 
     The JAX function returns new parameters; this one updates the model in
     place (p -= lr * g in the parameters' dtype) and returns it."""
     model.zero_grad(set_to_none=True)
-    loss = loss_fn(model, tokens, remat=remat)
+    loss = loss_fn(model, tokens, remat=remat, mesh=mesh)
     loss.backward()
+    if mesh is not None:
+        reduce_gradients(model)
     with torch.no_grad():
         for p in model.parameters():
             p.sub_(lr * p.grad.to(p.dtype))

@@ -18,6 +18,13 @@ layout, without Orbax), the newest ``max_to_keep`` kept.
 The train state owns the model: ``train_step`` updates its parameters in
 place, where the JAX step returns new ones. The trainer runs wherever the
 model lives: the card, unless the model was built with device="cpu".
+
+Under a mesh (``mesh=``, parallel/mesh.py: "data" and "sp" axes over the
+ranks of a process group) every rank runs the trainer on the same global
+batches: the loss is llama.loss_fn's global mean, the gradients are summed
+over the ranks before the norm, the clip and the update, so the
+parameters and the optimizer's state stay equal on every rank; rank 0
+alone writes checkpoints.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from pathlib import Path
 from typing import Iterator
 
 import torch
+import torch.distributed as dist
 
 from flashattn_tpu_torch.models import llama
 from flashattn_tpu_torch.models.llama import Llama
@@ -95,18 +103,21 @@ def clip_by_global_norm_(grads: list[torch.Tensor], norm: torch.Tensor,
 
 
 def train_step(state: dict, tokens: torch.Tensor,
-               segment_ids=None) -> tuple[dict, dict]:
+               segment_ids=None, mesh=None) -> tuple[dict, dict]:
     """One optimizer step on tokens [B, S+1] (tensor or numpy, moved to
     the model's device), with packed-document segment_ids [B, S+1] when
     given (llama.loss_fn) -> (state, {"loss", "grad_norm"}), both float32
-    scalar tensors on the model's device."""
+    scalar tensors on the model's device. Under a mesh the tokens are the
+    global batch on every rank (module docstring)."""
     model, opt = state["model"], state["optimizer"]
     tokens = torch.as_tensor(tokens, device=model.device)
     if segment_ids is not None:
         segment_ids = torch.as_tensor(segment_ids, device=model.device)
     opt.zero_grad(set_to_none=True)
-    loss = llama.loss_fn(model, tokens, segment_ids=segment_ids)
+    loss = llama.loss_fn(model, tokens, segment_ids=segment_ids, mesh=mesh)
     loss.backward()
+    if mesh is not None:
+        llama.reduce_gradients(model)
     grads = [p.grad for p in model.parameters()]
     gnorm = global_norm(grads)
     clip_by_global_norm_(grads, gnorm, state["tc"].grad_clip)
@@ -180,12 +191,14 @@ def train(
     ckpt_dir: str | Path | None = None,
     ckpt_every: int = 1000,
     log_every: int = 50,
+    mesh=None,
 ) -> tuple[dict, list[dict]]:
     """Minimal synchronous training driver: `steps` steps on batches from
     `data` (a [B, S+1] token array or tensor, or a dict with "tokens" and
     optionally "segment_ids", as models/data.py::PackedDataset yields them;
     numpy batches move to the model's device), resuming from ckpt_dir if it
-    holds a checkpoint. Returns (final_state, metric history)."""
+    holds a checkpoint. Under a mesh every rank runs it on the same
+    batches (module docstring). Returns (final_state, metric history)."""
     state = init_train_state(model, tc)
     if ckpt_dir is not None and checkpoint_steps(ckpt_dir):
         state = restore_checkpoint(ckpt_dir, state)
@@ -196,14 +209,23 @@ def train(
             tokens, segs = batch["tokens"], batch.get("segment_ids")
         else:
             tokens, segs = batch, None
-        state, metrics = train_step(state, tokens, segment_ids=segs)
+        state, metrics = train_step(state, tokens, segment_ids=segs, mesh=mesh)
         step = state["step"]
         if step % log_every == 0 or step == 1:
             history.append({"step": step,
                             "loss": float(metrics["loss"]),
                             "grad_norm": float(metrics["grad_norm"])})
         if ckpt_dir is not None and step % ckpt_every == 0:
-            save_checkpoint(ckpt_dir, state)
+            _save(ckpt_dir, state, mesh)
     if ckpt_dir is not None:
-        save_checkpoint(ckpt_dir, state)
+        _save(ckpt_dir, state, mesh)
     return state, history
+
+
+def _save(ckpt_dir, state: dict, mesh) -> None:
+    """save_checkpoint, by rank 0 alone under a mesh (every rank's state is
+    the same), the others waiting for it."""
+    if mesh is None or dist.get_rank() == 0:
+        save_checkpoint(ckpt_dir, state)
+    if mesh is not None:
+        dist.barrier()

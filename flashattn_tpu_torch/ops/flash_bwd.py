@@ -24,7 +24,10 @@ capped logits and multiply dS by the tanh's derivative, 1 - t^2; with
 ALiBi they rebuild P from the biased logits, the bias formed as K1 forms
 it, and dS keeps its formula (the bias has no gradient). ALiBi's kernels
 are libraries of their own (csrc/flash_bwd_alibi.cu,
-csrc/flash_bwd_fused_alibi.cu).
+csrc/flash_bwd_fused_alibi.cu). So are those of the forward's
+``dyn_pos_offset`` (csrc/flash_bwd_dynoff.cu, csrc/flash_bwd_fused_dynoff.cu:
+the offset read on the card, the window's left edge and the ALiBi distance
+at it, ops/flash_fwd.py), with the forward's combinations.
 """
 
 from __future__ import annotations
@@ -43,12 +46,13 @@ from flashattn_tpu_torch.ops.flash_bwd_fused import (
 from flashattn_tpu_torch.ops.common import check_dropout, check_softcap
 from flashattn_tpu_torch.ops.flash_fwd import (
     alibi_table,
-    check_forward_unported,
+    check_dyn_offset,
     check_segments,
     check_window,
-    device_seed,
-    dropout_args,
+    dyn_library,
+    extra_args,
     kernel_segments,
+    plain_offset,
 )
 from flashattn_tpu_torch.ops.reference import reference_attention_backward
 
@@ -67,6 +71,8 @@ DQ_ALIBI_LAUNCHES = 0
 DKV_ALIBI_LAUNCHES = 0
 DQ_DROPOUT_LAUNCHES = 0
 DKV_DROPOUT_LAUNCHES = 0
+DQ_DYNOFF_LAUNCHES = 0  # with the offset read on the card (dyn_pos_offset)
+DKV_DYNOFF_LAUNCHES = 0
 
 # Head dims the backward kernels take (the forward's: flash_fwd.HEAD_DIMS).
 HEAD_DIMS = (64, 128, 256)
@@ -92,10 +98,12 @@ def flash_attention_backward_reference(
     alibi_slopes: torch.Tensor | None = None,
     dropout_rate: float = 0.0,
     dropout_seed=None,
+    dyn_pos_offset=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the backward kernels (B3, B4 and B5), on any
     device."""
-    check_window(window, is_causal)
+    pos_offset = plain_offset(pos_offset, dyn_pos_offset, is_causal)
+    check_window(window, is_causal, dyn_pos_offset is not None)
     segment_ids = check_segments(segment_ids, q, k)
     slopes = alibi_table(alibi, alibi_slopes, q.shape[1], q.device, check_softcap(logit_softcap))
     rate = check_dropout(dropout_rate, dropout_seed)
@@ -147,9 +155,10 @@ def flash_attention_backward(
       q, o, do: [B, Hq, S_q, D]; k, v: [B, Hkv, S_k, D]; lse: [B, Hq, S_q]
         float32, natural log, as flash_attention_forward returns it.
       is_causal, scale, pos_offset, window, segment_ids, logit_softcap,
-        alibi, alibi_slopes, dropout_rate, dropout_seed: as in the forward
-        call that made o and lse (ALiBi with a soft-cap raises ValueError,
-        as there; the same seed rebuilds the forward's dropout mask).
+        alibi, alibi_slopes, dropout_rate, dropout_seed, dyn_pos_offset: as
+        in the forward call that made o and lse (ALiBi with a soft-cap
+        raises ValueError, as there; the same seed rebuilds the forward's
+        dropout mask).
       impl: "auto", "fused" or "split" (module docstring; the CPU's plain
         version serves all three).
 
@@ -162,17 +171,19 @@ def flash_attention_backward(
     must be contiguous, 16-byte aligned bf16 or float32 with D in
     HEAD_DIMS, and lse contiguous float32; anything else raises.
     """
-    check_forward_unported(dyn_pos_offset)
     check_backward_operands(q, k, v, o, do, lse, HEAD_DIMS)
     shape = (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3], is_causal, q.dtype)
     impl = resolve_impl(impl, shape if q.is_cuda else None)
-    check_window(window, is_causal)
+    check_dyn_offset(dyn_pos_offset, pos_offset, is_causal)
+    check_window(window, is_causal, dyn_pos_offset is not None)
     segment_ids = check_segments(segment_ids, q, k)
     cap = check_softcap(logit_softcap)
     slopes = alibi_table(alibi, alibi_slopes, q.shape[1], q.device, cap)
     rate = check_dropout(dropout_rate, dropout_seed)
     bias = dict(alibi=slopes is not None, alibi_slopes=slopes, dropout_rate=rate,
-                dropout_seed=dropout_seed)
+                dropout_seed=dropout_seed, dyn_pos_offset=dyn_pos_offset)
+    if dyn_pos_offset is not None:
+        pos_offset = None
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, o, do, lse, is_causal, scale,
                                                   pos_offset, window, segment_ids, cap, **bias)
@@ -186,30 +197,32 @@ def flash_attention_backward(
     return dq, dk, dv
 
 
-def _library(slopes, rate: float) -> str:
+def _library(slopes, rate: float, dyn: bool) -> str:
     """The split kernels' library: dropout's instantiations (with ALiBi or
     without) are one of their own (csrc/flash_bwd_dropout.cu), and so are
-    ALiBi's without dropout (csrc/flash_bwd_alibi.cu)."""
-    return ("flash_bwd_dropout" if rate else "flash_bwd" if slopes is None
-            else "flash_bwd_alibi")
+    those of the offset on the card (csrc/flash_bwd_dynoff.cu) and ALiBi's
+    without either (csrc/flash_bwd_alibi.cu)."""
+    return ("flash_bwd_dropout" if rate else "flash_bwd_dynoff" if dyn
+            else "flash_bwd" if slopes is None else "flash_bwd_alibi")
 
 
 def flash_bwd_dq(q, k, v, o, do, lse, is_causal=False, scale=None, pos_offset=None,
                  window=None, segment_ids=None, logit_softcap=None, alibi=False,
-                 alibi_slopes=None, dropout_rate=0.0, dropout_seed=None):
+                 alibi_slopes=None, dropout_rate=0.0, dropout_seed=None, dyn_pos_offset=None):
     """B4's port on CUDA operands checked by flash_attention_backward:
     (dQ in q.dtype, delta = rowsum(dO * O) float32 [B, Hq, S_q]);
     logit_softcap as common.check_softcap returns it; alibi and alibi_slopes
     as the forward takes them (flash_fwd.alibi_table); dropout_rate as
-    common.check_dropout returns it, with the forward's dropout_seed."""
+    common.check_dropout returns it, with the forward's dropout_seed;
+    dyn_pos_offset as the forward checks it."""
     require_cuda(q)
     segs = kernel_segments(segment_ids)
     slopes = alibi_table(alibi, alibi_slopes, q.shape[1], q.device, logit_softcap)
+    dyn = dyn_library(dyn_pos_offset, window, slopes, logit_softcap, dropout_rate, q)
     dq = torch.empty_like(q)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    seed = device_seed(dropout_seed, q.device) if dropout_rate else None
-    drop = dropout_args(dropout_rate, seed) if dropout_rate else ()
-    lib = _build.load(_library(slopes, dropout_rate))
+    held, extra = extra_args(q, dropout_rate, dropout_seed, dyn, dyn_pos_offset)
+    lib = _build.load(_library(slopes, dropout_rate, dyn))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_bwd_dq_launch(
@@ -217,33 +230,36 @@ def flash_bwd_dq(q, k, v, o, do, lse, is_causal=False, scale=None, pos_offset=No
             lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
             *launch_args(q, k, is_causal, scale, pos_offset, window, segs, logit_softcap,
                          slopes),
-            *drop, stream)
+            *extra, stream)
+    del held  # the seed or the offset, kept on the card until the launch
     _build.check(lib, rc, "flash_bwd_dq")
     global DQ_LAUNCHES, DQ_WINDOW_LAUNCHES, DQ_SEGMENT_LAUNCHES, DQ_SOFTCAP_LAUNCHES
-    global DQ_ALIBI_LAUNCHES, DQ_DROPOUT_LAUNCHES
+    global DQ_ALIBI_LAUNCHES, DQ_DROPOUT_LAUNCHES, DQ_DYNOFF_LAUNCHES
     DQ_LAUNCHES += 1
     DQ_WINDOW_LAUNCHES += window is not None
     DQ_SEGMENT_LAUNCHES += segment_ids is not None
     DQ_SOFTCAP_LAUNCHES += logit_softcap is not None
     DQ_ALIBI_LAUNCHES += slopes is not None
     DQ_DROPOUT_LAUNCHES += dropout_rate > 0
+    DQ_DYNOFF_LAUNCHES += dyn
     return dq, delta
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, is_causal=False, scale=None, pos_offset=None,
                   window=None, segment_ids=None, logit_softcap=None, alibi=False,
-                  alibi_slopes=None, dropout_rate=0.0, dropout_seed=None):
+                  alibi_slopes=None, dropout_rate=0.0, dropout_seed=None, dyn_pos_offset=None):
     """B5's port on CUDA operands checked by flash_attention_backward, with
     flash_bwd_dq's delta: (dK, dV) in k.dtype; logit_softcap, alibi,
-    alibi_slopes, dropout_rate and dropout_seed as flash_bwd_dq takes them."""
+    alibi_slopes, dropout_rate, dropout_seed and dyn_pos_offset as
+    flash_bwd_dq takes them."""
     require_cuda(q)
     segs = kernel_segments(segment_ids)
     slopes = alibi_table(alibi, alibi_slopes, q.shape[1], q.device, logit_softcap)
+    dyn = dyn_library(dyn_pos_offset, window, slopes, logit_softcap, dropout_rate, q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    seed = device_seed(dropout_seed, q.device) if dropout_rate else None
-    drop = dropout_args(dropout_rate, seed) if dropout_rate else ()
-    lib = _build.load(_library(slopes, dropout_rate))
+    held, extra = extra_args(q, dropout_rate, dropout_seed, dyn, dyn_pos_offset)
+    lib = _build.load(_library(slopes, dropout_rate, dyn))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_bwd_dkv_launch(
@@ -251,14 +267,16 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, is_causal=False, scale=None, pos_offs
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             *launch_args(q, k, is_causal, scale, pos_offset, window, segs, logit_softcap,
                          slopes),
-            *drop, stream)
+            *extra, stream)
+    del held
     _build.check(lib, rc, "flash_bwd_dkv")
     global DKV_LAUNCHES, DKV_WINDOW_LAUNCHES, DKV_SEGMENT_LAUNCHES, DKV_SOFTCAP_LAUNCHES
-    global DKV_ALIBI_LAUNCHES, DKV_DROPOUT_LAUNCHES
+    global DKV_ALIBI_LAUNCHES, DKV_DROPOUT_LAUNCHES, DKV_DYNOFF_LAUNCHES
     DKV_LAUNCHES += 1
     DKV_WINDOW_LAUNCHES += window is not None
     DKV_SEGMENT_LAUNCHES += segment_ids is not None
     DKV_SOFTCAP_LAUNCHES += logit_softcap is not None
     DKV_ALIBI_LAUNCHES += slopes is not None
     DKV_DROPOUT_LAUNCHES += dropout_rate > 0
+    DKV_DYNOFF_LAUNCHES += dyn
     return dk, dv

@@ -16,7 +16,9 @@ library of their own, csrc/flash_bwd_fused_alibi.cu); a launch with one
 also counts in WINDOW_LAUNCHES, SEGMENT_LAUNCHES, SOFTCAP_LAUNCHES or
 ALIBI_LAUNCHES. Dropout (the forward's rate and seed: the kernel rebuilds
 its keep mask) runs the instantiations of csrc/flash_bwd_fused_dropout.cu,
-every option beside it, and counts in DROPOUT_LAUNCHES.
+every option beside it, and counts in DROPOUT_LAUNCHES; the forward's
+dyn_pos_offset with a window or ALiBi those of
+csrc/flash_bwd_fused_dynoff.cu, counted in DYNOFF_LAUNCHES.
 """
 
 from __future__ import annotations
@@ -30,8 +32,8 @@ from flashattn_tpu_torch.ops.flash_fwd import (
     alibi_table,
     check_kernel_operands,
     check_qkv,
-    device_seed,
-    dropout_args,
+    dyn_library,
+    extra_args,
     kernel_segments,
     logit_factors,
     pointers,
@@ -46,6 +48,7 @@ SEGMENT_LAUNCHES = 0
 SOFTCAP_LAUNCHES = 0
 ALIBI_LAUNCHES = 0
 DROPOUT_LAUNCHES = 0
+DYNOFF_LAUNCHES = 0  # with the offset read on the card (dyn_pos_offset)
 
 
 def check_backward_operands(q, k, v, o, do, lse, head_dims: tuple[int, ...]) -> None:
@@ -112,37 +115,42 @@ def flash_attention_backward_fused(
     alibi_slopes: torch.Tensor | None = None,
     dropout_rate: float = 0.0,
     dropout_seed=None,
+    dyn_pos_offset=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """B3's port on CUDA operands checked by flash_attention_backward:
     (dQ in q.dtype, dK and dV in k.dtype); logit_softcap as
     common.check_softcap returns it; alibi and alibi_slopes as the forward
     takes them (flash_fwd.alibi_table); dropout_rate as
-    common.check_dropout returns it, with the forward's dropout_seed."""
+    common.check_dropout returns it, with the forward's dropout_seed;
+    dyn_pos_offset as the forward checks it."""
     require_cuda(q)
     segs = kernel_segments(segment_ids)
     slopes = alibi_table(alibi, alibi_slopes, q.shape[1], q.device, logit_softcap)
+    dyn = dyn_library(dyn_pos_offset, window, slopes, logit_softcap, dropout_rate, q)
     args = launch_args(q, k, is_causal, scale, pos_offset, window, segs, logit_softcap, slopes)
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    seed = device_seed(dropout_seed, q.device) if dropout_rate else None
-    drop = dropout_args(dropout_rate, seed) if dropout_rate else ()
+    held, extra = extra_args(q, dropout_rate, dropout_seed, dyn, dyn_pos_offset)
     lib = _build.load("flash_bwd_fused_dropout" if dropout_rate
+                      else "flash_bwd_fused_dynoff" if dyn
                       else "flash_bwd_fused" if slopes is None else "flash_bwd_fused_alibi")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_bwd_fused_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            delta.data_ptr(), *args, *drop, stream)
+            delta.data_ptr(), *args, *extra, stream)
+    del held  # the seed or the offset, kept on the card until the launch
     _build.check(lib, rc, "flash_bwd_fused")
     global LAUNCHES, WINDOW_LAUNCHES, SEGMENT_LAUNCHES, SOFTCAP_LAUNCHES, ALIBI_LAUNCHES
-    global DROPOUT_LAUNCHES
+    global DROPOUT_LAUNCHES, DYNOFF_LAUNCHES
     LAUNCHES += 1
     WINDOW_LAUNCHES += window is not None
     SEGMENT_LAUNCHES += segment_ids is not None
     SOFTCAP_LAUNCHES += logit_softcap is not None
     ALIBI_LAUNCHES += slopes is not None
     DROPOUT_LAUNCHES += dropout_rate > 0
+    DYNOFF_LAUNCHES += dyn
     return dq_acc.to(q.dtype), dk, dv

@@ -19,13 +19,25 @@ unnormalised probabilities that meet V where common.dropout_keep_mask
 keeps them, times 1 / (1 - rate), and zeroes the others; the LSE stays
 that without dropout. Its kernels are a library of their own
 (csrc/flash_fwd_dropout.cu), every option beside it; a rate of 0 runs the
-library without dropout. ``dyn_pos_offset`` still raises (ROADMAP A4, whose
-remainder it is; only ring attention, A9, passes it).
+library without dropout.
+
+``dyn_pos_offset`` (the zigzag ring's, parallel/ring.py) is the q/k
+alignment as an int32 int or a one-element int32 tensor, read on the card:
+a CUDA tensor by pointer, an int or a CPU tensor written into a one-element
+card tensor by a fill kernel (``device_offset``), so one launch shape serves
+every rank and hop. The call is not causal; only the window's left edge,
+c >= r + offset - window + 1, and the ALiBi distance c - r - offset read
+it. Its kernels are a library of their own (csrc/flash_fwd_dynoff.cu: a
+window, ALiBi or both, with or without segment ids, bf16 at D 64 and 128);
+with neither a window nor ALiBi the offset changes nothing and the call
+runs the library without it. With the soft-cap, dropout, D 256 or float32
+it raises on the card (ROADMAP A9 and B1); the plain version takes them.
 """
 
 from __future__ import annotations
 
 import functools
+import numbers
 
 import torch
 
@@ -52,6 +64,7 @@ SOFTCAP_LAUNCHES = 0
 ALIBI_LAUNCHES = 0
 ALIBI_SEGMENT_LAUNCHES = 0
 DROPOUT_LAUNCHES = 0
+DYNOFF_LAUNCHES = 0  # with the offset read on the card (dyn_pos_offset)
 
 # Head dims K1, K2 and the backward kernels take.
 HEAD_DIMS = (64, 128, 256)
@@ -116,9 +129,11 @@ def flash_attention_forward_reference(
     alibi_slopes: torch.Tensor | None = None,
     dropout_rate: float = 0.0,
     dropout_seed=None,
+    dyn_pos_offset=None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Plain PyTorch version of K1, on any device."""
-    check_window(window, is_causal)
+    pos_offset = plain_offset(pos_offset, dyn_pos_offset, is_causal)
+    check_window(window, is_causal, dyn_pos_offset is not None)
     segment_ids = check_segments(segment_ids, q, k)
     slopes = alibi_table(alibi, alibi_slopes, q.shape[1], q.device, check_softcap(logit_softcap))
     rate = check_dropout(dropout_rate, dropout_seed)
@@ -128,14 +143,65 @@ def flash_attention_forward_reference(
     return o, (lse if need_lse else None)
 
 
-def check_window(window: int | None, is_causal: bool) -> None:
-    """A sliding window is a positive int and needs the causal mask."""
+def check_window(window: int | None, is_causal: bool, dynamic: bool = False) -> None:
+    """A sliding window is a positive int and needs the causal mask, or
+    with `dynamic` (a dyn_pos_offset call) is its left edge alone."""
     if window is None:
         return
     if isinstance(window, bool) or not isinstance(window, int) or window < 1:
         raise ValueError(f"window must be a positive int, got {window!r}")
-    if not is_causal:
-        raise ValueError("a sliding window needs is_causal=True")
+    if not is_causal and not dynamic:
+        raise ValueError("a sliding window needs is_causal=True (or a dyn_pos_offset)")
+
+
+def check_dyn_offset(dyn_pos_offset, pos_offset, is_causal: bool) -> None:
+    """dyn_pos_offset, when given, is an int32 int or a one-element int32
+    tensor, without pos_offset and without the causal mask (as the JAX
+    kernels assert: the causal walk cannot prune on an offset read on the
+    card). Raises ValueError."""
+    if dyn_pos_offset is None:
+        return
+    if pos_offset is not None:
+        raise ValueError("pos_offset and dyn_pos_offset are mutually exclusive")
+    if is_causal:
+        raise ValueError("dyn_pos_offset needs is_causal=False: the caller guarantees "
+                         "every pair is causally visible")
+    if isinstance(dyn_pos_offset, torch.Tensor):
+        if dyn_pos_offset.dtype != torch.int32 or dyn_pos_offset.numel() != 1:
+            raise ValueError(f"dyn_pos_offset must be a one-element int32 tensor, got "
+                             f"{dyn_pos_offset.dtype} of shape {tuple(dyn_pos_offset.shape)}")
+    elif isinstance(dyn_pos_offset, bool) or not isinstance(dyn_pos_offset, numbers.Integral) \
+            or not -2**31 <= dyn_pos_offset < 2**31:
+        raise ValueError(f"dyn_pos_offset must be an int32 or an int32 tensor, got "
+                         f"{dyn_pos_offset!r}")
+
+
+def plain_offset(pos_offset, dyn_pos_offset, is_causal: bool):
+    """The plain versions' pos_offset: dyn_pos_offset's value when given
+    (checked by check_dyn_offset; a tensor is read on the host), else
+    pos_offset."""
+    check_dyn_offset(dyn_pos_offset, pos_offset, is_causal)
+    if dyn_pos_offset is None:
+        return pos_offset
+    return int(dyn_pos_offset.item() if isinstance(dyn_pos_offset, torch.Tensor)
+               else dyn_pos_offset)
+
+
+def dyn_library(dyn_pos_offset, window, slopes, cap, rate: float, q) -> bool:
+    """Whether a checked card call runs the kernels that read the offset on
+    the card: a dyn_pos_offset with a window or ALiBi (without either the
+    offset changes nothing). Raises NotImplementedError (ROADMAP A9) for
+    the combinations those kernels leave out: the soft-cap, dropout, D 256
+    and float32."""
+    if dyn_pos_offset is None or (window is None and slopes is None):
+        return False
+    for left_out, what in ((cap is not None, "the logit soft-cap"),
+                           (rate > 0, "dropout"),
+                           (q.shape[-1] not in (64, 128), f"head_dim {q.shape[-1]}"),
+                           (q.dtype != torch.bfloat16, str(q.dtype))):
+        if left_out:
+            raise unported(f"dyn_pos_offset with {what} on the card", "A9")
+    return True
 
 
 def check_segments(segment_ids, q, k) -> tuple[torch.Tensor, torch.Tensor] | None:
@@ -184,7 +250,7 @@ def kernel_segments(segment_ids) -> tuple:
     return seg_q, seg_k, id_ranges(seg_q), id_ranges(seg_k)
 
 
-def device_seed(seed, device: torch.device) -> torch.Tensor:
+def device_seed(seed, device: torch.device, name: str = "dropout_seed") -> torch.Tensor:
     """The dropout seed (checked by common.check_dropout) as the kernels
     read it, a one-element int32 tensor on the card: a seed tensor there
     as it is (never read on the host: a captured call reads it at each
@@ -192,9 +258,15 @@ def device_seed(seed, device: torch.device) -> torch.Tensor:
     host-to-device copy, so a captured call takes it too)."""
     if isinstance(seed, torch.Tensor) and seed.device.type == "cuda":
         if seed.device != device:
-            raise ValueError(f"dropout_seed is on {seed.device}, q on {device}")
+            raise ValueError(f"{name} is on {seed.device}, q on {device}")
         return seed
     return torch.full((1,), int(seed), dtype=torch.int32, device=device)
+
+
+def device_offset(dyn_pos_offset, device: torch.device) -> torch.Tensor:
+    """dyn_pos_offset (checked by check_dyn_offset) as the kernels read it,
+    a one-element int32 tensor on the card, as device_seed makes the seed."""
+    return device_seed(dyn_pos_offset, device, "dyn_pos_offset")
 
 
 def dropout_args(rate: float, seed: torch.Tensor) -> tuple:
@@ -202,6 +274,20 @@ def dropout_args(rate: float, seed: torch.Tensor) -> tuple:
     arguments before the stream, for a rate checked by common.check_dropout
     and device_seed's tensor, which the caller holds until the launch."""
     return seed.data_ptr(), dropout_threshold(rate), dropout_scale(rate)
+
+
+def extra_args(q, rate: float, dropout_seed, dyn: bool, dyn_pos_offset) -> tuple:
+    """(the tensor to hold until the launch, the arguments a dropout or
+    card-offset library takes before the stream): dropout's (dropout_args)
+    for a rate above 0, else the offset's pointer (device_offset) for a
+    dyn_library call, else none."""
+    if rate:
+        seed = device_seed(dropout_seed, q.device)
+        return seed, dropout_args(rate, seed)
+    if dyn:
+        off = device_offset(dyn_pos_offset, q.device)
+        return off, (off.data_ptr(),)
+    return None, ()
 
 
 def pointers(*tensors) -> tuple:
@@ -288,6 +374,11 @@ def flash_attention_forward(
         one-element int32 tensor (on the card: read there, never on the
         host). The mask keys on bh = b * Hq + h and the arrays' row and
         column, so the backward, given the same seed, rebuilds it.
+      dyn_pos_offset: the q/k alignment read on the card (module
+        docstring), an int32 int or a one-element int32 tensor; needs
+        is_causal=False and no pos_offset. A window then masks its left
+        edge alone, c >= r + offset - window + 1, and ALiBi takes
+        c - r - offset.
 
     Returns:
       (O [B, Hq, S_q, D] in q.dtype, LSE [B, Hq, S_q] float32 natural log or
@@ -298,44 +389,48 @@ def flash_attention_forward(
     anything else raises. bf16 runs the wgmma kernel, float32 the CUDA-core
     kernel.
     """
-    check_forward_unported(dyn_pos_offset)
     check_qkv(q, k, v)
-    check_window(window, is_causal)
+    check_dyn_offset(dyn_pos_offset, pos_offset, is_causal)
+    check_window(window, is_causal, dyn_pos_offset is not None)
     segment_ids = check_segments(segment_ids, q, k)
     cap = check_softcap(logit_softcap)
     rate = check_dropout(dropout_rate, dropout_seed)
     if q.device.type == "cpu":
         return flash_attention_forward_reference(q, k, v, is_causal, scale, pos_offset,
                                                  need_lse, window, segment_ids, cap, alibi,
-                                                 alibi_slopes, rate, dropout_seed)
+                                                 alibi_slopes, rate, dropout_seed,
+                                                 dyn_pos_offset)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     b, hq, s_q, d = q.shape
     hkv, s_k = k.shape[1], k.shape[2]
     check_kernel_operands(q=q, k=k, v=v)
     slopes = alibi_table(alibi, alibi_slopes, hq, q.device, cap)
+    dyn = dyn_library(dyn_pos_offset, window, slopes, cap, rate, q)
     if scale is None:
         scale = 1.0 / d**0.5
-    offset = s_k - s_q if pos_offset is None else int(pos_offset)
+    offset = 0 if dyn_pos_offset is not None else (
+        s_k - s_q if pos_offset is None else int(pos_offset))
 
     o = torch.empty_like(q)
     lse = (torch.empty((b, hq, s_q), dtype=torch.float32, device=q.device)
            if need_lse else None)
     segs = kernel_segments(segment_ids)
     pre, cap_log2 = logit_factors(scale, cap)
-    seed = device_seed(dropout_seed, q.device) if rate else None
-    drop = dropout_args(rate, seed) if rate else ()
-    lib = _build.load("flash_fwd_dropout" if rate else "flash_fwd")
+    held, extra = extra_args(q, rate, dropout_seed, dyn, dyn_pos_offset)
+    lib = _build.load("flash_fwd_dynoff" if dyn else "flash_fwd_dropout" if rate
+                      else "flash_fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if need_lse else None, *pointers(*segs, slopes),
             b, hq, hkv, s_q, s_k, d, DTYPE_CODES[q.dtype], int(is_causal),
-            offset, min(window or 0, WINDOW_MAX), pre, cap_log2, *drop, stream)
+            offset, min(window or 0, WINDOW_MAX), pre, cap_log2, *extra, stream)
+    del held  # the seed or the offset, kept on the card until the launch
     _build.check(lib, rc, "flash_fwd")
     global LAUNCHES, WINDOW_LAUNCHES, SEGMENT_LAUNCHES, SOFTCAP_LAUNCHES, ALIBI_LAUNCHES
-    global ALIBI_SEGMENT_LAUNCHES, DROPOUT_LAUNCHES
+    global ALIBI_SEGMENT_LAUNCHES, DROPOUT_LAUNCHES, DYNOFF_LAUNCHES
     LAUNCHES += 1
     WINDOW_LAUNCHES += window is not None
     SEGMENT_LAUNCHES += segment_ids is not None
@@ -343,6 +438,7 @@ def flash_attention_forward(
     ALIBI_LAUNCHES += slopes is not None
     ALIBI_SEGMENT_LAUNCHES += slopes is not None and segment_ids is not None
     DROPOUT_LAUNCHES += rate > 0
+    DYNOFF_LAUNCHES += dyn
     return o, lse
 
 
@@ -352,11 +448,3 @@ def logit_factors(scale: float, cap: float | None) -> tuple[float, float]:
     scale / cap, cap_log2 = cap * log2(e): only `scale` folds before the
     tanh, as in the JAX launcher). K1 and the backward kernels take both."""
     return (scale * LOG2E, 0.0) if cap is None else (scale / cap, cap * LOG2E)
-
-
-def check_forward_unported(dyn_pos_offset=None) -> None:
-    """Raise NotImplementedError (ROADMAP A4) for dyn_pos_offset, the one
-    option of the JAX flash kernels that K1 and the backward kernels do
-    not compute yet (only ring attention, ROADMAP A9, passes it)."""
-    if dyn_pos_offset is not None:
-        raise unported("dyn_pos_offset", "A4")

@@ -21,7 +21,9 @@ import torch
 # soft-cap in the matching "_softcap" one, a launch with ALiBi in the
 # matching "_alibi" one (and a K1 launch with ALiBi and segment ids in
 # "flash_fwd_alibi_segments"), a launch with attention dropout in the
-# matching "_dropout" one, a K2 launch that writes the LSE in "decode_lse".
+# matching "_dropout" one, a launch that reads its q/k alignment on the card
+# (dyn_pos_offset) in the matching "_dynoff" one, a K2 launch that writes the
+# LSE in "decode_lse".
 COUNTERS = {
     "flash_fwd": ("flashattn_tpu_torch.ops.flash_fwd", "LAUNCHES"),
     "flash_fwd_window": ("flashattn_tpu_torch.ops.flash_fwd", "WINDOW_LAUNCHES"),
@@ -30,6 +32,7 @@ COUNTERS = {
     "flash_fwd_alibi": ("flashattn_tpu_torch.ops.flash_fwd", "ALIBI_LAUNCHES"),
     "flash_fwd_alibi_segments": ("flashattn_tpu_torch.ops.flash_fwd", "ALIBI_SEGMENT_LAUNCHES"),
     "flash_fwd_dropout": ("flashattn_tpu_torch.ops.flash_fwd", "DROPOUT_LAUNCHES"),
+    "flash_fwd_dynoff": ("flashattn_tpu_torch.ops.flash_fwd", "DYNOFF_LAUNCHES"),
     "decode": ("flashattn_tpu_torch.ops.decode", "LAUNCHES"),
     "decode_window": ("flashattn_tpu_torch.ops.decode", "WINDOW_LAUNCHES"),
     "decode_softcap": ("flashattn_tpu_torch.ops.decode", "SOFTCAP_LAUNCHES"),
@@ -49,18 +52,21 @@ COUNTERS = {
     "flash_bwd_fused_softcap": ("flashattn_tpu_torch.ops.flash_bwd_fused", "SOFTCAP_LAUNCHES"),
     "flash_bwd_fused_alibi": ("flashattn_tpu_torch.ops.flash_bwd_fused", "ALIBI_LAUNCHES"),
     "flash_bwd_fused_dropout": ("flashattn_tpu_torch.ops.flash_bwd_fused", "DROPOUT_LAUNCHES"),
+    "flash_bwd_fused_dynoff": ("flashattn_tpu_torch.ops.flash_bwd_fused", "DYNOFF_LAUNCHES"),
     "flash_bwd_dq": ("flashattn_tpu_torch.ops.flash_bwd", "DQ_LAUNCHES"),
     "flash_bwd_dq_window": ("flashattn_tpu_torch.ops.flash_bwd", "DQ_WINDOW_LAUNCHES"),
     "flash_bwd_dq_segments": ("flashattn_tpu_torch.ops.flash_bwd", "DQ_SEGMENT_LAUNCHES"),
     "flash_bwd_dq_softcap": ("flashattn_tpu_torch.ops.flash_bwd", "DQ_SOFTCAP_LAUNCHES"),
     "flash_bwd_dq_alibi": ("flashattn_tpu_torch.ops.flash_bwd", "DQ_ALIBI_LAUNCHES"),
     "flash_bwd_dq_dropout": ("flashattn_tpu_torch.ops.flash_bwd", "DQ_DROPOUT_LAUNCHES"),
+    "flash_bwd_dq_dynoff": ("flashattn_tpu_torch.ops.flash_bwd", "DQ_DYNOFF_LAUNCHES"),
     "flash_bwd_dkv": ("flashattn_tpu_torch.ops.flash_bwd", "DKV_LAUNCHES"),
     "flash_bwd_dkv_window": ("flashattn_tpu_torch.ops.flash_bwd", "DKV_WINDOW_LAUNCHES"),
     "flash_bwd_dkv_segments": ("flashattn_tpu_torch.ops.flash_bwd", "DKV_SEGMENT_LAUNCHES"),
     "flash_bwd_dkv_softcap": ("flashattn_tpu_torch.ops.flash_bwd", "DKV_SOFTCAP_LAUNCHES"),
     "flash_bwd_dkv_alibi": ("flashattn_tpu_torch.ops.flash_bwd", "DKV_ALIBI_LAUNCHES"),
     "flash_bwd_dkv_dropout": ("flashattn_tpu_torch.ops.flash_bwd", "DKV_DROPOUT_LAUNCHES"),
+    "flash_bwd_dkv_dynoff": ("flashattn_tpu_torch.ops.flash_bwd", "DKV_DYNOFF_LAUNCHES"),
 }
 
 

@@ -34,19 +34,19 @@ def visible(s_q: int, s_k: int, is_causal: bool = False, pos_offset: int | None 
 
     Row r sees column c iff all of: c <= r + pos_offset when is_causal
     (pos_offset defaults to S_k - S_q); c >= r + pos_offset - window + 1
-    with a window (causal only); seg_q[b, r] == seg_k[b, c] with
-    segment_ids = (seg_q [B, S_q], seg_k [B, S_k])."""
+    with a window (without is_causal its left edge alone: the
+    dyn_pos_offset calls of the zigzag ring); seg_q[b, r] == seg_k[b, c]
+    with segment_ids = (seg_q [B, S_q], seg_k [B, S_k])."""
     mask = None
-    if is_causal:
+    if is_causal or window is not None:
         off = s_k - s_q if pos_offset is None else pos_offset
         qi = torch.arange(s_q, device=device)[:, None]
         kj = torch.arange(s_k, device=device)[None, :]
-        mask = kj <= qi + off
+        mask = kj <= qi + off if is_causal else None
         if window is not None:
-            mask &= kj >= qi + off - window + 1
+            left = kj >= qi + off - window + 1
+            mask = left if mask is None else mask & left
         mask = mask[None, None]
-    elif window is not None:
-        raise ValueError("a sliding window needs is_causal")
     if segment_ids is not None:
         seg_q, seg_k = segment_ids
         same = (seg_q[:, :, None] == seg_k[:, None, :])[:, None]
@@ -104,8 +104,9 @@ def reference_attention_with_lse(
       scale: softmax scale, default 1/sqrt(D).
       pos_offset: q/k alignment; defaults to S_k - S_q (bottom-right, the
         JAX package's convention, not SDPA's top-left one).
-      window: sliding window (needs is_causal): row i also needs
-        j >= i + pos_offset - window + 1.
+      window: sliding window: row i also needs
+        j >= i + pos_offset - window + 1 (without is_causal the left edge
+        alone, as dyn_pos_offset calls take it).
       segment_ids: (seg_q [B, S_q], seg_k [B, S_k]) packed-document ids:
         row i also needs seg_q[b, i] == seg_k[b, j].
       logit_softcap: cap * tanh(s / cap) on the scaled logits, before any

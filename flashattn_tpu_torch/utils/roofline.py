@@ -126,10 +126,14 @@ def segment_pairs(seg_q: torch.Tensor, seg_k: torch.Tensor, is_causal: bool = Fa
 def _attention_work(b, hq, s_q, s_k, d, is_causal, window, pos_offset, segment_ids):
     """(the forward's operations, the segment ids' bytes): the JAX package's
     count (half the square when causal) on the plain subset, else 4 D for
-    each pair a head sees (window_pairs, segment_pairs)."""
+    each pair a head sees (window_pairs, segment_pairs; a window without the
+    causal mask is its left edge alone, as dyn_pos_offset calls take it)."""
     if segment_ids is not None:
         pairs = segment_pairs(*segment_ids, is_causal, window, pos_offset)
         return 4.0 * hq * d * pairs, 4 * b * (s_q + s_k)
+    if window is not None and not is_causal:  # a left edge alone (dyn_pos_offset calls)
+        ids = torch.zeros((1, s_q), dtype=torch.int32), torch.zeros((1, s_k), dtype=torch.int32)
+        return 4.0 * b * hq * d * segment_pairs(*ids, False, window, pos_offset), 0
     if window is not None:
         return 4.0 * b * hq * d * window_pairs(s_q, s_k, window, pos_offset), 0
     return attention_flops(b, hq, s_q, s_k, d, is_causal), 0

@@ -31,19 +31,20 @@ from flashattn_tpu_torch.ops import _build
 
 def kernel_label(mangled: str) -> str:
     """'flash_fwd_mma_kernel<64>' from the mangled name of a kernel in csrc/:
-    a name is its length then its characters (it may hold digits, and
-    follow other digits, as in an anonymous namespace's), then its template
-    arguments."""
-    for run in re.finditer(r"\d+", mangled):
-        for i in range(run.start(), run.end()):
-            name = mangled[run.end():run.end() + int(mangled[i:run.end()])]
-            m = re.match(r"I(.*?)E+v", mangled[run.end() + len(name):])
-            if name.endswith("_kernel") and m:
-                break
-        else:
-            continue
-        break
-    else:
+    after _Z (or _ZN, a nested name) each component is its length then its
+    characters (an anonymous namespace's holds digits of a hash, which may
+    read as another length), read in order up to the one ending in
+    "_kernel", then its template arguments."""
+    start = re.match(r"_ZN?", mangled)
+    m = None
+    pos = start.end() if start else len(mangled)
+    while (num := re.match(r"\d+", mangled[pos:])) is not None:
+        name = mangled[pos + num.end():pos + num.end() + int(num.group())]
+        pos += num.end() + len(name)
+        if name.endswith("_kernel"):
+            m = re.match(r"I(.*?)E+v", mangled[pos:])
+            break
+    if m is None:
         return mangled
     types = {"13__nv_bfloat16": "bf16", "13__nv_fp8_e4m3": "fp8", "f": "float", "a": "int8",
              "Lb0": "false", "Lb1": "true"}

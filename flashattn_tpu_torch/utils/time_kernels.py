@@ -42,7 +42,11 @@ B3, B4 and B5 on the packed row (S 8192, the packed row's documents) and
 B3, B4 and B5 on the unpacked row of 4,096 tokens; and, where the
 kernels take attention dropout (ops/flash_fwd.py's DROPOUT_LAUNCHES), K1
 with the LSE and B3, B4 and B5 with dropout (rate 0.1) at the training
-shape and at D 128 (B 4, Hq = Hkv = 8, S 16384). Prints the card's name and power limit, then one JSON line of
+shape and at D 128 (B 4, Hq = Hkv = 8, S 16384); and, where the kernels
+take dyn_pos_offset (ops/flash_fwd.py's DYNOFF_LAUNCHES), K1 with the LSE
+and B3, B4 and B5 at the zigzag ring's chunk pair (B 1, Hq 32, Hkv 8, a
+4,096-row chunk against 4,096 keys, D 128) with the offset 4,096 read on
+the card, the window 4,096 and ALiBi. Prints the card's name and power limit, then one JSON line of
 milliseconds. It calls nothing but the public functions, so run as a file
 with another checkout of the package first on PYTHONPATH,
 
@@ -51,7 +55,7 @@ with another checkout of the package first on PYTHONPATH,
 it times that checkout's kernels: two versions compared in turns on one
 card. `--only k1,backward` times those groups alone (decode, qmm, k1,
 backward, window, packed, softcap, gemma_packed, alibi, alibi_train,
-dropout). Needs
+dropout, dynoff). Needs
 a CUDA device.
 """
 
@@ -84,7 +88,7 @@ WIN, SINK = 4096, 4
 K1_WINDOW = (1, 32, 8, 4608, 128)  # B, Hq, Hkv, S, D
 WIN_B, WIN_HKV, WIN_SMAX = 4, 8, 8192
 GROUPS = ("decode", "qmm", "k1", "backward", "window", "packed", "softcap", "gemma_packed",
-          "alibi", "alibi_train", "dropout")
+          "alibi", "alibi_train", "dropout", "dynoff")
 # GEMMA2_9B's rows: its prefill (B, Hq, Hkv, S, D) and its decode step.
 CAP = 50.0
 K1_GEMMA = (1, 16, 8, 4608, 256)
@@ -158,6 +162,8 @@ def main() -> None:
         ms.update(alibi_train(gen))
     if "dropout" in only and hasattr(flash_fwd, "DROPOUT_LAUNCHES"):
         ms.update(dropout(gen))
+    if "dynoff" in only and hasattr(flash_fwd, "DYNOFF_LAUNCHES"):
+        ms.update(dynoff(gen))
     print(json.dumps({"tag": args.tag, "ms": ms}))
 
 
@@ -367,6 +373,29 @@ def dropout(gen: torch.Generator) -> dict[str, float]:
                 dropout_seed=torch.tensor(20181, dtype=torch.int32, device="cuda"))
     ms = backward(gen, K1_SHAPES["k1_train"][:5], "train_dropout", **drop)
     ms.update(backward(gen, K1_SHAPES["k1_d128"][:5], "d128_dropout", **drop))
+    return ms
+
+
+
+def dynoff(gen: torch.Generator) -> dict[str, float]:
+    """K1 (with the LSE), B3, B4 and B5 with dyn_pos_offset (module
+    docstring), not causal, the offset a tensor on the card."""
+    b, hq, hkv, s, d = 1, 32, 8, 4096, 128
+    q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+                   for h in (hq, hkv, hkv, hq))
+    opts = dict(window=4096, alibi=True,
+                dyn_pos_offset=torch.tensor([4096], dtype=torch.int32, device="cuda"))
+    few = dict(warmup=2, iters=5, reps=5)
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, False, **opts)
+    ms = {"k1_dynoff": cuda_time_ms(lambda: flash_fwd.flash_attention_forward(
+              q, k, v, False, **opts), **few),
+          "b3_dynoff": cuda_time_ms(lambda: flash_bwd_fused.flash_attention_backward_fused(
+              q, k, v, o, do, lse, False, **opts), **few),
+          "b4_dynoff": cuda_time_ms(lambda: flash_bwd.flash_bwd_dq(q, k, v, o, do, lse, False,
+                                                                   **opts), **few)}
+    _, delta = flash_bwd.flash_bwd_dq(q, k, v, o, do, lse, False, **opts)
+    ms["b5_dynoff"] = cuda_time_ms(lambda: flash_bwd.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                                   False, **opts), **few)
     return ms
 
 

@@ -126,12 +126,16 @@ def test_alibi_option_rules():
     with pytest.raises(ValueError, match="pick one"):
         flash_attention(q, k, v, True, alibi=True, logit_softcap=30.0)
     # Dropout beside ALiBi runs (ported: tests/test_torch_dropout.py), its
-    # LSE that without dropout; dyn_pos_offset still raises, naming ROADMAP A4.
+    # LSE that without dropout; dyn_pos_offset beside ALiBi runs too
+    # (ported: tests/test_torch_dyn_offset.py), without the causal mask.
     o, lse = flash_fwd.flash_attention_forward(q, k, v, True, alibi=True, dropout_rate=0.1,
                                                dropout_seed=3)
     assert bool(torch.isfinite(o).all())
     assert torch.equal(lse, flash_fwd.flash_attention_forward(q, k, v, True, alibi=True)[1])
-    with pytest.raises(NotImplementedError, match="dyn_pos_offset.*ROADMAP A4"):
+    o_d, lse_d = flash_fwd.flash_attention_forward(q, k, v, False, alibi=True, dyn_pos_offset=0)
+    o_s, lse_s = flash_fwd.flash_attention_forward(q, k, v, False, alibi=True, pos_offset=0)
+    assert torch.equal(o_d, o_s) and torch.equal(lse_d, lse_s)
+    with pytest.raises(ValueError, match="is_causal=False"):
         flash_fwd.flash_attention_forward(q, k, v, True, alibi=True, dyn_pos_offset=0)
     with torch.no_grad():  # no gradient to take: the forward alone runs
         assert bool(torch.isfinite(flash_attention(q, k, v, True, alibi=True)).all())

@@ -2537,30 +2537,169 @@ def test_libraries_without_dropout_hold_no_dropout_kernel(dev):
     (flash_fwd, flash_bwd, flash_bwd_alibi, flash_bwd_fused,
     flash_bwd_fused_alibi: each kernel's dropout flag false), and the
     dropout libraries hold the dropout instantiations alone, every kind of
-    the others: the ptxas report's entry functions."""
+    the others: the ptxas report's entry functions. The libraries of the
+    offset read on the card (flash_fwd_dynoff, flash_bwd_dynoff,
+    flash_bwd_fused_dynoff) hold its instantiations alone (their kDyn flag
+    true, dropout's false), and no other library holds one."""
     from flashattn_tpu_torch.ops import _build
+    from flashattn_tpu_torch.utils import sass
 
     def flags(lib):
-        """{dropout flag "0"/"1": kernel names} of the library's kernels:
-        the last template argument of each mangled name (K1's bf16
-        kernel's 7th, the backward's bf16 kernels' 5th, the float32
-        kernels' 3rd or 2nd), the delta pre-pass left out."""
+        """{dropout flag + 2 x offset flag: kernel names} of the library's
+        kernels, from each kernel's name and template arguments (K1's bf16
+        kernel: dropout the 7th; its kernel of the offset read on the
+        card, `flash_fwd_dyn_wgmma_kernel`: no dropout; the backward's bf16
+        kernels: dropout the 5th, the offset the 6th; the float32 kernels:
+        dropout the last, no offset), the delta pre-pass left out."""
         _build.load(lib)
         log = _build.library_path(lib).with_suffix(".log").read_text()
         got = {}
         for name in re.findall(r"Compiling entry function '([^']+)'", log):
-            m = re.search(r"([a-z_0-9]+_kernel)I(.*?)EEv", name)
-            if m is None or "delta" in m.group(1):
+            label = sass.kernel_label(name)
+            if "<" not in label or "delta" in label:
                 continue
-            flag = re.search(r"Lb([01])E$", m.group(2))
-            got.setdefault(flag.group(1) if flag else "?", []).append(m.group(1))
+            kernel, args = label[:label.index("<")], label[label.index("<") + 1:-1].split(", ")
+            if kernel == "flash_fwd_wgmma_kernel":
+                drop, dyn = args[6], "false"
+            elif kernel == "flash_fwd_dyn_wgmma_kernel":
+                drop, dyn = "false", "true"
+            elif kernel.endswith("mma_kernel"):
+                drop, dyn = args[4], args[5]
+            else:
+                drop, dyn = args[-1], "false"
+            got.setdefault((drop == "true") + 2 * (dyn == "true"), []).append(kernel)
         return got
 
     for lib, n in (("flash_fwd", 39), ("flash_bwd", 42), ("flash_bwd_alibi", 24),
                    ("flash_bwd_fused", 21), ("flash_bwd_fused_alibi", 12)):
         got = flags(lib)
-        assert set(got) == {"0"} and len(got["0"]) == n, (lib, got)
+        assert set(got) == {0} and len(got[0]) == n, (lib, got)
     for lib, n in (("flash_fwd_dropout", 39), ("flash_bwd_dropout", 60),
                    ("flash_bwd_fused_dropout", 30)):
         got = flags(lib)
-        assert set(got) == {"1"} and len(got["1"]) == n, (lib, got)
+        assert set(got) == {1} and len(got[1]) == n, (lib, got)
+    # 2 D x (window, ALiBi, both) x (segment ids or not); the backward's:
+    # 2 D x 5 mask kinds (flash_bwd_split.cuh launch_dq) a kernel
+    for lib, n in (("flash_fwd_dynoff", 12), ("flash_bwd_dynoff", 20),
+                   ("flash_bwd_fused_dynoff", 10)):
+        got = flags(lib)
+        assert set(got) == {2} and len(got[2]) == n, (lib, got)
+
+
+# ---- dyn_pos_offset: the q/k alignment read on the card (the zigzag ring's) ----
+
+DYN_CASES = {
+    # name: (Hq, Hkv, S_q, S_k, D, offset, window, alibi, documents)
+    "d64_window": (4, 2, 256, 256, 64, 768, 600, False, None),
+    "d64_alibi": (4, 2, 256, 300, 64, 768, None, True, None),
+    "d64_window_alibi_segments": (4, 1, 256, 256, 64, 300, 200, True, ((100, 130), (60, 170))),
+    "d128_window_alibi": (8, 2, 384, 384, 128, 1152, 1000, True, None),
+    "d128_window_segments": (4, 2, 300, 300, 128, 200, 250, False, ((150, 120), (100, 180))),
+    "d128_alibi_segments": (4, 4, 256, 256, 128, 512, None, True, ((200,), (256,))),
+    # rows r >= 136 see no key: their window's left edge r + 120 is past S_k
+    "d128_window_past_keys": (4, 2, 256, 256, 128, 319, 200, False, None),
+}
+
+
+def dyn_inputs(case, dev, seed=90):
+    hq, hkv, s_q, s_k, d, off, window, alibi, docs = DYN_CASES[case]
+    q, do = (randn((1, hq, s_q, d), torch.bfloat16, dev, seed + i) for i in (0, 3))
+    k, v = (randn((1, hkv, s_k, d), torch.bfloat16, dev, seed + i) for i in (1, 2))
+    segs = None
+    if docs is not None:
+        from flashattn_tpu_torch.ops.varlen import canonical_segments
+        ids = []
+        for lens, total in zip(docs, (s_q, s_k)):
+            row = torch.full((1, total), -1, dtype=torch.int32)
+            at = 0
+            for i, n in enumerate(lens):
+                row[0, at:at + n] = i
+                at += n
+            ids.append(row.to(dev))
+        segs = canonical_segments(*ids, dev)
+    return (q, k, v, do), off, dict(window=window, alibi=alibi, segment_ids=segs)
+
+
+def dyn_launches() -> dict[str, int]:
+    c = launch_counters.read()
+    return {n: c[n] for n in ("flash_fwd_dynoff", "flash_bwd_fused_dynoff",
+                              "flash_bwd_dq_dynoff", "flash_bwd_dkv_dynoff")}
+
+
+@pytest.mark.parametrize("offset_type", ["int", "card"])
+@pytest.mark.parametrize("impl", ["fused", "split"])
+@pytest.mark.parametrize("case", sorted(DYN_CASES))
+def test_dyn_offset_kernels_match_plain(dev, case, impl, offset_type):
+    """K1, then B3 (fused) or B4 + B5 (split) with the offset read on the
+    card, against their plain versions: the window's left edge, ALiBi,
+    both, segment ids with padding, GQA, D 64 and 128, an offset given as an
+    int and as an int32 tensor on the card, rows whose window lies past
+    every key (O = 0, LSE = -inf, dQ = 0); every launch a dyn launch."""
+    (q, k, v, do), off, kw = dyn_inputs(case, dev)
+    dyn = off if offset_type == "int" else torch.tensor([off], dtype=torch.int32, device=dev)
+    before = dyn_launches()
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, False, dyn_pos_offset=dyn, **kw)
+    out = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, False, impl=impl,
+                                             dyn_pos_offset=dyn, **kw)
+    torch.cuda.synchronize()
+    added = {n: c - before[n] for n, c in dyn_launches().items()}
+    assert added == {"flash_fwd_dynoff": 1, "flash_bwd_fused_dynoff": int(impl == "fused"),
+                     "flash_bwd_dq_dynoff": int(impl == "split"),
+                     "flash_bwd_dkv_dynoff": int(impl == "split")}
+    o_ref, lse_ref = flash_fwd.flash_attention_forward_reference(q, k, v, False,
+                                                                 dyn_pos_offset=off, **kw)
+    assert verify_results(o_ref, o, **TOL[torch.bfloat16]).passed
+    assert verify_results(lse_ref, lse, atol=1e-3).passed
+    ref = flash_bwd.flash_attention_backward_reference(q, k, v, o, do, lse, False,
+                                                       dyn_pos_offset=off, **kw)
+    assert_grads_match(ref, out, torch.bfloat16)
+    dead = torch.isneginf(lse)
+    assert torch.equal(dead, torch.isneginf(lse_ref))
+    assert not bool(o[dead].any()) and not bool(out[0][dead].any())
+    if case.endswith("past_keys"):
+        assert bool(dead[:, :, 136:].all()) and not bool(dead[:, :, :136].any())
+
+
+@pytest.mark.parametrize("impl", ["fused", "split"])
+@pytest.mark.parametrize("case", ["d64_window_alibi_segments", "d128_window_alibi"])
+def test_dyn_offset_equals_causal_static_offset(dev, case, impl):
+    """The second oracle: with every pair causally visible (offset >= S_k,
+    as on the zigzag's always-visible pair) the kernels with the offset on
+    the card equal the causal kernels with pos_offset = offset, forward and
+    gradients, within the bf16 gates (another kernel's walk)."""
+    (q, k, v, do), off, kw = dyn_inputs(case, dev)
+    off = max(off, k.shape[2])
+    o_d, lse_d = flash_fwd.flash_attention_forward(q, k, v, False, dyn_pos_offset=off, **kw)
+    o_c, lse_c = flash_fwd.flash_attention_forward(q, k, v, True, pos_offset=off, **kw)
+    assert verify_results(o_c, o_d, **TOL[torch.bfloat16]).passed
+    assert verify_results(lse_c, lse_d, atol=1e-3).passed
+    g_d = flash_bwd.flash_attention_backward(q, k, v, o_d, do, lse_d, False, impl=impl,
+                                             dyn_pos_offset=off, **kw)
+    g_c = flash_bwd.flash_attention_backward(q, k, v, o_c, do, lse_c, True, impl=impl,
+                                             pos_offset=off, **kw)
+    assert_grads_match(g_c, g_d, torch.bfloat16)
+
+
+def test_dyn_offset_split_is_bitwise_deterministic(dev):
+    (q, k, v, do), off, kw = dyn_inputs("d128_window_alibi", dev)
+    seed = torch.tensor([off], dtype=torch.int32, device=dev)
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, False, dyn_pos_offset=seed, **kw)
+    first = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, False, impl="split",
+                                               dyn_pos_offset=seed, **kw)
+    second = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, False, impl="split",
+                                                dyn_pos_offset=seed, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("left_out", ["softcap", "dropout", "d256", "float32"])
+def test_dyn_offset_left_out_raise_naming_a9(dev, left_out):
+    d = 256 if left_out == "d256" else 64
+    dtype = torch.float32 if left_out == "float32" else torch.bfloat16
+    q = randn((1, 2, 64, d), dtype, dev, 0)
+    kw = dict(window=32)
+    if left_out == "softcap":
+        kw["logit_softcap"] = 30.0
+    if left_out == "dropout":
+        kw.update(dropout_rate=0.1, dropout_seed=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        flash_fwd.flash_attention_forward(q, q, q, False, dyn_pos_offset=64, **kw)

@@ -146,12 +146,19 @@ def test_impl_choice_and_env_override(monkeypatch):
 
 @pytest.mark.parametrize("option", [dict(alibi=True, dyn_pos_offset=0), dict(dyn_pos_offset=0)])
 def test_unported_options_raise(option):
-    """dyn_pos_offset raises (ROADMAP A4), also beside ALiBi, which is
-    ported (tests/test_torch_alibi_bwd.py); dropout, which raised beside
-    them before, runs (test_dropout_options_match_jax)."""
+    """dyn_pos_offset, which raised (ROADMAP A4), runs in the plain
+    backward, also beside ALiBi (against JAX: tests/test_torch_dyn_offset.py):
+    without a window it equals the static alignment pos_offset = offset; on
+    the card its left-out combinations raise naming ROADMAP A9
+    (test_torch_dyn_offset.py::test_card_combinations_left_out_raise_naming_a9).
+    Dropout, which raised beside them before, runs
+    (test_dropout_options_match_jax)."""
     arrays = [torch.from_numpy(a) for a in make_inputs(2, 1, 8, 8, False, None, d=8)]
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        flash_bwd.flash_attention_backward(*arrays, **option)
+    got = flash_bwd.flash_attention_backward(*arrays, **option)
+    static = dict(option, pos_offset=option["dyn_pos_offset"])
+    del static["dyn_pos_offset"]
+    want = flash_bwd.flash_attention_backward(*arrays, **static)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("option", [

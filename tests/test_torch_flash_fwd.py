@@ -100,12 +100,18 @@ def test_reference_matches_jax_oracle():
 
 @pytest.mark.parametrize("option", [dict(alibi=True, dyn_pos_offset=0), dict(dyn_pos_offset=0)])
 def test_unported_options_raise(option):
-    """dyn_pos_offset (only ring attention passes it) still raises, naming
-    ROADMAP A4, also beside ALiBi; the options that raised beside it before
-    run now (test_dropout_options_match_jax)."""
+    """dyn_pos_offset (the zigzag ring passes it), which raised naming
+    ROADMAP A4, runs in the plain forward, also beside ALiBi (against JAX:
+    tests/test_torch_dyn_offset.py): without a window it equals the static
+    alignment pos_offset = offset; on the card its left-out combinations
+    raise naming ROADMAP A9 (test_torch_dyn_offset.py). The options that
+    raised beside it before run too (test_dropout_options_match_jax)."""
     q, k, v = (torch.from_numpy(a) for a in make_qkv(2, 1, 8, 8, d=8))
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        flash_fwd.flash_attention_forward(q, k, v, **option)
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, **option)
+    static = dict(option, pos_offset=option["dyn_pos_offset"])
+    del static["dyn_pos_offset"]
+    o_s, lse_s = flash_fwd.flash_attention_forward(q, k, v, **static)
+    assert torch.equal(o, o_s) and torch.equal(lse, lse_s)
 
 
 @pytest.mark.parametrize("option", [

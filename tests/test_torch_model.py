@@ -164,8 +164,10 @@ def test_alibi_under_grad_raises_naming_a4(route):
     """An ALiBi model serves and trains (check_supported passes it; its
     backward is ported): a loss through ALiBi takes a gradient on both
     attention routes, every parameter's finite (against JAX:
-    tests/test_torch_alibi_train.py); what still raises naming ROADMAP A4
-    beside ALiBi is the backward's dyn_pos_offset."""
+    tests/test_torch_alibi_train.py); the backward's dyn_pos_offset beside
+    ALiBi, which raised naming ROADMAP A4, runs too (tests/
+    test_torch_dyn_offset.py), and a causal call with it raises
+    ValueError."""
     cfg = ModelConfig(dtype=torch.float32, use_alibi=True, **CONFIGS["llama"])
     check_supported(cfg)
     model = llama.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -181,8 +183,11 @@ def test_alibi_under_grad_raises_naming_a4(route):
             assert bool(torch.isfinite(llama.forward(model, tokens[:, :-1])).all())
     from flashattn_tpu_torch.ops import flash_bwd
     x = torch.zeros((1, 2, 8, 16))
-    with pytest.raises(NotImplementedError, match="dyn_pos_offset.*ROADMAP A4"):
-        flash_bwd.flash_attention_backward(x, x, x, x, x, x[..., 0], alibi=True,
+    grads = flash_bwd.flash_attention_backward(x, x, x, x, x, x[..., 0], alibi=True,
+                                               dyn_pos_offset=0)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    with pytest.raises(ValueError, match="is_causal=False"):
+        flash_bwd.flash_attention_backward(x, x, x, x, x, x[..., 0], True, alibi=True,
                                            dyn_pos_offset=0)
 
 

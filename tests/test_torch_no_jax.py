@@ -146,6 +146,25 @@ srv = InferenceServer(moe_model, max_slots=2, max_len=128, quant="int8", paged=T
                       page_size=64, admit_chunk=32)
 srv.submit(Request(uid=7, prompt=list(range(45)), max_new_tokens=4))
 assert len(srv.run()[7]) == 4
+# The parallel layer on a process group of one gloo rank: the zigzag ring
+# through the global view with a window and ALiBi (dyn_pos_offset), its
+# gradient, Ulysses, and an SGD step and train.train under a data x sp mesh.
+import os
+from flashattn_tpu_torch import parallel
+with tempfile.TemporaryDirectory() as rdv:
+    parallel.initialize_distributed("gloo", f"file://{os.path.join(rdv, 'store')}", 1, 0)
+    mesh = parallel.make_mesh({"data": 1, "sp": 1})
+    x = torch.randn((1, 2, 16, 8), requires_grad=True)
+    parallel.sharded_ring_attention(x, x, x, mesh, True, mode="zigzag", window=4,
+                                    alibi=True).sum().backward()
+    parallel.sharded_ring_attention(x, x, x, mesh, True, mode="ulysses").sum().backward()
+    assert x.grad is not None
+    cp = llama.init_params(TINY, torch.Generator().manual_seed(5), device="cpu")
+    loss, _ = llama.sgd_train_step(cp, torch.randint(0, 512, (1, 17)), mesh=mesh)
+    state, hist = train.train(cp, iter([torch.randint(0, 512, (1, 17))] * 2),
+                              train.TrainConfig(warmup_steps=1), steps=2, log_every=1, mesh=mesh)
+    assert bool(torch.isfinite(loss)) and len(hist) == 2
+    torch.distributed.destroy_process_group()
 from flashattn_tpu_torch.ops import launches
 assert not any(launches.read().values()), f"CPU call counted a launch: {launches.read()}"
 counts = (flash_fwd.LAUNCHES, decode.LAUNCHES, decode.INT8_LAUNCHES, decode.FP8_LAUNCHES,

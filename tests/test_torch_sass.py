@@ -16,6 +16,14 @@ from flashattn_tpu_torch.utils import sass
     ("_ZN12_GLOBAL__N_122flash_bwd_fused_kernelIfLi256ELb0EEEvPKT_",
      "flash_bwd_fused_kernel<float, 256, false>"),
     ("_Z5helperv", "_Z5helperv"),
+    # an anonymous namespace whose hash ends in digits that read as the
+    # length of the rest: the components are read in order
+    ("_ZN52_GLOBAL__N__d927b5fe_19_flash_bwd_dynoff_cu_0898312c23flash_bwd_dq_mma_kernel"
+     "ILi128ELi1ELb0ELb0ELb0ELb1EEEvPK13__nv_bfloat16S3_",
+     "flash_bwd_dq_mma_kernel<128, 1, false, false, false, true>"),
+    ("_ZN52_GLOBAL__N__d92759ac_19_flash_bwd_dynoff_cu_0898312c23flash_bwd_dq_mma_kernel"
+     "ILi64ELi2ELb0ELb1ELb0ELb1EEEvPK13__nv_bfloat16S3_",
+     "flash_bwd_dq_mma_kernel<64, 2, false, true, false, true>"),
 ])
 def test_kernel_label(mangled, label):
     assert sass.kernel_label(mangled) == label

@@ -209,8 +209,9 @@ def test_padding_ids_are_canonical():
 def test_unported_options_raise():
     """ALiBi is ported in varlen attention, its gradient too; slopes
     without alibi and ALiBi with a cap raise ValueError, and the backward's
-    dyn_pos_offset beside ALiBi and segment ids still raises naming
-    ROADMAP A4; nothing launches on the CPU."""
+    dyn_pos_offset beside ALiBi and segment ids, which raised naming
+    ROADMAP A4, runs (tests/test_torch_dyn_offset.py) and equals the static
+    alignment; nothing launches on the CPU."""
     q = torch.zeros((1, 2, 8, 16), requires_grad=True)
     ids = torch.zeros((1, 8), dtype=torch.int32)
     before = launches.read()
@@ -225,9 +226,11 @@ def test_unported_options_raise():
                                logit_softcap=30.0)
     from flashattn_tpu_torch.ops import flash_bwd
     x = q.detach()
-    with pytest.raises(NotImplementedError, match="dyn_pos_offset.*ROADMAP A4"):
-        flash_bwd.flash_attention_backward(x, x, x, x, x, x[..., 0], segment_ids=(ids, ids),
-                                           alibi=True, dyn_pos_offset=0)
+    got = flash_bwd.flash_attention_backward(x, x, x, x, x, x[..., 0], segment_ids=(ids, ids),
+                                             alibi=True, dyn_pos_offset=0)
+    want = flash_bwd.flash_attention_backward(x, x, x, x, x, x[..., 0], segment_ids=(ids, ids),
+                                              alibi=True, pos_offset=0)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert launches.read() == before
 
 
