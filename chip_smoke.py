@@ -304,7 +304,29 @@ check and each phase's seconds, then the kernels line:
    finite losses, the last below the first); phase 2 holds K1, B3, B4 and B5 with
    dyn_pos_offset against their plain versions at (a)'s zigzag chunk pair
    and times them (dynoff_kernels);
-21. the `kernels` JSON line: every kernel with its launches on the path that
+21. tensor, pipeline and expert parallelism (phase_parallel): two ranks
+   started and joined as phase 20's, sharing cuda:0 over gloo-host. (a)
+   LLAMA_1B at full width and depth, B 4, S 2,048, bf16: the collective
+   probe; 3 steps of train.train under {"model": 2} (each rank its
+   shard_params shard: half the heads, the MLP's width and the vocabulary;
+   the fused backward), its checkpoint (the whole model and its AdamW
+   state, gathered) restored into one process; 3 AdamW steps through
+   pipeline_loss_fn under {"pp": 2} (11 layers a stage, 4 microbatches,
+   the split backward); both held by rank 0 against the same steps in one
+   process under phase 7's gates. (b) LLAMA31_8B's decode attention (B 4,
+   Hq 32, Hkv 8, D 128) on a cache of 32,768 positions: bf16, int8 and
+   fp8 caches split over sp 2 (one sequence ends in rank 0's half) merged
+   by the LSE rule, against one process's K2 over the whole cache; the bf16
+   cache dense and paged split over model 2, each rank's heads bit for bit
+   one process's K2 on them. (c) Qwen3-30B-A3B's MoE FFN at layer 0's
+   widths, T 2,000, over ep 2: moe_ffn and moe_ffn_a2a against
+   moe_ffn_grouped in one process; its widths cut to 2 layers in float32,
+   B 1, S 2,048: forward under {"ep": 2} against one process under the
+   logits rule. (d) resilient_train on LLAMA_1B's widths cut to 2 layers, a
+   NaN loss injected once: one recovery, the step count reached. Each
+   sub-phase prints its seconds; the times of ranks that share one card
+   are wall time, never a speed;
+22. the `kernels` JSON line: every kernel with its launches on the path that
    runs it, its error against its plain version, its time, bound, plain and
    library times (the windowed K1, K2 and paged K2 from phases 2 and 9, the
    windowed and segmented K1, B3, B4 and B5 from phases 2 and 10, the
@@ -320,7 +342,8 @@ check and each phase's seconds, then the kernels line:
    timed at LLAMA_1B's training attention, their launches the headline
    path's; K1, B3, B4 and B5 with dyn_pos_offset from phases 2 and 20,
    their launches those of phase 20 (a)'s window + ALiBi zigzag on both
-   ranks).
+   ranks; phase 21's launches of K1, B3, B4, B5, K2 (bf16, int8, fp8), K2
+   with the LSE and the paged K2 added to their rows).
 
 Any failed check raises: the script then exits nonzero and does not print
 its last line. It needs a CUDA device and never falls back to the CPU. The
@@ -344,6 +367,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -365,16 +389,16 @@ from flashattn_tpu_torch.ops.attention import flash_attention, plain_flash_atten
 from flashattn_tpu_torch.ops.common import round_up
 from flashattn_tpu_torch.ops.kvcache import KVCache
 from flashattn_tpu_torch.ops.reference import visible
-from flashattn_tpu_torch.parallel import moe
+from flashattn_tpu_torch.parallel import moe, serving
 from flashattn_tpu_torch.utils import dropout_readout, profile_train, roofline, sass
 from flashattn_tpu_torch.utils.timing import cuda_time_ms
 from flashattn_tpu_torch.utils.verify import verify_results
 
 SEED = 0
-LIBRARIES = ("flash_fwd", "decode", "decode_alibi", "flash_bwd", "flash_bwd_alibi",
-             "flash_bwd_fused", "flash_bwd_fused_alibi", "quant_matmul", "flash_fwd_dropout",
-             "flash_bwd_dropout", "flash_bwd_fused_dropout", "flash_fwd_dynoff",
-             "flash_bwd_dynoff", "flash_bwd_fused_dynoff")
+LIBRARIES = ("flash_fwd", "decode", "decode_d256", "decode_alibi", "decode_alibi_d256",
+             "flash_bwd", "flash_bwd_alibi", "flash_bwd_fused", "flash_bwd_fused_alibi",
+             "quant_matmul", "flash_fwd_dropout", "flash_bwd_dropout", "flash_bwd_fused_dropout",
+             "flash_fwd_dynoff", "flash_bwd_dynoff", "flash_bwd_fused_dynoff")
 O_ATOL = 2e-2  # bf16 outputs against the fp32 plain version
 LSE_ATOL = 1e-2
 GRAD_TOL = {  # gradients against the plain version on the same inputs
@@ -418,11 +442,23 @@ def phase_environment() -> str:
     name = torch.cuda.get_device_name(0)
     print(f"[env] device {name} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    _build.build_all(LIBRARIES)
+
+    def built_and_read(lib: str) -> dict[str, dict[str, int]]:
+        # one nvcc each, and each library's SASS read (one cuobjdump) while
+        # the slower ones still compile
+        _build.build(lib)
+        read = time.perf_counter()
+        counts = tensor_core_instructions(lib)
+        sass_s[lib] = round(time.perf_counter() - read, 1)
+        return counts
+
+    sass_s: dict[str, float] = {}
+    with ThreadPoolExecutor(max_workers=len(LIBRARIES)) as pool:
+        counted = list(pool.map(built_and_read, LIBRARIES))
     for lib in LIBRARIES:
         _build.load(lib)
-    print(f"[env] kernels built/loaded in {time.perf_counter() - t0:.2f} s "
-          f"(compile s: {_build.BUILD_SECONDS})")
+    print(f"[env] kernels built/loaded and their SASS read in {time.perf_counter() - t0:.2f} s "
+          f"(compile s: {_build.BUILD_SECONDS}; SASS read s: {sass_s})")
     for lib in LIBRARIES:
         log = _build.library_path(lib).with_suffix(".log")
         if not log.exists():  # loaded from an earlier build of another run
@@ -443,8 +479,8 @@ def phase_environment() -> str:
                     check("0 bytes spill stores, 0 bytes spill loads" in line,
                           f"{kernel} spills: {line.strip()}")
     mma = {}
-    for lib in LIBRARIES:
-        for kernel, n in tensor_core_instructions(lib).items():
+    for counts in counted:
+        for kernel, n in counts.items():
             if "mma_kernel" in kernel:
                 print(f"[env] SASS {kernel}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA, "
                       f"{n['IMMA']} IMMA")
@@ -503,14 +539,7 @@ def phase_environment() -> str:
 def tensor_core_instructions(lib: str) -> dict[str, dict[str, int]]:
     """Tensor-core instructions (HMMA, HGMMA, IMMA) by kind in the SASS of
     each kernel of a built library (utils/sass.py)."""
-    counts = {}
-    for kernel, ins in sass.kernels(sass.dump(_build.library_path(lib))).items():
-        counts[kernel] = dict.fromkeys(("HMMA", "HGMMA", "IMMA"), 0)
-        for text in ins:
-            op = re.search(r"\b(HMMA|HGMMA|IMMA)\.", text)
-            if op:
-                counts[kernel][op.group(1)] += 1
-    return counts
+    return sass.tensor_core_counts(sass.dump(_build.library_path(lib)))
 
 
 def _gate(name: str, ref, out, atol: float, rtol: float = 1e-2) -> float:
@@ -557,6 +586,7 @@ def grad_gate(name: str, ref, out, dtype: torch.dtype) -> float:
 
 
 def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
+    clock = PhaseClock()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"[kernels] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
@@ -633,22 +663,21 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
     k2_bound = bound(roofline.decode_roofline(b, hq, hkv, d, lengths,
                                               cache_dtype=torch.bfloat16))
     print(f"[kernels] K2 bound {k2_bound}, SDPA with a length mask {k2_lib:.4f} ms")
+    clock.done("2 K1 and K2")
     backward, k1_bwd_err = backward_kernels(gen)
     sdpa_forward_kernels(gen)
+    clock.done("2 backward")
     timed = {
         "flash_fwd": dict(max_abs_err=max(k1_err, k1_d128_err, k1_bwd_err), **k1_row),
         "decode": dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain,
                        library_ms=k2_lib, **k2_bound),
     }
     timed.update(backward)
-    timed.update(quantized_decode_kernels(gen))
-    timed.update(paged_decode_kernel(gen))
-    timed.update(quant_matmul_kernels(gen))
-    timed.update(window_kernels(gen))
-    timed.update(masked_kernels(gen))
-    timed.update(softcap_kernels(gen))
-    timed.update(alibi_kernels(gen))
-    timed.update(dynoff_kernels(gen))
+    for part in (quantized_decode_kernels, paged_decode_kernel, quant_matmul_kernels,
+                 window_kernels, masked_kernels, softcap_kernels, alibi_kernels,
+                 dynoff_kernels):
+        timed.update(part(gen))
+        clock.done(f"2 {part.__name__}")
     return timed
 
 
@@ -660,11 +689,12 @@ K1_SHAPES = {"prefill": (1, 32, 4, 256, 64), "D=128 headline": (4, 8, 8, 16384, 
 
 def sdpa_forward_kernels(gen: torch.Generator) -> None:
     """Names the kernels SDPA's forward runs at each of K1's timed shapes:
-    one torch.profiler session over the three calls (a second session in
-    one process may record no device event), device events in launch order;
-    fails if a call shows no compute kernel."""
+    one torch.profiler session (a second session in one process may record
+    no device event) over the three calls twice, device events in launch
+    order from the second pass on (the first device activities of a session
+    may go unrecorded); fails if a call shows no compute kernel."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     inputs = {tag: [randn((b, h, s, d), gen) for h in (hq, hkv, hkv)]
               for tag, (b, hq, hkv, s, d) in K1_SHAPES.items()}
@@ -675,10 +705,16 @@ def sdpa_forward_kernels(gen: torch.Generator) -> None:
         torch.cuda.synchronize()
 
     run()
+    mark = "sdpa forward, second pass"
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
+        with record_function(mark):
+            run()
+    start = min(e.time_range.start for e in prof.events()
+                if e.name == mark and e.device_type == DeviceType.CPU)
     events = sorted((e for e in prof.events()
-                     if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
+                     if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                     and e.time_range.start >= start),
                     key=lambda e: e.time_range.start)
     names = [e.name for e in events]
     print(f"[kernels] SDPA forward kernels at K1's shapes ({', '.join(K1_SHAPES)}, in "
@@ -1129,6 +1165,15 @@ def k1_case(tag: str, q, k, v, causal: bool, err: float, f32: bool = False, **kw
     return max(err, e)
 
 
+def library_text(ms: float | None, measured: bool = True) -> str:
+    """A library time as printed: its milliseconds, "not run" where it did
+    not compile, or "not measured" for a case that gives no JSON row (its
+    compilation would cost the run seconds for a number no row reads)."""
+    if not measured:
+        return "not measured (no row)"
+    return f"{ms:.4f} ms" if ms else "not run"
+
+
 def flex_mod_ms(q, k, v, window: int | None, segment_ids=None, do=None,
                 cap: float = CAP, slopes: torch.Tensor | None = None) -> float | None:
     """torch.nn.attention.flex_attention with a soft-cap score_mod, or with
@@ -1226,7 +1271,7 @@ def softcap_k1(gen: torch.Generator) -> dict:
             mask = window_mask(s, s, w)
             lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, enable_gqa=True), warmup=1, iters=3, reps=3)
-        flex = flex_mod_ms(q, k, v, w)
+        flex = flex_mod_ms(q, k, v, w) if layer == "global" else None  # the row's layer
         report = roofline.attention_fwd_roofline(b, hq, hkv, s, s, d, True, need_lse=False,
                                                  window=w)
         lim = bound(report)
@@ -1234,7 +1279,7 @@ def softcap_k1(gen: torch.Generator) -> dict:
               f"Hkv={hkv} S={s} D={d} without LSE: kernel {ms:.4f} ms "
               f"({report.flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s), bound {lim['bound_ms']:.5f}"
               f" ms by {lim['bound_by']}, plain {plain:.4f} ms, library: flex_attention with "
-              f"a soft-cap score_mod " + (f"{flex:.4f} ms" if flex else "not run")
+              f"a soft-cap score_mod " + library_text(flex, layer == "global")
               + f" (extra, another function: SDPA without the cap"
               f"{' with a boolean window mask' if w else ''} {lib:.4f} ms)")
         rows[layer] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=flex, **lim)
@@ -1314,13 +1359,13 @@ def softcap_k2(gen: torch.Generator) -> dict[str, dict]:
         # The library call computes the same function: flex_attention with
         # the cap's score_mod (every length is GK2_SMAX: the causal mask of
         # the last position keeps them all).
-        flex = flex_mod_ms(qd[:, :, None], full.k, full.v, w)
+        flex = flex_mod_ms(qd[:, :, None], full.k, full.v, w) if layer == "global" else None
         print(f"[kernels] K2 bf16 soft-cap {CAP:g} {layer} layer (window={w}) B={GK2_B} "
               f"Hq={GK2_HQ} Hkv={GK2_HKV} D={GK2_D} T=1, every length {GK2_SMAX}: kernel "
               f"{ms:.4f} ms, paged {paged_ms:.4f} ms; plain {plain:.4f} ms, paged plain "
               f"{paged_plain:.4f} ms; bound {lim['bound_ms']:.5f} ms by {lim['bound_by']}; "
               f"library: flex_attention with a soft-cap score_mod "
-              + (f"{flex:.4f} ms" if flex else "not run")
+              + library_text(flex, layer == "global")
               + f" (extra, another function: SDPA without the cap"
               f"{' with a boolean window mask' if w else ''} {lib:.4f} ms)")
         rows[layer] = {
@@ -1465,15 +1510,15 @@ def alibi_k1(gen: torch.Generator) -> dict:
         torch.cuda.empty_cache()
         plain = event_time_ms(lambda: flash_fwd.flash_attention_forward_reference(
             qq, kk, vv, True, need_lse=False, alibi=True), warmup=1, iters=2)
-        flex = flex_ms(qq, kk, vv, slopes=slopes)
+        row = tag == "LLAMA_8B prefill"
+        flex = flex_ms(qq, kk, vv, slopes=slopes) if row else None
         report = roofline.attention_fwd_roofline(b, hq, hkv, s, s, d, True, need_lse=False)
         lim = bound(report)
         print(f"[kernels] K1 ALiBi {tag} B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal without "
               f"LSE: kernel {ms:.4f} ms ({report.flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; "
               f"without ALiBi {base:.4f} ms, ratio {ms / base:.3f}), bound "
               f"{lim['bound_ms']:.5f} ms by {lim['bound_by']}, plain {plain:.4f} ms, library: "
-              f"flex_attention with an ALiBi score_mod "
-              + (f"{flex:.4f} ms" if flex else "not run"))
+              f"flex_attention with an ALiBi score_mod " + library_text(flex, row))
         rows[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=flex, **lim)
     return rows["LLAMA_8B prefill"]
 
@@ -1577,7 +1622,7 @@ def alibi_k2(gen: torch.Generator) -> dict[str, dict]:
             # The lengths' masked-out rows hold NaN; flex's mask keeps them out.
             k_live = torch.nan_to_num(k)
             v_live = torch.nan_to_num(v)
-            flex = flex_ms(q, k_live, v_live, ends=ends, slopes=slopes)
+            flex = flex_ms(q, k_live, v_live, ends=ends, slopes=slopes) if t == 1 else None
             lim = bound(roofline.decode_roofline(DEC_B, DEC_HQ, DEC_HKV, DEC_D, DEC_LENGTHS,
                                                  t=t, cache_dtype=cache.k.dtype))
             print(f"[kernels] K2 {mode} ALiBi B={DEC_B} Hq={DEC_HQ} Hkv={DEC_HKV} D={DEC_D} "
@@ -1586,7 +1631,7 @@ def alibi_k2(gen: torch.Generator) -> dict[str, dict]:
                   f"{lim['bound_ms']:.5f} ms by {lim['bound_by']}, library: flex_attention "
                   f"with an ALiBi score_mod and the length mask"
                   + (" on the dequantized bf16 cache" if mode == "int8" else "") + " "
-                  + (f"{flex:.4f} ms" if flex else "not run"))
+                  + library_text(flex, t == 1))
             if t == 1:
                 row = "decode_int8_alibi" if mode == "int8" else "decode_alibi"
                 rows[row] = dict(max_abs_err=err[row], ms=ms, plain_ms=plain, library_ms=flex,
@@ -1622,22 +1667,6 @@ def split_cache(cache: KVCache, at: int) -> tuple[KVCache, KVCache]:
     return first, second
 
 
-def lse_merge(parts: list[tuple[torch.Tensor, torch.Tensor]]) -> tuple[torch.Tensor,
-                                                                        torch.Tensor]:
-    """Slices' (O, LSE) merged by the log-sum-exp rule, as a sequence-split
-    decode merges them (the JAX package's parallel/serving.py: the LSEs'
-    maximum, then the weighted sum): (O, LSE); a row no slice saw gets O 0,
-    LSE -inf."""
-    lse = torch.stack([l for _, l in parts])  # [P, B, Hq, T]
-    m = lse.amax(0)
-    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    w = torch.exp(lse - m_safe)  # 0 for a slice that saw no key
-    den = w.sum(0)
-    o = sum(wi[..., None] * oi.float() for wi, (oi, _) in zip(w, parts))
-    o = o / torch.where(den > 0, den, torch.ones_like(den))[..., None]
-    return o, torch.where(den > 0, m_safe + torch.log(den), float("-inf"))
-
-
 def decode_lse(gen: torch.Generator) -> dict:
     """K2's LSE output (decode._decode_attention(with_lse=True)) against
     its plain version, LSE_ATOL: at the decode shape (16 slices merged by
@@ -1647,7 +1676,8 @@ def decode_lse(gen: torch.Generator) -> dict:
     (what the JAX package's parallel/serving.py does across cards), on one
     card: the bf16 decode step's cache cut at position LSE_SPLIT into two
     caches, K2 with the LSE on each (the row's launches, counted alone),
-    merged by the log-sum-exp rule (lse_merge) and held against K2 on the
+    merged by the log-sum-exp rule (parallel/serving.py's lse_merge, the
+    rule its split decode applies over ranks) and held against K2 on the
     whole cache: O under O_ATOL, LSE under LSE_ATOL. Timed at the decode
     shape beside K2 without the LSE, the plain version, the bound (the
     decode step's bytes and the LSE written) and flex_attention returning
@@ -1682,7 +1712,7 @@ def decode_lse(gen: torch.Generator) -> dict:
     parts = [decode._decode_attention(qd, half, with_lse=True) for half in halves]
     torch.cuda.synchronize()
     launches = read_launches()["decode_lse"]
-    o, lse = lse_merge(parts)
+    o, lse = serving.lse_merge(parts)
     o_whole, lse_whole = decode._decode_attention(qd, cache, with_lse=True)
     torch.cuda.synchronize()
     tag = (f"sequence-split decode, bf16 cache cut at position {LSE_SPLIT} (lengths "
@@ -1848,7 +1878,8 @@ def masked_kernels(gen: torch.Generator) -> dict[str, dict]:
     return {name: dict(max_abs_err=err[name], **timed[name]) for name in MASKED_ROWS}
 
 
-def time_masked(kind: str, q, k, v, o, do, lse, kw, layer: str = "") -> dict[str, dict]:
+def time_masked(kind: str, q, k, v, o, do, lse, kw, layer: str = "",
+                library: bool = True) -> dict[str, dict]:
     """Device ms of B3, B4 and B5 (and K1 with the LSE where there are
     segment ids) with the window, segment ids, soft-cap and ALiBi of `kw`,
     beside their plain versions (events around eager calls: a graph of them
@@ -1857,7 +1888,8 @@ def time_masked(kind: str, q, k, v, o, do, lse, kw, layer: str = "") -> dict[str
     ALiBi: timed only, never used by the port), with a cap or ALiBi
     flex_attention's forward or backward with a soft-cap or ALiBi score_mod
     where it compiles (the library time then, as it computes the same
-    function), and each bound from utils/roofline.py, which counts the
+    function; with `library` False, for a case that gives no row, it is not
+    measured), and each bound from utils/roofline.py, which counts the
     pairs the mask leaves visible (a cap or ALiBi adds nothing). Rows are
     named by kernel and `kind` (K1's with ALiBi "flash_fwd_alibi_segments")."""
     b, hq, s_q, d = q.shape
@@ -1875,6 +1907,7 @@ def time_masked(kind: str, q, k, v, o, do, lse, kw, layer: str = "") -> dict[str
               else None)
     flex_kw = dict(window=kw["window"], segment_ids=kw["segment_ids"], cap=cap, slopes=slopes)
     mod = cap or slopes is not None  # flex_attention is the library with a score_mod
+    flex_ms_of = flex_mod_ms if library else (lambda *a, **k: None)
     lib_name = ("flex_attention" + (" with a soft-cap" if cap else " with an ALiBi")
                 + " score_mod")
     out = {}
@@ -1884,7 +1917,7 @@ def time_masked(kind: str, q, k, v, o, do, lse, kw, layer: str = "") -> dict[str
                               warmup=1, iters=2)
         lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True), **few)
-        flex = flex_mod_ms(q, k, v, **flex_kw) if mod else None
+        flex = flex_ms_of(q, k, v, **flex_kw) if mod else None
         report = roofline.attention_fwd_roofline(b, hq, hkv, s_q, s_k, d, kw["is_causal"],
                                                  **roof)
         print(f"[kernels] K1 with segment ids{' and ' + kind if mod else ''} {shape}: kernel "
@@ -1892,7 +1925,7 @@ def time_masked(kind: str, q, k, v, o, do, lse, kw, layer: str = "") -> dict[str
               f"({report.flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s of the visible pairs), bound "
               f"{report.bound_ms:.5f} ms by {report.bound_by}, plain {plain:.4f} ms, SDPA "
               f"forward with a boolean mask{f' (no {kind})' if mod else ''} {lib:.4f} ms"
-              + (f", {lib_name} {f'{flex:.4f} ms' if flex else 'not run'}" if mod else ""))
+              + (f", {lib_name} {library_text(flex, library)}" if mod else ""))
         k1_row = "flash_fwd_alibi_segments" if kind == "alibi" else f"flash_fwd_{kind}"
         out[k1_row] = dict(ms=ms, plain_ms=plain, library_ms=flex or lib, **bound(report))
     opts = {key: kw[key] for key in ("pos_offset", "window", "segment_ids", "alibi",
@@ -1915,7 +1948,7 @@ def time_masked(kind: str, q, k, v, o, do, lse, kw, layer: str = "") -> dict[str
     lib = event_time_ms(lambda: torch.autograd.grad(o_lib, leaves, do, retain_graph=True),
                         warmup=1, iters=3)
     del o_lib, leaves
-    flex = flex_mod_ms(q, k, v, do=do, **flex_kw) if mod else None
+    flex = flex_ms_of(q, k, v, do=do, **flex_kw) if mod else None
     gc.collect()
     torch.cuda.empty_cache()
     for name, ms in (("fused", fused), ("dq", dq_ms), ("dkv", dkv_ms)):
@@ -1925,8 +1958,7 @@ def time_masked(kind: str, q, k, v, o, do, lse, kw, layer: str = "") -> dict[str
               f"({report.flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s of the visible pairs), bound "
               f"{report.bound_ms:.4f} ms by {report.bound_by}, plain backward {plain:.4f} ms, "
               f"SDPA backward with a boolean mask{f' (no {kind})' if mod else ''} {lib:.4f} ms"
-              + (f", {lib_name} backward {f'{flex:.4f} ms' if flex else 'not run'}" if mod
-                 else ""))
+              + (f", {lib_name} backward {library_text(flex, library)}" if mod else ""))
         row = {"fused": "flash_bwd_fused", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}[name]
         out[f"{row}_{kind}"] = dict(ms=ms, plain_ms=plain, library_ms=flex or lib,
                                     **bound(report))
@@ -1981,7 +2013,8 @@ def softcap_backward_kernels(gen: torch.Generator) -> dict[str, dict]:
         print(f"[kernels] split backward, GEMMA2_9B packed training row, {layer} layer: two "
               "runs bitwise equal (torch.equal on dQ, dK, dV)")
         del first, second
-        timed[layer] = time_masked("softcap", *row, layer=f"{layer} layer ")
+        timed[layer] = time_masked("softcap", *row, layer=f"{layer} layer ",
+                                   library=layer == "global")  # the rows are the global layer's
         del row, q, k, v, o, do, lse, kw
         gc.collect()
         torch.cuda.empty_cache()
@@ -5345,18 +5378,17 @@ def cp_rank(rank: int, world: int, store: str, out: str) -> None:
     torch.distributed.destroy_process_group()
 
 
-def phase_context_parallel() -> dict[str, int]:
-    """Phase 20 (the comment above): spawns CP_WORLD ranks (cp_rank) and
-    joins them within CP_JOIN_S seconds; a rank that fails or hangs fails
-    the phase, and none outlives it. Returns the offset kernels' launches
-    on (a)'s zigzag window + ALiBi path, summed over the ranks."""
+def spawn_ranks(target, world: int, tag: str) -> list:
+    """Runs target(rank, world, store, out) in `world` processes started
+    with spawn (CUDA cannot be forked) after phase 1's build, joined within
+    CP_JOIN_S seconds; a rank that fails or hangs fails the phase, and none
+    outlives it. Returns what each rank saved as out/rank<r>.pt."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
         store = os.path.join(tmp, "store")
-        procs = [ctx.Process(target=cp_rank, args=(r, CP_WORLD, store, tmp))
-                 for r in range(CP_WORLD)]
+        procs = [ctx.Process(target=target, args=(r, world, store, tmp)) for r in range(world)]
         for p in procs:
             p.start()
         deadline = time.monotonic() + CP_JOIN_S
@@ -5374,13 +5406,531 @@ def phase_context_parallel() -> dict[str, int]:
                     p.kill()
                     p.join()
         codes = [p.exitcode for p in procs]
-        check(codes == [0] * CP_WORLD, f"[cp] the ranks exited with {codes} (a rank failed, "
-              f"or passed {CP_JOIN_S} s)")
-        launches = dict.fromkeys(DYNOFF_ROWS, 0)
-        for r in range(CP_WORLD):
-            add_launches(launches, torch.load(os.path.join(tmp, f"rank{r}.pt")))
+        check(codes == [0] * world, f"{tag} the ranks exited with {codes} (a rank failed, or "
+              f"passed {CP_JOIN_S} s)")
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(world)]
+
+
+def phase_context_parallel() -> dict[str, int]:
+    """Phase 20 (the comment above): CP_WORLD ranks of cp_rank
+    (spawn_ranks). Returns the offset kernels' launches on (a)'s zigzag
+    window + ALiBi path, summed over the ranks."""
+    launches = dict.fromkeys(DYNOFF_ROWS, 0)
+    for got in spawn_ranks(cp_rank, CP_WORLD, "[cp]"):
+        add_launches(launches, got)
     print(f"[cp] the offset's kernels on (a)'s zigzag window + ALiBi path, both ranks: "
           f"{launches}")
+    return launches
+
+
+# Phase 21: tensor, pipeline and expert parallelism, sequence- and
+# heads-split decode, and recovery (phase_parallel). Two ranks share cuda:0
+# over gloo-host, as phase 20's do.
+PAR_WORLD = 2
+PAR_TRAIN = (4, 2048)  # LLAMA_1B training: B, S
+PAR_STEPS = 3
+PAR_MICROBATCHES = 4  # of the pipeline's B 4: 1 row each
+PAR_DEC = (4, 32, 8, 32768, 128)  # LLAMA31_8B's decode attention: B, Hq, Hkv, Smax, D
+PAR_DEC_LENGTHS = [32768, 24000, 17000, 9000]  # the last ends in rank 0's half (16,384)
+PAR_MOE_T = 2000  # the FFN alone: tokens (1,000 a rank under the a2a dispatch)
+PAR_MOE_CF = 8.0  # capacity factor of the FFN's a2a dispatch (TINY_MOE's): no pair dropped
+PAR_MOE_LAYERS = 2  # Qwen3-30B-A3B's widths in float32, depth cut to 2
+# The model's a2a capacity factor: E / k makes a queue as long as a rank's
+# tokens, so no pick is dropped whatever the routing (at 8, layer 1 of the
+# random model sends more than a queue's 1,024 slots to one expert).
+PAR_MOE_MODEL_CF = QWEN3_30B_A3B_JSON["num_experts"] / QWEN3_30B_A3B_JSON["num_experts_per_tok"]
+PAR_MOE_S = 2048
+PAR_RECOVER_LAYERS = 2  # LLAMA_1B's widths for resilient_train
+PAR_RECOVER_STEPS = 6
+PAR_RECOVER_AT = 3  # the step whose loss is replaced by NaN, once
+PAR_MOE_ULPS = 2  # the FFN's gate: bf16 steps of the largest output
+
+
+def par_sub(log: str, what: str, t0: float) -> None:
+    torch.cuda.synchronize()
+    print(f"{log} {what}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def par_train(rank: int, ckpt: str) -> dict[str, int]:
+    """Phase 21 (a) in rank `rank`: LLAMA_1B at full width and depth, B 4,
+    S 2048, bf16, on the same tokens and weights: the collective probe;
+    PAR_STEPS steps of train.train under {"model": 2} (the rank's
+    shard_params shard, the fused backward), then save_checkpoint under
+    the mesh to `ckpt`; PAR_STEPS AdamW steps (train.make_optimizer)
+    through pipeline_loss_fn under {"pp": 2} (11 layers a stage,
+    PAR_MICROBATCHES microbatches, the split backward selected by
+    FLASHATTN_BWD_IMPL). Rank 0 holds both against the same steps in one
+    process (phase 7's gates: each step's loss and grad norm, the last
+    step's gradients' cosines; finite losses, the last below the first)
+    and restores the model run's checkpoint into one process. Returns the
+    runs' launches."""
+    import itertools
+
+    from flashattn_tpu_torch import parallel
+    from flashattn_tpu_torch.parallel.mesh import full_tensor
+    from flashattn_tpu_torch.utils.failure import probe_collectives
+
+    cfg = LLAMA_1B
+    b, s = PAR_TRAIN
+    log = f"[par-train] rank {rank}"
+    tokens = torch.randint(0, cfg.vocab_size, (b, s + 1),
+                           generator=torch.Generator(device="cuda").manual_seed(SEED + 23),
+                           device="cuda")
+
+    def model():
+        return init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED + 24),
+                           device="cuda")
+
+    tp = parallel.make_mesh({"model": PAR_WORLD})
+    pp = parallel.make_mesh({"pp": PAR_WORLD})
+    t0 = time.perf_counter()
+    check(probe_collectives(tp, timeout_s=60.0), f"{log}: the collective probe failed")
+    print(f"{log}: probe_collectives over {PAR_WORLD} ranks healthy in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    whole = model()
+    total: dict[str, int] = {}
+    shape = f"LLAMA_1B {cfg.num_layers} layers, B={b} S={s} bf16"
+
+    shard = llama.shard_params(whole, tp)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, hist_tp = train.train(shard, itertools.repeat(tokens), TRAIN_TC, steps=PAR_STEPS,
+                                 log_every=1, mesh=tp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {n: c for n, c in read_launches().items() if c}
+    t0 = time.perf_counter()
+    train.save_checkpoint(ckpt, state, mesh=tp)
+    save_s = time.perf_counter() - t0
+    want = cfg.num_layers * PAR_STEPS
+    check(got.get("flash_fwd") == want and got.get("flash_bwd_fused") == want,
+          f"{log}: the model axis's steps launched {got}, want {want} K1 and B3 launches")
+    add_launches(total, got)
+    print(f"{log}: {shape} under model 2 (Hq {cfg.num_heads // PAR_WORLD}, Hkv "
+          f"{cfg.num_kv_heads // PAR_WORLD}, F {cfg.intermediate_size // PAR_WORLD}, vocab "
+          f"{cfg.vocab_size // PAR_WORLD} a rank), train.train {PAR_STEPS} AdamW steps in "
+          f"{wall:.1f} s, save_checkpoint (the whole model and its AdamW state) in {save_s:.1f} "
+          f"s wall (two ranks on one card over gloo-host: not a speed): "
+          f"losses {[h['loss'] for h in hist_tp]}, grad norms "
+          f"{[h['grad_norm'] for h in hist_tp]}, launches {got}", flush=True)
+    specs = shard.shardings()
+    grads_tp = {n: full_tensor(p.grad, specs[n], tp) for n, p in shard.named_parameters()}
+    params_tp = {n: full_tensor(p.detach(), specs[n], tp) for n, p in shard.named_parameters()}
+    del state, shard
+
+    pm = llama.stack_pipeline_params(whole, PAR_WORLD, pp)
+    del whole
+    opt, sched = train.make_optimizer(pm, TRAIN_TC)
+    hist_pp = []
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with profile_train.backward_impl("split"):
+        for step in range(1, PAR_STEPS + 1):
+            opt.zero_grad(set_to_none=True)
+            loss = llama.pipeline_loss_fn(pm, tokens, pp, PAR_MICROBATCHES)
+            loss.backward()
+            llama.reduce_gradients(pm, pp)
+            gnorm = llama.global_grad_norm(pm, pp)
+            train.clip_by_global_norm_([p.grad for p in pm.parameters()], gnorm,
+                                       TRAIN_TC.grad_clip)
+            opt.step()
+            sched.step()
+            hist_pp.append({"step": step, "loss": float(loss.detach()),
+                            "grad_norm": float(gnorm)})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {n: c for n, c in read_launches().items() if c}
+    ticks = PAR_MICROBATCHES + PAR_WORLD - 1
+    want = ticks * pm.layers_per_stage * PAR_STEPS  # every tick runs the stage, and its backward
+    check(got.get("flash_fwd") == want and got.get("flash_bwd_dq") == want
+          and got.get("flash_bwd_dkv") == want and not got.get("flash_bwd_fused"),
+          f"{log}: the pipeline's steps launched {got}, want {want} K1, B4 and B5 launches")
+    add_launches(total, got)
+    print(f"{log}: {shape} under pp 2 ({pm.layers_per_stage} layers a stage, "
+          f"{PAR_MICROBATCHES} microbatches, {ticks} ticks a step), {PAR_STEPS} AdamW steps in "
+          f"{wall:.1f} s wall (not a speed): losses {[h['loss'] for h in hist_pp]}, grad norms "
+          f"{[h['grad_norm'] for h in hist_pp]}, launches {got}", flush=True)
+    k = pm.layers_per_stage
+    grads_pp = {}
+    for n, p in pm.named_parameters():
+        if n.startswith("stages."):
+            g = full_tensor(p.grad, ("pp",) + (None,) * (p.dim() - 1), pp)
+            for st in range(PAR_WORLD):
+                for i in range(k):
+                    grads_pp[f"layers.{st * k + i}.{n[len('stages.'):]}"] = g[st, i]
+        else:
+            grads_pp[n] = p.grad
+    del pm, opt, sched
+    for hist in (hist_tp, hist_pp):
+        losses = [h["loss"] for h in hist]
+        check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+              f"{log}: losses {losses}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    if rank == 0:
+        ref_model = model()
+        ref_state, ref = train.train(ref_model, itertools.repeat(tokens), TRAIN_TC,
+                                     steps=PAR_STEPS, log_every=1)
+        ref_grads = {n: p.grad for n, p in ref_model.named_parameters()}
+        for tag, hist, grads in (("model 2", hist_tp, grads_tp), ("pp 2", hist_pp, grads_pp)):
+            for h, r in zip(hist, ref):
+                dl = abs(h["loss"] - r["loss"])
+                dn = abs(h["grad_norm"] - r["grad_norm"]) / r["grad_norm"]
+                print(f"[par-train] {tag} step {h['step']}: loss {h['loss']:.6f} vs one process "
+                      f"{r['loss']:.6f} (|d| {dl:.6f} <= {LOSS_ATOL}), grad_norm "
+                      f"{h['grad_norm']:.6f} vs {r['grad_norm']:.6f} (rel {dn:.6f} <= "
+                      f"{GRAD_NORM_REL})", flush=True)
+                check(dl <= LOSS_ATOL and dn <= GRAD_NORM_REL,
+                      f"[par-train] {tag} step {h['step']}: the mesh and one process disagree")
+            check(set(grads) == set(ref_grads), f"[par-train] {tag}: gradients of other names")
+            cos = {n: float(F.cosine_similarity(g.float().flatten(),
+                                                ref_grads[n].float().flatten(), dim=0))
+                   for n, g in grads.items()}
+            worst = min(cos, key=cos.get)
+            print(f"[par-train] {tag} step {PAR_STEPS}'s gradients (gathered) vs one process: "
+                  f"cosine min {cos[worst]:.6f} ({worst}) over {len(cos)} parameters "
+                  f"(> {GRAD_COS})", flush=True)
+            check(cos[worst] > GRAD_COS, f"[par-train] {tag}: the gradients disagree with one "
+                  "process's")
+        del ref_state, ref_model, ref_grads, grads_tp, grads_pp
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        one = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED + 25),
+                          device="cuda")
+        restored = train.restore_checkpoint(ckpt, train.init_train_state(one, TRAIN_TC))
+        same = all(torch.equal(p.detach(), params_tp[n]) for n, p in one.named_parameters())
+        moments = restored["optimizer"].state_dict()["state"]
+        check(restored["step"] == PAR_STEPS and same
+              and all(m["exp_avg"].shape == p.shape
+                      for m, p in zip(moments.values(), one.parameters())),
+              "[par-train] the model axis's checkpoint does not restore into one process")
+        print(f"[par-train] the model 2 run's checkpoint (the whole model and its AdamW state, "
+              f"gathered, written by rank 0) restored into one process in "
+              f"{time.perf_counter() - t0:.1f} s: step {restored['step']}, every parameter "
+              f"equal to the ranks' gathered ones", flush=True)
+        del restored, one
+    del params_tp
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    return total
+
+
+def par_decode(rank: int) -> dict[str, int]:
+    """Phase 21 (b) in rank `rank`: LLAMA31_8B's decode attention (PAR_DEC)
+    on a cache of PAR_DEC positions with PAR_DEC_LENGTHS. bf16, int8 and fp8
+    caches through sharded_decode_attention over sp 2 (16,384 positions a
+    rank; rank 1 holds none of the last sequence), held by rank 0 against
+    one process's K2 over the whole cache (O_ATOL, QUANT_DECODE_TOL); then
+    the bf16 cache dense and as a scrambled pool of PAGE-token pages
+    (paged_copy) split over heads under {"model": 2}, each rank's block gathered
+    and held by rank 0 bit for bit against one process's K2 on the same
+    heads, and against K2 over every head at O_ATOL (not bit for bit: K2's
+    split count follows the kv heads, _num_splits). Returns the launches
+    of the split calls."""
+    from flashattn_tpu_torch import parallel
+    from flashattn_tpu_torch.parallel import serving
+    from flashattn_tpu_torch.parallel.mesh import full_tensor, local_block
+
+    b, hq, hkv, smax, d = PAR_DEC
+    log = f"[par-decode] rank {rank}"
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    kn, vn = randn((b, hkv, smax, d), gen), randn((b, hkv, smax, d), gen)
+    q = randn((b, hq, d), gen)
+    lengths = torch.tensor(PAR_DEC_LENGTHS, dtype=torch.int32, device="cuda")
+    sp = parallel.make_mesh({"sp": PAR_WORLD})
+    tp = parallel.make_mesh({"model": PAR_WORLD})
+    total: dict[str, int] = {}
+    shape = f"B={b} Hq={hq} Hkv={hkv} D={d} Smax={smax} lengths {PAR_DEC_LENGTHS}"
+    local = serving.local_cache_lengths(lengths, PAR_WORLD, smax // PAR_WORLD).tolist()
+    bf16_cache = None
+    for quant in (None, "int8", "fp8"):
+        cache = kvcache.init_cache(b, hkv, smax, d, quant=quant)
+        kvcache.update_cache(cache, kn, vn, assume_fits=True)
+        cache.length.copy_(lengths)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        o = serving.sharded_decode_attention(q, cache, sp)
+        torch.cuda.synchronize()
+        got = {n: c for n, c in read_launches().items() if c}
+        mode = quant or "bf16"
+        want = {"decode_lse": 1, {None: "decode", "int8": "decode_int8",
+                                  "fp8": "decode_fp8"}[quant]: 1}
+        check(got == want, f"{log} {mode}: the split decode launched {got}, want {want}")
+        add_launches(total, got)
+        print(f"{log} {mode} cache {shape}, split over sp 2 (local lengths {local}): "
+              f"sharded_decode_attention in {(time.perf_counter() - t0) * 1e3:.1f} ms wall "
+              f"(not a speed), launches {got}", flush=True)
+        if rank == 0:
+            whole = decode.decode_attention(q, cache)
+            tol = dict(atol=O_ATOL) if quant is None else QUANT_DECODE_TOL
+            _gate(f"[par-decode] {mode} cache split over sp 2, merged by the LSE rule, against "
+                  f"one process's K2 over the whole cache", whole, o, **tol)
+        if quant is None:
+            bf16_cache = cache
+        else:
+            del cache
+    pool = paged_copy(bf16_cache, gen)
+    for name, c, call, paged_ in (
+            ("dense", bf16_cache, decode.decode_attention, False),
+            ("paged", pool, paged.paged_decode_attention, True)):
+        part = serving.local_cache(c, serving.head_specs("model", paged_), tp)
+        q_l = local_block(q, (None, "model"), tp).contiguous()
+        torch.cuda.synchronize()
+        reset_launches()
+        o_l = call(q_l, part)
+        torch.cuda.synchronize()
+        got = {n: v for n, v in read_launches().items() if v}
+        key = "paged_decode" if paged_ else "decode"
+        check(got == {key: 1}, f"{log} {name} heads split: launched {got}")
+        add_launches(total, got)
+        o = full_tensor(o_l, (None, "model"), tp)
+        print(f"{log} bf16 {name} cache split over model 2 ({hkv // PAR_WORLD} kv heads a "
+              f"rank): launches {got}", flush=True)
+        if rank == 0:
+            h = hq // PAR_WORLD
+            for r in range(PAR_WORLD):
+                ref = call(q[:, r * h:(r + 1) * h].contiguous(), serving.local_cache(
+                    c, serving.head_specs("model", paged_), _MeshAt(tp, r)))
+                check(torch.equal(o[:, r * h:(r + 1) * h], ref),
+                      f"[par-decode] {name}: rank {r}'s heads differ from one process's K2 on them")
+            _gate(f"[par-decode] bf16 {name} cache split over heads against one process's K2 "
+                  f"over every head", call(q, c), o, O_ATOL)
+            print(f"[par-decode] bf16 {name} cache split over model 2: each rank's heads "
+                  f"torch.equal to one process's K2 on the same heads", flush=True)
+    del bf16_cache, pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    return total
+
+
+class _MeshAt:
+    """A mesh's sizes read at another rank's coordinates along one axis
+    (to cut that rank's block in this process)."""
+
+    def __init__(self, mesh, index: int):
+        self.mesh, self.at = mesh, index
+
+    def size(self, axis: str) -> int:
+        return self.mesh.size(axis)
+
+    def index(self, axis: str) -> int:
+        return self.at
+
+
+def par_experts(rank: int) -> dict[str, int]:
+    """Phase 21 (c) in rank `rank`: Qwen3-30B-A3B's MoE FFN at layer 0's
+    widths (128 experts, top 8, H 2048, I 768), bf16, T PAR_MOE_T tokens
+    over ep 2: moe_ffn (the rank's 64 experts over every token) and
+    moe_ffn_a2a (1,000 tokens a rank, capacity factor PAR_MOE_CF) against
+    moe_ffn_grouped in one process on rank 0: the same picks, the outputs
+    within PAR_MOE_ULPS bf16 steps of the largest output (the experts'
+    float32 sums in another order, rounded to bf16), the a2a's dropped
+    pairs counted; then the model's widths cut to PAR_MOE_LAYERS layers in
+    float32, B 1, S PAR_MOE_S: forward under {"ep": 2} (the a2a dispatch at
+    PAR_MOE_MODEL_CF, no pick dropped) against one process under the
+    logits rule, free-running (phase 16's float32 run). Returns the
+    forward's launches."""
+    from flashattn_tpu_torch import parallel
+    from flashattn_tpu_torch.parallel.collectives import gather_from_group
+    from flashattn_tpu_torch.parallel.mesh import local_block
+
+    log = f"[par-moe] rank {rank}"
+    ep = parallel.make_mesh({"ep": PAR_WORLD})
+    group = ep.group("ep")
+    cfg = moe_hf_config(QWEN3_30B_A3B_JSON)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 27)
+    params = moe.init_moe_params(gen, cfg.hidden_size, cfg.intermediate_size, cfg.num_experts,
+                                 torch.bfloat16)
+    x = randn((PAR_MOE_T, cfg.hidden_size), gen)
+    k = cfg.top_k_experts
+    local = {n: (v if n == "router" else local_block(v, ("ep", None, None), ep).contiguous())
+             for n, v in params.items()}
+    x_l = local_block(x, ("ep",), ep).contiguous()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        dense = moe.moe_ffn(x, local, k, group, norm_topk=cfg.moe_norm_topk)
+        par_sub(log, f"moe_ffn (masked-dense, {cfg.num_experts // PAR_WORLD} experts a rank "
+                f"over all {PAR_MOE_T} tokens) wall, not a speed", t0)
+        t0 = time.perf_counter()
+        a2a_l = moe.moe_ffn_a2a(x_l, local, k, group, capacity_factor=PAR_MOE_CF,
+                                norm_topk=cfg.moe_norm_topk)
+        par_sub(log, f"moe_ffn_a2a ({PAR_MOE_T // PAR_WORLD} tokens a rank) wall, not a speed",
+                t0)
+        a2a = gather_from_group(a2a_l, group, 0)
+        ids_l, _ = moe.router_gates(x_l, params["router"], k, cfg.moe_norm_topk)
+        cap = moe.default_capacity(PAR_MOE_CF, k, x_l.shape[0], cfg.num_experts)
+        dropped = int((~moe.capacity_slots(ids_l, cfg.num_experts, cap)[1]).sum())
+        print(f"{log}: the a2a dispatch's capacity {cap} a (expert, rank) queue, {dropped} of "
+              f"{ids_l.numel()} (token, pick) pairs dropped", flush=True)
+        check(dropped == 0, f"{log}: the a2a dispatch dropped {dropped} pairs")
+        if rank == 0:
+            ref = moe.moe_ffn_grouped(x, params, k, norm_topk=cfg.moe_norm_topk)
+            # the a2a routes rank 0's 1,000 tokens on their own (another product's rounding):
+            # a pick that differs must be a near-tie the router logits explain (pick_margins)
+            half = slice(0, PAR_MOE_T // PAR_WORLD)
+            ids, _ = moe.router_gates(x, params["router"], k, cfg.moe_norm_topk)
+            moved = int((torch.sort(ids[half], -1).values
+                         != torch.sort(ids_l, -1).values).any(-1).sum())
+            ratio, pairs = pick_margins(torch.matmul(x_l.float(), params["router"].float()),
+                                        torch.matmul(x.float(), params["router"].float())[half],
+                                        ids_l, ids[half])
+            print(f"[par-moe] rank 0's tokens: picks of the a2a's router against one "
+                  f"process's: {moved} of {PAR_MOE_T // PAR_WORLD} tokens differ ({int(pairs)} "
+                  f"pairs, worst pick_margins ratio {float(ratio):.3f} <= 1); moe_ffn's router "
+                  f"sees every token, as one process's", flush=True)
+            check(float(ratio) <= 1.0, "[par-moe] the a2a's picks differ beyond a near-tie")
+            lim = PAR_MOE_ULPS * 2.0**-7 * float(ref.float().abs().max())
+            for name, out in (("moe_ffn", dense), ("moe_ffn_a2a", a2a)):
+                err = float((out.float() - ref.float()).abs().max())
+                print(f"[par-moe] {name} over ep 2 against moe_ffn_grouped in one process, "
+                      f"T={PAR_MOE_T}: max|d| {err:.6f} (<= {lim:.6f}, {PAR_MOE_ULPS} bf16 steps "
+                      f"of the largest output {float(ref.float().abs().max()):.4f})", flush=True)
+                check(err <= lim, f"[par-moe] {name} disagrees with the grouped dispatch")
+    del params, local, dense, a2a
+    cfg32 = dataclasses.replace(moe_hf_config(QWEN3_30B_A3B_JSON, torch.float32,
+                                              layers=PAR_MOE_LAYERS),
+                                moe_capacity_factor=PAR_MOE_MODEL_CF)
+    whole = init_params(cfg32, torch.Generator(device="cuda").manual_seed(SEED + 28),
+                        device="cuda")
+    shard = llama.shard_params(whole, ep)
+    tokens = torch.randint(0, cfg32.vocab_size, (1, PAR_MOE_S),
+                           generator=torch.Generator(device="cuda").manual_seed(SEED + 29),
+                           device="cuda")
+    drops = []
+    slots = moe.capacity_slots
+
+    def counted(ids, e, capacity):
+        dest, keep = slots(ids, e, capacity)
+        drops.append(int((~keep).sum()))
+        return dest, keep
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    moe.capacity_slots = counted
+    try:
+        with torch.no_grad():
+            logits = llama.forward(shard, tokens, mesh=ep)
+    finally:
+        moe.capacity_slots = slots
+    torch.cuda.synchronize()
+    got = {n: c for n, c in read_launches().items() if c}
+    check(got == {"flash_fwd": cfg32.num_layers}, f"{log}: the ep forward launched {got}")
+    print(f"{log}: Qwen3-30B-A3B widths, {cfg32.num_layers} layers, float32, B=1 S={PAR_MOE_S}, "
+          f"forward under ep 2 ({cfg32.num_experts // PAR_WORLD} experts a rank, the a2a "
+          f"dispatch, capacity factor {PAR_MOE_MODEL_CF:g}: dropped pairs by layer {drops}) "
+          f"in {time.perf_counter() - t0:.1f} s wall (not a speed), launches {got}", flush=True)
+    check(len(drops) == cfg32.num_layers and not any(drops), f"{log}: the a2a dropped {drops}")
+    if rank == 0:
+        del shard
+        with torch.no_grad():
+            ref = llama.forward(whole, tokens)
+        compare_logits(f"float32, {cfg32.num_layers} layers, forward under ep 2 against one "
+                       "process (free-running routes)", [logits], [ref],
+                       [f"prefill S={PAR_MOE_S}"], model="Qwen3-30B-A3B")
+    del whole, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    return got
+
+
+def par_rank(rank: int, world: int, store: str, out: str) -> None:
+    """One rank of phase 21: joins the gloo group, runs (a), (b) and (c)
+    and writes their launches to `out`/rank<r>.pt. Raises on any failed
+    gate: the process then exits nonzero."""
+    from flashattn_tpu_torch import parallel
+    from flashattn_tpu_torch.parallel.distributed import transport
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parallel.initialize_distributed("gloo", f"file://{store}", world, rank, timeout=CP_GLOO_S)
+    if rank == 0:
+        print(f"[par] {world} ranks on {torch.cuda.get_device_name(0)} (cuda:0, shared), "
+              f"process group gloo, transport of their exchanges: "
+              f"{transport(None, torch.device('cuda'))}", flush=True)
+    total: dict[str, int] = {}
+    for sub, fn in (("(a) training", lambda: par_train(rank, os.path.join(out, "ckpt"))),
+                    ("(b) decode", lambda: par_decode(rank)),
+                    ("(c) experts", lambda: par_experts(rank))):
+        t0 = time.perf_counter()
+        add_launches(total, fn())
+        if rank == 0:
+            print(f"[par] {sub}: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.save(total, os.path.join(out, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def par_recovery() -> dict[str, int]:
+    """Phase 21 (d), in this process: resilient_train on LLAMA_1B's widths
+    cut to PAR_RECOVER_LAYERS layers, B 2, S 2048, PAR_RECOVER_STEPS
+    AdamW steps with a checkpoint every 2, the loss of step
+    PAR_RECOVER_AT replaced by NaN once: exactly one recovery event (kind
+    nonfinite, restored to step 2), the step count reached, finite
+    parameters; the step timer reads each step after its loss is read
+    back."""
+    from flashattn_tpu_torch.utils.failure import StepTimer, resilient_train
+
+    cfg = dataclasses.replace(LLAMA_1B, num_layers=PAR_RECOVER_LAYERS)
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED + 30), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    left = [1]
+
+    def batches():
+        while True:
+            yield torch.randint(0, cfg.vocab_size, (2, 2049), generator=gen, device="cuda")
+
+    def step_fn(state, batch):
+        state, metrics = train.train_step(state, batch)
+        if state["step"] == PAR_RECOVER_AT and left[0]:
+            left[0] -= 1
+            metrics = dict(metrics, loss=torch.full_like(metrics["loss"], float("nan")))
+        return state, metrics
+
+    timer = StepTimer(factor=100.0, calibrate=2, patience=3)
+    reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckpt:
+        state, events = resilient_train(train.init_train_state(model, TRAIN_TC), batches(),
+                                        step_fn, steps=PAR_RECOVER_STEPS, ckpt_dir=ckpt,
+                                        ckpt_every=2, max_recoveries=2, step_timer=timer)
+    torch.cuda.synchronize()
+    got = {n: c for n, c in read_launches().items() if c}
+    print(f"[par-recover] LLAMA_1B widths, {cfg.num_layers} layers, B=2 S=2048: "
+          f"resilient_train {PAR_RECOVER_STEPS} steps with a NaN loss at step "
+          f"{PAR_RECOVER_AT} in {time.perf_counter() - t0:.1f} s: events "
+          f"{[(e.step, e.kind, e.restored_step) for e in events]}, step {state['step']}, "
+          f"launches {got}", flush=True)
+    check(len(events) == 1 and events[0].kind == "nonfinite" and events[0].restored_step == 2
+          and state["step"] == PAR_RECOVER_STEPS
+          and all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+          "[par-recover] resilient_train did not recover once and reach its step count")
+    # every step ran the layers, the failed one and the steps after the restore included
+    n = (PAR_RECOVER_STEPS + 1) * cfg.num_layers
+    check(got.get("flash_fwd") == n, f"[par-recover] launched {got}, want {n} K1 launches")
+    del state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
+def phase_parallel() -> dict[str, int]:
+    """Phase 21 (the comment above): PAR_WORLD ranks of par_rank
+    (spawn_ranks), then (d) in this process. Returns the launches of every
+    path, summed over the ranks."""
+    launches: dict[str, int] = {}
+    for got in spawn_ranks(par_rank, PAR_WORLD, "[par]"):
+        add_launches(launches, got)
+    t0 = time.perf_counter()
+    add_launches(launches, par_recovery())
+    print(f"[par] (d) recovery: {time.perf_counter() - t0:.1f} s")
+    print(f"[par] phase 21's launches, both ranks and (d): {launches}")
     return launches
 
 
@@ -5463,6 +6013,8 @@ def run() -> None:
     launches.update(phase_context_parallel())
     clock.done("20 context parallelism on two ranks")
     launches["decode_lse"] = timed["decode_lse"].pop("launches")
+    add_launches(launches, phase_parallel())
+    clock.done("21 tensor, pipeline and expert parallelism on two ranks, split decode, recovery")
     decode_src = ("flashattn_tpu_torch/csrc/decode.cu", "flashattn_tpu/ops/decode.py:351")
     qmm_src = "flashattn_tpu_torch/csrc/quant_matmul.cu"
     sources = {
@@ -5480,8 +6032,8 @@ def run() -> None:
                          "flashattn_tpu/ops/paged.py:378"),
         "flash_fwd_softcap": ("flashattn_tpu_torch/csrc/flash_fwd.cu",
                               "flashattn_tpu/ops/flash_fwd.py:469"),
-        "decode_softcap": decode_src,
-        "paged_decode_softcap": ("flashattn_tpu_torch/csrc/decode.cu",
+        "decode_softcap": ("flashattn_tpu_torch/csrc/decode_d256.cu", decode_src[1]),
+        "paged_decode_softcap": ("flashattn_tpu_torch/csrc/decode_d256.cu",
                                  "flashattn_tpu/ops/paged.py:378"),
         "flash_fwd_alibi": ("flashattn_tpu_torch/csrc/flash_fwd.cu",
                             "flashattn_tpu/ops/flash_fwd.py:469"),

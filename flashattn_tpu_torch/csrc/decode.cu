@@ -1,13 +1,14 @@
 // K2, flash-decode (csrc/decode.cuh holds the kernels and their design),
 // replacing the TPU kernels flashattn_tpu/ops/decode.py::_decode_kernel and
 // flashattn_tpu/ops/paged.py::_paged_decode: the library of every
-// instantiation without ALiBi, bf16/f32, int8 and fp8 caches, dense or
-// paged, with or without the window, sinks and the soft-cap, and the
-// optional LSE output. decode_alibi.cu builds the ALiBi instantiations into
-// a library of their own, compiled beside this one.
+// instantiation at D 64 and 128 without ALiBi, bf16/f32, int8 and fp8
+// caches, dense or paged, with or without the window, sinks and the
+// soft-cap, and the optional LSE output. decode_d256.cu builds those of D
+// 256, decode_alibi.cu and decode_alibi_d256.cu the ALiBi instantiations,
+// each into a library of its own, compiled beside this one.
 #include "decode.cuh"
 
-// decode_launch_impl<false>'s contract (decode.cuh); slopes must be null.
+// decode_launch_impl<false, false>'s contract (decode.cuh); slopes must be null.
 extern "C" int decode_launch(const void* q, const void* k, const void* v, const void* k_scale,
                              const void* v_scale, const void* length, const void* table,
                              const void* slopes, void* part_m, void* part_l, void* part_acc,
@@ -15,8 +16,8 @@ extern "C" int decode_launch(const void* q, const void* k, const void* v, const 
                              int dtype, int kv_dtype, int max_pages, int page, int num_pages,
                              int split_len, int num_splits, int window, int sink,
                              float scale_log2, float inv_cap, float cap_log2, void* stream) {
-  return decode_launch_impl<false>(q, k, v, k_scale, v_scale, length, table, slopes, part_m,
-                                   part_l, part_acc, o, lse, B, Hq, Hkv, Tc, Smax, D, dtype,
-                                   kv_dtype, max_pages, page, num_pages, split_len, num_splits,
-                                   window, sink, scale_log2, inv_cap, cap_log2, stream);
+  return decode_launch_impl<false, false>(
+      q, k, v, k_scale, v_scale, length, table, slopes, part_m, part_l, part_acc, o, lse, B, Hq,
+      Hkv, Tc, Smax, D, dtype, kv_dtype, max_pages, page, num_pages, split_len, num_splits,
+      window, sink, scale_log2, inv_cap, cap_log2, stream);
 }

@@ -1199,7 +1199,11 @@ cudaError_t dispatch_cache(const Args& a, int dtype, int kv_dtype, cudaStream_t 
 // or null (not with a cap); lse [B,Hq,T] float32 or null. Returns the CUDA
 // error code (0 = success). kAlibi: the library of the ALiBi
 // instantiations (decode_alibi.cu), which takes slopes and only slopes.
-template <bool kAlibi>
+// kD256: the library of the D 256 instantiations (decode_d256.cu,
+// decode_alibi_d256.cu), which takes D 256 and only D 256; the others take
+// D 64 and 128. Four libraries, compiled side by side, each a quarter of
+// the instantiations.
+template <bool kAlibi, bool kD256>
 int decode_launch_impl(const void* q, const void* k, const void* v, const void* k_scale,
                        const void* v_scale, const void* length, const void* table,
                        const void* slopes, void* part_m, void* part_l, void* part_acc, void* o,
@@ -1226,18 +1230,21 @@ int decode_launch_impl(const void* q, const void* k, const void* v, const void* 
          static_cast<const float*>(slopes), static_cast<float*>(lse)};
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == fat::kBF16 && D == 64)
-    err = dispatch_cache<bf16, 64, kAlibi>(a, dtype, kv_dtype, s);
-  else if (dtype == fat::kBF16 && D == 128)
-    err = dispatch_cache<bf16, 128, kAlibi>(a, dtype, kv_dtype, s);
-  else if (dtype == fat::kBF16 && D == 256)
-    err = dispatch_cache<bf16, 256, kAlibi>(a, dtype, kv_dtype, s);
-  else if (dtype == fat::kF32 && D == 64)
-    err = dispatch_cache<float, 64, kAlibi>(a, dtype, kv_dtype, s);
-  else if (dtype == fat::kF32 && D == 128)
-    err = dispatch_cache<float, 128, kAlibi>(a, dtype, kv_dtype, s);
-  else if (dtype == fat::kF32 && D == 256)
-    err = dispatch_cache<float, 256, kAlibi>(a, dtype, kv_dtype, s);
+  if constexpr (kD256) {
+    if (dtype == fat::kBF16 && D == 256)
+      err = dispatch_cache<bf16, 256, kAlibi>(a, dtype, kv_dtype, s);
+    else if (dtype == fat::kF32 && D == 256)
+      err = dispatch_cache<float, 256, kAlibi>(a, dtype, kv_dtype, s);
+  } else {
+    if (dtype == fat::kBF16 && D == 64)
+      err = dispatch_cache<bf16, 64, kAlibi>(a, dtype, kv_dtype, s);
+    else if (dtype == fat::kBF16 && D == 128)
+      err = dispatch_cache<bf16, 128, kAlibi>(a, dtype, kv_dtype, s);
+    else if (dtype == fat::kF32 && D == 64)
+      err = dispatch_cache<float, 64, kAlibi>(a, dtype, kv_dtype, s);
+    else if (dtype == fat::kF32 && D == 128)
+      err = dispatch_cache<float, 128, kAlibi>(a, dtype, kv_dtype, s);
+  }
   return static_cast<int>(err);
 }
 

@@ -29,21 +29,45 @@ the dense MLP's weights; its FFN is parallel/moe.py's grouped dispatch,
 the JAX single-device function (moe_ffn_dense_reference) computed over the
 picked experts only.
 
-Context parallelism (the JAX functions' ``mesh``): ``forward``, ``loss_fn``
-and ``sgd_train_step`` (and models/train.py) take a parallel/mesh.py Mesh
-with ``data`` and ``sp`` axes over the ranks of a process group. Every rank
-passes the global tokens; it keeps its batch rows (``data``) and its
-contiguous sequence shard (``sp``), RoPE at the global positions, and the
-layers' attention runs the contiguous ring over ``sp``
-(parallel/ring.py). The loss is the global mean (each rank's sum over the
-global count, summed over the ranks), and the parameter gradients are
-summed over every rank (``reduce_gradients``). A ``model``, ``pp`` or
-``ep`` axis (tensor, pipeline or expert parallelism) raises naming ROADMAP
-A9.
+Parallelism (the JAX functions' ``mesh``): ``forward``, ``loss_fn`` and
+``sgd_train_step`` (and models/train.py) take a parallel/mesh.py Mesh over
+the ranks of a process group. Every rank passes the global tokens.
+
+- ``data`` and ``sp``: a rank keeps its batch rows and its contiguous
+  sequence shard, RoPE at the global positions; the layers' attention runs
+  the contiguous ring over ``sp`` (parallel/ring.py). The loss is the
+  global mean (each rank's sum over the global count, summed over data and
+  sp).
+- ``model`` (tensor parallelism, Megatron's layout; ``param_shardings`` and
+  ``shard_params`` give each rank its shard of a whole model): q/k/v by
+  heads and w_gate/w_up by columns, wo and w_down by rows, the embedding
+  by vocabulary rows and the head by vocabulary columns. Before a
+  column-split product the normed input passes ``copy_to_group`` (identity
+  forward, gradient summed over ``model``), after a row-split one
+  ``reduce_from_group`` (sum forward, identity backward); the embedding
+  looks up the tokens of its rows and sums over ``model``; the head's
+  logits are gathered over ``model``, so the forward returns logits over
+  the whole vocabulary, as the JAX forward does. Attention runs K1 and the
+  backward kernels on the rank's Hq/n and Hkv/n heads.
+- ``ep`` (expert parallelism): a MoE layer's experts split over ``ep``;
+  ``cfg.moe_dispatch == "a2a"`` with tokens that split takes the
+  all_to_all capacity dispatch (parallel/moe.py::moe_ffn_a2a), else the
+  masked-dense one (moe_ffn); the shared expert and the rest of the layer
+  are computed on every rank.
+- ``pp`` (pipeline parallelism): ``stack_pipeline_params`` groups the
+  layers into stages, ``pipeline_forward`` and ``pipeline_loss_fn`` run
+  them by parallel/pipeline.py's schedule (with a ``data`` axis beside
+  it); forward and loss_fn compute every layer on every rank of ``pp``.
+
+``reduce_gradients`` sums each gradient over the ranks that hold a share of
+it (data and sp; pp for the pipeline's embedding and head), and
+``global_grad_norm`` is the norm of the whole gradient (the squares of a
+split parameter summed over its axes, a replicated one counted once).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
@@ -54,12 +78,19 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 
 from flashattn_tpu_torch.models.config import ModelConfig, check_supported
 from flashattn_tpu_torch.ops.attention import flash_attention
-from flashattn_tpu_torch.ops.common import card_device, unported
+from flashattn_tpu_torch.ops.common import card_device
+from flashattn_tpu_torch.ops.flash_fwd import default_alibi_slopes
 from flashattn_tpu_torch.ops.quant_matmul import (QuantizedLinear, quant_matmul,
                                                   quantize_weights)
 from flashattn_tpu_torch.ops.varlen import flash_attention_varlen
 from flashattn_tpu_torch.parallel import moe
+from flashattn_tpu_torch.parallel.collectives import (copy_to_group, gather_from_group,
+                                                      keep_gradient, reduce_from_group,
+                                                      split_to_group)
 from flashattn_tpu_torch.parallel.distributed import all_reduce
+from flashattn_tpu_torch.parallel.mesh import local_block
+from flashattn_tpu_torch.parallel.pipeline import (pipeline_apply, stack_stage_params,
+                                                   unstack_stage_params)
 from flashattn_tpu_torch.parallel.ring import ring_flash_attention
 
 # Projections eligible for weight-only quantization: everything but the
@@ -130,6 +161,10 @@ class Llama(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def shardings(self) -> dict[str, tuple]:
+        """Each parameter's split over the mesh axes (param_shardings)."""
+        return param_shardings(self.cfg)
 
 
 @torch.no_grad()
@@ -227,27 +262,47 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float,
     return normed.to(x.dtype) * w
 
 
-def embed_tokens(model: Llama, tokens: torch.Tensor) -> torch.Tensor:
+def _tp(mesh) -> bool:
+    return mesh is not None and mesh.size("model") > 1
+
+
+def embed_tokens(model: Llama, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The tokens' embeddings; under a "model" axis the rank holds a block
+    of the vocabulary's rows: it looks up the tokens inside it (zeros for
+    the others) and the blocks are summed over the axis."""
     cfg = model.cfg
-    x = F.embedding(tokens, model.embed)
+    if _tp(mesh):
+        rows = model.embed.shape[0]
+        local = tokens - mesh.index("model") * rows
+        inside = (local >= 0) & (local < rows)
+        x = F.embedding(torch.where(inside, local, 0), model.embed)
+        x = reduce_from_group(torch.where(inside[..., None], x, 0.0), mesh.group("model"))
+    else:
+        x = F.embedding(tokens, model.embed)
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.hidden_size**0.5, dtype=x.dtype)
     return x
 
 
-def lm_logits(x: torch.Tensor, model: Llama) -> torch.Tensor:
+def lm_logits(x: torch.Tensor, model: Llama, mesh=None) -> torch.Tensor:
     """Final norm -> head -> optional final soft-cap; float32 logits.
 
     A plain head's product runs in the model's dtype and is cast afterwards,
     so bf16 models carry bf16-rounded logits; a quantized head writes f32
-    logits, as the JAX package's does."""
+    logits, as the JAX package's does. Under a "model" axis the rank's head
+    holds a block of the vocabulary's columns and the logits are gathered
+    over the axis: every rank returns the whole vocabulary's."""
     cfg = model.cfg
     x = rms_norm(x, model.final_norm, cfg.norm_eps, cfg.norm_offset)
     head = model.embed.t() if cfg.tie_embeddings else model.lm_head
+    if _tp(mesh):
+        x = copy_to_group(x, mesh.group("model"))
     if isinstance(head, QuantizedLinear):  # f32 straight from the accumulator
         logits = proj(x, head, out_dtype=torch.float32)
     else:
         logits = proj(x, head).float()
+    if _tp(mesh):
+        logits = gather_from_group(logits, mesh.group("model"), -1)
     if cfg.final_logit_softcap:
         cap = cfg.final_logit_softcap
         logits = torch.tanh(logits / cap) * cap
@@ -310,25 +365,44 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return out.to(x.dtype)
 
 
-def _mlp_block(layer: LlamaLayer, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _mlp_block(layer: LlamaLayer, x: torch.Tensor, cfg: ModelConfig,
+               mesh=None) -> torch.Tensor:
     xn = rms_norm(x, layer.mlp_norm, cfg.norm_eps, cfg.norm_offset)
     if cfg.num_experts:
-        return _moe_block(layer.moe, xn, cfg)
+        return _moe_block(layer.moe, xn, cfg, mesh)
+    if _tp(mesh):  # w_gate and w_up split by columns, w_down by rows
+        xn = copy_to_group(xn, mesh.group("model"))
     gate = proj(xn, layer.w_gate).float()
     act = (F.gelu(gate, approximate="tanh") if cfg.mlp_activation == "gelu_tanh"
            else F.silu(gate))
-    return proj(act.to(x.dtype) * proj(xn, layer.w_up), layer.w_down)
+    out = proj(act.to(x.dtype) * proj(xn, layer.w_up), layer.w_down)
+    return reduce_from_group(out, mesh.group("model")) if _tp(mesh) else out
 
 
-def _moe_block(experts: moe.Experts, xn: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _moe_block(experts: moe.Experts, xn: torch.Tensor, cfg: ModelConfig,
+               mesh=None) -> torch.Tensor:
     """The MoE FFN of the normed xn [..., H]: the routed experts by the
-    grouped dispatch, plus, with cfg.moe_shared_intermediate (Qwen2-MoE),
-    the always-on shared expert times sigmoid(xn shared_gate), both in
-    float32 and the routed output rounded first, as the JAX layer adds
-    them."""
+    grouped dispatch (under an "ep" axis by moe_ffn_a2a when
+    cfg.moe_dispatch is "a2a" and the tokens split over it, else by the
+    masked-dense moe_ffn, the rank holding its block of the experts), plus,
+    with cfg.moe_shared_intermediate (Qwen2-MoE), the always-on shared
+    expert times sigmoid(xn shared_gate), both in float32 and the routed
+    output rounded first, as the JAX layer adds them."""
     flat = xn.reshape(-1, xn.shape[-1])
-    out = moe.moe_ffn_grouped(flat, experts.routed(), cfg.top_k_experts, cfg.mlp_activation,
-                              cfg.moe_norm_topk)
+    args = (experts.routed(), cfg.top_k_experts)
+    if mesh is not None and mesh.size("ep") > 1:
+        group = mesh.group("ep")
+        if cfg.moe_dispatch == "a2a" and flat.shape[0] % mesh.size("ep") == 0:
+            # tokens split over ep: each rank dispatches its block and gets it back
+            out = gather_from_group(moe.moe_ffn_a2a(
+                split_to_group(flat, group, 0), *args, group=group,
+                capacity_factor=cfg.moe_capacity_factor, activation=cfg.mlp_activation,
+                norm_topk=cfg.moe_norm_topk), group, 0)
+        else:
+            out = moe.moe_ffn(flat, *args, group=group, activation=cfg.mlp_activation,
+                              norm_topk=cfg.moe_norm_topk)
+    else:
+        out = moe.moe_ffn_grouped(flat, *args, cfg.mlp_activation, cfg.moe_norm_topk)
     if cfg.moe_shared_intermediate:
         sh = experts.shared
         shared_y = moe.swiglu(flat, sh.w_gate, sh.w_up, sh.w_down, cfg.mlp_activation).float()
@@ -338,7 +412,7 @@ def _moe_block(experts: moe.Experts, xn: torch.Tensor, cfg: ModelConfig) -> torc
 
 
 def residuals(layer: LlamaLayer, x: torch.Tensor, a: torch.Tensor,
-              cfg: ModelConfig) -> torch.Tensor:
+              cfg: ModelConfig, mesh=None) -> torch.Tensor:
     """x plus the attention block's output `a`, then plus the MLP block's;
     with cfg.use_post_norms each output goes through its own RMSNorm first
     (Gemma-2's sandwich norms), as the JAX layer does."""
@@ -348,7 +422,7 @@ def residuals(layer: LlamaLayer, x: torch.Tensor, a: torch.Tensor,
         return rms_norm(y, getattr(layer, name), cfg.norm_eps, cfg.norm_offset)
 
     x = x + post("post_attn_norm", a)
-    return x + post("post_mlp_norm", _mlp_block(layer, x, cfg))
+    return x + post("post_mlp_norm", _mlp_block(layer, x, cfg, mesh))
 
 
 def _optional(layer: LlamaLayer, *names: str) -> tuple:
@@ -510,24 +584,32 @@ def layer_window(cfg: ModelConfig, layer_idx: int) -> int | None:
 def _attn_block(layer: LlamaLayer, x: torch.Tensor, cos: torch.Tensor,
                 sin: torch.Tensor, cfg: ModelConfig, window: int | None = None,
                 segment_ids: torch.Tensor | None = None, mesh=None) -> torch.Tensor:
+    """The attention block; under a "model" axis cfg is local_config's (the
+    rank's heads) and an ALiBi model takes its heads' slopes of the whole
+    table."""
     b, s, _ = x.shape
     xn = rms_norm(x, layer.attn_norm, cfg.norm_eps, cfg.norm_offset)
+    slopes = None
+    if _tp(mesh):  # q, k, v split by heads, wo by rows
+        xn = copy_to_group(xn, mesh.group("model"))
+        if cfg.use_alibi:
+            h = cfg.num_heads
+            slopes = default_alibi_slopes(h * mesh.size("model"))[
+                mesh.index("model") * h:(mesh.index("model") + 1) * h].to(x.device)
     q, k, v = attention_inputs(layer, xn, cos, sin, cfg)
+    opts = dict(scale=cfg.attn_scale, window=window, logit_softcap=cfg.logit_softcap,
+                alibi=cfg.use_alibi, alibi_slopes=slopes)
     if mesh is not None and mesh.size("sp") > 1:  # x is this rank's sequence shard
-        o = ring_flash_attention(q, k, v, mesh.group("sp"), is_causal=True, scale=cfg.attn_scale,
-                                 window=window, logit_softcap=cfg.logit_softcap,
-                                 alibi=cfg.use_alibi,
+        o = ring_flash_attention(q, k, v, mesh.group("sp"), is_causal=True,
                                  segment_ids=None if segment_ids is None
-                                 else (segment_ids, segment_ids))
+                                 else (segment_ids, segment_ids), **opts)
     elif segment_ids is not None:
-        o = flash_attention_varlen(q, k, v, segment_ids=segment_ids, is_causal=True,
-                                   scale=cfg.attn_scale, window=window,
-                                   logit_softcap=cfg.logit_softcap, alibi=cfg.use_alibi)
+        o = flash_attention_varlen(q, k, v, segment_ids=segment_ids, is_causal=True, **opts)
     else:
-        o = flash_attention(q, k, v, is_causal=True, scale=cfg.attn_scale, window=window,
-                            logit_softcap=cfg.logit_softcap, alibi=cfg.use_alibi)
+        o = flash_attention(q, k, v, is_causal=True, **opts)
     o = o.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
-    return proj(o, layer.wo)
+    out = proj(o, layer.wo)
+    return reduce_from_group(out, mesh.group("model")) if _tp(mesh) else out
 
 
 def document_positions(segment_ids: torch.Tensor) -> torch.Tensor:
@@ -555,7 +637,7 @@ def _layer(layer: LlamaLayer, x: torch.Tensor, cos: torch.Tensor, sin: torch.Ten
            mesh=None) -> torch.Tensor:
     """One decoder block (the JAX forward's layer_fn)."""
     return residuals(layer, x, _attn_block(layer, x, cos, sin, cfg, window, segment_ids, mesh),
-                     cfg)
+                     cfg, mesh)
 
 
 REMAT_POLICIES = (True, "dots", "attn")  # and False (or any falsy value): no remat
@@ -588,10 +670,11 @@ def layers_forward(model: Llama, x: torch.Tensor, cos: torch.Tensor, sin: torch.
     the whole block, attention kernel included, "dots" the elementwise work
     and the attention kernel, "attn" everything but the q/k/v projections
     and the attention kernel. Under a mesh x, cos, sin and segment_ids are
-    this rank's shards and attention runs the ring over "sp"."""
+    this rank's shards and attention runs the ring over "sp"; under a
+    "model" axis the layers are the rank's shards (local_config)."""
     if remat and remat not in REMAT_POLICIES:
         raise ValueError(f"remat must be False or one of {REMAT_POLICIES}, got {remat!r}")
-    cfg = model.cfg
+    cfg = local_config(model.cfg, mesh)
     layer_fn = _layer
     if remat and torch.is_grad_enabled():
         saved = _saved_ops(remat)
@@ -626,10 +709,11 @@ def forward(model: Llama, tokens: torch.Tensor, segment_ids=None,
     recomputes the rest (layers_forward). Each trades the activations'
     memory for time; the loss and gradients stay as without remat.
 
-    mesh (a parallel/mesh.py Mesh with "data" and "sp" axes; module
-    docstring): tokens (and segment_ids) are the global [B, S] on every
-    rank, and the result is this rank's logits [B / data, S / sp, vocab]:
-    its batch rows and its sequence shard, at the global positions."""
+    mesh (a parallel/mesh.py Mesh; module docstring): tokens (and
+    segment_ids) are the global [B, S] on every rank, and the result is
+    this rank's logits [B / data, S / sp, vocab]: its batch rows and its
+    sequence shard, at the global positions, over the whole vocabulary
+    (under a "model" axis `model` is the rank's shard_params shard)."""
     if segment_ids is not None:
         segment_ids = check_segment_ids(segment_ids, tokens)
     cos, sin = input_tables(model.cfg, tokens, segment_ids)
@@ -641,8 +725,8 @@ def forward(model: Llama, tokens: torch.Tensor, segment_ids=None,
         if cos is not None:  # [S, D/2] or per row [B, S, D/2]
             cos, sin = ((shard_rows(t, mesh) if t.dim() == 3 else
                          shard_rows(t[None], mesh, batch=False)[0]) for t in (cos, sin))
-    x = embed_tokens(model, tokens)
-    return lm_logits(layers_forward(model, x, cos, sin, segment_ids, remat, mesh), model)
+    x = embed_tokens(model, tokens, mesh)
+    return lm_logits(layers_forward(model, x, cos, sin, segment_ids, remat, mesh), model, mesh)
 
 
 def input_tables(cfg: ModelConfig, tokens: torch.Tensor,
@@ -663,11 +747,11 @@ def loss_fn(model: Llama, tokens: torch.Tensor, segment_ids=None,
     document boundary and those from padding (ids < 0) are left out of the
     mean, which runs over the valid ones (at least 1).
 
-    mesh: the global tokens on every rank, shifted before the sequence is
-    split (S must split over "sp", B over "data"); each rank's sum of its
-    predictions' losses over the global count, summed over the ranks: every
-    rank returns the global mean, and its backward gives this rank's share
-    of the gradients (reduce_gradients sums them)."""
+    mesh: the global tokens on every rank, shifted before the split (S must
+    split over "sp", B over "data"); each rank's sum of its predictions'
+    losses over the global count, summed over data and sp: every rank
+    returns the global mean, and its backward gives this rank's share of
+    the gradients (reduce_gradients sums them)."""
     seg_in = None
     if segment_ids is not None:
         segment_ids = check_segment_ids(segment_ids, tokens)
@@ -686,31 +770,105 @@ def loss_fn(model: Llama, tokens: torch.Tensor, segment_ids=None,
     if mesh is None and valid is None:
         return nll.mean()
     total = (nll if valid is None else torch.where(valid, nll, 0.0)).sum() / count
-    return total if mesh is None else _SumOverRanks.apply(total)
+    return total if mesh is None else _SumOverRanks.apply(total, mesh, ("data", "sp"))
 
 
 class _SumOverRanks(torch.autograd.Function):
-    """The sum of each rank's value over every rank; the gradient passes to
-    each rank's own term unchanged (the loss is the sum of the ranks'
-    terms)."""
+    """The sum of each rank's value over the mesh's `axes`; the gradient
+    passes to each rank's own term unchanged (the loss is the sum of the
+    ranks' terms)."""
 
     @staticmethod
-    def forward(ctx, x):
-        return all_reduce(x.detach().clone())
+    def forward(ctx, x, mesh, axes):
+        return mesh.all_reduce(x.detach().clone(), axes)
 
     @staticmethod
     def backward(ctx, g):
-        return g
+        return g, None, None
+
+
+AXES = ("data", "sp", "model", "pp", "ep")
 
 
 def check_mesh(mesh) -> None:
-    """A mesh the model takes: "data" and "sp" axes; tensor, pipeline and
-    expert parallelism ("model", "pp", "ep" axes above size 1) raise
-    NotImplementedError naming ROADMAP A9."""
-    for axis, what in (("model", "tensor parallelism"), ("pp", "pipeline parallelism"),
-                       ("ep", "expert parallelism")):
-        if mesh.size(axis) > 1:
-            raise unported(f"a mesh with a {axis!r} axis ({what}) in the model", "A9")
+    """A mesh the model takes: any of the axes "data" (batch rows), "sp"
+    (sequence shards), "model" (tensor parallelism), "pp" (pipeline stages:
+    pipeline_forward; forward computes every layer on each of its ranks)
+    and "ep" (experts); another axis above size 1 raises ValueError."""
+    unknown = [a for a in mesh.active() if a not in AXES]
+    if unknown:
+        raise ValueError(f"the model takes the axes {AXES}, not {unknown}")
+
+
+def local_config(cfg: ModelConfig, mesh) -> ModelConfig:
+    """The config a rank's layers compute with: under a "model" axis of n
+    ranks, num_heads / n and num_kv_heads / n (the rank's heads); cfg
+    itself otherwise."""
+    if not _tp(mesh):
+        return cfg
+    n = mesh.size("model")
+    return dataclasses.replace(cfg, num_heads=cfg.num_heads // n,
+                               num_kv_heads=cfg.num_kv_heads // n)
+
+
+def param_shardings(cfg: ModelConfig) -> dict[str, tuple]:
+    """Each parameter of a whole model (state-dict name) -> the mesh axis
+    each of its dimensions splits over (None: whole), the JAX function's
+    PartitionSpecs: Megatron's layout over "model" (q/k/v and their biases
+    by columns, i.e. heads; wo by rows; w_gate and w_up by columns, w_down
+    by rows; the embedding by vocabulary rows, the head by vocabulary
+    columns), the routed experts over "ep", everything else whole."""
+    layer = {"attn_norm": (None,), "wq": (None, "model"), "wk": (None, "model"),
+             "wv": (None, "model"), "wo": ("model", None), "mlp_norm": (None,)}
+    if cfg.attn_bias:
+        layer.update(bq=("model",), bk=("model",), bv=("model",))
+    if cfg.use_post_norms:
+        layer.update(post_attn_norm=(None,), post_mlp_norm=(None,))
+    if cfg.qk_norm:
+        layer.update(q_norm=(None,), k_norm=(None,))
+    if cfg.num_experts:
+        layer["moe.router"] = (None, None)
+        for name in ("w_gate", "w_up", "w_down"):
+            layer[f"moe.{name}"] = ("ep", None, None)
+        if cfg.moe_shared_intermediate:
+            for name in ("shared.w_gate", "shared.w_up", "shared.w_down", "shared_gate"):
+                layer[f"moe.{name}"] = (None, None)
+    else:
+        layer.update(w_gate=(None, "model"), w_up=(None, "model"), w_down=("model", None))
+    specs = {"embed": ("model", None), "final_norm": (None,)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = (None, "model")
+    for i in range(cfg.num_layers):
+        specs.update({f"layers.{i}.{name}": spec for name, spec in layer.items()})
+    return specs
+
+
+def _set_param(module: nn.Module, name: str, value: torch.Tensor) -> None:
+    owner, _, leaf = name.rpartition(".")
+    setattr(module.get_submodule(owner), leaf, nn.Parameter(value))
+
+
+@torch.no_grad()
+def shard_params(model: Llama, mesh) -> Llama:
+    """This rank's shard of a whole model under `mesh` (param_shardings'
+    blocks over "model" and "ep", copied): a Llama of the same config whose
+    split parameters are the rank's blocks. Raises ValueError for a
+    quantized model, or when the heads, the kv heads or the vocabulary do
+    not split over "model" (the MLP's width and the experts: local_block
+    raises)."""
+    cfg = model.cfg
+    if isinstance(model.layers[0].wq, QuantizedLinear):
+        raise ValueError("shard an unquantized model (the JAX package shards plain weights)")
+    n = mesh.size("model")
+    for what, size in (("num_heads", cfg.num_heads), ("num_kv_heads", cfg.num_kv_heads),
+                       ("vocab_size", cfg.vocab_size)):
+        if size % n:
+            raise ValueError(f"{what} {size} does not split over model ({n} ranks)")
+    specs = param_shardings(cfg)
+    shard = Llama(cfg, device="meta")
+    for name, p in model.named_parameters():
+        _set_param(shard, name, local_block(p.detach(), specs[name], mesh).clone())
+    return shard
 
 
 def shard_rows(x: torch.Tensor, mesh, batch: bool = True) -> torch.Tensor:
@@ -727,16 +885,54 @@ def shard_rows(x: torch.Tensor, mesh, batch: bool = True) -> torch.Tensor:
     return x.narrow(1, mesh.index("sp") * (s // n), s // n)
 
 
-def reduce_gradients(model: nn.Module) -> None:
-    """Sum every parameter's gradient over every rank of the process group
-    (the data and sp axes of the mesh the loss ran under), in place: one
-    all-reduce a dtype, of the gradients laid end to end."""
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
-    for dtype in dict.fromkeys(g.dtype for g in grads):
-        same = [g for g in grads if g.dtype == dtype]
-        flat = all_reduce(torch.cat([g.reshape(-1) for g in same]))
-        for g, part in zip(same, flat.split([g.numel() for g in same])):
-            g.copy_(part.view_as(g))
+def _summed_axes(model: nn.Module, name: str, mesh) -> tuple[str, ...]:
+    """The axes over which a parameter's gradient is a share to be summed:
+    data and sp always; pp for a pipeline's embedding, final norm and head
+    (stage 0 holds the embedding's share, the last stage the head's). A
+    parameter split over model, ep or pp holds its own block's gradient
+    whole, and a whole one gets the same gradient on every rank of model
+    (copy_to_group) and ep (moe_ffn's)."""
+    axes = ("data", "sp")
+    if isinstance(model, PipelineLlama) and not name.startswith("stages."):
+        axes += ("pp",)
+    return tuple(a for a in axes if mesh.size(a) > 1)
+
+
+def reduce_gradients(model: nn.Module, mesh=None) -> None:
+    """Sum each parameter's gradient over the ranks that hold a share of it,
+    in place: without a mesh over every rank of the process group; under a
+    mesh over _summed_axes. One all-reduce a set of axes and a dtype, of
+    the gradients laid end to end."""
+    sets: dict = {}
+    for name, p in model.named_parameters():
+        if p.grad is not None:
+            axes = None if mesh is None else _summed_axes(model, name, mesh)
+            sets.setdefault(axes, []).append(p.grad)
+    for axes, grads in sets.items():
+        if axes == ():
+            continue
+        for dtype in dict.fromkeys(g.dtype for g in grads):
+            same = [g for g in grads if g.dtype == dtype]
+            flat = torch.cat([g.reshape(-1) for g in same])
+            flat = all_reduce(flat) if axes is None else mesh.all_reduce(flat, axes)
+            for g, part in zip(same, flat.split([g.numel() for g in same])):
+                g.copy_(part.view_as(g))
+
+
+def global_grad_norm(model: nn.Module, mesh) -> torch.Tensor:
+    """The norm of the whole model's gradient under `mesh`, after
+    reduce_gradients: the squares of a parameter split over model, pp or ep
+    summed over those axes, a whole one's counted once; a float32 scalar
+    on the gradients' device."""
+    specs = model.shardings()
+    sums: dict = {}
+    for name, p in model.named_parameters():
+        if p.grad is not None:
+            axes = tuple(a for a in specs[name] if a and mesh.size(a) > 1)
+            sq = p.grad.float().square().sum()
+            sums[axes] = sums[axes] + sq if axes in sums else sq
+    total = sum(mesh.all_reduce(sq, axes) if axes else sq for axes, sq in sums.items())
+    return torch.sqrt(total)
 
 
 def sgd_train_step(model: Llama, tokens: torch.Tensor, lr: float = 1e-3,
@@ -752,9 +948,144 @@ def sgd_train_step(model: Llama, tokens: torch.Tensor, lr: float = 1e-3,
     loss = loss_fn(model, tokens, remat=remat, mesh=mesh)
     loss.backward()
     if mesh is not None:
-        reduce_gradients(model)
+        reduce_gradients(model, mesh)
     with torch.no_grad():
         for p in model.parameters():
             p.sub_(lr * p.grad.to(p.dtype))
             p.grad = None
     return loss.detach(), model
+
+
+# ---------------- pipeline parallelism (GPipe over a "pp" mesh axis) ----
+
+
+class PipelineLlama(nn.Module):
+    """stack_pipeline_params' model: ``embed``, ``final_norm`` and
+    ``lm_head`` as a Llama's, and ``stages``, a LlamaLayer whose every
+    parameter is stacked [stages, layers_per_stage, ...] (the JAX tree's
+    "stages" leaves); a rank of a "pp" axis holds its own stage alone,
+    [1, layers_per_stage, ...]."""
+
+    def __init__(self, model: Llama, n_stages: int, stage: int | None):
+        super().__init__()
+        cfg = model.cfg
+        layers = list(model.layers)
+        if len(layers) % n_stages:
+            raise ValueError(f"{len(layers)} layers do not split into {n_stages} stages")
+        k = len(layers) // n_stages
+        self.cfg, self.n_stages, self.layers_per_stage, self.stage = cfg, n_stages, k, stage
+        for name in ("embed", "final_norm", "lm_head"):
+            if hasattr(model, name):
+                setattr(self, name, nn.Parameter(getattr(model, name).detach().clone()))
+        kept = range(n_stages) if stage is None else [stage]
+        names = [name for name, _ in layers[0].named_parameters()]
+        with torch.no_grad():
+            self.stages = LlamaLayer(cfg, "meta")
+            per_stage = [{name: torch.stack([layer.get_parameter(name)
+                                             for layer in layers[s * k:(s + 1) * k]])
+                          for name in names} for s in kept]
+            for name, t in stack_stage_params(per_stage).items():
+                _set_param(self.stages, name, t.detach().clone())
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def shardings(self) -> dict[str, tuple]:
+        """The stacked layers split over "pp" by their leading axis; the
+        embedding, final norm and head whole on every rank."""
+        return {name: (("pp",) + (None,) * (p.dim() - 1) if name.startswith("stages.")
+                       else (None,) * p.dim())
+                for name, p in self.named_parameters()}
+
+
+def stack_pipeline_params(model: Llama, n_stages: int, mesh=None) -> PipelineLlama:
+    """Regroup a whole model for the pipeline: cfg.num_layers layers split
+    into n_stages equal stages, each stage's layers stacked on a leading
+    axis, the stages stacked on one before it (a copy of the weights).
+    Under a mesh with a "pp" axis of n_stages ranks the rank keeps its own
+    stage's block alone."""
+    stage = None
+    if mesh is not None and "pp" in mesh.axis_names:
+        if mesh.size("pp") != n_stages:
+            raise ValueError(f"{n_stages} stages over a pp axis of {mesh.size('pp')} ranks")
+        stage = mesh.index("pp")
+    return PipelineLlama(model, n_stages, stage)
+
+
+class _StageLayer:
+    """Layer i of a stage's parameters ({name: [layers_per_stage, ...]}),
+    read as a LlamaLayer is: each attribute the named tensor's row i, a MoE
+    layer's ``moe`` (and its ``shared``) a view of its own."""
+
+    def __init__(self, params: dict[str, torch.Tensor], i: int, prefix: str = ""):
+        self._params, self._i, self._prefix = params, i, prefix
+
+    def __getattr__(self, name: str):
+        key = self._prefix + name
+        if key in self._params:
+            return self._params[key][self._i]
+        if any(k.startswith(key + ".") for k in self._params):
+            return _StageLayer(self._params, self._i, key + ".")
+        raise AttributeError(name)
+
+    def routed(self) -> dict[str, torch.Tensor]:
+        return {name: getattr(self, name) for name in moe.ROUTED}
+
+
+def pipeline_forward(model: PipelineLlama, tokens: torch.Tensor, mesh,
+                     num_microbatches: int, remat: bool = False) -> torch.Tensor:
+    """Training forward with the layers pipelined over the mesh's "pp" axis
+    (parallel/pipeline.py): tokens [B, S], the global batch on every rank
+    -> float32 logits [B / data, S, vocab], this rank's batch rows (a
+    "data" axis beside "pp" splits them; each rank's rows then split into
+    num_microbatches microbatches). The embedding and the head run on every
+    rank outside the pipeline; each stage applies its layers_per_stage
+    layers (_attn_block: K1, and the backward kernels in the backward).
+    `model` is stack_pipeline_params' under the same mesh.
+
+    The logits are the same on every rank of "pp"; their gradient is taken
+    on the last stage's rank alone, so a loss that every rank computes
+    gives the embedding and the head one share each (reduce_gradients sums
+    them over "pp")."""
+    cfg = model.cfg
+    if cfg.window_pattern is not None:
+        raise ValueError("a per-layer window pattern needs global layer indices; a pipeline "
+                         "stage sees its own (as the JAX function asserts)")
+    other = [a for a in mesh.active() if a not in ("pp", "data")]
+    if other or "pp" not in mesh.axis_names:
+        raise ValueError(f"the pipeline takes a pp axis and a data axis, not {other}")
+    if model.stage != mesh.index("pp"):
+        raise ValueError("the model holds another rank's stages: build it with "
+                         "stack_pipeline_params(model, n_stages, mesh) under this mesh")
+    tokens = shard_rows(tokens, mesh)
+    b, s = tokens.shape
+    if b % num_microbatches:
+        raise ValueError(f"{b} rows a rank do not split into {num_microbatches} microbatches")
+    x = embed_tokens(model, tokens)
+    cos, sin = input_tables(cfg, tokens)
+
+    def stage_fn(stage: dict[str, torch.Tensor], x_mb: torch.Tensor) -> torch.Tensor:
+        for i in range(model.layers_per_stage):
+            x_mb = _layer(_StageLayer(stage, i), x_mb, cos, sin, cfg, cfg.attn_window, None)
+        return x_mb
+
+    stage = unstack_stage_params(dict(model.stages.named_parameters()))
+    y = pipeline_apply(stage_fn, stage, x.view(num_microbatches, b // num_microbatches, s, -1),
+                       mesh.group("pp"), remat=remat)
+    logits = lm_logits(y.reshape(b, s, -1), model)
+    n = mesh.size("pp")
+    return keep_gradient(logits, mesh.index("pp") == n - 1) if n > 1 else logits
+
+
+def pipeline_loss_fn(model: PipelineLlama, tokens: torch.Tensor, mesh,
+                     num_microbatches: int, remat: bool = False) -> torch.Tensor:
+    """Mean next-token cross-entropy of tokens [B, S+1] through
+    pipeline_forward: every rank returns the global mean (each rank's sum
+    over the global count, summed over "data")."""
+    logits = pipeline_forward(model, tokens[:, :-1], mesh, num_microbatches, remat)
+    targets = shard_rows(tokens[:, 1:].long(), mesh)
+    nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, targets[..., None])[..., 0]
+    if mesh.size("data") == 1:
+        return nll.mean()
+    return _SumOverRanks.apply(nll.sum() / tokens[:, 1:].numel(), mesh, ("data",))

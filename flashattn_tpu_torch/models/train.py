@@ -19,12 +19,18 @@ The train state owns the model: ``train_step`` updates its parameters in
 place, where the JAX step returns new ones. The trainer runs wherever the
 model lives: the card, unless the model was built with device="cpu".
 
-Under a mesh (``mesh=``, parallel/mesh.py: "data" and "sp" axes over the
-ranks of a process group) every rank runs the trainer on the same global
-batches: the loss is llama.loss_fn's global mean, the gradients are summed
-over the ranks before the norm, the clip and the update, so the
-parameters and the optimizer's state stay equal on every rank; rank 0
-alone writes checkpoints.
+Under a mesh (``mesh=``, parallel/mesh.py, the JAX train_step's: "data",
+"sp", "model" and "ep" axes over the ranks of a process group) every rank
+runs the trainer on the same global batches with its shard of the model
+(llama.shard_params under "model" or "ep"): the loss is llama.loss_fn's
+global mean; each gradient is summed over the ranks that hold a share of
+it (llama.reduce_gradients) before the norm, the clip and the update; the
+norm is the whole gradient's (llama.global_grad_norm). A checkpoint holds
+the whole model, as the JAX package's Orbax checkpoint does: every rank
+takes part in gathering the split parameters and their optimizer state,
+rank 0 writes it, and restore_checkpoint cuts a rank's blocks out of it
+again under a mesh, so a checkpoint written under one mesh restores under
+another, or into one process.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import torch.distributed as dist
 
 from flashattn_tpu_torch.models import llama
 from flashattn_tpu_torch.models.llama import Llama
+from flashattn_tpu_torch.parallel.mesh import full_tensor, local_block
 
 STATE_FILE = "state.pt"
 
@@ -117,9 +124,9 @@ def train_step(state: dict, tokens: torch.Tensor,
     loss = llama.loss_fn(model, tokens, segment_ids=segment_ids, mesh=mesh)
     loss.backward()
     if mesh is not None:
-        llama.reduce_gradients(model)
+        llama.reduce_gradients(model, mesh)
     grads = [p.grad for p in model.parameters()]
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if mesh is None else llama.global_grad_norm(model, mesh)
     clip_by_global_norm_(grads, gnorm, state["tc"].grad_clip)
     opt.step()
     state["scheduler"].step()
@@ -139,33 +146,69 @@ def checkpoint_steps(ckpt_dir: str | Path) -> list[int]:
                   if p.name.isdigit() and (p / STATE_FILE).is_file())
 
 
-def save_checkpoint(ckpt_dir: str | Path, state: dict, max_to_keep: int = 3) -> int:
+def _payload(state: dict, mesh=None) -> dict:
+    """The train state as a checkpoint holds it: under a mesh the whole
+    model's parameters and optimizer state, gathered (every rank of the
+    split axes calls it)."""
+    model, opt = state["model"], state["optimizer"]
+    weights, moments = model.state_dict(), opt.state_dict()
+    if mesh is not None:
+        specs = model.shardings()
+        weights = {n: full_tensor(t, specs[n], mesh) for n, t in weights.items()}
+        moments = _map_moments(model, moments, lambda t, spec: full_tensor(t, spec, mesh))
+    return {"step": int(state["step"]), "model": weights, "optimizer": moments,
+            "scheduler": state["scheduler"].state_dict()}
+
+
+def _map_moments(model, opt_state: dict, fn) -> dict:
+    """The optimizer's state dict with fn(tensor, spec) applied to each
+    per-parameter tensor shaped like its parameter (AdamW's moments; the
+    step count is kept)."""
+    specs = model.shardings()
+    params = list(model.named_parameters())
+    state = {}
+    for i, entry in opt_state["state"].items():
+        name, p = params[i]
+        state[i] = {k: (fn(v, specs[name]) if torch.is_tensor(v) and v.dim() == p.dim()
+                        and v.dim() > 0 else v) for k, v in entry.items()}
+    return {**opt_state, "state": state}
+
+
+def save_checkpoint(ckpt_dir: str | Path, state: dict, max_to_keep: int = 3,
+                    mesh=None) -> int:
     """Save the full train state under ckpt_dir/<step>/; returns the step.
 
     Written to a temporary directory and renamed, so a crash leaves either
-    the old or the new checkpoint. Only the newest max_to_keep stay."""
-    step = int(state["step"])
+    the old or the new checkpoint. Only the newest max_to_keep stay. Under
+    a mesh every rank calls it: each takes part in gathering the whole
+    state, rank 0 alone writes it and the others wait for it."""
+    payload = _payload(state, mesh)
+    step = payload["step"]
+    if mesh is not None and dist.get_rank() != 0:
+        dist.barrier()
+        return step
     root = Path(ckpt_dir)
     root.mkdir(parents=True, exist_ok=True)
     tmp = root / f".{step}.tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     tmp.mkdir()
-    torch.save({"step": step,
-                "model": state["model"].state_dict(),
-                "optimizer": state["optimizer"].state_dict(),
-                "scheduler": state["scheduler"].state_dict()}, tmp / STATE_FILE)
+    torch.save(payload, tmp / STATE_FILE)
     final = root / str(step)
     shutil.rmtree(final, ignore_errors=True)
     os.replace(tmp, final)
     for old in checkpoint_steps(root)[:-max_to_keep]:
         shutil.rmtree(root / str(old))
+    if mesh is not None:
+        dist.barrier()
     return step
 
 
 def restore_checkpoint(ckpt_dir: str | Path, state_like: dict,
-                       step: int | None = None) -> dict:
+                       step: int | None = None, mesh=None) -> dict:
     """Load a checkpoint (the newest by default) into `state_like`, a state
-    built with init_train_state, on its model's device; returns it."""
+    built with init_train_state, on its model's device; returns it. Under a
+    mesh the state's model is a rank's shard: it takes its blocks of the
+    checkpoint's whole tensors."""
     if step is None:
         steps = checkpoint_steps(ckpt_dir)
         if not steps:
@@ -173,7 +216,14 @@ def restore_checkpoint(ckpt_dir: str | Path, state_like: dict,
         step = steps[-1]
     payload = torch.load(Path(ckpt_dir) / str(step) / STATE_FILE,
                          map_location=state_like["model"].device, weights_only=True)
-    state_like["model"].load_state_dict(payload["model"])
+    model = state_like["model"]
+    if mesh is not None:
+        specs = model.shardings()
+        payload["model"] = {n: local_block(t, specs[n], mesh).contiguous()
+                            for n, t in payload["model"].items()}
+        payload["optimizer"] = _map_moments(
+            model, payload["optimizer"], lambda t, spec: local_block(t, spec, mesh).contiguous())
+    model.load_state_dict(payload["model"])
     state_like["optimizer"].load_state_dict(payload["optimizer"])
     state_like["scheduler"].load_state_dict(payload["scheduler"])
     state_like["step"] = payload["step"]
@@ -201,7 +251,7 @@ def train(
     batches (module docstring). Returns (final_state, metric history)."""
     state = init_train_state(model, tc)
     if ckpt_dir is not None and checkpoint_steps(ckpt_dir):
-        state = restore_checkpoint(ckpt_dir, state)
+        state = restore_checkpoint(ckpt_dir, state, mesh=mesh)
     history = []
     for _ in range(steps):
         batch = next(data)
@@ -216,16 +266,7 @@ def train(
                             "loss": float(metrics["loss"]),
                             "grad_norm": float(metrics["grad_norm"])})
         if ckpt_dir is not None and step % ckpt_every == 0:
-            _save(ckpt_dir, state, mesh)
+            save_checkpoint(ckpt_dir, state, mesh=mesh)
     if ckpt_dir is not None:
-        _save(ckpt_dir, state, mesh)
+        save_checkpoint(ckpt_dir, state, mesh=mesh)
     return state, history
-
-
-def _save(ckpt_dir, state: dict, mesh) -> None:
-    """save_checkpoint, by rank 0 alone under a mesh (every rank's state is
-    the same), the others waiting for it."""
-    if mesh is None or dist.get_rank() == 0:
-        save_checkpoint(ckpt_dir, state)
-    if mesh is not None:
-        dist.barrier()

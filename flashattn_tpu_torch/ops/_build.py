@@ -36,6 +36,9 @@ ENTRY_POINTS = {
 # The library of a kernel's ALiBi instantiations has its sibling's entry points.
 ENTRY_POINTS.update({f"{name}_alibi": ENTRY_POINTS[name]
                      for name in ("decode", "flash_bwd", "flash_bwd_fused")})
+# So do K2's libraries of the D 256 instantiations.
+ENTRY_POINTS.update({f"{name}_d256": ENTRY_POINTS["decode"]
+                     for name in ("decode", "decode_alibi")})
 # The dropout libraries' take the dropout's seed (a pointer to it on the
 # device), threshold and scale before the stream (ops/flash_fwd.py::dropout_args).
 ENTRY_POINTS.update({f"{name}_dropout": {fn: args[:-1] + [_P, _U, _F, _P]

@@ -1,8 +1,9 @@
 """Flash-decode (counterpart of flashattn_tpu/ops/decode.py).
 
 ``decode_attention`` and ``decode_attention_chunk`` launch kernel K2
-(csrc/decode.cuh; built as csrc/decode.cu, and csrc/decode_alibi.cu for
-ALiBi) on CUDA tensors: split-KV over the cache's positions, the
+(csrc/decode.cuh; built as csrc/decode.cu, csrc/decode_alibi.cu for ALiBi,
+and csrc/decode_d256.cu and csrc/decode_alibi_d256.cu at D 256) on CUDA
+tensors: split-KV over the cache's positions, the
 query rows tiled over the grid, the products on the tensor cores (an f32
 cache's on the CUDA cores), then a second kernel merging the slices. The
 cache may be bf16/f32 or quantized (int8, fp8); no PyTorch kernel runs
@@ -370,8 +371,10 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     def ptr(x):
         return 0 if x is None else x.data_ptr()
 
-    # ALiBi's instantiations are a library of their own (csrc/decode_alibi.cu).
-    lib = _build.load("decode" if slopes is None else "decode_alibi")
+    # ALiBi's instantiations are a library of their own (csrc/decode_alibi.cu),
+    # and so are D 256's (csrc/decode_d256.cu, csrc/decode_alibi_d256.cu).
+    lib = _build.load(("decode" if slopes is None else "decode_alibi")
+                      + ("_d256" if d == 256 else ""))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.decode_launch(

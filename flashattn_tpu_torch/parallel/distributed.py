@@ -177,14 +177,14 @@ def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     return out.to(x.device) if staged else out
 
 
-def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
-    """The SUM of x over the group, in place (x returned), staged over
-    gloo-host."""
+def all_reduce(x: torch.Tensor, group=None, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """The SUM (or another `op`, such as MAX) of x over the group, in place
+    (x returned), staged over gloo-host."""
     route = transport(group, x.device)
     _announce(route, "all-reduce")
     if route != "gloo-host":
-        dist.all_reduce(x, group=group)
+        dist.all_reduce(x, op=op, group=group)
         return x
     host = x.cpu()
-    dist.all_reduce(host, group=group)
+    dist.all_reduce(host, op=op, group=group)
     return x.copy_(host)

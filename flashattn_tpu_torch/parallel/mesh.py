@@ -25,7 +25,7 @@ import torch
 import torch.distributed as dist
 
 from flashattn_tpu_torch.ops.flash_fwd import default_alibi_slopes
-from flashattn_tpu_torch.parallel.distributed import all_gather
+from flashattn_tpu_torch.parallel.distributed import all_gather, all_reduce
 from flashattn_tpu_torch.parallel.ring import (
     ring_flash_attention,
     zigzag_ring_flash_attention,
@@ -60,9 +60,20 @@ class Mesh:
     def index(self, axis: str) -> int:
         return self.coords.get(axis, 0)
 
-    def rank_coords(self, rank: int) -> dict[str, int]:
-        """The coordinates of a rank of the default group."""
-        return dict(zip(self.shape, np.unravel_index(rank, tuple(self.shape.values()))))
+    def active(self) -> tuple[str, ...]:
+        """The axes above size 1."""
+        return tuple(a for a, n in self.shape.items() if n > 1)
+
+    def all_reduce(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """The SUM of x over the ranks that differ along `axes` (those of them
+        above size 1), in place: one all-reduce over the default group when
+        they are every axis above size 1, else one an axis."""
+        axes = [a for a in axes if self.size(a) > 1]
+        if axes and set(axes) == set(self.active()):
+            return all_reduce(x)
+        for axis in axes:
+            all_reduce(x, self.group(axis))
+        return x
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, coords={self.coords})"
@@ -90,28 +101,28 @@ def make_mesh(axes: Mapping[str, int]) -> Mesh:
     return Mesh(shape, coords, groups)
 
 
-def _blocks(mesh: Mesh, dims: dict[str, int], coords: dict[str, int], shape) -> tuple:
-    """The index of the block of a global tensor of `shape` that the rank at
-    `coords` holds when axis a of dims splits tensor dimension dims[a]."""
-    index = [slice(None)] * len(shape)
-    for axis, dim in dims.items():
-        n = mesh.size(axis)
-        if shape[dim] % n:
-            raise ValueError(f"dimension {dim} ({shape[dim]}) does not split over {axis} "
-                             f"({n} ranks)")
-        part = shape[dim] // n
-        index[dim] = slice(coords.get(axis, 0) * part, (coords.get(axis, 0) + 1) * part)
-    return tuple(index)
+def local_block(x: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+    """This rank's block of a global tensor whose dimension d splits over
+    the axis spec[d] (None: whole), as jax.sharding's PartitionSpec reads;
+    axes of size 1 or absent from the mesh split nothing."""
+    for dim, axis in enumerate(spec):
+        n = mesh.size(axis) if axis else 1
+        if n > 1:
+            if x.shape[dim] % n:
+                raise ValueError(f"dimension {dim} ({x.shape[dim]}) does not split over "
+                                 f"{axis} ({n} ranks)")
+            part = x.shape[dim] // n
+            x = x.narrow(dim, mesh.index(axis) * part, part)
+    return x
 
 
-def _assemble(mesh: Mesh, dims: dict[str, int], local: torch.Tensor, shape) -> torch.Tensor:
-    """The global tensor from every rank's block (an all-gather over the
-    default group)."""
-    parts = all_gather(local.contiguous())
-    out = local.new_empty(shape)
-    for rank, part in enumerate(parts):
-        out[_blocks(mesh, dims, mesh.rank_coords(rank), shape)] = part
-    return out
+def full_tensor(x: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+    """The global tensor of local_block's blocks: an all-gather over each
+    axis of `spec` above size 1. Every rank of those axes calls it."""
+    for dim, axis in enumerate(spec):
+        if axis and mesh.size(axis) > 1:
+            x = torch.cat(list(all_gather(x.contiguous(), mesh.group(axis)).unbind(0)), dim=dim)
+    return x
 
 
 class _Scatter(torch.autograd.Function):
@@ -119,13 +130,13 @@ class _Scatter(torch.autograd.Function):
     rank's block of the gradient."""
 
     @staticmethod
-    def forward(ctx, x, mesh, dims):
-        ctx.mesh, ctx.dims, ctx.shape = mesh, dims, x.shape
-        return x[_blocks(mesh, dims, mesh.coords, x.shape)].contiguous()
+    def forward(ctx, x, mesh, spec):
+        ctx.mesh, ctx.spec = mesh, spec
+        return local_block(x, spec, mesh).contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        return _assemble(ctx.mesh, ctx.dims, g, ctx.shape), None, None
+        return full_tensor(g, ctx.spec, ctx.mesh), None, None
 
 
 class _Gather(torch.autograd.Function):
@@ -133,13 +144,13 @@ class _Gather(torch.autograd.Function):
     rank's block of the gradient (the same on every rank)."""
 
     @staticmethod
-    def forward(ctx, x, mesh, dims, shape):
-        ctx.mesh, ctx.dims = mesh, dims
-        return _assemble(mesh, dims, x, shape)
+    def forward(ctx, x, mesh, spec):
+        ctx.mesh, ctx.spec = mesh, spec
+        return full_tensor(x, spec, mesh)
 
     @staticmethod
     def backward(ctx, g):
-        return g[_blocks(ctx.mesh, ctx.dims, ctx.mesh.coords, g.shape)].contiguous(), None, None, None
+        return local_block(g, ctx.spec, ctx.mesh).contiguous(), None, None
 
 
 def sharded_ring_attention(
@@ -177,30 +188,21 @@ def sharded_ring_attention(
     if seq_axis not in mesh.axis_names:
         raise ValueError(f"{seq_axis!r} is not an axis of {mesh}")
     n_sp = mesh.size(seq_axis)
-    dims = {seq_axis: 2}
-    if batch_axis in mesh.axis_names:
-        dims[batch_axis] = 0
-    if head_axis in mesh.axis_names:
-        dims[head_axis] = 1
+    spec = tuple(a if a in mesh.axis_names else None for a in (batch_axis, head_axis)) + (
+        seq_axis, None)
     slopes = None
     if alibi:
-        table = default_alibi_slopes(q.shape[1]).to(q.device)
-        n_h = mesh.size(head_axis) if head_axis in dims else 1
-        part = q.shape[1] // n_h
-        slopes = table[mesh.index(head_axis) * part:(mesh.index(head_axis) + 1) * part]
+        slopes = local_block(default_alibi_slopes(q.shape[1]).to(q.device), spec[1:2], mesh)
     if mode == "zigzag":
         if not is_causal:
             raise ValueError("the zigzag layout is for causal attention: use mode='ring'")
         q, k, v = (zigzag_shard(x, n_sp) for x in (q, k, v))
         if segment_ids is not None:
             segment_ids = zigzag_shard(segment_ids, n_sp, axis=1)
-    out_shape = q.shape
-    q_l, k_l, v_l = (_Scatter.apply(x, mesh, dims) for x in (q, k, v))
+    q_l, k_l, v_l = (_Scatter.apply(x, mesh, spec) for x in (q, k, v))
     segs = None
     if segment_ids is not None:
-        seg_dims = {a: (0 if d == 0 else 1) for a, d in dims.items() if d != 1}
-        seg = segment_ids.to(torch.int32)
-        seg_l = seg[_blocks(mesh, seg_dims, mesh.coords, seg.shape)].contiguous()
+        seg_l = local_block(segment_ids.to(torch.int32), spec[::2], mesh).contiguous()
         segs = (seg_l, seg_l)
     group = mesh.group(seq_axis)
     variants = dict(window=window, logit_softcap=logit_softcap, alibi=alibi,
@@ -214,5 +216,5 @@ def sharded_ring_attention(
     else:
         o = ring_flash_attention(q_l, k_l, v_l, group, is_causal, scale, alibi_slopes=slopes,
                                  **variants)
-    o = _Gather.apply(o, mesh, dims, out_shape)
+    o = _Gather.apply(o, mesh, spec)
     return zigzag_unshard(o, n_sp) if mode == "zigzag" else o

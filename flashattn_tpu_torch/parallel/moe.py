@@ -21,22 +21,49 @@ output is the sum over its k picked experts of gate x SwiGLU expert(x).
   the decode step (models/generate.py::DecodeGraph). The CPU runs the
   same code.
 
+Expert parallelism, the experts split over the ranks of a process group
+(the JAX functions' ``ep`` axis; each rank passes its block of the stacked
+experts, the router whole):
+
+- ``moe_ffn``, masked-dense: every rank runs its E/n experts over every
+  token (passed whole on every rank), each weighted by the router's gate
+  (0 where unpicked), and the float32 sums are summed over the group.
+  Exact: no capacity, no dropped token.
+- ``moe_ffn_a2a``, GShard's capacity dispatch: tokens split over the
+  group; each rank packs its (token, pick) pairs into per-expert queues
+  of `capacity` slots (choice-major priority: every first pick claims its
+  slot before any second pick; past the capacity a pair is dropped), one
+  all_to_all ships every expert its queues from every rank, the experts
+  run as batched products, a second all_to_all brings the outputs back,
+  and each token sums its kept picks times their gates in pick order. Each
+  kept pair owns one slot, so the dispatch is an index copy and the
+  combine a gather, both ways free of float atomics (``_SlotCopy``,
+  ``_SlotGather``).
+
+Both apply copy_to_group to the router's weight (and moe_ffn to the
+tokens): a rank's gradient of each is a share (its experts' gates, or its
+tokens), and the backward sums the shares over the group, so every rank
+holds the whole gradient of what it holds whole. On a group of one process
+(or without a process group) each is the single-device function.
+
 The expert products are plain matrix products, which the JAX package
-leaves to XLA outside any Pallas kernel; PyTorch computes them here, as
-torch.matmul computes the dense projections. ``moe_ffn`` and
-``moe_ffn_a2a``, the expert-parallel dispatchers, need an ``ep`` mesh of
-several cards (ROADMAP A9).
+leaves to XLA outside any Pallas kernel; PyTorch computes them here
+(``torch._grouped_mm``, ``torch.matmul`` and ``torch.bmm``), as
+torch.matmul computes the dense projections.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Mapping
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from flashattn_tpu_torch.ops.common import unported
+from flashattn_tpu_torch.parallel.collectives import (all_to_all_group, copy_to_group,
+                                                      reduce_from_group)
+from flashattn_tpu_torch.parallel.ring import group_size_rank
 
 ROUTED = ("router", "w_gate", "w_up", "w_down")  # the routed experts' parameters
 
@@ -180,11 +207,117 @@ def router_aux_loss(x: torch.Tensor, router_w: torch.Tensor, top_k: int = 2) -> 
     return e * (f * probs.mean(dim=0)).sum()
 
 
-def moe_ffn(*args, **kwargs):
-    """The masked-dense expert-parallel FFN over an ``ep`` mesh: ROADMAP A9."""
-    raise unported("moe_ffn, the expert-parallel FFN over an ep mesh", "A9")
+def moe_ffn(x: torch.Tensor, params: Mapping[str, torch.Tensor], top_k: int = 2,
+            group=None, activation: str = "silu", norm_topk: bool = True) -> torch.Tensor:
+    """The masked-dense expert-parallel FFN; every rank of `group` calls it
+    with the same tokens x [T, H], the router whole and its block of E/n
+    experts (rank r: experts r E/n ... (r + 1) E/n - 1) -> [T, H] in x's
+    dtype on every rank: the JAX function's loop over the local experts
+    (float32 accumulator, ascending expert id) and its psum."""
+    n, idx = group_size_rank(group)
+    e_local = params["w_gate"].shape[0]
+    x = copy_to_group(x, group)
+    ids, gates = router_gates(x, copy_to_group(params["router"], group), top_k, norm_topk)
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for j in range(e_local):
+        weight = torch.where(ids == idx * e_local + j, gates, 0.0).sum(dim=-1)
+        y = swiglu(x, params["w_gate"][j], params["w_up"][j], params["w_down"][j], activation)
+        acc = acc + y.float() * weight[:, None]
+    return reduce_from_group(acc, group).to(x.dtype)
 
 
-def moe_ffn_a2a(*args, **kwargs):
-    """The all_to_all capacity dispatch over an ``ep`` mesh: ROADMAP A9."""
-    raise unported("moe_ffn_a2a, the all_to_all expert dispatch over an ep mesh", "A9")
+def default_capacity(capacity_factor: float, top_k: int, tokens: int, num_experts: int) -> int:
+    """A queue's slots, the JAX function's default: ceil(cf k T_local / E)
+    (at least 1) rounded up to a multiple of 8."""
+    c = max(1, math.ceil(capacity_factor * top_k * tokens / num_experts))
+    return -(-c // 8) * 8
+
+
+def capacity_slots(ids: torch.Tensor, num_experts: int, capacity: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The queue slots of a rank's picks ids [T, k] -> (dest [k T], keep
+    [k T]), choice-major (entry c T + t is token t's pick c): an entry's
+    position in its expert's queue is the count of earlier entries of the
+    same expert, it is kept below `capacity`, and a kept entry's slot is
+    expert * capacity + position, a dropped one's num_experts * capacity
+    (past the queues). The JAX function's cumsum of one-hots, bit for bit."""
+    ids_cm = ids.t().reshape(-1)
+    onehot = F.one_hot(ids_cm, num_experts).to(torch.int32)
+    pos = (torch.cumsum(onehot, 0) - onehot).gather(1, ids_cm[:, None])[:, 0]
+    keep = pos < capacity
+    dest = torch.where(keep, ids_cm * capacity + pos, num_experts * capacity)
+    return dest, keep
+
+
+class _SlotCopy(torch.autograd.Function):
+    """rows [N, H] into `slots` queue rows by an index copy (dest: each kept
+    row's own slot; the dropped ones' index `slots` falls off the end);
+    the backward gathers each row's slot of the gradient (0 for a dropped
+    one)."""
+
+    @staticmethod
+    def forward(ctx, rows, dest, slots):
+        ctx.save_for_backward(dest)
+        out = rows.new_zeros(slots + 1, rows.shape[1])
+        return out.index_copy_(0, dest, rows.contiguous())[:slots]
+
+    @staticmethod
+    def backward(ctx, g):
+        (dest,) = ctx.saved_tensors
+        return torch.cat([g, g.new_zeros(1, g.shape[1])]).index_select(0, dest), None, None
+
+
+class _SlotGather(torch.autograd.Function):
+    """Each entry's queue row of queue [slots, H] (dest; a dropped entry's
+    `slots` reads zeros); the backward copies each kept entry's gradient
+    into its own slot."""
+
+    @staticmethod
+    def forward(ctx, queue, dest):
+        ctx.save_for_backward(dest)
+        ctx.slots = queue.shape[0]
+        return torch.cat([queue, queue.new_zeros(1, queue.shape[1])]).index_select(0, dest)
+
+    @staticmethod
+    def backward(ctx, g):
+        (dest,) = ctx.saved_tensors
+        out = g.new_zeros(ctx.slots + 1, g.shape[1]).index_copy_(0, dest, g.contiguous())
+        return out[:ctx.slots], None
+
+
+def moe_ffn_a2a(x: torch.Tensor, params: Mapping[str, torch.Tensor], top_k: int = 2,
+                group=None, capacity_factor: float = 2.0, capacity: int | None = None,
+                activation: str = "silu", norm_topk: bool = True) -> torch.Tensor:
+    """GShard's all_to_all capacity dispatch (module docstring); every rank
+    of `group` calls it with its block of the tokens x [T_local, H], the
+    router whole and its block of E/n experts -> [T_local, H] in x's dtype,
+    its tokens' outputs.
+
+    capacity: the slots of each (expert, source rank) queue; None for
+    default_capacity(capacity_factor, top_k, T_local, E). A pick past its
+    expert's capacity is dropped: it adds nothing to its token's output."""
+    n, _ = group_size_rank(group)
+    e = params["router"].shape[1]
+    e_local = params["w_gate"].shape[0]
+    if e_local * n != e:
+        raise ValueError(f"{e} experts in blocks of {e_local} over {n} ranks")
+    t, h = x.shape
+    if capacity is None:
+        capacity = default_capacity(capacity_factor, top_k, t, e)
+    ids, gates = router_gates(x, copy_to_group(params["router"], group), top_k, norm_topk)
+    dest, keep = capacity_slots(ids, e, capacity)
+    queues = _SlotCopy.apply(x.repeat(top_k, 1), dest, e * capacity)  # [E C, H]
+    # expert j's queues go to the rank holding it; each rank gets [n, E/n, C, H]
+    got = all_to_all_group(queues.view(n, e_local, capacity, h), group)
+    ein = got.transpose(0, 1).reshape(e_local, n * capacity, h)
+    g = torch.bmm(ein, params["w_gate"])
+    u = torch.bmm(ein, params["w_up"])
+    y = torch.bmm(_act(g.float(), activation).to(x.dtype) * u, params["w_down"])
+    back = all_to_all_group(y.view(e_local, n, capacity, h).transpose(0, 1).contiguous(), group)
+    y_tok = _SlotGather.apply(back.reshape(e * capacity, h), dest)  # [k T, H]
+    w = (gates.t().reshape(-1) * keep).view(top_k, t, 1)
+    parts = y_tok.float().view(top_k, t, h) * w
+    out = parts[0]
+    for j in range(1, top_k):  # the picks in order, as the JAX reshape(k, T, H).sum(0)
+        out = out + parts[j]
+    return out.to(x.dtype)

@@ -78,6 +78,20 @@ def kernels(sass: str) -> dict[str, list[str]]:
     return out
 
 
+def tensor_core_counts(sass: str) -> dict[str, dict[str, int]]:
+    """{kernel label: {"HMMA": n, "HGMMA": n, "IMMA": n}}, the tensor-core
+    instructions by kind in each kernel of cuobjdump -sass's text: what
+    `kernels` would give, counted without splitting the text into lines."""
+    parts = re.split(r"Function : (\S+)", sass)
+    out = {}
+    for name, body in zip(parts[1::2], parts[2::2]):
+        n = dict.fromkeys(("HMMA", "HGMMA", "IMMA"), 0)
+        for op in re.findall(r"\b(HMMA|HGMMA|IMMA)\.", body):
+            n[op] += 1
+        out[kernel_label(name)] = n
+    return out
+
+
 def old_form(label: str, old: dict) -> str:
     """The old build's label of a kernel here: the same, or without a last
     `false` template argument."""

@@ -1,5 +1,7 @@
 """The harness of the parallel layer's CPU tests (tests/test_torch_ring.py,
-tests/test_torch_ring_4ranks.py, tests/test_torch_parallel_model.py): the
+tests/test_torch_ring_4ranks.py, tests/test_torch_parallel_model.py and the
+tensor-parallel, pipeline, sharded-decode, expert-parallel and failure
+tests): the
 port's ranks run in a subprocess (tests/_torch_parallel_worker.py), the JAX
 package's functions under shard_map with plain per-hop kernels
 (tests/_jax_plain_attention.py), each side from the same numpy inputs."""
@@ -62,14 +64,29 @@ def jax_case(c: dict) -> list:
     return [np.asarray(o)] + [np.asarray(g) for g in grads]
 
 
+class Ranks:
+    """`job` on `cases` in `world` ranks (tests/_torch_parallel_worker.py),
+    started at construction, so that the test computes its JAX side
+    meanwhile; results() waits for every rank's."""
+
+    def __init__(self, job: str, world: int, cases: dict, tmp_path: Path):
+        case_file = tmp_path / "cases.pt"
+        torch.save(cases, case_file)
+        self.world, self.tmp_path = world, tmp_path
+        self.proc = subprocess.Popen([sys.executable, str(WORKER), job, str(world),
+                                      str(case_file), str(tmp_path)],
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def results(self) -> list[dict]:
+        _, err = self.proc.communicate(timeout=240)
+        assert self.proc.returncode == 0, err[-4000:]
+        return [torch.load(self.tmp_path / f"rank{r}.pt", weights_only=False)
+                for r in range(self.world)]
+
+
 def run_ranks(job: str, world: int, cases: dict, tmp_path: Path) -> list[dict]:
     """Every rank's results of `job` on `cases` (tests/_torch_parallel_worker.py)."""
-    case_file = tmp_path / "cases.pt"
-    torch.save(cases, case_file)
-    proc = subprocess.run([sys.executable, str(WORKER), job, str(world), str(case_file),
-                           str(tmp_path)], capture_output=True, text=True, timeout=240)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(world)]
+    return Ranks(job, world, cases, tmp_path).results()
 
 
 def check_attention(world: int, cases: dict, tmp_path: Path) -> None:

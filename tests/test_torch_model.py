@@ -193,10 +193,16 @@ def test_alibi_under_grad_raises_naming_a4(route):
 
 @pytest.mark.parametrize("dispatcher", ["moe_ffn", "moe_ffn_a2a"])
 def test_ep_dispatchers_raise_naming_a9(dispatcher):
-    """The expert-parallel MoE dispatchers need an ep mesh of several cards
-    (ROADMAP A9); the single-device FFN is ported (tests/test_torch_moe.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        getattr(moe, dispatcher)(torch.zeros(4, 8), {}, axis_name="ep")
+    """The expert-parallel MoE dispatchers are ported (they raised naming
+    ROADMAP A9 before): on a group of one process, with no process group,
+    each is the single-device function, its output within 1e-6 of
+    moe_ffn_dense_reference's (float32 sums in another order). Over ranks
+    they are held against the JAX functions in tests/test_torch_moe_ep.py."""
+    params = moe.init_moe_params(torch.Generator().manual_seed(0), 16, 32, 4)
+    x = torch.randn((12, 16), generator=torch.Generator().manual_seed(1))
+    out = getattr(moe, dispatcher)(x, params, 2)
+    torch.testing.assert_close(out, moe.moe_ffn_dense_reference(x, params, 2), atol=1e-6,
+                               rtol=1e-6)
 
 
 @pytest.mark.parametrize("field,value", [

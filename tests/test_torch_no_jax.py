@@ -10,8 +10,11 @@ PackedDataset through prefetch into train.train, a Gemma-2-shaped model
 from an int8 KV pool with chunked admission, a Qwen3-shaped model read
 by load_hf_dir from a safetensors checkpoint, served from an int8 KV pool
 and decoded speculatively, and a Qwen2-MoE-shaped model, its experts read
-from one entry each by load_hf_dir, served from an int8 KV pool). A CPU call takes the plain versions and
-launches no kernel."""
+from one entry each by load_hf_dir, served from an int8 KV pool; the
+parallel layer on one gloo rank: the rings, Ulysses, the model under
+data x sp, model and pp, the sharded decode, the expert dispatchers and
+the collective probe). A CPU call takes the plain versions and launches no
+kernel."""
 
 import os
 import subprocess
@@ -148,7 +151,9 @@ srv.submit(Request(uid=7, prompt=list(range(45)), max_new_tokens=4))
 assert len(srv.run()[7]) == 4
 # The parallel layer on a process group of one gloo rank: the zigzag ring
 # through the global view with a window and ALiBi (dyn_pos_offset), its
-# gradient, Ulysses, and an SGD step and train.train under a data x sp mesh.
+# gradient, Ulysses, an SGD step and train.train under a data x sp mesh, a
+# loss under model, pp (remat) and the sharded decode, both expert
+# dispatchers and the collective probe.
 import os
 from flashattn_tpu_torch import parallel
 with tempfile.TemporaryDirectory() as rdv:
@@ -164,6 +169,22 @@ with tempfile.TemporaryDirectory() as rdv:
     state, hist = train.train(cp, iter([torch.randint(0, 512, (1, 17))] * 2),
                               train.TrainConfig(warmup_steps=1), steps=2, log_every=1, mesh=mesh)
     assert bool(torch.isfinite(loss)) and len(hist) == 2
+    # Tensor, pipeline and expert parallelism, sharded decode and the probe.
+    tp = parallel.make_mesh({"data": 1, "model": 1})
+    llama.loss_fn(llama.shard_params(cp, tp), torch.randint(0, 512, (2, 17)), mesh=tp).backward()
+    pp = parallel.make_mesh({"data": 1, "pp": 1})
+    llama.pipeline_loss_fn(llama.stack_pipeline_params(cp, 1, pp), torch.randint(0, 512, (2, 17)),
+                           pp, 2, remat=True).backward()
+    sp = parallel.make_mesh({"sp": 1})
+    from flashattn_tpu_torch.ops.kvcache import init_cache
+    kv = init_cache(1, 2, 64, 16, dtype=torch.float32, device="cpu")
+    kv.length.fill_(10)
+    assert parallel.sharded_decode_attention(torch.randn(1, 4, 16), kv, sp).shape == (1, 4, 16)
+    experts = parallel.init_moe_params(torch.Generator().manual_seed(6), 16, 32, 4)
+    xs = torch.randn(8, 16)
+    assert parallel.moe_ffn(xs, experts, 2).shape == parallel.moe_ffn_a2a(xs, experts, 2).shape
+    from flashattn_tpu_torch.utils.failure import probe_collectives
+    assert probe_collectives(sp, 30.0, device="cpu")
     torch.distributed.destroy_process_group()
 from flashattn_tpu_torch.ops import launches
 assert not any(launches.read().values()), f"CPU call counted a launch: {launches.read()}"

@@ -6,13 +6,14 @@ rings with plain per-hop kernels: tests/_jax_plain_attention.py) and
 against the port's own unsharded loss and gradients; with and without a
 window and ALiBi (the ring's positions are global). Every rank returns the
 global loss and ends the step with the same parameters. A "model", "pp"
-or "ep" axis raises naming ROADMAP A9.
+or "ep" axis beside "data" runs, its loss the unsharded one's.
 
 Tolerance: the loss within 2e-5 (relative), gradients and the parameters
 after the step atol 1e-5 and rtol 1e-4 (float32 sums over ranks and hops in
 another order)."""
 
 import dataclasses
+import functools
 from unittest import mock
 
 import jax
@@ -22,12 +23,12 @@ import pytest
 import torch
 
 from _jax_plain_attention import plain_attention, plain_kernels
-from _parallel_harness import run_ranks
+from _parallel_harness import Ranks, run_ranks
 from flashattn_tpu.models import llama as jax_llama
 from flashattn_tpu.models.config import TINY as JAX_TINY
 from flashattn_tpu.parallel import make_mesh as jax_make_mesh
 from flashattn_tpu_torch.models import llama
-from flashattn_tpu_torch.models.config import TINY
+from flashattn_tpu_torch.models.config import TINY, TINY_MOE
 from flashattn_tpu_torch.models.convert import params_from_jax
 from flashattn_tpu_torch.parallel.mesh import Mesh
 from flashattn_tpu_torch.utils.verify import verify_results
@@ -62,7 +63,7 @@ def jax_step(jcfg, params, tokens):
     return float(loss), as_torch(grads), as_torch(new)
 
 
-def test_data_sp_step_matches_jax_and_unsharded(tmp_path):
+def test_data_sp_step_matches_jax_and_unsharded(tmp_path, axis_runs):
     cases, refs = {}, {}
     for i, name in enumerate(VARIANTS):
         jcfg, cfg, params, tokens = case(name, i)
@@ -97,13 +98,41 @@ def test_data_sp_step_matches_jax_and_unsharded(tmp_path):
     assert not failures, "\n".join(failures[:20])
 
 
+AXIS_CFGS = {"model": TINY, "pp": TINY, "ep": TINY_MOE}
+
+
+@pytest.fixture(scope="module")
+def axis_runs(tmp_path_factory):
+    """The "axes" job's losses, started at the module's first test so that
+    it runs beside the data x sp one: {axis: (every rank's loss, the
+    unsharded port's)}."""
+    cases, want = {}, {}
+    for i, (axis, base) in enumerate(AXIS_CFGS.items()):
+        cfg = dataclasses.replace(base, dtype=torch.float32)
+        model = llama.init_params(cfg, torch.Generator().manual_seed(i), device="cpu")
+        tokens = np.random.default_rng(i).integers(0, cfg.vocab_size, (4, 17)).astype(np.int32)
+        cases[axis] = dict(cfg=cfg, params=model.state_dict(), tokens=tokens,
+                           mesh={"data": 2, axis: 2})
+        with torch.no_grad():
+            want[axis] = float(llama.loss_fn(model, torch.from_numpy(tokens)))
+    started = Ranks("axes", 4, cases, tmp_path_factory.mktemp("axes"))
+    return functools.cache(lambda: ({a: [r[a] for r in started.results()] for a in AXIS_CFGS},
+                                    want))
+
+
 @pytest.mark.parametrize("axis", ["model", "pp", "ep"])
-def test_unported_axes_raise_naming_a9(axis):
-    """Tensor, pipeline and expert parallelism are not ported: a mesh with a
-    "model", "pp" or "ep" axis above size 1 raises naming ROADMAP A9 before
-    any exchange; size 1 is no axis."""
-    model = llama.Llama(dataclasses.replace(TINY, dtype=torch.float32), device="cpu")
-    tokens = torch.zeros((1, 9), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        llama.loss_fn(model, tokens, mesh=Mesh({axis: 2}, {axis: 0}, {}))
-    llama.check_mesh(Mesh({"sp": 1, axis: 1}, {"sp": 0, axis: 0}, {}))
+def test_unported_axes_raise_naming_a9(axis_runs, axis):
+    """Tensor, pipeline and expert parallelism are ported (a "model", "pp" or
+    "ep" axis raised naming ROADMAP A9 before) and run: under data 2 x {axis} 2
+    on 4 gloo ranks (the rank's shard_params shard, or its
+    stack_pipeline_params stage through pipeline_loss_fn) every rank's loss
+    is the unsharded port's, within 2e-5; check_mesh takes the axis at any
+    size and raises ValueError for an axis the model does not know. The
+    parity of each against JAX: tests/test_torch_tensor_parallel.py,
+    test_torch_pipeline.py, test_torch_moe_ep.py."""
+    llama.check_mesh(Mesh({"sp": 1, axis: 2}, {"sp": 0, axis: 0}, {}))
+    with pytest.raises(ValueError, match="axes"):
+        llama.check_mesh(Mesh({"tensor": 2}, {"tensor": 0}, {}))
+    got, want = axis_runs()
+    for r, loss in enumerate(got[axis]):
+        assert abs(loss - want[axis]) <= 2e-5 * abs(want[axis]), (r, loss, want[axis])

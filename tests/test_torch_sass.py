@@ -1,5 +1,6 @@
 """utils/sass.py on the CPU: kernel labels from mangled names, the
-instructions of a cuobjdump -sass listing by kernel, and the comparison of
+instructions of a cuobjdump -sass listing by kernel and their tensor-core
+instructions counted, and the comparison of
 two builds (a kernel that gained a last `false` template argument matched
 with its old form). cuobjdump itself runs only beside nvcc."""
 
@@ -51,6 +52,16 @@ def test_kernels_by_label():
             "LDC R1, c[0x0][0x28]", "HMMA.16816.F32.BF16 R4, R8, R12, R4", "@!P0 EXIT"],
         "flash_bwd_fused_kernel<bf16, 64, true>": ["LDC R1, c[0x0][0x28]"],
     }
+
+
+def test_tensor_core_counts_equal_the_kernels_instructions():
+    """The counts read without splitting the listing into lines are those
+    of sass.kernels' instructions."""
+    want = {label: {op: sum(ins.startswith(op + ".") for ins in instructions)
+                    for op in ("HMMA", "HGMMA", "IMMA")}
+            for label, instructions in sass.kernels(LISTING).items()}
+    assert sass.tensor_core_counts(LISTING) == want
+    assert want["flash_bwd_fused_mma_kernel<128, 0, false, false, false>"]["HMMA"] == 1
 
 
 def test_compare_matches_a_kernel_that_gained_a_false_flag():
