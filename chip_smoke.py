@@ -4,12 +4,14 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the fourteen CUDA libraries from csrc/ (into build/flashattn_tpu_torch/,
-one nvcc each, all at once) and runs twenty phases, printing one line per
+Builds the sixteen CUDA libraries from csrc/ (into build/flashattn_tpu_torch/,
+one nvcc each, all at once) and runs twenty-two phases, printing one line per
 check and each phase's seconds, then the kernels line:
 
 1. environment: torch/CUDA versions, the card's name and power limit, the
-   kernels' build time and their compiler report (no spills in the
+   kernels' build time (from the 12th library built on, a process
+   compiles phase 2's flex_attention cases into this run's Inductor cache,
+   until phase 2 ends) and their compiler report (no spills in the
    tensor-core kernels and the split-K kernel, no wgmma serialized), and
    the tensor-core instructions (HMMA/HGMMA/IMMA) in the SASS of each
    tensor-core kernel, which must be there for K1's bf16 kernel (HGMMA, at
@@ -321,12 +323,34 @@ check and each phase's seconds, then the kernels line:
    one process's K2 on them. (c) Qwen3-30B-A3B's MoE FFN at layer 0's
    widths, T 2,000, over ep 2: moe_ffn and moe_ffn_a2a against
    moe_ffn_grouped in one process; its widths cut to 2 layers in float32,
-   B 1, S 2,048: forward under {"ep": 2} against one process under the
-   logits rule. (d) resilient_train on LLAMA_1B's widths cut to 2 layers, a
-   NaN loss injected once: one recovery, the step count reached. Each
+   B 1, S 2,048: one AdamW train_step under {"ep": 2}, its forward's logits
+   against one process's step's under the logits rule, the step itself
+   phase 22 (d). (d) resilient_train on LLAMA_1B's widths cut to 2 layers,
+   a NaN loss injected once: one recovery, the step count reached. Each
    sub-phase prints its seconds; the times of ranks that share one card
    are wall time, never a speed;
-22. the `kernels` JSON line: every kernel with its launches on the path that
+22. mixture-of-experts training (phase_moe_train): torch._grouped_mm's
+   forward and backward against a per-expert torch.matmul loop at
+   Qwen3-30B-A3B's expert widths on a routing's offsets and on counts off
+   8 and 16 rows (bf16 gates, float32 atol 1e-5, rtol 1e-4), no padding;
+   moe_ffn_grouped's forward and backward twice at T 4,096, every result
+   torch.equal (the gather's fixed-order backward), timed beside its
+   bounds and the masked-dense loop; (a) one AdamW train_step of
+   Qwen3-30B-A3B's widths cut to 4 layers, bf16, B 1, S 2,048, through K1,
+   the backward autotune picks and the grouped dispatch against the plain
+   route (plain attention, the masked-dense loop) with the plain route's
+   routing teacher-forced to the kernel run's picks (each changed pick
+   held to pick_margins), under phase 7's gates on every gradient; (b) the
+   same in float32, free-running, at 2 layers of Qwen3-30B-A3B's and of
+   Qwen1.5-MoE-A2.7B's widths; (c) train.train, 6 AdamW steps of
+   Qwen3-30B-A3B's widths at 8 layers (or the deepest cut that fits,
+   printed), B 1, S 4,096: finite losses, the last below the first; ms,
+   tokens/s and peak memory a step; (d), in phase 21's ranks: one AdamW
+   train_step of phase 21 (c)'s float32 2-layer cut under {"ep": 2} (the
+   a2a dispatch, no pair dropped) against one process's step under phase
+   7's gates: the loss, the grad norm, every gradient's and every update's
+   cosine on each rank's blocks;
+23. the `kernels` JSON line: every kernel with its launches on the path that
    runs it, its error against its plain version, its time, bound, plain and
    library times (the windowed K1, K2 and paged K2 from phases 2 and 9, the
    windowed and segmented K1, B3, B4 and B5 from phases 2 and 10, the
@@ -343,7 +367,9 @@ check and each phase's seconds, then the kernels line:
    path's; K1, B3, B4 and B5 with dyn_pos_offset from phases 2 and 20,
    their launches those of phase 20 (a)'s window + ALiBi zigzag on both
    ranks; phase 21's launches of K1, B3, B4, B5, K2 (bf16, int8, fp8), K2
-   with the LSE and the paged K2 added to their rows).
+   with the LSE and the paged K2 added to their rows, phase 22's of K1 and
+   the backward to theirs). Phase 22 prints the MoE FFN backward's row
+   (torch._grouped_mm: PyTorch's, no kernel of ours) on a line of its own.
 
 Any failed check raises: the script then exits nonzero and does not print
 its last line. It needs a CUDA device and never falls back to the CPU. The
@@ -435,10 +461,7 @@ def phase_environment() -> str:
           f"cuda {torch.version.cuda}")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this script runs on the GPU only")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(smi.splitlines()[0])
+    print(card())
     name = torch.cuda.get_device_name(0)
     print(f"[env] device {name} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
@@ -1218,6 +1241,9 @@ def flex_mod_ms(q, k, v, window: int | None, segment_ids=None, do=None,
                                block_mask=block_mask, enable_gqa=True)
         else:
             run = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)  # noqa: E731
+        if not FLEX_TIMED:  # flex_warmup's process: compile (the backward's too), time nothing
+            run()
+            return None
         return event_time_ms(run, warmup=2, iters=10 if do is None else 3)
     except Exception as e:  # a competitor that does not build here is reported, not run
         print(f"[kernels] flex_attention {what} with {mod} score_mod (window={window}, "
@@ -1440,6 +1466,8 @@ def flex_ms(q, k, v, ends=None, slopes=None, window=None, return_lse=False,
         torch.cuda.synchronize()
         check(bool(torch.isfinite(out[0] if return_lse else out).all()),
               "flex_attention gave non-finite output")
+        if not FLEX_TIMED:
+            return None
         return event_time_ms(run, warmup=2, iters=10)
     except Exception as e:  # a competitor that does not build here is reported, not run
         print(f"[kernels] flex_attention with {what} (window={window}) did not run on this "
@@ -2807,8 +2835,7 @@ def phase_train_step(model, gen: torch.Generator) -> dict[str, int]:
           and launches["decode"] == launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0,
           f"kernel train step launched {launches}")
     check(not any(plain_launches.values()), f"plain train step launched {plain_launches}")
-    cos = {n: float(F.cosine_similarity(g_k[n].float().flatten(), g_p[n].float().flatten(),
-                                        dim=0)) for n in g_k}
+    cos = cosines(g_k, g_p)
     worst = min(cos, key=cos.get)
     print(f"[train] kernels vs plain: |dloss| {abs(l_k - l_p):.6f} (<= {LOSS_ATOL}), "
           f"grad_norm rel {abs(n_k - n_p) / n_p:.6f} (<= {GRAD_NORM_REL}), gradient cosine "
@@ -4227,7 +4254,7 @@ def forced_routing(picks: list):
              else torch.exp(vals - torch.logsumexp(logits, dim=-1, keepdim=True)))
         own = torch.topk(logits, top_k, dim=-1)
         margins.append(pick_margins(kern_logits, logits, ids, own.indices))
-        kth, low = own.values[:, -1], vals.min(dim=-1).values
+        kth, low = own.values[:, -1].detach(), vals.min(dim=-1).values.detach()
         moved = (torch.sort(own.indices, dim=-1).values != ids).any(-1)
         for t in moved.nonzero()[:, 0].tolist():
             ties.append((c, t, bf16_steps(float(kth[t]), float(low[t]))))
@@ -5079,13 +5106,14 @@ def flex_dyn_ms(q, k, v, off: int, window: int, slopes, do) -> tuple:
         out = flex(*leaves, score_mod=score_mod, block_mask=block_mask, enable_gqa=True)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(out).all()), "flex_attention gave non-finite output")
+        iters = 10 if FLEX_TIMED else 1  # flex_warmup's process: compile both, time nothing
         with torch.no_grad():
             fwd = event_time_ms(lambda: flex(q, k, v, score_mod=score_mod,
                                              block_mask=block_mask, enable_gqa=True),
-                                warmup=2, iters=10)
+                                warmup=2 * FLEX_TIMED, iters=iters)
         bwd = event_time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
-                            warmup=2, iters=3)
-        return fwd, bwd
+                            warmup=2 * FLEX_TIMED, iters=min(iters, 3))
+        return (fwd, bwd) if FLEX_TIMED else (None, None)
     except Exception as e:  # a competitor that does not build here is reported, not run
         print(f"[dynoff] flex_attention with the left edge and ALiBi did not run on this "
               f"machine: {type(e).__name__}: "
@@ -5733,10 +5761,11 @@ def par_experts(rank: int) -> dict[str, int]:
     within PAR_MOE_ULPS bf16 steps of the largest output (the experts'
     float32 sums in another order, rounded to bf16), the a2a's dropped
     pairs counted; then the model's widths cut to PAR_MOE_LAYERS layers in
-    float32, B 1, S PAR_MOE_S: forward under {"ep": 2} (the a2a dispatch at
-    PAR_MOE_MODEL_CF, no pick dropped) against one process under the
-    logits rule, free-running (phase 16's float32 run). Returns the
-    forward's launches."""
+    float32, B 1, S PAR_MOE_S: one AdamW train_step under {"ep": 2} (the
+    a2a dispatch at PAR_MOE_MODEL_CF, no pick dropped), its forward's
+    logits against one process's under the logits rule, free-running
+    (phase 16's float32 run), and phase 22 (d)'s gates on the step
+    (par_expert_step). Returns the step's launches."""
     from flashattn_tpu_torch import parallel
     from flashattn_tpu_torch.parallel.collectives import gather_from_group
     from flashattn_tpu_torch.parallel.mesh import local_block
@@ -5797,12 +5826,83 @@ def par_experts(rank: int) -> dict[str, int]:
     cfg32 = dataclasses.replace(moe_hf_config(QWEN3_30B_A3B_JSON, torch.float32,
                                               layers=PAR_MOE_LAYERS),
                                 moe_capacity_factor=PAR_MOE_MODEL_CF)
-    whole = init_params(cfg32, torch.Generator(device="cuda").manual_seed(SEED + 28),
-                        device="cuda")
-    shard = llama.shard_params(whole, ep)
-    tokens = torch.randint(0, cfg32.vocab_size, (1, PAR_MOE_S),
+    tokens = torch.randint(0, cfg32.vocab_size, (1, PAR_MOE_S + 1),
                            generator=torch.Generator(device="cuda").manual_seed(SEED + 29),
                            device="cuda")
+    got = par_expert_step(rank, ep, cfg32, tokens)
+    torch.distributed.barrier()
+    return got
+
+
+# Phase 21 (c)'s float32 model and phase 22 (d): one AdamW step of the cut
+# under {"ep": 2}. Its first step runs at the full learning rate (no
+# warmup), so the updates are compared too.
+PAR_MOE_TC = train.TrainConfig(learning_rate=3e-4, warmup_steps=0, total_steps=6)
+PAR_MOE_SEED = SEED + 28  # the whole float32 model's weights
+
+
+def cosines(a: dict[str, torch.Tensor], b: dict[str, torch.Tensor]) -> dict[str, float]:
+    """Each named tensor's cosine between two maps, in float32."""
+    return {n: float(F.cosine_similarity(a[n].float().flatten(), b[n].float().flatten(), dim=0))
+            for n in a}
+
+
+@contextlib.contextmanager
+def model_logits(out: list):
+    """Records the logits of each llama.forward call made while active (a
+    train step's forward: loss_fn's)."""
+    saved = llama.forward
+
+    def forward(*args, **kw):
+        logits = saved(*args, **kw)
+        out.append(logits.detach())
+        return logits
+
+    llama.forward = forward
+    try:
+        yield out
+    finally:
+        llama.forward = saved
+
+
+def par_expert_step(rank: int, ep, cfg, tokens) -> dict[str, int]:
+    """The model part of phase 21 (c) and phase 22 (d), in rank `rank` of
+    phase 21's two: one AdamW train.train_step of `cfg` (Qwen3-30B-A3B's
+    widths cut to PAR_MOE_LAYERS layers, float32, B 1, S PAR_MOE_S) under
+    {"ep": 2}, each rank its block of every layer's experts, the a2a
+    dispatch at PAR_MOE_MODEL_CF (the dropped pairs counted: none), against
+    one process's train_step from the same weights on the same tokens. The
+    step's forward logits against one process's under the logits rule,
+    free-running (phase 21 (c)'s gate, phase 16's float32 run; printed by
+    rank 0); then phase 7's gates: the loss, the grad norm, every
+    gradient's cosine (the rank's expert blocks against the same blocks of
+    the whole model's) and every parameter's update (its value after the
+    step less its value before). Two ranks on one card cannot hold both
+    models beside the ep step's AdamW state and activations (the reckoning
+    prints), so each side draws the weights from PAR_MOE_SEED, and the
+    ranks compare in turn. Returns the ep step's launches."""
+    from flashattn_tpu_torch.parallel.mesh import local_block
+
+    log = f"[par-moe] rank {rank}"
+    specs = llama.param_shardings(cfg)
+
+    def drawn():
+        return init_params(cfg, torch.Generator(device="cuda").manual_seed(PAR_MOE_SEED),
+                           device="cuda")
+
+    shard = llama.shard_params(drawn(), ep)
+    n_shard = sum(p.numel() for p in shard.parameters())
+    n_whole = sum(p.numel() for p in llama.Llama(cfg, device="meta").parameters())
+    if rank == 0:
+        print(f"[par-moe] memory, reckoned (float32, 4 B a value): the ep step holds on each "
+              f"rank its shard ({n_shard / 1e9:.3f} B parameters), their gradients and AdamW's "
+              f"two moments, {16 * n_shard / 1e9:.1f} GB, {2 * 16 * n_shard / 1e9:.1f} GB for "
+              f"both ranks, plus each rank's activations and a2a queues; a rank's comparison "
+              f"then keeps the step's gradients and parameters ({8 * n_shard / 1e9:.1f} GB a "
+              f"rank) and runs one process's step ({n_whole / 1e9:.3f} B parameters: "
+              f"{16 * n_whole / 1e9:.1f} GB, and {4 * n_shard / 1e9:.1f} GB of its blocks "
+              f"before the step)", flush=True)
+    state = train.init_train_state(shard, PAR_MOE_TC)
     drops = []
     slots = moe.capacity_slots
 
@@ -5811,34 +5911,79 @@ def par_experts(rank: int) -> dict[str, int]:
         drops.append(int((~keep).sum()))
         return dest, keep
 
+    shape = (1, cfg.num_heads, cfg.num_kv_heads, PAR_MOE_S, PAR_MOE_S, cfg.head_dim, True,
+             cfg.dtype)
+    impl = flash_bwd.resolve_impl("auto", shape)
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
     moe.capacity_slots = counted
     try:
-        with torch.no_grad():
-            logits = llama.forward(shard, tokens, mesh=ep)
+        with model_logits([]) as logits:
+            state, metrics = train.train_step(state, tokens, mesh=ep)
     finally:
         moe.capacity_slots = slots
+    loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
     torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
     got = {n: c for n, c in read_launches().items() if c}
-    check(got == {"flash_fwd": cfg32.num_layers}, f"{log}: the ep forward launched {got}")
-    print(f"{log}: Qwen3-30B-A3B widths, {cfg32.num_layers} layers, float32, B=1 S={PAR_MOE_S}, "
-          f"forward under ep 2 ({cfg32.num_experts // PAR_WORLD} experts a rank, the a2a "
-          f"dispatch, capacity factor {PAR_MOE_MODEL_CF:g}: dropped pairs by layer {drops}) "
-          f"in {time.perf_counter() - t0:.1f} s wall (not a speed), launches {got}", flush=True)
-    check(len(drops) == cfg32.num_layers and not any(drops), f"{log}: the a2a dropped {drops}")
-    if rank == 0:
-        del shard
-        with torch.no_grad():
-            ref = llama.forward(whole, tokens)
-        compare_logits(f"float32, {cfg32.num_layers} layers, forward under ep 2 against one "
-                       "process (free-running routes)", [logits], [ref],
-                       [f"prefill S={PAR_MOE_S}"], model="Qwen3-30B-A3B")
-    del whole, logits
+    want = {"flash_fwd": cfg.num_layers, **backward_launches(impl, cfg.num_layers)}
+    check(got == want, f"{log}: the ep train step launched {got}, want {want}")
+    print(f"{log}: Qwen3-30B-A3B widths, {cfg.num_layers} layers, float32, B=1 S={PAR_MOE_S}, "
+          f"AdamW train_step under ep 2 ({cfg.num_experts // PAR_WORLD} experts a rank, the a2a "
+          f"dispatch, capacity factor {PAR_MOE_MODEL_CF:g}: dropped pairs by layer {drops}) in "
+          f"{step_s:.1f} s wall (not a speed): loss {loss:.6f} grad_norm {gnorm:.6f}, launches "
+          f"{got}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    check(drops == [0] * cfg.num_layers, f"{log}: the a2a dropped {drops}")
+    grads = {n: p.grad for n, p in shard.named_parameters()}
+    after = {n: p.detach() for n, p in shard.named_parameters()}
+    del state, shard
     gc.collect()
     torch.cuda.empty_cache()
     torch.distributed.barrier()
+    for turn in range(PAR_WORLD):
+        if rank == turn:
+            whole = drawn()
+            start = {n: local_block(p.detach(), specs[n], ep).clone()
+                     for n, p in whole.named_parameters()}
+            with model_logits([]) as ref_logits:
+                ref_state, ref = train.train_step(train.init_train_state(whole, PAR_MOE_TC),
+                                                  tokens)
+            l_ref, n_ref = float(ref["loss"]), float(ref["grad_norm"])
+            if rank == 0:
+                compare_logits(f"float32, {cfg.num_layers} layers, the train step's forward under "
+                               "ep 2 against one process's (free-running routes)", logits,
+                               ref_logits, [f"prefill S={PAR_MOE_S}"], model="Qwen3-30B-A3B")
+            g_ref = {n: local_block(p.grad, specs[n], ep) for n, p in whole.named_parameters()}
+            p_ref = {n: local_block(p.detach(), specs[n], ep)
+                     for n, p in whole.named_parameters()}
+            cos_g = cosines(grads, g_ref)
+            cos_u = cosines({n: after[n] - start[n] for n in after},
+                            {n: p_ref[n] - start[n] for n in p_ref})
+            moved = max(float((after[n] - p_ref[n]).abs().max()) for n in p_ref)
+            wg, wu = min(cos_g, key=cos_g.get), min(cos_u, key=cos_u.get)
+            print(f"[par-moe-train] rank {rank}: the ep step against one process's step "
+                  f"({n_whole / 1e9:.3f} B parameters, peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB): |dloss| "
+                  f"{abs(loss - l_ref):.3e} (<= {LOSS_ATOL}), grad_norm rel "
+                  f"{abs(gnorm - n_ref) / n_ref:.3e} (<= {GRAD_NORM_REL}); over this rank's "
+                  f"{len(cos_g)} parameters (its blocks of the experts) the gradient cosine min "
+                  f"{cos_g[wg]:.6f} ({wg}), the update's cosine min {cos_u[wu]:.6f} ({wu}) "
+                  f"(> {GRAD_COS}); parameters after the step max|d| {moved:.3e} (the learning "
+                  f"rate {PAR_MOE_TC.learning_rate:g})", flush=True)
+            check(abs(loss - l_ref) <= LOSS_ATOL and abs(gnorm - n_ref) <= GRAD_NORM_REL * n_ref
+                  and cos_g[wg] > GRAD_COS and cos_u[wu] > GRAD_COS,
+                  f"{log}: the ep step disagrees with one process's")
+            del ref_state, whole, start, g_ref, p_ref, ref_logits
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    del grads, after, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        print(f"[par-moe] the float32 cut: the ep step and both ranks' comparisons in "
+              f"{time.perf_counter() - t0:.1f} s wall", flush=True)
     return got
 
 
@@ -5934,6 +6079,481 @@ def phase_parallel() -> dict[str, int]:
     return launches
 
 
+# Phase 22: mixture-of-experts training (phase_moe_train). Qwen3-30B-A3B's
+# and Qwen1.5-MoE-A2.7B's config.json widths (QWEN3_30B_A3B_JSON,
+# QWEN15_MOE_JSON), their depth cut; random weights from the seed. AdamW
+# keeps its moments in the parameters' type: 8 B a parameter in bf16, 16 in
+# float32; Qwen3-30B-A3B's 48 layers (30.5 B parameters) cannot train on
+# one card.
+MOE_TRAIN_S = 2048
+MOE_TRAIN_LAYERS = 4  # (a) bf16, kernels against the plain route
+MOE_TRAIN_F32_LAYERS = 2  # (b) float32, each preset
+MOE_TRAINER_LAYERS = 8  # (c) 5.61 B parameters, 44.9 GB of weights, gradients and moments
+MOE_TRAINER_S = 4096
+MOE_TRAINER_STEPS = 6
+MOE_TRAINER_RESERVE = 20e9  # (c)'s activations, logits and AdamW's temporaries, reckoned
+MOE_GMM_T = 2048  # the grouped products' backward against the per-expert loop
+MOE_FFN_T = 4096  # two runs of the FFN's backward, and its times
+GMM_F32_TOL = dict(atol=1e-5, rtol=1e-4)
+MOE_ODD_COUNTS = [0, 1, 3, 17, 0, 5, 129, 2] * 16  # rows an expert: empty, and off 8 and 16
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def backward_launches(impl: str, layers: int) -> dict[str, int]:
+    """The backward kernels' launches of `layers` attention backwards on
+    `impl` ("fused": B3; "split": B4 and B5)."""
+    if impl == "fused":
+        return {"flash_bwd_fused": layers}
+    return {"flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+
+
+def tuned_backward(cfg, s: int, gen: torch.Generator) -> str:
+    """autotune at a layer's attention (B 1, cfg's heads, S `s`, causal, in
+    cfg's dtype) in the run's cache: the backward impl="auto" then takes."""
+    q = randn((1, cfg.num_heads, s, cfg.head_dim), gen, cfg.dtype)
+    k, v = (randn((1, cfg.num_kv_heads, s, cfg.head_dim), gen, cfg.dtype) for _ in range(2))
+    entry = autotune.autotune(q, k, v, is_causal=True)
+    print(f"[moe-train] autotune at B 1, Hq {cfg.num_heads}, Hkv {cfg.num_kv_heads}, S {s}, "
+          f"D {cfg.head_dim}, causal: {entry}")
+    return entry["bwd_impl"]
+
+
+def grouped_products_backward(gen: torch.Generator) -> None:
+    """torch._grouped_mm (the grouped dispatch's product) forward and
+    backward against a per-expert torch.matmul loop, at Qwen3-30B-A3B's
+    expert widths (H 2048, F 768, 128 experts): on the expert offsets of
+    a routing of MOE_GMM_T tokens, top 8, and on MOE_ODD_COUNTS (empty
+    experts, counts off 8 and 16 rows: PyTorch's MoE trainers pad each
+    group to such a multiple for the weight gradient's product, the route
+    pads nothing); y, dX and every expert's dW, bf16 under the bf16 gates,
+    float32 within GMM_F32_TOL. A refusal raises: the route has no
+    fallback."""
+    cfg = moe_hf_config(QWEN3_30B_A3B_JSON)
+    h, f, e, k = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts, cfg.top_k_experts
+    for dtype in (torch.bfloat16, torch.float32):
+        x = randn((MOE_GMM_T, h), gen).to(dtype)
+        router = (randn((h, e), gen, torch.float32) * h**-0.5).to(dtype)
+        ids, _ = moe.router_gates(x, router, k)
+        for tag, counts in ((f"a routing of T={MOE_GMM_T}, top {k}",
+                             torch.bincount(ids.reshape(-1), minlength=e)),
+                            ("rows 0-129 an expert", torch.tensor(MOE_ODD_COUNTS, device="cuda"))):
+            offs = torch.cumsum(counts, 0, dtype=torch.int32)
+            n = int(offs[-1])
+            xs = randn((n, h), gen).to(dtype).requires_grad_()
+            w = (randn((e, h, f), gen, torch.float32) * h**-0.5).to(dtype).requires_grad_()
+            dy = randn((n, f), gen).to(dtype)
+            y = torch._grouped_mm(xs, w, offs=offs)
+            y.backward(dy)
+            ref_y, ref_dx, ref_dw = torch.empty_like(y), torch.empty_like(xs), torch.zeros_like(w)
+            with torch.no_grad():
+                for j, (lo, hi) in enumerate(zip([0] + offs[:-1].tolist(), offs.tolist())):
+                    if hi > lo:
+                        ref_y[lo:hi] = torch.matmul(xs[lo:hi], w[j])
+                        ref_dx[lo:hi] = torch.matmul(dy[lo:hi], w[j].t())
+                        ref_dw[j] = torch.matmul(xs[lo:hi].t(), dy[lo:hi])
+            odd = {m: int((counts % m != 0).sum()) for m in (8, 16)}
+            for what, ref, out in (("y", ref_y, y.detach()), ("dX", ref_dx, xs.grad),
+                                   ("dW", ref_dw, w.grad)):
+                tol = (GMM_F32_TOL if dtype == torch.float32
+                       else dict(atol=O_ATOL) if what == "y" else GRAD_TOL[dtype])
+                rep = verify_results(ref, out, **tol)
+                print(f"[moe-train] torch._grouped_mm {str(dtype).removeprefix('torch.')}, {tag} "
+                      f"({n} rows; experts whose rows are not a multiple of 8: {odd[8]}, of 16: "
+                      f"{odd[16]}, empty: {int((counts == 0).sum())}): {what} against the "
+                      f"per-expert torch.matmul loop {rep} ({tol}), bitwise "
+                      f"{'equal' if torch.equal(ref, out) else 'different'}")
+                check(rep.passed, f"torch._grouped_mm's {what} disagrees with the per-expert loop")
+            del xs, w, y, ref_y, ref_dx, ref_dw
+
+
+def moe_ffn_backward(gen: torch.Generator) -> dict:
+    """moe_ffn_grouped (Qwen3-30B-A3B's layer widths, T MOE_FFN_T, bf16)
+    forward and backward twice on the same inputs: y, dX and every routed
+    parameter's gradient torch.equal (the gather's fixed-order backward);
+    its forward (recording the graph, as in training) and backward
+    (torch.autograd.grad on the retained graph) in CUDA-event time beside
+    moe_roofline's and moe_bwd_roofline's bounds over the experts the
+    routing touched, and the masked-dense loop's forward and backward on
+    the same inputs. Returns the backward's numbers."""
+    cfg = moe_hf_config(QWEN3_30B_A3B_JSON)
+    h, f, e, k = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts, cfg.top_k_experts
+    params = moe.init_moe_params(gen, h, f, e, torch.bfloat16)
+    x = randn((MOE_FFN_T, h), gen)
+    dy = randn((MOE_FFN_T, h), gen)
+    names = ["x"] + sorted(params)
+
+    def leaves():
+        return [x.clone().requires_grad_()] + [params[n].clone().requires_grad_()
+                                               for n in names[1:]]
+
+    def run():
+        ins = leaves()
+        y = moe.moe_ffn_grouped(ins[0], dict(zip(names[1:], ins[1:])), k)
+        y.backward(dy)
+        return [y.detach()] + [t.grad for t in ins]
+
+    first, second = run(), run()
+    same = {n: torch.equal(a, b) for n, a, b in zip(["y"] + names, first, second)}
+    print(f"[moe-train] moe_ffn_grouped forward and backward twice, T={MOE_FFN_T}, bf16: "
+          f"torch.equal {same}")
+    check(all(same.values()), f"moe_ffn_grouped's backward is not reproducible: {same}")
+    del first, second
+    ids, _ = moe.router_gates(x, params["router"], k)
+    touched = int(torch.unique(ids).numel())
+    times = {}
+    for route, fn in (("grouped", moe.moe_ffn_grouped), ("masked-dense", moe.moe_ffn_dense_reference)):
+        ins = leaves()
+        p = dict(zip(names[1:], ins[1:]))
+        iters = 5 if route == "grouped" else 2
+        fwd = event_time_ms(lambda: fn(ins[0], p, k), warmup=1, iters=iters)
+        y = fn(ins[0], p, k)
+        bwd = event_time_ms(lambda: torch.autograd.grad(y, ins, dy, retain_graph=True),
+                            warmup=1, iters=iters)
+        times[route] = (fwd, bwd)
+        del ins, p, y
+    fb = roofline.moe_roofline(MOE_FFN_T, h, f, e, k, touched)
+    bb = roofline.moe_bwd_roofline(MOE_FFN_T, h, f, e, k, touched)
+    print(f"[moe-train] MoE FFN, Qwen3-30B-A3B's layer widths, T={MOE_FFN_T}, bf16, {touched} "
+          f"experts touched ({card()}; CUDA events, eager): grouped forward "
+          f"{times['grouped'][0]:.4f} ms (bound {fb.bound_ms:.4f} ms by {fb.bound_by}), "
+          f"backward {times['grouped'][1]:.4f} ms (bound {bb.bound_ms:.4f} ms by "
+          f"{bb.bound_by}: {bb.hbm_bytes / 1e9:.3f} GB, {bb.flops / 1e12:.4f} TFLOP); the "
+          f"masked-dense loop forward {times['masked-dense'][0]:.4f} ms, backward "
+          f"{times['masked-dense'][1]:.4f} ms")
+    return dict(ms=times["grouped"][1], plain_ms=times["masked-dense"][1], **bound(bb))
+
+
+def grad_groups(name: str) -> str:
+    """The kind of a MoE model's parameter, for the gradient report."""
+    for key, kind in ((".moe.router", "router"), (".moe.shared", "shared expert"),
+                      (".moe.", "experts"), ("norm", "norms"), ("embed", "embedding"),
+                      ("lm_head", "head")):
+        if key in name:
+            return kind
+    return "attention"
+
+
+def moe_train_step(cfg, name: str, gen: torch.Generator) -> tuple[dict[str, int], int]:
+    """Phase 22 (a) (bf16) and (b) (float32): one AdamW train.train_step of
+    the MoE model `cfg` through the kernels (K1, the backward autotune
+    picks in bf16, the grouped dispatch) and one on the plain route
+    (plain_flash_attention, the masked-dense loop) from the same weights
+    and tokens, B 1, S MOE_TRAIN_S, under phase 7's gates on every
+    gradient. In bf16 the plain route's routing is teacher-forced to the
+    kernel run's picks (forced_routing), each pick it would change held to
+    pick_margins; in float32 both run free and no flip excuses a miss.
+    Returns the kernel run's launches and its grouped MoE FFN calls."""
+    log = "[moe-train]"
+    bf16 = cfg.dtype == torch.bfloat16
+    dt = str(cfg.dtype).removeprefix("torch.")
+    tag = f"{name} widths, {cfg.num_layers} layers, {dt}, B=1 S={MOE_TRAIN_S}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = init_params(cfg, gen, device="cuda")
+    n = sum(p.numel() for p in model.parameters())
+    esize = model.embed.element_size()
+    print(f"{log} {tag}: {n / 1e9:.3f} B parameters; the weights, a copy to restart from, both "
+          f"runs' gradients and AdamW's two moments {6 * n * esize / 1e9:.1f} GB reckoned, "
+          f"beside the activations (the masked-dense loop's: every expert over every token)")
+    tokens = torch.randint(0, cfg.vocab_size, (1, MOE_TRAIN_S + 1), generator=gen,
+                           device="cuda")
+    shape = (1, cfg.num_heads, cfg.num_kv_heads, MOE_TRAIN_S, MOE_TRAIN_S, cfg.head_dim, True,
+             cfg.dtype)
+    impl = tuned_backward(cfg, MOE_TRAIN_S, gen) if bf16 else flash_bwd.resolve_impl("auto", shape)
+    start = {k: v.detach().clone() for k, v in model.named_parameters()}
+    runs = {}
+    for route in ("kernels", "plain"):
+        model.load_state_dict(start)
+        state = train.init_train_state(model, TRAIN_TC)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        picks = None
+        with contextlib.ExitStack() as stack:
+            calls = stack.enter_context(moe_calls())
+            if route == "plain":
+                stack.enter_context(plain_training_attention())
+                stack.enter_context(plain_kernels())
+            if route == "plain" and bf16:
+                ties, _, margins = stack.enter_context(forced_routing(runs["kernels"][4]))
+            else:
+                picks = stack.enter_context(router_log())
+            t0 = time.perf_counter()
+            state, metrics = train.train_step(state, tokens)
+            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: v for k, v in read_launches().items() if v}
+        grads = {k: p.grad for k, p in model.named_parameters()}
+        runs[route] = (loss, gnorm, grads, launches, picks, dict(calls))
+        print(f"{log} {tag} AdamW step, {route}: loss {loss:.6f} grad_norm {gnorm:.6f}, "
+              f"{ms:.1f} ms (host clock, synchronised), peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}, MoE "
+              f"FFN calls {dict(calls)}")
+        del state
+    del start
+    (l_k, n_k, g_k, launches, kern_picks, k_calls), (l_p, n_p, g_p, plain_launches, plain_picks,
+                                                      p_calls) = runs["kernels"], runs["plain"]
+    layers = cfg.num_layers
+    want = {"flash_fwd": layers, **backward_launches(impl, layers)}
+    check(launches == want, f"{tag}: the kernel step launched {launches}, want {want} ({impl})")
+    check(k_calls == {"grouped": layers, "dense": 0},
+          f"{tag}: the kernel step's MoE FFN calls {k_calls}")
+    check(not plain_launches and p_calls == {"grouped": 0, "dense": layers},
+          f"{tag}: the plain step launched {plain_launches}, MoE FFN calls {p_calls}")
+    pairs = layers * MOE_TRAIN_S
+    if bf16:
+        ratio = max(float(m.detach()) for m, _ in margins)
+        changed = sum(int(c) for _, c in margins)
+        print(f"{log} {tag}, plain route's routing forced to the kernel run's picks: its own top "
+              f"{cfg.top_k_experts} differ at {len(ties)} of {pairs} (token, layer) pairs; "
+              f"{changed} (forced pick, own pick) pairs, worst pick_margins ratio {ratio:.3f} "
+              f"(<= 1)")
+        check(ratio <= 1.0, f"{tag}: changed picks that the router logits' differences do not "
+              f"explain: ratio {ratio:.3f}")
+    else:
+        flips = routing_flips(kern_picks, plain_picks, layers)
+        print(f"{log} {tag}, free-running routes: picks differ at {len(flips)} of {pairs} "
+              f"(token, layer) pairs (no excuse: the gates below hold regardless)")
+    cos = cosines(g_k, g_p)
+    worst = min(cos, key=cos.get)
+    kinds: dict[str, tuple[float, str]] = {}
+    for n, c in cos.items():
+        kind = grad_groups(n)
+        if kind not in kinds or c < kinds[kind][0]:
+            kinds[kind] = (c, n)
+    print(f"{log} {tag} kernels vs plain: |dloss| {abs(l_k - l_p):.6f} (<= {LOSS_ATOL}), "
+          f"grad_norm rel {abs(n_k - n_p) / n_p:.6f} (<= {GRAD_NORM_REL}), gradient cosine min "
+          f"{cos[worst]:.6f} ({worst}) over {len(cos)} parameters (> {GRAD_COS}); by kind: "
+          + ", ".join(f"{kind} {c:.6f} ({n})" for kind, (c, n) in sorted(kinds.items())))
+    check(abs(l_k - l_p) <= LOSS_ATOL and abs(n_k - n_p) <= GRAD_NORM_REL * n_p
+          and cos[worst] > GRAD_COS, f"{tag}: kernels and plain route disagree")
+    del model, runs, g_k, g_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, k_calls["grouped"]
+
+
+def moe_trainer(gen: torch.Generator) -> tuple[dict[str, int], int]:
+    """Phase 22 (c): train.train for MOE_TRAINER_STEPS AdamW steps on one
+    repeated batch, Qwen3-30B-A3B's widths at MOE_TRAINER_LAYERS layers
+    (or the deepest cut whose reckoned state fits the free memory beside
+    MOE_TRAINER_RESERVE, printed), bf16, B 1, S MOE_TRAINER_S, through K1,
+    the backward autotune picks and the grouped dispatch: finite losses,
+    the last below the first; ms/step, tokens/s and peak memory a step
+    beside the card's name and power limit. Returns the launches and the
+    grouped MoE FFN calls."""
+    log = "[moe-trainer]"
+
+    def state_bytes(layers: int) -> int:
+        meta = llama.Llama(moe_hf_config(QWEN3_30B_A3B_JSON, layers=layers), device="meta")
+        return 8 * sum(p.numel() for p in meta.parameters())  # bf16 weights, grads, 2 moments
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    layers = MOE_TRAINER_LAYERS
+    while layers > 1 and state_bytes(layers) + MOE_TRAINER_RESERVE > free:
+        layers -= 1
+    print(f"{log} memory, reckoned: weights, gradients and AdamW's two moments in bf16, 8 B a "
+          f"parameter: {state_bytes(MOE_TRAINER_LAYERS) / 1e9:.1f} GB at {MOE_TRAINER_LAYERS} "
+          f"layers (Qwen3-30B-A3B's 48: {state_bytes(48) / 1e9:.1f} GB), plus "
+          f"{MOE_TRAINER_RESERVE / 1e9:.0f} GB for activations, logits and AdamW's temporaries; "
+          f"{free / 1e9:.1f} GB free: {layers} layers"
+          + ("" if layers == MOE_TRAINER_LAYERS else f" (cut from {MOE_TRAINER_LAYERS})"))
+    cfg = moe_hf_config(QWEN3_30B_A3B_JSON, layers=layers)
+    impl = tuned_backward(cfg, MOE_TRAINER_S, gen)
+    model = init_params(cfg, gen, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (1, MOE_TRAINER_S + 1), generator=gen,
+                           device="cuda")
+    marks = []  # (host clock, peak bytes since the previous mark) at each step's start
+
+    def batches():
+        while True:
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter(), torch.cuda.max_memory_allocated()))
+            torch.cuda.reset_peak_memory_stats()
+            yield tokens
+
+    reset_launches()
+    with moe_calls() as calls:
+        state, hist = train.train(model, batches(), TRAIN_TC, steps=MOE_TRAINER_STEPS,
+                                  log_every=1)
+    torch.cuda.synchronize()
+    marks.append((time.perf_counter(), torch.cuda.max_memory_allocated()))
+    launches = {k: v for k, v in read_launches().items() if v}
+    for h, (t0, _), (t1, peak) in zip(hist, marks, marks[1:]):
+        ms = (t1 - t0) * 1e3
+        print(f"{log} step {h['step']}: loss {h['loss']:.6f} grad_norm {h['grad_norm']:.6f}, "
+              f"{ms:.1f} ms (host clock, synchronised), {MOE_TRAINER_S / ms * 1e3:.0f} tokens/s, "
+              f"max_memory_allocated {peak / 2**30:.2f} GiB ({card()})")
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == MOE_TRAINER_STEPS and state["step"] == MOE_TRAINER_STEPS,
+          f"{log} ran {len(hist)} steps")
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0], f"{log} losses {losses}")
+    n = MOE_TRAINER_STEPS * cfg.num_layers
+    want = {"flash_fwd": n, **backward_launches(impl, n)}
+    check(launches == want and calls == {"grouped": n, "dense": 0},
+          f"{log} launched {launches}, want {want}; MoE FFN calls {calls}")
+    print(f"{log} Qwen3-30B-A3B widths, {cfg.num_layers} layers, B=1 S={MOE_TRAINER_S}, "
+          f"{MOE_TRAINER_STEPS} AdamW steps (lr {TRAIN_TC.learning_rate}, warmup "
+          f"{TRAIN_TC.warmup_steps}), the {impl} backward: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; launches {launches}")
+    del state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, calls["grouped"]
+
+
+def phase_moe_train(gen: torch.Generator) -> dict[str, int]:
+    """Phase 22 (the comment at the top): the grouped products' backward
+    against the per-expert loop; moe_ffn_grouped's backward twice, equal,
+    and timed; (a) the bf16 step at MOE_TRAIN_LAYERS layers, kernels
+    against the plain route; (b) the float32 steps of both presets at
+    MOE_TRAIN_F32_LAYERS layers; (c) train.train at MOE_TRAINER_LAYERS
+    layers. (d) ran in phase 21's ranks (par_expert_step). Prints the MoE
+    FFN backward's row (PERF.md's kernel table: torch._grouped_mm is
+    PyTorch's, no kernel of the kernels line), its launches the grouped
+    FFN's backward calls of (a)-(c); returns the launches of (a)-(c)."""
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on: the float32 runs and the router's product must run in float32")
+    grouped_products_backward(gen)
+    row = moe_ffn_backward(gen)
+    total: dict[str, int] = {}
+    grouped = 0
+    runs = [(moe_hf_config(QWEN3_30B_A3B_JSON, layers=MOE_TRAIN_LAYERS), "Qwen3-30B-A3B")]
+    runs += [(moe_hf_config(source, torch.float32, layers=MOE_TRAIN_F32_LAYERS), name)
+             for source, name in ((QWEN3_30B_A3B_JSON, "Qwen3-30B-A3B"),
+                                  (QWEN15_MOE_JSON, "Qwen1.5-MoE-A2.7B"))]
+    for launches, calls in [moe_train_step(cfg, name, gen) for cfg, name in runs] + [
+            moe_trainer(gen)]:
+        add_launches(total, launches)
+        grouped += calls
+    row = {"name": "moe_ffn_backward", "route": "torch._grouped_mm",
+           "source": "flashattn_tpu_torch/parallel/moe.py",
+           "replaces": "flashattn_tpu/parallel/moe.py:75", "launches": grouped, **row,
+           "library_ms": None}
+    print(f"[moe-train] launches of (a)-(c): {total}; the MoE FFN backward's row (no kernel "
+          f"of ours): {json.dumps(row)}")
+    return total
+
+
+# Phase 2 times flex_attention beside the kernels (the library_ms of the
+# rows with a soft-cap or ALiBi), and compiling each of its eleven cases
+# takes 5-15 s of the host. A process of its own compiles the same cases on
+# zeros into this run's Inductor cache (TORCHINDUCTOR_CACHE_DIR, on disk)
+# from the end of phase 1's build on, ahead of phase 2, whose compilations
+# then read the cache. It starts compiling only when FLEX_WARM_AFTER of the
+# libraries are built: before that nvcc holds every core, and the warm-up
+# slowed the build by more than it saved. It runs each case once and times
+# nothing, so beside phase 2's timings it takes the card for a few
+# milliseconds a case.
+FLEX_WARM_AFTER = 12
+FLEX_TIMED = True  # False in flex_warmup's process
+
+
+def flex_warm_cases() -> list:
+    """Every flex_attention compilation of phase 2, in phase 2's order, as
+    (name, call): the same helper (flex_mod_ms, flex_ms, flex_dyn_ms) on
+    zeros of its call site's shapes and types, with the call site's
+    constants. A case that drifts from its call site costs phase 2 that
+    compilation's time, nothing else."""
+    dev = torch.device("cuda")
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+
+    def packed(b, hq, hkv, d, grad, **kw):
+        ids = packed_ids(PACK_DOCS, PACK_S, dev)
+        seg = varlen.canonical_segments(ids, ids, dev)
+        q = z(b, hq, PACK_S, d)
+        return flex_mod_ms(q, z(b, hkv, PACK_S, d), z(b, hkv, PACK_S, d), None,
+                           segment_ids=seg, do=q if grad else None, **kw)
+
+    b, hq, hkv, s, d = GEMMA_PREFILL
+    ab, ahq, ahkv, a_s, ad = ALIBI_PREFILL
+    db, dhq, dhkv, ds, dd = DYN_SHAPE
+    ends = torch.tensor(DEC_LENGTHS, dtype=torch.int32, device=dev)
+    dec = (z(DEC_B, DEC_HQ, 1, DEC_D), z(DEC_B, DEC_HKV, DEC_SMAX, DEC_D),
+           z(DEC_B, DEC_HKV, DEC_SMAX, DEC_D))
+    slopes = flash_fwd.alibi_table(True, None, ahq, dev)
+    gk2 = (z(GK2_B, GK2_HQ, 1, GK2_D), z(GK2_B, GK2_HKV, GK2_SMAX, GK2_D),
+           z(GK2_B, GK2_HKV, GK2_SMAX, GK2_D))
+    return [
+        ("soft-cap K1", lambda: flex_mod_ms(z(b, hq, s, d), z(b, hkv, s, d), z(b, hkv, s, d),
+                                            None)),
+        ("soft-cap K2", lambda: flex_mod_ms(*gk2, None)),
+        ("soft-cap packed row", lambda: packed(b, hq, hkv, d, False, cap=CAP, slopes=None)),
+        ("soft-cap packed row, backward", lambda: packed(b, hq, hkv, d, True, cap=CAP,
+                                                         slopes=None)),
+        ("ALiBi K1", lambda: flex_ms(z(ab, ahq, a_s, ad), z(ab, ahkv, a_s, ad),
+                                     z(ab, ahkv, a_s, ad), slopes=slopes)),
+        ("ALiBi K2", lambda: flex_ms(*dec, ends=ends,
+                                     slopes=flash_fwd.alibi_table(True, None, DEC_HQ, dev))),
+        ("K2's LSE", lambda: flex_ms(*dec, ends=ends, return_lse=True,
+                                     what="the LSE returned")),
+        ("ALiBi packed row", lambda: packed(ab, ahq, ahkv, ad, False, cap=None,
+                                            slopes=slopes)),
+        ("ALiBi packed row, backward", lambda: packed(ab, ahq, ahkv, ad, True, cap=None,
+                                                      slopes=slopes)),
+        ("card offset", lambda: flex_dyn_ms(z(db, dhq, ds, dd), z(db, dhkv, ds, dd),
+                                            z(db, dhkv, ds, dd), DYN_OFFSET, DYN_WINDOW,
+                                            flash_fwd.default_alibi_slopes(dhq, dev),
+                                            z(db, dhq, ds, dd))),
+    ]
+
+
+def flex_warmup() -> None:
+    """The warm-up process: waits until FLEX_WARM_AFTER libraries are
+    built, then compiles flex_warm_cases in order, printing each one's
+    seconds."""
+    global FLEX_TIMED
+    FLEX_TIMED = False
+    while sum(_build.library_path(lib).exists() for lib in LIBRARIES) < FLEX_WARM_AFTER:
+        time.sleep(1.0)
+    t_all = time.perf_counter()
+    for name, call in flex_warm_cases():
+        t0 = time.perf_counter()
+        call()
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[flex-warm] {name} compiled in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[flex-warm] every case in {time.perf_counter() - t_all:.1f} s", flush=True)
+
+
+@contextlib.contextmanager
+def flex_warmed():
+    """flex_warmup in a process of its own (spawn) while the body runs
+    (phases 1 and 2), stopped when the body ends: once phase 2 is done
+    nothing reads what it compiles. Without a card it starts nothing (phase
+    1 raises)."""
+    if not torch.cuda.is_available():
+        yield
+        return
+    import torch.multiprocessing as mp
+
+    proc = mp.get_context("spawn").Process(target=flex_warmup)
+    proc.start()
+    try:
+        yield
+    finally:
+        if proc.is_alive():
+            print("[flex-warm] stopped with phase 2 done")
+            proc.terminate()
+        elif proc.exitcode:
+            print(f"[flex-warm] exited with code {proc.exitcode}: phase 2 compiled its cases")
+        proc.join(30)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+
+
 class PhaseClock:
     """Prints each phase's seconds as it ends."""
 
@@ -5947,21 +6567,25 @@ class PhaseClock:
 
 
 def main() -> None:
-    # autotune's cache in a directory of this run: no winner measured
-    # elsewhere steers impl="auto", and phase 13 writes none outside.
+    # autotune's and Inductor's caches in a directory of this run: no winner
+    # measured elsewhere steers impl="auto", phase 13 writes none outside,
+    # and phase 2's flex_attention compilations read what this run's
+    # warm-up (flex_warmed) compiled.
     with tempfile.TemporaryDirectory() as cache_dir:
         os.environ[autotune.CACHE_ENV] = os.path.join(cache_dir, "autotune.json")
+        os.environ["TORCHINDUCTOR_CACHE_DIR"] = os.path.join(cache_dir, "inductor")
         run()
 
 
 def run() -> None:
     t_start = time.perf_counter()
     clock = PhaseClock()
-    device_name = phase_environment()
-    clock.done("1 environment and build")
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    timed = phase_kernels(gen)
-    clock.done("2 kernels against their plain versions")
+    with flex_warmed():
+        device_name = phase_environment()
+        clock.done("1 environment and build")
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        timed = phase_kernels(gen)
+        clock.done("2 kernels against their plain versions")
     t0 = time.perf_counter()
     model = init_params(LLAMA_1B, gen, device="cuda")
     torch.cuda.synchronize()
@@ -6015,6 +6639,8 @@ def run() -> None:
     launches["decode_lse"] = timed["decode_lse"].pop("launches")
     add_launches(launches, phase_parallel())
     clock.done("21 tensor, pipeline and expert parallelism on two ranks, split decode, recovery")
+    add_launches(launches, phase_moe_train(gen))
+    clock.done("22 mixture-of-experts training")
     decode_src = ("flashattn_tpu_torch/csrc/decode.cu", "flashattn_tpu/ops/decode.py:351")
     qmm_src = "flashattn_tpu_torch/csrc/quant_matmul.cu"
     sources = {

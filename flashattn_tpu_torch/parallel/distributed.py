@@ -14,9 +14,10 @@ XLA emit the collectives; the port's ranks are processes joined by
 - The exchanges the rings, Ulysses and the model run (``Hop``,
   ``all_to_all``, ``all_gather``, ``all_reduce``) go over a group's backend as
   it is, except gloo with tensors on the card: gloo reads host memory, so
-  each exchange is staged through it in the open (a copy to the host before
-  it, a copy back after it). ``transport`` names the route, and the first
-  exchange of each kind on a route prints it (to standard error).
+  each exchange is staged through it in the open (a copy into page-locked
+  host memory before it, a copy back after it). ``transport`` names the
+  route, and the first exchange of each kind on a route prints it (to
+  standard error).
 """
 
 from __future__ import annotations
@@ -113,8 +114,21 @@ def _announce(route: str, what: str) -> None:
               flush=True)
 
 
+def _pinned_like(t: torch.Tensor) -> torch.Tensor:
+    """An empty host tensor of t's shape and type in page-locked memory:
+    PyTorch's caching host allocator hands the same buffers back exchange
+    after exchange, and a copy between one and the card runs at the link's
+    rate, where .cpu() takes fresh pageable memory every time."""
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+
+
 def _host(t: torch.Tensor, staged: bool) -> torch.Tensor:
-    return t.cpu() if staged else t.contiguous()
+    return _pinned_like(t).copy_(t) if staged else t.contiguous()
+
+
+def _receiver(src: torch.Tensor, staged: bool) -> torch.Tensor:
+    """An empty tensor like the sent `src` for an exchange to write into."""
+    return _pinned_like(src) if staged else torch.empty_like(src)
 
 
 class Hop:
@@ -134,7 +148,7 @@ class Hop:
         _announce(route, "ring hops")
         self.staged = route == "gloo-host"
         sends = [_host(t, self.staged) for t in tensors]
-        self.recvs = [torch.empty_like(t) for t in sends]
+        self.recvs = [_receiver(t, self.staged) for t in sends]
         g = group or dist.group.WORLD
         to = dist.get_global_rank(g, (me + shift) % n)
         frm = dist.get_global_rank(g, (me - shift) % n)
@@ -159,7 +173,7 @@ def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
     _announce(route, "all-to-all")
     staged = route == "gloo-host"
     src = _host(x, staged)
-    out = torch.empty_like(src)
+    out = _receiver(src, staged)
     dist.all_to_all_single(out, src, group=group)
     return out.to(x.device) if staged else out
 
@@ -171,7 +185,7 @@ def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     _announce(route, "all-gather")
     staged = route == "gloo-host"
     src = _host(x, staged)
-    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    parts = [_receiver(src, staged) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, src, group=group)
     out = torch.stack(parts)
     return out.to(x.device) if staged else out
@@ -185,6 +199,6 @@ def all_reduce(x: torch.Tensor, group=None, op=dist.ReduceOp.SUM) -> torch.Tenso
     if route != "gloo-host":
         dist.all_reduce(x, op=op, group=group)
         return x
-    host = x.cpu()
+    host = _host(x, True)
     dist.all_reduce(host, op=op, group=group)
     return x.copy_(host)

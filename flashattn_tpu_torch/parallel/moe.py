@@ -13,8 +13,12 @@ output is the sum over its k picked experts of gate x SwiGLU expert(x).
   each (``torch._grouped_mm``, the expert offsets on the device), the
   outputs gathered back through the inverse permutation and summed in
   float32 in each token's ascending expert order, the dense loop's order.
-  It rounds where the JAX function does: g and u in the compute dtype,
-  act(g) in float32 rounded to it, times u, then y in it. It reads nothing
+  The gather of each token's k rows (``gather_pairs``) takes its gradient
+  the same way back: the k pair gradients of a token summed in float32 in
+  ascending expert id and rounded once, with no atomics, so the backward
+  gives the same bits at every run. It rounds where the JAX function
+  does: g and u in the compute dtype, act(g) in float32 rounded to it,
+  times u, then y in it. It reads nothing
   back to the host and makes no shape that depends on the data (the
   counts by a fixed-size scatter_add_ into E counters; no bincount,
   nonzero, unique or boolean indexing), so a CUDA graph captures it with
@@ -165,6 +169,38 @@ def moe_ffn_dense_reference(x: torch.Tensor, params: Mapping[str, torch.Tensor],
     return acc.to(x.dtype)
 
 
+class _PairGather(torch.autograd.Function):
+    """x [T, H] -> xs [T k, H], row i token src[i]'s (the pairs in expert
+    order); the backward brings each pair's gradient back to its token
+    through the inverse permutation `inv` (pair p = t k + j, token t's
+    j-th pick in ascending expert id, sits at row inv[p]) and sums a
+    token's k rows in float32 in pick order, rounded once to x's dtype.
+    index_select's own backward (index_add_) would add the k rows by
+    float atomics in x's dtype, in the order they land on the card."""
+
+    @staticmethod
+    def forward(ctx, x, src, inv, top_k):
+        ctx.save_for_backward(inv)
+        ctx.top_k = top_k
+        return x.index_select(0, src)
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv,) = ctx.saved_tensors
+        pairs = g.index_select(0, inv).view(-1, ctx.top_k, g.shape[1])
+        acc = pairs[:, 0].float()
+        for j in range(1, ctx.top_k):  # a fixed order: the same sum at every run
+            acc = acc + pairs[:, j].float()
+        return acc.to(g.dtype), None, None, None
+
+
+def gather_pairs(x: torch.Tensor, src: torch.Tensor, inv: torch.Tensor,
+                 top_k: int) -> torch.Tensor:
+    """x.index_select(0, src), its backward a fixed-order float32 sum of
+    each token's k pair gradients (_PairGather)."""
+    return _PairGather.apply(x, src, inv, top_k)
+
+
 def moe_ffn_grouped(x: torch.Tensor, params: Mapping[str, torch.Tensor], top_k: int = 2,
                     activation: str = "silu", norm_topk: bool = True) -> torch.Tensor:
     """moe_ffn_dense_reference's function by a grouped dispatch (the module
@@ -182,12 +218,12 @@ def moe_ffn_grouped(x: torch.Tensor, params: Mapping[str, torch.Tensor], top_k: 
     counts = torch.zeros(e, dtype=torch.int32, device=x.device)
     counts.scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
     offs = torch.cumsum(counts, 0, dtype=torch.int32)  # each expert's end row
-    xs = x.index_select(0, perm // top_k)
+    inv = torch.empty_like(perm).scatter_(0, perm, torch.arange(n, device=x.device))
+    xs = gather_pairs(x, perm // top_k, inv, top_k)
     g = torch._grouped_mm(xs, params["w_gate"], offs=offs)
     u = torch._grouped_mm(xs, params["w_up"], offs=offs)
     a = _act(g.float(), activation).to(x.dtype) * u
     ys = torch._grouped_mm(a, params["w_down"], offs=offs)
-    inv = torch.empty_like(perm).scatter_(0, perm, torch.arange(n, device=x.device))
     y = ys.index_select(0, inv).view(t, top_k, h)
     acc = y[:, 0].float() * gates[:, :1]
     for j in range(1, top_k):  # a fixed order: no atomics, the same sum at every run

@@ -267,3 +267,21 @@ def moe_roofline(t: int, hidden: int, intermediate: int, num_experts: int, top_k
                    + experts_touched * 3 * hidden * intermediate)
     flops = 2.0 * t * hidden * num_experts + 6.0 * t * top_k * hidden * intermediate
     return roofline(flops, hbm, dtype, chip)
+
+
+def moe_bwd_roofline(t: int, hidden: int, intermediate: int, num_experts: int, top_k: int,
+                     experts_touched: int, dtype: torch.dtype = torch.bfloat16,
+                     chip: ChipSpec | None = None) -> RooflineReport:
+    """The backward of moe_roofline's call: the gradients of x, the router
+    and the touched experts from dY. Operations: twice the forward's, a
+    product for the input's gradient and one for the weight's of each
+    forward product (2 x 2 T H E for the router, 2 x 6 T k H F for the
+    experts). Bytes: x and dY read and dX written once, the router read and
+    its gradient written, and the touched experts' weights read and their
+    gradients written; the activations the forward saved are the call's own
+    and not counted."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    hbm = esize * (3 * t * hidden + 2 * hidden * num_experts
+                   + 2 * experts_touched * 3 * hidden * intermediate)
+    flops = 2 * (2.0 * t * hidden * num_experts + 6.0 * t * top_k * hidden * intermediate)
+    return roofline(flops, hbm, dtype, chip)

@@ -1,7 +1,8 @@
 """Ranks of the parallel layer's CPU tests (tests/test_torch_ring.py,
 tests/test_torch_parallel_model.py, tests/test_torch_tensor_parallel.py,
 tests/test_torch_pipeline.py, tests/test_torch_decode_sharded.py,
-tests/test_torch_moe_ep.py, tests/test_torch_failure.py). Imports no JAX.
+tests/test_torch_moe_ep.py, tests/test_torch_moe_train.py,
+tests/test_torch_failure.py). Imports no JAX.
 
     python tests/_torch_parallel_worker.py JOB WORLD CASES OUT_DIR
 
@@ -235,6 +236,26 @@ def moe(cases: dict) -> dict:
     return out
 
 
+def moe_train(cases: dict) -> dict:
+    """One AdamW train_step of each case's MoE model under its mesh (the
+    rank's shard_params shard): the loss, the grad norm, and the clipped
+    gradients and updated parameters gathered whole."""
+    from flashattn_tpu_torch.models import llama, train
+
+    mesh = _meshes()
+    out = {}
+    for name, c in cases.items():
+        mm = mesh(c["mesh"])
+        whole = llama.Llama(c["cfg"], device="cpu")
+        whole.load_state_dict(c["params"])
+        state = train.init_train_state(llama.shard_params(whole, mm), c["tc"])
+        state, metrics = train.train_step(state, torch.from_numpy(c["tokens"]), mesh=mm)
+        out[name] = dict(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+                         grads=_whole(state["model"], mm, grads=True),
+                         params=_whole(state["model"], mm))
+    return out
+
+
 def probe(cases: dict) -> dict:
     """probe_collectives over every rank (the CPU)."""
     from flashattn_tpu_torch.utils.failure import probe_collectives
@@ -264,7 +285,8 @@ def axes(cases: dict) -> dict:
 
 
 JOBS = {"attention": attention, "model": model, "tensor_parallel": tensor_parallel,
-        "pipeline": pipeline, "decode": decode, "moe": moe, "probe": probe, "axes": axes}
+        "pipeline": pipeline, "decode": decode, "moe": moe, "moe_train": moe_train,
+        "probe": probe, "axes": axes}
 
 
 def rank_main(rank: int, world: int, job: str, case_file: str, out_dir: str) -> None:

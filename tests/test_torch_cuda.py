@@ -1978,6 +1978,44 @@ def test_moe_grouped_matches_masked_dense_on_card(dev, case, dtype):
     assert torch.equal(moe.moe_ffn_grouped(x, params, k, "silu", norm), got)
 
 
+MOE_GRAD_CASES = {"qwen3_moe_train": (2048, 2048, 768, 128, 8, True),
+                  "qwen15_moe_train": (600, 2048, 1408, 60, 4, False)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", sorted(MOE_GRAD_CASES))
+def test_moe_grouped_backward_is_reproducible_on_card(dev, case, dtype):
+    """moe_ffn_grouped's forward and backward twice on the same card
+    tensors: y, dX and every routed parameter's gradient torch.equal (the
+    gather's backward sums each token's k pair gradients in a fixed order,
+    with no atomics; index_select's own, index_add_, does not repeat on the
+    card); and every gradient against the masked-dense loop's under the
+    gradient gates (bf16 rtol 2e-2, atol 5e-2; float32 atol 2e-4, rtol
+    1e-4) on a cotangent of standard deviation 0.1."""
+    from flashattn_tpu_torch.parallel import moe
+
+    t, h, f, e, k, norm = MOE_GRAD_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(6)
+    params = moe.init_moe_params(g, h, f, e, dtype)
+    x = torch.randn((t, h), generator=g, device=dev).to(dtype)
+    dy = (torch.randn((t, h), generator=g, device=dev) * 0.1).to(dtype)
+
+    def run(fn):
+        xx = x.clone().requires_grad_()
+        pp = {n: p.clone().requires_grad_() for n, p in params.items()}
+        y = fn(xx, pp, k, "silu", norm)
+        y.backward(dy)
+        return [y.detach(), xx.grad] + [pp[n].grad for n in sorted(pp)]
+
+    first, second = run(moe.moe_ffn_grouped), run(moe.moe_ffn_grouped)
+    names = ["y", "x"] + sorted(params)
+    for name, a, b in zip(names, first, second):
+        assert torch.equal(a, b), f"d{name} differs between two runs"
+    for name, want, got in zip(names[1:], run(moe.moe_ffn_dense_reference)[1:], first[1:]):
+        rep = verify_results(want, got, **GRAD_TOL[dtype])
+        assert rep.passed, f"d{name}: {rep}"
+
+
 def test_moe_decode_step_captures_and_never_syncs(dev):
     """A small MoE model's decode step and chunk step run under
     set_sync_debug_mode("error") (no host read anywhere), and the step

@@ -212,3 +212,21 @@ def test_moe_bound_counts_the_touched_experts(t, touched, by):
         assert rep.bound_ms == pytest.approx(rep.hbm_bytes / 3.35e12 * 1e3)
     else:
         assert rep.bound_ms == pytest.approx(rep.flops / 989e12 * 1e3)
+
+
+def test_moe_backward_bound_counts():
+    """The MoE FFN's backward (moe_bwd_roofline) on a small case, T 4, H 8,
+    F 16, 4 experts, top 2, 3 touched, bf16: operations twice the
+    forward's, 2 x (2 T H E + 6 T k H F) = 12,800; bytes 2 x (3 T H for x,
+    dY and dX + 2 H E for the router and its gradient + 2 x 3 x 3 H F for
+    the touched experts' weights and gradients) = 4,928. At Qwen3-30B-A3B's
+    widths and T 4,096 over all 128 experts the bytes bound it: 2.47 GB,
+    0.7365 ms, against 0.6297 ms of operations."""
+    rep = roofline.moe_bwd_roofline(4, 8, 16, 4, 2, 3, chip=H100)
+    assert rep.flops == 12800 == 2 * roofline.moe_roofline(4, 8, 16, 4, 2, 3, chip=H100).flops
+    assert rep.hbm_bytes == 4928
+    big = roofline.moe_bwd_roofline(4096, 2048, 768, 128, 8, 128, chip=H100)
+    assert big.hbm_bytes == 2 * (3 * 4096 * 2048 + 2 * 2048 * 128 + 2 * 128 * 3 * 2048 * 768)
+    assert big.bound_by == "bytes"
+    assert round(big.bound_ms, 4) == 0.7365
+    assert round(big.flops / 989e12 * 1e3, 4) == 0.6297
