@@ -5,8 +5,8 @@ NVIDIA GPU.
     python3 chip_smoke.py
 
 Builds the sixteen CUDA libraries from csrc/ (into build/flashattn_tpu_torch/,
-one nvcc each, all at once) and runs twenty-two phases, printing one line per
-check and each phase's seconds, then the kernels line:
+one nvcc each, all at once) and runs twenty-three phases, printing one line
+per check and each phase's seconds, then the kernels line:
 
 1. environment: torch/CUDA versions, the card's name and power limit, the
    kernels' build time (from the 12th library built on, a process
@@ -30,7 +30,10 @@ check and each phase's seconds, then the kernels line:
    instantiation of K2's (D 64, 128 and 256, with and without a window, with
    and without ALiBi: the ALiBi ones in a library of their own);
 2. each kernel against its plain PyTorch version on the card, at the
-   serving and training paths' shapes and at their edges (K1 also at every
+   serving and training paths' shapes and at their edges (K1 at head dims
+   32, 80 and 96 too, run in the 64 and 128 tiles: causal GQA, S_q < S_k,
+   non-causal, a window, ALiBi, the soft-cap, the offset read on the card
+   and float32; K1 also at every
    backward case, where it makes the backward's O and LSE, and timed at the
    prefill, training and D 128 shapes; at D 128, B 4, S 16384 held against
    its plain version on three slices of 256 q rows, two calls bitwise equal,
@@ -350,7 +353,29 @@ check and each phase's seconds, then the kernels line:
    a2a dispatch, no pair dropped) against one process's step under phase
    7's gates: the loss, the grad norm, every gradient's and every update's
    cosine on each rank's blocks;
-23. the `kernels` JSON line: every kernel with its launches on the path that
+23. head dims 32, 80 and 96 (phase_head_dims), which the kernels take at
+   run time inside their compiled 64 and 128 tiles: at each dim B3 and B4 +
+   B5 against the plain backward (causal GQA, S_q < S_k, non-causal, a
+   window, ALiBi, the soft-cap, dropout, the offset read on the card,
+   float32), K2 on bf16, f32, int8 and fp8 caches at T 1 and 4 with an
+   empty row, the paged K2 torch.equal to the dense K2; then at
+   H2O-Danube2-1.8B's attention widths (B 4, Hq 32, Hkv 8, S 2,048, causal,
+   bf16; K2 over a cache of 2,048) K1, B3, B4 + B5, K2 (bf16, int8, fp8) and
+   the paged K2 against their plain versions and timed beside them, their
+   bounds at the true d and SDPA; (a) the JAX package's quality gate
+   (tests/test_quant_ppl.py's config at D 32 in float32, 60 AdamW steps
+   through K1 and the fused backward, perplexity through prefill and 63
+   decode steps on float32, fp8 and int8 caches, int8 and int4 weights,
+   the weights cast to bf16 on bf16, fp8 and int8 caches, each on the
+   kernel route and the plain one, every perplexity and delta on a line of
+   its own, the JAX test's gates; generate with int8 weights and an int8
+   cache); (b) TINY served on the bf16, int8-KV and int8-KV paged servers
+   (the paged tokens equal the dense int8-KV tokens); (c) one TINY AdamW
+   step through the fused and through the split backward against the plain
+   route under phase 7's gates; the entry points' path at D 80 and 96
+   (flash_attention's forward and gradients, fused then split; the dense
+   K2 on three cache modes and the paged K2), launches counted;
+24. the `kernels` JSON line: every kernel with its launches on the path that
    runs it, its error against its plain version, its time, bound, plain and
    library times (the windowed K1, K2 and paged K2 from phases 2 and 9, the
    windowed and segmented K1, B3, B4 and B5 from phases 2 and 10, the
@@ -368,7 +393,10 @@ check and each phase's seconds, then the kernels line:
    their launches those of phase 20 (a)'s window + ALiBi zigzag on both
    ranks; phase 21's launches of K1, B3, B4, B5, K2 (bf16, int8, fp8), K2
    with the LSE and the paged K2 added to their rows, phase 22's of K1 and
-   the backward to theirs). Phase 22 prints the MoE FFN backward's row
+   the backward to theirs; K1, B3, B4, B5, K2 (bf16, int8, fp8) and the
+   paged K2 at head dims 32, 80 and 96 from phase 23, rows of their own,
+   D 32's launches those of (a)-(c), D 80's and 96's those of their
+   path). Phase 22 prints the MoE FFN backward's row
    (torch._grouped_mm: PyTorch's, no kernel of ours) on a line of its own.
 
 Any failed check raises: the script then exits nonzero and does not print
@@ -402,7 +430,8 @@ import torch.nn.functional as F
 
 from flashattn_tpu_torch.models import convert, data, generate, llama, train
 from flashattn_tpu_torch.models.config import (GEMMA2_9B, LLAMA31_8B, LLAMA_1B, LLAMA_8B,
-                                               LLAMA_150M, MISTRAL_7B, QWEN3_8B)
+                                               LLAMA_150M, MISTRAL_7B, QWEN3_8B, TINY,
+                                               ModelConfig)
 from flashattn_tpu_torch.models.llama import init_params
 from flashattn_tpu_torch.models.sampling import SamplingParams
 from flashattn_tpu_torch.models.serve import InferenceServer, Request
@@ -416,7 +445,8 @@ from flashattn_tpu_torch.ops.common import round_up
 from flashattn_tpu_torch.ops.kvcache import KVCache
 from flashattn_tpu_torch.ops.reference import visible
 from flashattn_tpu_torch.parallel import moe, serving
-from flashattn_tpu_torch.utils import dropout_readout, profile_train, roofline, sass
+from flashattn_tpu_torch.utils import (dropout_readout, perplexity, profile_train, roofline,
+                                      sass)
 from flashattn_tpu_torch.utils.timing import cuda_time_ms
 from flashattn_tpu_torch.utils.verify import verify_results
 
@@ -634,13 +664,9 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
         k1_err = max(k1_err, _gate(tag + " O", o_ref, o, O_ATOL))
         _gate(tag + " LSE", lse_ref, lse, LSE_ATOL)
         check(none is None and torch.equal(o, o2), f"{tag}: need_lse=False changed O")
-    try:
-        flash_fwd.flash_attention_forward(
-            *(torch.randn((1, 2, 64, 32), **bf16) for _ in range(3)))
-    except ValueError as e:
-        print(f"[kernels] K1 refuses D=32 on the card: {e}")
-    else:
-        raise AssertionError("K1 accepted D=32 on the card")
+    # Head dims 32, 80 and 96, run in the 64 and 128 tiles (phase 23 takes
+    # the errors into its rows).
+    hd_k1_err = head_dim_k1_gates(gen)
 
     # K2 on a bf16 cache with NaN past every length.
     b, hq, hkv, d, s_max = 4, 32, 4, 64, 2048
@@ -694,6 +720,7 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
         "flash_fwd": dict(max_abs_err=max(k1_err, k1_d128_err, k1_bwd_err), **k1_row),
         "decode": dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain,
                        library_ms=k2_lib, **k2_bound),
+        "head_dim_k1_err": hd_k1_err,  # popped by run() for phase 23
     }
     timed.update(backward)
     for part in (quantized_decode_kernels, paged_decode_kernel, quant_matmul_kernels,
@@ -811,15 +838,24 @@ DEC_B, DEC_HQ, DEC_HKV, DEC_D, DEC_SMAX = 4, 32, 4, 64, 2048
 DEC_LENGTHS = [1, 77, 1500, 2048]
 
 
-def quantized_cache(quant: str, gen: torch.Generator) -> KVCache:
-    """The decode step's cache (B 4, Hkv 4, Smax 2048, D 64), filled with
-    quantized random tokens, with NaN past every length (fp8 code 0x7f and
-    NaN scales), as a recycled slot may hold."""
-    shape = (DEC_B, DEC_HKV, DEC_SMAX, DEC_D)
-    cache = kvcache.init_cache(DEC_B, DEC_HKV, DEC_SMAX, DEC_D, quant=quant)
-    kvcache.update_cache(cache, randn(shape, gen), randn(shape, gen), assume_fits=True)
-    cache.length.copy_(torch.tensor(DEC_LENGTHS, dtype=torch.int32))
-    for i, n in enumerate(DEC_LENGTHS):
+def filled_cache(mode: str, gen: torch.Generator, b: int = DEC_B, hkv: int = DEC_HKV,
+                 d: int = DEC_D, lengths=DEC_LENGTHS) -> KVCache:
+    """A cache (bf16, f32, int8 or fp8; Smax DEC_SMAX; the decode step's
+    by default) filled with random tokens to `lengths`, with NaN past
+    every length (quantized: fp8 code 0x7f and NaN scales), as a recycled
+    slot may hold."""
+    quant = mode if mode in ("int8", "fp8") else None
+    dtype = torch.float32 if mode == "f32" else torch.bfloat16
+    cache = kvcache.init_cache(b, hkv, DEC_SMAX, d, dtype=dtype, quant=quant)
+    shape = (b, hkv, DEC_SMAX, d)
+    kvcache.update_cache(cache, randn(shape, gen, dtype), randn(shape, gen, dtype),
+                         assume_fits=True)
+    cache.length.copy_(torch.tensor(lengths, dtype=torch.int32))
+    for i, n in enumerate(lengths):
+        if quant is None:
+            cache.k[i, :, n:] = float("nan")
+            cache.v[i, :, n:] = float("nan")
+            continue
         if quant == "fp8":
             cache.k.view(torch.uint8)[i, :, n:] = 0x7F
             cache.v.view(torch.uint8)[i, :, n:] = 0x7F
@@ -843,7 +879,7 @@ def quantized_decode_kernels(gen: torch.Generator) -> dict[str, dict]:
     timed at T 1, and the int8 mode at T 256 (time_int8_chunk)."""
     out = {}
     for quant in ("int8", "fp8"):
-        cache = quantized_cache(quant, gen)
+        cache = filled_cache(quant, gen)
         err = 0.0
         for t in (1, 256):
             q = randn((DEC_B, DEC_HQ, t, DEC_D), gen)
@@ -952,7 +988,7 @@ def paged_decode_kernel(gen: torch.Generator) -> dict[str, dict]:
                          v=randn((DEC_B, DEC_HKV, DEC_SMAX, DEC_D), gen),
                          length=torch.tensor(DEC_LENGTHS, dtype=torch.int32, device="cuda"))
     err = 0.0
-    for cache in (bf16_cache, quantized_cache("int8", gen)):
+    for cache in (bf16_cache, filled_cache("int8", gen)):
         pool = paged_copy(cache, gen)
         mode = "int8" if cache.quantized else "bf16"
         for t in (1, 256):
@@ -2274,9 +2310,10 @@ def backward_kernels(gen: torch.Generator) -> tuple[dict[str, dict], float]:
                           zip(err.values(), time_backward(*timing))))), k1_err
 
 
-def time_backward(q, k, v, o, do, lse):
+def time_backward(q, k, v, o, do, lse, with_k1: bool = True):
     """Device ms of the three backward kernels, their plain version and SDPA's
-    backward (S_q = S_k, causal) at the training shape, with each bound."""
+    backward (S_q = S_k, causal) at the training shape, with each bound;
+    with_k1 also K1 there (time_k1)."""
     b, hq, s, d = q.shape
     dtype = q.dtype
     few = dict(warmup=1, iters=3, reps=3)
@@ -2301,7 +2338,8 @@ def time_backward(q, k, v, o, do, lse):
               f"by {lim['bound_by']}, plain backward {plain_ms:.4f} ms, SDPA backward "
               f"{lib_ms:.4f} ms")
         out.append(dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **lim))
-    time_k1("training shape", q, k, v, need_lse=True, few=few)
+    if with_k1:
+        time_k1("training shape", q, k, v, need_lse=True, few=few)
     return out
 
 
@@ -6454,6 +6492,418 @@ def phase_moe_train(gen: torch.Generator) -> dict[str, int]:
 # slowed the build by more than it saved. It runs each case once and times
 # nothing, so beside phase 2's timings it takes the card for a few
 # milliseconds a case.
+# ---- phase 23: head dims 32, 80 and 96 ----
+
+HD_DIMS = (32, 80, 96)
+# H2O-Danube2-1.8B's attention (32 heads of 80 over 2,560, 8 KV heads) at
+# B 4, S 2,048, causal, bf16: the widths at which K1, B3, B4 and B5 are held
+# and timed at each of the three dims; K2 at its heads over a cache of
+# 2,048 positions (DEC_LENGTHS).
+HD_B, HD_HQ, HD_HKV, HD_S = 4, 32, 8, 2048
+HD_ROWS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv", "decode",
+           "decode_int8", "decode_fp8", "paged_decode")
+HD_T = 4  # K2's query rows a sequence in the edge gates (T 1 is the timed step)
+# The JAX package's quality gate (tests/test_quant_ppl.py): its config, its
+# optimizer settings and steps, its token batch's shape.
+PPL_CFG = ModelConfig(vocab_size=128, hidden_size=128, intermediate_size=256, num_layers=2,
+                      num_heads=4, num_kv_heads=2, head_dim=32, max_seq_len=128,
+                      dtype=torch.float32)
+PPL_TC = train.TrainConfig(learning_rate=2e-3, warmup_steps=2, total_steps=80)
+PPL_STEPS = 60
+PPL_TOKENS = (2, 65)
+PPL_KV_BUDGET = 0.1  # fp8 and int8 caches, int8 weights (BASELINE.json's north star)
+PPL_W4_BUDGET = 1.0  # int4 weights (the JAX test's looser gate)
+PPL_ROUTES = 0.05  # the kernel route's perplexity against the plain route's, absolute
+TINY_SERVED = [100, 170, 230, 300]  # TINY's requests' prompt tokens, MISTRAL_NEW new each
+TINY_MAX_LEN = 512
+TINY_TRAIN = (4, 512)  # B, S of TINY's train step
+
+
+def head_dim_k1_gates(gen: torch.Generator) -> dict[int, float]:
+    """K1 at head dims 32, 80 and 96 (in the 64 and 128 tiles) against its
+    plain version: causal GQA on a ragged length, S_q < S_k, non-causal, a
+    window, ALiBi, the soft-cap, the offset read on the card
+    (dyn_pos_offset) and the float32 kernel. Returns each dim's largest bf16
+    O error."""
+    cases = [(1, 8, 2, 200, 200, True, {}), (2, 4, 4, 64, 300, True, {}),
+             (1, 4, 2, 130, 130, False, {}), (1, 8, 2, 300, 300, True, dict(window=65)),
+             (1, 8, 2, 256, 256, True, dict(alibi=True)),
+             (1, 8, 2, 256, 256, True, dict(logit_softcap=CAP)),
+             (1, 8, 2, 256, 256, False, dict(dyn_pos_offset=200, window=150))]
+    err = {}
+    for d in HD_DIMS:
+        err[d] = 0.0
+        for b, hq, hkv, s_q, s_k, causal, kw in cases:
+            q = randn((b, hq, s_q, d), gen)
+            k, v = (randn((b, hkv, s_k, d), gen) for _ in range(2))
+            err[d] = k1_case(f"head dim {d}", q, k, v, causal, err[d], **kw)
+        q, k, v = (randn((1, h, 200, d), gen, torch.float32) for h in (8, 2, 2))
+        k1_case(f"head dim {d} float32", q, k, v, True, 0.0, f32=True)
+    return err
+
+
+def head_dim_backward_gates(d: int, gen: torch.Generator) -> dict[str, float]:
+    """B3 and B4 + B5 at head dim d against the plain backward on the same
+    O and LSE (K1's): causal GQA on a ragged length, S_q < S_k, non-causal,
+    a window, ALiBi, the soft-cap, dropout, the offset read on the card and
+    float32. Returns each kernel's largest error."""
+    cases = [("ragged", 1, 8, 2, 200, 200, True, {}, torch.bfloat16),
+             ("Sq<Sk", 1, 4, 2, 130, 300, True, {}, torch.bfloat16),
+             ("non-causal", 2, 4, 4, 128, 128, False, {}, torch.bfloat16),
+             ("window", 1, 8, 2, 300, 300, True, dict(window=65), torch.bfloat16),
+             ("ALiBi", 1, 8, 2, 256, 256, True, dict(alibi=True), torch.bfloat16),
+             ("soft-cap", 1, 8, 2, 256, 256, True, dict(logit_softcap=CAP), torch.bfloat16),
+             ("dropout", 1, 8, 2, 256, 256, True, dict(dropout_rate=DROP_RATE,
+                                                       dropout_seed=DROP_SEED), torch.bfloat16),
+             ("card offset", 1, 8, 2, 256, 256, False, dict(dyn_pos_offset=200, window=150),
+              torch.bfloat16),
+             ("float32", 1, 4, 2, 200, 200, True, {}, torch.float32)]
+    err = {"flash_bwd_fused": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for tag, b, hq, hkv, s_q, s_k, causal, kw, dtype in cases:
+        q, do = (randn((b, hq, s_q, d), gen, dtype) for _ in range(2))
+        k, v = (randn((b, hkv, s_k, d), gen, dtype) for _ in range(2))
+        o, lse = flash_fwd.flash_attention_forward(q, k, v, causal, **kw)
+        ref = flash_bwd.flash_attention_backward_reference(q, k, v, o, do, lse, causal, **kw)
+        name = (f"head dim {d} {tag} B={b} Hq={hq} Hkv={hkv} Sq={s_q} Sk={s_k} causal={causal} "
+                f"{str(dtype)[6:]}")
+        for impl in ("fused", "split"):
+            out = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, causal, impl=impl, **kw)
+            torch.cuda.synchronize()
+            for grad, r, g in zip(("dQ", "dK", "dV"), ref, out):
+                kernel = ("flash_bwd_fused" if impl == "fused" else
+                          "flash_bwd_dq" if grad == "dQ" else "flash_bwd_dkv")
+                err[kernel] = max(err[kernel], grad_gate(f"{impl} {grad} {name}", r, g, dtype))
+    return err
+
+
+def head_dim_decode_gates(d: int, gen: torch.Generator) -> dict[str, float]:
+    """K2 at head dim d on bf16, f32, int8 and fp8 caches (B 2, Hq 8, Hkv 2,
+    Smax 2,048, lengths 0, 77 and 2,048, NaN past each) at T 1 and T 4
+    against its plain version (int8 P requantized per 64-position tile, as
+    the kernel does), an empty row exactly 0; the paged K2 on bf16 and int8
+    pools of scrambled 256-token pages torch.equal to the dense K2. Returns
+    each kernel's largest error."""
+    lengths = [0, 77, 2048]
+    b, hq, hkv = len(lengths), 8, 2
+    err = {"decode": 0.0, "decode_int8": 0.0, "decode_fp8": 0.0, "paged_decode": 0.0}
+    for mode in ("bf16", "f32", "int8", "fp8"):
+        cache = filled_cache(mode, gen, b, hkv, d, lengths)
+        dtype = torch.float32 if mode == "f32" else torch.bfloat16
+        kernel = "decode" if mode in ("bf16", "f32") else f"decode_{mode}"
+        tol = (F32_TOL if mode == "f32" else dict(atol=O_ATOL) if mode == "bf16"
+               else QUANT_DECODE_TOL)
+        pool = paged_copy(cache, gen) if mode in ("bf16", "int8") else None
+        for t in (1, HD_T):
+            q = randn((b, hq, t, d), gen, dtype)
+            ref = decode.decode_attention_reference(q, cache, requant_block=decode.BLOCK_KV)
+            o = (decode.decode_attention(q[:, :, 0].contiguous(), cache)[:, :, None]
+                 if t == 1 else decode.decode_attention_chunk(q, cache))
+            torch.cuda.synchronize()
+            tag = (f"K2 {mode} head dim {d} B={b} Hq={hq} Hkv={hkv} Smax={DEC_SMAX} T={t} "
+                   f"lengths={lengths} (NaN past each length)")
+            check(bool(torch.isfinite(o).all()) and not bool(o[0].any()),
+                  f"{tag}: non-finite output, or the empty row not 0")
+            err[kernel] = max(err[kernel], _gate(tag, ref, o, **tol))
+            if pool is not None:
+                po = paged.paged_decode_attention_chunk(q, pool)
+                check(torch.equal(po, decode.decode_attention_chunk(q, cache)),
+                      f"paged {tag}: differs from the dense K2")
+                err["paged_decode"] = max(err["paged_decode"], err[kernel])
+                print(f"[head-dims] paged {tag}, page={PAGE} scrambled: torch.equal to the "
+                      f"dense K2")
+    return err
+
+
+def head_dim_widths(d: int, gen: torch.Generator) -> dict[str, dict]:
+    """K1, B3, B4 + B5, K2 (bf16, int8, fp8) and the paged K2 at head dim d
+    at Danube2's attention widths (HD_*), each against its plain version
+    and timed beside it, its bound at the true d (utils/roofline.py) and
+    SDPA: the JSON line's rows of d."""
+    b, hq, hkv, s = HD_B, HD_HQ, HD_HKV, HD_S
+    q, do = (randn((b, hq, s, d), gen) for _ in range(2))
+    k, v = (randn((b, hkv, s, d), gen) for _ in range(2))
+    name = f"head dim {d} B={b} Hq={hq} Hkv={hkv} S={s} causal bf16"
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, True)
+    o_ref, lse_ref = flash_fwd.flash_attention_forward_reference(q, k, v, True)
+    rows = {"flash_fwd": dict(max_abs_err=_gate(f"K1 {name} O", o_ref, o, O_ATOL))}
+    _gate(f"K1 {name} LSE", lse_ref, lse, LSE_ATOL)
+    del o_ref, lse_ref
+    ref = flash_bwd.flash_attention_backward_reference(q, k, v, o, do, lse, True)
+    for impl in ("fused", "split"):
+        out = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, True, impl=impl)
+        torch.cuda.synchronize()
+        for grad, r, g in zip(("dQ", "dK", "dV"), ref, out):
+            kernel = ("flash_bwd_fused" if impl == "fused" else
+                      "flash_bwd_dq" if grad == "dQ" else "flash_bwd_dkv")
+            e = grad_gate(f"{impl} {grad} {name}", r, g, torch.bfloat16)
+            rows.setdefault(kernel, dict(max_abs_err=0.0))
+            rows[kernel]["max_abs_err"] = max(rows[kernel]["max_abs_err"], e)
+    del ref, out
+    rows["flash_fwd"].update(time_k1(f"head dim {d}", q, k, v, need_lse=True,
+                                     few=dict(warmup=1, iters=5, reps=3)))
+    for kernel, t in zip(("flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"),
+                         time_backward(q, k, v, o, do, lse, with_k1=False)):
+        rows[kernel].update(t)
+    del q, k, v, o, do, lse
+    lengths = DEC_LENGTHS
+    for mode in ("bf16", "int8", "fp8"):
+        cache = filled_cache(mode, gen, HD_B, HD_HKV, d)
+        kernel = "decode" if mode == "bf16" else f"decode_{mode}"
+        qd = randn((b, hq, d), gen)
+        ref = decode.decode_attention_reference(qd[:, :, None], cache,
+                                                requant_block=decode.BLOCK_KV)[:, :, 0]
+        o = decode.decode_attention(qd, cache)
+        tol = dict(atol=O_ATOL) if mode == "bf16" else QUANT_DECODE_TOL
+        tag = (f"K2 {mode} head dim {d} B={b} Hq={hq} Hkv={hkv} Smax={DEC_SMAX} T=1 "
+               f"lengths={lengths}")
+        e = _gate(tag, ref, o, **tol)
+        ms = cuda_time_ms(lambda: decode.decode_attention(qd, cache))
+        plain = cuda_time_ms(lambda: decode.decode_attention_reference(
+            qd[:, :, None], cache, requant_block=decode.BLOCK_KV))
+        lim = bound(roofline.decode_roofline(b, hq, hkv, d, lengths, cache_dtype=cache.k.dtype,
+                                             q_dtype_bytes=qd.element_size()))
+        lib = masked_sdpa_ms(qd, cache)
+        print(f"[head-dims] {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{lim['bound_ms']:.5f} ms by {lim['bound_by']}, SDPA with a length mask"
+              f"{'' if mode == 'bf16' else ' on the dequantized bf16 cache'} {lib:.4f} ms")
+        rows[kernel] = dict(max_abs_err=e, ms=ms, plain_ms=plain, library_ms=lib, **lim)
+        if mode == "int8":
+            pool = paged_copy(cache, gen)
+            po = paged.paged_decode_attention(qd, pool)
+            check(torch.equal(po, o), f"paged {tag}: differs from the dense K2")
+            ms = cuda_time_ms(lambda: paged.paged_decode_attention(qd, pool))
+            plain = cuda_time_ms(lambda: paged.paged_decode_reference(
+                qd[:, :, None], pool, requant_block=decode.BLOCK_KV))
+            print(f"[head-dims] paged {tag}, page={PAGE} scrambled: torch.equal to the dense "
+                  f"K2; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {lim['bound_ms']:.5f} "
+                  f"ms, SDPA {lib:.4f} ms")
+            rows["paged_decode"] = dict(max_abs_err=e, ms=ms, plain_ms=plain, library_ms=lib,
+                                        **lim)
+            del pool
+        del cache
+    return rows
+
+
+def head_dim_path(d: int, gen: torch.Generator) -> dict[str, int]:
+    """The entry points a user calls at head dim d, at Danube2's attention
+    widths, with every launch counter set to 0 first: flash_attention's
+    forward and gradients (the fused backward, then the split one by
+    FLASHATTN_BWD_IMPL), decode_attention on bf16, int8 and fp8 caches and
+    paged_decode_attention on an int8 pool. Returns the launches."""
+    b, hq, hkv, s = HD_B, HD_HQ, HD_HKV, HD_S
+    leaves = [randn((b, h, s, d), gen).requires_grad_() for h in (hq, hkv, hkv)]
+    do = randn((b, hq, s, d), gen)
+    caches = {mode: filled_cache(mode, gen, HD_B, HD_HKV, d) for mode in ("bf16", "int8", "fp8")}
+    pool = paged_copy(caches["int8"], gen)
+    qd = randn((b, hq, d), gen)
+    torch.cuda.synchronize()
+    reset_launches()
+    for impl in ("fused", "split"):
+        with profile_train.backward_impl(impl):
+            o = flash_attention(*leaves, is_causal=True)
+            grads = torch.autograd.grad(o, leaves, do)
+    outs = [decode.decode_attention(qd, c) for c in caches.values()]
+    outs.append(paged.paged_decode_attention(qd, pool))
+    torch.cuda.synchronize()
+    got = read_launches()
+    check(all(bool(torch.isfinite(x).all()) for x in (o, *grads, *outs)),
+          f"head dim {d} path: a non-finite output")
+    want = dict(flash_fwd=2, flash_bwd_fused=1, flash_bwd_dq=1, flash_bwd_dkv=1, decode=1,
+                decode_int8=1, decode_fp8=1, paged_decode=1)
+    check(all(got[k] == n for k, n in want.items()), f"head dim {d} path launched {got}")
+    print(f"[head-dims] head dim {d} path (flash_attention forward and gradients, fused then "
+          f"split; decode_attention on bf16, int8 and fp8 caches; paged_decode_attention): "
+          f"launches { {k: got[k] for k in HD_ROWS} }")
+    return {k: got[k] for k in HD_ROWS}
+
+
+@contextlib.contextmanager
+def counted(total: dict[str, int]):
+    """The launches of the body (every counter set to 0 first) added to
+    `total`."""
+    torch.cuda.synchronize()
+    reset_launches()
+    yield
+    torch.cuda.synchronize()
+    add_launches(total, read_launches())
+
+
+def ppl_line(what: str, route: str, ppl: float, against: float | None = None,
+             ref: str = "", budget: float | None = None) -> None:
+    """One perplexity on a line of its own, with its delta and budget."""
+    extra = ""
+    if against is not None:
+        extra = (f", delta {abs(ppl - against):.6f} against {ref} {against:.6f}"
+                 + (f" (< {budget})" if budget is not None else ""))
+    print(f"[ppl] {what}, {route} route: ppl {ppl:.6f}{extra}")
+
+
+def ppl_gate(gen: torch.Generator, launches: dict[str, int]) -> None:
+    """(a) The JAX package's quality gate on the card (tests/test_quant_ppl.py:
+    its config, D 32 in float32, 60 AdamW steps at lr 2e-3 on B 2 x 65
+    tokens, through K1 and the fused backward at D 32), then perplexity
+    through prefill and 63 teacher-forced decode steps (K2 at D 32) on the
+    model's float32 cache and on fp8 and int8 caches, with int8 and int4
+    weights (qmm8, qmm4), and with the weights cast to bf16 on bf16, fp8
+    and int8 caches; generate with int8 weights and an int8 cache. Every
+    perplexity on the kernel route and on the plain one (each kernel call
+    its plain version), each delta against its gate. The kernel route's
+    launches are added to `launches`."""
+    model = init_params(PPL_CFG, gen, device="cuda")
+    tokens = torch.randint(0, PPL_CFG.vocab_size, PPL_TOKENS, generator=gen, device="cuda")
+    state = train.init_train_state(model, PPL_TC)
+    t0 = time.perf_counter()
+    with counted(launches):
+        for _ in range(PPL_STEPS):
+            state, m = train.train_step(state, tokens)
+        loss = float(m["loss"])
+    print(f"[ppl] {PPL_STEPS} AdamW steps (lr {PPL_TC.learning_rate}, B {PPL_TOKENS[0]} x "
+          f"{PPL_TOKENS[1]} tokens, head dim 32, float32) through the kernels in "
+          f"{time.perf_counter() - t0:.2f} s: last loss {loss:.6f} (< 1.0)")
+    check(math.isfinite(loss) and loss < 1.0, f"the quality gate's model did not train: {loss}")
+    del state
+    bf16 = llama.Llama(dataclasses.replace(PPL_CFG, dtype=torch.bfloat16), device="cuda")
+    bf16.load_state_dict(model.state_dict())
+    models = {"float32": model, "int8 weights": quantized_copy(model, 8),
+              "int4 weights": quantized_copy(model, 4), "bf16 weights": bf16}
+    runs = [("float32", None), ("float32", "fp8"), ("float32", "int8"), ("int8 weights", None),
+            ("int4 weights", None), ("bf16 weights", None), ("bf16 weights", "fp8"),
+            ("bf16 weights", "int8")]
+    ppl = {}
+    for name, quant in runs:
+        with counted(launches):
+            ppl[name, quant, "kernel"] = perplexity.decode_ppl(models[name], tokens, quant)
+        with plain_kernels(requant_block=decode.BLOCK_KV):
+            ppl[name, quant, "plain"] = perplexity.decode_ppl(models[name], tokens, quant)
+    with counted(launches):
+        ppl_train = perplexity.train_ppl(model, tokens)
+    with plain_training_attention():
+        ppl_train_plain = perplexity.train_ppl(model, tokens)
+    cache = {None: "its own cache", "fp8": "fp8 cache", "int8": "int8 cache"}
+    for route in ("kernel", "plain"):
+        train_ppl = ppl_train if route == "kernel" else ppl_train_plain
+        print(f"[ppl] training forward, {route} route: ppl {train_ppl:.6f} (exp of loss_fn)")
+        full = ppl["float32", None, route]
+        ppl_line("float32 weights, float32 cache", route, full, train_ppl, "the training forward",
+                 0.05 * train_ppl + 0.05)
+        check(abs(full - train_ppl) < 0.05 * train_ppl + 0.05,
+              f"{route}: the decode path's ppl {full} against the training forward's {train_ppl}")
+        gates = [(("float32", "fp8"), ("float32", None), PPL_KV_BUDGET),
+                 (("float32", "int8"), ("float32", None), PPL_KV_BUDGET),
+                 (("int8 weights", None), ("float32", None), PPL_KV_BUDGET),
+                 (("int4 weights", None), ("float32", None), PPL_W4_BUDGET),
+                 (("bf16 weights", "fp8"), ("bf16 weights", None), PPL_KV_BUDGET),
+                 (("bf16 weights", "int8"), ("bf16 weights", None), PPL_KV_BUDGET)]
+        ppl_line("bf16 weights, bf16 cache", route, ppl["bf16 weights", None, route])
+        for (name, quant), (ref_name, ref_quant), budget in gates:
+            got, ref = ppl[name, quant, route], ppl[ref_name, ref_quant, route]
+            what = f"{name}, {cache[quant]}"
+            ppl_line(what, route, got, ref, f"{ref_name}, {cache[ref_quant]}", budget)
+            check(abs(got - ref) < budget, f"{route}: {what} ppl {got} against {ref}")
+    routes = {(name, quant): abs(ppl[name, quant, "kernel"] - ppl[name, quant, "plain"])
+              for name, quant in runs}
+    for (name, quant), delta in routes.items():
+        check(delta < PPL_ROUTES, f"{name}, {cache[quant]}: the kernel route's ppl is "
+              f"{delta} from the plain route's")
+    print(f"[ppl] every kernel-route perplexity within {PPL_ROUTES} of the plain route's "
+          f"(largest delta {max(routes.values()):.6f})")
+    with counted(launches):
+        out = generate.generate(models["int8 weights"], tokens[:1, :8], max_new_tokens=8,
+                                max_len=128, quant="int8")
+    check(out.shape == (1, 8) and bool(((out >= 0) & (out < PPL_CFG.vocab_size)).all()),
+          f"generate with int8 weights and an int8 cache: {out}")
+    print(f"[ppl] generate, int8 weights and an int8 cache: 8 tokens {out[0].tolist()}")
+
+
+def tiny_servers(gen: torch.Generator, launches: dict[str, int]) -> None:
+    """(b) TINY (D 32, 8 heads over 4 KV heads; random bf16 weights) served:
+    4 requests of 100-300 prompt tokens, MISTRAL_NEW new each, 2 slots,
+    max_len 512, on the bf16 server, the int8-KV server and the int8-KV
+    paged server (pages of 256), whose tokens must equal the dense int8-KV
+    server's; every decode step a replay. The runs' launches are added to
+    `launches`."""
+    model = init_params(TINY, gen, device="cuda")
+    prompts = [torch.randint(0, TINY.vocab_size, (n,), generator=gen, device="cuda").tolist()
+               for n in TINY_SERVED]
+    dense, paged_tokens = {}, {}
+    for tag, opts, tokens in (("bf16 server", {}, None),
+                              ("int8-KV server", dict(quant="int8"), dense),
+                              (f"int8-KV paged server (pages of {PAGE})",
+                               dict(quant="int8", paged=True, page_size=PAGE), paged_tokens)):
+        add_launches(launches, long_prompt_server(model, f"TINY {tag}", prompts, None,
+                                                  log="[tiny]", max_len=TINY_MAX_LEN,
+                                                  tokens=tokens, **opts))
+    check(paged_tokens == dense, "TINY: the int8-KV paged server's tokens differ from the dense "
+          "int8-KV server's")
+    print(f"[tiny] the int8-KV paged and dense servers give equal tokens for all "
+          f"{len(prompts)} requests")
+
+
+def tiny_train_step(gen: torch.Generator, launches: dict[str, int]) -> None:
+    """(c) One AdamW train step of TINY (B 4, S 512) through K1 and the
+    fused backward, and one through the split backward, each against the
+    same step on the plain route from the same weights under phase 7's
+    gates. The kernel steps' launches are added to `launches`."""
+    model = init_params(TINY, gen, device="cuda")
+    b, s = TINY_TRAIN
+    tokens = torch.randint(0, TINY.vocab_size, (b, s + 1), generator=gen, device="cuda")
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    runs = {}
+    for route in ("plain", "fused", "split"):
+        model.load_state_dict(start)
+        state = train.init_train_state(model, TRAIN_TC)
+        ctx = (plain_training_attention() if route == "plain"
+               else profile_train.backward_impl(route))
+        with ctx, counted(launches if route != "plain" else {}):
+            state, metrics = train.train_step(state, tokens)
+        runs[route] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                       {n: p.grad for n, p in model.named_parameters()})
+        del state
+    l_p, n_p, g_p = runs["plain"]
+    for route in ("fused", "split"):
+        l_k, n_k, g_k = runs[route]
+        cos = cosines(g_k, g_p)
+        worst = min(cos, key=cos.get)
+        print(f"[tiny] TINY B={b} S={s} AdamW step, kernels ({route} backward) vs plain: loss "
+              f"{l_k:.6f} / {l_p:.6f}, |dloss| {abs(l_k - l_p):.6f} (<= {LOSS_ATOL}), grad_norm "
+              f"rel {abs(n_k - n_p) / n_p:.6f} (<= {GRAD_NORM_REL}), gradient cosine min "
+              f"{cos[worst]:.6f} ({worst}) over {len(cos)} parameters (> {GRAD_COS})")
+        check(abs(l_k - l_p) <= LOSS_ATOL and abs(n_k - n_p) <= GRAD_NORM_REL * n_p
+              and cos[worst] > GRAD_COS, f"TINY train step ({route}): kernels and plain disagree")
+
+
+def phase_head_dims(gen: torch.Generator, k1_err: dict[int, float]
+                    ) -> tuple[dict[str, int], dict[str, dict]]:
+    """Phase 23 (the docstring above): each kernel's edge gates and its rows
+    at Danube2's widths at head dims 32, 80 and 96, the quality gate (a),
+    TINY served (b) and trained (c) at D 32, and the entry points' path at
+    D 80 and 96. Returns the rows' launches and the rows, named
+    `<kernel>_d<dim>`; `k1_err` holds phase 2's K1 errors by dim."""
+    clock = PhaseClock()
+    rows: dict[str, dict] = {}
+    launches: dict[str, int] = {}
+    for d in HD_DIMS:
+        err = {"flash_fwd": k1_err[d], **head_dim_backward_gates(d, gen),
+               **head_dim_decode_gates(d, gen)}
+        for kernel, row in head_dim_widths(d, gen).items():
+            row["max_abs_err"] = max(row["max_abs_err"], err[kernel])
+            rows[f"{kernel}_d{d}"] = row
+        gc.collect()
+        torch.cuda.empty_cache()
+        clock.done(f"23 head dim {d}: gates and Danube2's widths")
+    d32: dict[str, int] = {}
+    ppl_gate(gen, d32)
+    clock.done("23 (a) the quality gate")
+    tiny_servers(gen, d32)
+    tiny_train_step(gen, d32)
+    clock.done("23 (b), (c) TINY served and trained")
+    for d in HD_DIMS:
+        got = d32 if d == 32 else head_dim_path(d, gen)
+        launches.update({f"{k}_d{d}": got.get(k, 0) for k in HD_ROWS})
+    print(f"[head-dims] the rows' launches: {launches}")
+    return launches, rows
+
+
 FLEX_WARM_AFTER = 12
 FLEX_TIMED = True  # False in flex_warmup's process
 
@@ -6641,6 +7091,10 @@ def run() -> None:
     clock.done("21 tensor, pipeline and expert parallelism on two ranks, split decode, recovery")
     add_launches(launches, phase_moe_train(gen))
     clock.done("22 mixture-of-experts training")
+    hd_launches, hd_rows = phase_head_dims(gen, timed.pop("head_dim_k1_err"))
+    launches.update(hd_launches)
+    timed.update(hd_rows)
+    clock.done("23 head dims 32, 80 and 96: the quality gate, TINY, Danube2's widths")
     decode_src = ("flashattn_tpu_torch/csrc/decode.cu", "flashattn_tpu/ops/decode.py:351")
     qmm_src = "flashattn_tpu_torch/csrc/quant_matmul.cu"
     sources = {
@@ -6703,6 +7157,9 @@ def run() -> None:
     }
     for row in MASKED_ROWS + SOFTCAP_BWD_ROWS:  # the same kernels with a window, segment
         sources[row] = sources[row.rsplit("_", 1)[0]]  # ids or a soft-cap
+    for d in HD_DIMS:  # the same kernels at head dims 32, 80 and 96
+        for kernel in HD_ROWS:
+            sources[f"{kernel}_d{d}"] = sources[kernel]
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], **timed[k]}

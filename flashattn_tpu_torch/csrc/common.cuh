@@ -52,13 +52,15 @@ template <> __device__ __forceinline__ void widen16<__nv_bfloat16>(const uint4& 
   }
 }
 
-// Copy a contiguous [kRows][D] tile from global memory (16-byte aligned)
-// into shared memory as fp32 times `scale`, with row stride `ld`; rows at or
-// past n_rows are zero-filled and never read. Each thread issues all of its
+// Copy a [kRows][D] tile from global memory (16-byte aligned rows of d
+// elements, d <= D a multiple of 16 bytes) into shared memory as fp32 times
+// `scale`, with row stride `ld`; rows at or past n_rows and the columns at
+// and past d (a head dim below its compiled tile D) are zero-filled, so
+// they add nothing to a dot product over D. Each thread issues all of its
 // 16-byte loads before it stores any, so their latencies overlap instead of
 // adding up.
 template <typename T, int kRows, int D, int kThreads>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src, int n_rows,
+__device__ __forceinline__ void load_tile(const T* __restrict__ src, int n_rows, int d,
                                           float* __restrict__ dst, int ld,
                                           float scale = 1.f) {
   constexpr int kElems = 16 / sizeof(T);
@@ -66,13 +68,19 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src, int n_rows,
   constexpr int kChunks = kRows * kChunksPerRow;
   constexpr int kPerThread = (kChunks + kThreads - 1) / kThreads;
   static_assert(D % kElems == 0, "rows must be whole 16-byte chunks");
+  static_assert(kThreads % kChunksPerRow == 0, "a thread keeps its column");
+  constexpr int kRowStep = kThreads / kChunksPerRow;
+  const int row0 = threadIdx.x / kChunksPerRow, col = (threadIdx.x % kChunksPerRow) * kElems;
+  const bool col_ok = col < d;
+  const T* from = src + row0 * d + col;
   uint4 raw[kPerThread];
 #pragma unroll
   for (int j = 0; j < kPerThread; ++j) {
     const int c = threadIdx.x + j * kThreads;
     raw[j] = make_uint4(0u, 0u, 0u, 0u);
-    if (c < kChunks && c / kChunksPerRow < n_rows)
-      raw[j] = __ldg(reinterpret_cast<const uint4*>(src) + c);
+    if (c < kChunks && row0 + j * kRowStep < n_rows && col_ok)
+      raw[j] = __ldg(reinterpret_cast<const uint4*>(from));
+    from += kRowStep * d;
   }
 #pragma unroll
   for (int j = 0; j < kPerThread; ++j) {
@@ -86,6 +94,16 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src, int n_rows,
     }
   }
 }
+
+// Head dims: every kernel is compiled for a tile of D in {64, 128, 256}
+// columns and takes the true head dim d at run time, d 32 in the 64 tile
+// and d 80 and 96 in the 128 tile. Global strides and buffers are d wide;
+// the columns from d to D are loaded as zeros (they add nothing to
+// S = Q K^T or dP = dO V^T, so O, dQ, dK and dV get zeros there) and never
+// stored. d is a multiple of 16, so a cache row of one-byte values is whole
+// 16-byte chunks, and a bf16 fragment's 8 columns are all in or all out.
+__host__ __device__ constexpr int head_tile(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : 256; }
+inline bool head_dim_ok(int d) { return d > 0 && d <= 256 && d % 16 == 0; }
 
 // c += a . b on the tensor cores: one m16n8k16 bf16 product, fp32
 // accumulators, fragments in the layouts of the PTX ISA.

@@ -10,7 +10,15 @@
 // paged_decode_attention :332 and paged_decode_attention_chunk :360), with
 // the sliding window, attention sinks, the logit soft-cap and ALiBi, and
 // the optional LSE output (the dense launcher's with_lse), at head dims 64,
-// 128 and 256.
+// 128 and 256, and 32, 80 and 96 inside those tiles: the kernels are
+// compiled for a tile D of 64, 128 or 256 columns and take the true head
+// dim d at run time (common.cuh head_tile). q, the cache and O are d wide;
+// the q columns from d to D are zeros and the cache rows' chunks there are
+// zero-filled copies (a row of d values is d * 2 bytes in bf16, d * 4 in
+// f32 and d bytes in int8 or fp8: multiples of 16), so the logits are
+// those of d, O's columns from d to D are zeros and are never stored, and
+// the int8 mode's q scale takes its amax over the d live columns. The
+// merge's partial accumulators are d wide.
 //
 // What bounds it on the card: HBM bandwidth in principle, latency in
 // practice. Each step streams the live part of the cache once (K and V,
@@ -175,7 +183,7 @@ struct Args {
   const int* table;   // [B, max_pages], or null for a dense cache
   float* part_m;      // [B, Hkv, splits, R]
   float* part_l;
-  float* part_acc;  // [B, Hkv, splits, R, D]
+  float* part_acc;  // [B, Hkv, splits, R, d]
   void* o;          // [B, Hq, T, D] in T
   int B, Hq, Hkv, Tc, Smax, max_pages, page, num_pages, split_len, num_splits, row_blocks;
   int window;  // sliding window (0: none)
@@ -185,6 +193,7 @@ struct Args {
   float cap_log2;
   const float* slopes;  // [Hq] ALiBi slopes, or null
   float* lse;           // [B, Hq, T] in T, which is [B, Hkv, R], or null
+  int d;                // the head dim: q, k, v, o and part_acc rows; at most the tile D
 };
 
 // Row r of group hk's ALiBi slope in the log2 domain (0 without ALiBi).
@@ -282,31 +291,19 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// One warp merges row `row` (its partial-result index in split 0; the
-// splits follow R apart) into out[0, D): O = sum_s w_s acc_s / sum_s w_s l_s
-// with w_s = exp2(m_s - max m) over the slices that saw a key (l_s > 0;
-// the others wrote no accumulator), in split order. Lanes take 32 splits
-// at a time for the weights, then the dims, so that each step's loads are
-// in flight together; the partials are read past L1 (other CTAs wrote
-// them). A fixed order of operations: every caller gets the same bits.
-// With kLse its lane 0 writes the row's natural-log LSE to *lse.
-template <typename T, int D, bool kLse>
-__device__ __forceinline__ void merge_row(const Args& a, size_t row, int R, T* out,
-                                          float* lse) {
+// The weighted sums of one row's slices (merge_row): den = sum_s w_s l_s,
+// num = sum_s w_s acc_s over this lane's dims lane + 32 c, the slices'
+// accumulators `ld` apart: D with kFull (rows as wide as the tile, every
+// offset a constant), else a.d, the dims at and past it not read. Lanes
+// take 32 splits at a time for the weights, then the dims, so that each
+// step's loads are in flight together; the partials are read past L1
+// (other CTAs wrote them).
+template <int D, bool kFull>
+__device__ __forceinline__ void merge_splits(const Args& a, size_t row, int R, float mmax,
+                                             float (&num)[D / 32], float& den) {
   constexpr unsigned kAll = 0xffffffffu;
   const int lane = threadIdx.x % 32;
-  float mmax = kMaskValue;
-  for (int s0 = 0; s0 < a.num_splits; s0 += 32) {
-    const size_t idx = row + static_cast<size_t>(s0 + lane) * R;
-    if (s0 + lane < a.num_splits && __ldcg(a.part_l + idx) > 0.f)
-      mmax = fmaxf(mmax, __ldcg(a.part_m + idx));
-  }
-  mmax = warp_max(mmax);
-  constexpr int kPer = D / 32;
-  float num[kPer];  // dims lane + 32 c
-#pragma unroll
-  for (int c = 0; c < kPer; ++c) num[c] = 0.f;
-  float den = 0.f;
+  const int ld = kFull ? D : a.d;
   for (int s0 = 0; s0 < a.num_splits; s0 += 32) {
     const size_t idx = row + static_cast<size_t>(s0 + lane) * R;
     float w = 0.f, l = 0.f;
@@ -320,15 +317,47 @@ __device__ __forceinline__ void merge_row(const Args& a, size_t row, int R, T* o
     for (int j = 0; j < n; ++j) {
       const float wj = __shfl_sync(kAll, w, j);
       if (wj > 0.f) {  // uniform over the warp
-        const float* acc = a.part_acc + (row + static_cast<size_t>(s0 + j) * R) * D + lane;
+        const float* acc = a.part_acc + (row + static_cast<size_t>(s0 + j) * R) * ld + lane;
 #pragma unroll
-        for (int c = 0; c < kPer; ++c) num[c] = fmaf(wj, __ldcg(acc + 32 * c), num[c]);
+        for (int c = 0; c < D / 32; ++c)
+          if (kFull || lane + 32 * c < a.d) num[c] = fmaf(wj, __ldcg(acc + 32 * c), num[c]);
       }
     }
   }
+}
+
+// One warp merges row `row` (its partial-result index in split 0; the
+// splits follow R apart) into out[0, d) (d = a.d, at most the tile D):
+// O = sum_s w_s acc_s / sum_s w_s l_s with w_s = exp2(m_s - max m) over
+// the slices that saw a key (l_s > 0; the others wrote no accumulator), in
+// split order. A fixed order of operations: every caller gets the same
+// bits. Full-width rows take merge_splits' constant offsets (a uniform
+// branch outside its loops: a per-load test of d cost K2 7-10 % at T 1,
+// PERF.md, PR 22). With kLse its lane 0 writes the row's natural-log LSE
+// to *lse.
+template <typename T, int D, bool kLse>
+__device__ __forceinline__ void merge_row(const Args& a, size_t row, int R, T* out,
+                                          float* lse) {
+  const int lane = threadIdx.x % 32;
+  float mmax = kMaskValue;
+  for (int s0 = 0; s0 < a.num_splits; s0 += 32) {
+    const size_t idx = row + static_cast<size_t>(s0 + lane) * R;
+    if (s0 + lane < a.num_splits && __ldcg(a.part_l + idx) > 0.f)
+      mmax = fmaxf(mmax, __ldcg(a.part_m + idx));
+  }
+  mmax = warp_max(mmax);
+  constexpr int kPer = D / 32;
+  float num[kPer];  // dims lane + 32 c
+#pragma unroll
+  for (int c = 0; c < kPer; ++c) num[c] = 0.f;
+  float den = 0.f;
+  if (a.d == D)
+    merge_splits<D, true>(a, row, R, mmax, num, den);
+  else
+    merge_splits<D, false>(a, row, R, mmax, num, den);
 #pragma unroll
   for (int c = 0; c < kPer; ++c)
-    out[lane + 32 * c] = fat::from_f<T>(den > 0.f ? num[c] / den : 0.f);
+    if (lane + 32 * c < a.d) out[lane + 32 * c] = fat::from_f<T>(den > 0.f ? num[c] / den : 0.f);
   if constexpr (kLse) {
     if (lane == 0) *lse = row_lse(mmax, den);
   }
@@ -347,7 +376,7 @@ __global__ void __launch_bounds__(32 * kMergeRows) decode_merge_kernel(const Arg
   if (row >= a.B * a.Hkv * R) return;
   const size_t bh = row / R;
   merge_row<T, D, kLse>(a, bh * a.num_splits * R + row % R, R,
-                        static_cast<T*>(a.o) + static_cast<size_t>(row) * D,
+                        static_cast<T*>(a.o) + static_cast<size_t>(row) * a.d,
                         kLse ? a.lse + row : nullptr);
 }
 
@@ -452,15 +481,16 @@ __global__ void __launch_bounds__(kThreads, 1) decode_mma_kernel(const Args a, i
   constexpr int kRowsPerWarp = kRows / kWarps;
   constexpr int kBatch = kRowsPerWarp < 4 ? kRowsPerWarp : 4;
   constexpr int kPer = D / 32;
-  const size_t q_row = (static_cast<size_t>(b) * a.Hkv + hk) * R + r0;
+  const T* q_rows = q + ((static_cast<size_t>(b) * a.Hkv + hk) * R + r0) * a.d;
   float qv[kBatch][kPer];
   auto load_q = [&](int i0) {
 #pragma unroll
     for (int i = 0; i < kBatch; ++i) {
       const int r = warp + kWarps * (i0 + i);
 #pragma unroll
-      for (int j = 0; j < kPer; ++j)
-        qv[i][j] = r < nr ? fat::to_f(q[(q_row + r) * D + lane + 32 * j]) : 0.f;
+      for (int j = 0; j < kPer; ++j)  // dims at and past d are zeros
+        qv[i][j] = r < nr && lane + 32 * j < a.d ? fat::to_f(q_rows[r * a.d + lane + 32 * j])
+                                                 : 0.f;
     }
   };
   load_q(0);
@@ -493,11 +523,20 @@ __global__ void __launch_bounds__(kThreads, 1) decode_mma_kernel(const Args a, i
 
   // Copy the tiles of round `round` into stage `stage`: thread tid issues
   // its 16-byte chunks of each slot's K and V (rows past n_live zero
-  // filled, never read) and, quantized, one scale.
+  // filled, never read; the chunks at and past the head dim's row_bytes
+  // zero filled too, never skipped: a skipped chunk would keep an earlier
+  // tile's bytes, and the products run over the whole tile) and,
+  // quantized, one scale. A thread copies the same chunk ch_t of rows
+  // row_t, row_t + kRowStep, ...: its addresses step by kRowStep rows.
+  constexpr int kChunks = L::kRowBytes / 16;           // a tile row's 16-byte chunks
+  constexpr int kEach = kBlockN * kChunks / kThreads;  // a thread's chunks of a tile
+  constexpr int kRowStep = kThreads / kChunks;
+  static_assert(kThreads % kChunks == 0, "a thread keeps its chunk of a row");
+  const int row_bytes = a.d * static_cast<int>(sizeof(C));  // a cache row in device memory
+  const int row_t = tid / kChunks, ch_t = tid % kChunks;
+  const bool ch_live = ch_t * 16 < row_bytes;
   auto issue = [&](int round, int stage) {
     unsigned char* st = stages_mem + stage * L::kStageBytes;
-    constexpr int kChunks = L::kRowBytes / 16;           // a row's 16-byte chunks
-    constexpr int kEach = kBlockN * kChunks / kThreads;  // a thread's chunks of a tile
 #pragma unroll
     for (int s = 0; s < kTiles; ++s) {
       const int t = round * kTiles + s;
@@ -510,14 +549,14 @@ __global__ void __launch_bounds__(kThreads, 1) decode_mma_kernel(const Args a, i
       // the tile's math needs.
 #pragma unroll 1
       for (int kv = 0; kv < 2; ++kv) {
-        const unsigned char* src = kv ? vc : kc;
+        const unsigned char* src = (kv ? vc : kc) + (tl.base + row_t) * row_bytes + ch_t * 16;
+        unsigned char* to = dst + kv * L::kTileBytes + row_t * L::kLd + ch_t * 16;
 #pragma unroll 1
         for (int j = 0; j < kEach; ++j) {
-          const int c = tid + j * kThreads;
-          const int row = c / kChunks, ch = c % kChunks;
-          const bool valid = row < tl.n_live;
-          fat::cp_async16(dst + kv * L::kTileBytes + row * L::kLd + ch * 16,
-                          valid ? src + (tl.base + row) * L::kRowBytes + ch * 16 : src, valid);
+          const bool valid = ch_live && row_t + j * kRowStep < tl.n_live;
+          fat::cp_async16(to, valid ? src : kc, valid);
+          src += kRowStep * row_bytes;
+          to += kRowStep * L::kLd;
         }
       }
       if constexpr (kBytes) {
@@ -896,8 +935,11 @@ __global__ void __launch_bounds__(kThreads, 1) decode_mma_kernel(const Args a, i
 
   const size_t bh = static_cast<size_t>(b) * a.Hkv + hk;
   const size_t part_row = (bh * a.num_splits + sp) * R + r0;
+  T* o_rows = static_cast<T*>(a.o) + (bh * R + r0) * a.d;  // this CTA's rows, d apart
+  float* acc_rows = a.part_acc + part_row * a.d;
   for (int i = tid; i < nr * D; i += kThreads) {
     const int r = i / D, dd = i % D, rr = r % 16;
+    if (dd >= a.d) continue;  // O's dims at and past the head dim: zeros, not stored
     // The warps of row r's group that hold dim dd, one a tile slot, and
     // the dim's place in their accumulators.
     const int w0 = (r / 16) * kTiles * L::kHalves + dd / kDh, dh = dd % kDh;
@@ -917,10 +959,9 @@ __global__ void __launch_bounds__(kThreads, 1) decode_mma_kernel(const Args a, i
       }
     }
     if (a.num_splits == 1) {
-      static_cast<T*>(a.o)[(bh * R + r0 + r) * D + dd] =
-          fat::from_f<T>(den > 0.f ? num / den : 0.f);
+      o_rows[r * a.d + dd] = fat::from_f<T>(den > 0.f ? num / den : 0.f);
     } else {
-      if (den > 0.f) a.part_acc[(part_row + r) * D + dd] = num;  // read only where l > 0
+      if (den > 0.f) acc_rows[r * a.d + dd] = num;  // read only where l > 0
       if (dd == 0) {
         a.part_m[part_row + r] = mmax;
         a.part_l[part_row + r] = den;
@@ -1000,8 +1041,8 @@ __global__ void __launch_bounds__(kThreads) decode_f32_kernel(const Args a) {
 
   const size_t q_row = (static_cast<size_t>(b) * a.Hkv + hk) * R + r0;
   for (int i = tid; i < nr * D; i += kThreads) {
-    const int r = i / D, dd = i % D;
-    qs[r * DP + dd] = q[(q_row + r) * D + dd] * a.scale_log2;
+    const int r = i / D, dd = i % D;  // dims at and past the head dim are zeros
+    qs[r * DP + dd] = dd < a.d ? q[(q_row + r) * a.d + dd] * a.scale_log2 : 0.f;
     acc[i] = 0.f;
   }
   for (int r = tid; r < nr; r += kThreads) {
@@ -1015,8 +1056,8 @@ __global__ void __launch_bounds__(kThreads) decode_f32_kernel(const Args a) {
     const int n_live = tl.n_live;
     __syncthreads();  // previous tile consumed; q, acc and stats stored
     // Rows at or past `length` are never loaded (n_live stops there).
-    fat::load_tile<float, kBlockN, D, kThreads>(k + tl.base * D, n_live, ks, DP);
-    fat::load_tile<float, kBlockN, D, kThreads>(v + tl.base * D, n_live, vs, D);
+    fat::load_tile<float, kBlockN, D, kThreads>(k + tl.base * a.d, n_live, a.d, ks, DP);
+    fat::load_tile<float, kBlockN, D, kThreads>(v + tl.base * a.d, n_live, a.d, vs, D);
     __syncthreads();
 
     // Logits of the tile (log2 domain); masked entries hold kMaskValue.
@@ -1079,7 +1120,10 @@ __global__ void __launch_bounds__(kThreads) decode_f32_kernel(const Args a) {
     a.part_m[part_base + r] = st_m[r];
     a.part_l[part_base + r] = st_l[r];
   }
-  for (int i = tid; i < nr * D; i += kThreads) a.part_acc[part_base * D + i] = acc[i];
+  for (int i = tid; i < nr * D; i += kThreads) {
+    const int r = i / D, dd = i % D;
+    if (dd < a.d) a.part_acc[(part_base + r) * a.d + dd] = acc[i];  // zeros past d: not stored
+  }
 }
 
 // ---- launchers ----
@@ -1190,7 +1234,8 @@ cudaError_t dispatch_cache(const Args& a, int dtype, int kv_dtype, cudaStream_t 
 // entries outside [0, P) hold no key); k_scale/v_scale f32
 // [B,Hkv,1,Smax] or [P,Hkv,1,page] for a quantized cache; length [B] int32;
 // part_m/part_l [B,Hkv,splits,R] and part_acc [B,Hkv,splits,R,D] fp32
-// scratch; o like q. All contiguous on the device, k and v 16-byte aligned;
+// scratch (d = D, the head dim); o like q. All contiguous on the device,
+// k and v 16-byte aligned;
 // window 0 (none) or the sliding window, sink the always-visible first
 // positions (needs a window); split_len a multiple of 64 and
 // split_len * num_splits >= the live span (live_span_bound: Smax without a window); scale_log2 q's
@@ -1200,9 +1245,10 @@ cudaError_t dispatch_cache(const Args& a, int dtype, int kv_dtype, cudaStream_t 
 // error code (0 = success). kAlibi: the library of the ALiBi
 // instantiations (decode_alibi.cu), which takes slopes and only slopes.
 // kD256: the library of the D 256 instantiations (decode_d256.cu,
-// decode_alibi_d256.cu), which takes D 256 and only D 256; the others take
-// D 64 and 128. Four libraries, compiled side by side, each a quarter of
-// the instantiations.
+// decode_alibi_d256.cu), which takes the head dims of the 256 tile; the
+// others take those of the 64 and 128 tiles (D a multiple of 16 up to 128:
+// 32, 64, 80, 96 and 128 through the Python wrappers). Four libraries,
+// compiled side by side, each a quarter of the instantiations.
 template <bool kAlibi, bool kD256>
 int decode_launch_impl(const void* q, const void* k, const void* v, const void* k_scale,
                        const void* v_scale, const void* length, const void* table,
@@ -1213,6 +1259,7 @@ int decode_launch_impl(const void* q, const void* k, const void* v, const void* 
                        float cap_log2, void* stream) {
   const bool quantized = kv_dtype == fat::kInt8 || kv_dtype == fat::kFp8;
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Tc <= 0 || Smax <= 0 || split_len <= 0 ||
+      !fat::head_dim_ok(D) ||
       split_len % kBlockN != 0 || num_splits <= 0 || window < 0 || sink < 0 ||
       (sink > 0 && window == 0) || inv_cap < 0.f || cap_log2 < 0.f ||
       (inv_cap > 0.f) != (cap_log2 > 0.f) || (slopes != nullptr) != kAlibi ||
@@ -1227,22 +1274,23 @@ int decode_launch_impl(const void* q, const void* k, const void* v, const void* 
          static_cast<float*>(part_m), static_cast<float*>(part_l),
          static_cast<float*>(part_acc), o, B, Hq, Hkv, Tc, Smax, max_pages, page, num_pages,
          split_len, num_splits, 0, window, sink, scale_log2, inv_cap, cap_log2,
-         static_cast<const float*>(slopes), static_cast<float*>(lse)};
+         static_cast<const float*>(slopes), static_cast<float*>(lse), D};
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
+  const int tile = fat::head_tile(D);  // the compiled tile that takes D
   if constexpr (kD256) {
-    if (dtype == fat::kBF16 && D == 256)
+    if (dtype == fat::kBF16 && tile == 256)
       err = dispatch_cache<bf16, 256, kAlibi>(a, dtype, kv_dtype, s);
-    else if (dtype == fat::kF32 && D == 256)
+    else if (dtype == fat::kF32 && tile == 256)
       err = dispatch_cache<float, 256, kAlibi>(a, dtype, kv_dtype, s);
   } else {
-    if (dtype == fat::kBF16 && D == 64)
+    if (dtype == fat::kBF16 && tile == 64)
       err = dispatch_cache<bf16, 64, kAlibi>(a, dtype, kv_dtype, s);
-    else if (dtype == fat::kBF16 && D == 128)
+    else if (dtype == fat::kBF16 && tile == 128)
       err = dispatch_cache<bf16, 128, kAlibi>(a, dtype, kv_dtype, s);
-    else if (dtype == fat::kF32 && D == 64)
+    else if (dtype == fat::kF32 && tile == 64)
       err = dispatch_cache<float, 64, kAlibi>(a, dtype, kv_dtype, s);
-    else if (dtype == fat::kF32 && D == 128)
+    else if (dtype == fat::kF32 && tile == 128)
       err = dispatch_cache<float, 128, kAlibi>(a, dtype, kv_dtype, s);
   }
   return static_cast<int>(err);

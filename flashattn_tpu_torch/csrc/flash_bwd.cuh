@@ -3,7 +3,11 @@
 // (flash_bwd_fused.cu) and B5 (flash_bwd.cu). bf16 runs on the tensor cores
 // instead (flash_bwd_mma.cuh, and flash_bwd.cu's flash_bwd_dq_mma_kernel).
 //
-// Every kernel here works on square score tiles of Tile<D>::kRows rows
+// Every kernel here is compiled for a head-dim tile D of 64, 128 or 256
+// columns and takes the true head dim d (32 in the 64 tile, 80 and 96 in
+// the 128 tile; common.cuh head_tile) at run time: rows of d elements in
+// device memory, the columns up to D loaded as zeros, the outputs stored
+// to d. Every kernel here works on square score tiles of Tile<D>::kRows rows
 // (64, or 32 at D 256, whose 64-row tiles would pass the card's shared
 // memory) with 4 threads a row: thread (r = tid / 4, t = tid % 4) owns row r
 // of the tile and the columns t, t + 4, ..., so a row's four threads sit in
@@ -171,9 +175,9 @@ __device__ __forceinline__ void dkv_tile(const T* __restrict__ q, const T* __res
                                          const int* __restrict__ seg_q,
                                          const int* __restrict__ seg_k,
                                          const float* __restrict__ slopes, int Hq, int Hkv,
-                                         int Sq, int Sk, int is_causal, int offset, int window,
-                                         float scale, float scale_log2, float cap_log2,
-                                         const Dropout& drop) {
+                                         int Sq, int Sk, int d, int is_causal, int offset,
+                                         int window, float scale, float scale_log2,
+                                         float cap_log2, const Dropout& drop) {
   constexpr int kBlock = Tile<D>::kRows;
   constexpr int kThreads = Tile<D>::kThreads;
   constexpr int kPP = Tile<D>::kPP;
@@ -197,10 +201,15 @@ __device__ __forceinline__ void dkv_tile(const T* __restrict__ q, const T* __res
   const int hk = blockIdx.y, b = blockIdx.z;
   const int group = Hq / Hkv;
   const int kv_row = kv0 + r;
-  const size_t kv_base = (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
+  const size_t kv_base = (static_cast<size_t>(b) * Hkv + hk) * Sk * d;
 
-  load_tile<T, kBlock, D, kThreads>(k + kv_base + static_cast<size_t>(kv0) * D, Sk - kv0, ks, DP);
-  load_tile<T, kBlock, D, kThreads>(v + kv_base + static_cast<size_t>(kv0) * D, Sk - kv0, vs, DP);
+  // Columns from d to D load as zeros (common.cuh head_tile): S^T and dP^T
+  // take nothing from them, and dK's, dV's and dQ's columns there stay 0
+  // and are never stored.
+  load_tile<T, kBlock, D, kThreads>(k + kv_base + static_cast<size_t>(kv0) * d, Sk - kv0, d, ks,
+                                    DP);
+  load_tile<T, kBlock, D, kThreads>(v + kv_base + static_cast<size_t>(kv0) * d, Sk - kv0, d, vs,
+                                    DP);
 
   float dk_acc[kDims], dv_acc[kDims];
 #pragma unroll
@@ -224,12 +233,13 @@ __device__ __forceinline__ void dkv_tile(const T* __restrict__ q, const T* __res
     const float slope_log2 = slope_log2_of(slopes, h);
     const unsigned drop_head = kDropout ? dropout_head(drop, b * Hq + h) : 0u;
     const size_t stat_base = (static_cast<size_t>(b) * Hq + h) * Sq;
-    const size_t q_base = stat_base * D;
+    const size_t q_base = stat_base * d;
     for (int qt = q_begin; qt < q_end; ++qt) {
       const int q0 = qt * kBlock;
       __syncthreads();  // the previous q tile is consumed (K and V stored, first time)
-      load_tile<T, kBlock, D, kThreads>(q + q_base + static_cast<size_t>(q0) * D, Sq - q0, qs, DP);
-      load_tile<T, kBlock, D, kThreads>(dout + q_base + static_cast<size_t>(q0) * D, Sq - q0,
+      load_tile<T, kBlock, D, kThreads>(q + q_base + static_cast<size_t>(q0) * d, Sq - q0, d, qs,
+                                        DP);
+      load_tile<T, kBlock, D, kThreads>(dout + q_base + static_cast<size_t>(q0) * d, Sq - q0, d,
                                         dos, DP);
       if (tid < kBlock) {
         const int qi = q0 + tid;
@@ -277,19 +287,21 @@ __device__ __forceinline__ void dkv_tile(const T* __restrict__ q, const T* __res
             for (int i = 0; i < kDims; ++i)
               acc[i] = fmaf(w, ks[c * DP + t + kThreadsPerRow * i], acc[i]);
           }
-          float* row = dq_acc + q_base + static_cast<size_t>(qi) * D + t;
+          float* row = dq_acc + q_base + static_cast<size_t>(qi) * d + t;
 #pragma unroll
-          for (int i = 0; i < kDims; ++i) atomicAdd(row + kThreadsPerRow * i, acc[i] * scale);
+          for (int i = 0; i < kDims; ++i)  // dQ's columns at and past d: zeros, not added
+            if (t + kThreadsPerRow * i < d) atomicAdd(row + kThreadsPerRow * i, acc[i] * scale);
         }
       }
     }
   }
 
   if (kv_row < Sk) {
-    T* dk_row = dk + kv_base + static_cast<size_t>(kv_row) * D + t;
-    T* dv_row = dv + kv_base + static_cast<size_t>(kv_row) * D + t;
+    T* dk_row = dk + kv_base + static_cast<size_t>(kv_row) * d + t;
+    T* dv_row = dv + kv_base + static_cast<size_t>(kv_row) * d + t;
 #pragma unroll
     for (int i = 0; i < kDims; ++i) {
+      if (t + kThreadsPerRow * i >= d) continue;  // zeros past the head dim, not stored
       dk_row[kThreadsPerRow * i] = from_f<T>(dk_acc[i] * scale);
       dv_row[kThreadsPerRow * i] = from_f<T>(kDropout ? dv_acc[i] * drop.scale : dv_acc[i]);
     }

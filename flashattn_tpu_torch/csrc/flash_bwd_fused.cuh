@@ -8,25 +8,25 @@
 // and ALiBi), side by side.
 //
 // Replaces the TPU kernel flashattn_tpu/ops/flash_bwd_fused.py::
-// _fused_bwd_kernel (launcher flash_attention_backward_fused, :336; B3) on
-// the plain subset: causal (bottom-right, or by pos_offset) or not, GQA,
-// ragged S_q/S_k, rows that see no key, the sliding window and
-// packed-document segment ids (instantiated apart, flash_bwd.cuh's
-// MaskKind: the tile of flash_bwd_mma.cuh bounds its q walk by the window
-// and masks pairs of two documents), and the logit soft-cap with its exact
-// tanh derivative (kCap, a template flag of the bf16 kernel) or ALiBi
-// (kAlibi, the bias as K1 formed it: flash_bwd.cuh fwd_tile_n; the float32
-// kernel takes it as a runtime argument) and dropout (kDropout: the
-// forward's keep mask rebuilt from the seed, common.cuh dropout_keep; the
-// JAX kernel's at flash_bwd_fused.py:236-247), at D 64, 128 and 256 (8
-// warps a kv tile at D 256, flash_bwd_mma.cuh). On the TPU the dK/dV accumulators of
-// a whole (batch, kv head) stay in VMEM while one sequential grid walks the
-// q tiles; no SM holds that, so this is the one-pass design of FA2 instead:
-// one CTA per (64-row kv tile, kv head, batch) keeps its tile's dK and dV in
-// registers while it walks the GQA group's q heads and the live q tiles,
-// computing S, P, dP and dS once per tile pair, and adds each tile's dQ
-// contribution, scale applied, into an fp32 buffer with atomics. The caller
-// zeroes that buffer and casts it afterwards.
+// _fused_bwd_kernel (launcher flash_attention_backward_fused, :336; B3) on the
+// plain subset: causal (bottom-right, or by pos_offset) or not, GQA, ragged
+// S_q/S_k, rows that see no key, the sliding window and packed-document segment
+// ids (instantiated apart, flash_bwd.cuh's MaskKind: the tile of
+// flash_bwd_mma.cuh bounds its q walk by the window and masks pairs of two
+// documents), and the logit soft-cap with its exact tanh derivative (kCap, a
+// template flag of the bf16 kernel) or ALiBi (kAlibi, the bias as K1 formed it:
+// flash_bwd.cuh fwd_tile_n; the float32 kernel takes it as a runtime argument)
+// and dropout (kDropout: the forward's keep mask rebuilt from the seed,
+// common.cuh dropout_keep; the JAX kernel's at flash_bwd_fused.py:236-247), at D
+// 64, 128 and 256 (8 warps a kv tile at D 256, flash_bwd_mma.cuh), and at D 32,
+// 80 and 96 in those tiles (the true head dim at run time, common.cuh
+// head_tile). On the TPU the dK/dV accumulators of a whole (batch, kv head) stay
+// in VMEM while one sequential grid walks the q tiles; no SM holds that, so this
+// is the one-pass design of FA2 instead: one CTA per (64-row kv tile, kv head,
+// batch) keeps its tile's dK and dV in registers while it walks the GQA group's
+// q heads and the live q tiles, computing S, P, dP and dS once per tile pair,
+// and adds each tile's dQ contribution, scale applied, into an fp32 buffer with
+// atomics. The caller zeroes that buffer and casts it afterwards.
 //
 // What bounds it on the card: arithmetic, about 2.5x the forward's FLOPs
 // (five products a tile pair), so the tensor cores' rate; then the dQ
@@ -51,19 +51,21 @@ using fat::bwd::Tile;
 constexpr int kThreads = 256;  // delta pre-pass
 constexpr int kRowsPerCta = kThreads / 32;  // one warp per row
 
-// delta[row] = sum_d dO[row][d] * O[row][d] over rows = B * Hq * Sq.
+// delta[row] = sum_c dO[row][c] * O[row][c] over rows = B * Hq * Sq, the
+// rows d wide (the true head dim; D its compiled tile).
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                       float* __restrict__ delta, long long rows) {
+                       float* __restrict__ delta, long long rows, int d) {
   const int lane = threadIdx.x % 32;
   const long long row = static_cast<long long>(blockIdx.x) * kRowsPerCta + threadIdx.x / 32;
   if (row >= rows) return;  // whole warps leave together
-  const T* orow = o + row * D;
-  const T* dorow = dout + row * D;
+  const T* orow = o + row * d;
+  const T* dorow = dout + row * d;
   float sum = 0.f;
 #pragma unroll
-  for (int i = lane; i < D; i += 32) sum = fmaf(fat::to_f(dorow[i]), fat::to_f(orow[i]), sum);
+  for (int i = lane; i < D; i += 32)
+    if (i < d) sum = fmaf(fat::to_f(dorow[i]), fat::to_f(orow[i]), sum);
 #pragma unroll
   for (int m = 16; m > 0; m /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, m);
   if (lane == 0) delta[row] = sum;
@@ -76,11 +78,11 @@ flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const float* __restrict__ lse, const float* __restrict__ delta,
                        T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dq_acc,
                        const int* __restrict__ seg_q, const int* __restrict__ seg_k,
-                       const float* __restrict__ slopes, int Hq, int Hkv, int Sq, int Sk,
+                       const float* __restrict__ slopes, int Hq, int Hkv, int Sq, int Sk, int d,
                        int is_causal, int offset, int window, float scale, float scale_log2,
                        float cap_log2, const fat::Dropout drop) {
   fat::bwd::dkv_tile<T, D, true, kDropout>(q, k, v, dout, lse, delta, dk, dv, dq_acc, seg_q,
-                                           seg_k, slopes, Hq, Hkv, Sq, Sk, is_causal, offset,
+                                           seg_k, slopes, Hq, Hkv, Sq, Sk, d, is_causal, offset,
                                            window, scale, scale_log2, cap_log2, drop);
 }
 
@@ -94,13 +96,13 @@ flash_bwd_fused_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloa
                            const int* __restrict__ seg_q, const int* __restrict__ seg_k,
                            const int2* __restrict__ ranges_q, const int2* __restrict__ ranges_k,
                            const float* __restrict__ slopes, int Hq, int Hkv, int Sq, int Sk,
-                           int is_causal, int offset, int window, float scale, float scale_log2,
-                           float cap_log2, const fat::Dropout drop,
+                           int d, int is_causal, int offset, int window, float scale,
+                           float scale_log2, float cap_log2, const fat::Dropout drop,
                            const int* __restrict__ dyn_offset) {
   // kDyn: the q/k alignment from the card bounds the q walk and masks alike.
   fat::bwd::mma::dkv_tile<D, true, kMask, kCap, kAlibi, kDropout>(
       q, k, v, dout, lse, delta, dk, dv, dq_acc, seg_q, seg_k, ranges_q, ranges_k, slopes, Hq,
-      Hkv, Sq, Sk, is_causal, kDyn ? __ldg(dyn_offset) : offset, window, scale, scale_log2,
+      Hkv, Sq, Sk, d, is_causal, kDyn ? __ldg(dyn_offset) : offset, window, scale, scale_log2,
       cap_log2, drop);
 }
 
@@ -109,7 +111,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
                        const void* lse, void* dq_acc, void* dk, void* dv, const void* delta,
                        const int* seg_q, const int* seg_k, const int2* ranges_q,
                        const int2* ranges_k, const float* slopes, int B, int Hq, int Hkv, int Sq,
-                       int Sk, int is_causal, int offset, int window, float scale,
+                       int Sk, int d, int is_causal, int offset, int window, float scale,
                        float scale_log2, float cap_log2, const fat::Dropout& drop,
                        const int* dyn_offset, cudaStream_t stream) {
   namespace mma = fat::bwd::mma;
@@ -124,7 +126,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
           static_cast<const bf16*>(dout), static_cast<const float*>(lse),
           static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
           static_cast<float*>(dq_acc), seg_q, seg_k, ranges_q, ranges_k, slopes, Hq, Hkv, Sq,
-          Sk, is_causal, offset, window, scale, scale_log2, cap_log2, drop, dyn_offset);
+          Sk, d, is_causal, offset, window, scale, scale_log2, cap_log2, drop, dyn_offset);
   return cudaGetLastError();
 }
 
@@ -137,13 +139,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
                    const void* lse, void* dq_acc, void* dk, void* dv, void* delta,
                    const int* seg_q, const int* seg_k, const int2* ranges_q,
                    const int2* ranges_k, const float* slopes, int B, int Hq, int Hkv, int Sq,
-                   int Sk, int is_causal, int offset, int window, float scale, float scale_log2,
-                   float cap_log2, const fat::Dropout& drop, const int* dyn_offset,
-                   cudaStream_t stream) {
+                   int Sk, int d, int is_causal, int offset, int window, float scale,
+                   float scale_log2, float cap_log2, const fat::Dropout& drop,
+                   const int* dyn_offset, cudaStream_t stream) {
   const long long rows = static_cast<long long>(B) * Hq * Sq;
   flash_bwd_delta_kernel<T, D><<<static_cast<unsigned>((rows + kRowsPerCta - 1) / kRowsPerCta),
                                  kThreads, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<float*>(delta), rows);
+      static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<float*>(delta), rows,
+      d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
@@ -166,7 +169,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
                             : (cap ? launch_mma<D, bwd::kNoMask, true, false, X, Y>
                                    : launch_mma<D, bwd::kNoMask, false, false, X, Y>);
     return fn(q, k, v, dout, lse, dq_acc, dk, dv, delta, seg_q, seg_k, ranges_q, ranges_k, slopes,
-              B, Hq, Hkv, Sq, Sk, is_causal, offset, window, scale, scale_log2, cap_log2, drop,
+              B, Hq, Hkv, Sq, Sk, d, is_causal, offset, window, scale, scale_log2, cap_log2, drop,
               dyn_offset, stream);
   } else {
     err = fat::allow_max_smem<flash_bwd_fused_kernel<T, D, kDropout>>();
@@ -177,7 +180,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
             static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
             static_cast<const T*>(dout), static_cast<const float*>(lse),
             static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
-            static_cast<float*>(dq_acc), seg_q, seg_k, slopes, Hq, Hkv, Sq, Sk, is_causal,
+            static_cast<float*>(dq_acc), seg_q, seg_k, slopes, Hq, Hkv, Sq, Sk, d, is_causal,
             offset, window, scale, scale_log2, cap_log2, drop);
   }
   return cudaGetLastError();
@@ -185,26 +188,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
 
 }  // namespace
 
-// q, o, dout [B,Hq,Sq,D]; k, v, dk, dv [B,Hkv,Sk,D]; lse and delta
-// [B,Hq,Sq] fp32; dq_acc [B,Hq,Sq,D] fp32, zeroed by the caller; all
-// contiguous on the device, the [.., D] tensors 16-byte aligned; seg_q
-// [B,Sq] and seg_k [B,Sk] int32 segment ids with their block ranges
-// ranges_q [B,ceil(Sq/32)] and ranges_k [B,ceil(Sk/32)] int2 (min, max),
-// all NULL or none (the float32 kernels read the ids alone); slopes the
-// (Hq,) float32 ALiBi table, not NULL in the ALiBi library
-// (flash_bwd_fused_alibi.cu) and NULL in the other (flash_bwd_fused.cu),
-// never with a soft-cap. Row r sees column c iff !is_causal or
-// c <= r + offset, with window > 0 (causal only) c >= r + offset - window + 1,
-// and with segment ids seg_q[b][r] == seg_k[b][c]. The logits s (q . k) are
-// s * scale_log2 in the exp2 domain (scale_log2 = scale * log2(e)), or with
-// cap_log2 > 0 (the soft-cap: cap * log2(e), and scale_log2 then
-// scale / cap) tanh(s * scale_log2) * cap_log2, as the forward made them;
-// ALiBi adds slopes[h] * log2(e) * (c - r - offset). With kDropout (the
-// library flash_bwd_fused_dropout.cu, ALiBi or not) the forward's keep mask
-// of drop drops P in dV and dP in dS. D is 64, 128 or 256.
-// Writes delta, dk (scale applied) and dv in k's dtype, and adds
-// scale * dS.K into dq_acc. Returns the CUDA error code of the launches
-// (0 = success).
+// q, o, dout [B,Hq,Sq,D]; k, v, dk, dv [B,Hkv,Sk,D]; lse and delta [B,Hq,Sq]
+// fp32; dq_acc [B,Hq,Sq,D] fp32, zeroed by the caller; all contiguous on the
+// device, the [.., D] tensors 16-byte aligned; seg_q [B,Sq] and seg_k [B,Sk]
+// int32 segment ids with their block ranges ranges_q [B,ceil(Sq/32)] and
+// ranges_k [B,ceil(Sk/32)] int2 (min, max), all NULL or none (the float32
+// kernels read the ids alone); slopes the (Hq,) float32 ALiBi table, not NULL in
+// the ALiBi library (flash_bwd_fused_alibi.cu) and NULL in the other
+// (flash_bwd_fused.cu), never with a soft-cap. Row r sees column c iff
+// !is_causal or c <= r + offset, with window > 0 (causal only) c >= r + offset -
+// window + 1, and with segment ids seg_q[b][r] == seg_k[b][c]. The logits s (q .
+// k) are s * scale_log2 in the exp2 domain (scale_log2 = scale * log2(e)), or
+// with cap_log2 > 0 (the soft-cap: cap * log2(e), and scale_log2 then scale /
+// cap) tanh(s * scale_log2) * cap_log2, as the forward made them; ALiBi adds
+// slopes[h] * log2(e) * (c - r - offset). With kDropout (the library
+// flash_bwd_fused_dropout.cu, ALiBi or not) the forward's keep mask of drop
+// drops P in dV and dP in dS. D, the head dim, is a multiple of 16 up to 256,
+// run in the compiled tile of 64, 128 or 256 columns that holds it (common.cuh
+// head_tile); dq_acc is D wide, as q. Writes delta, dk (scale applied) and dv in
+// k's dtype, and adds scale * dS.K into dq_acc. Returns the CUDA error code of
+// the launches (0 = success).
 template <bool kAlibi, bool kDropout, bool kDyn>
 int fused_launch_impl(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const void* lse, void* dq_acc, void* dk, void* dv,
@@ -218,26 +221,27 @@ int fused_launch_impl(const void* q, const void* k, const void* v, const void* o
       (window > 0 && !is_causal && !kDyn) || seg != (seg_k != nullptr) ||
       seg != (ranges_q != nullptr) || seg != (ranges_k != nullptr) || cap_log2 < 0.f ||
       (slopes != nullptr) != kAlibi || (kAlibi && cap_log2 > 0.f) ||
+      !fat::head_dim_ok(D) ||
       (kDyn && (is_causal || dyn_offset == nullptr || cap_log2 > 0.f ||
-                (window == 0 && !kAlibi) || dtype != fat::kBF16 || D > 128)))
+                (window == 0 && !kAlibi) || dtype != fat::kBF16 || fat::head_tile(D) > 128)))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr bool A = kAlibi, X = kDropout;
+  const int tile = fat::head_tile(D);  // the compiled tile that takes D
   decltype(&launch<__nv_bfloat16, 64, A, X, kDyn>) fn = nullptr;
   if constexpr (kDyn)
-    fn = D == 64 ? launch<__nv_bfloat16, 64, A, X, true> : launch<__nv_bfloat16, 128, A, X, true>;
+    fn = tile == 64 ? launch<__nv_bfloat16, 64, A, X, true>
+                    : launch<__nv_bfloat16, 128, A, X, true>;
   else
-    fn = dtype == fat::kBF16 ? (D == 64    ? launch<__nv_bfloat16, 64, A, X, false>
-                                : D == 128 ? launch<__nv_bfloat16, 128, A, X, false>
-                                : D == 256 ? launch<__nv_bfloat16, 256, A, X, false>
-                                           : nullptr)
-         : dtype == fat::kF32 ? (D == 64    ? launch<float, 64, A, X, false>
-                                 : D == 128 ? launch<float, 128, A, X, false>
-                                 : D == 256 ? launch<float, 256, A, X, false>
-                                            : nullptr)
+    fn = dtype == fat::kBF16 ? (tile == 64    ? launch<__nv_bfloat16, 64, A, X, false>
+                                : tile == 128 ? launch<__nv_bfloat16, 128, A, X, false>
+                                              : launch<__nv_bfloat16, 256, A, X, false>)
+         : dtype == fat::kF32 ? (tile == 64    ? launch<float, 64, A, X, false>
+                                 : tile == 128 ? launch<float, 128, A, X, false>
+                                               : launch<float, 256, A, X, false>)
                               : nullptr;
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(fn(q, k, v, o, dout, lse, dq_acc, dk, dv, delta, seg_q, seg_k,
-                             ranges_q, ranges_k, slopes, B, Hq, Hkv, Sq, Sk, is_causal, offset,
-                             window, scale, scale_log2, cap_log2, drop, dyn_offset,
+                             ranges_q, ranges_k, slopes, B, Hq, Hkv, Sq, Sk, D, is_causal,
+                             offset, window, scale, scale_log2, cap_log2, drop, dyn_offset,
                              static_cast<cudaStream_t>(stream)));
 }

@@ -50,6 +50,13 @@
 // which keeps dK, dV, S^T and dP^T in registers without spills. dK and dV stay in registers until one write
 // each (scale applied to dK); kv rows that no q row sees are written as 0.
 //
+// Head dims: D is the compiled tile (64, 128 or 256); the true head dim d
+// (32 in the 64 tile, 80 and 96 in the 128 tile; common.cuh head_tile)
+// comes at run time. K, V, Q and dO rows are d elements apart in device
+// memory and their columns from d to D arrive as zeros (load_tile_async's
+// zero fill), so S^T and dP^T are those of d; dK's, dV's and dQ's columns
+// from d to D are then zeros and are never stored.
+//
 // Shared memory: 65,536 B (fused) or 56,320 B (dK/dV) at D 64; 75,264 B or
 // 70,144 B at D 128; 140,800 B or 135,680 B at D 256; segment ids add 512 B
 // at D 64, 256 B at D 128 and 256. Registers and spills: the compiler report
@@ -95,21 +102,30 @@ constexpr size_t smem_bytes() {
          + (kMask == kSegmentMask ? sizeof(int) * 2 * kBr : 0);  // segment ids: two buffers
 }
 
-// Rows [0, n_rows) of a contiguous [kRows][D] bf16 tile into shared memory
+// Rows [0, n_rows) of a [kRows][D] bf16 tile whose rows are d elements
+// apart in device memory (d <= D, common.cuh head_tile) into shared memory
 // with row stride D + 8, by cp.async from kNThreads threads; rows past
-// n_rows are zeros.
+// n_rows and the columns at and past d are zeros. The copy is issued for
+// every chunk, zero-filled (cp_async16's valid = false) where there is no
+// data, never skipped: a skipped chunk would keep the previous tile's
+// values and enter the dot products over D.
 template <int kRows, int D, int kNThreads = kThreads>
-__device__ __forceinline__ void load_tile_async(const bf16* __restrict__ src, int n_rows,
+__device__ __forceinline__ void load_tile_async(const bf16* __restrict__ src, int n_rows, int d,
                                                 bf16* __restrict__ dst) {
   constexpr int kChunksPerRow = D / 8;
   constexpr int kChunks = kRows * kChunksPerRow;
   static_assert(kChunks % kNThreads == 0, "whole 16-byte chunks for every thread");
+  static_assert(kNThreads % kChunksPerRow == 0, "a thread keeps its column");
+  constexpr int kRowStep = kNThreads / kChunksPerRow;
+  const int row0 = threadIdx.x / kChunksPerRow, col = (threadIdx.x % kChunksPerRow) * 8;
+  const bool col_ok = col < d;
+  const bf16* from = src + row0 * d + col;
 #pragma unroll
   for (int j = 0; j < kChunks / kNThreads; ++j) {
-    const int c = threadIdx.x + j * kNThreads;
-    const int row = c / kChunksPerRow, col = (c % kChunksPerRow) * 8;
-    const bool valid = row < n_rows;
-    cp_async16(dst + row * (D + 8) + col, valid ? src + row * D + col : src, valid);
+    const int row = row0 + j * kRowStep;
+    const bool valid = row < n_rows && col_ok;
+    cp_async16(dst + row * (D + 8) + col, valid ? from : src, valid);
+    from += kRowStep * d;
   }
 }
 
@@ -132,9 +148,9 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
                                          const int2* __restrict__ ranges_q,
                                          const int2* __restrict__ ranges_k,
                                          const float* __restrict__ slopes, int Hq, int Hkv,
-                                         int Sq, int Sk, int is_causal, int offset, int window,
-                                         float scale, float scale_log2, float cap_log2,
-                                         const Dropout& drop) {
+                                         int Sq, int Sk, int d, int is_causal, int offset,
+                                         int window, float scale, float scale_log2,
+                                         float cap_log2, const Dropout& drop) {
   static_assert(!(kCap && kAlibi), "ALiBi takes no soft-cap");
   constexpr int kBr = q_rows<D>();
   constexpr int kNThreads = threads<D>();
@@ -167,7 +183,7 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
   const int hk = blockIdx.x, b = blockIdx.y;
   const int kv0 = blockIdx.z * kBc;
   const int group = Hq / Hkv;
-  const size_t kv_base = (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
+  const size_t kv_base = (static_cast<size_t>(b) * Hkv + hk) * Sk * d;
 
   // Causal: q row qi sees column kv0 iff qi >= kv0 - offset, so q tiles
   // before the one holding that row contribute nothing.
@@ -195,8 +211,8 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
     int q0;
     const size_t row = stat_row(it, q0);
     const int buf = it & 1;
-    load_tile_async<kBr, D, kNThreads>(q + row * D, Sq - q0, qs + buf * kBr * KP);
-    load_tile_async<kBr, D, kNThreads>(dout + row * D, Sq - q0, dos + buf * kBr * KP);
+    load_tile_async<kBr, D, kNThreads>(q + row * d, Sq - q0, d, qs + buf * kBr * KP);
+    load_tile_async<kBr, D, kNThreads>(dout + row * d, Sq - q0, d, dos + buf * kBr * KP);
     if (tid < 2 * kBr) {
       const int r = tid % kBr;
       const bool valid = q0 + r < Sq;
@@ -210,8 +226,11 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
     }
   };
 
-  load_tile_async<kBc, D, kNThreads>(k + kv_base + static_cast<size_t>(kv0) * D, Sk - kv0, ks);
-  load_tile_async<kBc, D, kNThreads>(v + kv_base + static_cast<size_t>(kv0) * D, Sk - kv0, vs);
+  // K's, V's, Q's and dO's columns from d to D are zeros: S^T and dP^T take
+  // nothing from them, so dK's, dV's and dQ's columns there are zeros too,
+  // and none of them is stored.
+  load_tile_async<kBc, D, kNThreads>(k + kv_base + static_cast<size_t>(kv0) * d, Sk - kv0, d, ks);
+  load_tile_async<kBc, D, kNThreads>(v + kv_base + static_cast<size_t>(kv0) * d, Sk - kv0, d, vs);
   if (n_iters > 0) load_q_tile(0);
   cp_async_commit();
   cp_async_wait_all();
@@ -435,14 +454,16 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
         }
         // Lanes tig and tig ^ 1 trade halves, so that each adds four
         // consecutive entries of one row: row g for even tig, g + 8 for odd.
-        float* out = dq_acc + (row0 - q0 + qi) * D + dc + 2 * (tig & ~1);
+        float* out = dq_acc + (row0 - q0 + qi) * d + dc + 2 * (tig & ~1);
 #pragma unroll
         for (int n = 0; n < kPass / 8; ++n) {
           const float y0 = __shfl_xor_sync(0xffffffffu, odd ? acc[n][0] : acc[n][2], 1);
           const float y1 = __shfl_xor_sync(0xffffffffu, odd ? acc[n][1] : acc[n][3], 1);
           const float4 val = odd ? make_float4(y0, y1, acc[n][2], acc[n][3])
                                  : make_float4(acc[n][0], acc[n][1], y0, y1);
-          if (qi < Sq)
+          // dq_acc is d wide: columns dc + 8n .. + 7 at and past d hold
+          // zeros and are not added (d a multiple of 16).
+          if (qi < Sq && dc + 8 * n < d)
             atomicAdd(reinterpret_cast<float4*>(out + 8 * n),
                       make_float4(val.x * scale, val.y * scale, val.z * scale, val.w * scale));
         }
@@ -454,10 +475,11 @@ __device__ __forceinline__ void dkv_tile(const bf16* __restrict__ q, const bf16*
   for (int i = 0; i < 2; ++i) {
     const int kr = kv_r0 + 8 * i;
     if (kr >= Sk) continue;
-    bf16* dk_row = dk + kv_base + static_cast<size_t>(kr) * D + dcol + 2 * tig;
-    bf16* dv_row = dv + kv_base + static_cast<size_t>(kr) * D + dcol + 2 * tig;
+    bf16* dk_row = dk + kv_base + static_cast<size_t>(kr) * d + dcol + 2 * tig;
+    bf16* dv_row = dv + kv_base + static_cast<size_t>(kr) * d + dcol + 2 * tig;
 #pragma unroll
     for (int n = 0; n < kDTiles; ++n) {
+      if (dcol + 8 * n >= d) continue;  // zeros past the head dim, not stored
       *reinterpret_cast<__nv_bfloat162*>(dk_row + 8 * n) =
           __floats2bfloat162_rn(dk_acc[n][2 * i] * scale, dk_acc[n][2 * i + 1] * scale);
       if constexpr (kDropout)  // c of c M P^T

@@ -12,7 +12,8 @@
 // plain subset: causal (bottom-right, or by pos_offset) or not, GQA, ragged
 // S_q/S_k, rows that see no key, the sliding window, packed-document
 // segment ids, the logit soft-cap (its exact tanh derivative) and ALiBi, at
-// D 64, 128 and 256. The TPU's wavefront meta arrays and its pre-scaled
+// D 64, 128 and 256, and at D 32, 80 and 96 inside those tiles (the true
+// head dim at run time, common.cuh head_tile). The TPU's wavefront meta arrays and its pre-scaled
 // operands are Mosaic designs and are not carried over.
 //
 // What bounds it on the card: at the training shapes (S 2048, D 64) each
@@ -91,8 +92,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     const float* __restrict__ lse, T* __restrict__ dq,
                     float* __restrict__ delta, const int* __restrict__ seg_q,
                     const int* __restrict__ seg_k, const float* __restrict__ slopes, int Hq,
-                    int Hkv, int Sq, int Sk, int is_causal, int offset, int window, float scale,
-                    float scale_log2, float cap_log2, const fat::Dropout drop) {
+                    int Hkv, int Sq, int Sk, int d, int is_causal, int offset, int window,
+                    float scale, float scale_log2, float cap_log2, const fat::Dropout drop) {
   constexpr int kBlock = Tile<D>::kRows;
   constexpr int kThreads = Tile<D>::kThreads;
   constexpr int kPP = Tile<D>::kPP;
@@ -115,26 +116,30 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int hk = h / (Hq / Hkv);
   const float slope_log2 = fat::bwd::slope_log2_of(slopes, h);
   const size_t stat_base = (static_cast<size_t>(b) * Hq + h) * Sq;
-  const size_t q_base = stat_base * D;
-  const size_t kv_base = (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
+  const size_t q_base = stat_base * d;
+  const size_t kv_base = (static_cast<size_t>(b) * Hkv + hk) * Sk * d;
   const int qi = q0 + r;
   const int row_seg = seg_q != nullptr && qi < Sq ? seg_q[static_cast<size_t>(b) * Sq + qi] : 0;
   const unsigned drop_row =
       kDropout ? fat::dropout_row(qi, fat::dropout_head(drop, b * Hq + h)) : 0u;
 
-  fat::load_tile<T, kBlock, D, kThreads>(q + q_base + static_cast<size_t>(q0) * D, Sq - q0, qs, DP);
-  fat::load_tile<T, kBlock, D, kThreads>(dout + q_base + static_cast<size_t>(q0) * D, Sq - q0,
+  // Columns from d to D load as zeros (common.cuh head_tile): S and dP take
+  // nothing from them, dQ's columns there stay 0 and are not stored.
+  fat::load_tile<T, kBlock, D, kThreads>(q + q_base + static_cast<size_t>(q0) * d, Sq - q0, d, qs,
+                                         DP);
+  fat::load_tile<T, kBlock, D, kThreads>(dout + q_base + static_cast<size_t>(q0) * d, Sq - q0, d,
                                          dos, DP);
 
   // delta of row qi: each of its four threads sums D/4 products, then the quad.
   float row_delta = 0.f, lse2 = CUDART_INF_F;
   if (qi < Sq) {
-    const T* orow = o + q_base + static_cast<size_t>(qi) * D + t;
-    const T* dorow = dout + q_base + static_cast<size_t>(qi) * D + t;
+    const T* orow = o + q_base + static_cast<size_t>(qi) * d + t;
+    const T* dorow = dout + q_base + static_cast<size_t>(qi) * d + t;
 #pragma unroll
     for (int i = 0; i < kDims; ++i)
-      row_delta = fmaf(fat::to_f(dorow[kThreadsPerRow * i]), fat::to_f(orow[kThreadsPerRow * i]),
-                       row_delta);
+      if (t + kThreadsPerRow * i < d)
+        row_delta = fmaf(fat::to_f(dorow[kThreadsPerRow * i]),
+                         fat::to_f(orow[kThreadsPerRow * i]), row_delta);
     lse2 = fat::bwd::lse_log2(lse[stat_base + qi]);
   }
   row_delta += __shfl_xor_sync(0xffffffffu, row_delta, 1);
@@ -153,9 +158,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int n_first = window > 0 ? max(0, q0 + offset - window + 1) / kBlock * kBlock : 0;
   for (int n0 = n_first; n0 < kv_end; n0 += kBlock) {
     __syncthreads();  // previous kv tile consumed (and Q, dO stored, first time)
-    const size_t tile = kv_base + static_cast<size_t>(n0) * D;
-    fat::load_tile<T, kBlock, D, kThreads>(k + tile, kv_end - n0, ks, DP);
-    fat::load_tile<T, kBlock, D, kThreads>(v + tile, kv_end - n0, vs, DP);
+    const size_t tile = kv_base + static_cast<size_t>(n0) * d;
+    fat::load_tile<T, kBlock, D, kThreads>(k + tile, kv_end - n0, d, ks, DP);
+    fat::load_tile<T, kBlock, D, kThreads>(v + tile, kv_end - n0, d, vs, DP);
     __syncthreads();
 
     // S and dP: q row r against kv columns t + 4j.
@@ -180,9 +185,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 
   if (qi < Sq) {
-    T* row = dq + q_base + static_cast<size_t>(qi) * D + t;
+    T* row = dq + q_base + static_cast<size_t>(qi) * d + t;
 #pragma unroll
-    for (int i = 0; i < kDims; ++i) row[kThreadsPerRow * i] = fat::from_f<T>(acc[i] * scale);
+    for (int i = 0; i < kDims; ++i)  // zeros past the head dim, not stored
+      if (t + kThreadsPerRow * i < d) row[kThreadsPerRow * i] = fat::from_f<T>(acc[i] * scale);
   }
 }
 
@@ -213,15 +219,15 @@ constexpr size_t smem_bytes() {
 // ALiBi (as the dK/dV tile of flash_bwd_mma.cuh) and kDropout dropout;
 // cap_log2, slopes and drop are not read without them.
 template <int D, int kMask, bool kCap, bool kAlibi, bool kDropout, bool kDyn>
-__global__ void __launch_bounds__(fat::bwd::mma::kThreads)
-flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+__device__ __forceinline__ void
+dq_mma_cta(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
                         const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
                         __nv_bfloat16* __restrict__ dq, float* __restrict__ delta,
                         const int* __restrict__ seg_q, const int* __restrict__ seg_k,
                         const int2* __restrict__ ranges_q, const int2* __restrict__ ranges_k,
                         const float* __restrict__ slopes, int Hq, int Hkv, int Sq, int Sk,
-                        int is_causal, int offset_arg, int window, float scale,
+                        int d, int is_causal, int offset_arg, int window, float scale,
                         float scale_log2, float cap_log2, const fat::Dropout drop,
                         const int* __restrict__ dyn_offset) {
   static_assert(!(kCap && kAlibi), "ALiBi takes no soft-cap");
@@ -254,8 +260,8 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
   const size_t stat_base = (static_cast<size_t>(b) * Hq + h) * Sq;
-  const size_t q_base = stat_base * D;
-  const size_t kv_base = (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
+  const size_t q_base = stat_base * d;
+  const size_t kv_base = (static_cast<size_t>(b) * Hkv + hk) * Sk * d;
 
   // Columns [0, kv_end) can be visible to some row of the tile.
   int kv_end = Sk;
@@ -268,35 +274,41 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   const bool seg = kMask == fat::bwd::kSegmentMask && seg_q != nullptr;
   const int* seg_k_row = seg ? seg_k + static_cast<size_t>(b) * Sk : nullptr;
   // K, V (and their segment ids) of loop iteration `it` into buffer it & 1.
+  const bf16* k_head = k + kv_base;
+  const bf16* v_head = v + kv_base;
   auto load_kv = [&](int it) {
     const int n1 = (first + it) * kBc;
     const int nb = it & 1;
-    load_tile_async<kBc, D>(k + kv_base + static_cast<size_t>(n1) * D, kv_end - n1,
-                            ks + nb * kBc * KP);
-    load_tile_async<kBc, D>(v + kv_base + static_cast<size_t>(n1) * D, kv_end - n1,
-                            vs + nb * kBc * KP);
+    load_tile_async<kBc, D>(k_head + n1 * d, kv_end - n1, d, ks + nb * kBc * KP);
+    load_tile_async<kBc, D>(v_head + n1 * d, kv_end - n1, d, vs + nb * kBc * KP);
     if (seg && tid < kBc) {
       const bool valid = n1 + tid < kv_end;
       fat::cp_async4(segs + nb * kBc + tid, seg_k_row + (valid ? n1 + tid : 0), valid);
     }
   };
 
-  load_tile_async<kBr, D>(q + q_base + static_cast<size_t>(q0) * D, Sq - q0, qs);
-  load_tile_async<kBr, D>(dout + q_base + static_cast<size_t>(q0) * D, Sq - q0, dos);
+  // Q's, dO's, K's and V's columns from d to D are zeros (common.cuh
+  // head_tile): S and dP take nothing from them, dQ's columns there are
+  // zeros and are not stored.
+  load_tile_async<kBr, D>(q + q_base + static_cast<size_t>(q0) * d, Sq - q0, d, qs);
+  load_tile_async<kBr, D>(dout + q_base + static_cast<size_t>(q0) * d, Sq - q0, d, dos);
   if (n_tiles > 0) load_kv(0);
   fat::cp_async_commit();
 
   // delta of each row from O and dO in fp32: two threads a row, D/2 entries
-  // each by 16-byte loads, then the pair; rows past Sq get 0 and LSE +inf.
+  // each by 16-byte loads (those below d), then the pair; rows past Sq get 0
+  // and LSE +inf.
   {
     const int r = tid / 2, qi = q0 + r;
     float acc = 0.f;
     if (qi < Sq) {
-      const size_t at = q_base + static_cast<size_t>(qi) * D + (tid % 2) * (D / 2);
+      const int c0 = (tid % 2) * (D / 2);  // this thread's first column
+      const size_t at = q_base + static_cast<size_t>(qi) * d + c0;
       const uint4* orow = reinterpret_cast<const uint4*>(o + at);
       const uint4* dorow = reinterpret_cast<const uint4*>(dout + at);
 #pragma unroll
       for (int c = 0; c < D / 16; ++c) {
+        if (c0 + 8 * c >= d) continue;
         float ov[8], dov[8];
         fat::widen16<bf16>(__ldg(orow + c), ov);
         fat::widen16<bf16>(__ldg(dorow + c), dov);
@@ -490,12 +502,61 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   for (int i = 0; i < 2; ++i) {
     const int qi = qr0 + 8 * i;
     if (qi >= Sq) continue;
-    bf16* row = dq + q_base + static_cast<size_t>(qi) * D + 2 * tig;
+    bf16* row = dq + q_base + static_cast<size_t>(qi) * d + 2 * tig;
 #pragma unroll
     for (int n = 0; n < kDTiles; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * n) =
-          __floats2bfloat162_rn(dq_acc[n][2 * i] * scale, dq_acc[n][2 * i + 1] * scale);
+      if (8 * n < d)  // zeros past the head dim, not stored
+        *reinterpret_cast<__nv_bfloat162*>(row + 8 * n) =
+            __floats2bfloat162_rn(dq_acc[n][2 * i] * scale, dq_acc[n][2 * i + 1] * scale);
   }
+}
+
+// dq_mma_cta's kernel. Given maxThreads alone, ptxas trades registers for a
+// third CTA an SM where it judges the cost small: once the head dim came at
+// run time it took the D 128 window kernels from 240 registers to 168 (3
+// CTAs) and they ran 17 % slower (PERF.md, PR 22). Those run as
+// flash_bwd_dq_two_cta_mma_kernel, held at two CTAs an SM by its bound
+// (ptxas may then use up to 255 registers); every other one as ptxas picks.
+#define FA_DQ_MMA_ARGS                                                                           \
+  q, k, v, o, dout, lse, dq, delta, seg_q, seg_k, ranges_q, ranges_k, slopes, Hq, Hkv, Sq, Sk, d, \
+      is_causal, offset_arg, window, scale, scale_log2, cap_log2, drop, dyn_offset
+template <int D, int kMask, bool kCap, bool kAlibi, bool kDropout, bool kDyn>
+__global__ void __launch_bounds__(fat::bwd::mma::kThreads)
+flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
+                        const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                        __nv_bfloat16* __restrict__ dq, float* __restrict__ delta,
+                        const int* __restrict__ seg_q, const int* __restrict__ seg_k,
+                        const int2* __restrict__ ranges_q, const int2* __restrict__ ranges_k,
+                        const float* __restrict__ slopes, int Hq, int Hkv, int Sq, int Sk,
+                        int d, int is_causal, int offset_arg, int window, float scale,
+                        float scale_log2, float cap_log2, const fat::Dropout drop,
+                        const int* __restrict__ dyn_offset) {
+  dq_mma_cta<D, kMask, kCap, kAlibi, kDropout, kDyn>(FA_DQ_MMA_ARGS);
+}
+template <int D, int kMask, bool kCap, bool kAlibi, bool kDropout, bool kDyn>
+__global__ void __launch_bounds__(fat::bwd::mma::kThreads, 2)
+flash_bwd_dq_two_cta_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
+    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+    __nv_bfloat16* __restrict__ dq, float* __restrict__ delta, const int* __restrict__ seg_q,
+    const int* __restrict__ seg_k, const int2* __restrict__ ranges_q,
+    const int2* __restrict__ ranges_k, const float* __restrict__ slopes, int Hq, int Hkv, int Sq,
+    int Sk, int d, int is_causal, int offset_arg, int window, float scale, float scale_log2,
+    float cap_log2, const fat::Dropout drop, const int* __restrict__ dyn_offset) {
+  dq_mma_cta<D, kMask, kCap, kAlibi, kDropout, kDyn>(FA_DQ_MMA_ARGS);
+}
+#undef FA_DQ_MMA_ARGS
+
+// The dQ kernel of an instantiation: one of the two above, the other never
+// instantiated.
+template <int D, int kMask, bool kCap, bool kAlibi, bool kDropout, bool kDyn>
+constexpr auto dq_mma_kernel() {
+  if constexpr (D >= 128 && kMask == fat::bwd::kWindowMask)
+    return flash_bwd_dq_two_cta_mma_kernel<D, kMask, kCap, kAlibi, kDropout, kDyn>;
+  else
+    return flash_bwd_dq_mma_kernel<D, kMask, kCap, kAlibi, kDropout, kDyn>;
 }
 
 template <typename T, int D, bool kDropout>
@@ -504,11 +565,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                      const int* __restrict__ seg_q, const int* __restrict__ seg_k,
-                     const float* __restrict__ slopes, int Hq, int Hkv, int Sq, int Sk,
+                     const float* __restrict__ slopes, int Hq, int Hkv, int Sq, int Sk, int d,
                      int is_causal, int offset, int window, float scale, float scale_log2,
                      float cap_log2, const fat::Dropout drop) {
   fat::bwd::dkv_tile<T, D, false, kDropout>(q, k, v, dout, lse, delta, dk, dv, nullptr, seg_q,
-                                            seg_k, slopes, Hq, Hkv, Sq, Sk, is_causal, offset,
+                                            seg_k, slopes, Hq, Hkv, Sq, Sk, d, is_causal, offset,
                                             window, scale, scale_log2, cap_log2, drop);
 }
 
@@ -521,13 +582,13 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
                          __nv_bfloat16* __restrict__ dv, const int* __restrict__ seg_q,
                          const int* __restrict__ seg_k, const int2* __restrict__ ranges_q,
                          const int2* __restrict__ ranges_k, const float* __restrict__ slopes,
-                         int Hq, int Hkv, int Sq, int Sk, int is_causal, int offset, int window,
-                         float scale, float scale_log2, float cap_log2, const fat::Dropout drop,
-                         const int* __restrict__ dyn_offset) {
+                         int Hq, int Hkv, int Sq, int Sk, int d, int is_causal, int offset,
+                         int window, float scale, float scale_log2, float cap_log2,
+                         const fat::Dropout drop, const int* __restrict__ dyn_offset) {
   // kDyn: the q/k alignment from the card bounds the q walk and masks alike.
   fat::bwd::mma::dkv_tile<D, false, kMask, kCap, kAlibi, kDropout>(
       q, k, v, dout, lse, delta, dk, dv, nullptr, seg_q, seg_k, ranges_q, ranges_k, slopes, Hq,
-      Hkv, Sq, Sk, is_causal, kDyn ? __ldg(dyn_offset) : offset, window, scale, scale_log2,
+      Hkv, Sq, Sk, d, is_causal, kDyn ? __ldg(dyn_offset) : offset, window, scale, scale_log2,
       cap_log2, drop);
 }
 
@@ -545,6 +606,7 @@ struct Mask {
   float cap_log2;    // cap * log2(e) with a soft-cap, else 0
   fat::Dropout drop;  // read by the kDropout kernels alone
   const int* dyn_offset;  // the int32 offset on the card, read by the kDyn kernels alone
+  int d;  // the head dim, at most the kernels' compiled tile (common.cuh head_tile)
   fat::bwd::MaskKind kind() const {
     return seg_q != nullptr ? fat::bwd::kSegmentMask
                             : window > 0 ? fat::bwd::kWindowMask : fat::bwd::kNoMask;
@@ -557,16 +619,15 @@ cudaError_t launch_dq_mma(const void* q, const void* k, const void* v, const voi
                           const void* dout, const void* lse, void* dq, void* delta, int B, int Hq,
                           int Hkv, int Sq, int Sk, const Mask& m, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
-  const cudaError_t err =
-      fat::allow_max_smem<flash_bwd_dq_mma_kernel<D, kMask, kCap, kAlibi, kDropout, kDyn>>();
+  constexpr auto kernel = dq_mma_kernel<D, kMask, kCap, kAlibi, kDropout, kDyn>();
+  const cudaError_t err = fat::allow_max_smem<kernel>();
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + dq_mma::kBr - 1) / dq_mma::kBr, Hq, B);
-  flash_bwd_dq_mma_kernel<D, kMask, kCap, kAlibi, kDropout, kDyn>
-      <<<grid, fat::bwd::mma::kThreads, dq_mma::smem_bytes<D, kMask>(), stream>>>(
+  kernel<<<grid, fat::bwd::mma::kThreads, dq_mma::smem_bytes<D, kMask>(), stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
           static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
           static_cast<const float*>(lse), static_cast<bf16*>(dq), static_cast<float*>(delta),
-          m.seg_q, m.seg_k, m.ranges_q, m.ranges_k, m.slopes, Hq, Hkv, Sq, Sk, m.is_causal,
+          m.seg_q, m.seg_k, m.ranges_q, m.ranges_k, m.slopes, Hq, Hkv, Sq, Sk, m.d, m.is_causal,
           m.offset, m.window, m.scale, m.scale_log2, m.cap_log2, m.drop, m.dyn_offset);
   return cudaGetLastError();
 }
@@ -610,7 +671,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<const float*>(lse),
         static_cast<T*>(dq), static_cast<float*>(delta), m.seg_q, m.seg_k, m.slopes, Hq, Hkv,
-        Sq, Sk, m.is_causal, m.offset, m.window, m.scale, m.scale_log2, m.cap_log2, m.drop);
+        Sq, Sk, m.d, m.is_causal, m.offset, m.window, m.scale, m.scale_log2, m.cap_log2, m.drop);
     return cudaGetLastError();
   }
 }
@@ -630,7 +691,7 @@ cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v, const vo
           static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
           static_cast<const bf16*>(dout), static_cast<const float*>(lse),
           static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-          m.seg_q, m.seg_k, m.ranges_q, m.ranges_k, m.slopes, Hq, Hkv, Sq, Sk, m.is_causal,
+          m.seg_q, m.seg_k, m.ranges_q, m.ranges_k, m.slopes, Hq, Hkv, Sq, Sk, m.d, m.is_causal,
           m.offset, m.window, m.scale, m.scale_log2, m.cap_log2, m.drop, m.dyn_offset);
   return cudaGetLastError();
 }
@@ -671,7 +732,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
             static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
             static_cast<const T*>(dout), static_cast<const float*>(lse),
             static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), m.seg_q,
-            m.seg_k, m.slopes, Hq, Hkv, Sq, Sk, m.is_causal, m.offset, m.window, m.scale,
+            m.seg_k, m.slopes, Hq, Hkv, Sq, Sk, m.d, m.is_causal, m.offset, m.window, m.scale,
             m.scale_log2, m.cap_log2, m.drop);
     return cudaGetLastError();
   }
@@ -688,8 +749,9 @@ bool bad_args(int B, int Hq, int Hkv, int Sq, int Sk, int D, int dtype, const Ma
          (m.window > 0 && !m.is_causal && !kDyn) || seg != (m.seg_k != nullptr) ||
          seg != (m.ranges_q != nullptr) || seg != (m.ranges_k != nullptr) || m.cap_log2 < 0.f ||
          (m.slopes != nullptr) != kAlibi || (kAlibi && m.cap()) ||
+         !fat::head_dim_ok(D) ||
          (kDyn && (m.is_causal || m.dyn_offset == nullptr || m.cap() ||
-                   (m.window == 0 && !kAlibi) || dtype != fat::kBF16 || D > 128));
+                   (m.window == 0 && !kAlibi) || dtype != fat::kBF16 || fat::head_tile(D) > 128));
 }
 
 }  // namespace
@@ -709,8 +771,10 @@ bool bad_args(int B, int Hq, int Hkv, int Sq, int Sk, int D, int dtype, const Ma
 // tanh(s * scale_log2) * cap_log2, as the forward made them; ALiBi adds
 // slopes[h] * log2(e) * (c - r - offset). With kDropout (the library
 // flash_bwd_dropout.cu, ALiBi or not) the forward's keep mask of drop
-// drops dP in dS. D is 64, 128 or 256. Writes dq (q's dtype, scale
-// applied) and delta. Returns the CUDA error code (0 = success).
+// drops dP in dS. D, the head dim, is a multiple of 16 up to 256, run in
+// the compiled tile of 64, 128 or 256 columns that holds it (common.cuh
+// head_tile). Writes dq (q's dtype, scale applied) and delta. Returns the
+// CUDA error code (0 = success).
 template <bool kAlibi, bool kDropout, bool kDyn>
 int dq_launch_impl(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const void* lse, void* dq, void* delta, const int* seg_q, const int* seg_k,
@@ -718,25 +782,24 @@ int dq_launch_impl(const void* q, const void* k, const void* v, const void* o, c
                    int Hkv, int Sq, int Sk, int D, int dtype, int is_causal, int offset,
                    int window, float scale, float scale_log2, float cap_log2,
                    const fat::Dropout& drop, const int* dyn_offset, void* stream) {
-  const Mask m{seg_q,  seg_k, ranges_q,   ranges_k, slopes, is_causal, offset,
-               window, scale, scale_log2, cap_log2, drop,   dyn_offset};
+  const Mask m{seg_q,  seg_k, ranges_q,   ranges_k, slopes,     is_causal, offset,
+               window, scale, scale_log2, cap_log2, drop,   dyn_offset, D};
   if (bad_args<kAlibi, kDyn>(B, Hq, Hkv, Sq, Sk, D, dtype, m))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   constexpr bool A = kAlibi, X = kDropout;
+  const int tile = fat::head_tile(D);  // the compiled tile that takes D
   decltype(&launch_dq<__nv_bfloat16, 64, A, X, kDyn>) fn = nullptr;
   if constexpr (kDyn)
-    fn = D == 64 ? launch_dq<__nv_bfloat16, 64, A, X, true>
-                 : launch_dq<__nv_bfloat16, 128, A, X, true>;
+    fn = tile == 64 ? launch_dq<__nv_bfloat16, 64, A, X, true>
+                    : launch_dq<__nv_bfloat16, 128, A, X, true>;
   else
-    fn = dtype == fat::kBF16 ? (D == 64    ? launch_dq<__nv_bfloat16, 64, A, X, false>
-                                : D == 128 ? launch_dq<__nv_bfloat16, 128, A, X, false>
-                                : D == 256 ? launch_dq<__nv_bfloat16, 256, A, X, false>
-                                           : nullptr)
-         : dtype == fat::kF32 ? (D == 64    ? launch_dq<float, 64, A, X, false>
-                                 : D == 128 ? launch_dq<float, 128, A, X, false>
-                                 : D == 256 ? launch_dq<float, 256, A, X, false>
-                                            : nullptr)
+    fn = dtype == fat::kBF16 ? (tile == 64    ? launch_dq<__nv_bfloat16, 64, A, X, false>
+                                : tile == 128 ? launch_dq<__nv_bfloat16, 128, A, X, false>
+                                              : launch_dq<__nv_bfloat16, 256, A, X, false>)
+         : dtype == fat::kF32 ? (tile == 64    ? launch_dq<float, 64, A, X, false>
+                                 : tile == 128 ? launch_dq<float, 128, A, X, false>
+                                               : launch_dq<float, 256, A, X, false>)
                               : nullptr;
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(fn(q, k, v, o, dout, lse, dq, delta, B, Hq, Hkv, Sq, Sk, m, s));
@@ -753,25 +816,24 @@ int dkv_launch_impl(const void* q, const void* k, const void* v, const void* dou
                     int is_causal, int offset, int window, float scale, float scale_log2,
                     float cap_log2, const fat::Dropout& drop, const int* dyn_offset,
                     void* stream) {
-  const Mask m{seg_q,  seg_k, ranges_q,   ranges_k, slopes, is_causal, offset,
-               window, scale, scale_log2, cap_log2, drop,   dyn_offset};
+  const Mask m{seg_q,  seg_k, ranges_q,   ranges_k, slopes,     is_causal, offset,
+               window, scale, scale_log2, cap_log2, drop,   dyn_offset, D};
   if (bad_args<kAlibi, kDyn>(B, Hq, Hkv, Sq, Sk, D, dtype, m))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   constexpr bool A = kAlibi, X = kDropout;
+  const int tile = fat::head_tile(D);  // the compiled tile that takes D
   decltype(&launch_dkv<__nv_bfloat16, 64, A, X, kDyn>) fn = nullptr;
   if constexpr (kDyn)
-    fn = D == 64 ? launch_dkv<__nv_bfloat16, 64, A, X, true>
-                 : launch_dkv<__nv_bfloat16, 128, A, X, true>;
+    fn = tile == 64 ? launch_dkv<__nv_bfloat16, 64, A, X, true>
+                    : launch_dkv<__nv_bfloat16, 128, A, X, true>;
   else
-    fn = dtype == fat::kBF16 ? (D == 64    ? launch_dkv<__nv_bfloat16, 64, A, X, false>
-                                : D == 128 ? launch_dkv<__nv_bfloat16, 128, A, X, false>
-                                : D == 256 ? launch_dkv<__nv_bfloat16, 256, A, X, false>
-                                           : nullptr)
-         : dtype == fat::kF32 ? (D == 64    ? launch_dkv<float, 64, A, X, false>
-                                 : D == 128 ? launch_dkv<float, 128, A, X, false>
-                                 : D == 256 ? launch_dkv<float, 256, A, X, false>
-                                            : nullptr)
+    fn = dtype == fat::kBF16 ? (tile == 64    ? launch_dkv<__nv_bfloat16, 64, A, X, false>
+                                : tile == 128 ? launch_dkv<__nv_bfloat16, 128, A, X, false>
+                                              : launch_dkv<__nv_bfloat16, 256, A, X, false>)
+         : dtype == fat::kF32 ? (tile == 64    ? launch_dkv<float, 64, A, X, false>
+                                 : tile == 128 ? launch_dkv<float, 128, A, X, false>
+                                               : launch_dkv<float, 256, A, X, false>)
                               : nullptr;
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(fn(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk, m, s));

@@ -17,7 +17,10 @@
 // and ALiBi (slope_h * (c - r - offset) added to the scaled logits, before
 // any mask, with or without the window and segment ids; not with the
 // soft-cap), and attention dropout beside each of them (the JAX kernel's
-// at flash_fwd.py:378-392), at head dims 64, 128 and 256.
+// at flash_fwd.py:378-392), at head dims 64, 128 and 256, and 32, 80 and
+// 96 at run time inside the compiled tiles (32 in the 64 tile, 80 and 96 in
+// the 128 tile; common.cuh head_tile): the maps read the columns past the
+// true head dim as zeros, and O is stored to it.
 // The TPU's two grid shapes, its wavefront meta arrays, h_fuse and the
 // ones-column row sum are Mosaic designs and are not carried over.
 //
@@ -161,7 +164,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, const int* __restrict__ seg_q,
                  const int* __restrict__ seg_k, const float* __restrict__ slopes, int Hq,
-                 int Hkv, int Sq, int Sk, int is_causal, int offset, int window,
+                 int Hkv, int Sq, int Sk, int d, int is_causal, int offset, int window,
                  float scale_log2, float cap_log2, const fat::Dropout drop) {
   constexpr int DP = D + 1;
   constexpr int PP = kBlockN + 1;
@@ -180,16 +183,18 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
-  const size_t q_base = (static_cast<size_t>(b) * Hq + h) * Sq * D;
-  const size_t kv_base = (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
+  const size_t q_base = (static_cast<size_t>(b) * Hq + h) * Sq * d;
+  const size_t kv_base = (static_cast<size_t>(b) * Hkv + hk) * Sk * d;
   const int qi = q0 + r;
   const int row_seg = seg_q != nullptr && qi < Sq ? seg_q[static_cast<size_t>(b) * Sq + qi] : 0;
   // Dropout's term of row qi (bh = b * Hq + h).
   const unsigned drop_row =
       kDropout ? fat::dropout_row(qi, fat::dropout_head(drop, b * Hq + h)) : 0u;
 
-  fat::load_tile<float, kBlockM, D, kThreads>(q + q_base + static_cast<size_t>(q0) * D,
-                                              Sq - q0, qs, DP, scale_log2);
+  // Columns from d to D load as zeros (common.cuh head_tile): they add
+  // nothing to S and leave O's columns there 0, which are not stored.
+  fat::load_tile<float, kBlockM, D, kThreads>(q + q_base + static_cast<size_t>(q0) * d,
+                                              Sq - q0, d, qs, DP, scale_log2);
   const int kv_end = kv_limit(q0, kBlockM, Sq, Sk, is_causal, offset);
 
   float m = kMaskValue, l = 0.f;
@@ -200,9 +205,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int n0 = kv_first_tile(q0, offset, window, kBlockN) * kBlockN; n0 < kv_end;
        n0 += kBlockN) {
     __syncthreads();  // previous tile fully consumed (and Q stored, first time)
-    const size_t tile = kv_base + static_cast<size_t>(n0) * D;
-    fat::load_tile<float, kBlockN, D, kThreads>(k + tile, kv_end - n0, ks, DP);
-    fat::load_tile<float, kBlockN, D, kThreads>(v + tile, kv_end - n0, vs, D);
+    const size_t tile = kv_base + static_cast<size_t>(n0) * d;
+    fat::load_tile<float, kBlockN, D, kThreads>(k + tile, kv_end - n0, d, ks, DP);
+    fat::load_tile<float, kBlockN, D, kThreads>(v + tile, kv_end - n0, d, vs, D);
     if (seg_k != nullptr && tid < kBlockN)
       segs[tid] = n0 + tid < kv_end ? seg_k[static_cast<size_t>(b) * Sk + n0 + tid] : 0;
     __syncthreads();
@@ -275,10 +280,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (qi < Sq) {
     // A row that saw no key has l == 0 and acc == 0: O = 0, LSE = -inf.
     const float inv = l > 0.f ? (kDropout ? drop.scale : 1.f) / l : 0.f;
-    float* orow = o + q_base + static_cast<size_t>(qi) * D;
+    float* orow = o + q_base + static_cast<size_t>(qi) * d;
 #pragma unroll
-    for (int i = 0; i < kDimsPerThread; ++i)
-      orow[t + kThreadsPerRow * i] = acc[i] * inv;
+    for (int i = 0; i < kDimsPerThread; ++i)  // O's columns at and past d are not stored
+      if (t + kThreadsPerRow * i < d) orow[t + kThreadsPerRow * i] = acc[i] * inv;
     if (lse != nullptr && t == 0) {
       lse[(static_cast<size_t>(b) * Hq + h) * Sq + qi] =
           l > 0.f ? (m + log2f(l)) * fat::kLn2 : -CUDART_INF_F;
@@ -526,7 +531,7 @@ __device__ __forceinline__ void consume(unsigned smem, const CUtensorMap* k_map,
                                         const int* __restrict__ seg_k,
                                         const int2* __restrict__ ranges_q,
                                         const int2* __restrict__ ranges_k, int bh, int kv_head,
-                                        int q0, int first, int n_tiles, int Sq, int Sk,
+                                        int q0, int first, int n_tiles, int Sq, int Sk, int d,
                                         int is_causal, int offset, int window,
                                         float scale_log2, float cap_log2, float slope_log2,
                                         const fat::Dropout& drop) {
@@ -757,11 +762,15 @@ __device__ __forceinline__ void consume(unsigned smem, const CUtensorMap* k_map,
     if (r >= Sq) continue;
     // A row that saw no key has l == 0 and acc == 0: O = 0, LSE = -inf.
     const float inv = l[i] > 0.f ? (kDropout ? drop.scale : 1.f) / l[i] : 0.f;
-    __nv_bfloat16* orow = o + (static_cast<size_t>(bh) * Sq + r) * D + 2 * t;
+    __nv_bfloat16* orow = o + (static_cast<size_t>(bh) * Sq + r) * d + 2 * t;
+    // O's columns at and past d are zeros (TMA filled Q's, K's and V's
+    // columns there with zeros) and are not stored: columns 8j .. 8j + 7
+    // are all below d or none (d a multiple of 16).
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
+      if (8 * j < d)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
     if (lse != nullptr && t == 0)
       lse[static_cast<size_t>(bh) * Sq + r] =
           l[i] > 0.f ? (m[i] * mul + log2f(l[i])) * fat::kLn2 : -CUDART_INF_F;
@@ -785,7 +794,7 @@ __device__ __forceinline__ void fwd_wgmma_cta(
     __nv_bfloat16* __restrict__ o, float* __restrict__ lse, const int* __restrict__ seg_q,
     const int* __restrict__ seg_k, const int2* __restrict__ ranges_q,
     const int2* __restrict__ ranges_k, const float* __restrict__ slopes, int Hq, int Hkv, int Sq,
-    int Sk, int is_causal, int offset, int window, float scale_log2, float cap_log2,
+    int Sk, int d, int is_causal, int offset, int window, float scale_log2, float cap_log2,
     const fat::Dropout& drop) {
   static_assert(!(kAlibi && kCap), "ALiBi takes no soft-cap");
   using L = FwdLayout<D, kConsumers>;
@@ -830,7 +839,7 @@ __device__ __forceinline__ void fwd_wgmma_cta(
     }
     consume<D, kConsumers, kWindow, kSeg, kCap, kAlibi, kDropout>(
         smem, k_map, v_map, o, lse, row_seg_q, row_seg_k, row_ranges_q, row_ranges_k, bh,
-        kv_head, q0, first, n_tiles, Sq, Sk, is_causal, offset, window, scale_log2, cap_log2,
+        kv_head, q0, first, n_tiles, Sq, Sk, d, is_causal, offset, window, scale_log2, cap_log2,
         slope_log2, drop);
   } else if (threadIdx.x >= 128 * kConsumers) {
     // Producer warpgroup: Q once, then K and V tile by tile, last tile
@@ -849,7 +858,7 @@ __device__ __forceinline__ void fwd_wgmma_cta(
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     consume<D, kConsumers, kWindow, kSeg, kCap, kAlibi, kDropout>(
         smem, k_map, v_map, o, lse, row_seg_q, row_seg_k, row_ranges_q, row_ranges_k, bh,
-        kv_head, q0, first, n_tiles, Sq, Sk, is_causal, offset, window, scale_log2, cap_log2,
+        kv_head, q0, first, n_tiles, Sq, Sk, d, is_causal, offset, window, scale_log2, cap_log2,
         slope_log2, drop);
   }
 }
@@ -863,11 +872,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        float* __restrict__ lse, const int* __restrict__ seg_q,
                        const int* __restrict__ seg_k, const int2* __restrict__ ranges_q,
                        const int2* __restrict__ ranges_k, const float* __restrict__ slopes,
-                       int Hq, int Hkv, int Sq, int Sk, int is_causal, int offset, int window,
-                       float scale_log2, float cap_log2, const fat::Dropout drop) {
+                       int Hq, int Hkv, int Sq, int Sk, int d, int is_causal, int offset,
+                       int window, float scale_log2, float cap_log2, const fat::Dropout drop) {
   fwd_wgmma_cta<D, kConsumers, kWindow, kSeg, kCap, kAlibi, kDropout>(
       &q_map, &k_map, &v_map, o, lse, seg_q, seg_k, ranges_q, ranges_k, slopes, Hq, Hkv, Sq, Sk,
-      is_causal, offset, window, scale_log2, cap_log2, drop);
+      d, is_causal, offset, window, scale_log2, cap_log2, drop);
 }
 
 // K1 with the q/k alignment read from the card (dyn_pos_offset): the
@@ -885,16 +894,17 @@ flash_fwd_dyn_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                            const int* __restrict__ seg_q, const int* __restrict__ seg_k,
                            const int2* __restrict__ ranges_q, const int2* __restrict__ ranges_k,
                            const float* __restrict__ slopes, int Hq, int Hkv, int Sq, int Sk,
-                           int window, float scale_log2, const int* __restrict__ dyn_offset) {
+                           int d, int window, float scale_log2,
+                           const int* __restrict__ dyn_offset) {
   fwd_wgmma_cta<D, kConsumers, kWindow, kSeg, false, kAlibi, false>(
       &q_map, &k_map, &v_map, o, lse, seg_q, seg_k, ranges_q, ranges_k, slopes, Hq, Hkv, Sq, Sk,
-      0, __ldg(dyn_offset), window, scale_log2, 0.f, fat::Dropout{});
+      d, 0, __ldg(dyn_offset), window, scale_log2, 0.f, fat::Dropout{});
 }
 
 template <int D, bool kDropout>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, void* lse,
                        const int* seg_q, const int* seg_k, const float* slopes, int B, int Hq,
-                       int Hkv, int Sq, int Sk, int is_causal, int offset, int window,
+                       int Hkv, int Sq, int Sk, int d, int is_causal, int offset, int window,
                        float scale_log2, float cap_log2, const fat::Dropout& drop,
                        cudaStream_t stream) {
   const cudaError_t err = fat::allow_max_smem<flash_fwd_kernel<D, kDropout>>();
@@ -903,7 +913,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, voi
   flash_fwd_kernel<D, kDropout><<<grid, kThreads, smem_bytes<D>(), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), seg_q,
-      seg_k, slopes, Hq, Hkv, Sq, Sk, is_causal, offset, window, scale_log2, cap_log2, drop);
+      seg_k, slopes, Hq, Hkv, Sq, Sk, d, is_causal, offset, window, scale_log2, cap_log2, drop);
   return cudaGetLastError();
 }
 
@@ -935,8 +945,12 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-D map (D, rows, heads) of a contiguous bf16 [heads][rows][D] tensor,
-// boxes of [box_rows][64] with 128-byte swizzle; reads past `rows` give 0.
+// A 3-D map (d, rows, heads) of a contiguous bf16 [heads][rows][d] tensor,
+// boxes of [box_rows][64] with 128-byte swizzle; reads past `rows`, and the
+// columns of a box at and past d (d 32 in a 64-column box, d 80 and 96 in
+// the second atom of the 128-column tile), give 0 (FLOAT_OOB_FILL_NONE
+// fills zeros): those columns add nothing to S = Q K^T and O's there are
+// never stored. The global strides, d * 2 bytes, are multiples of 16.
 cudaError_t make_map(CUtensorMap* map, const void* base, int d, int rows, int heads,
                      int box_rows) {
   const EncodeTiled encode = encode_tiled();
@@ -959,9 +973,9 @@ template <int D, int kConsumers, bool kWindow, bool kSeg, bool kCap, bool kAlibi
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
                         const int* seg_q, const int* seg_k, const int2* ranges_q,
                         const int2* ranges_k, const float* slopes, int B, int Hq, int Hkv,
-                        int Sq, int Sk, int is_causal, int offset, int window, float scale_log2,
-                        float cap_log2, const fat::Dropout& drop, const int* dyn_offset,
-                        cudaStream_t stream) {
+                        int Sq, int Sk, int d, int is_causal, int offset, int window,
+                        float scale_log2, float cap_log2, const fat::Dropout& drop,
+                        const int* dyn_offset, cudaStream_t stream) {
   using L = FwdLayout<D, kConsumers>;
   static_assert(!kDyn || !(kCap || kDropout), "the card offset takes no soft-cap or dropout");
   cudaError_t err;
@@ -973,9 +987,9 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, vo
   const int q_tiles = (Sq + L::kBlockM - 1) / L::kBlockM;
   if (err == cudaSuccess && q_tiles > 65535) err = cudaErrorInvalidValue;
   CUtensorMap q_map, k_map, v_map;
-  if (err == cudaSuccess) err = make_map(&q_map, q, D, Sq, B * Hq, L::kBlockM);
-  if (err == cudaSuccess) err = make_map(&k_map, k, D, Sk, B * Hkv, L::kTileN);
-  if (err == cudaSuccess) err = make_map(&v_map, v, D, Sk, B * Hkv, L::kTileN);
+  if (err == cudaSuccess) err = make_map(&q_map, q, d, Sq, B * Hq, L::kBlockM);
+  if (err == cudaSuccess) err = make_map(&k_map, k, d, Sk, B * Hkv, L::kTileN);
+  if (err == cudaSuccess) err = make_map(&v_map, v, d, Sk, B * Hkv, L::kTileN);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * Hq, q_tiles);
   auto* out = static_cast<__nv_bfloat16*>(o);
@@ -984,12 +998,12 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, vo
     flash_fwd_dyn_wgmma_kernel<D, kConsumers, kWindow, kSeg, kAlibi>
         <<<grid, L::kThreads, L::kBytes, stream>>>(q_map, k_map, v_map, out, lse_f, seg_q, seg_k,
                                                     ranges_q, ranges_k, slopes, Hq, Hkv, Sq, Sk,
-                                                    window, scale_log2, dyn_offset);
+                                                    d, window, scale_log2, dyn_offset);
   else
     flash_fwd_wgmma_kernel<D, kConsumers, kWindow, kSeg, kCap, kAlibi, kDropout>
         <<<grid, L::kThreads, L::kBytes, stream>>>(q_map, k_map, v_map, out, lse_f, seg_q, seg_k,
                                                     ranges_q, ranges_k, slopes, Hq, Hkv, Sq, Sk,
-                                                    is_causal, offset, window, scale_log2,
+                                                    d, is_causal, offset, window, scale_log2,
                                                     cap_log2, drop);
   return cudaGetLastError();
 }
@@ -1003,7 +1017,7 @@ template <int D, int kConsumers, bool kDropout, bool kDyn>
 cudaError_t launch_bf16_any(bool win, bool seg, bool cap, const void* q, const void* k,
                             const void* v, void* o, void* lse, const int* seg_q,
                             const int* seg_k, const int2* ranges_q, const int2* ranges_k,
-                            const float* slopes, int B, int Hq, int Hkv, int Sq, int Sk,
+                            const float* slopes, int B, int Hq, int Hkv, int Sq, int Sk, int d,
                             int is_causal, int offset, int window, float scale_log2,
                             float cap_log2, const fat::Dropout& drop, const int* dyn_offset,
                             cudaStream_t stream) {
@@ -1033,7 +1047,7 @@ cudaError_t launch_bf16_any(bool win, bool seg, bool cap, const void* q, const v
                : (seg ? launch_bf16<D, C, false, true, false, false, X, false>
                       : launch_bf16<D, C, false, false, false, false, X, false>);
   }
-  return fn(q, k, v, o, lse, seg_q, seg_k, ranges_q, ranges_k, slopes, B, Hq, Hkv, Sq, Sk,
+  return fn(q, k, v, o, lse, seg_q, seg_k, ranges_q, ranges_k, slopes, B, Hq, Hkv, Sq, Sk, d,
             is_causal, offset, window, scale_log2, cap_log2, drop, dyn_offset, stream);
 }
 
@@ -1056,8 +1070,10 @@ cudaError_t launch_bf16_any(bool win, bool seg, bool cap, const void* q, const v
 // library flash_fwd_dynoff.cu) the offset is the int32 at dyn_offset on the
 // device, not `offset`, and the call is not causal: the window, needed
 // without ALiBi, is its left edge alone (c >= r + offset - window + 1);
-// bf16 at D 64 and 128, no soft-cap, no dropout. bf16 runs
-// the wgmma kernel (q tiles of 64 rows at D 64, 128 at D 128 and 256),
+// bf16 in the 64 and 128 tiles, no soft-cap, no dropout. D, the head dim,
+// is a multiple of 16 up to 256; it runs in the tile of 64, 128 or 256
+// columns that holds it (common.cuh head_tile). bf16 runs the wgmma kernel
+// (q tiles of 64 rows in the 64 tile, 128 in the 128 and 256 tiles),
 // float32 the FMA kernel. Returns the CUDA error code of the launch (0 =
 // success).
 template <bool kDropout, bool kDyn>
@@ -1069,40 +1085,43 @@ int fwd_launch_impl(const void* q, const void* k, const void* v, void* o, void* 
                     const int* dyn_offset, void* stream) {
   const bool seg = seg_q != nullptr;
   const bool cap = cap_log2 > 0.f;
-  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || window < 0 ||
-      (window > 0 && !is_causal && !kDyn) || seg != (seg_k != nullptr) ||
+  const int tile = fat::head_tile(D);
+  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || !fat::head_dim_ok(D) ||
+      window < 0 || (window > 0 && !is_causal && !kDyn) || seg != (seg_k != nullptr) ||
       seg != (ranges_q != nullptr) || seg != (ranges_k != nullptr) || cap_log2 < 0.f ||
       (slopes != nullptr && cap) ||
-      (kDyn && (is_causal || dyn_offset == nullptr || dtype != fat::kBF16 || D > 128)))
+      (kDyn && (is_causal || dyn_offset == nullptr || dtype != fat::kBF16 || tile > 128)))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   const bool win = window > 0;
-  if (dtype == fat::kBF16 && D == 64)
+  if (dtype == fat::kBF16 && tile == 64)
     err = launch_bf16_any<64, 1, kDropout, kDyn>(win, seg, cap, q, k, v, o, lse, seg_q, seg_k,
                                                  ranges_q, ranges_k, slopes, B, Hq, Hkv, Sq, Sk,
-                                                 is_causal, offset, window, scale_log2, cap_log2,
-                                                 drop, dyn_offset, s);
-  else if (dtype == fat::kBF16 && D == 128)
+                                                 D, is_causal, offset, window, scale_log2,
+                                                 cap_log2, drop, dyn_offset, s);
+  else if (dtype == fat::kBF16 && tile == 128)
     err = launch_bf16_any<128, 2, kDropout, kDyn>(win, seg, cap, q, k, v, o, lse, seg_q, seg_k,
                                                   ranges_q, ranges_k, slopes, B, Hq, Hkv, Sq,
-                                                  Sk, is_causal, offset, window, scale_log2,
+                                                  Sk, D, is_causal, offset, window, scale_log2,
                                                   cap_log2, drop, dyn_offset, s);
   if constexpr (!kDyn) {
-    if (dtype == fat::kBF16 && D == 256)
+    if (dtype == fat::kBF16 && tile == 256)
       err = launch_bf16_any<256, 2, kDropout, false>(win, seg, cap, q, k, v, o, lse, seg_q,
                                                      seg_k, ranges_q, ranges_k, slopes, B, Hq,
-                                                     Hkv, Sq, Sk, is_causal, offset, window,
+                                                     Hkv, Sq, Sk, D, is_causal, offset, window,
                                                      scale_log2, cap_log2, drop, nullptr, s);
-    else if (dtype == fat::kF32 && D == 64)
+    else if (dtype == fat::kF32 && tile == 64)
       err = launch_f32<64, kDropout>(q, k, v, o, lse, seg_q, seg_k, slopes, B, Hq, Hkv, Sq, Sk,
-                                     is_causal, offset, window, scale_log2, cap_log2, drop, s);
-    else if (dtype == fat::kF32 && D == 128)
+                                     D, is_causal, offset, window, scale_log2, cap_log2, drop, s);
+    else if (dtype == fat::kF32 && tile == 128)
       err = launch_f32<128, kDropout>(q, k, v, o, lse, seg_q, seg_k, slopes, B, Hq, Hkv, Sq, Sk,
-                                      is_causal, offset, window, scale_log2, cap_log2, drop, s);
-    else if (dtype == fat::kF32 && D == 256)
+                                      D, is_causal, offset, window, scale_log2, cap_log2, drop,
+                                      s);
+    else if (dtype == fat::kF32 && tile == 256)
       err = launch_f32<256, kDropout>(q, k, v, o, lse, seg_q, seg_k, slopes, B, Hq, Hkv, Sq, Sk,
-                                      is_causal, offset, window, scale_log2, cap_log2, drop, s);
+                                      D, is_causal, offset, window, scale_log2, cap_log2, drop,
+                                      s);
   }
   return static_cast<int>(err);
 }

@@ -41,7 +41,7 @@ import torch
 
 from flashattn_tpu_torch.ops import _build
 from flashattn_tpu_torch.ops.common import LN2, LOG2E, cdiv, check_softcap, round_up, softcap
-from flashattn_tpu_torch.ops.flash_fwd import DTYPE_CODES, HEAD_DIMS, alibi_table
+from flashattn_tpu_torch.ops.flash_fwd import DTYPE_CODES, HEAD_DIMS, alibi_table, head_tile
 from flashattn_tpu_torch.ops.kvcache import FP8_DTYPE, INT8_MAX, KVCache
 
 # Kernel launches in this process, by the cache's mode (set to 0 by callers
@@ -374,7 +374,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # ALiBi's instantiations are a library of their own (csrc/decode_alibi.cu),
     # and so are D 256's (csrc/decode_d256.cu, csrc/decode_alibi_d256.cu).
     lib = _build.load(("decode" if slopes is None else "decode_alibi")
-                      + ("_d256" if d == 256 else ""))
+                      + ("_d256" if head_tile(d) == 256 else ""))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.decode_launch(

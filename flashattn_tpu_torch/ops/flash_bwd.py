@@ -74,8 +74,9 @@ DKV_DROPOUT_LAUNCHES = 0
 DQ_DYNOFF_LAUNCHES = 0  # with the offset read on the card (dyn_pos_offset)
 DKV_DYNOFF_LAUNCHES = 0
 
-# Head dims the backward kernels take (the forward's: flash_fwd.HEAD_DIMS).
-HEAD_DIMS = (64, 128, 256)
+# Head dims the backward kernels take (the forward's: flash_fwd.HEAD_DIMS):
+# 32 in the 64-column tile, 80 and 96 in the 128-column tile, at run time.
+HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 
 IMPLS = ("auto", "fused", "split")
 IMPL_ENV = "FLASHATTN_BWD_IMPL"

@@ -28,10 +28,11 @@ card tensor by a fill kernel (``device_offset``), so one launch shape serves
 every rank and hop. The call is not causal; only the window's left edge,
 c >= r + offset - window + 1, and the ALiBi distance c - r - offset read
 it. Its kernels are a library of their own (csrc/flash_fwd_dynoff.cu: a
-window, ALiBi or both, with or without segment ids, bf16 at D 64 and 128);
-with neither a window nor ALiBi the offset changes nothing and the call
-runs the library without it. With the soft-cap, dropout, D 256 or float32
-it raises on the card (ROADMAP A9 and B1); the plain version takes them.
+window, ALiBi or both, with or without segment ids, bf16 in the 64 and 128
+tiles: D 32 to 128); with neither a window nor ALiBi the offset changes
+nothing and the call runs the library without it. With the soft-cap,
+dropout, D 256 or float32 it raises on the card (ROADMAP A9 and B1); the
+plain version takes them.
 """
 
 from __future__ import annotations
@@ -66,8 +67,20 @@ ALIBI_SEGMENT_LAUNCHES = 0
 DROPOUT_LAUNCHES = 0
 DYNOFF_LAUNCHES = 0  # with the offset read on the card (dyn_pos_offset)
 
-# Head dims K1, K2 and the backward kernels take.
-HEAD_DIMS = (64, 128, 256)
+# Head dims K1, K2 and the backward kernels take. The kernels are compiled
+# for tiles of 64, 128 and 256 columns and take the true head dim at run
+# time inside the tile that holds it (HEAD_TILES): 32 in the 64 tile, 80
+# and 96 in the 128 tile (csrc/common.cuh head_tile). The tensors stay d
+# wide: nothing is padded here.
+HEAD_DIMS = (32, 64, 80, 96, 128, 256)
+HEAD_TILES = (64, 128, 256)
+
+
+def head_tile(d: int) -> int:
+    """The compiled tile of head dim d (csrc/common.cuh head_tile)."""
+    return next(t for t in HEAD_TILES if d <= t)
+
+
 # A window at least this wide reaches every key of an int32-indexed call:
 # the kernels take it so.
 WINDOW_MAX = 1 << 30
@@ -191,13 +204,13 @@ def dyn_library(dyn_pos_offset, window, slopes, cap, rate: float, q) -> bool:
     """Whether a checked card call runs the kernels that read the offset on
     the card: a dyn_pos_offset with a window or ALiBi (without either the
     offset changes nothing). Raises NotImplementedError (ROADMAP A9) for
-    the combinations those kernels leave out: the soft-cap, dropout, D 256
-    and float32."""
+    the combinations those kernels leave out: the soft-cap, dropout, the
+    256 tile (head dims past 128) and float32."""
     if dyn_pos_offset is None or (window is None and slopes is None):
         return False
     for left_out, what in ((cap is not None, "the logit soft-cap"),
                            (rate > 0, "dropout"),
-                           (q.shape[-1] not in (64, 128), f"head_dim {q.shape[-1]}"),
+                           (head_tile(q.shape[-1]) > 128, f"head_dim {q.shape[-1]}"),
                            (q.dtype != torch.bfloat16, str(q.dtype))):
         if left_out:
             raise unported(f"dyn_pos_offset with {what} on the card", "A9")

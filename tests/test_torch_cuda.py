@@ -2741,3 +2741,160 @@ def test_dyn_offset_left_out_raise_naming_a9(dev, left_out):
         kw.update(dropout_rate=0.1, dropout_seed=1)
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         flash_fwd.flash_attention_forward(q, q, q, False, dyn_pos_offset=64, **kw)
+
+
+# ---- head dims 32, 80 and 96: the true head dim at run time in the 64 and
+# 128 tiles (csrc/common.cuh head_tile) ----
+
+HEAD_DIMS_NEW = [32, 80, 96]
+HD_OPTIONS = {
+    "causal_gqa": (True, {}),
+    "noncausal": (False, {}),
+    "window": (True, dict(window=65)),
+    "alibi": (True, dict(alibi=True)),
+    "softcap": (True, dict(logit_softcap=30.0)),
+    "dropout": (True, dict(dropout_rate=0.1, dropout_seed=5)),
+    "card_offset": (False, dict(dyn_pos_offset=150, window=100)),
+}
+
+
+def hd_inputs(d, dtype, dev, s_q=200, s_k=260):
+    return [randn(shape, dtype, dev, 200 + i) for i, shape in
+            enumerate([(2, 8, s_q, d), (2, 2, s_k, d), (2, 2, s_k, d), (2, 8, s_q, d)])]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", HEAD_DIMS_NEW)
+def test_head_dim_forward_matches_plain(dev, d, dtype):
+    """K1 at D 32, 80 and 96, causal over S_q < S_k, GQA 4, ragged: O's
+    rows are d wide and end where the plain version's do."""
+    q, k, v, _ = hd_inputs(d, dtype, dev)
+    before = flash_fwd.LAUNCHES
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, True)
+    torch.cuda.synchronize()
+    assert flash_fwd.LAUNCHES == before + 1 and o.shape == q.shape
+    o_ref, lse_ref = flash_fwd.flash_attention_forward_reference(q, k, v, True)
+    rep = verify_results(o_ref, o, **TOL[dtype])
+    assert rep.passed, f"O: {rep}"
+    assert verify_results(lse_ref, lse, atol=1e-3).passed
+
+
+@pytest.mark.parametrize("option", sorted(HD_OPTIONS))
+@pytest.mark.parametrize("d", HEAD_DIMS_NEW)
+def test_head_dim_options_forward_and_backward(dev, d, option):
+    """Every option of the tiles at the new head dims (bf16): K1, then the
+    fused and the split backward, against the plain versions."""
+    causal, kw = HD_OPTIONS[option]
+    q, k, v, do = hd_inputs(d, torch.bfloat16, dev)
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, causal, **kw)
+    o_ref, lse_ref = flash_fwd.flash_attention_forward_reference(q, k, v, causal, **kw)
+    assert verify_results(o_ref, o, **TOL[torch.bfloat16]).passed
+    assert verify_results(lse_ref, lse, atol=1e-3).passed
+    ref = flash_bwd.flash_attention_backward_reference(q, k, v, o, do, lse, causal, **kw)
+    for impl in ("fused", "split"):
+        out = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, causal, impl=impl, **kw)
+        assert_grads_match(ref, out, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("impl", ["fused", "split"])
+@pytest.mark.parametrize("d", HEAD_DIMS_NEW)
+def test_head_dim_backward_matches_plain(dev, d, impl, dtype):
+    q, k, v, do = hd_inputs(d, dtype, dev, s_q=300, s_k=300)
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, True)
+    before = launches()
+    out = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, True, impl=impl)
+    torch.cuda.synchronize()
+    after = launches()
+    assert after != before
+    ref = flash_bwd.flash_attention_backward_reference(q, k, v, o, do, lse, True)
+    assert_grads_match(ref, out, dtype)
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS_NEW)
+def test_head_dim_split_is_bitwise_deterministic(dev, d):
+    q, k, v, do = hd_inputs(d, torch.bfloat16, dev, s_q=500, s_k=500)
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, True)
+    first = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, True, impl="split")
+    second = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, True, impl="split")
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("mode", ["bf16", "f32", "int8", "fp8"])
+@pytest.mark.parametrize("d", HEAD_DIMS_NEW)
+def test_head_dim_decode_matches_plain(dev, d, mode):
+    """K2 at D 32, 80 and 96 on every cache mode, T 1 and 5, lengths 0 to
+    Smax with NaN past each; the paged K2 on 64-position pages equal to the
+    dense K2 bit for bit."""
+    quant = mode if mode in ("int8", "fp8") else None
+    dtype = torch.float32 if mode == "f32" else torch.bfloat16
+    lengths, s_max, hkv = [0, 1, 130, 256], 256, 2
+    b = len(lengths)
+    cache = kvcache.init_cache(b, hkv, s_max, d, dtype=dtype, quant=quant, device=dev)
+    kvcache.update_cache(cache, randn((b, hkv, s_max, d), dtype, dev, 30),
+                         randn((b, hkv, s_max, d), dtype, dev, 31), assume_fits=True)
+    cache.length.copy_(torch.tensor(lengths, dtype=torch.int32))
+    for i, n in enumerate(lengths):
+        if quant is None:
+            cache.k[i, :, n:] = float("nan")
+            cache.v[i, :, n:] = float("nan")
+        else:
+            cache.k_scale[i, :, :, n:] = float("nan")
+            cache.v_scale[i, :, :, n:] = float("nan")
+    tol = TOL[dtype] if quant is None else dict(rtol=2e-2, atol=2e-2)
+    for t in (1, 5):
+        q = randn((b, 8, t, d), dtype, dev, 32 + t)
+        o = decode.decode_attention_chunk(q, cache)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(o).all()) and not bool(o[0].any())
+        ref = decode.decode_attention_reference(q, cache, requant_block=decode.BLOCK_KV)
+        rep = verify_results(ref, o, **tol)
+        assert rep.passed, f"T={t}: {rep}"
+        if mode in ("bf16", "int8"):
+            pool = paged.init_paged_cache(b, hkv, b * 4 + 1, 64, d, 4, dtype=dtype,
+                                          quant=quant, device=dev)
+            for i, n in enumerate(lengths):
+                table = [i * 4 + j + 1 for j in range(4)][::-1]
+                row = kvcache.KVCache(k=cache.k[i:i + 1], v=cache.v[i:i + 1],
+                                      length=cache.length[i:i + 1],
+                                      k_scale=None if quant is None else cache.k_scale[i:i + 1],
+                                      v_scale=None if quant is None else cache.v_scale[i:i + 1])
+                paged.write_pages(pool, row, table)
+                paged.set_block_table(pool, i, table, n)
+            assert torch.equal(paged.paged_decode_attention_chunk(q, pool), o)
+
+
+def test_head_dim_32_model_on_card_matches_cpu(dev):
+    """A float32 model at D 32 (the quality gate's config): prefill and
+    decode steps through K1 and K2 on the card against the plain path on
+    the CPU, same weights and tokens."""
+    cfg = ModelConfig(vocab_size=128, hidden_size=128, intermediate_size=256, num_layers=2,
+                      num_heads=4, num_kv_heads=2, head_dim=32, max_seq_len=128,
+                      dtype=torch.float32)
+    cpu_model = llama.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu_model = llama.Llama(cfg, dev)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    prompt = torch.randint(0, cfg.vocab_size, (2, 37), generator=torch.Generator().manual_seed(1))
+    outs = []
+    for model, d in ((cpu_model, "cpu"), (gpu_model, dev)):
+        for quant in (None, "int8", "fp8"):
+            caches = generate.init_caches(model, 2, 128, quant=quant)
+            logits, caches = generate.prefill(model, prompt.to(d), caches)
+            steps = [logits.cpu()]
+            for i in range(3):
+                token = torch.tensor([i + 1, i + 2], dtype=torch.int32, device=d)
+                pos = torch.full((2,), 37 + i, dtype=torch.int32, device=d)
+                logits, caches = generate.decode_step(model, token, pos, caches)
+                steps.append(logits.cpu())
+            outs.append(steps)
+    for mode, (ref_steps, out_steps) in enumerate(zip(outs[:3], outs[3:])):
+        for i, (ref, out) in enumerate(zip(ref_steps, out_steps)):
+            if mode == 0:  # the float32 cache
+                rep = verify_results(ref, out, atol=1e-3, rtol=1e-3)
+                assert rep.passed, f"step {i}: {rep}"
+                continue
+            # int8 and fp8: chip_smoke.py's logits rule (the card requantizes
+            # int8 P per 64-position tile, the CPU's plain version per block)
+            cos = float(torch.nn.functional.cosine_similarity(ref.flatten(), out.flatten(), dim=0))
+            delta = float((out - ref).abs().max())
+            assert cos > 0.999 and delta <= 0.05 * float(ref.abs().max()), (mode, i, cos, delta)

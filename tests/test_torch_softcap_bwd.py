@@ -174,11 +174,11 @@ def test_softcapped_varlen_matches_jax():
 def test_backward_kernels_take_head_dim_256():
     """GEMMA2_9B's head dim is one the backward kernels take, as K1's: the
     kernel-operand check passes D 256 for them (the CPU paths are the plain
-    versions, which take any D)."""
-    assert flash_bwd.HEAD_DIMS == (64, 128, 256) and config.GEMMA2_9B.head_dim == 256
+    versions, which take any D), and refuses a head dim outside the set."""
+    assert flash_bwd.HEAD_DIMS == (32, 64, 80, 96, 128, 256) and config.GEMMA2_9B.head_dim == 256
     q = torch.zeros((1, 2, 8, 256), dtype=torch.bfloat16)
     from flashattn_tpu_torch.ops import flash_fwd
     flash_fwd.check_kernel_operands(flash_bwd.HEAD_DIMS, q=q, k=q, v=q, o=q, do=q)
-    with pytest.raises(ValueError, match="head_dim 96"):
-        x = torch.zeros((1, 2, 8, 96), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        x = torch.zeros((1, 2, 8, 48), dtype=torch.bfloat16)
         flash_fwd.check_kernel_operands(flash_bwd.HEAD_DIMS, q=x, k=x, v=x, o=x, do=x)
