@@ -4,12 +4,12 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the sixteen CUDA libraries from csrc/ (into build/flashattn_tpu_torch/,
+Builds the nineteen CUDA libraries from csrc/ (into build/flashattn_tpu_torch/,
 one nvcc each, all at once) and runs twenty-three phases, printing one line
 per check and each phase's seconds, then the kernels line:
 
 1. environment: torch/CUDA versions, the card's name and power limit, the
-   kernels' build time (from the 12th library built on, a process
+   kernels' build time (from the 15th library built on, a process
    compiles phase 2's flex_attention cases into this run's Inductor cache,
    until phase 2 ends) and their compiler report (no spills in the
    tensor-core kernels and the split-K kernel, no wgmma serialized), and
@@ -18,14 +18,16 @@ per check and each phase's seconds, then the kernels line:
    D 64, 128 and 256, with and without a window, segment ids and the
    soft-cap, or ALiBi with and without a window and segment ids, its 28
    D 256, soft-cap and ALiBi instantiations named; each again with
-   dropout in a library of its own, the 36 named; the 12 instantiations of
-   the offset read on the card, dyn_pos_offset, at D 64 and 128 in a
-   library of their own), the
+   dropout in a library of its own, the 36 named; the 48 instantiations of
+   the offset read on the card, dyn_pos_offset, at D 64, 128 and 256 with
+   a window, ALiBi, both, or the window and the soft-cap, with and without
+   segment ids and dropout, in two libraries of their own), the
    bf16 fused, dQ and dK/dV kernels (D 64, 128 and 256, with and without
    the window, segment ids and the soft-cap, or with ALiBi in libraries of
    their own, their 63 D 256, soft-cap and ALiBi instantiations named; each
-   again with dropout in libraries of their own, the 81 named; the 30 of
-   the offset read on the card in libraries of their own),
+   again with dropout in libraries of their own, the 144 named; the 126 of
+   the offset read on the card, every D, with and without the soft-cap and
+   dropout, in libraries of their own),
    qmm8's and qmm4's M > 16 kernels and every
    instantiation of K2's (D 64, 128 and 256, with and without a window, with
    and without ALiBi: the ALiBi ones in a library of their own);
@@ -302,13 +304,23 @@ per check and each phase's seconds, then the kernels line:
    ALiBi (the dyn_pos_offset kernels; the fused and then the split
    backward, selected by FLASHATTN_BWD_IMPL) and Ulysses modes, causal, its O and gradients held by rank 0
    against K1 and the backward on the whole sequence in its one process
-   (the bf16 gates); (b) LLAMA_1B at full width and depth (22 layers), sp
+   (the bf16 gates); then, each on the fused and then the split backward,
+   GEMMA2_9B's local layer (B 1, Hq 16, Hkv 8, S 8,192, D 256, window
+   4,096, cap 50: two 2,048-row chunks a rank, the window's left edge
+   cutting the (hi, lo) pairs at offsets read on the card) held the same
+   way, LLAMA_1B's attention with ALiBi and dropout 0.1 (B 1, Hq 32, Hkv 4,
+   S 4,096, D 64) held against the same ranks on the plain route (the
+   same folded seeds, so the same masks), and float32 with window 1,024
+   (B 1, Hq 4, Hkv 2, S 2,048, D 64) under phase 7's float32 gates; (b)
+   LLAMA_1B at full width and depth (22 layers), sp
    2, B 1, S 4,096: 3 AdamW steps of train.train under the mesh against the
    same steps in one process on the same tokens (phase 7's gates: each
    step's loss and grad norm, the last step's summed gradients' cosines;
    finite losses, the last below the first); phase 2 holds K1, B3, B4 and B5 with
    dyn_pos_offset against their plain versions at (a)'s zigzag chunk pair
-   and times them (dynoff_kernels);
+   and times them (dynoff_kernels), then with the soft-cap at D 256 on
+   Gemma's pair, with dropout (each kernel's mask read out bit for bit
+   first) and in float32 (dynoff_variants);
 21. tensor, pipeline and expert parallelism (phase_parallel): two ranks
    started and joined as phase 20's, sharing cuda:0 over gloo-host. (a)
    LLAMA_1B at full width and depth, B 4, S 2,048, bf16: the collective
@@ -391,7 +403,8 @@ per check and each phase's seconds, then the kernels line:
    timed at LLAMA_1B's training attention, their launches the headline
    path's; K1, B3, B4 and B5 with dyn_pos_offset from phases 2 and 20,
    their launches those of phase 20 (a)'s window + ALiBi zigzag on both
-   ranks; phase 21's launches of K1, B3, B4, B5, K2 (bf16, int8, fp8), K2
+   ranks, and rows of their own with the soft-cap, dropout and float32,
+   their launches those of (a)'s Gemma, dropout and float32 cases; phase 21's launches of K1, B3, B4, B5, K2 (bf16, int8, fp8), K2
    with the LSE and the paged K2 added to their rows, phase 22's of K1 and
    the backward to theirs; K1, B3, B4, B5, K2 (bf16, int8, fp8) and the
    paged K2 at head dims 32, 80 and 96 from phase 23, rows of their own,
@@ -444,7 +457,7 @@ from flashattn_tpu_torch.ops.attention import flash_attention, plain_flash_atten
 from flashattn_tpu_torch.ops.common import round_up
 from flashattn_tpu_torch.ops.kvcache import KVCache
 from flashattn_tpu_torch.ops.reference import visible
-from flashattn_tpu_torch.parallel import moe, serving
+from flashattn_tpu_torch.parallel import moe, ring, serving
 from flashattn_tpu_torch.utils import (dropout_readout, perplexity, profile_train, roofline,
                                       sass)
 from flashattn_tpu_torch.utils.timing import cuda_time_ms
@@ -454,7 +467,9 @@ SEED = 0
 LIBRARIES = ("flash_fwd", "decode", "decode_d256", "decode_alibi", "decode_alibi_d256",
              "flash_bwd", "flash_bwd_alibi", "flash_bwd_fused", "flash_bwd_fused_alibi",
              "quant_matmul", "flash_fwd_dropout", "flash_bwd_dropout", "flash_bwd_fused_dropout",
-             "flash_fwd_dynoff", "flash_bwd_dynoff", "flash_bwd_fused_dynoff")
+             "flash_fwd_dynoff", "flash_bwd_dynoff", "flash_bwd_fused_dynoff",
+             "flash_fwd_dynoff_dropout", "flash_bwd_dynoff_dropout",
+             "flash_bwd_fused_dynoff_dropout")
 O_ATOL = 2e-2  # bf16 outputs against the fp32 plain version
 LSE_ATOL = 1e-2
 GRAD_TOL = {  # gradients against the plain version on the same inputs
@@ -538,13 +553,14 @@ def phase_environment() -> str:
                 print(f"[env] SASS {kernel}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA, "
                       f"{n['IMMA']} IMMA")
                 mma[kernel] = n
-    families = {"flash_fwd_wgmma_kernel": 72, "flash_fwd_dyn_wgmma_kernel": 12, "flash_bwd": 192,
+    families = {"flash_fwd_wgmma_kernel": 72, "flash_fwd_dyn_wgmma_kernel": 48, "flash_bwd": 288,
                 "qmm_mma_kernel": 4, "decode_mma_kernel": 120}
     counted = {f: sum(k.startswith(f) for k in mma) for f in families}
     check(counted == families and all(sum(n.values()) for n in mma.values()),
           "K1's bf16 kernel (D 64, 128 and 256, with and without a window, segment ids and "
           "the soft-cap, or ALiBi with and without a window and segment ids; each with and "
-          "without dropout; the offset read on the card at D 64 and 128), the bf16 fused, "
+          "without dropout; the offset read on the card: a window, ALiBi, both, or the window "
+          "and the soft-cap, with and without segment ids and dropout), the bf16 fused, "
           "dQ and dK/dV kernels (D 64, 128 and 256; no mask, "
           "the window, segment ids; with and without the soft-cap, or with ALiBi; each with "
           "and without dropout; the offset read on the card), qmm8's and qmm4's "
@@ -556,7 +572,7 @@ def phase_environment() -> str:
           f"K1's bf16 kernel must run on wgmma (HGMMA): {mma}")
     # K1's template arguments: D, consumers, window, segment ids, soft-cap,
     # ALiBi, dropout; the kernel of the offset read on the card: D,
-    # consumers, window, segment ids, ALiBi.
+    # consumers, window, segment ids, ALiBi, soft-cap, dropout.
     k1 = {k: k[k.index("<") + 1:-1].split(", ") for k in mma
           if k.startswith("flash_fwd_wgmma_kernel")}
     new = [k for k, args in k1.items()
@@ -565,8 +581,8 @@ def phase_environment() -> str:
     dyn = [k for k in mma if k.startswith("flash_fwd_dyn_wgmma_kernel")]
     check(len(new) == 28, f"K1's D 256, soft-cap and ALiBi instantiations: {new}")
     check(len(drop) == 36, f"K1's dropout instantiations: {drop}")
-    check(len(dyn) == 12 and all(k[k.index("<") + 1:].split(",")[0] in ("64", "128")
-                                 for k in dyn),
+    # 3 D x (window, ALiBi, both, the window with the cap) x segment ids x dropout
+    check(len(dyn) == 48 and len({k[k.index("<") + 1:].split(",")[0] for k in dyn}) == 3,
           f"K1's instantiations of the offset on the card: {dyn}")
     print(f"[env] K1's D 256, soft-cap, ALiBi, dropout and card-offset instantiations run on "
           f"wgmma (HGMMA), no spill: { {k: mma[k]['HGMMA'] for k in new + drop + dyn} }")
@@ -580,8 +596,10 @@ def phase_environment() -> str:
     dyn = [k for k, args in bwd.items() if args[5] == "true"]
     check(len(new) == 63 and len(alibi) == 27 and not any(bwd[k][2] == "true" for k in alibi),
           f"the backward's D 256, soft-cap and ALiBi instantiations: {new}")
-    check(len(drop) == 81, f"the backward's dropout instantiations: {drop}")
-    check(len(dyn) == 30 and all(bwd[k][0] in ("64", "128") for k in dyn),
+    check(len(drop) == 144, f"the backward's dropout instantiations: {drop}")
+    # 3 D x (ALiBi's 3 mask kinds, the window or segment ids with and without the
+    # cap) x dropout, in the fused, dQ and dK/dV kernels
+    check(len(dyn) == 126 and {bwd[k][0] for k in dyn} == {"64", "128", "256"},
           f"the backward's instantiations of the offset on the card: {dyn}")
     print(f"[env] the backward's D 256, soft-cap, ALiBi, dropout and card-offset "
           f"instantiations run on mma.sync (HMMA), no spill: "
@@ -2374,6 +2392,9 @@ def routed(requant_block: int | None = None) -> dict:
             lambda x, qw, out_dtype=None: quant_matmul.quant_matmul_reference(x, qw, out_dtype)),
         # The MoE FFN's card route (the grouped dispatch) -> the masked-dense loop.
         (moe, "moe_ffn_grouped"): moe.moe_ffn_dense_reference,
+        # The rings' per-pair calls (parallel/ring.py).
+        (ring, "flash_attention_forward"): flash_fwd.flash_attention_forward_reference,
+        (ring, "flash_attention_backward"): flash_bwd.flash_attention_backward_reference,
     }
 
 
@@ -5111,21 +5132,36 @@ def phase_dropout(gen: torch.Generator) -> tuple[dict[str, int], dict[str, dict]
 # at (a)'s zigzag chunk pair, B 1, Hq 32, Hkv 8, a 4,096-row chunk against a
 # 4,096-key chunk, D 128, bf16, the offset (2n-1 - rank - src) C of rank 1's
 # first hop at n = 2 (C = 4,096), the window 4,096 and ALiBi: phase 20 (a)'s
-# case "zigzag, window 4,096 + ALiBi".
+# case "zigzag, window 4,096 + ALiBi". Then every other option the JAX
+# kernels take with the offset (dynoff_variants): the soft-cap with the
+# window at D 256 on GEMMA2_9B's local-layer pair (phase 20 (a)'s Gemma
+# case: C 2,048, its hops' offsets 2,048, 4,096 and 6,144), dropout with the
+# window and with ALiBi at DYN_SHAPE, and float32 with the window.
 DYNOFF_ROWS = ("flash_fwd_dynoff", "flash_bwd_fused_dynoff", "flash_bwd_dq_dynoff",
                "flash_bwd_dkv_dynoff")
 DYN_SHAPE = (1, 32, 8, 4096, 128)  # B, Hq, Hkv, S (rows = keys), D
 DYN_OFFSET = 4096
 DYN_WINDOW = 4096
+DYN_VARIANTS = ("softcap", "dropout", "f32")  # the rows' suffixes: DYNOFF_ROWS + "_" + it
+DYN_GEMMA = (1, 16, 8, 2048, 256)  # B, Hq, Hkv, S (rows = keys), D; offset DYN_OFFSET
+DYN_F32 = (1, 4, 2, 1024, 64)  # B, Hq, Hkv, S, D; offset and window 1,024
+# The card-offset dropout readouts (dtype, D, rate, seed, options): B 1, Hq 8,
+# Hkv 2, S_q 128 (256 at D 256), S_k 512, every pair visible at offset 1,000
+# (the window's edge left of key 0; ALiBi's slopes 1e-3, so no P underflows).
+DYN_DROP_READS = [(torch.bfloat16, 64, 0.5, -7, "alibi"), (torch.bfloat16, 128, 0.1, 0, "window"),
+                  (torch.bfloat16, 256, 0.1, 2**31 - 1, "window"),
+                  (torch.float32, 64, 0.5, 5, "window, alibi")]
 
 
-def flex_dyn_ms(q, k, v, off: int, window: int, slopes, do) -> tuple:
+def flex_dyn_ms(q, k, v, off: int, window: int | None, slopes, do, cap: float | None = None
+                ) -> tuple:
     """torch.nn.attention.flex_attention over the left edge of a window at
     the alignment `off` (key c seen by query r iff c >= r + off - window +
-    1, no causal bound), with the ALiBi score_mod slope_h * (c - r - off),
-    compiled once: (its forward's ms, its backward's ms, autograd.grad of O
-    against do); a competitor only, never used by the port. (None, None),
-    with the reason printed, where it does not compile on this machine."""
+    1, no causal bound; every key without a window), with the ALiBi
+    score_mod slope_h * (c - r - off), or with `cap` the soft-cap's, compiled
+    once: (its forward's ms, its backward's ms, autograd.grad of O against
+    do); a competitor only, never used by the port. (None, None), with the
+    reason printed, where it does not compile on this machine."""
     try:
         from torch.nn.attention.flex_attention import create_block_mask, flex_attention
 
@@ -5133,12 +5169,15 @@ def flex_dyn_ms(q, k, v, off: int, window: int, slopes, do) -> tuple:
         s_q, s_k = q.shape[2], k.shape[2]
 
         def score_mod(score, b, h, q_idx, kv_idx):
+            if cap is not None:
+                return cap * torch.tanh(score / cap)
             return score + slopes[h] * (kv_idx - q_idx - off).to(torch.float32)
 
         def mask_mod(b, h, q_idx, kv_idx):
             return kv_idx >= q_idx + off - window + 1
 
-        block_mask = create_block_mask(mask_mod, None, None, s_q, s_k, device="cuda")
+        block_mask = (create_block_mask(mask_mod, None, None, s_q, s_k, device="cuda")
+                      if window is not None else None)
         flex = torch.compile(flex_attention, dynamic=False)
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         out = flex(*leaves, score_mod=score_mod, block_mask=block_mask, enable_gqa=True)
@@ -5153,10 +5192,115 @@ def flex_dyn_ms(q, k, v, off: int, window: int, slopes, do) -> tuple:
                             warmup=2 * FLEX_TIMED, iters=min(iters, 3))
         return (fwd, bwd) if FLEX_TIMED else (None, None)
     except Exception as e:  # a competitor that does not build here is reported, not run
-        print(f"[dynoff] flex_attention with the left edge and ALiBi did not run on this "
+        print(f"[dynoff] flex_attention with the left edge and "
+              f"{'the soft-cap' if cap is not None else 'ALiBi'} did not run on this "
               f"machine: {type(e).__name__}: "
               f"{str(e).splitlines()[0][:200] if str(e) else ''}")
         return None, None
+
+
+def sdpa_masked_ms(q, k, v, do, bias, dropout_p: float = 0.0) -> tuple[float, float]:
+    """SDPA's forward and backward ms (events) with an additive float mask
+    `bias` and dropout_p, K and V repeated to Hq heads beforehand: a
+    competitor only, timed, never a route or an oracle (its dropout mask is
+    Philox's)."""
+    group = q.shape[1] // k.shape[1]
+    ke, ve = (t.repeat_interleave(group, dim=1) for t in (k, v))
+    fwd = event_time_ms(lambda: F.scaled_dot_product_attention(
+        q, ke, ve, attn_mask=bias, dropout_p=dropout_p), iters=5)
+    leaves = [t.detach().requires_grad_() for t in (q, ke, ve)]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=bias, dropout_p=dropout_p)
+    bwd = event_time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), iters=3)
+    return fwd, bwd
+
+
+def left_edge_bias(hq: int, s_q: int, s_k: int, off: int, window: int | None, slopes,
+                   dtype) -> torch.Tensor:
+    """[1, Hq or 1, S_q, S_k] additive mask of a card-offset call: -inf left
+    of the window's edge, plus ALiBi's slope_h * (c - r - off) with slopes."""
+    r = torch.arange(s_q, device="cuda")[:, None]
+    c = torch.arange(s_k, device="cuda")[None, :]
+    bias = torch.zeros((s_q, s_k), dtype=torch.float32, device="cuda")
+    if window is not None:
+        bias = bias.masked_fill(c < r + off - window + 1, float("-inf"))
+    bias = bias[None, None]
+    if slopes is not None:
+        bias = bias + slopes[None, :, None, None] * (c - r - off).float()[None, None]
+    return bias.to(dtype)
+
+
+def dyn_gates(tag: str, q, k, v, do, off_t, off: int, kw: dict) -> tuple[dict, tuple]:
+    """K1 (O, LSE, rows without a key), B3 and B4 + B5 with the offset read
+    on the card (off_t, a card tensor) against their plain versions (the int
+    off), under the bf16 gates or float32's: their largest errors by kernel
+    ("fwd", "fused", "dq", "dkv") and K1's (O, LSE); each call exactly one
+    launch of its card-offset kernel."""
+    f32 = q.dtype == torch.float32
+    err = dict.fromkeys(("fwd", "fused", "dq", "dkv"), 0.0)
+    before = {n: read_launches()[n] for n in DYNOFF_ROWS}
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, False, dyn_pos_offset=off_t, **kw)
+    o_ref, lse_ref = flash_fwd.flash_attention_forward_reference(q, k, v, False,
+                                                                 dyn_pos_offset=off, **kw)
+    err["fwd"] = _gate(f"K1 {tag} O", o_ref, o, **(F32_TOL if f32 else dict(atol=O_ATOL)))
+    _gate(f"K1 {tag} LSE", lse_ref, lse, LSE_ATOL)
+    dead = torch.isneginf(lse_ref)
+    check(torch.equal(dead, torch.isneginf(lse)) and not bool(o[dead].any()),
+          f"K1 {tag}: rows without a key differ")
+    ref = flash_bwd.flash_attention_backward_reference(q, k, v, o, do, lse, False,
+                                                       dyn_pos_offset=off, **kw)
+    for impl, kernels in (("fused", ("fused",) * 3), ("split", ("dq", "dkv", "dkv"))):
+        got = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, False, impl=impl,
+                                                 dyn_pos_offset=off_t, **kw)
+        for name, kernel, r, g in zip(("dQ", "dK", "dV"), kernels, ref, got):
+            err[kernel] = max(err[kernel], grad_gate(f"{impl} {name} {tag}", r, g, q.dtype))
+    del ref, got
+    launched = {n: read_launches()[n] - before[n] for n in DYNOFF_ROWS}
+    check(launched == dict.fromkeys(DYNOFF_ROWS, 1),
+          f"{tag}: the offset's kernels launched {launched}")
+    return err, (o, lse)
+
+
+def time_dyn(rows, tag: str, q, k, v, o, do, lse, off_t, off: int, kw: dict, err: dict,
+             libs: tuple, lib_name: str) -> dict[str, dict]:
+    """The four kernels of a card-offset call timed on the card (device ms,
+    cuda_time_ms) beside their plain versions (events), the library call's
+    forward and backward ms (`libs`, from `lib_name`; timed only) and the
+    bound of utils/roofline.py over the visible pairs; the kernels line's
+    rows (`rows`, in DYNOFF_ROWS' order; their launches come from phase 20)."""
+    few = dict(warmup=1, iters=5, reps=3)
+    dyn = dict(dyn_pos_offset=off_t, **kw)
+    ms = {"fwd": cuda_time_ms(lambda: flash_fwd.flash_attention_forward(q, k, v, False, **dyn),
+                              **few),
+          "fused": cuda_time_ms(lambda: flash_bwd_fused.flash_attention_backward_fused(
+              q, k, v, o, do, lse, False, **dyn), **few),
+          "dq": cuda_time_ms(lambda: flash_bwd.flash_bwd_dq(q, k, v, o, do, lse, False, **dyn),
+                             **few)}
+    _, delta = flash_bwd.flash_bwd_dq(q, k, v, o, do, lse, False, **dyn)
+    ms["dkv"] = cuda_time_ms(lambda: flash_bwd.flash_bwd_dkv(q, k, v, do, lse, delta, False,
+                                                             **dyn), **few)
+    plain = dict(dyn_pos_offset=off, **kw)
+    plain_f = event_time_ms(lambda: flash_fwd.flash_attention_forward_reference(
+        q, k, v, False, **plain), warmup=1, iters=2)
+    plain_b = event_time_ms(lambda: flash_bwd.flash_attention_backward_reference(
+        q, k, v, o, do, lse, False, **plain), warmup=1, iters=2)
+    b, hq, s_q, d = q.shape
+    hkv, s_k = k.shape[1], k.shape[2]
+    roof = dict(window=kw.get("window"), pos_offset=off, dtype_bytes=q.element_size())
+    out = {}
+    for row, kernel in zip(rows, ("fwd", "fused", "dq", "dkv")):
+        report = (roofline.attention_fwd_roofline(b, hq, hkv, s_q, s_k, d, False, **roof)
+                  if kernel == "fwd" else
+                  roofline.attention_bwd_roofline(b, hq, hkv, s_q, s_k, d, False,
+                                                  kernel=kernel, **roof))
+        plain_ms, lib = (plain_f, libs[0]) if kernel == "fwd" else (plain_b, libs[1])
+        print(f"[dynoff] {row} {tag}: kernel {ms[kernel]:.4f} ms "
+              f"({report.flops / (ms[kernel] * 1e-3) / 1e12:.2f} TFLOP/s over the visible "
+              f"pairs), bound {report.bound_ms:.5f} ms by {report.bound_by}, plain "
+              f"{plain_ms:.4f} ms, {lib_name} {'forward' if kernel == 'fwd' else 'backward'} "
+              + (f"{lib:.4f} ms" if lib is not None else "did not run"))
+        out[row] = dict(max_abs_err=err[kernel], ms=ms[kernel], plain_ms=plain_ms,
+                        library_ms=lib, **bound(report))
+    return out
 
 
 def dynoff_kernels(gen: torch.Generator) -> dict[str, dict]:
@@ -5168,8 +5312,9 @@ def dynoff_kernels(gen: torch.Generator) -> dict[str, dict]:
     pos_offset = offset within the bf16 gates; D 64 with segment ids and
     the window alone against the plain versions; then the four timed beside
     the plain versions, flex_attention with the same mask and bias, and the
-    bound of utils/roofline.py over the visible pairs of the left edge.
-    Returns the kernels line's rows (their launches come from phase 20)."""
+    bound of utils/roofline.py over the visible pairs of the left edge;
+    then every other option (dynoff_variants). Returns the kernels line's
+    rows (their launches come from phase 20)."""
     b, hq, hkv, s, d = DYN_SHAPE
     q, do = (randn((b, hq, s, d), gen) for _ in range(2))
     k, v = (randn((b, hkv, s, d), gen) for _ in range(2))
@@ -5177,30 +5322,7 @@ def dynoff_kernels(gen: torch.Generator) -> dict[str, dict]:
     kw = dict(window=DYN_WINDOW, alibi=True)
     tag = (f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} dyn_pos_offset {DYN_OFFSET} (a card tensor), "
            f"window {DYN_WINDOW}, ALiBi")
-    err = dict.fromkeys(DYNOFF_ROWS, 0.0)
-    reset_launches()
-    o, lse = flash_fwd.flash_attention_forward(q, k, v, False, dyn_pos_offset=off_t, **kw)
-    o_ref, lse_ref = flash_fwd.flash_attention_forward_reference(q, k, v, False,
-                                                                 dyn_pos_offset=DYN_OFFSET, **kw)
-    err["flash_fwd_dynoff"] = _gate(f"K1 {tag} O", o_ref, o, O_ATOL)
-    _gate(f"K1 {tag} LSE", lse_ref, lse, LSE_ATOL)
-    dead = torch.isneginf(lse_ref)
-    check(torch.equal(dead, torch.isneginf(lse)) and not bool(o[dead].any()),
-          "K1 with the offset: rows without a key differ")
-    ref = flash_bwd.flash_attention_backward_reference(q, k, v, o, do, lse, False,
-                                                       dyn_pos_offset=DYN_OFFSET, **kw)
-    for impl, rows in (("fused", ("flash_bwd_fused_dynoff",)),
-                       ("split", ("flash_bwd_dq_dynoff", "flash_bwd_dkv_dynoff"))):
-        got = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, False, impl=impl,
-                                                 dyn_pos_offset=off_t, **kw)
-        for name, r, g in zip(("dQ", "dK", "dV"), ref, got):
-            e = grad_gate(f"{impl} {name} {tag}", r, g, torch.bfloat16)
-            row = rows[0] if impl == "fused" or name == "dQ" else rows[1]  # B4 dQ, B5 dK, dV
-            err[row] = max(err[row], e)
-    launched = {n: c for n, c in read_launches().items() if n in DYNOFF_ROWS}
-    check(launched == {"flash_fwd_dynoff": 1, "flash_bwd_fused_dynoff": 1,
-                       "flash_bwd_dq_dynoff": 1, "flash_bwd_dkv_dynoff": 1},
-          f"the offset's kernels launched {launched}")
+    err, (o, lse) = dyn_gates(tag, q, k, v, do, off_t, DYN_OFFSET, kw)
     # The second oracle: at an offset of S_k every pair is causally visible.
     o_d, lse_d = flash_fwd.flash_attention_forward(q, k, v, False, dyn_pos_offset=s, **kw)
     o_c, lse_c = flash_fwd.flash_attention_forward(q, k, v, True, pos_offset=s, **kw)
@@ -5214,61 +5336,130 @@ def dynoff_kernels(gen: torch.Generator) -> dict[str, dict]:
         for name, r, g in zip(("dQ", "dK", "dV"), g_c, g_d):
             grad_gate(f"{impl} {name} offset {s} on the card vs causal pos_offset {s}", r, g,
                       torch.bfloat16)
-    del o_d, lse_d, o_c, lse_c, g_d, g_c, ref, got
+    del o_d, lse_d, o_c, lse_c, g_d, g_c
     # D 64 with segment ids (two documents, padding) and the window alone.
     q6, k6, v6, do6 = (randn((1, 8, 1024, 64), gen) for _ in range(4))
     ids = torch.full((1, 1024), -1, dtype=torch.int32, device="cuda")
     ids[0, :400], ids[0, 400:1000] = 0, 1
     kw6 = dict(window=700, segment_ids=varlen.canonical_segments(ids, ids, "cuda"))
-    o6, lse6 = flash_fwd.flash_attention_forward(q6, k6, v6, False, dyn_pos_offset=300, **kw6)
-    o6r, _ = flash_fwd.flash_attention_forward_reference(q6, k6, v6, False, dyn_pos_offset=300,
-                                                         **kw6)
-    _gate("K1 D=64 segment ids, window 700, offset 300 O", o6r, o6, O_ATOL)
-    ref6 = flash_bwd.flash_attention_backward_reference(q6, k6, v6, o6, do6, lse6, False,
-                                                        dyn_pos_offset=300, **kw6)
-    for impl in ("fused", "split"):
-        got6 = flash_bwd.flash_attention_backward(q6, k6, v6, o6, do6, lse6, False, impl=impl,
-                                                  dyn_pos_offset=300, **kw6)
-        for name, r, g in zip(("dQ", "dK", "dV"), ref6, got6):
-            grad_gate(f"{impl} {name} D=64 segment ids, window 700, offset 300", r, g,
-                      torch.bfloat16)
-    del q6, k6, v6, do6, o6, o6r, ref6, got6
-    # Times: device ms of the kernels (captured graphs read the offset on the card).
-    few = dict(warmup=1, iters=5, reps=3)
-    dyn = dict(dyn_pos_offset=off_t, **kw)
-    ms = {"flash_fwd_dynoff": cuda_time_ms(
-        lambda: flash_fwd.flash_attention_forward(q, k, v, False, **dyn), **few)}
-    ms["flash_bwd_fused_dynoff"] = cuda_time_ms(
-        lambda: flash_bwd_fused.flash_attention_backward_fused(q, k, v, o, do, lse, False, **dyn),
-        **few)
-    ms["flash_bwd_dq_dynoff"] = cuda_time_ms(
-        lambda: flash_bwd.flash_bwd_dq(q, k, v, o, do, lse, False, **dyn), **few)
-    _, delta = flash_bwd.flash_bwd_dq(q, k, v, o, do, lse, False, **dyn)
-    ms["flash_bwd_dkv_dynoff"] = cuda_time_ms(
-        lambda: flash_bwd.flash_bwd_dkv(q, k, v, do, lse, delta, False, **dyn), **few)
-    plain = dict(dyn_pos_offset=DYN_OFFSET, **kw)
-    plain_f = event_time_ms(lambda: flash_fwd.flash_attention_forward_reference(
-        q, k, v, False, **plain), warmup=1, iters=2)
-    plain_b = event_time_ms(lambda: flash_bwd.flash_attention_backward_reference(
-        q, k, v, o, do, lse, False, **plain), warmup=1, iters=2)
+    dyn_gates("D=64 segment ids, window 700, offset 300", q6, k6, v6, do6,
+              torch.tensor([300], dtype=torch.int32, device="cuda"), 300, kw6)
+    del q6, k6, v6, do6
     slopes = flash_fwd.default_alibi_slopes(hq, "cuda")
-    lib_f, lib_b = flex_dyn_ms(q, k, v, DYN_OFFSET, DYN_WINDOW, slopes, do)
-    roof = dict(window=DYN_WINDOW, pos_offset=DYN_OFFSET)
+    libs = flex_dyn_ms(q, k, v, DYN_OFFSET, DYN_WINDOW, slopes, do)
+    out = time_dyn(DYNOFF_ROWS, tag, q, k, v, o, do, lse, off_t, DYN_OFFSET, kw, err, libs,
+                   "flex_attention")
+    del q, k, v, o, do, lse
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(dynoff_variants(gen))
+    return out
+
+
+def dyn_dropout_readouts() -> None:
+    """Each kernel's keep mask in card-offset calls with dropout, read out
+    of its outputs as phase 19 (a) reads it (utils/dropout_readout.py; the
+    offset 1,000 on the card, a window whose edge lies left of every key, or
+    ALiBi with slopes 1e-3, or both: P stays positive everywhere) against
+    the plain dropout_keep_mask, zero mismatches allowed; every call a
+    launch of the card-offset kernels."""
+    dev = torch.device("cuda")
+    b, hq, hkv, s_k, off = 1, 8, 2, 512, 1000
+    for dtype, d, rate, seed, what in DYN_DROP_READS:
+        s_q = 256 if d == 256 else 128
+        opts = dict(dyn_pos_offset=torch.tensor([off], dtype=torch.int32, device=dev))
+        if "window" in what:
+            opts["window"] = off + s_q
+        if "alibi" in what:
+            opts.update(alibi=True, alibi_slopes=torch.full((hq,), 1e-3, device=dev))
+        before = {n: read_launches()[n] for n in DYNOFF_ROWS}
+        args = (b, hq, hkv, s_q, s_k, d, dtype, rate, seed, dev)
+        reads = {"K1": dropout_readout.forward_mask(*args, **opts),
+                 "B4": dropout_readout.dq_mask(*args, **opts),
+                 "B3": dropout_readout.dv_mask(*args, impl="fused", **opts),
+                 "B5": dropout_readout.dv_mask(*args, impl="split", **opts)}
+        torch.cuda.synchronize()
+        launched = {n: read_launches()[n] - before[n] for n in DYNOFF_ROWS}
+        check(all(launched.values()), f"card-offset readouts launched {launched}")
+        want = dropout_readout.plain_mask(b, hq, s_q, s_k, rate, seed, dev)
+        for name, got in reads.items():
+            bad = int((got != want).sum())
+            print(f"[dynoff] dropout readout {name} B={b} Hq={hq} Hkv={hkv} Sq={s_q} "
+                  f"Sk={s_k} D={d} {str(dtype)[6:]} offset {off} on the card, {what}, rate "
+                  f"{rate} seed {seed}: {bad} of {want.numel()} elements differ from "
+                  f"dropout_keep_mask (kept {float(want.float().mean()):.4f})")
+            check(bad == 0, f"card-offset dropout readout {name} {dtype} D={d} {what}: "
+                            f"{bad} mismatches")
+
+
+def dynoff_variants(gen: torch.Generator) -> dict[str, dict]:
+    """The card-offset kernels with every other option the JAX kernels take,
+    against their plain versions (dyn_gates), then timed (time_dyn): the
+    soft-cap 50 with the window 4,096 at D 256 on GEMMA2_9B's local-layer
+    pair (DYN_GEMMA, offset 4,096: the window's edge cuts the pair in half),
+    beside flex_attention with the cap and the left edge; dropout
+    (DROP_RATE) with the window, with ALiBi and with both at DYN_SHAPE, the
+    readouts first (dyn_dropout_readouts), the three against the plain
+    version on the same mask, the last timed beside SDPA with dropout_p and
+    ALiBi + the left edge as a float mask; float32 with the window at
+    DYN_F32 under the float32 gates, beside SDPA with the left edge. Returns
+    the kernels line's rows (DYNOFF_ROWS + "_softcap", "_dropout", "_f32")."""
     out = {}
-    for row, kernel in zip(DYNOFF_ROWS, ("fwd", "fused", "dq", "dkv")):
-        report = (roofline.attention_fwd_roofline(b, hq, hkv, s, s, d, False, **roof)
-                  if kernel == "fwd" else
-                  roofline.attention_bwd_roofline(b, hq, hkv, s, s, d, False, kernel=kernel,
-                                                  **roof))
-        plain_ms, lib = (plain_f, lib_f) if kernel == "fwd" else (plain_b, lib_b)
-        print(f"[dynoff] {row} {tag}: kernel {ms[row]:.4f} ms "
-              f"({report.flops / (ms[row] * 1e-3) / 1e12:.2f} TFLOP/s over the visible pairs), "
-              f"bound {report.bound_ms:.5f} ms by {report.bound_by}, plain {plain_ms:.4f} ms, "
-              f"flex_attention {'forward' if kernel == 'fwd' else 'backward'} "
-              + (f"{lib:.4f} ms" if lib is not None else "did not run"))
-        out[row] = dict(max_abs_err=err[row], ms=ms[row], plain_ms=plain_ms, library_ms=lib,
-                        **bound(report))
-    del q, k, v, o, do, lse, delta
+    b, hq, hkv, s, d = DYN_GEMMA
+    q, k, v, do = (randn((b, h, s, d), gen) for h in (hq, hkv, hkv, hq))
+    off_t = torch.tensor([DYN_OFFSET], dtype=torch.int32, device="cuda")
+    kw = dict(window=GWIN, logit_softcap=CAP)
+    tag = (f"GEMMA2_9B's local-layer pair B={b} Hq={hq} Hkv={hkv} S={s} D={d} dyn_pos_offset "
+           f"{DYN_OFFSET} (a card tensor), window {GWIN}, cap {CAP}")
+    err, (o, lse) = dyn_gates(tag, q, k, v, do, off_t, DYN_OFFSET, kw)
+    hot = [x * HOT if i == 0 else x for i, x in enumerate((q, k, v, do))]
+    dyn_gates(tag + f", hot inputs (q x {HOT}: the cap saturates)", *hot, off_t, DYN_OFFSET, kw)
+    del hot
+    libs = flex_dyn_ms(q, k, v, DYN_OFFSET, GWIN, None, do, cap=CAP)
+    out.update(time_dyn([f"{r}_softcap" for r in DYNOFF_ROWS], tag, q, k, v, o, do, lse, off_t,
+                        DYN_OFFSET, kw, err, libs, "flex_attention with the cap"))
+    del q, k, v, o, do, lse
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    dyn_dropout_readouts()
+    print(f"[dynoff] dropout readouts in {time.perf_counter() - t0:.1f} s")
+    b, hq, hkv, s, d = DYN_SHAPE
+    q, k, v, do = (randn((b, h, s, d), gen) for h in (hq, hkv, hkv, hq))
+    drop = dict(dropout_rate=DROP_RATE,
+                dropout_seed=torch.tensor(DROP_SEED, dtype=torch.int32, device="cuda"))
+    shape = (f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} dyn_pos_offset {DYN_OFFSET} (a card "
+             f"tensor), dropout {DROP_RATE}")
+    err = dict.fromkeys(("fwd", "fused", "dq", "dkv"), 0.0)
+    for opts in (dict(window=DYN_WINDOW), dict(alibi=True), dict(window=DYN_WINDOW, alibi=True)):
+        e, (o, lse) = dyn_gates(f"{shape}, {opts}", q, k, v, do, off_t, DYN_OFFSET,
+                                dict(opts, **drop))
+        err = {n: max(err[n], e[n]) for n in err}
+    slopes = flash_fwd.default_alibi_slopes(hq, "cuda")
+    bias = left_edge_bias(hq, s, s, DYN_OFFSET, DYN_WINDOW, slopes, q.dtype)
+    libs = sdpa_masked_ms(q, k, v, do, bias, DROP_RATE)
+    del bias
+    out.update(time_dyn([f"{r}_dropout" for r in DYNOFF_ROWS], f"{shape}, window "
+                        f"{DYN_WINDOW}, ALiBi", q, k, v, o, do, lse, off_t, DYN_OFFSET,
+                        dict(window=DYN_WINDOW, alibi=True, **drop), err, libs,
+                        "SDPA with dropout_p and ALiBi + the left edge as a float mask (Philox's "
+                        "mask: timed only)"))
+    del q, k, v, o, do, lse
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    b, hq, hkv, s, d = DYN_F32
+    q, k, v, do = (randn((b, h, s, d), gen, torch.float32) for h in (hq, hkv, hkv, hq))
+    off_t = torch.tensor([s], dtype=torch.int32, device="cuda")
+    kw = dict(window=s)
+    tag = (f"float32 B={b} Hq={hq} Hkv={hkv} S={s} D={d} dyn_pos_offset {s} (a card tensor), "
+           f"window {s}")
+    err, (o, lse) = dyn_gates(tag, q, k, v, do, off_t, s, kw)
+    libs = sdpa_masked_ms(q, k, v, do, left_edge_bias(hq, s, s, s, s, None, q.dtype))
+    out.update(time_dyn([f"{r}_f32" for r in DYNOFF_ROWS], tag, q, k, v, o, do, lse, off_t, s,
+                        kw, err, libs, "SDPA with the left edge as a float mask"))
+    del q, k, v, o, do, lse
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -5281,15 +5472,42 @@ def dynoff_kernels(gen: torch.Generator) -> dict[str, dict]:
 # speed and are printed as wall time only.
 CP_WORLD = 2
 CP_OPS_SHAPE = (1, 32, 8, 16384, 128)  # LLAMA31_8B's attention at phase 14's prompt length
+CP_GEMMA_SHAPE = (1, 16, 8, 8192, 256)  # GEMMA2_9B's attention at its 8,192-token context
+CP_DROP_SHAPE = (1, 32, 4, 4096, 64)  # LLAMA_1B's attention
+CP_F32_SHAPE = (1, 4, 2, 2048, 64)
+# name: the sharded_ring_attention options, and: "bwd" the backward path
+# (FLASHATTN_BWD_IMPL, as a user selects it), "shape" and "dtype" (else
+# CP_OPS_SHAPE, bf16), "plain" (held against the same ranks on the plain
+# route, not against one process's kernels), "row" (its card-offset
+# launches count in DYNOFF_ROWS + row).
 CP_CASES = {
     "ring, causal": dict(mode="ring"),
     "zigzag, causal": dict(mode="zigzag"),
-    "zigzag, window 4096 + ALiBi": dict(mode="zigzag", window=DYN_WINDOW, alibi=True),
-    # The split backward, selected as a user selects it: FLASHATTN_BWD_IMPL.
+    "zigzag, window 4096 + ALiBi": dict(mode="zigzag", window=DYN_WINDOW, alibi=True, row=""),
     "zigzag, window 4096 + ALiBi, split backward": dict(mode="zigzag", window=DYN_WINDOW,
-                                                        alibi=True, bwd="split"),
+                                                        alibi=True, bwd="split", row=""),
     "ulysses, causal": dict(mode="ulysses"),
+    # Gemma-2's local layer: each rank holds two 2,048-row chunks, and the
+    # window's left edge cuts the (hi, lo) pairs at offsets read on the card
+    "GEMMA2_9B local layer, zigzag, window 4096 + cap 50": dict(
+        mode="zigzag", window=GWIN, logit_softcap=CAP, shape=CP_GEMMA_SHAPE, row="_softcap"),
+    "GEMMA2_9B local layer, zigzag, window 4096 + cap 50, split backward": dict(
+        mode="zigzag", window=GWIN, logit_softcap=CAP, shape=CP_GEMMA_SHAPE, bwd="split",
+        row="_softcap"),
+    "LLAMA_1B attention, zigzag, ALiBi + dropout 0.1": dict(
+        mode="zigzag", alibi=True, dropout_rate=DROP_RATE, dropout_seed=DROP_SEED,
+        shape=CP_DROP_SHAPE, plain=True, row="_dropout"),
+    "LLAMA_1B attention, zigzag, ALiBi + dropout 0.1, split backward": dict(
+        mode="zigzag", alibi=True, dropout_rate=DROP_RATE, dropout_seed=DROP_SEED,
+        shape=CP_DROP_SHAPE, plain=True, bwd="split", row="_dropout"),
+    "float32, zigzag, window 1024": dict(mode="zigzag", window=1024, shape=CP_F32_SHAPE,
+                                         dtype=torch.float32, row="_f32"),
+    "float32, zigzag, window 1024, split backward": dict(
+        mode="zigzag", window=1024, shape=CP_F32_SHAPE, dtype=torch.float32, bwd="split",
+        row="_f32"),
 }
+CP_PATH_ROWS = tuple(n + row for row in ("",) + tuple(f"_{v}" for v in DYN_VARIANTS)
+                     for n in DYNOFF_ROWS)
 CP_TRAIN_S = 4096
 CP_TRAIN_STEPS = 3
 CP_JOIN_S = 900  # the ranks' time limit, joined by the parent
@@ -5300,28 +5518,42 @@ def cp_ops(mesh, rank: int) -> dict[str, int]:
     """Phase 20 (a) in rank `rank`: each CP_CASES case through
     sharded_ring_attention (the global view, on every rank) and its
     gradients, rank 0 holding them against K1 and the backward on the
-    whole sequence in its one process. Returns the launches of the
-    window + ALiBi zigzag cases (the offset's kernels' path: the fused
-    backward, then the split one)."""
+    whole sequence in its one process (under the bf16 gates, or float32's),
+    or, for a "plain" case, against the same ranks' run on the plain route
+    (plain_kernels: the rings' per-pair calls to their plain versions, the
+    same folded dropout seeds). Returns the launches of the card-offset
+    kernels by kernels-line row (CP_PATH_ROWS)."""
     from flashattn_tpu_torch import parallel
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
-    b, hq, hkv, s, d = CP_OPS_SHAPE
-    q, do = (randn((b, hq, s, d), gen) for _ in range(2))
-    k, v = (randn((b, hkv, s, d), gen) for _ in range(2))
-    shape = f"B={b} Hq={hq} Hkv={hkv} S={s} ({s // CP_WORLD} a rank) D={d} bf16"
-    path = dict.fromkeys(DYNOFF_ROWS, 0)
+    inputs = {}
+    path = dict.fromkeys(CP_PATH_ROWS, 0)
     for name, case in CP_CASES.items():
-        kw = {a: x for a, x in case.items() if a != "bwd"}
+        kw = {a: x for a, x in case.items()
+              if a not in ("bwd", "shape", "dtype", "plain", "row")}
         impl = case.get("bwd", "auto")
-        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        shape, dtype = case.get("shape", CP_OPS_SHAPE), case.get("dtype", torch.bfloat16)
+        if (shape, dtype) not in inputs:  # the same inputs on every rank
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 20 + len(inputs))
+            b, hq, hkv, s, d = shape
+            q, do = (randn((b, hq, s, d), gen, dtype) for _ in range(2))
+            k, v = (randn((b, hkv, s, d), gen, dtype) for _ in range(2))
+            inputs[shape, dtype] = q, k, v, do
+        q, k, v, do = inputs[shape, dtype]
+        b, hq, hkv, s, d = shape
+        desc = f"B={b} Hq={hq} Hkv={hkv} S={s} ({s // CP_WORLD} a rank) D={d} {str(dtype)[6:]}"
+
+        def run():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            with (profile_train.backward_impl(impl) if impl != "auto"
+                  else contextlib.nullcontext()):
+                o = parallel.sharded_ring_attention(*leaves, mesh, True, **kw)
+                grads = torch.autograd.grad(o, leaves, do)
+            return o.detach(), grads
+
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
-        with (profile_train.backward_impl(impl) if impl != "auto"
-              else contextlib.nullcontext()):
-            o = parallel.sharded_ring_attention(*leaves, mesh, True, **kw)
-            grads = torch.autograd.grad(o, leaves, do)
+        o, grads = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = {n: c for n, c in read_launches().items() if c}
@@ -5329,27 +5561,38 @@ def cp_ops(mesh, rank: int) -> dict[str, int]:
         check(got.get("flash_fwd", 0) > 0
               and got.get("flash_bwd_dq" if split else "flash_bwd_fused", 0) > 0,
               f"[cp] rank {rank} {name}: launched {got}")
-        if "window" in kw:
+        if "row" in case:
             bwd = ("flash_bwd_dq_dynoff", "flash_bwd_dkv_dynoff") if split else (
                 "flash_bwd_fused_dynoff",)
             check(all(got.get(n, 0) > 0 for n in ("flash_fwd_dynoff",) + bwd),
                   f"[cp] rank {rank} {name}: the offset's kernels launched {got}")
-            add_launches(path, {n: got.get(n, 0) for n in DYNOFF_ROWS})
-        print(f"[cp] rank {rank} {name}, {shape}: forward and gradients in {wall:.2f} s wall "
+            add_launches(path, {n + case["row"]: got.get(n, 0) for n in DYNOFF_ROWS})
+        print(f"[cp] rank {rank} {name}, {desc}: forward and gradients in {wall:.2f} s wall "
               f"(two ranks on one card over gloo-host: not a speed), launches {got}", flush=True)
-        if rank == 0:
-            opts = dict(window=kw.get("window"), alibi=kw.get("alibi", False))
-            o_ref, lse_ref = flash_fwd.flash_attention_forward(q, k, v, True, **opts)
+        if case.get("plain"):  # the same ranks on the plain route
+            with plain_kernels():
+                o_ref, g_ref = run()
+            against = "the same ranks on the plain route"
+        elif rank == 0:
+            opts = {a: kw.get(a) for a in ("window", "logit_softcap")}
+            o_ref, lse_ref = flash_fwd.flash_attention_forward(q, k, v, True,
+                                                               alibi=kw.get("alibi", False),
+                                                               **opts)
             g_ref = flash_bwd.flash_attention_backward(q, k, v, o_ref, do, lse_ref, True,
-                                                       impl=impl, **opts)
-            _gate(f"[cp] {name} O against one process's K1 on the whole sequence", o_ref, o,
-                  O_ATOL)
+                                                       impl=impl, alibi=kw.get("alibi", False),
+                                                       **opts)
+            del lse_ref
+            against = "one process's K1 and backward on the whole sequence"
+        if rank == 0:
+            _gate(f"[cp] {name} O against {against}", o_ref, o,
+                  **(F32_TOL if dtype == torch.float32 else dict(atol=O_ATOL)))
             for gname, r, g in zip(("dQ", "dK", "dV"), g_ref, grads):
-                grad_gate(f"[cp] {name} {gname} against one process's backward", r, g,
-                          torch.bfloat16)
-            del o_ref, lse_ref, g_ref
-        del o, grads, leaves
+                grad_gate(f"[cp] {name} {gname} against {against}", r, g, dtype)
+        if rank == 0 or case.get("plain"):
+            del o_ref, g_ref
+        del o, grads
         torch.cuda.empty_cache()
+    del inputs
     return path
 
 
@@ -5480,12 +5723,12 @@ def spawn_ranks(target, world: int, tag: str) -> list:
 def phase_context_parallel() -> dict[str, int]:
     """Phase 20 (the comment above): CP_WORLD ranks of cp_rank
     (spawn_ranks). Returns the offset kernels' launches on (a)'s zigzag
-    window + ALiBi path, summed over the ranks."""
-    launches = dict.fromkeys(DYNOFF_ROWS, 0)
+    paths by kernels-line row (the window + ALiBi, the soft-cap, dropout and
+    float32 cases), summed over the ranks."""
+    launches = dict.fromkeys(CP_PATH_ROWS, 0)
     for got in spawn_ranks(cp_rank, CP_WORLD, "[cp]"):
         add_launches(launches, got)
-    print(f"[cp] the offset's kernels on (a)'s zigzag window + ALiBi path, both ranks: "
-          f"{launches}")
+    print(f"[cp] the offset's kernels on (a)'s zigzag paths, both ranks: {launches}")
     return launches
 
 
@@ -6904,7 +7147,7 @@ def phase_head_dims(gen: torch.Generator, k1_err: dict[int, float]
     return launches, rows
 
 
-FLEX_WARM_AFTER = 12
+FLEX_WARM_AFTER = 15
 FLEX_TIMED = True  # False in flex_warmup's process
 
 
@@ -6929,6 +7172,7 @@ def flex_warm_cases() -> list:
     b, hq, hkv, s, d = GEMMA_PREFILL
     ab, ahq, ahkv, a_s, ad = ALIBI_PREFILL
     db, dhq, dhkv, ds, dd = DYN_SHAPE
+    gb, ghq, ghkv, gs, gd = DYN_GEMMA
     ends = torch.tensor(DEC_LENGTHS, dtype=torch.int32, device=dev)
     dec = (z(DEC_B, DEC_HQ, 1, DEC_D), z(DEC_B, DEC_HKV, DEC_SMAX, DEC_D),
            z(DEC_B, DEC_HKV, DEC_SMAX, DEC_D))
@@ -6956,6 +7200,9 @@ def flex_warm_cases() -> list:
                                             z(db, dhkv, ds, dd), DYN_OFFSET, DYN_WINDOW,
                                             flash_fwd.default_alibi_slopes(dhq, dev),
                                             z(db, dhq, ds, dd))),
+        ("card offset, soft-cap", lambda: flex_dyn_ms(z(gb, ghq, gs, gd), z(gb, ghkv, gs, gd),
+                                                      z(gb, ghkv, gs, gd), DYN_OFFSET, GWIN,
+                                                      None, z(gb, ghq, gs, gd), cap=CAP)),
     ]
 
 
@@ -7157,6 +7404,11 @@ def run() -> None:
     }
     for row in MASKED_ROWS + SOFTCAP_BWD_ROWS:  # the same kernels with a window, segment
         sources[row] = sources[row.rsplit("_", 1)[0]]  # ids or a soft-cap
+    for variant in DYN_VARIANTS:  # the card offset's kernels with the cap (D 256), dropout or
+        for row in DYNOFF_ROWS:  # float32; dropout's in the libraries with it
+            src, rep = sources[row]
+            lib = "_dynoff_dropout.cu" if variant == "dropout" else "_dynoff.cu"
+            sources[f"{row}_{variant}"] = (src.replace("_dynoff.cu", lib), rep)
     for d in HD_DIMS:  # the same kernels at head dims 32, 80 and 96
         for kernel in HD_ROWS:
             sources[f"{kernel}_d{d}"] = sources[kernel]

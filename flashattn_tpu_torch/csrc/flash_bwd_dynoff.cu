@@ -1,11 +1,13 @@
 // B4 and B5 with the q/k alignment read from the card, the split backward
 // (csrc/flash_bwd_split.cuh holds the kernels and their design): the
-// library of the kDyn instantiations, the bf16 dQ and dK/dV kernels at D 64
-// and 128 with the window's left edge, ALiBi or both, each with and without
-// segment ids. Replaces, with flash_bwd.cu, the TPU kernels
+// library of the kDyn instantiations without dropout, the bf16 dQ and dK/dV
+// kernels at D 64, 128 and 256 with the window's left edge, ALiBi, both, or
+// the window with the soft-cap, each with and without segment ids, and the
+// float32 kernels'. Replaces, with flash_bwd.cu, the TPU kernels
 // flashattn_tpu/ops/flash_bwd.py::_dq_kernel and ::_dkv_kernel with their
 // dyn_pos_offset (flash_bwd.py:576-580, :613): the zigzag ring's
-// always-visible chunk pair.
+// always-visible chunk pair. flash_bwd_dynoff_dropout.cu builds the same
+// kinds with dropout.
 #include "flash_bwd_split.cuh"
 
 // dq_launch_impl<slopes != NULL, false, true>'s contract

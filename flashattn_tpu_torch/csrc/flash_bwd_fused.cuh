@@ -1,11 +1,12 @@
 // Flash-attention backward, fused path, for Hopper (sm_90a): a delta
-// pre-pass, then one kernel that computes dQ, dK and dV in one pass. Four
+// pre-pass, then one kernel that computes dQ, dK and dV in one pass. Five
 // libraries build from this header: flash_bwd_fused.cu (every instantiation
 // without ALiBi, dropout or the offset read on the card),
 // flash_bwd_fused_alibi.cu (ALiBi's), flash_bwd_fused_dropout.cu (dropout's,
-// with ALiBi or without) and flash_bwd_fused_dynoff.cu (kDyn's: the q/k
-// alignment read on the card once a CTA, not causal, the window's left edge
-// and ALiBi), side by side.
+// with ALiBi or without), flash_bwd_fused_dynoff.cu (kDyn's: the q/k
+// alignment read on the card once a CTA, not causal, the window's left edge,
+// ALiBi, the soft-cap, every D and dtype) and
+// flash_bwd_fused_dynoff_dropout.cu (kDyn's with dropout), side by side.
 //
 // Replaces the TPU kernel flashattn_tpu/ops/flash_bwd_fused.py::
 // _fused_bwd_kernel (launcher flash_attention_backward_fused, :336; B3) on the
@@ -71,7 +72,7 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   if (lane == 0) delta[row] = sum;
 }
 
-template <typename T, int D, bool kDropout>
+template <typename T, int D, bool kDropout, bool kDyn>
 __global__ void __launch_bounds__(Tile<D>::kThreads)
 flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ dout,
@@ -80,10 +81,13 @@ flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const int* __restrict__ seg_q, const int* __restrict__ seg_k,
                        const float* __restrict__ slopes, int Hq, int Hkv, int Sq, int Sk, int d,
                        int is_causal, int offset, int window, float scale, float scale_log2,
-                       float cap_log2, const fat::Dropout drop) {
+                       float cap_log2, const fat::Dropout drop,
+                       const int* __restrict__ dyn_offset) {
+  // kDyn: the q/k alignment from the card bounds the q walk and masks alike.
   fat::bwd::dkv_tile<T, D, true, kDropout>(q, k, v, dout, lse, delta, dk, dv, dq_acc, seg_q,
-                                           seg_k, slopes, Hq, Hkv, Sq, Sk, d, is_causal, offset,
-                                           window, scale, scale_log2, cap_log2, drop);
+                                           seg_k, slopes, Hq, Hkv, Sq, Sk, d, is_causal,
+                                           kDyn ? __ldg(dyn_offset) : offset, window, scale,
+                                           scale_log2, cap_log2, drop);
 }
 
 template <int D, int kMask, bool kCap, bool kAlibi, bool kDropout, bool kDyn>
@@ -132,8 +136,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
 
 // With kAlibi the bf16 kernels of ALiBi (no cap), else those without it;
 // with kDropout those of dropout, else those without it; with kDyn those
-// that read the offset on the card (bf16, no cap, no dropout; a window or
-// ALiBi).
+// that read the offset on the card (a window or ALiBi; the float32 kernel
+// too).
 template <typename T, int D, bool kAlibi, bool kDropout, bool kDyn>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const void* lse, void* dq_acc, void* dk, void* dv, void* delta,
@@ -158,9 +162,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
       fn = seg_q != nullptr ? launch_mma<D, bwd::kSegmentMask, false, true, X, Y>
            : window > 0     ? launch_mma<D, bwd::kWindowMask, false, true, X, Y>
                             : launch_mma<D, bwd::kNoMask, false, true, X, Y>;
-    else if constexpr (kDyn)  // the window, with or without segment ids
-      fn = seg_q != nullptr ? launch_mma<D, bwd::kSegmentMask, false, false, X, Y>
-                            : launch_mma<D, bwd::kWindowMask, false, false, X, Y>;
+    else if constexpr (kDyn)  // the window, with or without segment ids and the cap
+      fn = seg_q != nullptr ? (cap ? launch_mma<D, bwd::kSegmentMask, true, false, X, Y>
+                                   : launch_mma<D, bwd::kSegmentMask, false, false, X, Y>)
+                            : (cap ? launch_mma<D, bwd::kWindowMask, true, false, X, Y>
+                                   : launch_mma<D, bwd::kWindowMask, false, false, X, Y>);
     else
       fn = seg_q != nullptr ? (cap ? launch_mma<D, bwd::kSegmentMask, true, false, X, Y>
                                    : launch_mma<D, bwd::kSegmentMask, false, false, X, Y>)
@@ -172,16 +178,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
               B, Hq, Hkv, Sq, Sk, d, is_causal, offset, window, scale, scale_log2, cap_log2, drop,
               dyn_offset, stream);
   } else {
-    err = fat::allow_max_smem<flash_bwd_fused_kernel<T, D, kDropout>>();
+    err = fat::allow_max_smem<flash_bwd_fused_kernel<T, D, kDropout, kDyn>>();
     if (err != cudaSuccess) return err;
     const dim3 grid((Sk + Tile<D>::kRows - 1) / Tile<D>::kRows, Hkv, B);
-    flash_bwd_fused_kernel<T, D, kDropout>
+    flash_bwd_fused_kernel<T, D, kDropout, kDyn>
         <<<grid, Tile<D>::kThreads, fat::bwd::dkv_smem_bytes<D>(), stream>>>(
             static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
             static_cast<const T*>(dout), static_cast<const float*>(lse),
             static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
             static_cast<float*>(dq_acc), seg_q, seg_k, slopes, Hq, Hkv, Sq, Sk, d, is_causal,
-            offset, window, scale, scale_log2, cap_log2, drop);
+            offset, window, scale, scale_log2, cap_log2, drop, dyn_offset);
   }
   return cudaGetLastError();
 }
@@ -203,7 +209,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
 // cap) tanh(s * scale_log2) * cap_log2, as the forward made them; ALiBi adds
 // slopes[h] * log2(e) * (c - r - offset). With kDropout (the library
 // flash_bwd_fused_dropout.cu, ALiBi or not) the forward's keep mask of drop
-// drops P in dV and dP in dS. D, the head dim, is a multiple of 16 up to 256,
+// drops P in dV and dP in dS. With kDyn (the libraries
+// flash_bwd_fused_dynoff.cu and, with kDropout, flash_bwd_fused_dynoff_dropout.cu,
+// ALiBi or not) the offset is the int32 at dyn_offset on the device, not
+// `offset`, and the call is not causal: the window, needed without ALiBi, is
+// its left edge alone; every option and dtype beside it. D, the head dim, is
+// a multiple of 16 up to 256,
 // run in the compiled tile of 64, 128 or 256 columns that holds it (common.cuh
 // head_tile); dq_acc is D wide, as q. Writes delta, dk (scale applied) and dv in
 // k's dtype, and adds scale * dS.K into dq_acc. Returns the CUDA error code of
@@ -222,23 +233,18 @@ int fused_launch_impl(const void* q, const void* k, const void* v, const void* o
       seg != (ranges_q != nullptr) || seg != (ranges_k != nullptr) || cap_log2 < 0.f ||
       (slopes != nullptr) != kAlibi || (kAlibi && cap_log2 > 0.f) ||
       !fat::head_dim_ok(D) ||
-      (kDyn && (is_causal || dyn_offset == nullptr || cap_log2 > 0.f ||
-                (window == 0 && !kAlibi) || dtype != fat::kBF16 || fat::head_tile(D) > 128)))
+      (kDyn && (is_causal || dyn_offset == nullptr || (window == 0 && !kAlibi))))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr bool A = kAlibi, X = kDropout;
+  constexpr bool A = kAlibi, X = kDropout, Y = kDyn;
   const int tile = fat::head_tile(D);  // the compiled tile that takes D
-  decltype(&launch<__nv_bfloat16, 64, A, X, kDyn>) fn = nullptr;
-  if constexpr (kDyn)
-    fn = tile == 64 ? launch<__nv_bfloat16, 64, A, X, true>
-                    : launch<__nv_bfloat16, 128, A, X, true>;
-  else
-    fn = dtype == fat::kBF16 ? (tile == 64    ? launch<__nv_bfloat16, 64, A, X, false>
-                                : tile == 128 ? launch<__nv_bfloat16, 128, A, X, false>
-                                              : launch<__nv_bfloat16, 256, A, X, false>)
-         : dtype == fat::kF32 ? (tile == 64    ? launch<float, 64, A, X, false>
-                                 : tile == 128 ? launch<float, 128, A, X, false>
-                                               : launch<float, 256, A, X, false>)
-                              : nullptr;
+  decltype(&launch<__nv_bfloat16, 64, A, X, Y>) fn =
+      dtype == fat::kBF16 ? (tile == 64    ? launch<__nv_bfloat16, 64, A, X, Y>
+                             : tile == 128 ? launch<__nv_bfloat16, 128, A, X, Y>
+                                           : launch<__nv_bfloat16, 256, A, X, Y>)
+      : dtype == fat::kF32 ? (tile == 64    ? launch<float, 64, A, X, Y>
+                              : tile == 128 ? launch<float, 128, A, X, Y>
+                                            : launch<float, 256, A, X, Y>)
+                           : nullptr;
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(fn(q, k, v, o, dout, lse, dq_acc, dk, dv, delta, seg_q, seg_k,
                              ranges_q, ranges_k, slopes, B, Hq, Hkv, Sq, Sk, D, is_causal,

@@ -1,11 +1,12 @@
 // Flash-attention backward, split path, for Hopper (sm_90a): the dQ kernel
-// (with delta) and the dK/dV kernel, run one after the other. Four
+// (with delta) and the dK/dV kernel, run one after the other. Five
 // libraries build from this header: flash_bwd.cu (every instantiation
 // without ALiBi, dropout or the offset read on the card), flash_bwd_alibi.cu
-// (ALiBi's), flash_bwd_dropout.cu (dropout's, with ALiBi or without) and
+// (ALiBi's), flash_bwd_dropout.cu (dropout's, with ALiBi or without),
 // flash_bwd_dynoff.cu (kDyn's: the q/k alignment read on the card once a
-// CTA, not causal, the window's left edge and ALiBi; the walks start from
-// it), compiled side by side.
+// CTA, not causal, the window's left edge, ALiBi, the soft-cap, every D and
+// dtype; the walks start from it) and flash_bwd_dynoff_dropout.cu (kDyn's
+// with dropout), compiled side by side.
 //
 // Replaces the TPU kernels flashattn_tpu/ops/flash_bwd.py::_dq_kernel (B4)
 // and ::_dkv_kernel (B5) (launcher flash_attention_backward, :467) on the
@@ -85,15 +86,18 @@ constexpr size_t dq_smem_bytes() {
 // dQ of one q tile of one q head, and delta = rowsum(dO * O) of its rows,
 // written to delta [B, Hq, Sq] for the dK/dV kernel. Rows that see no key
 // get dQ = 0. float32; bf16 runs flash_bwd_dq_mma_kernel.
-template <typename T, int D, bool kDropout>
+template <typename T, int D, bool kDropout, bool kDyn>
 __global__ void __launch_bounds__(Tile<D>::kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ o, const T* __restrict__ dout,
                     const float* __restrict__ lse, T* __restrict__ dq,
                     float* __restrict__ delta, const int* __restrict__ seg_q,
                     const int* __restrict__ seg_k, const float* __restrict__ slopes, int Hq,
-                    int Hkv, int Sq, int Sk, int d, int is_causal, int offset, int window,
-                    float scale, float scale_log2, float cap_log2, const fat::Dropout drop) {
+                    int Hkv, int Sq, int Sk, int d, int is_causal, int offset_arg, int window,
+                    float scale, float scale_log2, float cap_log2, const fat::Dropout drop,
+                    const int* __restrict__ dyn_offset) {
+  // kDyn: the q/k alignment is read from the card; the kv walk starts from it.
+  const int offset = kDyn ? __ldg(dyn_offset) : offset_arg;
   constexpr int kBlock = Tile<D>::kRows;
   constexpr int kThreads = Tile<D>::kThreads;
   constexpr int kPP = Tile<D>::kPP;
@@ -559,7 +563,7 @@ constexpr auto dq_mma_kernel() {
     return flash_bwd_dq_mma_kernel<D, kMask, kCap, kAlibi, kDropout, kDyn>;
 }
 
-template <typename T, int D, bool kDropout>
+template <typename T, int D, bool kDropout, bool kDyn>
 __global__ void __launch_bounds__(Tile<D>::kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
@@ -567,10 +571,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      const int* __restrict__ seg_q, const int* __restrict__ seg_k,
                      const float* __restrict__ slopes, int Hq, int Hkv, int Sq, int Sk, int d,
                      int is_causal, int offset, int window, float scale, float scale_log2,
-                     float cap_log2, const fat::Dropout drop) {
+                     float cap_log2, const fat::Dropout drop,
+                     const int* __restrict__ dyn_offset) {
+  // kDyn: the q/k alignment from the card bounds the q walk and masks alike.
   fat::bwd::dkv_tile<T, D, false, kDropout>(q, k, v, dout, lse, delta, dk, dv, nullptr, seg_q,
-                                            seg_k, slopes, Hq, Hkv, Sq, Sk, d, is_causal, offset,
-                                            window, scale, scale_log2, cap_log2, drop);
+                                            seg_k, slopes, Hq, Hkv, Sq, Sk, d, is_causal,
+                                            kDyn ? __ldg(dyn_offset) : offset, window, scale,
+                                            scale_log2, cap_log2, drop);
 }
 
 template <int D, int kMask, bool kCap, bool kAlibi, bool kDropout, bool kDyn>
@@ -634,8 +641,8 @@ cudaError_t launch_dq_mma(const void* q, const void* k, const void* v, const voi
 
 // With kAlibi the bf16 kernels of ALiBi (no cap), else those without it;
 // with kDropout those of dropout, else those without it; with kDyn those
-// that read the offset on the card (bf16, no cap, no dropout; a window or
-// ALiBi).
+// that read the offset on the card (a window or ALiBi; the float32 kernel
+// too).
 template <typename T, int D, bool kAlibi, bool kDropout, bool kDyn>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const void* lse, void* dq, void* delta, int B, int Hq,
@@ -649,9 +656,12 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o
                       : kind == kWindowMask ? launch_dq_mma<D, kWindowMask, false, true, X, Y>
                                             : launch_dq_mma<D, kNoMask, false, true, X, Y>;
       return fn(q, k, v, o, dout, lse, dq, delta, B, Hq, Hkv, Sq, Sk, m, stream);
-    } else if constexpr (kDyn) {  // the window, with or without segment ids
-      const auto fn = kind == kSegmentMask ? launch_dq_mma<D, kSegmentMask, false, false, X, Y>
-                                           : launch_dq_mma<D, kWindowMask, false, false, X, Y>;
+    } else if constexpr (kDyn) {  // the window, with or without segment ids and the cap
+      const auto fn =
+          m.cap() ? (kind == kSegmentMask ? launch_dq_mma<D, kSegmentMask, true, false, X, Y>
+                                          : launch_dq_mma<D, kWindowMask, true, false, X, Y>)
+                  : (kind == kSegmentMask ? launch_dq_mma<D, kSegmentMask, false, false, X, Y>
+                                          : launch_dq_mma<D, kWindowMask, false, false, X, Y>);
       return fn(q, k, v, o, dout, lse, dq, delta, B, Hq, Hkv, Sq, Sk, m, stream);
     } else {
       const auto fn =
@@ -664,14 +674,16 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o
       return fn(q, k, v, o, dout, lse, dq, delta, B, Hq, Hkv, Sq, Sk, m, stream);
     }
   } else {
-    const cudaError_t err = fat::allow_max_smem<flash_bwd_dq_kernel<T, D, kDropout>>();
+    constexpr auto kernel = flash_bwd_dq_kernel<T, D, kDropout, kDyn>;
+    const cudaError_t err = fat::allow_max_smem<kernel>();
     if (err != cudaSuccess) return err;
     const dim3 grid((Sq + Tile<D>::kRows - 1) / Tile<D>::kRows, Hq, B);
-    flash_bwd_dq_kernel<T, D, kDropout><<<grid, Tile<D>::kThreads, dq_smem_bytes<D>(), stream>>>(
+    kernel<<<grid, Tile<D>::kThreads, dq_smem_bytes<D>(), stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<const float*>(lse),
         static_cast<T*>(dq), static_cast<float*>(delta), m.seg_q, m.seg_k, m.slopes, Hq, Hkv,
-        Sq, Sk, m.d, m.is_causal, m.offset, m.window, m.scale, m.scale_log2, m.cap_log2, m.drop);
+        Sq, Sk, m.d, m.is_causal, m.offset, m.window, m.scale, m.scale_log2, m.cap_log2, m.drop,
+        m.dyn_offset);
     return cudaGetLastError();
   }
 }
@@ -709,9 +721,12 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
                       : kind == kWindowMask ? launch_dkv_mma<D, kWindowMask, false, true, X, Y>
                                             : launch_dkv_mma<D, kNoMask, false, true, X, Y>;
       return fn(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk, m, stream);
-    } else if constexpr (kDyn) {  // the window, with or without segment ids
-      const auto fn = kind == kSegmentMask ? launch_dkv_mma<D, kSegmentMask, false, false, X, Y>
-                                           : launch_dkv_mma<D, kWindowMask, false, false, X, Y>;
+    } else if constexpr (kDyn) {  // the window, with or without segment ids and the cap
+      const auto fn =
+          m.cap() ? (kind == kSegmentMask ? launch_dkv_mma<D, kSegmentMask, true, false, X, Y>
+                                          : launch_dkv_mma<D, kWindowMask, true, false, X, Y>)
+                  : (kind == kSegmentMask ? launch_dkv_mma<D, kSegmentMask, false, false, X, Y>
+                                          : launch_dkv_mma<D, kWindowMask, false, false, X, Y>);
       return fn(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk, m, stream);
     } else {
       const auto fn =
@@ -724,24 +739,23 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
       return fn(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk, m, stream);
     }
   } else {
-    const cudaError_t err = fat::allow_max_smem<flash_bwd_dkv_kernel<T, D, kDropout>>();
+    constexpr auto kernel = flash_bwd_dkv_kernel<T, D, kDropout, kDyn>;
+    const cudaError_t err = fat::allow_max_smem<kernel>();
     if (err != cudaSuccess) return err;
     const dim3 grid((Sk + Tile<D>::kRows - 1) / Tile<D>::kRows, Hkv, B);
-    flash_bwd_dkv_kernel<T, D, kDropout>
-        <<<grid, Tile<D>::kThreads, fat::bwd::dkv_smem_bytes<D>(), stream>>>(
-            static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-            static_cast<const T*>(dout), static_cast<const float*>(lse),
-            static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), m.seg_q,
-            m.seg_k, m.slopes, Hq, Hkv, Sq, Sk, m.d, m.is_causal, m.offset, m.window, m.scale,
-            m.scale_log2, m.cap_log2, m.drop);
+    kernel<<<grid, Tile<D>::kThreads, fat::bwd::dkv_smem_bytes<D>(), stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), m.seg_q,
+        m.seg_k, m.slopes, Hq, Hkv, Sq, Sk, m.d, m.is_causal, m.offset, m.window, m.scale,
+        m.scale_log2, m.cap_log2, m.drop, m.dyn_offset);
     return cudaGetLastError();
   }
 }
 
 // kAlibi: the library of the ALiBi instantiations, which takes slopes and
-// only slopes; else the other, which takes none. kDyn: the library of the
-// offset on the card, not causal, a window or ALiBi, no soft-cap, no
-// dropout, bf16 at D 64 or 128.
+// only slopes; else the other, which takes none. kDyn: the libraries of the
+// offset on the card, not causal, a window or ALiBi.
 template <bool kAlibi, bool kDyn>
 bool bad_args(int B, int Hq, int Hkv, int Sq, int Sk, int D, int dtype, const Mask& m) {
   const bool seg = m.seg_q != nullptr;
@@ -750,8 +764,7 @@ bool bad_args(int B, int Hq, int Hkv, int Sq, int Sk, int D, int dtype, const Ma
          seg != (m.ranges_q != nullptr) || seg != (m.ranges_k != nullptr) || m.cap_log2 < 0.f ||
          (m.slopes != nullptr) != kAlibi || (kAlibi && m.cap()) ||
          !fat::head_dim_ok(D) ||
-         (kDyn && (m.is_causal || m.dyn_offset == nullptr || m.cap() ||
-                   (m.window == 0 && !kAlibi) || dtype != fat::kBF16 || fat::head_tile(D) > 128));
+         (kDyn && (m.is_causal || m.dyn_offset == nullptr || (m.window == 0 && !kAlibi)));
 }
 
 }  // namespace
@@ -771,7 +784,11 @@ bool bad_args(int B, int Hq, int Hkv, int Sq, int Sk, int D, int dtype, const Ma
 // tanh(s * scale_log2) * cap_log2, as the forward made them; ALiBi adds
 // slopes[h] * log2(e) * (c - r - offset). With kDropout (the library
 // flash_bwd_dropout.cu, ALiBi or not) the forward's keep mask of drop
-// drops dP in dS. D, the head dim, is a multiple of 16 up to 256, run in
+// drops dP in dS. With kDyn (the libraries flash_bwd_dynoff.cu and, with
+// kDropout, flash_bwd_dynoff_dropout.cu, ALiBi or not) the offset is the
+// int32 at dyn_offset on the device, not `offset`, and the call is not
+// causal: the window, needed without ALiBi, is its left edge alone; every
+// option and dtype beside it. D, the head dim, is a multiple of 16 up to 256, run in
 // the compiled tile of 64, 128 or 256 columns that holds it (common.cuh
 // head_tile). Writes dq (q's dtype, scale applied) and delta. Returns the
 // CUDA error code (0 = success).
@@ -787,20 +804,16 @@ int dq_launch_impl(const void* q, const void* k, const void* v, const void* o, c
   if (bad_args<kAlibi, kDyn>(B, Hq, Hkv, Sq, Sk, D, dtype, m))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  constexpr bool A = kAlibi, X = kDropout;
+  constexpr bool A = kAlibi, X = kDropout, Y = kDyn;
   const int tile = fat::head_tile(D);  // the compiled tile that takes D
-  decltype(&launch_dq<__nv_bfloat16, 64, A, X, kDyn>) fn = nullptr;
-  if constexpr (kDyn)
-    fn = tile == 64 ? launch_dq<__nv_bfloat16, 64, A, X, true>
-                    : launch_dq<__nv_bfloat16, 128, A, X, true>;
-  else
-    fn = dtype == fat::kBF16 ? (tile == 64    ? launch_dq<__nv_bfloat16, 64, A, X, false>
-                                : tile == 128 ? launch_dq<__nv_bfloat16, 128, A, X, false>
-                                              : launch_dq<__nv_bfloat16, 256, A, X, false>)
-         : dtype == fat::kF32 ? (tile == 64    ? launch_dq<float, 64, A, X, false>
-                                 : tile == 128 ? launch_dq<float, 128, A, X, false>
-                                               : launch_dq<float, 256, A, X, false>)
-                              : nullptr;
+  decltype(&launch_dq<__nv_bfloat16, 64, A, X, Y>) fn =
+      dtype == fat::kBF16 ? (tile == 64    ? launch_dq<__nv_bfloat16, 64, A, X, Y>
+                             : tile == 128 ? launch_dq<__nv_bfloat16, 128, A, X, Y>
+                                           : launch_dq<__nv_bfloat16, 256, A, X, Y>)
+      : dtype == fat::kF32 ? (tile == 64    ? launch_dq<float, 64, A, X, Y>
+                              : tile == 128 ? launch_dq<float, 128, A, X, Y>
+                                            : launch_dq<float, 256, A, X, Y>)
+                           : nullptr;
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(fn(q, k, v, o, dout, lse, dq, delta, B, Hq, Hkv, Sq, Sk, m, s));
 }
@@ -821,20 +834,16 @@ int dkv_launch_impl(const void* q, const void* k, const void* v, const void* dou
   if (bad_args<kAlibi, kDyn>(B, Hq, Hkv, Sq, Sk, D, dtype, m))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  constexpr bool A = kAlibi, X = kDropout;
+  constexpr bool A = kAlibi, X = kDropout, Y = kDyn;
   const int tile = fat::head_tile(D);  // the compiled tile that takes D
-  decltype(&launch_dkv<__nv_bfloat16, 64, A, X, kDyn>) fn = nullptr;
-  if constexpr (kDyn)
-    fn = tile == 64 ? launch_dkv<__nv_bfloat16, 64, A, X, true>
-                    : launch_dkv<__nv_bfloat16, 128, A, X, true>;
-  else
-    fn = dtype == fat::kBF16 ? (tile == 64    ? launch_dkv<__nv_bfloat16, 64, A, X, false>
-                                : tile == 128 ? launch_dkv<__nv_bfloat16, 128, A, X, false>
-                                              : launch_dkv<__nv_bfloat16, 256, A, X, false>)
-         : dtype == fat::kF32 ? (tile == 64    ? launch_dkv<float, 64, A, X, false>
-                                 : tile == 128 ? launch_dkv<float, 128, A, X, false>
-                                               : launch_dkv<float, 256, A, X, false>)
-                              : nullptr;
+  decltype(&launch_dkv<__nv_bfloat16, 64, A, X, Y>) fn =
+      dtype == fat::kBF16 ? (tile == 64    ? launch_dkv<__nv_bfloat16, 64, A, X, Y>
+                             : tile == 128 ? launch_dkv<__nv_bfloat16, 128, A, X, Y>
+                                           : launch_dkv<__nv_bfloat16, 256, A, X, Y>)
+      : dtype == fat::kF32 ? (tile == 64    ? launch_dkv<float, 64, A, X, Y>
+                              : tile == 128 ? launch_dkv<float, 128, A, X, Y>
+                                            : launch_dkv<float, 256, A, X, Y>)
+                           : nullptr;
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(fn(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk, m, s));
 }

@@ -1,9 +1,10 @@
 // K1: flash-attention forward, O and the natural-log LSE, for Hopper (sm_90a).
-// Three libraries build from this header: flash_fwd.cu (every instantiation
+// Four libraries build from this header: flash_fwd.cu (every instantiation
 // without dropout or the offset read on the card), flash_fwd_dropout.cu
-// (kDropout's) and flash_fwd_dynoff.cu (kDyn's: the q/k alignment read from
+// (kDropout's), flash_fwd_dynoff.cu (kDyn's: the q/k alignment read from
 // the card once a CTA, so one launch shape serves every offset; the call is
-// not causal and the window is its left edge alone), side by side.
+// not causal and the window is its left edge alone) and
+// flash_fwd_dynoff_dropout.cu (kDyn's with kDropout), side by side.
 //
 // Replaces the TPU kernels flashattn_tpu/ops/flash_fwd.py::_fwd_kernel
 // (launcher flash_attention_forward, :469) and
@@ -115,7 +116,8 @@
 // row, each computing 16 logits of the tile and D/4 output columns, P
 // rounded to the input dtype for P.V as the TPU kernel feeds its MXU; the
 // soft-cap (cap_log2 > 0) and ALiBi (slopes not null) are uniform branches,
-// dropout the template flag kDropout.
+// dropout and the offset read on the card the template flags kDropout and
+// kDyn.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums: declarations only, libcuda is not linked
@@ -158,14 +160,17 @@ __device__ __forceinline__ int kv_first_tile(int q0, int offset, int window, int
 
 // ---- float32: CUDA cores (fp32 FMA over shared-memory tiles) ----
 
-template <int D, bool kDropout>
+template <int D, bool kDropout, bool kDyn>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, const int* __restrict__ seg_q,
                  const int* __restrict__ seg_k, const float* __restrict__ slopes, int Hq,
-                 int Hkv, int Sq, int Sk, int d, int is_causal, int offset, int window,
-                 float scale_log2, float cap_log2, const fat::Dropout drop) {
+                 int Hkv, int Sq, int Sk, int d, int is_causal, int offset_arg, int window,
+                 float scale_log2, float cap_log2, const fat::Dropout drop,
+                 const int* __restrict__ dyn_offset) {
+  // kDyn: the q/k alignment is read from the card once, at the start.
+  const int offset = kDyn ? __ldg(dyn_offset) : offset_arg;
   constexpr int DP = D + 1;
   constexpr int PP = kBlockN + 1;
   constexpr int kDimsPerThread = D / kThreadsPerRow;
@@ -882,11 +887,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 // K1 with the q/k alignment read from the card (dyn_pos_offset): the
 // kernel above's CTA with `offset` read once at its start, so one launch
 // shape serves every offset and the producer's walk and the consumers'
-// start from one value; not causal (the window is its left edge alone), no
-// soft-cap, no dropout. A kernel of its own, so that the kernels above
-// keep their parameters.
-template <int D, int kConsumers, bool kWindow, bool kSeg, bool kAlibi>
-__global__ void __launch_bounds__(FwdLayout<D, kConsumers>::kThreads, kConsumers == 1 ? 3 : 1)
+// start from one value; not causal (the window is its left edge alone).
+// A kernel of its own, so that the kernels above keep their parameters;
+// the soft-cap's and dropout's come after dyn_offset and their flags last,
+// so that the instantiations without them keep the code they had before
+// those two were added.
+template <int D, int kConsumers, bool kWindow, bool kSeg, bool kAlibi, bool kCap, bool kDropout>
+__global__ void __launch_bounds__(FwdLayout<D, kConsumers>::kThreads,
+                                  kConsumers == 1 ? (kSeg && kDropout ? 2 : 3) : 1)
 flash_fwd_dyn_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                            const __grid_constant__ CUtensorMap k_map,
                            const __grid_constant__ CUtensorMap v_map,
@@ -895,25 +903,27 @@ flash_fwd_dyn_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                            const int2* __restrict__ ranges_q, const int2* __restrict__ ranges_k,
                            const float* __restrict__ slopes, int Hq, int Hkv, int Sq, int Sk,
                            int d, int window, float scale_log2,
-                           const int* __restrict__ dyn_offset) {
-  fwd_wgmma_cta<D, kConsumers, kWindow, kSeg, false, kAlibi, false>(
+                           const int* __restrict__ dyn_offset, float cap_log2,
+                           const fat::Dropout drop) {
+  fwd_wgmma_cta<D, kConsumers, kWindow, kSeg, kCap, kAlibi, kDropout>(
       &q_map, &k_map, &v_map, o, lse, seg_q, seg_k, ranges_q, ranges_k, slopes, Hq, Hkv, Sq, Sk,
-      d, 0, __ldg(dyn_offset), window, scale_log2, 0.f, fat::Dropout{});
+      d, 0, __ldg(dyn_offset), window, scale_log2, cap_log2, drop);
 }
 
-template <int D, bool kDropout>
+template <int D, bool kDropout, bool kDyn>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, void* lse,
                        const int* seg_q, const int* seg_k, const float* slopes, int B, int Hq,
                        int Hkv, int Sq, int Sk, int d, int is_causal, int offset, int window,
                        float scale_log2, float cap_log2, const fat::Dropout& drop,
-                       cudaStream_t stream) {
-  const cudaError_t err = fat::allow_max_smem<flash_fwd_kernel<D, kDropout>>();
+                       const int* dyn_offset, cudaStream_t stream) {
+  const cudaError_t err = fat::allow_max_smem<flash_fwd_kernel<D, kDropout, kDyn>>();
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kBlockM - 1) / kBlockM, Hq, B);
-  flash_fwd_kernel<D, kDropout><<<grid, kThreads, smem_bytes<D>(), stream>>>(
+  flash_fwd_kernel<D, kDropout, kDyn><<<grid, kThreads, smem_bytes<D>(), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), seg_q,
-      seg_k, slopes, Hq, Hkv, Sq, Sk, d, is_causal, offset, window, scale_log2, cap_log2, drop);
+      seg_k, slopes, Hq, Hkv, Sq, Sk, d, is_causal, offset, window, scale_log2, cap_log2, drop,
+      dyn_offset);
   return cudaGetLastError();
 }
 
@@ -977,10 +987,10 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, vo
                         float scale_log2, float cap_log2, const fat::Dropout& drop,
                         const int* dyn_offset, cudaStream_t stream) {
   using L = FwdLayout<D, kConsumers>;
-  static_assert(!kDyn || !(kCap || kDropout), "the card offset takes no soft-cap or dropout");
   cudaError_t err;
   if constexpr (kDyn)
-    err = fat::allow_max_smem<flash_fwd_dyn_wgmma_kernel<D, kConsumers, kWindow, kSeg, kAlibi>>();
+    err = fat::allow_max_smem<
+        flash_fwd_dyn_wgmma_kernel<D, kConsumers, kWindow, kSeg, kAlibi, kCap, kDropout>>();
   else
     err = fat::allow_max_smem<
         flash_fwd_wgmma_kernel<D, kConsumers, kWindow, kSeg, kCap, kAlibi, kDropout>>();
@@ -995,10 +1005,11 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, vo
   auto* out = static_cast<__nv_bfloat16*>(o);
   auto* lse_f = static_cast<float*>(lse);
   if constexpr (kDyn)
-    flash_fwd_dyn_wgmma_kernel<D, kConsumers, kWindow, kSeg, kAlibi>
+    flash_fwd_dyn_wgmma_kernel<D, kConsumers, kWindow, kSeg, kAlibi, kCap, kDropout>
         <<<grid, L::kThreads, L::kBytes, stream>>>(q_map, k_map, v_map, out, lse_f, seg_q, seg_k,
                                                     ranges_q, ranges_k, slopes, Hq, Hkv, Sq, Sk,
-                                                    d, window, scale_log2, dyn_offset);
+                                                    d, window, scale_log2, dyn_offset, cap_log2,
+                                                    drop);
   else
     flash_fwd_wgmma_kernel<D, kConsumers, kWindow, kSeg, kCap, kAlibi, kDropout>
         <<<grid, L::kThreads, L::kBytes, stream>>>(q_map, k_map, v_map, out, lse_f, seg_q, seg_k,
@@ -1012,7 +1023,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, vo
 // segment ids and a soft-cap, each present or not, or for ALiBi (slopes not
 // null) with or without a window and segment ids; kDropout's or not. With
 // kDyn (the offset read from dyn_offset on the card) a window, ALiBi or
-// both, with or without segment ids, and neither the soft-cap nor dropout.
+// both, or the window with the soft-cap, each with or without segment ids.
 template <int D, int kConsumers, bool kDropout, bool kDyn>
 cudaError_t launch_bf16_any(bool win, bool seg, bool cap, const void* q, const void* k,
                             const void* v, void* o, void* lse, const int* seg_q,
@@ -1025,13 +1036,15 @@ cudaError_t launch_bf16_any(bool win, bool seg, bool cap, const void* q, const v
   constexpr bool X = kDropout;
   decltype(&launch_bf16<D, C, false, false, false, false, X, kDyn>) fn;
   if constexpr (kDyn) {
-    if (cap || (!win && slopes == nullptr)) return cudaErrorInvalidValue;
+    if (!win && slopes == nullptr) return cudaErrorInvalidValue;
     fn = slopes != nullptr ? (win ? (seg ? launch_bf16<D, C, true, true, false, true, X, true>
                                          : launch_bf16<D, C, true, false, false, true, X, true>)
                                   : (seg ? launch_bf16<D, C, false, true, false, true, X, true>
                                          : launch_bf16<D, C, false, false, false, true, X, true>))
-                           : (seg ? launch_bf16<D, C, true, true, false, false, X, true>
-                                  : launch_bf16<D, C, true, false, false, false, X, true>);
+         : cap ? (seg ? launch_bf16<D, C, true, true, true, false, X, true>
+                      : launch_bf16<D, C, true, false, true, false, X, true>)
+               : (seg ? launch_bf16<D, C, true, true, false, false, X, true>
+                      : launch_bf16<D, C, true, false, false, false, X, true>);
   } else {
     fn = slopes != nullptr
              ? (win ? (seg ? launch_bf16<D, C, true, true, false, true, X, false>
@@ -1067,10 +1080,11 @@ cudaError_t launch_bf16_any(bool win, bool seg, bool cap, const void* q, const v
 // slopes[h] * log2(e) * (c - r - offset). With kDropout (the library
 // flash_fwd_dropout.cu) P V takes the elements dropout_keep keeps, O is
 // scaled by drop.scale, the LSE is that without dropout. With kDyn (the
-// library flash_fwd_dynoff.cu) the offset is the int32 at dyn_offset on the
-// device, not `offset`, and the call is not causal: the window, needed
-// without ALiBi, is its left edge alone (c >= r + offset - window + 1);
-// bf16 in the 64 and 128 tiles, no soft-cap, no dropout. D, the head dim,
+// libraries flash_fwd_dynoff.cu and, with kDropout, flash_fwd_dynoff_dropout.cu)
+// the offset is the int32 at dyn_offset on the device, not `offset`, and
+// the call is not causal: the window, needed without ALiBi, is its left
+// edge alone (c >= r + offset - window + 1); every option and dtype
+// beside it. D, the head dim,
 // is a multiple of 16 up to 256; it runs in the tile of 64, 128 or 256
 // columns that holds it (common.cuh head_tile). bf16 runs the wgmma kernel
 // (q tiles of 64 rows in the 64 tile, 128 in the 128 and 256 tiles),
@@ -1090,7 +1104,7 @@ int fwd_launch_impl(const void* q, const void* k, const void* v, void* o, void* 
       window < 0 || (window > 0 && !is_causal && !kDyn) || seg != (seg_k != nullptr) ||
       seg != (ranges_q != nullptr) || seg != (ranges_k != nullptr) || cap_log2 < 0.f ||
       (slopes != nullptr && cap) ||
-      (kDyn && (is_causal || dyn_offset == nullptr || dtype != fat::kBF16 || tile > 128)))
+      (kDyn && (is_causal || dyn_offset == nullptr || (window == 0 && slopes == nullptr))))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
@@ -1105,23 +1119,22 @@ int fwd_launch_impl(const void* q, const void* k, const void* v, void* o, void* 
                                                   ranges_q, ranges_k, slopes, B, Hq, Hkv, Sq,
                                                   Sk, D, is_causal, offset, window, scale_log2,
                                                   cap_log2, drop, dyn_offset, s);
-  if constexpr (!kDyn) {
-    if (dtype == fat::kBF16 && tile == 256)
-      err = launch_bf16_any<256, 2, kDropout, false>(win, seg, cap, q, k, v, o, lse, seg_q,
-                                                     seg_k, ranges_q, ranges_k, slopes, B, Hq,
-                                                     Hkv, Sq, Sk, D, is_causal, offset, window,
-                                                     scale_log2, cap_log2, drop, nullptr, s);
-    else if (dtype == fat::kF32 && tile == 64)
-      err = launch_f32<64, kDropout>(q, k, v, o, lse, seg_q, seg_k, slopes, B, Hq, Hkv, Sq, Sk,
-                                     D, is_causal, offset, window, scale_log2, cap_log2, drop, s);
-    else if (dtype == fat::kF32 && tile == 128)
-      err = launch_f32<128, kDropout>(q, k, v, o, lse, seg_q, seg_k, slopes, B, Hq, Hkv, Sq, Sk,
-                                      D, is_causal, offset, window, scale_log2, cap_log2, drop,
-                                      s);
-    else if (dtype == fat::kF32 && tile == 256)
-      err = launch_f32<256, kDropout>(q, k, v, o, lse, seg_q, seg_k, slopes, B, Hq, Hkv, Sq, Sk,
-                                      D, is_causal, offset, window, scale_log2, cap_log2, drop,
-                                      s);
-  }
+  else if (dtype == fat::kBF16 && tile == 256)
+    err = launch_bf16_any<256, 2, kDropout, kDyn>(win, seg, cap, q, k, v, o, lse, seg_q, seg_k,
+                                                  ranges_q, ranges_k, slopes, B, Hq, Hkv, Sq,
+                                                  Sk, D, is_causal, offset, window, scale_log2,
+                                                  cap_log2, drop, dyn_offset, s);
+  else if (dtype == fat::kF32 && tile == 64)
+    err = launch_f32<64, kDropout, kDyn>(q, k, v, o, lse, seg_q, seg_k, slopes, B, Hq, Hkv, Sq,
+                                         Sk, D, is_causal, offset, window, scale_log2, cap_log2,
+                                         drop, dyn_offset, s);
+  else if (dtype == fat::kF32 && tile == 128)
+    err = launch_f32<128, kDropout, kDyn>(q, k, v, o, lse, seg_q, seg_k, slopes, B, Hq, Hkv, Sq,
+                                          Sk, D, is_causal, offset, window, scale_log2, cap_log2,
+                                          drop, dyn_offset, s);
+  else if (dtype == fat::kF32 && tile == 256)
+    err = launch_f32<256, kDropout, kDyn>(q, k, v, o, lse, seg_q, seg_k, slopes, B, Hq, Hkv, Sq,
+                                          Sk, D, is_causal, offset, window, scale_log2, cap_log2,
+                                          drop, dyn_offset, s);
   return static_cast<int>(err);
 }

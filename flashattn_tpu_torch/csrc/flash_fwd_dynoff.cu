@@ -1,10 +1,12 @@
 // K1 with the q/k alignment read from the card (csrc/flash_fwd.cuh holds
-// the kernels and their design): the library of the kDyn instantiations,
-// the bf16 kernel at D 64 and 128 with the window's left edge, ALiBi or
-// both, each with and without segment ids. Replaces, with flash_fwd.cu, the
-// TPU kernel flashattn_tpu/ops/flash_fwd.py::_fwd_kernel with its
-// dyn_pos_offset (flash_fwd.py:510-515, :617-622): the zigzag ring's
-// always-visible chunk pair, whose offset depends on the rank and the hop.
+// the kernels and their design): the library of the kDyn instantiations
+// without dropout, the bf16 kernel at D 64, 128 and 256 with the window's
+// left edge, ALiBi, both, or the window with the soft-cap, each with and
+// without segment ids, and the float32 kernel's. Replaces, with
+// flash_fwd.cu, the TPU kernel flashattn_tpu/ops/flash_fwd.py::_fwd_kernel
+// with its dyn_pos_offset (flash_fwd.py:510-515, :617-622): the zigzag
+// ring's always-visible chunk pair, whose offset depends on the rank and
+// the hop. flash_fwd_dynoff_dropout.cu builds the same kinds with dropout.
 #include "flash_fwd.cuh"
 
 // fwd_launch_impl<false, true>'s contract (flash_fwd.cuh); `offset` is not

@@ -45,10 +45,12 @@ ENTRY_POINTS.update({f"{name}_dropout": {fn: args[:-1] + [_P, _U, _F, _P]
                                          for fn, args in ENTRY_POINTS[name].items()}
                      for name in ("flash_fwd", "flash_bwd", "flash_bwd_fused")})
 # The libraries of the offset read on the card take a pointer to it before the
-# stream (ops/flash_fwd.py::device_offset).
-ENTRY_POINTS.update({f"{name}_dynoff": {fn: args[:-1] + [_P, _P]
-                                        for fn, args in ENTRY_POINTS[name].items()}
-                     for name in ("flash_fwd", "flash_bwd", "flash_bwd_fused")})
+# stream (ops/flash_fwd.py::device_offset), those with dropout too after the
+# dropout's arguments.
+ENTRY_POINTS.update({f"{name}_dynoff{drop}": {fn: args[:-1] + [_P, _P]
+                                              for fn, args in ENTRY_POINTS[name + drop].items()}
+                     for name in ("flash_fwd", "flash_bwd", "flash_bwd_fused")
+                     for drop in ("", "_dropout")})
 
 _loaded: dict[str, ctypes.CDLL] = {}
 # Seconds spent compiling per library in this process (0.0 when loaded from

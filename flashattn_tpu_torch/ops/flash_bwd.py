@@ -25,9 +25,11 @@ ALiBi they rebuild P from the biased logits, the bias formed as K1 forms
 it, and dS keeps its formula (the bias has no gradient). ALiBi's kernels
 are libraries of their own (csrc/flash_bwd_alibi.cu,
 csrc/flash_bwd_fused_alibi.cu). So are those of the forward's
-``dyn_pos_offset`` (csrc/flash_bwd_dynoff.cu, csrc/flash_bwd_fused_dynoff.cu:
-the offset read on the card, the window's left edge and the ALiBi distance
-at it, ops/flash_fwd.py), with the forward's combinations.
+``dyn_pos_offset`` (csrc/flash_bwd_dynoff.cu, csrc/flash_bwd_fused_dynoff.cu
+and, with dropout, csrc/flash_bwd_dynoff_dropout.cu,
+csrc/flash_bwd_fused_dynoff_dropout.cu: the offset read on the card, the
+window's left edge and the ALiBi distance at it, ops/flash_fwd.py), with
+every combination the forward takes (flash_fwd.kernel_library).
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ from flashattn_tpu_torch.ops.flash_fwd import (
     check_window,
     dyn_library,
     extra_args,
+    kernel_library,
     kernel_segments,
     plain_offset,
 )
@@ -198,15 +201,6 @@ def flash_attention_backward(
     return dq, dk, dv
 
 
-def _library(slopes, rate: float, dyn: bool) -> str:
-    """The split kernels' library: dropout's instantiations (with ALiBi or
-    without) are one of their own (csrc/flash_bwd_dropout.cu), and so are
-    those of the offset on the card (csrc/flash_bwd_dynoff.cu) and ALiBi's
-    without either (csrc/flash_bwd_alibi.cu)."""
-    return ("flash_bwd_dropout" if rate else "flash_bwd_dynoff" if dyn
-            else "flash_bwd" if slopes is None else "flash_bwd_alibi")
-
-
 def flash_bwd_dq(q, k, v, o, do, lse, is_causal=False, scale=None, pos_offset=None,
                  window=None, segment_ids=None, logit_softcap=None, alibi=False,
                  alibi_slopes=None, dropout_rate=0.0, dropout_seed=None, dyn_pos_offset=None):
@@ -219,11 +213,11 @@ def flash_bwd_dq(q, k, v, o, do, lse, is_causal=False, scale=None, pos_offset=No
     require_cuda(q)
     segs = kernel_segments(segment_ids)
     slopes = alibi_table(alibi, alibi_slopes, q.shape[1], q.device, logit_softcap)
-    dyn = dyn_library(dyn_pos_offset, window, slopes, logit_softcap, dropout_rate, q)
+    dyn = dyn_library(dyn_pos_offset, window, slopes)
     dq = torch.empty_like(q)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     held, extra = extra_args(q, dropout_rate, dropout_seed, dyn, dyn_pos_offset)
-    lib = _build.load(_library(slopes, dropout_rate, dyn))
+    lib = _build.load(kernel_library("flash_bwd", dropout_rate, dyn, slopes is not None))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_bwd_dq_launch(
@@ -232,7 +226,7 @@ def flash_bwd_dq(q, k, v, o, do, lse, is_causal=False, scale=None, pos_offset=No
             *launch_args(q, k, is_causal, scale, pos_offset, window, segs, logit_softcap,
                          slopes),
             *extra, stream)
-    del held  # the seed or the offset, kept on the card until the launch
+    del held  # the seed and the offset, kept on the card until the launch
     _build.check(lib, rc, "flash_bwd_dq")
     global DQ_LAUNCHES, DQ_WINDOW_LAUNCHES, DQ_SEGMENT_LAUNCHES, DQ_SOFTCAP_LAUNCHES
     global DQ_ALIBI_LAUNCHES, DQ_DROPOUT_LAUNCHES, DQ_DYNOFF_LAUNCHES
@@ -256,11 +250,11 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, is_causal=False, scale=None, pos_offs
     require_cuda(q)
     segs = kernel_segments(segment_ids)
     slopes = alibi_table(alibi, alibi_slopes, q.shape[1], q.device, logit_softcap)
-    dyn = dyn_library(dyn_pos_offset, window, slopes, logit_softcap, dropout_rate, q)
+    dyn = dyn_library(dyn_pos_offset, window, slopes)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     held, extra = extra_args(q, dropout_rate, dropout_seed, dyn, dyn_pos_offset)
-    lib = _build.load(_library(slopes, dropout_rate, dyn))
+    lib = _build.load(kernel_library("flash_bwd", dropout_rate, dyn, slopes is not None))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_bwd_dkv_launch(

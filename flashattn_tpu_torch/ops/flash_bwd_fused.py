@@ -18,7 +18,9 @@ ALIBI_LAUNCHES. Dropout (the forward's rate and seed: the kernel rebuilds
 its keep mask) runs the instantiations of csrc/flash_bwd_fused_dropout.cu,
 every option beside it, and counts in DROPOUT_LAUNCHES; the forward's
 dyn_pos_offset with a window or ALiBi those of
-csrc/flash_bwd_fused_dynoff.cu, counted in DYNOFF_LAUNCHES.
+csrc/flash_bwd_fused_dynoff.cu (with dropout,
+csrc/flash_bwd_fused_dynoff_dropout.cu), every option beside it, counted in
+DYNOFF_LAUNCHES.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from flashattn_tpu_torch.ops.flash_fwd import (
     check_qkv,
     dyn_library,
     extra_args,
+    kernel_library,
     kernel_segments,
     logit_factors,
     pointers,
@@ -126,23 +129,21 @@ def flash_attention_backward_fused(
     require_cuda(q)
     segs = kernel_segments(segment_ids)
     slopes = alibi_table(alibi, alibi_slopes, q.shape[1], q.device, logit_softcap)
-    dyn = dyn_library(dyn_pos_offset, window, slopes, logit_softcap, dropout_rate, q)
+    dyn = dyn_library(dyn_pos_offset, window, slopes)
     args = launch_args(q, k, is_causal, scale, pos_offset, window, segs, logit_softcap, slopes)
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     held, extra = extra_args(q, dropout_rate, dropout_seed, dyn, dyn_pos_offset)
-    lib = _build.load("flash_bwd_fused_dropout" if dropout_rate
-                      else "flash_bwd_fused_dynoff" if dyn
-                      else "flash_bwd_fused" if slopes is None else "flash_bwd_fused_alibi")
+    lib = _build.load(kernel_library("flash_bwd_fused", dropout_rate, dyn, slopes is not None))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_bwd_fused_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             delta.data_ptr(), *args, *extra, stream)
-    del held  # the seed or the offset, kept on the card until the launch
+    del held  # the seed and the offset, kept on the card until the launch
     _build.check(lib, rc, "flash_bwd_fused")
     global LAUNCHES, WINDOW_LAUNCHES, SEGMENT_LAUNCHES, SOFTCAP_LAUNCHES, ALIBI_LAUNCHES
     global DROPOUT_LAUNCHES, DYNOFF_LAUNCHES

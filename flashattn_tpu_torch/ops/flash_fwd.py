@@ -27,12 +27,11 @@ a CUDA tensor by pointer, an int or a CPU tensor written into a one-element
 card tensor by a fill kernel (``device_offset``), so one launch shape serves
 every rank and hop. The call is not causal; only the window's left edge,
 c >= r + offset - window + 1, and the ALiBi distance c - r - offset read
-it. Its kernels are a library of their own (csrc/flash_fwd_dynoff.cu: a
-window, ALiBi or both, with or without segment ids, bf16 in the 64 and 128
-tiles: D 32 to 128); with neither a window nor ALiBi the offset changes
-nothing and the call runs the library without it. With the soft-cap,
-dropout, D 256 or float32 it raises on the card (ROADMAP A9 and B1); the
-plain version takes them.
+it. Its kernels are libraries of their own (csrc/flash_fwd_dynoff.cu: a
+window, ALiBi or both, or the window with the soft-cap, with or without
+segment ids, bf16 at every head dim and float32; csrc/flash_fwd_dynoff_dropout.cu:
+the same with dropout); with neither a window nor ALiBi the offset changes
+nothing and the call runs the libraries without it (``kernel_library``).
 """
 
 from __future__ import annotations
@@ -50,7 +49,6 @@ from flashattn_tpu_torch.ops.common import (
     check_softcap,
     dropout_scale,
     dropout_threshold,
-    unported,
 )
 from flashattn_tpu_torch.ops.reference import reference_attention_with_lse
 
@@ -200,21 +198,23 @@ def plain_offset(pos_offset, dyn_pos_offset, is_causal: bool):
                else dyn_pos_offset)
 
 
-def dyn_library(dyn_pos_offset, window, slopes, cap, rate: float, q) -> bool:
+def dyn_library(dyn_pos_offset, window, slopes) -> bool:
     """Whether a checked card call runs the kernels that read the offset on
     the card: a dyn_pos_offset with a window or ALiBi (without either the
-    offset changes nothing). Raises NotImplementedError (ROADMAP A9) for
-    the combinations those kernels leave out: the soft-cap, dropout, the
-    256 tile (head dims past 128) and float32."""
-    if dyn_pos_offset is None or (window is None and slopes is None):
-        return False
-    for left_out, what in ((cap is not None, "the logit soft-cap"),
-                           (rate > 0, "dropout"),
-                           (head_tile(q.shape[-1]) > 128, f"head_dim {q.shape[-1]}"),
-                           (q.dtype != torch.bfloat16, str(q.dtype))):
-        if left_out:
-            raise unported(f"dyn_pos_offset with {what} on the card", "A9")
-    return True
+    offset changes nothing), whatever else the call takes (the soft-cap,
+    dropout, segment ids, any head dim, bf16 or float32)."""
+    return dyn_pos_offset is not None and (window is not None or slopes is not None)
+
+
+def kernel_library(family: str, rate: float, dyn: bool, alibi: bool = False) -> str:
+    """The library (csrc/<name>.cu) of a card call of a kernel family
+    ("flash_fwd", "flash_bwd" or "flash_bwd_fused"): "_dynoff" for the
+    offset read on the card (dyn_library), then "_dropout" for a rate above
+    0; else, for ALiBi where the family builds it apart (`alibi`: the
+    backward's), "_alibi"."""
+    if dyn or rate:
+        return family + ("_dynoff" if dyn else "") + ("_dropout" if rate else "")
+    return family + ("_alibi" if alibi else "")
 
 
 def check_segments(segment_ids, q, k) -> tuple[torch.Tensor, torch.Tensor] | None:
@@ -290,17 +290,18 @@ def dropout_args(rate: float, seed: torch.Tensor) -> tuple:
 
 
 def extra_args(q, rate: float, dropout_seed, dyn: bool, dyn_pos_offset) -> tuple:
-    """(the tensor to hold until the launch, the arguments a dropout or
+    """(the tensors to hold until the launch, the arguments a dropout or
     card-offset library takes before the stream): dropout's (dropout_args)
-    for a rate above 0, else the offset's pointer (device_offset) for a
-    dyn_library call, else none."""
+    for a rate above 0, then the offset's pointer (device_offset) for a
+    dyn_library call."""
+    held, args = [], ()
     if rate:
-        seed = device_seed(dropout_seed, q.device)
-        return seed, dropout_args(rate, seed)
+        held.append(device_seed(dropout_seed, q.device))
+        args += dropout_args(rate, held[-1])
     if dyn:
-        off = device_offset(dyn_pos_offset, q.device)
-        return off, (off.data_ptr(),)
-    return None, ()
+        held.append(device_offset(dyn_pos_offset, q.device))
+        args += (held[-1].data_ptr(),)
+    return held, args
 
 
 def pointers(*tensors) -> tuple:
@@ -419,7 +420,7 @@ def flash_attention_forward(
     hkv, s_k = k.shape[1], k.shape[2]
     check_kernel_operands(q=q, k=k, v=v)
     slopes = alibi_table(alibi, alibi_slopes, hq, q.device, cap)
-    dyn = dyn_library(dyn_pos_offset, window, slopes, cap, rate, q)
+    dyn = dyn_library(dyn_pos_offset, window, slopes)
     if scale is None:
         scale = 1.0 / d**0.5
     offset = 0 if dyn_pos_offset is not None else (
@@ -431,8 +432,7 @@ def flash_attention_forward(
     segs = kernel_segments(segment_ids)
     pre, cap_log2 = logit_factors(scale, cap)
     held, extra = extra_args(q, rate, dropout_seed, dyn, dyn_pos_offset)
-    lib = _build.load("flash_fwd_dynoff" if dyn else "flash_fwd_dropout" if rate
-                      else "flash_fwd")
+    lib = _build.load(kernel_library("flash_fwd", rate, dyn))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_fwd_launch(
@@ -440,7 +440,7 @@ def flash_attention_forward(
             lse.data_ptr() if need_lse else None, *pointers(*segs, slopes),
             b, hq, hkv, s_q, s_k, d, DTYPE_CODES[q.dtype], int(is_causal),
             offset, min(window or 0, WINDOW_MAX), pre, cap_log2, *extra, stream)
-    del held  # the seed or the offset, kept on the card until the launch
+    del held  # the seed and the offset, kept on the card until the launch
     _build.check(lib, rc, "flash_fwd")
     global LAUNCHES, WINDOW_LAUNCHES, SEGMENT_LAUNCHES, SOFTCAP_LAUNCHES, ALIBI_LAUNCHES
     global ALIBI_SEGMENT_LAUNCHES, DROPOUT_LAUNCHES, DYNOFF_LAUNCHES

@@ -215,13 +215,14 @@ def reference_attention_backward(
     the logit also takes alibi_bias, as reference_attention_with_lse adds
     it; the bias has no gradient, so dS, dQ, dK and dV keep their formulas.
     With dropout (dropout_rate > 0) the forward's keep mask M is rebuilt
-    (dropout_keep) and c = dropout_scale(rate): dV = (c M*P)^T.dO, dP
+    (dropout_keep) and c = dropout_scale(rate): dV = c (M*P)^T.dO, dP
     becomes c M*dP, and dS = P*(c M*dP - delta) with the clean P; delta
     comes from the dropped O; dropout_row0 as the forward takes it (on a
-    slice of q's rows, dQ is those rows' and dK, dV their share). P and dS
-    are rounded to the input dtype before the products that consume them,
-    as the kernels feed their matrix units. A row whose LSE is -inf (it
-    sees no key) contributes exactly 0.
+    slice of q's rows, dQ is those rows' and dK, dV their share). P (M*P
+    with dropout, c applied after the product) and dS are rounded to the
+    input dtype before the products that consume them, as the kernels feed
+    their matrix units. A row whose LSE is -inf (it sees no key)
+    contributes exactly 0.
 
     Returns (dQ in q.dtype, dK and dV in k.dtype), shaped like q, k, v.
     """
@@ -266,13 +267,14 @@ def reference_attention_backward(
             ds = ds * ((1.0 - t) * (1.0 + t))
             del t
         if dropout_rate:
-            p = torch.where(keep, p * c, 0.0)  # dV sees the dropped P
+            p = torch.where(keep, p, 0.0)  # dV sees the dropped P; c after the product
             del keep
         p = p.to(q.dtype).float()
         ds = ds.to(q.dtype).float()
         dqs.append((torch.matmul(ds, kf) * scale).to(q.dtype))
         dks.append((torch.matmul(ds.transpose(-1, -2), qf) * scale).sum(dim=1, keepdim=True))
-        dvs.append(torch.matmul(p.transpose(-1, -2), dof).sum(dim=1, keepdim=True))
+        dv = torch.matmul(p.transpose(-1, -2), dof).sum(dim=1, keepdim=True)
+        dvs.append(dv * c if dropout_rate else dv)
         del p, ds
     return (torch.cat(dqs, dim=1), torch.cat(dks, dim=1).to(k.dtype),
             torch.cat(dvs, dim=1).to(k.dtype))

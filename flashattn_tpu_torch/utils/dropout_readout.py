@@ -21,7 +21,10 @@ element and one for a dropped one:
 The forward's O and LSE of the backward calls come from the plain forward,
 so each readout sees one kernel alone. Each function returns the mask it
 read, [B, Hq, S_q, S_k] bool, from CUDA calls (any device works: on the
-CPU the wrappers take their plain versions).
+CPU the wrappers take their plain versions). `opts`, the calls' other
+options, may make P other than uniform while every pair stays visible (a
+dyn_pos_offset with a window that reaches every key, ALiBi): a kept
+element's output keeps its sign, and a dropped one's stays 0 or negative.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ def _chunk(n: int, d: int, at: int, dtype, device) -> torch.Tensor:
     return x
 
 
-def forward_mask(b, hq, hkv, s_q, s_k, d, dtype, rate, seed, device) -> torch.Tensor:
+def forward_mask(b, hq, hkv, s_q, s_k, d, dtype, rate, seed, device, **opts) -> torch.Tensor:
     """K1's mask, S_k / D calls (S_k a multiple of D)."""
     q = torch.zeros((b, hq, s_q, d), dtype=dtype, device=device)
     k = torch.zeros((b, hkv, s_k, d), dtype=dtype, device=device)
@@ -53,18 +56,18 @@ def forward_mask(b, hq, hkv, s_q, s_k, d, dtype, rate, seed, device) -> torch.Te
     for c0 in range(0, s_k, d):
         v = _chunk(s_k, d, c0, dtype, device).expand(b, hkv, s_k, d).contiguous()
         o, _ = flash_fwd.flash_attention_forward(q, k, v, need_lse=False, dropout_rate=rate,
-                                                 dropout_seed=seed)
+                                                 dropout_seed=seed, **opts)
         keep[..., c0:c0 + d] = o != 0
     return keep
 
 
-def _plain_o_lse(q, k, v, rate, seed):
+def _plain_o_lse(q, k, v, rate, seed, opts):
     o, lse = flash_fwd.flash_attention_forward_reference(q, k, v, dropout_rate=rate,
-                                                         dropout_seed=seed)
+                                                         dropout_seed=seed, **opts)
     return o.contiguous(), lse.contiguous()
 
 
-def dq_mask(b, hq, hkv, s_q, s_k, d, dtype, rate, seed, device) -> torch.Tensor:
+def dq_mask(b, hq, hkv, s_q, s_k, d, dtype, rate, seed, device, **opts) -> torch.Tensor:
     """B4's mask (the split path's dQ kernel), S_k / D calls of the split
     backward."""
     q = torch.zeros((b, hq, s_q, d), dtype=dtype, device=device)
@@ -75,28 +78,31 @@ def dq_mask(b, hq, hkv, s_q, s_k, d, dtype, rate, seed, device) -> torch.Tensor:
     keep = torch.empty((b, hq, s_q, s_k), dtype=torch.bool, device=device)
     for c0 in range(0, s_k, d):
         k = _chunk(s_k, d, c0, dtype, device).expand(b, hkv, s_k, d).contiguous()
-        o, lse = _plain_o_lse(q, k, v, rate, seed)
+        o, lse = _plain_o_lse(q, k, v, rate, seed, opts)
         dq, _, _ = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, impl="split",
-                                                      dropout_rate=rate, dropout_seed=seed)
+                                                      dropout_rate=rate, dropout_seed=seed,
+                                                      **opts)
         keep[..., c0:c0 + d] = dq > 0
     return keep
 
 
-def dv_mask(b, hq, hkv, s_q, s_k, d, dtype, rate, seed, device, impl: str) -> torch.Tensor:
+def dv_mask(b, hq, hkv, s_q, s_k, d, dtype, rate, seed, device, impl: str,
+            **opts) -> torch.Tensor:
     """B3's (impl "fused") or B5's (impl "split") mask from dV,
     Hq / Hkv x S_q / D calls (S_q a multiple of D)."""
     group = hq // hkv
     q = torch.zeros((b, hq, s_q, d), dtype=dtype, device=device)
     k = torch.zeros((b, hkv, s_k, d), dtype=dtype, device=device)
     v = torch.zeros((b, hkv, s_k, d), dtype=dtype, device=device)
-    o, lse = _plain_o_lse(q, k, v, rate, seed)
+    o, lse = _plain_o_lse(q, k, v, rate, seed, opts)
     keep = torch.empty((b, hq, s_q, s_k), dtype=torch.bool, device=device)
     for g in range(group):
         for r0 in range(0, s_q, d):
             do = torch.zeros((b, hq, s_q, d), dtype=dtype, device=device)
             do[:, g::group] = _chunk(s_q, d, r0, dtype, device)
             _, _, dv = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, impl=impl,
-                                                          dropout_rate=rate, dropout_seed=seed)
+                                                          dropout_rate=rate, dropout_seed=seed,
+                                                          **opts)
             # dv [B, Hkv, S_k, D]: column d is row r0 + d of q head hkv * group + g.
             keep[:, g::group, r0:r0 + d] = (dv != 0).transpose(-1, -2)
     return keep

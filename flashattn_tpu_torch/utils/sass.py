@@ -8,8 +8,8 @@ in OLD_CHECKOUT (another checkout of the repo, such as a `git archive` of
 the parent commit), and prints for each library how many of the old
 build's kernels compiled to the same instructions here (instruction text,
 addresses and encodings left out). A kernel here whose template arguments
-end in one more `false` (a flag added since, off) is matched with the old
-kernel without it; a kernel that differs is marked where it holds the same
+end in more `false`s (flags added since, off) is matched with the old
+kernel without them; a kernel that differs is marked where it holds the same
 opcodes as often (its instructions only reordered or given other
 registers). `--show KERNEL` (a label as kernel_label gives it, in the old
 build's form) prints that kernel's differing instructions. Needs the CUDA
@@ -93,11 +93,11 @@ def tensor_core_counts(sass: str) -> dict[str, dict[str, int]]:
 
 
 def old_form(label: str, old: dict) -> str:
-    """The old build's label of a kernel here: the same, or without a last
-    `false` template argument."""
-    if label in old:
-        return label
-    return re.sub(r", false>$", ">", label)
+    """The old build's label of a kernel here: the same, or without its
+    last `false` template arguments, as many as the old build lacks."""
+    while label not in old and label.endswith(", false>"):
+        label = label[:-len(", false>")] + ">"
+    return label
 
 
 def opcodes(instructions: list[str]) -> list[str]:

@@ -2578,7 +2578,9 @@ def test_libraries_without_dropout_hold_no_dropout_kernel(dev):
     the others: the ptxas report's entry functions. The libraries of the
     offset read on the card (flash_fwd_dynoff, flash_bwd_dynoff,
     flash_bwd_fused_dynoff) hold its instantiations alone (their kDyn flag
-    true, dropout's false), and no other library holds one."""
+    true, dropout's false), those of the offset with dropout
+    (flash_fwd_dynoff_dropout, ...) both flags true, and no other library
+    holds one."""
     from flashattn_tpu_torch.ops import _build
     from flashattn_tpu_torch.utils import sass
 
@@ -2586,9 +2588,10 @@ def test_libraries_without_dropout_hold_no_dropout_kernel(dev):
         """{dropout flag + 2 x offset flag: kernel names} of the library's
         kernels, from each kernel's name and template arguments (K1's bf16
         kernel: dropout the 7th; its kernel of the offset read on the
-        card, `flash_fwd_dyn_wgmma_kernel`: no dropout; the backward's bf16
-        kernels: dropout the 5th, the offset the 6th; the float32 kernels:
-        dropout the last, no offset), the delta pre-pass left out."""
+        card, `flash_fwd_dyn_wgmma_kernel`: dropout the 7th; the backward's
+        bf16 kernels: dropout the 5th, the offset the 6th; the float32
+        kernels: dropout the next to last, the offset the last), the delta
+        pre-pass left out."""
         _build.load(lib)
         log = _build.library_path(lib).with_suffix(".log").read_text()
         got = {}
@@ -2600,11 +2603,11 @@ def test_libraries_without_dropout_hold_no_dropout_kernel(dev):
             if kernel == "flash_fwd_wgmma_kernel":
                 drop, dyn = args[6], "false"
             elif kernel == "flash_fwd_dyn_wgmma_kernel":
-                drop, dyn = "false", "true"
+                drop, dyn = args[6], "true"
             elif kernel.endswith("mma_kernel"):
                 drop, dyn = args[4], args[5]
             else:
-                drop, dyn = args[-1], "false"
+                drop, dyn = args[-2], args[-1]
             got.setdefault((drop == "true") + 2 * (dyn == "true"), []).append(kernel)
         return got
 
@@ -2616,12 +2619,15 @@ def test_libraries_without_dropout_hold_no_dropout_kernel(dev):
                    ("flash_bwd_fused_dropout", 30)):
         got = flags(lib)
         assert set(got) == {1} and len(got[1]) == n, (lib, got)
-    # 2 D x (window, ALiBi, both) x (segment ids or not); the backward's:
-    # 2 D x 5 mask kinds (flash_bwd_split.cuh launch_dq) a kernel
-    for lib, n in (("flash_fwd_dynoff", 12), ("flash_bwd_dynoff", 20),
-                   ("flash_bwd_fused_dynoff", 10)):
-        got = flags(lib)
-        assert set(got) == {2} and len(got[2]) == n, (lib, got)
+    # K1: 3 D x (window, ALiBi, both, the window with the cap) x (segment ids
+    # or not), and the float32 kernel at 3 D; the backward's: 3 D x 7 kinds
+    # (ALiBi's 3 masks, the window or segment ids with and without the cap;
+    # flash_bwd_split.cuh launch_dq) a kernel and the float32 kernel's 3 D
+    for drop, flag in (("", 2), ("_dropout", 3)):
+        for lib, n in (("flash_fwd_dynoff", 27), ("flash_bwd_dynoff", 48),
+                       ("flash_bwd_fused_dynoff", 24)):
+            got = flags(lib + drop)
+            assert set(got) == {flag} and len(got[flag]) == n, (lib + drop, got)
 
 
 # ---- dyn_pos_offset: the q/k alignment read on the card (the zigzag ring's) ----
@@ -2639,10 +2645,16 @@ DYN_CASES = {
 }
 
 
-def dyn_inputs(case, dev, seed=90):
-    hq, hkv, s_q, s_k, d, off, window, alibi, docs = DYN_CASES[case]
-    q, do = (randn((1, hq, s_q, d), torch.bfloat16, dev, seed + i) for i in (0, 3))
-    k, v = (randn((1, hkv, s_k, d), torch.bfloat16, dev, seed + i) for i in (1, 2))
+def dyn_inputs(case, dev, seed=90, cases=None):
+    """(q, k, v, dO), the offset and the options of a case of DYN_CASES, or
+    of DYN_VARIANT_CASES (`cases`: its dtype first, its other options last)."""
+    if cases is None:
+        dtype, (hq, hkv, s_q, s_k, d, off, window, alibi, docs), more = \
+            torch.bfloat16, DYN_CASES[case], {}
+    else:
+        dtype, hq, hkv, s_q, s_k, d, off, window, alibi, docs, more = cases[case]
+    q, do = (randn((1, hq, s_q, d), dtype, dev, seed + i) for i in (0, 3))
+    k, v = (randn((1, hkv, s_k, d), dtype, dev, seed + i) for i in (1, 2))
     segs = None
     if docs is not None:
         from flashattn_tpu_torch.ops.varlen import canonical_segments
@@ -2655,7 +2667,7 @@ def dyn_inputs(case, dev, seed=90):
                 at += n
             ids.append(row.to(dev))
         segs = canonical_segments(*ids, dev)
-    return (q, k, v, do), off, dict(window=window, alibi=alibi, segment_ids=segs)
+    return (q, k, v, do), off, dict(window=window, alibi=alibi, segment_ids=segs, **more)
 
 
 def dyn_launches() -> dict[str, int]:
@@ -2729,18 +2741,112 @@ def test_dyn_offset_split_is_bitwise_deterministic(dev):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-@pytest.mark.parametrize("left_out", ["softcap", "dropout", "d256", "float32"])
-def test_dyn_offset_left_out_raise_naming_a9(dev, left_out):
-    d = 256 if left_out == "d256" else 64
-    dtype = torch.float32 if left_out == "float32" else torch.bfloat16
-    q = randn((1, 2, 64, d), dtype, dev, 0)
-    kw = dict(window=32)
-    if left_out == "softcap":
-        kw["logit_softcap"] = 30.0
-    if left_out == "dropout":
-        kw.update(dropout_rate=0.1, dropout_seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        flash_fwd.flash_attention_forward(q, q, q, False, dyn_pos_offset=64, **kw)
+DYN_DROP = dict(dropout_rate=0.2, dropout_seed=1234)
+DYN_VARIANT_CASES = {
+    # name: (dtype, Hq, Hkv, S_q, S_k, D, offset, window, alibi, documents,
+    # the call's other options): every option the JAX kernels take with the
+    # offset, beside the window, ALiBi and segment ids
+    "d256_window_softcap": (torch.bfloat16, 4, 2, 256, 320, 256, 300, 250, False, None,
+                            dict(logit_softcap=30.0)),
+    "d64_window_softcap_segments": (torch.bfloat16, 4, 1, 256, 256, 64, 300, 200, False,
+                                    ((100, 130), (60, 170)), dict(logit_softcap=30.0)),
+    # rows r >= 136 see no key: their window's left edge r + 120 is past S_k
+    "d128_window_softcap_past_keys": (torch.bfloat16, 4, 2, 256, 256, 128, 319, 200, False,
+                                      None, dict(logit_softcap=50.0)),
+    "d128_window_dropout": (torch.bfloat16, 8, 2, 384, 384, 128, 1152, 1000, False, None,
+                            DYN_DROP),
+    "d64_alibi_segments_dropout": (torch.bfloat16, 4, 1, 256, 256, 64, 300, None, True,
+                                   ((100, 130), (60, 170)), DYN_DROP),
+    "d256_window_alibi_dropout": (torch.bfloat16, 4, 2, 256, 256, 256, 300, 200, True, None,
+                                  DYN_DROP),
+    "d256_window_softcap_dropout": (torch.bfloat16, 4, 2, 256, 256, 256, 300, 250, False, None,
+                                    dict(logit_softcap=30.0, **DYN_DROP)),
+    "f32_d64_window": (torch.float32, 4, 2, 256, 256, 64, 768, 600, False, None, {}),
+    "f32_d128_alibi_segments": (torch.float32, 4, 4, 256, 256, 128, 512, None, True,
+                                ((200,), (256,)), {}),
+    "f32_d256_window_softcap": (torch.float32, 4, 2, 256, 256, 256, 300, 250, False, None,
+                                dict(logit_softcap=30.0)),
+    "f32_d64_window_alibi_dropout": (torch.float32, 4, 2, 256, 256, 64, 300, 200, True, None,
+                                     DYN_DROP),
+}
+
+
+@pytest.mark.parametrize("impl", ["fused", "split"])
+@pytest.mark.parametrize("case", sorted(DYN_VARIANT_CASES))
+def test_dyn_offset_variants_match_plain(dev, case, impl):
+    """K1, then B3 (fused) or B4 + B5 (split) with the offset read on the
+    card and the soft-cap, dropout, D 256 or float32, against their plain
+    versions (the same keep mask) under the dtype's gates: each launch a
+    launch of the card-offset kernels (and of dropout's with dropout);
+    rows whose window lies past every key get O = 0, LSE = -inf, dQ = 0."""
+    (q, k, v, do), off, kw = dyn_inputs(case, dev, cases=DYN_VARIANT_CASES)
+    dtype = q.dtype
+    dyn = torch.tensor([off], dtype=torch.int32, device=dev)
+    before = launch_counters.read()
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, False, dyn_pos_offset=dyn, **kw)
+    out = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, False, impl=impl,
+                                             dyn_pos_offset=dyn, **kw)
+    torch.cuda.synchronize()
+    after = launch_counters.read()
+    added = {n: after[n] - before[n] for n in dyn_launches()}
+    assert added == {"flash_fwd_dynoff": 1, "flash_bwd_fused_dynoff": int(impl == "fused"),
+                     "flash_bwd_dq_dynoff": int(impl == "split"),
+                     "flash_bwd_dkv_dynoff": int(impl == "split")}
+    rate = kw.get("dropout_rate", 0.0)
+    assert after["flash_fwd_dropout"] - before["flash_fwd_dropout"] == int(rate > 0)
+    o_ref, lse_ref = flash_fwd.flash_attention_forward_reference(q, k, v, False,
+                                                                 dyn_pos_offset=off, **kw)
+    assert verify_results(o_ref, o, **TOL[dtype]).passed
+    assert verify_results(lse_ref, lse, atol=1e-3).passed
+    ref = flash_bwd.flash_attention_backward_reference(q, k, v, o, do, lse, False,
+                                                       dyn_pos_offset=off, **kw)
+    assert_grads_match(ref, out, dtype)
+    dead = torch.isneginf(lse)
+    assert torch.equal(dead, torch.isneginf(lse_ref))
+    assert not bool(o[dead].any()) and not bool(out[0][dead].any())
+    if case.endswith("past_keys"):
+        assert bool(dead[:, :, 136:].all()) and not bool(dead[:, :, :136].any())
+
+
+DYN_READ_CASES = {
+    # name: (dtype, D, rate, seed, options) at B 1, Hq 8, Hkv 2, S_q 128 (256
+    # at D 256), S_k 512, the offset 1,000 on the card: a window whose edge
+    # lies left of every key, ALiBi with slopes 1e-3 (no P underflows), both
+    "bf16_d64_alibi": (torch.bfloat16, 64, 0.5, -7, "alibi"),
+    "bf16_d128_window": (torch.bfloat16, 128, 0.1, 0, "window"),
+    "bf16_d256_window_alibi": (torch.bfloat16, 256, 0.1, 2**31 - 1, "window, alibi"),
+    "f32_d64_window_alibi": (torch.float32, 64, 0.5, 5, "window, alibi"),
+}
+
+
+@pytest.mark.parametrize("kernel", ["k1", "b3", "b4", "b5"])
+@pytest.mark.parametrize("case", sorted(DYN_READ_CASES))
+def test_dyn_offset_dropout_mask_reads_out_bit_for_bit(dev, case, kernel):
+    """Each card-offset kernel's keep mask with dropout, read out of its
+    outputs (utils/dropout_readout.py), equals the plain dropout_keep_mask
+    at every element: the mask hashes the arrays' rows and columns whatever
+    the offset, as the JAX kernels' does."""
+    from flashattn_tpu_torch.utils import dropout_readout as readout
+
+    dtype, d, rate, seed, what = DYN_READ_CASES[case]
+    b, hq, hkv, s_k, off = 1, 8, 2, 512, 1000
+    s_q = 256 if d == 256 else 128
+    opts = dict(dyn_pos_offset=torch.tensor([off], dtype=torch.int32, device=dev))
+    if "window" in what:
+        opts["window"] = off + s_q
+    if "alibi" in what:
+        opts.update(alibi=True, alibi_slopes=torch.full((hq,), 1e-3, device=dev))
+    args = (b, hq, hkv, s_q, s_k, d, dtype, rate, seed, dev)
+    before = dyn_launches()
+    got = {"k1": lambda: readout.forward_mask(*args, **opts),
+           "b4": lambda: readout.dq_mask(*args, **opts),
+           "b3": lambda: readout.dv_mask(*args, impl="fused", **opts),
+           "b5": lambda: readout.dv_mask(*args, impl="split", **opts)}[kernel]()
+    row = {"k1": "flash_fwd_dynoff", "b3": "flash_bwd_fused_dynoff",
+           "b4": "flash_bwd_dq_dynoff", "b5": "flash_bwd_dkv_dynoff"}[kernel]
+    assert dyn_launches()[row] > before[row]
+    want = readout.plain_mask(b, hq, s_q, s_k, rate, seed, dev)
+    assert int((got != want).sum()) == 0
 
 
 # ---- head dims 32, 80 and 96: the true head dim at run time in the 64 and

@@ -6,7 +6,8 @@ function under shard_map on the virtual CPU devices of tests/conftest.py; 4 rank
 tests/test_torch_ring_4ranks.py.
 Causal and not, GQA (Ulysses with fewer kv heads than ranks too), a window
 (the ring's hop pruning at 4 ranks), ALiBi, both (the zigzag's
-dyn_pos_offset path), the soft-cap, segment ids with padding, dropout (the
+dyn_pos_offset path), the soft-cap (with the window too: the zigzag's
+offset with Gemma-2's local-layer options), segment ids with padding, dropout (the
 seeds folded per rank, hop and sub-call: the masks are the JAX package's
 bit for bit).
 
@@ -51,6 +52,10 @@ CASES = {
     "zigzag_dropout_window": ({"sp": 2}, "zigzag", True, 2, 2, 1,
                               dict(dropout_rate=0.3, dropout_seed=-11, window=30), None),
     "zigzag_softcap": ({"sp": 2}, "zigzag", True, 4, 4, 1, dict(logit_softcap=5.0), None),
+    # Gemma-2's local layer: the window's left edge and the soft-cap on the
+    # (hi, lo) pair's offset read on the card
+    "zigzag_window_softcap": ({"sp": 2}, "zigzag", True, 4, 2, 1,
+                              dict(window=24, logit_softcap=5.0), None),
     "ulysses_causal_gqa": ({"sp": 2}, "ulysses", True, 4, 2, 1, {}, None),
     "ulysses_window_alibi": ({"sp": 2}, "ulysses", True, 4, 2, 1,
                              dict(window=20, alibi=True), None),

@@ -1,7 +1,7 @@
 """utils/sass.py on the CPU: kernel labels from mangled names, the
 instructions of a cuobjdump -sass listing by kernel and their tensor-core
 instructions counted, and the comparison of
-two builds (a kernel that gained a last `false` template argument matched
+two builds (a kernel that gained last `false` template arguments matched
 with its old form). cuobjdump itself runs only beside nvcc."""
 
 import pytest
@@ -73,3 +73,16 @@ def test_compare_matches_a_kernel_that_gained_a_false_flag():
     same, differ = sass.compare(old, new)
     assert same == ["k<128, 0>"]
     assert differ == [("k<64, 0>", 1, 2, False), ("m<1>", 2, 2, True), ("n<1>", 1, 1, True)]
+
+
+def test_compare_matches_a_kernel_that_gained_two_false_flags():
+    """K1's kernel of the offset read on the card gained the soft-cap's and
+    dropout's flags last: its instantiations without them match the old
+    kernels; a label that ends in `true` is not stripped."""
+    old = {"d<64, 1, true, false, false>": ["FADD R1, R2, R3", "EXIT"]}
+    new = {"d<64, 1, true, false, false, false, false>": ["FADD R1, R2, R3", "EXIT"],
+           "d<64, 1, true, false, false, true, false>": ["BRA"]}
+    assert sass.old_form("d<64, 1, true, false, false, true, false>", old) == \
+        "d<64, 1, true, false, false, true>"
+    same, differ = sass.compare(old, new)
+    assert same == ["d<64, 1, true, false, false>"] and differ == []

@@ -4,8 +4,8 @@ JAX side of that test puts in place of flash_attention_forward and
 flash_attention_backward, against the JAX package's kernels in interpret
 mode (tests/_hop_checks.py; float32, atol 1e-5, rtol 1e-4). The (q_hi, k_lo)
 pair with dyn_pos_offset = ((2n - 1) - idx - src) * C (window, ALiBi with a
-head slice, segment ids, dropout with the sub-call's seed) and without it
-(soft-cap), and the causal (q_lo, k_lo) and (q_hi, k_hi) pairs at their
+head slice, segment ids, dropout with the sub-call's seed, the soft-cap
+with the window) and without it (soft-cap), and the causal (q_lo, k_lo) and (q_hi, k_hi) pairs at their
 static offsets."""
 
 import jax.numpy as jnp
@@ -40,6 +40,9 @@ PAIRS = {
     "hi_hi_dropout_window": (2, 2, 16, 16, dict(
         is_causal=True, pos_offset=16, window=30, dropout_rate=0.3,
         dropout_seed=seed(-11, 0, 1, 2)), None),
+    # rank 0's second hop: offset (3 - 0 - 1) * 16, the window's edge cuts the pair
+    "hi_lo_dyn_window_softcap": (4, 2, 16, 16, dict(
+        is_causal=False, dyn_pos_offset=jnp.int32(32), window=24, logit_softcap=5.0), None),
     "hi_lo_softcap": (4, 4, 16, 16, dict(is_causal=False, logit_softcap=5.0), None),
     "diagonal_softcap": (4, 4, 16, 16, dict(is_causal=True, logit_softcap=5.0), None),
 }
