@@ -28,7 +28,7 @@ per check and each phase's seconds, then the kernels line:
    again with dropout in libraries of their own, the 144 named; the 126 of
    the offset read on the card, every D, with and without the soft-cap and
    dropout, in libraries of their own),
-   qmm8's and qmm4's M > 16 kernels and every
+   qmm8's and qmm4's M > 16 kernels (IMMA in their a8 kernels) and every
    instantiation of K2's (D 64, 128 and 256, with and without a window, with
    and without ALiBi: the ALiBi ones in a library of their own);
 2. each kernel against its plain PyTorch version on the card, at the
@@ -43,8 +43,11 @@ per check and each phase's seconds, then the kernels line:
    three shapes named by one profiler session; K2 on int8 and
    fp8 caches at T 1 and T 256; the paged K2 against the dense K2, bit for
    bit; qmm8 and qmm4 at M 1 to 1024 on LLAMA_1B's five projection shapes,
-   two calls bitwise equal), with the tolerance printed beside each
-   result; kernel, plain version and the PyTorch library call (SDPA, on the
+   two calls bitwise equal; their a8 mode, W8A8 and W4A8, at the same M on
+   LLAMA_1B's shapes and at M 4 and 256 on LLAMA_8B's five, its path's
+   launches counted alone, torch.equal to its plain version, its x_q and
+   x_scale to quantize_rows_reference's, timed beside torch._int_mm), with
+   the tolerance printed beside each result; kernel, plain version and the PyTorch library call (SDPA, on the
    dequantized bf16 cache for the quantized K2, with a length mask at T 1
    and a bottom-right causal mask for K2 int8 at T 256, or torch.matmul on
    the dequantized weight; timed only, never used by the port) timed on
@@ -458,8 +461,8 @@ from flashattn_tpu_torch.ops.common import round_up
 from flashattn_tpu_torch.ops.kvcache import KVCache
 from flashattn_tpu_torch.ops.reference import visible
 from flashattn_tpu_torch.parallel import moe, ring, serving
-from flashattn_tpu_torch.utils import (dropout_readout, perplexity, profile_train, roofline,
-                                      sass)
+from flashattn_tpu_torch.utils import (dropout_readout, grad_oracle, perplexity, profile_train,
+                                      roofline, sass)
 from flashattn_tpu_torch.utils.timing import cuda_time_ms
 from flashattn_tpu_torch.utils.verify import verify_results
 
@@ -543,7 +546,7 @@ def phase_environment() -> str:
             elif "registers" in line or "spill" in line:
                 print(f"[env] ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
                 if "spill" in line and ("mma_kernel" in kernel
-                                        or kernel.startswith("qmm_splitk_kernel")):
+                                        or kernel.startswith("qmm_splitk")):
                     check("0 bytes spill stores, 0 bytes spill loads" in line,
                           f"{kernel} spills: {line.strip()}")
     mma = {}
@@ -554,7 +557,7 @@ def phase_environment() -> str:
                       f"{n['IMMA']} IMMA")
                 mma[kernel] = n
     families = {"flash_fwd_wgmma_kernel": 72, "flash_fwd_dyn_wgmma_kernel": 48, "flash_bwd": 288,
-                "qmm_mma_kernel": 4, "decode_mma_kernel": 120}
+                "qmm_mma_kernel": 4, "qmm_a8_mma_kernel": 4, "decode_mma_kernel": 120}
     counted = {f: sum(k.startswith(f) for k in mma) for f in families}
     check(counted == families and all(sum(n.values()) for n in mma.values()),
           "K1's bf16 kernel (D 64, 128 and 256, with and without a window, segment ids and "
@@ -564,12 +567,16 @@ def phase_environment() -> str:
           "dQ and dK/dV kernels (D 64, 128 and 256; no mask, "
           "the window, segment ids; with and without the soft-cap, or with ALiBi; each with "
           "and without dropout; the offset read on the card), qmm8's and qmm4's "
-          "M > 16 kernels (bf16 and float32 y) and every K2 tensor-core instantiation (bf16, "
-          "int8 and fp8 caches, D 64, 128 and 256, both row layouts, with and without a "
-          f"window, and ALiBi's) must run on the tensor cores: {mma}")
+          "M > 16 kernels (bf16 and float32 y; with and without the a8 mode) and every K2 "
+          "tensor-core instantiation (bf16, int8 and fp8 caches, D 64, 128 and 256, both row "
+          f"layouts, with and without a window, and ALiBi's) must run on the tensor cores: {mma}")
     check(all(n["HGMMA"] for k, n in mma.items()
               if k.startswith(("flash_fwd_wgmma_kernel", "flash_fwd_dyn_wgmma_kernel"))),
           f"K1's bf16 kernel must run on wgmma (HGMMA): {mma}")
+    a8 = {k: n["IMMA"] for k, n in mma.items() if k.startswith("qmm_a8_mma_kernel")}
+    check(all(a8.values()), f"qmm8's and qmm4's M > 16 a8 kernels must run on the int8 tensor "
+                            f"cores (IMMA): {a8}")
+    print(f"[env] qmm8's and qmm4's a8 kernels run on the int8 tensor cores (IMMA), no spill: {a8}")
     # K1's template arguments: D, consumers, window, segment ids, soft-cap,
     # ALiBi, dropout; the kernel of the offset read on the card: D,
     # consumers, window, segment ids, ALiBi, soft-cap, dropout.
@@ -2258,7 +2265,129 @@ def quant_matmul_kernels(gen: torch.Generator) -> dict[str, dict]:
                 entry = dict(ms=ms, plain_ms=plain, library_ms=lib, **lim)
             del qw, w_bf16
         out[f"qmm{bits}"] = dict(max_abs_err=err, **entry)
+    launches, err = 0, 0.0
+    for bits in (8, 4):
+        out[f"qmm{bits}_a8"], quant = quant_matmul_a8(gen, bits)
+        launches += quant["launches"]
+        err = max(err, quant["max_abs_err"])
+    out["quantize_rows"] = time_quantize_rows(quant["x"], launches, err)
     return out
+
+
+def time_quantize_rows(x: torch.Tensor, launches: int, err: float) -> dict:
+    """quantize_rows' kernel timed on x (LLAMA_1B's gate/up input at M 256)
+    beside its plain version and its bound; its launches and largest error
+    from the a8 path's calls (quant_matmul_a8). No library call computes it."""
+    m, k = x.shape
+    ms = cuda_time_ms(lambda: quant_matmul.quantize_rows(x))
+    plain = cuda_time_ms(lambda: quant_matmul.quantize_rows_reference(x))
+    lim = bound(roofline.quantize_rows_roofline(m, k, x.element_size()))
+    print(f"[kernels] quantize_rows M={m} K={k} {str(x.dtype)[6:]}: kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, bound {lim['bound_ms']:.5f} ms by {lim['bound_by']}; {launches} "
+          f"launches on the a8 path's calls, x_q and x_scale equal to the plain version's "
+          f"(tolerance 0)")
+    return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None, **lim)
+
+
+# LLAMA_8B's projection shapes (K, N), models/config.py: wq/wo, wk/wv,
+# w_gate/w_up, w_down, lm_head.
+QMM_SHAPES_8B = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
+# The a8 mode's timed shapes, at M 4 and 256: LLAMA_1B's and LLAMA_8B's
+# gate/up projection; the first at M 256 gives the JSON line's numbers.
+QMM_A8_TIMED = ((2048, 5632), (4096, 14336))
+
+
+def quant_matmul_a8(gen: torch.Generator, bits: int) -> dict:
+    """The a8 mode's path, quant_matmul(x, qw, quantize_activations=True),
+    at every M of QMM8_MS on LLAMA_1B's five projection shapes and at M 4
+    and 256 on LLAMA_8B's five: the path's calls counted alone (the counters
+    set to 0 before each shape's calls and read after), then each result
+    torch.equal to its plain version (tolerance 0: int32 sums are exact and
+    the f32 tail is the same), x_q and x_scale from the quantization kernel
+    torch.equal to quantize_rows_reference's, and two calls torch.equal;
+    timed on QMM_A8_TIMED beside the plain version, torch._int_mm on the
+    same int8 operands with the two scalings (M > 16, where it takes the
+    shape) and torch.matmul on the dequantized bf16 weight. Returns the
+    kernels line's row and the quantization's (its launches on the path, its
+    largest error, and the M 256 x of the first timed shape)."""
+    name = f"qmm{bits}_a8"
+    cases = ([(k, n, QMM8_MS) for k, n in QMM_SHAPES]
+             + [(k, n, (4, 256)) for k, n in QMM_SHAPES_8B])
+    launches = quantized = calls = 0
+    err, q_err, entry, q_x = 0.0, 0.0, None, None
+
+    def a8(x, qw):
+        return quant_matmul.quant_matmul(x, qw, quantize_activations=True)
+
+    for k, n, ms in cases:
+        qw = quant_matmul.quantize_weights(randn((k, n), gen) * 0.02, bits)
+        xs = [randn((m, k), gen) for m in ms]
+        reset_launches()
+        ys = [a8(x, qw) for x in xs]
+        torch.cuda.synchronize()
+        counts = read_launches()
+        launches += counts[name]
+        quantized += counts["quantize_rows"]
+        calls += len(xs)
+        for x, y in zip(xs, ys):
+            tag = f"{name} M={x.shape[0]} K={k} N={n}"
+            ref = quant_matmul.quant_matmul_reference(x, qw, None, True)
+            err = max(err, (y.float() - ref.float()).abs().max().item())
+            check(torch.equal(y, ref), f"{tag}: differs from its plain version (tolerance 0), "
+                                       f"max abs {err}")
+            x_q, x_scale = quant_matmul.quantize_rows(x)
+            ref_q, ref_scale = quant_matmul.quantize_rows_reference(x)
+            q_err = max(q_err, (x_q.int() - ref_q.int()).abs().max().item(),
+                        (x_scale - ref_scale).abs().max().item())
+            check(torch.equal(x_q, ref_q) and torch.equal(x_scale, ref_scale),
+                  f"{tag}: x_q or x_scale differs from quantize_rows_reference (tolerance 0)")
+            check(torch.equal(y, a8(x, qw)), f"{tag}: two calls differ")
+        print(f"[kernels] {name} K={k} N={n} M={list(ms)}: torch.equal to the plain version "
+              f"(tolerance 0, bit for bit), x_q and x_scale equal to quantize_rows_reference "
+              f"(tolerance 0), two calls equal")
+        if (k, n) in QMM_A8_TIMED:
+            row = time_a8(name, qw, xs[ms.index(4)], xs[ms.index(256)])
+            if entry is None:
+                entry, q_x = row, xs[ms.index(256)]
+        del qw, xs, ys
+    check(launches == calls and quantized == calls,
+          f"{name}: {launches} product and {quantized} quantize_rows launches counted for "
+          f"{calls} calls")
+    print(f"[kernels] {name}: {launches} product and {quantized} quantize_rows launches on "
+          f"the path's {calls} calls")
+    return (dict(launches=launches, max_abs_err=err, **entry),
+            dict(launches=quantized, max_abs_err=q_err, x=q_x))
+
+
+def time_a8(name: str, qw, x4: torch.Tensor, x256: torch.Tensor) -> dict:
+    """The a8 mode timed at M 4 and 256 (quantization included), printed
+    beside its plain version, torch._int_mm on the same int8 operands plus
+    the two scalings (x_q and the weights' int8 values, column-major as
+    cuBLAS's int8 product takes them; M 256 only: it refuses M <= 16),
+    torch.matmul on the dequantized bf16 weight, and the bound; the M 256
+    figures for the JSON line."""
+    k, n = qw.k, qw.out_features
+    w_int8 = quant_matmul.integer_weights(qw).to(torch.int8).t().contiguous().t()
+    w_bf16 = quant_matmul.dequantize_weights(qw).to(torch.bfloat16)
+    x_q, x_scale = quant_matmul.quantize_rows(x256)
+    rows = {}
+    for m, x in ((4, x4), (256, x256)):
+        ms = cuda_time_ms(lambda: quant_matmul.quant_matmul(x, qw, quantize_activations=True))
+        plain = cuda_time_ms(lambda: quant_matmul.quant_matmul_reference(x, qw, None, True))
+        lib = cuda_time_ms(lambda: torch.matmul(x, w_bf16))
+        int_mm = None
+        if m > 16:
+            int_mm = cuda_time_ms(lambda: (torch._int_mm(x_q, w_int8).float() * qw.scale
+                                           * x_scale).to(torch.bfloat16))
+        lim = bound(roofline.quant_matmul_roofline(m, k, n, qw.bits, a8=True))
+        rows[m] = dict(ms=ms, plain_ms=plain, library_ms=int_mm, **lim)
+        print(f"[kernels] {name} K={k} N={n} M={m}: kernel {ms:.4f} ms "
+              f"({2.0 * m * k * n / (ms * 1e-3) / 1e12:.2f} TOP/s), plain {plain:.4f} ms, "
+              f"torch._int_mm + the two scalings "
+              + (f"{int_mm:.4f} ms" if int_mm is not None else "refuses M <= 16")
+              + f", torch.matmul on the dequantized bf16 weight {lib:.4f} ms, bound "
+              f"{lim['bound_ms']:.5f} ms by {lim['bound_by']}")
+    return rows[256]
 
 
 BWD_CASES = [
@@ -5229,10 +5358,52 @@ def left_edge_bias(hq: int, s_q: int, s_k: int, off: int, window: int | None, sl
     return bias.to(dtype)
 
 
-def dyn_gates(tag: str, q, k, v, do, off_t, off: int, kw: dict) -> tuple[dict, tuple]:
+# Where a gradient element sums thousands of terms that cancel (ALiBi's
+# steep heads weigh the same last keys from every row; q times 30 makes
+# dK's terms large), the bf16 rounding of P and dS, which the kernels and
+# the plain version each do, leaves errors beside a small |dV| or |dK| that
+# no bf16 computation keeps under the elementwise bf16 gate: the plain
+# version itself reads max_norm 1.6-3.7 on dV and 2.1-3.7 on dK at
+# DYN_SHAPE with ALiBi, 2.8-5.1 on dK on the hot soft-cap inputs, against
+# the float64 gradients (utils/grad_oracle.py; PERF.md §6). There the
+# kernels are held to the plain version's own accuracy: each one's error
+# against the float64 gradients (relative L2, largest absolute, largest
+# normalized under GRAD_TOL) at most ORACLE_RATIO times the plain version's,
+# and cos > 0.999. The L2 and largest absolute errors are steady from draw to
+# draw (the outputs' own bf16 rounding sets the latter), the largest
+# normalized one is not, hence its wider factor; a wrong mask, bias or tile
+# moves all three by more.
+ORACLE_RATIO = dict(l2=1.25, max_abs=1.5, max_norm=3.0)
+
+
+def oracle_gate(name: str, exact: torch.Tensor, plain: torch.Tensor, got: torch.Tensor) -> float:
+    """`got` (a kernel's gradient) against the float64 gradient `exact`, no
+    farther from it than ORACLE_RATIO times the plain version `plain` is;
+    returns got's largest absolute difference from the plain version."""
+    tol = GRAD_TOL[torch.bfloat16]
+    reps = [verify_results(exact, t, **tol) for t in (plain, got)]
+    l2 = [((t.double() - exact).norm() / exact.norm()).item() for t in (plain, got)]
+    stats = {"l2": l2, "max_abs": [r.max_abs_err for r in reps],
+             "max_norm": [r.max_normalized_err for r in reps]}
+    vs_plain = verify_results(plain, got, **tol)
+    print(f"[kernels] {name} against the float64 gradients: "
+          + ", ".join(f"{key} {p:.4g} plain, {g:.4g} kernel (ratio {g / p:.3f}, at most "
+                      f"{ORACLE_RATIO[key]})" for key, (p, g) in stats.items())
+          + f", cos {reps[1].cosine:.6f} (> 0.999); against the plain version {vs_plain}")
+    check(reps[1].cosine > 0.999 and all(g <= ORACLE_RATIO[key] * p
+                                         for key, (p, g) in stats.items()),
+          f"{name} is farther from the float64 gradients than the plain version allows: {stats}")
+    return vs_plain.max_abs_err
+
+
+def dyn_gates(tag: str, q, k, v, do, off_t, off: int, kw: dict,
+              oracle: bool = False) -> tuple[dict, tuple]:
     """K1 (O, LSE, rows without a key), B3 and B4 + B5 with the offset read
     on the card (off_t, a card tensor) against their plain versions (the int
-    off), under the bf16 gates or float32's: their largest errors by kernel
+    off), under the bf16 gates or float32's, or with `oracle` the
+    gradients by oracle_gate against utils/grad_oracle.py's float64 ones
+    (the window, ALiBi's standard slopes, the soft-cap and dropout as kw has
+    them): their largest errors by kernel
     ("fwd", "fused", "dq", "dkv") and K1's (O, LSE); each call exactly one
     launch of its card-offset kernel."""
     f32 = q.dtype == torch.float32
@@ -5248,12 +5419,23 @@ def dyn_gates(tag: str, q, k, v, do, off_t, off: int, kw: dict) -> tuple[dict, t
           f"K1 {tag}: rows without a key differ")
     ref = flash_bwd.flash_attention_backward_reference(q, k, v, o, do, lse, False,
                                                        dyn_pos_offset=off, **kw)
+    exact = None
+    if oracle:
+        exact = grad_oracle.float64_backward(
+            q, k, v, do, pos_offset=off, window=kw.get("window"),
+            alibi_slopes=(flash_fwd.default_alibi_slopes(q.shape[1], q.device)
+                          if kw.get("alibi") else None),
+            logit_softcap=kw.get("logit_softcap"), dropout_rate=kw.get("dropout_rate", 0.0),
+            dropout_seed=kw.get("dropout_seed"))
     for impl, kernels in (("fused", ("fused",) * 3), ("split", ("dq", "dkv", "dkv"))):
         got = flash_bwd.flash_attention_backward(q, k, v, o, do, lse, False, impl=impl,
                                                  dyn_pos_offset=off_t, **kw)
-        for name, kernel, r, g in zip(("dQ", "dK", "dV"), kernels, ref, got):
-            err[kernel] = max(err[kernel], grad_gate(f"{impl} {name} {tag}", r, g, q.dtype))
-    del ref, got
+        for i, (name, kernel, r, g) in enumerate(zip(("dQ", "dK", "dV"), kernels, ref, got)):
+            what = f"{impl} {name} {tag}"
+            e = (oracle_gate(what, exact[i], r, g) if oracle
+                 else grad_gate(what, r, g, q.dtype))
+            err[kernel] = max(err[kernel], e)
+    del ref, got, exact
     launched = {n: read_launches()[n] - before[n] for n in DYNOFF_ROWS}
     check(launched == dict.fromkeys(DYNOFF_ROWS, 1),
           f"{tag}: the offset's kernels launched {launched}")
@@ -5307,9 +5489,10 @@ def dynoff_kernels(gen: torch.Generator) -> dict[str, dict]:
     """K1, B3, B4 and B5 with dyn_pos_offset (their libraries
     flash_fwd_dynoff and flash_bwd{,_fused}_dynoff) against their plain
     versions at DYN_SHAPE with the window's left edge and ALiBi, the offset
-    a CUDA tensor (read on the card); the second oracle, an offset at
-    S_k (every pair causally visible) equal to the causal kernels with
-    pos_offset = offset within the bf16 gates; D 64 with segment ids and
+    a CUDA tensor (read on the card), the gradients held to the plain
+    version's accuracy against float64 ones (oracle_gate); the second
+    oracle, an offset at S_k (every pair causally visible) equal to the
+    causal kernels with pos_offset = offset within the bf16 gates; D 64 with segment ids and
     the window alone against the plain versions; then the four timed beside
     the plain versions, flex_attention with the same mask and bias, and the
     bound of utils/roofline.py over the visible pairs of the left edge;
@@ -5322,7 +5505,7 @@ def dynoff_kernels(gen: torch.Generator) -> dict[str, dict]:
     kw = dict(window=DYN_WINDOW, alibi=True)
     tag = (f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} dyn_pos_offset {DYN_OFFSET} (a card tensor), "
            f"window {DYN_WINDOW}, ALiBi")
-    err, (o, lse) = dyn_gates(tag, q, k, v, do, off_t, DYN_OFFSET, kw)
+    err, (o, lse) = dyn_gates(tag, q, k, v, do, off_t, DYN_OFFSET, kw, oracle=True)
     # The second oracle: at an offset of S_k every pair is causally visible.
     o_d, lse_d = flash_fwd.flash_attention_forward(q, k, v, False, dyn_pos_offset=s, **kw)
     o_c, lse_c = flash_fwd.flash_attention_forward(q, k, v, True, pos_offset=s, **kw)
@@ -5397,11 +5580,13 @@ def dynoff_variants(gen: torch.Generator) -> dict[str, dict]:
     against their plain versions (dyn_gates), then timed (time_dyn): the
     soft-cap 50 with the window 4,096 at D 256 on GEMMA2_9B's local-layer
     pair (DYN_GEMMA, offset 4,096: the window's edge cuts the pair in half),
-    beside flex_attention with the cap and the left edge; dropout
+    beside flex_attention with the cap and the left edge, and on hot inputs
+    (q times HOT) by oracle_gate; dropout
     (DROP_RATE) with the window, with ALiBi and with both at DYN_SHAPE, the
     readouts first (dyn_dropout_readouts), the three against the plain
-    version on the same mask, the last timed beside SDPA with dropout_p and
-    ALiBi + the left edge as a float mask; float32 with the window at
+    version on the same mask (the two with ALiBi by oracle_gate), the last
+    timed beside SDPA with dropout_p and ALiBi + the left edge as a float
+    mask; float32 with the window at
     DYN_F32 under the float32 gates, beside SDPA with the left edge. Returns
     the kernels line's rows (DYNOFF_ROWS + "_softcap", "_dropout", "_f32")."""
     out = {}
@@ -5413,7 +5598,8 @@ def dynoff_variants(gen: torch.Generator) -> dict[str, dict]:
            f"{DYN_OFFSET} (a card tensor), window {GWIN}, cap {CAP}")
     err, (o, lse) = dyn_gates(tag, q, k, v, do, off_t, DYN_OFFSET, kw)
     hot = [x * HOT if i == 0 else x for i, x in enumerate((q, k, v, do))]
-    dyn_gates(tag + f", hot inputs (q x {HOT}: the cap saturates)", *hot, off_t, DYN_OFFSET, kw)
+    dyn_gates(tag + f", hot inputs (q x {HOT}: the cap saturates)", *hot, off_t, DYN_OFFSET, kw,
+              oracle=True)
     del hot
     libs = flex_dyn_ms(q, k, v, DYN_OFFSET, GWIN, None, do, cap=CAP)
     out.update(time_dyn([f"{r}_softcap" for r in DYNOFF_ROWS], tag, q, k, v, o, do, lse, off_t,
@@ -5434,7 +5620,7 @@ def dynoff_variants(gen: torch.Generator) -> dict[str, dict]:
     err = dict.fromkeys(("fwd", "fused", "dq", "dkv"), 0.0)
     for opts in (dict(window=DYN_WINDOW), dict(alibi=True), dict(window=DYN_WINDOW, alibi=True)):
         e, (o, lse) = dyn_gates(f"{shape}, {opts}", q, k, v, do, off_t, DYN_OFFSET,
-                                dict(opts, **drop))
+                                dict(opts, **drop), oracle="alibi" in opts)
         err = {n: max(err[n], e[n]) for n in err}
     slopes = flash_fwd.default_alibi_slopes(hq, "cuda")
     bias = left_edge_bias(hq, s, s, DYN_OFFSET, DYN_WINDOW, slopes, q.dtype)
@@ -7334,6 +7520,8 @@ def run() -> None:
     launches.update(phase_context_parallel())
     clock.done("20 context parallelism on two ranks")
     launches["decode_lse"] = timed["decode_lse"].pop("launches")
+    for row in ("qmm8_a8", "qmm4_a8", "quantize_rows"):
+        launches[row] = timed[row].pop("launches")
     add_launches(launches, phase_parallel())
     clock.done("21 tensor, pipeline and expert parallelism on two ranks, split decode, recovery")
     add_launches(launches, phase_moe_train(gen))
@@ -7371,6 +7559,10 @@ def run() -> None:
         "decode_lse": decode_src,
         "qmm8": (qmm_src, "flashattn_tpu/ops/quant_matmul.py:81"),
         "qmm4": (qmm_src, "flashattn_tpu/ops/quant_matmul.py:123"),
+        "qmm8_a8": (qmm_src, "flashattn_tpu/ops/quant_matmul.py:81"),
+        "qmm4_a8": (qmm_src, "flashattn_tpu/ops/quant_matmul.py:123"),
+        # x's row quantization in the jitted wrapper of the a8 mode's kernels
+        "quantize_rows": (qmm_src, "flashattn_tpu/ops/quant_matmul.py:226"),
         "flash_bwd_fused": ("flashattn_tpu_torch/csrc/flash_bwd_fused.cu",
                             "flashattn_tpu/ops/flash_bwd_fused.py:336"),
         "flash_bwd_dq": ("flashattn_tpu_torch/csrc/flash_bwd.cu",

@@ -115,6 +115,16 @@ __device__ __forceinline__ void mma_16816(float* c, const unsigned* a, unsigned 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c += a . b on the tensor cores: one m16n8k32 int8 product, int32
+// accumulators (exact), fragments in the layouts of the PTX ISA.
+__device__ __forceinline__ void mma_s8(int* c, const unsigned* a, unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // tanh(x) for the logit soft-cap of K1 and K2: s = tanh(s / cap) * cap, as
 // 1 - 2 / (2^(2 x log2 e) + 1) with ex2.approx and rcp.approx (two MUFU
 // instructions; relative error about 2^-21, absolute error near 0 a few ulp

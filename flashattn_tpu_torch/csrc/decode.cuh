@@ -419,15 +419,7 @@ __device__ __forceinline__ unsigned widen2(unsigned pair) {
 __device__ __forceinline__ void ldsm_x4(unsigned* r, const unsigned char* p) {
   fat::ldsm_x4(r, reinterpret_cast<const bf16*>(p));
 }
-// c += a . b on the tensor cores: one m16n8k32 int8 product, int32
-// accumulators (exact), fragments in the layouts of the PTX ISA.
-__device__ __forceinline__ void mma_s8(int* c, const unsigned* a, unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using fat::mma_s8;
 
 __device__ __forceinline__ void ldsm_x4_t(unsigned* r, const unsigned char* p) {
   fat::ldsm_x4_t(r, reinterpret_cast<const bf16*>(p));

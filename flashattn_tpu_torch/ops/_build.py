@@ -28,7 +28,9 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 ENTRY_POINTS = {
     "flash_fwd": {"flash_fwd_launch": [_P] * 10 + [_I] * 10 + [_F, _F, _P]},
     "decode": {"decode_launch": [_P] * 13 + [_I] * 15 + [_F, _F, _F, _P]},
-    "quant_matmul": {"quant_matmul_launch": [_P] * 5 + [_I] * 7 + [_P]},
+    "quant_matmul": {"quant_matmul_launch": [_P] * 5 + [_I] * 7 + [_P],
+                     "quant_matmul_a8_launch": [_P] * 6 + [_I] * 6 + [_P],
+                     "quantize_rows_launch": [_P] * 3 + [_I] * 3 + [_P]},
     "flash_bwd": {"flash_bwd_dq_launch": [_P] * 13 + [_I] * 10 + [_F] * 3 + [_P],
                   "flash_bwd_dkv_launch": [_P] * 13 + [_I] * 10 + [_F] * 3 + [_P]},
     "flash_bwd_fused": {"flash_bwd_fused_launch": [_P] * 15 + [_I] * 10 + [_F] * 3 + [_P]},

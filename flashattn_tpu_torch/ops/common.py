@@ -131,9 +131,3 @@ def dropout_keep_mask(seed, bh, rows, cols, rate: float) -> torch.Tensor:
     """The keep mask of the elements at (rows, cols), dropout_hash's
     arguments: True keeps (hash >= dropout_threshold(rate))."""
     return dropout_hash(seed, bh, rows, cols) >= dropout_threshold(rate)
-
-
-def unported(feature: str, item: str) -> NotImplementedError:
-    """The error an option of the JAX package raises until its port lands."""
-    return NotImplementedError(
-        f"{feature} is not ported to flashattn_tpu_torch yet: ROADMAP {item}")

@@ -23,7 +23,8 @@ import torch
 # "flash_fwd_alibi_segments"), a launch with attention dropout in the
 # matching "_dropout" one, a launch that reads its q/k alignment on the card
 # (dyn_pos_offset) in the matching "_dynoff" one, a K2 launch that writes the
-# LSE in "decode_lse".
+# LSE in "decode_lse", a qmm8/qmm4 launch in the a8 mode in the matching
+# "_a8" one.
 COUNTERS = {
     "flash_fwd": ("flashattn_tpu_torch.ops.flash_fwd", "LAUNCHES"),
     "flash_fwd_window": ("flashattn_tpu_torch.ops.flash_fwd", "WINDOW_LAUNCHES"),
@@ -46,6 +47,9 @@ COUNTERS = {
     "paged_decode_alibi": ("flashattn_tpu_torch.ops.paged", "ALIBI_LAUNCHES"),
     "qmm8": ("flashattn_tpu_torch.ops.quant_matmul", "QMM8_LAUNCHES"),
     "qmm4": ("flashattn_tpu_torch.ops.quant_matmul", "QMM4_LAUNCHES"),
+    "qmm8_a8": ("flashattn_tpu_torch.ops.quant_matmul", "QMM8_A8_LAUNCHES"),
+    "qmm4_a8": ("flashattn_tpu_torch.ops.quant_matmul", "QMM4_A8_LAUNCHES"),
+    "quantize_rows": ("flashattn_tpu_torch.ops.quant_matmul", "QUANTIZE_ROWS_LAUNCHES"),
     "flash_bwd_fused": ("flashattn_tpu_torch.ops.flash_bwd_fused", "LAUNCHES"),
     "flash_bwd_fused_window": ("flashattn_tpu_torch.ops.flash_bwd_fused", "WINDOW_LAUNCHES"),
     "flash_bwd_fused_segments": ("flashattn_tpu_torch.ops.flash_bwd_fused", "SEGMENT_LAUNCHES"),

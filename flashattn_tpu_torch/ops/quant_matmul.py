@@ -4,7 +4,9 @@ flashattn_tpu/ops/quant_matmul.py).
 Decode-time projections stream their weights from device memory once per
 step, so storing them in 8 or 4 bits cuts the bytes the step moves.
 ``quant_matmul`` launches the ``qmm8``/``qmm4`` kernels
-(csrc/quant_matmul.cu) on CUDA tensors.
+(csrc/quant_matmul.cu) on CUDA tensors. With ``quantize_activations=True``
+(the a8 mode, W8A8 / W4A8) x is quantized per row to int8 first
+(``quantize_rows``) and the products run on int8 with int32 sums.
 
 The layout is the JAX package's, byte for byte, so a quantized JAX tree
 converts with a plain copy (models/convert.py):
@@ -20,15 +22,25 @@ import torch
 from torch import nn
 
 from flashattn_tpu_torch.ops import _build
-from flashattn_tpu_torch.ops.common import unported
 from flashattn_tpu_torch.ops.flash_fwd import DTYPE_CODES
 
 INT8_MAX = 127.0
 INT4_MAX = 7.0
+# f32(1 / 127): XLA compiles the JAX package's amax / INT8_MAX into amax
+# times this f32 constant inside the jitted quant_matmul.
+INV_INT8_MAX = float(torch.tensor(1.0, dtype=torch.float32) / INT8_MAX)
+X_SCALE_FLOOR = 1e-10
+# The a8 mode's int32 sums hold K * 127 * 127 up to K 133,144.
+A8_K_MAX = 133_000
 
-# Kernel launches in this process (set to 0 by callers that count a run).
+# Kernel launches in this process (set to 0 by callers that count a run). An
+# a8 call counts its product in its kernel's counter and in the matching
+# "_A8" one, and its quantization in QUANTIZE_ROWS_LAUNCHES.
 QMM8_LAUNCHES = 0
 QMM4_LAUNCHES = 0
+QMM8_A8_LAUNCHES = 0
+QMM4_A8_LAUNCHES = 0
+QUANTIZE_ROWS_LAUNCHES = 0
 
 K_MULTIPLE = 64  # contraction rows per kernel tile (csrc/quant_matmul.cu kBK)
 N_MULTIPLE = 16  # output columns per 16-byte weight load
@@ -101,12 +113,65 @@ def dequantize_weights(qw: QuantizedLinear) -> torch.Tensor:
     return integer_weights(qw).float() * qw.scale
 
 
+def quantize_rows_reference(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the a8 mode's row quantization: x [M, K] ->
+    (x_q int8 [M, K], x_scale f32 [M, 1]), bit for bit the JAX package's
+    jitted arithmetic (flashattn_tpu/ops/quant_matmul.py:226-229): f32 amax
+    over K, x_scale = max(amax * f32(1/127), 1e-10), round half to even of
+    an f32 division, clip to +-127."""
+    xf = x.float()
+    x_scale = torch.clamp_min(xf.abs().amax(dim=1, keepdim=True) * INV_INT8_MAX,
+                              X_SCALE_FLOOR)
+    x_q = torch.clamp(torch.round(xf / x_scale), -INT8_MAX, INT8_MAX).to(torch.int8)
+    return x_q, x_scale
+
+
+def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [M, K] bf16/f32 -> (x_q int8 [M, K], x_scale f32 [M, 1]), the a8
+    mode's quantization. CPU tensors take the plain version; CUDA tensors
+    launch csrc/quant_matmul.cu's quantize_rows_kernel (K a multiple of 4)."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be [M, K], got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return quantize_rows_reference(x)
+    m, k = x.shape
+    if x.device.type != "cuda":
+        raise ValueError(f"x must be on a CUDA device or the CPU, got {x.device}")
+    if x.dtype not in DTYPE_CODES:
+        raise ValueError(f"x {x.dtype}: need {list(DTYPE_CODES)}")
+    x = x.contiguous()
+    if x.data_ptr() % 16 or k % 4:
+        raise ValueError(f"x must be 16-byte aligned and K={k} a multiple of 4")
+    x_q = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    x_scale = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    if m == 0:
+        return x_q, x_scale
+    lib = _build.load("quant_matmul")
+    with torch.cuda.device(x.device):
+        rc = lib.quantize_rows_launch(x.data_ptr(), x_q.data_ptr(), x_scale.data_ptr(), m, k,
+                                      DTYPE_CODES[x.dtype],
+                                      torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, rc, "quantize_rows")
+    global QUANTIZE_ROWS_LAUNCHES
+    QUANTIZE_ROWS_LAUNCHES += 1
+    return x_q, x_scale
+
+
 def quant_matmul_reference(x: torch.Tensor, qw: QuantizedLinear,
-                           out_dtype: torch.dtype | None = None) -> torch.Tensor:
+                           out_dtype: torch.dtype | None = None,
+                           quantize_activations: bool = False) -> torch.Tensor:
     """Plain PyTorch version of qmm8/qmm4: (x @ w) in fp32, times the
-    per-channel scale at the end, cast to out_dtype."""
+    per-channel scale at the end, cast to out_dtype. The a8 mode: x through
+    quantize_rows_reference, the exact integer product (a float64 product of
+    the int8 values, exact below 2^53, then int32), then
+    (sum.f32 * scale) * x_scale, the JAX finalize's order."""
+    out_dtype = out_dtype or x.dtype
+    if quantize_activations:
+        x_q, x_scale = quantize_rows_reference(x)
+        acc = torch.matmul(x_q.double(), integer_weights(qw).double()).to(torch.int32)
+        return (acc.float() * qw.scale * x_scale).to(out_dtype)
     y = torch.matmul(x.float(), integer_weights(qw).float()) * qw.scale
-    return y.to(out_dtype or x.dtype)
+    return y.to(out_dtype)
 
 
 def _split(byte_rows: int, n: int, sms: int, rows_max: int) -> tuple[int, int]:
@@ -147,21 +212,26 @@ def quant_matmul(x: torch.Tensor, qw: QuantizedLinear,
                  out_dtype: torch.dtype | None = None,
                  quantize_activations: bool = False) -> torch.Tensor:
     """y = x @ dequant(qw): x [M, K] bf16/f32 -> [M, N] in out_dtype
-    (default x's dtype).
+    (default x's dtype). quantize_activations=True is the a8 mode (W8A8,
+    W4A8): x quantized per row to int8 (quantize_rows), int8 products with
+    int32 sums, then times the channel scale and x's row scale; K at most
+    A8_K_MAX.
 
     CPU tensors take the plain version. CUDA tensors launch qmm8 or qmm4 and
-    need K a multiple of 64 and N of 16 (every LLAMA_1B projection), with the
-    weights 16-byte aligned; anything else raises. At M <= 16 it also
-    allocates the split-K workspace (qmm8_split, qmm4_split); a call counts
-    one launch, the workspace's reduction included."""
-    if quantize_activations:
-        raise unported("quant_matmul(quantize_activations=True), the a8 mode", "A6")
+    need K a multiple of 64 and N of 16 (every LLAMA_1B and LLAMA_8B
+    projection), with the weights 16-byte aligned; anything else raises. At
+    M <= 16 it also allocates the split-K workspace (qmm8_split, qmm4_split;
+    int32 in the a8 mode); a call counts one launch, the workspace's
+    reduction included, and in the a8 mode also quantize_rows' launch."""
     m, k = x.shape
     if k != qw.k:
         raise ValueError(f"x has K={k}, the weights K={qw.k}")
+    a8 = quantize_activations
+    if a8 and k > A8_K_MAX:
+        raise ValueError(f"K={k}: the a8 mode's int32 sums hold K <= {A8_K_MAX}")
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
-        return quant_matmul_reference(x, qw, out_dtype)
+        return quant_matmul_reference(x, qw, out_dtype, a8)
     n = qw.out_features
     if x.device.type != "cuda" or qw.w.device != x.device or qw.scale.device != x.device:
         raise ValueError(f"x ({x.device}) and the weights ({qw.w.device}) must be on "
@@ -185,18 +255,29 @@ def quant_matmul(x: torch.Tensor, qw: QuantizedLinear,
     split_rows, ws = 0, None
     if split is not None:
         split_rows, splits = split
-        ws = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+        ws = torch.empty((splits, m, n), dtype=torch.int32 if a8 else torch.float32,
+                         device=x.device)
+    ws_ptr = None if ws is None else ws.data_ptr()
     lib = _build.load("quant_matmul")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.quant_matmul_launch(
-            x.data_ptr(), qw.w.data_ptr(), qw.scale.data_ptr(), y.data_ptr(),
-            None if ws is None else ws.data_ptr(), m, k, n, qw.bits,
-            DTYPE_CODES[x.dtype], DTYPE_CODES[out_dtype], split_rows, stream)
+        if a8:
+            x_q, x_scale = quantize_rows(x)
+            rc = lib.quant_matmul_a8_launch(
+                x_q.data_ptr(), x_scale.data_ptr(), qw.w.data_ptr(), qw.scale.data_ptr(),
+                y.data_ptr(), ws_ptr, m, k, n, qw.bits, DTYPE_CODES[out_dtype], split_rows,
+                stream)
+        else:
+            rc = lib.quant_matmul_launch(
+                x.data_ptr(), qw.w.data_ptr(), qw.scale.data_ptr(), y.data_ptr(), ws_ptr,
+                m, k, n, qw.bits, DTYPE_CODES[x.dtype], DTYPE_CODES[out_dtype], split_rows,
+                stream)
     _build.check(lib, rc, "quant_matmul")
-    global QMM8_LAUNCHES, QMM4_LAUNCHES
+    global QMM8_LAUNCHES, QMM4_LAUNCHES, QMM8_A8_LAUNCHES, QMM4_A8_LAUNCHES
     if qw.bits == 8:
         QMM8_LAUNCHES += 1
+        QMM8_A8_LAUNCHES += a8
     else:
         QMM4_LAUNCHES += 1
+        QMM4_A8_LAUNCHES += a8
     return y

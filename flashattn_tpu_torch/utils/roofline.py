@@ -242,14 +242,26 @@ def decode_roofline(
     return roofline(4.0 * hq * d * sum(p for p, _ in seen), hbm, cache_dtype, chip)
 
 
-def quant_matmul_roofline(m: int, k: int, n: int, bits: int,
+def quant_matmul_roofline(m: int, k: int, n: int, bits: int, a8: bool = False,
                           chip: ChipSpec | None = None) -> RooflineReport:
     """qmm8/qmm4 on bf16 x: x [M, K] and the weights (K N bytes at 8 bits,
     half at 4) and their float32 scales read once, y [M, N] in bf16 written
     once; 2 M K N operations against the bf16 peak (the kernels widen the
-    weights to bf16 for the products)."""
+    weights to bf16 for the products). a8 (the a8 mode): the same bytes,
+    the function's own (x_q and x_scale are the kernels' intermediates, and
+    their traffic is part of the kernels' time, not of the bound), and the
+    operations against the int8 peak."""
     hbm = 2 * m * k + k * n * bits // 8 + 4 * n + 2 * m * n
-    return roofline(2.0 * m * k * n, hbm, torch.bfloat16, chip)
+    return roofline(2.0 * m * k * n, hbm, torch.int8 if a8 else torch.bfloat16, chip)
+
+
+def quantize_rows_roofline(m: int, k: int, x_bytes: int = 2,
+                           chip: ChipSpec | None = None) -> RooflineReport:
+    """The a8 mode's row quantization (quantize_rows): x [M, K] read once
+    (x_bytes an element), x_q [M, K] int8 and x_scale [M] f32 written once;
+    3 M K float32 operations (the amax, the division, the rounding) outside
+    the tensor cores."""
+    return roofline(3.0 * m * k, m * k * (x_bytes + 1) + 4 * m, torch.float32, chip)
 
 
 def moe_roofline(t: int, hidden: int, intermediate: int, num_experts: int, top_k: int,

@@ -689,6 +689,69 @@ def test_quant_matmul_refuses_what_the_kernel_does_not_take(dev):
         quant_matmul.quant_matmul(randn((2, 96), torch.bfloat16, dev, 73), qw)
 
 
+# The a8 mode: the split-K kernel up to M 16 (1, 4, 7 and 16 take its three
+# row counts), the int8 tensor cores above it (17: one row past a tile;
+# 1000: a ragged last tile).
+QMM_A8_M = (1, 4, 7, 16, 17, 256, 1000)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m", QMM_A8_M)
+@pytest.mark.parametrize("kn", QMM_SHAPES)
+def test_quant_matmul_a8_kernel_equals_plain(dev, bits, m, kn, x_dtype):
+    """The a8 mode on the card equals its plain version bit for bit (int32
+    sums are exact and the f32 tail is the same), its quantization equals
+    quantize_rows_reference bit for bit, and a call counts one launch in
+    its kernel's counter, in the "_a8" one and in quantize_rows'."""
+    k, n = kn
+    qw = quant_matmul.quantize_weights(randn((k, n), torch.float32, dev, 76) * 0.02, bits)
+    x = randn((m, k), x_dtype, dev, 77)
+    names = (f"qmm{bits}", f"qmm{bits}_a8", "quantize_rows")
+    before = launch_counters.read()
+    for out_dtype in (None, torch.float32):
+        y = quant_matmul.quant_matmul(x, qw, out_dtype=out_dtype, quantize_activations=True)
+        torch.cuda.synchronize()
+        assert y.shape == (m, n) and y.dtype == (out_dtype or x_dtype)
+        assert torch.equal(y, quant_matmul.quant_matmul_reference(x, qw, out_dtype, True))
+    after = launch_counters.read()
+    assert {c: after[c] - before[c] for c in after if after[c] != before[c]} == {
+        c: 2 for c in names}
+    x_q, x_scale = quant_matmul.quantize_rows(x)
+    ref_q, ref_scale = quant_matmul.quantize_rows_reference(x)
+    assert torch.equal(x_q, ref_q) and torch.equal(x_scale, ref_scale)
+
+
+def test_quantize_rows_kernel_rounds_half_to_even(dev):
+    """Rows of amax 127 * 2^e (scale 2^e exactly) filled with (j + 0.5) 2^e,
+    a zero row and rows of random magnitude: the kernel's x_q and x_scale
+    equal the plain version's bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(78)
+    x = torch.randn((64, 512), generator=g, device=dev)
+    x *= torch.exp2(torch.empty((64, 1), device=dev).uniform_(-20, 20, generator=g))
+    x[1] = 0.0
+    j = torch.randint(-127, 127, (3, 512), generator=g, device=dev).float()
+    for r, e in enumerate((0, -3, 5)):
+        x[2 + r] = (j[r] + 0.5) * 2.0 ** e
+        x[2 + r, 0] = 127.0 * 2.0 ** e
+    for dtype in (torch.float32, torch.bfloat16):
+        got = quant_matmul.quantize_rows(x.to(dtype))
+        want = quant_matmul.quantize_rows_reference(x.to(dtype))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert got[1][2, 0] == 1.0 and got[1][1, 0] == torch.tensor(1e-10)
+
+
+def test_quant_matmul_a8_refuses_what_the_kernel_does_not_take(dev):
+    qw = quant_matmul.quantize_weights(randn((96, 64), torch.float32, dev, 72), 8)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        quant_matmul.quant_matmul(randn((2, 96), torch.bfloat16, dev, 73), qw,
+                                  quantize_activations=True)
+    qw = quant_matmul.quantize_weights(randn((128, 64), torch.float32, dev, 72), 8)
+    x = randn((2 * 128 + 4,), torch.bfloat16, dev, 73)[4:].view(2, 128)  # 8-byte offset
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        quant_matmul.quant_matmul(x, qw, quantize_activations=True)
+
+
 @pytest.mark.parametrize("quant", ["int8", "fp8"])
 @pytest.mark.parametrize("bits", [8, 4])
 def test_quantized_model_steps_on_card_match_cpu(dev, quant, bits):

@@ -87,14 +87,23 @@ def test_quant_matmul_bf16_and_f32_output_match_jax(bits):
 
 
 def test_a8_mode_raises_and_cpu_counts_no_launch():
+    """The a8 mode runs on the CPU (its plain version; the JAX comparisons
+    are in test_torch_quant_matmul_a8.py); a CPU call, a8 or not, counts
+    no launch; a wrong K and unknown bits raise. The name is historical:
+    the a8 mode raised before it had kernels, and no longer does."""
     qw = qmm.quantize_weights(torch.randn(64, 16), bits=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        qmm.quant_matmul(torch.randn(2, 64), qw, quantize_activations=True)
+    counters = ("QMM8_LAUNCHES", "QMM4_LAUNCHES", "QMM8_A8_LAUNCHES", "QMM4_A8_LAUNCHES",
+                "QUANTIZE_ROWS_LAUNCHES")
+    before = [getattr(qmm, c) for c in counters]
+    x = torch.randn(2, 64)
+    y = qmm.quant_matmul(x, qw, quantize_activations=True)
+    assert torch.equal(y, qmm.quant_matmul_reference(x, qw, quantize_activations=True))
+    assert y.shape == (2, 16) and y.dtype == torch.float32
     with pytest.raises(ValueError, match="K="):
         qmm.quant_matmul(torch.randn(2, 32), qw)
-    before = qmm.QMM8_LAUNCHES, qmm.QMM4_LAUNCHES
     qmm.quant_matmul(torch.randn(2, 64), qw)
-    assert (qmm.QMM8_LAUNCHES, qmm.QMM4_LAUNCHES) == before
+    qmm.quantize_rows(x)
+    assert [getattr(qmm, c) for c in counters] == before
     with pytest.raises(ValueError, match="bits"):
         qmm.quantize_weights(torch.randn(64, 16), bits=3)
 

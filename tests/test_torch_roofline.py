@@ -70,6 +70,16 @@ TABLE = [
      0.00175, 5, "bytes"),
     ("B8b M 256", lambda: roofline.quant_matmul_roofline(256, 2048, 5632, 4, chip=H100),
      0.00597, 5, "operations"),
+    ("B8a a8 M 4", lambda: roofline.quant_matmul_roofline(4, 2048, 5632, 8, a8=True,
+                                                          chip=H100), 0.00347, 5, "bytes"),
+    ("B8a a8 M 256", lambda: roofline.quant_matmul_roofline(256, 2048, 5632, 8, a8=True,
+                                                            chip=H100), 0.00462, 5, "bytes"),
+    ("B8b a8 M 256", lambda: roofline.quant_matmul_roofline(256, 2048, 5632, 4, a8=True,
+                                                            chip=H100), 0.00298, 5, "operations"),
+    ("B8a a8 LLAMA_8B M 256", lambda: roofline.quant_matmul_roofline(
+        256, 4096, 14336, 8, a8=True, chip=H100), 0.02036, 5, "bytes"),
+    ("B8b a8 LLAMA_8B M 256", lambda: roofline.quant_matmul_roofline(
+        256, 4096, 14336, 4, a8=True, chip=H100), 0.01519, 5, "operations"),
 ]
 
 
@@ -79,6 +89,30 @@ def test_h100_bounds_equal_the_kernel_table(row):
     r = report()
     assert round(r.bound_ms, decimals) == want and r.bound_by == by
     assert r.sol_seconds == max(r.compute_seconds, r.memory_seconds)
+
+
+@pytest.mark.parametrize("m,bits", [(4, 8), (256, 8), (256, 4), (1024, 4)])
+def test_a8_bound_counts_the_function_bytes_and_the_int8_peak(m, bits):
+    """The a8 mode's bound: the function's own bytes, the weight-only ones
+    (x read once as bf16; x_q and x_scale are the kernels' intermediates,
+    not counted); 2 M K N operations at the int8 peak, 1,979 TOP/s."""
+    k, n = 4096, 14336
+    a8 = roofline.quant_matmul_roofline(m, k, n, bits, a8=True, chip=H100)
+    plain = roofline.quant_matmul_roofline(m, k, n, bits, chip=H100)
+    assert a8.hbm_bytes == plain.hbm_bytes == 2 * m * k + k * n * bits // 8 + 4 * n + 2 * m * n
+    assert a8.flops == plain.flops == 2.0 * m * k * n
+    assert a8.compute_seconds == a8.flops / 1979e12
+    assert a8.memory_seconds == a8.hbm_bytes / 3350e9
+
+
+@pytest.mark.parametrize("m,x_bytes", [(4, 2), (256, 2), (256, 4)])
+def test_quantize_rows_bound_counts_its_bytes(m, x_bytes):
+    """quantize_rows' bound: x read once, x_q int8 and x_scale f32 written
+    once, bound by the bytes at LLAMA_1B's K."""
+    r = roofline.quantize_rows_roofline(m, 2048, x_bytes, chip=H100)
+    assert r.hbm_bytes == m * 2048 * (x_bytes + 1) + 4 * m
+    assert r.flops == 3.0 * m * 2048 and r.bound_by == "bytes"
+    assert r.memory_seconds == r.hbm_bytes / 3350e9
 
 
 def test_peaks_by_type_and_detect_chip_without_a_card():
